@@ -14,7 +14,25 @@ Phases, in order; any failure exits non-zero:
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
    wave and one timed wave, every layer of every pass through the kernel,
-   checked against a dense teacher-forced forward in bf16 and in fp32.
+   checked against a dense teacher-forced forward in bf16 and in fp32;
+6. hold the flash attention kernels (forward, dQ, dK/dV) against their plain
+   versions at the training shape (B 8, S 1024, H 16, D 128, causal, q, k, v
+   strided views of a head-major qkv) in bf16 and fp32, timed against their
+   bound and F.scaled_dot_product_attention; check GQA 16/4, a rectangular
+   causal case and S = 1000 untimed;
+7. hold the fused Adam kernel against its plain version on the GPT-1.3B
+   flagship's 9 eligible leaves (bf16 p, g and moments), check its stochastic
+   rounding, time it against its bound and torch.optim.AdamW(fused=True);
+8. train a tiny fp32 GPT 10 AdamW steps on the card and on the CPU: the
+   losses agree and the training kernels launched;
+9. train the GPT-1.3B flagship (bench.py's FLAGSHIP step: bf16 params, AdamW
+   lr 1e-4 with bf16 moments and stochastic rounding, default remat, a fixed
+   batch from RandomState(0)): 1 warm step and 5 timed steps, every launch
+   count required, then a profiled step;
+9b. exactness at full width: the fp32 loss and gradients of a 2-layer model,
+   and the bf16 loss and gradients of the flagship's first step and the
+   losses of its first 4 AdamW steps, on the kernel path against the plain
+   path (composed attention, plain Adam) on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -22,6 +40,7 @@ the per-kernel JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -34,12 +53,19 @@ import torch
 
 from paddle_tpu_torch.inference.serving import (ServingEngine, _block_math,
                                                 _embed, _head_logits, _qkv)
+from paddle_tpu_torch.kernels import flash_attention as FA
+from paddle_tpu_torch.kernels import fused_adam as FAD
 from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
 from paddle_tpu_torch.models import gpt as G
+from paddle_tpu_torch.nn.functional.flash_attention import _sdpa_reference
+from paddle_tpu_torch.observability import flops as FL
+from paddle_tpu_torch.optimizer import optimizer as O
+from paddle_tpu_torch.optimizer.optimizer import AdamW
 
 # published H100 SXM peaks at its 700 W power limit (the bound_ms basis)
 HBM_BYTES_PER_S = 3.35e12      # device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 KERNEL_TOL = 1e-2              # max-abs err / max-abs ref (test_ragged_serving)
 TIMING_RUNS = 30
 # device-side sleep before each timed call, in clock cycles (milliseconds at
@@ -51,6 +77,13 @@ FULL = dict(vocab_size=32768, hidden_size=2048, num_layers=24, num_heads=16,
 FULL_ENGINE = dict(max_batch=8, block_size=32, num_blocks=200,
                    max_blocks_per_seq=20, chunk=128, decode_burst=32,
                    ragged=True)
+TRAIN = dict(FULL, batch=8, seq=1024)   # bench.py FLAGSHIP
+TRAIN_TIMED_STEPS = 5
+TRAJECTORY_STEPS = 4          # phase 9b: kernel path vs plain path
+# flash kernel vs plain tolerances (out, grads) on the worst tile's
+# ||got - ref|| / ||ref|| (tile_rel_err): fp32 summation order, bf16
+# rounding of the outputs and of the tensor-core operands
+FLASH_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
 DEV = "cuda"
 
 
@@ -465,6 +498,579 @@ def full_width_fp32_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 6: flash attention kernels vs plain
+# ---------------------------------------------------------------------------
+def visible_pairs(sq, sk, causal):
+    """(query, key) pairs the causal rule leaves visible (all if not)."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(max(i + off + 1, 0), sk) for i in range(sq))
+
+
+def flash_bounds(B, sq, sk, H, Hkv, D, causal, dtype):
+    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once,
+    each output written once, against 4 D (forward), 6 D (dQ: s, dp, dq)
+    and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible pair, at the dtype's
+    peak (bf16 tensor cores, or fp32 outside them)."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    qn, kn, rows = B * sq * H * D, B * sk * Hkv * D, B * H * sq
+    pairs = visible_pairs(sq, sk, causal) * B * H
+    work = {"flash_fwd": ((2 * qn + 2 * kn) * it + 4 * rows, 4 * D * pairs),
+            "flash_bwd_dq": ((4 * qn + 2 * kn) * it + 8 * rows,
+                             6 * D * pairs),
+            "flash_bwd_dkv": ((2 * qn + 4 * kn) * it + 8 * rows,
+                              8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
+                     nbytes, flops)
+    return out
+
+
+def flash_case(B, sq, sk, H, Hkv, D, dtype, seed):
+    """q, k, v as the model gives them (strided views of one head-major
+    qkv [B, S, H, 3, D] when the shapes allow), and dO."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    if sq == sk and H == Hkv:
+        qkv = rnd(B, sq, H, 3, D)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    else:
+        q, k, v = rnd(B, sq, H, D), rnd(B, sk, Hkv, D), rnd(B, sk, Hkv, D)
+    return q, k, v, rnd(B, sq, H, D)
+
+
+def _rel_err(got, ref):
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1.0)
+
+
+def tile_rel_err(got, ref, rows=64):
+    """The worst ||got - ref|| / ||ref|| over the (batch, 64-row tile,
+    head) slabs of [B, S, H, D] tensors: every tile of every head is held
+    to its own size, so a kernel that drops or corrupts one tile fails
+    however small that tile's values are beside the largest (0 where both
+    slabs are zero, inf where only ref's is)."""
+    r = ref.float()
+    d = got.float() - r
+    pad = -d.shape[1] % rows
+    d, r = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (d, r))
+    B, S, H, D = d.shape
+    dd, rr = (t.reshape(B, S // rows, rows, H, D).square().sum((2, 4))
+              for t in (d, r))
+    ratio = torch.where(rr > 0, (dd / rr.clamp_min(1e-30)).sqrt(),
+                        torch.where(dd > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
+def check_flash_case(name, shape, causal, dtype, card):
+    B, sq, sk, H, Hkv, D = shape
+    q, k, v, do = flash_case(B, sq, sk, H, Hkv, D, dtype, seed=sq + sk + H)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = FA.flash_fwd(q, k, v, causal, scale)
+    dq, delta = FA.flash_bwd_dq(q, k, v, out, lse, do, causal, scale)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
+    torch.cuda.synchronize()
+    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale)
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, out, lse, do, causal,
+                                          scale)
+    tol_o, tol_g = FLASH_TOL[dtype]
+    live = lse_p > -1e29
+    require(torch.equal(live, lse > -1e29), f"{name}: dead rows differ")
+    err, rel = _rel_err(lse[live], lse_p[live])
+    log(f"{name} lse: max_abs_err {err:.3e} rel {rel:.3e} (tol 1e-5)")
+    require(rel <= 1e-5, f"{name}: lse rel err {rel} > 1e-5")
+    rec = {"lse": err}
+    for what, got, ref, tol in (("out", out, out_p, tol_o),
+                                ("dq", dq, dq_p, tol_g), ("dk", dk, dk_p, tol_g),
+                                ("dv", dv, dv_p, tol_g)):
+        require(torch.isfinite(got.float()).all(), f"{name}: {what} not finite")
+        err, _ = _rel_err(got, ref)
+        tile = tile_rel_err(got, ref)
+        log(f"{name} {what}: worst tile L2 rel err {tile:.3e} (tol {tol}); "
+            f"max_abs_err {err:.3e}")
+        require(tile <= tol, f"{name}: {what} tile L2 rel err {tile} > {tol}")
+        rec[what] = err
+        rec[what + "_tile"] = tile
+    if card is None:
+        return rec
+    bounds = flash_bounds(B, sq, sk, H, Hkv, D, causal, dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    gqa = H != Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o_lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+    do_t = do.transpose(1, 2).contiguous()
+    times = {
+        "flash_fwd": (
+            cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale)),
+            cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, causal, scale)),
+            cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                 enable_gqa=gqa))),
+        "flash_bwd_dq": (
+            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, out, lse, do, causal,
+                                            scale)), None, None),
+        "flash_bwd_dkv": (
+            cuda_ms(lambda: FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal,
+                                             scale)), None, None),
+    }
+    # the plain backward and the library backward compute dq, dk and dv in
+    # one call: both backward kernels are held against that one time
+    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(q, k, v, out, lse, do,
+                                                   causal, scale))
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        times[kname] = (times[kname][0], plain_bwd, lib_bwd)
+    errs = {"flash_fwd": rec["out"], "flash_bwd_dq": rec["dq"],
+            "flash_bwd_dkv": max(rec["dk"], rec["dv"])}
+    recs = {}
+    for kname, (kern, plain, lib) in times.items():
+        bound, by, nbytes, flops = bounds[kname]
+        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
+            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{flops} FLOP) kernel/bound {kern / bound:.1f}x  [{card}]")
+        recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, bound_by=by,
+                           bytes=nbytes, flops=flops)
+    log(f"{name}: plain and library backward times cover dq, dk and dv "
+        f"together; flash_bwd_dq + flash_bwd_dkv = "
+        f"{times['flash_bwd_dq'][0] + times['flash_bwd_dkv'][0]:.4f} ms")
+    return recs
+
+
+def flash_phase(card):
+    B, S, H, D = TRAIN["batch"], TRAIN["seq"], FULL["num_heads"], \
+        FULL["hidden_size"] // FULL["num_heads"]
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        recs[tag] = check_flash_case(
+            f"(a) {tag} B={B} S={S} H={H} D={D} causal", (B, S, S, H, H, D),
+            True, dtype, card)
+        torch.cuda.empty_cache()
+    check_flash_case("(b) GQA 16/4 bf16", (2, S, S, H, 4, D), True,
+                     torch.bfloat16, None)
+    check_flash_case("(c) rectangular causal sq 256 sk 1024 bf16",
+                     (2, 256, S, H, H, D), True, torch.bfloat16, None)
+    check_flash_case("(d) S=1000 bf16", (2, 1000, 1000, H, H, D), True,
+                     torch.bfloat16, None)
+    check_flash_case("(e) S=1000 fp32 non-causal", (2, 1000, 1000, H, H, D),
+                     False, torch.float32, None)
+    torch.cuda.empty_cache()
+    return recs["bf16"]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: fused Adam vs plain
+# ---------------------------------------------------------------------------
+def flat_leaves(tree, prefix=""):
+    out = []
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        out += flat_leaves(v, name) if isinstance(v, dict) else [(name, v)]
+    return out
+
+
+def unflatten(names, values):
+    tree = {}
+    for name, v in zip(names, values):
+        node = tree
+        *head, last = name.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+def flagship_shapes():
+    """The flagship's leaf shapes (meta tensors: nothing allocated)."""
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    return [(n, tuple(t.shape))
+            for n, t in flat_leaves(G.init_hybrid_params(cfg, 0, "meta"))]
+
+
+ADAM = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=0.01)
+ADAM_FLOPS_PER_ELEMENT = 17   # m1 3, m2 4, update 5, step 2, decay 3
+
+
+def adam_phase(card):
+    dev = torch.device(DEV)
+    shapes = [(n, s) for n, s in flagship_shapes()
+              if FAD.supported(torch.empty(s, device="meta"),
+                               torch.empty(s, device="meta"),
+                               {"moment1": torch.empty(s, device="meta"),
+                                "moment2": torch.empty(s, device="meta")})]
+    log(f"eligible leaves ({len(shapes)}): {shapes}")
+    require(len(shapes) == 9, "the flagship has 9 leaves for the fused kernel")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+    leaves = []
+    for _, s in shapes:
+        g = rnd(s, 1e-3)
+        leaves.append((rnd(s, 0.02), g, {"moment1": rnd(s, 1e-3),
+                                         "moment2": rnd(s, 1e-3).square()}))
+    n = sum(p.numel() for p, _, _ in leaves)
+
+    # SR off: kernel == plain to one bf16 ulp, leaf by leaf
+    worst = 0.0
+    for (name, _), (p, g, slot) in zip(shapes, leaves):
+        kp, ks = p.clone(), {k: v.clone() for k, v in slot.items()}
+        pp, ps = p.clone(), {k: v.clone() for k, v in slot.items()}
+        FAD.adam_update(kp, g, ks, 1e-4, 1, None, **ADAM)
+        FAD.adam_update_plain(pp, g, ps, 1e-4, 1, None, **ADAM)
+        for got, ref in [(kp, pp)] + [(ks[k], ps[k]) for k in ks]:
+            d = (got.float() - ref.float()).abs()
+            ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+            require(bool((d <= ulp).all()), f"adam {name}: beyond 1 bf16 ulp")
+            worst = max(worst, d.max().item())
+        del kp, ks, pp, ps
+    log(f"SR off: all {len(shapes)} leaves within 1 bf16 ulp of the plain "
+        f"version (max_abs_err {worst:.3e})")
+
+    # SR on: every m2 one of the two bf16 neighbours; unbiased over repeats
+    p, g, slot = leaves[1]                                # wpe [1024, 2048]
+    exact = {k: v.float() for k, v in slot.items()}
+    FAD.adam_update_plain(p.clone(), g, exact, 1e-4, 1, None, **ADAM)
+    x = exact["moment2"]
+    lo = (x.view(torch.int32) & -65536).view(torch.float32)
+    hi = (lo.view(torch.int32) + 65536).view(torch.float32)
+    mean = torch.zeros_like(x)
+    repeats = 8
+    for r in range(repeats):
+        ks = {k: v.clone() for k, v in slot.items()}
+        FAD.adam_update(p.clone(), g, ks, 1e-4, 1, (r, 1), **ADAM)
+        m2 = ks["moment2"].float()
+        require(bool(((m2 == lo) | (m2 == hi)).all()),
+                "SR: a moment2 is not a bf16 neighbour of its fp32 value")
+        mean += m2 / repeats
+    bias = ((mean - x).mean() / (hi - lo).mean()).item()
+    log(f"SR on: {x.numel()} elements x {repeats} seeds, every m2 a bf16 "
+        f"neighbour; mean bias {bias:+.2e} ulp (bound 5e-3)")
+    require(abs(bias) < 5e-3, f"SR biased: {bias} ulp")
+
+    def step_kernel():
+        for i, (p, g, slot) in enumerate(leaves):
+            FAD.adam_update(p, g, slot, 1e-4, 1, (1, i), **ADAM)
+
+    def step_plain():
+        for p, g, slot in leaves:
+            FAD.adam_update_plain(p, g, slot, 1e-4, 1, None, **ADAM)
+
+    kern = cuda_ms(step_kernel, runs=10)
+    kern_nosr = cuda_ms(lambda: [FAD.adam_update(p, g, s, 1e-4, 1, None,
+                                                 **ADAM)
+                                 for p, g, s in leaves], runs=10)
+    plain = cuda_ms(step_plain, runs=5, warmup=1)
+    params = [p for p, _, _ in leaves]
+    for p, g, _ in leaves:
+        p.grad = g
+    lib_opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01,
+                                fused=True)
+    lib = cuda_ms(lib_opt.step, runs=10)
+    nbytes = n * 14            # read p, g, m1, m2; write p, m1, m2 (bf16)
+    flops = n * ADAM_FLOPS_PER_ELEMENT
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    bound, by = max(tb, to), "bytes" if tb >= to else "operations"
+    log(f"fused adam over {len(leaves)} leaves ({n} elements, bf16): "
+        f"kernel_ms {kern:.4f} (SR on; {kern_nosr:.4f} SR off) plain_ms "
+        f"{plain:.4f} (SR off) library_ms {lib:.4f} "
+        f"(torch.optim.AdamW(fused=True)) bound_ms {bound:.4f} ({by}: "
+        f"{nbytes} B, {flops} FLOP) kernel/bound {kern / bound:.2f}x  [{card}]")
+    del leaves, params, lib_opt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=kern, ms_sr_off=kern_nosr,
+                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops, elements=n)
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9b: training
+# ---------------------------------------------------------------------------
+def loss_and_grads(params, tokens, labels, cfg, **kw):
+    names, leaves = zip(*flat_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = G.dense_loss(params, tokens, labels, cfg, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), unflatten(names, grads)
+
+
+def train_step(opt, params, state, tokens, labels, cfg):
+    loss, grads = loss_and_grads(params, tokens, labels, cfg)
+    opt.apply(params, grads, state)
+    return loss
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The plain path on the card: the composed attention (_sdpa_reference)
+    in place of the flash kernels, and the fused leaves' plain Adam
+    (adam_update_plain, noise drawn from the same per-leaf seed) in place
+    of the Adam kernel."""
+    def attention(qkv):
+        return _sdpa_reference(qkv[:, :, :, 0], qkv[:, :, :, 1],
+                               qkv[:, :, :, 2], is_causal=True)
+
+    def adam(p, g, slot, lr, step, seed, **kw):
+        sr = seed is not None and slot["moment2"].dtype == torch.bfloat16
+        noise = FAD.sr_noise(p.shape, seed, p.device) if sr else None
+        return FAD.adam_update_plain(p, g, slot, lr, step, noise, **kw)
+    orig = G._attention, O.adam_update
+    G._attention, O.adam_update = attention, adam
+    try:
+        yield
+    finally:
+        G._attention, O.adam_update = orig
+
+
+def plain_loss_and_grads(params, tokens, labels, cfg, **kw):
+    with plain_path():
+        return loss_and_grads(params, tokens, labels, cfg, **kw)
+
+
+def reset_training_counts():
+    for fn in (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
+               FAD.adam_update):
+        fn.LAUNCHES = 0
+
+
+def training_counts():
+    return dict(flash_fwd=FA.flash_fwd.LAUNCHES,
+                flash_bwd_dq=FA.flash_bwd_dq.LAUNCHES,
+                flash_bwd_dkv=FA.flash_bwd_dkv.LAUNCHES,
+                fused_adam=FAD.adam_update.LAUNCHES)
+
+
+def tiny_trainer_phase():
+    cfg = G.GPTConfig(vocab_size=128, hidden_size=128, num_layers=2,
+                      num_heads=2, max_seq_len=64, dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, 128, (4, 64)))
+    labels = torch.from_numpy(rng.randint(0, 128, (4, 64)))
+
+    def run(dev):
+        params = G.init_hybrid_params(cfg, 0, "cpu")
+        params = unflatten(*zip(*[(n, t.to(dev))
+                                  for n, t in flat_leaves(params)]))
+        opt = AdamW(3e-3)
+        state = opt.init_state(params)
+        return [train_step(opt, params, state, tokens.to(dev),
+                           labels.to(dev), cfg).item() for _ in range(10)]
+
+    reset_training_counts()
+    card_losses = run(DEV)
+    counts = training_counts()
+    cpu_losses = run("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    log(f"card: {[round(x, 6) for x in card_losses]}\ncpu:  "
+        f"{[round(x, 6) for x in cpu_losses]}\nmax rel diff {rel:.2e} "
+        f"(tol 1e-4: fp32 sums in another order); card launches {counts}")
+    require(rel <= 1e-4, f"tiny trainer: card and CPU losses differ by {rel}")
+    require(card_losses[-1] < card_losses[0], "tiny trainer: loss not falling")
+    require(all(v > 0 for v in counts.values()),
+            f"a training kernel did not launch: {counts}")
+
+
+def _kernel_class_train(name):
+    if "flash_" in name:
+        return "flash"
+    if "fused_adam" in name:
+        return "adam"
+    if any(w in name.lower() for w in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "gemm"
+    return "other"
+
+
+def profile_train_step(step, card):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in device)
+    ops = sum(e.count for e in device)
+    by_class = {}
+    for e in device:
+        c = _kernel_class_train(e.key)
+        by_class[c] = by_class.get(c, 0) + e.self_device_time_total
+    share = busy_us / 1e3 / (wall * 1e3)
+    log(f"profiled step: wall {wall * 1e3:.1f} ms (under the profiler), "
+        f"device busy {busy_us / 1e3:.1f} ms = {share:.1%} (idle "
+        f"{1 - share:.1%}); {ops} device operations  [{card}]")
+    log("device time by class: " + ", ".join(
+        f"{c} {t / 1e3:.1f} ms ({t / busy_us:.1%})"
+        for c, t in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    log(events.table(sort_by="self_device_time_total", row_limit=15,
+                     max_name_column_width=60))
+    return dict(profile_wall_ms=wall * 1e3, device_busy_share=share,
+                device_ops_per_step=ops,
+                device_ms_by_class={c: t / 1e3 for c, t in by_class.items()})
+
+
+def flagship_batch(cfg):
+    rng = np.random.RandomState(0)                      # bench.py:70-72
+    shape = (TRAIN["batch"], TRAIN["seq"])
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).to(DEV)
+    return tokens, labels
+
+
+def compare_grads(tag, got, ref, tol_rel, stat):
+    """Per-leaf gradient agreement: stat "max" is max-abs err / max-abs ref,
+    "l2" is ||got - ref|| / ||ref||."""
+    worst = (0.0, "")
+    for (name, g), (_, r) in zip(flat_leaves(got), flat_leaves(ref)):
+        g, r = g.float(), r.float()
+        require(torch.isfinite(g).all(), f"{tag}: {name} grad not finite")
+        if stat == "max":
+            rel = ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        else:
+            rel = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+        worst = max(worst, (rel, name))
+    log(f"{tag}: worst per-leaf grad {stat} rel err {worst[0]:.3e} "
+        f"({worst[1]}; tol {tol_rel})")
+    require(worst[0] <= tol_rel, f"{tag}: {worst[1]} grad rel err "
+            f"{worst[0]} > {tol_rel}")
+    return worst[0]
+
+
+def flagship_train_phase(card):
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    params = G.init_hybrid_params(cfg, 0, DEV)
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_state(params)
+    tokens, labels = flagship_batch(cfg)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [train_step(opt, params, state, tokens, labels, cfg)]   # warm
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    # main path: the counts go to 0 just before and are read just after
+    reset_training_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        losses.append(train_step(opt, params, state, tokens, labels, cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = training_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    ms = wall * 1e3 / TRAIN_TIMED_STEPS
+    tok_s = TRAIN["batch"] * TRAIN["seq"] * TRAIN_TIMED_STEPS / wall
+    fpt = FL.gpt_flops_per_token(cfg, TRAIN["seq"], params=params)["model"]
+    mfu = FL.mfu(tok_s, fpt, FL.peak_flops(torch.cuda.get_device_name(0)))
+    log(f"warm step {warm:.2f} s; {TRAIN_TIMED_STEPS} timed steps: "
+        f"{ms:.1f} ms/step, {tok_s:.1f} tokens/s, MFU {mfu:.2%} "
+        f"({fpt:.4g} FLOP/token model, 989 TFLOP/s bf16 peak); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
+    log(f"losses (warm, then timed): {losses}")
+    log(f"launches in the timed steps: {counts}; per step expected "
+        f"flash_fwd {L} (default remat keeps out and lse), flash_bwd_dq {L}, "
+        f"flash_bwd_dkv {L}, fused_adam 9")
+    # not "every loss below the one before": Adam's first steps move every
+    # weight by about lr, and at this depth and width the loss rises once
+    # (third step) before it falls, on the plain path as on the kernel path;
+    # phase 9b holds the trajectory to the plain path's step by step, and
+    # tests/test_torch_gpt_training.py holds this step's bf16 optimizer at
+    # this width (one layer) to the JAX package's
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    require(losses[-1] < losses[0] - 0.5,
+            "the loss is not falling on the repeated batch")
+    want = dict(flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=9)
+    for k, per_step in want.items():
+        require(counts[k] == per_step * TRAIN_TIMED_STEPS,
+                f"{k}: {counts[k]} launches in {TRAIN_TIMED_STEPS} steps, "
+                f"expected {per_step} per step")
+    profile = profile_train_step(
+        lambda: train_step(opt, params, state, tokens, labels, cfg), card)
+    del params, state, opt
+    torch.cuda.empty_cache()
+    return dict(tokens_per_s=tok_s, ms_per_step=ms, mfu=mfu, peak_bytes=peak,
+                losses=losses, launches=counts, warm_s=warm, **profile)
+
+
+def exactness_phase():
+    # fp32, full width, 2 layers: kernel path vs plain path on the card
+    cfg = G.GPTConfig(**dict(FULL, num_layers=2), dtype=torch.float32,
+                      param_dtype=torch.float32)
+    params = G.init_hybrid_params(cfg, 0, DEV)
+    tokens, labels = flagship_batch(cfg)
+    loss_k, g_k = loss_and_grads(params, tokens, labels, cfg)
+    loss_p, g_p = plain_loss_and_grads(params, tokens, labels, cfg)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"fp32 2-layer: loss kernel {loss_k.item():.7f} plain "
+        f"{loss_p.item():.7f} rel {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, f"fp32 2-layer loss rel err {rel}")
+    fp32_worst = compare_grads("fp32 2-layer", g_k, g_p, 1e-3, "max")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    # bf16, full depth: the flagship's first TRAJECTORY_STEPS steps from one
+    # init on the kernel path (default remat) and on the plain path (full
+    # remat keeps its S^2 scores per block), each with its own AdamW: the
+    # first step's loss and gradients, then every step's loss
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    pk = G.init_hybrid_params(cfg, 0, DEV)
+    pp = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+              else v.clone()) for k, v in pk.items()}
+    ok, op = (AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+              for _ in range(2))
+    sk, sp = ok.init_state(pk), op.init_state(pp)
+    traj_k, traj_p, bf16_worst = [], [], None
+    for step in range(TRAJECTORY_STEPS):
+        loss_k, g_k = loss_and_grads(pk, tokens, labels, cfg)
+        loss_p, g_p = plain_loss_and_grads(pp, tokens, labels, cfg,
+                                           remat_save=())
+        if step == 0:
+            rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            log(f"bf16 full depth, first step: loss kernel "
+                f"{loss_k.item():.5f} plain {loss_p.item():.5f} rel "
+                f"{rel:.2e} (tol 1e-3)")
+            require(rel <= 1e-3, f"bf16 loss rel err {rel}")
+            bf16_worst = compare_grads("bf16 full depth", g_k, g_p, 5e-2,
+                                       "l2")
+        ok.apply(pk, g_k, sk)
+        with plain_path():
+            op.apply(pp, g_p, sp)
+        traj_k.append(loss_k.item())
+        traj_p.append(loss_p.item())
+        del g_k, g_p
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p))
+    log(f"bf16 full depth, {TRAJECTORY_STEPS} AdamW steps: kernel path "
+        f"{traj_k}\n  plain path {traj_p}\n  max rel diff {traj_rel:.2e} "
+        f"(tol 1e-2: bf16 rounding of two attention paths, SR noise "
+        f"from two generators)")
+    require(traj_rel <= 1e-2, f"bf16 trajectories differ by {traj_rel}")
+    del pk, pp, sk, sp
+    torch.cuda.empty_cache()
+    return dict(fp32_grad_max_rel=fp32_worst, bf16_grad_l2_rel=bf16_worst,
+                bf16_trajectory_kernel=traj_k, bf16_trajectory_plain=traj_p)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -517,22 +1123,55 @@ def main() -> int:
     full_width_fp32_phase()
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("6. flash attention kernels vs plain on the card")
+    flash = flash_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("7. fused Adam vs plain on the card")
+    adam = adam_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("8. tiny fp32 trainer: card vs CPU")
+    tiny_trainer_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("9. GPT-1.3B flagship training, bf16")
+    train = flagship_train_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("9b. exactness at full width: kernel path vs plain path")
+    exact = exactness_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
-    log('kernels: ["ragged_paged_attention"]')
-    kernel = dict(
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    ragged = dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:121",
-        launches=full["launches"], max_abs_err=rec_dec["max_abs_err"],
-        ms=rec_dec["ms"], plain_ms=rec_dec["plain_ms"],
-        bound_ms=rec_dec["bound_ms"], bound_by=rec_dec["bound_by"],
-        library_ms=rec_dec["library_ms"],
+        launches=full["launches"], **{k: rec_dec[k] for k in keys},
         shape="decode R=8 H=16 D=128 bs=32 bf16, kv_len 100..640",
-        mixed={k: rec_mixed[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")},
-        serving=full)
-    log(json.dumps({"kernels": [kernel]}))
+        mixed={k: rec_mixed[k] for k in keys}, serving=full)
+    shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
+    fa = "paddle_tpu/kernels/pallas/flash_attention.py"
+    kernels = [ragged] + [
+        dict(name=name, route="cuda", source=src, replaces=rep,
+             launches=train["launches"][name],
+             **{k: flash[name][k] for k in keys}, shape=shape)
+        for name, src, rep in (
+            ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+             f"{fa}:451"),
+            ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             f"{fa}:747"),
+            ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             f"{fa}:796"))]
+    kernels.append(dict(
+        name="fused_adam", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_adam.cu",
+        replaces="paddle_tpu/kernels/pallas/fused_adam.py:101",
+        launches=train["launches"]["fused_adam"],
+        **{k: adam[k] for k in keys},
+        shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
+        ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact))
+    log(f"kernels: {[k['name'] for k in kernels]}")
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

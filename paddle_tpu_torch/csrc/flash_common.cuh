@@ -1,0 +1,210 @@
+// Shared pieces of the flash attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): tile sizes, the argument block, tile loads and the
+// visibility rule.
+//
+// Layouts. q, k, v, o and dO arrive as [B, S, H, D] views with element
+// strides (batch, seq, head) and a unit stride over D, so the model's
+// head-major qkv [B, S, H, 3, D] is read in place with no transpose copy.
+// out, dq, dk and dv are written contiguous [B, S, H, D]; lse and delta are
+// fp32 [B, H, Sq].
+//
+// Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
+// thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
+// of a score tile, and rows ty + 16 i, columns tx + 16 c (c < D / 16) of an
+// output tile, so a row's 16 owners are one half-warp and a row reduction
+// is four shuffles. Shared-memory rows that are read by 16 threads at one
+// column are padded to D + 1 floats, which puts those reads on 16 banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace ptt_flash {
+
+constexpr int kTile = 64;      // queries and keys per tile
+constexpr int kThreads = 256;  // a 16 x 16 thread grid
+constexpr float kNegInf = -1e30f;
+
+struct View {  // element strides of a [B, S, H, D] view, D stride 1
+  long long b, s, h;
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  void* out;
+  float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  View vq, vk, vv, vo, vdo;
+  int B, Sq, Sk, H, Hkv;
+  float scale;
+  int causal;
+};
+
+// Rows row0 .. row0 + 63 of one (batch, head) fp32 slab -> shared memory
+// with row stride ld; rows at or past n_rows are zero (a zero V row times
+// p = 0 must not make a NaN). 16-byte loads: D * 4 and the strides are 16-byte
+// multiples and the base is 16-byte aligned (checked by the C entries).
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base, long long row_stride,
+                                          int row0, int n_rows, float* dst, int ld) {
+  constexpr int kPerRow = D / 4;
+  for (int e = threadIdx.x; e < kTile * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, cv = e % kPerRow;
+    float* d = dst + r * ld + cv * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_rows)
+      x = __ldg(reinterpret_cast<const float4*>(base + (row0 + r) * row_stride) + cv);
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
+  }
+}
+
+// Key kpos is visible to query qpos: both in range and, under causal
+// masking, kpos <= qpos + (Sk - Sq) (bottom-right aligned, as the reference's
+// _mask_scores).
+__device__ __forceinline__ bool visible(int qpos, int kpos, const Args& a) {
+  return qpos < a.Sq && kpos < a.Sk && (!a.causal || kpos <= qpos + a.Sk - a.Sq);
+}
+
+// Keys [0, key_end) can be visible to queries [q0, q0 + 64): the loop bound
+// that skips the tiles past the causal diagonal.
+__device__ __forceinline__ int key_end(int q0, const Args& a) {
+  if (!a.causal) return a.Sk;
+  const int last = q0 + kTile + a.Sk - a.Sq;  // one past the tile's last visible key
+  return last <= 0 ? 0 : (last < a.Sk ? last : a.Sk);
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core pieces (warp-level WMMA, bf16 in, fp32 accumulate).
+//
+// A bf16 tile lives in shared memory as [64][D + 8] (rows 16-byte aligned, a
+// 16-row step a multiple of 32 bytes, as load_matrix_sync needs). Eight warps
+// share a product: warp w owns the 16-row block w % 4 and half of the 16-wide
+// column blocks, (w / 4) * n + j for j < n.
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+template <int D>
+__host__ __device__ constexpr int tc_ld() { return D + 8; }   // bf16 [64][D] tile row stride
+constexpr int kLdS = kTile + 4;           // fp32 [64][64] score tile row stride
+constexpr int kLdP = kTile + 8;           // bf16 [64][64] probability tile row stride
+
+// Rows row0 .. row0 + 63 of one (batch, head) slab -> shared bf16 with row
+// stride ld, copied as 16-byte words; rows at or past n_rows are zero.
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(const bf16* __restrict__ base, long long row_stride,
+                                               int row0, int n_rows, bf16* dst, int ld) {
+  constexpr int kPerRow = D / 8;
+  for (int e = threadIdx.x; e < kTile * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, cv = e % kPerRow;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows)
+      val = __ldg(reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride) + cv);
+    *reinterpret_cast<uint4*>(dst + r * ld + cv * 8) = val;
+  }
+}
+
+// C[64][64] (fp32, row stride kLdS) = A[64][D] . B[64][D]^T, both bf16 with
+// row stride tc_ld<D>(): the score tile q k^T (or dO v^T).
+template <int D>
+__device__ __forceinline__ void mma_abt_64x64(const bf16* A, const bf16* Bm, float* C) {
+  constexpr int ld = tc_ld<D>();
+  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * 2;
+  FragC c[2];
+  wmma::fill_fragment(c[0], 0.f);
+  wmma::fill_fragment(c[1], 0.f);
+#pragma unroll
+  for (int k = 0; k < D; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+    wmma::load_matrix_sync(fa, A + rb * 16 * ld + k, ld);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      // B^T as a column-major matrix: element (k', n) is Bm[n * ld + k']
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fb, Bm + (cb0 + j) * 16 * ld + k, ld);
+      wmma::mma_sync(c[j], fa, fb, c[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(C + rb * 16 * kLdS + (cb0 + j) * 16, c[j], kLdS, wmma::mem_row_major);
+}
+
+// acc += A . B with A a bf16 [64][64] tile of row stride kLdP (transposed
+// first when LayoutA is col_major: A^T . B) and B a bf16 [64][D] tile of row
+// stride tc_ld<D>(); acc holds this warp's D / 32 16 x 16 blocks of the
+// [64][D] result.
+template <int D, typename LayoutA>
+__device__ __forceinline__ void mma_ab_64xD(const bf16* A, const bf16* Bm, FragC (&acc)[D / 32]) {
+  constexpr int ld = tc_ld<D>(), n = D / 32;
+  constexpr bool kTrans = std::is_same<LayoutA, wmma::col_major>::value;
+  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * n;
+#pragma unroll
+  for (int k = 0; k < kTile; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
+    wmma::load_matrix_sync(fa, kTrans ? A + rb * 16 + k * kLdP : A + rb * 16 * kLdP + k, kLdP);
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, Bm + k * ld + (cb0 + j) * 16, ld);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+}
+
+// Stores this warp's blocks of a [64][D] accumulator into fp32 shared memory
+// of row stride D + 4.
+template <int D>
+__device__ __forceinline__ void store_64xD(float* C, const FragC (&acc)[D / 32]) {
+  constexpr int n = D / 32;
+  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * n;
+#pragma unroll
+  for (int j = 0; j < n; ++j)
+    wmma::store_matrix_sync(C + rb * 16 * (D + 4) + (cb0 + j) * 16, acc[j], D + 4,
+                            wmma::mem_row_major);
+}
+
+// Common checks of the C entries: D in {64, 128}; 16-byte aligned bases
+// and strides (in bytes).
+inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+inline bool aligned(const View& v, int itemsize) {
+  return (v.b * itemsize) % 16 == 0 && (v.s * itemsize) % 16 == 0 && (v.h * itemsize) % 16 == 0;
+}
+inline bool head_dim_ok(int D) { return D == 64 || D == 128; }
+inline View view_from(const long long* s) { return View{s[0], s[1], s[2]}; }
+
+// Raise a kernel's dynamic shared-memory cap once, when it needs more than 48 KB.
+template <typename K>
+inline cudaError_t allow_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace ptt_flash

@@ -85,3 +85,7 @@ define_flag("serving_kv_cache_dtype", "auto",
 define_flag("serving_adaptive_mix", True,
             "Adapt the per-step prefill/decode mix from the queue-depth and "
             "TTFT series of the engine's Prometheus registry.")
+define_flag("bf16_stochastic_rounding_moments", True,
+            "Stochastically round bf16 Adam moment2 stores (consumed by "
+            "optimizer._store_moment and the fused Adam kernel; nearest "
+            "rounding freezes the beta2 EMA below bf16 ulp).")

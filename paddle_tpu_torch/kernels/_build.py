@@ -2,10 +2,12 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 The ``*.cu`` sources under ``paddle_tpu_torch/csrc/`` are compiled for
-``sm_90a`` by one ``nvcc -shared`` into
+``sm_90a``, one ``nvcc -c`` per source, all started together, and linked by
+one ``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
-hash covers the sources and the flags, so a checkout builds at first use and
-reuses the library after that. Nothing here runs at import time.
+hash covers the sources, the headers and the flags, so a checkout builds at
+first use and reuses the library after that. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libpaddle_tpu_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-lineinfo", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -67,17 +70,41 @@ def build_library() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, *map(str, _sources()), "-o", str(tmp)]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
+    jobs = []
+    try:
+        for src in _sources():
+            obj = out_dir / f"{src.stem}.{pid}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+            outputs.append(out)
+    finally:
+        for _, _, proc in jobs:   # a failed source stops the rest
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out_dir / (LIB_NAME + f".tmp{pid}")
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", *(str(o) for _, o, _ in jobs),
+           "-o", str(tmp)]
     res = subprocess.run(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                            f"{' '.join(cmd)}\n{res.stdout}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    BUILD_LOG.update(seconds=time.perf_counter() - t0, output=res.stdout,
-                     cached=False)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0,
+                     output="\n".join(outputs + [res.stdout]), cached=False)
     return lib
 
 
@@ -90,9 +117,25 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build_library()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.ptt_ragged_paged_attention
-    fn.argtypes = [vp] * 7 + [ci] * 8 + [cf, ci, vp]
-    fn.restype = ci
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    signatures = {
+        "ptt_ragged_paged_attention": [vp] * 7 + [ci] * 8 + [cf, ci, vp],
+        # q, k, v, out, lse, strides, B, Sq, Sk, H, Hkv, D, scale, causal,
+        # dtype, stream
+        "ptt_flash_fwd": [vp] * 5 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
+        # q, k, v, o, dO, lse, delta, dq, strides, ...
+        "ptt_flash_bwd_dq": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
+        # q, k, v, dO, lse, delta, dk, dv, strides, ...
+        "ptt_flash_bwd_dkv": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
+        # p, g, m1, m2, master, n, p_dtype, m_dtype, lr, c1, c2, b1, 1-b1,
+        # b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
+        "ptt_fused_adam": [vp] * 5 + [ctypes.c_longlong, ci, ci] + [cf] * 10
+        + [ci, ctypes.c_uint, ctypes.c_uint, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     lib.ptt_error_string.argtypes = [ci]
     lib.ptt_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -1,10 +1,12 @@
-"""Weight carry-over from the JAX package (counterpart: the pytree that
-``paddle_tpu/models/gpt.py`` ``init_hybrid_params`` returns).
+"""Weight and optimizer-state carry-over from the JAX package (counterparts:
+the pytree that ``paddle_tpu/models/gpt.py`` ``init_hybrid_params`` returns,
+and the state that ``paddle_tpu/optimizer/optimizer.py``
+``Optimizer.init_state`` / ``apply`` return).
 
-``params_from_jax`` takes that tree as numpy arrays (what
+``params_from_jax`` takes the parameter tree as numpy arrays (what
 ``jax.device_get`` hands back) and returns the port's dict of tensors with
-identical keys and shapes. It does not import JAX: the caller fetches the
-tree.
+identical keys and shapes; ``opt_state_from_jax`` does the same for
+``{"step", "slots"}``. Neither imports JAX: the caller fetches the trees.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None):
@@ -39,3 +41,12 @@ def params_from_jax(tree: Dict[str, Any], device,
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return tensor_from_numpy(tree, device, dtype)
+
+
+def opt_state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """``{"step": int scalar, "slots": {...}}`` as numpy (slot dicts of
+    ``moment1``, ``moment2`` and an optional fp32 ``master`` at the
+    parameter tree's leaves) -> the port's optimizer state: the step as a
+    Python int, every slot tensor on ``device`` in its own dtype."""
+    return {"step": int(np.asarray(state["step"])),
+            "slots": params_from_jax(state["slots"], device)}

@@ -1,0 +1,200 @@
+"""The port's flash attention (``paddle_tpu_torch.kernels.flash_attention``)
+against the JAX package's Pallas flash kernels, run in interpret mode on
+the CPU, and the port's composed attention (``nn.functional``) against the
+JAX package's.
+
+On the CPU the port's wrappers take the kernels' plain PyTorch versions, and
+``flash_attention`` runs them through its ``torch.autograd.Function``, so
+these tests hold the forward (out and lse) and the backward (dq, dk, dv) that
+``chip_smoke.py`` compares the CUDA kernels with on the card to the JAX
+kernels. Inputs are made with numpy from a seed and handed to both packages.
+Tolerances are those of ``test_flash_training.py``: fp32 2e-5 (out) and
+2e-4 (grads, relative to their max-abs); bf16 2e-2 and 5e-2. The CUDA
+kernels themselves are tested on the card by
+``test_torch_train_kernels_cuda.py``.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels.pallas import flash_attention as JFA
+from paddle_tpu_torch.kernels import flash_attention as FA
+from paddle_tpu_torch.nn.functional import flash_attention as TNF
+
+# the module, not the function of the same name the package exports
+JNF = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+
+TOL = {"fp32": (2e-5, 2e-4), "bf16": (2e-2, 5e-2)}
+JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _inputs(B, sq, sk, H, Hkv, D, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, sq, H, D).astype(np.float32),
+            rng.randn(B, sk, Hkv, D).astype(np.float32),
+            rng.randn(B, sk, Hkv, D).astype(np.float32),
+            rng.randn(B, sq, H, D).astype(np.float32))
+
+
+def _jax_flash(q, k, v, do, causal, dt):
+    """JAX kernel in interpret mode: out, lse [B, H, Sq], and the vjp of
+    sum(out * dO) as dq, dk, dv."""
+    qj, kj, vj = (jnp.asarray(a).astype(JDT[dt]) for a in (q, k, v))
+    B, sq, H, D = q.shape
+    scale = 1.0 / np.sqrt(D)
+    bq, bk = JFA._pick_block(sq), JFA._pick_block(k.shape[1])
+    out, res = JFA._flash_fwd(qj, kj, vj, None, None, None, None, causal,
+                              scale, bq, bk, None, 0.0)
+    lse = np.asarray(res[4]).reshape(B, H, sq)
+
+    def loss(q_, k_, v_):
+        o = JFA.flash_attention(q_, k_, v_, causal=causal)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do))
+    grads = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    return f32(out), lse, [f32(g) for g in grads]
+
+
+def _torch_flash(q, k, v, do, causal, dt, fn=None):
+    qt, kt, vt = (torch.from_numpy(a).to(TDT[dt]).requires_grad_(True)
+                  for a in (q, k, v))
+    fn = fn or (lambda a, b, c: FA.flash_attention(a, b, c, causal=causal))
+    out = fn(qt, kt, vt)
+    grads = torch.autograd.grad(out, (qt, kt, vt),
+                                torch.from_numpy(do).to(out.dtype))
+    return out, [g.float().numpy() for g in grads]
+
+
+def _close(got, ref, tol, what):
+    scale = max(float(np.abs(ref).max()), 1.0)
+    err = float(np.abs(got - ref).max()) / scale
+    assert err <= tol, (what, err, tol)
+
+
+CASES = {  # B, sq, sk, H, Hkv, D, causal
+    "square-causal": (2, 128, 128, 4, 4, 16, True),
+    "square-noncausal": (2, 128, 128, 4, 4, 16, False),
+    "rect-causal-128x256": (1, 128, 256, 4, 4, 16, True),
+    "rect-causal-256x128-dead-rows": (1, 256, 128, 4, 4, 16, True),
+    "gqa-4-2": (2, 128, 128, 4, 2, 16, True),
+    "mqa-4-1": (1, 128, 256, 4, 1, 16, False),
+}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_matches_jax_kernel(case, dt):
+    B, sq, sk, H, Hkv, D, causal = CASES[case]
+    q, k, v, do = _inputs(B, sq, sk, H, Hkv, D)
+    out_j, lse_j, grads_j = _jax_flash(q, k, v, do, causal, dt)
+    n = FA.flash_fwd.LAUNCHES
+    out_t, grads_t = _torch_flash(q, k, v, do, causal, dt)
+    assert FA.flash_fwd.LAUNCHES == n            # the CPU path launches none
+    assert out_t.dtype == TDT[dt] and out_t.shape == q.shape
+    tol_o, tol_g = TOL[dt]
+    _close(out_t.float().detach().numpy(), out_j, tol_o, "out")
+    for name, gt, gj in zip(("dq", "dk", "dv"), grads_t, grads_j):
+        assert gt.shape == gj.shape
+        _close(gt, gj, tol_g, name)
+    # lse (fp32 in both), dead rows included: -1e30 where no key is visible
+    _, lse_t = FA.flash_fwd(*(torch.from_numpy(a).to(TDT[dt])
+                              for a in (q, k, v)), causal, 1.0 / np.sqrt(D))
+    live = lse_j > -1e29
+    assert np.array_equal(lse_t.numpy() > -1e29, live)
+    np.testing.assert_allclose(lse_t.numpy()[live], lse_j[live], rtol=1e-5,
+                               atol=2e-5 if dt == "fp32" else 2e-2)
+    if causal and sq > sk:
+        assert not live.all()
+        assert (out_t[:, :sq - sk] == 0).all()
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("Hkv", [4, 2])
+def test_flash_any_length_matches_jax_composed(dt, Hkv):
+    """S = 100: the Pallas gate needs S % 128, the port's kernels do not, so
+    the reference is the JAX composed path."""
+    q, k, v, do = _inputs(2, 100, 100, 4, Hkv, 16, seed=1)
+    qj, kj, vj = (jnp.asarray(a).astype(JDT[dt]) for a in (q, k, v))
+
+    def loss(q_, k_, v_):
+        o = JNF._sdpa_reference(q_, k_, v_, is_causal=True)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do))
+    out_j = np.asarray(JNF._sdpa_reference(qj, kj, vj, is_causal=True)
+                       .astype(jnp.float32))
+    grads_j = [np.asarray(g.astype(jnp.float32))
+               for g in jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)]
+    out_t, grads_t = _torch_flash(q, k, v, do, True, dt)
+    tol_o, tol_g = TOL[dt]
+    _close(out_t.float().detach().numpy(), out_j, tol_o, "out")
+    for name, gt, gj in zip(("dq", "dk", "dv"), grads_t, grads_j):
+        _close(gt, gj, tol_g, name)
+
+
+def test_split_backward_matches_plain():
+    """flash_bwd_dq (which forms delta) then flash_bwd_dkv: the pieces the
+    card runs as two kernels give the plain backward's dq, dk, dv."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(2, 96, 160, 4, 2, 16))
+    out, lse = FA.flash_fwd(q, k, v, True, 0.25)
+    dq, delta = FA.flash_bwd_dq(q, k, v, out, lse, do, True, 0.25)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, True, 0.25)
+    ref = FA.flash_bwd_plain(q, k, v, out, lse, do, True, 0.25)
+    assert delta.shape == (2, 4, 96) and delta.dtype == torch.float32
+    for got, want in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [dict(bias=np.zeros((1, 1, 8, 8))),
+                                dict(q_segment_ids=np.zeros((1, 8))),
+                                dict(kv_segment_ids=np.zeros((1, 8))),
+                                dict(startend_row_indices=(0, 0)),
+                                dict(window=(4, 0)),
+                                dict(dropout_p=0.1),
+                                dict(bias_grad=True)],
+                         ids=["bias", "q_seg", "kv_seg", "flashmask",
+                              "window", "dropout", "bias_grad"])
+def test_unported_arguments_raise(kw):
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
+        FA.flash_attention(q, q, q, causal=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the registry op's composed path (nn.functional)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("variant", ["causal", "bool-mask", "float-mask",
+                                     "segments", "gqa"])
+def test_sdpa_reference_matches_jax(variant):
+    rng = np.random.RandomState(2)
+    B, S, H, D = 2, 12, 4, 8
+    Hkv = 2 if variant == "gqa" else H
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k = rng.randn(B, S, Hkv, D).astype(np.float32)
+    v = rng.randn(B, S, Hkv, D).astype(np.float32)
+    kw_j, kw_t = {}, {}
+    if variant in ("causal", "gqa"):
+        kw_j["is_causal"] = kw_t["is_causal"] = True
+    if variant == "bool-mask":
+        m = rng.rand(B, 1, S, S) > 0.3
+        m[0, 0, 3] = False                       # a fully masked row
+        kw_j["attn_mask"], kw_t["attn_mask"] = jnp.asarray(m), \
+            torch.from_numpy(m)
+    if variant == "float-mask":
+        m = (rng.randn(1, H, S, S) * 2).astype(np.float32)
+        kw_j["attn_mask"], kw_t["attn_mask"] = jnp.asarray(m), \
+            torch.from_numpy(m)
+    if variant == "segments":
+        seg = np.repeat(np.array([[0, 1, 2]]), 4, axis=1).repeat(B, 0)
+        kw_j["segment_ids"], kw_t["segment_ids"] = jnp.asarray(seg), \
+            torch.from_numpy(seg)
+    ref = np.asarray(JNF._sdpa_reference(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), **kw_j))
+    out = TNF.scaled_dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        **kw_t)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
