@@ -32,7 +32,25 @@ Phases, in order; any failure exits non-zero:
 9b. exactness at full width: the fp32 loss and gradients of a 2-layer model,
    and the bf16 loss and gradients of the flagship's first step and the
    losses of its first 4 AdamW steps, on the kernel path against the plain
-   path (composed attention, plain Adam) on the card.
+   path (composed attention, plain Adam) on the card;
+10. hold the paged decode kernel against its plain version at the serving
+   decode shape (timed) and on GQA, small-page, empty-row and wide-table
+   cases, bf16 and fp32;
+11. hold the flash forward with an additive bias against its plain version
+   at the two-program prefill's shape (timed: q a view of the head-major
+   qkv, k and v the gathered pool views, a [8, 1, 128, 640] mask) and on
+   the broadcast shapes, a float bias, a bool mask through
+   scaled_dot_product_attention, a dead row and GQA, bf16 and fp32;
+12. fill int8 and fp8 pools with the port's append on the card (bit for bit
+   the CPU append's) and hold the ragged kernel over them against its plain
+   version, decode (timed) and mixed;
+13. serve the GPT-1.3B shape through the two-program engine (the default
+   path: batched prefill chunks on the flash bias kernel, decode bursts on
+   the paged decode kernel): the same wave as phase 5, launch counts, bf16
+   and fp32 checks, and fp32 tokens identical to the fp32 ragged engine's;
+14. serve the same wave through the ragged engine with int8 and fp8 KV
+   pools: tokens/s, capacity at phase 5's pool budget, determinism across
+   fresh engines, teacher-forced top-5 containment.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -52,12 +70,16 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.serving import (ServingEngine, _block_math,
-                                                _embed, _head_logits, _qkv)
+                                                _embed, _gather_seqs,
+                                                _head_logits, _qkv)
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_adam as FAD
+from paddle_tpu_torch.kernels import paged_attention as PA
 from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
 from paddle_tpu_torch.models import gpt as G
-from paddle_tpu_torch.nn.functional.flash_attention import _sdpa_reference
+from paddle_tpu_torch.nn.functional.flash_attention import (
+    _sdpa_reference, scaled_dot_product_attention)
+from paddle_tpu_torch.quantization import kv_cache as KV
 from paddle_tpu_torch.observability import flops as FL
 from paddle_tpu_torch.optimizer import optimizer as O
 from paddle_tpu_torch.optimizer.optimizer import AdamW
@@ -158,9 +180,10 @@ def make_case(rng, q_lens, kv_lens, C, hq, hkv, D=128, bs=32, NB=200, nb=20,
 
 def case_bound(case):
     """Least time the card needs: each input byte it needs read once (the
-    live query columns, the pages and table entries a row uses, the
-    lengths), each output byte written once (all C columns), against the
-    FLOPs the visible (query head, key) pairs need."""
+    live query columns, the pages and table entries a row uses, with two
+    fp32 scales per (kv head, page) of a quantized pool, the lengths), each
+    output byte written once (all C columns), against the FLOPs the visible
+    (query head, key) pairs need."""
     q, kp = case["q"], case["k_pool"]
     R, C, hq, D = q.shape
     hkv, _, bs, _ = kp.shape
@@ -168,8 +191,9 @@ def case_bound(case):
     ql = case["q_lens"].cpu().numpy()
     kl = case["kv_lens"].cpu().numpy()
     pages = sum(-(-int(k) // bs) for k, l in zip(kl, ql) if l > 0)
+    page_bytes = bs * D * kp.element_size() + (4 if "k_scales" in case else 0)
     nbytes = (int(ql.sum()) * hq * D * it + q.numel() * it
-              + 2 * hkv * pages * bs * D * it + 4 * (pages + 2 * R))
+              + 2 * hkv * pages * page_bytes + 4 * (pages + 2 * R))
     flops = 0
     for l, k in zip(ql, kl):
         for c in range(int(l)):
@@ -377,9 +401,15 @@ def full_width_workload():
     return prompts, [int(n) for n in news]
 
 
-def _kernel_class(name):
-    if "ragged_paged_attention" in name:
+def _kernel_class(name, gather=False):
+    """Device time classes of a serving profile; ``gather`` splits the
+    indexing kernels (the pool gathers and scatters) out of "other"."""
+    if any(w in name for w in ("ragged_paged_attention", "paged_decode",
+                               "flash_fwd")):
         return "attention"
+    if gather and any(w in name.lower() for w in ("index", "gather",
+                                                  "scatter")):
+        return "gather/scatter"
     if any(w in name.lower() for w in ("nvjet", "gemm", "cutlass", "xmma")):
         return "gemm"
     if name.startswith(("Memcpy", "Memset")):
@@ -387,29 +417,36 @@ def _kernel_class(name):
     return "other"
 
 
-def profile_wave(engine, prompts, card):
-    """Where the time goes: one wave (4 requests x 16 tokens) under
+def profile_wave(engine, prompts, card, gather=False, n=4, tokens=16):
+    """Where the time goes: one wave (n requests x ``tokens`` tokens) under
     torch.profiler. Device busy = the sum of kernel and copy times (one
-    stream, so they do not overlap); launches = their count."""
-    from torch.autograd import DeviceType
+    stream, so they do not overlap); launches = their count. The device
+    events are summed from the profiler's raw records: its per-name tables
+    (``key_averages``) take a minute per 100k events to build."""
     from torch.profiler import ProfilerActivity, profile
     steps0, micro0 = engine.engine_steps, engine.decode_microsteps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(engine, prompts[:4], [16] * 4)
+        _, _, wall = serve(engine, prompts[:n], [tokens] * n)
     steps = engine.engine_steps - steps0
     passes = engine.decode_microsteps - micro0
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in device)
-    ops = sum(e.count for e in device)
+    by_name = {}                                   # name -> [ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation():
+            agg = by_name.setdefault(e.name(), [0, 0])
+            agg[0] += e.duration_ns()
+            agg[1] += 1
+    busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
+    ops = sum(c for _, c in by_name.values())
+    require(ops > 0, "the profiled wave shows no device operation")
     by_class = {}
-    for e in device:
-        c = _kernel_class(e.key)
-        by_class[c] = by_class.get(c, 0) + e.self_device_time_total
+    for name, (ns, _) in by_name.items():
+        c = _kernel_class(name, gather)
+        by_class[c] = by_class.get(c, 0) + ns / 1e3
     share = busy_us / 1e3 / (wall * 1e3)
-    log(f"profiled wave (4 requests x 16 tokens): wall {wall * 1e3:.1f} ms, "
+    log(f"profiled wave ({n} requests x {tokens} tokens): wall "
+        f"{wall * 1e3:.1f} ms, "
         f"{steps} engine steps, {passes} forward passes; device busy "
         f"{busy_us / 1e3:.1f} ms = {share:.1%} of wall (idle {1 - share:.1%}); "
         f"{ops} device operations = {ops / steps:.0f} per engine step, "
@@ -417,8 +454,9 @@ def profile_wave(engine, prompts, card):
     log("device time by class: " + ", ".join(
         f"{c} {t / 1e3:.1f} ms ({t / busy_us:.1%})"
         for c, t in sorted(by_class.items(), key=lambda kv: -kv[1])))
-    log(events.table(sort_by="self_device_time_total", row_limit=12,
-                     max_name_column_width=60))
+    for name, (ns, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ns / 1e6:9.3f} ms {count:7d} x  {name[:100]}")
     return dict(profile_wall_ms=wall * 1e3, device_busy_share=share,
                 device_ops_per_step=ops / steps,
                 device_ops_per_pass=ops / passes,
@@ -479,10 +517,13 @@ def full_width_bf16_phase(card):
     return record
 
 
-def full_width_fp32_phase():
+def full_width_fp32_phase(**engine_kw):
+    """The fp32 copy's exactness checks; returns its greedy outputs (phase
+    13 holds the two-program engine's to them)."""
     cfg = G.GPTConfig(**FULL, dtype=torch.float32, param_dtype=torch.float32)
     params = G.init_hybrid_params(cfg, 0, DEV)
-    engine = ServingEngine(params, cfg, seed=0, device=DEV, **FULL_ENGINE)
+    engine = ServingEngine(params, cfg, seed=0, device=DEV,
+                           **{**FULL_ENGINE, **engine_kw})
     prompts, _ = full_width_workload()
     prompts = prompts[:4]
     outs, _, wall = serve(engine, prompts, [16] * 4)
@@ -495,6 +536,7 @@ def full_width_fp32_phase():
     require(top1 >= 0.99 * n, "fp32 top-1 agreement below 99 %")
     del engine, params
     torch.cuda.empty_cache()
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -1071,6 +1113,539 @@ def exactness_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 10: paged decode kernel vs plain
+# ---------------------------------------------------------------------------
+# paged kernels vs plain on the worst (row, head) slab's ||got - ref|| /
+# ||ref|| (slab_rel_err): phase 3's bf16 limit; fp32 summation order
+PAGED_TOL = {torch.bfloat16: KERNEL_TOL, torch.float32: 1e-5}
+
+
+def slab_rel_err(got, ref, dims):
+    """The worst ||got - ref|| / ||ref|| over the slabs of the leading
+    ``dims`` dimensions (0 where both slabs are zero, inf where only ref's
+    is): an empty row must be exact zeros, and every live slab is held to
+    its own size."""
+    r = ref.float().flatten(dims)
+    d = got.float().flatten(dims) - r
+    dd, rr = d.square().sum(-1), r.square().sum(-1)
+    ratio = torch.where(rr > 0, (dd / rr.clamp_min(1e-30)).sqrt(),
+                        torch.where(dd > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
+def decode_case(rng, lens, hq, hkv, D=128, bs=32, NB=200, nb=20,
+                dtype=torch.bfloat16):
+    """q [B, H_q, D] as the decode burst gives it (a strided view of the
+    head-major qkv), pools, tables filling every slot (so a read past a
+    row's length would pick up real pages), lengths."""
+    B = len(lens)
+    free = list(rng.permutation(np.arange(1, NB)))
+    tables = np.array([[free.pop() for _ in range(nb)] for _ in range(B)],
+                      np.int32)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a).to(DEV, dt)
+    qkv = t(rng.randn(B, hq, 3, D).astype(np.float32))
+    return dict(q=qkv[:, :, 0],
+                k_pool=t(rng.randn(hkv, NB, bs, D).astype(np.float32)),
+                v_pool=t(rng.randn(hkv, NB, bs, D).astype(np.float32)),
+                block_tables=t(tables, torch.int32),
+                seq_lens=t(np.asarray(lens, np.int32), torch.int32),
+                scale=1.0 / math.sqrt(D))
+
+
+def decode_bound(case):
+    """Each byte the call needs read once (q, the used pages and their
+    table entries, the lengths) and written once (out), against 4 D FLOPs
+    per (query head, visible key) at the dtype's peak."""
+    q, kp = case["q"], case["k_pool"]
+    B, hq, D = q.shape
+    hkv, _, bs, _ = kp.shape
+    it = q.element_size()
+    lens = case["seq_lens"].cpu().numpy()
+    nb = case["block_tables"].shape[1]
+    pages = sum(min(-(-int(n) // bs), nb) for n in lens)
+    nbytes = (2 * q.numel() * it + 2 * hkv * pages * bs * D * it
+              + 4 * (pages + B))
+    flops = 4 * D * hq * int(sum(min(int(n), nb * bs) for n in lens))
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", nbytes, flops
+
+
+def decode_yardstick(case):
+    """F.scaled_dot_product_attention over the pre-gathered pages with the
+    length mask: a timing yardstick only, never used by the port."""
+    q, kp, vp = case["q"], case["k_pool"], case["v_pool"]
+    B, hq, D = q.shape
+    hkv, _, bs, _ = kp.shape
+    tables = case["block_tables"].long()
+    nb = tables.shape[1]
+    k = kp[:, tables].reshape(hkv, B, nb * bs, D).transpose(0, 1).contiguous()
+    v = vp[:, tables].reshape(hkv, B, nb * bs, D).transpose(0, 1).contiguous()
+    qt = q.contiguous()[:, :, None]                            # [B, hq, 1, D]
+    col = torch.arange(nb * bs, device=q.device)
+    mask = (col[None] < case["seq_lens"].long()[:, None])[:, None, None]
+
+    def run():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask, scale=case["scale"],
+            enable_gqa=hq != hkv)
+    return run
+
+
+def check_decode_case(name, case, card):
+    args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
+            case["seq_lens"], case["scale"])
+    out_k = PA.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    out_p = PA.paged_decode_attention_plain(*args)
+    tol = PAGED_TOL[case["q"].dtype]
+    require(out_k.dtype == out_p.dtype == case["q"].dtype, f"{name}: dtype")
+    require(torch.isfinite(out_k.float()).all(), f"{name}: non-finite output")
+    empty = case["seq_lens"] == 0
+    require((out_k[empty] == 0).all(), f"{name}: a len-0 row is not zero")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    rel = slab_rel_err(out_k, out_p, 2)
+    log(f"{name}: worst (row, head) L2 rel err {rel:.3e} (tol {tol}); "
+        f"max_abs_err {err:.3e}")
+    require(rel <= tol, f"{name}: rel err {rel} > {tol}")
+    rec = dict(max_abs_err=err, rel_err=rel)
+    if card is None:
+        return rec
+    kern = cuda_ms(lambda: PA.paged_decode_attention(*args))
+    plain = cuda_ms(lambda: PA.paged_decode_attention_plain(*args))
+    lib = cuda_ms(decode_yardstick(case))
+    bound, bound_by, nbytes, flops = decode_bound(case)
+    log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} library_ms "
+        f"{lib:.4f} (SDPA over pre-gathered pages) bound_ms {bound:.4f} "
+        f"({bound_by}: {nbytes} B, {flops} FLOP) kernel/bound "
+        f"{kern / bound:.1f}x  [{card}]")
+    rec.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+               bound_by=bound_by, bytes=nbytes, flops=flops)
+    return rec
+
+
+def paged_decode_phase(card):
+    rng = np.random.RandomState(10)
+    lens = [100, 173, 256, 311, 400, 467, 555, 640]   # phase 3's case (a)
+    rec = check_decode_case("(a) decode B=8 H=16 D=128 bs=32 bf16",
+                            decode_case(rng, lens, 16, 16), card)
+    odd = [0, 45, 64, 1, 300, 129]     # empty, mid-page, page-aligned, 1
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        if dtype == torch.float32:
+            check_decode_case(f"(a) fp32", decode_case(
+                rng, lens, 16, 16, dtype=dtype), None)
+        check_decode_case(f"(b) GQA 16/4 {tag}", decode_case(
+            rng, odd, 16, 4, dtype=dtype), None)
+        check_decode_case(f"(c) bs 16 D 64, table of 24 slots {tag}",
+                          decode_case(rng, odd, 8, 8, D=64, bs=16, nb=24,
+                                      dtype=dtype), None)
+        check_decode_case(f"(d) MQA 16/1 {tag}", decode_case(
+            rng, odd, 16, 1, dtype=dtype), None)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 11: flash forward with a bias vs plain
+# ---------------------------------------------------------------------------
+PREFILL = dict(P=8, C=128, H=16, D=128, bs=32, nb=20)   # cap 640
+
+
+def prefill_case(dtype, seed, hkv=None):
+    """The two-program prefill's attention call: q a strided view of the
+    head-major qkv [P, C, H, 3, D], k and v the _gather_seqs views of one
+    layer's pools through each slot's table, and the causal keep-mask over
+    each slot's positions (chunks at different depths of their prompts)."""
+    P, C, H, D, bs, nb = (PREFILL[k] for k in ("P", "C", "H", "D", "bs",
+                                               "nb"))
+    hkv = hkv or H
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    qkv = rnd(P, C, H, 3, D)
+    pools = [rnd(hkv, P * nb + 1, bs, D) for _ in range(2)]
+    tables = torch.arange(1, P * nb + 1, dtype=torch.int32,
+                          device=DEV).reshape(P, nb)
+    k, v = (_gather_seqs(pl, tables, bs) for pl in pools)
+    pos0 = torch.tensor([0, 128, 256, 384, 0, 128, 384, 512], device=DEV)
+    pos = pos0[:P, None] + torch.arange(C, device=DEV)
+    mask = torch.arange(nb * bs, device=DEV)[None, None] <= pos[:, :, None]
+    return qkv[:, :, :, 0], k, v, mask[:, None]              # [P, 1, C, cap]
+
+
+def flash_bias_bound(q, k, bias, mask):
+    """Each input read once (q, k, v, the bias as stored), out and lse
+    written once, against 4 D FLOPs per visible (query, key) pair, the
+    pairs this mask leaves (the kernel computes every pair: the mask is
+    arbitrary)."""
+    B, Sq, H, D = q.shape
+    it = q.element_size()
+    nbytes = ((2 * q.numel() + 2 * k.numel()) * it
+              + bias.untyped_storage().nbytes() + 4 * B * H * Sq)
+    flops = 4 * D * int(mask.expand(B, H, -1, -1).sum().item())
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations", nbytes, flops
+
+
+def check_bias_case(name, q, k, v, bias, card, mask=None, dead=None):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = FA.flash_fwd(q, k, v, False, scale, bias)
+    torch.cuda.synchronize()
+    out_p, lse_p = FA.flash_fwd_plain(q, k, v, False, scale, bias)
+    tol = FLASH_TOL[q.dtype][0]
+    live = lse_p > -1e29
+    require(torch.equal(live, lse > -1e29), f"{name}: dead rows differ")
+    if dead is not None:
+        require(bool((out[:, dead] == 0).all()) and not live[:, :, dead].any(),
+                f"{name}: the masked row is not dead")
+    require(torch.isfinite(out.float()).all(), f"{name}: out not finite")
+    tile = tile_rel_err(out, out_p)
+    err, lrel = _rel_err(lse[live], lse_p[live])
+    log(f"{name}: worst tile L2 rel err {tile:.3e} (tol {tol}); max_abs_err "
+        f"{(out.float() - out_p.float()).abs().max().item():.3e}; lse rel "
+        f"{lrel:.2e} (tol 1e-5)")
+    require(tile <= tol, f"{name}: tile L2 rel err {tile} > {tol}")
+    require(lrel <= 1e-5, f"{name}: lse rel err {lrel} > 1e-5")
+    rec = dict(max_abs_err=(out.float() - out_p.float()).abs().max().item(),
+               tile_rel_err=tile)
+    if card is None:
+        return rec
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kern = cuda_ms(lambda: FA.flash_fwd(q, k, v, False, scale, bias))
+    plain = cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, False, scale, bias),
+                    runs=10)
+    lib = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                               enable_gqa=q.shape[2] != k.shape[2]))
+    bound, by, nbytes, flops = flash_bias_bound(q, k, bias, mask)
+    log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} library_ms "
+        f"{lib:.4f} (SDPA, bool attn_mask) bound_ms {bound:.4f} ({by}: "
+        f"{nbytes} B, {flops} FLOP) kernel/bound {kern / bound:.1f}x  "
+        f"[{card}]")
+    rec.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+               bound_by=by, bytes=nbytes, flops=flops)
+    return rec
+
+
+def flash_bias_phase(card):
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, mask = prefill_case(dtype, seed=11)
+        bias = torch.where(mask, 0.0, -1e30).to(dtype)
+        recs[tag] = check_bias_case(
+            f"(a) prefill P=8 C=128 cap=640 H=16 D=128 {tag}", q, k, v, bias,
+            card if dtype == torch.bfloat16 else None, mask=mask)
+        # the registry op with the bool mask: the same kernel, one launch
+        n = FA.flash_fwd.LAUNCHES
+        out = scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        require(FA.flash_fwd.LAUNCHES == n + 1, "sdpa did not launch once")
+        out_p, _ = FA.flash_fwd_plain(q, k, v, False, q.shape[-1] ** -0.5,
+                                      bias)
+        tile = tile_rel_err(out, out_p)
+        log(f"(b) scaled_dot_product_attention(bool mask) {tag}: worst tile "
+            f"L2 rel err {tile:.3e}")
+        require(tile <= FLASH_TOL[dtype][0], f"sdpa bool mask {tag}: {tile}")
+        # broadcast shapes of a float bias with a dead row, and GQA 16/4
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(12)
+        P, C, H = q.shape[:3]
+        cap = k.shape[1]
+        for mb, mh in ((1, 1), (P, 1), (1, H), (P, H)):
+            fb = torch.randn(mb, mh, C, cap, generator=gen, device=DEV) * 2
+            fb[..., 7, :] = -1e30
+            fb[..., ::5] = -1e30
+            check_bias_case(f"(c) float bias [{mb},{mh},{C},{cap}] {tag}", q,
+                            k, v, fb.to(dtype), None, dead=7)
+        q4, k4, v4, mask4 = prefill_case(dtype, seed=13, hkv=4)
+        check_bias_case(f"(d) GQA 16/4 {tag}", q4, k4, v4,
+                        torch.where(mask4, 0.0, -1e30).to(dtype), None)
+        torch.cuda.empty_cache()
+    return recs["bf16"]
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the ragged kernel over quantized pools vs plain
+# ---------------------------------------------------------------------------
+def fill_quantized(case, pool_dtype, rng):
+    """Replace a ragged case's float pools by pools of ``pool_dtype`` that
+    the port's append fills on the card, as the engine would: each row's
+    history, then its chunk (whose pages are requantized). The same appends
+    on the CPU must write the same bits."""
+    hkv, NB, bs, D = case["k_pool"].shape
+    R = case["q"].shape[0]
+    ql = case["q_lens"].cpu().numpy()
+    kl = case["kv_lens"].cpu().numpy()
+    hist = np.maximum(kl - ql, 0).astype(np.int32)
+    C = max(int(kl.max()), 1)
+    # two appends: the history (columns 0 .. hist) then the chunk (columns
+    # hist .. kv_len, moved to the front)
+    chunk_cols = np.minimum(hist[:, None] + np.arange(C)[None], C - 1)
+    appends = [(np.zeros(R, np.int32), hist, np.arange(C)[None].repeat(R, 0)),
+               (hist, (kl - hist).astype(np.int32), chunk_cols)]
+    vals = [rng.randn(R, C, hkv, D).astype(np.float32) for _ in range(2)]
+    filled = {}
+    for dev in (DEV, "cpu"):
+        tables = case["block_tables"].to(dev)
+        for name, val in zip("kv", vals):
+            pool = torch.zeros((hkv, NB, bs, D), dtype=pool_dtype, device=dev)
+            scales = torch.zeros((hkv, NB), device=dev)
+            for pos0, n, cols in appends:
+                chunk = torch.from_numpy(val[np.arange(R)[:, None], cols])
+                KV.append_tokens_quantized(
+                    pool, scales, chunk.to(dev),
+                    torch.from_numpy(pos0).to(dev),
+                    torch.from_numpy(n).to(dev), tables, bs)
+            filled[dev, name] = (pool, scales)
+    for name in "kv":
+        for got, want, what in zip(filled[DEV, name], filled["cpu", name],
+                                   ("pool", "scales")):
+            got = got.cpu()
+            same = (torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                    if got.element_size() == 1 else torch.equal(got, want))
+            require(same, f"{pool_dtype} append: the card's {name} {what} "
+                    "differ from the CPU's")
+    case.update(k_pool=filled[DEV, "k"][0], k_scales=filled[DEV, "k"][1],
+                v_pool=filled[DEV, "v"][0], v_scales=filled[DEV, "v"][1])
+
+
+def check_quantized_case(name, case, card):
+    args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
+            case["q_lens"], case["kv_lens"], case["scale"], case["k_scales"],
+            case["v_scales"])
+    out_k = RPA.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    out_p = RPA.ragged_paged_attention_plain(*args)
+    require(torch.isfinite(out_k.float()).all(), f"{name}: non-finite output")
+    for r, l in enumerate(case["q_lens"].cpu().numpy()):
+        require((out_k[r, int(l):] == 0).all(),
+                f"{name}: row {r} columns >= {l} not zero")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    rel = slab_rel_err(out_k, out_p, 3)
+    log(f"{name}: worst (row, column, head) L2 rel err {rel:.3e} (tol "
+        f"{KERNEL_TOL}); max_abs_err {err:.3e}")
+    require(rel <= KERNEL_TOL, f"{name}: rel err {rel} > {KERNEL_TOL}")
+    rec = dict(max_abs_err=err, rel_err=rel)
+    if card is None:
+        return rec
+    kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
+    plain = cuda_ms(lambda: RPA.ragged_paged_attention_plain(*args))
+    # the library call gets the pages dequantized to bf16 ahead of time
+    deq = dict(case)
+    for p, sc in (("k_pool", "k_scales"), ("v_pool", "v_scales")):
+        deq[p] = (case[p].float() * (case[sc] / KV._qmax(case[p].dtype))[
+            :, :, None, None]).to(torch.bfloat16)
+    lib = cuda_ms(sdpa_yardstick(deq))
+    bound, bound_by, nbytes, flops = case_bound(case)
+    log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} library_ms "
+        f"{lib:.4f} (SDPA over pre-gathered pages dequantized to bf16) "
+        f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP) "
+        f"kernel/bound {kern / bound:.1f}x  [{card}]")
+    rec.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
+               bound_by=bound_by, bytes=nbytes, flops=flops)
+    return rec
+
+
+def quantized_phase(card):
+    recs = {}
+    for pool_dtype, tag in ((torch.int8, "int8"),
+                            (torch.float8_e4m3fn, "fp8")):
+        rng = np.random.RandomState(12)
+        dec = make_case(rng, [1] * 8, [100, 173, 256, 311, 400, 467, 555,
+                                       640], C=1, hq=16, hkv=16)
+        mixed = make_case(rng, [128, 100, 1, 0], [384, 100, 517, 0], C=128,
+                          hq=16, hkv=16)
+        fill_quantized(dec, pool_dtype, rng)
+        fill_quantized(mixed, pool_dtype, rng)
+        log(f"{tag}: the card's append wrote the CPU append's pools and "
+            f"scales, bit for bit (decode and mixed cases)")
+        recs[tag] = check_quantized_case(f"(a) {tag} decode R=8", dec, card)
+        recs[tag + "_mixed"] = check_quantized_case(
+            f"(b) {tag} mixed R=4 C=128", mixed, card)
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the two-program engine and the quantized pools at full width
+# ---------------------------------------------------------------------------
+def reset_serving_counts():
+    for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention,
+               FA.flash_fwd):
+        fn.LAUNCHES = 0
+
+
+def serving_counts():
+    return dict(ragged_paged_attention=RPA.ragged_paged_attention.LAUNCHES,
+                paged_decode_attention=PA.paged_decode_attention.LAUNCHES,
+                flash_fwd=FA.flash_fwd.LAUNCHES)
+
+
+def count_prefills(engine):
+    """Wrap the engine's prefill program to count its dispatches."""
+    calls = [0]
+    inner = engine._prefill
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+    engine._prefill = counted
+    return calls
+
+
+def timed_wave(engine, prompts, news, card, tag):
+    """A timed wave with the launch counts set to 0 just before and read
+    just after; returns (outputs, record)."""
+    steps0, disp0 = engine.engine_steps, engine.dispatches
+    micro0 = engine.decode_microsteps
+    torch.cuda.reset_peak_memory_stats()
+    reset_serving_counts()
+    outs, ttft, wall = serve(engine, prompts, news)
+    counts = serving_counts()
+    steps = engine.engine_steps - steps0
+    disp = engine.dispatches - disp0
+    micro = engine.decode_microsteps - micro0
+    gen = sum(len(o) for o in outs)
+    ttft_ms = sorted(t * 1e3 for t in ttft)
+    p50 = ttft_ms[math.ceil(0.5 * len(ttft_ms)) - 1]
+    p95 = ttft_ms[math.ceil(0.95 * len(ttft_ms)) - 1]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} timed wave: {gen} tokens in {wall:.3f} s = {gen / wall:.1f} "
+        f"generated tokens/s; TTFT p50 {p50:.1f} ms p95 {p95:.1f} ms; engine "
+        f"steps {steps}; dispatches/step {disp / steps:.3f}; forward passes "
+        f"{micro}; max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+        f"{counts}  [{card}]")
+    for o, n in zip(outs, news):
+        require(0 < len(o) <= n and all(0 <= t < FULL["vocab_size"]
+                                        for t in o),
+                f"{tag}: an output is empty, too long or out of the "
+                "vocabulary")
+    return outs, dict(tokens_per_s=gen / wall, ttft_p50_ms=p50,
+                      ttft_p95_ms=p95, engine_steps=steps,
+                      dispatches_per_step=disp / steps, passes=micro,
+                      peak_bytes=peak, launches=counts)
+
+
+def two_program_phase(card, ragged_fp32_outs):
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    params = G.init_hybrid_params(cfg, 0, DEV)
+    engine = ServingEngine(params, cfg, seed=0, device=DEV,
+                           **{**FULL_ENGINE, "ragged": False})
+    require(engine.adaptive_burst, "adaptive_burst 'auto' did not resolve "
+            "to True on the card")
+    prefills = count_prefills(engine)
+    prompts, news = full_width_workload()
+    log(f"warm wave {serve(engine, prompts, news)[2]:.2f} s")
+    # main path: the counts go to 0 just before and are read just after
+    n0 = prefills[0]
+    outs, rec = timed_wave(engine, prompts, news, card, "two-program bf16")
+    pre = prefills[0] - n0
+    L = cfg.num_layers
+    launches = rec["launches"]
+    log(f"paged_decode_attention LAUNCHES {launches['paged_decode_attention']}"
+        f" == {L} x decode_microsteps {rec['passes']}; flash_fwd (bias) "
+        f"LAUNCHES {launches['flash_fwd']} == {L} x prefill dispatches {pre}")
+    require(launches["paged_decode_attention"] == L * rec["passes"] > 0,
+            "a layer of a decode micro-step did not go through the kernel")
+    require(launches["flash_fwd"] == L * pre > 0,
+            "a layer of a prefill dispatch did not go through the kernel")
+    require(launches["ragged_paged_attention"] == 0,
+            "the two-program engine launched the ragged kernel")
+    require(rec["dispatches_per_step"] <= 2.0, "more than 2 dispatches/step")
+    n1 = prefills[0]
+    rec.update(prefill_dispatches=pre,
+               profile=profile_wave(engine, prompts, card, gather=True))
+    # the device share of the per-layer _gather_seqs copies (K and V of
+    # every slot, 2 L per prefill dispatch): one copy timed at the engine's
+    # shape, cold L2, against the profiled wave's device busy time
+    mb, bs = FULL_ENGINE["max_batch"], FULL_ENGINE["block_size"]
+    nb = FULL_ENGINE["max_blocks_per_seq"]
+    tables = torch.arange(1, 1 + mb * nb, dtype=torch.int32,
+                          device=DEV).reshape(mb, nb)
+    t_gather = cuda_ms(lambda: _gather_seqs(engine.k_pools[0], tables, bs))
+    gathers = 2 * L * (prefills[0] - n1)
+    busy = sum(rec["profile"]["device_ms_by_class"].values())
+    moved = 2 * engine.k_pools[0][:, :mb * nb].nbytes
+    log(f"_gather_seqs: {t_gather:.4f} ms per copy ({moved / 1e6:.1f} MB "
+        f"read and written) x {gathers} copies in the profiled wave = "
+        f"{gathers * t_gather:.1f} ms = {gathers * t_gather / busy:.1%} of "
+        f"its device busy time  [{card}]")
+    rec.update(gather_seqs_ms=t_gather,
+               gather_seqs_share=gathers * t_gather / busy)
+    t0 = time.perf_counter()
+    top1, top5, first, n, margins = teacher_forced(params, cfg, prompts, outs,
+                                                   5)
+    log(f"({time.perf_counter() - t0:.1f} s) two-program bf16 teacher-forced: top-5 containment {top5}/{n} = "
+        f"{top5 / n:.2%}, top-1 agreement {top1}/{n} = {top1 / n:.2%}; logit "
+        f"margins where top-1 differs: {[round(m, 3) for m in margins]}")
+    require(top5 >= 0.99 * n, "two-program bf16 top-5 containment below 99 %")
+    rec.update(top5=top5 / n, top1=top1 / n)
+    del engine, params
+    torch.cuda.empty_cache()
+    # the fp32 copy: phase 5b's checks, then the ragged engine's tokens
+    outs32 = full_width_fp32_phase(ragged=False)
+    log(f"fp32 two-program {outs32}\nfp32 ragged      {ragged_fp32_outs}")
+    require(outs32 == ragged_fp32_outs, "fp32: the two-program engine's "
+            "greedy tokens differ from the ragged engine's")
+    return rec
+
+
+def quantized_engine_phase(card):
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    params = G.init_hybrid_params(cfg, 0, DEV)
+    prompts, news = full_width_workload()
+    L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    bs, nblocks = FULL_ENGINE["block_size"], FULL_ENGINE["num_blocks"]
+    budget = 2 * L * H * nblocks * bs * D * 2           # phase 5's bf16 pools
+    recs = {}
+    for kind, gate in (("int8", 0.95), ("fp8_e4m3", 0.90)):
+        dtype, _ = KV.kv_cache_dtype(kind)
+        blocks = KV.kv_pool_blocks_for_budget(budget, L, H, bs, D, dtype)
+        log(f"{kind}: {blocks} blocks in phase 5's bf16 pool budget of "
+            f"{budget} B ({nblocks} bf16 blocks): {blocks / nblocks:.3f}x")
+        # no warm wave: phases 5 and 13 ran every kernel and GEMM shape of
+        # this engine, and phase 12 the quantized append's operations
+        engine = ServingEngine(params, cfg, seed=0, device=DEV,
+                               kv_cache_dtype=kind, **FULL_ENGINE)
+        outs, rec = timed_wave(engine, prompts, news, card, kind)
+        require(rec["launches"]["ragged_paged_attention"]
+                == L * rec["passes"] > 0,
+                f"{kind}: a layer of a pass did not go through the kernel")
+        if kind == "int8":
+            rec["profile"] = profile_wave(engine, prompts, card, gather=True,
+                                          n=2, tokens=8)
+        del engine
+        fresh = ServingEngine(params, cfg, seed=0, device=DEV,
+                              kv_cache_dtype=kind, **FULL_ENGINE)
+        again, _, wall = serve(fresh, prompts, news)
+        del fresh
+        log(f"{kind}: a fresh engine's wave {wall:.2f} s")
+        require(outs == again, f"{kind}: a fresh engine's outputs differ")
+        t0 = time.perf_counter()
+        top1, top5, first, n, margins = teacher_forced(params, cfg, prompts,
+                                                       outs, 5)
+        log(f"({time.perf_counter() - t0:.1f} s) {kind} teacher-forced vs the dense bf16 forward: top-5 "
+            f"containment {top5}/{n} = {top5 / n:.2%} (gate {gate:.0%}), "
+            f"top-1 {top1}/{n} = {top1 / n:.2%}, first tokens top-1 "
+            f"{first}/{len(outs)}")
+        require(top5 >= gate * n, f"{kind}: top-5 containment below the gate")
+        rec.update(top5=top5 / n, top1=top1 / n, blocks_for_budget=blocks,
+                   budget_bytes=budget)
+        recs[kind] = rec
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1120,7 +1695,7 @@ def main() -> int:
     full = full_width_bf16_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
     t0 = phase("5b. GPT-1.3B shape, fp32, exactness")
-    full_width_fp32_phase()
+    ragged_fp32_outs = full_width_fp32_phase()
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("6. flash attention kernels vs plain on the card")
@@ -1137,6 +1712,22 @@ def main() -> int:
     log(f"phase {time.perf_counter() - t0:.1f} s")
     t0 = phase("9b. exactness at full width: kernel path vs plain path")
     exact = exactness_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("10. paged decode kernel vs plain on the card")
+    dec = paged_decode_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("11. flash forward with a bias vs plain on the card")
+    bias = flash_bias_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("12. ragged kernel over int8 / fp8 pools vs plain on the card")
+    quant = quantized_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("13. GPT-1.3B shape, two-program engine (the default path)")
+    two = two_program_phase(card, ragged_fp32_outs)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("14. GPT-1.3B shape, ragged engine with int8 / fp8 KV pools")
+    qeng = quantized_engine_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
@@ -1170,6 +1761,33 @@ def main() -> int:
         **{k: adam[k] for k in keys},
         shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
         ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact))
+    kernels += [
+        dict(name="paged_decode_attention", route="cuda",
+             source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
+             replaces="paddle_tpu/kernels/pallas/paged_attention.py:97",
+             launches=two["launches"]["paged_decode_attention"],
+             **{k: dec[k] for k in keys},
+             shape="decode B=8 H=16 D=128 bs=32 bf16, lens 100..640",
+             two_program=two),
+        dict(name="flash_fwd_bias", route="cuda",
+             source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+             replaces=f"{fa}:275",
+             launches=two["launches"]["flash_fwd"],
+             **{k: bias[k] for k in keys},
+             shape="prefill P=8 C=128 cap=640 H=16 D=128 bf16, bias "
+                   "[8,1,128,640], q a view of qkv, k/v gathered views"),
+        dict(name="ragged_paged_attention_quantized", route="cuda",
+             source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+             replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:58",
+             launches=qeng["int8"]["launches"]["ragged_paged_attention"],
+             **{k: quant["int8"][k] for k in keys},
+             shape="decode R=8 H=16 D=128 bs=32, bf16 q, int8 pools, kv_len "
+                   "100..640",
+             fp8={k: quant["fp8"][k] for k in keys},
+             mixed={k: quant["int8_mixed"][k] for k in keys},
+             fp8_launches=qeng["fp8_e4m3"]["launches"][
+                 "ragged_paged_attention"],
+             serving=qeng)]
     log(f"kernels: {[k['name'] for k in kernels]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,18 @@
 // V are never repeated. Any Sq and Sk; D in {64, 128}; fp32 or bf16 in,
 // fp32 scores, softmax and accumulators.
 //
+// Additive bias (`_fwd_kernel` with has_bias, the two-program serving
+// prefill's attention mask): a [B, H, Sq, Sk] view in q's dtype whose four
+// strides may be 0 (a [1|B, 1|H, Sq, Sk] mask broadcast in place), added to
+// the scaled fp32 scores before the running max, as `_mask_scores` does. The
+// mask is arbitrary, so no tile is skipped beyond the causal bound, and a row
+// whose every score the bias pushed to -1e30 is dead (m <= -0.5e30): it writes
+// zeros and lse = -1e30. The bias is a template flag: the kernels without it
+// are the same code as before it existed. At the serving prefill shape (P 8,
+// C 128, cap 640, H 16, D 128, bf16, bias [8, 1, 128, 640]) the call must move
+// q 4.19 MB, k and v 41.9 MB, the bias 1.31 MB and out 4.19 MB, ~0.0154 ms
+// at 3.35 TB/s, against ~0.0054 ms of operations: bytes bound it.
+//
 // TPU -> Hopper. The Pallas grid (B*H, q blocks, k blocks) carries m, l and
 // the accumulator across its sequential k axis in VMEM scratch. CUDA blocks
 // run in no order, so one block of 256 threads owns one (query tile of 64,
@@ -44,7 +56,17 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1));
 }
 
-template <int D>
+// bias[qpos, kpos] of this (batch, head), as fp32
+template <typename T>
+__device__ __forceinline__ float bias_at(const T* bb, int qpos, int kpos, const Args& a) {
+  const T x = bb[qpos * a.vb.q + kpos * a.vb.k];
+  if constexpr (std::is_same<T, bf16>::value)
+    return __bfloat162float(x);
+  else
+    return x;
+}
+
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   constexpr int ldq = D + 1, ldp = kTile + 1, NC = D / 16;
@@ -59,6 +81,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   const float* qb = static_cast<const float*>(a.q) + b * a.vq.b + h * a.vq.h;
   const float* kb = static_cast<const float*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const float* vb = static_cast<const float*>(a.v) + b * a.vv.b + hk * a.vv.h;
+  const float* bb = kBias ? static_cast<const float*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
 
   load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ldq);
 
@@ -106,6 +129,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         ok[j] = visible(q0 + r, k0 + tx + 16 * j, a);
         s[i][j] *= a.scale;
+        if (kBias && ok[j]) s[i][j] += bias_at(bb, q0 + r, k0 + tx + 16 * j, a);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -143,7 +167,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    const bool dead = l[i] == 0.f;  // no visible key (or no key tile at all)
+    // no visible key (or no key tile at all); with a bias, also every score
+    // pushed to -1e30 (then p = exp(0) makes l > 0)
+    const bool dead = l[i] == 0.f || (kBias && m[i] <= kNegInf * 0.5f);
     const float inv = dead ? 0.f : 1.f / l[i];
     float* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
 #pragma unroll
@@ -161,7 +187,7 @@ constexpr size_t fwd_tc_smem() {
          sizeof(float) * (kTile * kLdS + kTile * (D + 4));
 }
 
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   constexpr int ld = tc_ld<D>(), ldo = D + 4, NC = D / 16;
@@ -178,6 +204,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vv.b + hk * a.vv.h;
+  const bf16* bb = kBias ? static_cast<const bf16*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
 
   load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
 
@@ -209,6 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         ok[j] = visible(q0 + r, k0 + tx + 16 * j, a);
         s[j] = Ss[r * kLdS + tx + 16 * j] * a.scale;
+        if (kBias && ok[j]) s[j] += bias_at(bb, q0 + r, k0 + tx + 16 * j, a);
         if (ok[j]) mx = fmaxf(mx, s[j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -243,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    const bool dead = l[i] == 0.f;
+    const bool dead = l[i] == 0.f || (kBias && m[i] <= kNegInf * 0.5f);
     const float inv = dead ? 0.f : 1.f / l[i];
     bf16* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
 #pragma unroll
@@ -263,15 +291,16 @@ int launch_kernel(K* kernel, size_t smem, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kBias>
 int launch(const Args& a, int dtype, cudaStream_t s) {
-  return dtype == 0 ? launch_kernel(flash_fwd_kernel<D>, fwd_smem<D>(), a, s)
-                    : launch_kernel(flash_fwd_tc_kernel<D>, fwd_tc_smem<D>(), a, s);
+  return dtype == 0 ? launch_kernel(flash_fwd_kernel<D, kBias>, fwd_smem<D>(), a, s)
+                    : launch_kernel(flash_fwd_tc_kernel<D, kBias>, fwd_tc_smem<D>(), a, s);
 }
 
 int dispatch_d(const Args& a, int D, int dtype, cudaStream_t s) {
-  if (D == 64) return launch<64>(a, dtype, s);
-  return launch<128>(a, dtype, s);
+  if (a.bias != nullptr)
+    return D == 64 ? launch<64, true>(a, dtype, s) : launch<128, true>(a, dtype, s);
+  return D == 64 ? launch<64, false>(a, dtype, s) : launch<128, false>(a, dtype, s);
 }
 
 }  // namespace
@@ -279,15 +308,18 @@ int dispatch_d(const Args& a, int D, int dtype, cudaStream_t s) {
 
 extern "C" {
 
-// strides: 9 element strides (batch, seq, head) of q, k and v, in that
-// order. out is written contiguous [B, Sq, H, D] in the input dtype, lse fp32
-// [B, H, Sq]. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError()
-// after the launch (0 = success), or cudaErrorInvalidValue before any launch
-// for what the kernel does not take: D not in {64, 128}, H not a multiple
-// of H_kv, a base pointer or stride that is not 16-byte aligned.
-int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                  const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                  float scale, int causal, int dtype, void* stream) {
+// strides: 13 element strides: (batch, seq, head) of q, k and v, in that
+// order, then the bias's (batch, head, query, key), any of which may be 0.
+// bias: an additive [B, H, Sq, Sk] view in q's dtype, or null for none (its
+// strides are then not read). out is written contiguous [B, Sq, H, D] in the
+// input dtype, lse fp32 [B, H, Sq]. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch (0 = success), or cudaErrorInvalidValue
+// before any launch for what the kernel does not take: D not in {64, 128}, H
+// not a multiple of H_kv, a base pointer or q/k/v stride that is not 16-byte
+// aligned.
+int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  void* lse, const long long* strides, int B, int Sq, int Sk, int H, int Hkv,
+                  int D, float scale, int causal, int dtype, void* stream) {
   using namespace ptt_flash;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const int itemsize = dtype == 0 ? 4 : 2;
@@ -295,11 +327,13 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* 
   a.q = q;
   a.k = k;
   a.v = v;
+  a.bias = bias;
   a.out = out;
   a.lse = static_cast<float*>(lse);
   a.vq = view_from(strides);
   a.vk = view_from(strides + 3);
   a.vv = view_from(strides + 6);
+  if (bias != nullptr) a.vb = BiasView{strides[9], strides[10], strides[11], strides[12]};
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;

@@ -33,6 +33,10 @@ struct View {  // element strides of a [B, S, H, D] view, D stride 1
   long long b, s, h;
 };
 
+struct BiasView {  // element strides of an additive [B, H, Sq, Sk] bias, any may be 0
+  long long b, h, q, k;
+};
+
 struct Args {
   const void* q;
   const void* k;
@@ -45,7 +49,9 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
+  const void* bias;  // forward only: additive bias in q's dtype, or null
   View vq, vk, vv, vo, vdo;
+  BiasView vb;
   int B, Sq, Sk, H, Hkv;
   float scale;
   int causal;

@@ -8,6 +8,13 @@
 // kv_len[r] - q_len[r] + c and sees keys at or before it; columns c >= q_len
 // and rows that see no key emit zeros.
 //
+// Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
+// fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
+// dequantized as v * scale[h, page] / qmax (qmax 127 or 448) right after the
+// load into the fp32 shared tile, so no float page reaches device memory. A
+// decode row then reads 1 byte per cached element instead of 2: its bound is
+// the 1-byte pages plus two scales per page, about half the bf16 bound.
+//
 // TPU -> Hopper. The Pallas grid (R, H_kv, nb) walks a row's table slots in
 // order and carries m/l/acc in VMEM scratch from one grid step to the next.
 // CUDA blocks run in no order, so here one block owns one
@@ -37,65 +44,31 @@
 // row's pages over several blocks is the next step, then cp.async/TMA
 // pipelining and wgmma for the prefill tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "paged_common.cuh"
 
 namespace {
+
+using namespace ptt_paged;
 
 constexpr int kThreads = 128;
 constexpr int kTileRows = 16;                                // folded rows per block
 constexpr int kMaxD = 128;
 constexpr int kMaxAcc = kTileRows * kMaxD / kThreads;        // outputs per thread
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One contiguous [bs, D] page -> shared fp32 with row stride `ld`, 16 bytes
-// per thread per load (D is a multiple of the vector width, checked by
-// ptt_ragged_paged_attention, so a vector never straddles two rows).
-template <typename T>
-__device__ __forceinline__ void load_page(const T* __restrict__ src, float* dst,
-                                          int bs, int D, int ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int n_vec = bs * D / kVec;
-  const uint4* src4 = reinterpret_cast<const uint4*>(src);
-  for (int v = threadIdx.x; v < n_vec; v += kThreads) {
-    const uint4 raw = __ldg(src4 + v);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    const int idx = v * kVec;
-    float* d = dst + (idx / D) * ld + (idx % D);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) d[i] = to_f32(e[i]);
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
+// T: the query and output type (fp32, bf16); P: the pool type (T, or int8 /
+// fp8 e4m3 with per-page scales).
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool, const int* __restrict__ tables,
+ragged_paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                              const P* __restrict__ v_pool, const int* __restrict__ tables,
                               const int* __restrict__ q_lens, const int* __restrict__ kv_lens,
-                              T* __restrict__ out, int C, int Hq, int Hkv, int NB, int bs,
-                              int D, int nb, float scale) {
+                              const float* __restrict__ k_scales,
+                              const float* __restrict__ v_scales, T* __restrict__ out, int C,
+                              int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
+                              float qmax) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   extern __shared__ float smem[];
   const int tile = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
   const int g = Hq / Hkv;
@@ -141,9 +114,13 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   const int* table = tables + static_cast<size_t>(r) * nb;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int j = 0; j < n_pages; ++j) {
-    const size_t base = (static_cast<size_t>(h) * NB + table[j]) * bs * D;
-    load_page(k_pool + base, Ks, bs, D, ldk);
-    load_page(v_pool + base, Vs, bs, D, D);
+    const int page = table[j];
+    const size_t base = (static_cast<size_t>(h) * NB + page) * bs * D;
+    // the dequantization factor, as the reference forms it: scale / qmax
+    const float km = kQuant ? k_scales[static_cast<size_t>(h) * NB + page] / qmax : 1.f;
+    const float vm = kQuant ? v_scales[static_cast<size_t>(h) * NB + page] / qmax : 1.f;
+    load_page(k_pool + base, Ks, bs, D, ldk, km, kThreads);
+    load_page(v_pool + base, Vs, bs, D, D, vm, kThreads);
     __syncthreads();
 
     // s = q . k over the live rows; masked columns keep kNegInf
@@ -220,10 +197,11 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-           const void* q_lens, const void* kv_lens, void* out, int R, int C, int Hq, int Hkv,
-           int NB, int bs, int D, int nb, float scale, cudaStream_t stream) {
+           const void* q_lens, const void* kv_lens, const void* k_scales, const void* v_scales,
+           void* out, int R, int C, int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
+           float qmax, cudaStream_t stream) {
   const int tiles = (C * (Hq / Hkv) + kTileRows - 1) / kTileRows;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kTileRows) * (D + 1) +
                                        static_cast<size_t>(bs) * (D + 1) +
@@ -231,47 +209,70 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
                                        static_cast<size_t>(kTileRows) * bs + 3 * kTileRows);
   static size_t smem_allowed = 48 * 1024;  // raised once per larger request
   if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, P>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
   dim3 grid(tiles, Hkv, R);
-  ragged_paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+  ragged_paged_attention_kernel<T, P><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k_pool), static_cast<const P*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(q_lens),
-      static_cast<const int*>(kv_lens), static_cast<T*>(out), C, Hq, Hkv, NB, bs, D, nb, scale);
+      static_cast<const int*>(kv_lens), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<T*>(out), C, Hq, Hkv, NB, bs, D, nb, scale,
+      qmax);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pool(int pool_dtype, const void* q, const void* k_pool, const void* v_pool,
+                const void* tables, const void* q_lens, const void* kv_lens, const void* k_scales,
+                const void* v_scales, void* out, int R, int C, int Hq, int Hkv, int NB, int bs,
+                int D, int nb, float scale, cudaStream_t s) {
+  const float qmax = qmax_of(pool_dtype);
+  if (pool_dtype == 0)
+    return launch<T, T>(q, k_pool, v_pool, tables, q_lens, kv_lens, nullptr, nullptr, out, R, C,
+                        Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
+  if (pool_dtype == 1)
+    return launch<T, int8_t>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales, v_scales, out,
+                             R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
+  return launch<T, __nv_fp8_e4m3>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales, v_scales,
+                                  out, R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = success); the caller raises on anything else. Shapes the kernel
-// does not take return cudaErrorInvalidValue before any launch: head_dim
-// above kMaxD or not a whole number of 16-byte vectors, pools not 16-byte
-// aligned, or a block_size whose page does not fit in shared memory (refused
-// by cudaFuncSetAttribute).
+// dtype: 0 = float32, 1 = bfloat16 (q and out). pool_dtype: 0 = pools of
+// q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
+// fp32 [H_kv, NB] scales. Returns cudaGetLastError() after the launch (0 =
+// success); the caller raises on anything else. Shapes the kernel does not
+// take return cudaErrorInvalidValue before any launch: head_dim above kMaxD
+// or not a whole number of 16-byte vectors of the pool type, pools not
+// 16-byte aligned, a quantized pool without its scales, or a block_size
+// whose page does not fit in shared memory (refused by cudaFuncSetAttribute).
 int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* tables, const void* q_lens, const void* kv_lens,
-                               void* out, int R, int C, int Hq, int Hkv, int NB, int bs, int D,
-                               int nb, float scale, int dtype, void* stream) {
+                               void* out, const void* k_scales, const void* v_scales, int R,
+                               int C, int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
+                               int dtype, int pool_dtype, void* stream) {
   if (R == 0 || C == 0) return 0;
-  const int vec = 16 / (dtype == 0 ? 4 : 2);
+  if ((dtype != 0 && dtype != 1) || pool_dtype < 0 || pool_dtype > 2 ||
+      (pool_dtype != 0 && (k_scales == nullptr || v_scales == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
   if (D > kMaxD || D % vec != 0 || reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, q_lens, kv_lens, out, R, C, Hq, Hkv, NB, bs,
-                         D, nb, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, q_lens, kv_lens, out, R, C, Hq, Hkv,
-                                 NB, bs, D, nb, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_pool<float>(pool_dtype, q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
+                              v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale, s);
+  return launch_pool<__nv_bfloat16>(pool_dtype, q, k_pool, v_pool, tables, q_lens, kv_lens,
+                                    k_scales, v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale,
+                                    s);
 }
 
 const char* ptt_error_string(int code) {

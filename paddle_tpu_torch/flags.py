@@ -77,11 +77,12 @@ define_flag("serving_decode_burst", 8,
 define_flag("serving_prefill_chunk", 32,
             "Chunked-prefill slice length in the serving engine.")
 define_flag("serving_ragged", False,
-            "Single-dispatch ragged serving. The port implements only this "
-            "path; off (the two-program path) raises NotImplementedError.")
+            "Single-dispatch ragged serving; off runs the two-program path "
+            "(a batched prefill chunk and a decode burst per step).")
 define_flag("serving_kv_cache_dtype", "auto",
-            "KV-pool storage dtype; the port supports auto (the model "
-            "compute dtype) only.")
+            "KV-pool storage dtype: auto (the model compute dtype), bf16, "
+            "f32, or int8 / fp8_e4m3 with per-page scales (ragged path "
+            "only).")
 define_flag("serving_adaptive_mix", True,
             "Adapt the per-step prefill/decode mix from the queue-depth and "
             "TTFT series of the engine's Prometheus registry.")

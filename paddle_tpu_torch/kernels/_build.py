@@ -118,18 +118,25 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
+    ll = ctypes.c_longlong
     signatures = {
-        "ptt_ragged_paged_attention": [vp] * 7 + [ci] * 8 + [cf, ci, vp],
-        # q, k, v, out, lse, strides, B, Sq, Sk, H, Hkv, D, scale, causal,
-        # dtype, stream
-        "ptt_flash_fwd": [vp] * 5 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
+        # q, k, v, tables, q_lens, kv_lens, out, k_scales, v_scales, R, C,
+        # Hq, Hkv, NB, bs, D, nb, scale, dtype, pool_dtype, stream
+        "ptt_ragged_paged_attention": [vp] * 9 + [ci] * 8 + [cf, ci, ci, vp],
+        # q, k, v, tables, lens, out, B, Hq, Hkv, NB, bs, D, nb, q strides
+        # (batch, head), scale, dtype, stream
+        "ptt_paged_decode_attention": [vp] * 6 + [ci] * 7 + [ll, ll]
+        + [cf, ci, vp],
+        # q, k, v, bias (or null), out, lse, strides (13), B, Sq, Sk, H,
+        # Hkv, D, scale, causal, dtype, stream
+        "ptt_flash_fwd": [vp] * 6 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
         # q, k, v, o, dO, lse, delta, dq, strides, ...
         "ptt_flash_bwd_dq": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
         # q, k, v, dO, lse, delta, dk, dv, strides, ...
         "ptt_flash_bwd_dkv": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
         # p, g, m1, m2, master, n, p_dtype, m_dtype, lr, c1, c2, b1, 1-b1,
         # b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
-        "ptt_fused_adam": [vp] * 5 + [ctypes.c_longlong, ci, ci] + [cf] * 10
+        "ptt_fused_adam": [vp] * 5 + [ll, ci, ci] + [cf] * 10
         + [ci, ctypes.c_uint, ctypes.c_uint, vp],
     }
     for name, argtypes in signatures.items():

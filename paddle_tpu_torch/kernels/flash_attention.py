@@ -19,6 +19,13 @@ For bf16 the products run on the tensor cores (warp-level WMMA from bf16
 shared tiles, fp32 accumulators, the softmax in fp32 between them); for fp32
 on the FP32 pipes from fp32 shared tiles, exact to fp32 rounding.
 
+The forward also takes an additive bias ``[1|B, 1|H, Sq, Sk]`` in q's
+dtype, added to the scaled scores before the softmax (``_fwd_kernel`` with
+``has_bias``), read in place with stride 0 over its broadcast dims; a row
+whose every score the bias pushed to -1e30 gives zeros and ``lse = -1e30``.
+The backward with a bias (and the d-bias) is not ported: ``flash_attention``
+with a bias runs the forward alone and raises when a gradient is asked for.
+
 Wrappers: ``flash_fwd`` (out, lse), ``flash_bwd_dq`` (dq, delta) and
 ``flash_bwd_dkv`` (dk, dv), and ``flash_bwd`` (both, in order). A CUDA tensor
 goes to the kernel or the call raises; a CPU tensor goes to the plain PyTorch
@@ -66,14 +73,18 @@ def _scores(q, k, causal, sm_scale):
     return s, ok
 
 
-def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
-    """Plain PyTorch forward: (out in q's dtype, lse fp32 [B, H, Sq])."""
+def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, bias=None):
+    """Plain PyTorch forward: (out in q's dtype, lse fp32 [B, H, Sq]);
+    ``bias`` (broadcast to [B, H, Sq, Sk]) is added to the scaled scores."""
     s, ok = _scores(q, k, causal, sm_scale)
     H, Hkv = q.shape[2], k.shape[2]
+    if bias is not None:
+        s = s + bias.float()
     s = s.masked_fill(~ok, _NEG_INF)
     m = s.amax(-1, keepdim=True)
     dead = m <= 0.5 * _NEG_INF                                 # sees no key
-    p = torch.exp(s - m) * ok
+    # where, not only the mask: a row the bias kills keeps ok, with p ~ 1
+    p = torch.where(ok & ~dead, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     vf = v.float().repeat_interleave(H // Hkv, dim=2)
     out = torch.einsum("bhqk,bkhd->bqhd", p / torch.where(dead, 1.0, l), vf)
@@ -115,10 +126,11 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal: bool, sm_scale: float,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _strides(*ts):
+def _strides(*ts, extra=()):
     vals = []
     for t in ts:
         vals += [t.stride(0), t.stride(1), t.stride(2)]
+    vals += list(extra)
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -169,21 +181,43 @@ def _is_cpu(t):
     return False
 
 
-def flash_fwd(q, k, v, causal: bool, sm_scale: float):
-    """(out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq])."""
+def _bias_view(bias, q, k):
+    """The bias in q's dtype as a [B, H, Sq, Sk] view: stride 0 over its
+    broadcast dims (``expand`` copies nothing)."""
+    B, Sq, H, _ = q.shape
+    full = (B, H, Sq, k.shape[1])
+    if (bias.dim() > 4 or not bias.is_floating_point() or any(
+            n not in (1, m) for n, m in zip(bias.shape[::-1], full[::-1]))):
+        raise ValueError(f"bias must be a float mask that broadcasts to "
+                         f"{list(full)}, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    if bias.device != q.device:
+        raise ValueError(f"bias is on {bias.device}, q on {q.device}")
+    return bias.to(q.dtype).expand(full)
+
+
+def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None):
+    """(out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]); ``bias``: an
+    additive float mask that broadcasts to [B, H, Sq, Sk], cast to q's
+    dtype."""
     if _is_cpu(q):
-        return flash_fwd_plain(q, k, v, causal, sm_scale)
+        return flash_fwd_plain(q, k, v, causal, sm_scale, bias)
     _check_cuda(q, k, v)
     from ._build import load_library
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    _launch(f"flash_fwd launch (B={B} Sq={Sq} Sk={Sk} H={H} H_kv={Hkv} "
-            f"D={D} {q.dtype})", load_library().ptt_flash_fwd, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _strides(q, k, v), B, Sq, Sk, H, Hkv, D,
-            float(sm_scale), int(causal), _DTYPE_CODE[q.dtype])
+    what = (f"flash_fwd launch (B={B} Sq={Sq} Sk={Sk} H={H} H_kv={Hkv} "
+            f"D={D} {q.dtype}{', bias' if bias is not None else ''})")
+    bias_ptr, bias_strides = None, (0, 0, 0, 0)
+    if bias is not None:
+        bias = _bias_view(bias, q, k)
+        bias_ptr, bias_strides = bias.data_ptr(), bias.stride()
+    _launch(what, load_library().ptt_flash_fwd, q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+            lse.data_ptr(), _strides(q, k, v, extra=bias_strides), B, Sq, Sk,
+            H, Hkv, D, float(sm_scale), int(causal), _DTYPE_CODE[q.dtype])
     flash_fwd.LAUNCHES += 1
     return out, lse
 
@@ -283,10 +317,14 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
                     dropout_seed=None, bias_grad=False):
     """Fused attention. query [B, Sq, H, D]; key / value [B, Sk, H_kv, D]
     with H % H_kv == 0 (GQA indexed, never repeated) -> [B, Sq, H, D].
-    Differentiable in query, key and value. The bias, segment-id, flashmask,
-    window and dropout variants raise NotImplementedError."""
+    Differentiable in query, key and value. ``bias``: an additive float mask
+    that broadcasts to [B, H, Sq, Sk] (use 0 / -1e30 for a bool mask), a
+    constant; with a bias the call is forward only and raises
+    NotImplementedError when grad mode is on and an input requires grad.
+    The segment-id, flashmask, window and dropout variants raise
+    NotImplementedError."""
     del dropout_seed
-    for name, val in (("bias", bias), ("q_segment_ids", q_segment_ids),
+    for name, val in (("q_segment_ids", q_segment_ids),
                       ("kv_segment_ids", kv_segment_ids),
                       ("startend_row_indices", startend_row_indices),
                       ("window", window)):
@@ -298,4 +336,9 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
         raise _queue2("bias_grad")
     d = query.shape[-1]
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
+    if bias is not None:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (query, key, value)):
+            raise _queue2("the backward with a bias")
+        return flash_fwd(query, key, value, bool(causal), scale, bias)[0]
     return _Flash.apply(query, key, value, bool(causal), scale)

@@ -16,7 +16,11 @@ short:
   16 folded (chunk, group) query rows) loops over only that row's pages
   (cut further by the tile's last causal column), reading each page once
   with 16-byte coalesced loads; online softmax in fp32 with the accumulator
-  in registers. No load/compute overlap and no tensor cores yet.
+  in registers. No load/compute overlap and no tensor cores yet;
+* quantized pools (int8 or fp8 e4m3 with fp32 per-(kv head, page) scales,
+  ``quantization/kv_cache.py``) are dequantized as ``v * scale / qmax`` in
+  the load into the fp32 shared tile, so a decode row reads half the bytes
+  of a bf16 pool.
 
 ``ragged_paged_attention`` is the wrapper: a CUDA tensor goes to the kernel
 (or the call raises), a CPU tensor goes to ``ragged_paged_attention_plain``,
@@ -33,29 +37,37 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# pool element codes of the C entry: 0 = q's float dtype, then the
+# quantized storage dtypes with the top of their grid (qmax)
+_POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
 
-def _not_quantized(k_scales, v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized KV pools (k_scales / v_scales) are not ported yet: "
-            "ROADMAP Queue 1, the quantized KV pool (quantization/kv_cache.py)")
+def _pages(pool, scales, tables):
+    """[H_kv, R, nb, bs, D] fp32 pages of every table slot, dequantized as
+    ``q * (scale / qmax)`` (the reference's order) when ``scales`` is
+    given."""
+    pages = pool[:, tables].float()
+    if scales is None:
+        return pages
+    mul = scales.float()[:, tables] / _QMAX[pool.dtype]            # [H, R, nb]
+    return pages * mul[..., None, None]
 
 
 def ragged_paged_attention_plain(q, k_pool, v_pool, block_tables, q_lens,
                                  kv_lens, scale: float, k_scales=None,
                                  v_scales=None):
-    """Plain PyTorch version of the kernel: gather each row's table pages,
-    masked softmax in fp32. Same contract as ``ragged_paged_attention``."""
-    _not_quantized(k_scales, v_scales)
+    """Plain PyTorch version of the kernel: gather each row's table pages
+    (dequantized when scales are given), masked softmax in fp32. Same
+    contract as ``ragged_paged_attention``."""
     R, C, hq, D = q.shape
     hkv, _, bs, _ = k_pool.shape
     nb = block_tables.shape[1]
     g = hq // hkv
     tables = block_tables.long()
     # [H_kv, R, nb * bs, D]: every table slot, past-end ones masked below
-    k = k_pool[:, tables].reshape(hkv, R, nb * bs, D).float()
-    v = v_pool[:, tables].reshape(hkv, R, nb * bs, D).float()
+    k = _pages(k_pool, k_scales, tables).reshape(hkv, R, nb * bs, D)
+    v = _pages(v_pool, v_scales, tables).reshape(hkv, R, nb * bs, D)
     qf = q.float().reshape(R, C, hkv, g, D)
     s = torch.einsum("rchgd,hrkd->rhgck", qf, k) * scale
     c = torch.arange(C, device=q.device)
@@ -71,26 +83,40 @@ def ragged_paged_attention_plain(q, k_pool, v_pool, block_tables, q_lens,
     return out.reshape(R, C, hq, D).to(q.dtype)
 
 
-def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens):
+def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
+                k_scales=None, v_scales=None):
     R, C, hq, D = q.shape
-    hkv, _, _, D2 = k_pool.shape
+    hkv, NB, _, D2 = k_pool.shape
     dev = q.device
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"ragged_paged_attention kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
+    quantized = k_pool.dtype in _POOL_CODE
+    if (k_scales is None) != (v_scales is None) or \
+            quantized != (k_scales is not None):
+        raise TypeError(f"{k_pool.dtype} pools take k_scales and v_scales "
+                        f"exactly when they are int8 or float8_e4m3fn")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.dtype != (k_pool.dtype if quantized else q.dtype):
+            raise TypeError(f"{name} dtype {t.dtype} does not fit q dtype "
+                            f"{q.dtype} and k_pool dtype {k_pool.dtype}")
         if t.shape != k_pool.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != k_pool "
                              f"shape {tuple(k_pool.shape)}")
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("block_tables", block_tables), ("q_lens", q_lens),
+             ("kv_lens", kv_lens)]
+    if quantized:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if t.dtype != torch.float32 or t.shape != (hkv, NB):
+                raise TypeError(f"{name} must be float32 [{hkv}, {NB}], got "
+                                f"{t.dtype} {tuple(t.shape)}")
+        named += [("k_scales", k_scales), ("v_scales", v_scales)]
     for name, t in (("block_tables", block_tables), ("q_lens", q_lens),
                     ("kv_lens", kv_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("q_lens", q_lens),
-                    ("kv_lens", kv_lens)):
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -107,37 +133,44 @@ def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens):
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
                            scale: float, k_scales=None, v_scales=None):
     """q: [R, C, H_q, D] (row r's chunk occupies columns [0, q_lens[r]));
-    pools: [H_kv, num_blocks, bs, D]; block_tables: [R, nb] int32;
-    q_lens: [R] int32 (0 = inactive row); kv_lens: [R] int32, the TOTAL kv
-    length including this chunk (query c sits at absolute position
-    kv_lens - q_lens + c) -> [R, C, H_q, D] in q's dtype.
+    pools: [H_kv, num_blocks, bs, D] of q's dtype, or int8 / float8_e4m3fn
+    with ``k_scales`` / ``v_scales``: fp32 [H_kv, num_blocks] per-page absmax
+    scales (dequantized as ``q * scale / qmax``, qmax 127 or 448);
+    block_tables: [R, nb] int32; q_lens: [R] int32 (0 = inactive row);
+    kv_lens: [R] int32, the TOTAL kv length including this chunk (query c
+    sits at absolute position kv_lens - q_lens + c) -> [R, C, H_q, D] in q's
+    dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise: TypeError or ValueError for a dtype, device or layout the kernel
     does not take, RuntimeError for a shape the kernel's C entry refuses
     (head_dim, alignment, shared memory) or a failed launch."""
-    _not_quantized(k_scales, v_scales)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                            q_lens, kv_lens, scale)
+                                            q_lens, kv_lens, scale, k_scales,
+                                            v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device "
                          f"{q.device}")
-    _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens)
+    _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens, k_scales,
+                v_scales)
     from ._build import check, load_library
     lib = load_library()
     R, C, hq, D = q.shape
     hkv, NB, bs, _ = k_pool.shape
+    pool_code = _POOL_CODE.get(k_pool.dtype, 0)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.ptt_ragged_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), R, C, hq, hkv, NB, bs, D, block_tables.shape[1],
-            float(scale), _DTYPE_CODE[q.dtype], stream)
+            out.data_ptr(), k_scales.data_ptr() if pool_code else None,
+            v_scales.data_ptr() if pool_code else None, R, C, hq, hkv, NB,
+            bs, D, block_tables.shape[1], float(scale), _DTYPE_CODE[q.dtype],
+            pool_code, stream)
     check(code, f"ragged_paged_attention launch (R={R} C={C} H_q={hq} "
-          f"H_kv={hkv} bs={bs} D={D} {q.dtype})")
+          f"H_kv={hkv} bs={bs} D={D} {q.dtype}, {k_pool.dtype} pools)")
     ragged_paged_attention.LAUNCHES += 1
     return out
 

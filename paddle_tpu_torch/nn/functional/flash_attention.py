@@ -7,7 +7,8 @@ package sends it to the Pallas flash kernel on the TPU and to the composed
 ``_sdpa_reference`` elsewhere. The port decides by device, never on failure:
 CUDA tensors go to the flash kernels (``kernels/flash_attention.py``) or the
 call raises; CPU tensors go to ``_sdpa_reference``. The kernels take every
-sequence length, so the JAX gate's ``S % 128`` (a TPU tiling rule) has no
+sequence length and any mask that broadcasts to ``[B, H, Sq, Sk]``, so the
+JAX gate's ``S % 128`` and mask-shape rules (TPU tiling rules) have no
 counterpart. Layouts are ``[B, S, H, D]``.
 """
 
@@ -72,8 +73,11 @@ def _sdpa_reference(query, key, value, attn_mask=None, dropout_p=0.0,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, segment_ids=None):
-    """The registry op. CUDA tensors: the flash kernels (causal or not, GQA);
-    ``attn_mask``, ``segment_ids`` and dropout in training raise
+    """The registry op. CUDA tensors: the flash kernels (causal or not, GQA),
+    with ``attn_mask`` taken as ``_sdpa_pallas`` takes it: a bool keep-mask
+    becomes the additive ``where(mask, 0, -1e30)`` in q's dtype, a float
+    mask is the bias as it is; either goes to the forward kernel with stride
+    0 over its broadcast dims. ``segment_ids`` and dropout in training raise
     NotImplementedError there (ROADMAP Queue 2 #2, the flash kernel's
     variants). CPU tensors: the composed ``_sdpa_reference``."""
     del name
@@ -81,14 +85,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _sdpa_reference(query, key, value, attn_mask, dropout_p,
                                is_causal, training=training,
                                segment_ids=segment_ids)
-    for what, val in (("attn_mask", attn_mask), ("segment_ids", segment_ids)):
-        if val is not None:
-            raise NotImplementedError(
-                f"scaled_dot_product_attention: {what} on the card is not "
-                f"ported yet (ROADMAP Queue 2 #2, the flash kernel's "
-                f"variants)")
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: segment_ids on the card is not "
+            "ported yet (ROADMAP Queue 2 #2, the flash kernel's variants)")
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout on the card is not ported "
             "yet (ROADMAP Queue 2 #2, the flash kernel's variants)")
-    return flash_attention(query, key, value, causal=is_causal)
+    bias = None
+    if attn_mask is not None:
+        attn_mask = attn_mask.detach()
+        bias = (torch.where(attn_mask, 0.0, -1e30).to(query.dtype)
+                if attn_mask.dtype == torch.bool else attn_mask)
+    return flash_attention(query, key, value, causal=is_causal, bias=bias)

@@ -149,7 +149,7 @@ def test_split_backward_matches_plain():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(bias=np.zeros((1, 1, 8, 8))),
+@pytest.mark.parametrize("kw", [dict(bias=torch.zeros((1, 1, 8, 8))),
                                 dict(q_segment_ids=np.zeros((1, 8))),
                                 dict(kv_segment_ids=np.zeros((1, 8))),
                                 dict(startend_row_indices=(0, 0)),
@@ -159,9 +159,70 @@ def test_split_backward_matches_plain():
                          ids=["bias", "q_seg", "kv_seg", "flashmask",
                               "window", "dropout", "bias_grad"])
 def test_unported_arguments_raise(kw):
-    q = torch.zeros(1, 8, 2, 16)
+    # a bias runs the forward alone: it raises when a gradient is asked for
+    q = torch.zeros(1, 8, 2, 16, requires_grad="bias" in kw)
     with pytest.raises(NotImplementedError, match="Queue 2 #2"):
         FA.flash_attention(q, q, q, causal=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the forward with an additive bias (the two-program prefill's mask)
+# ---------------------------------------------------------------------------
+BIAS_SHAPES = ["1,1", "B,1", "1,H", "B,H"]
+
+
+def _bias(rng, B, H, sq, sk, shape, dead_row=None):
+    mb, mh = (B if shape[0] == "B" else 1), (H if shape[-1] == "H" else 1)
+    bias = (rng.randn(mb, mh, sq, sk) * 2).astype(np.float32)
+    bias[..., ::3] = -1e30                       # masked keys
+    if dead_row is not None:
+        bias[..., dead_row, :] = -1e30           # a row that sees nothing
+    return bias
+
+
+@pytest.mark.parametrize("shape", BIAS_SHAPES)
+@pytest.mark.parametrize("S,causal", [(128, False), (256, True)])
+def test_flash_bias_forward_matches_jax_kernel(S, causal, shape):
+    """flash_fwd_plain with a bias against the JAX kernel's bias variant
+    (interpret mode), fp32 at 2e-5 (test_flash_training's forward bound);
+    the row the bias kills gives zeros and lse -1e30 in the port, zeros in
+    JAX."""
+    B, H, D = 2, 4, 16
+    rng = np.random.RandomState(4)
+    q, k, v, _ = _inputs(B, S, S, H, H, D, seed=5)
+    bias = _bias(rng, B, H, S, S, shape, dead_row=7)
+    ref = np.asarray(JFA.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bias=jnp.asarray(bias)))
+    n = FA.flash_fwd.LAUNCHES
+    with torch.no_grad():
+        out = FA.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 causal=causal, bias=torch.from_numpy(bias))
+        _, lse = FA.flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal, D ** -0.5, torch.from_numpy(bias))
+    assert FA.flash_fwd.LAUNCHES == n            # the CPU path launches none
+    _close(out.numpy(), ref, TOL["fp32"][0], "out")
+    assert (out[:, 7] == 0).all() and (ref[:, 7] == 0).all()
+    assert (lse[:, :, 7] == -1e30).all() and (lse[:, :, 8] > -1e29).all()
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_bool_mask_as_bias_gives_the_composed_answer(dt):
+    """What the card runs for a keep-mask (where(mask, 0, -1e30) in q's
+    dtype, added by the forward) against the composed path the CPU runs,
+    on the prefill's shapes: Sq != Sk, neither a multiple of 128, a fully
+    masked row."""
+    P, C, cap, H, D = 2, 40, 72, 4, 16
+    q, k, v, _ = (torch.from_numpy(a).to(TDT[dt])
+                  for a in _inputs(P, C, cap, H, H, D, seed=6))
+    pos = torch.tensor([[0], [25]]) + torch.arange(C)
+    mask = (torch.arange(cap)[None, None] <= pos[:, :, None])[:, None]
+    mask[1, 0, 3] = False
+    ref = TNF._sdpa_reference(q, k, v, attn_mask=mask)
+    bias = torch.where(mask, 0.0, -1e30).to(q.dtype)
+    out, lse = FA.flash_fwd_plain(q, k, v, False, D ** -0.5, bias)
+    _close(out.float().numpy(), ref.float().numpy(), TOL[dt][0], "out")
+    assert (out[1, 3] == 0).all() and (lse[1, :, 3] == -1e30).all()
 
 
 # ---------------------------------------------------------------------------

@@ -107,15 +107,6 @@ def test_cpu_wrapper_takes_plain_and_counts_no_launch():
     assert torch.equal(a, b)
 
 
-def test_quantized_pools_not_ported():
-    case = _case(4, 4)
-    args = [torch.from_numpy(case[n]) for n in
-            ("q", "k_pool", "v_pool", "block_tables", "q_lens", "kv_lens")]
-    scales = torch.ones(4, 16)
-    with pytest.raises(NotImplementedError, match="quantized KV"):
-        RPA.ragged_paged_attention(*args, case["scale"], scales, scales)
-
-
 def _kernel_args(dtype=torch.bfloat16):
     case = _case(4, 4)
     args = [torch.from_numpy(case[n]) for n in

@@ -3,7 +3,9 @@ the CPU: the whole slice against the JAX engine on the same weights and
 requests, and the scheduler's own contracts (admission under page
 pressure, per-request rejection, one dispatch per step, the options that
 belong to later slices, the device default, and an import that pulls in
-neither JAX nor the JAX package)."""
+neither JAX nor the JAX package). The two-program path and the quantized
+pools have their own files (``test_torch_two_program_serving.py``,
+``test_torch_kv_cache.py``)."""
 
 import os
 import subprocess
@@ -168,10 +170,9 @@ def test_temperature_sampling_seeded(tparams):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ragged=False), dict(ragged=None), dict(int8=True),
-    dict(mesh=object()), dict(kv_cache_dtype="int8"),
-    dict(prefix_share=True), dict(spec_decode_k=2), dict(queue_max=4),
-    dict(shed=True), dict(preempt=True)])
+    dict(int8=True), dict(mesh=object()), dict(prefix_share=True),
+    dict(spec_decode_k=2), dict(queue_max=4), dict(shed=True),
+    dict(preempt=True)])
 def test_later_slice_options_raise(tparams, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mk(tparams, **kw)
@@ -204,10 +205,15 @@ def test_default_device_is_cuda_and_raises_without_it(tparams, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference."
-            "serving, paddle_tpu_torch.inference.ragged_step, "
-            "paddle_tpu_torch.kernels._build, paddle_tpu_torch.models."
-            "convert; bad = [m for m in sys.modules if m == 'jax' or "
+    mods = ("inference.serving", "inference.ragged_step", "kernels._build",
+            "kernels.paged_attention", "kernels.ragged_paged_attention",
+            "kernels.flash_attention", "kernels.fused_adam",
+            "nn.functional.flash_attention", "quantization.kv_cache",
+            "models.convert", "models.gpt", "optimizer.optimizer",
+            "optimizer.lr", "observability.flops")
+    code = ("import sys, paddle_tpu_torch, "
+            + ", ".join(f"paddle_tpu_torch.{m}" for m in mods)
+            + "; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -158,9 +158,10 @@ def test_flash_refusals(card):
     from paddle_tpu_torch.kernels._build import load_library
     out = torch.empty_like(q48)
     lse = torch.empty(1, 2, 64, device=card)
-    strides = (ctypes.c_longlong * 9)(*(list(q48.stride()[:3]) * 3))
+    strides = (ctypes.c_longlong * 13)(*(list(q48.stride()[:3]) * 3
+                                         + [0] * 4))
     code = load_library().ptt_flash_fwd(
-        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), out.data_ptr(),
+        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), None, out.data_ptr(),
         lse.data_ptr(), strides, 1, 64, 64, 2, 2, 48, 0.1, 1, 0,
         torch.cuda.current_stream().cuda_stream)
     assert code == 1
