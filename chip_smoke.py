@@ -50,7 +50,25 @@ Phases, in order; any failure exits non-zero:
    and fp32 checks, and fp32 tokens identical to the fp32 ragged engine's;
 14. serve the same wave through the ragged engine with int8 and fp8 KV
    pools: tokens/s, capacity at phase 5's pool budget, determinism across
-   fresh engines, teacher-forced top-5 containment.
+   fresh engines, teacher-forced top-5 containment;
+15. hold the LayerNorm forward and backward kernels against their plain
+   versions (y, dx, dw, db) at the BERT-base step's rows (5120 x 768), at 37
+   rows and at 1, bf16 and fp32, eps 1e-12 and 1e-5, with and without a
+   bias; time them (and at the 128-sequence cell's rows) against their bound
+   and torch's layer_norm;
+16. hold the flash kernels' segment-id and dropout variants against their
+   plain versions at the packed BERT call ([10, 512, 12, 64] with the
+   corpus' segment ids, p 0 and 0.1, bf16 timed, fp32), a dead row, GQA and
+   causal with segments; check the CUDA and torch Philox masks bit for bit;
+17. train a tiny fp32 BERT 3 AdamW steps on the card and on the CPU: losses
+   and parameters agree, the BERT kernels launched;
+18. train BERT-base packed (``bench_bert_packed``: vocab 30522, hidden 768,
+   12 layers, 12 heads, dropout 0.1, bf16 >= 2-D parameters, AdamW bf16
+   moments) on ``_bert_job``'s corpus of 16 sequences, then 128: 1 warm and
+   5 timed steps each, real tokens/s, MFU, memory, every launch count, a
+   profiled step;
+18b. with dropout 0, the BERT kernel path against the plain path: fp32 at 2
+   layers (loss, every gradient), bf16 at full depth over 4 AdamW steps.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -72,11 +90,17 @@ import torch
 from paddle_tpu_torch.inference.serving import (ServingEngine, _block_math,
                                                 _embed, _gather_seqs,
                                                 _head_logits, _qkv)
+from paddle_tpu_torch import nn as TNN
+from paddle_tpu_torch import random as TR
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_adam as FAD
+from paddle_tpu_torch.kernels import layer_norm as LN
 from paddle_tpu_torch.kernels import paged_attention as PA
 from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
+from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.models import gpt as G
+from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.nn.functional import norm as TFN
 from paddle_tpu_torch.nn.functional.flash_attention import (
     _sdpa_reference, scaled_dot_product_attention)
 from paddle_tpu_torch.quantization import kv_cache as KV
@@ -552,15 +576,16 @@ def visible_pairs(sq, sk, causal):
 
 def flash_bounds(B, sq, sk, H, Hkv, D, causal, dtype):
     """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once,
-    each output written once, against 4 D (forward), 6 D (dQ: s, dp, dq)
-    and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible pair, at the dtype's
-    peak (bf16 tensor cores, or fp32 outside them)."""
+    each output written once, against 4 D (forward), 6 D (dQ: s, dp, dq;
+    its kernel's delta pass repeats s and dp, which the bound does not
+    count) and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible pair, at the
+    dtype's peak (bf16 tensor cores, or fp32 outside them)."""
     it = torch.tensor([], dtype=dtype).element_size()
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     qn, kn, rows = B * sq * H * D, B * sk * Hkv * D, B * H * sq
     pairs = visible_pairs(sq, sk, causal) * B * H
     work = {"flash_fwd": ((2 * qn + 2 * kn) * it + 4 * rows, 4 * D * pairs),
-            "flash_bwd_dq": ((4 * qn + 2 * kn) * it + 8 * rows,
+            "flash_bwd_dq": ((3 * qn + 2 * kn) * it + 8 * rows,
                              6 * D * pairs),
             "flash_bwd_dkv": ((2 * qn + 4 * kn) * it + 8 * rows,
                               8 * D * pairs)}
@@ -616,11 +641,11 @@ def check_flash_case(name, shape, causal, dtype, card):
     q, k, v, do = flash_case(B, sq, sk, H, Hkv, D, dtype, seed=sq + sk + H)
     scale = 1.0 / math.sqrt(D)
     out, lse = FA.flash_fwd(q, k, v, causal, scale)
-    dq, delta = FA.flash_bwd_dq(q, k, v, out, lse, do, causal, scale)
+    dq, delta = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale)
     dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
     torch.cuda.synchronize()
     out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale)
-    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, out, lse, do, causal,
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, lse, do, causal,
                                           scale)
     tol_o, tol_g = FLASH_TOL[dtype]
     live = lse_p > -1e29
@@ -656,7 +681,7 @@ def check_flash_case(name, shape, causal, dtype, card):
             cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                  enable_gqa=gqa))),
         "flash_bwd_dq": (
-            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, out, lse, do, causal,
+            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, causal,
                                             scale)), None, None),
         "flash_bwd_dkv": (
             cuda_ms(lambda: FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal,
@@ -664,7 +689,7 @@ def check_flash_case(name, shape, causal, dtype, card):
     }
     # the plain backward and the library backward compute dq, dk and dv in
     # one call: both backward kernels are held against that one time
-    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(q, k, v, out, lse, do,
+    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(q, k, v, lse, do,
                                                    causal, scale))
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do_t, retain_graph=True))
@@ -937,7 +962,7 @@ def _kernel_class_train(name):
     return "other"
 
 
-def profile_train_step(step, card):
+def profile_train_step(step, card, classify=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -954,7 +979,7 @@ def profile_train_step(step, card):
     ops = sum(e.count for e in device)
     by_class = {}
     for e in device:
-        c = _kernel_class_train(e.key)
+        c = (classify or _kernel_class_train)(e.key)
         by_class[c] = by_class.get(c, 0) + e.self_device_time_total
     share = busy_us / 1e3 / (wall * 1e3)
     log(f"profiled step: wall {wall * 1e3:.1f} ms (under the profiler), "
@@ -1646,6 +1671,741 @@ def quantized_engine_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18b: BERT-base packed pretraining
+# ---------------------------------------------------------------------------
+BERT_SEQ = 512
+BERT_SEQS = (16, 128)         # _bert_job's corpus, then 8x its sequences
+BERT_TIMED_STEPS = 5
+BERT_TRAJECTORY_STEPS = 4     # phase 18b: kernel path vs plain path
+# LayerNorm kernel vs plain: max-abs err / max-abs ref; fp32 sums in another
+# order, bf16 one rounding of the output (an fp32 difference flips one ulp)
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LN_FLOPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 10}   # per element
+# the key projection's bias has an exactly-zero gradient (one constant added
+# to every score of a softmax row): both paths return rounding noise there
+ZERO_GRAD = "self_attn.k_proj.bias"
+
+
+def bert_batch(n_seqs, vocab):
+    """``benchmarks/configs_bench.py`` ``_bert_job`` / ``bench_bert_packed``:
+    RandomState(0) lengths in U[S/8, S], random tokens, first-fit packing,
+    15 % MLM labels on real tokens, NSP labels. Returns numpy arrays and the
+    lengths."""
+    S = BERT_SEQ
+    rng = np.random.RandomState(0)
+    lens = rng.randint(S // 8, S + 1, (n_seqs,))
+    seqs = [rng.randint(0, vocab, (n,)) for n in lens]
+    ids, seg, pos, _, _ = TB.pack_sequences(seqs, S)
+    rows = ids.shape[0]
+    mlm = np.where((rng.rand(rows, S) < 0.15) & (seg >= 0),
+                   rng.randint(0, vocab, (rows, S)), -100)
+    nsp = rng.randint(0, 2, (rows,))
+    return dict(ids=ids, seg=seg, pos=pos, mlm=mlm, nsp=nsp, lens=lens)
+
+
+def seg_pairs(seg):
+    """Visible (same-segment) query-key pairs of packed rows, pads with
+    pads included, per head."""
+    return int(sum((np.unique(r, return_counts=True)[1].astype(np.int64)
+                    ** 2).sum() for r in seg))
+
+
+# -- phase 15 ---------------------------------------------------------------
+def ln_bounds(rows, H, dtype, bias):
+    it = torch.tensor([], dtype=dtype).element_size()
+    work = {"layer_norm_fwd": (2 * rows * H * it + (2 if bias else 1) * H * 4
+                               + 8 * rows),
+            "layer_norm_bwd": 3 * rows * H * it + H * 4 + 8 * rows}
+    out = {}
+    for name, nbytes in work.items():
+        flops = LN_FLOPS[name] * rows * H
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
+                     nbytes, flops)
+    return out
+
+
+def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(rows + H)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=DEV) * scale + shift
+    x = rnd(rows, H, scale=3.0, shift=1.0).to(dtype)
+    w = rnd(H)
+    b = rnd(H) if bias else None
+    dy = rnd(rows, H).to(dtype)
+    y, mean, rstd = LN.layer_norm_fwd(x, w, b, eps)
+    dx = LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    br = b.clone().requires_grad_(True) if bias else None
+    yk = LN.layer_norm(xr, wr, br, eps)
+    gk = torch.autograd.grad(yk, [t for t in (xr, wr, br) if t is not None],
+                             dy, retain_graph=True)
+    torch.cuda.synchronize()
+    y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, eps)
+    dx_p, dw_p, db_p = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy,
+                                               bias)
+    tol = LN_TOL[dtype]
+    rec = {}
+    pairs = [("y", y, y_p), ("dx", dx, dx_p), ("dx_autograd", gk[0], dx_p),
+             ("dw", gk[1], dw_p)] + ([("db", gk[2], db_p)] if bias else [])
+    for what, got, ref in pairs:
+        require(got.dtype == ref.dtype and got.shape == ref.shape,
+                f"{name} {what}: {got.dtype} {tuple(got.shape)} vs "
+                f"{ref.dtype} {tuple(ref.shape)}")
+        require(torch.isfinite(got.float()).all(), f"{name} {what} not finite")
+        err, rel = _rel_err(got, ref)
+        require(rel <= tol, f"{name} {what}: rel err {rel} > {tol}")
+        rec[what] = err
+    srel = max(((mean - mean_p).abs().max() / mean_p.abs().max().clamp_min(
+        1.0)).item(), ((rstd - rstd_p).abs() / rstd_p).max().item())
+    require(srel <= 1e-5, f"{name} mean / rstd rel err {srel}")
+    log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
+        f"{rec['dw']:.3e}" + (f" db {rec['db']:.3e}" if bias else "")
+        + f", stats rel {srel:.2e} (tol {tol})")
+    if card is None:
+        return None
+    bounds = ln_bounds(rows, H, dtype, bias)
+    F_ = torch.nn.functional
+    wl = w.to(dtype)
+    bl = b.to(dtype) if bias else None
+    xl = x.clone().requires_grad_(True)
+    wlr = wl.clone().requires_grad_(True)
+    blr = bl.clone().requires_grad_(True) if bias else None
+    yl = F_.layer_norm(xl, (H,), wlr, blr, eps)
+    lib_in = [t for t in (xl, wlr, blr) if t is not None]
+    k_in = [t for t in (xr, wr, br) if t is not None]
+    times = {
+        "layer_norm_fwd": (
+            cuda_ms(lambda: LN.layer_norm_fwd(x, w, b, eps)),
+            cuda_ms(lambda: LN.layer_norm_fwd_plain(x, w, b, eps)),
+            cuda_ms(lambda: F_.layer_norm(x, (H,), wl, bl, eps))),
+        "layer_norm_bwd": (
+            cuda_ms(lambda: LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)),
+            cuda_ms(lambda: LN.layer_norm_bwd_plain(x, w, mean, rstd, dy,
+                                                    bias)),
+            cuda_ms(lambda: torch.autograd.grad(yl, lib_in, dy,
+                                                retain_graph=True))),
+    }
+    # the backward as the model runs it: the dx kernel and the fp32 dw / db
+    # sums outside it
+    full_bwd = cuda_ms(lambda: torch.autograd.grad(yk, k_in, dy,
+                                                   retain_graph=True))
+    errs = {"layer_norm_fwd": rec["y"], "layer_norm_bwd": rec["dx"]}
+    recs = {}
+    for kname, (kern, plain, lib) in times.items():
+        bound, by, nbytes, flops = bounds[kname]
+        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
+            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{flops} FLOP) kernel/bound {kern / bound:.1f}x  [{card}]")
+        recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, bound_by=by,
+                           bytes=nbytes, flops=flops)
+    recs["layer_norm_bwd"]["ms_with_dw_db"] = full_bwd
+    log(f"{name}: the plain and library backward times cover dx, dw and db; "
+        f"the model's backward (dx kernel + fp32 dw, db sums) "
+        f"{full_bwd:.4f} ms")
+    return recs
+
+
+def ln_phase(card, rows_128):
+    H = TB.BertConfig().hidden_size
+    rows_16 = bert_batch(BERT_SEQS[0], 8)["ids"].shape[0] * BERT_SEQ
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for rows in (rows_16, 37, 1):
+            for eps, bias in ((1e-12, True), (1e-5, False), (1e-12, False)):
+                timed = (card if rows == rows_16 and eps == 1e-12 and bias
+                         else None)
+                rec = check_ln_case(
+                    f"({tag}) rows {rows} x {H}, eps {eps:g}, "
+                    f"{'bias' if bias else 'no bias'}", rows, H, dtype, eps,
+                    bias, timed)
+                if rec is not None:
+                    recs[tag] = rec
+    recs["rows_128"] = check_ln_case(
+        f"(bf16) rows {rows_128} x {H} (128 sequences), eps 1e-12, bias",
+        rows_128, H, torch.bfloat16, 1e-12, True, card)
+    check_ln_case(f"(bf16) rows 13 x 100 (no 16-byte words)", 13, 100,
+                  torch.bfloat16, 1e-5, True)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# -- phase 16 ---------------------------------------------------------------
+def flash_variant_bounds(B, S, H, Hkv, D, pairs, dtype):
+    """flash_bounds with the work of the visible (same-segment) pairs only,
+    plus the segment ids read once."""
+    out = {}
+    for name, (_, _, nbytes, _) in flash_bounds(B, S, S, H, Hkv, D, False,
+                                                dtype).items():
+        per_pair = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+        flops = per_pair[name] * D * pairs * H
+        nbytes += 2 * B * S * 4
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
+                     nbytes, flops)
+    return out
+
+
+def check_flash_variant(name, q, k, v, do, causal, seg, p, seed, card=None,
+                        pairs=None):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    var = dict(q_seg=seg, kv_seg=seg, dropout_p=p, seed=seed)
+    out, lse = FA.flash_fwd(q, k, v, causal, scale, **var)
+    dq, delta = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale, **var)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, **var)
+    torch.cuda.synchronize()
+    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale, **var)
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, lse, do, causal,
+                                          scale, **var)
+    tol_o, tol_g = FLASH_TOL[q.dtype]
+    live = lse_p > -1e29
+    require(torch.equal(live, lse > -1e29), f"{name}: dead rows differ")
+    require(bool((out[~live.transpose(1, 2)] == 0).all()),
+            f"{name}: a dead row's output is not zero")
+    err, rel = _rel_err(lse[live], lse_p[live])
+    require(rel <= 1e-5, f"{name}: lse rel err {rel} > 1e-5")
+    rec = {"lse": err, "dead_rows": int((~live).sum())}
+    for what, got, ref, tol in (("out", out, out_p, tol_o),
+                                ("dq", dq, dq_p, tol_g),
+                                ("dk", dk, dk_p, tol_g),
+                                ("dv", dv, dv_p, tol_g)):
+        require(torch.isfinite(got.float()).all(), f"{name}: {what} not finite")
+        err, _ = _rel_err(got, ref)
+        tile = tile_rel_err(got, ref)
+        require(tile <= tol, f"{name}: {what} tile L2 rel err {tile} > {tol}")
+        rec[what], rec[what + "_tile"] = err, tile
+    log(f"{name}: worst tile L2 rel err out {rec['out_tile']:.3e} dq "
+        f"{rec['dq_tile']:.3e} dk {rec['dk_tile']:.3e} dv "
+        f"{rec['dv_tile']:.3e} (tol {tol_o}, {tol_g}); lse max_abs_err "
+        f"{rec['lse']:.3e}; dead rows {rec['dead_rows']}")
+    del out_p, lse_p, dq_p, dk_p, dv_p
+    if card is None:
+        return rec
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    bounds = flash_variant_bounds(B, S, H, Hkv, D, pairs, q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (seg[:, None, :, None] == seg[:, None, None, :])
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    do_t = do.transpose(1, 2).contiguous()
+    o_lib = sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p)
+    times = {
+        "flash_fwd": (
+            cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale, **var)),
+            cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, causal, scale, **var),
+                    runs=10),
+            cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p))),
+        "flash_bwd_dq": (
+            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, causal,
+                                            scale, **var)), None, None),
+        "flash_bwd_dkv": (
+            cuda_ms(lambda: FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal,
+                                             scale, **var)), None, None),
+    }
+    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(
+        q, k, v, lse, do, causal, scale, **var), runs=10)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p), (qt, kt, vt), do_t))
+    kern_fwd_bwd = cuda_ms(lambda: FA.flash_bwd(
+        q, k, v, FA.flash_fwd(q, k, v, causal, scale, **var)[1], do, causal,
+        scale, **var))
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        times[kname] = (times[kname][0], plain_bwd, lib_bwd)
+    errs = {"flash_fwd": rec["out"], "flash_bwd_dq": rec["dq"],
+            "flash_bwd_dkv": max(rec["dk"], rec["dv"])}
+    recs = {}
+    for kname, (kern, plain, lib) in times.items():
+        bound, by, nbytes, flops = bounds[kname]
+        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
+            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{flops} FLOP over {pairs} visible pairs per head) "
+            f"kernel/bound {kern / bound:.1f}x  [{card}]")
+        recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, bound_by=by,
+                           bytes=nbytes, flops=flops, visible_pairs=pairs)
+    recs["flash_fwd"].update(fwd_bwd_ms=kern_fwd_bwd,
+                             library_fwd_bwd_ms=lib_fwd_bwd)
+    log(f"{name}: plain and library backward times cover dq, dk and dv "
+        f"together (the library: SDPA with the bool segment mask); forward "
+        f"+ backward: kernels {kern_fwd_bwd:.4f} ms, library "
+        f"{lib_fwd_bwd:.4f} ms")
+    return recs
+
+
+def philox_bits_check():
+    """q = k = 0 makes every probability 1 / S, and v = I reads the dropped
+    row out of the forward; dO = I makes the dK/dV kernel's dV the dropped
+    probabilities transposed. Both must equal the plain mask bit for bit."""
+    B, S, H, p, seed = 2, 64, 3, 0.1, 2 ** 40 + 12345
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros(B, S, H, S, device=DEV, dtype=dtype)
+        eye = torch.eye(S, device=DEV, dtype=dtype)[None, :, None, :].expand(
+            B, S, H, S).contiguous()
+        out, lse = FA.flash_fwd(z, z, eye, False, 1.0, dropout_p=p, seed=seed)
+        _, dv = FA.flash_bwd_dkv(z, z, eye, lse, torch.zeros_like(lse), eye,
+                                 False, 1.0, dropout_p=p, seed=seed)
+        keep = FA.dropout_keep_mask(seed, B, H, S, S, p, DEV)
+        fwd_ok = torch.equal(out.permute(0, 2, 1, 3) > 0, keep)
+        dkv_ok = torch.equal(dv.permute(0, 2, 3, 1) > 0, keep)
+        log(f"Philox masks ({dtype}): forward kernel == plain {fwd_ok}, "
+            f"dK/dV kernel == plain {dkv_ok}; keep rate "
+            f"{keep.float().mean().item():.4f} (1 - p = {1 - p})")
+        require(fwd_ok and dkv_ok, "the CUDA and torch Philox masks differ")
+
+
+def flash_variant_phase(card):
+    cfg = TB.BertConfig()
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    batch = bert_batch(BERT_SEQS[0], cfg.vocab_size)
+    seg_np = batch["seg"]
+    B, S = seg_np.shape
+    seg = torch.from_numpy(seg_np).to(DEV)
+    pairs = seg_pairs(seg_np)
+    log(f"packed rows [{B}, {S}]: {int((seg_np >= 0).sum())} real tokens, "
+        f"{pairs} visible pairs per head ({pairs / (B * S * S):.1%} of "
+        f"B S^2)")
+    philox_bits_check()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(16)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
+                                   device=DEV).to(dtype) for _ in range(4))
+        for p in (0.1, 0.0):
+            timed = card if dtype == torch.bfloat16 else None
+            rec = check_flash_variant(
+                f"({tag}) packed [{B}, {S}, {H}, {D}] segments, dropout {p}",
+                q, k, v, do, False, seg, p, 1234 + int(p * 10), timed, pairs)
+            recs[f"{tag}_p{p}"] = rec
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    # untimed: a dead row, GQA, causal with segments
+    S2 = 512
+    seg2 = torch.from_numpy(np.stack([
+        np.r_[np.zeros(300), np.full(212, 5)], np.zeros(S2)]).astype(
+            np.int32)).to(DEV)
+    kseg2 = seg2.clone()
+    kseg2[0, 300:] = 4                 # query id 5 matches no key
+    q, k, v, do = (torch.randn(2, S2, H, D, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = FA.flash_fwd(q, k, v, False, scale, q_seg=seg2, kv_seg=kseg2,
+                            dropout_p=0.1, seed=5)
+    dq, dk, dv = FA.flash_bwd(q, k, v, lse, do, False, scale,
+                              q_seg=seg2, kv_seg=kseg2, dropout_p=0.1, seed=5)
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, lse, do, False,
+                                          scale, q_seg=seg2, kv_seg=kseg2,
+                                          dropout_p=0.1, seed=5)
+    dead_ok = (bool((out[0, 300:] == 0).all()) and bool((dq[0, 300:] == 0)
+                                                        .all())
+               and bool((lse[0, :, 300:] == -1e30).all()))
+    tiles = [tile_rel_err(a, b) for a, b in ((dk, dk_p), (dv, dv_p))]
+    log(f"(bf16) dead rows (query id 5 matches no key): zeros, lse -1e30 and "
+        f"no dq: {dead_ok}; dk / dv worst tile {tiles[0]:.3e} / "
+        f"{tiles[1]:.3e}")
+    require(dead_ok and max(tiles) <= FLASH_TOL[torch.bfloat16][1],
+            "dead rows with segments")
+    gseg = torch.from_numpy(np.stack([seg_np[0], seg_np[1]])).to(DEV)
+    qg, kg, vg, dog = (torch.randn(2, S2, H, D, generator=gen,
+                                   device=DEV).to(torch.bfloat16)
+                       for _ in range(4))
+    kg, vg = kg[:, :, :4].contiguous(), vg[:, :, :4].contiguous()
+    check_flash_variant("(bf16) GQA 12/4, segments, dropout 0.1", qg, kg, vg,
+                        dog, False, gseg, 0.1, 77)
+    check_flash_variant("(bf16) causal, segments, dropout 0.1", qg, qg, qg,
+                        dog, True, gseg, 0.1, 78)
+    del q, k, v, do, qg, kg, vg, dog
+    recs["converged_keys"] = converged_keys_check(seg, gen)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def converged_keys_check(seg, gen, spread=0.03, p=0.1, seed=9):
+    """The packed shape with keys and values that nearly coincide (a common
+    vector per head plus ``spread`` noise), as the token states of the
+    random-init BERT do in its deep layers: there the true dq is tiny beside
+    |dO| |O|. The kernels' dq, dk and dv (bf16, segments, dropout) against
+    fp64 autograd through the composed attention on the same inputs, the
+    same segment mask and the kernels' own dropout mask: l2 rel err, limit
+    1e-2, as tests/test_torch_flash_attention.py holds the plain version
+    on a small case of this kind."""
+    B, S = seg.shape
+    H, D = 12, 64
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=DEV,  # noqa
+                                  dtype=torch.float64)
+    q, do = rnd(B, S, H, D), rnd(B, S, H, D)
+    k = rnd(1, 1, H, D) + spread * rnd(B, S, H, D)
+    v = rnd(1, 1, H, D) + spread * rnd(B, S, H, D)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    var = dict(q_seg=seg, kv_seg=seg, dropout_p=p, seed=seed)
+    lse = FA.flash_fwd(q, k, v, False, scale, **var)[1]
+    got = FA.flash_bwd(q, k, v, lse, do, False, scale, **var)
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    prob = torch.softmax(sc.masked_fill(~same, float("-inf")), -1)
+    keep = FA.dropout_keep_mask(seed, B, H, S, S, p, DEV)
+    prob = torch.where(keep, prob / (1.0 - p), 0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", prob, vd)
+    ref = torch.autograd.grad(o, (qd, kd, vd), do.double())
+    errs = {n: ((g.double() - r).norm() / r.norm()).item()
+            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    log(f"(bf16) converged keys (spread {spread}), segments, dropout {p}: "
+        f"kernel vs fp64 l2 rel err "
+        f"{', '.join(f'{n} {e:.3e}' for n, e in errs.items())} (tol 1e-2)")
+    require(max(errs.values()) <= 1e-2, f"converged keys: {errs}")
+    return errs
+
+
+# -- phases 17-18b ----------------------------------------------------------
+def bert_model(cfg, device=DEV, dtype=torch.bfloat16):
+    """The model built on the host from seed 0, and its trainable state on
+    ``device`` with the >= 2-D parameters in ``dtype`` (``_bert_job``'s
+    cast), the 1-D ones fp32."""
+    with TR.rng_guard(torch.Generator().manual_seed(0)):
+        model = TB.BertForPretraining(cfg)
+    params, _, buffers = TNN.functional_train_graph(model, device=device)
+    params = {k: v.to(dtype) if v.dim() >= 2 else v
+              for k, v in params.items()}
+    return model, params, buffers
+
+
+def bert_tensors(batch, device):
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+            for k in ("ids", "seg", "pos", "mlm", "nsp")}
+
+
+def bert_loss_and_grads(model, params, buffers, t):
+    names = list(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    (lm, ns), _ = TNN.functional_call(model, params, buffers, t["ids"],
+                                      pack_segment_ids=t["seg"],
+                                      position_ids=t["pos"])
+    loss = TB.bert_pretrain_loss(lm, ns, t["mlm"], t["nsp"])
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    for p in params.values():
+        p.requires_grad_(False)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def bert_step(model, params, buffers, opt, state, t):
+    loss, grads = bert_loss_and_grads(model, params, buffers, t)
+    opt.apply(params, grads, state)
+    return loss
+
+
+@contextlib.contextmanager
+def bert_plain_path():
+    """The plain path on the card: the LayerNorm kernels' plain version
+    (autograd through its fp32 arithmetic), the composed attention
+    (_sdpa_reference) and the fused leaves' plain Adam."""
+    def layer_norm(x, weight, bias, epsilon):
+        H = x.shape[-1]
+        return LN.layer_norm_fwd_plain(x.reshape(-1, H), weight, bias,
+                                       epsilon)[0].reshape(x.shape)
+
+    def sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
+             training=True, name=None, segment_ids=None, generator=None):
+        return _sdpa_reference(q, k, v, attn_mask, dropout_p, is_causal,
+                               training=training, segment_ids=segment_ids,
+                               generator=generator)
+
+    def adam(p, g, slot, lr, step, seed, **kw):
+        sr = seed is not None and slot["moment2"].dtype == torch.bfloat16
+        noise = FAD.sr_noise(p.shape, seed, p.device) if sr else None
+        return FAD.adam_update_plain(p, g, slot, lr, step, noise, **kw)
+    orig = TFN._layer_norm_kernel, TF.scaled_dot_product_attention, \
+        O.adam_update
+    TFN._layer_norm_kernel, TF.scaled_dot_product_attention, O.adam_update = \
+        layer_norm, sdpa, adam
+    try:
+        yield
+    finally:
+        TFN._layer_norm_kernel, TF.scaled_dot_product_attention, \
+            O.adam_update = orig
+
+
+def reset_bert_counts():
+    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd_dx, FA.flash_fwd,
+               FA.flash_bwd_dq, FA.flash_bwd_dkv, FAD.adam_update):
+        fn.LAUNCHES = 0
+
+
+def bert_counts():
+    return dict(layer_norm_fwd=LN.layer_norm_fwd.LAUNCHES,
+                layer_norm_bwd=LN.layer_norm_bwd_dx.LAUNCHES,
+                flash_fwd=FA.flash_fwd.LAUNCHES,
+                flash_bwd_dq=FA.flash_bwd_dq.LAUNCHES,
+                flash_bwd_dkv=FA.flash_bwd_dkv.LAUNCHES,
+                fused_adam=FAD.adam_update.LAUNCHES)
+
+
+def compare_bert_grads(tag, got, ref, tol_rel, stat, zero_tol, skip=()):
+    """compare_grads over a BERT name -> gradient dict, with the key bias
+    (exactly zero in exact arithmetic) held below ``zero_tol`` of the
+    largest gradient on both paths; the leaves in ``skip`` are held
+    elsewhere."""
+    gmax = max(r.float().abs().max().item() for r in ref.values())
+    zero = {n for n in ref if n.endswith(ZERO_GRAD)}
+    for n in sorted(zero):
+        small = max(got[n].float().abs().max().item(),
+                    ref[n].float().abs().max().item())
+        require(small <= zero_tol * gmax, f"{tag}: {n} = {small}, not ~0")
+    log(f"{tag}: the {len(zero)} key-projection biases (zero gradient) are "
+        f"below {zero_tol:g} of the largest gradient ({gmax:.3e}) on both "
+        f"paths")
+    rest = zero | set(skip)
+    return compare_grads(tag, {n: g for n, g in got.items() if n not in rest},
+                         {n: r for n, r in ref.items() if n not in rest},
+                         tol_rel, stat)
+
+
+def qk_witness_check(g_k, g_p, g32, floor=5e-2, slack=1.25):
+    """The query / key projection gradients of the bf16 kernel path and the
+    bf16 plain path, each against the fp32 witness (the kernel path in
+    fp32 on the same weights and batch): the tokens' states converge with
+    depth, so these gradients shrink by three orders of magnitude by the
+    last layer and bf16 rounding anywhere upstream shows in them. Each
+    kernel-path leaf is held to max(slack x the plain path's error, floor):
+    no further from fp32 than the plain path, up to noise, and within the
+    5e-2 that every other leaf is held to where both are small. Returns
+    {name: (witness norm, kernel err, plain err)}."""
+    qk = sorted(n for n in g32 if ".self_attn.q_proj." in n
+                or n.endswith("self_attn.k_proj.weight"))
+    rows = {}
+    for n in qk:
+        w = g32[n].float()
+        wn = w.norm().item()
+        rows[n] = (wn, (g_k[n].float() - w).norm().item() / wn,
+                   (g_p[n].float() - w).norm().item() / wn)
+    log("bf16 full depth, query / key projection grads against the fp32 "
+        "witness (l2 rel err):\n  leaf  witness norm  kernel path  plain "
+        "path")
+    for n, (wn, ek, ep) in rows.items():
+        if n.endswith("q_proj.weight") or n.endswith("k_proj.weight"):
+            log(f"  {n[len('bert.encoder.'):]}  {wn:.3e}  {ek:.3e}  "
+                f"{ep:.3e}")
+    bad = [(n, ek, ep) for n, (_, ek, ep) in rows.items()
+           if ek > max(slack * ep, floor)]
+    require(not bad, f"bf16 q / k grads further from fp32 than "
+            f"max({slack} x the plain path's, {floor}): {bad}")
+    return {n: list(r) for n, r in rows.items()}
+
+
+def tiny_bert_phase():
+    cfg = TB.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=128, hidden_dropout=0.0)
+    rng = np.random.RandomState(0)
+    seqs = [rng.randint(1, 512, (n,)) for n in (90, 30, 128, 60, 20, 100)]
+    ids, seg, pos, _, _ = TB.pack_sequences(seqs, 128)
+    mlm = np.where((rng.rand(*ids.shape) < 0.2) & (seg >= 0),
+                   rng.randint(0, 512, ids.shape), -100)
+    batch = dict(ids=ids, seg=seg, pos=pos, mlm=mlm,
+                 nsp=rng.randint(0, 2, (ids.shape[0],)))
+
+    def run(dev):
+        model, params, buffers = bert_model(cfg, dev, torch.float32)
+        init = {k: v.clone() for k, v in params.items()}
+        opt = AdamW(1e-3)
+        state = opt.init_state(params)
+        t = bert_tensors(batch, dev)
+        losses = [bert_step(model, params, buffers, opt, state, t).item()
+                  for _ in range(3)]
+        return losses, {k: v.cpu() for k, v in params.items()}, init
+
+    reset_bert_counts()
+    card_losses, card_params, init = run(DEV)
+    counts = bert_counts()
+    cpu_losses, cpu_params, _ = run("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    worst, moved = 0.0, 0.0
+    for n, p in cpu_params.items():
+        if n.endswith(ZERO_GRAD):     # Adam steps rounding noise by ~lr
+            moved = max(moved, (card_params[n] - init[n].cpu()).abs().max()
+                        .item())
+            continue
+        worst = max(worst, (card_params[n] - p).abs().max().item())
+    log(f"card: {card_losses}\ncpu:  {cpu_losses}\nmax loss rel diff "
+        f"{rel:.2e} (tol 1e-5); parameters after 3 steps max_abs_err "
+        f"{worst:.2e} (tol 1e-4); key biases moved {moved:.2e} (bound 4.5e-3 "
+        f"= 3 steps x 1.5 lr); card launches {counts}")
+    require(rel <= 1e-5, f"tiny BERT: card and CPU losses differ by {rel}")
+    require(worst <= 1e-4, f"tiny BERT: parameters differ by {worst}")
+    require(moved <= 4.5e-3, f"tiny BERT: a key bias moved {moved}")
+    require(all(v > 0 for v in counts.values()),
+            f"a BERT kernel did not launch: {counts}")
+
+
+def _kernel_class_bert(name):
+    if "ln_fwd" in name or "ln_bwd" in name:
+        return "layernorm"
+    return _kernel_class_train(name)
+
+
+def bert_train_cell(card, n_seqs, model, params, buffers, opt, state, cfg):
+    batch = bert_batch(n_seqs, cfg.vocab_size)
+    t = bert_tensors(batch, DEV)
+    lens = batch["lens"]
+    rows = batch["ids"].shape[0]
+    t_real = int(lens.sum())
+    emb = (cfg.vocab_size + cfg.max_position_embeddings
+           + cfg.type_vocab_size) * cfg.hidden_size
+    n_matmul = sum(p.numel() for p in params.values()) - emb
+    flops = (6.0 * n_matmul * t_real + 12.0 * cfg.num_layers
+             * cfg.hidden_size * float((lens.astype(np.int64) ** 2).sum()))
+    log(f"{n_seqs} sequences, {t_real} real tokens, packed into {rows} rows "
+        f"of {BERT_SEQ}; {flops:.4g} useful FLOP per step (_bert_job's "
+        f"formula, {n_matmul} matmul parameters)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [bert_step(model, params, buffers, opt, state, t)]   # warm
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    # main path: the counts go to 0 just before and are read just after
+    reset_bert_counts()
+    t0 = time.perf_counter()
+    for _ in range(BERT_TIMED_STEPS):
+        losses.append(bert_step(model, params, buffers, opt, state, t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bert_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    ms = wall * 1e3 / BERT_TIMED_STEPS
+    tok_s = t_real * BERT_TIMED_STEPS / wall
+    mfu = flops / (ms / 1e3) / BF16_FLOPS
+    log(f"warm step {warm:.2f} s; {BERT_TIMED_STEPS} timed steps: {ms:.2f} "
+        f"ms/step, {tok_s:.1f} real tokens/s, MFU {mfu:.2%} (useful FLOPs, "
+        f"989 TFLOP/s bf16 peak); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB  [{card}]")
+    log(f"losses (warm, then timed): {losses}")
+    L = cfg.num_layers
+    want = dict(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
+                flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=77)
+    log(f"launches in the timed steps: {counts}; per step expected {want}")
+    require(all(math.isfinite(x) for x in losses), "a BERT loss is not finite")
+    for k, per_step in want.items():
+        require(counts[k] == per_step * BERT_TIMED_STEPS,
+                f"{k}: {counts[k]} launches in {BERT_TIMED_STEPS} steps, "
+                f"expected {per_step} per step")
+    profile = profile_train_step(
+        lambda: bert_step(model, params, buffers, opt, state, t), card,
+        classify=_kernel_class_bert)
+    return dict(n_seqs=n_seqs, rows=rows, real_tokens=t_real,
+                tokens_per_s=tok_s, ms_per_step=ms, mfu=mfu,
+                useful_flops=flops, peak_bytes=peak, losses=losses,
+                launches={k: v // BERT_TIMED_STEPS for k, v in counts.items()},
+                launches_total=counts, warm_s=warm, **profile)
+
+
+def bert_train_phase(card):
+    cfg = TB.BertConfig()
+    model, params, buffers = bert_model(cfg)
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_state(params)
+    cells = {}
+    for n_seqs in BERT_SEQS:
+        log(f"--- cell: {n_seqs} sequences ---")
+        cells[n_seqs] = bert_train_cell(card, n_seqs, model, params, buffers,
+                                        opt, state, cfg)
+        torch.cuda.empty_cache()
+    del params, state, opt, model
+    torch.cuda.empty_cache()
+    return cells
+
+
+def bert_exactness_phase():
+    batch = bert_batch(BERT_SEQS[0], TB.BertConfig().vocab_size)
+    # fp32, full width, 2 layers, dropout 0: kernel path vs plain path
+    cfg = TB.BertConfig(num_layers=2, hidden_dropout=0.0)
+    model, params, buffers = bert_model(cfg, dtype=torch.float32)
+    t = bert_tensors(batch, DEV)
+    loss_k, g_k = bert_loss_and_grads(model, params, buffers, t)
+    with bert_plain_path():
+        loss_p, g_p = bert_loss_and_grads(model, params, buffers, t)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"fp32 2-layer: loss kernel {loss_k.item():.7f} plain "
+        f"{loss_p.item():.7f} rel {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, f"fp32 2-layer BERT loss rel err {rel}")
+    fp32_worst = compare_bert_grads("fp32 2-layer", g_k, g_p, 1e-3, "max",
+                                    1e-6)
+    del model, params, g_k, g_p
+    torch.cuda.empty_cache()
+    # bf16, full depth, dropout 0: TRAJECTORY steps from one init on each
+    # path, each with its own AdamW (bf16 moments, SR on); the first step's
+    # gradients also against the fp32 witness
+    cfg = TB.BertConfig(hidden_dropout=0.0)
+    model, pk, buffers = bert_model(cfg)
+    pp = {k: v.clone() for k, v in pk.items()}
+    loss_32, g32 = bert_loss_and_grads(
+        model, {k: v.float() for k, v in pk.items()}, buffers, t)
+    log(f"fp32 witness (kernel path in fp32 on the bf16 weights): loss "
+        f"{loss_32.item():.5f}")
+    ok, op = (AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+              for _ in range(2))
+    sk, sp = ok.init_state(pk), op.init_state(pp)
+    traj_k, traj_p, bf16_worst = [], [], None
+    for step in range(BERT_TRAJECTORY_STEPS):
+        loss_k, g_k = bert_loss_and_grads(model, pk, buffers, t)
+        with bert_plain_path():
+            loss_p, g_p = bert_loss_and_grads(model, pp, buffers, t)
+        if step == 0:
+            rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            log(f"bf16 full depth, first step: loss kernel "
+                f"{loss_k.item():.5f} plain {loss_p.item():.5f} rel "
+                f"{rel:.2e} (tol 1e-3)")
+            require(rel <= 1e-3, f"bf16 BERT loss rel err {rel}")
+            qn = [g_p[f"bert.encoder.layers.{i}.self_attn.q_proj.weight"]
+                  .float().norm().item() for i in (0, cfg.num_layers - 1)]
+            with torch.no_grad():
+                seq = TNN.functional_call(
+                    model.bert, {k[5:]: v for k, v in pk.items()
+                                 if k.startswith("bert.")}, buffers,
+                    t["ids"], pack_segment_ids=t["seg"],
+                    position_ids=t["pos"])[0][0].float().reshape(
+                        -1, cfg.hidden_size)
+            log(f"bf16 full depth: query projection grad norm layer 0 "
+                f"{qn[0]:.3e}, layer {cfg.num_layers - 1} {qn[1]:.3e}; last "
+                f"hidden states: norm of their mean over tokens "
+                f"{seq.mean(0).norm().item():.3f} against their mean norm "
+                f"{seq.norm(dim=1).mean().item():.3f} (the tokens' states "
+                f"converge with depth)")
+            qk = qk_witness_check(g_k, g_p, g32)
+            bf16_worst = compare_bert_grads("bf16 full depth", g_k, g_p,
+                                            5e-2, "l2", 1e-3, skip=qk)
+            del g32
+        ok.apply(pk, g_k, sk)
+        with bert_plain_path():
+            op.apply(pp, g_p, sp)
+        traj_k.append(loss_k.item())
+        traj_p.append(loss_p.item())
+        del g_k, g_p
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p))
+    log(f"bf16 full depth, {BERT_TRAJECTORY_STEPS} AdamW steps: kernel path "
+        f"{traj_k}\n  plain path {traj_p}\n  max rel diff {traj_rel:.2e} "
+        f"(tol 1e-2: bf16 rounding on two paths, SR noise from two "
+        f"generators)")
+    require(traj_rel <= 1e-2, f"bf16 BERT trajectories differ by {traj_rel}")
+    del model, pk, pp, sk, sp
+    torch.cuda.empty_cache()
+    return dict(fp32_grad_max_rel=fp32_worst, bf16_grad_l2_rel=bf16_worst,
+                bf16_qk_vs_fp32_witness=qk,
+                bf16_trajectory_kernel=traj_k, bf16_trajectory_plain=traj_p)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1730,6 +2490,23 @@ def main() -> int:
     qeng = quantized_engine_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    rows_128 = bert_batch(BERT_SEQS[1], 8)["ids"].shape[0] * BERT_SEQ
+    t0 = phase("15. LayerNorm kernels vs plain on the card")
+    ln = ln_phase(card, rows_128)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("16. flash kernels with segments and dropout vs plain")
+    fvar = flash_variant_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("17. tiny fp32 BERT trainer: card vs CPU")
+    tiny_bert_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("18. BERT-base packed pretraining, bf16")
+    bert = bert_train_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("18b. BERT exactness: kernel path vs plain path")
+    bert_exact = bert_exactness_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1742,10 +2519,17 @@ def main() -> int:
         mixed={k: rec_mixed[k] for k in keys}, serving=full)
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
     fa = "paddle_tpu/kernels/pallas/flash_attention.py"
+    bert_main = bert[BERT_SEQS[0]]
+    bert_shape = ("packed [10, 512, 12, 64] bf16, the corpus' segment ids, "
+                  "dropout 0.1")
     kernels = [ragged] + [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=train["launches"][name],
-             **{k: flash[name][k] for k in keys}, shape=shape)
+             **{k: flash[name][k] for k in keys}, shape=shape,
+             bert=dict(launches=bert_main["launches_total"][name],
+                       shape=bert_shape,
+                       **{k: fvar["bf16_p0.1"][name][k] for k in keys},
+                       p0={k: fvar["bf16_p0.0"][name][k] for k in keys}))
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              f"{fa}:451"),
@@ -1788,6 +2572,19 @@ def main() -> int:
              fp8_launches=qeng["fp8_e4m3"]["launches"][
                  "ragged_paged_attention"],
              serving=qeng)]
+    for name, line in (("layer_norm_fwd", 100), ("layer_norm_bwd", 130)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/layer_norm.cu",
+            replaces=f"paddle_tpu/kernels/pallas/layer_norm.py:{line}",
+            launches=bert_main["launches_total"][name],
+            **{k: ln["bf16"][name][k] for k in keys},
+            shape="x [5120, 768] bf16, fp32 weight and bias, eps 1e-12",
+            fp32={k: ln["fp32"][name][k] for k in keys},
+            rows_128={k: ln["rows_128"][name][k] for k in keys},
+            bert=bert if name == "layer_norm_fwd" else None,
+            bert_exactness=bert_exact if name == "layer_norm_fwd" else None))
+    require(len(kernels) == 10, f"{len(kernels)} kernels in the record")
     log(f"kernels: {[k['name'] for k in kernels]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a): the dQ kernel and the dK/dV
-// kernel of the FlashAttention-2 recurrence, from the forward's saved out and
+// kernel of the FlashAttention-2 recurrence, from the forward's saved
 // logsumexp.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`: its dQ
@@ -7,14 +7,40 @@
 // body `_dkv_kernel`), on the causal / non-causal, GQA subset. Both kernels
 // recompute p = exp(scale * q k^T - lse) tile by tile (zero where masked and
 // on rows that saw no key, whose lse is -1e30), dp = dO v^T and
-// ds = p (dp - delta) scale with delta = rowsum(dO * O); then dq = ds k,
+// ds = p (dp - delta) scale with delta = rowsum(p * dp); then dq = ds k,
 // dk = ds^T q, dv = p^T dO.
 //
-// delta. The Pallas kernels each recompute delta in VMEM from the O and dO
-// tiles. Here the dQ kernel, which holds a query tile's O and dO anyway,
-// computes delta once per query row and writes it to an fp32 [B, H, Sq]
-// buffer that the dK/dV kernel, launched after it on the same stream, reads:
-// the dK/dV kernel then never loads O.
+// delta. In exact arithmetic rowsum(p * dp) = rowsum(dO * O), which the
+// Pallas kernels (and FlashAttention-2) form from the saved O and dO tiles.
+// From a bf16 O that sum carries an error of about 2^-9 |dO| |O| that the
+// row's ds no longer sum to zero by; dq = ds k then picks up that error
+// times the row's mean key. Where the tokens' states have converged (the
+// keys nearly equal, the true dq tiny: the deep layers of BERT-base at its
+// random init) it swamped the gradient: the query / key projection
+// gradients of layer 11 came out two orders of magnitude too large. So the
+// dQ kernel walks its key tiles twice: the first pass sums p * dp in fp32
+// from the very p and dp (dropout applied) that the second pass uses, so
+// each row's ds sum to zero to fp32 rounding; it writes delta to an fp32
+// [B, H, Sq] buffer that the dK/dV kernel, launched after it on the same
+// stream, reads. Nothing loads O. The first pass costs the dQ kernel two of
+// its three products again.
+//
+// ds in the dq product. The row's ds sum to zero, but rounded to bf16 one by
+// one for the tensor cores they no longer do, by about 2^-9 |ds| sqrt(n),
+// and dq = ds k again picks that up times the mean key. So the bf16 dQ
+// kernel splits ds into hi = bf16(ds) and lo = bf16(ds - hi) and takes
+// dq += hi k + lo k: ds to about 2^-17 for one more product per key tile.
+// (dk = ds^T q needs no split: a key's column of ds does not sum to zero,
+// and its rounding error stays 2^-9 of the true dk.)
+//
+// Segment ids and dropout, template flags as in the forward: a pair is
+// visible only within one segment (disjoint tiles skipped), and the keep bit
+// of (b, h, i, j) is the forward's Philox word (flash_common.cuh drop_bits),
+// regenerated here from the same seed whatever the loop order: dV takes the
+// kept, rescaled p; dP is masked and rescaled the same way before
+// dS = p (dP - delta) scale, with p undropped and delta = rowsum(p * dP) of
+// the masked, rescaled dP (rowsum(dO * O) of the dropped output), as
+// `_dq_kernel` and `_dkv_kernel` do.
 //
 // TPU -> Hopper. The Pallas dQ grid carries dq across its sequential k axis;
 // here one block of 256 threads owns one (query tile of 64, head, batch) and
@@ -27,11 +53,13 @@
 // Causal loop bounds skip the tiles past the diagonal in both kernels.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
-// shape the two kernels do 2.5x the forward's FLOPs between them (dQ three
-// products per visible pair, dK/dV four) on ~4x its bytes, so they are
-// FLOP-bound near 0.09 ms together. Like the forward, these first kernels
-// run their products on the tensor cores through WMMA for bf16 (ds and p
-// rounded to bf16 for the products that take them; dq, dk and dv accumulate
+// shape the two functions need 2.5x the forward's FLOPs between them (dQ
+// three products per visible pair, dK/dV four) on ~4x its bytes, so they
+// are FLOP-bound near 0.09 ms together; the dQ kernel does more (five
+// products in fp32, six in bf16: the delta pass and the lo half of ds).
+// Like the forward, these first kernels run their products on the tensor
+// cores through WMMA for bf16 (ds and p rounded to bf16 for the products
+// that take them, ds as hi + lo for dq; dq, dk and dv accumulate
 // in fp32 fragments across the whole loop) and on the FP32 pipes from padded
 // fp32 tiles for fp32. Each product round-trips through shared memory and no
 // load overlaps the math, so they sit far above that bound; wgmma and a load
@@ -75,14 +103,28 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm, float 
   }
 }
 
+// delta[i] = the half-warp's sum of part[i] (row ty + 16 i), written to the
+// [B, H, Sq] buffer for the dK/dV kernel.
+__device__ __forceinline__ void write_delta(const float (&part)[4], float (&delta)[4], int q0,
+                                            long long row_base, const Args& a) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    delta[i] = half_warp_sum(part[i]);
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos < a.Sq && tx == 0) a.delta[row_base + qpos] = delta[i];
+  }
+}
+
 // dQ (and delta) -----------------------------------------------------------
-template <int D>
+template <int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   extern __shared__ float smem[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Qs = smem;                // [64][D + 1]
   float* dOs = Qs + kTile * ld;    // [64][D + 1]
-  float* Ks = dOs + kTile * ld;    // [64][D + 1]; holds O while delta is formed
+  float* Ks = dOs + kTile * ld;    // [64][D + 1]
   float* Vs = Ks + kTile * ld;     // [64][D + 1]
   float* dSs = Vs + kTile * ld;    // [64][65]
 
@@ -92,26 +134,22 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const float* qb = static_cast<const float*>(a.q) + b * a.vq.b + h * a.vq.h;
   const float* kb = static_cast<const float*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const float* vb = static_cast<const float*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const float* ob = static_cast<const float*>(a.o) + b * a.vo.b + h * a.vo.h;
   const float* dob = static_cast<const float*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
   const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
 
   load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
   load_tile<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
-  load_tile<D>(ob, a.vo.s, q0, a.Sq, Ks, ld);
+  if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
   __syncthreads();
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) seg_range(qids, a.Sq - q0, qlo, qhi);
 
-  float delta[4], lse[4];
+  float delta[4], lse[4], part[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) part = fmaf(dOs[r * ld + tx + 16 * c], Ks[r * ld + tx + 16 * c], part);
-    delta[i] = half_warp_sum(part);
-    const bool live = q0 + r < a.Sq;
-    lse[i] = live ? a.lse[row_base + q0 + r] : kNegInf;
-    if (live && tx == 0) a.delta[row_base + q0 + r] = delta[i];
+    lse[i] = q0 + r < a.Sq ? a.lse[row_base + q0 + r] : kNegInf;
+    delta[i] = part[i] = 0.f;
   }
 
   float dq[4][NC];
@@ -120,42 +158,58 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) dq[i][c] = 0.f;
 
+  // pass 0 sums delta = rowsum(p dp); pass 1 forms ds and accumulates dq
   const int kend = key_end(q0, a);
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // readers of Ks (O at first) / Vs / dSs are done
-    load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-    load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, s);
-    tile_dot<D>(dOs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const bool dead = lse[i] <= 0.5f * kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = (!dead && visible(q0 + r, k0 + c, a))
-                            ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        dSs[r * ldp + c] = p * (dp[i][j] - delta[i]) * a.scale;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < kend; k0 += kTile) {
+      __syncthreads();  // readers of Ks / Vs / dSs / kids are done
+      if (kSeg) {
+        load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+        __syncthreads();
+        seg_range(kids, a.Sk - k0, klo, khi);
+        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
-    }
-    __syncthreads();
+      load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
+      load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      tile_dot<D>(Qs, Ks, s);
+      tile_dot<D>(dOs, Vs, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const bool dead = lse[i] <= 0.5f * kNegInf;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
+          float dpv = dp[i][j];
+          if (kDrop) dpv = drop_keep(a, b, h, q0 + r, k0 + c) ? dpv * a.drop_scale : 0.f;
+          if (pass == 0)
+            part[i] = fmaf(p, dpv, part[i]);
+          else
+            dSs[r * ldp + c] = p * (dpv - delta[i]) * a.scale;
+        }
+      }
+      if (pass == 0) continue;
+      __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[NC];
+      for (int kk = 0; kk < kTile; ++kk) {
+        float dsv[4], kv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * ldp + kk];
+        for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * ldp + kk];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * ld + tx + 16 * c];
+        for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * ld + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dq[i][c] = fmaf(dsv[i], kv[c], dq[i][c]);
+          for (int c = 0; c < NC; ++c) dq[i][c] = fmaf(dsv[i], kv[c], dq[i][c]);
+      }
     }
+    if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
 
   float* dqb = static_cast<float*>(a.dq);
@@ -170,9 +224,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 }
 
 // dK / dV --------------------------------------------------------------------
-template <int D>
+template <int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   extern __shared__ float smem[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Ks = smem;                // [64][D + 1]
   float* Vs = Ks + kTile * ld;     // [64][D + 1]
@@ -189,6 +244,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
   load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
   load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) {
+    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+    __syncthreads();
+    seg_range(kids, a.Sk - k0, klo, khi);
+  }
 
   float dk[4][NC], dv[4][NC];
 #pragma unroll
@@ -205,7 +266,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     const float* dob = static_cast<const float*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
     for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs are done (Ks, Vs loaded)
+      __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
+      if (kSeg) {
+        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+        __syncthreads();
+        seg_range(qids, a.Sq - q0, qlo, qhi);
+        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+      }
       load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
       load_tile<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
       __syncthreads();
@@ -228,10 +295,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           const bool dead = lse[j] <= 0.5f * kNegInf;
-          const float p = (!dead && visible(q0 + c, k0 + r, a))
-                              ? expf(s[i][j] * a.scale - lse[j]) : 0.f;
-          Ps[r * ldp + c] = p;
-          dSs[r * ldp + c] = p * (dp[i][j] - delta[j]) * a.scale;
+          const bool ok =
+              !dead && visible(q0 + c, k0 + r, a) && (!kSeg || qids[c] == kids[r]);
+          const float p = ok ? expf(s[i][j] * a.scale - lse[j]) : 0.f;
+          const bool keep = !kDrop || drop_keep(a, b, h, q0 + c, k0 + r);
+          Ps[r * ldp + c] = keep ? (kDrop ? p * a.drop_scale : p) : 0.f;
+          const float dpv = keep ? (kDrop ? dp[i][j] * a.drop_scale : dp[i][j]) : 0.f;
+          dSs[r * ldp + c] = p * (dpv - delta[j]) * a.scale;
         }
       }
       __syncthreads();
@@ -288,13 +358,14 @@ constexpr size_t dkv_tc_smem() {
          sizeof(float) * kTile * kLdS;
 }
 
-template <int D>
+template <int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), NC = D / 16;
   bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // [64][D + 8]
   bf16* dOs = Qs + kTile * ld;                   // [64][D + 8]
-  bf16* Ks = dOs + kTile * ld;                   // [64][D + 8]; holds O while delta is formed
+  bf16* Ks = dOs + kTile * ld;                   // [64][D + 8]
   bf16* Vs = Ks + kTile * ld;                    // [64][D + 8]
   bf16* dSs = Vs + kTile * ld;                   // [64][72]: ds, rounded to bf16
   float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdP);  // [64][68]: scores
@@ -306,57 +377,82 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.vo.b + h * a.vo.h;
   const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
   const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
 
   load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
   load_tile_bf16<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
-  load_tile_bf16<D>(ob, a.vo.s, q0, a.Sq, Ks, ld);
+  if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
   __syncthreads();
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) seg_range(qids, a.Sq - q0, qlo, qhi);
 
-  float delta[4], lse[4];
+  float delta[4], lse[4], part[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      part = fmaf(__bfloat162float(dOs[r * ld + tx + 16 * c]),
-                  __bfloat162float(Ks[r * ld + tx + 16 * c]), part);
-    delta[i] = half_warp_sum(part);
-    const bool live = q0 + r < a.Sq;
-    lse[i] = live ? a.lse[row_base + q0 + r] : kNegInf;
-    if (live && tx == 0) a.delta[row_base + q0 + r] = delta[i];
+    lse[i] = q0 + r < a.Sq ? a.lse[row_base + q0 + r] : kNegInf;
+    delta[i] = part[i] = 0.f;
   }
 
   FragC dq[D / 32];
 #pragma unroll
   for (int j = 0; j < D / 32; ++j) wmma::fill_fragment(dq[j], 0.f);
 
+  // pass 0 sums delta = rowsum(p dp) in fp32; pass 1 forms ds and
+  // accumulates dq += hi k + lo k, ds split into two bf16 tiles
+  bf16* dSlo = reinterpret_cast<bf16*>(Ss);  // [64][72] over the scores' buffer
   const int kend = key_end(q0, a);
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // readers of Ks (O at first) / Vs / dSs are done
-    load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-    load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
-    __syncthreads();
-    mma_abt_64x64<D>(Qs, Ks, Ss);
-    mma_abt_64x64<D>(dOs, Vs, dPs);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const bool dead = lse[i] <= 0.5f * kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = (!dead && visible(q0 + r, k0 + c, a))
-                            ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
-        dSs[r * kLdP + c] = __float2bfloat16_rn(p * (dPs[r * kLdS + c] - delta[i]) * a.scale);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < kend; k0 += kTile) {
+      __syncthreads();  // readers of Ks / Vs / Ss / dPs / dSs / kids are done
+      if (kSeg) {
+        load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+        __syncthreads();
+        seg_range(kids, a.Sk - k0, klo, khi);
+        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
+      load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
+      load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+      __syncthreads();
+      mma_abt_64x64<D>(Qs, Ks, Ss);
+      mma_abt_64x64<D>(dOs, Vs, dPs);
+      __syncthreads();
+      float ds[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const bool dead = lse[i] <= 0.5f * kNegInf;
+        const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = score_col<kDrop>(tx, j);
+          const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          const float p = ok ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
+          float dpv = dPs[r * kLdS + c];
+          if (kDrop) dpv = word(bits, j) >= a.thresh ? dpv * a.drop_scale : 0.f;
+          if (pass == 0)
+            part[i] = fmaf(p, dpv, part[i]);
+          else
+            ds[i][j] = p * (dpv - delta[i]) * a.scale;
+        }
+      }
+      if (pass == 0) continue;
+      __syncthreads();  // every score is read: dSlo overwrites Ss
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (ty + 16 * i) * kLdP + score_col<kDrop>(tx, j);
+          const bf16 hi = __float2bfloat16_rn(ds[i][j]);
+          dSs[at] = hi;
+          dSlo[at] = __float2bfloat16_rn(ds[i][j] - __bfloat162float(hi));
+        }
+      __syncthreads();
+      mma_ab_64xD<D, wmma::row_major>(dSs, Ks, dq);
+      mma_ab_64xD<D, wmma::row_major>(dSlo, Ks, dq);
     }
-    __syncthreads();
-    mma_ab_64xD<D, wmma::row_major>(dSs, Ks, dq);
+    if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
 
   __syncthreads();  // every warp is past its last product before Ss / dPs are reused
@@ -375,9 +471,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
   }
 }
 
-template <int D>
+template <int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), NC = D / 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // [64][D + 8]
   bf16* Vs = Ks + kTile * ld;                    // [64][D + 8]
@@ -395,6 +492,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
 
   load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
   load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) {
+    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+    __syncthreads();
+    seg_range(kids, a.Sk - k0, klo, khi);
+  }
 
   FragC dk[D / 32], dv[D / 32];
 #pragma unroll
@@ -411,7 +514,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
     const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
     for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs are done (Ks, Vs loaded)
+      __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
+      if (kSeg) {
+        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+        __syncthreads();
+        seg_range(qids, a.Sq - q0, qlo, qhi);
+        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+      }
       load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
       load_tile_bf16<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
       __syncthreads();
@@ -427,16 +536,28 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
       }
       __syncthreads();
       float p[4][4];
+      unsigned keep = 0xFFFFu;  // bit 4 i + j: element (i, j) kept
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
         const bool dead = lse[i] <= 0.5f * kNegInf;
+        const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          p[i][j] = (!dead && visible(q0 + r, k0 + c, a))
-                        ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
-          Ps[r * kLdP + c] = __float2bfloat16_rn(p[i][j]);
+          const int c = score_col<kDrop>(tx, j);
+          const bool ok =
+              !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          p[i][j] = ok ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
+          float pd = p[i][j];
+          if (kDrop) {
+            if (word(bits, j) >= a.thresh) {
+              pd *= a.drop_scale;
+            } else {
+              pd = 0.f;
+              keep &= ~(1u << (4 * i + j));
+            }
+          }
+          Ps[r * kLdP + c] = __float2bfloat16_rn(pd);  // dv takes the dropped p
         }
       }
       __syncthreads();
@@ -447,9 +568,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
         const int r = ty + 16 * i;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          dSs[r * kLdP + c] =
-              __float2bfloat16_rn(p[i][j] * (Ss[r * kLdS + c] - delta[i]) * a.scale);
+          const int c = score_col<kDrop>(tx, j);
+          float dpv = Ss[r * kLdS + c];
+          if (kDrop) dpv = (keep >> (4 * i + j)) & 1u ? dpv * a.drop_scale : 0.f;
+          dSs[r * kLdP + c] = __float2bfloat16_rn(p[i][j] * (dpv - delta[i]) * a.scale);
         }
       }
       __syncthreads();
@@ -487,45 +609,61 @@ int launch_kernel(K* kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kSeg, bool kDrop>
 int launch(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
   if (is_dq) {
     const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-    return dtype == 0 ? launch_kernel(flash_dq_kernel<D>, dq_smem<D>(), grid, a, s)
-                      : launch_kernel(flash_dq_tc_kernel<D>, dq_tc_smem<D>(), grid, a, s);
+    return dtype == 0
+               ? launch_kernel(flash_dq_kernel<D, kSeg, kDrop>, dq_smem<D>(), grid, a, s)
+               : launch_kernel(flash_dq_tc_kernel<D, kSeg, kDrop>, dq_tc_smem<D>(), grid, a, s);
   }
   const dim3 grid((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
-  return dtype == 0 ? launch_kernel(flash_dkv_kernel<D>, dkv_smem<D>(), grid, a, s)
-                    : launch_kernel(flash_dkv_tc_kernel<D>, dkv_tc_smem<D>(), grid, a, s);
+  return dtype == 0
+             ? launch_kernel(flash_dkv_kernel<D, kSeg, kDrop>, dkv_smem<D>(), grid, a, s)
+             : launch_kernel(flash_dkv_tc_kernel<D, kSeg, kDrop>, dkv_tc_smem<D>(), grid, a, s);
+}
+
+template <int D>
+int dispatch_flags(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
+  const bool seg = a.qseg != nullptr, drop = a.drop != 0;
+  if (seg && drop) return launch<D, true, true>(a, dtype, is_dq, s);
+  if (seg) return launch<D, true, false>(a, dtype, is_dq, s);
+  if (drop) return launch<D, false, true>(a, dtype, is_dq, s);
+  return launch<D, false, false>(a, dtype, is_dq, s);
 }
 
 int dispatch(const Args& a, int D, int dtype, bool is_dq, cudaStream_t s) {
-  if (D == 64) return launch<64>(a, dtype, is_dq, s);
-  return launch<128>(a, dtype, is_dq, s);
+  if (D == 64) return dispatch_flags<64>(a, dtype, is_dq, s);
+  return dispatch_flags<128>(a, dtype, is_dq, s);
 }
 
-// strides: 15 element strides (batch, seq, head) of q, k, v, o and dO
-int run(const void* q, const void* k, const void* v, const void* o, const void* dout,
-        void* lse, void* delta, void* dq, void* dk, void* dv, const long long* strides, int B,
-        int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int dtype, bool is_dq,
-        void* stream) {
+// strides: 12 element strides (batch, seq, head) of q, k, v and dO
+int run(const void* q, const void* k, const void* v, const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv, const void* qseg,
+        const void* kseg, const long long* strides, int B, int Sq, int Sk, int H, int Hkv,
+        int D, float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
+        unsigned int thresh, float drop_scale, int dtype, bool is_dq, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
-  a.o = o;
   a.dout = dout;
   a.lse = static_cast<float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  a.drop = drop;
+  a.seed0 = seed0;
+  a.seed1 = seed1;
+  a.thresh = thresh;
+  a.drop_scale = drop_scale;
   a.vq = view_from(strides);
   a.vk = view_from(strides + 3);
   a.vv = view_from(strides + 6);
-  a.vo = view_from(strides + 9);
-  a.vdo = view_from(strides + 12);
+  a.vdo = view_from(strides + 9);
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -535,9 +673,8 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
   a.causal = causal;
   if ((dtype != 0 && dtype != 1) || !head_dim_ok(D) || Hkv <= 0 || H % Hkv != 0 ||
       !aligned(q) || !aligned(k) || !aligned(v) || !aligned(dout) ||
-      (is_dq && !aligned(o)) || !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) ||
-      !aligned(a.vv, itemsize) || !aligned(a.vdo, itemsize) ||
-      (is_dq && !aligned(a.vo, itemsize)))
+      !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize) ||
+      !aligned(a.vdo, itemsize) || (qseg == nullptr) != (kseg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || (is_dq ? Sq : Sk) == 0) return 0;
   return dispatch(a, D, dtype, is_dq, static_cast<cudaStream_t>(stream));
@@ -548,30 +685,37 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
 
 extern "C" {
 
-// dQ, and delta = rowsum(dO * O) into an fp32 [B, H, Sq] buffer for the dK/dV
-// kernel. dq is written contiguous [B, Sq, H, D]. strides: 15 element strides
-// (batch, seq, head) of q, k, v, o, dO. dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// before any launch for D not in {64, 128}, H not a multiple of H_kv, or
-// a base pointer or stride that is not 16-byte aligned.
-int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const void* lse, void* delta, void* dq,
+// dQ, and delta = rowsum(p * dP) into an fp32 [B, H, Sq] buffer for the dK/dV
+// kernel. dq is written contiguous [B, Sq, H, D]. strides: 12 element strides
+// (batch, seq, head) of q, k, v, dO. qseg, kseg, drop, seed0, seed1,
+// thresh and drop_scale: the forward's segment ids and dropout, as
+// ptt_flash_fwd takes them. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue before any
+// launch for D not in {64, 128}, H not a multiple of H_kv, a base pointer or
+// stride that is not 16-byte aligned, or one segment array without the other.
+int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, void* delta, void* dq, const void* qseg, const void* kseg,
                      const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                     float scale, int causal, int dtype, void* stream) {
-  return ptt_flash::run(q, k, v, o, dout, const_cast<void*>(lse), delta, dq, nullptr, nullptr,
-                        strides, B, Sq, Sk, H, Hkv, D, scale, causal, dtype, true, stream);
+                     float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
+                     unsigned int thresh, float drop_scale, int dtype, void* stream) {
+  return ptt_flash::run(q, k, v, dout, const_cast<void*>(lse), delta, dq, nullptr, nullptr,
+                        qseg, kseg, strides, B, Sq, Sk, H, Hkv, D, scale, causal, drop, seed0,
+                        seed1, thresh, drop_scale, dtype, true, stream);
 }
 
 // dK and dV, contiguous [B, Sk, H_kv, D], from the delta that
 // ptt_flash_bwd_dq wrote (launch it first on the same stream). strides as
-// for ptt_flash_bwd_dq (the o entries are not read). Same return codes.
+// for ptt_flash_bwd_dq. Same return codes.
 int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv,
-                      const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                      float scale, int causal, int dtype, void* stream) {
-  return ptt_flash::run(q, k, v, nullptr, dout, const_cast<void*>(lse),
-                        const_cast<void*>(delta), nullptr, dk, dv, strides, B, Sq, Sk, H, Hkv,
-                        D, scale, causal, dtype, false, stream);
+                      const void* lse, const void* delta, void* dk, void* dv, const void* qseg,
+                      const void* kseg, const long long* strides, int B, int Sq, int Sk, int H,
+                      int Hkv, int D, float scale, int causal, int drop, unsigned int seed0,
+                      unsigned int seed1, unsigned int thresh, float drop_scale, int dtype,
+                      void* stream) {
+  return ptt_flash::run(q, k, v, dout, const_cast<void*>(lse),
+                        const_cast<void*>(delta), nullptr, dk, dv, qseg, kseg, strides, B, Sq,
+                        Sk, H, Hkv, D, scale, causal, drop, seed0, seed1, thresh, drop_scale,
+                        dtype, false, stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,22 @@
 // q 4.19 MB, k and v 41.9 MB, the bias 1.31 MB and out 4.19 MB, ~0.0154 ms
 // at 3.35 TB/s, against ~0.0054 ms of operations: bytes bound it.
 //
+// Segment ids (`_fwd_kernel` with has_seg, the packed BERT rows): int32
+// [B, Sq] and [B, Sk] read in place, a pair visible iff its two ids are
+// equal (pads carry -1, so pads see pads); a key tile whose id range is
+// disjoint from the query tile's is skipped, as `_seg_block_overlap` does. A
+// row that matches no key is dead: zeros and lse = -1e30.
+//
+// Dropout (`_fwd_kernel` with dropout_p): the keep bit of (b, h, i, j) is a
+// Philox4x32-10 word keyed by the seed with (j / 4, i, h, b) as the counter
+// (flash_common.cuh drop_bits), kept iff >= floor(p 2^32); the TPU keys its
+// bits by tile, which the backward kernels here, tiled otherwise, could not
+// regenerate. lse comes from the undropped scores and the kept probabilities
+// are scaled by 1 / (1 - p) before the p v product. On the tensor cores a
+// thread then owns four adjacent columns of a score row, one Philox call.
+// Segments and dropout are template flags, as the bias is; a bias does not
+// combine with either (the C entry refuses it).
+//
 // TPU -> Hopper. The Pallas grid (B*H, q blocks, k blocks) carries m, l and
 // the accumulator across its sequential k axis in VMEM scratch. CUDA blocks
 // run in no order, so one block of 256 threads owns one (query tile of 64,
@@ -66,9 +82,10 @@ __device__ __forceinline__ float bias_at(const T* bb, int qpos, int kpos, const 
     return x;
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ldq = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Qs = smem;                   // [64][D + 1]
   float* Ks = Qs + kTile * ldq;       // [64][D + 1]
@@ -84,6 +101,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   const float* bb = kBias ? static_cast<const float*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
 
   load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ldq);
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) {
+    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+    __syncthreads();
+    seg_range(qids, a.Sq - q0, qlo, qhi);
+  }
 
   float acc[4][NC], m[4], l[4];
 #pragma unroll
@@ -96,7 +119,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
 
   const int kend = key_end(q0, a);
   for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps
+    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / kids
+    if (kSeg) {
+      load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+      __syncthreads();
+      seg_range(kids, a.Sk - k0, klo, khi);
+      if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+    }
     load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ldq);
     load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, D);
     __syncthreads();
@@ -127,7 +156,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(q0 + r, k0 + tx + 16 * j, a);
+        ok[j] = visible(q0 + r, k0 + tx + 16 * j, a) &&
+                (!kSeg || qids[r] == kids[tx + 16 * j]);
         s[i][j] *= a.scale;
         if (kBias && ok[j]) s[i][j] += bias_at(bb, q0 + r, k0 + tx + 16 * j, a);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
@@ -138,8 +168,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        Ps[r * ldp + tx + 16 * j] = p;
+        sum += p;  // l sums the undropped probabilities
+        Ps[r * ldp + tx + 16 * j] =
+            !kDrop ? p
+                   : (drop_keep(a, b, h, q0 + r, k0 + tx + 16 * j) ? p * a.drop_scale : 0.f);
       }
       l[i] = l[i] * alpha + half_warp_sum(sum);
       m[i] = m_new;
@@ -187,9 +219,10 @@ constexpr size_t fwd_tc_smem() {
          sizeof(float) * (kTile * kLdS + kTile * (D + 4));
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
+  __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), ldo = D + 4, NC = D / 16;
   bf16* Qs = reinterpret_cast<bf16*>(smem_tc);       // [64][D + 8]
   bf16* Ks = Qs + kTile * ld;                         // [64][D + 8]
@@ -207,6 +240,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
   const bf16* bb = kBias ? static_cast<const bf16*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
 
   load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
+  int qlo = 0, qhi = 0, klo = 0, khi = 0;
+  if (kSeg) {
+    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+    __syncthreads();
+    seg_range(qids, a.Sq - q0, qlo, qhi);
+  }
 
   float acc[4][NC], m[4], l[4];
 #pragma unroll
@@ -219,7 +258,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
 
   const int kend = key_end(q0, a);
   for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / Os
+    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / Os / kids
+    if (kSeg) {
+      load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+      __syncthreads();
+      seg_range(kids, a.Sk - k0, klo, khi);
+      if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+    }
     load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
     load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
     __syncthreads();
@@ -234,19 +279,23 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
       float s[4], mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(q0 + r, k0 + tx + 16 * j, a);
-        s[j] = Ss[r * kLdS + tx + 16 * j] * a.scale;
-        if (kBias && ok[j]) s[j] += bias_at(bb, q0 + r, k0 + tx + 16 * j, a);
+        const int c = score_col<kDrop>(tx, j);
+        ok[j] = visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+        s[j] = Ss[r * kLdS + c] * a.scale;
+        if (kBias && ok[j]) s[j] += bias_at(bb, q0 + r, k0 + c, a);
         if (ok[j]) mx = fmaxf(mx, s[j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       alpha[i] = expf(m[i] - m_new);
+      // the keep words of this row's four columns 4 tx .. 4 tx + 3
+      const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-        sum += p;
-        Ps[r * kLdP + tx + 16 * j] = __float2bfloat16_rn(p);
+        sum += p;  // l sums the undropped probabilities
+        const float pd = !kDrop ? p : (word(bits, j) >= a.thresh ? p * a.drop_scale : 0.f);
+        Ps[r * kLdP + score_col<kDrop>(tx, j)] = __float2bfloat16_rn(pd);
       }
       l[i] = l[i] * alpha[i] + half_warp_sum(sum);
       m[i] = m_new;
@@ -291,16 +340,26 @@ int launch_kernel(K* kernel, size_t smem, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kSeg, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
-  return dtype == 0 ? launch_kernel(flash_fwd_kernel<D, kBias>, fwd_smem<D>(), a, s)
-                    : launch_kernel(flash_fwd_tc_kernel<D, kBias>, fwd_tc_smem<D>(), a, s);
+  return dtype == 0
+             ? launch_kernel(flash_fwd_kernel<D, kBias, kSeg, kDrop>, fwd_smem<D>(), a, s)
+             : launch_kernel(flash_fwd_tc_kernel<D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(), a, s);
+}
+
+// the variants: none, bias, segments, dropout, segments with dropout
+template <int D>
+int dispatch_flags(const Args& a, int dtype, cudaStream_t s) {
+  const bool seg = a.qseg != nullptr, drop = a.drop != 0;
+  if (a.bias != nullptr) return launch<D, true, false, false>(a, dtype, s);
+  if (seg && drop) return launch<D, false, true, true>(a, dtype, s);
+  if (seg) return launch<D, false, true, false>(a, dtype, s);
+  if (drop) return launch<D, false, false, true>(a, dtype, s);
+  return launch<D, false, false, false>(a, dtype, s);
 }
 
 int dispatch_d(const Args& a, int D, int dtype, cudaStream_t s) {
-  if (a.bias != nullptr)
-    return D == 64 ? launch<64, true>(a, dtype, s) : launch<128, true>(a, dtype, s);
-  return D == 64 ? launch<64, false>(a, dtype, s) : launch<128, false>(a, dtype, s);
+  return D == 64 ? dispatch_flags<64>(a, dtype, s) : dispatch_flags<128>(a, dtype, s);
 }
 
 }  // namespace
@@ -311,15 +370,21 @@ extern "C" {
 // strides: 13 element strides: (batch, seq, head) of q, k and v, in that
 // order, then the bias's (batch, head, query, key), any of which may be 0.
 // bias: an additive [B, H, Sq, Sk] view in q's dtype, or null for none (its
-// strides are then not read). out is written contiguous [B, Sq, H, D] in the
-// input dtype, lse fp32 [B, H, Sq]. dtype: 0 = float32, 1 = bfloat16. Returns
+// strides are then not read). qseg, kseg: contiguous int32 segment ids
+// [B, Sq] and [B, Sk], both or neither. drop = 1: dropout with the Philox key
+// (seed0, seed1), keep iff word >= thresh, kept probabilities times
+// drop_scale. out is written contiguous [B, Sq, H, D] in the input dtype, lse
+// fp32 [B, H, Sq]. dtype: 0 = float32, 1 = bfloat16. Returns
 // cudaGetLastError() after the launch (0 = success), or cudaErrorInvalidValue
 // before any launch for what the kernel does not take: D not in {64, 128}, H
 // not a multiple of H_kv, a base pointer or q/k/v stride that is not 16-byte
-// aligned.
-int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
-                  void* lse, const long long* strides, int B, int Sq, int Sk, int H, int Hkv,
-                  int D, float scale, int causal, int dtype, void* stream) {
+// aligned, one segment array without the other, a bias with segments or
+// dropout.
+int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
+                  const void* qseg, const void* kseg, void* out, void* lse,
+                  const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
+                  float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
+                  unsigned int thresh, float drop_scale, int dtype, void* stream) {
   using namespace ptt_flash;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const int itemsize = dtype == 0 ? 4 : 2;
@@ -328,6 +393,13 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   a.k = k;
   a.v = v;
   a.bias = bias;
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  a.drop = drop;
+  a.seed0 = seed0;
+  a.seed1 = seed1;
+  a.thresh = thresh;
+  a.drop_scale = drop_scale;
   a.out = out;
   a.lse = static_cast<float*>(lse);
   a.vq = view_from(strides);
@@ -343,7 +415,9 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   a.causal = causal;
   if ((dtype != 0 && dtype != 1) || !head_dim_ok(D) || Hkv <= 0 || H % Hkv != 0 ||
       !aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
-      !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize))
+      !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize) ||
+      (qseg == nullptr) != (kseg == nullptr) ||
+      (bias != nullptr && (qseg != nullptr || drop != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_d(a, D, dtype, static_cast<cudaStream_t>(stream));
 }

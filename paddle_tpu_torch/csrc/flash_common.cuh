@@ -2,7 +2,7 @@
 // flash_attention_bwd.cu): tile sizes, the argument block, tile loads and the
 // visibility rule.
 //
-// Layouts. q, k, v, o and dO arrive as [B, S, H, D] views with element
+// Layouts. q, k, v and dO arrive as [B, S, H, D] views with element
 // strides (batch, seq, head) and a unit stride over D, so the model's
 // head-major qkv [B, S, H, 3, D] is read in place with no transpose copy.
 // out, dq, dk and dv are written contiguous [B, S, H, D]; lse and delta are
@@ -21,7 +21,10 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
+
+#include "philox.cuh"
 
 namespace ptt_flash {
 
@@ -41,7 +44,6 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;
   const void* dout;
   void* out;
   float* lse;
@@ -50,11 +52,19 @@ struct Args {
   void* dk;
   void* dv;
   const void* bias;  // forward only: additive bias in q's dtype, or null
-  View vq, vk, vv, vo, vdo;
+  const int* qseg;   // segment ids, contiguous int32 [B, Sq], or null
+  const int* kseg;   // contiguous int32 [B, Sk] (null iff qseg is)
+  View vq, vk, vv, vdo;
   BiasView vb;
   int B, Sq, Sk, H, Hkv;
   float scale;
   int causal;
+  // dropout: keep (query i, key j) of (batch b, query head h) iff the Philox
+  // word for (b, h, i, j) is >= thresh; kept probabilities are scaled by
+  // drop_scale = 1 / (1 - p)
+  int drop;
+  uint32_t seed0, seed1, thresh;
+  float drop_scale;
 };
 
 // Rows row0 .. row0 + 63 of one (batch, head) fp32 slab -> shared memory
@@ -91,6 +101,62 @@ __device__ __forceinline__ int key_end(int q0, const Args& a) {
   if (!a.causal) return a.Sk;
   const int last = q0 + kTile + a.Sk - a.Sq;  // one past the tile's last visible key
   return last <= 0 ? 0 : (last < a.Sk ? last : a.Sk);
+}
+
+// Segment ids of positions row0 .. row0 + 63 of one batch row -> ids[64] in
+// shared memory (positions past n are never compared: visible() checks the
+// range first).
+__device__ __forceinline__ void load_seg(const int* __restrict__ base, int row0, int n,
+                                         int* ids) {
+  const int t = threadIdx.x;
+  if (t < kTile) ids[t] = row0 + t < n ? base[row0 + t] : 0;
+}
+
+// [lo, hi] of the first n ids (n <= 64). Every thread reads the same shared
+// ids, so the result is the same across the block.
+__device__ __forceinline__ void seg_range(const int* ids, int n, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int r = 0; r < n && r < kTile; ++r) {
+    lo = min(lo, ids[r]);
+    hi = max(hi, ids[r]);
+  }
+}
+
+// A query tile and a key tile whose id ranges are disjoint have no visible
+// pair: skipping the tile is exact (the JAX `_seg_block_overlap`). For
+// first-fit packing (ids ascend along a row) it removes about
+// 1 - sum(len^2) / S^2 of the tiles.
+__device__ __forceinline__ bool seg_overlap(int alo, int ahi, int blo, int bhi) {
+  return alo <= bhi && blo <= ahi;
+}
+
+// The Philox words of (batch b, query head h, query row, key columns
+// 4 c4 .. 4 c4 + 3): one call, keyed by the seed, with the coordinates as the
+// counter, so the mask is a function of (seed, b, h, row, column) alone and
+// every kernel regenerates it whatever its tiling.
+__device__ __forceinline__ uint4 drop_bits(const Args& a, int b, int h, int row, int c4) {
+  return philox4x32_10(make_uint4(static_cast<uint32_t>(c4), static_cast<uint32_t>(row),
+                                  static_cast<uint32_t>(h), static_cast<uint32_t>(b)),
+                       a.seed0, a.seed1);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int k) {
+  return k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
+}
+
+// Whether (row, col) is kept: the one-element form for the fp32 kernels,
+// whose threads own columns 16 apart.
+__device__ __forceinline__ bool drop_keep(const Args& a, int b, int h, int row, int col) {
+  return word(drop_bits(a, b, h, row, col >> 2), col & 3) >= a.thresh;
+}
+
+// The score-tile column of a thread's j-th element (j < 4): tx + 16 j, or,
+// for the dropout kernels on the tensor cores, the four adjacent columns
+// 4 tx + j that one Philox call covers.
+template <bool kQuad>
+__device__ __forceinline__ int score_col(int tx, int j) {
+  return kQuad ? 4 * tx + j : tx + 16 * j;
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {

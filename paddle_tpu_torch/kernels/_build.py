@@ -119,6 +119,8 @@ def load_library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     ll = ctypes.c_longlong
+    cu = ctypes.c_uint
+    drop = [ci, cu, cu, cu, cf]   # drop, seed0, seed1, thresh, drop_scale
     signatures = {
         # q, k, v, tables, q_lens, kv_lens, out, k_scales, v_scales, R, C,
         # Hq, Hkv, NB, bs, D, nb, scale, dtype, pool_dtype, stream
@@ -127,17 +129,25 @@ def load_library() -> ctypes.CDLL:
         # (batch, head), scale, dtype, stream
         "ptt_paged_decode_attention": [vp] * 6 + [ci] * 7 + [ll, ll]
         + [cf, ci, vp],
-        # q, k, v, bias (or null), out, lse, strides (13), B, Sq, Sk, H,
-        # Hkv, D, scale, causal, dtype, stream
-        "ptt_flash_fwd": [vp] * 6 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
-        # q, k, v, o, dO, lse, delta, dq, strides, ...
-        "ptt_flash_bwd_dq": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
-        # q, k, v, dO, lse, delta, dk, dv, strides, ...
-        "ptt_flash_bwd_dkv": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci, ci, vp],
+        # q, k, v, bias (or null), qseg, kseg (or null), out, lse, strides
+        # (13), B, Sq, Sk, H, Hkv, D, scale, causal, drop, seed0, seed1,
+        # thresh, drop_scale, dtype, stream
+        "ptt_flash_fwd": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci] + drop
+        + [ci, vp],
+        # q, k, v, dO, lse, delta, dq, qseg, kseg, strides (12), ...
+        "ptt_flash_bwd_dq": [vp] * 9 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci, vp],
+        # q, k, v, dO, lse, delta, dk, dv, qseg, kseg, strides (12), ...
+        "ptt_flash_bwd_dkv": [vp] * 10 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci, vp],
+        # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
+        "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
+        # x, w, mean, rstd, dy, dx, rows, H, dtype, stream
+        "ptt_layer_norm_bwd": [vp] * 6 + [ll, ci, ci, vp],
         # p, g, m1, m2, master, n, p_dtype, m_dtype, lr, c1, c2, b1, 1-b1,
         # b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
         "ptt_fused_adam": [vp] * 5 + [ll, ci, ci] + [cf] * 10
-        + [ci, ctypes.c_uint, ctypes.c_uint, vp],
+        + [ci, cu, cu, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

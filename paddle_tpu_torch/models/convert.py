@@ -6,7 +6,9 @@ and the state that ``paddle_tpu/optimizer/optimizer.py``
 ``params_from_jax`` takes the parameter tree as numpy arrays (what
 ``jax.device_get`` hands back) and returns the port's dict of tensors with
 identical keys and shapes; ``opt_state_from_jax`` does the same for
-``{"step", "slots"}``. Neither imports JAX: the caller fetches the trees.
+``{"step", "slots"}``; ``load_params`` puts a layer model's flat
+``functional_train_graph`` tree into the port's ``nn.Layer`` by name. None
+imports JAX: the caller fetches the trees.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy",
+           "load_params"]
 
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None):
@@ -50,3 +53,24 @@ def opt_state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
     Python int, every slot tensor on ``device`` in its own dtype."""
     return {"step": int(np.asarray(state["step"])),
             "slots": params_from_jax(state["slots"], device)}
+
+
+def load_params(module: torch.nn.Module, flat: Dict[str, Any]) -> None:
+    """Copy a flat ``{dotted name: numpy array}`` tree (the JAX package's
+    ``functional_train_graph`` trainable and frozen dicts, merged) into
+    ``module``'s parameters of the same names, each cast to the parameter's
+    dtype on its device. Raises ValueError naming every missing or extra
+    name, or the first shape that differs; nothing is copied then."""
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    extra = sorted(set(flat) - set(params))
+    if missing or extra:
+        raise ValueError(f"load_params: missing {missing}, extra {extra}")
+    for name, p in params.items():
+        shape = tuple(np.shape(flat[name]))
+        if shape != tuple(p.shape):
+            raise ValueError(f"load_params: {name} is {shape} in the tree, "
+                             f"{tuple(p.shape)} in the module")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(tensor_from_numpy(flat[name], p.device, p.dtype))

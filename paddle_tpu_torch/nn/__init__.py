@@ -1,0 +1,14 @@
+"""Layers (counterpart: ``paddle_tpu/nn``), as far as the port has them."""
+
+from . import functional
+from .layer.common import Dropout, Embedding, Linear
+from .layer.container import LayerList
+from .layer.layers import Layer, functional_call, functional_train_graph
+from .layer.norm import LayerNorm
+from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
+                                TransformerEncoderLayer)
+
+__all__ = ["functional", "Layer", "Linear", "Dropout", "Embedding",
+           "LayerNorm", "LayerList", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder", "functional_call",
+           "functional_train_graph"]

@@ -1,0 +1,23 @@
+"""Activations (counterpart: ``paddle_tpu/nn/functional/activation.py``
+``gelu``, ``tanh``, ``relu``): the surface the BERT path needs."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gelu", "tanh", "relu"]
+
+
+def gelu(x, approximate=False):
+    """GELU: exact (erf) by default, the tanh form with
+    ``approximate=True`` (``jax.nn.gelu``'s flag)."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def relu(x):
+    return torch.relu(x)

@@ -53,25 +53,36 @@ def _store_moment(x, dtype, seed: Optional[Tuple[int, int]]):
     return x.to(dtype)
 
 
-def _flatten(tree, prefix=""):
-    """(dot-joined name, leaf) pairs of a nested dict in the JAX pytree's
-    leaf order (keys sorted), so leaf i is the JAX package's leaf i; the
-    names are the ones ``apply_decay_param_fun`` sees, as the JAX
-    package's ``_path_name`` makes them."""
+def _flatten_paths(tree, path=()):
+    """(key path, leaf) pairs of a nested dict in the JAX pytree's leaf
+    order (keys sorted), so leaf i is the JAX package's leaf i. A key may
+    itself hold dots (a layer model's flat ``functional_train_graph`` tree:
+    ``bert.encoder.layers.0.self_attn.q_proj.weight``), so leaves are found
+    again by their path, never by splitting a name."""
     out = []
     for k in sorted(tree):
         v = tree[k]
-        name = f"{prefix}.{k}" if prefix else str(k)
         if isinstance(v, dict):
-            out += _flatten(v, name)
+            out += _flatten_paths(v, path + (k,))
         else:
-            out.append((name, v))
+            out.append((path + (k,), v))
     return out
 
 
-def _lookup(tree, name):
-    for part in name.split("."):
-        tree = tree[part]
+def _path_name(path):
+    """The dot-joined name ``apply_decay_param_fun`` sees, as the JAX
+    package's ``_path_name`` makes it."""
+    return ".".join(str(k) for k in path)
+
+
+def _flatten(tree):
+    """(dot-joined name, leaf) pairs in the JAX pytree's leaf order."""
+    return [(_path_name(p), v) for p, v in _flatten_paths(tree)]
+
+
+def _lookup(tree, path):
+    for k in path:
+        tree = tree[k]
     return tree
 
 
@@ -140,12 +151,12 @@ class Optimizer:
         order. The stochastic-rounding seed of leaf i at ``step`` is
         ``(step, i)``: deterministic, distinct per leaf and per step."""
         items = []
-        for i, (name, p) in enumerate(_flatten(params)):
-            g = _lookup(grads, name)
-            slot = _lookup(slots, name)
+        for i, (path, p) in enumerate(_flatten_paths(params)):
+            g = _lookup(grads, path)
+            slot = _lookup(slots, path)
             seed = (step, i) if (self._needs_update_rng
                                  and g is not None) else None
-            ctx = self._leaf_ctx(name) if g is not None else None
+            ctx = self._leaf_ctx(_path_name(path)) if g is not None else None
             items.append((p, g, slot, ctx, seed))
         return items
 

@@ -140,24 +140,59 @@ def test_split_backward_matches_plain():
     """flash_bwd_dq (which forms delta) then flash_bwd_dkv: the pieces the
     card runs as two kernels give the plain backward's dq, dk, dv."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(2, 96, 160, 4, 2, 16))
-    out, lse = FA.flash_fwd(q, k, v, True, 0.25)
-    dq, delta = FA.flash_bwd_dq(q, k, v, out, lse, do, True, 0.25)
+    lse = FA.flash_fwd(q, k, v, True, 0.25)[1]
+    dq, delta = FA.flash_bwd_dq(q, k, v, lse, do, True, 0.25)
     dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, True, 0.25)
-    ref = FA.flash_bwd_plain(q, k, v, out, lse, do, True, 0.25)
+    ref = FA.flash_bwd_plain(q, k, v, lse, do, True, 0.25)
     assert delta.shape == (2, 4, 96) and delta.dtype == torch.float32
     for got, want in zip((dq, dk, dv), ref):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _converged(seed=0, spread=0.03, B=1, S=128, H=2, D=64):
+    """bf16 q, k, v, dO whose keys and values nearly coincide (a common
+    vector per head plus ``spread`` noise), as the token states of a deep
+    random-init encoder do: the true dq is tiny beside |dO| |O|."""
+    rng = np.random.RandomState(seed)
+    base_k, base_v = rng.randn(1, 1, H, D), rng.randn(1, 1, H, D)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    return (t(rng.randn(B, S, H, D)),
+            t(base_k + spread * rng.randn(B, S, H, D)),
+            t(base_v + spread * rng.randn(B, S, H, D)),
+            t(rng.randn(B, S, H, D)))
+
+
+def _fp64_grads(q, k, v, do, scale):
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale, -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vd)
+    return torch.autograd.grad(o, (qd, kd, vd), do.double())
+
+
+def test_delta_from_p_dp_keeps_dq_when_keys_converge():
+    """delta = rowsum(p * dP) in fp32, as the kernels form it, keeps dq and
+    dk within 1e-2 of fp64 on bf16 inputs whose keys nearly coincide; the
+    same backward with delta = rowsum(dO * O) from the bf16 output misses
+    dq by more than its own size there (each row's dS no longer sums to
+    zero, and dq picks up that error times the mean key)."""
+    q, k, v, do = _converged()
+    scale = 64 ** -0.5
+    out, lse = FA.flash_fwd_plain(q, k, v, False, scale)
+    ref = _fp64_grads(q, k, v, do, scale)
+    rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()  # noqa
+    dq, dk, dv = FA.flash_bwd_plain(q, k, v, lse, do, False, scale)
+    assert max(rel(dq, ref[0]), rel(dk, ref[1]), rel(dv, ref[2])) <= 1e-2
+    from_out = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    dq_out = FA.flash_bwd_plain(q, k, v, lse, do, False, scale,
+                                delta=from_out)[0]
+    assert rel(dq_out, ref[0]) > 1.0
+
+
 @pytest.mark.parametrize("kw", [dict(bias=torch.zeros((1, 1, 8, 8))),
-                                dict(q_segment_ids=np.zeros((1, 8))),
-                                dict(kv_segment_ids=np.zeros((1, 8))),
                                 dict(startend_row_indices=(0, 0)),
                                 dict(window=(4, 0)),
-                                dict(dropout_p=0.1),
                                 dict(bias_grad=True)],
-                         ids=["bias", "q_seg", "kv_seg", "flashmask",
-                              "window", "dropout", "bias_grad"])
+                         ids=["bias", "flashmask", "window", "bias_grad"])
 def test_unported_arguments_raise(kw):
     # a bias runs the forward alone: it raises when a gradient is asked for
     q = torch.zeros(1, 8, 2, 16, requires_grad="bias" in kw)

@@ -203,8 +203,9 @@ def test_flash_bias_refusals(card):
                                          + [0, 0, 64, 1]))
     code = load_library().ptt_flash_fwd(
         q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2, 48, 0.1, 0,
-        1, torch.cuda.current_stream().cuda_stream)
+        None, None, out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2,
+        48, 0.1, 0, 0, 0, 0, 0, 1.0, 1,
+        torch.cuda.current_stream().cuda_stream)
     assert code == 1
 
 

@@ -83,12 +83,12 @@ def test_flash_kernels_match_plain(card, dtype, B, sq, sk, H, Hkv, D, causal):
     n = (FA.flash_fwd.LAUNCHES, FA.flash_bwd_dq.LAUNCHES,
          FA.flash_bwd_dkv.LAUNCHES)
     out, lse = FA.flash_fwd(q, k, v, causal, scale)
-    dq, dk, dv = FA.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    dq, dk, dv = FA.flash_bwd(q, k, v, lse, do, causal, scale)
     torch.cuda.synchronize()
     assert (FA.flash_fwd.LAUNCHES, FA.flash_bwd_dq.LAUNCHES,
             FA.flash_bwd_dkv.LAUNCHES) == tuple(x + 1 for x in n)
     out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale)
-    grads_p = FA.flash_bwd_plain(q, k, v, out, lse, do, causal, scale)
+    grads_p = FA.flash_bwd_plain(q, k, v, lse, do, causal, scale)
     assert FA.flash_fwd.LAUNCHES == n[0] + 1      # plain calls do not count
     tol_o, tol_g = TOL[dtype]
     assert out.dtype == dtype and out.shape == q.shape
@@ -122,9 +122,9 @@ def test_flash_reads_head_major_qkv_views(card, dtype):
 
 def test_flash_gqa_dkv_is_deterministic(card):
     q, k, v, do = _qkv(card, torch.bfloat16, 2, 256, 256, 16, 4, 128)
-    out, lse = FA.flash_fwd(q, k, v, True, 0.088)
-    a = FA.flash_bwd(q, k, v, out, lse, do, True, 0.088)
-    b = FA.flash_bwd(q, k, v, out, lse, do, True, 0.088)
+    lse = FA.flash_fwd(q, k, v, True, 0.088)[1]
+    a = FA.flash_bwd(q, k, v, lse, do, True, 0.088)
+    b = FA.flash_bwd(q, k, v, lse, do, True, 0.088)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -136,7 +136,7 @@ def test_flash_autograd_function(card):
     grads = torch.autograd.grad(out, (q, k, v), do)
     o_p, lse_p = FA.flash_fwd_plain(q.detach(), k.detach(), v.detach(), True,
                                     0.125)
-    ref = FA.flash_bwd_plain(q.detach(), k.detach(), v.detach(), o_p, lse_p,
+    ref = FA.flash_bwd_plain(q.detach(), k.detach(), v.detach(), lse_p,
                              do, True, 0.125)
     tol_o, tol_g = TOL[torch.float32]
     assert _tile_rel(out.detach(), o_p) <= tol_o
@@ -161,9 +161,9 @@ def test_flash_refusals(card):
     strides = (ctypes.c_longlong * 13)(*(list(q48.stride()[:3]) * 3
                                          + [0] * 4))
     code = load_library().ptt_flash_fwd(
-        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), None, out.data_ptr(),
-        lse.data_ptr(), strides, 1, 64, 64, 2, 2, 48, 0.1, 1, 0,
-        torch.cuda.current_stream().cuda_stream)
+        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), None, None, None,
+        out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2, 48, 0.1, 1,
+        0, 0, 0, 0, 1.0, 0, torch.cuda.current_stream().cuda_stream)
     assert code == 1
     with pytest.raises(NotImplementedError):
         FA.flash_attention(q, k, v, causal=True, window=(8, 0))
