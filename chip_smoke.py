@@ -68,7 +68,33 @@ Phases, in order; any failure exits non-zero:
    5 timed steps each, real tokens/s, MFU, memory, every launch count, a
    profiled step;
 18b. with dropout 0, the BERT kernel path against the plain path: fp32 at 2
-   layers (loss, every gradient), bf16 at full depth over 4 AdamW steps.
+   layers (loss, every gradient), bf16 at full depth over 4 AdamW steps;
+19. hold the RMSNorm forward and backward kernels against their plain
+   versions (y, dx, dw, rstd) at the Llama step's rows (8192 x 2048 bf16,
+   fp32 weight, eps 1e-5; timed against their bound, torch's rms_norm and
+   the dense form's composed _rms) and at 37, 1 and 13 rows x 100 and 4095,
+   bf16 and fp32;
+20. hold the RoPE kernel against its plain version through
+   incubate's fused_rotary_position_embedding at q [8, 1024, 16, 128] and
+   k [8, 1024, 4, 128] bf16, forward and backward (4 launches), timed with
+   -sin too; odd D/2, fp32, a strided view and v given untimed;
+21. train a tiny fp32 eager Llama 3 AdamW steps on the card and on the CPU:
+   losses and parameters agree, the RMSNorm kernels launched; incubate's
+   fused ops agree between card and CPU;
+22. train the eager Llama at bench_llama's width (vocab 32000, hidden 2048,
+   intermediate 5632, 22 layers, 16 query and 4 KV heads of 128, batch 8 x
+   1024; >= 2-D parameters bf16, RMSNorm weights fp32, AdamW lr 1e-4 with
+   bf16 moments and SR) through nn.functional_train_graph,
+   nn.functional_call, cross_entropy on the fp32 logits,
+   torch.autograd.grad and AdamW.apply: 1 warm and 5 timed steps, tokens/s,
+   MFU, memory, every launch count, a profiled step and the fp32 head
+   GEMMs' time;
+22b. the eager Llama's kernel path (RMSNorm, flash and Adam kernels)
+   against the plain path: fp32 at 2 layers (loss, every gradient), bf16 at
+   full depth over 4 AdamW steps;
+23. bench_llama's own dense_loss step at the same width and batch (composed
+   RMSNorm and RoPE, flash GQA, per-block remat, all parameters bf16): 1
+   warm and 5 timed steps, launch counts, a profiled step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -77,6 +103,7 @@ the per-kernel JSON record.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -90,15 +117,20 @@ import torch
 from paddle_tpu_torch.inference.serving import (ServingEngine, _block_math,
                                                 _embed, _gather_seqs,
                                                 _head_logits, _qkv)
+from paddle_tpu_torch import device_guard
 from paddle_tpu_torch import nn as TNN
 from paddle_tpu_torch import random as TR
+from paddle_tpu_torch.incubate.nn import functional as TI
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_adam as FAD
 from paddle_tpu_torch.kernels import layer_norm as LN
 from paddle_tpu_torch.kernels import paged_attention as PA
 from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
+from paddle_tpu_torch.kernels import rms_norm as RN
+from paddle_tpu_torch.kernels import rope as RP
 from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.models import gpt as G
+from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.functional import norm as TFN
 from paddle_tpu_torch.nn.functional.flash_attention import (
@@ -2106,14 +2138,20 @@ def bert_step(model, params, buffers, opt, state, t):
 
 
 @contextlib.contextmanager
-def bert_plain_path():
-    """The plain path on the card: the LayerNorm kernels' plain version
-    (autograd through its fp32 arithmetic), the composed attention
-    (_sdpa_reference) and the fused leaves' plain Adam."""
+def layer_plain_path():
+    """The plain path of the eager layer models on the card: the LayerNorm
+    and RMSNorm kernels' plain versions (autograd through their fp32
+    arithmetic), the composed attention (_sdpa_reference) and the fused
+    leaves' plain Adam."""
     def layer_norm(x, weight, bias, epsilon):
         H = x.shape[-1]
         return LN.layer_norm_fwd_plain(x.reshape(-1, H), weight, bias,
                                        epsilon)[0].reshape(x.shape)
+
+    def rms_norm(x, weight, epsilon):
+        H = x.shape[-1]
+        return RN.rms_norm_fwd_plain(x.reshape(-1, H), weight,
+                                     epsilon)[0].reshape(x.shape)
 
     def sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
              training=True, name=None, segment_ids=None, generator=None):
@@ -2125,15 +2163,16 @@ def bert_plain_path():
         sr = seed is not None and slot["moment2"].dtype == torch.bfloat16
         noise = FAD.sr_noise(p.shape, seed, p.device) if sr else None
         return FAD.adam_update_plain(p, g, slot, lr, step, noise, **kw)
-    orig = TFN._layer_norm_kernel, TF.scaled_dot_product_attention, \
-        O.adam_update
-    TFN._layer_norm_kernel, TF.scaled_dot_product_attention, O.adam_update = \
-        layer_norm, sdpa, adam
+    orig = (TFN._layer_norm_kernel, TFN._rms_norm_kernel,
+            TF.scaled_dot_product_attention, O.adam_update)
+    (TFN._layer_norm_kernel, TFN._rms_norm_kernel,
+     TF.scaled_dot_product_attention, O.adam_update) = (layer_norm, rms_norm,
+                                                        sdpa, adam)
     try:
         yield
     finally:
-        TFN._layer_norm_kernel, TF.scaled_dot_product_attention, \
-            O.adam_update = orig
+        (TFN._layer_norm_kernel, TFN._rms_norm_kernel,
+         TF.scaled_dot_product_attention, O.adam_update) = orig
 
 
 def reset_bert_counts():
@@ -2333,7 +2372,7 @@ def bert_exactness_phase():
     model, params, buffers = bert_model(cfg, dtype=torch.float32)
     t = bert_tensors(batch, DEV)
     loss_k, g_k = bert_loss_and_grads(model, params, buffers, t)
-    with bert_plain_path():
+    with layer_plain_path():
         loss_p, g_p = bert_loss_and_grads(model, params, buffers, t)
     rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     log(f"fp32 2-layer: loss kernel {loss_k.item():.7f} plain "
@@ -2359,7 +2398,7 @@ def bert_exactness_phase():
     traj_k, traj_p, bf16_worst = [], [], None
     for step in range(BERT_TRAJECTORY_STEPS):
         loss_k, g_k = bert_loss_and_grads(model, pk, buffers, t)
-        with bert_plain_path():
+        with layer_plain_path():
             loss_p, g_p = bert_loss_and_grads(model, pp, buffers, t)
         if step == 0:
             rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -2387,7 +2426,7 @@ def bert_exactness_phase():
                                             5e-2, "l2", 1e-3, skip=qk)
             del g32
         ok.apply(pk, g_k, sk)
-        with bert_plain_path():
+        with layer_plain_path():
             op.apply(pp, g_p, sp)
         traj_k.append(loss_k.item())
         traj_p.append(loss_p.item())
@@ -2403,6 +2442,614 @@ def bert_exactness_phase():
     return dict(fp32_grad_max_rel=fp32_worst, bf16_grad_l2_rel=bf16_worst,
                 bf16_qk_vs_fp32_witness=qk,
                 bf16_trajectory_kernel=traj_k, bf16_trajectory_plain=traj_p)
+
+
+# ---------------------------------------------------------------------------
+# phases 19-23: the Llama slice
+# ---------------------------------------------------------------------------
+LLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+             num_layers=22, num_heads=16, num_kv_heads=4, max_seq_len=1024,
+             rope_theta=1e4, rms_eps=1e-5)            # bench_llama
+LLAMA_BATCH, LLAMA_SEQ = 8, 1024
+LLAMA_TIMED_STEPS = 5
+LLAMA_TRAJECTORY_STEPS = 4    # phase 22b: kernel path vs plain path
+# RMSNorm / RoPE kernel vs plain: max-abs err / max-abs ref; fp32 sums in
+# another order, bf16 one rounding of the output (an fp32 difference flips
+# one ulp)
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RMS_FLOPS = {"rms_norm_fwd": 4, "rms_norm_bwd": 7}    # per element
+ROPE_FLOPS = 6                                          # per pair
+
+
+def row_bound(nbytes, flops):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def rms_bounds(rows, H, dtype):
+    it = torch.tensor([], dtype=dtype).element_size()
+    work = {"rms_norm_fwd": 2 * rows * H * it + H * 4 + 4 * rows,
+            "rms_norm_bwd": 3 * rows * H * it + H * 4 + 4 * rows}
+    return {name: (*row_bound(nbytes, RMS_FLOPS[name] * rows * H), nbytes,
+                   RMS_FLOPS[name] * rows * H)
+            for name, nbytes in work.items()}
+
+
+# -- phase 19 ---------------------------------------------------------------
+def check_rms_case(name, rows, H, dtype, eps, card=None):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(rows + H)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=DEV) * scale + shift
+    x = rnd(rows, H, scale=3.0, shift=1.0).to(dtype)
+    w = rnd(H)
+    dy = rnd(rows, H).to(dtype)
+    y, rstd = RN.rms_norm_fwd(x, w, eps)
+    dx = RN.rms_norm_bwd_dx(x, w, rstd, dy)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yk = RN.rms_norm(xr, wr, eps)
+    gk = torch.autograd.grad(yk, (xr, wr), dy, retain_graph=True)
+    torch.cuda.synchronize()
+    y_p, rstd_p = RN.rms_norm_fwd_plain(x, w, eps)
+    dx_p, dw_p = RN.rms_norm_bwd_plain(x, w, rstd_p, dy)
+    tol = NORM_TOL[dtype]
+    rec = {}
+    for what, got, ref in (("y", y, y_p), ("dx", dx, dx_p),
+                           ("dx_autograd", gk[0], dx_p), ("dw", gk[1], dw_p)):
+        require(got.dtype == ref.dtype and got.shape == ref.shape,
+                f"{name} {what}: {got.dtype} {tuple(got.shape)} vs "
+                f"{ref.dtype} {tuple(ref.shape)}")
+        require(torch.isfinite(got.float()).all(), f"{name} {what} not finite")
+        err, rel = _rel_err(got, ref)
+        require(rel <= tol, f"{name} {what}: rel err {rel} > {tol}")
+        rec[what] = err
+    srel = ((rstd - rstd_p).abs() / rstd_p).max().item()
+    require(srel <= 1e-5, f"{name} rstd rel err {srel}")
+    log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
+        f"{rec['dw']:.3e}, rstd rel {srel:.2e} (tol {tol})")
+    if card is None:
+        return None
+    bounds = rms_bounds(rows, H, dtype)
+    F_ = torch.nn.functional
+    wl = w.to(dtype)
+    xl, wlr = x.clone().requires_grad_(True), wl.clone().requires_grad_(True)
+    yl = F_.rms_norm(xl, (H,), wlr, eps)
+    # the dense form's composed _rms (rounds before the gain), forward and
+    # autograd backward, beside the kernels: the two RMSNorms of this slice
+    xc, wc = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yc = TL._rms(xc, wc, eps)
+    times = {
+        "rms_norm_fwd": (
+            cuda_ms(lambda: RN.rms_norm_fwd(x, w, eps)),
+            cuda_ms(lambda: RN.rms_norm_fwd_plain(x, w, eps)),
+            cuda_ms(lambda: F_.rms_norm(x, (H,), wl, eps))),
+        "rms_norm_bwd": (
+            cuda_ms(lambda: RN.rms_norm_bwd_dx(x, w, rstd, dy)),
+            cuda_ms(lambda: RN.rms_norm_bwd_plain(x, w, rstd, dy)),
+            cuda_ms(lambda: torch.autograd.grad(yl, (xl, wlr), dy,
+                                                retain_graph=True))),
+    }
+    # the backward as the model runs it: the dx kernel and the fp32 dw sum
+    full_bwd = cuda_ms(lambda: torch.autograd.grad(yk, (xr, wr), dy,
+                                                   retain_graph=True))
+    composed = (cuda_ms(lambda: TL._rms(x, w, eps)),
+                cuda_ms(lambda: torch.autograd.grad(
+                    yc, (xc, wc), yc.detach(), retain_graph=True)))
+    errs = {"rms_norm_fwd": rec["y"], "rms_norm_bwd": rec["dx"]}
+    recs = {}
+    for kname, (kern, plain, lib) in times.items():
+        bound, by, nbytes, flops = bounds[kname]
+        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
+            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{flops} FLOP) kernel/bound {kern / bound:.1f}x  [{card}]")
+        recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, bound_by=by,
+                           bytes=nbytes, flops=flops)
+    recs["rms_norm_bwd"]["ms_with_dw"] = full_bwd
+    recs["rms_norm_fwd"]["composed_fwd_bwd_ms"] = composed
+    log(f"{name}: the plain and library backward times cover dx and dw; the "
+        f"model's backward (dx kernel + fp32 dw sum) {full_bwd:.4f} ms; the "
+        f"dense form's composed _rms forward {composed[0]:.4f} ms, its "
+        f"autograd backward {composed[1]:.4f} ms")
+    return recs
+
+
+def rms_phase(card):
+    R, H = LLAMA_BATCH * LLAMA_SEQ, LLAMA["hidden_size"]
+    recs = check_rms_case(f"(bf16) rows {R} x {H}, eps 1e-5, fp32 weight",
+                          R, H, torch.bfloat16, 1e-5, card)
+    # the same bytes in rows twice as wide, timed beside it
+    recs["wide"] = check_rms_case(
+        f"(bf16) rows {R // 2} x {2 * H}, eps 1e-5, fp32 weight", R // 2,
+        2 * H, torch.bfloat16, 1e-5, card)
+    check_rms_case(f"(fp32) rows {R} x {H}, eps 1e-5", R, H, torch.float32,
+                   1e-5)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for rows in (37, 1, 13):
+            for h in (100, 4095):
+                check_rms_case(f"({tag}) rows {rows} x {h}, eps 1e-6", rows,
+                               h, dtype, 1e-6)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# -- phase 20 ---------------------------------------------------------------
+def rope_bound(x):
+    B, S, H, D = x.shape
+    nbytes = 2 * x.numel() * x.element_size() + 2 * S * (D // 2) * 4
+    flops = ROPE_FLOPS * B * S * H * (D // 2)
+    return (*row_bound(nbytes, flops), nbytes, flops)
+
+
+def check_rope_case(name, x, cos, sin):
+    """Forward and -sin against the plain version; returns max-abs errs."""
+    errs = []
+    for neg in (False, True):
+        got, ref = RP.rope(x, cos, sin, neg), RP.rope_plain(x, cos, sin, neg)
+        require(got.dtype == x.dtype and got.shape == x.shape,
+                f"{name}: {got.dtype} {tuple(got.shape)}")
+        err, rel = _rel_err(got, ref)
+        require(rel <= NORM_TOL[x.dtype],
+                f"{name} neg_sin={neg}: rel err {rel}")
+        errs.append(err)
+    log(f"{name}: max_abs_err forward {errs[0]:.3e}, -sin {errs[1]:.3e} "
+        f"(tol {NORM_TOL[x.dtype]})")
+    return errs
+
+
+def rope_phase(card):
+    cfg = TL.LlamaConfig(**LLAMA)
+    B, S, D = LLAMA_BATCH, LLAMA_SEQ, cfg.head_dim
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    q = rnd(B, S, cfg.num_heads, D).requires_grad_(True)
+    k = rnd(B, S, cfg.num_kv_heads, D).requires_grad_(True)
+    gq, gk = rnd(B, S, cfg.num_heads, D), rnd(B, S, cfg.num_kv_heads, D)
+    cos, sin = TL.rope_tables(cfg, S, DEV)
+    # the main path: fused_rotary_position_embedding with its default
+    # (theta 10000) tables, forward and backward; counts 0 just before
+    RP.rope.LAUNCHES = 0
+    oq, ok, ov = TI.fused_rotary_position_embedding(q, k)
+    torch.autograd.backward((oq, ok), (gq, gk))
+    torch.cuda.synchronize()
+    launches = RP.rope.LAUNCHES
+    log(f"fused_rotary_position_embedding(q {tuple(q.shape)}, k "
+        f"{tuple(k.shape)}) bf16, forward and backward: {launches} rope "
+        f"launches (expected 2 forward + 2 backward)")
+    require(ov is None and launches == 4, f"rope launches {launches} != 4")
+    errs = {}
+    for what, got, ref in (
+            ("q", oq, RP.rope_plain(q.detach(), cos, sin)),
+            ("k", ok, RP.rope_plain(k.detach(), cos, sin)),
+            ("dq", q.grad, RP.rope_plain(gq, cos, sin, True)),
+            ("dk", k.grad, RP.rope_plain(gk, cos, sin, True))):
+        err, rel = _rel_err(got, ref)
+        require(rel <= NORM_TOL[torch.bfloat16], f"fused rope {what}: {rel}")
+        errs[what] = err
+    log(f"fused rope vs plain (the model's tables): max_abs_err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    qd, kd = q.detach(), k.detach()
+    recs = {}
+    for tag, x in (("q", qd), ("k", kd)):
+        bound, by, nbytes, flops = rope_bound(x)
+        kern = cuda_ms(lambda: RP.rope(x, cos, sin))
+        back = cuda_ms(lambda: RP.rope(x, cos, sin, True))
+        plain = cuda_ms(lambda: RP.rope_plain(x, cos, sin))
+        log(f"rope {tag} {tuple(x.shape)} bf16: kernel_ms {kern:.4f} (-sin "
+            f"{back:.4f}) plain_ms {plain:.4f} library_ms none bound_ms "
+            f"{bound:.4f} ({by}: {nbytes} B, {flops} FLOP) kernel/bound "
+            f"{kern / bound:.1f}x  [{card}]")
+        recs[tag] = dict(max_abs_err=errs[tag], ms=kern, neg_sin_ms=back,
+                         plain_ms=plain, library_ms=None, bound_ms=bound,
+                         bound_by=by, bytes=nbytes, flops=flops)
+    recs["launches"] = launches
+    # untimed: odd D/2, fp32, a strided view, v given
+    for shape in ((2, 7, 3, 6), (1, 5, 2, 10), (2, 33, 2, 24)):
+        c, s_ = (t[:shape[1], :shape[3] // 2].contiguous() for t in
+                 (cos, sin))
+        for dtype in (torch.bfloat16, torch.float32):
+            check_rope_case(f"({dtype}) {shape}", rnd(*shape, dtype=dtype),
+                            c, s_)
+    check_rope_case(f"(fp32) q {tuple(qd.shape)}", qd.float(), cos, sin)
+    qkv = rnd(2, S, cfg.num_heads, 3, D)
+    check_rope_case(f"(bf16) a strided view of {tuple(qkv.shape)}",
+                    qkv[:, :, :, 1], cos, sin)
+    v = rnd(B, S, cfg.num_kv_heads, D)
+    n = RP.rope.LAUNCHES
+    outs = TI.fused_rotary_position_embedding(qd, kd, v, sin=sin, cos=cos)
+    require(RP.rope.LAUNCHES == n + 3, "v given: three rope launches")
+    for t, o in zip((qd, kd, v), outs):
+        _, rel = _rel_err(o, RP.rope_plain(t, cos, sin))
+        require(rel <= NORM_TOL[torch.bfloat16], f"v given: rel err {rel}")
+    log("fused rope with v given: three launches, each within tolerance")
+    del q, k, gq, gk, oq, ok, qkv, v, outs
+    torch.cuda.empty_cache()
+    return recs
+
+
+# -- phases 21-23 -----------------------------------------------------------
+def reset_llama_counts():
+    for fn in (RN.rms_norm_fwd, RN.rms_norm_bwd_dx, RP.rope, FA.flash_fwd,
+               FA.flash_bwd_dq, FA.flash_bwd_dkv, FAD.adam_update):
+        fn.LAUNCHES = 0
+
+
+def llama_counts():
+    return dict(rms_norm_fwd=RN.rms_norm_fwd.LAUNCHES,
+                rms_norm_bwd=RN.rms_norm_bwd_dx.LAUNCHES,
+                rope=RP.rope.LAUNCHES,
+                flash_fwd=FA.flash_fwd.LAUNCHES,
+                flash_bwd_dq=FA.flash_bwd_dq.LAUNCHES,
+                flash_bwd_dkv=FA.flash_bwd_dkv.LAUNCHES,
+                fused_adam=FAD.adam_update.LAUNCHES)
+
+
+def llama_model(cfg, seed=0):
+    """The eager model built on the host from ``seed`` (its own fp32
+    parameters stay there: the card holds the trained state)."""
+    with device_guard("cpu"), TR.rng_guard(torch.Generator().manual_seed(
+            seed)):
+        return TL.Llama(cfg)
+
+
+def llama_state(model, device=DEV, dtype=torch.bfloat16):
+    """The trainable state on ``device``: >= 2-D parameters in ``dtype``,
+    the RMSNorm weights fp32."""
+    params = TNN.functional_train_graph(model, device=device)[0]
+    return {k: v.to(dtype) if v.dim() >= 2 else v for k, v in params.items()}
+
+
+def llama_batch(vocab, device=DEV):
+    rng = np.random.RandomState(0)             # bench_llama
+    shape = (LLAMA_BATCH, LLAMA_SEQ)
+    return (torch.from_numpy(rng.randint(0, vocab, shape)).to(device),
+            torch.from_numpy(rng.randint(0, vocab, shape)).to(device))
+
+
+def llama_loss_and_grads(model, params, tokens, labels):
+    names = list(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    logits, _ = TNN.functional_call(model, params, {}, tokens)
+    loss = TF.cross_entropy(logits, labels)
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    for p in params.values():
+        p.requires_grad_(False)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def llama_step(model, params, opt, state, tokens, labels):
+    loss, grads = llama_loss_and_grads(model, params, tokens, labels)
+    opt.apply(params, grads, state)
+    return loss
+
+
+def incubate_card_vs_cpu():
+    """incubate's fused ops on the card and on the CPU, fp32."""
+    gen = torch.Generator().manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen)
+    x, w, b = rnd(4, 37, 256), rnd(256), rnd(256)
+    q, k, v = rnd(2, 64, 4, 64), rnd(2, 64, 2, 64), rnd(2, 64, 2, 64)
+    lw, lb = rnd(256, 96), rnd(96)
+    ops = {
+        "fused_rms_norm": lambda d: TI.fused_rms_norm(x.to(d), w.to(d),
+                                                      epsilon=1e-5),
+        "fused_layer_norm": lambda d: TI.fused_layer_norm(
+            x.to(d), w.to(d), b.to(d), 1e-5),
+        "fused_rotary_position_embedding": lambda d: torch.cat([
+            t.flatten() for t in TI.fused_rotary_position_embedding(
+                q.to(d), k.to(d), v.to(d))]),
+        "swiglu": lambda d: TI.swiglu(x.to(d)),
+        "fused_linear": lambda d: TI.fused_linear(x.to(d), lw.to(d),
+                                                  lb.to(d)),
+        "fused_bias_act": lambda d: TI.fused_bias_act(x.to(d), b.to(d),
+                                                      "geglu"),
+    }
+    n = (RN.rms_norm_fwd.LAUNCHES, RP.rope.LAUNCHES,
+         LN.layer_norm_fwd.LAUNCHES)
+    worst = {}
+    for name, fn in ops.items():
+        _, worst[name] = _rel_err(fn(DEV).cpu(), fn("cpu"))
+        require(worst[name] <= 1e-5, f"incubate {name}: card vs CPU "
+                f"{worst[name]}")
+    launched = (RN.rms_norm_fwd.LAUNCHES - n[0], RP.rope.LAUNCHES - n[1],
+                LN.layer_norm_fwd.LAUNCHES - n[2])
+    require(launched == (1, 3, 1), f"incubate launches {launched}")
+    log("incubate ops, card vs CPU (fp32, rel err, tol 1e-5): "
+        + ", ".join(f"{n_} {e:.2e}" for n_, e in worst.items())
+        + f"; kernel launches rms / rope / layer_norm {launched}")
+
+
+def tiny_llama_phase():
+    cfg = TL.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                         num_heads=4, num_kv_heads=2, intermediate_size=512,
+                         dtype=torch.float32)
+    model = llama_model(cfg)
+    rng = np.random.RandomState(0)
+    tokens, labels = (torch.from_numpy(rng.randint(0, 512, (4, 128)))
+                      for _ in range(2))
+
+    def run(dev):
+        params = llama_state(model, dev, torch.float32)
+        opt = AdamW(1e-3)
+        state = opt.init_state(params)
+        losses = [llama_step(model, params, opt, state, tokens.to(dev),
+                             labels.to(dev)).item() for _ in range(3)]
+        return losses, {k: v.cpu() for k, v in params.items()}
+
+    reset_llama_counts()
+    card_losses, card_params = run(DEV)
+    counts = llama_counts()
+    cpu_losses, cpu_params = run("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    worst = max((card_params[n] - p).abs().max().item()
+                for n, p in cpu_params.items())
+    log(f"card: {card_losses}\ncpu:  {cpu_losses}\nmax loss rel diff "
+        f"{rel:.2e} (tol 1e-5); parameters after 3 steps max_abs_err "
+        f"{worst:.2e} (tol 1e-4); card launches {counts}")
+    require(rel <= 1e-5, f"tiny Llama: card and CPU losses differ by {rel}")
+    require(worst <= 1e-4, f"tiny Llama: parameters differ by {worst}")
+    L = cfg.num_layers
+    require(counts["rms_norm_fwd"] == counts["rms_norm_bwd"] == 3 * (2 * L + 1),
+            f"tiny Llama: RMSNorm launches {counts}")
+    require(counts["flash_fwd"] == 3 * L, f"tiny Llama: flash {counts}")
+    incubate_card_vs_cpu()
+
+
+def _kernel_class_llama(name):
+    low = name.lower()
+    if "rms_fwd" in low or "rms_bwd" in low:
+        return "rmsnorm"
+    if "gemm" in low and any(w in low for w in ("sgemm", "f32f32", "simt",
+                                                "gemm_f32")):
+        return "head_gemm_fp32"
+    return _kernel_class_train(name)
+
+
+def head_gemm_ms(cfg, card):
+    """The eager head's fp32 GEMMs alone, forward (x @ W) and backward
+    (dlogits @ W^T, x^T @ dlogits), at the step's shapes: TF32 is off, so
+    they run on the fp32 pipe (67 TFLOP/s peak)."""
+    T, H, V = LLAMA_BATCH * LLAMA_SEQ, cfg.hidden_size, cfg.vocab_size
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    x = torch.randn(T, H, generator=gen, device=DEV)
+    w = torch.randn(H, V, generator=gen, device=DEV) * 0.02
+    g = torch.randn(T, V, generator=gen, device=DEV)
+    ms = (cuda_ms(lambda: x @ w, runs=5), cuda_ms(lambda: g @ w.T, runs=5),
+          cuda_ms(lambda: x.T @ g, runs=5))
+    flops = 3 * 2.0 * T * H * V
+    log(f"head GEMMs fp32 [{T}, {H}] x [{H}, {V}]: forward {ms[0]:.3f} ms, "
+        f"backward {ms[1]:.3f} + {ms[2]:.3f} ms; {flops / 1e12:.3f} TFLOP, "
+        f"{flops / (sum(ms) / 1e3) / 1e12:.1f} TFLOP/s  [{card}]")
+    del x, w, g
+    torch.cuda.empty_cache()
+    return dict(fwd_ms=ms[0], bwd_ms=ms[1] + ms[2], total_ms=sum(ms),
+                flops=flops)
+
+
+def timed_steps(step, want, tokens_per_step, flops_per_token, card, tag):
+    """One warm step, then LLAMA_TIMED_STEPS timed steps with the counts
+    set to 0 just before and read just after; checks every count against
+    ``want`` (per step). CUDA events between the timed steps (no extra
+    synchronize) give each step's span on the device's timeline; the host
+    clock where each step's enqueue ended, the Python garbage collections
+    in the timed steps, and the caching allocator's counters (cudaMalloc,
+    free, retry) say where a slow step's time went."""
+    alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    torch.cuda.reset_peak_memory_stats()
+    st0 = torch.cuda.memory_stats()
+    t0 = time.perf_counter()
+    losses = [step()]                                              # warm
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    st1 = torch.cuda.memory_stats()
+    reset_llama_counts()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(LLAMA_TIMED_STEPS + 1)]
+    collections, host = [], []
+
+    def on_gc(when, info, start=[0.0]):
+        if when == "start":
+            start[0] = time.perf_counter()
+        else:
+            collections.append((info["generation"],
+                                (time.perf_counter() - start[0]) * 1e3))
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(LLAMA_TIMED_STEPS):
+        losses.append(step())
+        ev[i + 1].record()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gc.callbacks.remove(on_gc)
+    st2 = torch.cuda.memory_stats()
+    counts = llama_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    allocs = {k: (st1.get(k, 0) - st0.get(k, 0), st2.get(k, 0) - st1.get(k, 0))
+              for k in alloc_keys}
+    losses = [x.item() for x in losses]
+    ms = wall * 1e3 / LLAMA_TIMED_STEPS
+    tok_s = tokens_per_step * LLAMA_TIMED_STEPS / wall
+    mfu = FL.mfu(tok_s, flops_per_token,
+                 FL.peak_flops(torch.cuda.get_device_name(0)))
+    log(f"{tag}: warm step {warm:.2f} s; {LLAMA_TIMED_STEPS} timed steps: "
+        f"{ms:.2f} ms/step, {tok_s:.1f} tokens/s, MFU {mfu:.2%} "
+        f"({flops_per_token:.4g} FLOP/token, 989 TFLOP/s bf16 peak); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB  [{card}]")
+    log(f"{tag}: each timed step on the device's timeline (ms): "
+        f"{[round(t, 2) for t in step_ms]}; allocator (warm step, timed "
+        f"steps): {allocs}; reserved peak "
+        f"{st2.get('reserved_bytes.all.peak', 0) / 2**30:.2f} GiB")
+    med = statistics.median(step_ms)
+    med_tok_s = tokens_per_step / (med / 1e3)
+    med_mfu = FL.mfu(med_tok_s, flops_per_token,
+                     FL.peak_flops(torch.cuda.get_device_name(0)))
+    log(f"{tag}: the median timed step on the device's timeline {med:.2f} "
+        f"ms: {med_tok_s:.1f} tokens/s, MFU {med_mfu:.2%}  [{card}]")
+    gc_ms = sum(t for _, t in collections)
+    log(f"{tag}: host clock at each step's end of enqueue (ms from the "
+        f"first): {[round(t, 1) for t in host]}; {len(collections)} garbage "
+        f"collections in the timed steps, {gc_ms:.1f} ms, the longest "
+        f"{max((t for _, t in collections), default=0.0):.1f} ms (generations "
+        f"{sorted({g for g, _ in collections})})")
+    log(f"{tag}: losses (warm, then timed): {losses}")
+    log(f"{tag}: launches in the timed steps: {counts}; per step expected "
+        f"{want}")
+    require(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not "
+            f"finite")
+    for k, per_step in want.items():
+        require(counts[k] == per_step * LLAMA_TIMED_STEPS,
+                f"{tag} {k}: {counts[k]} launches in {LLAMA_TIMED_STEPS} "
+                f"steps, expected {per_step} per step")
+    return dict(tokens_per_s=tok_s, ms_per_step=ms, mfu=mfu,
+                flops_per_token=flops_per_token, peak_bytes=peak,
+                losses=losses, warm_s=warm, step_ms=step_ms,
+                median_step_ms=med, median_tokens_per_s=med_tok_s,
+                median_mfu=med_mfu, host_enqueue_end_ms=host,
+                allocator=allocs,
+                gc_collections=len(collections), gc_ms=gc_ms,
+                launches={k: v // LLAMA_TIMED_STEPS for k, v in counts.items()},
+                launches_total=counts)
+
+
+def llama_train_phase(card):
+    cfg = TL.LlamaConfig(**LLAMA, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = llama_model(cfg)
+    params = llama_state(model)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"eager Llama at bench_llama's width: {n_params} parameters "
+        f"({FL._llama_matmul_params(cfg)} in matmuls without the "
+        f"embedding), {sum(p.dim() < 2 for p in params.values())} fp32 "
+        f"RMSNorm weights; built on the host and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_state(params)
+    tokens, labels = llama_batch(cfg.vocab_size)
+    L = cfg.num_layers
+
+    def step():
+        return llama_step(model, params, opt, state, tokens, labels)
+    want = dict(rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1, rope=0,
+                flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L,
+                fused_adam=7 * L + 2)
+    rec = timed_steps(step, want, LLAMA_BATCH * LLAMA_SEQ,
+                      FL.llama_flops_per_token(cfg, LLAMA_SEQ)["model"],
+                      card, "eager Llama")
+    rec.update(profile_train_step(step, card, classify=_kernel_class_llama))
+    del params, state, opt
+    torch.cuda.empty_cache()
+    rec["head_gemm"] = head_gemm_ms(cfg, card)
+    rec["head_gemm_share"] = rec["head_gemm"]["total_ms"] / rec["ms_per_step"]
+    log(f"the fp32 head GEMMs alone take {rec['head_gemm']['total_ms']:.2f} "
+        f"ms, {rec['head_gemm_share']:.1%} of the timed step")
+    return rec, model
+
+
+def llama_exactness_phase(model):
+    """Kernel path (RMSNorm, flash and Adam kernels) against the plain path
+    on the card: fp32 at 2 layers, then bf16 at full depth."""
+    tokens, labels = llama_batch(LLAMA["vocab_size"])
+    # fp32, full width, the first 2 layers of the full model's weights
+    cfg2 = TL.LlamaConfig(**dict(LLAMA, num_layers=2), dtype=torch.float32)
+    with device_guard("cpu"):
+        two = TL.Llama(cfg2)
+    two.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if k in two.state_dict()})
+    params = llama_state(two, DEV, torch.float32)
+    loss_k, g_k = llama_loss_and_grads(two, params, tokens, labels)
+    with layer_plain_path():
+        loss_p, g_p = llama_loss_and_grads(two, params, tokens, labels)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"fp32 2-layer: loss kernel {loss_k.item():.7f} plain "
+        f"{loss_p.item():.7f} rel {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, f"fp32 2-layer Llama loss rel err {rel}")
+    fp32_worst = compare_grads("fp32 2-layer", g_k, g_p, 1e-3, "max")
+    del two, params, g_k, g_p
+    torch.cuda.empty_cache()
+    pk = llama_state(model)
+    pp = {k: v.clone() for k, v in pk.items()}
+    ok, op = (AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+              for _ in range(2))
+    sk, sp = ok.init_state(pk), op.init_state(pp)
+    traj_k, traj_p, bf16_worst = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(LLAMA_TRAJECTORY_STEPS):
+        loss_k, g_k = llama_loss_and_grads(model, pk, tokens, labels)
+        with layer_plain_path():
+            loss_p, g_p = llama_loss_and_grads(model, pp, tokens, labels)
+        if step == 0:
+            rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            log(f"bf16 full depth, first step: loss kernel "
+                f"{loss_k.item():.5f} plain {loss_p.item():.5f} rel "
+                f"{rel:.2e} (tol 1e-3); peak with both paths "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            require(rel <= 1e-3, f"bf16 Llama loss rel err {rel}")
+            bf16_worst = compare_grads("bf16 full depth", g_k, g_p, 5e-2,
+                                       "l2")
+        ok.apply(pk, g_k, sk)
+        with layer_plain_path():
+            op.apply(pp, g_p, sp)
+        traj_k.append(loss_k.item())
+        traj_p.append(loss_p.item())
+        del g_k, g_p
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(traj_k, traj_p))
+    log(f"bf16 full depth, {LLAMA_TRAJECTORY_STEPS} AdamW steps: kernel path "
+        f"{traj_k}\n  plain path {traj_p}\n  max rel diff {traj_rel:.2e} "
+        f"(tol 1e-2: bf16 rounding on two paths, SR noise from two "
+        f"generators)")
+    require(traj_rel <= 1e-2, f"bf16 Llama trajectories differ by {traj_rel}")
+    del pk, pp, sk, sp
+    torch.cuda.empty_cache()
+    return dict(fp32_grad_max_rel=fp32_worst, bf16_grad_l2_rel=bf16_worst,
+                bf16_trajectory_kernel=traj_k, bf16_trajectory_plain=traj_p)
+
+
+def llama_dense_phase(card):
+    """bench_llama's own step: dense_loss (composed _rms and _rope, flash
+    GQA, per-block remat) with every parameter bf16, AdamW bf16 moments."""
+    cfg = TL.LlamaConfig(**LLAMA, dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = TL.init_hybrid_params(cfg, 0, DEV)
+    log(f"init_hybrid_params (host draws, seed 0): "
+        f"{FL.param_count(params) + params['wte'].numel()} parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_state(params)
+    tokens, labels = llama_batch(cfg.vocab_size)
+    names, leaves = zip(*flat_leaves(params))
+
+    def step():
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = TL.dense_loss(params, tokens, labels, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        opt.apply(params, unflatten(names, grads), state)
+        return loss.detach()
+    L = cfg.num_layers
+    want = dict(rms_norm_fwd=0, rms_norm_bwd=0, rope=0, flash_fwd=2 * L,
+                flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=9)
+    rec = timed_steps(step, want, LLAMA_BATCH * LLAMA_SEQ,
+                      FL.llama_flops_per_token(cfg, LLAMA_SEQ)["model"],
+                      card, "dense_loss")
+    rec.update(profile_train_step(step, card, classify=_kernel_class_llama))
+    del params, state, opt
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2507,6 +3154,26 @@ def main() -> int:
     bert_exact = bert_exactness_phase()
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("19. RMSNorm kernels vs plain on the card")
+    rms = rms_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("20. RoPE kernel vs plain on the card")
+    rope = rope_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("21. tiny fp32 eager Llama trainer: card vs CPU")
+    tiny_llama_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("22. eager Llama at bench_llama's width, bf16")
+    llama, llama_host_model = llama_train_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("22b. Llama exactness: kernel path vs plain path")
+    llama_exact = llama_exactness_phase(llama_host_model)
+    del llama_host_model
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("23. bench_llama's dense_loss step, bf16")
+    dense = llama_dense_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2529,7 +3196,10 @@ def main() -> int:
              bert=dict(launches=bert_main["launches_total"][name],
                        shape=bert_shape,
                        **{k: fvar["bf16_p0.1"][name][k] for k in keys},
-                       p0={k: fvar["bf16_p0.0"][name][k] for k in keys}))
+                       p0={k: fvar["bf16_p0.0"][name][k] for k in keys}),
+             llama=dict(launches=llama["launches_total"][name],
+                        shape="q [8, 1024, 16, 128], k / v [8, 1024, 4, "
+                              "128] causal bf16 (the eager Llama)"))
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              f"{fa}:451"),
@@ -2544,7 +3214,8 @@ def main() -> int:
         launches=train["launches"]["fused_adam"],
         **{k: adam[k] for k in keys},
         shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
-        ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact))
+        ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact,
+        llama_launches=llama["launches_total"]["fused_adam"]))
     kernels += [
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
@@ -2584,7 +3255,28 @@ def main() -> int:
             rows_128={k: ln["rows_128"][name][k] for k in keys},
             bert=bert if name == "layer_norm_fwd" else None,
             bert_exactness=bert_exact if name == "layer_norm_fwd" else None))
-    require(len(kernels) == 10, f"{len(kernels)} kernels in the record")
+    for name, line in (("rms_norm_fwd", 66), ("rms_norm_bwd", 92)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/rms_norm.cu",
+            replaces=f"paddle_tpu/kernels/pallas/rms_norm.py:{line}",
+            launches=llama["launches_total"][name],
+            **{k: rms[name][k] for k in keys},
+            shape="x [8192, 2048] bf16, fp32 weight, eps 1e-5",
+            rows_4096_x_4096={k: rms["wide"][name][k] for k in keys},
+            llama=llama if name == "rms_norm_fwd" else None,
+            llama_exactness=llama_exact if name == "rms_norm_fwd" else None,
+            dense_loss=dense if name == "rms_norm_fwd" else None))
+    kernels.append(dict(
+        name="rope", route="cuda", source="paddle_tpu_torch/csrc/rope.cu",
+        replaces="paddle_tpu/kernels/pallas/rope.py:63",
+        launches=rope["launches"], **{k: rope["q"][k] for k in keys},
+        shape="q [8, 1024, 16, 128] bf16, fp32 [1024, 64] tables, through "
+              "fused_rotary_position_embedding (q and k, forward and "
+              "backward)",
+        neg_sin_ms=rope["q"]["neg_sin_ms"],
+        k={k: rope["k"][k] for k in keys + ("neg_sin_ms",)}))
+    require(len(kernels) == 13, f"{len(kernels)} kernels in the record")
     log(f"kernels: {[k['name'] for k in kernels]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,11 +17,12 @@
 // statistics are TPU tiling; here they are [rows].
 //
 // TPU -> Hopper. The Pallas grid walks blocks of ~2 MB of rows in VMEM, with
-// a masked edge block. Here one warp owns one row (8 rows per 256-thread
-// block, any row count: a block's warps past the last row exit), reads the
-// row in 16-byte words when H allows it (H a multiple of 8 for bf16, of 4 for
-// fp32, 16-byte aligned bases) and one element a lane otherwise, and reduces
-// its fp32 sums with warp shuffles: no shared memory and no block barrier.
+// a masked edge block. Here (helpers in norm_common.cuh) one warp owns one
+// row (8 rows per 256-thread block, any row count: a block's warps past the
+// last row exit), reads the row in 16-byte words when H allows it (H a
+// multiple of 8 for bf16, of 4 for fp32, 16-byte aligned bases) and one
+// element a lane otherwise, and reduces its fp32 sums with warp shuffles: no
+// shared memory and no block barrier.
 // Any H: the composed path takes every width, so the kernel does too.
 //
 // Bound on an H100 SXM (3.35 TB/s): a row reduction does ~8 FLOPs an element
@@ -33,74 +34,11 @@
 // from L1. Keeping the row in registers, and several rows per warp at small H,
 // are the next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "norm_common.cuh"
+
+using namespace ptt_norm;
 
 namespace {
-
-constexpr int kWarps = 8;  // rows per block, one warp each
-constexpr int kThreads = 32 * kWarps;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// f(i, a[i], b[i]) for every element i of a row of H held by this lane: in
-// 16-byte words (N elements each) when vec, else one element per lane. b may
-// be the same row as a (one-array passes).
-template <typename T, typename F>
-__device__ __forceinline__ void walk(const T* __restrict__ a, const T* __restrict__ b, int H,
-                                     bool vec, F&& f) {
-  constexpr int N = 16 / sizeof(T);
-  const int lane = threadIdx.x % 32;
-  if (vec) {
-    for (int w = lane; w < H / N; w += 32) {
-      const uint4 ra = __ldg(reinterpret_cast<const uint4*>(a) + w);
-      const uint4 rb = __ldg(reinterpret_cast<const uint4*>(b) + w);
-      const T* va = reinterpret_cast<const T*>(&ra);
-      const T* vb = reinterpret_cast<const T*>(&rb);
-#pragma unroll
-      for (int k = 0; k < N; ++k) f(w * N + k, to_f32(va[k]), to_f32(vb[k]));
-    }
-  } else {
-    for (int i = lane; i < H; i += 32) f(i, to_f32(a[i]), to_f32(b[i]));
-  }
-}
-
-// out[i] = g(i, a[i], b[i]) over the row, written in 16-byte words when vec.
-template <typename T, typename G>
-__device__ __forceinline__ void write_row(const T* __restrict__ a, const T* __restrict__ b,
-                                          T* __restrict__ out, int H, bool vec, G&& g) {
-  constexpr int N = 16 / sizeof(T);
-  const int lane = threadIdx.x % 32;
-  if (vec) {
-    for (int w = lane; w < H / N; w += 32) {
-      const uint4 ra = __ldg(reinterpret_cast<const uint4*>(a) + w);
-      const uint4 rb = __ldg(reinterpret_cast<const uint4*>(b) + w);
-      const T* va = reinterpret_cast<const T*>(&ra);
-      const T* vb = reinterpret_cast<const T*>(&rb);
-      uint4 ro;
-      T* vo = reinterpret_cast<T*>(&ro);
-#pragma unroll
-      for (int k = 0; k < N; ++k) vo[k] = from_f32<T>(g(w * N + k, to_f32(va[k]), to_f32(vb[k])));
-      reinterpret_cast<uint4*>(out)[w] = ro;
-    }
-  } else {
-    for (int i = lane; i < H; i += 32) out[i] = from_f32<T>(g(i, to_f32(a[i]), to_f32(b[i])));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -150,10 +88,6 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     return rs * (dyv * __ldg(w + i) - m1 - (xv - mu) * rs * m2);
   });
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-dim3 grid_for(long long rows) { return dim3(static_cast<unsigned>((rows + kWarps - 1) / kWarps)); }
 
 }  // namespace
 

@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load_library", "build_library", "check", "BUILD_LOG"]
+__all__ = ["load_library", "build_library", "check", "launch", "is_cpu",
+           "dtype_code", "check_rows", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -144,6 +145,13 @@ def load_library() -> ctypes.CDLL:
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
         # x, w, mean, rstd, dy, dx, rows, H, dtype, stream
         "ptt_layer_norm_bwd": [vp] * 6 + [ll, ci, ci, vp],
+        # x, w, y, rstd, rows, H, eps, dtype, stream
+        "ptt_rms_norm_fwd": [vp] * 4 + [ll, ci, cf, ci, vp],
+        # x, w, rstd, dy, dx, rows, H, dtype, stream
+        "ptt_rms_norm_bwd": [vp] * 5 + [ll, ci, ci, vp],
+        # x, cos, sin, y, B, S, H, D, strides (b, s, h), neg_sin, dtype,
+        # stream
+        "ptt_rope": [vp] * 4 + [ci] * 4 + [ll] * 3 + [ci, ci, vp],
         # p, g, m1, m2, master, n, p_dtype, m_dtype, lr, c1, c2, b1, 1-b1,
         # b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
         "ptt_fused_adam": [vp] * 5 + [ll, ci, ci] + [cf] * 10
@@ -164,3 +172,47 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load_library().ptt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(what: str, fn, device, *args) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream, then raise on a
+    non-zero CUDA status (``what`` names the call in the error)."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    check(code, what)
+
+
+def is_cpu(t, what: str) -> bool:
+    """True for a CPU tensor (the caller takes its plain version), False for
+    a CUDA one (the caller launches its kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return False
+
+
+def dtype_code(t, what: str) -> int:
+    """The C entries' dtype argument: 0 for float32, 1 for bfloat16."""
+    import torch
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{what} kernels take float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return code
+
+
+def check_rows(x2, what: str, *more) -> int:
+    """A row kernel's input: contiguous ``[rows, H]`` float32 or bfloat16,
+    with ``more`` on its device. Returns the dtype code."""
+    code = dtype_code(x2, what)
+    if x2.dim() != 2 or not x2.is_contiguous():
+        raise ValueError(f"{what} kernels take contiguous [rows, H], got "
+                         f"{tuple(x2.shape)} strides {x2.stride()}")
+    for t in more:
+        if t.device != x2.device:
+            raise ValueError(f"{what}: a tensor is on {t.device}, x on "
+                             f"{x2.device}")
+    return code

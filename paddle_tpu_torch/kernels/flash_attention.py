@@ -68,6 +68,8 @@ import math
 
 import torch
 
+from ._build import is_cpu, launch as _launch
+
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_plain",
            "philox4x32_10", "dropout_keep_mask", "dropout_threshold",
@@ -275,22 +277,6 @@ def _check_cuda(q, k, v, *more):
                              f"aligned (strides {t.stride()})")
 
 
-def _launch(what, fn, device, *args):
-    from ._build import check
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*args, stream)
-    check(code, what)
-
-
-def _is_cpu(t):
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {t.device}")
-    return False
-
-
 def _bias_view(bias, q, k):
     """The bias in q's dtype as a [B, H, Sq, Sk] view: stride 0 over its
     broadcast dims (``expand`` copies nothing)."""
@@ -350,7 +336,7 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,
     dtype; ``q_seg`` / ``kv_seg``: integer segment ids [B, Sq] / [B, Sk];
     ``dropout_p`` with the 64-bit ``seed``. A bias does not combine with
     segments or dropout."""
-    if _is_cpu(q):
+    if is_cpu(q, "flash attention"):
         return flash_fwd_plain(q, k, v, causal, sm_scale, bias, q_seg, kv_seg,
                                dropout_p, seed)
     _check_cuda(q, k, v)
@@ -382,7 +368,7 @@ def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
                  seed: int = 0):
     """(dq [B, Sq, H, D] in q's dtype, delta = rowsum(p * dP) fp32
     [B, H, Sq])."""
-    if _is_cpu(q):
+    if is_cpu(q, "flash attention"):
         p, _, dp = _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg,
                               kv_seg, dropout_p, seed)
         delta = (p * dp).sum(-1)
@@ -414,7 +400,7 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal: bool, sm_scale: float,
                   seed: int = 0):
     """(dk, dv) [B, Sk, H_kv, D] in k's dtype, from the ``delta`` that
     ``flash_bwd_dq`` returned."""
-    if _is_cpu(q):
+    if is_cpu(q, "flash attention"):
         return flash_bwd_plain(q, k, v, lse, do, causal, sm_scale,
                                delta=delta, q_seg=q_seg, kv_seg=kv_seg,
                                dropout_p=dropout_p, seed=seed)[1:]
@@ -441,7 +427,7 @@ def flash_bwd(q, k, v, lse, do, causal: bool, sm_scale: float,
               q_seg=None, kv_seg=None, dropout_p: float = 0.0, seed: int = 0):
     """(dq, dk, dv): the dQ kernel (which also forms delta), then the dK/dV
     kernel; on the CPU, the plain backward."""
-    if _is_cpu(q):
+    if is_cpu(q, "flash attention"):
         return flash_bwd_plain(q, k, v, lse, do, causal, sm_scale,
                                q_seg=q_seg, kv_seg=kv_seg,
                                dropout_p=dropout_p, seed=seed)

@@ -24,11 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from ._build import check_rows, is_cpu, launch as _launch
+
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd_dx",
            "layer_norm_fwd_plain", "layer_norm_bwd_plain"]
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held to on the card)
@@ -71,27 +70,6 @@ def _dw_db(xhat, dyf, has_bias):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _is_cpu(t):
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"layer_norm: unsupported device {t.device}")
-    return False
-
-
-def _check(x2, *more):
-    if x2.dtype not in _DTYPE_CODE:
-        raise TypeError(f"layer_norm kernels take float32 or bfloat16, got "
-                        f"{x2.dtype}")
-    if x2.dim() != 2 or not x2.is_contiguous():
-        raise ValueError(f"layer_norm kernels take contiguous [rows, H], got "
-                         f"{tuple(x2.shape)} strides {x2.stride()}")
-    for t in more:
-        if t.device != x2.device:
-            raise ValueError(f"layer_norm: a tensor is on {t.device}, x on "
-                             f"{x2.device}")
-
-
 def _affine(t, H, what):
     """An [H] affine parameter as the kernels take it: fp32, contiguous."""
     if t.numel() != H:
@@ -100,19 +78,12 @@ def _affine(t, H, what):
     return t.reshape(H).float().contiguous()
 
 
-def _launch(what, fn, device, *args):
-    from ._build import check
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*args, stream)
-    check(code, what)
-
-
 def layer_norm_fwd(x2, weight, bias, epsilon):
     """(y [rows, H] in x2's dtype, mean fp32 [rows], rstd fp32 [rows])."""
-    if _is_cpu(x2):
+    if is_cpu(x2, "layer_norm"):
         return layer_norm_fwd_plain(x2, weight, bias, epsilon)
-    _check(x2, weight, *(() if bias is None else (bias,)))
+    code = check_rows(x2, "layer_norm", weight,
+                      *(() if bias is None else (bias,)))
     from ._build import load_library
     rows, H = x2.shape
     w = _affine(weight, H, "weight")
@@ -123,17 +94,16 @@ def layer_norm_fwd(x2, weight, bias, epsilon):
     _launch(f"layer_norm_fwd launch (rows={rows} H={H} {x2.dtype})",
             load_library().ptt_layer_norm_fwd, x2.device, x2.data_ptr(),
             w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), rows, H, float(epsilon),
-            _DTYPE_CODE[x2.dtype])
+            mean.data_ptr(), rstd.data_ptr(), rows, H, float(epsilon), code)
     layer_norm_fwd.LAUNCHES += 1
     return y, mean, rstd
 
 
 def layer_norm_bwd_dx(x2, weight, mean, rstd, dy):
     """dx [rows, H] in x2's dtype from the forward's statistics."""
-    if _is_cpu(x2):
+    if is_cpu(x2, "layer_norm"):
         return layer_norm_bwd_plain(x2, weight, mean, rstd, dy)[0]
-    _check(x2, weight, mean, rstd, dy)
+    code = check_rows(x2, "layer_norm", weight, mean, rstd, dy)
     if dy.shape != x2.shape or dy.dtype != x2.dtype:
         raise ValueError(f"layer_norm backward: dy {dy.dtype} "
                          f"{tuple(dy.shape)} does not fit x {x2.dtype} "
@@ -146,7 +116,7 @@ def layer_norm_bwd_dx(x2, weight, mean, rstd, dy):
     _launch(f"layer_norm_bwd launch (rows={rows} H={H} {x2.dtype})",
             load_library().ptt_layer_norm_bwd, x2.device, x2.data_ptr(),
             w.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), rows, H, _DTYPE_CODE[x2.dtype])
+            dx.data_ptr(), rows, H, code)
     layer_norm_bwd_dx.LAUNCHES += 1
     return dx
 

@@ -1,6 +1,7 @@
 """Weight and optimizer-state carry-over from the JAX package (counterparts:
-the pytree that ``paddle_tpu/models/gpt.py`` ``init_hybrid_params`` returns,
-and the state that ``paddle_tpu/optimizer/optimizer.py``
+the pytrees that ``paddle_tpu/models/gpt.py`` and ``llama.py``
+``init_hybrid_params`` return, the eager layers' ``functional_train_graph``
+trees, and the state that ``paddle_tpu/optimizer/optimizer.py``
 ``Optimizer.init_state`` / ``apply`` return).
 
 ``params_from_jax`` takes the parameter tree as numpy arrays (what

@@ -4,11 +4,11 @@ from . import functional
 from .layer.common import Dropout, Embedding, Linear
 from .layer.container import LayerList
 from .layer.layers import Layer, functional_call, functional_train_graph
-from .layer.norm import LayerNorm
+from .layer.norm import LayerNorm, RMSNorm
 from .layer.transformer import (MultiHeadAttention, TransformerEncoder,
                                 TransformerEncoderLayer)
 
 __all__ = ["functional", "Layer", "Linear", "Dropout", "Embedding",
-           "LayerNorm", "LayerList", "MultiHeadAttention",
+           "LayerNorm", "RMSNorm", "LayerList", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder", "functional_call",
            "functional_train_graph"]

@@ -1,11 +1,12 @@
 """Activations (counterpart: ``paddle_tpu/nn/functional/activation.py``
-``gelu``, ``tanh``, ``relu``): the surface the BERT path needs."""
+``gelu``, ``tanh``, ``relu``, ``swish`` and its alias ``silu``): the
+surface the BERT and Llama paths need."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu", "tanh", "relu"]
+__all__ = ["gelu", "tanh", "relu", "swish", "silu"]
 
 
 def gelu(x, approximate=False):
@@ -21,3 +22,11 @@ def tanh(x):
 
 def relu(x):
     return torch.relu(x)
+
+
+def swish(x):
+    """x * sigmoid(x) (``jax.nn.silu``)."""
+    return torch.nn.functional.silu(x)
+
+
+silu = swish

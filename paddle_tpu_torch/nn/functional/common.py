@@ -1,11 +1,15 @@
 """Common functional ops (counterpart: ``paddle_tpu/nn/functional/common.py``
-``linear``, ``dropout``, ``embedding``): the surface the BERT path needs.
+``linear``, ``dropout``, ``embedding``): the surface the BERT and Llama
+paths need.
 
 ``linear`` contracts over the weight's leading axis (Paddle's ``[in, out]``
-layout, never ``torch.nn.functional.linear``'s ``[out, in]``) and adds the
-bias in the product's dtype, so an fp32 bias beside bf16 activations does not
-promote the output. ``dropout`` draws its mask from an explicit generator
-(``paddle_tpu_torch.random``); its bits are torch's, not ``jax.random``'s.
+layout, never ``torch.nn.functional.linear``'s ``[out, in]``). Operands of
+two dtypes are both cast to ``torch.promote_types`` of the pair first, as
+``jnp.matmul`` promotes (bf16 x with an fp32 W multiplies in fp32); the bias
+is added in the product's dtype, so an fp32 bias beside bf16 activations
+does not promote the output. ``dropout`` draws its mask from an explicit
+generator (``paddle_tpu_torch.random``); its bits are torch's, not
+``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ def linear(x, weight, bias=None, name=None):
             and x.shape[-1] == weight.shape[0],
             f"linear: x{tuple(x.shape)} @ W{tuple(weight.shape)} — last dim "
             f"of x must equal W's in dim", op="linear")
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias.to(out.dtype)

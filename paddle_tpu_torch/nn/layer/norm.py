@@ -1,5 +1,5 @@
 """Normalization layers (counterpart: ``paddle_tpu/nn/layer/norm.py``
-``LayerNorm``)."""
+``LayerNorm``, ``RMSNorm``)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from .. import functional as F
 from ..initializer import Constant
 from .layers import Layer
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(Layer):
@@ -33,3 +33,20 @@ class LayerNorm(Layer):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
                             self.epsilon)
+
+
+class RMSNorm(Layer):
+    """RMSNorm over the last axis: weight ones, fp32 whatever the rows'
+    dtype, no bias; the registry op ``rms_norm``."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.epsilon = epsilon
+        self.weight = self.create_parameter(
+            (hidden_size,), attr=weight_attr,
+            default_initializer=Constant(1.0))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, epsilon=self.epsilon)

@@ -1,7 +1,7 @@
 """Analytic FLOPs models for step accounting (counterpart:
 ``paddle_tpu/observability/flops.py`` ``param_count``,
-``transformer_flops_per_token``, ``gpt_flops_per_token``, ``peak_flops`` and
-``mfu``).
+``transformer_flops_per_token``, ``gpt_flops_per_token``,
+``llama_flops_per_token``, ``peak_flops`` and ``mfu``).
 
 The accounting is the JAX package's, unchanged (the PaLM/Chinchilla rule):
 
@@ -21,7 +21,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 __all__ = ["param_count", "transformer_flops_per_token",
-           "gpt_flops_per_token", "peak_flops", "mfu"]
+           "gpt_flops_per_token", "llama_flops_per_token", "peak_flops",
+           "mfu"]
 
 _REMAT_MODES = ("none", "full", "selective")
 
@@ -72,12 +73,31 @@ def _gpt_matmul_params(cfg) -> int:
     return L * per_layer + h * cfg.vocab_size  # blocks + untied LM head
 
 
+def _llama_matmul_params(cfg) -> int:
+    h, L, d = cfg.hidden_size, cfg.num_layers, cfg.head_dim
+    kv = cfg.num_kv_heads * d
+    attn = h * h + 2 * h * kv + h * h              # q, k, v, o
+    ffn = 3 * h * cfg.intermediate_size            # gate, up, down
+    return L * (attn + ffn) + h * cfg.vocab_size
+
+
 def gpt_flops_per_token(cfg, seq_len: int, *, params=None,
                         remat: str = "none") -> Dict[str, float]:
     """FLOPs/token for a GPTConfig. Pass the param dict to count N exactly
     (as the reference's bench does); otherwise N comes from the config."""
     n = (param_count(params) if params is not None
          else _gpt_matmul_params(cfg))
+    return transformer_flops_per_token(
+        n_params=n, num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
+        seq_len=seq_len, remat=remat)
+
+
+def llama_flops_per_token(cfg, seq_len: int, *, params=None,
+                          remat: str = "none") -> Dict[str, float]:
+    """FLOPs/token for a LlamaConfig: N from the param dict when given,
+    else from the config (blocks + the untied head, no embedding)."""
+    n = (param_count(params) if params is not None
+         else _llama_matmul_params(cfg))
     return transformer_flops_per_token(
         n_params=n, num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
         seq_len=seq_len, remat=remat)
