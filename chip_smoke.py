@@ -94,7 +94,29 @@ Phases, in order; any failure exits non-zero:
    full depth over 4 AdamW steps;
 23. bench_llama's own dense_loss step at the same width and batch (composed
    RMSNorm and RoPE, flash GQA, per-block remat, all parameters bf16): 1
-   warm and 5 timed steps, launch counts, a profiled step.
+   warm and 5 timed steps, launch counts, a profiled step;
+24. hold the flash kernels with an additive bias against their plain
+   versions at the padded BERT call (B 16, S 512, H 12, D 64, the
+   [16, 1, 512, 512] bool mask of bench_bert_base as a bias in q's dtype),
+   bf16 and fp32: the bias alone and with dropout 0.1 (bf16 timed against
+   their bound, the plain version and SDPA on the same mask), the bias with
+   segment ids, an fp32 ALiBi-like bias beside bf16 q, the d-bias at three
+   bias shapes; the dropout mask with a bias bit for bit;
+25. hold them at D 32, 40, 80, 96, 160, 256 in fp32, bf16 and fp16, causal
+   and not, GQA 8/2 with Sq != Sk; time D 32, 96, 256 (bf16) and 128 (fp16)
+   at B 8, S 1024, H 16 causal, and the Llama GQA 16/4 call, each against
+   its bound and SDPA; D 320 through scaled_dot_product_attention takes the
+   counted composed route;
+26. a tiny fp32 BERT with a 4-D bool mask over ragged lengths: logits, loss
+   and every gradient on the card against the CPU;
+27. train BERT-base padded (bench_bert_base: _bert_job's corpus of 16
+   sequences padded to 512, the 4-D bool mask, dropout 0.1, bf16 >= 2-D
+   parameters, AdamW lr 1e-4 bf16 moments): 1 warm and 5 timed steps,
+   padded and real tokens/s, MFU on the useful FLOPs, memory, every launch
+   count, a profiled step;
+27b. with dropout 0, the padded BERT's kernel path against the plain path:
+   fp32 at 2 layers, bf16 at full depth over 4 AdamW steps, its query / key
+   gradients against an fp32 witness.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -106,6 +128,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -606,29 +629,6 @@ def visible_pairs(sq, sk, causal):
     return sum(min(max(i + off + 1, 0), sk) for i in range(sq))
 
 
-def flash_bounds(B, sq, sk, H, Hkv, D, causal, dtype):
-    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once,
-    each output written once, against 4 D (forward), 6 D (dQ: s, dp, dq;
-    its kernel's delta pass repeats s and dp, which the bound does not
-    count) and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible pair, at the
-    dtype's peak (bf16 tensor cores, or fp32 outside them)."""
-    it = torch.tensor([], dtype=dtype).element_size()
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    qn, kn, rows = B * sq * H * D, B * sk * Hkv * D, B * H * sq
-    pairs = visible_pairs(sq, sk, causal) * B * H
-    work = {"flash_fwd": ((2 * qn + 2 * kn) * it + 4 * rows, 4 * D * pairs),
-            "flash_bwd_dq": ((3 * qn + 2 * kn) * it + 8 * rows,
-                             6 * D * pairs),
-            "flash_bwd_dkv": ((2 * qn + 4 * kn) * it + 8 * rows,
-                              8 * D * pairs)}
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
-                     nbytes, flops)
-    return out
-
-
 def flash_case(B, sq, sk, H, Hkv, D, dtype, seed):
     """q, k, v as the model gives them (strided views of one head-major
     qkv [B, S, H, 3, D] when the shapes allow), and dO."""
@@ -668,61 +668,126 @@ def tile_rel_err(got, ref, rows=64):
     return ratio.max().item()
 
 
-def check_flash_case(name, shape, causal, dtype, card):
-    B, sq, sk, H, Hkv, D = shape
-    q, k, v, do = flash_case(B, sq, sk, H, Hkv, D, dtype, seed=sq + sk + H)
-    scale = 1.0 / math.sqrt(D)
-    out, lse = FA.flash_fwd(q, k, v, causal, scale)
-    dq, delta = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale)
-    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
+def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False):
+    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once,
+    each output written once (the bias once by each kernel, so twice by the
+    backward; the segment ids once; with ``dbias`` the fp32 [B, H, Sq, Sk]
+    d-bias written by dQ), against 4 D (forward), 6 D (dQ: s, dp, dq; its
+    kernel's delta pass repeats s and dp, which the bound does not count)
+    and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible (query, key) pair over
+    all heads (``pairs``: what this run's causal rule and mask leave), at
+    the dtype's peak (the 16-bit tensor cores, or fp32 outside them)."""
+    B, sq, H, D = q.shape
+    sk, Hkv = k.shape[1], k.shape[2]
+    it = q.element_size()
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    qn, kn, rows = B * sq * H * D, B * sk * Hkv * D, B * H * sq
+    extra = (0 if bias is None else bias.numel() * bias.element_size()) + (
+        4 * B * (sq + sk) if seg else 0)
+    work = {"flash_fwd": ((2 * qn + 2 * kn) * it + 4 * rows, 4 * D * pairs),
+            "flash_bwd_dq": ((3 * qn + 2 * kn) * it + 8 * rows
+                             + (4 * B * H * sq * sk if dbias else 0),
+                             6 * D * pairs),
+            "flash_bwd_dkv": ((2 * qn + 4 * kn) * it + 8 * rows,
+                              8 * D * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        nbytes += extra
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
+                     nbytes, flops)
+    return out
+
+
+def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
+               pairs=None):
+    """The three kernels against their plain versions on the same inputs:
+    lse, dead rows, out, dq, dk, dv (and the d-bias) on the worst 64-row
+    tile at the dtype's tier; with ``card``, each kernel timed (CUDA
+    events, median, cold L2) against its bound, the plain version and
+    F.scaled_dot_product_attention on the same float mask and dropout."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwd = {n: var[n] for n in ("bias", "q_seg", "kv_seg", "dropout_p", "seed")
+           if n in var}
+    out, lse = FA.flash_fwd(q, k, v, causal, scale, **fwd)
+    dq, delta, *dbf = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale,
+                                      bias_grad=bias_grad, **var)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, **var)
     torch.cuda.synchronize()
-    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale)
-    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, lse, do, causal,
-                                          scale)
-    tol_o, tol_g = FLASH_TOL[dtype]
+    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale, **fwd)
+    ref = FA.flash_bwd_plain(q, k, v, lse, do, causal, scale,
+                             bias_grad=bias_grad, **var)
+    tol_o, tol_g = FLASH_TOL[torch.float32 if q.dtype == torch.float32
+                             else torch.bfloat16]
     live = lse_p > -1e29
     require(torch.equal(live, lse > -1e29), f"{name}: dead rows differ")
+    dead_q = ~live.transpose(1, 2)
+    require(bool((out[dead_q] == 0).all()) and bool((dq[dead_q] == 0).all()),
+            f"{name}: a dead row's output or dq is not zero")
     err, rel = _rel_err(lse[live], lse_p[live])
-    log(f"{name} lse: max_abs_err {err:.3e} rel {rel:.3e} (tol 1e-5)")
     require(rel <= 1e-5, f"{name}: lse rel err {rel} > 1e-5")
-    rec = {"lse": err}
-    for what, got, ref, tol in (("out", out, out_p, tol_o),
-                                ("dq", dq, dq_p, tol_g), ("dk", dk, dk_p, tol_g),
-                                ("dv", dv, dv_p, tol_g)):
+    rec = {"lse": err, "dead_rows": int((~live).sum())}
+    for what, got, want, tol in (("out", out, out_p, tol_o),
+                                 ("dq", dq, ref[0], tol_g),
+                                 ("dk", dk, ref[1], tol_g),
+                                 ("dv", dv, ref[2], tol_g)):
         require(torch.isfinite(got.float()).all(), f"{name}: {what} not finite")
-        err, _ = _rel_err(got, ref)
-        tile = tile_rel_err(got, ref)
-        log(f"{name} {what}: worst tile L2 rel err {tile:.3e} (tol {tol}); "
-            f"max_abs_err {err:.3e}")
+        tile = tile_rel_err(got, want)
         require(tile <= tol, f"{name}: {what} tile L2 rel err {tile} > {tol}")
-        rec[what] = err
-        rec[what + "_tile"] = tile
+        rec[what], rec[what + "_tile"] = _rel_err(got, want)[0], tile
+    msg = ""
+    if bias_grad:
+        db = FA._reduce_dbias(dbf[0], var["bias"])
+        want = ref[3]
+        l2 = ((db.float() - want.float()).norm()
+              / want.float().norm().clamp_min(1e-30)).item()
+        tol = tol_g if q.dtype != torch.float32 else 5e-6
+        require(db.shape == var["bias"].shape and l2 <= tol,
+                f"{name}: d-bias {tuple(db.shape)} l2 rel err {l2} > {tol}")
+        rec["dbias_l2"] = l2
+        msg = f" d-bias {tuple(db.shape)} l2 rel {l2:.3e}"
+    log(f"{name}: worst tile L2 rel err out {rec['out_tile']:.3e} dq "
+        f"{rec['dq_tile']:.3e} dk {rec['dk_tile']:.3e} dv "
+        f"{rec['dv_tile']:.3e} (tol {tol_o}, {tol_g});{msg} lse max_abs_err "
+        f"{rec['lse']:.3e}; dead rows {rec['dead_rows']}")
+    del out_p, lse_p, ref
     if card is None:
         return rec
-    bounds = flash_bounds(B, sq, sk, H, Hkv, D, causal, dtype)
+    bounds = flash_bounds(q, k, pairs, var.get("bias"), bias_grad,
+                          "q_seg" in var)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    p = var.get("dropout_p", 0.0)
+    mask = var.get("bias")
+    if mask is not None and mask.dtype != q.dtype:
+        mask = mask.to(q.dtype)
+    if "q_seg" in var:
+        seg = var["q_seg"]
+        same = (seg[:, None, :, None] == seg[:, None, None, :])
+        mask = same if mask is None else torch.where(same, mask, -1e30).to(
+            q.dtype)
+    gqa = q.shape[2] != k.shape[2]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
-    gqa = H != Hkv
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    o_lib = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
     do_t = do.transpose(1, 2).contiguous()
+
+    def lib():
+        return sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p,
+                    is_causal=causal and mask is None, enable_gqa=gqa)
+    o_lib = lib()
     times = {
-        "flash_fwd": (
-            cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale)),
-            cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, causal, scale)),
-            cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                 enable_gqa=gqa))),
-        "flash_bwd_dq": (
-            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, causal,
-                                            scale)), None, None),
-        "flash_bwd_dkv": (
-            cuda_ms(lambda: FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal,
-                                             scale)), None, None),
-    }
-    # the plain backward and the library backward compute dq, dk and dv in
-    # one call: both backward kernels are held against that one time
-    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(q, k, v, lse, do,
-                                                   causal, scale))
+        "flash_fwd": (cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale,
+                                                   **fwd)),
+                      cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, causal,
+                                                         scale, **fwd),
+                              runs=10),
+                      cuda_ms(lib)),
+        "flash_bwd_dq": (cuda_ms(lambda: FA.flash_bwd_dq(
+            q, k, v, lse, do, causal, scale, bias_grad=bias_grad, **var)),
+            None, None),
+        "flash_bwd_dkv": (cuda_ms(lambda: FA.flash_bwd_dkv(
+            q, k, v, lse, delta, do, causal, scale, **var)), None, None)}
+    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(
+        q, k, v, lse, do, causal, scale, bias_grad=bias_grad, **var), runs=10)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do_t, retain_graph=True))
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -730,17 +795,21 @@ def check_flash_case(name, shape, causal, dtype, card):
     errs = {"flash_fwd": rec["out"], "flash_bwd_dq": rec["dq"],
             "flash_bwd_dkv": max(rec["dk"], rec["dv"])}
     recs = {}
-    for kname, (kern, plain, lib) in times.items():
+    for kname, (kern, plain, libt) in times.items():
         bound, by, nbytes, flops = bounds[kname]
         log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
-            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
-            f"{flops} FLOP) kernel/bound {kern / bound:.1f}x  [{card}]")
+            f"library_ms {libt:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
+            f"{flops} FLOP over {pairs} visible pairs) kernel/bound "
+            f"{kern / bound:.1f}x  [{card}]")
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
-                           library_ms=lib, bound_ms=bound, bound_by=by,
-                           bytes=nbytes, flops=flops)
+                           library_ms=libt, bound_ms=bound, bound_by=by,
+                           bytes=nbytes, flops=flops, visible_pairs=pairs)
+    lib_on = ", ".join(w for w, on in (("the same mask",
+                                         mask is not None),
+                                        ("dropout", p), ("GQA", gqa)) if on)
     log(f"{name}: plain and library backward times cover dq, dk and dv "
-        f"together; flash_bwd_dq + flash_bwd_dkv = "
-        f"{times['flash_bwd_dq'][0] + times['flash_bwd_dkv'][0]:.4f} ms")
+        f"together (the library: SDPA{' with ' + lib_on if lib_on else ''})")
+    del qt, kt, vt, o_lib
     return recs
 
 
@@ -750,18 +819,21 @@ def flash_phase(card):
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        recs[tag] = check_flash_case(
-            f"(a) {tag} B={B} S={S} H={H} D={D} causal", (B, S, S, H, H, D),
-            True, dtype, card)
+        recs[tag] = check_attn(
+            f"(a) {tag} B={B} S={S} H={H} D={D} causal",
+            *flash_case(B, S, S, H, H, D, dtype, seed=2 * S + H), True, {},
+            card=card, pairs=visible_pairs(S, S, True) * B * H)
         torch.cuda.empty_cache()
-    check_flash_case("(b) GQA 16/4 bf16", (2, S, S, H, 4, D), True,
-                     torch.bfloat16, None)
-    check_flash_case("(c) rectangular causal sq 256 sk 1024 bf16",
-                     (2, 256, S, H, H, D), True, torch.bfloat16, None)
-    check_flash_case("(d) S=1000 bf16", (2, 1000, 1000, H, H, D), True,
-                     torch.bfloat16, None)
-    check_flash_case("(e) S=1000 fp32 non-causal", (2, 1000, 1000, H, H, D),
-                     False, torch.float32, None)
+    for name, shape, causal, dtype in (
+            ("(b) GQA 16/4 bf16", (2, S, S, H, 4, D), True, torch.bfloat16),
+            ("(c) rectangular causal sq 256 sk 1024 bf16",
+             (2, 256, S, H, H, D), True, torch.bfloat16),
+            ("(d) S=1000 bf16", (2, 1000, 1000, H, H, D), True,
+             torch.bfloat16),
+            ("(e) S=1000 fp32 non-causal", (2, 1000, 1000, H, H, D), False,
+             torch.float32)):
+        check_attn(name, *flash_case(*shape, dtype, seed=sum(shape[1:4])),
+                   causal, {})
     torch.cuda.empty_cache()
     return recs["bf16"]
 
@@ -1867,111 +1939,6 @@ def ln_phase(card, rows_128):
 
 
 # -- phase 16 ---------------------------------------------------------------
-def flash_variant_bounds(B, S, H, Hkv, D, pairs, dtype):
-    """flash_bounds with the work of the visible (same-segment) pairs only,
-    plus the segment ids read once."""
-    out = {}
-    for name, (_, _, nbytes, _) in flash_bounds(B, S, S, H, Hkv, D, False,
-                                                dtype).items():
-        per_pair = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
-        flops = per_pair[name] * D * pairs * H
-        nbytes += 2 * B * S * 4
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
-                     nbytes, flops)
-    return out
-
-
-def check_flash_variant(name, q, k, v, do, causal, seg, p, seed, card=None,
-                        pairs=None):
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    var = dict(q_seg=seg, kv_seg=seg, dropout_p=p, seed=seed)
-    out, lse = FA.flash_fwd(q, k, v, causal, scale, **var)
-    dq, delta = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale, **var)
-    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, **var)
-    torch.cuda.synchronize()
-    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale, **var)
-    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, lse, do, causal,
-                                          scale, **var)
-    tol_o, tol_g = FLASH_TOL[q.dtype]
-    live = lse_p > -1e29
-    require(torch.equal(live, lse > -1e29), f"{name}: dead rows differ")
-    require(bool((out[~live.transpose(1, 2)] == 0).all()),
-            f"{name}: a dead row's output is not zero")
-    err, rel = _rel_err(lse[live], lse_p[live])
-    require(rel <= 1e-5, f"{name}: lse rel err {rel} > 1e-5")
-    rec = {"lse": err, "dead_rows": int((~live).sum())}
-    for what, got, ref, tol in (("out", out, out_p, tol_o),
-                                ("dq", dq, dq_p, tol_g),
-                                ("dk", dk, dk_p, tol_g),
-                                ("dv", dv, dv_p, tol_g)):
-        require(torch.isfinite(got.float()).all(), f"{name}: {what} not finite")
-        err, _ = _rel_err(got, ref)
-        tile = tile_rel_err(got, ref)
-        require(tile <= tol, f"{name}: {what} tile L2 rel err {tile} > {tol}")
-        rec[what], rec[what + "_tile"] = err, tile
-    log(f"{name}: worst tile L2 rel err out {rec['out_tile']:.3e} dq "
-        f"{rec['dq_tile']:.3e} dk {rec['dk_tile']:.3e} dv "
-        f"{rec['dv_tile']:.3e} (tol {tol_o}, {tol_g}); lse max_abs_err "
-        f"{rec['lse']:.3e}; dead rows {rec['dead_rows']}")
-    del out_p, lse_p, dq_p, dk_p, dv_p
-    if card is None:
-        return rec
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    bounds = flash_variant_bounds(B, S, H, Hkv, D, pairs, q.dtype)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = (seg[:, None, :, None] == seg[:, None, None, :])
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    do_t = do.transpose(1, 2).contiguous()
-    o_lib = sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p)
-    times = {
-        "flash_fwd": (
-            cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale, **var)),
-            cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, causal, scale, **var),
-                    runs=10),
-            cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p))),
-        "flash_bwd_dq": (
-            cuda_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, causal,
-                                            scale, **var)), None, None),
-        "flash_bwd_dkv": (
-            cuda_ms(lambda: FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal,
-                                             scale, **var)), None, None),
-    }
-    plain_bwd = cuda_ms(lambda: FA.flash_bwd_plain(
-        q, k, v, lse, do, causal, scale, **var), runs=10)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), do_t, retain_graph=True))
-    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, attn_mask=mask, dropout_p=p), (qt, kt, vt), do_t))
-    kern_fwd_bwd = cuda_ms(lambda: FA.flash_bwd(
-        q, k, v, FA.flash_fwd(q, k, v, causal, scale, **var)[1], do, causal,
-        scale, **var))
-    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
-        times[kname] = (times[kname][0], plain_bwd, lib_bwd)
-    errs = {"flash_fwd": rec["out"], "flash_bwd_dq": rec["dq"],
-            "flash_bwd_dkv": max(rec["dk"], rec["dv"])}
-    recs = {}
-    for kname, (kern, plain, lib) in times.items():
-        bound, by, nbytes, flops = bounds[kname]
-        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
-            f"library_ms {lib:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
-            f"{flops} FLOP over {pairs} visible pairs per head) "
-            f"kernel/bound {kern / bound:.1f}x  [{card}]")
-        recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
-                           library_ms=lib, bound_ms=bound, bound_by=by,
-                           bytes=nbytes, flops=flops, visible_pairs=pairs)
-    recs["flash_fwd"].update(fwd_bwd_ms=kern_fwd_bwd,
-                             library_fwd_bwd_ms=lib_fwd_bwd)
-    log(f"{name}: plain and library backward times cover dq, dk and dv "
-        f"together (the library: SDPA with the bool segment mask); forward "
-        f"+ backward: kernels {kern_fwd_bwd:.4f} ms, library "
-        f"{lib_fwd_bwd:.4f} ms")
-    return recs
-
-
 def philox_bits_check():
     """q = k = 0 makes every probability 1 / S, and v = I reads the dropped
     row out of the forward; dO = I makes the dK/dV kernel's dV the dropped
@@ -2014,9 +1981,11 @@ def flash_variant_phase(card):
                                    device=DEV).to(dtype) for _ in range(4))
         for p in (0.1, 0.0):
             timed = card if dtype == torch.bfloat16 else None
-            rec = check_flash_variant(
+            rec = check_attn(
                 f"({tag}) packed [{B}, {S}, {H}, {D}] segments, dropout {p}",
-                q, k, v, do, False, seg, p, 1234 + int(p * 10), timed, pairs)
+                q, k, v, do, False, dict(q_seg=seg, kv_seg=seg, dropout_p=p,
+                                         seed=1234 + int(p * 10)),
+                card=timed, pairs=pairs * H)
             recs[f"{tag}_p{p}"] = rec
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -2051,10 +2020,10 @@ def flash_variant_phase(card):
                                    device=DEV).to(torch.bfloat16)
                        for _ in range(4))
     kg, vg = kg[:, :, :4].contiguous(), vg[:, :, :4].contiguous()
-    check_flash_variant("(bf16) GQA 12/4, segments, dropout 0.1", qg, kg, vg,
-                        dog, False, gseg, 0.1, 77)
-    check_flash_variant("(bf16) causal, segments, dropout 0.1", qg, qg, qg,
-                        dog, True, gseg, 0.1, 78)
+    check_attn("(bf16) GQA 12/4, segments, dropout 0.1", qg, kg, vg, dog,
+               False, dict(q_seg=gseg, kv_seg=gseg, dropout_p=0.1, seed=77))
+    check_attn("(bf16) causal, segments, dropout 0.1", qg, qg, qg, dog, True,
+               dict(q_seg=gseg, kv_seg=gseg, dropout_p=0.1, seed=78))
     del q, k, v, do, qg, kg, vg, dog
     recs["converged_keys"] = converged_keys_check(seg, gen)
     torch.cuda.empty_cache()
@@ -2117,13 +2086,20 @@ def bert_tensors(batch, device):
             for k in ("ids", "seg", "pos", "mlm", "nsp")}
 
 
+def bert_layout(t):
+    """The batch's layout as BertModel takes it: the padded rows' 4-D mask,
+    or the packed rows' segment ids and positions."""
+    if "mask" in t:
+        return dict(attention_mask=t["mask"])
+    return dict(pack_segment_ids=t["seg"], position_ids=t["pos"])
+
+
 def bert_loss_and_grads(model, params, buffers, t):
     names = list(params)
     for p in params.values():
         p.requires_grad_(True)
     (lm, ns), _ = TNN.functional_call(model, params, buffers, t["ids"],
-                                      pack_segment_ids=t["seg"],
-                                      position_ids=t["pos"])
+                                      **bert_layout(t))
     loss = TB.bert_pretrain_loss(lm, ns, t["mlm"], t["nsp"])
     grads = torch.autograd.grad(loss, [params[n] for n in names])
     for p in params.values():
@@ -2365,12 +2341,15 @@ def bert_train_phase(card):
     return cells
 
 
-def bert_exactness_phase():
-    batch = bert_batch(BERT_SEQS[0], TB.BertConfig().vocab_size)
+def bert_exactness_phase(t=None):
+    """The kernel path against the plain path on the packed batch, or on
+    ``t`` (phase 27b: the padded batch)."""
+    if t is None:
+        t = bert_tensors(bert_batch(BERT_SEQS[0], TB.BertConfig().vocab_size),
+                         DEV)
     # fp32, full width, 2 layers, dropout 0: kernel path vs plain path
     cfg = TB.BertConfig(num_layers=2, hidden_dropout=0.0)
     model, params, buffers = bert_model(cfg, dtype=torch.float32)
-    t = bert_tensors(batch, DEV)
     loss_k, g_k = bert_loss_and_grads(model, params, buffers, t)
     with layer_plain_path():
         loss_p, g_p = bert_loss_and_grads(model, params, buffers, t)
@@ -2412,8 +2391,7 @@ def bert_exactness_phase():
                 seq = TNN.functional_call(
                     model.bert, {k[5:]: v for k, v in pk.items()
                                  if k.startswith("bert.")}, buffers,
-                    t["ids"], pack_segment_ids=t["seg"],
-                    position_ids=t["pos"])[0][0].float().reshape(
+                    t["ids"], **bert_layout(t))[0][0].float().reshape(
                         -1, cfg.hidden_size)
             log(f"bf16 full depth: query projection grad norm layer 0 "
                 f"{qn[0]:.3e}, layer {cfg.num_layers - 1} {qn[1]:.3e}; last "
@@ -2835,10 +2813,13 @@ def head_gemm_ms(cfg, card):
                 flops=flops)
 
 
-def timed_steps(step, want, tokens_per_step, flops_per_token, card, tag):
+def timed_steps(step, want, tokens_per_step, flops_per_token, card, tag,
+                reset=None, read=None, collect=False):
     """One warm step, then LLAMA_TIMED_STEPS timed steps with the counts
-    set to 0 just before and read just after; checks every count against
-    ``want`` (per step). CUDA events between the timed steps (no extra
+    (``reset`` / ``read``: the Llama kernels' by default) set to 0 just
+    before and read just after; checks every count against ``want`` (per
+    step); ``collect``: a full garbage collection between the warm step and
+    the timed ones. CUDA events between the timed steps (no extra
     synchronize) give each step's span on the device's timeline; the host
     clock where each step's enqueue ended, the Python garbage collections
     in the timed steps, and the caching allocator's counters (cudaMalloc,
@@ -2851,7 +2832,9 @@ def timed_steps(step, want, tokens_per_step, flops_per_token, card, tag):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     st1 = torch.cuda.memory_stats()
-    reset_llama_counts()
+    if collect:
+        gc.collect()
+    (reset or reset_llama_counts)()
     ev = [torch.cuda.Event(enable_timing=True)
           for _ in range(LLAMA_TIMED_STEPS + 1)]
     collections, host = [], []
@@ -2873,7 +2856,7 @@ def timed_steps(step, want, tokens_per_step, flops_per_token, card, tag):
     wall = time.perf_counter() - t0
     gc.callbacks.remove(on_gc)
     st2 = torch.cuda.memory_stats()
-    counts = llama_counts()
+    counts = (read or llama_counts)()
     peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
     allocs = {k: (st1.get(k, 0) - st0.get(k, 0), st2.get(k, 0) - st1.get(k, 0))
@@ -3053,6 +3036,314 @@ def llama_dense_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 24-27b: the padded BERT slice
+# ---------------------------------------------------------------------------
+PADDED_B = 16                 # bench_bert_base: 16 sequences padded to 512
+# an fp32 ALiBi-like bias beside bf16 q: -56 - slope |i - j|, floored at
+# -64, where bf16 steps by 0.25 (the kernels read the bias in its own dtype)
+ALIBI_SLOPES = (0.0313, 0.0219, 0.0437, 0.0251)
+# phase 25: head dims checked against plain (B 2, S 256, H 4) and timed at
+# B 8, S 1024, H 16 causal
+HEAD_DIMS = (32, 40, 80, 96, 160, 256)
+TIMED_DIMS = ((32, torch.bfloat16), (96, torch.bfloat16),
+              (256, torch.bfloat16), (128, torch.float16))
+
+
+def padded_batch(vocab):
+    """``benchmarks/configs_bench.py`` ``_bert_job`` / ``bench_bert_base``:
+    RandomState(0) lengths in U[S/8, S], random tokens padded with 0 to
+    [16, 512], the bool mask ``valid[:, None, None, :] & valid[:, None, :,
+    None]`` (:176-181), 15 % MLM labels on valid tokens, NSP labels; numpy,
+    in the bench's order of draws."""
+    B, S = PADDED_B, BERT_SEQ
+    rng = np.random.RandomState(0)
+    lens = rng.randint(S // 8, S + 1, (B,))
+    seqs = [rng.randint(0, vocab, (n,)) for n in lens]
+    ids = np.zeros((B, S), np.int32)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = s
+    valid = np.arange(S)[None, :] < lens[:, None]
+    mask = valid[:, None, None, :] & valid[:, None, :, None]
+    mlm = np.where((rng.rand(B, S) < 0.15) & valid,
+                   rng.randint(0, vocab, (B, S)), -100)
+    nsp = rng.randint(0, 2, (B,))
+    return dict(ids=ids, mask=mask, mlm=mlm, nsp=nsp, lens=lens)
+
+
+def padded_tensors(batch, device):
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+            for k in ("ids", "mask", "mlm", "nsp")}
+
+
+def bias_dropout_bits_check():
+    """With a bias the three kernels still draw dropout_keep_mask: q = k = 0
+    and a zero bias make every probability 1 / S, v = I reads the dropped
+    row out of the forward, dO = I reads it out of dK/dV's dV, and dQ's
+    d-bias is zero exactly where a probability was dropped."""
+    B, S, H, p, seed = 2, 64, 3, 0.1, 2 ** 40 + 54321
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros(B, S, H, S, device=DEV, dtype=dtype)
+        eye = torch.eye(S, device=DEV, dtype=dtype)[None, :, None, :].expand(
+            B, S, H, S).contiguous()
+        bias = torch.zeros(1, 1, S, S, device=DEV, dtype=dtype)
+        var = dict(bias=bias, dropout_p=p, seed=seed)
+        out, lse = FA.flash_fwd(z, z, eye, False, 1.0, **var)
+        _, dv = FA.flash_bwd_dkv(z, z, eye, lse, torch.zeros_like(lse), eye,
+                                 False, 1.0, **var)
+        keep = FA.dropout_keep_mask(seed, B, H, S, S, p, DEV)
+        fwd_ok = torch.equal(out.permute(0, 2, 1, 3) > 0, keep)
+        dkv_ok = torch.equal(dv.permute(0, 2, 3, 1) > 0, keep)
+        log(f"Philox masks with a bias ({dtype}): forward kernel == plain "
+            f"{fwd_ok}, dK/dV kernel == plain {dkv_ok}")
+        require(fwd_ok and dkv_ok, "with a bias, the CUDA and torch Philox "
+                "masks differ")
+
+
+def flash_padded_phase(card):
+    """Phase 24: the padded BERT's flash call, B 16, S 512, H 12, D 64, the
+    [16, 1, 512, 512] bool mask as a bias in q's dtype."""
+    cfg = TB.BertConfig()
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    batch = padded_batch(cfg.vocab_size)
+    B, S = batch["ids"].shape
+    mask = torch.from_numpy(batch["mask"]).to(DEV)
+    pairs = int(mask.sum().item()) * H
+    log(f"padded rows [{B}, {S}], lengths {batch['lens'].tolist()}: "
+        f"{int(batch['lens'].sum())} real tokens, {pairs} visible pairs over "
+        f"{H} heads ({pairs / (B * H * S * S):.1%} of B H S^2); every pad "
+        f"query row sees no key")
+    bias_dropout_bits_check()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(24)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
+                                   device=DEV).to(dtype) for _ in range(4))
+        bias = torch.where(mask, 0.0, -1e30).to(dtype)
+        timed = card if dtype == torch.bfloat16 else None
+        for p in (0.1, 0.0):
+            recs[f"{tag}_bias_p{p}"] = check_attn(
+                f"({tag}) padded [{B}, {S}, {H}, {D}], bias "
+                f"[{B}, 1, {S}, {S}], dropout {p}", q, k, v, do, False,
+                dict(bias=bias, dropout_p=p, seed=2400 + int(10 * p)),
+                card=timed, pairs=pairs)
+        # a bias with segments: BertModel's 2-D mask beside packed ids
+        seg = torch.from_numpy(bert_batch(BERT_SEQS[0], cfg.vocab_size)
+                               ["seg"][:2]).to(DEV)
+        key_bias = torch.where(seg[:, None, None, :] >= 0, 0.0,
+                               -1e30).to(dtype)
+        recs[f"{tag}_bias_segments"] = check_attn(
+            f"({tag}) packed rows [2, {S}] segments with a [2, 1, 1, {S}] "
+            f"key bias, dropout 0.1", q[:2], k[:2], v[:2], do[:2], False,
+            dict(bias=key_bias, q_seg=seg, kv_seg=seg, dropout_p=0.1,
+                 seed=2410))
+        del q, k, v, do, bias
+        torch.cuda.empty_cache()
+    # an fp32 bias beside bf16 q: read in fp32 (rounded to bf16 it moves a
+    # logit by up to 0.125 and the plain version misses the bf16 tier)
+    Hs = len(ALIBI_SLOPES)
+    q, k, v, do = (torch.randn(4, S, Hs, D, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(4))
+    pos = torch.arange(S, device=DEV, dtype=torch.float32)
+    slopes = torch.tensor(ALIBI_SLOPES, device=DEV)
+    alibi = (-56.0 - slopes[:, None, None] * (pos[None, :] - pos[:, None])
+             .abs()).clamp_min(-64.0)[None]
+    alibi = alibi + torch.rand(1, Hs, S, S, generator=gen, device=DEV) * 1e-3
+    recs["alibi_fp32_bias_bf16_q"] = check_attn(
+        f"(bf16 q, fp32 bias) ALiBi-like bias [1, {Hs}, {S}, {S}] in "
+        f"[-64, -56]", q, k, v, do, False, dict(bias=alibi))
+    scale = 1.0 / math.sqrt(D)
+    ref = FA.flash_fwd_plain(q, k, v, False, scale, alibi)[0]
+    rounded = FA.flash_fwd_plain(q, k, v, False, scale,
+                                 alibi.to(torch.bfloat16))[0]
+    miss = tile_rel_err(rounded, ref)
+    log(f"the same bias rounded to bf16 first: plain vs plain worst tile "
+        f"{miss:.3e} (above the bf16 tier {FLASH_TOL[torch.bfloat16][0]}: "
+        f"the check tells the two readings apart)")
+    require(miss > FLASH_TOL[torch.bfloat16][0], "the ALiBi check cannot "
+            "tell an fp32 bias from a rounded one")
+    recs["alibi_rounded_miss"] = miss
+    # the d-bias at three bias shapes, B 2
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do = (torch.randn(2, S, H, D, generator=gen,
+                                   device=DEV).to(dtype) for _ in range(4))
+        for mb, mh in ((2, H), (1, H), (1, 1)):
+            learned = torch.randn(mb, mh, S, S, generator=gen,
+                                  device=DEV).to(dtype)
+            recs[f"{tag}_dbias_{mb}x{mh}"] = check_attn(
+                f"({tag}) d-bias, bias [{mb}, {mh}, {S}, {S}], causal", q, k,
+                v, do, True, dict(bias=learned), bias_grad=True)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def head_dims_phase(card):
+    """Phase 25: every D of the family's members and between them, fp32,
+    bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain;
+    then D 32, 96, 256 in bf16 and D 128 in fp16 timed at B 8, S 1024,
+    H 16, causal, the Llama GQA 16/4 call timed with its bound and SDPA
+    (enable_gqa), and the registry op's route for D 320."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(25)
+
+    def rnd(dtype, *shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    worst = {}
+    for D in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for causal in (False, True):
+                q, k, v, do = (rnd(dtype, 2, 256, 4, D) for _ in range(4))
+                rec = check_attn(f"D {D} {dtype} causal={causal}", q, k, v,
+                                 do, causal, {})
+                key = f"{D}_{str(dtype)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), *(
+                    rec[w + "_tile"] for w in ("out", "dq", "dk", "dv")))
+    for D in (80, 256):
+        for dtype in (torch.bfloat16, torch.float16):
+            for sq, sk in ((200, 320), (320, 200)):
+                q, do = (rnd(dtype, 2, sq, 8, D) for _ in range(2))
+                k, v = (rnd(dtype, 2, sk, 2, D) for _ in range(2))
+                check_attn(f"GQA 8/2 D {D} {dtype} sq {sq} sk {sk} causal",
+                           q, k, v, do, True, {})
+    recs = {"worst_tile": worst}
+    B, S, H = 8, 1024, 16
+    for D, dtype in TIMED_DIMS:
+        q, k, v, do = (rnd(dtype, B, S, H, D) for _ in range(4))
+        recs[f"D{D}_{str(dtype)[6:]}"] = check_attn(
+            f"({str(dtype)[6:]}) B={B} S={S} H={H} D={D} causal", q, k, v, do,
+            True, {}, card=card, pairs=visible_pairs(S, S, True) * B * H)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    q, do = (rnd(torch.bfloat16, B, S, H, 128) for _ in range(2))
+    k, v = (rnd(torch.bfloat16, B, S, 4, 128) for _ in range(2))
+    recs["llama_gqa"] = check_attn(
+        f"(bf16) Llama GQA 16/4 q [{B}, {S}, {H}, 128] k / v [{B}, {S}, 4, "
+        f"128] causal", q, k, v, do, True, {}, card=card,
+        pairs=visible_pairs(S, S, True) * B * H)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    scaled_dot_product_attention.COMPOSED = 0
+    x = rnd(torch.bfloat16, 2, 128, 4, 320).requires_grad_(True)
+    n = FA.flash_fwd.LAUNCHES
+    out = scaled_dot_product_attention(x, x, x, is_causal=True)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    ref = _sdpa_reference(x.detach(), x.detach(), x.detach(), is_causal=True)
+    log(f"D 320 through scaled_dot_product_attention: COMPOSED = "
+        f"{scaled_dot_product_attention.COMPOSED}, flash launches "
+        f"{FA.flash_fwd.LAUNCHES - n}, equal to _sdpa_reference "
+        f"{torch.equal(out, ref)}, grad finite "
+        f"{bool(torch.isfinite(x.grad.float()).all())}")
+    require(scaled_dot_product_attention.COMPOSED == 1
+            and FA.flash_fwd.LAUNCHES == n and torch.equal(out, ref)
+            and bool(torch.isfinite(x.grad.float()).all()),
+            "D 320 did not take the counted composed route")
+    recs["composed_d320"] = scaled_dot_product_attention.COMPOSED
+    return recs
+
+
+def tiny_padded_bert_phase():
+    """Phase 26: a tiny fp32 BERT with a 4-D bool mask over ragged lengths,
+    dropout off: logits at the valid positions, the loss and every gradient
+    on the card against the CPU."""
+    cfg = TB.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=128, hidden_dropout=0.0)
+    rng = np.random.RandomState(26)
+    lens = np.array([128, 97, 40, 71, 12, 128])
+    ids = np.zeros((len(lens), 128), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(1, 512, n)
+    valid = np.arange(128)[None, :] < lens[:, None]
+    batch = dict(ids=ids, mask=valid[:, None, None, :] & valid[:, None, :,
+                                                                 None],
+                 mlm=np.where((rng.rand(*ids.shape) < 0.2) & valid,
+                              rng.randint(0, 512, ids.shape), -100),
+                 nsp=rng.randint(0, 2, (len(lens),)))
+
+    def run(dev):
+        """(loss, MLM logits, gradients, the launches of the loss and its
+        gradients)."""
+        model, params, buffers = bert_model(cfg, dev, torch.float32)
+        t = padded_tensors(batch, dev)
+        with torch.no_grad():
+            (lm, _), _ = TNN.functional_call(model, params, buffers,
+                                             t["ids"], **bert_layout(t))
+        reset_bert_counts()
+        loss, grads = bert_loss_and_grads(model, params, buffers, t)
+        return loss, lm, grads, bert_counts()
+    l_card, lm_card, g_card, counts = run(DEV)
+    l_cpu, lm_cpu, g_cpu, _ = run("cpu")
+    rel = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    real = torch.from_numpy(valid)
+    lm_err = ((lm_card.cpu()[real] - lm_cpu[real]).abs().max()
+              / lm_cpu[real].abs().max()).item()
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    worst = 0.0
+    for n, g in g_cpu.items():
+        err = (g_card[n].cpu() - g).abs().max().item() / max(
+            g.abs().max().item(), 1e-3 * gmax)
+        worst = max(worst, err)
+    log(f"tiny padded BERT: loss card {l_card.item():.7f} cpu "
+        f"{l_cpu.item():.7f} rel {rel:.2e} (tol 1e-5); logits at valid "
+        f"positions max err / max {lm_err:.2e} (tol 2e-5); every gradient "
+        f"max err / max(its max, 1e-3 of the largest) {worst:.2e} (tol "
+        f"1e-4); card launches {counts}")
+    require(rel <= 1e-5 and lm_err <= 2e-5 and worst <= 1e-4,
+            "tiny padded BERT: card and CPU differ")
+    require(counts["flash_fwd"] == cfg.num_layers
+            and counts["flash_bwd_dq"] == cfg.num_layers
+            and counts["flash_bwd_dkv"] == cfg.num_layers,
+            f"tiny padded BERT: flash launches {counts}")
+    return dict(loss_rel=rel, logits_rel=lm_err, grad_rel=worst)
+
+
+def padded_train_phase(card):
+    """Phase 27: BERT-base padded pretraining at bench_bert_base's size."""
+    cfg = TB.BertConfig()
+    model, params, buffers = bert_model(cfg)
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_state(params)
+    batch = padded_batch(cfg.vocab_size)
+    t = padded_tensors(batch, DEV)
+    lens = batch["lens"].astype(np.int64)
+    B, S = batch["ids"].shape
+    t_real = int(lens.sum())
+    emb = (cfg.vocab_size + cfg.max_position_embeddings
+           + cfg.type_vocab_size) * cfg.hidden_size
+    n_matmul = sum(p.numel() for p in params.values()) - emb
+    flops = (6.0 * n_matmul * t_real + 12.0 * cfg.num_layers
+             * cfg.hidden_size * float((lens ** 2).sum()))
+    log(f"padded [{B}, {S}]: {t_real} real tokens of {B * S}; {flops:.4g} "
+        f"useful FLOP per step (_bert_job's formula, {n_matmul} matmul "
+        f"parameters)")
+    L = cfg.num_layers
+
+    def step():
+        return bert_step(model, params, buffers, opt, state, t)
+    want = dict(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
+                flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=77)
+    rec = timed_steps(step, want, B * S, flops / (B * S), card,
+                      "BERT-base padded", reset=reset_bert_counts,
+                      read=bert_counts, collect=True)
+    dt = rec["ms_per_step"] / 1e3
+    rec.update(padded_tokens_per_s=B * S / dt, real_tokens_per_s=t_real / dt,
+               median_real_tokens_per_s=t_real / (rec["median_step_ms"] / 1e3),
+               real_tokens=t_real, useful_flops=flops)
+    log(f"BERT-base padded: {B * S / dt:.1f} padded tokens/s (the bench's "
+        f"metric), {t_real / dt:.1f} real tokens/s; median step "
+        f"{rec['median_step_ms']:.2f} ms, "
+        f"{rec['median_real_tokens_per_s']:.1f} real tokens/s  [{card}]")
+    rec.update(profile_train_step(step, card, classify=_kernel_class_bert))
+    del params, state, opt, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3080,6 +3371,11 @@ def main() -> int:
     for line in _build.BUILD_LOG["output"].splitlines():
         if any(w in line for w in ("registers", "spill", "error", "warning")):
             log("  " + line.strip())
+    spills = [int(n) for n in re.findall(
+        r"(\d+) bytes spill stores", _build.BUILD_LOG["output"])]
+    if spills:
+        log(f"{len(spills)} kernels compiled, {sum(n > 0 for n in spills)} "
+            f"with spill stores (at most {max(spills)} bytes a thread)")
 
     t0 = phase("3. kernel vs plain on the card")
     rng = np.random.RandomState(0)
@@ -3174,6 +3470,24 @@ def main() -> int:
     dense = llama_dense_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("24. flash kernels with a bias vs plain at the padded BERT "
+               "call")
+    fpad = flash_padded_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("25. flash kernels at every head dim and dtype vs plain")
+    fdims = head_dims_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("26. tiny fp32 padded BERT: card vs CPU")
+    tiny_padded_bert_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("27. BERT-base padded pretraining (bench_bert_base), bf16")
+    padded = padded_train_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("27b. padded BERT exactness: kernel path vs plain path")
+    padded_exact = bert_exactness_phase(padded_tensors(
+        padded_batch(TB.BertConfig().vocab_size), DEV))
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3189,6 +3503,8 @@ def main() -> int:
     bert_main = bert[BERT_SEQS[0]]
     bert_shape = ("packed [10, 512, 12, 64] bf16, the corpus' segment ids, "
                   "dropout 0.1")
+    padded_shape = ("padded [16, 512, 12, 64] bf16, bias [16, 1, 512, 512] "
+                    "bf16 from bench_bert_base's bool mask, dropout 0.1")
     kernels = [ragged] + [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=train["launches"][name],
@@ -3199,7 +3515,15 @@ def main() -> int:
                        p0={k: fvar["bf16_p0.0"][name][k] for k in keys}),
              llama=dict(launches=llama["launches_total"][name],
                         shape="q [8, 1024, 16, 128], k / v [8, 1024, 4, "
-                              "128] causal bf16 (the eager Llama)"))
+                              "128] causal bf16 (the eager Llama)",
+                        **{k: fdims["llama_gqa"][name][k] for k in keys}),
+             bert_padded=dict(
+                 launches=padded["launches_total"][name], shape=padded_shape,
+                 **{k: fpad["bf16_bias_p0.1"][name][k] for k in keys},
+                 p0={k: fpad["bf16_bias_p0.0"][name][k] for k in keys}),
+             head_dims={tag: {k: fdims[tag][name][k] for k in keys}
+                        for tag in ("D32_bfloat16", "D96_bfloat16",
+                                    "D256_bfloat16", "D128_float16")})
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              f"{fa}:451"),
@@ -3215,7 +3539,8 @@ def main() -> int:
         **{k: adam[k] for k in keys},
         shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
         ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact,
-        llama_launches=llama["launches_total"]["fused_adam"]))
+        llama_launches=llama["launches_total"]["fused_adam"],
+        bert_padded_launches=padded["launches_total"]["fused_adam"]))
     kernels += [
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
@@ -3254,7 +3579,11 @@ def main() -> int:
             fp32={k: ln["fp32"][name][k] for k in keys},
             rows_128={k: ln["rows_128"][name][k] for k in keys},
             bert=bert if name == "layer_norm_fwd" else None,
-            bert_exactness=bert_exact if name == "layer_norm_fwd" else None))
+            bert_exactness=bert_exact if name == "layer_norm_fwd" else None,
+            bert_padded_launches=padded["launches_total"][name],
+            bert_padded=padded if name == "layer_norm_fwd" else None,
+            bert_padded_exactness=(padded_exact if name == "layer_norm_fwd"
+                                   else None)))
     for name, line in (("rms_norm_fwd", 66), ("rms_norm_bwd", 92)):
         kernels.append(dict(
             name=name, route="cuda",

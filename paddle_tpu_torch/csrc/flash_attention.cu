@@ -1,0 +1,184 @@
+// The C entries of the flash attention kernels: they check what the kernels
+// take, fill the argument block and pick the head-dim family member that
+// holds D (the kernels themselves are in flash_attention_fwd.cu and
+// flash_attention_bwd.cu, one object per D_pad). See
+// kernels/flash_attention.py for the Python side.
+
+#include "flash_common.cuh"
+
+namespace ptt_flash {
+namespace {
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned(const View& v, int itemsize) {
+  return (v.b * itemsize) % 16 == 0 && (v.s * itemsize) % 16 == 0 && (v.h * itemsize) % 16 == 0;
+}
+View view_from(const long long* s) { return View{s[0], s[1], s[2]}; }
+bool dtype_ok(int dt) { return dt == kF32 || dt == kBF16 || dt == kF16; }
+
+// the smallest compiled D_pad that holds D, or 0
+int d_pad(int D) {
+  for (int p : kDPads)
+    if (D <= p) return p;
+  return 0;
+}
+
+int fwd_width(const Args& a, int dtype, cudaStream_t s) {
+  switch (d_pad(a.D)) {
+    case 32: return fwd_run<32>(a, dtype, s);
+    case 64: return fwd_run<64>(a, dtype, s);
+    case 96: return fwd_run<96>(a, dtype, s);
+    case 128: return fwd_run<128>(a, dtype, s);
+    case 192: return fwd_run<192>(a, dtype, s);
+    case 256: return fwd_run<256>(a, dtype, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int bwd_width(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
+  switch (d_pad(a.D)) {
+    case 32: return is_dq ? dq_run<32>(a, dtype, s) : dkv_run<32>(a, dtype, s);
+    case 64: return is_dq ? dq_run<64>(a, dtype, s) : dkv_run<64>(a, dtype, s);
+    case 96: return is_dq ? dq_run<96>(a, dtype, s) : dkv_run<96>(a, dtype, s);
+    case 128: return is_dq ? dq_run<128>(a, dtype, s) : dkv_run<128>(a, dtype, s);
+    case 192: return is_dq ? dq_run<192>(a, dtype, s) : dkv_run<192>(a, dtype, s);
+    case 256: return is_dq ? dq_run<256>(a, dtype, s) : dkv_run<256>(a, dtype, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What every entry refuses before a launch: an unknown dtype, D outside
+// [1, 256] or whose row is not a whole number of 16-byte words, H not a
+// multiple of H_kv, a base pointer or q / k / v (/ dO) stride that is not
+// 16-byte aligned, one segment array without the other.
+bool args_ok(const Args& a, int dtype, bool with_dout) {
+  const int itemsize = dtype == kF32 ? 4 : 2;
+  if (!dtype_ok(dtype) || a.D <= 0 || a.D > kMaxD || (a.D * itemsize) % 16 != 0 ||
+      a.Hkv <= 0 || a.H % a.Hkv != 0 || (a.qseg == nullptr) != (a.kseg == nullptr))
+    return false;
+  if (a.bias != nullptr && !dtype_ok(a.bias_dtype)) return false;
+  if (!aligned(a.q) || !aligned(a.k) || !aligned(a.v) || !aligned(a.vq, itemsize) ||
+      !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize))
+    return false;
+  return !with_dout || (aligned(a.dout) && aligned(a.vdo, itemsize));
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* bias,
+               const void* qseg, const void* kseg, const long long* strides, int n_views,
+               int B, int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
+               unsigned int seed0, unsigned int seed1, unsigned int thresh, float drop_scale,
+               int bias_dtype) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = bias;
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  a.vq = view_from(strides);
+  a.vk = view_from(strides + 3);
+  a.vv = view_from(strides + 6);
+  if (n_views == 4) a.vdo = view_from(strides + 9);
+  const long long* bs = strides + 3 * n_views;
+  if (bias != nullptr) a.vb = BiasView{bs[0], bs[1], bs[2], bs[3]};
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.bias_dtype = bias_dtype;
+  a.scale = scale;
+  a.causal = causal;
+  a.drop = drop;
+  a.seed0 = seed0;
+  a.seed1 = seed1;
+  a.thresh = thresh;
+  a.drop_scale = drop_scale;
+  return a;
+}
+
+}  // namespace
+}  // namespace ptt_flash
+
+extern "C" {
+
+// Forward. strides: 13 element strides: (batch, seq, head) of q, k and v,
+// in that order, then the bias's (batch, head, query, key), any of which may
+// be 0. bias: an additive [B, H, Sq, Sk] view in bias_dtype, or null for
+// none (its strides and dtype are then not read). qseg, kseg: contiguous
+// int32 segment ids [B, Sq] and [B, Sk], both or neither. drop = 1: dropout
+// with the Philox key (seed0, seed1), keep iff word >= thresh, kept
+// probabilities times drop_scale. out is written contiguous [B, Sq, H, D] in
+// the input dtype, lse fp32 [B, H, Sq]. dtype, bias_dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16. Returns cudaGetLastError() after the launch
+// (0 = success), or cudaErrorInvalidValue before any launch for what the
+// kernels do not take (args_ok above).
+int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
+                  const void* qseg, const void* kseg, void* out, void* lse,
+                  const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
+                  float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
+                  unsigned int thresh, float drop_scale, int dtype, int bias_dtype,
+                  void* stream) {
+  using namespace ptt_flash;
+  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 3, B, Sq, Sk, H, Hkv, D, scale,
+                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  if (!args_ok(a, dtype, false) || !aligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  return fwd_width(a, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// dQ, and delta = rowsum(p * dP) into an fp32 [B, H, Sq] buffer for the dK/dV
+// kernel. dq is written contiguous [B, Sq, H, D]. strides: 16 element
+// strides: (batch, seq, head) of q, k, v, dO, then the bias's four. bias,
+// qseg, kseg, drop, seed0, seed1, thresh, drop_scale and bias_dtype: as the
+// forward took them. dbias: null, or an fp32 [B, H, Sq, Sk] buffer for dS
+// without the scale (the additive bias's gradient before its broadcast
+// dims are summed; every element is written). Same return codes as
+// ptt_flash_fwd.
+int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, void* delta, void* dq, const void* bias, void* dbias,
+                     const void* qseg, const void* kseg, const long long* strides, int B,
+                     int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
+                     unsigned int seed0, unsigned int seed1, unsigned int thresh,
+                     float drop_scale, int dtype, int bias_dtype, void* stream) {
+  using namespace ptt_flash;
+  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 4, B, Sq, Sk, H, Hkv, D, scale,
+                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  a.dout = dout;
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq;
+  a.dbias = static_cast<float*>(dbias);
+  if (!args_ok(a, dtype, true) || (dbias != nullptr && bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || Sq == 0) return 0;
+  return bwd_width(a, dtype, true, static_cast<cudaStream_t>(stream));
+}
+
+// dK and dV, contiguous [B, Sk, H_kv, D], from the delta that
+// ptt_flash_bwd_dq wrote (launch it first on the same stream). strides and
+// the rest as for ptt_flash_bwd_dq. Same return codes.
+int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dk, void* dv, const void* bias,
+                      const void* qseg, const void* kseg, const long long* strides, int B,
+                      int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
+                      unsigned int seed0, unsigned int seed1, unsigned int thresh,
+                      float drop_scale, int dtype, int bias_dtype, void* stream) {
+  using namespace ptt_flash;
+  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 4, B, Sq, Sk, H, Hkv, D, scale,
+                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  a.dout = dout;
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
+  a.delta = static_cast<float*>(const_cast<void*>(delta));
+  a.dk = dk;
+  a.dv = dv;
+  if (!args_ok(a, dtype, true)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || Sk == 0) return 0;
+  return bwd_width(a, dtype, false, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

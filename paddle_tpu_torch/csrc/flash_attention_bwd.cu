@@ -4,11 +4,13 @@
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`: its dQ
 // pallas_call (kernel body `_dq_kernel`) and its dK/dV pallas_call (kernel
-// body `_dkv_kernel`), on the causal / non-causal, GQA subset. Both kernels
-// recompute p = exp(scale * q k^T - lse) tile by tile (zero where masked and
-// on rows that saw no key, whose lse is -1e30), dp = dO v^T and
-// ds = p (dp - delta) scale with delta = rowsum(p * dp); then dq = ds k,
-// dk = ds^T q, dv = p^T dO.
+// body `_dkv_kernel`), on the causal / non-causal, GQA, bias, segment and
+// dropout operands. Both kernels recompute p = exp(scale * q k^T + bias -
+// lse) tile by tile (zero where masked and on rows that saw no key, whose
+// lse is -1e30), dp = dO v^T and ds = p (dp - delta) scale with delta =
+// rowsum(p * dp); then dq = ds k, dk = ds^T q, dv = p^T dO. Any D up to 256
+// and fp32, bf16 or fp16, as the forward (flash_common.cuh); this file is
+// compiled twice per D_pad (-DPTT_FLASH_D), once for each kernel.
 //
 // delta. In exact arithmetic rowsum(p * dp) = rowsum(dO * O), which the
 // Pallas kernels (and FlashAttention-2) form from the saved O and dO tiles.
@@ -25,22 +27,35 @@
 // stream, reads. Nothing loads O. The first pass costs the dQ kernel two of
 // its three products again.
 //
-// ds in the dq product. The row's ds sum to zero, but rounded to bf16 one by
-// one for the tensor cores they no longer do, by about 2^-9 |ds| sqrt(n),
-// and dq = ds k again picks that up times the mean key. So the bf16 dQ
-// kernel splits ds into hi = bf16(ds) and lo = bf16(ds - hi) and takes
-// dq += hi k + lo k: ds to about 2^-17 for one more product per key tile.
-// (dk = ds^T q needs no split: a key's column of ds does not sum to zero,
-// and its rounding error stays 2^-9 of the true dk.)
+// ds in the dq product. The row's ds sum to zero, but rounded to 16 bits one
+// by one for the tensor cores they no longer do, by about 2^-9 |ds| sqrt(n)
+// in bf16, and dq = ds k again picks that up times the mean key. So the
+// 16-bit dQ kernel splits ds into hi = T(ds) and lo = T(ds - hi) and takes
+// dq += hi k + lo k: ds to about 2^-17 (bf16) for one more product per key
+// tile. (dk = ds^T q needs no split: a key's column of ds does not sum to
+// zero, and its rounding error stays 2^-9 of the true dk.)
 //
-// Segment ids and dropout, template flags as in the forward: a pair is
+// Additive bias (`_dq_kernel` / `_dkv_kernel` with has_bias): both kernels
+// read the [1|B, 1|H, Sq, Sk] bias in place, in its own dtype, with stride 0
+// over its broadcast dims, and add it in fp32 to the scaled scores before
+// exp(s - lse), as the forward did. A row the bias kills has lse = -1e30
+// and gives p = 0. The bias is read by both kernels: twice per backward.
+//
+// The d-bias (`_dq_kernel` with bias_grad, a runtime pointer here): the dQ
+// kernel's second pass writes dS_raw = p (dP - delta), the additive bias's
+// gradient (ds without the scale), fp32 [B, H, Sq, Sk], and zeros on the
+// tiles it skips (past the causal bound, disjoint segments), as `_zero_db`
+// does; the wrapper sums it over the bias's broadcast dims (`_flash_bwd`).
+//
+// The bias, segment ids and dropout are template flags, as in the forward
+// (the d-bias and the bias's dtype are runtime branches). A pair is
 // visible only within one segment (disjoint tiles skipped), and the keep bit
 // of (b, h, i, j) is the forward's Philox word (flash_common.cuh drop_bits),
 // regenerated here from the same seed whatever the loop order: dV takes the
 // kept, rescaled p; dP is masked and rescaled the same way before
 // dS = p (dP - delta) scale, with p undropped and delta = rowsum(p * dP) of
 // the masked, rescaled dP (rowsum(dO * O) of the dropped output), as
-// `_dq_kernel` and `_dkv_kernel` do.
+// `_dq_kernel` and `_dkv_kernel` do. The three combine freely.
 //
 // TPU -> Hopper. The Pallas dQ grid carries dq across its sequential k axis;
 // here one block of 256 threads owns one (query tile of 64, head, batch) and
@@ -52,32 +67,41 @@
 // leaves the block, so there are no atomics and the result is deterministic.
 // Causal loop bounds skip the tiles past the diagonal in both kernels.
 //
+// Shared memory at D_pad > 128 in fp32: four [64][D + 1] fp32 tiles do not
+// fit the 227 KB a block may hold, so those kernels keep one buffer for the
+// streamed pair (K then V in dQ, Q then dO in dK/dV) and load K (Q) a second
+// time for the last product; their accumulators take one block an SM.
+//
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
 // shape the two functions need 2.5x the forward's FLOPs between them (dQ
 // three products per visible pair, dK/dV four) on ~4x its bytes, so they
 // are FLOP-bound near 0.09 ms together; the dQ kernel does more (five
-// products in fp32, six in bf16: the delta pass and the lo half of ds).
+// products in fp32, six in 16 bits: the delta pass and the lo half of ds).
 // Like the forward, these first kernels run their products on the tensor
-// cores through WMMA for bf16 (ds and p rounded to bf16 for the products
-// that take them, ds as hi + lo for dq; dq, dk and dv accumulate
-// in fp32 fragments across the whole loop) and on the FP32 pipes from padded
+// cores through WMMA for bf16 and fp16 (ds and p rounded to T for the
+// products that take them, ds as hi + lo for dq; dq, dk and dv accumulate in
+// fp32 fragments across the whole loop) and on the FP32 pipes from padded
 // fp32 tiles for fp32. Each product round-trips through shared memory and no
 // load overlaps the math, so they sit far above that bound; wgmma and a load
 // pipeline are the next steps.
 
 #include "flash_common.cuh"
 
+#if !defined(PTT_FLASH_D) || !defined(PTT_FLASH_DQ)
+#error "compile per head-dim family member and kernel: -DPTT_FLASH_D=<D_pad> -DPTT_FLASH_DQ=<1|0>"
+#endif
+
 namespace ptt_flash {
 namespace {
 
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * (kTile + 1));
+  return sizeof(float) * ((D > 128 ? 3 : 4) * kTile * (D + 1) + kTile * (kTile + 1));
 }
 
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1));
+  return sizeof(float) * ((D > 128 ? 3 : 4) * kTile * (D + 1) + 2 * kTile * (kTile + 1));
 }
 
 // acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two padded tiles
@@ -103,6 +127,26 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bm, float 
   }
 }
 
+// acc[i][c] += sum_k P[ty + 16 i][k] * X[k][tx + 16 c] over a [64][65] tile P
+// and a padded [64][D + 1] tile X
+template <int D>
+__device__ __forceinline__ void tile_acc(const float* P, const float* X, float (&acc)[4][D / 16]) {
+  constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 2
+  for (int kk = 0; kk < kTile; ++kk) {
+    float pv[4], xv[NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = P[(ty + 16 * i) * ldp + kk];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) xv[c] = X[kk * ld + tx + 16 * c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], xv[c], acc[i][c]);
+  }
+}
+
 // delta[i] = the half-warp's sum of part[i] (row ty + 16 i), written to the
 // [B, H, Sq] buffer for the dK/dV kernel.
 __device__ __forceinline__ void write_delta(const float (&part)[4], float (&delta)[4], int q0,
@@ -116,17 +160,26 @@ __device__ __forceinline__ void write_delta(const float (&part)[4], float (&delt
   }
 }
 
-// dQ (and delta) -----------------------------------------------------------
-template <int D, bool kSeg, bool kDrop>
+// One end of the d-bias: past the last key tile the dQ block walked, its
+// rows' d-bias is zero.
+__device__ __forceinline__ void zero_dbias_tail(const Args& a, long long row_base, int q0,
+                                                int kend) {
+  const int walked = ((kend + kTile - 1) / kTile) * kTile;
+  zero_dbias(a, row_base, q0, walked < a.Sk ? walked : a.Sk, a.Sk);
+}
+
+// dQ (and delta, and the d-bias) ---------------------------------------------
+template <int D, bool kBias, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ int qids[kTile], kids[kTile];
+  constexpr bool kOne = D > 128;  // one K / V buffer; K loaded again for ds k
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
-  float* Qs = smem;                // [64][D + 1]
-  float* dOs = Qs + kTile * ld;    // [64][D + 1]
-  float* Ks = dOs + kTile * ld;    // [64][D + 1]
-  float* Vs = Ks + kTile * ld;     // [64][D + 1]
-  float* dSs = Vs + kTile * ld;    // [64][65]
+  float* Qs = smem;                        // [64][D + 1]
+  float* dOs = Qs + kTile * ld;            // [64][D + 1]
+  float* Ks = dOs + kTile * ld;            // [64][D + 1]
+  float* Vs = kOne ? Ks : Ks + kTile * ld; // [64][D + 1]
+  float* dSs = Vs + kTile * ld;            // [64][65]
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
@@ -136,9 +189,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const float* vb = static_cast<const float*>(a.v) + b * a.vv.b + hk * a.vv.h;
   const float* dob = static_cast<const float*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
   const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const bool want_db = kBias && a.dbias != nullptr;  // the d-bias: a runtime pointer
+  const long long bb = kBias ? bias_base(a, b, h) : 0;
 
-  load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
-  load_tile<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
+  load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
+  load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
   if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
   __syncthreads();
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
@@ -167,14 +222,22 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
         __syncthreads();
         seg_range(kids, a.Sk - k0, klo, khi);
-        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+        if (!seg_overlap(qlo, qhi, klo, khi)) {  // the same answer in every thread
+          if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
+          continue;
+        }
       }
-      load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-      load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+      load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+      if (!kOne) load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
       __syncthreads();
 
       float s[4][4], dp[4][4];
       tile_dot<D>(Qs, Ks, s);
+      if (kOne) {
+        __syncthreads();  // every score is read: V overwrites K
+        load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
+        __syncthreads();
+      }
       tile_dot<D>(dOs, Vs, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -184,57 +247,58 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
-          const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
+          float sv = s[i][j] * a.scale;
+          if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
+          const float p = ok ? expf(sv - lse[i]) : 0.f;
           float dpv = dp[i][j];
           if (kDrop) dpv = drop_keep(a, b, h, q0 + r, k0 + c) ? dpv * a.drop_scale : 0.f;
-          if (pass == 0)
+          if (pass == 0) {
             part[i] = fmaf(p, dpv, part[i]);
-          else
-            dSs[r * ldp + c] = p * (dpv - delta[i]) * a.scale;
+          } else {
+            const float dsr = p * (dpv - delta[i]);
+            dSs[r * ldp + c] = dsr * a.scale;
+            if (want_db && q0 + r < a.Sq && k0 + c < a.Sk)
+              a.dbias[(row_base + q0 + r) * a.Sk + k0 + c] = dsr;
+          }
         }
       }
       if (pass == 0) continue;
       __syncthreads();
-
-#pragma unroll 4
-      for (int kk = 0; kk < kTile; ++kk) {
-        float dsv[4], kv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * ldp + kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * ld + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dq[i][c] = fmaf(dsv[i], kv[c], dq[i][c]);
+      if (kOne) {
+        load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+        __syncthreads();
       }
+      tile_acc<D>(dSs, Ks, dq);
     }
     if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
+  if (want_db) zero_dbias_tail(a, row_base, q0, kend);
 
   float* dqb = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    float* row = dqb + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
+    float* row = dqb + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = dq[i][c];
+    for (int c = 0; c < NC; ++c)
+      if (tx + 16 * c < a.D) row[tx + 16 * c] = dq[i][c];
   }
 }
 
 // dK / dV --------------------------------------------------------------------
-template <int D, bool kSeg, bool kDrop>
+template <int D, bool kBias, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ int qids[kTile], kids[kTile];
+  constexpr bool kOne = D > 128;  // one Q / dO buffer; Q loaded again for ds^T q
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
-  float* Ks = smem;                // [64][D + 1]
-  float* Vs = Ks + kTile * ld;     // [64][D + 1]
-  float* Qs = Vs + kTile * ld;     // [64][D + 1]
-  float* dOs = Qs + kTile * ld;    // [64][D + 1]
-  float* Ps = dOs + kTile * ld;    // [64 keys][65]: p^T
-  float* dSs = Ps + kTile * ldp;   // [64 keys][65]: ds^T
+  float* Ks = smem;                           // [64][D + 1]
+  float* Vs = Ks + kTile * ld;                // [64][D + 1]
+  float* Qs = Vs + kTile * ld;                // [64][D + 1]
+  float* dOs = kOne ? Qs : Qs + kTile * ld;   // [64][D + 1]
+  float* Ps = dOs + kTile * ld;               // [64 keys][65]: p^T
+  float* dSs = Ps + kTile * ldp;              // [64 keys][65]: ds^T
 
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int g = a.H / a.Hkv;
@@ -242,8 +306,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const float* kb = static_cast<const float*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const float* vb = static_cast<const float*>(a.v) + b * a.vv.b + hk * a.vv.h;
 
-  load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-  load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+  load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+  load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
   if (kSeg) {
     load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
@@ -265,6 +329,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     const float* qb = static_cast<const float*>(a.q) + b * a.vq.b + h * a.vq.h;
     const float* dob = static_cast<const float*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+    const long long bb = kBias ? bias_base(a, b, h) : 0;
     for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
       __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
       if (kSeg) {
@@ -273,8 +338,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         seg_range(qids, a.Sq - q0, qlo, qhi);
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
-      load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
-      load_tile<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
+      load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
+      if (!kOne) load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
       __syncthreads();
 
       float lse[4], delta[4];
@@ -287,6 +352,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       }
       float s[4][4], dp[4][4];
       tile_dot<D>(Ks, Qs, s);    // s^T: rows keys, columns queries
+      if (kOne) {
+        __syncthreads();  // every score is read: dO overwrites Q
+        load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
+        __syncthreads();
+      }
       tile_dot<D>(Vs, dOs, dp);  // dp^T
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -297,7 +367,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
           const bool dead = lse[j] <= 0.5f * kNegInf;
           const bool ok =
               !dead && visible(q0 + c, k0 + r, a) && (!kSeg || qids[c] == kids[r]);
-          const float p = ok ? expf(s[i][j] * a.scale - lse[j]) : 0.f;
+          float sv = s[i][j] * a.scale;
+          if (kBias && ok) sv += bias_at(a, bb, q0 + c, k0 + r);
+          const float p = ok ? expf(sv - lse[j]) : 0.f;
           const bool keep = !kDrop || drop_keep(a, b, h, q0 + c, k0 + r);
           Ps[r * ldp + c] = keep ? (kDrop ? p * a.drop_scale : p) : 0.f;
           const float dpv = keep ? (kDrop ? dp[i][j] * a.drop_scale : dp[i][j]) : 0.f;
@@ -305,28 +377,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         }
       }
       __syncthreads();
-
-#pragma unroll 2
-      for (int qq = 0; qq < kTile; ++qq) {
-        float pv[4], dsv[4], dov[NC], qv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty + 16 * i) * ldp + qq];
-          dsv[i] = dSs[(ty + 16 * i) * ldp + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = dOs[qq * ld + tx + 16 * c];
-          qv[c] = Qs[qq * ld + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-          }
+      tile_acc<D>(Ps, dOs, dv);  // dv += p^T dO
+      if (kOne) {
+        __syncthreads();  // every dO is read: Q overwrites it
+        load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
+        __syncthreads();
       }
+      tile_acc<D>(dSs, Qs, dk);  // dk += ds^T q
     }
   }
 
@@ -336,52 +393,53 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= a.Sk) continue;
-    const long long off = ((static_cast<long long>(b) * a.Sk + kpos) * a.Hkv + hk) * D;
+    const long long off = ((static_cast<long long>(b) * a.Sk + kpos) * a.Hkv + hk) * a.D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (tx + 16 * c >= a.D) continue;
       dkb[off + tx + 16 * c] = dk[i][c];
       dvb[off + tx + 16 * c] = dv[i][c];
     }
   }
 }
 
-// bf16: the same two kernels with their products on the tensor cores --------
+// bf16 / fp16: the same two kernels with their products on the tensor cores
 template <int D>
 constexpr size_t dq_tc_smem() {
-  return sizeof(bf16) * (4 * kTile * tc_ld<D>() + kTile * kLdP) +
-         sizeof(float) * 2 * kTile * kLdS;
+  return 2 * (4 * kTile * tc_ld<D>() + kTile * kLdP) + sizeof(float) * 2 * kTile * kLdS;
 }
 
 template <int D>
 constexpr size_t dkv_tc_smem() {
-  return sizeof(bf16) * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) +
-         sizeof(float) * kTile * kLdS;
+  return 2 * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) + sizeof(float) * kTile * kLdS;
 }
 
-template <int D, bool kSeg, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
+template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), NC = D / 16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // [64][D + 8]
-  bf16* dOs = Qs + kTile * ld;                   // [64][D + 8]
-  bf16* Ks = dOs + kTile * ld;                   // [64][D + 8]
-  bf16* Vs = Ks + kTile * ld;                    // [64][D + 8]
-  bf16* dSs = Vs + kTile * ld;                   // [64][72]: ds, rounded to bf16
+  T* Qs = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
+  T* dOs = Qs + kTile * ld;                // [64][D + 8]
+  T* Ks = dOs + kTile * ld;                // [64][D + 8]
+  T* Vs = Ks + kTile * ld;                 // [64][D + 8]
+  T* dSs = Vs + kTile * ld;                // [64][72]: ds, rounded to T
   float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdP);  // [64][68]: scores
-  float* dPs = Ss + kTile * kLdS;                // [64][68]: dO v^T
+  float* dPs = Ss + kTile * kLdS;          // [64][68]: dO v^T
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
+  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
   const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const bool want_db = kBias && a.dbias != nullptr;  // the d-bias: a runtime pointer
+  const long long bb = kBias ? bias_base(a, b, h) : 0;
 
-  load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
-  load_tile_bf16<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
+  load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
+  load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
   if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
   __syncthreads();
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
@@ -400,8 +458,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
   for (int j = 0; j < D / 32; ++j) wmma::fill_fragment(dq[j], 0.f);
 
   // pass 0 sums delta = rowsum(p dp) in fp32; pass 1 forms ds and
-  // accumulates dq += hi k + lo k, ds split into two bf16 tiles
-  bf16* dSlo = reinterpret_cast<bf16*>(Ss);  // [64][72] over the scores' buffer
+  // accumulates dq += hi k + lo k, ds split into two T tiles
+  T* dSlo = reinterpret_cast<T*>(Ss);  // [64][72] over the scores' buffer
   const int kend = key_end(q0, a);
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < kend; k0 += kTile) {
@@ -410,13 +468,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
         load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
         __syncthreads();
         seg_range(kids, a.Sk - k0, klo, khi);
-        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
+        if (!seg_overlap(qlo, qhi, klo, khi)) {  // the same answer in every thread
+          if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
+          continue;
+        }
       }
-      load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-      load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+      load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+      load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
       __syncthreads();
-      mma_abt_64x64<D>(Qs, Ks, Ss);
-      mma_abt_64x64<D>(dOs, Vs, dPs);
+      mma_abt_64x64<T, D>(Qs, Ks, Ss);
+      mma_abt_64x64<T, D>(dOs, Vs, dPs);
       __syncthreads();
       float ds[4][4];
 #pragma unroll
@@ -428,13 +489,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
         for (int j = 0; j < 4; ++j) {
           const int c = score_col<kDrop>(tx, j);
           const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
-          const float p = ok ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
+          float sv = Ss[r * kLdS + c] * a.scale;
+          if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
+          const float p = ok ? expf(sv - lse[i]) : 0.f;
           float dpv = dPs[r * kLdS + c];
           if (kDrop) dpv = word(bits, j) >= a.thresh ? dpv * a.drop_scale : 0.f;
-          if (pass == 0)
+          if (pass == 0) {
             part[i] = fmaf(p, dpv, part[i]);
-          else
-            ds[i][j] = p * (dpv - delta[i]) * a.scale;
+          } else {
+            const float dsr = p * (dpv - delta[i]);
+            ds[i][j] = dsr * a.scale;
+            if (want_db && q0 + r < a.Sq && k0 + c < a.Sk)
+              a.dbias[(row_base + q0 + r) * a.Sk + k0 + c] = dsr;
+          }
         }
       }
       if (pass == 0) continue;
@@ -444,54 +511,56 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dq_tc_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int at = (ty + 16 * i) * kLdP + score_col<kDrop>(tx, j);
-          const bf16 hi = __float2bfloat16_rn(ds[i][j]);
+          const T hi = from_f32<T>(ds[i][j]);
           dSs[at] = hi;
-          dSlo[at] = __float2bfloat16_rn(ds[i][j] - __bfloat162float(hi));
+          dSlo[at] = from_f32<T>(ds[i][j] - to_f32(hi));
         }
       __syncthreads();
-      mma_ab_64xD<D, wmma::row_major>(dSs, Ks, dq);
-      mma_ab_64xD<D, wmma::row_major>(dSlo, Ks, dq);
+      mma_ab_64xD<T, D, wmma::row_major>(dSs, Ks, dq);
+      mma_ab_64xD<T, D, wmma::row_major>(dSlo, Ks, dq);
     }
     if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
+  if (want_db) zero_dbias_tail(a, row_base, q0, kend);
 
-  __syncthreads();  // every warp is past its last product before Ss / dPs are reused
-  float* st = Ss;   // [64][D + 4] fp32 over Ss and dPs
+  __syncthreads();  // every warp is past its last product before Ks / Vs are reused
+  float* st = reinterpret_cast<float*>(Ks);  // [64][D + 4] fp32 over Ks and Vs
   store_64xD<D>(st, dq);
   __syncthreads();
-  bf16* dqb = static_cast<bf16*>(a.dq);
+  T* dqb = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    bf16* row = dqb + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
+    T* row = dqb + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      row[tx + 16 * c] = __float2bfloat16_rn(st[(ty + 16 * i) * (D + 4) + tx + 16 * c]);
+      if (tx + 16 * c < a.D)
+        row[tx + 16 * c] = from_f32<T>(st[(ty + 16 * i) * (D + 4) + tx + 16 * c]);
   }
 }
 
-template <int D, bool kSeg, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
+template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), NC = D / 16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // [64][D + 8]
-  bf16* Vs = Ks + kTile * ld;                    // [64][D + 8]
-  bf16* Qs = Vs + kTile * ld;                    // [64][D + 8]
-  bf16* dOs = Qs + kTile * ld;                   // [64][D + 8]
-  bf16* Ps = dOs + kTile * ld;                   // [64 queries][72]: p, bf16
-  bf16* dSs = Ps + kTile * kLdP;                 // [64 queries][72]: ds, bf16
+  T* Ks = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
+  T* Vs = Ks + kTile * ld;                 // [64][D + 8]
+  T* Qs = Vs + kTile * ld;                 // [64][D + 8]
+  T* dOs = Qs + kTile * ld;                // [64][D + 8]
+  T* Ps = dOs + kTile * ld;                // [64 queries][72]: p, T
+  T* dSs = Ps + kTile * kLdP;              // [64 queries][72]: ds, T
   float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdP);  // [64][68]: s, then dp
 
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int g = a.H / a.Hkv;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vv.b + hk * a.vv.h;
+  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
 
-  load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-  load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+  load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+  load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
   if (kSeg) {
     load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
@@ -510,9 +579,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
   const int qt_first = (q_first / kTile) * kTile;
   for (int hh = 0; hh < g; ++hh) {
     const int h = hk * g + hh;
-    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
-    const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
+    const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
+    const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+    const long long bb = kBias ? bias_base(a, b, h) : 0;
     for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
       __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
       if (kSeg) {
@@ -521,10 +591,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
         seg_range(qids, a.Sq - q0, qlo, qhi);
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
-      load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
-      load_tile_bf16<D>(dob, a.vdo.s, q0, a.Sq, dOs, ld);
+      load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
+      load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
       __syncthreads();
-      mma_abt_64x64<D>(Qs, Ks, Ss);  // s: rows queries, columns keys
+      mma_abt_64x64<T, D>(Qs, Ks, Ss);  // s: rows queries, columns keys
 
       float lse[4], delta[4];
 #pragma unroll
@@ -547,7 +617,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
           const int c = score_col<kDrop>(tx, j);
           const bool ok =
               !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
-          p[i][j] = ok ? expf(Ss[r * kLdS + c] * a.scale - lse[i]) : 0.f;
+          float sv = Ss[r * kLdS + c] * a.scale;
+          if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
+          p[i][j] = ok ? expf(sv - lse[i]) : 0.f;
           float pd = p[i][j];
           if (kDrop) {
             if (word(bits, j) >= a.thresh) {
@@ -557,11 +629,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
               keep &= ~(1u << (4 * i + j));
             }
           }
-          Ps[r * kLdP + c] = __float2bfloat16_rn(pd);  // dv takes the dropped p
+          Ps[r * kLdP + c] = from_f32<T>(pd);  // dv takes the dropped p
         }
       }
       __syncthreads();
-      mma_abt_64x64<D>(dOs, Vs, Ss);  // dp over the scores' buffer
+      mma_abt_64x64<T, D>(dOs, Vs, Ss);  // dp over the scores' buffer
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -571,151 +643,95 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_tc_kernel(Args a) {
           const int c = score_col<kDrop>(tx, j);
           float dpv = Ss[r * kLdS + c];
           if (kDrop) dpv = (keep >> (4 * i + j)) & 1u ? dpv * a.drop_scale : 0.f;
-          dSs[r * kLdP + c] = __float2bfloat16_rn(p[i][j] * (dpv - delta[i]) * a.scale);
+          dSs[r * kLdP + c] = from_f32<T>(p[i][j] * (dpv - delta[i]) * a.scale);
         }
       }
       __syncthreads();
-      mma_ab_64xD<D, wmma::col_major>(Ps, dOs, dv);   // dv += p^T dO
-      mma_ab_64xD<D, wmma::col_major>(dSs, Qs, dk);   // dk += ds^T q
+      mma_ab_64xD<T, D, wmma::col_major>(Ps, dOs, dv);   // dv += p^T dO
+      mma_ab_64xD<T, D, wmma::col_major>(dSs, Qs, dk);   // dk += ds^T q
     }
   }
 
-  __syncthreads();  // every warp is past its last product before the tiles are reused
-  float* dks = reinterpret_cast<float*>(Qs);  // [64][D + 4] fp32 over Qs and dOs
-  float* dvs = reinterpret_cast<float*>(Ps);  // [64][D + 4] fp32 over Ps, dSs and Ss
-  store_64xD<D>(dks, dk);
-  store_64xD<D>(dvs, dv);
-  __syncthreads();
-  bf16* dkb = static_cast<bf16*>(a.dk);
-  bf16* dvb = static_cast<bf16*>(a.dv);
+  // dk, then dv, through one fp32 [64][D + 4] staging tile over Qs and dOs
+  T* dkb = static_cast<T*>(a.dk);
+  T* dvb = static_cast<T*>(a.dv);
+  float* st = reinterpret_cast<float*>(Qs);
+  for (int which = 0; which < 2; ++which) {
+    __syncthreads();  // every warp is past its last product / read of the staging tile
+    if (which == 0)
+      store_64xD<D>(st, dk);
+    else
+      store_64xD<D>(st, dv);
+    __syncthreads();
+    T* outb = which == 0 ? dkb : dvb;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, kpos = k0 + r;
-    if (kpos >= a.Sk) continue;
-    const long long off = ((static_cast<long long>(b) * a.Sk + kpos) * a.Hkv + hk) * D;
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, kpos = k0 + r;
+      if (kpos >= a.Sk) continue;
+      const long long off = ((static_cast<long long>(b) * a.Sk + kpos) * a.Hkv + hk) * a.D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkb[off + tx + 16 * c] = __float2bfloat16_rn(dks[r * (D + 4) + tx + 16 * c]);
-      dvb[off + tx + 16 * c] = __float2bfloat16_rn(dvs[r * (D + 4) + tx + 16 * c]);
+      for (int c = 0; c < NC; ++c)
+        if (tx + 16 * c < a.D) outb[off + tx + 16 * c] = from_f32<T>(st[r * (D + 4) + tx + 16 * c]);
     }
   }
 }
 
-template <typename K>
-int launch_kernel(K* kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, bool kSeg, bool kDrop>
-int launch(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
-  if (is_dq) {
-    const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-    return dtype == 0
-               ? launch_kernel(flash_dq_kernel<D, kSeg, kDrop>, dq_smem<D>(), grid, a, s)
-               : launch_kernel(flash_dq_tc_kernel<D, kSeg, kDrop>, dq_tc_smem<D>(), grid, a, s);
+// kDq: the dQ kernel, else the dK/dV kernel (one object holds one of them)
+template <bool kDq, int D, bool kBias, bool kSeg, bool kDrop>
+int launch(const Args& a, int dtype, cudaStream_t s) {
+  const dim3 grid = kDq ? dim3((a.Sq + kTile - 1) / kTile, a.H, a.B)
+                        : dim3((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
+  if constexpr (kDq) {
+    if (dtype == kBF16)
+      return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kSeg, kDrop>, dq_tc_smem<D>(),
+                           grid, a, s);
+    if (dtype == kF16)
+      return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kSeg, kDrop>, dq_tc_smem<D>(),
+                           grid, a, s);
+    return launch_kernel(flash_dq_kernel<D, kBias, kSeg, kDrop>, dq_smem<D>(), grid, a, s);
+  } else {
+    if (dtype == kBF16)
+      return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kSeg, kDrop>, dkv_tc_smem<D>(),
+                           grid, a, s);
+    if (dtype == kF16)
+      return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kSeg, kDrop>, dkv_tc_smem<D>(),
+                           grid, a, s);
+    return launch_kernel(flash_dkv_kernel<D, kBias, kSeg, kDrop>, dkv_smem<D>(), grid, a, s);
   }
-  const dim3 grid((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
-  return dtype == 0
-             ? launch_kernel(flash_dkv_kernel<D, kSeg, kDrop>, dkv_smem<D>(), grid, a, s)
-             : launch_kernel(flash_dkv_tc_kernel<D, kSeg, kDrop>, dkv_tc_smem<D>(), grid, a, s);
 }
 
-template <int D>
-int dispatch_flags(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
+// the variants: segments and dropout
+template <bool kDq, int D, bool kBias>
+int launch_flags(const Args& a, int dtype, cudaStream_t s) {
   const bool seg = a.qseg != nullptr, drop = a.drop != 0;
-  if (seg && drop) return launch<D, true, true>(a, dtype, is_dq, s);
-  if (seg) return launch<D, true, false>(a, dtype, is_dq, s);
-  if (drop) return launch<D, false, true>(a, dtype, is_dq, s);
-  return launch<D, false, false>(a, dtype, is_dq, s);
+  if (seg && drop) return launch<kDq, D, kBias, true, true>(a, dtype, s);
+  if (seg) return launch<kDq, D, kBias, true, false>(a, dtype, s);
+  if (drop) return launch<kDq, D, kBias, false, true>(a, dtype, s);
+  return launch<kDq, D, kBias, false, false>(a, dtype, s);
 }
 
-int dispatch(const Args& a, int D, int dtype, bool is_dq, cudaStream_t s) {
-  if (D == 64) return dispatch_flags<64>(a, dtype, is_dq, s);
-  return dispatch_flags<128>(a, dtype, is_dq, s);
-}
-
-// strides: 12 element strides (batch, seq, head) of q, k, v and dO
-int run(const void* q, const void* k, const void* v, const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv, const void* qseg,
-        const void* kseg, const long long* strides, int B, int Sq, int Sk, int H, int Hkv,
-        int D, float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
-        unsigned int thresh, float drop_scale, int dtype, bool is_dq, void* stream) {
-  const int itemsize = dtype == 0 ? 4 : 2;
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse = static_cast<float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.qseg = static_cast<const int*>(qseg);
-  a.kseg = static_cast<const int*>(kseg);
-  a.drop = drop;
-  a.seed0 = seed0;
-  a.seed1 = seed1;
-  a.thresh = thresh;
-  a.drop_scale = drop_scale;
-  a.vq = view_from(strides);
-  a.vk = view_from(strides + 3);
-  a.vv = view_from(strides + 6);
-  a.vdo = view_from(strides + 9);
-  a.B = B;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.H = H;
-  a.Hkv = Hkv;
-  a.scale = scale;
-  a.causal = causal;
-  if ((dtype != 0 && dtype != 1) || !head_dim_ok(D) || Hkv <= 0 || H % Hkv != 0 ||
-      !aligned(q) || !aligned(k) || !aligned(v) || !aligned(dout) ||
-      !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize) ||
-      !aligned(a.vdo, itemsize) || (qseg == nullptr) != (kseg == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || H == 0 || (is_dq ? Sq : Sk) == 0) return 0;
-  return dispatch(a, D, dtype, is_dq, static_cast<cudaStream_t>(stream));
+template <bool kDq, int D>
+int bwd(const Args& a, int dtype, cudaStream_t s) {
+  return a.bias != nullptr ? launch_flags<kDq, D, true>(a, dtype, s)
+                           : launch_flags<kDq, D, false>(a, dtype, s);
 }
 
 }  // namespace
+
+// one object holds the dQ kernels of one width (-DPTT_FLASH_DQ=1), another
+// its dK/dV kernels, so the family builds in parallel
+#if PTT_FLASH_DQ
+template <int D>
+int dq_run(const Args& a, int dtype, cudaStream_t s) {
+  return bwd<true, D>(a, dtype, s);
+}
+template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
+#else
+template <int D>
+int dkv_run(const Args& a, int dtype, cudaStream_t s) {
+  return bwd<false, D>(a, dtype, s);
+}
+template int dkv_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
+#endif
+
 }  // namespace ptt_flash
-
-extern "C" {
-
-// dQ, and delta = rowsum(p * dP) into an fp32 [B, H, Sq] buffer for the dK/dV
-// kernel. dq is written contiguous [B, Sq, H, D]. strides: 12 element strides
-// (batch, seq, head) of q, k, v, dO. qseg, kseg, drop, seed0, seed1,
-// thresh and drop_scale: the forward's segment ids and dropout, as
-// ptt_flash_fwd takes them. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue before any
-// launch for D not in {64, 128}, H not a multiple of H_kv, a base pointer or
-// stride that is not 16-byte aligned, or one segment array without the other.
-int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, void* delta, void* dq, const void* qseg, const void* kseg,
-                     const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                     float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
-                     unsigned int thresh, float drop_scale, int dtype, void* stream) {
-  return ptt_flash::run(q, k, v, dout, const_cast<void*>(lse), delta, dq, nullptr, nullptr,
-                        qseg, kseg, strides, B, Sq, Sk, H, Hkv, D, scale, causal, drop, seed0,
-                        seed1, thresh, drop_scale, dtype, true, stream);
-}
-
-// dK and dV, contiguous [B, Sk, H_kv, D], from the delta that
-// ptt_flash_bwd_dq wrote (launch it first on the same stream). strides as
-// for ptt_flash_bwd_dq. Same return codes.
-int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, const void* qseg,
-                      const void* kseg, const long long* strides, int B, int Sq, int Sk, int H,
-                      int Hkv, int D, float scale, int causal, int drop, unsigned int seed0,
-                      unsigned int seed1, unsigned int thresh, float drop_scale, int dtype,
-                      void* stream) {
-  return ptt_flash::run(q, k, v, dout, const_cast<void*>(lse),
-                        const_cast<void*>(delta), nullptr, dk, dv, qseg, kseg, strides, B, Sq,
-                        Sk, H, Hkv, D, scale, causal, drop, seed0, seed1, thresh, drop_scale,
-                        dtype, false, stream);
-}
-
-}  // extern "C"

@@ -1,26 +1,32 @@
 // Flash attention forward for Hopper (sm_90a): out and the row logsumexp.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_fwd` (kernel body
-// `_fwd_kernel`) on its causal / non-causal, GQA subset: for each (batch,
-// query head) out = softmax(scale * q k^T [masked]) v over [B, S, H, D]
-// views, with lse = m + log(l) per query row saved for the backward. Causal
-// masking is bottom-right aligned (key j visible to query i iff
-// j <= i + Sk - Sq). A row that sees no key writes zeros and lse = -1e30, as
-// the Pallas kernel's finalize does. GQA reads kv head h / (H / H_kv); K and
-// V are never repeated. Any Sq and Sk; D in {64, 128}; fp32 or bf16 in,
-// fp32 scores, softmax and accumulators.
+// `_fwd_kernel`) on its causal / non-causal, GQA, bias, segment and dropout
+// operands: for each (batch, query head) out = softmax(scale * q k^T + bias
+// [masked]) v over [B, S, H, D] views, with lse = m + log(l) per query row
+// saved for the backward. Causal masking is bottom-right aligned (key j
+// visible to query i iff j <= i + Sk - Sq). A row that sees no key writes
+// zeros and lse = -1e30, as the Pallas kernel's finalize does. GQA reads kv
+// head h / (H / H_kv); K and V are never repeated. Any Sq and Sk; any D up
+// to 256 (flash_common.cuh: compiled for D_pad in {32, 64, 96, 128, 192,
+// 256}, zero columns past D); fp32, bf16 or fp16 in, fp32 scores, softmax
+// and accumulators.
 //
-// Additive bias (`_fwd_kernel` with has_bias, the two-program serving
-// prefill's attention mask): a [B, H, Sq, Sk] view in q's dtype whose four
-// strides may be 0 (a [1|B, 1|H, Sq, Sk] mask broadcast in place), added to
-// the scaled fp32 scores before the running max, as `_mask_scores` does. The
-// mask is arbitrary, so no tile is skipped beyond the causal bound, and a row
-// whose every score the bias pushed to -1e30 is dead (m <= -0.5e30): it writes
-// zeros and lse = -1e30. The bias is a template flag: the kernels without it
-// are the same code as before it existed. At the serving prefill shape (P 8,
-// C 128, cap 640, H 16, D 128, bf16, bias [8, 1, 128, 640]) the call must move
-// q 4.19 MB, k and v 41.9 MB, the bias 1.31 MB and out 4.19 MB, ~0.0154 ms
-// at 3.35 TB/s, against ~0.0054 ms of operations: bytes bound it.
+// This file is compiled once per D_pad (-DPTT_FLASH_D=<D_pad>, see
+// kernels/_build.py) so the family builds in parallel; flash_attention.cu
+// holds the C entry that picks the width.
+//
+// Additive bias (`_fwd_kernel` with has_bias): a [B, H, Sq, Sk] view in its
+// own dtype (fp32, bf16 or fp16) whose four strides may be 0 (a
+// [1|B, 1|H, Sq, Sk] mask broadcast in place), added in fp32 to the scaled
+// scores before the running max, as `_mask_scores` adds
+// bias.astype(float32). The mask is arbitrary, so no tile is skipped beyond
+// the causal and segment bounds, and a row whose every score the bias pushed
+// to -1e30 is dead (m <= -0.5e30): it writes zeros and lse = -1e30.
+// At the padded BERT-base call (B 16, S 512, H 12, D 64, bf16, bias
+// [16, 1, 512, 512]) the call must move q, k, v and out (50.3 MB) and the
+// bias (8.4 MB), ~0.018 ms at 3.35 TB/s, against ~0.010 ms of operations:
+// bytes bound it.
 //
 // Segment ids (`_fwd_kernel` with has_seg, the packed BERT rows): int32
 // [B, Sq] and [B, Sk] read in place, a pair visible iff its two ids are
@@ -35,8 +41,10 @@
 // regenerate. lse comes from the undropped scores and the kept probabilities
 // are scaled by 1 / (1 - p) before the p v product. On the tensor cores a
 // thread then owns four adjacent columns of a score row, one Philox call.
-// Segments and dropout are template flags, as the bias is; a bias does not
-// combine with either (the C entry refuses it).
+// The bias, segments and dropout are template flags (each changes the inner
+// loop) and combine freely; the bias's dtype is a runtime branch. (As a
+// runtime branch the bias measured slower on the card in the kernels
+// without one: its address arithmetic is predicated into the softmax loop.)
 //
 // TPU -> Hopper. The Pallas grid (B*H, q blocks, k blocks) carries m, l and
 // the accumulator across its sequential k axis in VMEM scratch. CUDA blocks
@@ -50,19 +58,23 @@
 // shape (B 8, S 1024, H 16, D 128, causal, bf16) the call does 4 * D FLOPs
 // per visible (query, key) pair, ~34 GFLOP, and must move q, k, v and out
 // once, ~134 MB: both bounds sit near 0.04 ms. These first kernels are
-// simple and right rather than fast. For bf16 (the training path) both
-// products run on the tensor cores through warp-level WMMA (bf16 in, fp32
-// accumulate) from bf16 tiles in shared memory; the scores go back to shared
-// memory for the fp32 online softmax, and p is rounded to bf16 for the p v
-// product, as FlashAttention-2 does. For fp32 the tiles are staged as fp32
-// (K and Q rows padded to D + 1 so the 16 readers of a column hit 16 banks)
-// and both products run on the FP32 pipes with 4 x 4 register tiles, exact to
-// fp32 rounding. Every product round-trips through shared memory and no load
+// simple and right rather than fast. For bf16 and fp16 both products run on
+// the tensor cores through warp-level WMMA (16-bit in, fp32 accumulate) from
+// 16-bit tiles in shared memory; the scores go back to shared memory for the
+// fp32 online softmax, and p is rounded to q's type for the p v product, as
+// FlashAttention-2 does. For fp32 the tiles are staged as fp32 (K and Q rows
+// padded to D + 1 so the 16 readers of a column hit 16 banks) and both
+// products run on the FP32 pipes with 4 x 4 register tiles, exact to fp32
+// rounding. Every product round-trips through shared memory and no load
 // overlaps the math, so both sit far above the bound: wgmma with the
 // accumulator and softmax kept in registers, and a TMA pipeline that loads
 // the next key tile during this one's math, are the next steps.
 
 #include "flash_common.cuh"
+
+#ifndef PTT_FLASH_D
+#error "compile once per head-dim family member: -DPTT_FLASH_D=<32|64|96|128|192|256>"
+#endif
 
 namespace ptt_flash {
 namespace {
@@ -72,18 +84,8 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1));
 }
 
-// bias[qpos, kpos] of this (batch, head), as fp32
-template <typename T>
-__device__ __forceinline__ float bias_at(const T* bb, int qpos, int kpos, const Args& a) {
-  const T x = bb[qpos * a.vb.q + kpos * a.vb.k];
-  if constexpr (std::is_same<T, bf16>::value)
-    return __bfloat162float(x);
-  else
-    return x;
-}
-
 template <int D, bool kBias, bool kSeg, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ int qids[kTile], kids[kTile];
   constexpr int ldq = D + 1, ldp = kTile + 1, NC = D / 16;
@@ -98,9 +100,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   const float* qb = static_cast<const float*>(a.q) + b * a.vq.b + h * a.vq.h;
   const float* kb = static_cast<const float*>(a.k) + b * a.vk.b + hk * a.vk.h;
   const float* vb = static_cast<const float*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const float* bb = kBias ? static_cast<const float*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
+  const long long bb = kBias ? bias_base(a, b, h) : 0;
 
-  load_tile<D>(qb, a.vq.s, q0, a.Sq, Qs, ldq);
+  load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ldq);
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
   if (kSeg) {
     load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
@@ -126,8 +128,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
       seg_range(kids, a.Sk - k0, klo, khi);
       if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
     }
-    load_tile<D>(kb, a.vk.s, k0, a.Sk, Ks, ldq);
-    load_tile<D>(vb, a.vv.s, k0, a.Sk, Vs, D);
+    load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ldq);
+    load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, D);
     __syncthreads();
 
     float s[4][4];
@@ -156,10 +158,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(q0 + r, k0 + tx + 16 * j, a) &&
-                (!kSeg || qids[r] == kids[tx + 16 * j]);
+        const int c = tx + 16 * j;
+        ok[j] = visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
         s[i][j] *= a.scale;
-        if (kBias && ok[j]) s[i][j] += bias_at(bb, q0 + r, k0 + tx + 16 * j, a);
+        if (kBias && ok[j]) s[i][j] += bias_at(a, bb, q0 + r, k0 + c);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -199,47 +201,48 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    // no visible key (or no key tile at all); with a bias, also every score
-    // pushed to -1e30 (then p = exp(0) makes l > 0)
-    const bool dead = l[i] == 0.f || (kBias && m[i] <= kNegInf * 0.5f);
+    // no visible key (or no key tile at all), or every score pushed to
+    // -1e30 by a bias (then p = exp(0) makes l > 0)
+    const bool dead = l[i] == 0.f || m[i] <= kNegInf * 0.5f;
     const float inv = dead ? 0.f : 1.f / l[i];
-    float* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
+    float* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
+    for (int c = 0; c < NC; ++c)
+      if (tx + 16 * c < a.D) orow[tx + 16 * c] = acc[i][c] * inv;
     if (tx == 0)
       a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qpos] =
           dead ? kNegInf : m[i] + logf(l[i]);
   }
 }
 
-// bf16: the same loop with both products on the tensor cores.
+// bf16 / fp16: the same loop with both products on the tensor cores.
 template <int D>
 constexpr size_t fwd_tc_smem() {
-  return sizeof(bf16) * (3 * kTile * tc_ld<D>() + kTile * kLdP) +
+  return 2 * (3 * kTile * tc_ld<D>() + kTile * kLdP) +
          sizeof(float) * (kTile * kLdS + kTile * (D + 4));
 }
 
-template <int D, bool kBias, bool kSeg, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
+template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   __shared__ int qids[kTile], kids[kTile];
   constexpr int ld = tc_ld<D>(), ldo = D + 4, NC = D / 16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);       // [64][D + 8]
-  bf16* Ks = Qs + kTile * ld;                         // [64][D + 8]
-  bf16* Vs = Ks + kTile * ld;                         // [64][D + 8]
-  bf16* Ps = Vs + kTile * ld;                         // [64][72]: p, rounded to bf16
+  T* Qs = reinterpret_cast<T*>(smem_tc);             // [64][D + 8]
+  T* Ks = Qs + kTile * ld;                            // [64][D + 8]
+  T* Vs = Ks + kTile * ld;                            // [64][D + 8]
+  T* Ps = Vs + kTile * ld;                            // [64][72]: p, rounded to T
   float* Ss = reinterpret_cast<float*>(Ps + kTile * kLdP);  // [64][68]: scores
   float* Os = Ss + kTile * kLdS;                      // [64][D + 4]: this tile's p v
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const bf16* bb = kBias ? static_cast<const bf16*>(a.bias) + b * a.vb.b + h * a.vb.h : nullptr;
+  const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
+  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
+  const long long bb = kBias ? bias_base(a, b, h) : 0;
 
-  load_tile_bf16<D>(qb, a.vq.s, q0, a.Sq, Qs, ld);
+  load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
   if (kSeg) {
     load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
@@ -265,10 +268,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
       seg_range(kids, a.Sk - k0, klo, khi);
       if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
     }
-    load_tile_bf16<D>(kb, a.vk.s, k0, a.Sk, Ks, ld);
-    load_tile_bf16<D>(vb, a.vv.s, k0, a.Sk, Vs, ld);
+    load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
+    load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
     __syncthreads();
-    mma_abt_64x64<D>(Qs, Ks, Ss);
+    mma_abt_64x64<T, D>(Qs, Ks, Ss);
     __syncthreads();
 
     float alpha[4];
@@ -282,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
         const int c = score_col<kDrop>(tx, j);
         ok[j] = visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
         s[j] = Ss[r * kLdS + c] * a.scale;
-        if (kBias && ok[j]) s[j] += bias_at(bb, q0 + r, k0 + c, a);
+        if (kBias && ok[j]) s[j] += bias_at(a, bb, q0 + r, k0 + c);
         if (ok[j]) mx = fmaxf(mx, s[j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -295,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
         const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
         sum += p;  // l sums the undropped probabilities
         const float pd = !kDrop ? p : (word(bits, j) >= a.thresh ? p * a.drop_scale : 0.f);
-        Ps[r * kLdP + score_col<kDrop>(tx, j)] = __float2bfloat16_rn(pd);
+        Ps[r * kLdP + score_col<kDrop>(tx, j)] = from_f32<T>(pd);
       }
       l[i] = l[i] * alpha[i] + half_warp_sum(sum);
       m[i] = m_new;
@@ -305,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
     FragC o[D / 32];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) wmma::fill_fragment(o[j], 0.f);
-    mma_ab_64xD<D, wmma::row_major>(Ps, Vs, o);
+    mma_ab_64xD<T, D, wmma::row_major>(Ps, Vs, o);
     store_64xD<D>(Os, o);
     __syncthreads();
 #pragma unroll
@@ -315,111 +318,56 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(Args a) {
         acc[i][c] = acc[i][c] * alpha[i] + Os[(ty + 16 * i) * ldo + tx + 16 * c];
   }
 
-  bf16* ob = static_cast<bf16*>(a.out);
+  T* ob = static_cast<T*>(a.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
-    const bool dead = l[i] == 0.f || (kBias && m[i] <= kNegInf * 0.5f);
+    const bool dead = l[i] == 0.f || m[i] <= kNegInf * 0.5f;
     const float inv = dead ? 0.f : 1.f / l[i];
-    bf16* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * D;
+    T* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = __float2bfloat16_rn(acc[i][c] * inv);
+    for (int c = 0; c < NC; ++c)
+      if (tx + 16 * c < a.D) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
     if (tx == 0)
       a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qpos] =
           dead ? kNegInf : m[i] + logf(l[i]);
   }
 }
 
-template <typename K>
-int launch_kernel(K* kernel, size_t smem, const Args& a, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D, bool kBias, bool kSeg, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
-  return dtype == 0
-             ? launch_kernel(flash_fwd_kernel<D, kBias, kSeg, kDrop>, fwd_smem<D>(), a, s)
-             : launch_kernel(flash_fwd_tc_kernel<D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(), a, s);
+  const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
+  switch (dtype) {
+    case kBF16:
+      return launch_kernel(flash_fwd_tc_kernel<bf16, D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(),
+                           grid, a, s);
+    case kF16:
+      return launch_kernel(flash_fwd_tc_kernel<f16, D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(),
+                           grid, a, s);
+    default:
+      return launch_kernel(flash_fwd_kernel<D, kBias, kSeg, kDrop>, fwd_smem<D>(), grid, a, s);
+  }
 }
 
-// the variants: none, bias, segments, dropout, segments with dropout
-template <int D>
-int dispatch_flags(const Args& a, int dtype, cudaStream_t s) {
+// the variants: segments and dropout
+template <int D, bool kBias>
+int launch_flags(const Args& a, int dtype, cudaStream_t s) {
   const bool seg = a.qseg != nullptr, drop = a.drop != 0;
-  if (a.bias != nullptr) return launch<D, true, false, false>(a, dtype, s);
-  if (seg && drop) return launch<D, false, true, true>(a, dtype, s);
-  if (seg) return launch<D, false, true, false>(a, dtype, s);
-  if (drop) return launch<D, false, false, true>(a, dtype, s);
-  return launch<D, false, false, false>(a, dtype, s);
-}
-
-int dispatch_d(const Args& a, int D, int dtype, cudaStream_t s) {
-  return D == 64 ? dispatch_flags<64>(a, dtype, s) : dispatch_flags<128>(a, dtype, s);
+  if (seg && drop) return launch<D, kBias, true, true>(a, dtype, s);
+  if (seg) return launch<D, kBias, true, false>(a, dtype, s);
+  if (drop) return launch<D, kBias, false, true>(a, dtype, s);
+  return launch<D, kBias, false, false>(a, dtype, s);
 }
 
 }  // namespace
-}  // namespace ptt_flash
 
-extern "C" {
-
-// strides: 13 element strides: (batch, seq, head) of q, k and v, in that
-// order, then the bias's (batch, head, query, key), any of which may be 0.
-// bias: an additive [B, H, Sq, Sk] view in q's dtype, or null for none (its
-// strides are then not read). qseg, kseg: contiguous int32 segment ids
-// [B, Sq] and [B, Sk], both or neither. drop = 1: dropout with the Philox key
-// (seed0, seed1), keep iff word >= thresh, kept probabilities times
-// drop_scale. out is written contiguous [B, Sq, H, D] in the input dtype, lse
-// fp32 [B, H, Sq]. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch (0 = success), or cudaErrorInvalidValue
-// before any launch for what the kernel does not take: D not in {64, 128}, H
-// not a multiple of H_kv, a base pointer or q/k/v stride that is not 16-byte
-// aligned, one segment array without the other, a bias with segments or
-// dropout.
-int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
-                  const void* qseg, const void* kseg, void* out, void* lse,
-                  const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                  float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
-                  unsigned int thresh, float drop_scale, int dtype, void* stream) {
-  using namespace ptt_flash;
-  if (B == 0 || Sq == 0 || H == 0) return 0;
-  const int itemsize = dtype == 0 ? 4 : 2;
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = bias;
-  a.qseg = static_cast<const int*>(qseg);
-  a.kseg = static_cast<const int*>(kseg);
-  a.drop = drop;
-  a.seed0 = seed0;
-  a.seed1 = seed1;
-  a.thresh = thresh;
-  a.drop_scale = drop_scale;
-  a.out = out;
-  a.lse = static_cast<float*>(lse);
-  a.vq = view_from(strides);
-  a.vk = view_from(strides + 3);
-  a.vv = view_from(strides + 6);
-  if (bias != nullptr) a.vb = BiasView{strides[9], strides[10], strides[11], strides[12]};
-  a.B = B;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.H = H;
-  a.Hkv = Hkv;
-  a.scale = scale;
-  a.causal = causal;
-  if ((dtype != 0 && dtype != 1) || !head_dim_ok(D) || Hkv <= 0 || H % Hkv != 0 ||
-      !aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
-      !aligned(a.vq, itemsize) || !aligned(a.vk, itemsize) || !aligned(a.vv, itemsize) ||
-      (qseg == nullptr) != (kseg == nullptr) ||
-      (bias != nullptr && (qseg != nullptr || drop != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_d(a, D, dtype, static_cast<cudaStream_t>(stream));
+template <int D>
+int fwd_run(const Args& a, int dtype, cudaStream_t s) {
+  return a.bias != nullptr ? launch_flags<D, true>(a, dtype, s)
+                           : launch_flags<D, false>(a, dtype, s);
 }
 
-}  // extern "C"
+template int fwd_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
+
+}  // namespace ptt_flash

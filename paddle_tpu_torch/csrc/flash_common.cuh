@@ -1,12 +1,29 @@
 // Shared pieces of the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile sizes, the argument block, tile loads and the
-// visibility rule.
+// flash_attention_bwd.cu, and the C entries in flash_attention.cu): tile
+// sizes, the argument block, element types, tile loads and the visibility
+// rule.
 //
 // Layouts. q, k, v and dO arrive as [B, S, H, D] views with element
 // strides (batch, seq, head) and a unit stride over D, so the model's
 // head-major qkv [B, S, H, 3, D] is read in place with no transpose copy.
 // out, dq, dk and dv are written contiguous [B, S, H, D]; lse and delta are
-// fp32 [B, H, Sq].
+// fp32 [B, H, Sq]; the d-bias, when asked for, fp32 [B, H, Sq, Sk].
+//
+// Head dims. Each kernel is compiled for a family of padded widths D_pad
+// (kDPads) and takes any true D <= D_pad whose row is a whole number of
+// 16-byte words: a tile is loaded with zeros in the columns past D, which
+// add nothing to q k^T, and the columns of out, dq, dk and dv past D are
+// never stored. The wrapper copies a head whose row is not a multiple of 16
+// bytes into a padded buffer first.
+//
+// Element types. The FP32-pipe kernels take float; the tensor-core kernels
+// take bf16 or fp16 (T), with fp32 accumulators and softmax either way.
+// The bias is read in its own dtype (fp32, bf16 or fp16, a runtime code)
+// and added in fp32, as the reference's _mask_scores adds
+// bias.astype(float32).
+//
+// Instances: 3 kernels x 6 widths x 3 element types x 8 (bias, segments,
+// dropout: template flags) = 432, built as 18 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -17,6 +34,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -31,6 +49,10 @@ namespace ptt_flash {
 constexpr int kTile = 64;      // queries and keys per tile
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr float kNegInf = -1e30f;
+// the compiled head-dim family (kernels/_build.py FLASH_D_PADS builds one
+// object of each flash source per member)
+constexpr int kDPads[] = {32, 64, 96, 128, 192, 256};
+constexpr int kMaxD = 256;
 
 struct View {  // element strides of a [B, S, H, D] view, D stride 1
   long long b, s, h;
@@ -39,6 +61,9 @@ struct View {  // element strides of a [B, S, H, D] view, D stride 1
 struct BiasView {  // element strides of an additive [B, H, Sq, Sk] bias, any may be 0
   long long b, h, q, k;
 };
+
+// element codes of the C entries: q / k / v / dO, and the bias
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 struct Args {
   const void* q;
@@ -51,12 +76,15 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  const void* bias;  // forward only: additive bias in q's dtype, or null
+  const void* bias;  // additive bias in its own dtype (bias_dtype), or null
+  float* dbias;      // dQ kernel: fp32 [B, H, Sq, Sk] dS without the scale, or null
   const int* qseg;   // segment ids, contiguous int32 [B, Sq], or null
   const int* kseg;   // contiguous int32 [B, Sk] (null iff qseg is)
   View vq, vk, vv, vdo;
   BiasView vb;
   int B, Sq, Sk, H, Hkv;
+  int D;           // the true head dim (<= the kernel's D_pad): columns read and stored
+  int bias_dtype;  // Dtype of the bias
   float scale;
   int causal;
   // dropout: keep (query i, key j) of (batch b, query head h) iff the Philox
@@ -67,24 +95,76 @@ struct Args {
   float drop_scale;
 };
 
+// The width-family entries, one explicit instantiation per D_pad in each
+// per-width object (flash_attention_fwd.cu compiled with -DPTT_FLASH_D=<D_pad>,
+// flash_attention_bwd.cu with -DPTT_FLASH_DQ=1 for dQ and 0 for dK/dV
+// besides). dtype: the element code of q, k, v and dO.
+template <int D>
+int fwd_run(const Args& a, int dtype, cudaStream_t stream);
+template <int D>
+int dq_run(const Args& a, int dtype, cudaStream_t stream);
+template <int D>
+int dkv_run(const Args& a, int dtype, cudaStream_t stream);
+
+// ---------------------------------------------------------------------------
+// element types
+using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) { return __float2half_rn(x); }
+
+// The bias of (batch b, query head h): element offset of its [Sq, Sk] slab.
+__device__ __forceinline__ long long bias_base(const Args& a, int b, int h) {
+  return b * a.vb.b + h * a.vb.h;
+}
+
+// bias[qpos, kpos] of the slab at `base`, read in its own dtype, as fp32.
+// Read element by element inside the softmax loop, where the load overlaps
+// the rest of the loop's work (a separate pass over the scores tile in
+// shared memory, coalesced and with the dtype branched on once a tile,
+// measured slower on the card: its loads wait behind one more barrier).
+__device__ __forceinline__ float bias_at(const Args& a, long long base, int qpos, int kpos) {
+  const long long off = base + qpos * a.vb.q + kpos * a.vb.k;
+  switch (a.bias_dtype) {
+    case kBF16:
+      return __bfloat162float(static_cast<const bf16*>(a.bias)[off]);
+    case kF16:
+      return __half2float(static_cast<const f16*>(a.bias)[off]);
+    default:
+      return static_cast<const float*>(a.bias)[off];
+  }
+}
+
 // Rows row0 .. row0 + 63 of one (batch, head) fp32 slab -> shared memory
-// with row stride ld; rows at or past n_rows are zero (a zero V row times
-// p = 0 must not make a NaN). 16-byte loads: D * 4 and the strides are 16-byte
-// multiples and the base is 16-byte aligned (checked by the C entries).
+// with row stride ld; rows at or past n_rows and columns at or past d are
+// zero (a zero V row times p = 0 must not make a NaN). 16-byte loads: d * 4
+// and the strides are 16-byte multiples and the base is 16-byte aligned
+// (checked by the C entries).
 template <int D>
 __device__ __forceinline__ void load_tile(const float* __restrict__ base, long long row_stride,
-                                          int row0, int n_rows, float* dst, int ld) {
+                                          int row0, int n_rows, int d, float* dst, int ld) {
   constexpr int kPerRow = D / 4;
   for (int e = threadIdx.x; e < kTile * kPerRow; e += kThreads) {
     const int r = e / kPerRow, cv = e % kPerRow;
-    float* d = dst + r * ld + cv * 4;
+    float* o = dst + r * ld + cv * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
+    if (row0 + r < n_rows && cv * 4 < d)
       x = __ldg(reinterpret_cast<const float4*>(base + (row0 + r) * row_stride) + cv);
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+    o[0] = x.x;
+    o[1] = x.y;
+    o[2] = x.z;
+    o[3] = x.w;
   }
 }
 
@@ -171,41 +251,55 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// Zeros into rows q0 .. q0 + 63 (those < Sq), key columns [c0, c1) of the
+// d-bias slab whose row 0 is at element row_base * Sk: the tiles a dQ block
+// skips still own their part of the d-bias (the reference's _zero_db).
+__device__ __forceinline__ void zero_dbias(const Args& a, long long row_base, int q0, int c0,
+                                           int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int e = threadIdx.x; e < kTile * w; e += kThreads) {
+    const int r = e / w, c = e % w;
+    if (q0 + r < a.Sq) a.dbias[(row_base + q0 + r) * a.Sk + c0 + c] = 0.f;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// bf16 tensor-core pieces (warp-level WMMA, bf16 in, fp32 accumulate).
+// 16-bit tensor-core pieces (warp-level WMMA, bf16 or fp16 in, fp32
+// accumulate).
 //
-// A bf16 tile lives in shared memory as [64][D + 8] (rows 16-byte aligned, a
-// 16-row step a multiple of 32 bytes, as load_matrix_sync needs). Eight warps
-// share a product: warp w owns the 16-row block w % 4 and half of the 16-wide
-// column blocks, (w / 4) * n + j for j < n.
+// A 16-bit tile lives in shared memory as [64][D + 8] (rows 16-byte aligned,
+// a 16-row step a multiple of 32 bytes, as load_matrix_sync needs). Eight
+// warps share a product: warp w owns the 16-row block w % 4 and half of the
+// 16-wide column blocks, (w / 4) * n + j for j < n.
 namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 template <int D>
-__host__ __device__ constexpr int tc_ld() { return D + 8; }   // bf16 [64][D] tile row stride
+__host__ __device__ constexpr int tc_ld() { return D + 8; }   // 16-bit [64][D] tile row stride
 constexpr int kLdS = kTile + 4;           // fp32 [64][64] score tile row stride
-constexpr int kLdP = kTile + 8;           // bf16 [64][64] probability tile row stride
+constexpr int kLdP = kTile + 8;           // 16-bit [64][64] probability tile row stride
 
-// Rows row0 .. row0 + 63 of one (batch, head) slab -> shared bf16 with row
-// stride ld, copied as 16-byte words; rows at or past n_rows are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(const bf16* __restrict__ base, long long row_stride,
-                                               int row0, int n_rows, bf16* dst, int ld) {
+// Rows row0 .. row0 + 63 of one (batch, head) slab -> shared memory with
+// row stride ld, copied as 16-byte words; rows at or past n_rows and columns
+// at or past d are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_16(const T* __restrict__ base, long long row_stride,
+                                             int row0, int n_rows, int d, T* dst, int ld) {
   constexpr int kPerRow = D / 8;
   for (int e = threadIdx.x; e < kTile * kPerRow; e += kThreads) {
     const int r = e / kPerRow, cv = e % kPerRow;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
+    if (row0 + r < n_rows && cv * 8 < d)
       val = __ldg(reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride) + cv);
     *reinterpret_cast<uint4*>(dst + r * ld + cv * 8) = val;
   }
 }
 
-// C[64][64] (fp32, row stride kLdS) = A[64][D] . B[64][D]^T, both bf16 with
+// C[64][64] (fp32, row stride kLdS) = A[64][D] . B[64][D]^T, both T with
 // row stride tc_ld<D>(): the score tile q k^T (or dO v^T).
-template <int D>
-__device__ __forceinline__ void mma_abt_64x64(const bf16* A, const bf16* Bm, float* C) {
+template <typename T, int D>
+__device__ __forceinline__ void mma_abt_64x64(const T* A, const T* Bm, float* C) {
   constexpr int ld = tc_ld<D>();
   const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * 2;
   FragC c[2];
@@ -213,12 +307,12 @@ __device__ __forceinline__ void mma_abt_64x64(const bf16* A, const bf16* Bm, flo
   wmma::fill_fragment(c[1], 0.f);
 #pragma unroll
   for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
     wmma::load_matrix_sync(fa, A + rb * 16 * ld + k, ld);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       // B^T as a column-major matrix: element (k', n) is Bm[n * ld + k']
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
       wmma::load_matrix_sync(fb, Bm + (cb0 + j) * 16 * ld + k, ld);
       wmma::mma_sync(c[j], fa, fb, c[j]);
     }
@@ -228,22 +322,22 @@ __device__ __forceinline__ void mma_abt_64x64(const bf16* A, const bf16* Bm, flo
     wmma::store_matrix_sync(C + rb * 16 * kLdS + (cb0 + j) * 16, c[j], kLdS, wmma::mem_row_major);
 }
 
-// acc += A . B with A a bf16 [64][64] tile of row stride kLdP (transposed
-// first when LayoutA is col_major: A^T . B) and B a bf16 [64][D] tile of row
-// stride tc_ld<D>(); acc holds this warp's D / 32 16 x 16 blocks of the
-// [64][D] result.
-template <int D, typename LayoutA>
-__device__ __forceinline__ void mma_ab_64xD(const bf16* A, const bf16* Bm, FragC (&acc)[D / 32]) {
+// acc += A . B with A a T [64][64] tile of row stride kLdP (transposed first
+// when LayoutA is col_major: A^T . B) and B a T [64][D] tile of row stride
+// tc_ld<D>(); acc holds this warp's D / 32 16 x 16 blocks of the [64][D]
+// result.
+template <typename T, int D, typename LayoutA>
+__device__ __forceinline__ void mma_ab_64xD(const T* A, const T* Bm, FragC (&acc)[D / 32]) {
   constexpr int ld = tc_ld<D>(), n = D / 32;
   constexpr bool kTrans = std::is_same<LayoutA, wmma::col_major>::value;
   const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * n;
 #pragma unroll
   for (int k = 0; k < kTile; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LayoutA> fa;
     wmma::load_matrix_sync(fa, kTrans ? A + rb * 16 + k * kLdP : A + rb * 16 * kLdP + k, kLdP);
 #pragma unroll
     for (int j = 0; j < n; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
       wmma::load_matrix_sync(fb, Bm + k * ld + (cb0 + j) * 16, ld);
       wmma::mma_sync(acc[j], fa, fb, acc[j]);
     }
@@ -262,21 +356,20 @@ __device__ __forceinline__ void store_64xD(float* C, const FragC (&acc)[D / 32])
                             wmma::mem_row_major);
 }
 
-// Common checks of the C entries: D in {64, 128}; 16-byte aligned bases
-// and strides (in bytes).
-inline bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-inline bool aligned(const View& v, int itemsize) {
-  return (v.b * itemsize) % 16 == 0 && (v.s * itemsize) % 16 == 0 && (v.h * itemsize) % 16 == 0;
-}
-inline bool head_dim_ok(int D) { return D == 64 || D == 128; }
-inline View view_from(const long long* s) { return View{s[0], s[1], s[2]}; }
-
 // Raise a kernel's dynamic shared-memory cap once, when it needs more than 48 KB.
 template <typename K>
 inline cudaError_t allow_smem(K* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+template <typename K>
+int launch_kernel(K* kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ptt_flash

@@ -2,8 +2,9 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 The ``*.cu`` sources under ``paddle_tpu_torch/csrc/`` are compiled for
-``sm_90a``, one ``nvcc -c`` per source, all started together, and linked by
-one ``nvcc -shared`` into
+``sm_90a``, one ``nvcc -c`` per source (the flash sources once per head-dim
+family member and kernel), all started together, and linked by one
+``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
 hash covers the sources, the headers and the flags, so a checkout builds at
 first use and reuses the library after that. Nothing here runs at import
@@ -32,6 +33,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v"]
 
+# the flash kernels' head-dim family (csrc/flash_common.cuh kDPads): the
+# forward source is compiled once per member (-DPTT_FLASH_D=<D_pad>), the
+# backward once per member and kernel (-DPTT_FLASH_DQ=1 for dQ, 0 for
+# dK/dV), so the family builds in parallel
+FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
+
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
 # lines) and how long it took; empty when the library came from the cache
@@ -50,8 +57,20 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _units():
+    """(source, object stem, extra flags): one per source, and one per
+    head-dim family member (and backward kernel) for the flash sources."""
+    for src in sorted(CSRC.glob("*.cu")):
+        if src.name == "flash_attention_fwd.cu":
+            for d in FLASH_D_PADS:
+                yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
+        elif src.name == "flash_attention_bwd.cu":
+            for d in FLASH_D_PADS:
+                for part, flag in (("dq", 1), ("dkv", 0)):
+                    yield src, f"{src.stem}.d{d}.{part}", [
+                        f"-DPTT_FLASH_D={d}", f"-DPTT_FLASH_DQ={flag}"]
+        else:
+            yield src, src.stem, []
 
 
 def _digest() -> str:
@@ -59,7 +78,7 @@ def _digest() -> str:
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + list(map(str, FLASH_D_PADS))).encode())
     return h.hexdigest()[:16]
 
 
@@ -75,9 +94,9 @@ def build_library() -> Path:
     t0 = time.perf_counter()
     jobs = []
     try:
-        for src in _sources():
-            obj = out_dir / f"{src.stem}.{pid}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        for src, stem, extra in _units():
+            obj = out_dir / f"{stem}.{pid}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -132,15 +151,17 @@ def load_library() -> ctypes.CDLL:
         + [cf, ci, vp],
         # q, k, v, bias (or null), qseg, kseg (or null), out, lse, strides
         # (13), B, Sq, Sk, H, Hkv, D, scale, causal, drop, seed0, seed1,
-        # thresh, drop_scale, dtype, stream
+        # thresh, drop_scale, dtype, bias_dtype, stream
         "ptt_flash_fwd": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci] + drop
-        + [ci, vp],
-        # q, k, v, dO, lse, delta, dq, qseg, kseg, strides (12), ...
-        "ptt_flash_bwd_dq": [vp] * 9 + [strides] + [ci] * 6 + [cf, ci]
-        + drop + [ci, vp],
-        # q, k, v, dO, lse, delta, dk, dv, qseg, kseg, strides (12), ...
-        "ptt_flash_bwd_dkv": [vp] * 10 + [strides] + [ci] * 6 + [cf, ci]
-        + drop + [ci, vp],
+        + [ci, ci, vp],
+        # q, k, v, dO, lse, delta, dq, bias, dbias, qseg, kseg, strides
+        # (16), ...
+        "ptt_flash_bwd_dq": [vp] * 11 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci, ci, vp],
+        # q, k, v, dO, lse, delta, dk, dv, bias, qseg, kseg, strides (16),
+        # ...
+        "ptt_flash_bwd_dkv": [vp] * 11 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci, ci, vp],
         # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
         # x, w, mean, rstd, dy, dx, rows, H, dtype, stream

@@ -6,29 +6,48 @@ and dQ (``_dq_kernel``)).
 
 The TPU kernels are replaced by CUDA kernels written by hand for Hopper:
 ``paddle_tpu_torch/csrc/flash_attention_fwd.cu`` (the forward) and
-``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` (dQ, then dK/dV). Their
-source notes state the design; in short: one CUDA block per (64-row tile,
-head, batch) loops over the other side's tiles itself, keeps the online
-softmax state and its output tile in registers, skips the tiles past the
-causal diagonal by its loop bound, and reads q, k and v as strided
-``[B, S, H, D]`` views, so the model's head-major ``qkv`` is never copied.
-GQA indexes kv head ``h // (H // H_kv)``; the dK/dV kernel sums a group's
-query heads inside one block (no atomics: deterministic). The dQ kernel also
-writes ``delta = rowsum(p * dP)`` for the dK/dV kernel, which runs after it:
-summed in fp32 from the kernel's own p and dP in a first pass over the keys,
-not from the saved output (``rowsum(dO * O)``, as the Pallas kernels form
-it), so that each row's dS sums to zero to fp32 rounding even where the
-output was rounded to bf16; the backward needs no ``out``.
-For bf16 the products run on the tensor cores (warp-level WMMA from bf16
-shared tiles, fp32 accumulators, the softmax in fp32 between them); for fp32
-on the FP32 pipes from fp32 shared tiles, exact to fp32 rounding.
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` (dQ, then dK/dV), behind
+the C entries of ``csrc/flash_attention.cu``. Their source notes state the
+design; in short: one CUDA block per (64-row tile, head, batch) loops over
+the other side's tiles itself, keeps the online softmax state and its
+output tile in registers, skips the tiles past the causal diagonal by its
+loop bound, and reads q, k and v as strided ``[B, S, H, D]`` views, so the
+model's head-major ``qkv`` is never copied. GQA indexes kv head
+``h // (H // H_kv)``; the dK/dV kernel sums a group's query heads inside one
+block (no atomics: deterministic). The dQ kernel also writes
+``delta = rowsum(p * dP)`` for the dK/dV kernel, which runs after it: summed
+in fp32 from the kernel's own p and dP in a first pass over the keys, not
+from the saved output (``rowsum(dO * O)``, as the Pallas kernels form it),
+so that each row's dS sums to zero to fp32 rounding even where the output
+was rounded to 16 bits; the backward needs no ``out``. For bf16 and fp16 the
+products run on the tensor cores (warp-level WMMA from 16-bit shared tiles,
+fp32 accumulators, the softmax in fp32 between them); for fp32 on the FP32
+pipes from fp32 shared tiles, exact to fp32 rounding.
 
-The forward also takes an additive bias ``[1|B, 1|H, Sq, Sk]`` in q's
-dtype, added to the scaled scores before the softmax (``_fwd_kernel`` with
-``has_bias``), read in place with stride 0 over its broadcast dims; a row
-whose every score the bias pushed to -1e30 gives zeros and ``lse = -1e30``.
-The backward with a bias (and the d-bias) is not ported: ``flash_attention``
-with a bias runs the forward alone and raises when a gradient is asked for.
+Head dims and dtypes. The kernels take every D from 1 to 256 (the JAX
+gate's ``supported``: D <= 256) in fp32, bf16 and fp16; any other dtype
+raises TypeError, a larger D ValueError (``nn.functional``'s
+``scaled_dot_product_attention`` sends D > 256 to the composed path by
+shape, as the JAX registry does). They are compiled for a family of padded
+widths (``_build.FLASH_D_PADS``) and load a head of width D into the next
+one with zero columns, which add nothing to ``q k^T``; the columns past D of
+out, dq, dk and dv are never stored. A head whose row is not a whole number of
+16-byte words (D 33 in bf16, D 5 in fp32) is copied once, in the wrapper,
+into a zero-padded contiguous buffer of the next such width before the
+launch, and the outputs are cut back to D: a layout step, not a fallback.
+
+Additive bias ``[1|B, 1|H, Sq, Sk]`` (``has_bias``): added in fp32 to the
+scaled scores before the softmax in all three kernels, read in place with
+stride 0 over its broadcast dims and in its own dtype (fp32, bf16 or fp16),
+as ``_mask_scores`` adds ``bias.astype(float32)``; a bool keep-mask becomes
+``where(mask, 0, -1e30)`` in q's dtype (``register.py`` ``_sdpa_pallas``).
+A row whose every score the bias pushed to -1e30 gives zeros, ``lse =
+-1e30`` and no gradient. The bias combines with segments and dropout. With
+``bias_grad`` the dQ kernel also writes the d-bias, ``dS`` without the
+scale, fp32 ``[B, H, Sq, Sk]`` (zeros on the tiles it skips), which the
+wrapper sums over the bias's broadcast dims and casts to its dtype
+(``_dq_kernel``'s ``bias_grad`` branch, ``_flash_bwd``); without it the bias
+is a constant.
 
 Segment ids (``has_seg``, packed rows): int32 ``[B, Sq]`` and ``[B, Sk]``,
 a pair visible iff its ids are equal (pad tails carry -1, so pads see pads),
@@ -47,18 +66,21 @@ probabilities are scaled by ``1 / (1 - p)`` (``_fwd_kernel``,
 backward. The JAX kernel keys its bits by TPU tile, so the masks of the two
 packages differ; their statistics agree.
 
-Wrappers: ``flash_fwd`` (out, lse), ``flash_bwd_dq`` (dq, delta) and
-``flash_bwd_dkv`` (dk, dv), and ``flash_bwd`` (both, in order). A CUDA tensor
-goes to the kernel or the call raises; a CPU tensor goes to the plain PyTorch
-version (``flash_fwd_plain``, ``flash_bwd_plain``). Each wrapper counts its
-kernel launches in ``.LAUNCHES``.
+The flashmask operands (``startend_row_indices``) and the sliding window
+raise NotImplementedError naming ROADMAP Queue 2 #2b and #2c.
+
+Wrappers: ``flash_fwd`` (out, lse), ``flash_bwd_dq`` (dq, delta, and the
+full d-bias with ``bias_grad``) and ``flash_bwd_dkv`` (dk, dv), and
+``flash_bwd`` (all, in order). A CUDA tensor goes to the kernel or the call
+raises; a CPU tensor goes to the plain PyTorch version (``flash_fwd_plain``,
+``flash_bwd_plain``). Each wrapper counts its kernel launches in
+``.LAUNCHES``.
 
 Layouts: q ``[B, Sq, H, D]``, k and v ``[B, Sk, H_kv, D]`` (any strides with a
 unit stride over D), out and the gradients contiguous in the inputs' layout,
 lse and delta fp32 ``[B, H, Sq]``. Causal masking is bottom-right aligned
 (key j is visible to query i iff ``j <= i + Sk - Sq``); a query row that sees
-no key gives zeros and ``lse = -1e30``. Any Sq and Sk; the kernels take D in
-{64, 128} and fp32 or bf16.
+no key gives zeros and ``lse = -1e30``. Any Sq and Sk.
 """
 
 from __future__ import annotations
@@ -73,11 +95,11 @@ from ._build import is_cpu, launch as _launch
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_plain",
            "philox4x32_10", "dropout_keep_mask", "dropout_threshold",
-           "KERNEL_HEAD_DIMS"]
+           "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 256                 # the JAX gate's d <= 256 (``supported``)
 
 
 # ---------------------------------------------------------------------------
@@ -142,13 +164,24 @@ def _drop_scale(dropout_p):
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held to on the card)
 # ---------------------------------------------------------------------------
-def _scores(q, k, causal, sm_scale, q_seg=None, kv_seg=None):
-    """fp32 scores [B, H, Sq, Sk] with k's heads repeated over their group,
-    and the visibility mask ([Sq, Sk], or [B, 1, Sq, Sk] with segments)."""
+def _additive(bias, dtype):
+    """A bool keep-mask as the additive ``where(mask, 0, -1e30)`` in
+    ``dtype`` (``register.py`` ``_sdpa_pallas``); a float bias as it is."""
+    if bias.dtype == torch.bool:
+        return torch.where(bias, 0.0, _NEG_INF).to(dtype)
+    return bias
+
+
+def _scores(q, k, causal, sm_scale, q_seg=None, kv_seg=None, bias=None):
+    """fp32 scores [B, H, Sq, Sk] with k's heads repeated over their group
+    and the bias added in fp32, and the visibility mask ([Sq, Sk], or
+    [B, 1, Sq, Sk] with segments)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * sm_scale
+    if bias is not None:
+        s = s + _additive(bias, q.dtype).float()
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     ok = (kpos <= qpos + (Sk - Sq)) if causal else torch.ones(
@@ -162,14 +195,14 @@ def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, bias=None,
                     q_seg=None, kv_seg=None, dropout_p: float = 0.0,
                     seed: int = 0):
     """Plain PyTorch forward: (out in q's dtype, lse fp32 [B, H, Sq]);
-    ``bias`` (broadcast to [B, H, Sq, Sk]) is added to the scaled scores;
-    ``q_seg`` / ``kv_seg`` (int [B, Sq] / [B, Sk]) mask pairs of different
-    segments; ``dropout_p`` drops with ``dropout_keep_mask(seed, ...)``."""
-    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg)
+    ``bias`` (broadcast to [B, H, Sq, Sk]; a bool keep-mask as
+    ``where(mask, 0, -1e30)`` in q's dtype) is added in fp32 to the scaled
+    scores; ``q_seg`` / ``kv_seg`` (int [B, Sq] / [B, Sk]) mask pairs of
+    different segments; ``dropout_p`` drops with
+    ``dropout_keep_mask(seed, ...)``."""
+    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias)
     B, Sq, H, _ = q.shape
     Hkv = k.shape[2]
-    if bias is not None:
-        s = s + bias.float()
     s = s.masked_fill(~ok, _NEG_INF)
     m = s.amax(-1, keepdim=True)
     dead = m <= 0.5 * _NEG_INF                                 # sees no key
@@ -188,13 +221,13 @@ def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, bias=None,
 
 
 def _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg, kv_seg, dropout_p,
-               seed):
+               seed, bias=None):
     """fp32 (p, p kept and rescaled, dP masked and rescaled) [B, H, Sq, Sk]
     from the saved lse, with k and v repeated over their query groups."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg)
+    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias)
     live = (lse > 0.5 * _NEG_INF)[..., None]                   # [B, H, Sq, 1]
     # where, not a product: exp(s - lse) overflows on a dead row
     p = torch.where(ok & live, torch.exp(s - lse[..., None]), 0.0)
@@ -209,30 +242,62 @@ def _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg, kv_seg, dropout_p,
     return p, p_kept, dp
 
 
-def flash_bwd_plain(q, k, v, lse, do, causal: bool, sm_scale: float,
-                    delta=None, q_seg=None, kv_seg=None,
-                    dropout_p: float = 0.0, seed: int = 0):
-    """Plain PyTorch backward from the saved lse: (dq, dk, dv) in the
-    inputs' dtypes, with dk and dv summed over each kv head's query group.
-    Segments and dropout as the forward took them: dV takes the kept,
-    rescaled p; dP is masked and rescaled before dS = p (dP - delta) scale
-    with the undropped p and delta = rowsum(p * dP) in fp32, as the kernels
-    form it; ``delta`` ([B, H, Sq] fp32), when given, stands for it."""
+def _plain_bwd(q, k, v, lse, do, causal, sm_scale, delta, q_seg, kv_seg,
+               dropout_p, seed, bias):
+    """(dq, dk, dv, delta, dS without the scale fp32 [B, H, Sq, Sk])."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     p, p_kept, dp = _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg,
-                               kv_seg, dropout_p, seed)
+                               kv_seg, dropout_p, seed, bias)
     if delta is None:
         delta = (p * dp).sum(-1)
-    ds = p * (dp - delta[..., None]) * sm_scale
+    ds_raw = p * (dp - delta[..., None])
+    ds = ds_raw * sm_scale
     kf = k.float().repeat_interleave(g, dim=2)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p_kept, do.float())
     dk = dk.reshape(B, Sk, Hkv, g, D).sum(3)
     dv = dv.reshape(B, Sk, Hkv, g, D).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), delta, ds_raw
+
+
+def _reduce_dbias(ds, bias):
+    """The full-resolution d-bias [B, H, Sq, Sk] summed over the bias's
+    broadcast dims and cast to its dtype (``_flash_bwd``)."""
+    shape = (1,) * (4 - bias.dim()) + tuple(bias.shape)
+    dims = [i for i in range(4) if shape[i] == 1 and ds.shape[i] != 1]
+    if dims:
+        ds = ds.sum(dims, keepdim=True)
+    return ds.reshape(bias.shape).to(bias.dtype)
+
+
+def _check_bias_grad(bias, bias_grad):
+    if bias_grad and (bias is None or not bias.is_floating_point()):
+        raise ValueError("bias_grad needs a float bias (the gradient of a "
+                         "bool mask is not defined)")
+
+
+def flash_bwd_plain(q, k, v, lse, do, causal: bool, sm_scale: float,
+                    delta=None, q_seg=None, kv_seg=None,
+                    dropout_p: float = 0.0, seed: int = 0, bias=None,
+                    bias_grad: bool = False):
+    """Plain PyTorch backward from the saved lse: (dq, dk, dv) in the
+    inputs' dtypes, with dk and dv summed over each kv head's query group,
+    and with ``bias_grad`` the d-bias in the bias's shape and dtype. The
+    bias, segments and dropout as the forward took them: dV takes the kept,
+    rescaled p; dP is masked and rescaled before dS = p (dP - delta) scale
+    with the undropped p and delta = rowsum(p * dP) in fp32, as the kernels
+    form it; ``delta`` ([B, H, Sq] fp32), when given, stands for it. The
+    d-bias is dS without the scale, summed over the bias's broadcast dims."""
+    _check_bias_grad(bias, bias_grad)
+    dq, dk, dv, _, ds_raw = _plain_bwd(q, k, v, lse, do, causal, sm_scale,
+                                       delta, q_seg, kv_seg, dropout_p, seed,
+                                       bias)
+    if bias_grad:
+        return dq, dk, dv, _reduce_dbias(ds_raw, bias)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -248,11 +313,11 @@ def _strides(*ts, extra=()):
 
 def _check_cuda(q, k, v, *more):
     """What the kernels take: 4-D [B, S, H, D] views on one card, one dtype
-    (fp32 or bf16), a unit stride over D, 16-byte aligned bases and strides,
-    D in KERNEL_HEAD_DIMS, H a multiple of H_kv."""
+    (fp32, bf16 or fp16), a unit stride over D, 1 <= D <= MAX_HEAD_DIM, H a
+    multiple of H_kv."""
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash attention kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes [B, S, H, D] tensors")
     B, Sq, H, D = q.shape
@@ -261,9 +326,9 @@ def _check_cuda(q, k, v, *more):
                          f"fit q {tuple(q.shape)}")
     if k.shape[2] == 0 or H % k.shape[2]:
         raise ValueError(f"H={H} is not a multiple of H_kv={k.shape[2]}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take D in "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take 1 <= D <= "
+                         f"{MAX_HEAD_DIM}, got {D}")
     for i, t in enumerate((q, k, v) + more):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"input {i} is {t.dtype} on {t.device}; q is "
@@ -271,25 +336,56 @@ def _check_cuda(q, k, v, *more):
         if t.dim() != 4 or t.stride(3) != 1:
             raise ValueError(f"input {i} needs a unit stride over D (strides "
                              f"{t.stride()})")
+
+
+def _row_width(D, itemsize):
+    """The head width the kernels read: D up to whole 16-byte words."""
+    per = 16 // itemsize
+    return -(-D // per) * per
+
+
+def _padded(Dr, *ts):
+    """The inputs as the kernels read them: a head narrower than ``Dr`` is
+    copied once into a zero-padded contiguous buffer; then every base and
+    (batch, seq, head) stride must be 16-byte aligned."""
+    out = []
+    for i, t in enumerate(ts):
+        if t.shape[-1] != Dr:
+            t = torch.nn.functional.pad(t, (0, Dr - t.shape[-1]))
         it = t.element_size()
         if t.data_ptr() % 16 or any(s * it % 16 for s in t.stride()[:3]):
             raise ValueError(f"input {i}: base and strides must be 16-byte "
                              f"aligned (strides {t.stride()})")
+        out.append(t)
+    return out
+
+
+def _cut(t, D):
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
 def _bias_view(bias, q, k):
-    """The bias in q's dtype as a [B, H, Sq, Sk] view: stride 0 over its
-    broadcast dims (``expand`` copies nothing)."""
+    """(view, dtype code, strides): the bias as the kernels read it, a
+    [B, H, Sq, Sk] view with stride 0 over its broadcast dims (``expand``
+    copies nothing) in its own float dtype; a bool keep-mask becomes
+    ``where(mask, 0, -1e30)`` in q's dtype, as ``_sdpa_pallas`` makes it.
+    No bias: (None, 0, zero strides)."""
+    if bias is None:
+        return None, 0, (0, 0, 0, 0)
     B, Sq, H, _ = q.shape
     full = (B, H, Sq, k.shape[1])
-    if (bias.dim() > 4 or not bias.is_floating_point() or any(
-            n not in (1, m) for n, m in zip(bias.shape[::-1], full[::-1]))):
-        raise ValueError(f"bias must be a float mask that broadcasts to "
-                         f"{list(full)}, got {bias.dtype} "
+    if bias.dim() > 4 or any(n not in (1, m) for n, m in
+                             zip(bias.shape[::-1], full[::-1])):
+        raise ValueError(f"bias must broadcast to {list(full)}, got "
                          f"{tuple(bias.shape)}")
     if bias.device != q.device:
         raise ValueError(f"bias is on {bias.device}, q on {q.device}")
-    return bias.to(q.dtype).expand(full)
+    bias = _additive(bias, q.dtype)
+    if bias.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the bias must be bool, float32, bfloat16 or "
+                        f"float16, got {bias.dtype}")
+    bias = bias.expand(full)
+    return bias, _DTYPE_CODE[bias.dtype], bias.stride()
 
 
 def _seg_view(seg, B, S, device, what):
@@ -322,7 +418,7 @@ def _variant_args(q, k, q_seg, kv_seg, dropout_p, seed):
 
 def _tag(q, k, bias, q_seg, dropout_p):
     B, Sq, H, D = q.shape
-    extra = "".join((", bias" if bias is not None else "",
+    extra = "".join((f", {bias.dtype} bias" if bias is not None else "",
                      ", segments" if q_seg is not None else "",
                      f", dropout {dropout_p}" if dropout_p else ""))
     return (f"(B={B} Sq={Sq} Sk={k.shape[1]} H={H} H_kv={k.shape[2]} D={D} "
@@ -332,110 +428,126 @@ def _tag(q, k, bias, q_seg, dropout_p):
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,
               kv_seg=None, dropout_p: float = 0.0, seed: int = 0):
     """(out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]); ``bias``: an
-    additive float mask that broadcasts to [B, H, Sq, Sk], cast to q's
-    dtype; ``q_seg`` / ``kv_seg``: integer segment ids [B, Sq] / [B, Sk];
-    ``dropout_p`` with the 64-bit ``seed``. A bias does not combine with
-    segments or dropout."""
+    additive float mask (or a bool keep-mask) that broadcasts to
+    [B, H, Sq, Sk], read in its own dtype; ``q_seg`` / ``kv_seg``: integer
+    segment ids [B, Sq] / [B, Sk]; ``dropout_p`` with the 64-bit
+    ``seed``."""
     if is_cpu(q, "flash attention"):
         return flash_fwd_plain(q, k, v, causal, sm_scale, bias, q_seg, kv_seg,
                                dropout_p, seed)
     _check_cuda(q, k, v)
-    if bias is not None and (q_seg is not None or dropout_p):
-        raise _queue2("a bias with segment ids or dropout")
     from ._build import load_library
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    Dr = _row_width(D, q.element_size())
+    q, k, v = _padded(Dr, q, k, v)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
-    out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
+    bias, bias_code, bias_strides = _bias_view(bias, q, k)
+    out = torch.empty(B, Sq, H, Dr, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    bias_ptr, bias_strides = None, (0, 0, 0, 0)
-    if bias is not None:
-        bias = _bias_view(bias, q, k)
-        bias_ptr, bias_strides = bias.data_ptr(), bias.stride()
     _launch(f"flash_fwd launch {_tag(q, k, bias, q_seg, dropout_p)}",
             load_library().ptt_flash_fwd, q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), bias_ptr, *seg_ptrs, out.data_ptr(),
-            lse.data_ptr(), _strides(q, k, v, extra=bias_strides), B, Sq, Sk,
-            H, Hkv, D, float(sm_scale), int(causal), *drop,
-            _DTYPE_CODE[q.dtype])
-    del segs
+            k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), *seg_ptrs,
+            out.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
+            float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
+            bias_code)
+    del segs, bias
     flash_fwd.LAUNCHES += 1
-    return out, lse
+    return _cut(out, D), lse
 
 
 def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
                  q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                 seed: int = 0):
+                 seed: int = 0, bias=None, bias_grad: bool = False):
     """(dq [B, Sq, H, D] in q's dtype, delta = rowsum(p * dP) fp32
-    [B, H, Sq])."""
+    [B, H, Sq]), and with ``bias_grad`` a third item: the full-resolution
+    d-bias, dS without the scale, fp32 [B, H, Sq, Sk]."""
+    _check_bias_grad(bias, bias_grad)
     if is_cpu(q, "flash attention"):
-        p, _, dp = _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg,
-                              kv_seg, dropout_p, seed)
-        delta = (p * dp).sum(-1)
-        dq = flash_bwd_plain(q, k, v, lse, do, causal, sm_scale, delta=delta,
-                             q_seg=q_seg, kv_seg=kv_seg, dropout_p=dropout_p,
-                             seed=seed)[0]
-        return dq, delta
+        dq, _, _, delta, ds_raw = _plain_bwd(
+            q, k, v, lse, do, causal, sm_scale, None, q_seg, kv_seg,
+            dropout_p, seed, bias)
+        return (dq, delta, ds_raw) if bias_grad else (dq, delta)
     _check_cuda(q, k, v, do)
     from ._build import load_library
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    Dr = _row_width(D, q.element_size())
+    q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
+    bias, bias_code, bias_strides = _bias_view(bias, q, k)
     lse = lse.contiguous()
-    dq = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
+    dq = torch.empty(B, Sq, H, Dr, dtype=q.dtype, device=q.device)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    _launch(f"flash_bwd_dq launch {_tag(q, k, None, q_seg, dropout_p)}",
+    dbias = (torch.empty(B, H, Sq, Sk, dtype=torch.float32, device=q.device)
+             if bias_grad else None)
+    _launch(f"flash_bwd_dq launch {_tag(q, k, bias, q_seg, dropout_p)}",
             load_library().ptt_flash_bwd_dq, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *seg_ptrs, _strides(q, k, v, do), B, Sq, Sk, H, Hkv, D,
-            float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype])
-    del segs
+            None if bias is None else bias.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), *seg_ptrs,
+            _strides(q, k, v, do, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
+            float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
+            bias_code)
+    del segs, bias
     flash_bwd_dq.LAUNCHES += 1
-    return dq, delta
+    return (_cut(dq, D), delta) + ((dbias,) if bias_grad else ())
 
 
 def flash_bwd_dkv(q, k, v, lse, delta, do, causal: bool, sm_scale: float,
                   q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                  seed: int = 0):
+                  seed: int = 0, bias=None):
     """(dk, dv) [B, Sk, H_kv, D] in k's dtype, from the ``delta`` that
     ``flash_bwd_dq`` returned."""
     if is_cpu(q, "flash attention"):
-        return flash_bwd_plain(q, k, v, lse, do, causal, sm_scale,
-                               delta=delta, q_seg=q_seg, kv_seg=kv_seg,
-                               dropout_p=dropout_p, seed=seed)[1:]
+        return _plain_bwd(q, k, v, lse, do, causal, sm_scale, delta, q_seg,
+                          kv_seg, dropout_p, seed, bias)[1:3]
     _check_cuda(q, k, v, do)
     from ._build import load_library
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    Dr = _row_width(D, q.element_size())
+    q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
+    bias, bias_code, bias_strides = _bias_view(bias, q, k)
     lse, delta = lse.contiguous(), delta.contiguous()
-    dk = torch.empty(B, Sk, Hkv, D, dtype=k.dtype, device=k.device)
-    dv = torch.empty(B, Sk, Hkv, D, dtype=v.dtype, device=v.device)
-    _launch(f"flash_bwd_dkv launch {_tag(q, k, None, q_seg, dropout_p)}",
+    dk = torch.empty(B, Sk, Hkv, Dr, dtype=k.dtype, device=k.device)
+    dv = torch.empty(B, Sk, Hkv, Dr, dtype=v.dtype, device=v.device)
+    _launch(f"flash_bwd_dkv launch {_tag(q, k, bias, q_seg, dropout_p)}",
             load_library().ptt_flash_bwd_dkv, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *seg_ptrs, _strides(q, k, v, do), B, Sq, Sk, H, Hkv, D,
-            float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype])
-    del segs
+            None if bias is None else bias.data_ptr(), *seg_ptrs,
+            _strides(q, k, v, do, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
+            float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
+            bias_code)
+    del segs, bias
     flash_bwd_dkv.LAUNCHES += 1
-    return dk, dv
+    return _cut(dk, D), _cut(dv, D)
 
 
 def flash_bwd(q, k, v, lse, do, causal: bool, sm_scale: float,
-              q_seg=None, kv_seg=None, dropout_p: float = 0.0, seed: int = 0):
-    """(dq, dk, dv): the dQ kernel (which also forms delta), then the dK/dV
-    kernel; on the CPU, the plain backward."""
+              q_seg=None, kv_seg=None, dropout_p: float = 0.0, seed: int = 0,
+              bias=None, bias_grad: bool = False):
+    """(dq, dk, dv), and with ``bias_grad`` the d-bias in the bias's shape
+    and dtype: the dQ kernel (which also forms delta and the full d-bias),
+    then the dK/dV kernel; on the CPU, the plain backward."""
     if is_cpu(q, "flash attention"):
         return flash_bwd_plain(q, k, v, lse, do, causal, sm_scale,
                                q_seg=q_seg, kv_seg=kv_seg,
-                               dropout_p=dropout_p, seed=seed)
-    variant = dict(q_seg=q_seg, kv_seg=kv_seg, dropout_p=dropout_p, seed=seed)
-    dq, delta = flash_bwd_dq(q, k, v, lse, do, causal, sm_scale,
-                             **variant)
+                               dropout_p=dropout_p, seed=seed, bias=bias,
+                               bias_grad=bias_grad)
+    variant = dict(q_seg=q_seg, kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
+                   bias=bias)
+    dq, delta, *ds = flash_bwd_dq(q, k, v, lse, do, causal, sm_scale,
+                                  bias_grad=bias_grad, **variant)
     dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, sm_scale,
                            **variant)
+    if bias_grad:
+        return dq, dk, dv, _reduce_dbias(ds[0], bias)
     return dq, dk, dv
 
 
@@ -447,36 +559,38 @@ for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 # autograd + public API
 # ---------------------------------------------------------------------------
 class _Flash(torch.autograd.Function):
-    """The ``_flash`` custom_vjp: the forward saves (q, k, v, lse) and the
-    segment ids, and keeps the dropout seed; the backward runs the two
-    backward kernels from them. q, k and v are saved as the caller's views
-    (for the model, views of its kept ``qkv``)."""
+    """The ``_flash`` custom_vjp: the forward saves (q, k, v, lse), the
+    bias and the segment ids, and keeps the dropout seed; the backward runs
+    the two backward kernels from them. q, k and v are saved as the caller's
+    views (for the model, views of its kept ``qkv``). The bias gets a
+    gradient only with ``bias_grad``; otherwise it is a constant."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_seg, kv_seg, dropout_p,
-                seed):
-        out, lse = flash_fwd(q, k, v, causal, sm_scale, q_seg=q_seg,
-                             kv_seg=kv_seg, dropout_p=dropout_p, seed=seed)
-        ctx.save_for_backward(q, k, v, lse, q_seg, kv_seg)
+    def forward(ctx, q, k, v, bias, causal, sm_scale, q_seg, kv_seg,
+                dropout_p, seed, bias_grad):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, bias, q_seg, kv_seg,
+                             dropout_p, seed)
+        ctx.save_for_backward(q, k, v, lse, bias, q_seg, kv_seg)
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.dropout_p, ctx.seed = dropout_p, seed
+        ctx.dropout_p, ctx.seed, ctx.bias_grad = dropout_p, seed, bias_grad
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse, q_seg, kv_seg = ctx.saved_tensors
+        q, k, v, lse, bias, q_seg, kv_seg = ctx.saved_tensors
+        want_db = ctx.bias_grad and ctx.needs_input_grad[3]
         # dO arrives contiguous from the model; a stray layout is copied once
-        dq, dk, dv = flash_bwd(q, k, v, lse, do.contiguous(),
-                               ctx.causal, ctx.sm_scale, q_seg=q_seg,
-                               kv_seg=kv_seg, dropout_p=ctx.dropout_p,
-                               seed=ctx.seed)
-        return dq, dk, dv, None, None, None, None, None, None
+        grads = flash_bwd(q, k, v, lse, do.contiguous(), ctx.causal,
+                          ctx.sm_scale, q_seg=q_seg, kv_seg=kv_seg,
+                          dropout_p=ctx.dropout_p, seed=ctx.seed, bias=bias,
+                          bias_grad=want_db)
+        db = grads[3] if want_db else None
+        return (grads[0], grads[1], grads[2], db) + (None,) * 7
 
 
-def _queue2(what):
+def _queue2(what, item):
     return NotImplementedError(
-        f"flash_attention: {what} is not ported yet (ROADMAP Queue 2 #2, "
-        f"the flash kernel's variants)")
+        f"flash_attention: {what} is not ported yet (ROADMAP Queue 2 {item})")
 
 
 def flash_attention(query, key, value, causal=False, sm_scale=None, *,
@@ -487,21 +601,21 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
     with H % H_kv == 0 (GQA indexed, never repeated) -> [B, Sq, H, D].
     Differentiable in query, key and value.
 
-    ``q_segment_ids`` / ``kv_segment_ids``: integer [B, Sq] / [B, Sk]
-    packed-varlen ids, both or neither. ``dropout_p`` > 0 needs
-    ``dropout_seed`` (an int; the forward and backward draw the same mask
-    from it). ``bias``: an additive float mask that broadcasts to
-    [B, H, Sq, Sk] (use 0 / -1e30 for a bool mask), a constant; with a bias
-    the call is forward only and raises NotImplementedError when grad mode
-    is on and an input requires grad, and a bias does not combine with
-    segments or dropout. The flashmask and window variants and
-    ``bias_grad`` raise NotImplementedError."""
-    for name, val in (("startend_row_indices", startend_row_indices),
-                      ("window", window)):
-        if val is not None:
-            raise _queue2(name)
-    if bias_grad:
-        raise _queue2("bias_grad")
+    ``bias``: an additive float mask that broadcasts to [B, H, Sq, Sk]
+    (use 0 / -1e30 for a bool mask; a bool keep-mask is converted so), read
+    in its own dtype; a constant, or with ``bias_grad=True`` differentiable
+    (the d-bias is summed over its broadcast dims). ``q_segment_ids`` /
+    ``kv_segment_ids``: integer [B, Sq] / [B, Sk] packed-varlen ids, both or
+    neither. ``dropout_p`` > 0 needs ``dropout_seed`` (an int; the forward
+    and backward draw the same mask from it). The bias, segments and dropout
+    combine freely. On the card D is at most 256 and the dtype fp32, bf16 or
+    fp16. The flashmask (``startend_row_indices``) and ``window`` variants
+    raise NotImplementedError."""
+    if startend_row_indices is not None:
+        raise _queue2("startend_row_indices (flashmask)", "#2b")
+    if window is not None:
+        raise _queue2("window (the sliding window)", "#2c")
+    _check_bias_grad(bias, bias_grad)
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("flash_attention: q_segment_ids and kv_segment_ids "
                          "go together")
@@ -512,18 +626,11 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
     seed = 0 if dropout_seed is None else int(dropout_seed)
     d = query.shape[-1]
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
-    if bias is not None:
-        if q_segment_ids is not None or dropout_p:
-            raise _queue2("a bias with segment ids or dropout")
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (query, key, value)):
-            raise _queue2("the backward with a bias")
-        return flash_fwd(query, key, value, bool(causal), scale, bias)[0]
     q_seg = kv_seg = None
     if q_segment_ids is not None:
         q_seg = _seg_view(q_segment_ids, query.shape[0], query.shape[1],
                           query.device, "q_segment_ids")
         kv_seg = _seg_view(kv_segment_ids, key.shape[0], key.shape[1],
                            query.device, "kv_segment_ids")
-    return _Flash.apply(query, key, value, bool(causal), scale, q_seg, kv_seg,
-                        dropout_p, seed)
+    return _Flash.apply(query, key, value, bias, bool(causal), scale, q_seg,
+                        kv_seg, dropout_p, seed, bool(bias_grad))

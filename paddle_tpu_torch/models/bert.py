@@ -13,7 +13,9 @@ Training, as ``benchmarks/configs_bench.py`` ``bench_bert_packed`` runs it:
 default), the >= 2-D parameters cast to bf16, then per step
 ``functional_call(model, params, buffers, ids, pack_segment_ids=seg,
 position_ids=pos)``, ``bert_pretrain_loss``, ``torch.autograd.grad`` and
-``AdamW.apply``.
+``AdamW.apply``; ``bench_bert_base``'s padded form passes
+``attention_mask=`` the 4-D bool mask ``valid[:, None, None, :] &
+valid[:, None, :, None]`` instead of the packing.
 """
 
 from __future__ import annotations
@@ -90,9 +92,12 @@ class BertModel(nn.Layer):
         a row (pads -1); pass ``position_ids`` that restart at each
         sequence. A 2-D padding ``attention_mask`` becomes segment ids
         (valid 0, pad -1), as in the JAX package: valid positions never see
-        pads, pad queries see only pads; a 4-D mask goes to the attention
-        as it is (on the card: the flash forward with a bias, whose
-        backward is not ported, ROADMAP Queue 2 #2)."""
+        pads, pad queries see only pads; with ``pack_segment_ids`` it
+        becomes an additive ``[B, 1, 1, S]`` mask beside the segments. A
+        4-D mask goes to the attention as it is (``bench_bert_base``'s
+        padded layout): on the card the flash kernels take it as their
+        bias, forward and backward, with the attention dropout inside
+        them; a query row it masks whole gives zeros and no gradient."""
         x = self.embeddings(input_ids, token_type_ids, position_ids)
         if (attention_mask is not None and attention_mask.dim() == 2
                 and pack_segment_ids is None):

@@ -1,20 +1,30 @@
 """Attention ops (counterpart: ``paddle_tpu/nn/functional/flash_attention.py``
-``_sdpa_reference`` and ``scaled_dot_product_attention``, with the dispatch
-of ``paddle_tpu/kernels/pallas/register.py`` ``_sdpa_pallas``).
+``_sdpa_reference``, ``scaled_dot_product_attention``, ``flash_attention``,
+``flash_attn_unpadded``, with the dispatch of
+``paddle_tpu/kernels/pallas/register.py`` ``_sdpa_pallas``,
+``_unpadded_supported`` and ``_flash_attn_unpadded_pallas``).
 
 ``scaled_dot_product_attention`` is the registry op the model calls. The JAX
-package sends it to the Pallas flash kernel on the TPU and to the composed
-``_sdpa_reference`` elsewhere. The port decides by device, never on failure:
-CUDA tensors go to the flash kernels (``kernels/flash_attention.py``) or the
-call raises; CPU tensors go to ``_sdpa_reference``. The kernels take every
-sequence length and any mask that broadcasts to ``[B, H, Sq, Sk]``, so the
-JAX gate's ``S % 128`` and mask-shape rules (TPU tiling rules) have no
-counterpart. Layouts are ``[B, S, H, D]``.
+package sends it to the Pallas flash kernel on the TPU when its gate
+(``kernels/pallas/flash_attention.py`` ``supported``) allows, and to the
+composed ``_sdpa_reference`` otherwise. The port decides by device and
+shape, never on failure: CUDA tensors with a head dim up to 256
+(``MAX_HEAD_DIM``) go to the flash kernels (``kernels/flash_attention.py``,
+fp32, bf16 or fp16) or the call raises; a head dim above 256 goes to
+``_sdpa_reference`` on the card, as the JAX gate sends it there, and is
+counted in ``scaled_dot_product_attention.COMPOSED``; CPU tensors go to
+``_sdpa_reference``. The kernels take every sequence length and any mask
+that broadcasts to ``[B, H, Sq, Sk]``, together with segment ids and
+dropout, so the JAX gate's ``S % 128`` and mask-shape rules (TPU tiling
+rules) have no counterpart. Layouts are ``[B, S, H, D]``.
 
 Dropout in training draws one seed per call as a Python int from the
 caller's CPU generator (``paddle_tpu_torch.random``; the JAX
 ``_dropout_seed`` draws it from the framework key), so the card never
 waits for the host.
+
+``flashmask_attention`` (ROADMAP Queue 2 #2b / #2c) and ``sdp_kernel``
+(Queue 1 item 4, the op registry) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ from __future__ import annotations
 import torch
 
 from ... import random as _random
-from ...kernels.flash_attention import flash_attention
+from ...kernels.flash_attention import MAX_HEAD_DIM
+from ...kernels.flash_attention import flash_attention as _flash_kernels
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "flashmask_attention", "sdp_kernel"]
 
 
 def _sdpa_reference(query, key, value, attn_mask=None, dropout_p=0.0,
@@ -78,21 +90,43 @@ def _sdpa_reference(query, key, value, attn_mask=None, dropout_p=0.0,
     return out.transpose(1, 2)                                  # [B, S, H, D]
 
 
+def _composed_here(query):
+    """The route, by device and shape alone: True for the composed path (a
+    CPU tensor, or a head dim above the kernels' 256, counted), False for
+    the flash kernels."""
+    if query.device.type == "cpu":
+        return True
+    if query.shape[-1] > MAX_HEAD_DIM:
+        scaled_dot_product_attention.COMPOSED += 1
+        return True
+    return False
+
+
+def _dropout(dropout_p, training, generator=None):
+    """(p, seed) for the kernels: the seed drawn from the framework's
+    generator when dropout is on in training, else (0.0, None)."""
+    if dropout_p > 0.0 and training:
+        return float(dropout_p), _random.next_seed(generator)
+    return 0.0, None
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, segment_ids=None,
                                  generator=None):
-    """The registry op. CUDA tensors: the flash kernels (causal or not, GQA),
-    with ``attn_mask`` taken as ``_sdpa_pallas`` takes it: a bool keep-mask
-    becomes the additive ``where(mask, 0, -1e30)`` in q's dtype, a float
-    mask is the bias as it is; either goes to the forward kernel with stride
-    0 over its broadcast dims. ``segment_ids`` (int [B, S], the packed rows)
-    go to the kernels as q and kv ids; dropout in training draws its seed
-    from ``generator`` (a CPU generator; None: the framework's current one).
-    A mask with segments or dropout raises NotImplementedError there
-    (ROADMAP Queue 2 #2). CPU tensors: the composed ``_sdpa_reference``."""
+    """The registry op. CUDA tensors with D <= 256: the flash kernels
+    (causal or not, GQA), with ``attn_mask`` taken as ``_sdpa_pallas``
+    takes it: a bool keep-mask becomes the additive ``where(mask, 0,
+    -1e30)`` in q's dtype, a float mask is the bias as it is (read by the
+    kernels in its own dtype); either is read with stride 0 over its
+    broadcast dims, forward and backward, and is a constant. ``segment_ids``
+    (int [B, S], the packed rows) go to the kernels as q and kv ids;
+    dropout in training draws its seed from ``generator`` (a CPU generator;
+    None: the framework's current one). The mask, segments and dropout
+    combine. D > 256 on the card, and CPU tensors: the composed
+    ``_sdpa_reference`` (on the card counted in ``.COMPOSED``)."""
     del name
-    if query.device.type == "cpu":
+    if _composed_here(query):
         return _sdpa_reference(query, key, value, attn_mask, dropout_p,
                                is_causal, training=training,
                                segment_ids=segment_ids, generator=generator)
@@ -101,10 +135,111 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         attn_mask = attn_mask.detach()
         bias = (torch.where(attn_mask, 0.0, -1e30).to(query.dtype)
                 if attn_mask.dtype == torch.bool else attn_mask)
-    p, seed = 0.0, None
-    if dropout_p > 0.0 and training:
-        p, seed = float(dropout_p), _random.next_seed(generator)
-    return flash_attention(query, key, value, causal=is_causal, bias=bias,
-                           q_segment_ids=segment_ids,
-                           kv_segment_ids=segment_ids, dropout_p=p,
-                           dropout_seed=seed)
+    p, seed = _dropout(dropout_p, training, generator)
+    return _flash_kernels(query, key, value, causal=is_causal, bias=bias,
+                          q_segment_ids=segment_ids,
+                          kv_segment_ids=segment_ids, dropout_p=p,
+                          dropout_seed=seed)
+
+
+scaled_dot_product_attention.COMPOSED = 0
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """``paddle.nn.functional.flash_attention.flash_attention``: returns
+    ``(out, None)`` through ``scaled_dot_product_attention``;
+    ``return_softmax`` raises (the tiled kernels never form the softmax)."""
+    del fixed_seed_offset, rng_name, name
+    if return_softmax:
+        raise NotImplementedError(
+            "return_softmax is not supported by the fused attention path "
+            "(the tiled kernel never materializes the softmax matrix); "
+            "compose it manually with softmax(q @ k^T) if needed")
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
+
+
+def _segments_from_cu(cu_seqlens, total):
+    """Position -> sequence id for cu_seqlens-packed layouts (shared by the
+    composed path and the kernels so both mask identically)."""
+    cu = torch.as_tensor(cu_seqlens)
+    return torch.searchsorted(
+        cu, torch.arange(total, device=cu.device, dtype=cu.dtype),
+        right=True).to(torch.int32)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
+                        causal=False, return_softmax=False, training=True):
+    """Varlen attention over packed sequences. q [total_q, H, D], k / v
+    [total_k, H_kv, D]; ``cu_seqlens_*`` the sequences' cumulative
+    lengths. Position i attends to j iff they fall in the same segment (and,
+    causal, j is not after i within it). Returns ``(out, None)``.
+
+    On the card (D <= 256), as ``_unpadded_supported`` /
+    ``_flash_attn_unpadded_pallas`` dispatch it: non-causal, or causal with
+    q and k of one packing (the same ``cu_seqlens`` object and total), the
+    segment ids go to the kernels; causal with different packings, the
+    composed bool mask goes to the kernels as a bias. There is no composed
+    path on the card below D 256; above it and on the CPU, the composed
+    attention on the mask (as the JAX ``flash_attn_unpadded``)."""
+    del max_seqlen_q, max_seqlen_k
+    if return_softmax:
+        raise NotImplementedError(
+            "return_softmax is not supported by flash_attn_unpadded")
+    tq, tk = query.shape[0], key.shape[0]
+    dev = query.device
+    seg_q = _segments_from_cu(cu_seqlens_q, tq).to(dev)
+    seg_k = _segments_from_cu(cu_seqlens_k, tk).to(dev)
+    one_packing = cu_seqlens_q is cu_seqlens_k and tq == tk
+    kernels = not _composed_here(query)
+    if kernels and (not causal or one_packing):
+        p, seed = _dropout(dropout, training)
+        out = _flash_kernels(query[None], key[None], value[None],
+                             causal=causal, sm_scale=scale,
+                             q_segment_ids=seg_q[None],
+                             kv_segment_ids=seg_k[None], dropout_p=p,
+                             dropout_seed=seed)
+        return out[0], None
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        cu_q = torch.as_tensor(cu_seqlens_q).to(dev)
+        cu_k = torch.as_tensor(cu_seqlens_k).to(dev)
+        pos_q = torch.arange(tq, device=dev) - cu_q[(seg_q - 1).long()]
+        pos_k = torch.arange(tk, device=dev) - cu_k[(seg_k - 1).long()]
+        mask = mask & (pos_k[None, :] <= pos_q[:, None])
+    if kernels:
+        p, seed = _dropout(dropout, training)
+        bias = torch.where(mask, 0.0, -1e30).to(query.dtype)[None, None]
+        out = _flash_kernels(query[None], key[None], value[None],
+                             sm_scale=scale, bias=bias, dropout_p=p,
+                             dropout_seed=seed)
+        return out[0], None
+    out = _sdpa_reference(query[None], key[None], value[None],
+                          attn_mask=mask[None, None], dropout_p=dropout,
+                          is_causal=False, scale=scale,
+                          training=training)[0]
+    return out, None
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=False, window_size=None):
+    """Not ported yet: the flashmask and sliding-window operands of the
+    flash kernels are ROADMAP Queue 2 #2b and #2c."""
+    raise NotImplementedError(
+        "flashmask_attention is not ported yet (ROADMAP Queue 2 #2b, the "
+        "flashmask operands, and #2c, the sliding window)")
+
+
+class sdp_kernel:
+    """Not ported yet: the backend switch needs the op registry (ROADMAP
+    Queue 1 item 4)."""
+
+    def __init__(self, enable_math=True, enable_flash=True,
+                 enable_mem_efficient=True):
+        raise NotImplementedError(
+            "sdp_kernel is not ported yet (ROADMAP Queue 1 item 4, the op "
+            "registry)")

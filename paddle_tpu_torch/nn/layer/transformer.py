@@ -4,9 +4,11 @@
 decoder are not ported yet, ROADMAP Queue 1 item 10).
 
 Attention runs through the registry op ``scaled_dot_product_attention``
-(``[B, S, H, D]`` heads): the flash kernels on the card, with the packed
-rows' ``segment_ids`` and the attention dropout inside them, the composed
-path on the CPU.
+(``[B, S, H, D]`` heads): the flash kernels on the card, forward and
+backward, at any head dim up to 256 (above it the composed path, as the JAX
+gate rules), with the attention mask as their bias, the packed rows'
+``segment_ids`` and the attention dropout inside them, in any combination;
+the composed path on the CPU.
 """
 
 from __future__ import annotations
@@ -35,8 +37,12 @@ def _convert_attn_mask(attn_mask):
 
 class MultiHeadAttention(Layer):
     """Separate q / k / v / out projections (``[in, out]`` weights), heads
-    ``[B, S, H, D]``. The attention dropout seeds come from the framework's
-    current generator (``paddle_tpu_torch.random``)."""
+    ``[B, S, H, D]``. ``attn_mask``: a bool keep-mask, or an additive float
+    mask, which is made fp32 as the JAX package's ``_convert_attn_mask``
+    makes it, broadcasting to ``[B, H, S, S]``; a constant. On the card it
+    trains through the flash kernels with the mask as their bias, alone or
+    with dropout and segment ids. The attention dropout seeds come from the
+    framework's current generator (``paddle_tpu_torch.random``)."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,

@@ -6,9 +6,10 @@ A tiny BERT (2 layers, hidden 128, 2 heads of 64, FFN 256, vocab 512,
 dropout 0) is built by the JAX package; its ``functional_train_graph`` tree
 goes into the port's model by name (``models/convert.py`` ``load_params``),
 inputs come from numpy. Held: the forward logits for unpacked rows, a 2-D
-padding mask and packed rows; ``bert_pretrain_loss`` and the gradient of
-every parameter; three AdamW steps; ``pack_sequences``; and that packed rows
-give the unpacked encodings. On the CPU the port's LayerNorm and attention
+padding mask, packed rows and ``bench_bert_base``'s 4-D bool mask;
+``bert_pretrain_loss`` and the gradient of every parameter; three AdamW
+steps; ``pack_sequences``; and that packed rows give the unpacked
+encodings. On the CPU the port's LayerNorm and attention
 take their kernels' plain versions, or the composed path the registry sends
 CPU tensors to. Tolerances: fp32 sums in another order, rel 1e-5 on the loss,
 2e-5 on logits and encodings, 1e-4 of each gradient's max-abs; after three
@@ -84,6 +85,9 @@ def _inputs(kind, seed=0):
             mask[i, :len(s)] = 1
         kw = dict(attention_mask=mask) if kind == "mask" else {}
         real = mask > 0
+        if kind == "mask4d":          # bench_bert_base's [B, 1, S, S] mask
+            kw = dict(attention_mask=real[:, None, None, :]
+                      & real[:, None, :, None])
     B = ids.shape[0]
     mlm = np.where((rng.rand(B, S) < 0.3) & real,
                    rng.randint(0, DIMS["vocab_size"], (B, S)), -100)
@@ -119,7 +123,7 @@ def _cpu_params(tmodel):
     return t_graph(tmodel, device="cpu")[0]
 
 
-@pytest.mark.parametrize("kind", ["unpacked", "mask", "packed"])
+@pytest.mark.parametrize("kind", ["unpacked", "mask", "packed", "mask4d"])
 def test_logits_loss_and_every_grad_match_jax(models, kind):
     jmodel, jparams, jbuf, tmodel = models
     ids, kw, mlm, nsp = _inputs(kind)

@@ -254,10 +254,18 @@ def test_sdpa_card_path_counts_its_launches(card):
     again = scaled_dot_product_attention(q, q, q, dropout_p=0.1,
                                          segment_ids=seg, generator=gen2)
     assert torch.equal(out, again)
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones(1, 1, 128, 128, dtype=torch.bool,
-                                          device=card), segment_ids=seg)
+    # a mask with segments and dropout runs the kernels too, the mask as
+    # their bias: one more forward and backward beside the forward of
+    # `again`
+    out = scaled_dot_product_attention(
+        q, q, q, attn_mask=torch.ones(1, 1, 128, 128, dtype=torch.bool,
+                                      device=card), dropout_p=0.1,
+        segment_ids=seg, generator=torch.Generator().manual_seed(5))
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (FA.flash_fwd.LAUNCHES - n[0], FA.flash_bwd_dq.LAUNCHES - n[1],
+            FA.flash_bwd_dkv.LAUNCHES - n[2]) == (3, 2, 2)
+    assert torch.equal(out, again)      # an all-true mask changes nothing
 
 
 # ---------------------------------------------------------------------------

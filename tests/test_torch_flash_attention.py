@@ -24,10 +24,10 @@ import torch
 
 from paddle_tpu.kernels.pallas import flash_attention as JFA
 from paddle_tpu_torch.kernels import flash_attention as FA
-from paddle_tpu_torch.nn.functional import flash_attention as TNF
 
 # the module, not the function of the same name the package exports
 JNF = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+TNF = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
 
 TOL = {"fp32": (2e-5, 2e-4), "bf16": (2e-2, 5e-2)}
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
@@ -188,14 +188,12 @@ def test_delta_from_p_dp_keeps_dq_when_keys_converge():
     assert rel(dq_out, ref[0]) > 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(bias=torch.zeros((1, 1, 8, 8))),
-                                dict(startend_row_indices=(0, 0)),
-                                dict(window=(4, 0)),
-                                dict(bias_grad=True)],
-                         ids=["bias", "flashmask", "window", "bias_grad"])
+@pytest.mark.parametrize("kw", [dict(startend_row_indices=(0, 0)),
+                                dict(window=(4, 0))],
+                         ids=["flashmask", "window"])
 def test_unported_arguments_raise(kw):
-    # a bias runs the forward alone: it raises when a gradient is asked for
-    q = torch.zeros(1, 8, 2, 16, requires_grad="bias" in kw)
+    # the bias backward and bias_grad are ported (test_torch_flash_bias.py)
+    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="Queue 2 #2"):
         FA.flash_attention(q, q, q, causal=True, **kw)
 

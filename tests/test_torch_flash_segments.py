@@ -199,8 +199,8 @@ def test_dropout_arguments():
     with pytest.raises(ValueError, match="together"):
         FA.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8))
     with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        FA.flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8),
-                           dropout_p=0.1, dropout_seed=1)
+        FA.flash_attention(q, q, q, window=(4, 0), dropout_p=0.1,
+                           dropout_seed=1)
     # the same seed gives the same output, another seed another one
     x = torch.from_numpy(_rand(1, 64, 2, 64, seed=12))
     a = FA.flash_attention(x, x, x, dropout_p=0.5, dropout_seed=3)

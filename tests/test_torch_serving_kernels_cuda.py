@@ -189,22 +189,23 @@ def test_flash_bias_refusals(card):
     with pytest.raises(ValueError):              # does not broadcast
         FA.flash_fwd(q, k, v, False, 0.1, torch.zeros(5, 64, 64,
                                                       device=card))
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        FA.flash_attention(q.requires_grad_(True), k, v,
+    with pytest.raises(NotImplementedError, match="Queue 2 #2c"):
+        FA.flash_attention(q, k, v, window=(8, 0),
                            bias=torch.zeros(1, 1, 64, 64, device=card))
-    # with a bias, the C entry still refuses D = 48 with
+    # with a bias, the C entry still refuses D = 320 with
     # cudaErrorInvalidValue (1)
     from paddle_tpu_torch.kernels._build import load_library
-    q48, k48, v48 = _flash_inputs(card, torch.bfloat16, 1, 64, 64, 2, 2, 48)
+    q320, k320, v320 = _flash_inputs(card, torch.bfloat16, 1, 64, 64, 2, 2,
+                                     320)
     bias = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16, device=card)
-    out = torch.empty_like(q48)
+    out = torch.empty_like(q320)
     lse = torch.empty(1, 2, 64, device=card)
-    strides = (ctypes.c_longlong * 13)(*(list(q48.stride()[:3]) * 3
+    strides = (ctypes.c_longlong * 13)(*(list(q320.stride()[:3]) * 3
                                          + [0, 0, 64, 1]))
     code = load_library().ptt_flash_fwd(
-        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), bias.data_ptr(),
+        q320.data_ptr(), k320.data_ptr(), v320.data_ptr(), bias.data_ptr(),
         None, None, out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2,
-        48, 0.1, 0, 0, 0, 0, 0, 1.0, 1,
+        320, 0.1, 0, 0, 0, 0, 0, 1.0, 1, 1,
         torch.cuda.current_stream().cuda_stream)
     assert code == 1
 

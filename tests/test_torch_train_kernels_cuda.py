@@ -146,25 +146,30 @@ def test_flash_autograd_function(card):
 
 def test_flash_refusals(card):
     q, k, v, _ = _qkv(card, torch.float32, 1, 64, 64, 2, 2, 64)
-    with pytest.raises(TypeError):
-        FA.flash_fwd(q.half(), k.half(), v.half(), True, 0.1)
+    with pytest.raises(TypeError, match="float64"):
+        FA.flash_fwd(q.double(), k.double(), v.double(), True, 0.1)
     with pytest.raises(ValueError):              # no unit stride over D
         FA.flash_fwd(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3),
                      True, 0.1)
-    with pytest.raises(ValueError):              # D outside {64, 128}
-        q48, k48, v48, _ = _qkv(card, torch.float32, 1, 64, 64, 2, 2, 48)
-        FA.flash_fwd(q48, k48, v48, True, 0.1)
-    # the C entry itself refuses D = 48 with cudaErrorInvalidValue (1)
+    with pytest.raises(ValueError):              # D above 256
+        q320, k320, v320, _ = _qkv(card, torch.float32, 1, 64, 64, 2, 2, 320)
+        FA.flash_fwd(q320, k320, v320, True, 0.1)
+    # the C entry itself refuses D = 320, and a bf16 D = 36 whose row is not
+    # a whole number of 16-byte words (the wrapper pads that one), with
+    # cudaErrorInvalidValue (1)
     from paddle_tpu_torch.kernels._build import load_library
-    out = torch.empty_like(q48)
-    lse = torch.empty(1, 2, 64, device=card)
-    strides = (ctypes.c_longlong * 13)(*(list(q48.stride()[:3]) * 3
-                                         + [0] * 4))
-    code = load_library().ptt_flash_fwd(
-        q48.data_ptr(), k48.data_ptr(), v48.data_ptr(), None, None, None,
-        out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2, 48, 0.1, 1,
-        0, 0, 0, 0, 1.0, 0, torch.cuda.current_stream().cuda_stream)
-    assert code == 1
+    q36 = torch.zeros(1, 64, 2, 36, device=card, dtype=torch.bfloat16)
+    for qq, D, code in ((q320, 320, 0), (q36, 36, 1)):
+        out = torch.empty_like(qq)
+        lse = torch.empty(1, 2, 64, device=card)
+        strides = (ctypes.c_longlong * 13)(*(list(qq.stride()[:3]) * 3
+                                             + [0] * 4))
+        got = load_library().ptt_flash_fwd(
+            qq.data_ptr(), qq.data_ptr(), qq.data_ptr(), None, None, None,
+            out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2, D, 0.1,
+            1, 0, 0, 0, 0, 1.0, code, 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert got == 1, (D, got)
     with pytest.raises(NotImplementedError):
         FA.flash_attention(q, k, v, causal=True, window=(8, 0))
 
