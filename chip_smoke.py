@@ -116,7 +116,25 @@ Phases, in order; any failure exits non-zero:
    count, a profiled step;
 27b. with dropout 0, the padded BERT's kernel path against the plain path:
    fp32 at 2 layers, bf16 at full depth over 4 AdamW steps, its query / key
-   gradients against an fp32 witness.
+   gradients against an fp32 witness;
+28. hold the flash kernels with the flashmask rows and the sliding window
+   against their plain versions at B 2, S 256, GQA 4 / 2 (and Sq 128 /
+   Sk 256), D 64, 128, 256 in fp32, bf16 and fp16: causal C = 1 rows (a
+   document mask), C = 2 rows with H_mask 1 and H, the window alone (causal
+   and not), (left, right), the window with rows, rows with a bias, with
+   segment ids, with dropout, dead rows; the d-bias with rows; the Philox
+   mask with rows and a window bit for bit; the share of the causal tiles
+   each mask runs (the kernels' bounds and skip rule, counted on the host);
+29. time them at bench_llama's attention width (16 query and 4 kv heads of
+   128, bf16): (a) a causal document mask at [8, 1024] and (b) a causal
+   window of 1024 at [2, 4096], each kernel against its bound, the plain
+   version, SDPA on the same dense mask, the port's kernels on that mask as
+   a bias, and the causal call at the same shape;
+30. drive nn.functional.flashmask_attention forward and backward on (a) and
+   (b) with exact launch counts, against the plain path at full width; a
+   tiny fp32 case card vs CPU, the bidirectional forms through the counted
+   dense-mask route into the bias kernels; re-time the flash kernels without
+   rows or window at the GPT flagship and packed BERT calls.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -185,6 +203,8 @@ TRAJECTORY_STEPS = 4          # phase 9b: kernel path vs plain path
 # ||got - ref|| / ||ref|| (tile_rel_err): fp32 summation order, bf16
 # rounding of the outputs and of the tensor-core operands
 FLASH_TOL = {torch.float32: (5e-6, 5e-6), torch.bfloat16: (2e-2, 2e-2)}
+# the operands the flash forward takes beside q, k and v
+FWD_KEYS = ("bias", "q_seg", "kv_seg", "dropout_p", "seed", "fm", "window")
 DEV = "cuda"
 
 
@@ -668,11 +688,12 @@ def tile_rel_err(got, ref, rows=64):
     return ratio.max().item()
 
 
-def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False):
+def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False, fm=None):
     """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once,
     each output written once (the bias once by each kernel, so twice by the
-    backward; the segment ids once; with ``dbias`` the fp32 [B, H, Sq, Sk]
-    d-bias written by dQ), against 4 D (forward), 6 D (dQ: s, dp, dq; its
+    backward; the segment ids and the flashmask rows ``fm`` once; with
+    ``dbias`` the fp32 [B, H, Sq, Sk] d-bias written by dQ), against 4 D
+    (forward), 6 D (dQ: s, dp, dq; its
     kernel's delta pass repeats s and dp, which the bound does not count)
     and 8 D (dK/dV: s, dp, dk, dv) FLOPs per visible (query, key) pair over
     all heads (``pairs``: what this run's causal rule and mask leave), at
@@ -683,7 +704,8 @@ def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False):
     peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     qn, kn, rows = B * sq * H * D, B * sk * Hkv * D, B * H * sq
     extra = (0 if bias is None else bias.numel() * bias.element_size()) + (
-        4 * B * (sq + sk) if seg else 0)
+        4 * B * (sq + sk) if seg else 0) + (
+        0 if fm is None else 4 * (fm[0].numel() + fm[1].numel()))
     work = {"flash_fwd": ((2 * qn + 2 * kn) * it + 4 * rows, 4 * D * pairs),
             "flash_bwd_dq": ((3 * qn + 2 * kn) * it + 8 * rows
                              + (4 * B * H * sq * sk if dbias else 0),
@@ -707,8 +729,7 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
     events, median, cold L2) against its bound, the plain version and
     F.scaled_dot_product_attention on the same float mask and dropout."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    fwd = {n: var[n] for n in ("bias", "q_seg", "kv_seg", "dropout_p", "seed")
-           if n in var}
+    fwd = {n: var[n] for n in FWD_KEYS if n in var}
     out, lse = FA.flash_fwd(q, k, v, causal, scale, **fwd)
     dq, delta, *dbf = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale,
                                       bias_grad=bias_grad, **var)
@@ -724,8 +745,10 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
     dead_q = ~live.transpose(1, 2)
     require(bool((out[dead_q] == 0).all()) and bool((dq[dead_q] == 0).all()),
             f"{name}: a dead row's output or dq is not zero")
-    err, rel = _rel_err(lse[live], lse_p[live])
+    err, rel = _rel_err(lse[live], lse_p[live]) if live.any() else (0.0, 0.0)
     require(rel <= 1e-5, f"{name}: lse rel err {rel} > 1e-5")
+    require(bool((lse[~live] == -1e30).all()), f"{name}: a dead row's lse "
+            f"is not -1e30")
     rec = {"lse": err, "dead_rows": int((~live).sum())}
     for what, got, want, tol in (("out", out, out_p, tol_o),
                                  ("dq", dq, ref[0], tol_g),
@@ -754,7 +777,7 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
     if card is None:
         return rec
     bounds = flash_bounds(q, k, pairs, var.get("bias"), bias_grad,
-                          "q_seg" in var)
+                          "q_seg" in var, var.get("fm"))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     p = var.get("dropout_p", 0.0)
     mask = var.get("bias")
@@ -764,6 +787,13 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
         seg = var["q_seg"]
         same = (seg[:, None, :, None] == seg[:, None, None, :])
         mask = same if mask is None else torch.where(same, mask, -1e30).to(
+            q.dtype)
+    if "fm" in var or "window" in var:
+        # the library takes the rows and the window as a dense bool mask
+        # that carries the causal rule too
+        vis = FA._visible(q.shape[1], k.shape[1], causal, q.device,
+                          fm=var.get("fm"), window=var.get("window"))
+        mask = vis if mask is None else torch.where(vis, mask, -1e30).to(
             q.dtype)
     gqa = q.shape[2] != k.shape[2]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -3344,6 +3374,396 @@ def padded_train_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 28-30: the flashmask rows and the sliding window (flashmask_attention)
+# ---------------------------------------------------------------------------
+# phase 29's two cells at bench_llama's attention width (16 query heads and 4
+# kv heads of 128, bf16): (a) a causal document mask, (b) a sliding window
+FM_DOC = dict(B=8, S=1024, lo=64, hi=513)
+FM_WINDOW = dict(B=2, S=4096, w=1024)
+FM_H, FM_HKV, FM_D = 16, 4, 128
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def doc_rows(B, S, rng, lo, hi):
+    """A causal document mask as C = 1 flashmask rows, int32 [B, 1, S]:
+    each row packed with document lengths rng.randint(lo, hi) until its S
+    positions are full (the last cut to fit); start[j] = the end of the
+    document that holds key j, so a query sees its own document's keys up
+    to itself."""
+    rows = np.zeros((B, 1, S), np.int32)
+    for b in range(B):
+        pos = 0
+        while pos < S:
+            n = min(int(rng.randint(lo, hi)), S - pos)
+            rows[b, 0, pos:pos + n] = pos + n
+            pos += n
+    return rows
+
+
+def band_rows(B, hm, Sk, Sq, rng, width=64):
+    """Random C = 2 rows: start in [0, Sq), end = start + [1, width)."""
+    start = rng.randint(0, Sq, size=(B, hm, Sk))
+    end = np.minimum(start + rng.randint(1, width, size=start.shape), Sq)
+    return start.astype(np.int32), end.astype(np.int32)
+
+
+def tile_shares(Sq, Sk, causal, window, fm=None, tile=64):
+    """The tiles the kernels run, counted on the host with the kernels'
+    rules written in numpy (flash_common.cuh key_begin / key_end for the
+    forward and dQ, query_begin / query_end for dK/dV, and the flashmask
+    skip: a tile is skipped when max start <= q0 and min end >= min(q0 +
+    64, Sq)), summed over the rows' (batch, mask head) slabs, against the
+    tiles the causal bound alone runs. Returns (fwd / dQ tiles, dK/dV
+    tiles, causal tiles)."""
+    left, right = FA._norm_window(window) or (None, None)
+    lo = -left if left is not None else -2 ** 30
+    hi = right if right is not None else 2 ** 30
+    if causal:
+        hi = min(hi, 0)
+    off, nq, nk = Sk - Sq, -(-Sq // tile), -(-Sk // tile)
+    q0, k0 = np.arange(nq) * tile, np.arange(nk) * tile
+
+    def kband(lo, hi):
+        first = q0 + off + lo
+        kb = np.where(first <= 0, 0, first // tile * tile)
+        ke = np.clip(q0 + tile + off + hi, 0, Sk)
+        return (k0[None] >= kb[:, None]) & (k0[None] < ke[:, None])
+    qfirst = k0 - off - hi
+    qb = np.where(qfirst <= 0, 0, qfirst // tile * tile)
+    qe = np.clip(k0 + tile - off - lo, 0, Sq)
+    band_f, band_c = kband(lo, hi), kband(-2 ** 30, 0)
+    band_d = (q0[:, None] >= qb[None]) & (q0[:, None] < qe[None])
+    if fm is None:
+        return int(band_f.sum()), int(band_d.sum()), int(band_c.sum())
+    start, end = (t.cpu().numpy() for t in fm)
+    B, hm, _ = start.shape
+    pad = ((0, 0), (0, 0), (0, nk * tile - Sk))
+    mx = np.pad(start, pad, constant_values=INT32_MIN).reshape(
+        B, hm, nk, tile).max(-1)
+    mn = np.pad(end, pad, constant_values=INT32_MAX).reshape(
+        B, hm, nk, tile).min(-1)
+    qn = np.minimum(q0 + tile, Sq)
+    masked = (mx[:, :, None, :] <= q0[:, None]) & (
+        mn[:, :, None, :] >= qn[:, None])
+    return (int((band_f & ~masked).sum()), int((band_d & ~masked).sum()),
+            int(band_c.sum()) * B * hm)
+
+
+def fm_pairs(q, k, causal, var):
+    """Visible (query, key) pairs over all heads under the rows and the
+    window (the mask is [Sq, Sk], or [B, H_mask, Sq, Sk] with rows)."""
+    vis = FA._visible(q.shape[1], k.shape[1], causal, q.device,
+                      fm=var.get("fm"), window=var.get("window"))
+    B, H = q.shape[0], q.shape[2]
+    n = int(vis.sum().item())
+    return n * B * H if vis.dim() == 2 else n * (H // vis.shape[1])
+
+
+def fm_forms(dtype, D, gen, rng):
+    """(name, q, k, v, dO, causal, variant) of every form at B 2, S 256,
+    GQA 4 / 2 (and Sq 128 / Sk 256)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    B, S, H, Hkv = 2, 256, 4, 2
+    q, do, k, v = (rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, Hkv, D),
+                   rnd(B, S, Hkv, D))
+    dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
+    doc = dev(doc_rows(B, S, rng, 16, 97))
+    full = torch.full_like(doc, S)
+    st, en = (dev(a) for a in band_rows(B, H, S, S, rng))
+    seg = dev(np.repeat(np.arange(4), [60, 70, 90, 36])[None].repeat(B, 0)
+              .astype(np.int32))
+    rs, re_ = (dev(a) for a in band_rows(B, 1, S, 128, rng, 40))
+    dead = torch.arange(S, device=DEV, dtype=torch.int32).expand(
+        B, 1, S).contiguous()
+    return [
+        ("C=1 causal (a document mask)", q, k, v, do, True,
+         dict(fm=(doc, full))),
+        ("C=2 causal H_mask 1", q, k, v, do, True,
+         dict(fm=(st[:, :1], en[:, :1]))),
+        ("C=2 causal H_mask H", q, k, v, do, True, dict(fm=(st, en))),
+        ("window 96 causal", q, k, v, do, True, dict(window=(96, None))),
+        ("window 96 not causal", q, k, v, do, False,
+         dict(window=(96, None))),
+        ("window (40, 24) not causal", q, k, v, do, False,
+         dict(window=(40, 24))),
+        ("rows + window 80", q, k, v, do, True,
+         dict(fm=(doc, full), window=(80, None))),
+        ("rows + bias", q, k, v, do, True,
+         dict(fm=(st, en), bias=rnd(B, 1, S, S))),
+        ("rows + segments", q, k, v, do, True,
+         dict(fm=(st[:, :1], en[:, :1]), q_seg=seg, kv_seg=seg)),
+        ("rows + dropout 0.1", q, k, v, do, True,
+         dict(fm=(doc, full), dropout_p=0.1, seed=2 ** 33 + 7)),
+        ("rows + window, sq 128 sk 256", q[:, :128], k, v, do[:, :128], True,
+         dict(fm=(rs, re_), window=(48, None))),
+        ("dead rows (start[j] = j)", q, k, v, do, True,
+         dict(fm=(dead, full)))]
+
+
+def fm_dropout_bits_check():
+    """With the rows and a window the three kernels still draw
+    dropout_keep_mask: q = k = 0 makes every visible probability equal,
+    v = I reads the dropped row out of the forward and dO = I reads it out
+    of dK/dV's dV; both equal the plain keep-mask on the visible pairs bit
+    for bit (dQ draws the same words: the rows + dropout form holds its dq
+    to the plain one)."""
+    B, S, H, p, seed = 2, 128, 2, 0.1, 2 ** 40 + 777
+    fm = (torch.from_numpy(doc_rows(B, S, np.random.RandomState(5), 16, 49))
+          .to(DEV), torch.full((B, 1, S), S, dtype=torch.int32, device=DEV))
+    var = dict(fm=fm, window=(70, None), dropout_p=p, seed=seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros(B, S, H, S, device=DEV, dtype=dtype)
+        eye = torch.eye(S, device=DEV, dtype=dtype)[None, :, None, :].expand(
+            B, S, H, S).contiguous()
+        out, lse = FA.flash_fwd(z, z, eye, True, 1.0, **var)
+        _, dv = FA.flash_bwd_dkv(z, z, eye, lse, torch.zeros_like(lse), eye,
+                                 True, 1.0, **var)
+        keep = FA.dropout_keep_mask(seed, B, H, S, S, p, DEV) & FA._visible(
+            S, S, True, DEV, fm=fm, window=(70, None))
+        fwd_ok = torch.equal(out.permute(0, 2, 1, 3) > 0, keep)
+        dkv_ok = torch.equal(dv.permute(0, 2, 3, 1) > 0, keep)
+        log(f"Philox masks with rows and a window ({dtype}): forward kernel "
+            f"== plain {fwd_ok}, dK/dV kernel == plain {dkv_ok}")
+        require(fwd_ok and dkv_ok, "with rows and a window, the CUDA and "
+                "torch Philox masks differ")
+
+
+def flashmask_forms_phase():
+    """Phase 28: every form of the rows and the window against the plain
+    versions at D 64, 128, 256 in fp32, bf16 and fp16 (untimed), the d-bias
+    with rows, the Philox mask with rows and a window; the share of the
+    causal tiles each mask runs."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(28)
+    rng = np.random.RandomState(28)
+    worst, shares = {}, {}
+    for D in (64, 128, 256):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for name, q, k, v, do, causal, var in fm_forms(dtype, D, gen,
+                                                           rng):
+                rec = check_attn(f"D {D} {str(dtype)[6:]} {name}", q, k, v,
+                                 do, causal, var)
+                key = f"{D}_{str(dtype)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), *(
+                    rec[w + "_tile"] for w in ("out", "dq", "dk", "dv")))
+                if name.startswith("dead"):
+                    require(rec["dead_rows"] == q.shape[0] * q.shape[1]
+                            * q.shape[2], "dead rows: a row saw a key")
+                if D == 64 and dtype == torch.bfloat16:
+                    f, d, c = tile_shares(q.shape[1], k.shape[1], causal,
+                                          var.get("window"), var.get("fm"))
+                    shares[name] = dict(fwd_dq=f / c, dkv=d / c, causal=c)
+    for dtype in (torch.bfloat16, torch.float32):
+        name, q, k, v, do, causal, var = fm_forms(dtype, 64, gen, rng)[7]
+        rec = check_attn(f"({str(dtype)[6:]}) d-bias with {name}", q, k, v,
+                         do, causal, var, bias_grad=True)
+        worst[f"dbias_{str(dtype)[6:]}"] = rec["dbias_l2"]
+    fm_dropout_bits_check()
+    for name, sh in shares.items():
+        log(f"tiles run ({name}): forward / dQ {sh['fwd_dq']:.1%}, dK/dV "
+            f"{sh['dkv']:.1%} of the {sh['causal']} causal tiles")
+    log(f"worst tile L2 rel err per D and dtype: {worst}")
+    torch.cuda.empty_cache()
+    return {"worst_tile": worst, "tile_shares": shares}
+
+
+def time_flash(q, k, v, do, causal, var):
+    """{kernel: ms} of the three kernels (CUDA events, median, cold L2)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwd = {n: var[n] for n in FWD_KEYS if n in var}
+    _, lse = FA.flash_fwd(q, k, v, causal, scale, **fwd)
+    _, delta = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale, **var)
+    return {"flash_fwd": cuda_ms(lambda: FA.flash_fwd(q, k, v, causal, scale,
+                                                      **fwd)),
+            "flash_bwd_dq": cuda_ms(lambda: FA.flash_bwd_dq(
+                q, k, v, lse, do, causal, scale, **var)),
+            "flash_bwd_dkv": cuda_ms(lambda: FA.flash_bwd_dkv(
+                q, k, v, lse, delta, do, causal, scale, **var))}
+
+
+def fm_cell(cell):
+    """q, k, v, dO (bf16, seeded) and the variant of phase 29's cell."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(29)
+    if cell == "doc":
+        B, S = FM_DOC["B"], FM_DOC["S"]
+        rows = torch.from_numpy(doc_rows(
+            B, S, np.random.RandomState(0), FM_DOC["lo"], FM_DOC["hi"]))
+        var = dict(fm=(rows.to(DEV), torch.full_like(rows, S).to(DEV)))
+    else:
+        B, S = FM_WINDOW["B"], FM_WINDOW["S"]
+        var = dict(window=(FM_WINDOW["w"], None))
+    q, do = (torch.randn(B, S, FM_H, FM_D, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, FM_HKV, FM_D, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(2))
+    return q, k, v, do, var
+
+
+def flashmask_timed_phase(card):
+    """Phase 29: (a) the causal document mask and (b) the sliding window at
+    bench_llama's attention width, bf16: each kernel against its bound, the
+    plain version, SDPA on the same dense bool mask and the port's own
+    kernels on that mask as a bias (the route a dense mask takes); the
+    causal call at the same shape and the share of its tiles each mask
+    runs."""
+    recs = {}
+    for cell, title in (("doc", "(a) causal document mask"),
+                        ("window", "(b) causal sliding window 1024")):
+        q, k, v, do, var = fm_cell(cell)
+        B, S = q.shape[:2]
+        pairs = fm_pairs(q, k, True, var)
+        causal_pairs = visible_pairs(S, S, True) * B * FM_H
+        log(f"{title}: q {list(q.shape)}, k / v {list(k.shape)}; {pairs} "
+            f"visible pairs ({pairs / (B * FM_H):.1f} a head, "
+            f"{pairs / causal_pairs:.1%} of causal)")
+        rec = check_attn(f"(bf16) {title}", q, k, v, do, True, var,
+                         card=card, pairs=pairs)
+        f, d, c = tile_shares(S, S, True, var.get("window"), var.get("fm"))
+        causal_ms = time_flash(q, k, v, do, True, {})
+        vis = FA._visible(S, S, True, DEV, fm=var.get("fm"),
+                          window=var.get("window"))
+        bias = torch.where(vis, 0.0, -1e30).to(torch.bfloat16)
+        bias = bias[:, :1] if bias.dim() == 4 else bias[None, None]
+        dense_ms = time_flash(q, k, v, do, False, dict(bias=bias))
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            share = (f if name != "flash_bwd_dkv" else d) / c
+            r = rec[name]
+            r.update(causal_ms=causal_ms[name], dense_bias_ms=dense_ms[name],
+                     tile_share=share,
+                     ms_share_of_causal=r["ms"] / causal_ms[name])
+            log(f"{title} {name}: {r['ms']:.4f} ms = "
+                f"{r['ms_share_of_causal']:.1%} of the causal call's "
+                f"{causal_ms[name]:.4f} ms, running {share:.1%} of its {c} "
+                f"tiles; SDPA on the dense mask {r['library_ms']:.4f} ms; "
+                f"the port's kernels on it as a bias {dense_ms[name]:.4f} "
+                f"ms  [{card}]")
+        recs[cell] = rec
+        del q, k, v, do, var, vis, bias
+        torch.cuda.empty_cache()
+    return recs
+
+
+def reset_flash_counts():
+    for fn in (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv):
+        fn.LAUNCHES = 0
+    TF.flashmask_attention.DENSE_MASK = 0
+    scaled_dot_product_attention.COMPOSED = 0
+
+
+def flash_counts():
+    return {"flash_fwd": FA.flash_fwd.LAUNCHES,
+            "flash_bwd_dq": FA.flash_bwd_dq.LAUNCHES,
+            "flash_bwd_dkv": FA.flash_bwd_dkv.LAUNCHES,
+            "DENSE_MASK": TF.flashmask_attention.DENSE_MASK,
+            "COMPOSED": scaled_dot_product_attention.COMPOSED}
+
+
+def flashmask_call(q, k, v, do, idx, causal, w):
+    """out and the q / k / v gradients of flashmask_attention through
+    autograd."""
+    ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = TF.flashmask_attention(*ts, idx, causal=causal, window_size=w)[0]
+    return [out.detach()] + list(torch.autograd.grad(out, ts, do))
+
+
+def flashmask_entry_phase(card):
+    """Phase 30: nn.functional.flashmask_attention, forward and backward
+    through autograd, on (a) and (b) with exact launch counts, against the
+    plain path at full width; a tiny fp32 case card vs CPU; the
+    bidirectional forms through the counted dense-mask route; the kernels
+    without rows or window re-timed at the GPT flagship and packed BERT
+    calls."""
+    recs = {}
+    for cell, w in (("doc", None), ("window", FM_WINDOW["w"])):
+        q, k, v, do, var = fm_cell(cell)
+        idx = var["fm"][0][..., None] if "fm" in var else None
+        reset_flash_counts()
+        got = flashmask_call(q, k, v, do, idx, True, w)
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        log(f"({cell}) flashmask_attention forward + backward: launches "
+            f"{counts}")
+        require(counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1, "DENSE_MASK": 0,
+                           "COMPOSED": 0}, f"({cell}) launch counts {counts}")
+        scale = 1.0 / math.sqrt(FM_D)
+        out_p, lse_p = FA.flash_fwd_plain(q, k, v, True, scale, **var)
+        ref = [out_p] + list(FA.flash_bwd_plain(q, k, v, lse_p, do, True,
+                                                scale, **var))
+        tiles = {n: tile_rel_err(a, b) for n, a, b in
+                 zip(("out", "dq", "dk", "dv"), got, ref)}
+        log(f"({cell}) kernel path vs plain path, worst tile L2 rel err "
+            f"{tiles} (tol {FLASH_TOL[torch.bfloat16][0]})")
+        require(max(tiles.values()) <= FLASH_TOL[torch.bfloat16][0] and all(
+            torch.isfinite(t.float()).all() for t in got),
+            f"({cell}) kernel path vs plain path")
+        recs[cell] = dict(launches=counts, tile_rel_err=tiles)
+        del q, k, v, do, got, ref, out_p, lse_p
+        torch.cuda.empty_cache()
+    # a tiny fp32 case, card vs CPU, and the dense-mask route
+    gen = torch.Generator().manual_seed(30)
+    B, S, H, Hkv, D = 2, 192, 4, 2, 32
+    host = [torch.randn(B, S, h, D, generator=gen) for h in (H, Hkv, Hkv)]
+    do = torch.randn(B, S, H, D, generator=gen)
+    rng = np.random.RandomState(30)
+    doc = torch.from_numpy(doc_rows(B, S, rng, 16, 97))[..., None]
+    r1 = rng.randint(0, S, size=(B, H, S, 1))
+    c2 = np.concatenate([r1, np.minimum(r1 + 30, S)], -1).astype(np.int32)
+    c4 = np.concatenate([c2, c2[..., ::-1]], -1).copy()
+    worst = 0.0
+    for name, idx, causal, w in (
+            ("C=1 causal", doc, True, None),
+            ("C=2 causal window 50", torch.from_numpy(c2), True, 50),
+            ("window 64", None, True, 64),
+            ("C=2 bidirectional", torch.from_numpy(c2), False, None),
+            ("C=4 bidirectional window 40", torch.from_numpy(c4), False,
+             40)):
+        cpu = flashmask_call(*host, do, idx, causal, w)
+        reset_flash_counts()
+        dev = flashmask_call(*(t.to(DEV) for t in host), do.to(DEV),
+                             None if idx is None else idx.to(DEV), causal, w)
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        dense = idx is not None and not causal
+        require(counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1, "DENSE_MASK": int(dense),
+                           "COMPOSED": 0}, f"tiny {name}: counts {counts}")
+        err = max(_rel_err(a.cpu(), b)[1] for a, b in zip(dev, cpu))
+        worst = max(worst, err)
+        log(f"tiny fp32 {name}: card vs CPU max rel err {err:.3e} (out, "
+            f"dq, dk, dv); launches {counts}"
+            f"{' (the dense mask into the bias kernels)' if dense else ''}")
+        require(err <= 1e-4, f"tiny fp32 {name}: card vs CPU {err}")
+    recs["tiny_card_vs_cpu"] = worst
+    # the kernels without rows or window at earlier calls, re-timed
+    q, k, v, do = flash_case(TRAIN["batch"], TRAIN["seq"], TRAIN["seq"],
+                             FULL["num_heads"], FULL["num_heads"], 128,
+                             torch.bfloat16, seed=2 * TRAIN["seq"] + 16)
+    recs["gpt_flagship"] = time_flash(q, k, v, do, True, {})
+    del q, k, v, do
+    cfg = TB.BertConfig()
+    seg = torch.from_numpy(bert_batch(BERT_SEQS[0], cfg.vocab_size)["seg"]
+                           ).to(DEV)
+    Bp, Sp = seg.shape
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(16)
+    q, k, v, do = (torch.randn(Bp, Sp, cfg.num_heads, 64, generator=gen,
+                               device=DEV).to(torch.bfloat16)
+                   for _ in range(4))
+    recs["bert_packed"] = time_flash(q, k, v, do, False, dict(
+        q_seg=seg, kv_seg=seg, dropout_p=0.1, seed=1235))
+    for tag in ("gpt_flagship", "bert_packed"):
+        now = recs[tag]
+        log(f"no rows, no window, {tag}: forward / dQ / dK/dV "
+            f"{now['flash_fwd']:.4f} / {now['flash_bwd_dq']:.4f} / "
+            f"{now['flash_bwd_dkv']:.4f} ms  [{card}]")
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3488,6 +3908,17 @@ def main() -> int:
         padded_batch(TB.BertConfig().vocab_size), DEV))
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("28. flash kernels with flashmask rows and a window vs plain")
+    fm_forms_rec = flashmask_forms_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("29. flashmask rows and the window timed at bench_llama's "
+               "attention width")
+    fm_timed = flashmask_timed_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("30. nn.functional.flashmask_attention on the card")
+    fm_entry = flashmask_entry_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3505,6 +3936,14 @@ def main() -> int:
                   "dropout 0.1")
     padded_shape = ("padded [16, 512, 12, 64] bf16, bias [16, 1, 512, 512] "
                     "bf16 from bench_bert_base's bool mask, dropout 0.1")
+    fm_keys = keys + ("causal_ms", "dense_bias_ms", "tile_share",
+                      "ms_share_of_causal")
+    fm_shape = {
+        "doc": "q [8, 1024, 16, 128], k / v [8, 1024, 4, 128] bf16, causal, "
+               "flashmask_attention C = 1 rows: a document mask (lengths "
+               "RandomState(0).randint(64, 513))",
+        "window": "q [2, 4096, 16, 128], k / v [2, 4096, 4, 128] bf16, "
+                  "causal, flashmask_attention window_size 1024"}
     kernels = [ragged] + [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=train["launches"][name],
@@ -3523,7 +3962,17 @@ def main() -> int:
                  p0={k: fpad["bf16_bias_p0.0"][name][k] for k in keys}),
              head_dims={tag: {k: fdims[tag][name][k] for k in keys}
                         for tag in ("D32_bfloat16", "D96_bfloat16",
-                                    "D256_bfloat16", "D128_float16")})
+                                    "D256_bfloat16", "D128_float16")},
+             flashmask=dict(
+                 launches=fm_entry["doc"]["launches"][name],
+                 shape=fm_shape["doc"],
+                 **{k: fm_timed["doc"][name][k] for k in fm_keys}),
+             window=dict(
+                 launches=fm_entry["window"]["launches"][name],
+                 shape=fm_shape["window"],
+                 **{k: fm_timed["window"][name][k] for k in fm_keys}),
+             no_mask_retimed={tag: fm_entry[tag][name]
+                              for tag in ("gpt_flagship", "bert_packed")})
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              f"{fa}:451"),

@@ -50,11 +50,13 @@ int bwd_width(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
 // What every entry refuses before a launch: an unknown dtype, D outside
 // [1, 256] or whose row is not a whole number of 16-byte words, H not a
 // multiple of H_kv, a base pointer or q / k / v (/ dO) stride that is not
-// 16-byte aligned, one segment array without the other.
+// 16-byte aligned, one segment array without the other, one flashmask array
+// without the other or a rows' head stride other than 0 and Sk.
 bool args_ok(const Args& a, int dtype, bool with_dout) {
   const int itemsize = dtype == kF32 ? 4 : 2;
   if (!dtype_ok(dtype) || a.D <= 0 || a.D > kMaxD || (a.D * itemsize) % 16 != 0 ||
-      a.Hkv <= 0 || a.H % a.Hkv != 0 || (a.qseg == nullptr) != (a.kseg == nullptr))
+      a.Hkv <= 0 || a.H % a.Hkv != 0 || (a.qseg == nullptr) != (a.kseg == nullptr) ||
+      (a.fms == nullptr) != (a.fme == nullptr) || (a.fm_hs != 0 && a.fm_hs != a.Sk))
     return false;
   if (a.bias != nullptr && !dtype_ok(a.bias_dtype)) return false;
   if (!aligned(a.q) || !aligned(a.k) || !aligned(a.v) || !aligned(a.vq, itemsize) ||
@@ -63,11 +65,21 @@ bool args_ok(const Args& a, int dtype, bool with_dout) {
   return !with_dout || (aligned(a.dout) && aligned(a.vdo, itemsize));
 }
 
+// The band of key offsets from the diagonal (Args band_lo / band_hi) that
+// causal masking and a window (left, right; -1 for an open side) leave, as
+// the reference's _mask_scores masks them: causal caps the right side at 0.
+void set_band(Args& a, int causal, int win_left, int win_right) {
+  a.band_lo = win_left >= 0 ? -win_left : -kBandInf;
+  a.band_hi = win_right >= 0 ? win_right : kBandInf;
+  if (causal && a.band_hi > 0) a.band_hi = 0;
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* bias,
-               const void* qseg, const void* kseg, const long long* strides, int n_views,
-               int B, int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
-               unsigned int seed0, unsigned int seed1, unsigned int thresh, float drop_scale,
-               int bias_dtype) {
+               const void* qseg, const void* kseg, const void* fms, const void* fme,
+               const long long* strides, int n_views, int B, int Sq, int Sk, int H, int Hkv,
+               int D, float scale, int causal, int drop, unsigned int seed0,
+               unsigned int seed1, unsigned int thresh, float drop_scale, int bias_dtype,
+               int fm_hs, int win_left, int win_right) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -75,6 +87,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
   a.bias = bias;
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
+  a.fms = static_cast<const int*>(fms);
+  a.fme = static_cast<const int*>(fme);
+  a.fm_hs = fm_hs;
   a.vq = view_from(strides);
   a.vk = view_from(strides + 3);
   a.vv = view_from(strides + 6);
@@ -89,7 +104,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
   a.D = D;
   a.bias_dtype = bias_dtype;
   a.scale = scale;
-  a.causal = causal;
+  set_band(a, causal, win_left, win_right);
   a.drop = drop;
   a.seed0 = seed0;
   a.seed1 = seed1;
@@ -107,7 +122,11 @@ extern "C" {
 // in that order, then the bias's (batch, head, query, key), any of which may
 // be 0. bias: an additive [B, H, Sq, Sk] view in bias_dtype, or null for
 // none (its strides and dtype are then not read). qseg, kseg: contiguous
-// int32 segment ids [B, Sq] and [B, Sk], both or neither. drop = 1: dropout
+// int32 segment ids [B, Sq] and [B, Sk], both or neither. fms, fme: the
+// flashmask rows, contiguous int32 [B, Hm, Sk] (key column j masked for
+// queries fms[j] <= q < fme[j]), both or neither, with head stride fm_hs
+// (0 for Hm = 1, Sk for Hm = H). win_left, win_right: the sliding window
+// around the bottom-right aligned diagonal, -1 for an open side. drop = 1: dropout
 // with the Philox key (seed0, seed1), keep iff word >= thresh, kept
 // probabilities times drop_scale. out is written contiguous [B, Sq, H, D] in
 // the input dtype, lse fp32 [B, H, Sq]. dtype, bias_dtype: 0 = float32,
@@ -115,14 +134,16 @@ extern "C" {
 // (0 = success), or cudaErrorInvalidValue before any launch for what the
 // kernels do not take (args_ok above).
 int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
-                  const void* qseg, const void* kseg, void* out, void* lse,
-                  const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
-                  float scale, int causal, int drop, unsigned int seed0, unsigned int seed1,
-                  unsigned int thresh, float drop_scale, int dtype, int bias_dtype,
-                  void* stream) {
+                  const void* qseg, const void* kseg, const void* fms, const void* fme,
+                  void* out, void* lse, const long long* strides, int B, int Sq, int Sk,
+                  int H, int Hkv, int D, float scale, int causal, int drop,
+                  unsigned int seed0, unsigned int seed1, unsigned int thresh,
+                  float drop_scale, int dtype, int bias_dtype, int fm_hs, int win_left,
+                  int win_right, void* stream) {
   using namespace ptt_flash;
-  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 3, B, Sq, Sk, H, Hkv, D, scale,
-                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  Args a = make_args(q, k, v, bias, qseg, kseg, fms, fme, strides, 3, B, Sq, Sk, H, Hkv, D,
+                     scale, causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype, fm_hs,
+                     win_left, win_right);
   a.out = out;
   a.lse = static_cast<float*>(lse);
   if (!args_ok(a, dtype, false) || !aligned(out))
@@ -134,20 +155,22 @@ int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
 // dQ, and delta = rowsum(p * dP) into an fp32 [B, H, Sq] buffer for the dK/dV
 // kernel. dq is written contiguous [B, Sq, H, D]. strides: 16 element
 // strides: (batch, seq, head) of q, k, v, dO, then the bias's four. bias,
-// qseg, kseg, drop, seed0, seed1, thresh, drop_scale and bias_dtype: as the
-// forward took them. dbias: null, or an fp32 [B, H, Sq, Sk] buffer for dS
+// qseg, kseg, fms, fme, drop, seed0, seed1, thresh, drop_scale, bias_dtype,
+// fm_hs, win_left and win_right: as the forward took them. dbias: null, or an fp32 [B, H, Sq, Sk] buffer for dS
 // without the scale (the additive bias's gradient before its broadcast
 // dims are summed; every element is written). Same return codes as
 // ptt_flash_fwd.
 int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, void* delta, void* dq, const void* bias, void* dbias,
-                     const void* qseg, const void* kseg, const long long* strides, int B,
-                     int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
-                     unsigned int seed0, unsigned int seed1, unsigned int thresh,
-                     float drop_scale, int dtype, int bias_dtype, void* stream) {
+                     const void* qseg, const void* kseg, const void* fms, const void* fme,
+                     const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
+                     float scale, int causal, int drop, unsigned int seed0,
+                     unsigned int seed1, unsigned int thresh, float drop_scale, int dtype,
+                     int bias_dtype, int fm_hs, int win_left, int win_right, void* stream) {
   using namespace ptt_flash;
-  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 4, B, Sq, Sk, H, Hkv, D, scale,
-                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  Args a = make_args(q, k, v, bias, qseg, kseg, fms, fme, strides, 4, B, Sq, Sk, H, Hkv, D,
+                     scale, causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype, fm_hs,
+                     win_left, win_right);
   a.dout = dout;
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.delta = static_cast<float*>(delta);
@@ -164,13 +187,15 @@ int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* do
 // the rest as for ptt_flash_bwd_dq. Same return codes.
 int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, const void* bias,
-                      const void* qseg, const void* kseg, const long long* strides, int B,
-                      int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int drop,
-                      unsigned int seed0, unsigned int seed1, unsigned int thresh,
-                      float drop_scale, int dtype, int bias_dtype, void* stream) {
+                      const void* qseg, const void* kseg, const void* fms, const void* fme,
+                      const long long* strides, int B, int Sq, int Sk, int H, int Hkv, int D,
+                      float scale, int causal, int drop, unsigned int seed0,
+                      unsigned int seed1, unsigned int thresh, float drop_scale, int dtype,
+                      int bias_dtype, int fm_hs, int win_left, int win_right, void* stream) {
   using namespace ptt_flash;
-  Args a = make_args(q, k, v, bias, qseg, kseg, strides, 4, B, Sq, Sk, H, Hkv, D, scale,
-                     causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype);
+  Args a = make_args(q, k, v, bias, qseg, kseg, fms, fme, strides, 4, B, Sq, Sk, H, Hkv, D,
+                     scale, causal, drop, seed0, seed1, thresh, drop_scale, bias_dtype, fm_hs,
+                     win_left, win_right);
   a.dout = dout;
   a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.delta = static_cast<float*>(const_cast<void*>(delta));

@@ -4,8 +4,9 @@
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`: its dQ
 // pallas_call (kernel body `_dq_kernel`) and its dK/dV pallas_call (kernel
-// body `_dkv_kernel`), on the causal / non-causal, GQA, bias, segment and
-// dropout operands. Both kernels recompute p = exp(scale * q k^T + bias -
+// body `_dkv_kernel`), on all their operands: causal / non-causal, GQA,
+// bias, segments, dropout, the flashmask rows and the sliding window. Both
+// kernels recompute p = exp(scale * q k^T + bias -
 // lse) tile by tile (zero where masked and on rows that saw no key, whose
 // lse is -1e30), dp = dO v^T and ds = p (dp - delta) scale with delta =
 // rowsum(p * dp); then dq = ds k, dk = ds^T q, dv = p^T dO. Any D up to 256
@@ -44,11 +45,21 @@
 // The d-bias (`_dq_kernel` with bias_grad, a runtime pointer here): the dQ
 // kernel's second pass writes dS_raw = p (dP - delta), the additive bias's
 // gradient (ds without the scale), fp32 [B, H, Sq, Sk], and zeros on the
-// tiles it skips (past the causal bound, disjoint segments), as `_zero_db`
+// tiles it skips (outside the band, disjoint segments, inside the rows'
+// bands), as `_zero_db`
 // does; the wrapper sums it over the bias's broadcast dims (`_flash_bwd`).
 //
-// The bias, segment ids and dropout are template flags, as in the forward
-// (the d-bias and the bias's dtype are runtime branches). A pair is
+// The window and the flashmask rows mask exactly as in the forward
+// (`_dkv_kernel` and `_dq_kernel` apply the same _mask_scores): dQ walks the
+// band's key tiles (key_begin, key_end) and dK/dV the band's query tiles
+// (query_begin, query_end); both skip a tile whose every pair lies inside
+// the rows' bands. dK/dV holds one key tile, so it loads that tile's rows
+// once (H_mask = 1) or once per query head of its group (H_mask = H: each
+// head has its own rows). The rows get no gradient.
+//
+// The bias, the integer masks (segment ids, flashmask rows) and dropout are
+// template flags, as in the forward (the d-bias, the bias's dtype and which
+// integer masks are present are runtime branches). A pair is
 // visible only within one segment (disjoint tiles skipped), and the keep bit
 // of (b, h, i, j) is the forward's Philox word (flash_common.cuh drop_bits),
 // regenerated here from the same seed whatever the loop order: dV takes the
@@ -65,7 +76,8 @@
 // 64, kv head, batch) and loops over the group's g query heads and their
 // visible query tiles itself, with dk and dv in registers: the GQA sum never
 // leaves the block, so there are no atomics and the result is deterministic.
-// Causal loop bounds skip the tiles past the diagonal in both kernels.
+// The band's loop bounds skip the tiles past the diagonal and outside the
+// window in both kernels.
 //
 // Shared memory at D_pad > 128 in fp32: four [64][D + 1] fp32 tiles do not
 // fit the 227 KB a block may hold, so those kernels keep one buffer for the
@@ -160,19 +172,20 @@ __device__ __forceinline__ void write_delta(const float (&part)[4], float (&delt
   }
 }
 
-// One end of the d-bias: past the last key tile the dQ block walked, its
-// rows' d-bias is zero.
-__device__ __forceinline__ void zero_dbias_tail(const Args& a, long long row_base, int q0,
-                                                int kend) {
+// The ends of the d-bias: before the first key tile the dQ block walked and
+// past its last, its rows' d-bias is zero.
+__device__ __forceinline__ void zero_dbias_ends(const Args& a, long long row_base, int q0,
+                                                int kbegin, int kend) {
+  zero_dbias(a, row_base, q0, 0, kbegin < a.Sk ? kbegin : a.Sk);
   const int walked = ((kend + kTile - 1) / kTile) * kTile;
   zero_dbias(a, row_base, q0, walked < a.Sk ? walked : a.Sk, a.Sk);
 }
 
 // dQ (and delta, and the d-bias) ---------------------------------------------
-template <int D, bool kBias, bool kSeg, bool kDrop>
+template <int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   extern __shared__ float smem[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr bool kOne = D > 128;  // one K / V buffer; K loaded again for ds k
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Qs = smem;                        // [64][D + 1]
@@ -194,10 +207,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
   load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
   load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
-  if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
+  if (seg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
   __syncthreads();
-  int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) seg_range(qids, a.Sq - q0, qlo, qhi);
+  int qlo = 0, qhi = 0;
+  if (seg) seg_range(it.qids, a.Sq - q0, qlo, qhi);
 
   float delta[4], lse[4], part[4];
 #pragma unroll
@@ -214,18 +228,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     for (int c = 0; c < NC; ++c) dq[i][c] = 0.f;
 
   // pass 0 sums delta = rowsum(p dp); pass 1 forms ds and accumulates dq
-  const int kend = key_end(q0, a);
+  const int kbegin = key_begin(q0, a), kend = key_end(q0, a);
   for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < kend; k0 += kTile) {
-      __syncthreads();  // readers of Ks / Vs / dSs / kids are done
-      if (kSeg) {
-        load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
-        __syncthreads();
-        seg_range(kids, a.Sk - k0, klo, khi);
-        if (!seg_overlap(qlo, qhi, klo, khi)) {  // the same answer in every thread
-          if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
-          continue;
-        }
+    for (int k0 = kbegin; k0 < kend; k0 += kTile) {
+      __syncthreads();  // readers of Ks / Vs / dSs / it are done
+      if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) {
+        // the same answer in every thread
+        if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
+        continue;
       }
       load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
       if (!kOne) load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
@@ -239,6 +249,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
         __syncthreads();
       }
       tile_dot<D>(dOs, Vs, dp);
+      const unsigned kbits = kInt ? int_keep_bits<false, false>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -246,7 +257,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          const bool ok = !dead && visible(q0 + r, k0 + c, a) &&
+                          (!kInt || (kbits >> (4 * i + j)) & 1u);
           float sv = s[i][j] * a.scale;
           if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
           const float p = ok ? expf(sv - lse[i]) : 0.f;
@@ -272,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     }
     if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
-  if (want_db) zero_dbias_tail(a, row_base, q0, kend);
+  if (want_db) zero_dbias_ends(a, row_base, q0, kbegin, kend);
 
   float* dqb = static_cast<float*>(a.dq);
 #pragma unroll
@@ -287,10 +299,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 }
 
 // dK / dV --------------------------------------------------------------------
-template <int D, bool kBias, bool kSeg, bool kDrop>
+template <int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   extern __shared__ float smem[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr bool kOne = D > 128;  // one Q / dO buffer; Q loaded again for ds^T q
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Ks = smem;                           // [64][D + 1]
@@ -308,11 +320,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
   load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
   load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) {
-    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+  if (seg) {
+    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, it.kids);
     __syncthreads();
-    seg_range(kids, a.Sk - k0, klo, khi);
+    seg_range(it.kids, a.Sk - k0, klo, khi);
   }
 
   float dk[4][NC], dv[4][NC];
@@ -321,23 +334,27 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  // the first query that can see key k0: q + Sk - Sq >= k0 under causal
-  const int q_first = a.causal ? max(0, k0 - (a.Sk - a.Sq)) : 0;
-  const int qt_first = (q_first / kTile) * kTile;
+  // the queries that can see keys k0 .. k0 + 63 (the band)
+  const int qt_first = query_begin(k0, a), q_end = query_end(k0, a);
   for (int hh = 0; hh < g; ++hh) {
     const int h = hk * g + hh;
     const float* qb = static_cast<const float*>(a.q) + b * a.vq.b + h * a.vq.h;
     const float* dob = static_cast<const float*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
     const long long bb = kBias ? bias_base(a, b, h) : 0;
-    for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
-      if (kSeg) {
-        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+    if (fm && (hh == 0 || a.fm_hs != 0)) {  // this head's rows of the key tile
+      __syncthreads();  // the previous head's readers are done with it.fs / fe / red
+      load_fm(a, b, h, k0, it);
+    }
+    for (int q0 = qt_first; q0 < q_end; q0 += kTile) {
+      __syncthreads();  // readers of Qs / dOs / Ps / dSs / it are done (Ks, Vs, rows loaded)
+      if (seg) {
+        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
         __syncthreads();
-        seg_range(qids, a.Sq - q0, qlo, qhi);
+        seg_range(it.qids, a.Sq - q0, qlo, qhi);
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
+      if (fm && fm_tile_masked(it, q0, a.Sq)) continue;
       load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
       if (!kOne) load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
       __syncthreads();
@@ -358,6 +375,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         __syncthreads();
       }
       tile_dot<D>(Vs, dOs, dp);  // dp^T
+      const unsigned kbits = kInt ? int_keep_bits<true, false>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -365,8 +383,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           const bool dead = lse[j] <= 0.5f * kNegInf;
-          const bool ok =
-              !dead && visible(q0 + c, k0 + r, a) && (!kSeg || qids[c] == kids[r]);
+          const bool ok = !dead && visible(q0 + c, k0 + r, a) &&
+                          (!kInt || (kbits >> (4 * i + j)) & 1u);
           float sv = s[i][j] * a.scale;
           if (kBias && ok) sv += bias_at(a, bb, q0 + c, k0 + r);
           const float p = ok ? expf(sv - lse[j]) : 0.f;
@@ -414,10 +432,10 @@ constexpr size_t dkv_tc_smem() {
   return 2 * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) + sizeof(float) * kTile * kLdS;
 }
 
-template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+template <typename T, int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr int ld = tc_ld<D>(), NC = D / 16;
   T* Qs = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
   T* dOs = Qs + kTile * ld;                // [64][D + 8]
@@ -440,10 +458,11 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
 
   load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
   load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
-  if (kSeg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
+  if (seg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
   __syncthreads();
-  int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) seg_range(qids, a.Sq - q0, qlo, qhi);
+  int qlo = 0, qhi = 0;
+  if (seg) seg_range(it.qids, a.Sq - q0, qlo, qhi);
 
   float delta[4], lse[4], part[4];
 #pragma unroll
@@ -460,18 +479,14 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
   // pass 0 sums delta = rowsum(p dp) in fp32; pass 1 forms ds and
   // accumulates dq += hi k + lo k, ds split into two T tiles
   T* dSlo = reinterpret_cast<T*>(Ss);  // [64][72] over the scores' buffer
-  const int kend = key_end(q0, a);
+  const int kbegin = key_begin(q0, a), kend = key_end(q0, a);
   for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < kend; k0 += kTile) {
-      __syncthreads();  // readers of Ks / Vs / Ss / dPs / dSs / kids are done
-      if (kSeg) {
-        load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
-        __syncthreads();
-        seg_range(kids, a.Sk - k0, klo, khi);
-        if (!seg_overlap(qlo, qhi, klo, khi)) {  // the same answer in every thread
-          if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
-          continue;
-        }
+    for (int k0 = kbegin; k0 < kend; k0 += kTile) {
+      __syncthreads();  // readers of Ks / Vs / Ss / dPs / dSs / it are done
+      if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) {
+        // the same answer in every thread
+        if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
+        continue;
       }
       load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
       load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
@@ -480,6 +495,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
       mma_abt_64x64<T, D>(dOs, Vs, dPs);
       __syncthreads();
       float ds[4][4];
+      const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -488,7 +504,8 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = score_col<kDrop>(tx, j);
-          const bool ok = !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          const bool ok = !dead && visible(q0 + r, k0 + c, a) &&
+                          (!kInt || (kbits >> (4 * i + j)) & 1u);
           float sv = Ss[r * kLdS + c] * a.scale;
           if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
           const float p = ok ? expf(sv - lse[i]) : 0.f;
@@ -521,7 +538,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
     }
     if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
-  if (want_db) zero_dbias_tail(a, row_base, q0, kend);
+  if (want_db) zero_dbias_ends(a, row_base, q0, kbegin, kend);
 
   __syncthreads();  // every warp is past its last product before Ks / Vs are reused
   float* st = reinterpret_cast<float*>(Ks);  // [64][D + 4] fp32 over Ks and Vs
@@ -540,10 +557,10 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kern
   }
 }
 
-template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+template <typename T, int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr int ld = tc_ld<D>(), NC = D / 16;
   T* Ks = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
   T* Vs = Ks + kTile * ld;                 // [64][D + 8]
@@ -561,11 +578,12 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_ker
 
   load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
   load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
   int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) {
-    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
+  if (seg) {
+    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, it.kids);
     __syncthreads();
-    seg_range(kids, a.Sk - k0, klo, khi);
+    seg_range(it.kids, a.Sk - k0, klo, khi);
   }
 
   FragC dk[D / 32], dv[D / 32];
@@ -575,22 +593,26 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_ker
     wmma::fill_fragment(dv[j], 0.f);
   }
 
-  const int q_first = a.causal ? max(0, k0 - (a.Sk - a.Sq)) : 0;
-  const int qt_first = (q_first / kTile) * kTile;
+  const int qt_first = query_begin(k0, a), q_end = query_end(k0, a);
   for (int hh = 0; hh < g; ++hh) {
     const int h = hk * g + hh;
     const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
     const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
     const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
     const long long bb = kBias ? bias_base(a, b, h) : 0;
-    for (int q0 = qt_first; q0 < a.Sq; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs / qids are done (Ks, Vs loaded)
-      if (kSeg) {
-        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+    if (fm && (hh == 0 || a.fm_hs != 0)) {  // this head's rows of the key tile
+      __syncthreads();  // the previous head's readers are done with it.fs / fe / red
+      load_fm(a, b, h, k0, it);
+    }
+    for (int q0 = qt_first; q0 < q_end; q0 += kTile) {
+      __syncthreads();  // readers of Qs / dOs / Ps / dSs / it are done (Ks, Vs, rows loaded)
+      if (seg) {
+        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
         __syncthreads();
-        seg_range(qids, a.Sq - q0, qlo, qhi);
+        seg_range(it.qids, a.Sq - q0, qlo, qhi);
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
+      if (fm && fm_tile_masked(it, q0, a.Sq)) continue;
       load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
       load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
       __syncthreads();
@@ -607,6 +629,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_ker
       __syncthreads();
       float p[4][4];
       unsigned keep = 0xFFFFu;  // bit 4 i + j: element (i, j) kept
+      const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -615,8 +638,8 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_ker
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = score_col<kDrop>(tx, j);
-          const bool ok =
-              !dead && visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+          const bool ok = !dead && visible(q0 + r, k0 + c, a) &&
+                          (!kInt || (kbits >> (4 * i + j)) & 1u);
           float sv = Ss[r * kLdS + c] * a.scale;
           if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
           p[i][j] = ok ? expf(sv - lse[i]) : 0.f;
@@ -677,35 +700,35 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_ker
 }
 
 // kDq: the dQ kernel, else the dK/dV kernel (one object holds one of them)
-template <bool kDq, int D, bool kBias, bool kSeg, bool kDrop>
+template <bool kDq, int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid = kDq ? dim3((a.Sq + kTile - 1) / kTile, a.H, a.B)
                         : dim3((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
   if constexpr (kDq) {
     if (dtype == kBF16)
-      return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kSeg, kDrop>, dq_tc_smem<D>(),
+      return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
                            grid, a, s);
     if (dtype == kF16)
-      return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kSeg, kDrop>, dq_tc_smem<D>(),
+      return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
                            grid, a, s);
-    return launch_kernel(flash_dq_kernel<D, kBias, kSeg, kDrop>, dq_smem<D>(), grid, a, s);
+    return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
   } else {
     if (dtype == kBF16)
-      return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kSeg, kDrop>, dkv_tc_smem<D>(),
+      return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
                            grid, a, s);
     if (dtype == kF16)
-      return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kSeg, kDrop>, dkv_tc_smem<D>(),
+      return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
                            grid, a, s);
-    return launch_kernel(flash_dkv_kernel<D, kBias, kSeg, kDrop>, dkv_smem<D>(), grid, a, s);
+    return launch_kernel(flash_dkv_kernel<D, kBias, kInt, kDrop>, dkv_smem<D>(), grid, a, s);
   }
 }
 
-// the variants: segments and dropout
+// the variants: integer masks (segments and / or flashmask rows) and dropout
 template <bool kDq, int D, bool kBias>
 int launch_flags(const Args& a, int dtype, cudaStream_t s) {
-  const bool seg = a.qseg != nullptr, drop = a.drop != 0;
-  if (seg && drop) return launch<kDq, D, kBias, true, true>(a, dtype, s);
-  if (seg) return launch<kDq, D, kBias, true, false>(a, dtype, s);
+  const bool ints = a.qseg != nullptr || a.fms != nullptr, drop = a.drop != 0;
+  if (ints && drop) return launch<kDq, D, kBias, true, true>(a, dtype, s);
+  if (ints) return launch<kDq, D, kBias, true, false>(a, dtype, s);
   if (drop) return launch<kDq, D, kBias, false, true>(a, dtype, s);
   return launch<kDq, D, kBias, false, false>(a, dtype, s);
 }

@@ -1,11 +1,12 @@
 // Flash attention forward for Hopper (sm_90a): out and the row logsumexp.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_fwd` (kernel body
-// `_fwd_kernel`) on its causal / non-causal, GQA, bias, segment and dropout
-// operands: for each (batch, query head) out = softmax(scale * q k^T + bias
-// [masked]) v over [B, S, H, D] views, with lse = m + log(l) per query row
-// saved for the backward. Causal masking is bottom-right aligned (key j
-// visible to query i iff j <= i + Sk - Sq). A row that sees no key writes
+// `_fwd_kernel`) on all its operands: causal / non-causal, GQA, bias,
+// segments, dropout, the flashmask rows and the sliding window. For each
+// (batch, query head) out = softmax(scale * q k^T + bias [masked]) v over
+// [B, S, H, D] views, with lse = m + log(l) per query row saved for the
+// backward. Causal masking is bottom-right aligned (key j visible to query i
+// iff j <= i + Sk - Sq). A row that sees no key writes
 // zeros and lse = -1e30, as the Pallas kernel's finalize does. GQA reads kv
 // head h / (H / H_kv); K and V are never repeated. Any Sq and Sk; any D up
 // to 256 (flash_common.cuh: compiled for D_pad in {32, 64, 96, 128, 192,
@@ -34,6 +35,20 @@
 // disjoint from the query tile's is skipped, as `_seg_block_overlap` does. A
 // row that matches no key is dead: zeros and lse = -1e30.
 //
+// The sliding window (`_fwd_kernel` with window = (left, right)): key j is
+// visible to query i iff i + off - left <= j <= i + off + right with off =
+// Sk - Sq, a band beside the causal one (flash_common.cuh visible()); the
+// loop runs from the band's first key tile to its last (key_begin, key_end),
+// as _block_run and _last_k_block skip the blocks outside it.
+//
+// Flashmask rows (`_fwd_kernel` with has_fm): int32 [B, 1|H, Sk] start and
+// end, key j masked for the raw query index start[j] <= i < end[j]. Each key
+// tile loads its 64 pairs with their max start and min end, and a tile
+// whose every key masks every query of the block is skipped, which is exact
+// (the JAX kernel masks elementwise and runs it). Under a causal document
+// mask (start[j] = the end of j's document) most tiles below the diagonal
+// go. A row whose every key is masked is dead: zeros and lse = -1e30.
+//
 // Dropout (`_fwd_kernel` with dropout_p): the keep bit of (b, h, i, j) is a
 // Philox4x32-10 word keyed by the seed with (j / 4, i, h, b) as the counter
 // (flash_common.cuh drop_bits), kept iff >= floor(p 2^32); the TPU keys its
@@ -41,18 +56,21 @@
 // regenerate. lse comes from the undropped scores and the kept probabilities
 // are scaled by 1 / (1 - p) before the p v product. On the tensor cores a
 // thread then owns four adjacent columns of a score row, one Philox call.
-// The bias, segments and dropout are template flags (each changes the inner
-// loop) and combine freely; the bias's dtype is a runtime branch. (As a
-// runtime branch the bias measured slower on the card in the kernels
-// without one: its address arithmetic is predicated into the softmax loop.)
+// The bias, the integer masks (segments, flashmask rows) and dropout are
+// template flags (each changes the inner loop) and combine freely with each
+// other and the window; the bias's dtype, and which integer masks are
+// present, are runtime branches. (As a runtime branch the bias measured
+// slower on the card in the kernels without one: its address arithmetic is
+// predicated into the softmax loop.)
 //
 // TPU -> Hopper. The Pallas grid (B*H, q blocks, k blocks) carries m, l and
 // the accumulator across its sequential k axis in VMEM scratch. CUDA blocks
 // run in no order, so one block of 256 threads owns one (query tile of 64,
 // head, batch) and loops over the key tiles itself, with m and l in
 // registers (replicated over the half-warp that owns a row) and the 64 x D
-// fp32 accumulator in registers. The causal loop bound (key_end) replaces
-// _block_run / _last_k_block: tiles past the diagonal are never loaded.
+// fp32 accumulator in registers. The band's loop bounds (key_begin,
+// key_end) replace _block_run / _last_k_block: tiles outside the causal
+// diagonal and the window are never loaded.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
 // shape (B 8, S 1024, H 16, D 128, causal, bf16) the call does 4 * D FLOPs
@@ -84,10 +102,10 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1));
 }
 
-template <int D, bool kBias, bool kSeg, bool kDrop>
+template <int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr int ldq = D + 1, ldp = kTile + 1, NC = D / 16;
   float* Qs = smem;                   // [64][D + 1]
   float* Ks = Qs + kTile * ldq;       // [64][D + 1]
@@ -103,11 +121,12 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
   const long long bb = kBias ? bias_base(a, b, h) : 0;
 
   load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ldq);
-  int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) {
-    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
+  int qlo = 0, qhi = 0;
+  if (seg) {
+    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
     __syncthreads();
-    seg_range(qids, a.Sq - q0, qlo, qhi);
+    seg_range(it.qids, a.Sq - q0, qlo, qhi);
   }
 
   float acc[4][NC], m[4], l[4];
@@ -120,14 +139,10 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
   }
 
   const int kend = key_end(q0, a);
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / kids
-    if (kSeg) {
-      load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
-      __syncthreads();
-      seg_range(kids, a.Sk - k0, klo, khi);
-      if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
-    }
+  for (int k0 = key_begin(q0, a); k0 < kend; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / it
+    // the same answer in every thread
+    if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) continue;
     load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ldq);
     load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, D);
     __syncthreads();
@@ -151,6 +166,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
     }
 
     // online softmax: a row's 16 owners are one half-warp
+    const unsigned kbits = kInt ? int_keep_bits<false, false>(it, seg, fm, q0) : 0u;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -159,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        ok[j] = visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+        ok[j] = visible(q0 + r, k0 + c, a) && (!kInt || (kbits >> (4 * i + j)) & 1u);
         s[i][j] *= a.scale;
         if (kBias && ok[j]) s[i][j] += bias_at(a, bb, q0 + r, k0 + c);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
@@ -222,10 +238,10 @@ constexpr size_t fwd_tc_smem() {
          sizeof(float) * (kTile * kLdS + kTile * (D + 4));
 }
 
-template <typename T, int D, bool kBias, bool kSeg, bool kDrop>
+template <typename T, int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ int qids[kTile], kids[kTile];
+  __shared__ IntTiles it;
   constexpr int ld = tc_ld<D>(), ldo = D + 4, NC = D / 16;
   T* Qs = reinterpret_cast<T*>(smem_tc);             // [64][D + 8]
   T* Ks = Qs + kTile * ld;                            // [64][D + 8]
@@ -243,11 +259,12 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
   const long long bb = kBias ? bias_base(a, b, h) : 0;
 
   load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-  int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (kSeg) {
-    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, qids);
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
+  int qlo = 0, qhi = 0;
+  if (seg) {
+    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
     __syncthreads();
-    seg_range(qids, a.Sq - q0, qlo, qhi);
+    seg_range(it.qids, a.Sq - q0, qlo, qhi);
   }
 
   float acc[4][NC], m[4], l[4];
@@ -260,14 +277,10 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
   }
 
   const int kend = key_end(q0, a);
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / Os / kids
-    if (kSeg) {
-      load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, kids);
-      __syncthreads();
-      seg_range(kids, a.Sk - k0, klo, khi);
-      if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
-    }
+  for (int k0 = key_begin(q0, a); k0 < kend; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / Os / it
+    // the same answer in every thread
+    if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) continue;
     load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
     load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
     __syncthreads();
@@ -275,6 +288,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
     __syncthreads();
 
     float alpha[4];
+    const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -283,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = score_col<kDrop>(tx, j);
-        ok[j] = visible(q0 + r, k0 + c, a) && (!kSeg || qids[r] == kids[c]);
+        ok[j] = visible(q0 + r, k0 + c, a) && (!kInt || (kbits >> (4 * i + j)) & 1u);
         s[j] = Ss[r * kLdS + c] * a.scale;
         if (kBias && ok[j]) s[j] += bias_at(a, bb, q0 + r, k0 + c);
         if (ok[j]) mx = fmaxf(mx, s[j]);
@@ -335,27 +349,27 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
   }
 }
 
-template <int D, bool kBias, bool kSeg, bool kDrop>
+template <int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
   switch (dtype) {
     case kBF16:
-      return launch_kernel(flash_fwd_tc_kernel<bf16, D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(),
+      return launch_kernel(flash_fwd_tc_kernel<bf16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
                            grid, a, s);
     case kF16:
-      return launch_kernel(flash_fwd_tc_kernel<f16, D, kBias, kSeg, kDrop>, fwd_tc_smem<D>(),
+      return launch_kernel(flash_fwd_tc_kernel<f16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
                            grid, a, s);
     default:
-      return launch_kernel(flash_fwd_kernel<D, kBias, kSeg, kDrop>, fwd_smem<D>(), grid, a, s);
+      return launch_kernel(flash_fwd_kernel<D, kBias, kInt, kDrop>, fwd_smem<D>(), grid, a, s);
   }
 }
 
-// the variants: segments and dropout
+// the variants: integer masks (segments and / or flashmask rows) and dropout
 template <int D, bool kBias>
 int launch_flags(const Args& a, int dtype, cudaStream_t s) {
-  const bool seg = a.qseg != nullptr, drop = a.drop != 0;
-  if (seg && drop) return launch<D, kBias, true, true>(a, dtype, s);
-  if (seg) return launch<D, kBias, true, false>(a, dtype, s);
+  const bool ints = a.qseg != nullptr || a.fms != nullptr, drop = a.drop != 0;
+  if (ints && drop) return launch<D, kBias, true, true>(a, dtype, s);
+  if (ints) return launch<D, kBias, true, false>(a, dtype, s);
   if (drop) return launch<D, kBias, false, true>(a, dtype, s);
   return launch<D, kBias, false, false>(a, dtype, s);
 }

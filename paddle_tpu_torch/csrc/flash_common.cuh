@@ -22,8 +22,18 @@
 // and added in fp32, as the reference's _mask_scores adds
 // bias.astype(float32).
 //
-// Instances: 3 kernels x 6 widths x 3 element types x 8 (bias, segments,
-// dropout: template flags) = 432, built as 18 objects in parallel.
+// Masks. Causal masking and the sliding window are one band of key
+// offsets from the bottom-right aligned diagonal (Args band_lo / band_hi,
+// runtime state: no instance of their own). The integer mask operands,
+// segment ids and the flashmask rows, share one template flag (kInt); inside
+// its instances each is a runtime pointer tested once a block, and their
+// verdict on a thread's 16 score elements is formed once a tile
+// (int_keep_bits). (Tested element by element, the rows' runtime branch
+// slowed the calls with segments alone: the packed BERT forward by 8.6 %
+// on the card.)
+//
+// Instances: 3 kernels x 6 widths x 3 element types x 8 (bias, integer
+// masks, dropout: template flags) = 432, built as 18 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -49,6 +59,7 @@ namespace ptt_flash {
 constexpr int kTile = 64;      // queries and keys per tile
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr float kNegInf = -1e30f;
+constexpr int kBandInf = 1 << 30;  // a band side with no bound
 // the compiled head-dim family (kernels/_build.py FLASH_D_PADS builds one
 // object of each flash source per member)
 constexpr int kDPads[] = {32, 64, 96, 128, 192, 256};
@@ -80,13 +91,21 @@ struct Args {
   float* dbias;      // dQ kernel: fp32 [B, H, Sq, Sk] dS without the scale, or null
   const int* qseg;   // segment ids, contiguous int32 [B, Sq], or null
   const int* kseg;   // contiguous int32 [B, Sk] (null iff qseg is)
+  // flashmask rows: key column j of (batch b, query head h) is masked for
+  // queries fms[j] <= q < fme[j] (the raw query index); contiguous int32
+  // [B, Hm, Sk] with Hm 1 or H, or null (both or neither)
+  const int* fms;
+  const int* fme;
+  int fm_hs;         // the rows' head stride: 0 (Hm = 1) or Sk (Hm = H)
   View vq, vk, vv, vdo;
   BiasView vb;
   int B, Sq, Sk, H, Hkv;
   int D;           // the true head dim (<= the kernel's D_pad): columns read and stored
   int bias_dtype;  // Dtype of the bias
   float scale;
-  int causal;
+  // causal masking and the window: key k is visible to query q iff
+  // band_lo <= k - q - (Sk - Sq) <= band_hi (+-kBandInf: no bound)
+  int band_lo, band_hi;
   // dropout: keep (query i, key j) of (batch b, query head h) iff the Philox
   // word for (b, h, i, j) is >= thresh; kept probabilities are scaled by
   // drop_scale = 1 / (1 - p)
@@ -168,19 +187,40 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ base, long l
   }
 }
 
-// Key kpos is visible to query qpos: both in range and, under causal
-// masking, kpos <= qpos + (Sk - Sq) (bottom-right aligned, as the reference's
-// _mask_scores).
+// Key kpos is visible to query qpos: both in range and kpos inside the band
+// around the bottom-right aligned diagonal (kpos <= qpos + Sk - Sq under
+// causal masking; kpos >= qpos + Sk - Sq - left and <= ... + right under a
+// window), as the reference's _mask_scores masks them.
 __device__ __forceinline__ bool visible(int qpos, int kpos, const Args& a) {
-  return qpos < a.Sq && kpos < a.Sk && (!a.causal || kpos <= qpos + a.Sk - a.Sq);
+  const int d = kpos - qpos - (a.Sk - a.Sq);
+  return qpos < a.Sq && kpos < a.Sk && d >= a.band_lo && d <= a.band_hi;
 }
 
-// Keys [0, key_end) can be visible to queries [q0, q0 + 64): the loop bound
-// that skips the tiles past the causal diagonal.
+// Keys [key_begin, key_end) can be visible to queries [q0, q0 + 64): the
+// loop bounds that skip the tiles outside the band (_block_run,
+// _last_k_block). key_begin is a tile multiple, as the Philox column words
+// and the d-bias zeroing count on.
+__device__ __forceinline__ int key_begin(int q0, const Args& a) {
+  const long long first = static_cast<long long>(q0) + a.Sk - a.Sq + a.band_lo;
+  return first <= 0 ? 0 : static_cast<int>(first / kTile) * kTile;
+}
+
 __device__ __forceinline__ int key_end(int q0, const Args& a) {
-  if (!a.causal) return a.Sk;
-  const int last = q0 + kTile + a.Sk - a.Sq;  // one past the tile's last visible key
-  return last <= 0 ? 0 : (last < a.Sk ? last : a.Sk);
+  // one past the tile's last visible key
+  const long long last = static_cast<long long>(q0) + kTile + a.Sk - a.Sq + a.band_hi;
+  return last <= 0 ? 0 : static_cast<int>(last < a.Sk ? last : a.Sk);
+}
+
+// Queries [query_begin, query_end) can see keys [k0, k0 + 64): the dK/dV
+// kernel's loop bounds (query_begin a tile multiple).
+__device__ __forceinline__ int query_begin(int k0, const Args& a) {
+  const long long first = static_cast<long long>(k0) - (a.Sk - a.Sq) - a.band_hi;
+  return first <= 0 ? 0 : static_cast<int>(first / kTile) * kTile;
+}
+
+__device__ __forceinline__ int query_end(int k0, const Args& a) {
+  const long long last = static_cast<long long>(k0) + kTile - (a.Sk - a.Sq) - a.band_lo;
+  return last <= 0 ? 0 : static_cast<int>(last < a.Sq ? last : a.Sq);
 }
 
 // Segment ids of positions row0 .. row0 + 63 of one batch row -> ids[64] in
@@ -211,6 +251,62 @@ __device__ __forceinline__ bool seg_overlap(int alo, int ahi, int blo, int bhi) 
   return alo <= bhi && blo <= ahi;
 }
 
+// The integer mask operands of one block in shared memory: the query and key
+// tiles' segment ids, and a key tile's flashmask rows with red = {max start
+// of warp 0, of warp 1, min end of warp 0, of warp 1}.
+struct IntTiles {
+  int qids[kTile], kids[kTile];
+  int fs[kTile], fe[kTile], red[4];
+};
+
+// The flashmask rows of key columns k0 .. k0 + 63 of (batch b, query head h)
+// -> t.fs / t.fe, with their max start and min end in t.red (warps 0 and 1
+// load and reduce; a __syncthreads() must follow before they are read). A
+// key at or past Sk counts as masked for every query: it never keeps a tile
+// from being skipped, and visible() drops it.
+__device__ __forceinline__ void load_fm(const Args& a, int b, int h, int k0, IntTiles& t) {
+  const int i = threadIdx.x;
+  if (i >= kTile) return;
+  const long long row = (static_cast<long long>(b) * (a.fm_hs ? a.H : 1)) * a.Sk +
+                        static_cast<long long>(h) * a.fm_hs + k0 + i;
+  const bool in = k0 + i < a.Sk;
+  const int s = in ? a.fms[row] : INT_MIN;
+  const int e = in ? a.fme[row] : INT_MAX;
+  t.fs[i] = s;
+  t.fe[i] = e;
+  const int mx = __reduce_max_sync(0xffffffffu, s);
+  const int mn = __reduce_min_sync(0xffffffffu, e);
+  if ((i & 31) == 0) {
+    t.red[i >> 5] = mx;
+    t.red[2 + (i >> 5)] = mn;
+  }
+}
+
+// Every key of the loaded tile masks every query of [q0, min(q0 + 64, Sq)):
+// no pair survives the rows and skipping the tile is exact (the flashmask
+// counterpart of seg_overlap; the reference masks elementwise and runs it).
+__device__ __forceinline__ bool fm_tile_masked(const IntTiles& t, int q0, int Sq) {
+  const int qn = q0 + kTile < Sq ? q0 + kTile : Sq;
+  return max(t.red[0], t.red[1]) <= q0 && min(t.red[2], t.red[3]) >= qn;
+}
+
+// The fwd / dQ loops' step into key tile k0 for query tile [q0, q0 + 64) of
+// (b, h): load its key ids and flashmask rows, then whether the tile can be
+// skipped (segment ranges disjoint, or every pair inside the rows' bands).
+// Holds a __syncthreads(); every thread gets the same answer.
+__device__ __forceinline__ bool int_tile_skip(const Args& a, IntTiles& t, bool seg, bool fm,
+                                              int b, int h, int q0, int k0, int qlo, int qhi) {
+  if (seg) load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, t.kids);
+  if (fm) load_fm(a, b, h, k0, t);
+  __syncthreads();
+  if (seg) {
+    int klo, khi;
+    seg_range(t.kids, a.Sk - k0, klo, khi);
+    if (!seg_overlap(qlo, qhi, klo, khi)) return true;
+  }
+  return fm && fm_tile_masked(t, q0, a.Sq);
+}
+
 // The Philox words of (batch b, query head h, query row, key columns
 // 4 c4 .. 4 c4 + 3): one call, keyed by the seed, with the coordinates as the
 // counter, so the mask is a function of (seed, b, h, row, column) alone and
@@ -237,6 +333,40 @@ __device__ __forceinline__ bool drop_keep(const Args& a, int b, int h, int row, 
 template <bool kQuad>
 __device__ __forceinline__ int score_col(int tx, int j) {
   return kQuad ? 4 * tx + j : tx + 16 * j;
+}
+
+// The integer masks' verdict on the thread's 4 x 4 elements of a score
+// tile, as bits 4 i + j: element (i, j) is row ty + 16 i and column
+// score_col<kQuad>(tx, j), the row a query of the loaded query tile and the
+// column a key of the key tile (kT: the row a key and the column a query,
+// dK/dV's transposed fp32 tile). A pair survives within one segment and with
+// its query q0 + row outside the key's flashmask band [start, end).
+// Computed once a tile, so the softmax loop tests one bit, and only the
+// masks present are read (an absent one passes every pair).
+template <bool kT, bool kQuad>
+__device__ __forceinline__ unsigned int_keep_bits(const IntTiles& t, bool seg, bool fm, int q0) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  int qr[4], kc[4], qid[4], kid[4], lo[4], hi[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int row = ty + 16 * n, col = score_col<kQuad>(tx, n);
+    qr[n] = kT ? col : row;
+    kc[n] = kT ? row : col;
+    qid[n] = seg ? t.qids[qr[n]] : 0;
+    kid[n] = seg ? t.kids[kc[n]] : 0;
+    lo[n] = fm ? t.fs[kc[n]] : INT_MAX;
+    hi[n] = fm ? t.fe[kc[n]] : INT_MAX;
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = kT ? j : i, b = kT ? i : j;  // the query's and the key's slot
+      const int qpos = q0 + qr[a];
+      if (qid[a] == kid[b] && (qpos < lo[b] || qpos >= hi[b])) bits |= 1u << (4 * i + j);
+    }
+  return bits;
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {

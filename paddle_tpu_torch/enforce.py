@@ -6,7 +6,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 __all__ = ["EnforceNotMet", "InvalidArgumentError", "UnimplementedError",
-           "enforce"]
+           "enforce", "enforce_in"]
 
 
 class EnforceNotMet(RuntimeError):
@@ -50,3 +50,11 @@ def enforce(cond: Any, message: str, *, error=InvalidArgumentError,
     """Raise ``error`` with op/shape context unless ``cond``."""
     if not cond:
         raise error(message, op=op, **context)
+
+
+def enforce_in(value, options, message: str = "", **kw) -> None:
+    """Raise unless ``value`` is one of ``options``."""
+    shown = sorted(options, key=repr)  # repr-keyed: mixed types sort too
+    enforce(value in options,
+            message or f"{value!r} not in allowed set {shown!r}",
+            value=value, options=shown, **kw)

@@ -149,19 +149,20 @@ def load_library() -> ctypes.CDLL:
         # (batch, head), scale, dtype, stream
         "ptt_paged_decode_attention": [vp] * 6 + [ci] * 7 + [ll, ll]
         + [cf, ci, vp],
-        # q, k, v, bias (or null), qseg, kseg (or null), out, lse, strides
-        # (13), B, Sq, Sk, H, Hkv, D, scale, causal, drop, seed0, seed1,
-        # thresh, drop_scale, dtype, bias_dtype, stream
-        "ptt_flash_fwd": [vp] * 8 + [strides] + [ci] * 6 + [cf, ci] + drop
-        + [ci, ci, vp],
-        # q, k, v, dO, lse, delta, dq, bias, dbias, qseg, kseg, strides
-        # (16), ...
-        "ptt_flash_bwd_dq": [vp] * 11 + [strides] + [ci] * 6 + [cf, ci]
-        + drop + [ci, ci, vp],
-        # q, k, v, dO, lse, delta, dk, dv, bias, qseg, kseg, strides (16),
-        # ...
-        "ptt_flash_bwd_dkv": [vp] * 11 + [strides] + [ci] * 6 + [cf, ci]
-        + drop + [ci, ci, vp],
+        # q, k, v, bias (or null), qseg, kseg, fms, fme (or null), out,
+        # lse, strides (13), B, Sq, Sk, H, Hkv, D, scale, causal, drop,
+        # seed0, seed1, thresh, drop_scale, dtype, bias_dtype, fm_hs,
+        # win_left, win_right, stream
+        "ptt_flash_fwd": [vp] * 10 + [strides] + [ci] * 6 + [cf, ci] + drop
+        + [ci] * 5 + [vp],
+        # q, k, v, dO, lse, delta, dq, bias, dbias, qseg, kseg, fms, fme,
+        # strides (16), ...
+        "ptt_flash_bwd_dq": [vp] * 13 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci] * 5 + [vp],
+        # q, k, v, dO, lse, delta, dk, dv, bias, qseg, kseg, fms, fme,
+        # strides (16), ...
+        "ptt_flash_bwd_dkv": [vp] * 13 + [strides] + [ci] * 6 + [cf, ci]
+        + drop + [ci] * 5 + [vp],
         # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
         # x, w, mean, rstd, dy, dx, rows, H, dtype, stream

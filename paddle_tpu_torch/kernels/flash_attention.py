@@ -66,8 +66,22 @@ probabilities are scaled by ``1 / (1 - p)`` (``_fwd_kernel``,
 backward. The JAX kernel keys its bits by TPU tile, so the masks of the two
 packages differ; their statistics agree.
 
-The flashmask operands (``startend_row_indices``) and the sliding window
-raise NotImplementedError naming ROADMAP Queue 2 #2b and #2c.
+Flashmask rows (``startend_row_indices=(start, end)``, ``fm`` below):
+integer ``[B, 1|H, Sk]``; key column j of (batch b, query head h) is masked
+for the raw query index ``start[j] <= i < end[j]`` (not offset-aligned, as
+``_mask_scores``), with GQA indexed by query head. ``flash_attention``
+converts them once to contiguous int32 on q's device. All three kernels
+load a key tile's 64 pairs and skip a tile whose every pair lies inside the
+rows' bands (exact). A row whose every key is masked is dead (zeros,
+``lse = -1e30``, no gradient); the rows get no gradient.
+
+Sliding window (``window=(left, right)``): key j is visible to query i iff
+``i + off - left <= j <= i + off + right`` with ``off = Sk - Sq``
+(bottom-right aligned, like causal); a negative or None side is open and
+``(None, None)`` is no window (``_norm_window``, as JAX's
+``flash_attention`` normalizes it). The kernels walk only the band's tiles.
+The rows and the window combine with causal masking, a bias, segments and
+dropout.
 
 Wrappers: ``flash_fwd`` (out, lse), ``flash_bwd_dq`` (dq, delta, and the
 full d-bias with ``bias_grad``) and ``flash_bwd_dkv`` (dk, dv), and
@@ -172,35 +186,64 @@ def _additive(bias, dtype):
     return bias
 
 
-def _scores(q, k, causal, sm_scale, q_seg=None, kv_seg=None, bias=None):
+def _norm_window(window):
+    """``window`` as the kernels take it: None, or (left, right) with None
+    for an open side; a negative side is open and ``(None, None)`` is no
+    window (JAX ``flash_attention``)."""
+    if window is None:
+        return None
+    left, right = (None if w is None or w < 0 else int(w) for w in window)
+    return None if left is None and right is None else (left, right)
+
+
+def _visible(Sq, Sk, causal, device, q_seg=None, kv_seg=None, fm=None,
+             window=None):
+    """The visibility mask of the kernels' rules: [Sq, Sk]; [B, 1, Sq, Sk]
+    with segments, [B, Hm, Sq, Sk] with the flashmask rows."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    d = torch.arange(Sk, device=device)[None, :] - qpos - (Sk - Sq)
+    ok = (d <= 0) if causal else torch.ones(Sq, Sk, dtype=torch.bool,
+                                            device=device)
+    window = _norm_window(window)
+    if window is not None:
+        left, right = window
+        if left is not None:
+            ok = ok & (d >= -left)
+        if right is not None:
+            ok = ok & (d <= right)
+    if q_seg is not None:
+        ok = ok & (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
+    if fm is not None:
+        start, end = (t[:, :, None, :] for t in fm)         # [B, Hm, 1, Sk]
+        ok = ok & ~((start <= qpos) & (qpos < end))
+    return ok
+
+
+def _scores(q, k, causal, sm_scale, q_seg=None, kv_seg=None, bias=None,
+            fm=None, window=None):
     """fp32 scores [B, H, Sq, Sk] with k's heads repeated over their group
-    and the bias added in fp32, and the visibility mask ([Sq, Sk], or
-    [B, 1, Sq, Sk] with segments)."""
+    and the bias added in fp32, and the visibility mask (``_visible``)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * sm_scale
     if bias is not None:
         s = s + _additive(bias, q.dtype).float()
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    ok = (kpos <= qpos + (Sk - Sq)) if causal else torch.ones(
-        Sq, Sk, dtype=torch.bool, device=q.device)
-    if q_seg is not None:
-        ok = ok & (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
-    return s, ok
+    return s, _visible(Sq, Sk, causal, q.device, q_seg, kv_seg, fm, window)
 
 
 def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, bias=None,
                     q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                    seed: int = 0):
+                    seed: int = 0, fm=None, window=None):
     """Plain PyTorch forward: (out in q's dtype, lse fp32 [B, H, Sq]);
     ``bias`` (broadcast to [B, H, Sq, Sk]; a bool keep-mask as
     ``where(mask, 0, -1e30)`` in q's dtype) is added in fp32 to the scaled
     scores; ``q_seg`` / ``kv_seg`` (int [B, Sq] / [B, Sk]) mask pairs of
-    different segments; ``dropout_p`` drops with
-    ``dropout_keep_mask(seed, ...)``."""
-    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias)
+    different segments; ``fm`` = (start, end) (int [B, 1|H, Sk]) masks key
+    j for queries start[j] <= i < end[j]; ``window`` = (left, right) keeps
+    the band around the bottom-right aligned diagonal; ``dropout_p`` drops
+    with ``dropout_keep_mask(seed, ...)``."""
+    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias, fm, window)
     B, Sq, H, _ = q.shape
     Hkv = k.shape[2]
     s = s.masked_fill(~ok, _NEG_INF)
@@ -221,13 +264,13 @@ def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float, bias=None,
 
 
 def _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg, kv_seg, dropout_p,
-               seed, bias=None):
+               seed, bias=None, fm=None, window=None):
     """fp32 (p, p kept and rescaled, dP masked and rescaled) [B, H, Sq, Sk]
     from the saved lse, with k and v repeated over their query groups."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias)
+    s, ok = _scores(q, k, causal, sm_scale, q_seg, kv_seg, bias, fm, window)
     live = (lse > 0.5 * _NEG_INF)[..., None]                   # [B, H, Sq, 1]
     # where, not a product: exp(s - lse) overflows on a dead row
     p = torch.where(ok & live, torch.exp(s - lse[..., None]), 0.0)
@@ -243,13 +286,13 @@ def _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg, kv_seg, dropout_p,
 
 
 def _plain_bwd(q, k, v, lse, do, causal, sm_scale, delta, q_seg, kv_seg,
-               dropout_p, seed, bias):
+               dropout_p, seed, bias, fm=None, window=None):
     """(dq, dk, dv, delta, dS without the scale fp32 [B, H, Sq, Sk])."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     p, p_kept, dp = _bwd_probs(q, k, v, lse, do, causal, sm_scale, q_seg,
-                               kv_seg, dropout_p, seed, bias)
+                               kv_seg, dropout_p, seed, bias, fm, window)
     if delta is None:
         delta = (p * dp).sum(-1)
     ds_raw = p * (dp - delta[..., None])
@@ -282,11 +325,12 @@ def _check_bias_grad(bias, bias_grad):
 def flash_bwd_plain(q, k, v, lse, do, causal: bool, sm_scale: float,
                     delta=None, q_seg=None, kv_seg=None,
                     dropout_p: float = 0.0, seed: int = 0, bias=None,
-                    bias_grad: bool = False):
+                    bias_grad: bool = False, fm=None, window=None):
     """Plain PyTorch backward from the saved lse: (dq, dk, dv) in the
     inputs' dtypes, with dk and dv summed over each kv head's query group,
     and with ``bias_grad`` the d-bias in the bias's shape and dtype. The
-    bias, segments and dropout as the forward took them: dV takes the kept,
+    bias, segments, flashmask rows, window and dropout as the forward took
+    them: dV takes the kept,
     rescaled p; dP is masked and rescaled before dS = p (dP - delta) scale
     with the undropped p and delta = rowsum(p * dP) in fp32, as the kernels
     form it; ``delta`` ([B, H, Sq] fp32), when given, stands for it. The
@@ -294,7 +338,7 @@ def flash_bwd_plain(q, k, v, lse, do, causal: bool, sm_scale: float,
     _check_bias_grad(bias, bias_grad)
     dq, dk, dv, _, ds_raw = _plain_bwd(q, k, v, lse, do, causal, sm_scale,
                                        delta, q_seg, kv_seg, dropout_p, seed,
-                                       bias)
+                                       bias, fm, window)
     if bias_grad:
         return dq, dk, dv, _reduce_dbias(ds_raw, bias)
     return dq, dk, dv
@@ -398,6 +442,39 @@ def _seg_view(seg, B, S, device, what):
     return seg.to(torch.int32).contiguous()
 
 
+def _fm_view(fm, q, k):
+    """The flashmask rows as the kernels read them: (start, end) contiguous
+    int32 [B, Hm, Sk] on q's device with Hm 1 or H, and the head stride
+    (0 or Sk); None: (None, None), 0."""
+    if fm is None:
+        return (None, None), 0
+    B, Sk, H = q.shape[0], k.shape[1], q.shape[2]
+    start, end = fm
+    rows = []
+    for name, t in (("start", start), ("end", end)):
+        t = torch.as_tensor(t, device=q.device)
+        if (t.dim() != 3 or t.shape[0] != B or t.shape[1] not in (1, H)
+                or t.shape[2] != Sk or t.is_floating_point()
+                or t.dtype == torch.bool):
+            raise ValueError(f"flashmask {name} rows must be integer "
+                             f"[{B}, 1|{H}, {Sk}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        rows.append(t.to(torch.int32).contiguous())
+    if rows[0].shape != rows[1].shape:
+        raise ValueError(f"flashmask start {tuple(rows[0].shape)} and end "
+                         f"{tuple(rows[1].shape)} differ")
+    return tuple(rows), (Sk if rows[0].shape[1] > 1 else 0)
+
+
+def _mask_args(q, k, fm, window):
+    """The C entries' (fms, fme) pointers and (fm_hs, win_left, win_right),
+    and the row views they point into (kept alive by the caller)."""
+    rows, fm_hs = _fm_view(fm, q, k)
+    window = _norm_window(window) or (None, None)
+    ptrs = tuple(None if t is None else t.data_ptr() for t in rows)
+    return rows, ptrs, (fm_hs, *(-1 if w is None else w for w in window))
+
+
 def _variant_args(q, k, q_seg, kv_seg, dropout_p, seed):
     """The C entries' (qseg, kseg, drop, seed0, seed1, thresh, drop_scale)
     and the segment views they point into (kept alive by the caller)."""
@@ -416,25 +493,31 @@ def _variant_args(q, k, q_seg, kv_seg, dropout_p, seed):
     return segs, ptrs, drop
 
 
-def _tag(q, k, bias, q_seg, dropout_p):
+def _tag(q, k, bias, q_seg, dropout_p, fm=None, window=None):
     B, Sq, H, D = q.shape
+    window = _norm_window(window)
     extra = "".join((f", {bias.dtype} bias" if bias is not None else "",
                      ", segments" if q_seg is not None else "",
+                     f", flashmask rows [{B}, {fm[0].shape[1]}, {k.shape[1]}]"
+                     if fm is not None else "",
+                     f", window {window}" if window is not None else "",
                      f", dropout {dropout_p}" if dropout_p else ""))
     return (f"(B={B} Sq={Sq} Sk={k.shape[1]} H={H} H_kv={k.shape[2]} D={D} "
             f"{q.dtype}{extra})")
 
 
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,
-              kv_seg=None, dropout_p: float = 0.0, seed: int = 0):
+              kv_seg=None, dropout_p: float = 0.0, seed: int = 0, fm=None,
+              window=None):
     """(out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]); ``bias``: an
     additive float mask (or a bool keep-mask) that broadcasts to
     [B, H, Sq, Sk], read in its own dtype; ``q_seg`` / ``kv_seg``: integer
-    segment ids [B, Sq] / [B, Sk]; ``dropout_p`` with the 64-bit
-    ``seed``."""
+    segment ids [B, Sq] / [B, Sk]; ``fm``: the flashmask rows (start, end),
+    integer [B, 1|H, Sk]; ``window``: (left, right); ``dropout_p`` with the
+    64-bit ``seed``."""
     if is_cpu(q, "flash attention"):
         return flash_fwd_plain(q, k, v, causal, sm_scale, bias, q_seg, kv_seg,
-                               dropout_p, seed)
+                               dropout_p, seed, fm, window)
     _check_cuda(q, k, v)
     from ._build import load_library
     B, Sq, H, D = q.shape
@@ -442,25 +525,27 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,
     Dr = _row_width(D, q.element_size())
     q, k, v = _padded(Dr, q, k, v)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
+    rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)
     out = torch.empty(B, Sq, H, Dr, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    _launch(f"flash_fwd launch {_tag(q, k, bias, q_seg, dropout_p)}",
+    _launch(f"flash_fwd launch {_tag(q, k, bias, q_seg, dropout_p, fm, window)}",
             load_library().ptt_flash_fwd, q.device, q.data_ptr(),
             k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), *seg_ptrs,
+            None if bias is None else bias.data_ptr(), *seg_ptrs, *fm_ptrs,
             out.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
             float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
-            bias_code)
-    del segs, bias
+            bias_code, *band)
+    del segs, rows, bias
     flash_fwd.LAUNCHES += 1
     return _cut(out, D), lse
 
 
 def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
                  q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                 seed: int = 0, bias=None, bias_grad: bool = False):
+                 seed: int = 0, bias=None, bias_grad: bool = False, fm=None,
+                 window=None):
     """(dq [B, Sq, H, D] in q's dtype, delta = rowsum(p * dP) fp32
     [B, H, Sq]), and with ``bias_grad`` a third item: the full-resolution
     d-bias, dS without the scale, fp32 [B, H, Sq, Sk]."""
@@ -468,7 +553,7 @@ def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
     if is_cpu(q, "flash attention"):
         dq, _, _, delta, ds_raw = _plain_bwd(
             q, k, v, lse, do, causal, sm_scale, None, q_seg, kv_seg,
-            dropout_p, seed, bias)
+            dropout_p, seed, bias, fm, window)
         return (dq, delta, ds_raw) if bias_grad else (dq, delta)
     _check_cuda(q, k, v, do)
     from ._build import load_library
@@ -477,34 +562,36 @@ def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
     Dr = _row_width(D, q.element_size())
     q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
+    rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)
     lse = lse.contiguous()
     dq = torch.empty(B, Sq, H, Dr, dtype=q.dtype, device=q.device)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     dbias = (torch.empty(B, H, Sq, Sk, dtype=torch.float32, device=q.device)
              if bias_grad else None)
-    _launch(f"flash_bwd_dq launch {_tag(q, k, bias, q_seg, dropout_p)}",
+    _launch(f"flash_bwd_dq launch "
+            f"{_tag(q, k, bias, q_seg, dropout_p, fm, window)}",
             load_library().ptt_flash_bwd_dq, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             None if bias is None else bias.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), *seg_ptrs,
+            None if dbias is None else dbias.data_ptr(), *seg_ptrs, *fm_ptrs,
             _strides(q, k, v, do, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
             float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
-            bias_code)
-    del segs, bias
+            bias_code, *band)
+    del segs, rows, bias
     flash_bwd_dq.LAUNCHES += 1
     return (_cut(dq, D), delta) + ((dbias,) if bias_grad else ())
 
 
 def flash_bwd_dkv(q, k, v, lse, delta, do, causal: bool, sm_scale: float,
                   q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                  seed: int = 0, bias=None):
+                  seed: int = 0, bias=None, fm=None, window=None):
     """(dk, dv) [B, Sk, H_kv, D] in k's dtype, from the ``delta`` that
     ``flash_bwd_dq`` returned."""
     if is_cpu(q, "flash attention"):
         return _plain_bwd(q, k, v, lse, do, causal, sm_scale, delta, q_seg,
-                          kv_seg, dropout_p, seed, bias)[1:3]
+                          kv_seg, dropout_p, seed, bias, fm, window)[1:3]
     _check_cuda(q, k, v, do)
     from ._build import load_library
     B, Sq, H, D = q.shape
@@ -512,26 +599,28 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal: bool, sm_scale: float,
     Dr = _row_width(D, q.element_size())
     q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
+    rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.empty(B, Sk, Hkv, Dr, dtype=k.dtype, device=k.device)
     dv = torch.empty(B, Sk, Hkv, Dr, dtype=v.dtype, device=v.device)
-    _launch(f"flash_bwd_dkv launch {_tag(q, k, bias, q_seg, dropout_p)}",
+    _launch(f"flash_bwd_dkv launch "
+            f"{_tag(q, k, bias, q_seg, dropout_p, fm, window)}",
             load_library().ptt_flash_bwd_dkv, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if bias is None else bias.data_ptr(), *seg_ptrs,
+            None if bias is None else bias.data_ptr(), *seg_ptrs, *fm_ptrs,
             _strides(q, k, v, do, extra=bias_strides), B, Sq, Sk, H, Hkv, Dr,
             float(sm_scale), int(causal), *drop, _DTYPE_CODE[q.dtype],
-            bias_code)
-    del segs, bias
+            bias_code, *band)
+    del segs, rows, bias
     flash_bwd_dkv.LAUNCHES += 1
     return _cut(dk, D), _cut(dv, D)
 
 
 def flash_bwd(q, k, v, lse, do, causal: bool, sm_scale: float,
               q_seg=None, kv_seg=None, dropout_p: float = 0.0, seed: int = 0,
-              bias=None, bias_grad: bool = False):
+              bias=None, bias_grad: bool = False, fm=None, window=None):
     """(dq, dk, dv), and with ``bias_grad`` the d-bias in the bias's shape
     and dtype: the dQ kernel (which also forms delta and the full d-bias),
     then the dK/dV kernel; on the CPU, the plain backward."""
@@ -539,9 +628,9 @@ def flash_bwd(q, k, v, lse, do, causal: bool, sm_scale: float,
         return flash_bwd_plain(q, k, v, lse, do, causal, sm_scale,
                                q_seg=q_seg, kv_seg=kv_seg,
                                dropout_p=dropout_p, seed=seed, bias=bias,
-                               bias_grad=bias_grad)
+                               bias_grad=bias_grad, fm=fm, window=window)
     variant = dict(q_seg=q_seg, kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
-                   bias=bias)
+                   bias=bias, fm=fm, window=window)
     dq, delta, *ds = flash_bwd_dq(q, k, v, lse, do, causal, sm_scale,
                                   bias_grad=bias_grad, **variant)
     dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, sm_scale,
@@ -560,37 +649,38 @@ for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 # ---------------------------------------------------------------------------
 class _Flash(torch.autograd.Function):
     """The ``_flash`` custom_vjp: the forward saves (q, k, v, lse), the
-    bias and the segment ids, and keeps the dropout seed; the backward runs
-    the two backward kernels from them. q, k and v are saved as the caller's
-    views (for the model, views of its kept ``qkv``). The bias gets a
-    gradient only with ``bias_grad``; otherwise it is a constant."""
+    bias, the segment ids and the flashmask rows, and keeps the window and
+    the dropout seed; the backward runs the two backward kernels from them.
+    q, k and v are saved as the caller's views (for the model, views of its
+    kept ``qkv``). The bias gets a gradient only with ``bias_grad``;
+    otherwise it is a constant. The rows never get one."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, sm_scale, q_seg, kv_seg,
-                dropout_p, seed, bias_grad):
+                dropout_p, seed, bias_grad, fm_start, fm_end, window):
+        fm = None if fm_start is None else (fm_start, fm_end)
         out, lse = flash_fwd(q, k, v, causal, sm_scale, bias, q_seg, kv_seg,
-                             dropout_p, seed)
-        ctx.save_for_backward(q, k, v, lse, bias, q_seg, kv_seg)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+                             dropout_p, seed, fm, window)
+        ctx.save_for_backward(q, k, v, lse, bias, q_seg, kv_seg, fm_start,
+                              fm_end)
+        ctx.causal, ctx.sm_scale, ctx.window = causal, sm_scale, window
         ctx.dropout_p, ctx.seed, ctx.bias_grad = dropout_p, seed, bias_grad
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse, bias, q_seg, kv_seg = ctx.saved_tensors
+        q, k, v, lse, bias, q_seg, kv_seg, fm_start, fm_end = \
+            ctx.saved_tensors
         want_db = ctx.bias_grad and ctx.needs_input_grad[3]
         # dO arrives contiguous from the model; a stray layout is copied once
         grads = flash_bwd(q, k, v, lse, do.contiguous(), ctx.causal,
                           ctx.sm_scale, q_seg=q_seg, kv_seg=kv_seg,
                           dropout_p=ctx.dropout_p, seed=ctx.seed, bias=bias,
-                          bias_grad=want_db)
+                          bias_grad=want_db,
+                          fm=None if fm_start is None else (fm_start, fm_end),
+                          window=ctx.window)
         db = grads[3] if want_db else None
-        return (grads[0], grads[1], grads[2], db) + (None,) * 7
-
-
-def _queue2(what, item):
-    return NotImplementedError(
-        f"flash_attention: {what} is not ported yet (ROADMAP Queue 2 {item})")
+        return (grads[0], grads[1], grads[2], db) + (None,) * 10
 
 
 def flash_attention(query, key, value, causal=False, sm_scale=None, *,
@@ -606,15 +696,14 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
     in its own dtype; a constant, or with ``bias_grad=True`` differentiable
     (the d-bias is summed over its broadcast dims). ``q_segment_ids`` /
     ``kv_segment_ids``: integer [B, Sq] / [B, Sk] packed-varlen ids, both or
-    neither. ``dropout_p`` > 0 needs ``dropout_seed`` (an int; the forward
-    and backward draw the same mask from it). The bias, segments and dropout
-    combine freely. On the card D is at most 256 and the dtype fp32, bf16 or
-    fp16. The flashmask (``startend_row_indices``) and ``window`` variants
-    raise NotImplementedError."""
-    if startend_row_indices is not None:
-        raise _queue2("startend_row_indices (flashmask)", "#2b")
-    if window is not None:
-        raise _queue2("window (the sliding window)", "#2c")
+    neither. ``startend_row_indices``: the flashmask rows (start, end),
+    integer [B, 1|H, Sk]: key column j is masked for queries start[j] <= i <
+    end[j]; no gradient. ``window``: (left, right) ints or None, the sliding
+    window around the bottom-right aligned diagonal (negative or None: that
+    side open). ``dropout_p`` > 0 needs ``dropout_seed`` (an int; the
+    forward and backward draw the same mask from it). The bias, segments,
+    rows, window and dropout combine freely. On the card D is at most 256
+    and the dtype fp32, bf16 or fp16."""
     _check_bias_grad(bias, bias_grad)
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("flash_attention: q_segment_ids and kv_segment_ids "
@@ -632,5 +721,7 @@ def flash_attention(query, key, value, causal=False, sm_scale=None, *,
                           query.device, "q_segment_ids")
         kv_seg = _seg_view(kv_segment_ids, key.shape[0], key.shape[1],
                            query.device, "kv_segment_ids")
+    (fm_start, fm_end), _ = _fm_view(startend_row_indices, query, key)
     return _Flash.apply(query, key, value, bias, bool(causal), scale, q_seg,
-                        kv_seg, dropout_p, seed, bool(bias_grad))
+                        kv_seg, dropout_p, seed, bool(bias_grad), fm_start,
+                        fm_end, _norm_window(window))

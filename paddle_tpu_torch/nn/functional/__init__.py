@@ -6,11 +6,12 @@ shadows the submodule of the same name here: reach the module with
 from .activation import gelu, relu, silu, swish, tanh
 from .common import dropout, embedding, linear
 from .flash_attention import (flash_attention, flash_attn_unpadded,
+                              flashmask_attention,
                               scaled_dot_product_attention)
 from .loss import cross_entropy
 from .norm import layer_norm, rms_norm
 
 __all__ = ["gelu", "relu", "silu", "swish", "tanh", "dropout", "embedding",
            "linear", "scaled_dot_product_attention", "flash_attention",
-           "flash_attn_unpadded", "cross_entropy",
+           "flash_attn_unpadded", "flashmask_attention", "cross_entropy",
            "layer_norm", "rms_norm"]

@@ -1,8 +1,9 @@
 """Attention ops (counterpart: ``paddle_tpu/nn/functional/flash_attention.py``
 ``_sdpa_reference``, ``scaled_dot_product_attention``, ``flash_attention``,
-``flash_attn_unpadded``, with the dispatch of
+``flash_attn_unpadded``, ``flashmask_attention``, with the dispatch of
 ``paddle_tpu/kernels/pallas/register.py`` ``_sdpa_pallas``,
-``_unpadded_supported`` and ``_flash_attn_unpadded_pallas``).
+``_unpadded_supported``, ``_flash_attn_unpadded_pallas``,
+``_flashmask_supported`` and ``_flashmask_pallas``).
 
 ``scaled_dot_product_attention`` is the registry op the model calls. The JAX
 package sends it to the Pallas flash kernel on the TPU when its gate
@@ -23,8 +24,13 @@ caller's CPU generator (``paddle_tpu_torch.random``; the JAX
 ``_dropout_seed`` draws it from the framework key), so the card never
 waits for the host.
 
-``flashmask_attention`` (ROADMAP Queue 2 #2b / #2c) and ``sdp_kernel``
-(Queue 1 item 4, the op registry) raise NotImplementedError.
+``flashmask_attention`` sends the forms the JAX registry sends to Pallas
+(no rows, or causal rows with C 1 or 2) to the flash kernels' flashmask and
+window operands on the card; the bidirectional forms build the dense
+keep-mask as JAX composes it and go through
+``scaled_dot_product_attention`` (on the card, the bias kernels; counted in
+``flashmask_attention.DENSE_MASK``). ``sdp_kernel`` (ROADMAP Queue 1 item
+4, the op registry) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from ... import random as _random
+from ...enforce import enforce_in
 from ...kernels.flash_attention import MAX_HEAD_DIM
 from ...kernels.flash_attention import flash_attention as _flash_kernels
 
@@ -225,13 +232,117 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     return out, None
 
 
+def _flashmask_keep(idx, causal, window, S, Sk, device):
+    """The dense keep-mask [B, Hm, S, Sk] (or [1, 1, S, Sk]) of a flashmask
+    call, as the JAX ``flashmask_attention`` composes it: C = 1 causal rows
+    >= r1 masked; C = 2 causal rows in [r1, r2); C = 2 bidirectional, lower
+    triangle rows >= r1 and upper rows < r2; C = 4, lower rows in [r1, r2)
+    and upper rows in [r3, r4) (triangles strict); then the bottom-right
+    causal tril and the window's left side (key >= query + Sk - S - w)."""
+    rows = torch.arange(S, device=device)[:, None]
+    cols = torch.arange(Sk, device=device)[None, :]
+    mask = None
+    if idx is not None:
+        lt, ut = rows > cols, rows < cols
+
+        def col(c):
+            return idx[..., c][:, :, None, :]          # [B, Hm, 1, Sk]
+        C = idx.shape[-1]
+        if C == 1:
+            banned = (rows >= col(0)) if causal else lt & (rows >= col(0))
+        elif C == 2 and causal:
+            banned = (rows >= col(0)) & (rows < col(1))
+        elif C == 2:
+            banned = (lt & (rows >= col(0))) | (ut & (rows < col(1)))
+        else:
+            banned = ((lt & (rows >= col(0)) & (rows < col(1)))
+                      | (ut & (rows >= col(2)) & (rows < col(3))))
+        mask = ~banned
+    if causal:
+        cm = (cols <= rows + (Sk - S))[None, None]
+        mask = cm if mask is None else mask & cm
+    if window is not None:
+        wm = (cols >= rows + (Sk - S) - window)[None, None]
+        mask = wm if mask is None else mask & wm
+    return mask
+
+
+def _flashmask_route(query, idx, causal):
+    """The route, by device and shape alone, as ``_flashmask_supported``
+    decides it: "kernels" for a card tensor with D <= 256 and no rows or
+    causal rows with C 1 or 2; "dense" for the bidirectional rows there
+    (the keep-mask into the bias kernels, counted in ``DENSE_MASK``);
+    "composed" for a CPU tensor, or D > 256 (counted in
+    ``scaled_dot_product_attention.COMPOSED``)."""
+    if _composed_here(query):
+        return "composed"
+    if idx is None or (causal and idx.shape[-1] in (1, 2)):
+        return "kernels"
+    flashmask_attention.DENSE_MASK += 1
+    return "dense"
+
+
 def flashmask_attention(query, key, value, startend_row_indices=None,
                         dropout=0.0, causal=False, window_size=None):
-    """Not ported yet: the flashmask and sliding-window operands of the
-    flash kernels are ROADMAP Queue 2 #2b and #2c."""
-    raise NotImplementedError(
-        "flashmask_attention is not ported yet (ROADMAP Queue 2 #2b, the "
-        "flashmask operands, and #2c, the sliding window)")
+    """Sparse-mask attention (``paddle.nn.functional.flashmask_attention``).
+    q [B, S, H, D], k / v [B, Sk, H_kv, D]; ``startend_row_indices``
+    integer [B, 1|H, Sk, C], per-key-column row indices: C = 1 causal, rows
+    >= r1 masked; C = 2 causal, rows in [r1, r2); C = 2 bidirectional,
+    lower-triangle rows >= r1 and upper rows < r2; C = 4, lower rows in
+    [r1, r2) and upper rows in [r3, r4). ``window_size`` (an int, or a tuple
+    whose first entry is taken): keys at least ``query + Sk - S - w``.
+    Dropout is always in training mode, its seed drawn from the framework's
+    generator. Returns ``(out, None)``.
+
+    On the card (D <= 256) no rows, or causal rows with C 1 or 2, go to the
+    flash kernels' flashmask operands (start = r1, end = r2, or S for C =
+    1) and window ``(w, None)``: no dense mask is built, and a tile whose
+    keys all mask its queries is skipped. The bidirectional forms build the
+    dense keep-mask and take ``scaled_dot_product_attention`` into the bias
+    kernels (counted in ``.DENSE_MASK``). A CPU tensor, or D > 256, takes the
+    composed attention on the same dense mask."""
+    B, S, H = query.shape[0], query.shape[1], query.shape[2]
+    Sk = key.shape[1]
+    idx = startend_row_indices
+    if idx is not None:
+        idx = torch.as_tensor(idx, device=query.device)
+        if idx.dim() != 4:
+            raise ValueError(f"flashmask_attention: startend_row_indices must "
+                             f"be [B, H_mask, Sk, C], got {tuple(idx.shape)}")
+        enforce_in(idx.shape[-1], (1, 2, 4),
+                   f"startend_row_indices last dim must be 1, 2 or 4, got "
+                   f"{idx.shape[-1]}", op="flashmask_attention")
+        if (idx.shape[0] != B or idx.shape[1] not in (1, H)
+                or idx.shape[2] != Sk):
+            raise ValueError(f"flashmask_attention: startend_row_indices "
+                             f"{tuple(idx.shape)} does not fit [{B}, 1|{H}, "
+                             f"{Sk}, C]")
+    w = None
+    if window_size is not None:
+        w = int(window_size if isinstance(window_size, int)
+                else window_size[0])
+    route = _flashmask_route(query, idx, causal)
+    if route == "kernels":
+        fm = None
+        if idx is not None:
+            start = idx[..., 0]
+            end = (idx[..., 1] if idx.shape[-1] == 2
+                   else torch.full_like(start, S))
+            fm = (start, end)
+        p, seed = _dropout(dropout, True)
+        out = _flash_kernels(query, key, value, causal=causal,
+                             startend_row_indices=fm,
+                             window=None if w is None else (w, None),
+                             dropout_p=p, dropout_seed=seed)
+        return out, None
+    mask = _flashmask_keep(idx, causal, w, S, Sk, query.device)
+    if route == "dense":
+        return scaled_dot_product_attention(query, key, value, mask, dropout,
+                                            False, True), None
+    return _sdpa_reference(query, key, value, mask, dropout, False), None
+
+
+flashmask_attention.DENSE_MASK = 0
 
 
 class sdp_kernel:

@@ -192,10 +192,18 @@ def test_delta_from_p_dp_keeps_dq_when_keys_converge():
                                 dict(window=(4, 0))],
                          ids=["flashmask", "window"])
 def test_unported_arguments_raise(kw):
-    # the bias backward and bias_grad are ported (test_torch_flash_bias.py)
-    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        FA.flash_attention(q, q, q, causal=True, **kw)
+    # the bias backward and bias_grad (test_torch_flash_bias.py), the
+    # flashmask rows and the window (test_torch_flashmask.py) are ported:
+    # scalar rows are refused by shape, a (4, 0) window keeps its band
+    q = torch.from_numpy(_inputs(1, 8, 8, 2, 2, 16, seed=7)[0])
+    if "startend_row_indices" in kw:
+        with pytest.raises(ValueError, match="flashmask start rows"):
+            FA.flash_attention(q, q, q, causal=True, **kw)
+        return
+    out = FA.flash_attention(q, q, q, causal=True, **kw)
+    d = torch.arange(8)[None, :] - torch.arange(8)[:, None]
+    ref = TNF._sdpa_reference(q, q, q, attn_mask=(d >= -4) & (d <= 0))
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

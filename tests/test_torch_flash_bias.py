@@ -247,8 +247,11 @@ def test_segments_from_cu_matches_jax():
 
 
 def test_unported_attention_ops_raise():
+    # flashmask_attention is ported (test_torch_flashmask.py); C = 3 is
+    # refused as the JAX op refuses it
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="Queue 2 #2b"):
-        TNF.flashmask_attention(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        TNF.flashmask_attention(q, q, q, torch.zeros(1, 1, 8, 3),
+                                causal=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         TNF.sdp_kernel(enable_flash=False)

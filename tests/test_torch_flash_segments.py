@@ -198,9 +198,9 @@ def test_dropout_arguments():
         FA.flash_attention(q, q, q, dropout_p=0.1)
     with pytest.raises(ValueError, match="together"):
         FA.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8))
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        FA.flash_attention(q, q, q, window=(4, 0), dropout_p=0.1,
-                           dropout_seed=1)
+    with pytest.raises(ValueError, match="flashmask start rows"):
+        FA.flash_attention(q, q, q, startend_row_indices=(0, 0),
+                           dropout_p=0.1, dropout_seed=1)
     # the same seed gives the same output, another seed another one
     x = torch.from_numpy(_rand(1, 64, 2, 64, seed=12))
     a = FA.flash_attention(x, x, x, dropout_p=0.5, dropout_seed=3)

@@ -189,9 +189,10 @@ def test_flash_bias_refusals(card):
     with pytest.raises(ValueError):              # does not broadcast
         FA.flash_fwd(q, k, v, False, 0.1, torch.zeros(5, 64, 64,
                                                       device=card))
-    with pytest.raises(NotImplementedError, match="Queue 2 #2c"):
+    with pytest.raises(ValueError, match="flashmask"):   # rows off [B, 1|H, Sk]
         FA.flash_attention(q, k, v, window=(8, 0),
-                           bias=torch.zeros(1, 1, 64, 64, device=card))
+                           bias=torch.zeros(1, 1, 64, 64, device=card),
+                           startend_row_indices=(q[..., 0], q[..., 0]))
     # with a bias, the C entry still refuses D = 320 with
     # cudaErrorInvalidValue (1)
     from paddle_tpu_torch.kernels._build import load_library
@@ -204,8 +205,8 @@ def test_flash_bias_refusals(card):
                                          + [0, 0, 64, 1]))
     code = load_library().ptt_flash_fwd(
         q320.data_ptr(), k320.data_ptr(), v320.data_ptr(), bias.data_ptr(),
-        None, None, out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2,
-        320, 0.1, 0, 0, 0, 0, 0, 1.0, 1, 1,
+        None, None, None, None, out.data_ptr(), lse.data_ptr(), strides, 1,
+        64, 64, 2, 2, 320, 0.1, 0, 0, 0, 0, 0, 1.0, 1, 1, 0, -1, -1,
         torch.cuda.current_stream().cuda_stream)
     assert code == 1
 

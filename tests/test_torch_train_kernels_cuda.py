@@ -166,12 +166,15 @@ def test_flash_refusals(card):
                                              + [0] * 4))
         got = load_library().ptt_flash_fwd(
             qq.data_ptr(), qq.data_ptr(), qq.data_ptr(), None, None, None,
-            out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2, 2, D, 0.1,
-            1, 0, 0, 0, 0, 1.0, code, 0,
+            None, None, out.data_ptr(), lse.data_ptr(), strides, 1, 64, 64, 2,
+            2, D, 0.1, 1, 0, 0, 0, 0, 1.0, code, 0, 0, -1, -1,
             torch.cuda.current_stream().cuda_stream)
         assert got == 1, (D, got)
-    with pytest.raises(NotImplementedError):
-        FA.flash_attention(q, k, v, causal=True, window=(8, 0))
+    # the window is ported (test_torch_flashmask_kernels_cuda.py); rows that
+    # do not fit [B, 1|H, Sk] are refused
+    with pytest.raises(ValueError, match="flashmask"):
+        FA.flash_attention(q, k, v, causal=True,
+                           startend_row_indices=(q[..., 0], q[..., 0]))
 
 
 # ---------------------------------------------------------------------------
