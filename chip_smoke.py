@@ -134,7 +134,22 @@ Phases, in order; any failure exits non-zero:
    (b) with exact launch counts, against the plain path at full width; a
    tiny fp32 case card vs CPU, the bidirectional forms through the counted
    dense-mask route into the bias kernels; re-time the flash kernels without
-   rows or window at the GPT flagship and packed BERT calls.
+   rows or window at the GPT flagship and packed BERT calls;
+31. the tile primitives (kernels/primitives.py) at the models' widths: build
+   each generated kernel alone (cold nvcc seconds), drive elementwise (a tanh
+   GELU written by hand over the GPT flagship's FFN activation [8192, 8192]
+   and a * b + 1 over [8192, 2048]), row_reduce (add and maximum over the
+   Llama logits [8192, 32000]) and layer_norm forward and backward (rows
+   [8192, 768] and [8192, 2048], bf16, fp32 g and b) once each with exact
+   launch counts, hold each to its plain version, dg / db bit for bit across
+   two calls, time each against its bound, the plain version, one library
+   call and (the backward) the ported LayerNorm's dx kernel with composed
+   dw / db sums, and a warm call's host work;
+32. fp16 through the LayerNorm, RMSNorm, RoPE, Adam (with a gradient in
+   another dtype than p) and paged attention kernels, each against its plain
+   version and timed at its main shape, and through nn.functional's
+   layer_norm and rms_norm, incubate's fused RoPE and AdamW.apply with exact
+   launch counts.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -226,13 +241,13 @@ def phase(name):
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
+def cuda_ms(fn, runs=TIMING_RUNS, warmup=3, sleep=SLEEP_CYCLES):
     """Median of ``runs`` CUDA-event timings of fn() on the device, after a
     warm-up. Before each run a 256 MB write evicts the 50 MB L2 (the
     serving pass streams gigabytes of weights between two attention calls,
-    so the pages arrive cold), then a device-side sleep holds the stream
-    while the host enqueues fn(): the events then bracket device work
-    only, not the wrapper's host time."""
+    so the pages arrive cold), then a device-side sleep of ``sleep`` cycles
+    holds the stream while the host enqueues fn(): the events then bracket
+    device work only, not the wrapper's host time."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     for _ in range(warmup):
         fn()
@@ -242,7 +257,7 @@ def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         a.record()
         fn()
         b.record()
@@ -1276,7 +1291,8 @@ def exactness_phase():
 # ---------------------------------------------------------------------------
 # paged kernels vs plain on the worst (row, head) slab's ||got - ref|| /
 # ||ref|| (slab_rel_err): phase 3's bf16 limit; fp32 summation order
-PAGED_TOL = {torch.bfloat16: KERNEL_TOL, torch.float32: 1e-5}
+PAGED_TOL = {torch.bfloat16: KERNEL_TOL, torch.float16: KERNEL_TOL,
+             torch.float32: 1e-5}
 
 
 def slab_rel_err(got, ref, dims):
@@ -1327,7 +1343,7 @@ def decode_bound(case):
     nbytes = (2 * q.numel() * it + 2 * hkv * pages * bs * D * it
               + 4 * (pages + B))
     flops = 4 * D * hq * int(sum(min(int(n), nb * bs) for n in lens))
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations", nbytes, flops
 
@@ -1446,7 +1462,7 @@ def flash_bias_bound(q, k, bias, mask):
     nbytes = ((2 * q.numel() + 2 * k.numel()) * it
               + bias.untyped_storage().nbytes() + 4 * B * H * Sq)
     flops = 4 * D * int(mask.expand(B, H, -1, -1).sum().item())
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations", nbytes, flops
 
@@ -1813,7 +1829,7 @@ BERT_TIMED_STEPS = 5
 BERT_TRAJECTORY_STEPS = 4     # phase 18b: kernel path vs plain path
 # LayerNorm kernel vs plain: max-abs err / max-abs ref; fp32 sums in another
 # order, bf16 one rounding of the output (an fp32 difference flips one ulp)
-LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 LN_FLOPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 10}   # per element
 # the key projection's bias has an exactly-zero gradient (one constant added
 # to every score of a softmax row): both paths return rounding noise there
@@ -2464,7 +2480,7 @@ LLAMA_TRAJECTORY_STEPS = 4    # phase 22b: kernel path vs plain path
 # RMSNorm / RoPE kernel vs plain: max-abs err / max-abs ref; fp32 sums in
 # another order, bf16 one rounding of the output (an fp32 difference flips
 # one ulp)
-NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 RMS_FLOPS = {"rms_norm_fwd": 4, "rms_norm_bwd": 7}    # per element
 ROPE_FLOPS = 6                                          # per pair
 
@@ -3764,6 +3780,373 @@ def flashmask_entry_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 31-32: the tile primitives, and fp16 in the norm, RoPE, Adam and
+# paged attention kernels
+# ---------------------------------------------------------------------------
+# kernel vs plain: max-abs err / max-abs ref; bf16 / fp16 one rounding of the
+# output, fp32 (the row sums, dg / db) sums in another order
+PRIM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+# a generated primitive's call traces fn on the host (a few ms) before its
+# launch: a device-side sleep of ~50 ms holds the stream past it, so the
+# events bracket the kernel alone
+PRIM_SLEEP_CYCLES = 100_000_000
+KPS_LN_FLOPS = {"fwd": 8, "bwd": 12}           # per element
+
+
+def gelu_tanh_by_hand(x):
+    """The GPT FFN activation as a user writes it for ``elementwise``."""
+    return 0.5 * x * (1 + torch.tanh(0.7978845608 * (x + 0.044715 * x ** 3)))
+
+
+def mul_add(a, b):
+    return a * b + 1.0
+
+
+def cold_build(src):
+    """Build one generated source alone; (cold nvcc seconds, or None when
+    an earlier run of this checkout left it built; ptxas lines)."""
+    from paddle_tpu_torch.kernels import _build
+    path = _build.build_generated(src)
+    rec = _build.GEN_LOG[str(path)]
+    lines = [ln.strip() for ln in rec["output"].splitlines()
+             if any(w in ln for w in ("registers", "spill", "error",
+                                      "warning"))]
+    return None if rec["cached"] else rec["seconds"], lines
+
+
+def host_overhead_ms(call, n=20):
+    """Median host time of a warm primitive's work before its launch: the
+    trace of fn, the source text and the cache lookup."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def prim_rec(name, err, kern, plain, lib, nbytes, flops, card, lib_name):
+    bound, by = row_bound(nbytes, flops)
+    log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} library_ms "
+        + (f"{lib:.4f} ({lib_name})" if lib is not None else "none")
+        + f" bound_ms {bound:.4f} ({by}: {nbytes} B, {flops} FLOP) "
+        f"kernel/bound {kern / bound:.1f}x max_abs_err {err:.3e}  [{card}]")
+    return dict(max_abs_err=err, ms=kern, plain_ms=plain, library_ms=lib,
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+
+
+def primitives_phase(card):
+    from paddle_tpu_torch.kernels import _codegen as CG
+    from paddle_tpu_torch.kernels import primitives as PR
+    F_ = torch.nn.functional
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(31)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=DEV) * scale
+                + shift).to(dtype)
+    R, H = TRAIN["batch"] * TRAIN["seq"], FULL["hidden_size"]
+    x_ffn = rnd(R, 4 * H)                               # [8192, 8192]
+    a, b = rnd(R, H), rnd(R, H)                         # [8192, 2048]
+    logits = rnd(R, LLAMA["vocab_size"], scale=4.0)     # [8192, 32000]
+    ew = {"gelu_tanh": (gelu_tanh_by_hand, [x_ffn]), "mul_add": (mul_add,
+                                                                 [a, b])}
+    red = {"sum": (torch.add, 0.0), "max": (torch.maximum, -math.inf)}
+    ln_cases = {}
+    for tag, h in (("bert", TB.BertConfig().hidden_size), ("flagship", H)):
+        ln_cases[tag] = (rnd(R, h, scale=3.0, shift=1.0),
+                         rnd(h, dtype=torch.float32, scale=0.5, shift=1.0),
+                         rnd(h, dtype=torch.float32, scale=0.1),
+                         rnd(R, h))
+
+    # 1. each generated kernel built alone, cold
+    builds, srcs = {}, {}
+    for name, (fn, xs) in ew.items():
+        srcs[name] = lambda fn=fn, xs=xs: CG.elementwise_source(
+            CG.trace(fn, len(xs)), [x.dtype for x in xs], xs[0].dtype)
+    for name, (fn, ident) in red.items():
+        srcs[name] = lambda fn=fn, ident=ident: CG.row_reduce_source(
+            CG.trace(fn, 2), ident, logits.dtype)
+    for name, make in srcs.items():
+        secs, lines = cold_build(make())
+        builds[name] = secs
+        log(f"generated {name}: "
+            + (f"cold nvcc {secs:.2f} s; " if secs is not None
+               else "built by an earlier run of this checkout; ")
+            + "; ".join(lines))
+
+    # 2. the main path: one call of each primitive through its public entry
+    PR.elementwise.LAUNCHES = PR.row_reduce.LAUNCHES = 0
+    PR.ln_fwd.LAUNCHES = PR.ln_bwd.LAUNCHES = 0
+    outs = {name: PR.elementwise(fn, *xs) for name, (fn, xs) in ew.items()}
+    outs.update({name: PR.row_reduce(fn, ident, logits)
+                 for name, (fn, ident) in red.items()})
+    for tag, (x, g, bb, dy) in ln_cases.items():
+        leaves = [t.clone().requires_grad_(True) for t in (x, g, bb)]
+        y = PR.layer_norm(*leaves, 1e-5)
+        outs[tag] = (y.detach(), torch.autograd.grad(y, leaves, dy))
+    torch.cuda.synchronize()
+    launches = {"elementwise": PR.elementwise.LAUNCHES,
+                "row_reduce": PR.row_reduce.LAUNCHES,
+                "ln_fwd": PR.ln_fwd.LAUNCHES, "ln_bwd": PR.ln_bwd.LAUNCHES}
+    log(f"main path (2 elementwise, 2 row_reduce, 2 layer_norm forward and "
+        f"backward calls): launches {launches}")
+    require(launches == {"elementwise": 2, "row_reduce": 2, "ln_fwd": 2,
+                         "ln_bwd": 2}, f"primitive launches {launches}")
+
+    # 3. each held to its plain version
+    errs = {}
+
+    def hold(what, got, ref):
+        require(got.dtype == ref.dtype and got.shape == ref.shape,
+                f"{what}: {got.dtype} {tuple(got.shape)} vs {ref.dtype} "
+                f"{tuple(ref.shape)}")
+        require(torch.isfinite(got.float()).all(), f"{what}: not finite")
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / max(ref.float().abs().max().item(), 1e-30)
+        tol = PRIM_TOL[got.dtype]
+        require(rel <= tol, f"{what}: rel err {rel} > {tol}")
+        log(f"{what}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol})")
+        errs[what] = err
+    for name, (fn, xs) in ew.items():
+        hold(name, outs[name], PR.elementwise_plain(fn, xs, xs[0].dtype))
+    for name, (fn, ident) in red.items():
+        hold(name, outs[name], PR.row_reduce_plain(fn, ident, logits))
+    stats = {}
+    for tag, (x, g, bb, dy) in ln_cases.items():
+        y_p, mu_p, rstd_p = PR.ln_fwd_plain(x, g, bb, 1e-5)
+        dx_p, dg_p, db_p = PR.ln_bwd_plain(x, g, mu_p, rstd_p, dy)
+        y, (dx, dg, db) = outs[tag]
+        for what, got, ref in (("y", y, y_p), ("dx", dx, dx_p),
+                               ("dg", dg, dg_p), ("db", db, db_p)):
+            hold(f"layer_norm {tag} {what}", got, ref)
+        # dg / db bit for bit across two calls, one launch each
+        _, mu, rstd = PR.ln_fwd(x, g, bb, 1e-5)
+        n = PR.ln_bwd.LAUNCHES
+        first = PR.ln_bwd(x, g, mu, rstd, dy)
+        second = PR.ln_bwd(x, g, mu, rstd, dy)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(first[1:], second[1:]))
+        log(f"layer_norm {tag} backward twice: dg / db bit-identical {same}, "
+            f"launches +{PR.ln_bwd.LAUNCHES - n}")
+        require(same and PR.ln_bwd.LAUNCHES == n + 2,
+                f"layer_norm {tag}: dg / db differ across calls or launches")
+        stats[tag] = (mu, rstd)
+
+    # 4. timed against bound, plain and one library call
+    recs = {"launches": launches, "cold_nvcc_s": builds}
+    for name, (fn, xs) in ew.items():
+        kern = cuda_ms(lambda: PR.elementwise(fn, *xs),
+                       sleep=PRIM_SLEEP_CYCLES)
+        plain = cuda_ms(lambda: PR.elementwise_plain(fn, xs, xs[0].dtype))
+        lib = (cuda_ms(lambda: F_.gelu(xs[0], approximate="tanh"))
+               if name == "gelu_tanh" else None)
+        n_ops = len(CG.trace(fn, len(xs)).nodes)
+        nbytes = sum(x.numel() * x.element_size() for x in xs) \
+            + xs[0].numel() * xs[0].element_size()
+        recs[name] = prim_rec(f"elementwise {name} {tuple(xs[0].shape)} "
+                              f"bf16", errs[name], kern, plain, lib, nbytes,
+                              n_ops * xs[0].numel(), card,
+                              "F.gelu(approximate='tanh')")
+        recs[name]["host_overhead_ms"] = host_overhead_ms(
+            lambda: CG.library(srcs[name]()))
+        log(f"elementwise {name}: a warm call's host work (trace, source, "
+            f"cache lookup) {recs[name]['host_overhead_ms']:.3f} ms")
+    libs = {"sum": (lambda: logits.sum(-1, dtype=torch.float32),
+                    "x.sum(-1, dtype=torch.float32)"),
+            "max": (lambda: logits.amax(-1).float(), "x.amax(-1).float()")}
+    for name, (fn, ident) in red.items():
+        kern = cuda_ms(lambda: PR.row_reduce(fn, ident, logits),
+                       sleep=PRIM_SLEEP_CYCLES)
+        plain = cuda_ms(lambda: PR.row_reduce_plain(fn, ident, logits),
+                        runs=10)
+        lib = cuda_ms(libs[name][0])
+        recs[name] = prim_rec(f"row_reduce {name} {tuple(logits.shape)} "
+                              f"bf16", errs[name], kern, plain, lib,
+                              logits.numel() * 2 + R * 4, logits.numel(),
+                              card, libs[name][1])
+        recs[name]["host_overhead_ms"] = host_overhead_ms(
+            lambda: CG.library(srcs[name]()))
+    for tag, (x, g, bb, dy) in ln_cases.items():
+        h = x.shape[1]
+        mu, rstd = stats[tag]
+        gl, bl = g.to(x.dtype), bb.to(x.dtype)
+        xl, gll, bll = (t.clone().requires_grad_(True) for t in (x, gl, bl))
+        yl = F_.layer_norm(xl, (h,), gll, bll, 1e-5)
+        fwd = prim_rec(
+            f"layer_norm {tag} forward {tuple(x.shape)} bf16",
+            errs[f"layer_norm {tag} y"],
+            cuda_ms(lambda: PR.ln_fwd(x, g, bb, 1e-5)),
+            cuda_ms(lambda: PR.ln_fwd_plain(x, g, bb, 1e-5)),
+            cuda_ms(lambda: F_.layer_norm(x, (h,), gl, bl, 1e-5)),
+            2 * x.numel() * 2 + 2 * h * 4 + 8 * R,
+            KPS_LN_FLOPS["fwd"] * x.numel(), card, "F.layer_norm")
+        bwd = prim_rec(
+            f"layer_norm {tag} backward (dx, dg, db) {tuple(x.shape)} bf16",
+            errs[f"layer_norm {tag} dx"],
+            cuda_ms(lambda: PR.ln_bwd(x, g, mu, rstd, dy)),
+            cuda_ms(lambda: PR.ln_bwd_plain(x, g, mu, rstd, dy)),
+            cuda_ms(lambda: torch.autograd.grad(yl, (xl, gll, bll), dy,
+                                                retain_graph=True)),
+            3 * x.numel() * 2 + h * 4 + 8 * R + 2 * h * 4,
+            KPS_LN_FLOPS["bwd"] * x.numel(), card,
+            "autograd of F.layer_norm: dx, dw, db")
+        # the ported LayerNorm's route (PERF.md row 8): the dx kernel, then
+        # the composed fp32 dw / db sums
+        row8 = cuda_ms(lambda: (LN.layer_norm_bwd_dx(x, g, mu, rstd, dy),
+                                LN._dw_db(LN._xhat(x, mu, rstd), dy.float(),
+                                          True)))
+        bwd["row8_route_ms"] = row8
+        bwd["dg_db_max_abs_err"] = max(errs[f"layer_norm {tag} dg"],
+                                       errs[f"layer_norm {tag} db"])
+        log(f"layer_norm {tag}: the ported LayerNorm's backward (dx kernel + "
+            f"composed fp32 dw / db sums) {row8:.4f} ms against the "
+            f"in-kernel sums' {bwd['ms']:.4f} ms")
+        recs[f"ln_fwd_{tag}"], recs[f"ln_bwd_{tag}"] = fwd, bwd
+    del x_ffn, a, b, logits, outs, ln_cases
+    torch.cuda.empty_cache()
+    return recs
+
+
+def fp16_phase(card):
+    """fp16 through the kernels the JAX gates admit it to, each against its
+    plain version, with the launches that show the kernel ran; the main
+    shapes timed beside their bf16 readings (phases 3, 7, 10, 15, 19, 20)."""
+    h16 = torch.float16
+    recs = {}
+    rows_16 = bert_batch(BERT_SEQS[0], 8)["ids"].shape[0] * BERT_SEQ
+    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES)
+    recs["layer_norm"] = check_ln_case(
+        f"(fp16) rows {rows_16} x 768, eps 1e-12, bias", rows_16, 768, h16,
+        1e-12, True, card)
+    check_ln_case("(fp16) rows 13 x 100 (no 16-byte words)", 13, 100, h16,
+                  1e-5, False)
+    require(LN.layer_norm_fwd.LAUNCHES > n[0]
+            and LN.layer_norm_bwd_dx.LAUNCHES > n[1], "fp16 LayerNorm launches")
+    R, H = LLAMA_BATCH * LLAMA_SEQ, LLAMA["hidden_size"]
+    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES)
+    recs["rms_norm"] = check_rms_case(f"(fp16) rows {R} x {H}, eps 1e-5", R,
+                                      H, h16, 1e-5, card)
+    check_rms_case("(fp16) rows 37 x 4095, eps 1e-6", 37, 4095, h16, 1e-6)
+    require(RN.rms_norm_fwd.LAUNCHES > n[0]
+            and RN.rms_norm_bwd_dx.LAUNCHES > n[1], "fp16 RMSNorm launches")
+
+    cfg = TL.LlamaConfig(**LLAMA)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(32)
+    q = torch.randn(LLAMA_BATCH, LLAMA_SEQ, cfg.num_heads, cfg.head_dim,
+                    generator=gen, device=DEV).to(h16)
+    cos, sin = TL.rope_tables(cfg, LLAMA_SEQ, DEV)
+    n = RP.rope.LAUNCHES
+    errs = check_rope_case(f"(fp16) q {tuple(q.shape)}", q, cos, sin)
+    require(RP.rope.LAUNCHES == n + 2, "fp16 rope launches")
+    bound, by, nbytes, flops = rope_bound(q)
+    kern = cuda_ms(lambda: RP.rope(q, cos, sin))
+    log(f"rope q {tuple(q.shape)} fp16: kernel_ms {kern:.4f} bound_ms "
+        f"{bound:.4f} ({by})  [{card}]")
+    recs["rope"] = dict(max_abs_err=errs[0], ms=kern, bound_ms=bound,
+                        bound_by=by)
+    del q
+
+    # Adam: the 9 flagship leaves in fp16 (p, g, moments), then a bf16 leaf
+    # with an fp32 gradient and an fp32 leaf with an fp16 gradient
+    shapes = [s for _, s in flagship_shapes() if FAD.supported(
+        torch.empty(s, device="meta"), torch.empty(s, device="meta"),
+        {"moment1": torch.empty(s, device="meta"),
+         "moment2": torch.empty(s, device="meta")})]
+
+    def leaf(s, pdt, gdt, mdt):
+        t = lambda sc, dt: (torch.randn(s, generator=gen, device=DEV)
+                            * sc).to(dt)
+        return t(0.02, pdt), t(1e-3, gdt), {"moment1": t(1e-3, mdt),
+                                            "moment2": t(1e-2, mdt).square()}
+    leaves = [leaf(s, h16, h16, h16) for s in shapes]
+    worst = 0.0
+    n = FAD.adam_update.LAUNCHES
+    mixed = [leaf(shapes[1], torch.bfloat16, torch.float32, torch.bfloat16),
+             leaf(shapes[1], torch.float32, h16, torch.float32)]
+    for p, g, slot in leaves + mixed:
+        kp, ks = p.clone(), {k: v.clone() for k, v in slot.items()}
+        FAD.adam_update(kp, g, ks, 1e-4, 1, None, **ADAM)
+        FAD.adam_update_plain(p, g, slot, 1e-4, 1, None, **ADAM)
+        for got, ref in [(kp, p)] + [(ks[k], slot[k]) for k in ks]:
+            d = (got.float() - ref.float()).abs()
+            ulp = (torch.finfo(got.dtype).eps if got.dtype != torch.float32
+                   else 1e-6) * ref.float().abs()
+            floor = 2.0 ** -24 if got.dtype == h16 else 1e-30  # subnormals
+            require(bool((d <= ulp + floor).all()),
+                    f"fp16 adam: beyond one ulp of the plain version")
+            worst = max(worst, d.max().item())
+    require(FAD.adam_update.LAUNCHES == n + len(leaves) + 2,
+            "fp16 adam launches")
+    kern = cuda_ms(lambda: [FAD.adam_update(p, g, s, 1e-4, 1, None, **ADAM)
+                            for p, g, s in leaves], runs=10)
+    elems = sum(p.numel() for p, _, _ in leaves)
+    bound, by = row_bound(elems * 14, elems * ADAM_FLOPS_PER_ELEMENT)
+    log(f"fused adam fp16 over {len(leaves)} leaves ({elems} elements; and a "
+        f"bf16 leaf with an fp32 gradient, an fp32 leaf with an fp16 one): "
+        f"within one ulp of the plain version (max_abs_err {worst:.3e}); "
+        f"kernel_ms {kern:.4f} bound_ms {bound:.4f} ({by})  [{card}]")
+    recs["fused_adam"] = dict(max_abs_err=worst, ms=kern, bound_ms=bound,
+                              bound_by=by, elements=elems)
+    del leaves, mixed
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(32)
+    lens = [100, 173, 256, 311, 400, 467, 555, 640]     # phase 3's case (a)
+    n = PA.paged_decode_attention.LAUNCHES
+    recs["paged_decode_attention"] = check_decode_case(
+        "(a) decode B=8 H=16 D=128 bs=32 fp16",
+        decode_case(rng, lens, 16, 16, dtype=h16), card)
+    n_r = RPA.ragged_paged_attention.LAUNCHES
+    recs["ragged_paged_attention"] = check_kernel_case(
+        "(a) ragged decode R=8 fp16", make_case(rng, [1] * 8, lens, C=1,
+                                                hq=16, hkv=16, dtype=h16),
+        card)
+    check_kernel_case("(b) ragged mixed R=4 C=128 GQA 16/4 fp16", make_case(
+        rng, [128, 100, 1, 0], [384, 100, 517, 0], C=128, hq=16, hkv=4,
+        dtype=h16), None)
+    require(PA.paged_decode_attention.LAUNCHES > n
+            and RPA.ragged_paged_attention.LAUNCHES > n_r,
+            "fp16 paged attention launches")
+
+    # the public entries route fp16 to the kernels: counts 0 just before
+    x = torch.randn(8, 512, 768, generator=gen, device=DEV).to(h16)
+    w = torch.randn(768, generator=gen, device=DEV).requires_grad_(True)
+    bb = torch.randn(768, generator=gen, device=DEV).requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    p16 = {"w": torch.randn(1024, 2048, generator=gen, device=DEV).to(h16)}
+    opt = AdamW(1e-4, weight_decay=0.01)
+    state = opt.init_state(p16)
+    qk = [torch.randn(2, 256, hh, 128, generator=gen, device=DEV).to(
+        h16).requires_grad_(True) for hh in (16, 4)]
+    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
+               RN.rms_norm_bwd_dx, RP.rope):
+        fn.LAUNCHES = 0
+    FAD.adam_update.LAUNCHES = 0
+    y = TF.layer_norm(xr, 768, w, bb, 1e-5)
+    y.float().sum().backward()
+    y2 = TF.rms_norm(xr, w, epsilon=1e-6)
+    y2.float().sum().backward()
+    oq, ok, _ = TI.fused_rotary_position_embedding(*qk)
+    (oq.float().sum() + ok.float().sum()).backward()
+    opt.apply(p16, {"w": torch.randn_like(p16["w"]) * 1e-3}, state)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.LAUNCHES for fn in (
+        LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
+        RN.rms_norm_bwd_dx, RP.rope, FAD.adam_update)}
+    log(f"fp16 through nn.functional.layer_norm, nn.functional.rms_norm, "
+        f"fused_rotary_position_embedding and AdamW.apply: launches {counts}")
+    require(counts == {"layer_norm_fwd": 1, "layer_norm_bwd_dx": 1,
+                       "rms_norm_fwd": 1, "rms_norm_bwd_dx": 1, "rope": 4,
+                       "adam_update": 1}, f"fp16 entry launches {counts}")
+    recs["entry_launches"] = counts
+    del x, xr, y, y2, p16, state, qk, oq, ok
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3919,6 +4302,13 @@ def main() -> int:
     fm_entry = flashmask_entry_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("31. tile primitives at the models' widths")
+    prim = primitives_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("32. fp16 in the norm, RoPE, Adam and paged attention kernels")
+    half = fp16_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4054,7 +4444,52 @@ def main() -> int:
               "backward)",
         neg_sin_ms=rope["q"]["neg_sin_ms"],
         k={k: rope["k"][k] for k in keys + ("neg_sin_ms",)}))
-    require(len(kernels) == 13, f"{len(kernels)} kernels in the record")
+    pr = "paddle_tpu/kernels/pallas/primitives.py"
+    kernels += [
+        dict(name="kps_elementwise", route="cuda",
+             source="paddle_tpu_torch/csrc/kps_elementwise.cuh",
+             replaces=f"{pr}:58", launches=prim["launches"]["elementwise"],
+             **{k: prim["gelu_tanh"][k] for k in keys},
+             shape="the GPT flagship FFN activation [8192, 8192] bf16, a "
+                   "tanh GELU written by hand as fn",
+             mul_add={k: prim["mul_add"][k] for k in keys},
+             cold_nvcc_s=prim["cold_nvcc_s"],
+             host_overhead_ms=prim["gelu_tanh"]["host_overhead_ms"]),
+        dict(name="kps_row_reduce", route="cuda",
+             source="paddle_tpu_torch/csrc/kps_row_reduce.cuh",
+             replaces=f"{pr}:90", launches=prim["launches"]["row_reduce"],
+             **{k: prim["sum"][k] for k in keys},
+             shape="the Llama logits [8192, 32000] bf16, fn torch.add",
+             max={k: prim["max"][k] for k in keys},
+             host_overhead_ms=prim["sum"]["host_overhead_ms"]),
+        dict(name="kps_layer_norm_fwd", route="cuda",
+             source="paddle_tpu_torch/csrc/layer_norm.cu",
+             replaces=f"{pr}:212", launches=prim["launches"]["ln_fwd"],
+             **{k: prim["ln_fwd_flagship"][k] for k in keys},
+             shape="x [8192, 2048] bf16, fp32 g and b (the same CUDA "
+                   "kernel as layer_norm_fwd)",
+             bert={k: prim["ln_fwd_bert"][k] for k in keys}),
+        dict(name="kps_layer_norm_bwd", route="cuda",
+             source="paddle_tpu_torch/csrc/kps_layer_norm.cu",
+             replaces=f"{pr}:238", launches=prim["launches"]["ln_bwd"],
+             **{k: prim["ln_bwd_flagship"][k] for k in keys},
+             shape="x [8192, 2048] bf16, fp32 g; dx, dg and db in one "
+                   "launch",
+             row8_route_ms=prim["ln_bwd_flagship"]["row8_route_ms"],
+             bert={k: prim["ln_bwd_bert"][k] for k in keys + (
+                 "row8_route_ms",)})]
+    # fp16 readings beside the bf16 ones of the kernels phase 32 timed
+    fp16 = {"ragged_paged_attention": half["ragged_paged_attention"],
+            "paged_decode_attention": half["paged_decode_attention"],
+            "fused_adam": half["fused_adam"], "rope": half["rope"],
+            "layer_norm_fwd": half["layer_norm"]["layer_norm_fwd"],
+            "layer_norm_bwd": half["layer_norm"]["layer_norm_bwd"],
+            "rms_norm_fwd": half["rms_norm"]["rms_norm_fwd"],
+            "rms_norm_bwd": half["rms_norm"]["rms_norm_bwd"]}
+    for k in kernels:
+        if k["name"] in fp16:
+            k["fp16"] = fp16[k["name"]]
+    require(len(kernels) == 17, f"{len(kernels)} kernels in the record")
     log(f"kernels: {[k['name'] for k in kernels]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@
 // a masked edge block. Here (helpers in norm_common.cuh) one warp owns one
 // row (8 rows per 256-thread block, any row count: a block's warps past the
 // last row exit), reads the row in 16-byte words when H allows it (H a
-// multiple of 8 for bf16, of 4 for fp32, 16-byte aligned bases) and one
+// multiple of 8 for bf16 and fp16, of 4 for fp32, 16-byte aligned bases) and one
 // element a lane otherwise, and reduces its fp32 sums with warp shuffles: no
 // shared memory and no block barrier.
 // Any H: the composed path takes every width, so the kernel does too.
@@ -89,33 +89,43 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   });
 }
 
+template <typename T>
+int fwd(const void* x, const void* w, const void* b, void* y, void* mean, void* rstd,
+        long long rows, int H, float eps, cudaStream_t st) {
+  const bool vec = H % (16 / sizeof(T)) == 0 && aligned16(x) && aligned16(y);
+  ln_fwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), rows, H, eps,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd(const void* x, const void* w, const void* mean, const void* rstd, const void* dy,
+        void* dx, long long rows, int H, cudaStream_t st) {
+  const bool vec = H % (16 / sizeof(T)) == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  ln_bwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const T*>(dy), static_cast<T*>(dx), rows, H,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, y: contiguous [rows, H] in dtype (0 = float32, 1 = bfloat16); w: fp32
-// [H]; b: fp32 [H] or null (no bias); mean, rstd: fp32 [rows]. Returns
-// cudaGetLastError() after the launch (0 = success), cudaErrorInvalidValue
-// for a dtype it does not take.
+// x, y: contiguous [rows, H] in dtype (0 = float32, 1 = bfloat16, 2 =
+// float16); w: fp32 [H]; b: fp32 [H] or null (no bias); mean, rstd: fp32
+// [rows]. Returns cudaGetLastError() after the launch (0 = success),
+// cudaErrorInvalidValue for a dtype it does not take.
 int ptt_layer_norm_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
                        void* rstd, long long rows, int H, float eps, int dtype, void* stream) {
   if (rows <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = dtype == 0 ? 4 : 8;  // elements per 16-byte word
-  const bool vec = H % n == 0 && aligned16(x) && aligned16(y);
-  if (dtype == 0)
-    ln_fwd_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y), static_cast<float*>(mean),
-        static_cast<float*>(rstd), rows, H, eps, vec);
-  else if (dtype == 1)
-    ln_fwd_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<__nv_bfloat16*>(y),
-        static_cast<float*>(mean), static_cast<float*>(rstd), rows, H, eps, vec);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return by_dtype(dtype, [&](auto tag) {
+    return fwd<typename decltype(tag)::type>(x, w, b, y, mean, rstd, rows, H, eps, st);
+  });
 }
 
 // dx [rows, H] in dtype from x and dy (contiguous, same dtype), fp32 w [H]
@@ -125,21 +135,9 @@ int ptt_layer_norm_bwd(const void* x, const void* w, const void* mean, const voi
                        void* stream) {
   if (rows <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = dtype == 0 ? 4 : 8;
-  const bool vec = H % n == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
-  if (dtype == 0)
-    ln_bwd_kernel<float><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(mean), static_cast<const float*>(rstd),
-        static_cast<const float*>(dy), static_cast<float*>(dx), rows, H, vec);
-  else if (dtype == 1)
-    ln_bwd_kernel<__nv_bfloat16><<<grid_for(rows), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(mean), static_cast<const float*>(rstd),
-        static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx), rows, H, vec);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return by_dtype(dtype, [&](auto tag) {
+    return bwd<typename decltype(tag)::type>(x, w, mean, rstd, dy, dx, rows, H, st);
+  });
 }
 
 }  // extern "C"

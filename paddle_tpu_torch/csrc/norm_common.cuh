@@ -6,23 +6,18 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace ptt_norm {
 
+using ptt::by_dtype;
+using ptt::from_f32;
+using ptt::to_f32;
+
 constexpr int kWarps = 8;  // rows per block, one warp each
 constexpr int kThreads = 32 * kWarps;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -3,31 +3,27 @@
 // to fp32, the page load into shared memory, and warp reductions.
 //
 // Pools are head-major [H_kv, num_blocks, bs, D]; one (head, page) tile is a
-// contiguous [bs, D] slab. Float pools (fp32, bf16) are read as they are;
+// contiguous [bs, D] slab. Float pools (fp32, bf16, fp16) are read as they are;
 // quantized pools (int8, fp8 e4m3) are dequantized in the load, each element
 // times the page's factor scale[h, page] / qmax, so no float copy of a page
 // ever reaches device memory.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace ptt_paged {
 
+using ptt::by_dtype;
+using ptt::from_f32;
+using ptt::to_f32;
+
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // One contiguous [bs, D] page -> shared fp32 with row stride `ld`, each
 // element times `mul` (1 for float pools), 16 bytes per thread per load (D

@@ -185,8 +185,8 @@ extern "C" {
 // q: [B, H_q, D] with element strides q_sb (batch) and q_sh (head) and a unit
 // stride over D; pools contiguous [H_kv, NB, bs, D] of q's dtype;
 // block_tables int32 [B, nb]; seq_lens int32 [B]; out contiguous [B, H_q, D].
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = success), or cudaErrorInvalidValue before any launch for what
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError()
+// after the launch (0 = success), or cudaErrorInvalidValue before any launch for what
 // the kernel does not take: H_q not a multiple of H_kv, head_dim above kMaxD
 // or not a whole number of 16-byte vectors, a query group with
 // g * D > kMaxRows * kMaxD, pools not 16-byte aligned; a page that does not
@@ -197,16 +197,15 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
                                long long q_sh, float scale, int dtype, void* stream) {
   if (B == 0 || Hq == 0) return 0;
   const int vec = 16 / (dtype == 0 ? 4 : 2);
-  if ((dtype != 0 && dtype != 1) || Hkv <= 0 || Hq % Hkv != 0 || D > kMaxD || D % vec != 0 ||
+  if (dtype < 0 || dtype > 2 || Hkv <= 0 || Hq % Hkv != 0 || D > kMaxD || D % vec != 0 ||
       (Hq / Hkv) * D > kMaxRows * kMaxD || reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, seq_lens, out, B, Hq, Hkv, NB, bs, D, nb,
-                         q_sb, q_sh, scale, s);
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, seq_lens, out, B, Hq, Hkv, NB, bs, D,
-                               nb, q_sb, q_sh, scale, s);
+  return by_dtype(dtype, [&](auto tag) {
+    return launch<typename decltype(tag)::type>(q, k_pool, v_pool, tables, seq_lens, out, B, Hq,
+                                                Hkv, NB, bs, D, nb, q_sb, q_sh, scale, s);
+  });
 }
 
 }  // extern "C"

@@ -245,8 +245,8 @@ int launch_pool(int pool_dtype, const void* q, const void* k_pool, const void* v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out). pool_dtype: 0 = pools of
-// q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). pool_dtype: 0 =
+// pools of q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
 // fp32 [H_kv, NB] scales. Returns cudaGetLastError() after the launch (0 =
 // success); the caller raises on anything else. Shapes the kernel does not
 // take return cudaErrorInvalidValue before any launch: head_dim above kMaxD
@@ -259,7 +259,7 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
                                int C, int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
                                int dtype, int pool_dtype, void* stream) {
   if (R == 0 || C == 0) return 0;
-  if ((dtype != 0 && dtype != 1) || pool_dtype < 0 || pool_dtype > 2 ||
+  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 ||
       (pool_dtype != 0 && (k_scales == nullptr || v_scales == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
@@ -267,12 +267,11 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_pool<float>(pool_dtype, q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
-                              v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale, s);
-  return launch_pool<__nv_bfloat16>(pool_dtype, q, k_pool, v_pool, tables, q_lens, kv_lens,
-                                    k_scales, v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale,
-                                    s);
+  return by_dtype(dtype, [&](auto tag) {
+    return launch_pool<typename decltype(tag)::type>(pool_dtype, q, k_pool, v_pool, tables,
+                                                     q_lens, kv_lens, k_scales, v_scales, out, R,
+                                                     C, Hq, Hkv, NB, bs, D, nb, scale, s);
+  });
 }
 
 const char* ptt_error_string(int code) {

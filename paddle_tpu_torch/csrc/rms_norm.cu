@@ -16,10 +16,10 @@
 // TPU -> Hopper. The Pallas grid walks blocks of ~2 MB of rows in VMEM. Here
 // one warp owns one row, as in layer_norm.cu (helpers in norm_common.cuh):
 // 8 rows per 256-thread block, any row count, fp32 sums by warp shuffles.
-// Where the row is read in 16-byte words (H a multiple of 8 for bf16, of 4
-// for fp32, 16-byte aligned bases) and fits kCacheWords words a lane (bf16
-// H <= 2048, fp32 H <= 1024), the warp keeps it in registers: the forward
-// reads x once and writes y once, the backward reads x and dy once and
+// Where the row is read in 16-byte words (H a multiple of 8 for bf16 and
+// fp16, of 4 for fp32, 16-byte aligned bases) and fits kCacheWords words a
+// lane (bf16 and fp16 H <= 2048, fp32 H <= 1024), the warp keeps it in
+// registers: the forward reads x once and writes y once, the backward reads x and dy once and
 // writes dx once (x and dy together are 16 words, 64 registers, a lane at
 // bf16 H 2048). Other widths (odd, small, wide, unaligned) read the row
 // again for the second pass, one element a lane where needed; those
@@ -182,60 +182,60 @@ rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   });
 }
 
-template <typename T>
-void fwd(const void* x, const void* w, void* y, void* rstd, long long rows, int H, float eps,
-         bool vec, bool cached, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const float* wt = static_cast<const float*>(w);
-  T* yt = static_cast<T*>(y);
-  float* rt = static_cast<float*>(rstd);
-  if (cached)
-    rms_fwd_cached<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps);
-  else
-    rms_fwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps, vec);
-}
-
-template <typename T>
-void bwd(const void* x, const void* w, const void* rstd, const void* dy, void* dx,
-         long long rows, int H, bool vec, bool cached, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const float* wt = static_cast<const float*>(w);
-  const float* rt = static_cast<const float*>(rstd);
-  const T* dyt = static_cast<const T*>(dy);
-  T* dxt = static_cast<T*>(dx);
-  if (cached)
-    rms_bwd_cached<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, rt, dyt, dxt, rows, H);
-  else
-    rms_bwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, rt, dyt, dxt, rows, H, vec);
-}
-
 // the register-resident path: whole 16-byte words, an aligned weight, and a
 // row of at most kCacheWords words a lane
 bool fits_cache(int H, int n, bool vec, const void* w) {
   return vec && aligned16(w) && H / n <= 32 * kCacheWords;
 }
 
+template <typename T>
+int fwd(const void* x, const void* w, void* y, void* rstd, long long rows, int H, float eps,
+        cudaStream_t st) {
+  constexpr int n = 16 / sizeof(T);  // elements per 16-byte word
+  const bool vec = H % n == 0 && aligned16(x) && aligned16(y);
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  T* yt = static_cast<T*>(y);
+  float* rt = static_cast<float*>(rstd);
+  if (fits_cache(H, n, vec, w))
+    rms_fwd_cached<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps);
+  else
+    rms_fwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd(const void* x, const void* w, const void* rstd, const void* dy, void* dx,
+        long long rows, int H, cudaStream_t st) {
+  constexpr int n = 16 / sizeof(T);
+  const bool vec = H % n == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  const float* rt = static_cast<const float*>(rstd);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  if (fits_cache(H, n, vec, w))
+    rms_bwd_cached<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, rt, dyt, dxt, rows, H);
+  else
+    rms_bwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, rt, dyt, dxt, rows, H, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, y: contiguous [rows, H] in dtype (0 = float32, 1 = bfloat16); w: fp32
-// [H]; rstd: fp32 [rows]. Returns cudaGetLastError() after the launch (0 =
-// success), cudaErrorInvalidValue for a dtype it does not take.
+// x, y: contiguous [rows, H] in dtype (0 = float32, 1 = bfloat16, 2 =
+// float16); w: fp32 [H]; rstd: fp32 [rows]. Returns cudaGetLastError() after
+// the launch (0 = success), cudaErrorInvalidValue for a dtype it does not
+// take.
 int ptt_rms_norm_fwd(const void* x, const void* w, void* y, void* rstd, long long rows, int H,
                      float eps, int dtype, void* stream) {
   if (rows <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = dtype == 0 ? 4 : 8;  // elements per 16-byte word
-  const bool vec = H % n == 0 && aligned16(x) && aligned16(y);
-  const bool cached = fits_cache(H, n, vec, w);
-  if (dtype == 0)
-    fwd<float>(x, w, y, rstd, rows, H, eps, vec, cached, st);
-  else if (dtype == 1)
-    fwd<__nv_bfloat16>(x, w, y, rstd, rows, H, eps, vec, cached, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return by_dtype(dtype, [&](auto tag) {
+    return fwd<typename decltype(tag)::type>(x, w, y, rstd, rows, H, eps, st);
+  });
 }
 
 // dx [rows, H] in dtype from x and dy (contiguous, same dtype), fp32 w [H]
@@ -244,16 +244,9 @@ int ptt_rms_norm_bwd(const void* x, const void* w, const void* rstd, const void*
                      long long rows, int H, int dtype, void* stream) {
   if (rows <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = dtype == 0 ? 4 : 8;
-  const bool vec = H % n == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
-  const bool cached = fits_cache(H, n, vec, w);
-  if (dtype == 0)
-    bwd<float>(x, w, rstd, dy, dx, rows, H, vec, cached, st);
-  else if (dtype == 1)
-    bwd<__nv_bfloat16>(x, w, rstd, dy, dx, rows, H, vec, cached, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return by_dtype(dtype, [&](auto tag) {
+    return bwd<typename decltype(tag)::type>(x, w, rstd, dy, dx, rows, H, st);
+  });
 }
 
 }  // extern "C"

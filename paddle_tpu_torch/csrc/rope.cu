@@ -11,7 +11,7 @@
 //
 // TPU -> Hopper. The Pallas grid walks (batch, sequence block) tiles of
 // [bs, H*D] in VMEM. Here one thread owns one vector of pairs: 16 bytes of
-// x1 and the matching 16 bytes of x2 (8 pairs in bf16, 4 in fp32), read
+// x1 and the matching 16 bytes of x2 (8 pairs in bf16 / fp16, 4 in fp32), read
 // once, with 2 N fp32 table entries at [s, i] (a table row is shared by
 // every head and batch row, so its re-reads come from L1 and L2), and the
 // 2 N outputs written once. Where D/2 is not a multiple of the vector width,
@@ -24,9 +24,10 @@
 // 128] bf16 it must move 67.6 MB with the tables, ~0.020 ms; k [8, 1024, 4,
 // 128], 17.3 MB, ~0.005 ms.
 
-#include "norm_common.cuh"  // to_f32, from_f32, aligned16
+#include "norm_common.cuh"  // to_f32, from_f32, by_dtype, aligned16
 
 using ptt_norm::aligned16;
+using ptt_norm::by_dtype;
 using ptt_norm::from_f32;
 using ptt_norm::to_f32;
 
@@ -123,11 +124,11 @@ int launch(const void* x, const void* cos_t, const void* sin_t, void* y, int B, 
 
 extern "C" {
 
-// x: [B, S, H, D] in dtype (0 = float32, 1 = bfloat16), last dim contiguous,
-// element strides sb, ss, sh; cos, sin: contiguous fp32 [S, D/2]; y:
-// contiguous [B, S, H, D] in dtype. neg_sin != 0 rotates by -sin. Returns
-// cudaGetLastError() after the launch (0 = success), cudaErrorInvalidValue
-// for a dtype it does not take or an odd D.
+// x: [B, S, H, D] in dtype (0 = float32, 1 = bfloat16, 2 = float16), last
+// dim contiguous, element strides sb, ss, sh; cos, sin: contiguous fp32
+// [S, D/2]; y: contiguous [B, S, H, D] in dtype. neg_sin != 0 rotates by
+// -sin. Returns cudaGetLastError() after the launch (0 = success),
+// cudaErrorInvalidValue for a dtype it does not take or an odd D.
 int ptt_rope(const void* x, const void* cos_t, const void* sin_t, void* y, int B, int S, int H,
              int D, long long sb, long long ss, long long sh, int neg_sin, int dtype,
              void* stream) {
@@ -135,10 +136,10 @@ int ptt_rope(const void* x, const void* cos_t, const void* sin_t, void* y, int B
   if (B <= 0 || S <= 0 || H <= 0 || D <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sgn = neg_sin ? -1.f : 1.f;
-  if (dtype == 0) return launch<float>(x, cos_t, sin_t, y, B, S, H, D, sb, ss, sh, sgn, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, cos_t, sin_t, y, B, S, H, D, sb, ss, sh, sgn, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_dtype(dtype, [&](auto tag) {
+    return launch<typename decltype(tag)::type>(x, cos_t, sin_t, y, B, S, H, D, sb, ss, sh, sgn,
+                                                st);
+  });
 }
 
 }  // extern "C"

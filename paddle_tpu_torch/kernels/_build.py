@@ -7,8 +7,11 @@ family member and kernel), all started together, and linked by one
 ``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
 hash covers the sources, the headers and the flags, so a checkout builds at
-first use and reuses the library after that. Nothing here runs at import
-time.
+first use and reuses the library after that. The ``.cuh`` templates of the
+tile primitives are not compiled on their own: ``build_generated`` builds
+one small library per source that ``kernels/_codegen.py`` generates from a
+caller's function, under ``paddle_tpu_torch/_build/gen/<hash>/``, with the
+same ``nvcc`` and flags. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,10 +23,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["load_library", "build_library", "check", "launch", "is_cpu",
-           "dtype_code", "check_rows", "BUILD_LOG"]
+__all__ = ["load_library", "build_library", "build_generated",
+           "build_generated_many", "check", "launch", "is_cpu", "dtype_code",
+           "check_rows", "BUILD_LOG", "GEN_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +47,9 @@ _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
 # lines) and how long it took; empty when the library came from the cache
 BUILD_LOG = {"seconds": 0.0, "output": "", "cached": True, "path": ""}
+# the same for each generated library, by its path
+GEN_LOG: Dict[str, dict] = {}
+GEN_LIB_NAME = "libptt_generated.so"
 
 
 def _nvcc() -> str:
@@ -73,13 +80,41 @@ def _units():
             yield src, src.stem, []
 
 
-def _digest() -> str:
+def _digest(extra: str = "") -> str:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS + list(map(str, FLASH_D_PADS))).encode())
+    h.update(extra.encode())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: Sequence[List[str]], limit: int) -> List[str]:
+    """Run the commands, at most ``limit`` at a time; their outputs in order.
+    A failure raises and stops the rest."""
+    procs, outputs = {}, [""] * len(cmds)
+    pending = list(enumerate(cmds))
+    try:
+        while pending or procs:
+            while pending and len(procs) < limit:
+                i, cmd = pending.pop(0)
+                procs[i] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)
+            i = next(iter(procs))
+            out, _ = procs[i].communicate()
+            code = procs.pop(i).returncode
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}): "
+                                   f"{' '.join(cmds[i])}\n{out}")
+            outputs[i] = out
+    finally:
+        for proc in procs.values():   # a failed source stops the rest
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outputs
 
 
 def build_library() -> Path:
@@ -92,40 +127,69 @@ def build_library() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    jobs = []
-    try:
-        for src, stem, extra in _units():
-            obj = out_dir / f"{stem}.{pid}.o"
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        outputs = []
-        for cmd, _, proc in jobs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(cmd)}\n{out}")
-            outputs.append(out)
-    finally:
-        for _, _, proc in jobs:   # a failed source stops the rest
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    objs, cmds = [], []
+    for src, stem, extra in _units():
+        objs.append(out_dir / f"{stem}.{pid}.o")
+        cmds.append([nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o",
+                     str(objs[-1])])
+    outputs = _run_all(cmds, len(cmds))
     tmp = out_dir / (LIB_NAME + f".tmp{pid}")
-    cmd = [nvcc, *ARCH_FLAGS, "-shared", *(str(o) for _, o, _ in jobs),
-           "-o", str(tmp)]
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]
     res = subprocess.run(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                            f"{' '.join(cmd)}\n{res.stdout}")
-    for _, obj, _ in jobs:
+    for obj in objs:
         obj.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     BUILD_LOG.update(seconds=time.perf_counter() - t0,
                      output="\n".join(outputs + [res.stdout]), cached=False)
     return lib
+
+
+def _generated_path(source: str) -> Path:
+    return BUILD_ROOT / "gen" / _digest(source) / GEN_LIB_NAME
+
+
+def build_generated_many(sources: Sequence[str]) -> List[Path]:
+    """Compile (if needed) each generated source into its own shared
+    library, all at once (at most two ``nvcc`` a core), and return their
+    paths. A library's path hashes its source, the headers and the flags;
+    each is written under a temporary name and renamed into place, so a
+    concurrent loader never sees half a file."""
+    paths = [_generated_path(src) for src in sources]
+    todo = [(src, lib) for lib, src in dict(zip(paths, sources)).items()
+            if not lib.exists()]
+    for lib in paths:
+        if lib.exists() and str(lib) not in GEN_LOG:
+            GEN_LOG[str(lib)] = {"seconds": 0.0, "output": "",
+                                 "cached": True, "path": str(lib)}
+    if not todo:
+        return paths
+    nvcc, pid = _nvcc(), os.getpid()
+    cmds, tmps = [], []
+    for src, lib in todo:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        cu = lib.parent / "generated.cu"
+        cu.write_text(src)
+        tmps.append(lib.parent / f"{GEN_LIB_NAME}.tmp{pid}")
+        cmds.append([nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-shared", str(cu), "-o",
+                     str(tmps[-1])])
+    t0 = time.perf_counter()
+    outputs = _run_all(cmds, 2 * (os.cpu_count() or 1))
+    seconds = time.perf_counter() - t0
+    for (_, lib), tmp, out in zip(todo, tmps, outputs):
+        os.replace(tmp, lib)
+        GEN_LOG[str(lib)] = {"seconds": seconds, "output": out,
+                             "cached": False, "path": str(lib),
+                             "batch": len(todo)}
+    return paths
+
+
+def build_generated(source: str) -> Path:
+    """``build_generated_many`` of one source."""
+    return build_generated_many([source])[0]
 
 
 def load_library() -> ctypes.CDLL:
@@ -171,12 +235,15 @@ def load_library() -> ctypes.CDLL:
         "ptt_rms_norm_fwd": [vp] * 4 + [ll, ci, cf, ci, vp],
         # x, w, rstd, dy, dx, rows, H, dtype, stream
         "ptt_rms_norm_bwd": [vp] * 5 + [ll, ci, ci, vp],
+        # x, w, mean, rstd, dy, dx, dg, db, part, ticket, rows, H, blocks,
+        # dtype, stream
+        "ptt_kps_layer_norm_bwd": [vp] * 10 + [ll, ci, ci, ci, vp],
         # x, cos, sin, y, B, S, H, D, strides (b, s, h), neg_sin, dtype,
         # stream
         "ptt_rope": [vp] * 4 + [ci] * 4 + [ll] * 3 + [ci, ci, vp],
-        # p, g, m1, m2, master, n, p_dtype, m_dtype, lr, c1, c2, b1, 1-b1,
-        # b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
-        "ptt_fused_adam": [vp] * 5 + [ll, ci, ci] + [cf] * 10
+        # p, g, m1, m2, master, n, p / g / m1 / m2 dtypes, lr, c1, c2, b1,
+        # 1-b1, b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
+        "ptt_fused_adam": [vp] * 5 + [ll] + [ci] * 4 + [cf] * 10
         + [ci, cu, cu, vp],
     }
     for name, argtypes in signatures.items():
@@ -189,21 +256,23 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise on a non-zero CUDA status returned by a C entry point."""
+def check(code: int, what: str, error_string=None) -> None:
+    """Raise on a non-zero CUDA status returned by a C entry point
+    (``error_string``: the library's own, for a generated one)."""
     if code != 0:
-        msg = load_library().ptt_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        err = error_string or load_library().ptt_error_string
+        raise RuntimeError(f"{what}: CUDA error {code} "
+                           f"({err(code).decode()})")
 
 
-def launch(what: str, fn, device, *args) -> None:
+def launch(what: str, fn, device, *args, error_string=None) -> None:
     """``fn(*args, stream)`` on ``device``'s current stream, then raise on a
     non-zero CUDA status (``what`` names the call in the error)."""
     import torch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(*args, stream)
-    check(code, what)
+    check(code, what, error_string)
 
 
 def is_cpu(t, what: str) -> bool:
@@ -217,18 +286,20 @@ def is_cpu(t, what: str) -> bool:
 
 
 def dtype_code(t, what: str) -> int:
-    """The C entries' dtype argument: 0 for float32, 1 for bfloat16."""
+    """The C entries' dtype argument (``csrc/dtypes.cuh``): 0 for float32, 1
+    for bfloat16, 2 for float16."""
     import torch
-    code = {torch.float32: 0, torch.bfloat16: 1}.get(t.dtype)
+    code = {torch.float32: 0, torch.bfloat16: 1,
+            torch.float16: 2}.get(t.dtype)
     if code is None:
-        raise TypeError(f"{what} kernels take float32 or bfloat16, got "
-                        f"{t.dtype}")
+        raise TypeError(f"{what} kernels take float32, bfloat16 or float16, "
+                        f"got {t.dtype}")
     return code
 
 
 def check_rows(x2, what: str, *more) -> int:
-    """A row kernel's input: contiguous ``[rows, H]`` float32 or bfloat16,
-    with ``more`` on its device. Returns the dtype code."""
+    """A row kernel's input: contiguous ``[rows, H]`` float32, bfloat16 or
+    float16, with ``more`` on its device. Returns the dtype code."""
     code = dtype_code(x2, what)
     if x2.dim() != 2 or not x2.is_contiguous():
         raise ValueError(f"{what} kernels take contiguous [rows, H], got "

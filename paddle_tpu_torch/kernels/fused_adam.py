@@ -9,6 +9,9 @@ against 3.35 TB/s), one coalesced pass that reads and writes each element
 once, fp32 math in registers, and a counter-based Philox draw for the
 stochastic rounding of a bf16 moment2, seeded per leaf by the caller.
 
+Each of p, g, moment1 and moment2 is fp32, bf16 or fp16, in its own dtype,
+as the JAX gate admits them; the master, when present, is fp32.
+
 ``adam_update`` is the wrapper. It updates ``p`` and the slot's tensors IN
 PLACE (the Pallas kernel aliases the same buffers through
 ``input_output_aliases``) and returns ``(p, slot)``. A CUDA tensor goes to the
@@ -27,7 +30,7 @@ import torch
 __all__ = ["supported", "adam_update", "adam_update_plain", "sr_noise",
            "bias_corrections"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def supported(p, g, slot) -> bool:
@@ -117,6 +120,9 @@ def adam_update_plain(p, g, slot, lr, step, noise=None, *, beta1, beta2,
 
 
 def _check_cuda(p, g, slot):
+    """The kernel's operands: on p's device, contiguous, p's shape, each of
+    p, g, moment1 and moment2 in its own float dtype (fp32, bf16 or fp16),
+    the master fp32."""
     m1, m2 = slot["moment1"], slot["moment2"]
     master = slot.get("master")
     named = [("p", p), ("g", g), ("moment1", m1), ("moment2", m2)]
@@ -131,12 +137,10 @@ def _check_cuda(p, g, slot):
         if t.shape != p.shape:
             raise ValueError(f"fused_adam: {name} shape {tuple(t.shape)} != "
                              f"p shape {tuple(p.shape)}")
-    if p.dtype not in _DTYPE_CODE or g.dtype != p.dtype:
-        raise TypeError(f"fused_adam kernel takes float32 or bfloat16 p with "
-                        f"g of the same dtype, got p {p.dtype}, g {g.dtype}")
-    if m1.dtype not in _DTYPE_CODE or m2.dtype != m1.dtype:
-        raise TypeError(f"fused_adam kernel takes float32 or bfloat16 moments "
-                        f"of one dtype, got {m1.dtype}, {m2.dtype}")
+    for name, t in named[:4]:
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"fused_adam kernel takes float32, bfloat16 or "
+                            f"float16 arrays, got {name} {t.dtype}")
     if master is not None and master.dtype != torch.float32:
         raise TypeError(f"fused_adam: master must be float32, got "
                         f"{master.dtype}")
@@ -177,11 +181,12 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, slot: Dict[str, torch.Tensor],
             p.data_ptr(), g.data_ptr(), slot["moment1"].data_ptr(),
             slot["moment2"].data_ptr(),
             master.data_ptr() if master is not None else None, p.numel(),
-            _DTYPE_CODE[p.dtype], _DTYPE_CODE[slot["moment1"].dtype],
+            *(_DTYPE_CODE[t.dtype] for t in (p, g, slot["moment1"],
+                                             slot["moment2"])),
             lr, c1, c2, beta1, 1.0 - beta1, beta2, 1.0 - beta2, epsilon,
             l2, decoupled, int(sr), k0, k1, stream)
-    check(code, f"fused_adam launch (n={p.numel()} p {p.dtype} moments "
-          f"{slot['moment1'].dtype} sr={sr})")
+    check(code, f"fused_adam launch (n={p.numel()} p {p.dtype} g {g.dtype} "
+          f"moments {slot['moment1'].dtype} {slot['moment2'].dtype} sr={sr})")
     adam_update.LAUNCHES += 1
     return p, slot
 

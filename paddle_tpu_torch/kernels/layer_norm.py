@@ -27,7 +27,7 @@ import torch
 from ._build import check_rows, is_cpu, launch as _launch
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd_dx",
-           "layer_norm_fwd_plain", "layer_norm_bwd_plain"]
+           "layer_norm_fwd_plain", "layer_norm_bwd_plain", "launch_fwd"]
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held to on the card)
@@ -78,10 +78,9 @@ def _affine(t, H, what):
     return t.reshape(H).float().contiguous()
 
 
-def layer_norm_fwd(x2, weight, bias, epsilon):
-    """(y [rows, H] in x2's dtype, mean fp32 [rows], rstd fp32 [rows])."""
-    if is_cpu(x2, "layer_norm"):
-        return layer_norm_fwd_plain(x2, weight, bias, epsilon)
+def launch_fwd(x2, weight, bias, epsilon):
+    """The forward kernel on a CUDA ``x2`` (uncounted: each caller counts its
+    own launches; the tile primitives' LayerNorm runs it too)."""
     code = check_rows(x2, "layer_norm", weight,
                       *(() if bias is None else (bias,)))
     from ._build import load_library
@@ -95,8 +94,16 @@ def layer_norm_fwd(x2, weight, bias, epsilon):
             load_library().ptt_layer_norm_fwd, x2.device, x2.data_ptr(),
             w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), rows, H, float(epsilon), code)
-    layer_norm_fwd.LAUNCHES += 1
     return y, mean, rstd
+
+
+def layer_norm_fwd(x2, weight, bias, epsilon):
+    """(y [rows, H] in x2's dtype, mean fp32 [rows], rstd fp32 [rows])."""
+    if is_cpu(x2, "layer_norm"):
+        return layer_norm_fwd_plain(x2, weight, bias, epsilon)
+    out = launch_fwd(x2, weight, bias, epsilon)
+    layer_norm_fwd.LAUNCHES += 1
+    return out
 
 
 def layer_norm_bwd_dx(x2, weight, mean, rstd, dy):

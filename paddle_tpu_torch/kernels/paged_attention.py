@@ -24,7 +24,7 @@ import torch
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
 
 _NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, seq_lens,
@@ -52,12 +52,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, seq_lens,
 
 
 def _check_cuda(q, k_pool, v_pool, block_tables, seq_lens):
-    """What the kernel takes: one card, q fp32 or bf16 [B, H_q, D] with a
-    unit stride over D, contiguous pools of q's dtype, int32 tables and
-    lengths. Head dim, group size and alignment are the C entry's checks."""
+    """What the kernel takes: one card, q fp32, bf16 or fp16 [B, H_q, D]
+    with a unit stride over D, contiguous pools of q's dtype, int32 tables
+    and lengths. Head dim, group size and alignment are the C entry's checks."""
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged_decode_attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+        raise TypeError(f"paged_decode_attention kernel takes float32, "
+                        f"bfloat16 or float16, got {q.dtype}")
     if q.dim() != 3 or q.stride(2) != 1:
         raise ValueError(f"q must be [B, H_q, D] with a unit stride over D "
                          f"(shape {tuple(q.shape)}, strides {q.stride()})")

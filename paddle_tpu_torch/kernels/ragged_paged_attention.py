@@ -36,7 +36,7 @@ import torch
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain"]
 
 _NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pool element codes of the C entry: 0 = q's float dtype, then the
 # quantized storage dtypes with the top of their grid (qmax)
 _POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
@@ -89,8 +89,8 @@ def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     hkv, NB, _, D2 = k_pool.shape
     dev = q.device
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"ragged_paged_attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+        raise TypeError(f"ragged_paged_attention kernel takes float32, "
+                        f"bfloat16 or float16, got {q.dtype}")
     quantized = k_pool.dtype in _POOL_CODE
     if (k_scales is None) != (v_scales is None) or \
             quantized != (k_scales is not None):

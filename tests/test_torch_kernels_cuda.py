@@ -113,12 +113,12 @@ def test_kernel_c_entry_refuses_shapes_it_does_not_take(card, bad):
     assert RPA.ragged_paged_attention.LAUNCHES == before
 
 
-@pytest.mark.parametrize("bad", ["fp16", "int8_pool", "noncontig_q",
+@pytest.mark.parametrize("bad", ["fp64", "int8_pool", "noncontig_q",
                                  "pool_on_cpu"])
 def test_kernel_refuses_what_it_does_not_take(card, bad):
     args, scale = _case(card, torch.bfloat16, 4, 4, 16, 8)
-    if bad == "fp16":
-        args[:3] = [a.half() for a in args[:3]]
+    if bad == "fp64":
+        args[:3] = [a.double() for a in args[:3]]
     elif bad == "int8_pool":
         args[1], args[2] = args[1].to(torch.int8), args[2].to(torch.int8)
     elif bad == "noncontig_q":

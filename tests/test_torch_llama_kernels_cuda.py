@@ -103,8 +103,8 @@ def test_rms_norm_autograd_unaligned_rows_and_weight_dtypes(card, wdtype):
 
 def test_rms_norm_refuses_bad_inputs(card):
     x = torch.randn(4, 64, device=card)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        RN.rms_norm_fwd(x.half(), torch.ones(64, device=card), 1e-5)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        RN.rms_norm_fwd(x.double(), torch.ones(64, device=card), 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         RN.rms_norm_fwd(x.t(), torch.ones(4, device=card), 1e-5)
     with pytest.raises(ValueError, match="elements"):
@@ -164,8 +164,8 @@ def test_fused_rotary_position_embedding_launches_and_refusals(card):
     cpu = TI.fused_rotary_position_embedding(q.detach().cpu(),
                                              k.detach().cpu())
     assert _rel(oq.cpu(), cpu[0]) <= 1e-5 and _rel(ok.cpu(), cpu[1]) <= 1e-5
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        RP.rope(q.detach().half(), torch.ones(32, 32, device=card),
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        RP.rope(q.detach().double(), torch.ones(32, 32, device=card),
                 torch.ones(32, 32, device=card))
     # a D that is not contiguous is taken, as on the CPU: copied, then
     # rotated by the kernel

@@ -98,7 +98,7 @@ def test_cpu_wrapper_takes_plain_and_counts_no_launch():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("bad", ["fp16", "int8_pool", "q_d_stride",
+@pytest.mark.parametrize("bad", ["fp64", "int8_pool", "q_d_stride",
                                  "int64_lens", "mixed_dtype", "tables_1d"])
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(bad):
     """The checks a CUDA call passes before its launch, run on host
@@ -108,8 +108,8 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(bad):
     args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
     qkv = torch.zeros(4, 4, 3, 16, dtype=torch.bfloat16)
     PA._check_cuda(qkv[:, :, 0], *args[1:])      # strided q passes
-    if bad == "fp16":
-        args[:3] = [a.to(torch.float16) for a in args[:3]]
+    if bad == "fp64":
+        args[:3] = [a.to(torch.float64) for a in args[:3]]
     elif bad == "int8_pool":
         args[1], args[2] = args[1].to(torch.int8), args[2].to(torch.int8)
     elif bad == "q_d_stride":

@@ -116,14 +116,14 @@ def _kernel_args(dtype=torch.bfloat16):
     return args
 
 
-@pytest.mark.parametrize("bad", ["fp16", "int8_pool", "noncontig_q",
+@pytest.mark.parametrize("bad", ["fp64", "int8_pool", "noncontig_q",
                                  "int64_lens", "mixed_dtype", "head_dim"])
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(bad):
     """The checks a CUDA call passes before its launch, run on host
     tensors: wrong dtype, an int8 pool, a non-contiguous view."""
     args = _kernel_args()
-    if bad == "fp16":
-        args[:3] = [a.to(torch.float16) for a in args[:3]]
+    if bad == "fp64":
+        args[:3] = [a.to(torch.float64) for a in args[:3]]
     elif bad == "int8_pool":
         args[1] = args[1].to(torch.int8)
         args[2] = args[2].to(torch.int8)

@@ -102,7 +102,7 @@ def test_paged_decode_matches_plain(card, dtype, hq, hkv, D, bs):
     assert (out[2] == 0).all()                  # len 0 -> zeros
 
 
-@pytest.mark.parametrize("bad", ["fp16", "group_too_large", "head_dim_256",
+@pytest.mark.parametrize("bad", ["fp64", "group_too_large", "head_dim_256",
                                  "misaligned_pool", "int64_lens",
                                  "q_d_stride"])
 def test_paged_decode_refuses_what_it_does_not_take(card, bad):
@@ -110,8 +110,8 @@ def test_paged_decode_refuses_what_it_does_not_take(card, bad):
     hq, hkv, D = {"group_too_large": (64, 1, 64),
                   "head_dim_256": (4, 4, 256)}.get(bad, (4, 4, 16))
     args, scale = _decode_case(card, torch.bfloat16, hq, hkv, D, 8)
-    if bad == "fp16":
-        args[:3] = [a.half() for a in args[:3]]
+    if bad == "fp64":
+        args[:3] = [a.double() for a in args[:3]]
     elif bad == "misaligned_pool":
         shifted = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16,
                               device=card)[1:].view(args[1].shape)

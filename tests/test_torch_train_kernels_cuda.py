@@ -286,5 +286,5 @@ def test_fused_adam_refusals(card):
         FAD.adam_update(p.t(), g.t(), {k: v.t() for k, v in slot.items()},
                         1e-3, 1, None, beta1=0.9, beta2=0.999, epsilon=1e-8)
     with pytest.raises(TypeError):
-        FAD.adam_update(p.half(), g.half(), slot, 1e-3, 1, None, beta1=0.9,
-                        beta2=0.999, epsilon=1e-8)
+        FAD.adam_update(p.double(), g.double(), slot, 1e-3, 1, None,
+                        beta1=0.9, beta2=0.999, epsilon=1e-8)
