@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build every CUDA kernel of the serving path from ``paddle_tpu_torch/csrc``;
+2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
+   redesigned (wgmma + TMA) flash instance's registers and spill bytes;
 3. hold each kernel against its plain PyTorch version on the card, at the
    serving shapes (bf16, 16 heads of 128, block 32), and time kernel, plain
    version, a library yardstick and the card's bound;
@@ -855,6 +856,48 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
     log(f"{name}: plain and library backward times cover dq, dk and dv "
         f"together (the library: SDPA{' with ' + lib_on if lib_on else ''})")
     del qt, kt, vt, o_lib
+    return recs
+
+
+def flash_designs(name):
+    """How each instance of a flash kernel computes, by D_pad and dtype:
+    "wgmma+tma" (the 16-bit forward and dQ at D_pad <= 128,
+    csrc/flash_fwd_hopper.cu and flash_dq_hopper.cu: wgmma with the scores
+    and accumulators in registers, K / V through a TMA ring), "wmma" (the
+    other 16-bit instances: warp-level WMMA through shared memory), "fp32"
+    (the FP32-pipe kernels)."""
+    from paddle_tpu_torch.kernels import _build
+    wide = max(_build.FLASH_HOPPER_D_PADS)
+    out = {}
+    for d in _build.FLASH_D_PADS:
+        t = ("wgmma+tma" if name != "flash_bwd_dkv" and d <= wide
+             else "wmma")
+        out[f"D_pad {d}"] = {"bf16": t, "fp16": t, "fp32": "fp32"}
+    return out
+
+
+def wgmma_ptxas(output):
+    """[(kernel, dtype, D_pad, bias, ints, dropout, registers, spill store
+    bytes)] of the wgmma flash instances, from ptxas's -v lines."""
+    recs, cur = [], None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.search(r"(flash_(?:fwd|dq)_wgmma_kernel)I(\w+?)Li(\d+)E"
+                            r"Lb([01])ELb([01])ELb([01])E", m.group(1))
+            spill = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name, ty, d, *flags = cur.groups()
+            recs.append((name, "bf16" if "bfloat16" in ty else "fp16", int(d),
+                         *map(int, flags), int(m.group(1)), spill))
+            cur = None
     return recs
 
 
@@ -3423,46 +3466,66 @@ def band_rows(B, hm, Sk, Sq, rng, width=64):
     return start.astype(np.int32), end.astype(np.int32)
 
 
-def tile_shares(Sq, Sk, causal, window, fm=None, tile=64):
-    """The tiles the kernels run, counted on the host with the kernels'
-    rules written in numpy (flash_common.cuh key_begin / key_end for the
-    forward and dQ, query_begin / query_end for dK/dV, and the flashmask
-    skip: a tile is skipped when max start <= q0 and min end >= min(q0 +
-    64, Sq)), summed over the rows' (batch, mask head) slabs, against the
-    tiles the causal bound alone runs. Returns (fwd / dQ tiles, dK/dV
-    tiles, causal tiles)."""
+# the tiles each flash kernel walks at the 16-bit calls of D_pad <= 128:
+# (query rows, keys) -- the forward's and dQ's 128-row blocks over key
+# tiles of 128 and 64 (csrc/flash_fwd_hopper.cu kFwdBN,
+# csrc/flash_dq_hopper.cu kDqBN, flash_hopper.cuh kBM), dK/dV's 64 x 64
+# (flash_common.cuh kTile), key-major
+FLASH_TILES = {"flash_fwd": (128, 128, False), "flash_bwd_dq": (128, 64, False),
+               "flash_bwd_dkv": (64, 64, True)}
+
+
+def flash_tiles(name, var):
+    """FLASH_TILES[name], with the forward's key tiles of 64 beside a bias
+    (csrc/flash_fwd_hopper.cu fwd_bn)."""
+    bq, bk, key_major = FLASH_TILES[name]
+    if name == "flash_fwd" and var.get("bias") is not None:
+        bk = 64
+    return bq, bk, key_major
+
+
+def tile_shares(Sq, Sk, causal, window, fm=None, bq=64, bk=64,
+                key_major=False):
+    """The tiles a kernel runs, counted on the host with its rules written
+    in numpy (flash_hopper.cuh blk_key_begin / blk_key_end for a
+    query-major kernel of bq-row blocks over bk-key tiles, flash_common.cuh
+    query_begin / query_end for the key-major dK/dV, and the flashmask skip:
+    a tile is skipped when max start <= q0 and min end >= min(q0 + bq,
+    Sq)), summed over the rows' (batch, mask head) slabs, against the tiles
+    the causal bound alone runs at the same tile sizes. Returns (tiles run,
+    causal tiles)."""
     left, right = FA._norm_window(window) or (None, None)
     lo = -left if left is not None else -2 ** 30
     hi = right if right is not None else 2 ** 30
     if causal:
         hi = min(hi, 0)
-    off, nq, nk = Sk - Sq, -(-Sq // tile), -(-Sk // tile)
-    q0, k0 = np.arange(nq) * tile, np.arange(nk) * tile
+    off, nq, nk = Sk - Sq, -(-Sq // bq), -(-Sk // bk)
+    q0, k0 = np.arange(nq) * bq, np.arange(nk) * bk
 
-    def kband(lo, hi):
+    def band(lo, hi):   # [nq, nk]: tile (query block, key tile) walked
+        if key_major:
+            qfirst = k0 - off - hi
+            qb = np.where(qfirst <= 0, 0, qfirst // bq * bq)
+            qe = np.clip(k0 + bk - off - lo, 0, Sq)
+            return (q0[:, None] >= qb[None]) & (q0[:, None] < qe[None])
         first = q0 + off + lo
-        kb = np.where(first <= 0, 0, first // tile * tile)
-        ke = np.clip(q0 + tile + off + hi, 0, Sk)
+        kb = np.where(first <= 0, 0, first // bk * bk)
+        ke = np.clip(q0 + bq + off + hi, 0, Sk)
         return (k0[None] >= kb[:, None]) & (k0[None] < ke[:, None])
-    qfirst = k0 - off - hi
-    qb = np.where(qfirst <= 0, 0, qfirst // tile * tile)
-    qe = np.clip(k0 + tile - off - lo, 0, Sq)
-    band_f, band_c = kband(lo, hi), kband(-2 ** 30, 0)
-    band_d = (q0[:, None] >= qb[None]) & (q0[:, None] < qe[None])
+    run, causal_band = band(lo, hi), band(-2 ** 30, 0)
     if fm is None:
-        return int(band_f.sum()), int(band_d.sum()), int(band_c.sum())
+        return int(run.sum()), int(causal_band.sum())
     start, end = (t.cpu().numpy() for t in fm)
     B, hm, _ = start.shape
-    pad = ((0, 0), (0, 0), (0, nk * tile - Sk))
+    pad = ((0, 0), (0, 0), (0, nk * bk - Sk))
     mx = np.pad(start, pad, constant_values=INT32_MIN).reshape(
-        B, hm, nk, tile).max(-1)
+        B, hm, nk, bk).max(-1)
     mn = np.pad(end, pad, constant_values=INT32_MAX).reshape(
-        B, hm, nk, tile).min(-1)
-    qn = np.minimum(q0 + tile, Sq)
+        B, hm, nk, bk).min(-1)
+    qn = np.minimum(q0 + bq, Sq)
     masked = (mx[:, :, None, :] <= q0[:, None]) & (
         mn[:, :, None, :] >= qn[:, None])
-    return (int((band_f & ~masked).sum()), int((band_d & ~masked).sum()),
-            int(band_c.sum()) * B * hm)
+    return int((run & ~masked).sum()), int(causal_band.sum()) * B * hm
 
 
 def fm_pairs(q, k, causal, var):
@@ -3567,9 +3630,13 @@ def flashmask_forms_phase():
                     require(rec["dead_rows"] == q.shape[0] * q.shape[1]
                             * q.shape[2], "dead rows: a row saw a key")
                 if D == 64 and dtype == torch.bfloat16:
-                    f, d, c = tile_shares(q.shape[1], k.shape[1], causal,
-                                          var.get("window"), var.get("fm"))
-                    shares[name] = dict(fwd_dq=f / c, dkv=d / c, causal=c)
+                    shares[name] = {}
+                    for kname in FLASH_TILES:
+                        run, c = tile_shares(q.shape[1], k.shape[1], causal,
+                                             var.get("window"),
+                                             var.get("fm"),
+                                             *flash_tiles(kname, var))
+                        shares[name][kname] = dict(share=run / c, causal=c)
     for dtype in (torch.bfloat16, torch.float32):
         name, q, k, v, do, causal, var = fm_forms(dtype, 64, gen, rng)[7]
         rec = check_attn(f"({str(dtype)[6:]}) d-bias with {name}", q, k, v,
@@ -3577,8 +3644,10 @@ def flashmask_forms_phase():
         worst[f"dbias_{str(dtype)[6:]}"] = rec["dbias_l2"]
     fm_dropout_bits_check()
     for name, sh in shares.items():
-        log(f"tiles run ({name}): forward / dQ {sh['fwd_dq']:.1%}, dK/dV "
-            f"{sh['dkv']:.1%} of the {sh['causal']} causal tiles")
+        log(f"tiles run ({name}), of the causal tiles at each kernel's tile "
+            f"sizes: " + ", ".join(
+                f"{kname} {r['share']:.1%} of {r['causal']}"
+                for kname, r in sh.items()))
     log(f"worst tile L2 rel err per D and dtype: {worst}")
     torch.cuda.empty_cache()
     return {"worst_tile": worst, "tile_shares": shares}
@@ -3636,7 +3705,6 @@ def flashmask_timed_phase(card):
             f"{pairs / causal_pairs:.1%} of causal)")
         rec = check_attn(f"(bf16) {title}", q, k, v, do, True, var,
                          card=card, pairs=pairs)
-        f, d, c = tile_shares(S, S, True, var.get("window"), var.get("fm"))
         causal_ms = time_flash(q, k, v, do, True, {})
         vis = FA._visible(S, S, True, DEV, fm=var.get("fm"),
                           window=var.get("window"))
@@ -3644,7 +3712,9 @@ def flashmask_timed_phase(card):
         bias = bias[:, :1] if bias.dim() == 4 else bias[None, None]
         dense_ms = time_flash(q, k, v, do, False, dict(bias=bias))
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            share = (f if name != "flash_bwd_dkv" else d) / c
+            run, c = tile_shares(S, S, True, var.get("window"),
+                                 var.get("fm"), *flash_tiles(name, var))
+            share = run / c
             r = rec[name]
             r.update(causal_ms=causal_ms[name], dense_bias_ms=dense_ms[name],
                      tile_share=share,
@@ -4179,6 +4249,15 @@ def main() -> int:
     if spills:
         log(f"{len(spills)} kernels compiled, {sum(n > 0 for n in spills)} "
             f"with spill stores (at most {max(spills)} bytes a thread)")
+    wg = wgmma_ptxas(_build.BUILD_LOG["output"])
+    for name, ty, d, *rest in wg:
+        log(f"  {name}<{ty}, D_pad {d}, bias {rest[0]}, ints {rest[1]}, "
+            f"dropout {rest[2]}>: {rest[3]} registers at launch (setmaxnreg "
+            f"then moves them to the consumers), {rest[4]} bytes spill "
+            f"stores")
+    if wg:
+        log(f"{len(wg)} wgmma flash instances, "
+            f"{sum(r[-1] > 0 for r in wg)} with spill stores")
 
     t0 = phase("3. kernel vs plain on the card")
     rng = np.random.RandomState(0)
@@ -4364,12 +4443,24 @@ def main() -> int:
              no_mask_retimed={tag: fm_entry[tag][name]
                               for tag in ("gpt_flagship", "bert_packed")})
         for name, src, rep in (
-            ("flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+            ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
              f"{fa}:451"),
             ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
              f"{fa}:747"),
-            ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_dq_hopper.cu",
              f"{fa}:796"))]
+    for k in kernels[1:4]:
+        k["design"] = flash_designs(k["name"])
+        k["tiles"] = dict(zip(("query_rows", "keys", "key_major"),
+                              FLASH_TILES[k["name"]]))
+        if k["name"] == "flash_fwd":
+            k["tiles"]["keys_with_a_bias"] = flash_tiles(
+                "flash_fwd", {"bias": True})[1]
+        k["other_sources"] = {
+            "wmma": "paddle_tpu_torch/csrc/flash_attention_"
+                    + ("fwd.cu" if k["name"] == "flash_fwd" else "bwd.cu"),
+            "fp32": "paddle_tpu_torch/csrc/flash_attention_"
+                    + ("fwd.cu" if k["name"] == "flash_fwd" else "bwd.cu")}
     kernels.append(dict(
         name="fused_adam", route="cuda",
         source="paddle_tpu_torch/csrc/fused_adam.cu",
@@ -4389,7 +4480,8 @@ def main() -> int:
              shape="decode B=8 H=16 D=128 bs=32 bf16, lens 100..640",
              two_program=two),
         dict(name="flash_fwd_bias", route="cuda",
-             source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+             source="paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
+             design=flash_designs("flash_fwd"),
              replaces=f"{fa}:275",
              launches=two["launches"]["flash_fwd"],
              **{k: bias[k] for k in keys},

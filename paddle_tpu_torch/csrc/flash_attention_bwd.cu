@@ -705,12 +705,16 @@ int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid = kDq ? dim3((a.Sq + kTile - 1) / kTile, a.H, a.B)
                         : dim3((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
   if constexpr (kDq) {
-    if (dtype == kBF16)
-      return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
-                           grid, a, s);
-    if (dtype == kF16)
-      return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
-                           grid, a, s);
+    // bf16 / fp16 here only at D_pad 192 and 256 (dq_run hands the narrower
+    // 16-bit calls to the wgmma kernel of flash_dq_hopper.cu)
+    if constexpr (D > 128) {
+      if (dtype == kBF16)
+        return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
+                             grid, a, s);
+      if (dtype == kF16)
+        return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
+                             grid, a, s);
+    }
     return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
   } else {
     if (dtype == kBF16)
@@ -746,6 +750,9 @@ int bwd(const Args& a, int dtype, cudaStream_t s) {
 #if PTT_FLASH_DQ
 template <int D>
 int dq_run(const Args& a, int dtype, cudaStream_t s) {
+  if constexpr (D <= 128) {
+    if (dtype != kF32) return dq_hopper_run<hopper_width(D)>(a, dtype, s);
+  }
   return bwd<true, D>(a, dtype, s);
 }
 template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);

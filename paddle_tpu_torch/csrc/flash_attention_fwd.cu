@@ -349,19 +349,20 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_ker
   }
 }
 
+// fp32 at every width; bf16 / fp16 here only at D_pad 192 and 256 (fwd_run
+// hands the narrower 16-bit calls to the wgmma kernel of flash_fwd_hopper.cu)
 template <int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-  switch (dtype) {
-    case kBF16:
+  if constexpr (D > 128) {
+    if (dtype == kBF16)
       return launch_kernel(flash_fwd_tc_kernel<bf16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
                            grid, a, s);
-    case kF16:
+    if (dtype == kF16)
       return launch_kernel(flash_fwd_tc_kernel<f16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
                            grid, a, s);
-    default:
-      return launch_kernel(flash_fwd_kernel<D, kBias, kInt, kDrop>, fwd_smem<D>(), grid, a, s);
   }
+  return launch_kernel(flash_fwd_kernel<D, kBias, kInt, kDrop>, fwd_smem<D>(), grid, a, s);
 }
 
 // the variants: integer masks (segments and / or flashmask rows) and dropout
@@ -378,6 +379,9 @@ int launch_flags(const Args& a, int dtype, cudaStream_t s) {
 
 template <int D>
 int fwd_run(const Args& a, int dtype, cudaStream_t s) {
+  if constexpr (D <= 128) {
+    if (dtype != kF32) return fwd_hopper_run<hopper_width(D)>(a, dtype, s);
+  }
   return a.bias != nullptr ? launch_flags<D, true>(a, dtype, s)
                            : launch_flags<D, false>(a, dtype, s);
 }

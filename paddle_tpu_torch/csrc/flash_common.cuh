@@ -32,8 +32,11 @@
 // slowed the calls with segments alone: the packed BERT forward by 8.6 %
 // on the card.)
 //
-// Instances: 3 kernels x 6 widths x 3 element types x 8 (bias, integer
-// masks, dropout: template flags) = 432, built as 18 objects in parallel.
+// Instances, each x 8 (bias, integer masks, dropout: template flags): the
+// fp32 kernels (3 kernels x 6 widths), the 16-bit WMMA kernels (dK/dV at 6
+// widths; the forward and dQ at D_pad 192 and 256) and the redesigned
+// 16-bit forward and dQ (wgmma + TMA: 2 kernels x 2 widths), each in bf16 and
+// fp16: 368, built as 22 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -124,6 +127,15 @@ template <int D>
 int dq_run(const Args& a, int dtype, cudaStream_t stream);
 template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t stream);
+// The redesigned bf16 / fp16 forward and dQ kernels (wgmma and a TMA ring:
+// flash_fwd_hopper.cu, flash_dq_hopper.cu), one object per width in {64,
+// 128}; fwd_run / dq_run hand them the 16-bit calls of D_pad <= 128, whose
+// heads the next of those widths holds (hopper_width).
+template <int D>
+int fwd_hopper_run(const Args& a, int dtype, cudaStream_t stream);
+template <int D>
+int dq_hopper_run(const Args& a, int dtype, cudaStream_t stream);
+__host__ __device__ constexpr int hopper_width(int d_pad) { return d_pad <= 64 ? 64 : 128; }
 
 // ---------------------------------------------------------------------------
 // element types

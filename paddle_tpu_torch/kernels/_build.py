@@ -42,6 +42,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # backward once per member and kernel (-DPTT_FLASH_DQ=1 for dQ, 0 for
 # dK/dV), so the family builds in parallel
 FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
+# the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
+# flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
+FLASH_HOPPER_D_PADS = (64, 128)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -66,10 +69,14 @@ def _nvcc() -> str:
 
 def _units():
     """(source, object stem, extra flags): one per source, and one per
-    head-dim family member (and backward kernel) for the flash sources."""
+    head-dim family member (and backward kernel) for the flash sources, one
+    per redesigned width for the wgmma flash sources."""
     for src in sorted(CSRC.glob("*.cu")):
         if src.name == "flash_attention_fwd.cu":
             for d in FLASH_D_PADS:
+                yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
+        elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu"):
+            for d in FLASH_HOPPER_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name == "flash_attention_bwd.cu":
             for d in FLASH_D_PADS:
@@ -85,7 +92,7 @@ def _digest(extra: str = "") -> str:
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + list(map(str, FLASH_D_PADS))).encode())
+    h.update(" ".join(NVCC_FLAGS + list(map(str, FLASH_D_PADS + FLASH_HOPPER_D_PADS))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]
 

@@ -20,9 +20,13 @@ in fp32 from the kernel's own p and dP in a first pass over the keys, not
 from the saved output (``rowsum(dO * O)``, as the Pallas kernels form it),
 so that each row's dS sums to zero to fp32 rounding even where the output
 was rounded to 16 bits; the backward needs no ``out``. For bf16 and fp16 the
-products run on the tensor cores (warp-level WMMA from 16-bit shared tiles,
-fp32 accumulators, the softmax in fp32 between them); for fp32 on the FP32
-pipes from fp32 shared tiles, exact to fp32 rounding.
+products run on the tensor cores: the forward and dQ kernels at head widths
+up to 128 through ``wgmma``, with the scores, probabilities and accumulators
+in registers and K / V fed by a TMA ring (``csrc/flash_fwd_hopper.cu``,
+``csrc/flash_dq_hopper.cu``); the dK/dV kernel, and the forward and dQ at
+widths 192 and 256, through warp-level WMMA from 16-bit shared tiles; fp32
+accumulators and the softmax in fp32 either way. For fp32 on the FP32 pipes
+from fp32 shared tiles, exact to fp32 rounding.
 
 Head dims and dtypes. The kernels take every D from 1 to 256 (the JAX
 gate's ``supported``: D <= 256) in fp32, bf16 and fp16; any other dtype
@@ -388,14 +392,25 @@ def _row_width(D, itemsize):
     return -(-D // per) * per
 
 
+def _broadcasts(t):
+    """True for a 16-bit view that repeats itself over a (batch, seq, head)
+    dim longer than 1 (stride 0): the 16-bit forward and dQ kernels load
+    their tiles through TMA tensor maps, which take no zero stride."""
+    return t.element_size() == 2 and any(
+        st == 0 and n > 1 for st, n in zip(t.stride()[:3], t.shape[:3]))
+
+
 def _padded(Dr, *ts):
     """The inputs as the kernels read them: a head narrower than ``Dr`` is
-    copied once into a zero-padded contiguous buffer; then every base and
-    (batch, seq, head) stride must be 16-byte aligned."""
+    copied once into a zero-padded contiguous buffer, and a 16-bit view
+    broadcast over a dim (``_broadcasts``) into a contiguous one; then every
+    base and (batch, seq, head) stride must be 16-byte aligned."""
     out = []
     for i, t in enumerate(ts):
         if t.shape[-1] != Dr:
             t = torch.nn.functional.pad(t, (0, Dr - t.shape[-1]))
+        elif _broadcasts(t):
+            t = t.contiguous()
         it = t.element_size()
         if t.data_ptr() % 16 or any(s * it % 16 for s in t.stride()[:3]):
             raise ValueError(f"input {i}: base and strides must be 16-byte "

@@ -6,14 +6,19 @@
 ``paddle_tpu_torch/``); ``--child`` defaults to this checkout. Each version
 runs in its own process (the two packages share a name), in the order
 parent, child, child, parent, and times the forward, dQ and dK/dV kernels
-with no flashmask rows and no window at two calls: the GPT-1.3B flagship's
-(B 8, S 1024, H 16, D 128, causal, bf16, q / k / v strided views of one
-head-major qkv) and the packed BERT-base call ([10, 512, 12, 64] bf16, the
-corpus' segment ids from ``chip_smoke.py``'s ``bert_batch``, dropout 0.1).
-Each time is the median of 30 CUDA-event timings with the L2 flushed before
-each launch, as ``chip_smoke.py`` ``cuda_ms`` takes them. Both checkouts
-build their kernels at first use. Prints one line per run and a last JSON
-line with the card's name and power limit.
+at five calls: the GPT-1.3B flagship's (B 8, S 1024, H 16, D 128, causal,
+bf16, q / k / v strided views of one head-major qkv), the eager Llama's (q
+[8, 1024, 16, 128], k / v [8, 1024, 4, 128], causal, bf16), the packed
+BERT-base call ([10, 512, 12, 64] bf16, the corpus' segment ids from
+``chip_smoke.py``'s ``bert_batch``, dropout 0.1), the padded BERT-base call
+([16, 512, 12, 64] bf16, ``bench_bert_base``'s bool mask as a bf16 bias
+[16, 1, 512, 512], dropout 0.1) and flashmask form (a) (the Llama call with
+``chip_smoke.py`` phase 29's causal document rows). Each time is the median
+of 30 CUDA-event timings with the L2 flushed before each launch, as
+``chip_smoke.py`` ``cuda_ms`` takes them. Both checkouts build their kernels
+at first use. Prints one line per run and a last JSON line with the card's
+name and power limit, every run, and each kernel's mean over the two runs
+of each checkout with the child's share of the parent's time.
 """
 
 from __future__ import annotations
@@ -79,6 +84,37 @@ q, k, v, do = (torch.randn(seg.shape[0], S, 12, 64, generator=gen,
                            device=dev).to(torch.bfloat16) for _ in range(4))
 res["bert_packed"] = kernels(q, k, v, do, False, q_seg=seg, kv_seg=seg,
                              dropout_p=0.1, seed=1235)
+del q, k, v, do
+# bench_bert_base's padded batch: RandomState(0) lengths in U[S/8, S] over
+# 16 sequences, the mask valid[:, None, None, :] & valid[:, None, :, None]
+B = 16
+lens = np.random.RandomState(0).randint(S // 8, S + 1, (B,))
+valid = torch.from_numpy(np.arange(S)[None, :] < lens[:, None]).to(dev)
+mask = valid[:, None, None, :] & valid[:, None, :, None]
+bias = torch.where(mask, 0.0, -1e30).to(torch.bfloat16)
+q, k, v, do = (torch.randn(B, S, 12, 64, generator=gen, device=dev).to(
+    torch.bfloat16) for _ in range(4))
+res["bert_padded"] = kernels(q, k, v, do, False, bias=bias, dropout_p=0.1,
+                             seed=2401)
+del q, k, v, do, bias, mask
+q, do = (torch.randn(8, 1024, 16, 128, generator=gen, device=dev).to(
+    torch.bfloat16) for _ in range(2))
+k, v = (torch.randn(8, 1024, 4, 128, generator=gen, device=dev).to(
+    torch.bfloat16) for _ in range(2))
+res["llama_gqa"] = kernels(q, k, v, do, True)
+# phase 29's cell (a): C = 1 causal document rows, lengths
+# RandomState(0).randint(64, 513) packed into each row of 1024
+rng = np.random.RandomState(0)
+rows = np.zeros((8, 1, 1024), np.int32)
+for b in range(8):
+    pos = 0
+    while pos < 1024:
+        n = min(int(rng.randint(64, 513)), 1024 - pos)
+        rows[b, 0, pos:pos + n] = pos + n
+        pos += n
+start = torch.from_numpy(rows).to(dev)
+res["flashmask_doc"] = kernels(q, k, v, do, True,
+                               fm=(start, torch.full_like(start, 1024)))
 print(json.dumps(res))
 '''
 
@@ -106,7 +142,18 @@ def main(argv=None) -> int:
         print(f"{tag}: " + "; ".join(
             f"{call} forward / dQ / dK/dV " + " / ".join(f"{t:.4f}" for t in ts)
             + " ms" for call, ts in res.items()), flush=True)
-    print(json.dumps({"card": card, "runs": runs}))
+    summary = {}
+    for call in runs[0][1]:
+        for i, kernel in enumerate(("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")):
+            mean = {tag: sum(r[call][i] for t, r in runs if t == tag) / 2
+                    for tag in ("parent", "child")}
+            summary[f"{call} {kernel}"] = dict(
+                mean, child_share=mean["child"] / mean["parent"])
+            print(f"{call} {kernel}: parent {mean['parent']:.4f} ms, child "
+                  f"{mean['child']:.4f} ms, child / parent "
+                  f"{mean['child'] / mean['parent']:.3f}  [{card}]")
+    print(json.dumps({"card": card, "runs": runs, "means": summary}))
     return 0
 
 
