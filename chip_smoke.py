@@ -860,20 +860,18 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
 
 
 def flash_designs(name):
-    """How each instance of a flash kernel computes, by D_pad and dtype:
-    "wgmma+tma" (the 16-bit forward and dQ at D_pad <= 128,
-    csrc/flash_fwd_hopper.cu and flash_dq_hopper.cu: wgmma with the scores
-    and accumulators in registers, K / V through a TMA ring), "wmma" (the
-    other 16-bit instances: warp-level WMMA through shared memory), "fp32"
-    (the FP32-pipe kernels)."""
+    """How each instance of a flash kernel computes, by D_pad and dtype, as
+    the built library reports it (FA.kernel_plan): "wgmma+tma" (the 16-bit
+    forward and dQ, csrc/flash_fwd_hopper.cu and flash_dq_hopper.cu: wgmma
+    with the scores and accumulators in registers, K / V through a TMA
+    ring), "wmma" (the 16-bit dK/dV: warp-level WMMA through shared
+    memory), "fp32" (the FP32-pipe kernels)."""
     from paddle_tpu_torch.kernels import _build
-    wide = max(_build.FLASH_HOPPER_D_PADS)
-    out = {}
-    for d in _build.FLASH_D_PADS:
-        t = ("wgmma+tma" if name != "flash_bwd_dkv" and d <= wide
-             else "wmma")
-        out[f"D_pad {d}"] = {"bf16": t, "fp16": t, "fp32": "fp32"}
-    return out
+    return {f"D_pad {d}": {tag: FA.kernel_plan(name, d, dt)["design"]
+                           for tag, dt in (("bf16", torch.bfloat16),
+                                           ("fp16", torch.float16),
+                                           ("fp32", torch.float32))}
+            for d in _build.FLASH_D_PADS}
 
 
 def wgmma_ptxas(output):
@@ -2049,6 +2047,51 @@ def philox_bits_check():
         require(fwd_ok and dkv_ok, "the CUDA and torch Philox masks differ")
 
 
+def keep_bits_across_tiles_check():
+    """The 16-bit forward's and dQ's keep bits past their first key tile
+    (the checks above span one tile of the forward's 128 keys): Sk = 320
+    keys, q = k = 0 so every probability is 1 / Sk. The forward reads D
+    keys a call through v one-hot on keys [w, w + D), bit for bit. dQ: with
+    dO . v = 1 for every pair dP is the keep bit over (1 - p), so its
+    d-bias p (dP - delta) is positive exactly where a key was kept, and
+    delta is the row's kept count over Sk (1 - p). At D 128 and 256 (the
+    tiles of 128, 64 and 32 keys), with a zero bias and without."""
+    B, Sq, Sk, H, p, seed = 2, 192, 320, 2, 0.3, 2 ** 40 + 4242
+    dt = torch.bfloat16
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, DEV)
+    want = keep.float().sum(-1) / (Sk * (1 - p))
+    for D in (128, 256):
+        zq = torch.zeros(B, Sq, H, D, device=DEV, dtype=dt)
+        zk = torch.zeros(B, Sk, H, D, device=DEV, dtype=dt)
+        ones = zk.clone()
+        ones[..., 0] = 1
+        do = zq.clone()
+        do[..., 0] = 1
+        for bias in (None, torch.zeros(1, 1, Sq, Sk, device=DEV, dtype=dt)):
+            var = dict(bias=bias, dropout_p=p, seed=seed)
+            fwd_ok = True
+            for w in range(0, Sk, D):
+                n = min(D, Sk - w)
+                v = zk.clone()
+                idx = torch.arange(n, device=DEV)
+                v[:, w + idx, :, idx] = 1
+                out, lse = FA.flash_fwd(zq, zk, v, False, 1.0, **var)
+                fwd_ok &= torch.equal(
+                    out[..., :n].permute(0, 2, 1, 3) > 0, keep[..., w:w + n])
+            got = FA.flash_bwd_dq(zq, zk, ones, lse, do, False, 1.0,
+                                  bias_grad=bias is not None, **var)
+            delta_err = ((got[1] - want).abs() / want).max().item()
+            dq_ok = delta_err <= 1e-5 and (
+                bias is None or torch.equal(got[2] > 0, keep))
+            log(f"Philox masks over {Sk} keys, D {D}, "
+                f"{'a zero bias' if bias is not None else 'no bias'}: "
+                f"forward kernel == plain {fwd_ok}, dQ kernel "
+                f"{'d-bias == plain ' if bias is not None else ''}"
+                f"{dq_ok} (delta rel err {delta_err:.2e})")
+            require(fwd_ok and dq_ok, "past the first key tile, the CUDA and "
+                    "torch Philox masks differ")
+
+
 def flash_variant_phase(card):
     cfg = TB.BertConfig()
     H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
@@ -2061,6 +2104,7 @@ def flash_variant_phase(card):
         f"{pairs} visible pairs per head ({pairs / (B * S * S):.1%} of "
         f"B S^2)")
     philox_bits_check()
+    keep_bits_across_tiles_check()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(16)
     recs = {}
@@ -3466,22 +3510,16 @@ def band_rows(B, hm, Sk, Sq, rng, width=64):
     return start.astype(np.int32), end.astype(np.int32)
 
 
-# the tiles each flash kernel walks at the 16-bit calls of D_pad <= 128:
-# (query rows, keys) -- the forward's and dQ's 128-row blocks over key
-# tiles of 128 and 64 (csrc/flash_fwd_hopper.cu kFwdBN,
-# csrc/flash_dq_hopper.cu kDqBN, flash_hopper.cuh kBM), dK/dV's 64 x 64
-# (flash_common.cuh kTile), key-major
-FLASH_TILES = {"flash_fwd": (128, 128, False), "flash_bwd_dq": (128, 64, False),
-               "flash_bwd_dkv": (64, 64, True)}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-def flash_tiles(name, var):
-    """FLASH_TILES[name], with the forward's key tiles of 64 beside a bias
-    (csrc/flash_fwd_hopper.cu fwd_bn)."""
-    bq, bk, key_major = FLASH_TILES[name]
-    if name == "flash_fwd" and var.get("bias") is not None:
-        bk = 64
-    return bq, bk, key_major
+def flash_tiles(name, var, D):
+    """(query rows, keys, key-major) of the tiles the bf16 kernel `name`
+    walks at head dim D with the variant `var`, as the built library
+    reports them (FA.kernel_plan)."""
+    plan = FA.kernel_plan(name, D, torch.bfloat16,
+                          bias=var.get("bias") is not None)
+    return plan["query_rows"], plan["keys"], plan["key_major"]
 
 
 def tile_shares(Sq, Sk, causal, window, fm=None, bq=64, bk=64,
@@ -3631,11 +3669,11 @@ def flashmask_forms_phase():
                             * q.shape[2], "dead rows: a row saw a key")
                 if D == 64 and dtype == torch.bfloat16:
                     shares[name] = {}
-                    for kname in FLASH_TILES:
+                    for kname in FLASH_KERNELS:
                         run, c = tile_shares(q.shape[1], k.shape[1], causal,
                                              var.get("window"),
                                              var.get("fm"),
-                                             *flash_tiles(kname, var))
+                                             *flash_tiles(kname, var, D))
                         shares[name][kname] = dict(share=run / c, causal=c)
     for dtype in (torch.bfloat16, torch.float32):
         name, q, k, v, do, causal, var = fm_forms(dtype, 64, gen, rng)[7]
@@ -3711,9 +3749,9 @@ def flashmask_timed_phase(card):
         bias = torch.where(vis, 0.0, -1e30).to(torch.bfloat16)
         bias = bias[:, :1] if bias.dim() == 4 else bias[None, None]
         dense_ms = time_flash(q, k, v, do, False, dict(bias=bias))
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for name in FLASH_KERNELS:
             run, c = tile_shares(S, S, True, var.get("window"),
-                                 var.get("fm"), *flash_tiles(name, var))
+                                 var.get("fm"), *flash_tiles(name, var, FM_D))
             share = run / c
             r = rec[name]
             r.update(causal_ms=causal_ms[name], dense_bias_ms=dense_ms[name],
@@ -4257,7 +4295,9 @@ def main() -> int:
             f"stores")
     if wg:
         log(f"{len(wg)} wgmma flash instances, "
-            f"{sum(r[-1] > 0 for r in wg)} with spill stores")
+            f"{sum(r[-1] > 0 for r in wg)} with spill stores, "
+            f"{sum(r[-1] > 0 for r in wg if r[2] <= 128)} of them at D_pad "
+            f"<= 128")
 
     t0 = phase("3. kernel vs plain on the card")
     rng = np.random.RandomState(0)
@@ -4449,18 +4489,9 @@ def main() -> int:
              f"{fa}:747"),
             ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_dq_hopper.cu",
              f"{fa}:796"))]
-    for k in kernels[1:4]:
-        k["design"] = flash_designs(k["name"])
-        k["tiles"] = dict(zip(("query_rows", "keys", "key_major"),
-                              FLASH_TILES[k["name"]]))
-        if k["name"] == "flash_fwd":
-            k["tiles"]["keys_with_a_bias"] = flash_tiles(
-                "flash_fwd", {"bias": True})[1]
-        k["other_sources"] = {
-            "wmma": "paddle_tpu_torch/csrc/flash_attention_"
-                    + ("fwd.cu" if k["name"] == "flash_fwd" else "bwd.cu"),
-            "fp32": "paddle_tpu_torch/csrc/flash_attention_"
-                    + ("fwd.cu" if k["name"] == "flash_fwd" else "bwd.cu")}
+    for k in kernels:
+        if k["name"] in FLASH_KERNELS:
+            k["design"] = flash_designs(k["name"])
     kernels.append(dict(
         name="fused_adam", route="cuda",
         source="paddle_tpu_torch/csrc/fused_adam.cu",

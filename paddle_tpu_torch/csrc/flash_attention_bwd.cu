@@ -89,13 +89,14 @@
 // three products per visible pair, dK/dV four) on ~4x its bytes, so they
 // are FLOP-bound near 0.09 ms together; the dQ kernel does more (five
 // products in fp32, six in 16 bits: the delta pass and the lo half of ds).
-// Like the forward, these first kernels run their products on the tensor
-// cores through WMMA for bf16 and fp16 (ds and p rounded to T for the
-// products that take them, ds as hi + lo for dq; dq, dk and dv accumulate in
-// fp32 fragments across the whole loop) and on the FP32 pipes from padded
-// fp32 tiles for fp32. Each product round-trips through shared memory and no
-// load overlaps the math, so they sit far above that bound; wgmma and a load
-// pipeline are the next steps.
+// The fp32 kernels here run their products on the FP32 pipes from padded
+// fp32 tiles. For bf16 and fp16, dq_run hands dQ to the wgmma kernel of
+// flash_dq_hopper.cu; the dK/dV kernel here runs its products on the tensor
+// cores through WMMA (ds and p rounded to T for the products that take
+// them; dk and dv accumulate in fp32 fragments across the whole loop). Each
+// of its products round-trips through shared memory and no load overlaps
+// the math, so it sits far above its bound: wgmma and a load pipeline, as
+// in flash_dq_hopper.cu, are the next step.
 
 #include "flash_common.cuh"
 
@@ -423,138 +424,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
 // bf16 / fp16: the same two kernels with their products on the tensor cores
 template <int D>
-constexpr size_t dq_tc_smem() {
-  return 2 * (4 * kTile * tc_ld<D>() + kTile * kLdP) + sizeof(float) * 2 * kTile * kLdS;
-}
-
-template <int D>
 constexpr size_t dkv_tc_smem() {
   return 2 * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) + sizeof(float) * kTile * kLdS;
-}
-
-template <typename T, int D, bool kBias, bool kInt, bool kDrop>
-__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dq_tc_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ IntTiles it;
-  constexpr int ld = tc_ld<D>(), NC = D / 16;
-  T* Qs = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
-  T* dOs = Qs + kTile * ld;                // [64][D + 8]
-  T* Ks = dOs + kTile * ld;                // [64][D + 8]
-  T* Vs = Ks + kTile * ld;                 // [64][D + 8]
-  T* dSs = Vs + kTile * ld;                // [64][72]: ds, rounded to T
-  float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdP);  // [64][68]: scores
-  float* dPs = Ss + kTile * kLdS;          // [64][68]: dO v^T
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
-  const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
-  const bool want_db = kBias && a.dbias != nullptr;  // the d-bias: a runtime pointer
-  const long long bb = kBias ? bias_base(a, b, h) : 0;
-
-  load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-  load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
-  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
-  if (seg) load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
-  __syncthreads();
-  int qlo = 0, qhi = 0;
-  if (seg) seg_range(it.qids, a.Sq - q0, qlo, qhi);
-
-  float delta[4], lse[4], part[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    lse[i] = q0 + r < a.Sq ? a.lse[row_base + q0 + r] : kNegInf;
-    delta[i] = part[i] = 0.f;
-  }
-
-  FragC dq[D / 32];
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) wmma::fill_fragment(dq[j], 0.f);
-
-  // pass 0 sums delta = rowsum(p dp) in fp32; pass 1 forms ds and
-  // accumulates dq += hi k + lo k, ds split into two T tiles
-  T* dSlo = reinterpret_cast<T*>(Ss);  // [64][72] over the scores' buffer
-  const int kbegin = key_begin(q0, a), kend = key_end(q0, a);
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = kbegin; k0 < kend; k0 += kTile) {
-      __syncthreads();  // readers of Ks / Vs / Ss / dPs / dSs / it are done
-      if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) {
-        // the same answer in every thread
-        if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
-        continue;
-      }
-      load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
-      load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
-      __syncthreads();
-      mma_abt_64x64<T, D>(Qs, Ks, Ss);
-      mma_abt_64x64<T, D>(dOs, Vs, dPs);
-      __syncthreads();
-      float ds[4][4];
-      const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const bool dead = lse[i] <= 0.5f * kNegInf;
-        const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = score_col<kDrop>(tx, j);
-          const bool ok = !dead && visible(q0 + r, k0 + c, a) &&
-                          (!kInt || (kbits >> (4 * i + j)) & 1u);
-          float sv = Ss[r * kLdS + c] * a.scale;
-          if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
-          const float p = ok ? expf(sv - lse[i]) : 0.f;
-          float dpv = dPs[r * kLdS + c];
-          if (kDrop) dpv = word(bits, j) >= a.thresh ? dpv * a.drop_scale : 0.f;
-          if (pass == 0) {
-            part[i] = fmaf(p, dpv, part[i]);
-          } else {
-            const float dsr = p * (dpv - delta[i]);
-            ds[i][j] = dsr * a.scale;
-            if (want_db && q0 + r < a.Sq && k0 + c < a.Sk)
-              a.dbias[(row_base + q0 + r) * a.Sk + k0 + c] = dsr;
-          }
-        }
-      }
-      if (pass == 0) continue;
-      __syncthreads();  // every score is read: dSlo overwrites Ss
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int at = (ty + 16 * i) * kLdP + score_col<kDrop>(tx, j);
-          const T hi = from_f32<T>(ds[i][j]);
-          dSs[at] = hi;
-          dSlo[at] = from_f32<T>(ds[i][j] - to_f32(hi));
-        }
-      __syncthreads();
-      mma_ab_64xD<T, D, wmma::row_major>(dSs, Ks, dq);
-      mma_ab_64xD<T, D, wmma::row_major>(dSlo, Ks, dq);
-    }
-    if (pass == 0) write_delta(part, delta, q0, row_base, a);
-  }
-  if (want_db) zero_dbias_ends(a, row_base, q0, kbegin, kend);
-
-  __syncthreads();  // every warp is past its last product before Ks / Vs are reused
-  float* st = reinterpret_cast<float*>(Ks);  // [64][D + 4] fp32 over Ks and Vs
-  store_64xD<D>(st, dq);
-  __syncthreads();
-  T* dqb = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= a.Sq) continue;
-    T* row = dqb + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (tx + 16 * c < a.D)
-        row[tx + 16 * c] = from_f32<T>(st[(ty + 16 * i) * (D + 4) + tx + 16 * c]);
-  }
 }
 
 template <typename T, int D, bool kBias, bool kInt, bool kDrop>
@@ -705,16 +576,7 @@ int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid = kDq ? dim3((a.Sq + kTile - 1) / kTile, a.H, a.B)
                         : dim3((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
   if constexpr (kDq) {
-    // bf16 / fp16 here only at D_pad 192 and 256 (dq_run hands the narrower
-    // 16-bit calls to the wgmma kernel of flash_dq_hopper.cu)
-    if constexpr (D > 128) {
-      if (dtype == kBF16)
-        return launch_kernel(flash_dq_tc_kernel<bf16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
-                             grid, a, s);
-      if (dtype == kF16)
-        return launch_kernel(flash_dq_tc_kernel<f16, D, kBias, kInt, kDrop>, dq_tc_smem<D>(),
-                             grid, a, s);
-    }
+    // fp32 only (dq_run hands the 16-bit calls to flash_dq_hopper.cu)
     return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
   } else {
     if (dtype == kBF16)
@@ -750,9 +612,7 @@ int bwd(const Args& a, int dtype, cudaStream_t s) {
 #if PTT_FLASH_DQ
 template <int D>
 int dq_run(const Args& a, int dtype, cudaStream_t s) {
-  if constexpr (D <= 128) {
-    if (dtype != kF32) return dq_hopper_run<hopper_width(D)>(a, dtype, s);
-  }
+  if (dtype != kF32) return dq_hopper_run<hopper_width(D)>(a, dtype, s);
   return bwd<true, D>(a, dtype, s);
 }
 template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);

@@ -75,18 +75,12 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
 // shape (B 8, S 1024, H 16, D 128, causal, bf16) the call does 4 * D FLOPs
 // per visible (query, key) pair, ~34 GFLOP, and must move q, k, v and out
-// once, ~134 MB: both bounds sit near 0.04 ms. These first kernels are
-// simple and right rather than fast. For bf16 and fp16 both products run on
-// the tensor cores through warp-level WMMA (16-bit in, fp32 accumulate) from
-// 16-bit tiles in shared memory; the scores go back to shared memory for the
-// fp32 online softmax, and p is rounded to q's type for the p v product, as
-// FlashAttention-2 does. For fp32 the tiles are staged as fp32 (K and Q rows
-// padded to D + 1 so the 16 readers of a column hit 16 banks) and both
-// products run on the FP32 pipes with 4 x 4 register tiles, exact to fp32
-// rounding. Every product round-trips through shared memory and no load
-// overlaps the math, so both sit far above the bound: wgmma with the
-// accumulator and softmax kept in registers, and a TMA pipeline that loads
-// the next key tile during this one's math, are the next steps.
+// once, ~134 MB: both bounds sit near 0.04 ms. This file holds the fp32
+// kernel: the tiles are staged as fp32 (K and Q rows padded to D + 1 so the
+// 16 readers of a column hit 16 banks) and both products run on the FP32
+// pipes with 4 x 4 register tiles, exact to fp32 rounding. fwd_run hands
+// every bf16 and fp16 call to the wgmma kernel of flash_fwd_hopper.cu
+// (scores and output in registers, K / V through a TMA ring).
 
 #include "flash_common.cuh"
 
@@ -231,137 +225,10 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
   }
 }
 
-// bf16 / fp16: the same loop with both products on the tensor cores.
-template <int D>
-constexpr size_t fwd_tc_smem() {
-  return 2 * (3 * kTile * tc_ld<D>() + kTile * kLdP) +
-         sizeof(float) * (kTile * kLdS + kTile * (D + 4));
-}
-
-template <typename T, int D, bool kBias, bool kInt, bool kDrop>
-__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_tc_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ IntTiles it;
-  constexpr int ld = tc_ld<D>(), ldo = D + 4, NC = D / 16;
-  T* Qs = reinterpret_cast<T*>(smem_tc);             // [64][D + 8]
-  T* Ks = Qs + kTile * ld;                            // [64][D + 8]
-  T* Vs = Ks + kTile * ld;                            // [64][D + 8]
-  T* Ps = Vs + kTile * ld;                            // [64][72]: p, rounded to T
-  float* Ss = reinterpret_cast<float*>(Ps + kTile * kLdP);  // [64][68]: scores
-  float* Os = Ss + kTile * kLdS;                      // [64][D + 4]: this tile's p v
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
-  const long long bb = kBias ? bias_base(a, b, h) : 0;
-
-  load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
-  int qlo = 0, qhi = 0;
-  if (seg) {
-    load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
-    __syncthreads();
-    seg_range(it.qids, a.Sq - q0, qlo, qhi);
-  }
-
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kend = key_end(q0, a);
-  for (int k0 = key_begin(q0, a); k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done with Ks / Vs / Ps / Os / it
-    // the same answer in every thread
-    if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) continue;
-    load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
-    load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
-    __syncthreads();
-    mma_abt_64x64<T, D>(Qs, Ks, Ss);
-    __syncthreads();
-
-    float alpha[4];
-    const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      bool ok[4];
-      float s[4], mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = score_col<kDrop>(tx, j);
-        ok[j] = visible(q0 + r, k0 + c, a) && (!kInt || (kbits >> (4 * i + j)) & 1u);
-        s[j] = Ss[r * kLdS + c] * a.scale;
-        if (kBias && ok[j]) s[j] += bias_at(a, bb, q0 + r, k0 + c);
-        if (ok[j]) mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      alpha[i] = expf(m[i] - m_new);
-      // the keep words of this row's four columns 4 tx .. 4 tx + 3
-      const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-        sum += p;  // l sums the undropped probabilities
-        const float pd = !kDrop ? p : (word(bits, j) >= a.thresh ? p * a.drop_scale : 0.f);
-        Ps[r * kLdP + score_col<kDrop>(tx, j)] = from_f32<T>(pd);
-      }
-      l[i] = l[i] * alpha[i] + half_warp_sum(sum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    FragC o[D / 32];
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) wmma::fill_fragment(o[j], 0.f);
-    mma_ab_64xD<T, D, wmma::row_major>(Ps, Vs, o);
-    store_64xD<D>(Os, o);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        acc[i][c] = acc[i][c] * alpha[i] + Os[(ty + 16 * i) * ldo + tx + 16 * c];
-  }
-
-  T* ob = static_cast<T*>(a.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= a.Sq) continue;
-    const bool dead = l[i] == 0.f || m[i] <= kNegInf * 0.5f;
-    const float inv = dead ? 0.f : 1.f / l[i];
-    T* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.H + h) * a.D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (tx + 16 * c < a.D) orow[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
-    if (tx == 0)
-      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qpos] =
-          dead ? kNegInf : m[i] + logf(l[i]);
-  }
-}
-
-// fp32 at every width; bf16 / fp16 here only at D_pad 192 and 256 (fwd_run
-// hands the narrower 16-bit calls to the wgmma kernel of flash_fwd_hopper.cu)
+// fp32 only (fwd_run hands the 16-bit calls to flash_fwd_hopper.cu)
 template <int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-  if constexpr (D > 128) {
-    if (dtype == kBF16)
-      return launch_kernel(flash_fwd_tc_kernel<bf16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
-                           grid, a, s);
-    if (dtype == kF16)
-      return launch_kernel(flash_fwd_tc_kernel<f16, D, kBias, kInt, kDrop>, fwd_tc_smem<D>(),
-                           grid, a, s);
-  }
   return launch_kernel(flash_fwd_kernel<D, kBias, kInt, kDrop>, fwd_smem<D>(), grid, a, s);
 }
 
@@ -379,9 +246,7 @@ int launch_flags(const Args& a, int dtype, cudaStream_t s) {
 
 template <int D>
 int fwd_run(const Args& a, int dtype, cudaStream_t s) {
-  if constexpr (D <= 128) {
-    if (dtype != kF32) return fwd_hopper_run<hopper_width(D)>(a, dtype, s);
-  }
+  if (dtype != kF32) return fwd_hopper_run<hopper_width(D)>(a, dtype, s);
   return a.bias != nullptr ? launch_flags<D, true>(a, dtype, s)
                            : launch_flags<D, false>(a, dtype, s);
 }

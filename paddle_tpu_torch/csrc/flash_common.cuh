@@ -33,10 +33,9 @@
 // on the card.)
 //
 // Instances, each x 8 (bias, integer masks, dropout: template flags): the
-// fp32 kernels (3 kernels x 6 widths), the 16-bit WMMA kernels (dK/dV at 6
-// widths; the forward and dQ at D_pad 192 and 256) and the redesigned
-// 16-bit forward and dQ (wgmma + TMA: 2 kernels x 2 widths), each in bf16 and
-// fp16: 368, built as 22 objects in parallel.
+// fp32 kernels (3 kernels x 6 widths), the 16-bit WMMA dK/dV (6 widths) and
+// the redesigned 16-bit forward and dQ (wgmma + TMA: 2 kernels x 4 widths),
+// each in bf16 and fp16: 400, built as 26 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -129,13 +128,27 @@ template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t stream);
 // The redesigned bf16 / fp16 forward and dQ kernels (wgmma and a TMA ring:
 // flash_fwd_hopper.cu, flash_dq_hopper.cu), one object per width in {64,
-// 128}; fwd_run / dq_run hand them the 16-bit calls of D_pad <= 128, whose
-// heads the next of those widths holds (hopper_width).
+// 128, 192, 256}; fwd_run / dq_run hand them every 16-bit call, D_pad 32
+// and 96 to the next of those widths (hopper_width: a TMA box row is 64
+// columns).
 template <int D>
 int fwd_hopper_run(const Args& a, int dtype, cudaStream_t stream);
 template <int D>
 int dq_hopper_run(const Args& a, int dtype, cudaStream_t stream);
-__host__ __device__ constexpr int hopper_width(int d_pad) { return d_pad <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int hopper_width(int d_pad) { return (d_pad + 63) / 64 * 64; }
+
+// Their tiles, here alone (the C entry ptt_flash_plan reports them): blocks
+// of 128 query rows; the forward's key tiles of 128, and of 64 beside a bias
+// (its loads need registers a 128-key tile's scores and p leave short) or at
+// D_pad > 128 (the 64 x D_pad fp32 output takes 96 or 128 registers a
+// thread); dQ's of 64, and of 32 at D_pad > 128 (the dq accumulator as wide,
+// and Q and dO, 96 or 128 KB, leave shared memory for two stages of K and V
+// of 32 keys).
+constexpr int kHopperBM = 128;
+__host__ __device__ constexpr int fwd_hopper_bn(int d_pad, bool bias) {
+  return bias || d_pad > 128 ? 64 : 128;
+}
+__host__ __device__ constexpr int dq_hopper_bn(int d_pad) { return d_pad > 128 ? 32 : 64; }
 
 // ---------------------------------------------------------------------------
 // element types

@@ -1,6 +1,6 @@
 // Flash attention dQ for Hopper, redesigned for sm_90a: the bf16 and fp16
-// kernel at D_pad 64 and 128 (and the heads of D_pad 32 and 96, read into
-// the next of those with zero columns). dq, delta = rowsum(p * dP) for the
+// kernel at D_pad 64, 128, 192 and 256 (and the heads of D_pad 32 and 96,
+// read into the next of those with zero columns). dq, delta = rowsum(p * dP) for the
 // dK/dV kernel, and the d-bias, as flash_attention_bwd.cu's dQ kernel
 // computes them, with the same two passes and the same hi / lo split of ds
 // (that file's head note says why each exists).
@@ -10,9 +10,9 @@
 // operands: causal / non-causal and the window, GQA, the bias in its own
 // dtype (and its gradient, dS without the scale, fp32 [B, H, Sq, Sk] with
 // zeros on every tile the kernel skips), segment ids, the flashmask rows and
-// dropout. Its predecessor, the WMMA kernel flash_dq_tc_kernel of
-// flash_attention_bwd.cu, still serves D_pad 192 and 256; the fp32 dQ kernel
-// there is unchanged, and the dK/dV kernels read this kernel's delta.
+// dropout. It took the place of the WMMA kernel flash_dq_tc_kernel of
+// flash_attention_bwd.cu at every width; the fp32 dQ kernel there is
+// unchanged, and the dK/dV kernels read this kernel's delta.
 //
 // Bound on an H100 SXM: 6 D FLOPs a visible pair (s, dP, dq) against
 // q, k, v, dO and dq moved once: at the GPT flagship call 0.052 ms of
@@ -22,10 +22,15 @@
 //
 // Design. One block of 384 threads owns 128 query rows of one (batch,
 // head): the producer warp (warpgroup 0, setmaxnreg 40) and two consumer
-// warpgroups of 64 rows (setmaxnreg 232). Key tiles are 64 keys: a consumer
-// thread then holds 32 scores, 32 dP, D / 2 dq accumulators and 32 registers
-// of ds (hi and lo), within its registers; at D_pad 128, Q and dO (64 KB)
-// and two stages of K and V (64 KB) take 128 KB of shared memory.
+// warpgroups of 64 rows (setmaxnreg 232). Key tiles (flash_common.cuh
+// dq_hopper_bn) are 64 keys at D_pad 64 and 128: a consumer thread then
+// holds 32 scores, 32 dP, D / 2 dq accumulators and 32 registers of ds (hi
+// and lo), within its registers; at D_pad 128, Q and dO (64 KB) and two
+// stages of K and V (64 KB) take 128 KB of shared memory. At D_pad 192 and
+// 256 they are 32 keys: the dq accumulator takes 96 or 128 registers, and
+// Q and dO 96 or 128 KB, so the tile's scores, dP and ds are halved and
+// two stages of K and V take 48 or 64 KB. Past 128 columns the dq product
+// is one wgmma a 128 columns (wgmma_rs_cols).
 // - Loads: Q and dO once by TMA and kept in shared memory; lse read once
 //   into registers; K and V through a two-stage TMA ring with `full` and
 //   `empty` mbarriers (flash_hopper.cuh). The producer walks the band's
@@ -54,25 +59,24 @@
 #include "flash_hopper.cuh"
 
 #ifndef PTT_FLASH_D
-#error "compile once per redesigned width: -DPTT_FLASH_D=<64|128>"
+#error "compile once per redesigned width: -DPTT_FLASH_D=<64|128|192|256>"
 #endif
 
 namespace ptt_flash {
 namespace hopper {
 namespace {
 
-constexpr int kDqBN = 64;
 constexpr int kDqStages = 2;
 
 template <typename T, int D>
 struct DqSmem {
-  static constexpr int kP = D / 64;
+  static constexpr int kP = D / 64, BN = dq_hopper_bn(D);
   T q[kP][kBM * 64];
   T dout[kP][kBM * 64];
-  T k[kDqStages][kP][kDqBN * 64];
-  T v[kDqStages][kP][kDqBN * 64];
+  T k[kDqStages][kP][BN * 64];
+  T v[kDqStages][kP][BN * 64];
   uint64_t full[kDqStages], empty[kDqStages], qbar;
-  Slot<kDqBN> slot[kDqStages];
+  Slot<BN> slot[kDqStages];
 };
 
 // Zeros into the d-bias of the warpgroup's rows [qa, qa + 64) (those < Sq),
@@ -90,12 +94,11 @@ __device__ __forceinline__ void zero_dbias_wg(const Args& a, long long row_base,
 // p and the dropout-masked, rescaled dP of one key tile, in place on the
 // fragments s and dp: p = exp(scale s + bias - lse), 0 where masked and on a
 // dead row.
-template <bool kBias, bool kDrop>
-__device__ __forceinline__ void probs_tile(float (&s)[kDqBN / 2], float (&dp)[kDqBN / 2],
+template <int BN, bool kBias, bool kDrop>
+__device__ __forceinline__ void probs_tile(float (&s)[BN / 2], float (&dp)[BN / 2],
                                            const Args& a, int k0, const int (&qpos)[2],
                                            const float (&lse)[2], const bool (&dead)[2],
                                            long long bb, uint64_t vis, uint64_t keep) {
-  constexpr int BN = kDqBN;
   // a dead row's lse is -1e30: its p is 0, never exp(s + 1e30)
   if (dead[0]) vis &= ~0x3333333333333333ull;
   if (dead[1]) vis &= ~0xCCCCCCCCCCCCCCCCull;
@@ -116,7 +119,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo, const Args a) {
-  constexpr int BN = kDqBN, kP = D / 64, kS = kDqStages;
+  constexpr int BN = dq_hopper_bn(D), kP = D / 64, kS = kDqStages;
   extern __shared__ unsigned char smem_raw[];
   DqSmem<T, D>& sm = *reinterpret_cast<DqSmem<T, D>*>(align1024(smem_raw));
   const BlockPos pos = block_pos(a, static_cast<int>(blockIdx.x));
@@ -245,7 +248,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           wgmma_wait_all();
           reg_fence(s);
           reg_fence(dp);
-          probs_tile<kBias, kDrop>(s, dp, a, k0, qpos, lse, dead, bb, vis, keep);
+          probs_tile<BN, kBias, kDrop>(s, dp, a, k0, qpos, lse, dead, bb, vis, keep);
           if (pass == 0) {
 #pragma unroll
             for (int r = 0; r < BN / 2; ++r) part[(r / 2) % 2] = fmaf(s[r], dp[r], part[(r / 2) % 2]);
@@ -278,8 +281,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
-              wgmma_rs<D, T>(dq, hi[kk], desc_mnmajor(kb, kKPanel, kk), 1);
-              wgmma_rs<D, T>(dq, lo[kk], desc_mnmajor(kb, kKPanel, kk), 1);
+              wgmma_rs_cols<D, T>(dq, hi[kk], kb, kKPanel, kk);
+              wgmma_rs_cols<D, T>(dq, lo[kk], kb, kKPanel, kk);
             }
             wgmma_commit();
             wgmma_wait_all();
@@ -327,8 +330,8 @@ int launch(const Args& a, int dtype, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, dtype, kBM);
   if (err == 0) err = encode_view(&tdo, a.dout, a.vdo, a.B, a.Sq, a.H, a.D, dtype, kBM);
-  if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, dtype, kDqBN);
-  if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, dtype, kDqBN);
+  if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, dtype, dq_hopper_bn(D));
+  if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, dtype, dq_hopper_bn(D));
   if (err != 0) return err;
   auto* kernel = flash_dq_wgmma_kernel<T, D, kBias, kInt, kDrop>;
   const size_t smem = sizeof(DqSmem<T, D>) + 1024;

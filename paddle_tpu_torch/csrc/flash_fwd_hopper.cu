@@ -1,16 +1,16 @@
 // Flash attention forward for Hopper, redesigned for sm_90a: the bf16 and
-// fp16 kernel at D_pad 64 and 128 (and the heads of D_pad 32 and 96, which
-// it reads into the next of those with zero columns). out and the row
-// logsumexp, as flash_attention_fwd.cu computes them.
+// fp16 kernel at D_pad 64, 128, 192 and 256 (and the heads of D_pad 32 and
+// 96, which it reads into the next of those with zero columns). out and the
+// row logsumexp, as flash_attention_fwd.cu's fp32 kernel computes them.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_fwd` (kernel body
 // `_fwd_kernel`, masks `_mask_scores`) on all its operands: causal /
 // non-causal and the sliding window as one band, GQA (kv head h / (H /
 // H_kv)), the additive bias in its own dtype with 0-strides over broadcast
 // dims, segment ids, the flashmask rows and dropout, each alone and
-// combined. Its predecessor, the WMMA kernel flash_fwd_tc_kernel of
-// flash_attention_fwd.cu, still serves D_pad 192 and 256; the fp32 kernel
-// there is unchanged.
+// combined. It took the place of the WMMA kernel flash_fwd_tc_kernel of
+// flash_attention_fwd.cu at every width; the fp32 kernel there is
+// unchanged.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 D FLOPs a
 // visible (query, key) pair, and q, k, v and out moved once. At the GPT
@@ -21,11 +21,15 @@
 // Design. One block of 384 threads owns 128 query rows of one (batch,
 // head): warpgroup 0 is the producer, whose warp 0 issues every load (it
 // gives its registers up: setmaxnreg 40), and warpgroups 1 and 2 are the
-// consumers, 64 rows each (setmaxnreg 232). Key tiles are 128 keys at both
-// widths (64 beside a bias, fwd_bn): at D_pad 128 the two K / V stages
-// (4 x 32 KB) and Q (32 KB) take 160 KB of the 227 KB, and a consumer thread
-// holds 64 fp32 scores, 64 fp32 output columns and 32 registers of p,
-// within 232 registers with the mask and dropout code. A persistent grid
+// consumers, 64 rows each (setmaxnreg 232). Key tiles (flash_common.cuh
+// fwd_hopper_bn) are 128 keys at D_pad 64 and 128, and 64 beside a bias or
+// at D_pad 192 and 256: at D_pad 128 the two K / V stages (4 x 32 KB) and Q
+// (32 KB) take 160 KB of the 227 KB, and a consumer thread holds 64 fp32
+// scores, 64 fp32 output columns and 32 registers of p, within 232
+// registers with the mask and dropout code; at D_pad 256 the output takes
+// 128 registers, beside 32 scores and 16 of p, and Q and the stages take
+// 192 KB. Past 128 columns the p v product is one wgmma a 128 columns
+// (wgmma_rs_cols). A persistent grid
 // (one block an SM walking the query blocks, the next one's Q loading under
 // this one's epilogue) measured slower on the causal calls on an H100 SXM:
 // a static share of query blocks of unequal length loses the balance the
@@ -75,18 +79,13 @@
 #include "flash_hopper.cuh"
 
 #ifndef PTT_FLASH_D
-#error "compile once per redesigned width: -DPTT_FLASH_D=<64|128>"
+#error "compile once per redesigned width: -DPTT_FLASH_D=<64|128|192|256>"
 #endif
 
 namespace ptt_flash {
 namespace hopper {
 namespace {
 
-// keys a tile: 128, and 64 beside a bias (its loads need registers that a
-// 128-key tile's 64 scores and 32 registers of p left short: those
-// instances spilled)
-template <bool kBias>
-__host__ __device__ constexpr int fwd_bn() { return kBias ? 64 : 128; }
 constexpr int kFwdStages = 2;
 
 template <typename T, int D, int BN>
@@ -176,7 +175,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const Args a) {
-  constexpr int BN = fwd_bn<kBias>(), kP = D / 64, kS = kFwdStages;
+  constexpr int BN = fwd_hopper_bn(D, kBias), kP = D / 64, kS = kFwdStages;
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<T, D, BN>& sm = *reinterpret_cast<FwdSmem<T, D, BN>*>(align1024(smem_raw));
   const BlockPos pos = block_pos(a, static_cast<int>(blockIdx.x));
@@ -315,7 +314,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D, T>(o, pa[kk], desc_mnmajor(smem_u32(sm.v[pv_stage][0]), kKPanel, kk), 1);
+        wgmma_rs_cols<D, T>(o, pa[kk], smem_u32(sm.v[pv_stage][0]), kKPanel, kk);
       wgmma_commit();
       named_arrive(other_bar);
       // the masks and the dropout bits are formed while the tensor cores work
@@ -359,7 +358,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<D, T>(o, pa[kk], desc_mnmajor(smem_u32(sm.v[pv_stage][0]), kKPanel, kk), 1);
+      wgmma_rs_cols<D, T>(o, pa[kk], smem_u32(sm.v[pv_stage][0]), kKPanel, kk);
     wgmma_commit();
     named_arrive(other_bar);
     wgmma_wait<0>();
@@ -392,7 +391,7 @@ template <typename T, int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, dtype, kBM);
-  constexpr int BN = fwd_bn<kBias>();
+  constexpr int BN = fwd_hopper_bn(D, kBias);
   if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, dtype, BN);
   if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, dtype, BN);
   if (err != 0) return err;

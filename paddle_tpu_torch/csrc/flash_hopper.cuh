@@ -36,7 +36,7 @@
 namespace ptt_flash {
 namespace hopper {
 
-constexpr int kBM = 128;        // query rows a block
+constexpr int kBM = kHopperBM;  // query rows a block (flash_common.cuh)
 constexpr int kConsumerWGs = 2;
 constexpr int kThreadsH = 128 * (1 + kConsumerWGs);
 constexpr int kConsumerWarps = 4 * kConsumerWGs;
@@ -176,6 +176,28 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, uint32_t panel, 
 // m64nNk16, fp32 accumulate, 16-bit A and B. wgmma_ss: A and B K-major in
 // shared memory. wgmma_rs: A from registers (the packed fragment), B MN-major
 // in shared memory. scale_d = 0 overwrites the accumulator.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d, bf16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d, f16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                  int scale_d, bf16) {
   asm volatile(
@@ -314,7 +336,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 64 || N == 128, "m64nNk16 for N in {32, 64, 128}");
+  if constexpr (N == 32)
+    wgmma_ss_n32(d, da, db, scale_d, T{});
+  else if constexpr (N == 64)
     wgmma_ss_n64(d, da, db, scale_d, T{});
   else
     wgmma_ss_n128(d, da, db, scale_d, T{});
@@ -323,10 +348,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
+  static_assert(N == 64 || N == 128, "m64nNk16 for N in {64, 128}");
   if constexpr (N == 64)
     wgmma_rs_n64(d, a, db, scale_d, T{});
   else
     wgmma_rs_n128(d, a, db, scale_d, T{});
+}
+
+// Columns [C, C + N) of a fragment of D columns: its registers C / 2 ..
+// (C + N) / 2 - 1 (register 4 j + 2 i + e holds column 8 j + ...).
+template <int N, int C, int D>
+__device__ __forceinline__ float (&frag_cols(float (&d)[D / 2]))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(d + C / 2);
+}
+
+// d (64 x D, fp32) += a (the register A fragment of key step kk) times the
+// MN-major B of key step kk in the tile at `base` (64-column panels `panel`
+// bytes apart): one wgmma for D <= 128, else one a 128 columns (two panels)
+// and one for the rest, which start `2 panel` bytes on.
+template <int D, typename T, int C = 0>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint32_t base, uint32_t panel, int kk) {
+  constexpr int N = D - C < 128 ? D - C : 128;
+  wgmma_rs<N, T>(frag_cols<N, C, D>(d), a, desc_mnmajor(base + (C / 64) * panel, panel, kk), 1);
+  if constexpr (C + N < D) wgmma_rs_cols<D, T, C + N>(d, a, base, panel, kk);
 }
 
 // two fp32 values -> one register of two T (the lower column in the low half)

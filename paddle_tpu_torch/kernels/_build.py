@@ -44,7 +44,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
 # the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
 # flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
-FLASH_HOPPER_D_PADS = (64, 128)
+FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -234,6 +234,8 @@ def load_library() -> ctypes.CDLL:
         # strides (16), ...
         "ptt_flash_bwd_dkv": [vp] * 13 + [strides] + [ci] * 6 + [cf, ci]
         + drop + [ci] * 5 + [vp],
+        # kernel (0 forward, 1 dQ, 2 dK/dV), D, dtype, bias, out[4]
+        "ptt_flash_plan": [ci] * 4 + [ctypes.POINTER(ci)],
         # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
         # x, w, mean, rstd, dy, dx, rows, H, dtype, stream

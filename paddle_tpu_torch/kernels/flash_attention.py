@@ -20,12 +20,12 @@ in fp32 from the kernel's own p and dP in a first pass over the keys, not
 from the saved output (``rowsum(dO * O)``, as the Pallas kernels form it),
 so that each row's dS sums to zero to fp32 rounding even where the output
 was rounded to 16 bits; the backward needs no ``out``. For bf16 and fp16 the
-products run on the tensor cores: the forward and dQ kernels at head widths
-up to 128 through ``wgmma``, with the scores, probabilities and accumulators
-in registers and K / V fed by a TMA ring (``csrc/flash_fwd_hopper.cu``,
-``csrc/flash_dq_hopper.cu``); the dK/dV kernel, and the forward and dQ at
-widths 192 and 256, through warp-level WMMA from 16-bit shared tiles; fp32
-accumulators and the softmax in fp32 either way. For fp32 on the FP32 pipes
+products run on the tensor cores: the forward and dQ kernels through
+``wgmma``, with the scores, probabilities and accumulators in registers and
+K / V fed by a TMA ring (``csrc/flash_fwd_hopper.cu``,
+``csrc/flash_dq_hopper.cu``); the dK/dV kernel through warp-level WMMA from
+16-bit shared tiles; fp32 accumulators and the softmax in fp32 either way.
+``kernel_plan`` says which design and which tiles serve a call. For fp32 on the FP32 pipes
 from fp32 shared tiles, exact to fp32 rounding.
 
 Head dims and dtypes. The kernels take every D from 1 to 256 (the JAX
@@ -113,7 +113,7 @@ from ._build import is_cpu, launch as _launch
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_plain",
            "philox4x32_10", "dropout_keep_mask", "dropout_threshold",
-           "MAX_HEAD_DIM"]
+           "kernel_plan", "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -519,6 +519,31 @@ def _tag(q, k, bias, q_seg, dropout_p, fm=None, window=None):
                      f", dropout {dropout_p}" if dropout_p else ""))
     return (f"(B={B} Sq={Sq} Sk={k.shape[1]} H={H} H_kv={k.shape[2]} D={D} "
             f"{q.dtype}{extra})")
+
+
+_PLAN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+_DESIGNS = ("fp32", "wmma", "wgmma+tma")
+
+
+def kernel_plan(name: str, D: int, dtype, bias: bool = False) -> dict:
+    """How the built library serves a call of ``name`` (``flash_fwd``,
+    ``flash_bwd_dq`` or ``flash_bwd_dkv``) at head dim ``D`` in ``dtype``,
+    with or without a bias: ``design`` ("fp32", "wmma" or "wgmma+tma"),
+    ``query_rows`` and ``keys`` of its tiles, and ``key_major`` (a block
+    owns a key tile and walks the queries). Read from the library's
+    ``ptt_flash_plan``, which reports the constants its kernels were
+    instantiated with; it builds the library on first use."""
+    from ._build import load_library
+    if name not in _PLAN_KERNELS or dtype not in _DTYPE_CODE:
+        raise ValueError(f"kernel_plan: no flash kernel {name} for {dtype}")
+    out = (ctypes.c_int * 4)()
+    dr = _row_width(D, torch.tensor([], dtype=dtype).element_size())
+    code = load_library().ptt_flash_plan(_PLAN_KERNELS.index(name), dr,
+                                         _DTYPE_CODE[dtype], int(bias), out)
+    if code != 0:
+        raise ValueError(f"kernel_plan: {name} takes no D={D} in {dtype}")
+    return dict(design=_DESIGNS[out[0]], query_rows=out[1], keys=out[2],
+                key_major=bool(out[3]))
 
 
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,

@@ -3,13 +3,12 @@
 scores and accumulators in registers, K and V through a TMA ring) against
 their plain PyTorch versions on the same inputs: out and lse, dq, delta and
 the d-bias, and the unchanged dK/dV kernel fed by the new delta. The grid:
-every D the 16-bit calls route to them (32, 40, 64, 96, 128) and the two
-they leave to the WMMA kernels (192, 256); bf16 and fp16; no variant, a
-bias, segment ids, flashmask rows, dropout, and bias + rows + dropout;
-causal, non-causal and a window across two 128-row tiles; GQA groups of 1
-and 4; Sq != Sk from {1, 63, 129, 1000}; dead rows. Also the forward's
-dropout bits against ``dropout_keep_mask``, the model's strided qkv views
-and a batch-broadcast key. Tolerance: the bf16 / fp16 tier of
+D 32, 40, 64, 96, 128, 192 and 256; bf16 and fp16; no variant, a bias,
+segment ids, flashmask rows, dropout, and bias + rows + dropout; causal,
+non-causal and a window across two 128-row tiles; GQA groups of 1 and 4;
+Sq != Sk from {1, 63, 129, 1000}; dead rows. Also the forward's and dQ's
+dropout bits against ``dropout_keep_mask``, over one key tile and over
+several, the model's strided qkv views and a batch-broadcast key. Tolerance: the bf16 / fp16 tier of
 ``chip_smoke.py``, 2e-2 on the worst 64-row tile's relative l2.
 
 Every test here needs a CUDA card and skips without one. The file imports
@@ -198,6 +197,66 @@ def test_forward_keep_bits_are_dropout_keep_mask(card, D, dtype):
     out, _ = FA.flash_fwd(q, k, v, False, 1.0, dropout_p=p, seed=seed)
     keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
     assert torch.equal((out != 0).permute(0, 2, 1, 3)[..., :Sk], keep)
+
+
+def _one_hot_keys(B, Sk, H, D, w, dtype, dev):
+    """v with v[:, w + d, :, d] = 1 for d < min(D, Sk - w), else 0: output
+    column d of a row is then key w + d's kept probability."""
+    v = torch.zeros(B, Sk, H, D, dtype=dtype, device=dev)
+    idx = torch.arange(min(D, Sk - w), device=dev)
+    v[:, w + idx, :, idx] = 1
+    return v
+
+
+@pytest.mark.parametrize("bias", (False, True), ids=("nobias", "bias"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
+@pytest.mark.parametrize("D", (64, 128, 256))
+def test_forward_keep_bits_across_key_tiles(card, D, dtype, bias):
+    """The same read-out over Sk = 320 keys, several of the forward's key
+    tiles (128 keys, or 64 beside a bias or at D_pad 256) and a partial
+    last one, D keys a call (v one-hot on keys [w, w + D)), so the Philox
+    words of every tile past the first are checked bit for bit."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 320, 0.3, 91
+    q = torch.zeros(B, Sq, H, D, dtype=dtype, device=card)
+    k = torch.randn(B, Sk, H, D, device=card).to(dtype)
+    var = dict(dropout_p=p, seed=seed)
+    if bias:
+        var["bias"] = torch.zeros(1, 1, Sq, Sk, dtype=dtype, device=card)
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    for w in range(0, Sk, D):
+        n = min(D, Sk - w)
+        v = _one_hot_keys(B, Sk, H, D, w, dtype, card)
+        out, _ = FA.flash_fwd(q, k, v, False, 1.0, **var)
+        assert torch.equal((out[..., :n] != 0).permute(0, 2, 1, 3),
+                           keep[..., w:w + n]), (D, dtype, bias, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
+@pytest.mark.parametrize("D", (64, 128, 256))
+def test_dq_keep_bits_across_key_tiles(card, D, dtype):
+    """dQ's keep bits over Sk = 320 keys (dQ's tiles: 64 keys, 32 at D_pad
+    256), read out of its d-bias: q = k = 0 makes every p 1 / Sk and
+    dO . v = 1 for every pair makes dP the keep bit over (1 - p), so the
+    d-bias p (dP - delta) is positive exactly where a key was kept; delta
+    is the row's kept count over Sk (1 - p). Without a bias, delta alone."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 320, 0.3, 93
+    q = torch.zeros(B, Sq, H, D, dtype=dtype, device=card)
+    k = torch.zeros(B, Sk, H, D, dtype=dtype, device=card)
+    v = torch.zeros(B, Sk, H, D, dtype=dtype, device=card)
+    do = torch.zeros(B, Sq, H, D, dtype=dtype, device=card)
+    v[..., 0] = 1
+    do[..., 0] = 1
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    want = keep.float().sum(-1) / (Sk * (1 - p))
+    bias = torch.zeros(1, 1, Sq, Sk, dtype=dtype, device=card)
+    for var in (dict(), dict(bias=bias)):
+        var.update(dropout_p=p, seed=seed)
+        _, lse = FA.flash_fwd(q, k, v, False, 1.0, **var)
+        got = FA.flash_bwd_dq(q, k, v, lse, do, False, 1.0,
+                              bias_grad="bias" in var, **var)
+        torch.testing.assert_close(got[1], want, rtol=1e-5, atol=1e-6)
+        if "bias" in var:
+            assert torch.equal(got[2] > 0, keep), (D, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
