@@ -7,15 +7,20 @@ Phases, in order; any failure exits non-zero:
 
 1. card: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
-   redesigned (wgmma + TMA) flash instance's registers and spill bytes;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   serving shapes (bf16, 16 heads of 128, block 32), and time kernel, plain
-   version, a library yardstick and the card's bound;
+   wgmma instance's registers and spill bytes (the flash forward, dQ and
+   dK/dV, the ragged kernel);
+3. hold the ragged kernel against its plain PyTorch version on the card, at
+   the serving shapes (bf16, 16 heads of 128, block 32), print each case's
+   route and split count (``kernel_plan``), and time kernel, plain version,
+   a library yardstick and the card's bound, the decode time over kv
+   lengths 64-1024, and one or two decode rows of 8192 keys split over
+   blocks against one split;
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
    wave and one timed wave, every layer of every pass through the kernel,
-   checked against a dense teacher-forced forward in bf16 and in fp32;
+   the ragged kernel's share of a profiled wave's device time, checked
+   against a dense teacher-forced forward in bf16 and in fp32;
 6. hold the flash attention kernels (forward, dQ, dK/dV) against their plain
    versions at the training shape (B 8, S 1024, H 16, D 128, causal, q, k, v
    strided views of a head-major qkv) in bf16 and fp32, timed against their
@@ -344,9 +349,20 @@ def sdpa_yardstick(case):
     return run
 
 
+def ragged_plan_line(case):
+    """The route, tiles and split count the library gives a case
+    (RPA.kernel_plan)."""
+    plan = RPA.kernel_plan(case["q"], case["k_pool"], case["block_tables"])
+    return plan, (f"route {plan['design']}, {plan['query_rows']} folded rows "
+                  f"a block, {plan['keys']} keys a tile, splits "
+                  f"{plan['splits']}")
+
+
 def check_kernel_case(name, case, card):
     args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["q_lens"], case["kv_lens"], case["scale"])
+    plan, line = ragged_plan_line(case)
+    log(f"{name}: {line}")
     out_k = RPA.ragged_paged_attention(*args)
     torch.cuda.synchronize()
     out_p = RPA.ragged_paged_attention_plain(*args)
@@ -363,7 +379,8 @@ def check_kernel_case(name, case, card):
     log(f"{name}: max_abs_err {err:.3e} max_abs_ref {ref:.3e} rel {rel:.3e} "
         f"(tol {KERNEL_TOL})")
     require(rel <= KERNEL_TOL, f"{name}: rel err {rel} > {KERNEL_TOL}")
-    rec = dict(max_abs_err=err, rel_err=rel)
+    rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
+               splits=plan["splits"])
     if card is None:
         return rec
     kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
@@ -381,19 +398,55 @@ def check_kernel_case(name, case, card):
 
 def decode_sweep(rng, card):
     """(d) How the decode time grows with kv_len (8 rows, all at one
-    length): the kernel walks a row's pages in sequence inside one block,
-    so its time follows the longest row; the library call runs on
-    pre-gathered dense K/V."""
+    length): a row's key tiles are split over blocks (the split count from
+    the table width), so the time should follow the bytes, not one block's
+    walk over the longest row; the library call runs on pre-gathered dense
+    K/V."""
+    recs = {}
     for kv in (64, 128, 256, 512, 1024):
         case = make_case(rng, [1] * 8, [kv] * 8, C=1, hq=16, hkv=16, NB=300,
                          nb=33)
         args = (case["q"], case["k_pool"], case["v_pool"],
                 case["block_tables"], case["q_lens"], case["kv_lens"],
                 case["scale"])
+        plan, line = ragged_plan_line(case)
         kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
         lib = cuda_ms(sdpa_yardstick(case))
+        bound = case_bound(case)[0]
         log(f"(d) decode R=8 kv_len {kv}: kernel_ms {kern:.4f} library_ms "
-            f"{lib:.4f} bound_ms {case_bound(case)[0]:.4f}  [{card}]")
+            f"{lib:.4f} bound_ms {bound:.4f} ({line})  [{card}]")
+        recs[kv] = dict(ms=kern, library_ms=lib, bound_ms=bound,
+                        splits=plan["splits"])
+    return recs
+
+
+def long_row_decode(rng, card):
+    """(e) A few long decode rows (R 1 and 2 at kv_len 8192, 16 kv heads: 16
+    and 32 blocks on the card's SMs): the plan splits each row's key tiles
+    over blocks and a second kernel merges them; held to the plain version
+    and timed against the same call at one split, SDPA and the bound."""
+    recs = {}
+    for R in (1, 2):
+        case = make_case(rng, [1] * R, [8192] * R, C=1, hq=16, hkv=16,
+                         NB=256 * R + 8, nb=256)
+        args = (case["q"], case["k_pool"], case["v_pool"],
+                case["block_tables"], case["q_lens"], case["kv_lens"],
+                case["scale"])
+        plan, line = ragged_plan_line(case)
+        require(plan["splits"] > 1, f"(e) R={R}: the plan does not split")
+        rec = check_kernel_case(f"(e) long decode R={R} kv_len 8192", case,
+                                None)
+        one = cuda_ms(lambda: RPA.ragged_paged_attention(*args, splits=1))
+        kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
+        lib = cuda_ms(sdpa_yardstick(case))
+        bound = case_bound(case)[0]
+        log(f"(e) long decode R={R} kv_len 8192: kernel_ms {kern:.4f} "
+            f"({plan['splits']} splits) one_split_ms {one:.4f} library_ms "
+            f"{lib:.4f} bound_ms {bound:.4f}  [{card}]")
+        recs[R] = dict(ms=kern, one_split_ms=one, library_ms=lib,
+                       bound_ms=bound, splits=plan["splits"],
+                       max_abs_err=rec["max_abs_err"])
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -569,10 +622,16 @@ def profile_wave(engine, prompts, card, gather=False, n=4, tokens=16):
     log("device time by class: " + ", ".join(
         f"{c} {t / 1e3:.1f} ms ({t / busy_us:.1%})"
         for c, t in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    ragged_us = sum(ns for name, (ns, _) in by_name.items()
+                    if "ragged" in name) / 1e3
+    log(f"ragged paged attention (kernel and split merge): "
+        f"{ragged_us / 1e3:.2f} ms = {ragged_us / busy_us:.1%} of the wave's "
+        f"device time")
     for name, (ns, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ns / 1e6:9.3f} ms {count:7d} x  {name[:100]}")
     return dict(profile_wall_ms=wall * 1e3, device_busy_share=share,
+                ragged_ms=ragged_us / 1e3, ragged_share=ragged_us / busy_us,
                 device_ops_per_step=ops / steps,
                 device_ops_per_pass=ops / passes,
                 device_ms_by_class={c: t / 1e3 for c, t in by_class.items()})
@@ -843,13 +902,16 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
     recs = {}
     for kname, (kern, plain, libt) in times.items():
         bound, by, nbytes, flops = bounds[kname]
-        log(f"{name} {kname}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
-            f"library_ms {libt:.4f} bound_ms {bound:.4f} ({by}: {nbytes} B, "
-            f"{flops} FLOP over {pairs} visible pairs) kernel/bound "
-            f"{kern / bound:.1f}x  [{card}]")
+        design = FA.kernel_plan(kname, q.shape[-1], q.dtype,
+                                "bias" in var)["design"]
+        log(f"{name} {kname} [{design}]: kernel_ms {kern:.4f} plain_ms "
+            f"{plain:.4f} library_ms {libt:.4f} bound_ms {bound:.4f} ({by}: "
+            f"{nbytes} B, {flops} FLOP over {pairs} visible pairs) "
+            f"kernel/bound {kern / bound:.1f}x  [{card}]")
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=libt, bound_ms=bound, bound_by=by,
-                           bytes=nbytes, flops=flops, visible_pairs=pairs)
+                           bytes=nbytes, flops=flops, visible_pairs=pairs,
+                           design=design)
     lib_on = ", ".join(w for w, on in (("the same mask",
                                          mask is not None),
                                         ("dropout", p), ("GQA", gqa)) if on)
@@ -864,7 +926,9 @@ def flash_designs(name):
     the built library reports it (FA.kernel_plan): "wgmma+tma" (the 16-bit
     forward and dQ, csrc/flash_fwd_hopper.cu and flash_dq_hopper.cu: wgmma
     with the scores and accumulators in registers, K / V through a TMA
-    ring), "wmma" (the 16-bit dK/dV: warp-level WMMA through shared
+    ring; the 16-bit dK/dV at D_pad <= 128, csrc/flash_dkv_hopper.cu:
+    transposed scores in registers, Q / dO through a TMA ring), "wmma" (the
+    16-bit dK/dV at D_pad 192 and 256: warp-level WMMA through shared
     memory), "fp32" (the FP32-pipe kernels)."""
     from paddle_tpu_torch.kernels import _build
     return {f"D_pad {d}": {tag: FA.kernel_plan(name, d, dt)["design"]
@@ -876,13 +940,17 @@ def flash_designs(name):
 
 def wgmma_ptxas(output):
     """[(kernel, dtype, D_pad, bias, ints, dropout, registers, spill store
-    bytes)] of the wgmma flash instances, from ptxas's -v lines."""
+    bytes)] of the wgmma instances (the flash forward, dQ and dK/dV; the
+    ragged kernel, with no flags: -1), from ptxas's -v lines."""
     recs, cur = [], None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = re.search(r"(flash_(?:fwd|dq)_wgmma_kernel)I(\w+?)Li(\d+)E"
-                            r"Lb([01])ELb([01])ELb([01])E", m.group(1))
+            cur = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)I(\w+?)Li"
+                            r"(\d+)ELb([01])ELb([01])ELb([01])E", m.group(1))
+            if cur is None:
+                cur = re.search(r"(ragged_wgmma_kernel)I(\w+?)Li(\d+)E()()()",
+                                m.group(1))
             spill = None
             continue
         if cur is None:
@@ -894,7 +962,8 @@ def wgmma_ptxas(output):
         if m:
             name, ty, d, *flags = cur.groups()
             recs.append((name, "bf16" if "bfloat16" in ty else "fp16", int(d),
-                         *map(int, flags), int(m.group(1)), spill))
+                         *(int(f) if f else -1 for f in flags),
+                         int(m.group(1)), spill))
             cur = None
     return recs
 
@@ -1634,6 +1703,8 @@ def check_quantized_case(name, case, card):
     args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["q_lens"], case["kv_lens"], case["scale"], case["k_scales"],
             case["v_scales"])
+    plan, line = ragged_plan_line(case)
+    log(f"{name}: {line}")
     out_k = RPA.ragged_paged_attention(*args)
     torch.cuda.synchronize()
     out_p = RPA.ragged_paged_attention_plain(*args)
@@ -1646,7 +1717,8 @@ def check_quantized_case(name, case, card):
     log(f"{name}: worst (row, column, head) L2 rel err {rel:.3e} (tol "
         f"{KERNEL_TOL}); max_abs_err {err:.3e}")
     require(rel <= KERNEL_TOL, f"{name}: rel err {rel} > {KERNEL_TOL}")
-    rec = dict(max_abs_err=err, rel_err=rel)
+    rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
+               splits=plan["splits"])
     if card is None:
         return rec
     kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
@@ -4289,15 +4361,18 @@ def main() -> int:
             f"with spill stores (at most {max(spills)} bytes a thread)")
     wg = wgmma_ptxas(_build.BUILD_LOG["output"])
     for name, ty, d, *rest in wg:
-        log(f"  {name}<{ty}, D_pad {d}, bias {rest[0]}, ints {rest[1]}, "
-            f"dropout {rest[2]}>: {rest[3]} registers at launch (setmaxnreg "
-            f"then moves them to the consumers), {rest[4]} bytes spill "
-            f"stores")
+        flags = (f", bias {rest[0]}, ints {rest[1]}, dropout {rest[2]}"
+                 if rest[0] >= 0 else "")
+        note = (" (setmaxnreg then moves them to the consumers)" if flags
+                else "")
+        log(f"  {name}<{ty}, D_pad {d}{flags}>: {rest[3]} registers at "
+            f"launch{note}, {rest[4]} bytes spill stores")
     if wg:
-        log(f"{len(wg)} wgmma flash instances, "
+        dkv = [r for r in wg if r[0] == "flash_dkv_wgmma_kernel"]
+        log(f"{len(wg)} wgmma instances, "
             f"{sum(r[-1] > 0 for r in wg)} with spill stores, "
             f"{sum(r[-1] > 0 for r in wg if r[2] <= 128)} of them at D_pad "
-            f"<= 128")
+            f"<= 128; dK/dV {sum(r[-1] > 0 for r in dkv)} of {len(dkv)}")
 
     t0 = phase("3. kernel vs plain on the card")
     rng = np.random.RandomState(0)
@@ -4309,7 +4384,8 @@ def main() -> int:
     rec_dec = check_kernel_case("(a) decode R=8", dec, card)
     rec_mixed = check_kernel_case("(b) mixed R=4 C=128", mixed, card)
     check_kernel_case("(c) GQA 16/4 mixed", gqa, None)
-    decode_sweep(rng, card)
+    sweep = decode_sweep(rng, card)
+    sweep["long_rows"] = long_row_decode(rng, card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("4. tiny fp32 engine: card vs CPU")
@@ -4433,11 +4509,13 @@ def main() -> int:
             "library_ms")
     ragged = dict(
         name="ragged_paged_attention", route="cuda",
-        source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu",
         replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:121",
         launches=full["launches"], **{k: rec_dec[k] for k in keys},
+        design=rec_dec["design"], splits=rec_dec["splits"],
         shape="decode R=8 H=16 D=128 bs=32 bf16, kv_len 100..640",
-        mixed={k: rec_mixed[k] for k in keys}, serving=full)
+        mixed={k: rec_mixed[k] for k in keys + ("design", "splits")},
+        decode_sweep=sweep, serving=full)
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
     fa = "paddle_tpu/kernels/pallas/flash_attention.py"
     bert_main = bert[BERT_SEQS[0]]
@@ -4485,7 +4563,7 @@ def main() -> int:
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
              f"{fa}:451"),
-            ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_dkv_hopper.cu",
              f"{fa}:747"),
             ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_dq_hopper.cu",
              f"{fa}:796"))]
@@ -4519,7 +4597,10 @@ def main() -> int:
              shape="prefill P=8 C=128 cap=640 H=16 D=128 bf16, bias "
                    "[8,1,128,640], q a view of qkv, k/v gathered views"),
         dict(name="ragged_paged_attention_quantized", route="cuda",
-             source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+             source=("paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu"
+                     if quant["int8"]["design"] == "wgmma+tma" else
+                     "paddle_tpu_torch/csrc/ragged_paged_attention.cu"),
+             design=quant["int8"]["design"],
              replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:58",
              launches=qeng["int8"]["launches"]["ragged_paged_attention"],
              **{k: quant["int8"][k] for k in keys},

@@ -87,16 +87,16 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
 // shape the two functions need 2.5x the forward's FLOPs between them (dQ
 // three products per visible pair, dK/dV four) on ~4x its bytes, so they
-// are FLOP-bound near 0.09 ms together; the dQ kernel does more (five
+// are FLOP-bound near 0.12 ms together; the dQ kernel does more (five
 // products in fp32, six in 16 bits: the delta pass and the lo half of ds).
 // The fp32 kernels here run their products on the FP32 pipes from padded
 // fp32 tiles. For bf16 and fp16, dq_run hands dQ to the wgmma kernel of
-// flash_dq_hopper.cu; the dK/dV kernel here runs its products on the tensor
-// cores through WMMA (ds and p rounded to T for the products that take
-// them; dk and dv accumulate in fp32 fragments across the whole loop). Each
-// of its products round-trips through shared memory and no load overlaps
-// the math, so it sits far above its bound: wgmma and a load pipeline, as
-// in flash_dq_hopper.cu, are the next step.
+// flash_dq_hopper.cu, and dkv_run hands dK/dV at D_pad <= 128 to the wgmma
+// kernel of flash_dkv_hopper.cu (transposed scores in registers, Q and dO
+// through a TMA ring). At D_pad 192 and 256 the 16-bit dK/dV kernel here
+// runs its products on the tensor cores through WMMA (ds and p rounded to T
+// for the products that take them; dk and dv accumulate in fp32 fragments
+// across the whole loop), each product round-tripping through shared memory.
 
 #include "flash_common.cuh"
 
@@ -422,14 +422,15 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// bf16 / fp16: the same two kernels with their products on the tensor cores
+// bf16 / fp16 dK/dV at D_pad 192 and 256: the products on the tensor cores
+// through WMMA
 template <int D>
 constexpr size_t dkv_tc_smem() {
   return 2 * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) + sizeof(float) * kTile * kLdS;
 }
 
 template <typename T, int D, bool kBias, bool kInt, bool kDrop>
-__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_dkv_tc_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_tc_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   __shared__ IntTiles it;
   constexpr int ld = tc_ld<D>(), NC = D / 16;
@@ -579,12 +580,17 @@ int launch(const Args& a, int dtype, cudaStream_t s) {
     // fp32 only (dq_run hands the 16-bit calls to flash_dq_hopper.cu)
     return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
   } else {
-    if (dtype == kBF16)
-      return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
-                           grid, a, s);
-    if (dtype == kF16)
-      return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
-                           grid, a, s);
+    // 16 bits: the WMMA kernel past kDkvHopperMaxD only (dkv_run hands the
+    // narrower calls to flash_dkv_hopper.cu)
+    if constexpr (D > kDkvHopperMaxD) {
+      if (dtype == kBF16)
+        return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
+                             grid, a, s);
+      if (dtype == kF16)
+        return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
+                             grid, a, s);
+    }
+    if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
     return launch_kernel(flash_dkv_kernel<D, kBias, kInt, kDrop>, dkv_smem<D>(), grid, a, s);
   }
 }
@@ -619,6 +625,9 @@ template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
 #else
 template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t s) {
+  if constexpr (D <= kDkvHopperMaxD) {
+    if (dtype != kF32) return dkv_hopper_run<hopper_width(D)>(a, dtype, s);
+  }
   return bwd<false, D>(a, dtype, s);
 }
 template int dkv_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);

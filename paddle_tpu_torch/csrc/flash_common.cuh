@@ -33,9 +33,10 @@
 // on the card.)
 //
 // Instances, each x 8 (bias, integer masks, dropout: template flags): the
-// fp32 kernels (3 kernels x 6 widths), the 16-bit WMMA dK/dV (6 widths) and
-// the redesigned 16-bit forward and dQ (wgmma + TMA: 2 kernels x 4 widths),
-// each in bf16 and fp16: 400, built as 26 objects in parallel.
+// fp32 kernels (3 kernels x 6 widths: 144), and in bf16 and fp16 the WMMA
+// dK/dV (D_pad 192 and 256: 32), the redesigned forward and dQ (wgmma +
+// TMA, 2 kernels x 4 widths: 128) and dK/dV (wgmma + TMA, D_pad 64 and 128:
+// 32): 336, built as 28 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -135,6 +136,12 @@ template <int D>
 int fwd_hopper_run(const Args& a, int dtype, cudaStream_t stream);
 template <int D>
 int dq_hopper_run(const Args& a, int dtype, cudaStream_t stream);
+// The redesigned bf16 / fp16 dK/dV (flash_dkv_hopper.cu), one object per
+// width in {64, 128}; dkv_run hands it the 16-bit calls of D_pad <= 128
+// (kDkvHopperMaxD), the wider ones keep the WMMA kernel.
+template <int D>
+int dkv_hopper_run(const Args& a, int dtype, cudaStream_t stream);
+constexpr int kDkvHopperMaxD = 128;
 __host__ __device__ constexpr int hopper_width(int d_pad) { return (d_pad + 63) / 64 * 64; }
 
 // Their tiles, here alone (the C entry ptt_flash_plan reports them): blocks
@@ -149,6 +156,10 @@ __host__ __device__ constexpr int fwd_hopper_bn(int d_pad, bool bias) {
   return bias || d_pad > 128 ? 64 : 128;
 }
 __host__ __device__ constexpr int dq_hopper_bn(int d_pad) { return d_pad > 128 ? 32 : 64; }
+// dK/dV's: a block owns 128 keys (two consumer warpgroups of 64) and streams
+// query tiles of 64 rows.
+constexpr int kDkvHopperBN = 128;
+constexpr int kDkvHopperBM = 64;
 
 // ---------------------------------------------------------------------------
 // element types

@@ -1,0 +1,567 @@
+// Flash attention dK/dV for Hopper, redesigned for sm_90a: the bf16 and fp16
+// kernel at D_pad 64 and 128 (and the heads of D_pad 32 and 96, read into
+// the next of those with zero columns). dk and dv as flash_attention_bwd.cu's
+// dK/dV kernels compute them, from the forward's lse and the delta =
+// rowsum(p * dP) that the dQ kernel (flash_dq_hopper.cu) writes first on the
+// same stream.
+//
+// Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`'s dK/dV
+// pallas_call (kernel body `_dkv_kernel`, masks `_mask_scores`) on all its
+// operands: causal / non-causal and the window as one band, GQA (the group's
+// query heads summed inside the block: no atomics, deterministic), the bias
+// in its own dtype, segment ids, the flashmask rows and dropout with the
+// forward's keep bits. It took the place of the WMMA kernel
+// flash_dkv_tc_kernel of flash_attention_bwd.cu at D_pad <= 128; at D_pad
+// 192 and 256 (no model of the repo runs the backward there) the 64 x D_pad
+// fp32 dk and dv of a warpgroup's 64 keys (96 or 128 registers each a
+// thread) do not fit beside the scores, and the WMMA kernel stays.
+//
+// Bound on an H100 SXM: 8 D FLOPs a visible pair (s, dP, dv, dk) against q,
+// k, v, dO, lse, delta and dk, dv moved once: at the GPT flagship call 0.070
+// ms of operations. The kernel does those four products and no more.
+//
+// Design. One block of 384 threads owns 128 keys of one (batch, kv head):
+// the producer warp (warpgroup 0, setmaxnreg 40) and two consumer
+// warpgroups of 64 keys each (setmaxnreg 232).
+// - Loads: K and V once by TMA, kept in shared memory. The producer streams
+//   query tiles of 64 rows, Q and dO by TMA through a two-stage ring with
+//   `full` and `empty` mbarriers (flash_hopper.cuh), the tile's lse (times
+//   log2 e; +inf for a row past Sq or dead, so its p is exp2(-inf) = 0) and
+//   delta written into the stage by its lanes. The stream is the group's g
+//   query heads times each head's query tiles in the band of the block's
+//   keys, one list, so dk and dv sum the group in registers. The producer
+//   decides the integer masks' tile skips (disjoint segment ranges; every
+//   pair inside the block's keys' flashmask rows) and ends the list with a
+//   stage whose q0 is -1.
+// - Transposed scores: S^T = K Q^T and dP^T = V dO^T by wgmma (A = the
+//   warpgroup's 64 K / V rows, B = Q / dO, both K-major in the 128-byte
+//   swizzle), so a thread's fragment rows are keys and its columns queries.
+//   p = exp(scale s + bias - lse[query]) takes lse and delta a column, read
+//   from the stage as float2. P^T (dropped and rescaled) and dS^T = p (dP -
+//   delta), packed to T two by two, are exactly the register A fragments of
+//   dV += P^T dO and dK += dS^T Q (B = dO / Q read MN-major, as the
+//   forward's p v reads V). dk and dv accumulate in fp32 registers over the
+//   whole stream and are written once, dk times the scale. No score, p or ds
+//   goes to shared memory. At D_pad 128 a consumer thread holds 32 scores, 32
+//   dP, 64 dk and 64 dv (192 registers) and 32 of packed P^T / dS^T.
+// - Masks on the key-major fragment: the band and the integer masks as one
+//   bit an element, formed while the S^T and dP^T products run (a thread
+//   whose tile lies inside the band and whose keys the masks provably spare
+//   skips the per-element test); the bias from unconditional clamped loads in
+//   chunks (as flash_hopper.cuh add_bias; a fragment column is a query, so
+//   the loads are strided by the bias's query stride).
+// - Dropout keeps the forward's bit for (b, h, query i, key j): Philox word
+//   j % 4 of the counter (j / 4, i, h, b) (flash_common.cuh drop_bits). The
+//   four keys of one word sit in four lanes here (lane bits 2-3: fragment
+//   rows 4 m + s, s = 0..3), which need one word each of the same call. Per
+//   8-column group the four lanes make the four calls the group needs (lane
+//   s: column 2 (l % 4) + (s >> 1) of the group, key row s & 1) and
+//   exchange words with three shuffles: each thread makes 8 calls a tile,
+//   not 32.
+// - Order: blocks in groups of 16 (batch, kv head) pairs, the key tiles
+//   that see the most queries under causal masking (the first) first in a
+//   group, so the grid ends on short work and the blocks in flight share
+//   their pairs' Q and dO in L2.
+
+#include "flash_hopper.cuh"
+
+#ifndef PTT_FLASH_D
+#error "compile once per redesigned width: -DPTT_FLASH_D=<64|128>"
+#endif
+
+namespace ptt_flash {
+namespace hopper {
+namespace {
+
+constexpr int kBNK = kDkvHopperBN;  // keys a block (flash_common.cuh)
+constexpr int kBMQ = kDkvHopperBM;  // queries a streamed tile
+constexpr int kDkvStages = 2;
+
+// What the producer hands the consumers with each stage: the query tile's
+// first row (-1: the list ends) and its head in the group, the tile's query
+// segment ids and their range, and its lse (times log2 e) and delta.
+struct QSlot {
+  int q0, hh, qlo, qhi;
+  float lse[kBMQ], delta[kBMQ];
+  int qids[kBMQ];
+};
+
+template <typename T, int D>
+struct DkvSmem {
+  static constexpr int kP = D / 64;
+  T k[kP][kBNK * 64];
+  T v[kP][kBNK * 64];
+  T q[kDkvStages][kP][kBMQ * 64];
+  T dout[kDkvStages][kP][kBMQ * 64];
+  uint64_t full[kDkvStages], empty[kDkvStages], kvbar;
+  QSlot slot[kDkvStages];
+};
+
+struct KeyBlockPos {
+  int k0, hk, b;
+};
+
+// Blocks in groups of kGroupHB (batch, kv head) pairs; inside a group the
+// key tiles in order from the first, which sees the most queries under
+// causal masking.
+__device__ __forceinline__ KeyBlockPos key_block_pos(const Args& a, int idx) {
+  const int nkt = (a.Sk + kBNK - 1) / kBNK, hbs = a.Hkv * a.B;
+  const int group = idx / (kGroupHB * nkt);
+  const int g = min(kGroupHB, hbs - group * kGroupHB);
+  const int r = idx - group * kGroupHB * nkt;
+  const int hb = group * kGroupHB + r % g;
+  return KeyBlockPos{(r / g) * kBNK, hb % a.Hkv, hb / a.Hkv};
+}
+
+// Queries [first, end) can see keys [k0, k0 + kBNK) by the band (first a
+// multiple of kBMQ).
+__device__ __forceinline__ int blk_query_begin(int k0, const Args& a) {
+  const long long first = static_cast<long long>(k0) - (a.Sk - a.Sq) - a.band_hi;
+  return first <= 0 ? 0 : static_cast<int>(first / kBMQ) * kBMQ;
+}
+
+__device__ __forceinline__ int blk_query_end(int k0, const Args& a) {
+  const long long last = static_cast<long long>(k0) + kBNK - (a.Sk - a.Sq) - a.band_lo;
+  return last <= 0 ? 0 : static_cast<int>(last < a.Sq ? last : a.Sq);
+}
+
+// The visibility bits of this thread's elements of a key-major tile: bit
+// 4 j + 2 i + e is key row kpos[i], query q0 + 8 j + 2 (l % 4) + e; set iff
+// the pair is in range, inside the band, within one segment and outside the
+// key's flashmask rows [fs, fe).
+template <bool kInt>
+__device__ __forceinline__ uint64_t kt_visible_bits(const Args& a, const QSlot& sl, bool seg,
+                                                    bool fm, int q0, const int (&kpos)[2],
+                                                    const int (&kid)[2], const int (&fs)[2],
+                                                    const int (&fe)[2]) {
+  const int lane = threadIdx.x % 32;
+  uint64_t bits = 0;
+#pragma unroll 2
+  for (int j = 0; j < kBMQ / 8; ++j) {
+    unsigned g = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane % 4) + e, qpos = q0 + col;
+      const int qid = kInt && seg ? sl.qids[col] : 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bool ok = visible(qpos, kpos[i], a);
+        if (kInt) ok = ok && (!seg || qid == kid[i]) && (!fm || qpos < fs[i] || qpos >= fe[i]);
+        g |= (ok ? 1u : 0u) << (2 * i + e);
+      }
+    }
+    bits |= static_cast<uint64_t>(g) << (4 * j);
+  }
+  return bits;
+}
+
+// All bits set, with no per-element test, where the warpgroup's 64 keys
+// [ka, ka + 64) lie wholly inside the band for the tile's queries and the
+// integer masks provably spare this thread's pairs: the tile's queries all
+// carry the one segment id of both keys, and both keys' flashmask bands miss
+// the tile's queries. Else kt_visible_bits, without the masks so proved
+// absent.
+template <bool kInt>
+__device__ __forceinline__ uint64_t kt_tile_mask(const Args& a, const QSlot& sl, bool seg,
+                                                 bool fm, int q0, int ka, const int (&kpos)[2],
+                                                 const int (&kid)[2], const int (&fs)[2],
+                                                 const int (&fe)[2]) {
+  const bool band = tile_in_band<64>(q0, ka, a);
+  if (!kInt) return band ? ~0ull : kt_visible_bits<false>(a, sl, false, false, q0, kpos, kid, fs, fe);
+  const bool seg_free = !seg || (sl.qlo == sl.qhi && kid[0] == sl.qlo && kid[1] == sl.qlo);
+  const int qlast = q0 + kBMQ - 1;
+  const bool fm_free = !fm || ((fe[0] <= q0 || fs[0] > qlast || fs[0] >= fe[0]) &&
+                               (fe[1] <= q0 || fs[1] > qlast || fs[1] >= fe[1]));
+  if (band && seg_free && fm_free) return ~0ull;
+  return kt_visible_bits<true>(a, sl, seg && !seg_free, fm && !fm_free, q0, kpos, kid, fs, fe);
+}
+
+// The dropout keep bits of this thread's elements of a key-major tile (bit
+// 4 j + 2 i + e as kt_visible_bits). Lane l = 16 m + 4 s + (l % 4) holds key
+// rows 4 m + s (+ 8) of its warp's 16, so keys 4 c .. 4 c + 3 of one Philox
+// call sit in the four lanes s = 0..3. In group j lane s makes the call of
+// column 2 (l % 4) + (s >> 1), key row s & 1, keeps word s and hands word
+// s ^ x to lane s ^ x (x = 1, 2, 3): four calls, one a lane, give the four
+// lanes all 16 bits of the group.
+__device__ __forceinline__ uint64_t kt_keep_bits(const Args& a, int b, int h, int q0, int key0) {
+  const int lane = threadIdx.x % 32, s = (lane >> 2) & 3;
+  const int e_own = s >> 1, i_own = s & 1;
+  // key0: the thread's row-0 key; its word is s, its group key0 / 4; row 1
+  // is 8 keys on, two groups
+  const int c4 = key0 / 4 + 2 * i_own;
+  uint64_t keep = 0;
+#pragma unroll 2
+  for (int j = 0; j < kBMQ / 8; ++j) {
+    const int qpos = q0 + 8 * j + 2 * (lane % 4) + e_own;
+    const uint4 w = drop_bits(a, b, h, qpos, c4);
+    unsigned g = (word(w, s) >= a.thresh ? 1u : 0u) << (2 * i_own + e_own);
+#pragma unroll
+    for (int x = 1; x < 4; ++x) {
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, word(w, s ^ x), 4 * x);
+      const int sp = s ^ x;  // the partner's call: row sp & 1, column sp >> 1
+      g |= (got >= a.thresh ? 1u : 0u) << (2 * (sp & 1) + (sp >> 1));
+    }
+    keep |= static_cast<uint64_t>(g) << (4 * j);
+  }
+  return keep;
+}
+
+// The bias of the key-major tile added in place (masked elements keep their
+// value: the caller zeroes their p). Every load is unconditional from an
+// address clamped into the bias, in chunks of 4 column groups (16 values);
+// the next chunk's loads wait for this one's sums.
+template <typename BT>
+__device__ __forceinline__ void add_bias_kt_t(float (&s)[kBMQ / 2], const Args& a, long long bb,
+                                              int q0, const int (&kpos)[2], uint64_t vis) {
+  const int lane = threadIdx.x % 32;
+  const BT* base = static_cast<const BT*>(a.bias) + bb;
+  long long koff[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) koff[i] = static_cast<long long>(min(kpos[i], a.Sk - 1)) * a.vb.k;
+  constexpr int kChunk = 4;
+#pragma unroll
+  for (int j0 = 0; j0 < kBMQ / 8; j0 += kChunk) {
+#pragma unroll
+    for (int j = j0; j < j0 + kChunk; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = min(q0 + 8 * j + 2 * (lane % 4) + e, a.Sq - 1);
+        const BT* row = base + static_cast<long long>(qpos) * a.vb.q;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = 4 * j + 2 * i + e;
+          const float v = to_f32(row[koff[i]]);
+          s[r] += (vis >> r) & 1u ? v : 0.f;
+        }
+      }
+    const int z = opaque_zero(s[4 * (j0 + kChunk - 1) + 3]);
+    base += z;
+  }
+}
+
+__device__ __forceinline__ void add_bias_kt(float (&s)[kBMQ / 2], const Args& a, long long bb,
+                                            int q0, const int (&kpos)[2], uint64_t vis) {
+  switch (a.bias_dtype) {
+    case kBF16:
+      add_bias_kt_t<bf16>(s, a, bb, q0, kpos, vis);
+      break;
+    case kF16:
+      add_bias_kt_t<f16>(s, a, bb, q0, kpos, vis);
+      break;
+    default:
+      add_bias_kt_t<float>(s, a, bb, q0, kpos, vis);
+  }
+}
+
+// The flashmask rows (start, end) of this thread's two keys for query head
+// h (a key past Sk: rows that mask nothing; visible() drops it).
+__device__ __forceinline__ void key_rows(const Args& a, int b, int h, const int (&kpos)[2],
+                                         int (&fs)[2], int (&fe)[2]) {
+  const long long rows = fm_row(a, b, h);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = kpos[i] < a.Sk;
+    fs[i] = in ? a.fms[rows + kpos[i]] : 0;
+    fe[i] = in ? a.fme[rows + kpos[i]] : 0;
+  }
+}
+
+template <typename T, int D, bool kBias, bool kInt, bool kDrop>
+__global__ void __launch_bounds__(kThreadsH, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, const Args a) {
+  constexpr int kP = D / 64, kS = kDkvStages;
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem<T, D>& sm = *reinterpret_cast<DkvSmem<T, D>*>(align1024(smem_raw));
+  const KeyBlockPos pos = key_block_pos(a, static_cast<int>(blockIdx.x));
+  const int k0 = pos.k0, hk = pos.hk, b = pos.b, g = a.H / a.Hkv;
+  const int wg = threadIdx.x / 128;
+  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(&sm.full[st], 32);  // the producer warp's lanes (they write the slot)
+      mbar_init(&sm.empty[st], kConsumerWarps);
+    }
+    mbar_init(&sm.kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: warp 0 streams the group's query tiles
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      mbar_arrive_tx(&sm.kvbar, 2 * kBNK * D * 2);
+      for (int p = 0; p < kP; ++p) {
+        tma_load(sm.k[p], &tk, &sm.kvbar, 64 * p, k0, hk, b);
+        tma_load(sm.v[p], &tv, &sm.kvbar, 64 * p, k0, hk, b);
+      }
+    }
+    // the block's keys' segment-id range (keys below Sk)
+    int klo = INT_MAX, khi = INT_MIN;
+    if (seg) {
+#pragma unroll
+      for (int u = 0; u < kBNK / 32; ++u) {
+        const int kp = k0 + lane + 32 * u;
+        if (kp < a.Sk) {
+          const int id = a.kseg[static_cast<long long>(b) * a.Sk + kp];
+          klo = min(klo, id);
+          khi = max(khi, id);
+        }
+      }
+      klo = __reduce_min_sync(0xffffffffu, klo);
+      khi = __reduce_max_sync(0xffffffffu, khi);
+    }
+    const int qbegin = blk_query_begin(k0, a), qend = blk_query_end(k0, a);
+    int stage = 0;
+    uint32_t phase = 0;
+    int smax = INT_MIN, emin = INT_MAX;
+    for (int hh = 0; hh < g; ++hh) {
+      const int h = hk * g + hh;
+      if (fm && (hh == 0 || a.fm_hs != 0)) {
+        // the block's keys' greatest start and least end for this head (a
+        // key past Sk masks every query: it never keeps a tile alive)
+        const long long rows = fm_row(a, b, h);
+        smax = INT_MIN;
+        emin = INT_MAX;
+#pragma unroll
+        for (int u = 0; u < kBNK / 32; ++u) {
+          const int kp = k0 + lane + 32 * u;
+          smax = max(smax, kp < a.Sk ? a.fms[rows + kp] : INT_MIN);
+          emin = min(emin, kp < a.Sk ? a.fme[rows + kp] : INT_MAX);
+        }
+        smax = __reduce_max_sync(0xffffffffu, smax);
+        emin = __reduce_min_sync(0xffffffffu, emin);
+      }
+      const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+      for (int q0 = qbegin; q0 < qend; q0 += kBMQ) {
+        int ids[2] = {0, 0}, qlo = 0, qhi = 0;
+        if (seg) {
+          qlo = INT_MAX;
+          qhi = INT_MIN;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qp = q0 + lane + 32 * u;
+            if (qp < a.Sq) {
+              ids[u] = a.qseg[static_cast<long long>(b) * a.Sq + qp];
+              qlo = min(qlo, ids[u]);
+              qhi = max(qhi, ids[u]);
+            }
+          }
+          qlo = __reduce_min_sync(0xffffffffu, qlo);
+          qhi = __reduce_max_sync(0xffffffffu, qhi);
+          if (!seg_overlap(qlo, qhi, klo, khi)) continue;
+        }
+        if (fm && smax <= q0 && emin >= min(q0 + kBMQ, a.Sq)) continue;
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        QSlot& sl = sm.slot[stage];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = lane + 32 * u, qp = q0 + r;
+          const float l = qp < a.Sq ? a.lse[row_base + qp] : kNegInf;
+          // a dead row (lse -1e30) or one past Sq: p = exp2(-inf) = 0
+          sl.lse[r] = l <= 0.5f * kNegInf ? __int_as_float(0x7f800000) : l * kLog2e;
+          sl.delta[r] = qp < a.Sq ? a.delta[row_base + qp] : 0.f;
+          if (seg) sl.qids[r] = ids[u];
+        }
+        if (lane == 0) {
+          sl.q0 = q0;
+          sl.hh = hh;
+          sl.qlo = qlo;
+          sl.qhi = qhi;
+          mbar_arrive_tx(&sm.full[stage], 2 * kBMQ * D * 2);
+          for (int p = 0; p < kP; ++p) {
+            tma_load(sm.q[stage][p], &tq, &sm.full[stage], 64 * p, q0, h, b);
+            tma_load(sm.dout[stage][p], &tdo, &sm.full[stage], 64 * p, q0, h, b);
+          }
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+        if (++stage == kS) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    mbar_wait(&sm.empty[stage], phase ^ 1);  // the end of the list
+    if (lane == 0) sm.slot[stage].q0 = -1;
+    mbar_arrive(&sm.full[stage]);
+    return;
+  }
+
+  // consumers: warpgroup cw owns keys ka .. ka + 63
+  reg_alloc<kConsumerRegs>();
+  const int cw = wg - 1, t = threadIdx.x - 128 * wg, lane = t % 32;
+  const int ka = k0 + 64 * cw;
+  const int kpos[2] = {ka + 16 * (t / 32) + lane / 4, ka + 16 * (t / 32) + lane / 4 + 8};
+  int kid[2] = {0, 0}, fs[2] = {0, 0}, fe[2] = {0, 0};
+  if (seg)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      kid[i] = kpos[i] < a.Sk ? a.kseg[static_cast<long long>(b) * a.Sk + kpos[i]] : 0;
+  int rows_h = -1;  // the query head whose flashmask rows fs / fe hold
+  const bool keys_live = ka < a.Sk;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) dk[c] = dv[c] = 0.f;
+  const uint32_t kbase = smem_u32(sm.k[0]) + cw * 64 * 128;
+  const uint32_t vbase = smem_u32(sm.v[0]) + cw * 64 * 128;
+  constexpr uint32_t kKPanel = kBNK * 128, kQPanel = kBMQ * 128;
+  const float scale_log2 = a.scale * kLog2e;
+
+  mbar_wait(&sm.kvbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(&sm.full[stage], phase);
+    const QSlot& sl = sm.slot[stage];
+    const int q0 = sl.q0;
+    if (q0 >= 0 && keys_live && !tile_out_of_band<64>(q0, ka, a)) {
+      const int h = hk * g + sl.hh;
+      if (fm && (rows_h < 0 || (a.fm_hs != 0 && rows_h != h))) {
+        key_rows(a, b, h, kpos, fs, fe);
+        rows_h = h;
+      }
+      const uint32_t qb = smem_u32(sm.q[stage][0]), dob = smem_u32(sm.dout[stage][0]);
+      float s[kBMQ / 2], dp[kBMQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBMQ, T>(s, desc_kmajor(kbase, kKPanel, kk), desc_kmajor(qb, kQPanel, kk),
+                          kk > 0 ? 1 : 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBMQ, T>(dp, desc_kmajor(vbase, kKPanel, kk), desc_kmajor(dob, kQPanel, kk),
+                          kk > 0 ? 1 : 0);
+      wgmma_commit();
+      // the masks and the dropout bits are formed while the tensor cores
+      // form S^T and dP^T
+      const uint64_t vis = kt_tile_mask<kInt>(a, sl, seg, fm, q0, ka, kpos, kid, fs, fe);
+      const uint64_t keep = kDrop ? kt_keep_bits(a, b, h, q0, kpos[0]) : 0;
+      wgmma_wait_all();
+      reg_fence(s);
+      reg_fence(dp);
+      if (kBias) {
+#pragma unroll
+        for (int r = 0; r < kBMQ / 2; ++r) s[r] *= a.scale;
+        add_bias_kt(s, a, bias_base(a, b, h), q0, kpos, vis);
+      }
+      uint32_t pa[kBMQ / 16][4], dsa[kBMQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBMQ / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(&sl.lse[col]);
+        const float2 dl = *reinterpret_cast<const float2*>(&sl.delta[col]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = 4 * j + 2 * i;
+          float p[2], pd[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float lse2 = e ? l2.y : l2.x, del = e ? dl.y : dl.x;
+            const float x = kBias ? s[r + e] * kLog2e - lse2 : fmaf(s[r + e], scale_log2, -lse2);
+            p[e] = (vis >> (r + e)) & 1u ? exp2f(x) : 0.f;
+            const bool kept = !kDrop || ((keep >> (r + e)) & 1u);
+            pd[e] = kDrop ? (kept ? p[e] * a.drop_scale : 0.f) : p[e];
+            const float dpv = kDrop ? (kept ? dp[r + e] * a.drop_scale : 0.f) : dp[r + e];
+            ds[e] = p[e] * (dpv - del);
+          }
+          // registers 8 kk + 2 c, + 1 of the fragment are A register c of
+          // query step kk: r = 4 j + 2 i, so kk = j / 2, c = 2 (j % 2) + i
+          pa[j / 2][2 * (j % 2) + i] = pack2<T>(pd[0], pd[1]);
+          dsa[j / 2][2 * (j % 2) + i] = pack2<T>(ds[0], ds[1]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBMQ / 16; ++kk) {
+        wgmma_rs_cols<D, T>(dv, pa[kk], dob, kQPanel, kk);
+        wgmma_rs_cols<D, T>(dk, dsa[kk], qb, kQPanel, kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(dv);
+      reg_fence(dk);
+      reg_fence(pa);
+      reg_fence(dsa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    if (++stage == kS) {
+      stage = 0;
+      phase ^= 1;
+    }
+    if (q0 < 0) break;
+  }
+
+  T* dkb = static_cast<T*>(a.dk);
+  T* dvb = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= a.Sk) continue;
+    const long long off = ((static_cast<long long>(b) * a.Sk + kpos[i]) * a.Hkv + hk) * a.D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < a.D) {
+        const int r = 4 * j + 2 * i;
+        *reinterpret_cast<uint32_t*>(dkb + off + col) =
+            pack2<T>(dk[r] * a.scale, dk[r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + off + col) = pack2<T>(dv[r], dv[r + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, int D, bool kBias, bool kInt, bool kDrop>
+int launch(const Args& a, int dtype, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, dtype, kBMQ);
+  if (err == 0) err = encode_view(&tdo, a.dout, a.vdo, a.B, a.Sq, a.H, a.D, dtype, kBMQ);
+  if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, dtype, kBNK);
+  if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, dtype, kBNK);
+  if (err != 0) return err;
+  auto* kernel = flash_dkv_wgmma_kernel<T, D, kBias, kInt, kDrop>;
+  const size_t smem = sizeof(DkvSmem<T, D>) + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned grid = static_cast<unsigned>((a.Sk + kBNK - 1) / kBNK) * a.Hkv * a.B;
+  kernel<<<grid, kThreadsH, smem, stream>>>(tq, tk, tv, tdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, bool kBias>
+int launch_flags(const Args& a, int dtype, cudaStream_t s) {
+  const bool ints = a.qseg != nullptr || a.fms != nullptr, drop = a.drop != 0;
+  if (ints && drop) return launch<T, D, kBias, true, true>(a, dtype, s);
+  if (ints) return launch<T, D, kBias, true, false>(a, dtype, s);
+  if (drop) return launch<T, D, kBias, false, true>(a, dtype, s);
+  return launch<T, D, kBias, false, false>(a, dtype, s);
+}
+
+template <typename T, int D>
+int launch_bias(const Args& a, int dtype, cudaStream_t s) {
+  return a.bias != nullptr ? launch_flags<T, D, true>(a, dtype, s)
+                           : launch_flags<T, D, false>(a, dtype, s);
+}
+
+}  // namespace
+}  // namespace hopper
+
+template <int D>
+int dkv_hopper_run(const Args& a, int dtype, cudaStream_t s) {
+  return dtype == kBF16 ? hopper::launch_bias<bf16, D>(a, dtype, s)
+                        : hopper::launch_bias<f16, D>(a, dtype, s);
+}
+
+template int dkv_hopper_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
+
+}  // namespace ptt_flash

@@ -1,5 +1,7 @@
 // The Hopper pieces of the redesigned 16-bit flash kernels
-// (flash_fwd_hopper.cu, the forward; flash_dq_hopper.cu, dQ): mbarriers, TMA
+// (flash_fwd_hopper.cu, the forward; flash_dq_hopper.cu, dQ;
+// flash_dkv_hopper.cu, dK/dV) and of the ragged paged-attention kernel
+// (ragged_paged_attention_hopper.cu): mbarriers, TMA
 // tile loads, wgmma and its shared-memory descriptors, the tensor maps built
 // on the host, and the accumulator-fragment coordinates the softmax and the
 // masks work on. Inline PTX throughout (no CuTe): each kernel has 16

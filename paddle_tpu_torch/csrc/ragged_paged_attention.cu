@@ -1,4 +1,6 @@
-// Unified ragged prefill+decode paged attention for Hopper (sm_90a).
+// Unified ragged prefill+decode paged attention for Hopper (sm_90a): the C
+// entries, and the kernel on the CUDA cores for the calls the redesigned
+// wgmma kernel (ragged_paged_attention_hopper.cu) does not take.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`): one launch serves a
@@ -8,6 +10,12 @@
 // kv_len[r] - q_len[r] + c and sees keys at or before it; columns c >= q_len
 // and rows that see no key emit zeros.
 //
+// Routes (ptt_ragged_plan reports them; the wrapper counts each): bf16 /
+// fp16 queries over pools of their dtype or int8 / fp8 pools, with bs a
+// multiple of 8, go to the wgmma kernel of ragged_paged_attention_hopper.cu
+// (tensor cores, pages through a TMA ring, split key ranges for short
+// grids); fp32 queries and the other page sizes to the kernel here.
+//
 // Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
 // fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
 // dequantized as v * scale[h, page] / qmax (qmax 127 or 448) right after the
@@ -15,34 +23,27 @@
 // decode row then reads 1 byte per cached element instead of 2: its bound is
 // the 1-byte pages plus two scales per page, about half the bf16 bound.
 //
-// TPU -> Hopper. The Pallas grid (R, H_kv, nb) walks a row's table slots in
-// order and carries m/l/acc in VMEM scratch from one grid step to the next.
-// CUDA blocks run in no order, so here one block owns one
-// (row, kv head, tile of 16 folded (c, g) query rows) and loops INSIDE the
-// block over the row's pages, reading block_tables[r, j] itself; the
+// TPU -> Hopper (the kernel here). The Pallas grid (R, H_kv, nb) walks a
+// row's table slots in order and carries m/l/acc in VMEM scratch from one
+// grid step to the next. CUDA blocks run in no order, so here one block owns
+// one (row, kv head, tile of 16 folded (c, g) query rows) and loops INSIDE
+// the block over the row's pages, reading block_tables[r, j] itself; the
 // online-softmax state (m, l) sits in shared memory and the output
 // accumulator in registers. The loop bound (the row's used pages, at most the
 // table's width, cut further by the tile's last causal column) replaces the
-// TPU grid's extent and index-map clamp, so
-// past-end table slots are never touched and a decode row costs its own
-// pages, never the batch maximum.
+// TPU grid's extent and index-map clamp, so past-end table slots are never
+// touched and a decode row costs its own pages, never the batch maximum.
 //
 // Bound on an H100 SXM (published peaks at its 700 W limit: 3.35 TB/s, 989
 // TFLOP/s bf16 dense). Decode rows are bandwidth-bound: a row reads
 // 2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize bytes of K/V pages and does
 // 4 * D FLOPs per (query head, key). Prefill chunks of 128 queries do ~128x
-// the FLOPs on the same bytes and sit near the ridge. This first kernel aims
-// to be simple and right: each page is read from device memory exactly once
-// per (block, kv head) with 16-byte coalesced loads, converted to fp32 in
-// shared memory, and both products run on the FP32 pipes with fp32
-// accumulation (s and p.v in fp32 from bf16 or fp32 inputs). It does not
-// overlap the next page's load with the current page's math and does not use
-// the tensor cores. What holds it back on decode (chip_smoke.py phase 3d): a
-// block walks its row's pages in sequence, and a decode batch of R rows
-// gives only R * H_kv blocks, about one per SM, so the time follows the
-// longest row at a fixed cost per key. A split-KV layout that spreads a
-// row's pages over several blocks is the next step, then cp.async/TMA
-// pipelining and wgmma for the prefill tiles.
+// the FLOPs on the same bytes and sit near the ridge. The kernel here reads
+// each page from device memory once per (block, kv head) with 16-byte
+// coalesced loads, converted to fp32 in shared memory, and runs both
+// products on the FP32 pipes with fp32 accumulation: no load overlaps the
+// math, no tensor cores, and a decode block walks its row's pages in
+// sequence.
 
 #include <type_traits>
 
@@ -243,20 +244,49 @@ int launch_pool(int pool_dtype, const void* q, const void* k_pool, const void* v
 
 }  // namespace
 
+namespace ptt_ragged_hopper {
+// ragged_paged_attention_hopper.cu
+int query_rows();
+int key_tile();
+int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb);
+int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+        const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
+        const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
+        int NB, int bs, int D, int nb, int splits, float scale, int dtype, int pool_code,
+        cudaStream_t stream);
+}  // namespace ptt_ragged_hopper
+
+namespace {
+
+// The wgmma kernel takes bf16 / fp16 queries over pools of their dtype or
+// int8 / fp8 pools, bs a multiple of 8 (a TMA box lands on a whole swizzle
+// atom) and D <= 128 (a whole number of 16-byte words a row: the entry
+// checks it).
+bool wgmma_route(int dtype, int bs, int D) { return dtype != 0 && bs % 8 == 0 && D <= kMaxD; }
+
+}  // namespace
+
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). pool_dtype: 0 =
 // pools of q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
-// fp32 [H_kv, NB] scales. Returns cudaGetLastError() after the launch (0 =
-// success); the caller raises on anything else. Shapes the kernel does not
-// take return cudaErrorInvalidValue before any launch: head_dim above kMaxD
-// or not a whole number of 16-byte vectors of the pool type, pools not
-// 16-byte aligned, a quantized pool without its scales, or a block_size
-// whose page does not fit in shared memory (refused by cudaFuncSetAttribute).
+// fp32 [H_kv, NB] scales. splits: on the wgmma route (ptt_ragged_plan), the
+// splits of a row's key tiles (1 to 16; 0 takes the plan's); with more than
+// one, part_o (fp32 [R, H_kv, tiles, splits, 64, D]) and part_ml (fp32
+// [..., 64, 2]) are the scratch the splits merge through (tiles =
+// ceil(C H_q / H_kv / 64)). The other route takes splits 0 or 1 and no
+// scratch. Returns cudaGetLastError() after the launch (0 = success); the
+// caller raises on anything else. Shapes the kernels do not take return
+// cudaErrorInvalidValue before any launch: head_dim above kMaxD or not a
+// whole number of 16-byte vectors of the pool type, q, out or the pools not
+// 16-byte aligned, a quantized pool without its scales, a split count the
+// route does not take, or a block_size whose page does not fit in shared
+// memory (refused by cudaFuncSetAttribute).
 int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* tables, const void* q_lens, const void* kv_lens,
-                               void* out, const void* k_scales, const void* v_scales, int R,
-                               int C, int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
+                               void* out, const void* k_scales, const void* v_scales,
+                               void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
+                               int NB, int bs, int D, int nb, int splits, float scale,
                                int dtype, int pool_dtype, void* stream) {
   if (R == 0 || C == 0) return 0;
   if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 ||
@@ -267,11 +297,44 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma_route(dtype, bs, D)) {
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (splits == 0) splits = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);
+    return ptt_ragged_hopper::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, k_scales,
+                                  v_scales, part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits,
+                                  scale, dtype, pool_dtype, s);
+  }
+  if (splits > 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_dtype(dtype, [&](auto tag) {
     return launch_pool<typename decltype(tag)::type>(pool_dtype, q, k_pool, v_pool, tables,
                                                      q_lens, kv_lens, k_scales, v_scales, out, R,
                                                      C, Hq, Hkv, NB, bs, D, nb, scale, s);
   });
+}
+
+// What serves a call with these shapes (codes as above): out[0] the design
+// (0: the CUDA-core kernel here, fp32 tiles in shared memory; 2: wgmma with
+// the pages through a TMA ring), out[1] the folded query rows a block, out[2]
+// the keys a tile (the kernel here walks a page at a time), out[3] the
+// splits of a row's key tiles the entry takes when given 0. Returns 0, or
+// cudaErrorInvalidValue for a dtype code no kernel takes.
+int ptt_ragged_plan(int R, int C, int Hq, int Hkv, int bs, int D, int nb, int dtype,
+                    int pool_dtype, int* out) {
+  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 || Hkv <= 0 || bs <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wgmma_route(dtype, bs, D)) {
+    out[0] = 2;
+    out[1] = ptt_ragged_hopper::query_rows();
+    out[2] = ptt_ragged_hopper::key_tile();
+    out[3] = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);
+  } else {
+    out[0] = 0;
+    out[1] = kTileRows;
+    out[2] = bs;
+    out[3] = 1;
+  }
+  return 0;
 }
 
 const char* ptt_error_string(int code) {

@@ -45,6 +45,9 @@ FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
 # the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
 # flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
 FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
+# the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): D_pad 64 and 128 (the
+# wider calls keep the WMMA kernel of flash_attention_bwd.cu)
+FLASH_DKV_HOPPER_D_PADS = (64, 128)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -75,8 +78,12 @@ def _units():
         if src.name == "flash_attention_fwd.cu":
             for d in FLASH_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
-        elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu"):
-            for d in FLASH_HOPPER_D_PADS:
+        elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
+                          "flash_dkv_hopper.cu"):
+            pads = (FLASH_DKV_HOPPER_D_PADS
+                    if src.name == "flash_dkv_hopper.cu"
+                    else FLASH_HOPPER_D_PADS)
+            for d in pads:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name == "flash_attention_bwd.cu":
             for d in FLASH_D_PADS:
@@ -92,7 +99,8 @@ def _digest(extra: str = "") -> str:
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + list(map(str, FLASH_D_PADS + FLASH_HOPPER_D_PADS))).encode())
+    pads = FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
+    h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]
 
@@ -213,9 +221,12 @@ def load_library() -> ctypes.CDLL:
     cu = ctypes.c_uint
     drop = [ci, cu, cu, cu, cf]   # drop, seed0, seed1, thresh, drop_scale
     signatures = {
-        # q, k, v, tables, q_lens, kv_lens, out, k_scales, v_scales, R, C,
-        # Hq, Hkv, NB, bs, D, nb, scale, dtype, pool_dtype, stream
-        "ptt_ragged_paged_attention": [vp] * 9 + [ci] * 8 + [cf, ci, ci, vp],
+        # q, k, v, tables, q_lens, kv_lens, out, k_scales, v_scales,
+        # part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits, scale,
+        # dtype, pool_dtype, stream
+        "ptt_ragged_paged_attention": [vp] * 11 + [ci] * 9 + [cf, ci, ci, vp],
+        # R, C, Hq, Hkv, bs, D, nb, dtype, pool_dtype, out[4]
+        "ptt_ragged_plan": [ci] * 9 + [ctypes.POINTER(ci)],
         # q, k, v, tables, lens, out, B, Hq, Hkv, NB, bs, D, nb, q strides
         # (batch, head), scale, dtype, stream
         "ptt_paged_decode_attention": [vp] * 6 + [ci] * 7 + [ll, ll]

@@ -2,38 +2,49 @@
 ``paddle_tpu/kernels/pallas/ragged_paged_attention.py``
 ``ragged_paged_attention``, kernel body ``_ragged_kernel``).
 
-The TPU kernel is replaced by a CUDA kernel written by hand for Hopper,
-``paddle_tpu_torch/csrc/ragged_paged_attention.cu`` (built for ``sm_90a`` by
-``kernels/_build.py`` at first use). Its source note states the design; in
-short:
+The TPU kernel is replaced by CUDA kernels written by hand for Hopper (built
+for ``sm_90a`` by ``kernels/_build.py`` at first use), on two routes that
+``kernel_plan`` reports:
 
-* what bounds it on an H100 SXM (published peaks at its 700 W limit):
-  decode rows are bandwidth-bound, each row reading
-  ``2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize`` bytes of K/V pages
-  against 3.35 TB/s; prefill chunks are bounded by their FLOPs (``4 * D``
-  per visible (query head, key) pair) against 989 TFLOP/s bf16;
-* what the design does about it: one CUDA block per (row, kv head, tile of
-  16 folded (chunk, group) query rows) loops over only that row's pages
-  (cut further by the tile's last causal column), reading each page once
-  with 16-byte coalesced loads; online softmax in fp32 with the accumulator
-  in registers. No load/compute overlap and no tensor cores yet;
-* quantized pools (int8 or fp8 e4m3 with fp32 per-(kv head, page) scales,
-  ``quantization/kv_cache.py``) are dequantized as ``v * scale / qmax`` in
-  the load into the fp32 shared tile, so a decode row reads half the bytes
-  of a bf16 pool.
+* ``"wgmma+tma"`` (``paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu``):
+  bf16 / fp16 queries over pools of their dtype or int8 / fp8 e4m3 pools
+  (fp32 per-(kv head, page) absmax scales, ``quantization/kv_cache.py``),
+  a page size that is a multiple of 8. A block owns 64 folded (chunk,
+  group) query rows of one (row, kv head); S = Q K^T and O += P V run on
+  wgmma with the scores and the output in registers; the pages come through
+  a two-stage TMA ring, the block reading ``block_tables[r, j]`` itself (a
+  quantized page is dequantized as ``v * scale / qmax`` by the consumer
+  into the 16-bit tile wgmma reads, so a decode row reads half the bytes of
+  a bf16 pool). When the grid leaves most SMs idle (a few long decode
+  rows), each row's key tiles are split over contiguous ranges (the count
+  from the table width, on the host), the splits write partial O, m and l
+  into fp32 scratch that this wrapper allocates, and a second small kernel
+  merges them;
+* ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): fp32
+  queries and the page sizes that are not a multiple of 8 (float or
+  quantized pools): one block per (row, kv head, 16 folded rows) walks the
+  row's pages in fp32 shared tiles on the CUDA cores.
 
-``ragged_paged_attention`` is the wrapper: a CUDA tensor goes to the kernel
+What bounds the function on an H100 SXM (published peaks at its 700 W
+limit): decode rows are bandwidth-bound, each row reading
+``2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize`` bytes of K/V pages
+against 3.35 TB/s; prefill chunks do ``4 * D`` FLOPs per visible (query
+head, key) pair against 989 TFLOP/s bf16.
+
+``ragged_paged_attention`` is the wrapper: a CUDA tensor goes to a kernel
 (or the call raises), a CPU tensor goes to ``ragged_paged_attention_plain``,
 plain PyTorch with the same signature. ``ragged_paged_attention.LAUNCHES``
-counts kernel launches (not plain calls), so a run can show its main path
-went through the kernel.
+counts wrapper calls that launched (the split route's merge kernel rides in
+the same call), and ``.ROUTES`` the same by route, so a run can show its
+main path went through the kernel it expected.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ragged_paged_attention", "ragged_paged_attention_plain"]
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
+           "kernel_plan"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -41,6 +52,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # quantized storage dtypes with the top of their grid (qmax)
 _POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+_DESIGNS = {0: "fp32", 2: "wgmma+tma"}
 
 
 def _pages(pool, scales, tables):
@@ -130,8 +142,33 @@ def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
                          f"expected for R={R}")
 
 
+def kernel_plan(q, k_pool, block_tables) -> dict:
+    """How the built library serves a call with these tensors' shapes and
+    dtypes (no data is read): ``design`` ("wgmma+tma" or "fp32", the two
+    routes of the module note), ``query_rows`` (folded rows a block),
+    ``keys`` (keys a tile) and ``splits`` (of a row's key tiles, from the
+    table width). Read from the library's ``ptt_ragged_plan``; it builds
+    the library on first use."""
+    import ctypes
+    from ._build import load_library
+    R, C, hq, D = q.shape
+    hkv, _, bs, _ = k_pool.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"kernel_plan: no ragged kernel for {q.dtype}")
+    out = (ctypes.c_int * 4)()
+    code = load_library().ptt_ragged_plan(
+        R, C, hq, hkv, bs, D, block_tables.shape[1], _DTYPE_CODE[q.dtype],
+        _POOL_CODE.get(k_pool.dtype, 0), out)
+    if code != 0:
+        raise ValueError(f"kernel_plan: no ragged kernel for {q.dtype} q, "
+                         f"{k_pool.dtype} pools")
+    return dict(design=_DESIGNS[out[0]], query_rows=out[1], keys=out[2],
+                splits=out[3])
+
+
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
-                           scale: float, k_scales=None, v_scales=None):
+                           scale: float, k_scales=None, v_scales=None,
+                           splits=None):
     """q: [R, C, H_q, D] (row r's chunk occupies columns [0, q_lens[r]));
     pools: [H_kv, num_blocks, bs, D] of q's dtype, or int8 / float8_e4m3fn
     with ``k_scales`` / ``v_scales``: fp32 [H_kv, num_blocks] per-page absmax
@@ -139,12 +176,16 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     block_tables: [R, nb] int32; q_lens: [R] int32 (0 = inactive row);
     kv_lens: [R] int32, the TOTAL kv length including this chunk (query c
     sits at absolute position kv_lens - q_lens + c) -> [R, C, H_q, D] in q's
-    dtype.
+    dtype. ``splits``: on the "wgmma+tma" route, the splits of a row's key
+    tiles, 1 to 16 (``kernel_plan``'s when None, which callers take; a
+    count is given to test the merge and to time the counts,
+    ``profiler/ragged_splits.py``); the other route takes None or 1.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise: TypeError or ValueError for a dtype, device or layout the kernel
-    does not take, RuntimeError for a shape the kernel's C entry refuses
-    (head_dim, alignment, shared memory) or a failed launch."""
+    CPU tensors take the plain version; CUDA tensors launch a kernel or
+    raise: TypeError or ValueError for a dtype, device or layout the kernels
+    do not take, RuntimeError for a shape the kernels' C entry refuses
+    (head_dim, alignment, shared memory, a split count) or a failed
+    launch."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pool, v_pool, block_tables,
                                             q_lens, kv_lens, scale, k_scales,
@@ -159,20 +200,38 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     R, C, hq, D = q.shape
     hkv, NB, bs, _ = k_pool.shape
     pool_code = _POOL_CODE.get(k_pool.dtype, 0)
+    plan = kernel_plan(q, k_pool, block_tables)
+    n_split = plan["splits"] if splits is None else int(splits)
+    if q.data_ptr() % 16:
+        q = q.clone()     # the wgmma route reads q in 16-byte words
     out = torch.empty_like(q)
+    part_o = part_ml = None
+    if n_split > 1:
+        # the splits' fp32 scratch: O [blocks, 64, D], then (m, l) [blocks,
+        # 64, 2], in one buffer
+        rows = (R * hkv * -(-C * (hq // hkv) // plan["query_rows"]) * n_split
+                * plan["query_rows"])
+        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        part_o, part_ml = scratch[:rows * D], scratch[rows * D:]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.ptt_ragged_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
             out.data_ptr(), k_scales.data_ptr() if pool_code else None,
-            v_scales.data_ptr() if pool_code else None, R, C, hq, hkv, NB,
-            bs, D, block_tables.shape[1], float(scale), _DTYPE_CODE[q.dtype],
-            pool_code, stream)
+            v_scales.data_ptr() if pool_code else None,
+            None if part_o is None else part_o.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), R, C, hq, hkv,
+            NB, bs, D, block_tables.shape[1], n_split, float(scale),
+            _DTYPE_CODE[q.dtype], pool_code, stream)
     check(code, f"ragged_paged_attention launch (R={R} C={C} H_q={hq} "
-          f"H_kv={hkv} bs={bs} D={D} {q.dtype}, {k_pool.dtype} pools)")
+          f"H_kv={hkv} bs={bs} D={D} {q.dtype}, {k_pool.dtype} pools, "
+          f"{plan['design']}, splits {n_split})")
     ragged_paged_attention.LAUNCHES += 1
+    ragged_paged_attention.ROUTES[plan["design"]] += 1
     return out
 
 
 ragged_paged_attention.LAUNCHES = 0
+ragged_paged_attention.ROUTES = {d: 0 for d in _DESIGNS.values()}

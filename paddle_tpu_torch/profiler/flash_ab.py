@@ -6,14 +6,16 @@
 ``paddle_tpu_torch/``); ``--child`` defaults to this checkout. Each version
 runs in its own process (the two packages share a name), in the order
 parent, child, child, parent, and times the forward, dQ and dK/dV kernels
-at six calls: the GPT-1.3B flagship's (B 8, S 1024, H 16, D 128, causal,
+at seven calls: the GPT-1.3B flagship's (B 8, S 1024, H 16, D 128, causal,
 bf16, q / k / v strided views of one head-major qkv), the eager Llama's (q
 [8, 1024, 16, 128], k / v [8, 1024, 4, 128], causal, bf16), the packed
 BERT-base call ([10, 512, 12, 64] bf16, the corpus' segment ids from
 ``chip_smoke.py``'s ``bert_batch``, dropout 0.1), the padded BERT-base call
 ([16, 512, 12, 64] bf16, ``bench_bert_base``'s bool mask as a bf16 bias
 [16, 1, 512, 512], dropout 0.1), flashmask form (a) (the Llama call with
-``chip_smoke.py`` phase 29's causal document rows) and the widest head
+``chip_smoke.py`` phase 29's causal document rows), phase 29's cell (b)
+(q [2, 4096, 16, 128], k / v 4 heads, causal, a window of 1024) and the
+widest head
 (B 8, S 1024, H 16, D 256, causal, bf16, as ``chip_smoke.py`` phase 25
 times it). Each time is the median
 of 30 CUDA-event timings with the L2 flushed before each launch, as
@@ -117,6 +119,13 @@ for b in range(8):
 start = torch.from_numpy(rows).to(dev)
 res["flashmask_doc"] = kernels(q, k, v, do, True,
                                fm=(start, torch.full_like(start, 1024)))
+del q, k, v, do
+# phase 29's cell (b): the causal sliding window of 1024 at [2, 4096]
+q, do = (torch.randn(2, 4096, 16, 128, generator=gen, device=dev).to(
+    torch.bfloat16) for _ in range(2))
+k, v = (torch.randn(2, 4096, 4, 128, generator=gen, device=dev).to(
+    torch.bfloat16) for _ in range(2))
+res["window"] = kernels(q, k, v, do, True, window=(1024, None))
 del q, k, v, do
 # chip_smoke.py phase 25's widest timed head: D 256, B 8, S 1024, H 16
 q, k, v, do = (torch.randn(8, 1024, 16, 256, generator=gen, device=dev).to(

@@ -9,6 +9,8 @@ runs in its own process (the two packages share a name), in the order
 parent, child, child, parent, and times at bf16 the kernels of
 ``chip_smoke.py``'s main shapes: the ragged and paged decode kernels on a
 decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
+the ragged kernel on phase 3's mixed batch (4 rows, C 128) and on the decode
+batch over int8 pools,
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward and dx kernels on x [5120, 768], the RMSNorm forward and
 dx kernels on x [8192, 2048] and the RoPE kernel on q [8, 1024, 16, 128].
@@ -74,8 +76,29 @@ q = rnd(8, 1, H, D)
 ones = torch.ones(8, dtype=torch.int32, device=dev)
 res["ragged_decode"] = ms(lambda: RPA.ragged_paged_attention(
     q, k_pool, v_pool, tables, ones, kv, 1 / math.sqrt(D)))
+# the same decode batch over int8 pools with per-page absmax scales
+ks, vs = (x.float().abs().amax((2, 3)) for x in (k_pool, v_pool))
+k8, v8 = (torch.round(x.float() / sc[..., None, None] * 127).to(torch.int8)
+          for x, sc in ((k_pool, ks), (v_pool, vs)))
+res["ragged_decode_int8"] = ms(lambda: RPA.ragged_paged_attention(
+    q, k8, v8, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks, v_scales=vs))
+del k8, v8
 res["paged_decode"] = ms(lambda: PA.paged_decode_attention(
     q[:, 0], k_pool, v_pool, tables, kv, 1 / math.sqrt(D)))
+# chip_smoke.py phase 3's case (b): a mixed batch of 4 rows, C 128 (a full
+# prefill chunk over 384 keys, a fresh 100-token prefill, a decode row over
+# 517 keys, an empty row)
+mixed_q, mixed_kv = [128, 100, 1, 0], [384, 100, 517, 0]
+mt = np.zeros((4, nb), np.int32)
+free = list(rng.permutation(np.arange(1, NB)))
+for r in range(4):
+    for j in range(-(-mixed_kv[r] // bs)):
+        mt[r, j] = free.pop()
+qm = rnd(4, 128, H, D)
+mt, ql_m, kv_m = (torch.tensor(a, dtype=torch.int32, device=dev)
+                  for a in (mt, mixed_q, mixed_kv))
+res["ragged_mixed"] = ms(lambda: RPA.ragged_paged_attention(
+    qm, k_pool, v_pool, mt, ql_m, kv_m, 1 / math.sqrt(D)))
 p, g = rnd(24, 2048, 8192, scale=0.02), rnd(24, 2048, 8192, scale=1e-3)
 slot = {"moment1": rnd(24, 2048, 8192, scale=1e-3),
         "moment2": rnd(24, 2048, 8192, scale=1e-3).square()}

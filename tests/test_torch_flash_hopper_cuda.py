@@ -1,14 +1,19 @@
-"""The redesigned 16-bit flash forward and dQ kernels on the card
+"""The redesigned 16-bit flash forward, dQ and dK/dV kernels on the card
 (``csrc/flash_fwd_hopper.cu``, ``csrc/flash_dq_hopper.cu``: wgmma with the
-scores and accumulators in registers, K and V through a TMA ring) against
-their plain PyTorch versions on the same inputs: out and lse, dq, delta and
-the d-bias, and the unchanged dK/dV kernel fed by the new delta. The grid:
+scores and accumulators in registers, K and V through a TMA ring;
+``csrc/flash_dkv_hopper.cu``: transposed scores in registers, Q and dO
+through a TMA ring, at D_pad <= 128) against their plain PyTorch versions
+on the same inputs: out and lse, dq, delta and the d-bias, dk and dv. The
+grid:
 D 32, 40, 64, 96, 128, 192 and 256; bf16 and fp16; no variant, a bias,
 segment ids, flashmask rows, dropout, and bias + rows + dropout; causal,
 non-causal and a window across two 128-row tiles; GQA groups of 1 and 4;
 Sq != Sk from {1, 63, 129, 1000}; dead rows. Also the forward's and dQ's
 dropout bits against ``dropout_keep_mask``, over one key tile and over
-several, the model's strided qkv views and a batch-broadcast key. Tolerance: the bf16 / fp16 tier of
+several, the model's strided qkv views and a batch-broadcast key. dK/dV
+alone at every width it moved (D 32, 64, 96, 128) x bf16 / fp16 x each flag,
+GQA 8/2, key lengths across its 128-key blocks, and its dropout bits over
+several query tiles read out of dv. Tolerance: the bf16 / fp16 tier of
 ``chip_smoke.py``, 2e-2 on the worst 64-row tile's relative l2.
 
 Every test here needs a CUDA card and skips without one. The file imports
@@ -272,3 +277,74 @@ def test_layouts_qkv_views_and_broadcast_key(card, dtype):
     kb = torch.randn(1, S, 2, D, device=card).to(dtype).expand(B, S, 2, D)
     vb = torch.randn(1, S, 2, D, device=card).to(dtype).expand(B, S, 2, D)
     _check(q, kb, vb, do, False, {}, "broadcast key")
+
+
+DKV_DIMS = (32, 64, 96, 128)     # the widths the wgmma dK/dV kernel takes
+DKV_SHAPES = ((129, 257), (200, 127), (64, 255), (257, 128))
+
+
+def test_dkv_plan_reports_the_wgmma_kernel(card):
+    """kernel_plan: the wgmma dK/dV (a block of 128 keys streaming query
+    tiles of 64, key-major) at D_pad <= 128 in 16 bits; the WMMA kernel at
+    D_pad 192 and 256; the FP32 pipes for fp32."""
+    for D in DIMS:
+        for dtype in DTYPES:
+            plan = FA.kernel_plan("flash_bwd_dkv", D, dtype)
+            want = ("wgmma+tma", 64, 128) if D <= 128 else ("wmma", 64, 64)
+            assert (plan["design"], plan["query_rows"], plan["keys"]) == want
+            assert plan["key_major"]
+        assert FA.kernel_plan("flash_bwd_dkv", D, torch.float32)["design"] \
+            == "fp32"
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
+@pytest.mark.parametrize("D", DKV_DIMS)
+def test_dkv_vs_plain(card, D, dtype, flag):
+    """dK/dV (with the forward and dQ that feed it) at GQA 8/2 and 2/2, the
+    key lengths on both sides of the kernel's 128-key blocks and the query
+    lengths across its 64-row query tiles, causal, non-causal and a window."""
+    rng = np.random.RandomState(3 * D + 11 * FLAGS.index(flag))
+    B = 2
+    for idx, (mode, (H, hkv)) in enumerate(itertools.product(
+            MODES, ((8, 2), (2, 2)))):
+        Sq, Sk = DKV_SHAPES[idx % len(DKV_SHAPES)]
+        q, do = (torch.from_numpy(rng.randn(B, Sq, H, D).astype(
+            np.float32)).to(dtype).to(card) for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(B, Sk, hkv, D).astype(
+            np.float32)).to(dtype).to(card) for _ in range(2))
+        causal, var = _variant(flag, mode, B, Sq, Sk, H, dtype, rng, card)
+        n = FA.flash_bwd_dkv.LAUNCHES
+        _check(q, k, v, do, causal, var,
+               f"dkv D={D} {dtype} {flag} {mode} H={H}/{hkv} Sq={Sq} Sk={Sk}")
+        assert FA.flash_bwd_dkv.LAUNCHES == n + 1
+
+
+@pytest.mark.parametrize("bias", (False, True), ids=("nobias", "bias"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
+@pytest.mark.parametrize("D", (64, 128))
+def test_dkv_keep_bits_across_query_tiles(card, D, dtype, bias):
+    """dK/dV's keep bits over Sq = 200 queries (four of its query tiles of
+    64, the last partial) and Sk = 300 keys (three of its 128-key blocks),
+    read out of dv: q = k = 0 makes every p 1 / Sk, and dO one-hot on
+    queries [w, w + D) (dO[w + d, :, d] = 1) makes dv[key, d] the kept,
+    rescaled p of query w + d, nonzero exactly where the forward kept the
+    pair (``dropout_keep_mask``), with and without a bias."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 300, 0.3, 95
+    q = torch.zeros(B, Sq, H, D, dtype=dtype, device=card)
+    k = torch.zeros(B, Sk, H, D, dtype=dtype, device=card)
+    v = torch.randn(B, Sk, H, D, device=card).to(dtype)
+    var = dict(dropout_p=p, seed=seed)
+    if bias:
+        var["bias"] = torch.zeros(1, 1, Sq, Sk, dtype=dtype, device=card)
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    _, lse = FA.flash_fwd(q, k, v, False, 1.0, **var)
+    for w in range(0, Sq, D):
+        n = min(D, Sq - w)
+        do = torch.zeros(B, Sq, H, D, dtype=dtype, device=card)
+        idx = torch.arange(n, device=card)
+        do[:, w + idx, :, idx] = 1
+        _, delta = FA.flash_bwd_dq(q, k, v, lse, do, False, 1.0, **var)
+        _, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, False, 1.0, **var)
+        got = (dv[..., :n] != 0).permute(0, 2, 3, 1)      # [B, H, d, key]
+        assert torch.equal(got, keep[:, :, w:w + n]), (D, dtype, bias, w)

@@ -1,0 +1,189 @@
+"""The redesigned ragged paged-attention kernel on the card
+(``csrc/ragged_paged_attention_hopper.cu``: wgmma, pages through a TMA ring,
+a row's key tiles split over blocks and merged by a second kernel) against
+its plain PyTorch version, over the shapes of the CPU goldens
+(``test_torch_ragged_tiles.py``) at D 128 and 64, bf16 and fp16, with the
+split count forced to 1, 2 and many and left to the plan; int8 / fp8 pools
+on the same kernel; and the routes that stay on the CUDA-core kernel of
+``csrc/ragged_paged_attention.cu`` (fp32 queries, a page size not a
+multiple of 8): each launches its kernel (counted under its route), none
+goes to the plain version. Tolerance: 1e-2 of the reference's max-abs
+(``chip_smoke.py`` KERNEL_TOL) in 16 bits, 1e-5 in fp32; over quantized
+pools 1e-2 on the worst (row, column, head) slab's relative L2, as
+``chip_smoke.py`` phase 12 holds them (the dequantized tile is rounded to
+16 bits for the tensor cores); columns past q_len exact zeros.
+
+Every test here needs a CUDA card and skips without one. The file imports
+neither JAX nor the JAX package:
+
+    python -m pytest tests/test_torch_ragged_hopper_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
+
+pytestmark = pytest.mark.cuda
+
+# q_lens, kv_lens, C, hq, hkv, bs, nb (test_torch_ragged_tiles.py's cases)
+CASES = {
+    "gqa-16-4-qlen-g-across-64": ([15, 16, 17, 1], [15, 80, 130, 200], 20, 16,
+                                  4, 16, None),
+    "mha-16-16-qlen-across-64": ([63, 64, 65, 0], [63, 127, 129, 0], 65, 16,
+                                 16, 32, None),
+    "kv-across-page-and-tile": ([1, 1, 1, 1, 1, 1], [31, 32, 33, 63, 64, 65],
+                                1, 16, 4, 32, None),
+    "kv-across-split-ranges": ([1, 1, 4, 1], [128, 129, 320, 513], 4, 16, 16,
+                               16, 33),
+    "pages-of-64": ([1, 40, 0, 7], [130, 100, 0, 7], 40, 16, 4, 64, None),
+    "decode-batch-of-phase-3": ([1] * 8, [100, 173, 256, 311, 400, 467, 555,
+                                          640], 1, 16, 16, 32, 20),
+    "empty-rows-and-row-past-its-table": ([0, 5, 0, 1], [0, 9, 40, 70], 5, 16,
+                                          4, 16, 3),
+    "mixed-of-phase-3": ([128, 100, 1, 0], [384, 100, 517, 0], 128, 16, 16,
+                         32, 20),
+}
+SPLITS = (1, 2, 7, None)      # None: the plan's count
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(dev, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb, D=128, seed=0,
+          pool_dtype=None):
+    rng = np.random.RandomState(seed + sum(kv_lens) + C + hkv + bs)
+    R = len(q_lens)
+    nb = nb or max(max(-(-k // bs) for k in kv_lens), 1)
+    NB = R * nb + 1
+    tables = rng.permutation(np.arange(1, NB))[:R * nb].reshape(R, nb)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    pool = pool_dtype or dtype
+    return [t(rng.randn(R, C, hq, D).astype(np.float32)),
+            t(rng.randn(hkv, NB, bs, D).astype(np.float32), pool),
+            t(rng.randn(hkv, NB, bs, D).astype(np.float32), pool),
+            t(tables.astype(np.int32), torch.int32),
+            t(np.asarray(q_lens, np.int32), torch.int32),
+            t(np.asarray(kv_lens, np.int32), torch.int32)], 1.0 / np.sqrt(D)
+
+
+def _check(out, ref, q_lens, tol, what, slabs=False):
+    """Max-abs error within ``tol`` of the reference's max-abs; with
+    ``slabs`` (quantized pools, as ``chip_smoke.py`` phase 12 holds them)
+    the worst (row, column, head) slab's L2 error within ``tol`` of its
+    L2 norm instead. Columns past q_len exact zeros either way."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape, what
+    assert torch.isfinite(out.float()).all(), what
+    d, r = out.float() - ref.float(), ref.float()
+    if slabs:
+        dd, rr = d.square().sum(-1), r.square().sum(-1)
+        rel = torch.where(rr > 0, (dd / rr.clamp_min(1e-30)).sqrt(),
+                          torch.where(dd > 0, float("inf"), 0.0)).max().item()
+        assert rel <= tol, (what, rel)
+    else:
+        err, top = d.abs().max().item(), r.abs().max().item()
+        assert err <= tol * max(top, 1e-6), (what, err, top)
+    for row, ql in enumerate(q_lens.tolist()):
+        assert (out[row, ql:] == 0).all(), (what, row)
+
+
+@pytest.mark.parametrize("D", (128, 64))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16),
+                         ids=("bf16", "fp16"))
+@pytest.mark.parametrize("name", list(CASES))
+def test_wgmma_kernel_vs_plain_at_forced_splits(card, name, dtype, D):
+    args, scale = _case(card, dtype, *CASES[name], D=D)
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert plan["design"] == "wgmma+tma" and plan["query_rows"] == 64
+    assert plan["keys"] == 64 and plan["splits"] >= 1
+    ref = RPA.ragged_paged_attention_plain(*args, scale)
+    for splits in SPLITS:
+        n, w = (RPA.ragged_paged_attention.LAUNCHES,
+                RPA.ragged_paged_attention.ROUTES["wgmma+tma"])
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+        assert RPA.ragged_paged_attention.ROUTES["wgmma+tma"] == w + 1
+        _check(out, ref, args[4], 1e-2, f"{name} D={D} splits={splits}")
+
+
+def test_plan_splits_short_grids_only(card):
+    """One long decode row (16 blocks: most SMs idle) splits; the serving
+    decode batch (8 rows x 16 kv heads: 128 blocks, about one an SM) and a
+    prefill batch do not; a split keeps at least 4 key tiles of the table.
+    The plan reads shapes only (the tensors here are never filled)."""
+    def plan(R, C, nb, hkv=16):
+        q = torch.empty(R, C, 16, 128, dtype=torch.bfloat16, device=card)
+        pool = torch.empty(hkv, 8, 32, 128, dtype=torch.bfloat16, device=card)
+        tables = torch.empty(R, nb, dtype=torch.int32, device=card)
+        return RPA.kernel_plan(q, pool, tables)["splits"]
+    assert plan(1, 1, 256) > 1               # kv 8192 over 16 kv heads
+    assert plan(2, 1, 256, hkv=4) > 1        # GQA: 8 blocks
+    assert plan(8, 1, 20) == 1               # phase 3's decode batch
+    assert plan(64, 128, 20) == 1            # 2048 blocks
+    assert plan(1, 1, 4) == 1                # 2 key tiles: nothing to split
+    assert plan(1, 1, 16) == 2               # 8 key tiles: 2 of 4
+
+
+def _quantize(args, pool):
+    """The pools as int8 / fp8 e4m3 against their per-(kv head, page)
+    absmax scales (the layout of ``quantization/kv_cache.py``)."""
+    qmax = 127.0 if pool == torch.int8 else 448.0
+    k, v = args[1].float(), args[2].float()
+    ks, vs = (x.abs().amax((2, 3)).clamp_min(1e-6) for x in (k, v))
+    kq, vq = (x / sc[..., None, None] * qmax for x, sc in ((k, ks), (v, vs)))
+    if pool == torch.int8:
+        kq, vq = torch.round(kq), torch.round(vq)
+    args[1], args[2] = kq.to(pool), vq.to(pool)
+    return dict(k_scales=ks.contiguous(), v_scales=vs.contiguous())
+
+
+ROUTES = {  # route: (q dtype, pool, page size, design)
+    "fp32": (torch.float32, None, 16, "fp32"),
+    "bs_12": (torch.bfloat16, None, 12, "fp32"),
+    "int8_bs_12": (torch.bfloat16, torch.int8, 12, "fp32"),
+    "int8": (torch.bfloat16, torch.int8, 16, "wgmma+tma"),
+    "fp8": (torch.bfloat16, torch.float8_e4m3fn, 16, "wgmma+tma"),
+    "fp8_fp16_q": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma"),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("name", ("gqa-16-4-qlen-g-across-64",
+                                  "decode-batch-of-phase-3",
+                                  "kv-across-split-ranges"))
+def test_routes_launch_their_kernel(card, name, route):
+    """Each route launches its own kernel, counted under its design, and
+    matches the plain version: int8 / fp8 pools on the wgmma kernel
+    (dequantized by the consumer into the 16-bit tile, at forced split
+    counts too); fp32 queries and a page size that is not a multiple of 8
+    on the CUDA-core kernel, which refuses a split count above 1."""
+    dtype, pool, bs, design = ROUTES[route]
+    q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
+    args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb)
+    extra = _quantize(args, pool) if pool is not None else {}
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert plan["design"] == design
+    ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for splits in ((1, 3, None) if design == "wgmma+tma" else (None,)):
+        n, c = (RPA.ragged_paged_attention.LAUNCHES,
+                RPA.ragged_paged_attention.ROUTES[design])
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+        assert RPA.ragged_paged_attention.ROUTES[design] == c + 1
+        _check(out, ref, args[4], tol, f"{route} {name} splits={splits}",
+               slabs=pool is not None)
+    if design == "fp32":
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            RPA.ragged_paged_attention(*args, scale, splits=2, **extra)
+        assert RPA.ragged_paged_attention.LAUNCHES == n + 1

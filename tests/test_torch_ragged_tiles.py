@@ -1,0 +1,98 @@
+"""The port's ragged paged attention, run on the CPU through its plain
+version, against the JAX package's Pallas kernel in interpret mode, at the
+edges of the tiles and splits of the card's wgmma kernel
+(``csrc/ragged_paged_attention_hopper.cu``: 64 folded (chunk, group) query
+rows a block, key tiles of 64, a row's key tiles split by the table width):
+q_len * g on both sides of 64, kv_len on both sides of page and key-tile
+boundaries, pages of 16, 32 and 64, GQA 16/16 and 16/4, the serving decode
+batch of ``chip_smoke.py`` phase 3 (8 rows, kv_len 100-640), rows with
+q_len 0, and a row longer than its table. Inputs come from numpy with a seed
+and go to both packages, as ``test_torch_ragged_attention.py`` runs them.
+Tolerances, relative to the reference's max-abs: 2e-5 in fp32 (summation
+order) and 1e-2 in bf16 (that file's bound: the rounding of the inputs and
+of the output).
+The CUDA kernels are held to this plain version on the card by
+``test_torch_ragged_hopper_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels.pallas.ragged_paged_attention import (
+    ragged_paged_attention as jax_rpa)
+from paddle_tpu_torch.kernels import ragged_paged_attention as RPA
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+# q_lens, kv_lens, C, hq, hkv, bs, nb (None: just enough pages)
+CASES = {
+    # 16 query heads over 4 kv heads fold g = 4 per chunk column: q_len 15,
+    # 16 and 17 put q_len * g on both sides of one 64-row block
+    "gqa-16-4-qlen-g-across-64": ([15, 16, 17, 1], [15, 80, 130, 200], 20, 16,
+                                  4, 16, None),
+    # g = 1: q_len 63, 64, 65 rows of one (row, kv head)
+    "mha-16-16-qlen-across-64": ([63, 64, 65, 0], [63, 127, 129, 0], 65, 16,
+                                 16, 32, None),
+    # kv_len one short of, at, and one past a page (32) and a key tile (64)
+    "kv-across-page-and-tile": ([1, 1, 1, 1, 1, 1], [31, 32, 33, 63, 64, 65],
+                                1, 16, 4, 32, None),
+    # kv_len across split boundaries of a wide table (33 pages of 16: 9 key
+    # tiles, cut into ranges of 2 to 5 tiles by the split counts)
+    "kv-across-split-ranges": ([1, 1, 4, 1], [128, 129, 320, 513], 4, 16, 16,
+                               16, 33),
+    "pages-of-64": ([1, 40, 0, 7], [130, 100, 0, 7], 40, 16, 4, 64, None),
+    # chip_smoke.py phase 3's decode batch
+    "decode-batch-of-phase-3": ([1] * 8, [100, 173, 256, 311, 400, 467, 555,
+                                          640], 1, 16, 16, 32, 20),
+    # q_len 0 rows around a live one, and a row longer than its 3-page table
+    "empty-rows-and-row-past-its-table": ([0, 5, 0, 1], [0, 9, 40, 70], 5, 16,
+                                          4, 16, 3),
+}
+
+
+def _case(q_lens, kv_lens, C, hq, hkv, bs, nb, D=16, seed=0):
+    rng = np.random.RandomState(seed + sum(kv_lens) + C + hkv + bs)
+    R = len(q_lens)
+    need = max(-(-k // bs) for k in kv_lens)
+    nb = nb or max(need, 1)
+    NB = R * nb + 1
+    tables = np.zeros((R, nb), np.int32)
+    free = list(rng.permutation(np.arange(1, NB)))
+    for r in range(R):
+        for j in range(nb):      # every slot a distinct page (the table's
+            tables[r, j] = free.pop()   # width, not the row's use, decides)
+    return dict(q=rng.randn(R, C, hq, D).astype(np.float32),
+                k_pool=rng.randn(hkv, NB, bs, D).astype(np.float32),
+                v_pool=rng.randn(hkv, NB, bs, D).astype(np.float32),
+                block_tables=tables,
+                q_lens=np.asarray(q_lens, np.int32),
+                kv_lens=np.asarray(kv_lens, np.int32),
+                scale=1.0 / np.sqrt(D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_at_tile_and_split_edges(name, dtype):
+    case = _case(*CASES[name])
+    names = ("q", "k_pool", "v_pool", "block_tables", "q_lens", "kv_lens")
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jargs = [jnp.asarray(case[n]) for n in names]
+    targs = [torch.from_numpy(case[n]) for n in names]
+    for i in range(3):
+        jargs[i] = jargs[i].astype(jdtype)
+        targs[i] = targs[i].to(dtype)
+    ref = np.asarray(jax_rpa(*jargs, case["scale"]).astype(jnp.float32))
+    n = RPA.ragged_paged_attention.LAUNCHES
+    out = RPA.ragged_paged_attention(*targs, case["scale"])
+    assert RPA.ragged_paged_attention.LAUNCHES == n
+    assert out.dtype == dtype and out.shape == targs[0].shape
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    rel = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-9)
+    assert rel <= TOL[dtype], (name, rel)
+    for r, ql in enumerate(case["q_lens"]):
+        assert (got[r, ql:] == 0).all(), (name, r)   # columns past q_len
