@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
    the serving shapes (bf16, 16 heads of 128, block 32), print each case's
    route and split count (``kernel_plan``), and time kernel, plain version,
    a library yardstick and the card's bound, the decode time over kv
-   lengths 64-1024, and one or two decode rows of 8192 keys split over
-   blocks against one split;
+   lengths 64-1024, one or two decode rows of 8192 keys split over
+   blocks against one split, and the decode batch with fp32 queries (the
+   CUDA-core route);
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
@@ -39,9 +40,12 @@ Phases, in order; any failure exits non-zero:
    and the bf16 loss and gradients of the flagship's first step and the
    losses of its first 4 AdamW steps, on the kernel path against the plain
    path (composed attention, plain Adam) on the card;
-10. hold the paged decode kernel against its plain version at the serving
-   decode shape (timed) and on GQA, small-page, empty-row and wide-table
-   cases, bf16 and fp32;
+10. hold the paged decode kernel's routes against their plain version at
+   the serving decode shape (timed at bf16, fp16 and fp32, beside the
+   ragged kernel on the same batch; its split counts swept) and on GQA,
+   MQA 32/1, D 256, small-page, empty-row, wide-table and off-the-ring
+   cases, and time one and two rows of 8192 keys under GQA 16/4 split
+   against unsplit;
 11. hold the flash forward with an additive bias against its plain version
    at the two-program prefill's shape (timed: q a view of the head-major
    qkv, k and v the gathered pool views, a [8, 1, 128, 640] mask) and on
@@ -76,10 +80,13 @@ Phases, in order; any failure exits non-zero:
 18b. with dropout 0, the BERT kernel path against the plain path: fp32 at 2
    layers (loss, every gradient), bf16 at full depth over 4 AdamW steps;
 19. hold the RMSNorm forward and backward kernels against their plain
-   versions (y, dx, dw, rstd) at the Llama step's rows (8192 x 2048 bf16,
-   fp32 weight, eps 1e-5; timed against their bound, torch's rms_norm and
-   the dense form's composed _rms) and at 37, 1 and 13 rows x 100 and 4095,
-   bf16 and fp32;
+   versions (y, dx, dw, rstd; the backward forms dx and dw in one launch,
+   dw bit for bit across two calls) at the Llama step's rows (8192 x 2048
+   bf16, fp32 weight, eps 1e-5; timed against their bound, torch's
+   rms_norm and its autograd backward, and the dense form's composed
+   _rms), at 4096 x 4096 (the row re-read), at 37, 1 and 13 rows x 100
+   and 4095 and at 37 rows x 30000 (above the primitives' 28672-column
+   limit), bf16 and fp32;
 20. hold the RoPE kernel against its plain version through
    incubate's fused_rotary_position_embedding at q [8, 1024, 16, 128] and
    k [8, 1024, 4, 128] bf16, forward and backward (4 launches), timed with
@@ -319,7 +326,8 @@ def case_bound(case):
         for c in range(int(l)):
             flops += (int(k) - int(l) + c + 1) * hq * 4 * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
 
@@ -1479,11 +1487,33 @@ def decode_yardstick(case):
     return run
 
 
-def check_decode_case(name, case, card):
-    args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
+def decode_plan_line(case):
+    """The route that serves the case and its split count
+    (PA.kernel_plan)."""
+    plan = PA.kernel_plan(case["q"], case["k_pool"], case["block_tables"],
+                          case["v_pool"])
+    return plan, (f"route {plan['design']}, {plan['rows']} query rows a "
+                  f"block, {plan['stages']} stages, splits {plan['splits']}")
+
+
+def decode_args(case):
+    return (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["seq_lens"], case["scale"])
+
+
+def check_decode_case(name, case, card, route=None):
+    """The kernel (every route through one wrapper) against the plain
+    version; ``route``, where given, the design the plan must report."""
+    args = decode_args(case)
+    plan, line = decode_plan_line(case)
+    if route is not None:
+        require(plan["design"] == route, f"{name}: route {plan['design']}, "
+                f"expected {route}")
+    n = PA.paged_decode_attention.ROUTES[plan["design"]]
     out_k = PA.paged_decode_attention(*args)
     torch.cuda.synchronize()
+    require(PA.paged_decode_attention.ROUTES[plan["design"]] == n + 1,
+            f"{name}: the {plan['design']} route did not launch")
     out_p = PA.paged_decode_attention_plain(*args)
     tol = PAGED_TOL[case["q"].dtype]
     require(out_k.dtype == out_p.dtype == case["q"].dtype, f"{name}: dtype")
@@ -1492,10 +1522,11 @@ def check_decode_case(name, case, card):
     require((out_k[empty] == 0).all(), f"{name}: a len-0 row is not zero")
     err = (out_k.float() - out_p.float()).abs().max().item()
     rel = slab_rel_err(out_k, out_p, 2)
-    log(f"{name}: worst (row, head) L2 rel err {rel:.3e} (tol {tol}); "
-        f"max_abs_err {err:.3e}")
+    log(f"{name}: {line}; worst (row, head) L2 rel err {rel:.3e} (tol "
+        f"{tol}); max_abs_err {err:.3e}")
     require(rel <= tol, f"{name}: rel err {rel} > {tol}")
-    rec = dict(max_abs_err=err, rel_err=rel)
+    rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
+               splits=plan["splits"])
     if card is None:
         return rec
     kern = cuda_ms(lambda: PA.paged_decode_attention(*args))
@@ -1511,17 +1542,59 @@ def check_decode_case(name, case, card):
     return rec
 
 
+def ragged_same_batch_ms(case):
+    """The ragged kernel on the same decode batch (one query a row), the
+    yardstick of the paged decode kernel's redesign."""
+    q = case["q"].contiguous()[:, None]
+    ones = torch.ones_like(case["seq_lens"])
+    args = (q, case["k_pool"], case["v_pool"], case["block_tables"], ones,
+            case["seq_lens"], case["scale"])
+    out = RPA.ragged_paged_attention(*args)
+    ref = PA.paged_decode_attention(*decode_args(case))
+    torch.cuda.synchronize()
+    require(slab_rel_err(out[:, 0], ref, 2) <= PAGED_TOL[q.dtype],
+            "ragged vs paged decode on the same batch")
+    return cuda_ms(lambda: RPA.ragged_paged_attention(*args))
+
+
+def long_rows_decode(rng, card):
+    """One and two rows of 8192 keys under GQA 16/4 (4 and 8 (row, kv head)
+    pairs: most SMs idle without splits), split against unsplit."""
+    recs = {}
+    for B in (1, 2):
+        case = decode_case(rng, [8192] * B, 16, 4, nb=256, NB=B * 256 + 1)
+        name = f"(e) {B} row(s) of 8192 keys, GQA 16/4 bf16"
+        rec = check_decode_case(name, case, card, route="bulk-ring")
+        bound = decode_bound(case)[0]
+        one = cuda_ms(lambda: PA.paged_decode_attention(
+            *decode_args(case), splits=1))
+        log(f"{name}: unsplit {one:.4f} ms, the plan's {rec['splits']} "
+            f"splits {rec['ms']:.4f} ms, bound {bound:.4f}  [{card}]")
+        rec["unsplit_ms"] = one
+        recs[f"rows_{B}"] = rec
+    return recs
+
+
 def paged_decode_phase(card):
     rng = np.random.RandomState(10)
     lens = [100, 173, 256, 311, 400, 467, 555, 640]   # phase 3's case (a)
-    rec = check_decode_case("(a) decode B=8 H=16 D=128 bs=32 bf16",
-                            decode_case(rng, lens, 16, 16), card)
+    case_a = decode_case(rng, lens, 16, 16)
+    rec = check_decode_case("(a) decode B=8 H=16 D=128 bs=32 bf16", case_a,
+                            card, route="bulk-ring")
+    rec["ragged_same_batch_ms"] = ragged_same_batch_ms(case_a)
+    log(f"(a) bf16: {rec['ms']:.4f} ms, beside the first design's 0.1169 "
+        f"and the ragged kernel's 0.0237 (PERF.md), SDPA "
+        f"{rec['library_ms']:.4f}, the ragged kernel on the same batch "
+        f"{rec['ragged_same_batch_ms']:.4f} and the bound "
+        f"{rec['bound_ms']:.4f}  [{card}]")
+    rec["fp16"] = check_decode_case("(a) fp16", decode_case(
+        rng, lens, 16, 16, dtype=torch.float16), card, route="bulk-ring")
+    rec["fp32"] = check_decode_case("(a) fp32", decode_case(
+        rng, lens, 16, 16, dtype=torch.float32), card, route="fp32-tiles")
+    rec["long_rows"] = long_rows_decode(rng, card)
     odd = [0, 45, 64, 1, 300, 129]     # empty, mid-page, page-aligned, 1
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        if dtype == torch.float32:
-            check_decode_case(f"(a) fp32", decode_case(
-                rng, lens, 16, 16, dtype=dtype), None)
         check_decode_case(f"(b) GQA 16/4 {tag}", decode_case(
             rng, odd, 16, 4, dtype=dtype), None)
         check_decode_case(f"(c) bs 16 D 64, table of 24 slots {tag}",
@@ -1529,6 +1602,13 @@ def paged_decode_phase(card):
                                       dtype=dtype), None)
         check_decode_case(f"(d) MQA 16/1 {tag}", decode_case(
             rng, odd, 16, 1, dtype=dtype), None)
+        check_decode_case(f"(f) MQA 32/1 {tag}", decode_case(
+            rng, odd, 32, 1, dtype=dtype), None)
+        check_decode_case(f"(g) D 256, GQA 8/2, bs 16 {tag}", decode_case(
+            rng, odd, 8, 2, D=256, bs=16, dtype=dtype), None)
+    # off the ring: a head dim that is not whole 16-byte words
+    check_decode_case("(h) D 100 bf16", decode_case(rng, odd, 8, 4, D=100),
+                      None, route="fp32-tiles")
     return rec
 
 
@@ -2640,7 +2720,8 @@ LLAMA_TRAJECTORY_STEPS = 4    # phase 22b: kernel path vs plain path
 # another order, bf16 one rounding of the output (an fp32 difference flips
 # one ulp)
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
-RMS_FLOPS = {"rms_norm_fwd": 4, "rms_norm_bwd": 7}    # per element
+# per element: the backward's dx 7, its dw sum 3
+RMS_FLOPS = {"rms_norm_fwd": 4, "rms_norm_bwd": 10}
 ROPE_FLOPS = 6                                          # per pair
 
 
@@ -2652,7 +2733,7 @@ def row_bound(nbytes, flops):
 def rms_bounds(rows, H, dtype):
     it = torch.tensor([], dtype=dtype).element_size()
     work = {"rms_norm_fwd": 2 * rows * H * it + H * 4 + 4 * rows,
-            "rms_norm_bwd": 3 * rows * H * it + H * 4 + 4 * rows}
+            "rms_norm_bwd": 3 * rows * H * it + 2 * H * 4 + 4 * rows}
     return {name: (*row_bound(nbytes, RMS_FLOPS[name] * rows * H), nbytes,
                    RMS_FLOPS[name] * rows * H)
             for name, nbytes in work.items()}
@@ -2669,28 +2750,40 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
     w = rnd(H)
     dy = rnd(rows, H).to(dtype)
     y, rstd = RN.rms_norm_fwd(x, w, eps)
-    dx = RN.rms_norm_bwd_dx(x, w, rstd, dy)
+    dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
+    dx2, dw2 = RN.rms_norm_bwd(x, w, rstd, dy)
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yk = RN.rms_norm(xr, wr, eps)
     gk = torch.autograd.grad(yk, (xr, wr), dy, retain_graph=True)
     torch.cuda.synchronize()
+    require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
+            f"{name}: two backward calls differ in their bits")
+    plan = RN.bwd_plan(x, w, dy)
     y_p, rstd_p = RN.rms_norm_fwd_plain(x, w, eps)
-    dx_p, dw_p = RN.rms_norm_bwd_plain(x, w, rstd_p, dy)
-    tol = NORM_TOL[dtype]
+    dx_p, _ = RN.rms_norm_bwd_plain(x, w, rstd_p, dy)
+    # dw is an fp32 sum of the same products on both sides (the kernel's
+    # rstd given to both): only the order of the sums may differ
+    _, dw_p = RN.rms_norm_bwd_plain(x, w, rstd, dy, need_dx=False)
+    tol, dw_tol = NORM_TOL[dtype], NORM_TOL[torch.float32]
     rec = {}
-    for what, got, ref in (("y", y, y_p), ("dx", dx, dx_p),
-                           ("dx_autograd", gk[0], dx_p), ("dw", gk[1], dw_p)):
+    for what, got, ref, t in (("y", y, y_p, tol), ("dx", dx, dx_p, tol),
+                              ("dw", dw, dw_p, dw_tol),
+                              ("dx_autograd", gk[0], dx_p, tol),
+                              ("dw_autograd", gk[1], dw_p, dw_tol)):
         require(got.dtype == ref.dtype and got.shape == ref.shape,
                 f"{name} {what}: {got.dtype} {tuple(got.shape)} vs "
                 f"{ref.dtype} {tuple(ref.shape)}")
         require(torch.isfinite(got.float()).all(), f"{name} {what} not finite")
         err, rel = _rel_err(got, ref)
-        require(rel <= tol, f"{name} {what}: rel err {rel} > {tol}")
+        require(rel <= t, f"{name} {what}: rel err {rel} > {t}")
         rec[what] = err
     srel = ((rstd - rstd_p).abs() / rstd_p).max().item()
     require(srel <= 1e-5, f"{name} rstd rel err {srel}")
     log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
-        f"{rec['dw']:.3e}, rstd rel {srel:.2e} (tol {tol})")
+        f"{rec['dw']:.3e}, rstd rel {srel:.2e} (tol {tol}, dw {dw_tol}); "
+        f"backward path "
+        f"{plan['path']}, {plan['blocks']} blocks; dw bit for bit across "
+        f"two calls")
     if card is None:
         return None
     bounds = rms_bounds(rows, H, dtype)
@@ -2708,18 +2801,21 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
             cuda_ms(lambda: RN.rms_norm_fwd_plain(x, w, eps)),
             cuda_ms(lambda: F_.rms_norm(x, (H,), wl, eps))),
         "rms_norm_bwd": (
-            cuda_ms(lambda: RN.rms_norm_bwd_dx(x, w, rstd, dy)),
+            cuda_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy)),
             cuda_ms(lambda: RN.rms_norm_bwd_plain(x, w, rstd, dy)),
             cuda_ms(lambda: torch.autograd.grad(yl, (xl, wlr), dy,
                                                 retain_graph=True))),
     }
-    # the backward as the model runs it: the dx kernel and the fp32 dw sum
+    # the backward as the model runs it (the autograd Function: the one
+    # launch and dw's cast), and the dx-only kernels a frozen weight takes
     full_bwd = cuda_ms(lambda: torch.autograd.grad(yk, (xr, wr), dy,
                                                    retain_graph=True))
+    dx_only = cuda_ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy, need_dw=False))
     composed = (cuda_ms(lambda: TL._rms(x, w, eps)),
                 cuda_ms(lambda: torch.autograd.grad(
                     yc, (xc, wc), yc.detach(), retain_graph=True)))
-    errs = {"rms_norm_fwd": rec["y"], "rms_norm_bwd": rec["dx"]}
+    errs = {"rms_norm_fwd": rec["y"], "rms_norm_bwd": max(rec["dx"],
+                                                          rec["dw"])}
     recs = {}
     for kname, (kern, plain, lib) in times.items():
         bound, by, nbytes, flops = bounds[kname]
@@ -2729,12 +2825,19 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=lib, bound_ms=bound, bound_by=by,
                            bytes=nbytes, flops=flops)
-    recs["rms_norm_bwd"]["ms_with_dw"] = full_bwd
+    recs["rms_norm_bwd"].update(ms_autograd=full_bwd, dx_only_ms=dx_only,
+                                path=plan["path"], blocks=plan["blocks"],
+                                dw_max_abs_err=rec["dw"])
     recs["rms_norm_fwd"]["composed_fwd_bwd_ms"] = composed
-    log(f"{name}: the plain and library backward times cover dx and dw; the "
-        f"model's backward (dx kernel + fp32 dw sum) {full_bwd:.4f} ms; the "
-        f"dense form's composed _rms forward {composed[0]:.4f} ms, its "
-        f"autograd backward {composed[1]:.4f} ms")
+    log(f"{name}: the backward (dx and dw, one launch) "
+        f"{times['rms_norm_bwd'][0]:.4f} ms beside the dx kernel plus "
+        f"composed dw's 0.3481 at 8192 x 2048 (PERF.md), autograd of "
+        f"F.rms_norm "
+        f"{times['rms_norm_bwd'][2]:.4f}, bound "
+        f"{bounds['rms_norm_bwd'][0]:.4f}; through the autograd Function "
+        f"{full_bwd:.4f}; the dx-only kernels {dx_only:.4f}; the dense "
+        f"form's composed _rms forward {composed[0]:.4f} ms, its autograd "
+        f"backward {composed[1]:.4f} ms  [{card}]")
     return recs
 
 
@@ -2754,6 +2857,8 @@ def rms_phase(card):
             for h in (100, 4095):
                 check_rms_case(f"({tag}) rows {rows} x {h}, eps 1e-6", rows,
                                h, dtype, 1e-6)
+        check_rms_case(f"({tag}) rows 37 x 30000, eps 1e-6", 37, 30000,
+                       dtype, 1e-6)
     torch.cuda.empty_cache()
     return recs
 
@@ -2857,14 +2962,14 @@ def rope_phase(card):
 
 # -- phases 21-23 -----------------------------------------------------------
 def reset_llama_counts():
-    for fn in (RN.rms_norm_fwd, RN.rms_norm_bwd_dx, RP.rope, FA.flash_fwd,
+    for fn in (RN.rms_norm_fwd, RN.rms_norm_bwd, RP.rope, FA.flash_fwd,
                FA.flash_bwd_dq, FA.flash_bwd_dkv, FAD.adam_update):
         fn.LAUNCHES = 0
 
 
 def llama_counts():
     return dict(rms_norm_fwd=RN.rms_norm_fwd.LAUNCHES,
-                rms_norm_bwd=RN.rms_norm_bwd_dx.LAUNCHES,
+                rms_norm_bwd=RN.rms_norm_bwd.LAUNCHES,
                 rope=RP.rope.LAUNCHES,
                 flash_fwd=FA.flash_fwd.LAUNCHES,
                 flash_bwd_dq=FA.flash_bwd_dq.LAUNCHES,
@@ -4204,12 +4309,12 @@ def fp16_phase(card):
     require(LN.layer_norm_fwd.LAUNCHES > n[0]
             and LN.layer_norm_bwd_dx.LAUNCHES > n[1], "fp16 LayerNorm launches")
     R, H = LLAMA_BATCH * LLAMA_SEQ, LLAMA["hidden_size"]
-    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES)
+    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES)
     recs["rms_norm"] = check_rms_case(f"(fp16) rows {R} x {H}, eps 1e-5", R,
                                       H, h16, 1e-5, card)
     check_rms_case("(fp16) rows 37 x 4095, eps 1e-6", 37, 4095, h16, 1e-6)
     require(RN.rms_norm_fwd.LAUNCHES > n[0]
-            and RN.rms_norm_bwd_dx.LAUNCHES > n[1], "fp16 RMSNorm launches")
+            and RN.rms_norm_bwd.LAUNCHES > n[1], "fp16 RMSNorm launches")
 
     cfg = TL.LlamaConfig(**LLAMA)
     gen = torch.Generator(device=DEV)
@@ -4301,7 +4406,7 @@ def fp16_phase(card):
     qk = [torch.randn(2, 256, hh, 128, generator=gen, device=DEV).to(
         h16).requires_grad_(True) for hh in (16, 4)]
     for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
-               RN.rms_norm_bwd_dx, RP.rope):
+               RN.rms_norm_bwd, RP.rope):
         fn.LAUNCHES = 0
     FAD.adam_update.LAUNCHES = 0
     y = TF.layer_norm(xr, 768, w, bb, 1e-5)
@@ -4314,11 +4419,11 @@ def fp16_phase(card):
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.LAUNCHES for fn in (
         LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
-        RN.rms_norm_bwd_dx, RP.rope, FAD.adam_update)}
+        RN.rms_norm_bwd, RP.rope, FAD.adam_update)}
     log(f"fp16 through nn.functional.layer_norm, nn.functional.rms_norm, "
         f"fused_rotary_position_embedding and AdamW.apply: launches {counts}")
     require(counts == {"layer_norm_fwd": 1, "layer_norm_bwd_dx": 1,
-                       "rms_norm_fwd": 1, "rms_norm_bwd_dx": 1, "rope": 4,
+                       "rms_norm_fwd": 1, "rms_norm_bwd": 1, "rope": 4,
                        "adam_update": 1}, f"fp16 entry launches {counts}")
     recs["entry_launches"] = counts
     del x, xr, y, y2, p16, state, qk, oq, ok
@@ -4386,6 +4491,10 @@ def main() -> int:
     check_kernel_case("(c) GQA 16/4 mixed", gqa, None)
     sweep = decode_sweep(rng, card)
     sweep["long_rows"] = long_row_decode(rng, card)
+    # fp32 queries take the CUDA-core route: timed at case (a)'s batch
+    rec_dec32 = check_kernel_case("(a) decode R=8 fp32", make_case(
+        rng, [1] * 8, [100, 173, 256, 311, 400, 467, 555, 640], C=1, hq=16,
+        hkv=16, dtype=torch.float32), card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("4. tiny fp32 engine: card vs CPU")
@@ -4515,6 +4624,7 @@ def main() -> int:
         design=rec_dec["design"], splits=rec_dec["splits"],
         shape="decode R=8 H=16 D=128 bs=32 bf16, kv_len 100..640",
         mixed={k: rec_mixed[k] for k in keys + ("design", "splits")},
+        fp32={k: rec_dec32[k] for k in keys + ("design",)},
         decode_sweep=sweep, serving=full)
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
     fa = "paddle_tpu/kernels/pallas/flash_attention.py"
@@ -4582,11 +4692,19 @@ def main() -> int:
         bert_padded_launches=padded["launches_total"]["fused_adam"]))
     kernels += [
         dict(name="paged_decode_attention", route="cuda",
-             source="paddle_tpu_torch/csrc/paged_decode_attention.cu",
+             source="paddle_tpu_torch/csrc/paged_decode_hopper.cu",
              replaces="paddle_tpu/kernels/pallas/paged_attention.py:97",
              launches=two["launches"]["paged_decode_attention"],
              **{k: dec[k] for k in keys},
+             design=dec["design"], splits=dec["splits"],
              shape="decode B=8 H=16 D=128 bs=32 bf16, lens 100..640",
+             ragged_same_batch_ms=dec["ragged_same_batch_ms"],
+             fp32=dict(source="paddle_tpu_torch/csrc/"
+                              "paged_decode_attention.cu",
+                       **{k: dec["fp32"][k] for k in keys + ("design",)}),
+             long_rows={tag: {k: r[k] for k in keys + (
+                 "splits", "unsplit_ms")}
+                 for tag, r in dec["long_rows"].items()},
              two_program=two),
         dict(name="flash_fwd_bias", route="cuda",
              source="paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
@@ -4636,6 +4754,9 @@ def main() -> int:
             **{k: rms[name][k] for k in keys},
             shape="x [8192, 2048] bf16, fp32 weight, eps 1e-5",
             rows_4096_x_4096={k: rms["wide"][name][k] for k in keys},
+            **({k: rms[name][k] for k in (
+                "ms_autograd", "dx_only_ms", "path", "blocks")}
+               if name == "rms_norm_bwd" else {}),
             llama=llama if name == "rms_norm_fwd" else None,
             llama_exactness=llama_exact if name == "rms_norm_fwd" else None,
             dense_loss=dense if name == "rms_norm_fwd" else None))

@@ -37,38 +37,12 @@
 
 #include "norm_common.cuh"
 
-using namespace ptt_norm;  // walk, warp_sum, to_f32, from_f32, by_dtype, aligned16
+using namespace ptt_norm;  // walk, load_v, store_v, warp_sum, by_dtype, aligned16
 
 namespace {
 
 constexpr int kStepRows = 16;  // rows a step, one warp each
 constexpr int kBlock = 32 * kStepRows;
-
-// V consecutive elements of p in fp32: one 16-byte word, or one element
-template <int V, typename T>
-__device__ __forceinline__ void load_v(const T* __restrict__ p, float (&f)[V]) {
-  if constexpr (V == 1) {
-    f[0] = to_f32(*p);
-  } else {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int k = 0; k < V; ++k) f[k] = to_f32(e[k]);
-  }
-}
-
-template <int V, typename T>
-__device__ __forceinline__ void store_v(T* __restrict__ p, const float (&f)[V]) {
-  if constexpr (V == 1) {
-    *p = from_f32<T>(f[0]);
-  } else {
-    uint4 r;
-    T* e = reinterpret_cast<T*>(&r);
-#pragma unroll
-    for (int k = 0; k < V; ++k) e[k] = from_f32<T>(f[k]);
-    *reinterpret_cast<uint4*>(p) = r;
-  }
-}
 
 struct Step {
   float mu[kStepRows], rs[kStepRows], c1[kStepRows], c2[kStepRows];

@@ -70,6 +70,32 @@ __device__ __forceinline__ void write_row(const T* __restrict__ a, const T* __re
   }
 }
 
+// V consecutive elements of p in fp32: one 16-byte word, or one element
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* __restrict__ p, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f32(*p);
+  } else {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) f[k] = to_f32(e[k]);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_v(T* __restrict__ p, const float (&f)[V]) {
+  if constexpr (V == 1) {
+    *p = from_f32<T>(f[0]);
+  } else {
+    uint4 r;
+    T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int k = 0; k < V; ++k) e[k] = from_f32<T>(f[k]);
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+}
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 inline dim3 grid_for(long long rows) {

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 __all__ = ["load_library", "build_library", "build_generated",
            "build_generated_many", "check", "launch", "is_cpu", "dtype_code",
-           "check_rows", "BUILD_LOG", "GEN_LOG"]
+           "check_rows", "zeroed_counters", "BUILD_LOG", "GEN_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -227,10 +227,12 @@ def load_library() -> ctypes.CDLL:
         "ptt_ragged_paged_attention": [vp] * 11 + [ci] * 9 + [cf, ci, ci, vp],
         # R, C, Hq, Hkv, bs, D, nb, dtype, pool_dtype, out[4]
         "ptt_ragged_plan": [ci] * 9 + [ctypes.POINTER(ci)],
-        # q, k, v, tables, lens, out, B, Hq, Hkv, NB, bs, D, nb, q strides
-        # (batch, head), scale, dtype, stream
-        "ptt_paged_decode_attention": [vp] * 6 + [ci] * 7 + [ll, ll]
-        + [cf, ci, vp],
+        # q, k, v, tables, lens, out, part, tickets, B, Hq, Hkv, NB, bs, D,
+        # nb, q strides (batch, head), splits, scale, dtype, stream
+        "ptt_paged_decode_attention": [vp] * 8 + [ci] * 7 + [ll, ll]
+        + [ci, cf, ci, vp],
+        # B, Hq, Hkv, bs, D, nb, dtype, aligned, out[5]
+        "ptt_paged_decode_plan": [ci] * 8 + [ctypes.POINTER(ci)],
         # q, k, v, bias (or null), qseg, kseg, fms, fme (or null), out,
         # lse, strides (13), B, Sq, Sk, H, Hkv, D, scale, causal, drop,
         # seed0, seed1, thresh, drop_scale, dtype, bias_dtype, fm_hs,
@@ -253,8 +255,11 @@ def load_library() -> ctypes.CDLL:
         "ptt_layer_norm_bwd": [vp] * 6 + [ll, ci, ci, vp],
         # x, w, y, rstd, rows, H, eps, dtype, stream
         "ptt_rms_norm_fwd": [vp] * 4 + [ll, ci, cf, ci, vp],
-        # x, w, rstd, dy, dx, rows, H, dtype, stream
-        "ptt_rms_norm_bwd": [vp] * 5 + [ll, ci, ci, vp],
+        # x, w, rstd, dy, dx (or null), dw (or null), part, sync, rows, H,
+        # part_rows, dtype, stream
+        "ptt_rms_norm_bwd": [vp] * 8 + [ll, ci, ci, ci, vp],
+        # rows, H, dtype, aligned, out[2]
+        "ptt_rms_norm_bwd_plan": [ll, ci, ci, ci, ctypes.POINTER(ci)],
         # x, w, mean, rstd, dy, dx, dg, db, part, ticket, rows, H, blocks,
         # dtype, stream
         "ptt_kps_layer_norm_bwd": [vp] * 10 + [ll, ci, ci, ci, vp],
@@ -293,6 +298,23 @@ def launch(what: str, fn, device, *args, error_string=None) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(*args, stream)
     check(code, what, error_string)
+
+
+_COUNTERS: Dict[tuple, object] = {}
+
+
+def zeroed_counters(owner: str, device, n: int = 1):
+    """int32 counters for a kernel that counts its finished blocks (a merge
+    ticket, a grid barrier) and sets them back to 0 before it ends: one
+    buffer of at least ``n`` per (owner, device, current stream), made with
+    zeros and grown (with new zeros) when a call needs more. Calls that
+    share a buffer run on one stream, so they never overlap."""
+    import torch
+    key = (owner, device, torch.cuda.current_stream(device).cuda_stream)
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < n:
+        t = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def is_cpu(t, what: str) -> bool:

@@ -233,19 +233,6 @@ def ln_fwd(x2, weight, bias, eps):
     return out
 
 
-_TICKETS = {}
-
-
-def _ticket(device):
-    """The backward's completion counter for the current stream (0 between
-    calls: the kernel sets it back)."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None:
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return t
-
-
 def ln_bwd(x2, weight, mean, rstd, dy):
     """(dx, dg fp32 [H], db fp32 [H]): ``csrc/kps_layer_norm.cu`` on a CUDA
     tensor, one launch, dg and db bit for bit the same across calls."""
@@ -261,7 +248,7 @@ def ln_bwd(x2, weight, mean, rstd, dy):
         raise ValueError(f"layer_norm backward: H = {H} is wider than the "
                          f"{LN_BWD_MAX_H} columns whose dg / db sums fit "
                          f"in a block's shared memory")
-    from ._build import load_library
+    from ._build import load_library, zeroed_counters
     dev = x2.device
     w = weight.reshape(H).float().contiguous()
     mean, rstd, dy = mean.contiguous(), rstd.contiguous(), dy.contiguous()
@@ -272,7 +259,7 @@ def ln_bwd(x2, weight, mean, rstd, dy):
     db = torch.empty(H, dtype=torch.float32, device=dev)
     part = torch.empty(blocks, 2, H, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        ticket = _ticket(dev)
+        ticket = zeroed_counters("kps_layer_norm_bwd", dev)
     _launch(f"layer_norm primitive backward launch (rows={rows} H={H} "
             f"{x2.dtype})", load_library().ptt_kps_layer_norm_bwd, dev,
             x2.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),

@@ -13,7 +13,9 @@ the ragged kernel on phase 3's mixed batch (4 rows, C 128) and on the decode
 batch over int8 pools,
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward and dx kernels on x [5120, 768], the RMSNorm forward and
-dx kernels on x [8192, 2048] and the RoPE kernel on q [8, 1024, 16, 128].
+its whole backward (dx and the fp32 dw, through the autograd Function:
+whatever kernels and composed sums a checkout runs) on x [8192, 2048]
+and the RoPE kernel on q [8, 1024, 16, 128].
 Each time is the median of 30 CUDA-event timings with the L2 flushed before
 each launch, as ``chip_smoke.py`` ``cuda_ms`` takes them. Both checkouts
 build their kernels at first use. Prints one line per run and a last JSON
@@ -106,19 +108,21 @@ res["fused_adam"] = ms(lambda: FAD.adam_update(
     p, g, slot, 1e-4, 1, None, beta1=0.9, beta2=0.999, epsilon=1e-8,
     decoupled=0.01), runs=10)
 del p, g, slot
-for tag, mod, fwd, bwd, (rows, h) in (
-        ("layer_norm", LN, "layer_norm_fwd", "layer_norm_bwd_dx", (5120, 768)),
-        ("rms_norm", RN, "rms_norm_fwd", "rms_norm_bwd_dx", (8192, 2048))):
-    x, dy = rnd(rows, h, scale=3.0), rnd(rows, h)
-    w = torch.randn(h, generator=gen, device=dev)
-    if tag == "layer_norm":
-        y, mean, rstd = LN.layer_norm_fwd(x, w, w, 1e-12)
-        res[fwd] = ms(lambda: LN.layer_norm_fwd(x, w, w, 1e-12))
-        res[bwd] = ms(lambda: LN.layer_norm_bwd_dx(x, w, mean, rstd, dy))
-    else:
-        y, rstd = RN.rms_norm_fwd(x, w, 1e-5)
-        res[fwd] = ms(lambda: RN.rms_norm_fwd(x, w, 1e-5))
-        res[bwd] = ms(lambda: RN.rms_norm_bwd_dx(x, w, rstd, dy))
+x, dy = rnd(5120, 768, scale=3.0), rnd(5120, 768)
+w = torch.randn(768, generator=gen, device=dev)
+y, mean, rstd = LN.layer_norm_fwd(x, w, w, 1e-12)
+res["layer_norm_fwd"] = ms(lambda: LN.layer_norm_fwd(x, w, w, 1e-12))
+res["layer_norm_bwd_dx"] = ms(lambda: LN.layer_norm_bwd_dx(x, w, mean, rstd,
+                                                           dy))
+x, dy = rnd(8192, 2048, scale=3.0), rnd(8192, 2048)
+w = torch.randn(2048, generator=gen, device=dev)
+res["rms_norm_fwd"] = ms(lambda: RN.rms_norm_fwd(x, w, 1e-5))
+# the whole backward (dx and the fp32 dw) through the autograd Function,
+# whatever kernels a checkout runs for it
+xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+yr = RN.rms_norm(xr, wr, 1e-5)
+res["rms_norm_bwd"] = ms(lambda: torch.autograd.grad(yr, (xr, wr), dy,
+                                                     retain_graph=True))
 x = rnd(8, 1024, 16, 128)
 ang = torch.rand(1024, 64, generator=gen, device=dev)
 res["rope"] = ms(lambda: RP.rope(x, ang.cos(), ang.sin()))

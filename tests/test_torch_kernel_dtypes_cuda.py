@@ -8,7 +8,8 @@ gradient in another float dtype than p, read in its own dtype.
 
 Tolerance: max-abs error over max(max-abs plain, 1), the fp16 tier 1e-2 of
 the norm kernels (fp32 arithmetic in both, one rounding to fp16, so an fp32
-difference flips at most an ulp); Adam one ulp of each array's dtype at its
+difference flips at most an ulp), and 1e-5 for the RMSNorm backward's fp32
+dw (the same products summed in another order); Adam one ulp of each array's dtype at its
 largest value (the plain version follows the kernel operation by
 operation), and the fp16 tier for AdamW against its composed CPU update.
 
@@ -68,11 +69,14 @@ def test_norm_kernels_fp16_match_plain(card, rows, H):
     assert y.dtype == dx.dtype == torch.float16
     assert _rel(y, y_p) <= TOL and _rel(dx, dx_p) <= TOL
     y, rs = RN.rms_norm_fwd(x, w, 1e-6)
-    dx = RN.rms_norm_bwd_dx(x, w, rs, dy)
+    dx, dw = RN.rms_norm_bwd(x, w, rs, dy)
     y_p, rs_p = RN.rms_norm_fwd_plain(x, w, 1e-6)
-    dx_p = RN.rms_norm_bwd_plain(x, w, rs_p, dy)[0]
+    dx_p, _ = RN.rms_norm_bwd_plain(x, w, rs_p, dy)
+    # dw: fp32 sums of the same products (the kernel's rstd on both sides)
+    _, dw_p = RN.rms_norm_bwd_plain(x, w, rs, dy, need_dx=False)
     assert y.dtype == dx.dtype == torch.float16
     assert _rel(y, y_p) <= TOL and _rel(dx, dx_p) <= TOL
+    assert dw.dtype == torch.float32 and _rel(dw, dw_p) <= 1e-5
 
 
 def test_public_norm_entries_launch_at_fp16(card):
@@ -87,10 +91,10 @@ def test_public_norm_entries_launch_at_fp16(card):
     ref = TF.layer_norm(x.detach().cpu(), 256, w.detach().cpu(),
                         b.detach().cpu(), 1e-5)
     assert y.dtype == torch.float16 and _rel(y.cpu(), ref) <= TOL
-    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES)
+    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES)
     y = TF.rms_norm(x, w, epsilon=1e-6)
     y.float().square().sum().backward()
-    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES) == \
+    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES) == \
         (n[0] + 1, n[1] + 1)
     ref = TF.rms_norm(x.detach().cpu(), w.detach().cpu(), epsilon=1e-6)
     assert y.dtype == torch.float16 and _rel(y.cpu(), ref) <= TOL
@@ -165,12 +169,15 @@ def test_paged_kernels_fp16_match_plain(card):
              torch.int32)
     q = t(rng.randn(4, hq, D).astype(np.float32))
     scale = 1.0 / np.sqrt(D)
-    n = PA.paged_decode_attention.LAUNCHES
-    out = PA.paged_decode_attention(q, k_pool, v_pool, tables, lens, scale)
-    assert PA.paged_decode_attention.LAUNCHES == n + 1
+    assert PA.kernel_plan(q, k_pool, tables)["design"] == "bulk-ring"
     ref = PA.paged_decode_attention_plain(q, k_pool, v_pool, tables, lens,
                                           scale)
-    assert out.dtype == torch.float16 and _rel(out, ref) <= TOL
+    for splits in (None, 1, 3):     # the plan's, one, and a merge of three
+        n = PA.paged_decode_attention.LAUNCHES
+        out = PA.paged_decode_attention(q, k_pool, v_pool, tables, lens,
+                                        scale, splits=splits)
+        assert PA.paged_decode_attention.LAUNCHES == n + 1
+        assert out.dtype == torch.float16 and _rel(out, ref) <= TOL
     q_lens = t(np.array([1, 7, 0, 3], np.int32), torch.int32)
     qr = t(rng.randn(4, 7, hq, D).astype(np.float32))
     n = RPA.ragged_paged_attention.LAUNCHES

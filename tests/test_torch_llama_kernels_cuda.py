@@ -1,5 +1,5 @@
-"""The Llama slice's CUDA kernels on the card: the RMSNorm forward and dx
-backward and the RoPE kernel, each against its plain PyTorch version on the
+"""The Llama slice's CUDA kernels on the card: the RMSNorm forward and
+backward (dx and dw in one launch) and the RoPE kernel, each against its plain PyTorch version on the
 same inputs; autograd through both; their launch counts; inputs they
 refuse; and a tiny fp32 eager Llama on the card against the same model on
 the CPU.
@@ -61,26 +61,30 @@ def test_rms_norm_kernels_match_plain(card, dtype, rows, H, eps):
                shift=1.0)
     w = _randn(card, H, seed=1)
     dy = _randn(card, rows, H, seed=2, dtype=dtype)
-    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES)
+    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES)
     y, rstd = RN.rms_norm_fwd(x, w, eps)
-    dx = RN.rms_norm_bwd_dx(x, w, rstd, dy)
+    dx, dw = RN.rms_norm_bwd(x, w, rstd, dy)
     torch.cuda.synchronize()
-    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES) == \
+    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES) == \
         (n[0] + 1, n[1] + 1)
     y_p, rstd_p = RN.rms_norm_fwd_plain(x, w, eps)
     dx_p, _ = RN.rms_norm_bwd_plain(x, w, rstd_p, dy)
+    # dw: fp32 sums of the same products (the kernel's rstd on both sides),
+    # held at the fp32 tier whatever x's dtype
+    _, dw_p = RN.rms_norm_bwd_plain(x, w, rstd, dy, need_dx=False)
     assert y.dtype == dtype and dx.dtype == dtype
     assert rstd.dtype == torch.float32 and rstd.shape == (rows,)
     assert ((rstd - rstd_p).abs() / rstd_p).max().item() <= 1e-5
     assert _rel(y, y_p) <= TOL[dtype]
     assert _rel(dx, dx_p) <= TOL[dtype]
+    assert dw.dtype == torch.float32 and _rel(dw, dw_p) <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_autograd_unaligned_rows_and_weight_dtypes(card, wdtype):
     """A row base that is not 16-byte aligned takes the one-element path;
-    the autograd Function's dw is the fp32 cross-row sum in the weight's
-    dtype; a bf16 weight is cast for the kernel."""
+    the autograd Function's dw is the kernel's fp32 cross-row sum in the
+    weight's dtype; a bf16 weight is cast for the kernel."""
     H = 2048
     big = torch.randn(65 * H + 3, device=card)
     x = big[3:].view(65, H)                         # 12-byte offset
@@ -91,9 +95,9 @@ def test_rms_norm_autograd_unaligned_rows_and_weight_dtypes(card, wdtype):
     assert _rel(y, y_p) <= 1e-5
     xr = x.clone().requires_grad_(True)
     dy = torch.randn(65, H, device=card)
-    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES)
+    n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES)
     gx, gw = torch.autograd.grad(RN.rms_norm(xr, w, 1e-5), (xr, w), dy)
-    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd_dx.LAUNCHES) == \
+    assert (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES) == \
         (n[0] + 1, n[1] + 1)
     dx_p, dw_p = RN.rms_norm_bwd_plain(x, w.detach(), rstd_p, dy)
     assert gw.dtype == wdtype

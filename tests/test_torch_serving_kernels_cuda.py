@@ -102,29 +102,23 @@ def test_paged_decode_matches_plain(card, dtype, hq, hkv, D, bs):
     assert (out[2] == 0).all()                  # len 0 -> zeros
 
 
-@pytest.mark.parametrize("bad", ["fp64", "group_too_large", "head_dim_256",
-                                 "misaligned_pool", "int64_lens",
+@pytest.mark.parametrize("bad", ["fp64", "group_not_whole",
+                                 "head_dim_above_256", "int64_lens",
                                  "q_d_stride"])
 def test_paged_decode_refuses_what_it_does_not_take(card, bad):
-    # group_too_large: 64 query heads of 64 on one kv head, g * D = 4096
-    hq, hkv, D = {"group_too_large": (64, 1, 64),
-                  "head_dim_256": (4, 4, 256)}.get(bad, (4, 4, 16))
+    # group_not_whole: 6 query heads over 4 kv heads; head_dim_above_256:
+    # D 264 (the reference's shapes end at the flash kernels' 256)
+    hq, hkv, D = {"group_not_whole": (6, 4, 16),
+                  "head_dim_above_256": (4, 4, 264)}.get(bad, (4, 4, 16))
     args, scale = _decode_case(card, torch.bfloat16, hq, hkv, D, 8)
     if bad == "fp64":
         args[:3] = [a.double() for a in args[:3]]
-    elif bad == "misaligned_pool":
-        shifted = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16,
-                              device=card)[1:].view(args[1].shape)
-        args[1] = shifted.copy_(args[1])
     elif bad == "int64_lens":
         args[4] = args[4].long()
     elif bad == "q_d_stride":
         args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
     before = PA.paged_decode_attention.LAUNCHES
-    err = (RuntimeError if bad in ("group_too_large", "head_dim_256",
-                                   "misaligned_pool") else (TypeError,
-                                                            ValueError))
-    with pytest.raises(err):
+    with pytest.raises((TypeError, ValueError)):
         PA.paged_decode_attention(*args, scale)
     assert PA.paged_decode_attention.LAUNCHES == before
 
