@@ -62,10 +62,15 @@ Phases, in order; any failure exits non-zero:
    pools: tokens/s, capacity at phase 5's pool budget, determinism across
    fresh engines, teacher-forced top-5 containment;
 15. hold the LayerNorm forward and backward kernels against their plain
-   versions (y, dx, dw, db) at the BERT-base step's rows (5120 x 768), at 37
-   rows and at 1, bf16 and fp32, eps 1e-12 and 1e-5, with and without a
-   bias; time them (and at the 128-sequence cell's rows) against their bound
-   and torch's layer_norm;
+   versions (y, dx, dw, db; the backward forms dx, dw and db in one launch,
+   bit for bit across two calls, and reports its route) at the BERT-base
+   step's rows (5120 x 768), at 37 rows and at 1, bf16 and fp32, eps 1e-12
+   and 1e-5, with and without a bias, at the 128-sequence cell's rows with
+   and without a bias, at 13 and 37 x 100 (no 16-byte words) and above the
+   primitives' 28672-column limit; time them (at 5120 and the 128-sequence
+   rows) against their bound, torch's layer_norm and its autograd backward,
+   the backward also at one and two blocks an SM and through the autograd
+   Function;
 16. hold the flash kernels' segment-id and dropout variants against their
    plain versions at the packed BERT call ([10, 512, 12, 64] with the
    corpus' segment ids, p 0 and 0.1, bf16 timed, fp32), a dead row, GQA and
@@ -75,12 +80,14 @@ Phases, in order; any failure exits non-zero:
 18. train BERT-base packed (``bench_bert_packed``: vocab 30522, hidden 768,
    12 layers, 12 heads, dropout 0.1, bf16 >= 2-D parameters, AdamW bf16
    moments) on ``_bert_job``'s corpus of 16 sequences, then 128: 1 warm and
-   5 timed steps each, real tokens/s, MFU, memory, every launch count, a
-   profiled step;
+   5 timed steps each, real tokens/s, MFU, memory, every launch count (the
+   LayerNorm backwards all with dw and db inside their launch), a profiled
+   step;
 18b. with dropout 0, the BERT kernel path against the plain path: fp32 at 2
    layers (loss, every gradient), bf16 at full depth over 4 AdamW steps;
 19. hold the RMSNorm forward and backward kernels against their plain
-   versions (y, dx, dw, rstd; the backward forms dx and dw in one launch,
+   versions (y, dx, dw, rstd; the forward's route, the held row's
+   persistent grid or the walk; the backward forms dx and dw in one launch,
    dw bit for bit across two calls) at the Llama step's rows (8192 x 2048
    bf16, fp32 weight, eps 1e-5; timed against their bound, torch's
    rms_norm and its autograd backward, and the dense form's composed
@@ -156,8 +163,8 @@ Phases, in order; any failure exits non-zero:
    [8192, 768] and [8192, 2048], bf16, fp32 g and b) once each with exact
    launch counts, hold each to its plain version, dg / db bit for bit across
    two calls, time each against its bound, the plain version, one library
-   call and (the backward) the ported LayerNorm's dx kernel with composed
-   dw / db sums, and a warm call's host work;
+   call (a * b + 1: torch.addcmul of a 0-d one) and (the backward) the
+   ported LayerNorm's backward, and a warm call's host work;
 32. fp16 through the LayerNorm, RMSNorm, RoPE, Adam (with a gradient in
    another dtype than p) and paged attention kernels, each against its plain
    version and timed at its main shape, and through nn.functional's
@@ -2023,7 +2030,8 @@ BERT_TRAJECTORY_STEPS = 4     # phase 18b: kernel path vs plain path
 # LayerNorm kernel vs plain: max-abs err / max-abs ref; fp32 sums in another
 # order, bf16 one rounding of the output (an fp32 difference flips one ulp)
 LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
-LN_FLOPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 10}   # per element
+# per element; the backward's dx ~10, its dw and db sums 3
+LN_FLOPS = {"layer_norm_fwd": 8, "layer_norm_bwd": 13}
 # the key projection's bias has an exactly-zero gradient (one constant added
 # to every score of a softmax row): both paths return rounding noise there
 ZERO_GRAD = "self_attn.k_proj.bias"
@@ -2055,10 +2063,14 @@ def seg_pairs(seg):
 
 # -- phase 15 ---------------------------------------------------------------
 def ln_bounds(rows, H, dtype, bias):
+    """The forward reads x, w (and b) and writes y, mean and rstd; the
+    backward reads x, dy, w, mean and rstd and writes dx, dw (and db)."""
     it = torch.tensor([], dtype=dtype).element_size()
-    work = {"layer_norm_fwd": (2 * rows * H * it + (2 if bias else 1) * H * 4
+    n_affine = 2 if bias else 1
+    work = {"layer_norm_fwd": (2 * rows * H * it + n_affine * H * 4
                                + 8 * rows),
-            "layer_norm_bwd": 3 * rows * H * it + H * 4 + 8 * rows}
+            "layer_norm_bwd": (3 * rows * H * it + (1 + n_affine) * H * 4
+                               + 8 * rows)}
     out = {}
     for name, nbytes in work.items():
         flops = LN_FLOPS[name] * rows * H
@@ -2079,34 +2091,54 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
     b = rnd(H) if bias else None
     dy = rnd(rows, H).to(dtype)
     y, mean, rstd = LN.layer_norm_fwd(x, w, b, eps)
-    dx = LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)
+    dx, dw, db = LN.layer_norm_bwd(x, w, mean, rstd, dy, need_db=bias)
+    again = LN.layer_norm_bwd(x, w, mean, rstd, dy, need_db=bias)
+    # the dx-only kernel a frozen weight with no trainable bias takes
+    dx_o, dw_o, db_o = LN.layer_norm_bwd(x, w, mean, rstd, dy, need_dw=False,
+                                         need_db=False)
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     br = b.clone().requires_grad_(True) if bias else None
     yk = LN.layer_norm(xr, wr, br, eps)
     gk = torch.autograd.grad(yk, [t for t in (xr, wr, br) if t is not None],
                              dy, retain_graph=True)
     torch.cuda.synchronize()
+    require(all((u is None and v is None) or torch.equal(u, v)
+                for u, v in zip((dx, dw, db), again)),
+            f"{name}: two backward calls differ in their bits")
+    plan = LN.bwd_plan(x, w, dy, need_db=bias)
     y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, eps)
-    dx_p, dw_p, db_p = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy,
-                                               bias)
-    tol = LN_TOL[dtype]
+    dx_p, _, _ = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy, bias)
+    # dw and db are fp32 sums of the same products on both sides (the
+    # kernel's statistics given to both): only the order of the sums differs
+    _, dw_p, db_p = LN.layer_norm_bwd_plain(x, w, mean, rstd, dy, bias,
+                                            need_dx=False)
+    tol, sum_tol = LN_TOL[dtype], LN_TOL[torch.float32]
     rec = {}
-    pairs = [("y", y, y_p), ("dx", dx, dx_p), ("dx_autograd", gk[0], dx_p),
-             ("dw", gk[1], dw_p)] + ([("db", gk[2], db_p)] if bias else [])
-    for what, got, ref in pairs:
+    pairs = [("y", y, y_p, tol), ("dx", dx, dx_p, tol),
+             ("dw", dw, dw_p, sum_tol), ("dx_only", dx_o, dx_p, tol),
+             ("dx_autograd", gk[0], dx_p, tol),
+             ("dw_autograd", gk[1], dw_p, sum_tol)] + (
+        [("db", db, db_p, sum_tol), ("db_autograd", gk[2], db_p, sum_tol)]
+        if bias else [])
+    require(bias or db is None, f"{name}: a bias-less call returned db")
+    require(dw_o is None and db_o is None,
+            f"{name}: the dx-only call returned a sum")
+    for what, got, ref, t in pairs:
         require(got.dtype == ref.dtype and got.shape == ref.shape,
                 f"{name} {what}: {got.dtype} {tuple(got.shape)} vs "
                 f"{ref.dtype} {tuple(ref.shape)}")
         require(torch.isfinite(got.float()).all(), f"{name} {what} not finite")
         err, rel = _rel_err(got, ref)
-        require(rel <= tol, f"{name} {what}: rel err {rel} > {tol}")
+        require(rel <= t, f"{name} {what}: rel err {rel} > {t}")
         rec[what] = err
     srel = max(((mean - mean_p).abs().max() / mean_p.abs().max().clamp_min(
         1.0)).item(), ((rstd - rstd_p).abs() / rstd_p).max().item())
     require(srel <= 1e-5, f"{name} mean / rstd rel err {srel}")
     log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
         f"{rec['dw']:.3e}" + (f" db {rec['db']:.3e}" if bias else "")
-        + f", stats rel {srel:.2e} (tol {tol})")
+        + f", dx-only kernel dx {rec['dx_only']:.3e}, stats rel {srel:.2e} "
+        f"(tol {tol}, dw / db {sum_tol}); backward route {plan['path']}, "
+        f"{plan['blocks']} blocks; dx, dw, db bit for bit across two calls")
     if card is None:
         return None
     bounds = ln_bounds(rows, H, dtype, bias)
@@ -2125,17 +2157,29 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
             cuda_ms(lambda: LN.layer_norm_fwd_plain(x, w, b, eps)),
             cuda_ms(lambda: F_.layer_norm(x, (H,), wl, bl, eps))),
         "layer_norm_bwd": (
-            cuda_ms(lambda: LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)),
+            cuda_ms(lambda: LN.layer_norm_bwd(x, w, mean, rstd, dy,
+                                              need_db=bias)),
             cuda_ms(lambda: LN.layer_norm_bwd_plain(x, w, mean, rstd, dy,
                                                     bias)),
             cuda_ms(lambda: torch.autograd.grad(yl, lib_in, dy,
                                                 retain_graph=True))),
     }
-    # the backward as the model runs it: the dx kernel and the fp32 dw / db
-    # sums outside it
+    # the backward as the model runs it (the autograd Function: the one
+    # launch and the casts), and the dx-only kernel a frozen weight takes
     full_bwd = cuda_ms(lambda: torch.autograd.grad(yk, k_in, dy,
                                                    retain_graph=True))
-    errs = {"layer_norm_fwd": rec["y"], "layer_norm_bwd": rec["dx"]}
+    dx_only = cuda_ms(lambda: LN.layer_norm_bwd(x, w, mean, rstd, dy,
+                                                need_dw=False, need_db=False))
+    # a warm call's host time (the wrapper's checks, the cached plan and the
+    # launch), beside the library call's
+    torch.cuda.synchronize()
+    host = host_overhead_ms(lambda: LN.layer_norm_bwd(x, w, mean, rstd, dy,
+                                                      need_db=bias))
+    host_lib = host_overhead_ms(lambda: torch.autograd.grad(
+        yl, lib_in, dy, retain_graph=True))
+    torch.cuda.synchronize()
+    errs = {"layer_norm_fwd": rec["y"],
+            "layer_norm_bwd": max(rec["dx"], rec["dw"], rec.get("db", 0.0))}
     recs = {}
     for kname, (kern, plain, lib) in times.items():
         bound, by, nbytes, flops = bounds[kname]
@@ -2145,10 +2189,16 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=lib, bound_ms=bound, bound_by=by,
                            bytes=nbytes, flops=flops)
-    recs["layer_norm_bwd"]["ms_with_dw_db"] = full_bwd
-    log(f"{name}: the plain and library backward times cover dx, dw and db; "
-        f"the model's backward (dx kernel + fp32 dw, db sums) "
-        f"{full_bwd:.4f} ms")
+    recs["layer_norm_bwd"].update(
+        ms_autograd=full_bwd, dx_only_ms=dx_only, path=plan["path"],
+        blocks=plan["blocks"], host_ms=host, library_host_ms=host_lib,
+        dw_db_max_abs_err=max(rec["dw"], rec.get("db", 0.0)))
+    log(f"{name}: the backward (dx, dw" + (", db" if bias else "")
+        + f" in one launch) {times['layer_norm_bwd'][0]:.4f} ms; the plain "
+        f"and library times cover the same outputs; through the autograd "
+        f"Function {full_bwd:.4f}; the dx-only kernel {dx_only:.4f}; a warm "
+        f"call's host time {host:.4f} ms (autograd of F.layer_norm "
+        f"{host_lib:.4f})  [{card}]")
     return recs
 
 
@@ -2171,8 +2221,15 @@ def ln_phase(card, rows_128):
     recs["rows_128"] = check_ln_case(
         f"(bf16) rows {rows_128} x {H} (128 sequences), eps 1e-12, bias",
         rows_128, H, torch.bfloat16, 1e-12, True, card)
-    check_ln_case(f"(bf16) rows 13 x 100 (no 16-byte words)", 13, 100,
-                  torch.bfloat16, 1e-5, True)
+    check_ln_case(f"(bf16) rows {rows_128} x {H} (128 sequences), eps "
+                  f"1e-12, no bias", rows_128, H, torch.bfloat16, 1e-12, False)
+    for rows, h in ((13, 100), (37, 100)):
+        check_ln_case(f"(bf16) rows {rows} x {h} (no 16-byte words)", rows, h,
+                      torch.bfloat16, 1e-5, True)
+    check_ln_case("(bf16) rows 3 x 28680 (the column-tiled partial)", 3,
+                  28680, torch.bfloat16, 1e-5, True)
+    check_ln_case("(fp32) rows 37 x 4100 (the column-tiled partial)", 37,
+                  4100, torch.float32, 1e-5, False)
     torch.cuda.empty_cache()
     return recs
 
@@ -2437,14 +2494,21 @@ def layer_plain_path():
 
 
 def reset_bert_counts():
-    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd_dx, FA.flash_fwd,
+    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd, FA.flash_fwd,
                FA.flash_bwd_dq, FA.flash_bwd_dkv, FAD.adam_update):
         fn.LAUNCHES = 0
+    for route in LN.layer_norm_bwd.ROUTES:
+        LN.layer_norm_bwd.ROUTES[route] = 0
 
 
 def bert_counts():
+    """The kernels' launches; ``layer_norm_bwd_sums`` counts the LayerNorm
+    backwards that formed dw and db inside their launch (held or tiled):
+    every one of them, so no composed sum ran."""
+    routes = LN.layer_norm_bwd.ROUTES
     return dict(layer_norm_fwd=LN.layer_norm_fwd.LAUNCHES,
-                layer_norm_bwd=LN.layer_norm_bwd_dx.LAUNCHES,
+                layer_norm_bwd=LN.layer_norm_bwd.LAUNCHES,
+                layer_norm_bwd_sums=routes["held"] + routes["tiled"],
                 flash_fwd=FA.flash_fwd.LAUNCHES,
                 flash_bwd_dq=FA.flash_bwd_dq.LAUNCHES,
                 flash_bwd_dkv=FA.flash_bwd_dkv.LAUNCHES,
@@ -2593,7 +2657,8 @@ def bert_train_cell(card, n_seqs, model, params, buffers, opt, state, cfg):
     log(f"losses (warm, then timed): {losses}")
     L = cfg.num_layers
     want = dict(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
-                flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=77)
+                layer_norm_bwd_sums=2 * L + 2, flash_fwd=L, flash_bwd_dq=L,
+                flash_bwd_dkv=L, fused_adam=77)
     log(f"launches in the timed steps: {counts}; per step expected {want}")
     require(all(math.isfinite(x) for x in losses), "a BERT loss is not finite")
     for k, per_step in want.items():
@@ -2759,6 +2824,7 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
     require(torch.equal(dw, dw2) and torch.equal(dx, dx2),
             f"{name}: two backward calls differ in their bits")
     plan = RN.bwd_plan(x, w, dy)
+    fplan = RN.fwd_plan(x, w, y)
     y_p, rstd_p = RN.rms_norm_fwd_plain(x, w, eps)
     dx_p, _ = RN.rms_norm_bwd_plain(x, w, rstd_p, dy)
     # dw is an fp32 sum of the same products on both sides (the kernel's
@@ -2781,7 +2847,7 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
     require(srel <= 1e-5, f"{name} rstd rel err {srel}")
     log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
         f"{rec['dw']:.3e}, rstd rel {srel:.2e} (tol {tol}, dw {dw_tol}); "
-        f"backward path "
+        f"forward path {fplan['path']}, {fplan['blocks']} blocks; backward path "
         f"{plan['path']}, {plan['blocks']} blocks; dw bit for bit across "
         f"two calls")
     if card is None:
@@ -2814,6 +2880,14 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
     composed = (cuda_ms(lambda: TL._rms(x, w, eps)),
                 cuda_ms(lambda: torch.autograd.grad(
                     yc, (xc, wc), yc.detach(), retain_graph=True)))
+    # a warm call's host time (the wrapper's checks and the launch, the grid
+    # from the occupancy kept in the library)
+    torch.cuda.synchronize()
+    host = {"rms_norm_fwd": host_overhead_ms(lambda: RN.rms_norm_fwd(x, w,
+                                                                    eps)),
+            "rms_norm_bwd": host_overhead_ms(lambda: RN.rms_norm_bwd(
+                x, w, rstd, dy))}
+    torch.cuda.synchronize()
     errs = {"rms_norm_fwd": rec["y"], "rms_norm_bwd": max(rec["dx"],
                                                           rec["dw"])}
     recs = {}
@@ -2824,20 +2898,21 @@ def check_rms_case(name, rows, H, dtype, eps, card=None):
             f"{flops} FLOP) kernel/bound {kern / bound:.1f}x  [{card}]")
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=lib, bound_ms=bound, bound_by=by,
-                           bytes=nbytes, flops=flops)
+                           bytes=nbytes, flops=flops, host_ms=host[kname])
     recs["rms_norm_bwd"].update(ms_autograd=full_bwd, dx_only_ms=dx_only,
                                 path=plan["path"], blocks=plan["blocks"],
                                 dw_max_abs_err=rec["dw"])
-    recs["rms_norm_fwd"]["composed_fwd_bwd_ms"] = composed
+    recs["rms_norm_fwd"].update(composed_fwd_bwd_ms=composed,
+                                path=fplan["path"], blocks=fplan["blocks"])
     log(f"{name}: the backward (dx and dw, one launch) "
-        f"{times['rms_norm_bwd'][0]:.4f} ms beside the dx kernel plus "
-        f"composed dw's 0.3481 at 8192 x 2048 (PERF.md), autograd of "
-        f"F.rms_norm "
+        f"{times['rms_norm_bwd'][0]:.4f} ms, autograd of F.rms_norm "
         f"{times['rms_norm_bwd'][2]:.4f}, bound "
         f"{bounds['rms_norm_bwd'][0]:.4f}; through the autograd Function "
         f"{full_bwd:.4f}; the dx-only kernels {dx_only:.4f}; the dense "
         f"form's composed _rms forward {composed[0]:.4f} ms, its autograd "
-        f"backward {composed[1]:.4f} ms  [{card}]")
+        f"backward {composed[1]:.4f} ms; a warm call's host time: forward "
+        f"{host['rms_norm_fwd']:.4f} ms, backward "
+        f"{host['rms_norm_bwd']:.4f} ms  [{card}]")
     return recs
 
 
@@ -3635,7 +3710,8 @@ def padded_train_phase(card):
     def step():
         return bert_step(model, params, buffers, opt, state, t)
     want = dict(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
-                flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, fused_adam=77)
+                layer_norm_bwd_sums=2 * L + 2, flash_fwd=L, flash_bwd_dq=L,
+                flash_bwd_dkv=L, fused_adam=77)
     rec = timed_steps(step, want, B * S, flops / (B * S), card,
                       "BERT-base padded", reset=reset_bert_counts,
                       read=bert_counts, collect=True)
@@ -4220,19 +4296,32 @@ def primitives_phase(card):
 
     # 4. timed against bound, plain and one library call
     recs = {"launches": launches, "cold_nvcc_s": builds}
+    one = torch.ones((), dtype=a.dtype, device=DEV)
+    lib_mul_add = torch.addcmul(one, a, b)
+    lib_err, lib_rel = _rel_err(lib_mul_add, outs["mul_add"])
+    log(f"torch.addcmul(one, a, b) against the generated a * b + 1: "
+        f"max_abs_err {lib_err:.3e} rel {lib_rel:.3e}")
+    require(lib_mul_add.shape == a.shape and lib_rel <= PRIM_TOL[a.dtype],
+            "the addcmul yardstick does not compute a * b + 1")
+    del lib_mul_add
     for name, (fn, xs) in ew.items():
         kern = cuda_ms(lambda: PR.elementwise(fn, *xs),
                        sleep=PRIM_SLEEP_CYCLES)
         plain = cuda_ms(lambda: PR.elementwise_plain(fn, xs, xs[0].dtype))
+        # one PyTorch call each: the tanh GELU; a * b + 1 as addcmul of a
+        # 0-d one (rounded once, as the generated kernel)
         lib = (cuda_ms(lambda: F_.gelu(xs[0], approximate="tanh"))
-               if name == "gelu_tanh" else None)
+               if name == "gelu_tanh" else
+               cuda_ms(lambda: torch.addcmul(one, xs[0], xs[1])))
         n_ops = len(CG.trace(fn, len(xs)).nodes)
         nbytes = sum(x.numel() * x.element_size() for x in xs) \
             + xs[0].numel() * xs[0].element_size()
         recs[name] = prim_rec(f"elementwise {name} {tuple(xs[0].shape)} "
                               f"bf16", errs[name], kern, plain, lib, nbytes,
                               n_ops * xs[0].numel(), card,
-                              "F.gelu(approximate='tanh')")
+                              "F.gelu(approximate='tanh')"
+                              if name == "gelu_tanh" else
+                              "torch.addcmul(one, a, b), one 0-d")
         recs[name]["host_overhead_ms"] = host_overhead_ms(
             lambda: CG.library(srcs[name]()))
         log(f"elementwise {name}: a warm call's host work (trace, source, "
@@ -4276,17 +4365,15 @@ def primitives_phase(card):
             3 * x.numel() * 2 + h * 4 + 8 * R + 2 * h * 4,
             KPS_LN_FLOPS["bwd"] * x.numel(), card,
             "autograd of F.layer_norm: dx, dw, db")
-        # the ported LayerNorm's route (PERF.md row 8): the dx kernel, then
-        # the composed fp32 dw / db sums
-        row8 = cuda_ms(lambda: (LN.layer_norm_bwd_dx(x, g, mu, rstd, dy),
-                                LN._dw_db(LN._xhat(x, mu, rstd), dy.float(),
-                                          True)))
+        # the ported LayerNorm's backward (PERF.md row 8): dx, dw and db in
+        # one cooperative launch
+        row8 = cuda_ms(lambda: LN.layer_norm_bwd(x, g, mu, rstd, dy))
         bwd["row8_route_ms"] = row8
         bwd["dg_db_max_abs_err"] = max(errs[f"layer_norm {tag} dg"],
                                        errs[f"layer_norm {tag} db"])
-        log(f"layer_norm {tag}: the ported LayerNorm's backward (dx kernel + "
-            f"composed fp32 dw / db sums) {row8:.4f} ms against the "
-            f"in-kernel sums' {bwd['ms']:.4f} ms")
+        log(f"layer_norm {tag}: the ported LayerNorm's backward (dx, dw, db "
+            f"in one launch) {row8:.4f} ms against this kernel's "
+            f"{bwd['ms']:.4f} ms")
         recs[f"ln_fwd_{tag}"], recs[f"ln_bwd_{tag}"] = fwd, bwd
     del x_ffn, a, b, logits, outs, ln_cases
     torch.cuda.empty_cache()
@@ -4300,14 +4387,14 @@ def fp16_phase(card):
     h16 = torch.float16
     recs = {}
     rows_16 = bert_batch(BERT_SEQS[0], 8)["ids"].shape[0] * BERT_SEQ
-    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES)
+    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd.LAUNCHES)
     recs["layer_norm"] = check_ln_case(
         f"(fp16) rows {rows_16} x 768, eps 1e-12, bias", rows_16, 768, h16,
         1e-12, True, card)
     check_ln_case("(fp16) rows 13 x 100 (no 16-byte words)", 13, 100, h16,
                   1e-5, False)
     require(LN.layer_norm_fwd.LAUNCHES > n[0]
-            and LN.layer_norm_bwd_dx.LAUNCHES > n[1], "fp16 LayerNorm launches")
+            and LN.layer_norm_bwd.LAUNCHES > n[1], "fp16 LayerNorm launches")
     R, H = LLAMA_BATCH * LLAMA_SEQ, LLAMA["hidden_size"]
     n = (RN.rms_norm_fwd.LAUNCHES, RN.rms_norm_bwd.LAUNCHES)
     recs["rms_norm"] = check_rms_case(f"(fp16) rows {R} x {H}, eps 1e-5", R,
@@ -4405,7 +4492,7 @@ def fp16_phase(card):
     state = opt.init_state(p16)
     qk = [torch.randn(2, 256, hh, 128, generator=gen, device=DEV).to(
         h16).requires_grad_(True) for hh in (16, 4)]
-    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
+    for fn in (LN.layer_norm_fwd, LN.layer_norm_bwd, RN.rms_norm_fwd,
                RN.rms_norm_bwd, RP.rope):
         fn.LAUNCHES = 0
     FAD.adam_update.LAUNCHES = 0
@@ -4418,11 +4505,11 @@ def fp16_phase(card):
     opt.apply(p16, {"w": torch.randn_like(p16["w"]) * 1e-3}, state)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.LAUNCHES for fn in (
-        LN.layer_norm_fwd, LN.layer_norm_bwd_dx, RN.rms_norm_fwd,
+        LN.layer_norm_fwd, LN.layer_norm_bwd, RN.rms_norm_fwd,
         RN.rms_norm_bwd, RP.rope, FAD.adam_update)}
     log(f"fp16 through nn.functional.layer_norm, nn.functional.rms_norm, "
         f"fused_rotary_position_embedding and AdamW.apply: launches {counts}")
-    require(counts == {"layer_norm_fwd": 1, "layer_norm_bwd_dx": 1,
+    require(counts == {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
                        "rms_norm_fwd": 1, "rms_norm_bwd": 1, "rope": 4,
                        "adam_update": 1}, f"fp16 entry launches {counts}")
     recs["entry_launches"] = counts
@@ -4736,7 +4823,13 @@ def main() -> int:
             replaces=f"paddle_tpu/kernels/pallas/layer_norm.py:{line}",
             launches=bert_main["launches_total"][name],
             **{k: ln["bf16"][name][k] for k in keys},
-            shape="x [5120, 768] bf16, fp32 weight and bias, eps 1e-12",
+            shape="x [5120, 768] bf16, fp32 weight and bias, eps 1e-12"
+                  + ("; dx, dw and db in one launch"
+                     if name == "layer_norm_bwd" else ""),
+            **({k: ln["bf16"][name][k] for k in (
+                "ms_autograd", "dx_only_ms", "path", "blocks", "host_ms",
+                "library_host_ms")}
+               if name == "layer_norm_bwd" else {}),
             fp32={k: ln["fp32"][name][k] for k in keys},
             rows_128={k: ln["rows_128"][name][k] for k in keys},
             bert=bert if name == "layer_norm_fwd" else None,
@@ -4755,8 +4848,9 @@ def main() -> int:
             shape="x [8192, 2048] bf16, fp32 weight, eps 1e-5",
             rows_4096_x_4096={k: rms["wide"][name][k] for k in keys},
             **({k: rms[name][k] for k in (
-                "ms_autograd", "dx_only_ms", "path", "blocks")}
-               if name == "rms_norm_bwd" else {}),
+                "ms_autograd", "dx_only_ms", "path", "blocks", "host_ms")}
+               if name == "rms_norm_bwd" else
+               {k: rms[name][k] for k in ("path", "blocks", "host_ms")}),
             llama=llama if name == "rms_norm_fwd" else None,
             llama_exactness=llama_exact if name == "rms_norm_fwd" else None,
             dense_loss=dense if name == "rms_norm_fwd" else None))

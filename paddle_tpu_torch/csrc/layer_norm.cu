@@ -1,4 +1,4 @@
-// LayerNorm forward and dx backward for Hopper (sm_90a).
+// LayerNorm forward and backward for Hopper (sm_90a).
 //
 // Replaces paddle_tpu/kernels/pallas/layer_norm.py `_ln_fwd` (kernel body
 // `_fwd_kernel`) and `_ln_bwd` (kernel body `_bwd_kernel`):
@@ -8,31 +8,65 @@
 //             rstd = rsqrt(var + eps); every step in fp32, one rounding to
 //             x's dtype; mean and rstd saved fp32 [rows] for the backward;
 //   backward  dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))
-//             with xhat = (x - mean) * rstd and dxhat = dy * w.
+//             with xhat = (x - mean) * rstd and dxhat = dy * w, and in
+//             the same launch dw = sum over rows of dy * xhat and
+//             db = sum over rows of dy (fp32 [H]).
 //
 // The weight and bias are fp32 [H] (the wrapper casts other dtypes), so fp32
-// affine parameters beside bf16 rows never promote the output. dw and db are
-// cross-row reductions left outside the kernel, as the JAX backward leaves
-// them to one XLA reduce. The Pallas kernel's [rows, 256] lane-replicated
-// statistics are TPU tiling; here they are [rows].
+// affine parameters beside bf16 rows never promote the output. The Pallas
+// kernel's [rows, 256] lane-replicated statistics are TPU tiling; here they
+// are [rows].
 //
 // TPU -> Hopper. The Pallas grid walks blocks of ~2 MB of rows in VMEM, with
 // a masked edge block. Here (helpers in norm_common.cuh) one warp owns one
 // row (8 rows per 256-thread block, any row count: a block's warps past the
 // last row exit), reads the row in 16-byte words when H allows it (H a
-// multiple of 8 for bf16 and fp16, of 4 for fp32, 16-byte aligned bases) and one
-// element a lane otherwise, and reduces its fp32 sums with warp shuffles: no
-// shared memory and no block barrier.
-// Any H: the composed path takes every width, so the kernel does too.
+// multiple of 8 for bf16 and fp16, of 4 for fp32, 16-byte aligned bases) and
+// one element a lane otherwise, and reduces its fp32 sums with warp shuffles:
+// no shared memory and no block barrier. Any H.
+//
+// The backward with dw and db: the JAX backward leaves
+// dw = sum over rows of dy * xhat and db = sum over rows of dy (fp32 [H],
+// db only with a bias) to one XLA reduce; here they are summed inside the
+// launch that forms dx, on the design of rms_norm.cu's dw backward: one
+// cooperative launch of G blocks (the blocks the card holds at once), each
+// owning a contiguous run of rows.
+// - Held rows (ln_bwd_held: whole aligned 16-byte words, at most kHeldWords
+//   a lane: bf16 and fp16 H <= 2048, fp32 H <= 1024): a lane owns the same
+//   columns in every row its warp walks, so it keeps its dw and db partials
+//   in registers across rows. The words a lane holds are a template
+//   argument (NW: 3 at BERT's bf16 H 768, so 24 dw and 24 db partials), and
+//   with it what the registers afford (Held<T, NW>): two row buffers (the
+//   next row's x, dy, mean and rstd load while the current row's dx is
+//   formed), the lane's weights held across rows, and two blocks an SM for
+//   narrow rows. The block's 8 warps add their partials into one partial in
+//   shared memory in warp order.
+// - Other rows (ln_bwd_tiled, any width: no limit): steps of 16 rows, one
+//   warp a row for the row's two means, then the threads own 16-byte groups
+//   of columns across the step's rows (dx, and the columns' dw and db sums in
+//   registers) and add them to the block's partial row in a [G, W] fp32
+//   workspace (W = 2 H with a bias, H without), each column always by the
+//   same thread.
+// - The fold (norm_common.cuh fold_partials): after a grid-wide barrier,
+//   block j folds its own columns of dw and db over the G partials in a
+//   fixed order. No float atomics: two calls give the same bits. The two
+//   arrival counters are set back to 0 by the kernel.
+// A call that needs neither dw nor db (a frozen weight, no trainable bias)
+// takes the dx-only ln_bwd_kernel; a bias-less call writes no db; a frozen x
+// skips the dx stores (dx null).
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at x [5120, 768] bf16
+// with a bias the launch takes 0.0252 ms at two blocks an SM (0.0270 at
+// one; the dx kernel alone 0.0173) against the dx kernel plus composed
+// fp32 sums' 0.1153; at [41472, 768] 0.0840 (one block an SM 0.0993)
+// against 0.7995 (chip_smoke.py phase 15, profiler/kernels_ab.py).
 //
 // Bound on an H100 SXM (3.35 TB/s): a row reduction does ~8 FLOPs an element
-// against 4 bytes (bf16 in and out) or 6 (backward: x, dy in, dx out), so
-// bytes bound both. At the BERT-base step's rows (x [5120, 768] bf16) the
-// forward must move 7.9 MB, ~0.0024 ms, and the backward 11.8 MB, ~0.0035 ms.
-// This first design reads the row from device memory once per pass (three in
-// the forward, two in the backward); the repeated reads of a 1.5 KB row come
-// from L1. Keeping the row in registers, and several rows per warp at small H,
-// are the next steps.
+// against 4 bytes (bf16 in and out) or 6 (backward: x, dy in, dx out; ~13
+// FLOPs an element with dw and db), so bytes bound both. At the BERT-base
+// step's rows (x [5120, 768] bf16) the forward must move 7.9 MB, ~0.0024 ms,
+// and the backward 11.8 MB, ~0.0035 ms. The forward reads the row from
+// device memory once per pass (three passes); the repeated reads of a 1.5 KB
+// row come from L1.
 
 #include "norm_common.cuh"
 
@@ -89,6 +123,241 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   });
 }
 
+// ---------------------------------------------------------------------------
+// the backward with dw and db summed in the kernel
+constexpr int kHeldWords = 8;                 // 16-byte words of a row a lane holds
+constexpr int kStepRows = 16;                 // the tiled path: rows a step
+constexpr int kTileThreads = 32 * kStepRows;  // one warp a row of the step
+
+// What a lane's registers afford at NW words of a held row (N elements a
+// word): two row buffers of x and dy take 16 registers a word, the dw and db
+// partials 2 N, the weights N. Narrow rows run two blocks an SM (at most 128
+// registers a thread).
+template <typename T, int NW>
+struct Held {
+  static constexpr int N = 16 / sizeof(T);
+  static constexpr int kMinBlocks = NW * (16 + 2 * N) <= 96 ? 2 : 1;
+  static constexpr int kBudget = kMinBlocks == 2 ? 96 : 168;
+  static constexpr bool kHoldW = NW * (16 + 3 * N) <= kBudget;
+  static constexpr bool kTwoBuf = kHoldW || NW * (16 + 2 * N) <= kBudget;
+};
+
+// The held row: a warp walks rows r0 + warp, r0 + warp + 8, ... of its
+// block's run, word j * 32 + lane of each row in buf[j]. The partials go to
+// sums' layout: dw at [0, H) when dw_on, db at [db_off, db_off + H) when
+// db_off >= 0, W columns in all; dx may be null (x frozen).
+template <typename T, int NW>
+__global__ void __launch_bounds__(kThreads, (Held<T, NW>::kMinBlocks))
+ln_bwd_held(const T* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ mean, const float* __restrict__ rstd,
+            const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ sums, float* part,
+            unsigned* sync, long long rows, int H, long long rows_per_block, int dw_on,
+            int db_off, int W) {
+  using P = Held<T, NW>;
+  constexpr int N = P::N;
+  extern __shared__ float4 blk4[];  // [W / 4]: the block's partial
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = H / N;
+  float gw[NW][N], gb[NW][N];
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int k = 0; k < N; ++k) gw[j][k] = gb[j][k] = 0.f;
+  float wv[P::kHoldW ? NW : 1][N];
+  if constexpr (P::kHoldW) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) load_w<N>(w + (j * 32 + lane) * N, wv[j]);
+  }
+  auto weights = [&](int j, float (&out)[N]) {
+    if constexpr (P::kHoldW) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) out[k] = wv[j][k];
+    } else {
+      load_w<N>(w + (j * 32 + lane) * N, out);
+    }
+  };
+  auto load = [&](uint4 (&bx)[NW], uint4 (&bd)[NW], float2& st, long long row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+    const uint4* dyr = reinterpret_cast<const uint4*>(dy + row * H);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int wi = j * 32 + lane;
+      if (wi < nw) {
+        bx[j] = __ldg(xr + wi);
+        bd[j] = __ldg(dyr + wi);
+      }
+    }
+    st = make_float2(__ldg(mean + row), __ldg(rstd + row));
+  };
+  auto work = [&](const uint4 (&bx)[NW], const uint4 (&bd)[NW], float2 st, long long row) {
+    const float mu = st.x, rs = st.y;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j * 32 + lane < nw) {
+        float xv[N], dv[N], wl[N], p1 = 0.f, p2 = 0.f;
+        unpack_word<T>(bx[j], xv);
+        unpack_word<T>(bd[j], dv);
+        weights(j, wl);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float xhat = (xv[k] - mu) * rs;
+          const float dxhat = dv[k] * wl[k];
+          p1 += dxhat;
+          p2 += dxhat * xhat;
+          gw[j][k] += dv[k] * xhat;
+          gb[j][k] += dv[k];
+        }
+        s1 += p1;  // a partial a word: the words' chains run side by side
+        s2 += p2;
+      }
+    }
+    if (dx == nullptr) return;
+    const float m1 = warp_sum(s1) / H, m2 = warp_sum(s2) / H;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * H);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int wi = j * 32 + lane;
+      if (wi < nw) {
+        float xv[N], dv[N], wl[N], o[N];
+        unpack_word<T>(bx[j], xv);
+        unpack_word<T>(bd[j], dv);
+        weights(j, wl);
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          o[k] = rs * (dv[k] * wl[k] - m1 - (xv[k] - mu) * rs * m2);
+        dxr[wi] = pack_word<T>(o);
+      }
+    }
+  };
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  long long row = r0 + warp;
+  if constexpr (P::kTwoBuf) {
+    uint4 ax[NW], ad[NW], bx[NW], bd[NW];
+    float2 as, bs;
+    if (row < r1) load(ax, ad, as, row);
+    for (; row < r1; row += 2 * kWarps) {
+      const long long next = row + kWarps;
+      if (next < r1) load(bx, bd, bs, next);
+      work(ax, ad, as, row);
+      if (next >= r1) break;
+      if (next + kWarps < r1) load(ax, ad, as, next + kWarps);
+      work(bx, bd, bs, next);
+    }
+  } else {
+    uint4 ax[NW], ad[NW];
+    float2 as;
+    for (; row < r1; row += kWarps) {
+      load(ax, ad, as, row);
+      work(ax, ad, as, row);
+    }
+  }
+  // the warps' partials into the block's, in warp order (every warp covers
+  // every column: word j * 32 + lane of a row is this lane's in all of them)
+  for (int wp = 0; wp < kWarps; ++wp) {
+    if (warp == wp) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int wi = j * 32 + lane;
+        if (wi < nw) {
+#pragma unroll
+          for (int k = 0; k < N; k += 4) {
+            const int c = (wi * N + k) / 4;
+            if (dw_on) {
+              const float4 v = make_float4(gw[j][k], gw[j][k + 1], gw[j][k + 2], gw[j][k + 3]);
+              float4& d = blk4[c];
+              d = wp == 0 ? v : make_float4(d.x + v.x, d.y + v.y, d.z + v.z, d.w + v.w);
+            }
+            if (db_off >= 0) {
+              const float4 v = make_float4(gb[j][k], gb[j][k + 1], gb[j][k + 2], gb[j][k + 3]);
+              float4& d = blk4[db_off / 4 + c];
+              d = wp == 0 ? v : make_float4(d.x + v.x, d.y + v.y, d.z + v.z, d.w + v.w);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float4* mine = reinterpret_cast<float4*>(part + static_cast<size_t>(blockIdx.x) * W);
+  for (int c = threadIdx.x; c < W / 4; c += kThreads) mine[c] = blk4[c];
+  fold_partials<kThreads>(part, sums, sync, W);
+}
+
+// any width: steps of kStepRows rows, the column-tiled partial in
+// part[blockIdx.x] (V elements a thread a group: a 16-byte word, or one)
+template <typename T, int V>
+__global__ void __launch_bounds__(kTileThreads, 1)
+ln_bwd_tiled(const T* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ mean, const float* __restrict__ rstd,
+             const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ sums, float* part,
+             unsigned* sync, long long rows, int H, long long rows_per_block, int dw_on,
+             int db_off, int W) {
+  __shared__ float s_mu[kStepRows], s_rs[kStepRows], s_m1[kStepRows], s_m2[kStepRows];
+  const int warp = threadIdx.x / 32;
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  float* mine = part + static_cast<size_t>(blockIdx.x) * W;
+  if (r0 >= r1)
+    for (int c = threadIdx.x; c < W; c += kTileThreads) mine[c] = 0.f;
+  for (long long base = r0; base < r1; base += kStepRows) {
+    const long long r = base + warp;
+    if (r < r1) {  // one warp a row: the row's two means
+      const float mu = mean[r], rs = rstd[r];
+      float s1 = 0.f, s2 = 0.f;
+      walk(x + r * H, dy + r * H, H, V > 1, [&](int i, float xv, float dyv) {
+        const float dxhat = dyv * __ldg(w + i);
+        s1 += dxhat;
+        s2 += dxhat * ((xv - mu) * rs);
+      });
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (threadIdx.x % 32 == 0) {
+        s_mu[warp] = mu;
+        s_rs[warp] = rs;
+        s_m1[warp] = s1 / H;
+        s_m2[warp] = s2 / H;
+      }
+    }
+    __syncthreads();
+    const int nr = static_cast<int>(min(static_cast<long long>(kStepRows), r1 - base));
+    for (int cg = threadIdx.x; cg < H / V; cg += kTileThreads) {
+      const int c0 = cg * V;
+      float wv[V], g[V], b[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        wv[k] = __ldg(w + c0 + k);
+        g[k] = b[k] = 0.f;
+      }
+      for (int j = 0; j < nr; ++j) {
+        const long long off = (base + j) * H + c0;
+        const float mu = s_mu[j], rs = s_rs[j], m1 = s_m1[j], m2 = s_m2[j];
+        float xv[V], dv[V], o[V];
+        load_v<V>(x + off, xv);
+        load_v<V>(dy + off, dv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float xhat = (xv[k] - mu) * rs;
+          o[k] = rs * (dv[k] * wv[k] - m1 - xhat * m2);
+          g[k] += dv[k] * xhat;
+          b[k] += dv[k];
+        }
+        if (dx != nullptr) store_v<V>(dx + off, o);
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (dw_on) mine[c0 + k] = base == r0 ? g[k] : mine[c0 + k] + g[k];
+        if (db_off >= 0)
+          mine[db_off + c0 + k] = base == r0 ? b[k] : mine[db_off + c0 + k] + b[k];
+      }
+    }
+    __syncthreads();
+  }
+  fold_partials<kTileThreads>(part, sums, sync, W);
+}
+
 template <typename T>
 int fwd(const void* x, const void* w, const void* b, void* y, void* mean, void* rstd,
         long long rows, int H, float eps, cudaStream_t st) {
@@ -111,6 +380,78 @@ int bwd(const void* x, const void* w, const void* mean, const void* rstd, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ln_bwd_held<T, words> for 1 <= words <= kHeldWords
+template <typename T, int NW = 1>
+const void* held_kernel(int words) {
+  if constexpr (NW > kHeldWords) {
+    return nullptr;
+  } else {
+    if (words == NW) return reinterpret_cast<const void*>(ln_bwd_held<T, NW>);
+    return held_kernel<T, NW + 1>(words);
+  }
+}
+
+// The dw / db backward's route and grid: the held row or the column-tiled
+// partial, and G, the blocks the card holds at once for that kernel. Shapes
+// and alignment only: the launch and the wrapper's workspace ([G, W] fp32)
+// agree on it.
+struct BwdPlan {
+  bool held;
+  int blocks, threads;
+  long long rows_per_block;
+  size_t smem;
+  const void* kernel;
+};
+
+template <typename T>
+int bwd_plan(long long rows, int H, bool aligned, int W, BwdPlan& p) {
+  constexpr int n = 16 / sizeof(T);
+  const bool vec = H % n == 0 && aligned;
+  const int words = (H / n + 31) / 32;
+  p.held = vec && words <= kHeldWords;
+  if (p.held) {
+    p.kernel = held_kernel<T>(words);
+    p.threads = kThreads;
+    p.smem = sizeof(float) * static_cast<size_t>(W);
+  } else {
+    p.kernel = vec ? reinterpret_cast<const void*>(ln_bwd_tiled<T, n>)
+                   : reinterpret_cast<const void*>(ln_bwd_tiled<T, 1>);
+    p.threads = kTileThreads;
+    p.smem = 0;
+  }
+  return coop_grid(p.kernel, p.threads, p.smem, rows, p.held ? kWarps : kStepRows, p.blocks,
+                   p.rows_per_block);
+}
+
+template <typename T>
+int bwd_sums(const void* x, const void* w, const void* mean, const void* rstd, const void* dy,
+             void* dx, void* sums, void* part, void* sync, long long rows, int H, bool need_dw,
+             bool need_db, int part_rows, cudaStream_t st) {
+  const bool aligned = aligned16(x) && aligned16(dy) && (dx == nullptr || aligned16(dx)) &&
+                       aligned16(w);
+  int W = H * (need_dw + need_db);
+  BwdPlan p{};
+  const int err = bwd_plan<T>(rows, H, aligned, W, p);
+  if (err != 0) return err;
+  if (p.blocks > part_rows || sums == nullptr || part == nullptr || sync == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  const float* mt = static_cast<const float*>(mean);
+  const float* rt = static_cast<const float*>(rstd);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  float* st_ = static_cast<float*>(sums);
+  float* pt = static_cast<float*>(part);
+  unsigned* syt = static_cast<unsigned*>(sync);
+  long long rpb = p.rows_per_block;
+  int dw_on = need_dw ? 1 : 0, db_off = need_db ? (need_dw ? H : 0) : -1;
+  void* args[] = {&xt, &wt, &mt, &rt, &dyt, &dxt, &st_, &pt, &syt, &rows, &H, &rpb,
+                  &dw_on, &db_off, &W};
+  return static_cast<int>(cudaLaunchCooperativeKernel(p.kernel, dim3(p.blocks), dim3(p.threads),
+                                                      args, p.smem, st));
+}
+
 }  // namespace
 
 extern "C" {
@@ -128,15 +469,52 @@ int ptt_layer_norm_fwd(const void* x, const void* w, const void* b, void* y, voi
   });
 }
 
-// dx [rows, H] in dtype from x and dy (contiguous, same dtype), fp32 w [H]
-// and the forward's fp32 mean and rstd [rows]. Same return codes.
+// The backward: dx [rows, H] in dtype from x and dy (contiguous, same
+// dtype), fp32 w [H] and the forward's fp32 mean and rstd [rows]; and, in the
+// same launch, dw = sum over rows of dy * xhat when need_dw and db = sum over
+// rows of dy when need_db, into fp32 sums [W] (dw at [0, H), then db; W = H
+// times the sums asked for), through part (fp32 [part_rows, W], part_rows at
+// least ptt_layer_norm_bwd_plan's blocks) and sync (two uint32, zero before
+// the call and left zero; calls that share them run on one stream). dx may
+// be null when a sum is asked for (x needs no gradient); with neither sum,
+// the dx-only kernel runs. Same return codes; the cooperative launch's own
+// error when the grid cannot be resident.
 int ptt_layer_norm_bwd(const void* x, const void* w, const void* mean, const void* rstd,
-                       const void* dy, void* dx, long long rows, int H, int dtype,
-                       void* stream) {
-  if (rows <= 0 || H <= 0) return 0;
+                       const void* dy, void* dx, void* sums, void* part, void* sync,
+                       long long rows, int H, int need_dw, int need_db, int part_rows,
+                       int dtype, void* stream) {
+  if (H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = H * ((need_dw != 0) + (need_db != 0));
+  if (W > 0 && rows <= 0) {
+    if (sums == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaMemsetAsync(sums, 0, sizeof(float) * W, st));
+  }
+  if (rows <= 0) return 0;
+  if (W == 0 && dx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return by_dtype(dtype, [&](auto tag) {
-    return bwd<typename decltype(tag)::type>(x, w, mean, rstd, dy, dx, rows, H, st);
+    using T = typename decltype(tag)::type;
+    if (W == 0) return bwd<T>(x, w, mean, rstd, dy, dx, rows, H, st);
+    return bwd_sums<T>(x, w, mean, rstd, dy, dx, sums, part, sync, rows, H, need_dw != 0,
+                       need_db != 0, part_rows, st);
+  });
+}
+
+// The dw / db backward's plan for these shapes (no data is read): out[0] 1
+// for the held row, 0 for the column-tiled partial; out[1] the blocks G, the
+// rows of the part workspace. aligned: x, dy, dx and w all 16-byte
+// aligned.
+int ptt_layer_norm_bwd_plan(long long rows, int H, int dtype, int aligned, int need_dw,
+                            int need_db, int* out) {
+  const int W = H * ((need_dw != 0) + (need_db != 0));
+  if (H <= 0 || W == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_dtype(dtype, [&](auto tag) {
+    BwdPlan p{};
+    const int err = bwd_plan<typename decltype(tag)::type>(std::max(rows, 1LL), H, aligned != 0,
+                                                           W, p);
+    out[0] = p.held ? 1 : 0;
+    out[1] = p.blocks;
+    return err;
   });
 }
 

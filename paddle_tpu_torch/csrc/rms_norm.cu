@@ -20,8 +20,21 @@
 // 16-byte aligned bases) and fits kCacheWords words a lane (bf16 and fp16
 // H <= 2048, fp32 H <= 1024), the warp keeps it in registers: the forward
 // reads x once and writes y once, the backward reads x and dy once and
-// writes dx once (x and dy together are 16 words, 64 registers, a lane at
-// bf16 H 2048). Other widths read the row again for the second pass.
+// writes dx once. Other widths read the row again for the second pass
+// (rms_fwd_kernel, rms_bwd_kernel).
+//
+// The forward's held row (rms_fwd_held): a persistent grid of the
+// blocks the card holds at once; each warp walks rows with the grid's warp
+// count as its stride, holds its columns' fp32 weights in registers (loaded
+// once a warp, where the first design read two float4 of weights for every
+// 16-byte word of x) and keeps two row buffers, so the next row's load is in
+// flight while this row is normalised and stored. The row's words are a
+// template argument (NW <= kCacheWords a lane), so a narrow row holds only
+// the registers it needs. 16-bit words are rounded two elements at a time.
+// The first design (one row a warp, then the warp exits: every warp loads,
+// reduces, stores, with no overlap of its own reads and writes) took 0.0344
+// ms at x [8192, 2048] bf16 and 0.0294 in fp16; this one 0.0296 in both
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phases 19 and 32, PERF.md).
 //
 // The backward with dw (rms_bwd_dw_*): one cooperative launch of G blocks,
 // G the blocks the card holds at once (one an SM for the held row), each
@@ -38,11 +51,10 @@
 //   the step's rows (dx, and the columns' dw sums in registers) and add them
 //   to the block's [H] partial in device memory, each column always by the
 //   same thread: a column-tiled partial with no width limit.
-// - The fold, spread over the grid: after a grid-wide barrier (an arrival
-//   counter; the cooperative launch guarantees every block is resident),
-//   block j folds its own H / G columns over the G partials, 8 columns at a
-//   time with the partials split over the block's threads, in a fixed
-//   order. No float atomics: two calls give dw bit for bit.
+// - The fold (norm_common.cuh fold_partials, shared with layer_norm.cu):
+//   after a grid-wide barrier, block j folds its own H / G columns over the
+//   G partials in a fixed order. No float atomics: two calls give dw bit for
+//   bit.
 // A call that needs no dw (a frozen weight) takes the dx-only kernels
 // (rms_bwd_cached, rms_bwd_kernel): a null dw pointer selects them.
 // Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at x [8192, 2048] bf16
@@ -57,8 +69,6 @@
 // 2048] bf16) the forward must move 67.1 MB, ~0.020 ms, and the backward
 // 100.7 MB, ~0.030 ms.
 
-#include <algorithm>
-
 #include "norm_common.cuh"
 
 using namespace ptt_norm;
@@ -67,62 +77,66 @@ namespace {
 
 constexpr int kCacheWords = 8;  // 16-byte words of a row a lane holds
 
-// N consecutive fp32 weights from a 16-byte aligned address
-template <int N>
-__device__ __forceinline__ void load_w(const float* __restrict__ w, float (&out)[N]) {
-#pragma unroll
-  for (int k = 0; k < N; k += 4) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(w + k));
-    out[k] = f.x;
-    out[k + 1] = f.y;
-    out[k + 2] = f.z;
-    out[k + 3] = f.w;
-  }
-}
-
-// the row held in registers: H / N words, word j * 32 + lane in buf[j]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rms_fwd_cached(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-               float* __restrict__ rstd_out, long long rows, int H, float eps) {
+// the forward's held row: a persistent grid of kFwdWarps-warp blocks (small
+// blocks, so the registers of 168 a thread at bf16 H 2048 still admit three
+// blocks an SM), warp gw walking rows gw, gw + TW, ... (TW the grid's warps),
+// NW words a lane (word j * 32 + lane in buf[j]), the lane's weights in
+// registers, two row buffers; the sum of squares one partial a word, so the
+// words' chains run side by side
+constexpr int kFwdWarps = 4;
+template <typename T, int NW>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+rms_fwd_held(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
+             float* __restrict__ rstd_out, long long rows, int H, float eps) {
   constexpr int N = 16 / sizeof(T);
-  const long long row = blockIdx.x * static_cast<long long>(kWarps) + threadIdx.x / 32;
-  if (row >= rows) return;  // the whole warp: no barrier follows
   const int lane = threadIdx.x % 32;
   const int nw = H / N;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
-  uint4 buf[kCacheWords];
-  float ss = 0.f;
+  const long long tw = static_cast<long long>(gridDim.x) * kFwdWarps;
+  float wv[NW][N];
 #pragma unroll
-  for (int j = 0; j < kCacheWords; ++j) {
-    const int wi = j * 32 + lane;
-    if (wi < nw) {
-      buf[j] = __ldg(xr + wi);
-      const T* v = reinterpret_cast<const T*>(&buf[j]);
+  for (int j = 0; j < NW; ++j)
+    if (j * 32 + lane < nw) load_w<N>(w + (j * 32 + lane) * N, wv[j]);
+  auto load = [&](uint4 (&buf)[NW], long long row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        const float f = to_f32(v[k]);
-        ss += f * f;
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) buf[j] = __ldg(xr + j * 32 + lane);
+  };
+  auto work = [&](const uint4 (&buf)[NW], long long row) {
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        float f[N], part = 0.f;
+        unpack_word<T>(buf[j], f);
+#pragma unroll
+        for (int k = 0; k < N; ++k) part += f[k] * f[k];
+        ss += part;
       }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / H + eps);
-  uint4* yr = reinterpret_cast<uint4*>(y + row * H);
+    const float rstd = rsqrtf(warp_sum(ss) / H + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * H);
 #pragma unroll
-  for (int j = 0; j < kCacheWords; ++j) {
-    const int wi = j * 32 + lane;
-    if (wi < nw) {
-      const T* v = reinterpret_cast<const T*>(&buf[j]);
-      float wv[N];
-      load_w<N>(w + wi * N, wv);
-      uint4 ro;
-      T* vo = reinterpret_cast<T*>(&ro);
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        float f[N];
+        unpack_word<T>(buf[j], f);
 #pragma unroll
-      for (int k = 0; k < N; ++k) vo[k] = from_f32<T>(to_f32(v[k]) * rstd * wv[k]);
-      yr[wi] = ro;
-    }
+        for (int k = 0; k < N; ++k) f[k] = f[k] * rstd * wv[j][k];
+        yr[j * 32 + lane] = pack_word<T>(f);
+      }
+    if (lane == 0) rstd_out[row] = rstd;
+  };
+  uint4 a[NW], b[NW];
+  long long row = blockIdx.x * static_cast<long long>(kFwdWarps) + threadIdx.x / 32;
+  if (row < rows) load(a, row);
+  for (; row < rows; row += 2 * tw) {
+    const long long next = row + tw;
+    if (next < rows) load(b, next);
+    work(a, row);
+    if (next >= rows) break;
+    if (next + tw < rows) load(a, next + tw);
+    work(b, next);
   }
-  if (lane == 0) rstd_out[row] = rstd;
 }
 
 template <typename T>
@@ -160,12 +174,12 @@ rms_bwd_cached(const T* __restrict__ x, const float* __restrict__ w,
     if (wi < nw) {
       bx[j] = __ldg(xr + wi);
       bd[j] = __ldg(dyr + wi);
-      const T* vx = reinterpret_cast<const T*>(&bx[j]);
-      const T* vd = reinterpret_cast<const T*>(&bd[j]);
-      float wv[N];
+      float vx[N], vd[N], wv[N];
+      unpack_word<T>(bx[j], vx);
+      unpack_word<T>(bd[j], vd);
       load_w<N>(w + wi * N, wv);
 #pragma unroll
-      for (int k = 0; k < N; ++k) dot += to_f32(vd[k]) * wv[k] * to_f32(vx[k]);
+      for (int k = 0; k < N; ++k) dot += vd[k] * wv[k] * vx[k];
     }
   }
   const float rs = rstd[row];
@@ -175,16 +189,13 @@ rms_bwd_cached(const T* __restrict__ x, const float* __restrict__ w,
   for (int j = 0; j < kCacheWords; ++j) {
     const int wi = j * 32 + lane;
     if (wi < nw) {
-      const T* vx = reinterpret_cast<const T*>(&bx[j]);
-      const T* vd = reinterpret_cast<const T*>(&bd[j]);
-      float wv[N];
+      float vx[N], vd[N], wv[N], o[N];
+      unpack_word<T>(bx[j], vx);
+      unpack_word<T>(bd[j], vd);
       load_w<N>(w + wi * N, wv);
-      uint4 ro;
-      T* vo = reinterpret_cast<T*>(&ro);
 #pragma unroll
-      for (int k = 0; k < N; ++k)
-        vo[k] = from_f32<T>(rs * (to_f32(vd[k]) * wv[k]) - c * to_f32(vx[k]));
-      dxr[wi] = ro;
+      for (int k = 0; k < N; ++k) o[k] = rs * (vd[k] * wv[k]) - c * vx[k];
+      dxr[wi] = pack_word<T>(o);
     }
   }
 }
@@ -211,53 +222,6 @@ rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // the backward with dw summed in the kernel
 constexpr int kStepRows = 16;                 // the tiled path: rows a step
 constexpr int kTileThreads = 32 * kStepRows;  // one warp a row of the step
-
-// Every block has written its [H] partial to part[blockIdx.x]. A grid-wide
-// barrier (sync[0] counts arrivals), then block j folds columns [j cpb,
-// (j + 1) cpb): 8 columns at a time, thread t summing partials t / 8,
-// t / 8 + kBlock / 8, ... of column t % 8 in order, then the lanes by
-// shuffles and the warps in order, so the order is fixed. sync[1] counts
-// departures: the last block out sets both counters back to 0.
-template <int kBlock>
-__device__ __forceinline__ void fold_partials(const float* part, float* __restrict__ dw,
-                                              unsigned* sync, int H) {
-  __shared__ float red[kBlock / 32][8];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(&sync[0], 1u);
-    while (atomicAdd(&sync[0], 0u) < gridDim.x) __nanosleep(100);
-  }
-  __syncthreads();
-  __threadfence();
-  constexpr int kQ = kBlock / 8;
-  const int G = gridDim.x;
-  const int cpb = ((H + 7) / 8 + G - 1) / G * 8;
-  const int c_begin = blockIdx.x * cpb, c_end = min(H, c_begin + cpb);
-  const int cl = threadIdx.x % 8, kq = threadIdx.x / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c8 = c_begin; c8 < c_end; c8 += 8) {
-    const int col = c8 + cl;
-    float s = 0.f;
-    if (col < c_end)
-      for (int k = kq; k < G; k += kQ) s += __ldcg(part + static_cast<size_t>(k) * H + col);
-    s += __shfl_xor_sync(0xffffffffu, s, 8);
-    s += __shfl_xor_sync(0xffffffffu, s, 16);
-    if (lane < 8) red[warp][lane] = s;
-    __syncthreads();
-    if (threadIdx.x < 8 && c8 + threadIdx.x < c_end) {
-      float t = 0.f;
-#pragma unroll
-      for (int w = 0; w < kBlock / 32; ++w) t += red[w][threadIdx.x];
-      dw[c8 + threadIdx.x] = t;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0 && atomicAdd(&sync[1], 1u) == gridDim.x - 1) {
-    atomicExch(&sync[0], 0u);
-    atomicExch(&sync[1], 0u);
-  }
-}
 
 // the held row: rms_bwd_cached over a run of rows, each lane's dw partial
 // in registers; dx may be null (x frozen)
@@ -299,12 +263,12 @@ rms_bwd_dw_cached(const T* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kCacheWords; ++j) {
       const int wi = j * 32 + lane;
       if (wi < nw) {
-        const T* vx = reinterpret_cast<const T*>(&bx[j]);
-        const T* vd = reinterpret_cast<const T*>(&bd[j]);
-        float wv[N];
+        float vx[N], vd[N], wv[N];
+        unpack_word<T>(bx[j], vx);
+        unpack_word<T>(bd[j], vd);
         load_w<N>(w + wi * N, wv);
 #pragma unroll
-        for (int k = 0; k < N; ++k) dot += to_f32(vd[k]) * wv[k] * to_f32(vx[k]);
+        for (int k = 0; k < N; ++k) dot += vd[k] * wv[k] * vx[k];
       }
     }
     const float rs = rstd[row];
@@ -314,19 +278,17 @@ rms_bwd_dw_cached(const T* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kCacheWords; ++j) {
       const int wi = j * 32 + lane;
       if (wi < nw) {
-        const T* vx = reinterpret_cast<const T*>(&bx[j]);
-        const T* vd = reinterpret_cast<const T*>(&bd[j]);
+        float vx[N], vd[N];
+        unpack_word<T>(bx[j], vx);
+        unpack_word<T>(bd[j], vd);
 #pragma unroll
-        for (int k = 0; k < N; ++k) acc[j][k] += to_f32(vd[k]) * to_f32(vx[k]) * rs;
+        for (int k = 0; k < N; ++k) acc[j][k] += vd[k] * vx[k] * rs;
         if (dxr != nullptr) {
-          float wv[N];
+          float wv[N], o[N];
           load_w<N>(w + wi * N, wv);
-          uint4 ro;
-          T* vo = reinterpret_cast<T*>(&ro);
 #pragma unroll
-          for (int k = 0; k < N; ++k)
-            vo[k] = from_f32<T>(rs * (to_f32(vd[k]) * wv[k]) - c * to_f32(vx[k]));
-          dxr[wi] = ro;
+          for (int k = 0; k < N; ++k) o[k] = rs * (vd[k] * wv[k]) - c * vx[k];
+          dxr[wi] = pack_word<T>(o);
         }
       }
     }
@@ -428,19 +390,60 @@ bool fits_cache(int H, int n, bool vec, const void* w) {
   return vec && aligned16(w) && H / n <= 32 * kCacheWords;
 }
 
+// rms_fwd_held<T, words> for 1 <= words <= kCacheWords
+template <typename T, int NW = 1>
+const void* fwd_held_kernel(int words) {
+  if constexpr (NW > kCacheWords) {
+    return nullptr;
+  } else {
+    if (words == NW) return reinterpret_cast<const void*>(rms_fwd_held<T, NW>);
+    return fwd_held_kernel<T, NW + 1>(words);
+  }
+}
+
+// The forward's route and grid: the held row (a persistent grid of the blocks
+// the card holds at once, at most one a warp a row) for whole aligned 16-byte
+// words of at most kCacheWords a lane; else the walk (rms_fwd_kernel, one
+// warp a row). Shapes and alignment only.
+struct FwdPlan {
+  bool held;
+  int blocks;
+  const void* kernel;
+};
+
+template <typename T>
+int fwd_plan(long long rows, int H, bool aligned, FwdPlan& p) {
+  constexpr int n = 16 / sizeof(T);
+  const int words = (H / n + 31) / 32;
+  p.held = H % n == 0 && aligned && words <= kCacheWords;
+  p.kernel = p.held ? fwd_held_kernel<T>(words)
+                    : reinterpret_cast<const void*>(rms_fwd_kernel<T>);
+  if (!p.held) {
+    p.blocks = static_cast<int>(grid_for(rows).x);
+    return 0;
+  }
+  long long rpb = 0;
+  return coop_grid(p.kernel, 32 * kFwdWarps, 0, rows, kFwdWarps, p.blocks, rpb);
+}
+
 template <typename T>
 int fwd(const void* x, const void* w, void* y, void* rstd, long long rows, int H, float eps,
         cudaStream_t st) {
   constexpr int n = 16 / sizeof(T);  // elements per 16-byte word
   const bool vec = H % n == 0 && aligned16(x) && aligned16(y);
+  FwdPlan p{};
+  const int err = fwd_plan<T>(rows, H, vec && aligned16(w), p);
+  if (err != 0) return err;
   const T* xt = static_cast<const T*>(x);
   const float* wt = static_cast<const float*>(w);
   T* yt = static_cast<T*>(y);
   float* rt = static_cast<float*>(rstd);
-  if (fits_cache(H, n, vec, w))
-    rms_fwd_cached<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps);
-  else
-    rms_fwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps, vec);
+  if (p.held) {
+    void* args[] = {&xt, &wt, &yt, &rt, &rows, &H, &eps};
+    return static_cast<int>(
+        cudaLaunchKernel(p.kernel, dim3(p.blocks), dim3(32 * kFwdWarps), args, 0, st));
+  }
+  rms_fwd_kernel<T><<<p.blocks, kThreads, 0, st>>>(xt, wt, yt, rt, rows, H, eps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,24 +493,8 @@ int dw_plan(long long rows, int H, bool aligned, DwPlan& p) {
     p.threads = kTileThreads;
     p.smem = 0;
   }
-  if (p.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, p.kernel, p.threads, p.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long min_rows = p.held ? kWarps : kStepRows;
-  const long long want = std::max(1LL, (rows + min_rows - 1) / min_rows);
-  const long long g = std::min<long long>(static_cast<long long>(occ) * sms, want);
-  p.rows_per_block = std::max(1LL, (rows + g - 1) / g);
-  p.blocks = static_cast<int>(std::max(1LL, (rows + p.rows_per_block - 1) / p.rows_per_block));
-  return 0;
+  return coop_grid(p.kernel, p.threads, p.smem, rows, p.held ? kWarps : kStepRows, p.blocks,
+                   p.rows_per_block);
 }
 
 template <typename T>
@@ -572,6 +559,20 @@ int ptt_rms_norm_bwd(const void* x, const void* w, const void* rstd, const void*
     using T = typename decltype(tag)::type;
     if (dw == nullptr) return bwd<T>(x, w, rstd, dy, dx, rows, H, st);
     return bwd_dw<T>(x, w, rstd, dy, dx, dw, part, sync, rows, H, part_rows, st);
+  });
+}
+
+// The forward's plan for these shapes (no data is read): out[0] 1 for the
+// held row, 0 for the walk; out[1] the blocks. aligned: x, y and w all
+// 16-byte aligned.
+int ptt_rms_norm_fwd_plan(long long rows, int H, int dtype, int aligned, int* out) {
+  if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_dtype(dtype, [&](auto tag) {
+    FwdPlan p{};
+    const int err = fwd_plan<typename decltype(tag)::type>(std::max(rows, 1LL), H, aligned != 0, p);
+    out[0] = p.held ? 1 : 0;
+    out[1] = p.blocks;
+    return err;
   });
 }
 

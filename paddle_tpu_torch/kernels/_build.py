@@ -251,10 +251,15 @@ def load_library() -> ctypes.CDLL:
         "ptt_flash_plan": [ci] * 4 + [ctypes.POINTER(ci)],
         # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
-        # x, w, mean, rstd, dy, dx, rows, H, dtype, stream
-        "ptt_layer_norm_bwd": [vp] * 6 + [ll, ci, ci, vp],
+        # x, w, mean, rstd, dy, dx (or null), sums (or null), part, sync,
+        # rows, H, need_dw, need_db, part_rows, dtype, stream
+        "ptt_layer_norm_bwd": [vp] * 9 + [ll] + [ci] * 5 + [vp],
+        # rows, H, dtype, aligned, need_dw, need_db, out[2]
+        "ptt_layer_norm_bwd_plan": [ll] + [ci] * 5 + [ctypes.POINTER(ci)],
         # x, w, y, rstd, rows, H, eps, dtype, stream
         "ptt_rms_norm_fwd": [vp] * 4 + [ll, ci, cf, ci, vp],
+        # rows, H, dtype, aligned, out[2]
+        "ptt_rms_norm_fwd_plan": [ll, ci, ci, ci, ctypes.POINTER(ci)],
         # x, w, rstd, dy, dx (or null), dw (or null), part, sync, rows, H,
         # part_rows, dtype, stream
         "ptt_rms_norm_bwd": [vp] * 8 + [ll, ci, ci, ci, vp],

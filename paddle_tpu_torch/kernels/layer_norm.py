@@ -1,32 +1,42 @@
 """Fused LayerNorm, forward and backward (counterpart:
 ``paddle_tpu/kernels/pallas/layer_norm.py`` ``layer_norm``, the
 ``jax.custom_vjp`` ``_ln`` / ``_ln_fwd`` / ``_ln_bwd``, kernel bodies
-``_fwd_kernel`` and ``_bwd_kernel``).
+``_fwd_kernel`` and ``_bwd_kernel``, and the dw / db reduction the JAX
+backward leaves to XLA).
 
 The TPU kernels are replaced by CUDA kernels written by hand for Hopper,
-``paddle_tpu_torch/csrc/layer_norm.cu``; its source note states the design:
-one warp per row, 16-byte loads where the width allows, fp32 sums by warp
-shuffles, any row count and any width. The forward computes the statistics
+``paddle_tpu_torch/csrc/layer_norm.cu``; its source note states the design.
+The forward (one warp per row, 16-byte loads where the width allows, fp32
+sums by warp shuffles, any row count and any width) computes the statistics
 and the affine in fp32 and rounds once to x's dtype, as the Pallas kernel
 does (the composed op rounds before its affine; at fp32 the two agree). It
-saves ``mean`` and ``rstd`` as fp32 ``[rows]``. The backward kernel forms dx;
-dw and db are fp32 cross-row sums outside the kernel, as the JAX backward
-leaves them to one XLA reduce, and a bias-less call returns no db.
+saves ``mean`` and ``rstd`` as fp32 ``[rows]``. The backward forms dx and,
+in the same launch, the fp32 cross-row sums dw = sum(dy * xhat) and db =
+sum(dy) (a cooperative launch; each block's partials in registers or a
+column-tiled workspace row, folded over the grid in a fixed order, so two
+calls give the same bits). A bias-less call forms no db, a frozen weight
+with no trainable bias takes the dx-only kernel, a frozen x skips the dx
+stores. The autograd Function rounds dw and db once to the parameters'
+dtypes.
 
-Wrappers: ``layer_norm_fwd`` (y, mean, rstd) and ``layer_norm_bwd_dx`` (dx),
-each counting its kernel launches in ``.LAUNCHES``. A CUDA tensor goes to the
-kernel or the call raises; a CPU tensor goes to the plain PyTorch version
+Wrappers: ``layer_norm_fwd`` (y, mean, rstd) and ``layer_norm_bwd`` (dx, dw,
+db), each counting its kernel launches in ``.LAUNCHES``
+(``layer_norm_bwd.ROUTES`` counts them by route); ``bwd_plan`` reports the
+backward's route and grid. A CUDA tensor goes to the kernel or the call
+raises; a CPU tensor goes to the plain PyTorch version
 (``layer_norm_fwd_plain``, ``layer_norm_bwd_plain``). ``layer_norm`` is the
 differentiable public function over a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._build import check_rows, is_cpu, launch as _launch
 
-__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd_dx",
+__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd", "bwd_plan",
            "layer_norm_fwd_plain", "layer_norm_bwd_plain", "launch_fwd"]
 
 # ---------------------------------------------------------------------------
@@ -45,26 +55,22 @@ def layer_norm_fwd_plain(x2, weight, bias, epsilon):
     return y.to(x2.dtype), mean, rstd
 
 
-def _xhat(x2, mean, rstd):
-    return (x2.float() - mean[:, None]) * rstd[:, None]
-
-
-def layer_norm_bwd_plain(x2, weight, mean, rstd, dy, has_bias=True):
-    """(dx in x2's dtype, dw fp32 [H], db fp32 [H] or None) from the saved
-    statistics."""
-    xhat = _xhat(x2, mean, rstd)
+def layer_norm_bwd_plain(x2, weight, mean, rstd, dy, has_bias=True,
+                         need_dx=True, need_dw=True):
+    """(dx in x2's dtype, dw fp32 [H], db fp32 [H]) from the saved
+    statistics; None for what is not needed (db without a bias). dw and db
+    are the cross-row reductions the JAX backward leaves to XLA (fp32)."""
+    xhat = (x2.float() - mean[:, None]) * rstd[:, None]
     dyf = dy.float()
-    dxhat = dyf * weight.float()
-    m1 = dxhat.mean(-1, keepdim=True)
-    m2 = (dxhat * xhat).mean(-1, keepdim=True)
-    dx = rstd[:, None] * (dxhat - m1 - xhat * m2)
-    dw, db = _dw_db(xhat, dyf, has_bias)
-    return dx.to(x2.dtype), dw, db
-
-
-def _dw_db(xhat, dyf, has_bias):
-    # the cross-row reductions the JAX backward leaves to XLA (fp32)
-    return (dyf * xhat).sum(0), (dyf.sum(0) if has_bias else None)
+    dx = None
+    if need_dx:
+        dxhat = dyf * weight.float().reshape(-1)
+        m1 = dxhat.mean(-1, keepdim=True)
+        m2 = (dxhat * xhat).mean(-1, keepdim=True)
+        dx = (rstd[:, None] * (dxhat - m1 - xhat * m2)).to(x2.dtype)
+    dw = (dyf * xhat).sum(0) if need_dw else None
+    db = dyf.sum(0) if has_bias else None
+    return dx, dw, db
 
 
 # ---------------------------------------------------------------------------
@@ -106,30 +112,85 @@ def layer_norm_fwd(x2, weight, bias, epsilon):
     return out
 
 
-def layer_norm_bwd_dx(x2, weight, mean, rstd, dy):
-    """dx [rows, H] in x2's dtype from the forward's statistics."""
+@functools.lru_cache(maxsize=256)
+def _plan(device_index, rows, H, code, aligned, need_dw, need_db):
+    import ctypes
+    from ._build import check, load_library
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        check(load_library().ptt_layer_norm_bwd_plan(
+            rows, H, code, int(aligned), int(need_dw), int(need_db), out),
+            f"layer_norm backward plan (rows={rows} H={H})")
+    return dict(path="held" if out[0] else "tiled", blocks=out[1])
+
+
+def bwd_plan(x2, weight, dy=None, dx=None, need_dw=True,
+             need_db=True) -> dict:
+    """The backward's route for these CUDA tensors (no data is read):
+    ``path`` "held" (the row in registers, dw / db partials in registers),
+    "tiled" (any width: a column-tiled partial) or "dx-only" (neither sum
+    asked for), and ``blocks``, the grid (for a sum, of the cooperative
+    launch and the rows of its workspace)."""
+    code = check_rows(x2, "layer_norm", weight)
+    rows, H = x2.shape
+    if not (need_dw or need_db):
+        return dict(path="dx-only", blocks=-(-rows // 8))
+    w = _affine(weight, H, "weight")
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x2, w, dy, dx) if t is not None)
+    return _plan(x2.device.index, rows, H, code, aligned, bool(need_dw),
+                 bool(need_db))
+
+
+def layer_norm_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
+                   need_db=True):
+    """(dx [rows, H] in x2's dtype, dw fp32 [H], db fp32 [H]) from the
+    forward's statistics, in one launch; None for what is not needed
+    (``need_db`` False for a bias-less call)."""
     if is_cpu(x2, "layer_norm"):
-        return layer_norm_bwd_plain(x2, weight, mean, rstd, dy)[0]
+        return layer_norm_bwd_plain(x2, weight, mean, rstd, dy, need_db,
+                                    need_dx, need_dw)
     code = check_rows(x2, "layer_norm", weight, mean, rstd, dy)
     if dy.shape != x2.shape or dy.dtype != x2.dtype:
         raise ValueError(f"layer_norm backward: dy {dy.dtype} "
                          f"{tuple(dy.shape)} does not fit x {x2.dtype} "
                          f"{tuple(x2.shape)}")
-    from ._build import load_library
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or t.numel() != x2.shape[0]:
+            raise ValueError(f"layer_norm backward: {name} {t.dtype} "
+                             f"{tuple(t.shape)} is not fp32 [{x2.shape[0]}]")
+    if not (need_dx or need_dw or need_db):
+        return None, None, None
+    from ._build import load_library, zeroed_counters
     rows, H = x2.shape
     w = _affine(weight, H, "weight")
     mean, rstd, dy = mean.contiguous(), rstd.contiguous(), dy.contiguous()
-    dx = torch.empty_like(x2)
-    _launch(f"layer_norm_bwd launch (rows={rows} H={H} {x2.dtype})",
+    dx = torch.empty_like(x2) if need_dx else None
+    plan = bwd_plan(x2, w, dy, dx, need_dw, need_db)
+    nsum = int(bool(need_dw)) + int(bool(need_db))
+    sums = part = sync = None
+    if nsum:
+        sums = torch.empty(nsum * H, dtype=torch.float32, device=x2.device)
+        part = torch.empty(plan["blocks"], nsum * H, dtype=torch.float32,
+                           device=x2.device)
+        sync = zeroed_counters("layer_norm_bwd", x2.device, 2)  # grid barrier
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _launch(f"layer_norm_bwd launch (rows={rows} H={H} {x2.dtype}, dx "
+            f"{need_dx}, dw {need_dw}, db {need_db})",
             load_library().ptt_layer_norm_bwd, x2.device, x2.data_ptr(),
             w.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), rows, H, code)
-    layer_norm_bwd_dx.LAUNCHES += 1
-    return dx
+            ptr(dx), ptr(sums), ptr(part), ptr(sync), rows, H, int(need_dw),
+            int(need_db), plan["blocks"] if nsum else 0, code)
+    layer_norm_bwd.LAUNCHES += 1
+    layer_norm_bwd.ROUTES[plan["path"]] += 1
+    dw = sums[:H] if need_dw else None
+    db = sums[nsum * H - H:] if need_db else None
+    return dx, dw, db
 
 
-for _fn in (layer_norm_fwd, layer_norm_bwd_dx):
+for _fn in (layer_norm_fwd, layer_norm_bwd):
     _fn.LAUNCHES = 0
+layer_norm_bwd.ROUTES = {"held": 0, "tiled": 0, "dx-only": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +198,7 @@ for _fn in (layer_norm_fwd, layer_norm_bwd_dx):
 # ---------------------------------------------------------------------------
 class _LayerNorm(torch.autograd.Function):
     """The ``_ln`` custom_vjp: the forward saves (x, weight, mean, rstd);
-    the backward runs the dx kernel and sums dw (and db) in fp32."""
+    the backward forms dx and the fp32 dw (and db) in one kernel launch."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, epsilon):
@@ -152,16 +213,15 @@ class _LayerNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x2, weight, mean, rstd = ctx.saved_tensors
         dy2 = dy.reshape(x2.shape).contiguous()
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = layer_norm_bwd_dx(x2, weight, mean, rstd, dy2)
+        need_dx, need_dw, need_db = ctx.needs_input_grad[:3]
+        dx, dw, db = layer_norm_bwd(x2, weight, mean, rstd, dy2, need_dx,
+                                    need_dw, ctx.has_bias and need_db)
+        if dx is not None:
             dx = dx.reshape(dy.shape)
-        if ctx.needs_input_grad[1] or (ctx.has_bias
-                                       and ctx.needs_input_grad[2]):
-            dw, db = _dw_db(_xhat(x2, mean, rstd), dy2.float(), ctx.has_bias)
+        if dw is not None:
             dw = dw.to(weight.dtype).reshape(weight.shape)
-            if db is not None:
-                db = db.to(weight.dtype).reshape(weight.shape)
+        if db is not None:
+            db = db.to(weight.dtype).reshape(weight.shape)
         return dx, dw, db, None
 
 

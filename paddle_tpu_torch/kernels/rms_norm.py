@@ -8,7 +8,9 @@ The TPU kernels are replaced by CUDA kernels written by hand for Hopper,
 one warp per row, the row held in registers where it fits (bf16 H <= 2048),
 fp32 sums by warp shuffles, any row count and any width. The forward
 computes ``x * rsqrt(mean(x^2) + eps) * w`` in fp32 and rounds once to x's
-dtype, as the Pallas kernel does; it saves ``rstd`` as fp32 ``[rows]``. The
+dtype, as the Pallas kernel does; it saves ``rstd`` as fp32 ``[rows]``.
+Where the row is held, the forward is a persistent grid whose warps walk
+rows with their weights in registers and two row buffers. The
 backward forms dx and, in the same launch, dw: the fp32 cross-row sum
 ``sum(dy * x * rstd)`` that the JAX backward leaves to one XLA reduce (a
 cooperative launch of one block an SM; each block's partial in registers
@@ -17,9 +19,10 @@ two calls give the same bits). The wrapper casts dw to the weight's dtype.
 A frozen weight takes the dx-only kernels, a frozen x skips the dx stores.
 
 Wrappers: ``rms_norm_fwd`` (y, rstd) and ``rms_norm_bwd`` (dx, dw), each
-counting its kernel launches in ``.LAUNCHES``; ``bwd_plan`` reports the
-backward's path and grid. A CUDA tensor goes to the kernel or the call
-raises; a CPU tensor goes to the plain PyTorch version
+counting its kernel launches in ``.LAUNCHES``; ``fwd_plan`` and
+``bwd_plan`` report the forward's and the backward's path and grid. A CUDA
+tensor goes to the kernel or the call raises; a CPU tensor goes to the
+plain PyTorch version
 (``rms_norm_fwd_plain``, ``rms_norm_bwd_plain``). ``rms_norm`` is the
 differentiable public function over a ``torch.autograd.Function``.
 """
@@ -33,7 +36,8 @@ import torch
 from ._build import check_rows, is_cpu, launch as _launch
 
 __all__ = ["rms_norm", "supported", "rms_norm_fwd", "rms_norm_bwd",
-           "rms_norm_fwd_plain", "rms_norm_bwd_plain", "bwd_plan"]
+           "rms_norm_fwd_plain", "rms_norm_bwd_plain", "fwd_plan",
+           "bwd_plan"]
 
 def supported(x, weight) -> bool:
     """The Pallas module's gate: rows of at least 2-D x whose last dim is
@@ -99,15 +103,29 @@ def rms_norm_fwd(x2, weight, epsilon):
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(device_index, rows, H, code, aligned):
+def _plan(device_index, rows, H, code, aligned, forward=False):
     import ctypes
     from ._build import check, load_library
     out = (ctypes.c_int * 2)()
+    lib = load_library()
+    entry = lib.ptt_rms_norm_fwd_plan if forward else lib.ptt_rms_norm_bwd_plan
     with torch.cuda.device(device_index):
-        check(load_library().ptt_rms_norm_bwd_plan(rows, H, code, int(aligned),
-                                                   out),
-              f"rms_norm backward plan (rows={rows} H={H})")
-    return dict(path="held" if out[0] else "tiled", blocks=out[1])
+        check(entry(rows, H, code, int(aligned), out),
+              f"rms_norm {'forward' if forward else 'backward'} plan "
+              f"(rows={rows} H={H})")
+    other = "walk" if forward else "tiled"
+    return dict(path="held" if out[0] else other, blocks=out[1])
+
+
+def fwd_plan(x2, weight, y=None) -> dict:
+    """The forward's route for these CUDA tensors (no data is read): ``path``
+    "held" (a persistent grid, the row and the weights in registers) or
+    "walk" (one warp a row, the row read again), and ``blocks``, the grid."""
+    code, w = _check(x2, weight)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x2, w, y) if t is not None)
+    return _plan(x2.device.index, x2.shape[0], x2.shape[1], code, aligned,
+                 True)
 
 
 def bwd_plan(x2, weight, dy=None) -> dict:

@@ -12,10 +12,13 @@ decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
 the ragged kernel on phase 3's mixed batch (4 rows, C 128) and on the decode
 batch over int8 pools,
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
-LayerNorm forward and dx kernels on x [5120, 768], the RMSNorm forward and
-its whole backward (dx and the fp32 dw, through the autograd Function:
-whatever kernels and composed sums a checkout runs) on x [8192, 2048]
-and the RoPE kernel on q [8, 1024, 16, 128].
+LayerNorm forward on x [5120, 768] and its whole backward (dx, dw and db
+through the autograd Function, fp32 weight and bias: whatever kernels and
+composed sums a checkout runs) on x [5120, 768] and [41472, 768] (the
+packed BERT cell's rows at 16 and 128 sequences), the RMSNorm forward and
+its whole backward (dx and the fp32 dw, the same way) on x [8192, 2048],
+the forward and the dx-only backward (a frozen weight's) there also in
+fp16 beside bf16, and the RoPE kernel on q [8, 1024, 16, 128].
 Each time is the median of 30 CUDA-event timings with the L2 flushed before
 each launch, as ``chip_smoke.py`` ``cuda_ms`` takes them. Both checkouts
 build their kernels at first use. Prints one line per run and a last JSON
@@ -108,12 +111,19 @@ res["fused_adam"] = ms(lambda: FAD.adam_update(
     p, g, slot, 1e-4, 1, None, beta1=0.9, beta2=0.999, epsilon=1e-8,
     decoupled=0.01), runs=10)
 del p, g, slot
-x, dy = rnd(5120, 768, scale=3.0), rnd(5120, 768)
-w = torch.randn(768, generator=gen, device=dev)
-y, mean, rstd = LN.layer_norm_fwd(x, w, w, 1e-12)
-res["layer_norm_fwd"] = ms(lambda: LN.layer_norm_fwd(x, w, w, 1e-12))
-res["layer_norm_bwd_dx"] = ms(lambda: LN.layer_norm_bwd_dx(x, w, mean, rstd,
-                                                           dy))
+for rows in (5120, 41472):
+    x, dy = rnd(rows, 768, scale=3.0), rnd(rows, 768)
+    w = torch.randn(768, generator=gen, device=dev)
+    b = torch.randn(768, generator=gen, device=dev)
+    tag = "" if rows == 5120 else f"_{rows}"
+    res["layer_norm_fwd" + tag] = ms(lambda: LN.layer_norm_fwd(x, w, b,
+                                                               1e-12))
+    # the whole backward (dx, dw, db) through the autograd Function
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    yr = LN.layer_norm(xr, wr, br, 1e-12)
+    res["layer_norm_bwd" + tag] = ms(lambda: torch.autograd.grad(
+        yr, (xr, wr, br), dy, retain_graph=True))
+    del xr, wr, br, yr
 x, dy = rnd(8192, 2048, scale=3.0), rnd(8192, 2048)
 w = torch.randn(2048, generator=gen, device=dev)
 res["rms_norm_fwd"] = ms(lambda: RN.rms_norm_fwd(x, w, 1e-5))
@@ -123,6 +133,14 @@ xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
 yr = RN.rms_norm(xr, wr, 1e-5)
 res["rms_norm_bwd"] = ms(lambda: torch.autograd.grad(yr, (xr, wr), dy,
                                                      retain_graph=True))
+_, rstd = RN.rms_norm_fwd(x, w, 1e-5)
+res["rms_norm_bwd_dx_only"] = ms(lambda: RN.rms_norm_bwd(x, w, rstd, dy,
+                                                         need_dw=False))
+x16, dy16 = x.to(torch.float16), dy.to(torch.float16)
+res["rms_norm_fwd_fp16"] = ms(lambda: RN.rms_norm_fwd(x16, w, 1e-5))
+res["rms_norm_bwd_dx_only_fp16"] = ms(lambda: RN.rms_norm_bwd(
+    x16, w, rstd, dy16, need_dw=False))
+del xr, wr, yr, x16, dy16
 x = rnd(8, 1024, 16, 128)
 ang = torch.rand(1024, 64, generator=gen, device=dev)
 res["rope"] = ms(lambda: RP.rope(x, ang.cos(), ang.sin()))

@@ -74,19 +74,25 @@ def test_layer_norm_kernels_match_plain(card, dtype, rows, H, eps, bias):
         if bias else None
     dy = torch.from_numpy(rng.randn(rows, H).astype(np.float32)).to(
         card, dtype)
-    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES)
+    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd.LAUNCHES)
     y, mean, rstd = LN.layer_norm_fwd(x, w, b, eps)
-    dx = LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)
+    dx, dw, db = LN.layer_norm_bwd(x, w, mean, rstd, dy, need_db=bias)
     torch.cuda.synchronize()
-    assert (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES) == \
+    assert (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd.LAUNCHES) == \
         (n[0] + 1, n[1] + 1)
     y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, eps)
     dx_p, _, _ = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy)
+    # dw / db: fp32 sums of the same products (the kernel's statistics on
+    # both sides), only their order differs
+    _, dw_p, db_p = LN.layer_norm_bwd_plain(x, w, mean, rstd, dy, bias,
+                                            need_dx=False)
     assert y.dtype == dtype and dx.dtype == dtype
     assert _rel(y, y_p) <= LN_TOL[dtype]
     assert _rel(mean, mean_p) <= 1e-5
     assert ((rstd - rstd_p).abs() / rstd_p).max().item() <= 1e-5
     assert _rel(dx, dx_p) <= LN_TOL[dtype]
+    assert _rel(dw, dw_p) <= 1e-5
+    assert (db is None) if not bias else _rel(db, db_p) <= 1e-5
 
 
 def test_layer_norm_unaligned_rows_and_autograd(card):

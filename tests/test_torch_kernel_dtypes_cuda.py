@@ -63,11 +63,14 @@ def test_norm_kernels_fp16_match_plain(card, rows, H):
     x, dy = _randn(card, rows, H, scale=3.0), _randn(card, rows, H, seed=1)
     w, b = (_randn(card, H, seed=s, dtype=torch.float32) for s in (2, 3))
     y, mean, rstd = LN.layer_norm_fwd(x, w, b, 1e-5)
-    dx = LN.layer_norm_bwd_dx(x, w, mean, rstd, dy)
+    dx, dw, db = LN.layer_norm_bwd(x, w, mean, rstd, dy)
     y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, 1e-5)
     dx_p = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy)[0]
+    _, dw_p, db_p = LN.layer_norm_bwd_plain(x, w, mean, rstd, dy,
+                                            need_dx=False)
     assert y.dtype == dx.dtype == torch.float16
     assert _rel(y, y_p) <= TOL and _rel(dx, dx_p) <= TOL
+    assert _rel(dw, dw_p) <= 1e-5 and _rel(db, db_p) <= 1e-5
     y, rs = RN.rms_norm_fwd(x, w, 1e-6)
     dx, dw = RN.rms_norm_bwd(x, w, rs, dy)
     y_p, rs_p = RN.rms_norm_fwd_plain(x, w, 1e-6)
@@ -83,10 +86,10 @@ def test_public_norm_entries_launch_at_fp16(card):
     x = _randn(card, 4, 64, 256, scale=2.0).requires_grad_()
     w = _randn(card, 256, seed=1, dtype=torch.float32).requires_grad_()
     b = _randn(card, 256, seed=2, dtype=torch.float32).requires_grad_()
-    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES)
+    n = (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd.LAUNCHES)
     y = TF.layer_norm(x, 256, w, b, 1e-5)
     y.float().square().sum().backward()
-    assert (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd_dx.LAUNCHES) == \
+    assert (LN.layer_norm_fwd.LAUNCHES, LN.layer_norm_bwd.LAUNCHES) == \
         (n[0] + 1, n[1] + 1)
     ref = TF.layer_norm(x.detach().cpu(), 256, w.detach().cpu(),
                         b.detach().cpu(), 1e-5)

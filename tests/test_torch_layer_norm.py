@@ -115,8 +115,8 @@ def test_no_bias_backward_returns_no_db_and_plain_parts_agree():
                                           _t(dy), has_bias=False)
     assert db is None
     # the wrapper on a CPU tensor is the plain version
-    assert torch.equal(TLN.layer_norm_bwd_dx(_t(x), _t(w), mean, rstd,
-                                             _t(dy)), dx)
+    assert torch.equal(TLN.layer_norm_bwd(_t(x), _t(w), mean, rstd,
+                                          _t(dy), need_db=False)[0], dx)
     xt, wt = _t(x, grad=True), _t(w, grad=True)
     gx, gw = torch.autograd.grad(TLN.layer_norm(xt, wt, None, 1e-6), (xt, wt),
                                  _t(dy))
