@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. card: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
    wgmma instance's registers and spill bytes (the flash forward, dQ and
-   dK/dV, the ragged kernel);
+   dK/dV, the ragged kernel) and the bulk-ring paged decode instances';
+   the dK/dV split instances (D_pad 192 / 256) and the fp32 decode
+   instances must not spill;
 3. hold the ragged kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, 16 heads of 128, block 32), print each case's
    route and split count (``kernel_plan``), and time kernel, plain version,
@@ -41,11 +43,12 @@ Phases, in order; any failure exits non-zero:
    losses of its first 4 AdamW steps, on the kernel path against the plain
    path (composed attention, plain Adam) on the card;
 10. hold the paged decode kernel's routes against their plain version at
-   the serving decode shape (timed at bf16, fp16 and fp32, beside the
-   ragged kernel on the same batch; its split counts swept) and on GQA,
-   MQA 32/1, D 256, small-page, empty-row, wide-table and off-the-ring
-   cases, and time one and two rows of 8192 keys under GQA 16/4 split
-   against unsplit;
+   the serving decode shape (timed at bf16, fp16 and fp32, all on the bulk
+   ring, beside the ragged kernel on the same batch; its split counts
+   swept) and on GQA, MQA 32/1, D 256, small-page, empty-row, wide-table,
+   fp32 pages carried in parts (every split count) and off-the-ring cases,
+   and time one and two rows of 8192 keys under GQA 16/4 split against
+   unsplit;
 11. hold the flash forward with an additive bias against its plain version
    at the two-program prefill's shape (timed: q a view of the head-major
    qkv, k and v the gathered pool views, a [8, 1, 128, 640] mask) and on
@@ -57,7 +60,8 @@ Phases, in order; any failure exits non-zero:
 13. serve the GPT-1.3B shape through the two-program engine (the default
    path: batched prefill chunks on the flash bias kernel, decode bursts on
    the paged decode kernel): the same wave as phase 5, launch counts, bf16
-   and fp32 checks, and fp32 tokens identical to the fp32 ragged engine's;
+   and fp32 checks, and fp32 tokens identical to the fp32 ragged engine's,
+   every fp32 decode launch on the bulk ring;
 14. serve the same wave through the ragged engine with int8 and fp8 KV
    pools: tokens/s, capacity at phase 5's pool budget, determinism across
    fresh engines, teacher-forced top-5 containment;
@@ -123,10 +127,12 @@ Phases, in order; any failure exits non-zero:
    segment ids, an fp32 ALiBi-like bias beside bf16 q, the d-bias at three
    bias shapes; the dropout mask with a bias bit for bit;
 25. hold them at D 32, 40, 80, 96, 160, 256 in fp32, bf16 and fp16, causal
-   and not, GQA 8/2 with Sq != Sk; time D 32, 96, 256 (bf16) and 128 (fp16)
-   at B 8, S 1024, H 16 causal, and the Llama GQA 16/4 call, each against
-   its bound and SDPA; D 320 through scaled_dot_product_attention takes the
-   counted composed route;
+   and not, GQA 8/2 with Sq != Sk; time D 32, 96, 160, 256 (bf16), 256 and
+   128 (fp16) at B 8, S 1024, H 16 causal, and the Llama GQA 16/4 call,
+   each against its bound and SDPA; the 16-bit dK/dV on "wgmma+tma" at
+   every D 1-256; D 160 and 256 through scaled_dot_product_attention
+   forward and backward with each kernel launched once; D 320 there takes
+   the counted composed route;
 26. a tiny fp32 BERT with a 4-D bool mask over ragged lengths: logits, loss
    and every gradient on the card against the CPU;
 27. train BERT-base padded (bench_bert_base: _bert_job's corpus of 16
@@ -706,9 +712,10 @@ def full_width_bf16_phase(card):
     return record
 
 
-def full_width_fp32_phase(**engine_kw):
+def full_width_fp32_phase(stats=None, **engine_kw):
     """The fp32 copy's exactness checks; returns its greedy outputs (phase
-    13 holds the two-program engine's to them)."""
+    13 holds the two-program engine's to them). ``stats``, where given, gets
+    the wave's generated tokens/s."""
     cfg = G.GPTConfig(**FULL, dtype=torch.float32, param_dtype=torch.float32)
     params = G.init_hybrid_params(cfg, 0, DEV)
     engine = ServingEngine(params, cfg, seed=0, device=DEV,
@@ -716,6 +723,8 @@ def full_width_fp32_phase(**engine_kw):
     prompts, _ = full_width_workload()
     prompts = prompts[:4]
     outs, _, wall = serve(engine, prompts, [16] * 4)
+    if stats is not None:
+        stats["tokens_per_s"] = sum(len(o) for o in outs) / wall
     top1, top5, first, n, margins = teacher_forced(params, cfg, prompts, outs,
                                                    5)
     log(f"fp32 teacher-forced ({wall:.2f} s serving): top-1 {top1}/{n} = "
@@ -941,16 +950,20 @@ def flash_designs(name):
     the built library reports it (FA.kernel_plan): "wgmma+tma" (the 16-bit
     forward and dQ, csrc/flash_fwd_hopper.cu and flash_dq_hopper.cu: wgmma
     with the scores and accumulators in registers, K / V through a TMA
-    ring; the 16-bit dK/dV at D_pad <= 128, csrc/flash_dkv_hopper.cu:
-    transposed scores in registers, Q / dO through a TMA ring), "wmma" (the
-    16-bit dK/dV at D_pad 192 and 256: warp-level WMMA through shared
-    memory), "fp32" (the FP32-pipe kernels)."""
+    ring; the 16-bit dK/dV, csrc/flash_dkv_hopper.cu: transposed scores in
+    registers, Q / dO through a TMA ring, at D_pad 192 and 256 one
+    warpgroup holding dv and another dk over 64 keys), "fp32" (the
+    FP32-pipe kernels); and the bf16 tiles (query rows x keys)."""
     from paddle_tpu_torch.kernels import _build
-    return {f"D_pad {d}": {tag: FA.kernel_plan(name, d, dt)["design"]
-                           for tag, dt in (("bf16", torch.bfloat16),
-                                           ("fp16", torch.float16),
-                                           ("fp32", torch.float32))}
-            for d in _build.FLASH_D_PADS}
+    out = {}
+    for d in _build.FLASH_D_PADS:
+        out[f"D_pad {d}"] = {tag: FA.kernel_plan(name, d, dt)["design"]
+                             for tag, dt in (("bf16", torch.bfloat16),
+                                             ("fp16", torch.float16),
+                                             ("fp32", torch.float32))}
+        plan = FA.kernel_plan(name, d, torch.bfloat16)
+        out[f"D_pad {d}"]["tiles"] = [plan["query_rows"], plan["keys"]]
+    return out
 
 
 def wgmma_ptxas(output):
@@ -979,6 +992,32 @@ def wgmma_ptxas(output):
             recs.append((name, "bf16" if "bfloat16" in ty else "fp16", int(d),
                          *(int(f) if f else -1 for f in flags),
                          int(m.group(1)), spill))
+            cur = None
+    return recs
+
+
+def decode_ptxas(output):
+    """[(dtype, query rows a block, D_pad, registers, spill store bytes)]
+    of the bulk-ring paged decode instances (paged_decode_hopper.cu), from
+    ptxas's -v lines."""
+    recs, cur, spill = [], None, None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.search(
+                r"paged_decode_hopper_kernelI(\w+?)Li(\d+)ELi(\d+)E", m.group(1))
+            spill = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ty, rb, dp = cur.groups()
+            recs.append(({"f": "fp32", "13__nv_bfloat16": "bf16"}.get(
+                ty, "fp16"), int(rb), int(dp), int(m.group(1)), spill))
             cur = None
     return recs
 
@@ -1495,12 +1534,13 @@ def decode_yardstick(case):
 
 
 def decode_plan_line(case):
-    """The route that serves the case and its split count
-    (PA.kernel_plan)."""
+    """The route that serves the case, its stages, the keys a stage carries
+    and its split count (PA.kernel_plan)."""
     plan = PA.kernel_plan(case["q"], case["k_pool"], case["block_tables"],
                           case["v_pool"])
     return plan, (f"route {plan['design']}, {plan['rows']} query rows a "
-                  f"block, {plan['stages']} stages, splits {plan['splits']}")
+                  f"block, {plan['stages']} stages of {plan['stage_keys']} "
+                  f"keys, splits {plan['splits']}")
 
 
 def decode_args(case):
@@ -1533,7 +1573,8 @@ def check_decode_case(name, case, card, route=None):
         f"{tol}); max_abs_err {err:.3e}")
     require(rel <= tol, f"{name}: rel err {rel} > {tol}")
     rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
-               splits=plan["splits"])
+               splits=plan["splits"], stages=plan["stages"],
+               stage_keys=plan["stage_keys"])
     if card is None:
         return rec
     kern = cuda_ms(lambda: PA.paged_decode_attention(*args))
@@ -1597,7 +1638,11 @@ def paged_decode_phase(card):
     rec["fp16"] = check_decode_case("(a) fp16", decode_case(
         rng, lens, 16, 16, dtype=torch.float16), card, route="bulk-ring")
     rec["fp32"] = check_decode_case("(a) fp32", decode_case(
-        rng, lens, 16, 16, dtype=torch.float32), card, route="fp32-tiles")
+        rng, lens, 16, 16, dtype=torch.float32), card, route="bulk-ring")
+    log(f"(a) fp32 on the ring: {rec['fp32']['ms']:.4f} ms beside bf16 "
+        f"{rec['ms']:.4f} and fp16 {rec['fp16']['ms']:.4f}, the fp32-tiles "
+        f"kernel's 0.2490 (PERF.md), SDPA {rec['fp32']['library_ms']:.4f}, "
+        f"the bound {rec['fp32']['bound_ms']:.4f}  [{card}]")
     rec["long_rows"] = long_rows_decode(rng, card)
     odd = [0, 45, 64, 1, 300, 129]     # empty, mid-page, page-aligned, 1
     for dtype in (torch.bfloat16, torch.float32):
@@ -1613,9 +1658,27 @@ def paged_decode_phase(card):
             rng, odd, 32, 1, dtype=dtype), None)
         check_decode_case(f"(g) D 256, GQA 8/2, bs 16 {tag}", decode_case(
             rng, odd, 8, 2, D=256, bs=16, dtype=dtype), None)
+    # fp32 pages the ring carries in parts: 16 of a page's 32 keys at D
+    # 256, 32 of 64 at D 128 under g 16; every split count of one case
+    for name, kw in (("(i) fp32 D 256 bs 32, GQA 8/2, parts of 16 keys",
+                      dict(hq=8, hkv=2, D=256, bs=32)),
+                     ("(j) fp32 D 128 bs 64, GQA 16/1, parts of 32 keys",
+                      dict(hq=16, hkv=1, D=128, bs=64, nb=12))):
+        case = decode_case(rng, odd, dtype=torch.float32, **kw)
+        part = check_decode_case(name, case, None, route="bulk-ring")
+        require(part["stage_keys"] < kw["bs"], f"{name}: whole pages")
+        ref = PA.paged_decode_attention_plain(*decode_args(case))
+        worst = max(slab_rel_err(PA.paged_decode_attention(
+            *decode_args(case), splits=n), ref, 2) for n in range(1, 17))
+        log(f"{name}: splits 1-16 forced, worst (row, head) L2 rel err "
+            f"{worst:.3e}")
+        require(worst <= PAGED_TOL[torch.float32], f"{name}: a forced split "
+                f"count is off by {worst}")
     # off the ring: a head dim that is not whole 16-byte words
     check_decode_case("(h) D 100 bf16", decode_case(rng, odd, 8, 4, D=100),
                       None, route="fp32-tiles")
+    check_decode_case("(h) D 102 fp32", decode_case(
+        rng, odd, 8, 4, D=102, dtype=torch.float32), None, route="fp32-tiles")
     return rec
 
 
@@ -1963,11 +2026,28 @@ def two_program_phase(card, ragged_fp32_outs):
     rec.update(top5=top5 / n, top1=top1 / n)
     del engine, params
     torch.cuda.empty_cache()
-    # the fp32 copy: phase 5b's checks, then the ragged engine's tokens
-    outs32 = full_width_fp32_phase(ragged=False)
+    # the fp32 copy: phase 5b's checks, then the ragged engine's tokens;
+    # every decode launch of its wave on the bulk ring (the counts go to 0
+    # just before and are read just after)
+    PA.paged_decode_attention.LAUNCHES = 0
+    for route in PA.paged_decode_attention.ROUTES:
+        PA.paged_decode_attention.ROUTES[route] = 0
+    fp32 = {}
+    outs32 = full_width_fp32_phase(stats=fp32, ragged=False)
+    fp32.update(launches=PA.paged_decode_attention.LAUNCHES,
+                routes=dict(PA.paged_decode_attention.ROUTES))
     log(f"fp32 two-program {outs32}\nfp32 ragged      {ragged_fp32_outs}")
+    log(f"fp32 two-program wave: {fp32['tokens_per_s']:.1f} generated "
+        f"tokens/s (4 requests of 16 tokens, the engine's first wave), "
+        f"paged_decode_attention LAUNCHES {fp32['launches']}, by route "
+        f"{fp32['routes']}  [{card}]")
     require(outs32 == ragged_fp32_outs, "fp32: the two-program engine's "
             "greedy tokens differ from the ragged engine's")
+    require(fp32["launches"] > 0 and
+            fp32["routes"]["bulk-ring"] == fp32["launches"],
+            f"fp32 two-program decode launches off the bulk ring: "
+            f"{fp32['routes']}")
+    rec["fp32"] = fp32
     return rec
 
 
@@ -3431,7 +3511,8 @@ ALIBI_SLOPES = (0.0313, 0.0219, 0.0437, 0.0251)
 # B 8, S 1024, H 16 causal
 HEAD_DIMS = (32, 40, 80, 96, 160, 256)
 TIMED_DIMS = ((32, torch.bfloat16), (96, torch.bfloat16),
-              (256, torch.bfloat16), (128, torch.float16))
+              (160, torch.bfloat16), (256, torch.bfloat16),
+              (256, torch.float16), (128, torch.float16))
 
 
 def padded_batch(vocab):
@@ -3568,9 +3649,11 @@ def flash_padded_phase(card):
 def head_dims_phase(card):
     """Phase 25: every D of the family's members and between them, fp32,
     bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain;
-    then D 32, 96, 256 in bf16 and D 128 in fp16 timed at B 8, S 1024,
-    H 16, causal, the Llama GQA 16/4 call timed with its bound and SDPA
-    (enable_gqa), and the registry op's route for D 320."""
+    then D 32, 96, 160, 256 in bf16 and D 256, 128 in fp16 timed at B 8,
+    S 1024, H 16, causal, the Llama GQA 16/4 call timed with its bound and
+    SDPA (enable_gqa), the dK/dV design at every 16-bit D, D 160 and 256
+    through the registry op (the counts set to 0 just before, read just
+    after), and the registry op's route for D 320."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(25)
 
@@ -3601,6 +3684,46 @@ def head_dims_phase(card):
             f"({str(dtype)[6:]}) B={B} S={S} H={H} D={D} causal", q, k, v, do,
             True, {}, card=card, pairs=visible_pairs(S, S, True) * B * H)
         del q, k, v, do
+        torch.cuda.empty_cache()
+    # the 16-bit dK/dV: the wgmma kernel at every width (128 keys a block
+    # to D_pad 128, the split's 64 past it)
+    designs = {(D, str(dt)[6:]): FA.kernel_plan("flash_bwd_dkv", D, dt)
+               for D in range(1, 257)
+               for dt in (torch.bfloat16, torch.float16)}
+    off = {k: p["design"] for k, p in designs.items()
+           if p["design"] != "wgmma+tma"}
+    require(not off, f"16-bit dK/dV off the wgmma kernel: {off}")
+    log("dK/dV design by D_pad: " + "; ".join(
+        f"{d}: {designs[(d, 'bfloat16')]['design']}, "
+        f"{designs[(d, 'bfloat16')]['keys']} keys x "
+        f"{designs[(d, 'bfloat16')]['query_rows']} queries a tile"
+        for d in (32, 64, 96, 128, 192, 256)))
+    # D 160 and 256 through the registry op, forward and backward: each
+    # kernel once, the gradients those of the direct kernel calls
+    for D in (160, 256):
+        q, k, v, do = (rnd(torch.bfloat16, B, S, H, D) for _ in range(4))
+        scale = 1.0 / math.sqrt(D)
+        _, lse = FA.flash_fwd(q, k, v, True, scale)
+        _, delta = FA.flash_bwd_dq(q, k, v, lse, do, True, scale)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, True, scale)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        reset_flash_counts()
+        out = scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        grads = torch.autograd.grad(out, (qr, kr, vr), do)
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        err = max(tile_rel_err(grads[1], dk), tile_rel_err(grads[2], dv))
+        log(f"D {D} bf16 [{B}, {S}, {H}, {D}] causal through "
+            f"scaled_dot_product_attention: launches {counts}; dk / dv "
+            f"against the direct kernel calls, worst tile {err:.3e}")
+        require(all(counts[n] == 1 for n in FLASH_KERNELS)
+                and counts["DENSE_MASK"] == counts["COMPOSED"] == 0,
+                f"D {D}: a flash kernel did not launch once: {counts}")
+        tol = FLASH_TOL[torch.bfloat16][1]
+        require(err <= tol, f"D {D}: the registry op's dk / dv are {err} "
+                f"off the direct calls' (tol {tol})")
+        recs[f"D{D}_entry_launches"] = counts
+        del q, k, v, do, qr, kr, vr, out, grads, dk, dv
         torch.cuda.empty_cache()
     q, do = (rnd(torch.bfloat16, B, S, H, 128) for _ in range(2))
     k, v = (rnd(torch.bfloat16, B, S, 4, 128) for _ in range(2))
@@ -4565,6 +4688,20 @@ def main() -> int:
             f"{sum(r[-1] > 0 for r in wg)} with spill stores, "
             f"{sum(r[-1] > 0 for r in wg if r[2] <= 128)} of them at D_pad "
             f"<= 128; dK/dV {sum(r[-1] > 0 for r in dkv)} of {len(dkv)}")
+        # the split dK/dV (D_pad 192 / 256) holds no spill
+        split = [r for r in dkv if r[2] > 128]
+        require(len(split) == 32 and not any(r[-1] for r in split),
+                f"dK/dV split instances: {len(split)}, spilling "
+                f"{[r for r in split if r[-1]]}")
+    dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
+    for ty, rb, dp, regs, spill in dec_inst:
+        log(f"  paged_decode_hopper_kernel<{ty}, rows {rb}, D_pad {dp}>: "
+            f"{regs} registers, {spill} bytes spill stores")
+    if dec_inst:
+        f32 = [r for r in dec_inst if r[0] == "fp32"]
+        require(len(f32) == 12 and not any(r[-1] for r in f32),
+                f"fp32 paged decode instances: {len(f32)}, spilling "
+                f"{[r for r in f32 if r[-1]]}")
 
     t0 = phase("3. kernel vs plain on the card")
     rng = np.random.RandomState(0)
@@ -4746,7 +4883,11 @@ def main() -> int:
                  p0={k: fpad["bf16_bias_p0.0"][name][k] for k in keys}),
              head_dims={tag: {k: fdims[tag][name][k] for k in keys}
                         for tag in ("D32_bfloat16", "D96_bfloat16",
-                                    "D256_bfloat16", "D128_float16")},
+                                    "D160_bfloat16", "D256_bfloat16",
+                                    "D256_float16", "D128_float16")},
+             head_dims_entry_launches={
+                 f"D{D}": fdims[f"D{D}_entry_launches"][name]
+                 for D in (160, 256)},
              flashmask=dict(
                  launches=fm_entry["doc"]["launches"][name],
                  shape=fm_shape["doc"],
@@ -4786,9 +4927,11 @@ def main() -> int:
              design=dec["design"], splits=dec["splits"],
              shape="decode B=8 H=16 D=128 bs=32 bf16, lens 100..640",
              ragged_same_batch_ms=dec["ragged_same_batch_ms"],
-             fp32=dict(source="paddle_tpu_torch/csrc/"
-                              "paged_decode_attention.cu",
-                       **{k: dec["fp32"][k] for k in keys + ("design",)}),
+             stages=dec["stages"], stage_keys=dec["stage_keys"],
+             fp32=dict(source="paddle_tpu_torch/csrc/paged_decode_hopper.cu",
+                       **{k: dec["fp32"][k] for k in keys + (
+                           "design", "splits", "stages", "stage_keys")},
+                       two_program=two["fp32"]),
              long_rows={tag: {k: r[k] for k in keys + (
                  "splits", "unsplit_ms")}
                  for tag, r in dec["long_rows"].items()},

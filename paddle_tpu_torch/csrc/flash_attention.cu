@@ -208,13 +208,12 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 
 // What kernel serves a call of head dim D in `dtype` (codes as above), with
 // a bias or without, and how it tiles the scores: kernel 0 the forward, 1
-// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes, 1: WMMA through
-// shared memory, 2: wgmma with the scores in registers and the streamed
-// operands through a TMA ring), out[1] and out[2] the query rows and keys of
-// a tile, out[3] 1 where a block owns a key tile and walks the queries
-// (dK/dV), else 0. The constants are the ones the kernels are instantiated
-// with. Returns 0, or cudaErrorInvalidValue for a kernel, D or dtype no
-// kernel takes.
+// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes, 1: wgmma with the
+// scores in registers and the streamed operands through a TMA ring), out[1]
+// and out[2] the query rows and keys of a tile, out[3] 1 where a block owns
+// a key tile and walks the queries (dK/dV), else 0. The constants are the
+// ones the kernels are instantiated with. Returns 0, or
+// cudaErrorInvalidValue for a kernel, D or dtype no kernel takes.
 int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   using namespace ptt_flash;
   const int p = d_pad(D);
@@ -225,12 +224,11 @@ int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
     out[0] = 0;
     out[1] = out[2] = kTile;
   } else if (kernel == 2) {
-    const bool wg = p <= kDkvHopperMaxD;
-    out[0] = wg ? 2 : 1;
-    out[1] = wg ? kDkvHopperBM : kTile;
-    out[2] = wg ? kDkvHopperBN : kTile;
+    out[0] = 1;
+    out[1] = kDkvHopperBM;
+    out[2] = dkv_hopper_bn(w);
   } else {
-    out[0] = 2;
+    out[0] = 1;
     out[1] = kHopperBM;
     out[2] = kernel == 0 ? fwd_hopper_bn(w, bias != 0) : dq_hopper_bn(w);
   }

@@ -89,14 +89,11 @@
 // three products per visible pair, dK/dV four) on ~4x its bytes, so they
 // are FLOP-bound near 0.12 ms together; the dQ kernel does more (five
 // products in fp32, six in 16 bits: the delta pass and the lo half of ds).
-// The fp32 kernels here run their products on the FP32 pipes from padded
-// fp32 tiles. For bf16 and fp16, dq_run hands dQ to the wgmma kernel of
-// flash_dq_hopper.cu, and dkv_run hands dK/dV at D_pad <= 128 to the wgmma
-// kernel of flash_dkv_hopper.cu (transposed scores in registers, Q and dO
-// through a TMA ring). At D_pad 192 and 256 the 16-bit dK/dV kernel here
-// runs its products on the tensor cores through WMMA (ds and p rounded to T
-// for the products that take them; dk and dv accumulate in fp32 fragments
-// across the whole loop), each product round-tripping through shared memory.
+// The kernels here are the fp32 ones: their products run on the FP32 pipes
+// from padded fp32 tiles. For bf16 and fp16, dq_run hands dQ to the wgmma
+// kernel of flash_dq_hopper.cu, and dkv_run hands dK/dV to the wgmma
+// kernels of flash_dkv_hopper.cu (transposed scores in registers, Q and dO
+// through a TMA ring), at every width.
 
 #include "flash_common.cuh"
 
@@ -422,155 +419,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// bf16 / fp16 dK/dV at D_pad 192 and 256: the products on the tensor cores
-// through WMMA
-template <int D>
-constexpr size_t dkv_tc_smem() {
-  return 2 * (4 * kTile * tc_ld<D>() + 2 * kTile * kLdP) + sizeof(float) * kTile * kLdS;
-}
-
-template <typename T, int D, bool kBias, bool kInt, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 1) flash_dkv_tc_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  __shared__ IntTiles it;
-  constexpr int ld = tc_ld<D>(), NC = D / 16;
-  T* Ks = reinterpret_cast<T*>(smem_tc);  // [64][D + 8]
-  T* Vs = Ks + kTile * ld;                 // [64][D + 8]
-  T* Qs = Vs + kTile * ld;                 // [64][D + 8]
-  T* dOs = Qs + kTile * ld;                // [64][D + 8]
-  T* Ps = dOs + kTile * ld;                // [64 queries][72]: p, T
-  T* dSs = Ps + kTile * kLdP;              // [64 queries][72]: ds, T
-  float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdP);  // [64][68]: s, then dp
-
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int g = a.H / a.Hkv;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* kb = static_cast<const T*>(a.k) + b * a.vk.b + hk * a.vk.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vv.b + hk * a.vv.h;
-
-  load_tile_16<T, D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
-  load_tile_16<T, D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
-  const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
-  int qlo = 0, qhi = 0, klo = 0, khi = 0;
-  if (seg) {
-    load_seg(a.kseg + static_cast<long long>(b) * a.Sk, k0, a.Sk, it.kids);
-    __syncthreads();
-    seg_range(it.kids, a.Sk - k0, klo, khi);
-  }
-
-  FragC dk[D / 32], dv[D / 32];
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-
-  const int qt_first = query_begin(k0, a), q_end = query_end(k0, a);
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = hk * g + hh;
-    const T* qb = static_cast<const T*>(a.q) + b * a.vq.b + h * a.vq.h;
-    const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
-    const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
-    const long long bb = kBias ? bias_base(a, b, h) : 0;
-    if (fm && (hh == 0 || a.fm_hs != 0)) {  // this head's rows of the key tile
-      __syncthreads();  // the previous head's readers are done with it.fs / fe / red
-      load_fm(a, b, h, k0, it);
-    }
-    for (int q0 = qt_first; q0 < q_end; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs / it are done (Ks, Vs, rows loaded)
-      if (seg) {
-        load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
-        __syncthreads();
-        seg_range(it.qids, a.Sq - q0, qlo, qhi);
-        if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
-      }
-      if (fm && fm_tile_masked(it, q0, a.Sq)) continue;
-      load_tile_16<T, D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-      load_tile_16<T, D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
-      __syncthreads();
-      mma_abt_64x64<T, D>(Qs, Ks, Ss);  // s: rows queries, columns keys
-
-      float lse[4], delta[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qpos = q0 + ty + 16 * i;
-        const bool live = qpos < a.Sq;
-        lse[i] = live ? a.lse[row_base + qpos] : kNegInf;
-        delta[i] = live ? a.delta[row_base + qpos] : 0.f;
-      }
-      __syncthreads();
-      float p[4][4];
-      unsigned keep = 0xFFFFu;  // bit 4 i + j: element (i, j) kept
-      const unsigned kbits = kInt ? int_keep_bits<false, kDrop>(it, seg, fm, q0) : 0u;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const bool dead = lse[i] <= 0.5f * kNegInf;
-        const uint4 bits = kDrop ? drop_bits(a, b, h, q0 + r, k0 / 4 + tx) : uint4{};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = score_col<kDrop>(tx, j);
-          const bool ok = !dead && visible(q0 + r, k0 + c, a) &&
-                          (!kInt || (kbits >> (4 * i + j)) & 1u);
-          float sv = Ss[r * kLdS + c] * a.scale;
-          if (kBias && ok) sv += bias_at(a, bb, q0 + r, k0 + c);
-          p[i][j] = ok ? expf(sv - lse[i]) : 0.f;
-          float pd = p[i][j];
-          if (kDrop) {
-            if (word(bits, j) >= a.thresh) {
-              pd *= a.drop_scale;
-            } else {
-              pd = 0.f;
-              keep &= ~(1u << (4 * i + j));
-            }
-          }
-          Ps[r * kLdP + c] = from_f32<T>(pd);  // dv takes the dropped p
-        }
-      }
-      __syncthreads();
-      mma_abt_64x64<T, D>(dOs, Vs, Ss);  // dp over the scores' buffer
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = score_col<kDrop>(tx, j);
-          float dpv = Ss[r * kLdS + c];
-          if (kDrop) dpv = (keep >> (4 * i + j)) & 1u ? dpv * a.drop_scale : 0.f;
-          dSs[r * kLdP + c] = from_f32<T>(p[i][j] * (dpv - delta[i]) * a.scale);
-        }
-      }
-      __syncthreads();
-      mma_ab_64xD<T, D, wmma::col_major>(Ps, dOs, dv);   // dv += p^T dO
-      mma_ab_64xD<T, D, wmma::col_major>(dSs, Qs, dk);   // dk += ds^T q
-    }
-  }
-
-  // dk, then dv, through one fp32 [64][D + 4] staging tile over Qs and dOs
-  T* dkb = static_cast<T*>(a.dk);
-  T* dvb = static_cast<T*>(a.dv);
-  float* st = reinterpret_cast<float*>(Qs);
-  for (int which = 0; which < 2; ++which) {
-    __syncthreads();  // every warp is past its last product / read of the staging tile
-    if (which == 0)
-      store_64xD<D>(st, dk);
-    else
-      store_64xD<D>(st, dv);
-    __syncthreads();
-    T* outb = which == 0 ? dkb : dvb;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, kpos = k0 + r;
-      if (kpos >= a.Sk) continue;
-      const long long off = ((static_cast<long long>(b) * a.Sk + kpos) * a.Hkv + hk) * a.D;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (tx + 16 * c < a.D) outb[off + tx + 16 * c] = from_f32<T>(st[r * (D + 4) + tx + 16 * c]);
-    }
-  }
-}
-
 // kDq: the dQ kernel, else the dK/dV kernel (one object holds one of them)
 template <bool kDq, int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
@@ -580,16 +428,7 @@ int launch(const Args& a, int dtype, cudaStream_t s) {
     // fp32 only (dq_run hands the 16-bit calls to flash_dq_hopper.cu)
     return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
   } else {
-    // 16 bits: the WMMA kernel past kDkvHopperMaxD only (dkv_run hands the
-    // narrower calls to flash_dkv_hopper.cu)
-    if constexpr (D > kDkvHopperMaxD) {
-      if (dtype == kBF16)
-        return launch_kernel(flash_dkv_tc_kernel<bf16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
-                             grid, a, s);
-      if (dtype == kF16)
-        return launch_kernel(flash_dkv_tc_kernel<f16, D, kBias, kInt, kDrop>, dkv_tc_smem<D>(),
-                             grid, a, s);
-    }
+    // fp32 only (dkv_run hands the 16-bit calls to flash_dkv_hopper.cu)
     if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
     return launch_kernel(flash_dkv_kernel<D, kBias, kInt, kDrop>, dkv_smem<D>(), grid, a, s);
   }
@@ -625,9 +464,7 @@ template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
 #else
 template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t s) {
-  if constexpr (D <= kDkvHopperMaxD) {
-    if (dtype != kF32) return dkv_hopper_run<hopper_width(D)>(a, dtype, s);
-  }
+  if (dtype != kF32) return dkv_hopper_run<hopper_width(D)>(a, dtype, s);
   return bwd<false, D>(a, dtype, s);
 }
 template int dkv_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);

@@ -33,10 +33,9 @@
 // on the card.)
 //
 // Instances, each x 8 (bias, integer masks, dropout: template flags): the
-// fp32 kernels (3 kernels x 6 widths: 144), and in bf16 and fp16 the WMMA
-// dK/dV (D_pad 192 and 256: 32), the redesigned forward and dQ (wgmma +
-// TMA, 2 kernels x 4 widths: 128) and dK/dV (wgmma + TMA, D_pad 64 and 128:
-// 32): 336, built as 28 objects in parallel.
+// fp32 kernels (3 kernels x 6 widths: 144), and in bf16 and fp16 the
+// redesigned forward, dQ and dK/dV (wgmma + TMA, 3 kernels x 4 widths:
+// 192): 336, built as 30 objects in parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
 // thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j (j < 4)
@@ -49,7 +48,6 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <climits>
@@ -137,11 +135,9 @@ int fwd_hopper_run(const Args& a, int dtype, cudaStream_t stream);
 template <int D>
 int dq_hopper_run(const Args& a, int dtype, cudaStream_t stream);
 // The redesigned bf16 / fp16 dK/dV (flash_dkv_hopper.cu), one object per
-// width in {64, 128}; dkv_run hands it the 16-bit calls of D_pad <= 128
-// (kDkvHopperMaxD), the wider ones keep the WMMA kernel.
+// width in {64, 128, 192, 256}; dkv_run hands it every 16-bit call.
 template <int D>
 int dkv_hopper_run(const Args& a, int dtype, cudaStream_t stream);
-constexpr int kDkvHopperMaxD = 128;
 __host__ __device__ constexpr int hopper_width(int d_pad) { return (d_pad + 63) / 64 * 64; }
 
 // Their tiles, here alone (the C entry ptt_flash_plan reports them): blocks
@@ -156,9 +152,11 @@ __host__ __device__ constexpr int fwd_hopper_bn(int d_pad, bool bias) {
   return bias || d_pad > 128 ? 64 : 128;
 }
 __host__ __device__ constexpr int dq_hopper_bn(int d_pad) { return d_pad > 128 ? 32 : 64; }
-// dK/dV's: a block owns 128 keys (two consumer warpgroups of 64) and streams
-// query tiles of 64 rows.
-constexpr int kDkvHopperBN = 128;
+// dK/dV's: a block owns 128 keys (two consumer warpgroups of 64 keys each)
+// at D_pad <= 128, and 64 keys at 192 and 256 (two warpgroups over the same
+// keys, one holding dv and one dk: a 64 x D_pad fp32 accumulator is 96 or
+// 128 registers a thread); it streams query tiles of 64 rows.
+__host__ __device__ constexpr int dkv_hopper_bn(int d_pad) { return d_pad > 128 ? 64 : 128; }
 constexpr int kDkvHopperBM = 64;
 
 // ---------------------------------------------------------------------------
@@ -428,98 +426,6 @@ __device__ __forceinline__ void zero_dbias(const Args& a, long long row_base, in
     const int r = e / w, c = e % w;
     if (q0 + r < a.Sq) a.dbias[(row_base + q0 + r) * a.Sk + c0 + c] = 0.f;
   }
-}
-
-// ---------------------------------------------------------------------------
-// 16-bit tensor-core pieces (warp-level WMMA, bf16 or fp16 in, fp32
-// accumulate).
-//
-// A 16-bit tile lives in shared memory as [64][D + 8] (rows 16-byte aligned,
-// a 16-row step a multiple of 32 bytes, as load_matrix_sync needs). Eight
-// warps share a product: warp w owns the 16-row block w % 4 and half of the
-// 16-wide column blocks, (w / 4) * n + j for j < n.
-namespace wmma = nvcuda::wmma;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int D>
-__host__ __device__ constexpr int tc_ld() { return D + 8; }   // 16-bit [64][D] tile row stride
-constexpr int kLdS = kTile + 4;           // fp32 [64][64] score tile row stride
-constexpr int kLdP = kTile + 8;           // 16-bit [64][64] probability tile row stride
-
-// Rows row0 .. row0 + 63 of one (batch, head) slab -> shared memory with
-// row stride ld, copied as 16-byte words; rows at or past n_rows and columns
-// at or past d are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_16(const T* __restrict__ base, long long row_stride,
-                                             int row0, int n_rows, int d, T* dst, int ld) {
-  constexpr int kPerRow = D / 8;
-  for (int e = threadIdx.x; e < kTile * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, cv = e % kPerRow;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows && cv * 8 < d)
-      val = __ldg(reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride) + cv);
-    *reinterpret_cast<uint4*>(dst + r * ld + cv * 8) = val;
-  }
-}
-
-// C[64][64] (fp32, row stride kLdS) = A[64][D] . B[64][D]^T, both T with
-// row stride tc_ld<D>(): the score tile q k^T (or dO v^T).
-template <typename T, int D>
-__device__ __forceinline__ void mma_abt_64x64(const T* A, const T* Bm, float* C) {
-  constexpr int ld = tc_ld<D>();
-  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * 2;
-  FragC c[2];
-  wmma::fill_fragment(c[0], 0.f);
-  wmma::fill_fragment(c[1], 0.f);
-#pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, A + rb * 16 * ld + k, ld);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      // B^T as a column-major matrix: element (k', n) is Bm[n * ld + k']
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, Bm + (cb0 + j) * 16 * ld + k, ld);
-      wmma::mma_sync(c[j], fa, fb, c[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(C + rb * 16 * kLdS + (cb0 + j) * 16, c[j], kLdS, wmma::mem_row_major);
-}
-
-// acc += A . B with A a T [64][64] tile of row stride kLdP (transposed first
-// when LayoutA is col_major: A^T . B) and B a T [64][D] tile of row stride
-// tc_ld<D>(); acc holds this warp's D / 32 16 x 16 blocks of the [64][D]
-// result.
-template <typename T, int D, typename LayoutA>
-__device__ __forceinline__ void mma_ab_64xD(const T* A, const T* Bm, FragC (&acc)[D / 32]) {
-  constexpr int ld = tc_ld<D>(), n = D / 32;
-  constexpr bool kTrans = std::is_same<LayoutA, wmma::col_major>::value;
-  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * n;
-#pragma unroll
-  for (int k = 0; k < kTile; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LayoutA> fa;
-    wmma::load_matrix_sync(fa, kTrans ? A + rb * 16 + k * kLdP : A + rb * 16 * kLdP + k, kLdP);
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, Bm + k * ld + (cb0 + j) * 16, ld);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Stores this warp's blocks of a [64][D] accumulator into fp32 shared memory
-// of row stride D + 4.
-template <int D>
-__device__ __forceinline__ void store_64xD(float* C, const FragC (&acc)[D / 32]) {
-  constexpr int n = D / 32;
-  const int warp = threadIdx.x / 32, rb = warp % 4, cb0 = (warp / 4) * n;
-#pragma unroll
-  for (int j = 0; j < n; ++j)
-    wmma::store_matrix_sync(C + rb * 16 * (D + 4) + (cb0 + j) * 16, acc[j], D + 4,
-                            wmma::mem_row_major);
 }
 
 // Raise a kernel's dynamic shared-memory cap once, when it needs more than 48 KB.

@@ -11,11 +11,12 @@
 // heads of a kv head share its pages. A row with seq_len 0 writes zeros.
 //
 // Routes (ptt_paged_decode_plan reports them; the wrapper counts each):
-// bf16 / fp16 with D a multiple of 8 up to 256, pools 16-byte aligned and
-// pages of at most 128 keys that fit the ring go to paged_decode_hopper.cu
-// (split key ranges, pages through a bulk-copy ring, all 32 lanes on the
-// products); fp32, other head dims up to 256, misaligned pools and larger
-// pages to the kernel here. Both take any group size g.
+// fp32, bf16 and fp16 with D a whole number of 16-byte words up to 256 (a
+// multiple of 4 in fp32, of 8 in 16 bits), pools 16-byte aligned and pages
+// of at most 128 keys go to paged_decode_hopper.cu (split key ranges, pages
+// or their parts through a bulk-copy ring, all 32 lanes on the products);
+// other head dims up to 256, misaligned pools and larger pages to the
+// kernel here. Both take any group size g.
 //
 // TPU -> Hopper (the kernel here). The Pallas grid (B, H_kv, nb) walks the
 // table slots in order with m/l/acc in VMEM scratch, and clamps the
@@ -40,7 +41,7 @@ namespace ptt_paged_hopper {
 bool takes(int dtype, int bs, int D, bool aligned);
 int auto_splits(int B, int Hq, int Hkv, int nb);
 int rows_per_block(int g);
-int plan_stages(int B, int Hq, int Hkv, int bs, int D, int splits);
+int plan_stages(int B, int Hq, int Hkv, int bs, int D, int dtype, int splits, int* sub);
 int max_splits();
 int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
         const void* seq_lens, void* out, void* part, void* tickets, int B, int Hq, int Hkv,
@@ -264,7 +265,9 @@ int ptt_paged_decode_attention(const void* q, const void* k_pool, const void* v_
 // (2 = paged_decode_hopper.cu, 0 = the kernel here), out[1] the query rows
 // a block, out[2] the ring's stages (0 on the route here), out[3] the split
 // count the plan takes (1 on the route here), out[4] the most splits the
-// route takes. aligned: both pools 16-byte aligned.
+// route takes, out[5] the keys a ring stage carries (bs, or a part of the
+// page; 32, the key tile, on the route here). aligned: both pools 16-byte
+// aligned.
 int ptt_paged_decode_plan(int B, int Hq, int Hkv, int bs, int D, int nb, int dtype, int aligned,
                           int* out) {
   if (dtype < 0 || dtype > 2 || Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > kMaxD || bs < 1)
@@ -274,7 +277,7 @@ int ptt_paged_decode_plan(int B, int Hq, int Hkv, int bs, int D, int nb, int dty
     out[0] = 2;
     out[1] = ptt_paged_hopper::rows_per_block(g);
     out[3] = ptt_paged_hopper::auto_splits(B, Hq, Hkv, nb);
-    out[2] = ptt_paged_hopper::plan_stages(B, Hq, Hkv, bs, D, out[3]);
+    out[2] = ptt_paged_hopper::plan_stages(B, Hq, Hkv, bs, D, dtype, out[3], &out[5]);
     out[4] = ptt_paged_hopper::max_splits();
   } else {
     out[0] = 0;
@@ -282,6 +285,7 @@ int ptt_paged_decode_plan(int B, int Hq, int Hkv, int bs, int D, int nb, int dty
     out[2] = 0;
     out[3] = 1;
     out[4] = 1;
+    out[5] = kKeyTile;
   }
   return 0;
 }

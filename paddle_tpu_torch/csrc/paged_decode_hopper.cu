@@ -1,10 +1,10 @@
 // Decode-only paged attention for Hopper, redesigned for sm_90a: the kernel
-// for bf16 and fp16 queries over pools of their dtype with a head dim that
-// is whole 16-byte words (D % 8 == 0, D <= 256), pools 16-byte aligned, and
-// a page of at most 128 keys whose K and V fit twice in the ring.
-// paged_decode_attention.cu's entry hands it those calls; the others (fp32,
-// odd head dims, large pages) keep the kernel there (ptt_paged_decode_plan
-// reports the route).
+// for fp32, bf16 and fp16 queries over pools of their dtype with a head dim
+// that is whole 16-byte words (D % 8 == 0 in 16 bits, D % 4 == 0 in fp32;
+// D <= 256), pools 16-byte aligned, and a page of at most 128 keys.
+// paged_decode_attention.cu's entry hands it those calls; the others (odd
+// head dims, misaligned pools, larger pages) keep the kernel there
+// (ptt_paged_decode_plan reports the route).
 //
 // Replaces paddle_tpu/kernels/pallas/paged_attention.py
 // `paged_decode_attention` (kernel body `_decode_kernel`) for those calls:
@@ -28,21 +28,33 @@
 //   A block of 160 threads is one producer warp and four consumer warps;
 //   at most ~100 KB of shared memory (66 KB at the serving shape) lets two
 //   or three blocks share an SM; a grid smaller than the SMs takes a ring
-//   twice as deep.
-// - Pages in 16 bits, loaded asynchronously. A page of one kv head is one
-//   contiguous [bs, D] slab, so one 1-D bulk copy (cp.async.bulk, no tensor
-//   map) carries it. The producer lane reads block_tables[b, j] itself and
-//   keeps up to `stages` pages (K and V; 4 or 8, a multiple of the consumer
-//   warps) in a ring of full / empty mbarriers; no fp32 copy of a page
-//   reaches shared memory. Page i of the split goes to stage i % stages and
-//   consumer warp i % 4, so a stage always feeds one warp: the four warps
-//   take different pages, each with its own (m, l, acc), merged in shared
-//   memory at the end in warp order.
-// - The products on all 32 lanes. q . k: a lane per key (keys lane + 32 t),
-//   reading its key's row in 16-byte words, the word order rotated by the
-//   lane so that a quarter-warp's words sit in distinct banks; q sits in
-//   shared memory in fp32, pre-scaled by scale * log2(e), split in two
-//   halves of 4 columns a word so that its reads are conflict-free too. The
+//   twice as deep. In fp32 a page's K and V take twice the bytes: at the
+//   serving shape four stages of 32 KB, one block an SM.
+// - Pages in their own dtype, loaded asynchronously. A page of one kv head
+//   is one contiguous [bs, D] slab, so one 1-D bulk copy (cp.async.bulk, no
+//   tensor map) carries it. The producer lane reads block_tables[b, j]
+//   itself and keeps up to `stages` pages (K and V; 4 or 8, a multiple of
+//   the consumer warps) in a ring of full / empty mbarriers; no fp32 copy of
+//   a 16-bit page reaches shared memory. Page i of the split goes to stage
+//   i % stages and consumer warp i % 4, so a stage always feeds one warp: the
+//   four warps take different pages, each with its own (m, l, acc), merged
+//   in shared memory at the end in warp order.
+// - A page whose K and V do not fit four stages within kRingMax (fp32 at D
+//   256, or pages of 64 keys and more at D 128 in fp32, of 128 keys at D
+//   256 in 16 bits) is carried in parts: a stage holds `sub` = bs / 2^n of
+//   its keys (rows sub x part .. of the slab, contiguous again, one bulk
+//   copy each for K and V), and the ring walks the split's parts as it
+//   walks pages. A part holds at least 16 keys (half the warp's lanes busy
+//   in q . k at the least).
+// - The products on all 32 lanes, fp32 FFMA on the CUDA cores whatever the
+//   dtype (no TF32: fp32 pools give the reference's fp32 products). q . k: a
+//   lane per key (keys lane + 32 t), reading its key's row in 16-byte words
+//   (8 columns in 16 bits, 4 in fp32), the word order rotated by the lane so
+//   that a quarter-warp's words sit in distinct banks; q sits in shared
+//   memory in fp32, pre-scaled by scale * log2(e), 4 columns a float4 and
+//   laid out by k's words (16 bits: the word's two halves in two arrays; fp32:
+//   one) so that a quarter-warp reads 8 adjacent float4 too. Two FMA chains
+//   a row (a word's halves, or its even and odd columns in fp32). The
 //   softmax runs across the warp by shuffles (max) with the sum kept per
 //   lane until the end; p . v: each lane owns D_pad / 32 adjacent columns of
 //   every row, p broadcast from shared memory.
@@ -67,9 +79,12 @@
 // 8192 keys under GQA 16/4 (4 blocks unsplit) runs 7x faster at 16
 // splits. With 6 stages for 4 warps (a stage shared by two warps) a warp
 // read pages that had not arrived once the loads ran slow: hence stages a
-// multiple of the warps.
+// multiple of the warps. fp32 at the serving decode batch (4 stages of
+// whole pages, one split; kernels_ab.py, the same call): 0.0331 / 0.0328
+// ms against the fp32-tiles kernel's 0.2491 / 0.2497, bound 0.0148.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "dtypes.cuh"
 #include "flash_hopper.cuh"
@@ -89,6 +104,7 @@ constexpr int kMaxKeySlots = 4;             // keys lane + 32 t: bs <= 128
 constexpr int kRingBudget = 96 * 1024;      // two blocks an SM
 constexpr int kRingMax = 200 * 1024;        // at least kWarps stages
 constexpr int kMinPagesPerSplit = 2;
+constexpr int kMinPartKeys = 16;            // a page carried in parts: keys a part
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -103,27 +119,29 @@ struct DecodeArgs {
   unsigned* tickets;  // [B, H_kv, chunks], 0 between calls
   long long q_sb, q_sh;
   int B, Hq, Hkv, NB, bs, D, nb, g, rb, chunks, splits, per_split, stages;
+  int sub;  // keys a stage carries: the page (bs) or a part of it
   float scale_log2;
 };
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-// floats a consumer warp's region holds: p of its page, then its (acc, m,
-// l) for the merge
+// floats a consumer warp's region holds: p of its stage's keys, then its
+// (acc, m, l) for the merge
 __host__ __device__ inline int warp_floats(int bs, int D) { return round4(bs > D + 2 ? bs : D + 2); }
 
 struct Layout {
-  int page_bytes, ring, q, warp;  // byte offsets: ring, q, the warps' regions
+  int part_bytes, ring, q, warp;  // K (or V) bytes a stage; offsets: ring, q, the warps' regions
   int total;
 };
 
-__host__ __device__ inline Layout layout(int bs, int D, int rb, int stages, int elem) {
+// sub: the keys a stage carries
+__host__ __device__ inline Layout layout(int sub, int D, int rb, int stages, int elem) {
   Layout l{};
-  l.page_bytes = bs * D * elem;
+  l.part_bytes = sub * D * elem;
   l.ring = 256;  // the mbarriers (128 bytes) and a flag first
-  l.q = l.ring + stages * 2 * l.page_bytes;
+  l.q = l.ring + stages * 2 * l.part_bytes;
   l.warp = l.q + rb * D * 4;
-  l.total = l.warp + kWarps * rb * warp_floats(bs, D) * 4;
+  l.total = l.warp + kWarps * rb * warp_floats(sub, D) * 4;
   return l;
 }
 
@@ -153,10 +171,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// CPL adjacent 16-bit values at `p` (4, 8 or 16 bytes) in fp32
+// CPL adjacent values at `p` (16-bit: 4, 8 or 16 bytes; fp32: 8, 16 or 32)
+// in fp32
 template <typename T, int CPL>
 __device__ __forceinline__ void load_cols(const T* p, float (&f)[CPL]) {
-  if constexpr (CPL == 2) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (CPL == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      f[0] = v.x;
+      f[1] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < CPL / 4; ++i) {
+        const float4 v = reinterpret_cast<const float4*>(p)[i];
+        f[4 * i] = v.x; f[4 * i + 1] = v.y; f[4 * i + 2] = v.z; f[4 * i + 3] = v.w;
+      }
+    }
+  } else if constexpr (CPL == 2) {
     const float2 v = hw::unpack2<T>(*reinterpret_cast<const uint32_t*>(p));
     f[0] = v.x;
     f[1] = v.y;
@@ -176,9 +207,17 @@ __device__ __forceinline__ void load_cols(const T* p, float (&f)[CPL]) {
   }
 }
 
+// Two blocks an SM where the ring lets them share one; at D_pad 256, where
+// four stages take 128 KB (whole pages of 32 keys in 16 bits, parts of 16
+// keys in fp32) and a block has the SM to itself, the registers of one
+// (the 8-row instances spilled 68-104 bytes a thread under the two-block
+// bound).
 template <typename T, int RB, int DP>
-__global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const DecodeArgs a) {
+__global__ void __launch_bounds__(kThreads, DP > 128 ? 1 : 2)
+    paged_decode_hopper_kernel(const DecodeArgs a) {
   constexpr int CPL = DP / 32;  // columns a lane owns in p . v
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kWordCols = 16 / sizeof(T);  // columns a 16-byte word of k holds
   const int split = blockIdx.x % a.splits, chunk = blockIdx.x / a.splits;
   const int h = blockIdx.y, b = blockIdx.z;
   const int len = a.lens[b];
@@ -187,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
   const int p0 = split * a.per_split, p1 = min(p0 + a.per_split, n_pages);
   const int n_active = (n_pages + a.per_split - 1) / a.per_split;  // splits that hold pages
   const int row0 = chunk * RB, rows = min(RB, a.g - row0);
-  const int D = a.D, NC = D / 8;
+  const int D = a.D, NC = D / kWordCols;
   T* out = static_cast<T*>(a.out);
   const long long out_row0 = (static_cast<long long>(b) * a.Hq + h * a.g + row0) * D;
 
@@ -197,16 +236,19 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
       for (int e = threadIdx.x; e < rows * D; e += kThreads) out[out_row0 + e] = from_f32<T>(0.f);
     return;
   }
-  const int n = p1 - p0;
+  // the split's stages: its pages, or their parts of `sub` keys up to its
+  // last live key
+  const int sub = a.sub, nsub = a.bs / sub;
+  const int n = (min(key_end, p1 * a.bs) - p0 * a.bs + sub - 1) / sub;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(a.bs, D, RB, a.stages, sizeof(T));
+  const Layout L = layout(sub, D, RB, a.stages, sizeof(T));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
   int* last_flag = reinterpret_cast<int*>(empty + kMaxStages);
   unsigned char* ring = smem + L.ring;
   float* qs = reinterpret_cast<float*>(smem + L.q);
-  const int wf = warp_floats(a.bs, D);
+  const int wf = warp_floats(sub, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -219,7 +261,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
   __syncthreads();
 
   if (warp == kWarps) {
-    // producer: one lane walks the split's pages through the ring
+    // producer: one lane walks the split's pages (or their parts) through
+    // the ring
     if (lane != 0) return;
     const int* table = a.tables + static_cast<long long>(b) * a.nb;
     const size_t head = static_cast<size_t>(h) * a.NB;
@@ -229,17 +272,20 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
     for (int i = 0; i < n; ++i) {
       const int st = i % a.stages;
       hw::mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
-      const size_t off = (head + table[p0 + i]) * page_elems;
-      unsigned char* dst = ring + st * 2 * L.page_bytes;
-      hw::mbar_arrive_tx(&full[st], 2 * L.page_bytes);
-      bulk_load(dst, kp + off, L.page_bytes, &full[st]);
-      bulk_load(dst + L.page_bytes, vp + off, L.page_bytes, &full[st]);
+      const size_t off = (head + table[p0 + i / nsub]) * page_elems +
+                         static_cast<size_t>(i % nsub) * sub * D;
+      unsigned char* dst = ring + st * 2 * L.part_bytes;
+      hw::mbar_arrive_tx(&full[st], 2 * L.part_bytes);
+      bulk_load(dst, kp + off, L.part_bytes, &full[st]);
+      bulk_load(dst + L.part_bytes, vp + off, L.part_bytes, &full[st]);
     }
     return;
   }
 
-  // consumers: q's rows in fp32, pre-scaled, as two halves of 4 columns a
-  // 16-byte word of k: qs[((r * 2 + half) * NC + word) * 4 + j]
+  // consumers: q's rows in fp32, pre-scaled, 4 columns a float4 by the
+  // 16-byte words of k: in 16 bits the word's two halves in two arrays,
+  // qs[((r * 2 + half) * NC + word) * 4 + j]; in fp32 qs[(r * NC + word) * 4
+  // + j], the row as it is
   {
     const T* q = static_cast<const T*>(a.q);
     for (int e = threadIdx.x; e < RB * D; e += 32 * kWarps) {
@@ -247,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
       const float v = r < rows ? to_f32(q[b * a.q_sb + (h * a.g + row0 + r) * a.q_sh + d]) *
                                      a.scale_log2
                                : 0.f;
-      qs[((r * 2 + (d % 8) / 4) * NC + d / 8) * 4 + d % 4] = v;
+      qs[kF32 ? e : ((r * 2 + (d % 8) / 4) * NC + d / 8) * 4 + d % 4] = v;
     }
     consumer_sync();
   }
@@ -262,16 +308,16 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
     for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
   }
   float* mine = reinterpret_cast<float*>(smem + L.warp) + warp * RB * wf;
-  const int slots = (a.bs + 31) / 32;
+  const int slots = (sub + 31) / 32;
   const int col0 = lane * CPL;
   const int start = lane % NC;  // this lane's first word of a key row
 
   for (int i = warp; i < n; i += kWarps) {
     const int st = i % a.stages;
     hw::mbar_wait(&full[st], (i / a.stages) & 1);
-    const T* ks = reinterpret_cast<const T*>(ring + st * 2 * L.page_bytes);
-    const T* vs = ks + a.bs * D;
-    const int nk = min(a.bs, key_end - (p0 + i) * a.bs);  // live keys of the page (>= 1)
+    const T* ks = reinterpret_cast<const T*>(ring + st * 2 * L.part_bytes);
+    const T* vs = ks + sub * D;
+    const int nk = min(sub, key_end - p0 * a.bs - i * sub);  // live keys of the stage (>= 1)
 
     // s = q . k for key lane + 32 t
     float s[kMaxKeySlots][RB];
@@ -288,23 +334,39 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
         int w = start;
         for (int c = 0; c < NC; ++c) {
           const uint4 kw = krow[w];
-          const float2 k0 = hw::unpack2<T>(kw.x), k1 = hw::unpack2<T>(kw.y);
-          const float2 k2 = hw::unpack2<T>(kw.z), k3 = hw::unpack2<T>(kw.w);
+          if constexpr (kF32) {
+            const float4 k4 = *reinterpret_cast<const float4*>(&kw);
 #pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            // two independent chains: the word's low and high halves
-            const float4 qa = q4[(r * 2) * NC + w], qb = q4[(r * 2 + 1) * NC + w];
-            float d = s[t][r], e = s2[r];
-            d = fmaf(qa.x, k0.x, d);
-            e = fmaf(qb.x, k2.x, e);
-            d = fmaf(qa.y, k0.y, d);
-            e = fmaf(qb.y, k2.y, e);
-            d = fmaf(qa.z, k1.x, d);
-            e = fmaf(qb.z, k3.x, e);
-            d = fmaf(qa.w, k1.y, d);
-            e = fmaf(qb.w, k3.y, e);
-            s[t][r] = d;
-            s2[r] = e;
+            for (int r = 0; r < RB; ++r) {
+              // two independent chains: the word's even and odd columns
+              const float4 qa = q4[r * NC + w];
+              float d = s[t][r], e = s2[r];
+              d = fmaf(qa.x, k4.x, d);
+              e = fmaf(qa.y, k4.y, e);
+              d = fmaf(qa.z, k4.z, d);
+              e = fmaf(qa.w, k4.w, e);
+              s[t][r] = d;
+              s2[r] = e;
+            }
+          } else {
+            const float2 k0 = hw::unpack2<T>(kw.x), k1 = hw::unpack2<T>(kw.y);
+            const float2 k2 = hw::unpack2<T>(kw.z), k3 = hw::unpack2<T>(kw.w);
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              // two independent chains: the word's low and high halves
+              const float4 qa = q4[(r * 2) * NC + w], qb = q4[(r * 2 + 1) * NC + w];
+              float d = s[t][r], e = s2[r];
+              d = fmaf(qa.x, k0.x, d);
+              e = fmaf(qb.x, k2.x, e);
+              d = fmaf(qa.y, k0.y, d);
+              e = fmaf(qb.y, k2.y, e);
+              d = fmaf(qa.z, k1.x, d);
+              e = fmaf(qb.z, k3.x, e);
+              d = fmaf(qa.w, k1.y, d);
+              e = fmaf(qb.w, k3.y, e);
+              s[t][r] = d;
+              s2[r] = e;
+            }
           }
           if (++w == NC) w = 0;
         }
@@ -329,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
 #pragma unroll
       for (int t = 0; t < kMaxKeySlots; ++t) {
         const int key = lane + 32 * t;
-        if (t < slots && key < a.bs) {
+        if (t < slots && key < sub) {
           const float p = key < nk ? exp2f(s[t][r] - m_new) : 0.f;
           sum += p;
           mine[r * wf + key] = p;
@@ -356,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
         }
       }
     }
-    __syncwarp();  // the page and p are read: free the stage
+    __syncwarp();  // the stage and p are read: free the stage
     if (lane == 0) hw::mbar_arrive(&empty[st]);
   }
 
@@ -444,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_decode_hopper_kernel(const 
 template <typename T, int RB, int DP>
 int launch(const DecodeArgs& a, cudaStream_t stream) {
   auto* kernel = paged_decode_hopper_kernel<T, RB, DP>;
-  const int smem = layout(a.bs, a.D, RB, a.stages, sizeof(T)).total;
+  const int smem = layout(a.sub, a.D, RB, a.stages, sizeof(T)).total;
   static int smem_allowed = 48 * 1024;  // raised once per larger request
   if (smem > smem_allowed) {
     const cudaError_t e =
@@ -473,6 +535,8 @@ int launch_rb(const DecodeArgs& a, cudaStream_t stream) {
   }
 }
 
+int elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
+
 }  // namespace
 
 // The query rows a block (1, 2, 4 or 8: the group's width, rounded up,
@@ -497,18 +561,31 @@ int sm_count() {
 // ahead of the stage's and read a page that has not arrived). Two stages a
 // warp (its next page loads while it works on one) where the grid leaves
 // SMs free or the ring is small; one a warp where the blocks must share
-// SMs. `blocks`: the launch's grid.
-int ring_stages(int bs, int D, long long blocks) {
-  const int stage = 2 * bs * D * 2;
+// SMs. Where four stages of whole pages do not fit kRingMax, a stage holds
+// a part of a page (`sub` keys, bs halved until four fit; at least
+// kMinPartKeys). `blocks`: the launch's grid. stages 0: the ring does not
+// take the page.
+struct StagePlan {
+  int stages, sub;
+};
+
+StagePlan stage_plan(int bs, int D, int elem, long long blocks) {
+  const int page = 2 * bs * D * elem;
   const int budget = blocks <= sm_count() ? kRingMax : kRingBudget;
-  if (kMaxStages * stage <= budget) return kMaxStages;
-  return kWarps * stage <= kRingMax ? kWarps : 0;
+  if (kMaxStages * page <= budget) return {kMaxStages, bs};
+  int sub = bs;
+  while (kWarps * 2 * sub * D * elem > kRingMax && sub % 2 == 0 && sub / 2 >= kMinPartKeys)
+    sub /= 2;
+  return kWarps * 2 * sub * D * elem <= kRingMax ? StagePlan{kWarps, sub} : StagePlan{0, 0};
 }
 
-// The calls this kernel takes (the others go to paged_decode_attention.cu's).
+// The calls this kernel takes (the others go to paged_decode_attention.cu's):
+// a head dim of whole 16-byte words, aligned pools, pages of at most 128
+// keys that the ring holds (whole or in parts).
 bool takes(int dtype, int bs, int D, bool aligned) {
-  return (dtype == 1 || dtype == 2) && aligned && D % 8 == 0 && D <= 256 && bs >= 1 &&
-         bs <= 32 * kMaxKeySlots && ring_stages(bs, D, 1) > 0;
+  const int elem = elem_size(dtype);
+  return dtype >= 0 && dtype <= 2 && aligned && D % (16 / elem) == 0 && D <= 256 && bs >= 1 &&
+         bs <= 32 * kMaxKeySlots && stage_plan(bs, D, elem, 1).stages > 0;
 }
 
 int chunks_of(int g) { return (g + rows_per_block(g) - 1) / rows_per_block(g); }
@@ -529,9 +606,13 @@ int auto_splits(int B, int Hq, int Hkv, int nb) {
   return static_cast<int>(std::max(1LL, std::min(want, most)));
 }
 
-// The stages a launch with `splits` splits takes.
-int plan_stages(int B, int Hq, int Hkv, int bs, int D, int splits) {
-  return ring_stages(bs, D, static_cast<long long>(B) * Hkv * chunks_of(Hq / Hkv) * splits);
+// The stages a launch with `splits` splits takes, and (*sub) the keys a
+// stage carries.
+int plan_stages(int B, int Hq, int Hkv, int bs, int D, int dtype, int splits, int* sub) {
+  const StagePlan sp = stage_plan(bs, D, elem_size(dtype),
+                                  static_cast<long long>(B) * Hkv * chunks_of(Hq / Hkv) * splits);
+  *sub = sp.sub;
+  return sp.stages;
 }
 
 int max_splits() { return kMaxSplits; }
@@ -566,11 +647,13 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
   a.chunks = (a.g + a.rb - 1) / a.rb;
   a.splits = splits;
   a.per_split = (nb + splits - 1) / splits;
-  a.stages = plan_stages(B, Hq, Hkv, bs, D, splits);
+  a.stages = plan_stages(B, Hq, Hkv, bs, D, dtype, splits, &a.sub);
   a.scale_log2 = scale * kLog2e;
   if (splits < 1 || splits > kMaxSplits || (splits > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 1 ? launch_rb<__nv_bfloat16>(a, stream) : launch_rb<__half>(a, stream);
+  return ptt::by_dtype(dtype, [&](auto tag) {
+    return launch_rb<typename decltype(tag)::type>(a, stream);
+  });
 }
 
 }  // namespace ptt_paged_hopper

@@ -45,9 +45,9 @@ FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
 # the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
 # flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
 FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
-# the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): D_pad 64 and 128 (the
-# wider calls keep the WMMA kernel of flash_attention_bwd.cu)
-FLASH_DKV_HOPPER_D_PADS = (64, 128)
+# the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): one object per width
+# as well (192 and 256 take its split design)
+FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill

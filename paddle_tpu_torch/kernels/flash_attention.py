@@ -20,11 +20,13 @@ in fp32 from the kernel's own p and dP in a first pass over the keys, not
 from the saved output (``rowsum(dO * O)``, as the Pallas kernels form it),
 so that each row's dS sums to zero to fp32 rounding even where the output
 was rounded to 16 bits; the backward needs no ``out``. For bf16 and fp16 the
-products run on the tensor cores: the forward and dQ kernels through
-``wgmma``, with the scores, probabilities and accumulators in registers and
+products run on the tensor cores through ``wgmma``: the forward and dQ
+kernels with the scores, probabilities and accumulators in registers and
 K / V fed by a TMA ring (``csrc/flash_fwd_hopper.cu``,
-``csrc/flash_dq_hopper.cu``); the dK/dV kernel through warp-level WMMA from
-16-bit shared tiles; fp32 accumulators and the softmax in fp32 either way.
+``csrc/flash_dq_hopper.cu``), the dK/dV kernel with the transposed scores
+in registers and Q / dO fed by a TMA ring (``csrc/flash_dkv_hopper.cu``; at
+D_pad 192 and 256 one warpgroup holds dv and another dk over the same 64
+keys); fp32 accumulators and the softmax in fp32 either way.
 ``kernel_plan`` says which design and which tiles serve a call. For fp32 on the FP32 pipes
 from fp32 shared tiles, exact to fp32 rounding.
 
@@ -522,13 +524,13 @@ def _tag(q, k, bias, q_seg, dropout_p, fm=None, window=None):
 
 
 _PLAN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-_DESIGNS = ("fp32", "wmma", "wgmma+tma")
+_DESIGNS = ("fp32", "wgmma+tma")
 
 
 def kernel_plan(name: str, D: int, dtype, bias: bool = False) -> dict:
     """How the built library serves a call of ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) at head dim ``D`` in ``dtype``,
-    with or without a bias: ``design`` ("fp32", "wmma" or "wgmma+tma"),
+    with or without a bias: ``design`` ("fp32" or "wgmma+tma"),
     ``query_rows`` and ``keys`` of its tiles, and ``key_major`` (a block
     owns a key tile and walks the queries). Read from the library's
     ``ptt_flash_plan``, which reports the constants its kernels were

@@ -9,20 +9,22 @@ that ``kernel_plan`` reports. Decode is bandwidth-bound (a row reads its
 K / V pages once and does about one FLOP per byte), so both read each used
 page once and never a table slot past the row's length:
 
-* ``"bulk-ring"`` (``paddle_tpu_torch/csrc/paged_decode_hopper.cu``): bf16 /
-  fp16 with a head dim that is a multiple of 8 up to 256, 16-byte aligned
-  pools and pages of at most 128 keys. A row's pages are split into
-  contiguous ranges over blocks (the count from B x H_kv and the table
-  width, on the host); in a block a producer warp carries whole pages into
-  a shared-memory ring with 1-D bulk copies, four consumer warps take
-  different pages with a lane per key for q . k and D / 32 columns a lane
-  for p . v, and the last split to finish merges the others (an atomic
+* ``"bulk-ring"`` (``paddle_tpu_torch/csrc/paged_decode_hopper.cu``): fp32,
+  bf16 and fp16 with a head dim of whole 16-byte words up to 256 (a
+  multiple of 4 in fp32, of 8 in 16 bits), 16-byte aligned pools and pages
+  of at most 128 keys. A row's pages are split into contiguous ranges over
+  blocks (the count from B x H_kv and the table width, on the host); in a
+  block a producer warp carries whole pages (or, where four pages' K and V
+  do not fit the ring, parts of ``stage_keys`` keys) into a shared-memory
+  ring with 1-D bulk copies, four consumer warps take different pages with
+  a lane per key for q . k and D / 32 columns a lane for p . v (fp32 FFMA,
+  no TF32), and the last split to finish merges the others (an atomic
   ticket) in a fixed order. The splits' fp32 scratch and the tickets come
   from this wrapper;
 * ``"fp32-tiles"`` (``paddle_tpu_torch/csrc/paged_decode_attention.cu``):
-  fp32, other head dims up to 256, misaligned pools and larger pages: one
-  block per (row, kv head, chunk of the group) walks the row's live keys
-  32 at a time in fp32 shared tiles on the CUDA cores.
+  other head dims up to 256, misaligned pools and pages above 128 keys:
+  one block per (row, kv head, chunk of the group) walks the row's live
+  keys 32 at a time in fp32 shared tiles on the CUDA cores.
 
 Both take any group size g = H_q / H_kv; online softmax in fp32, fp32
 accumulation.
@@ -115,7 +117,7 @@ def _plan(device_index, B, hq, hkv, bs, D, nb, code, aligned):
     reads it on every launch and passes its split count on)."""
     import ctypes
     from ._build import load_library
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device_index):
         status = load_library().ptt_paged_decode_plan(
             B, hq, hkv, bs, D, nb, code, int(aligned), out)
@@ -123,7 +125,7 @@ def _plan(device_index, B, hq, hkv, bs, D, nb, code, aligned):
         raise ValueError(f"kernel_plan: no paged decode kernel for code "
                          f"{code}, H_q={hq} H_kv={hkv} D={D} bs={bs}")
     return dict(design=_DESIGNS[out[0]], rows=out[1], stages=out[2],
-                splits=out[3], max_splits=out[4])
+                splits=out[3], max_splits=out[4], stage_keys=out[5])
 
 
 def _plan_of(q, k_pool, block_tables, v_pool):
@@ -142,6 +144,8 @@ def kernel_plan(q, k_pool, block_tables, v_pool=None) -> dict:
     dtypes and pool alignment (no data is read): ``design`` ("bulk-ring" or
     "fp32-tiles", the two routes of the module note), ``rows`` (the group's
     query rows a block), ``stages`` (pages the ring holds; 0 off the ring),
+    ``stage_keys`` (the keys a stage carries: the page, or a part of it
+    where four pages do not fit the ring; the 32-key tile off the ring),
     ``splits`` (of a row's pages, from the table width) and ``max_splits``.
     Read from the library's ``ptt_paged_decode_plan``; it builds the library
     on first use."""

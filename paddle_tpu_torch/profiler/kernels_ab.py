@@ -1,5 +1,5 @@
-"""Time the paged attention, Adam, norm and RoPE kernels of two checkouts on
-one card, in turns.
+"""Time the paged attention, flash dK/dV, Adam, norm and RoPE kernels of two
+checkouts on one card, in turns.
 
     python3 -m paddle_tpu_torch.profiler.kernels_ab --parent DIR [--child DIR]
 
@@ -9,8 +9,10 @@ runs in its own process (the two packages share a name), in the order
 parent, child, child, parent, and times at bf16 the kernels of
 ``chip_smoke.py``'s main shapes: the ragged and paged decode kernels on a
 decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
-the ragged kernel on phase 3's mixed batch (4 rows, C 128) and on the decode
-batch over int8 pools,
+the paged decode kernel on that batch in fp32 too, the ragged kernel on
+phase 3's mixed batch (4 rows, C 128) and on the decode batch over int8
+pools, the flash dK/dV kernel at phase 25's call (B 8, S 1024, H 16,
+causal) at D 256 and D 160 in bf16 and D 256 in fp16,
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward on x [5120, 768] and its whole backward (dx, dw and db
 through the autograd Function, fp32 weight and bias: whatever kernels and
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import fused_adam as FAD
 from paddle_tpu_torch.kernels import layer_norm as LN
 from paddle_tpu_torch.kernels import paged_attention as PA
@@ -90,6 +93,21 @@ res["ragged_decode_int8"] = ms(lambda: RPA.ragged_paged_attention(
 del k8, v8
 res["paged_decode"] = ms(lambda: PA.paged_decode_attention(
     q[:, 0], k_pool, v_pool, tables, kv, 1 / math.sqrt(D)))
+q32, k32, v32 = (t.float() for t in (q[:, 0], k_pool, v_pool))
+res["paged_decode_fp32"] = ms(lambda: PA.paged_decode_attention(
+    q32, k32, v32, tables, kv, 1 / math.sqrt(D)))
+del q32, k32, v32
+# dK/dV at chip_smoke.py phase 25's call, from the forward's lse and dQ's
+# delta
+for Dh, dt in ((256, bf), (160, bf), (256, torch.float16)):
+    qf, kf, vf, dof = (rnd(8, 1024, 16, Dh).to(dt) for _ in range(4))
+    sc = 1 / math.sqrt(Dh)
+    _, lse = FA.flash_fwd(qf, kf, vf, True, sc)
+    _, delta = FA.flash_bwd_dq(qf, kf, vf, lse, dof, True, sc)
+    tag = "" if dt == bf else "_fp16"
+    res[f"flash_dkv_d{Dh}{tag}"] = ms(lambda: FA.flash_bwd_dkv(
+        qf, kf, vf, lse, delta, dof, True, sc))
+    del qf, kf, vf, dof, lse, delta
 # chip_smoke.py phase 3's case (b): a mixed batch of 4 rows, C 128 (a full
 # prefill chunk over 384 keys, a fresh 100-token prefill, a decode row over
 # 517 keys, an empty row)

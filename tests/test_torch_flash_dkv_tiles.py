@@ -6,7 +6,12 @@ query tiles of 64 streamed over the group's heads): key lengths 127, 128,
 129, 255 and 257 mixed with query lengths, causal with Sq < Sk, a window
 across a 128 boundary, GQA 8/2 and 16/4 (the group summed over its query
 heads), segment boundaries at 127 and 129, document flashmask rows across
-key tiles. Inputs come from numpy with a seed and go to both packages, as
+key tiles. At D 160, 192 and 256 the same at the edges of the kernel's
+split design (64 keys a block, two warpgroups over the same keys): key
+lengths 63, 64, 65, 127 and 129, causal and not, GQA 8/2, a window across
+a 64 boundary, segment cuts at 63 and 65, document rows across 64-key
+tiles (small shapes: the Pallas kernel runs in interpret mode).
+Inputs come from numpy with a seed and go to both packages, as
 ``test_torch_flash_tiles.py`` runs them; the port's dK/dV takes the delta of
 its own dQ (rowsum(p dP)). Tolerance: 2e-4 in fp32, relative to the
 reference's max-abs. The CUDA kernel is held to this plain backward on the
@@ -59,6 +64,23 @@ CASES = {
 }
 
 
+# the same at the split design's widths: + D
+WIDE_CASES = {
+    "causal-65x63-d256": (65, 63, 2, 2, True, None, None, None, None, 256),
+    "noncausal-64x129-gqa-8-2-d192": (64, 129, 8, 2, False, None, None, None,
+                                      None, 192),
+    "causal-129x65-d160": (129, 65, 2, 2, True, None, None, None, None, 160),
+    "causal-63x127-gqa-8-2-d256": (63, 127, 8, 2, True, None, None, None,
+                                   None, 256),
+    "window-128x128-across-64-d256": (128, 128, 2, 1, False, (50, 20), None,
+                                      None, None, 256),
+    "segments-cut-at-63-65-d192": (128, 128, 2, 2, False, None, (63, 65),
+                                   None, 64, 192),
+    "document-rows-across-key-tiles-d256": (128, 128, 2, 2, True, None, None,
+                                            (50, 30, 48), 64, 256),
+}
+
+
 def _close(got, ref, tol, what):
     scale = max(float(np.abs(ref).max()), 1.0)
     err = float(np.abs(got - ref).max()) / scale
@@ -67,9 +89,19 @@ def _close(got, ref, tol, what):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_dkv_match_jax_at_tile_edges(case):
-    sq, sk, H, Hkv, causal, window, cuts, docs, block = CASES[case]
-    D = 16
-    rng = np.random.RandomState(5 * sq + sk + H)
+    sq, sk, H = CASES[case][:3]
+    _check_case(*CASES[case], D=16, seed=5 * sq + sk + H)
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_plain_dkv_match_jax_at_split_tile_edges(case):
+    *rest, D = WIDE_CASES[case]
+    sq, sk, H = rest[:3]
+    _check_case(*rest, D=D, seed=5 * sq + sk + H + D)
+
+
+def _check_case(sq, sk, H, Hkv, causal, window, cuts, docs, block, D, seed):
+    rng = np.random.RandomState(seed)
     q, k, v, do = (rng.randn(*s).astype(np.float32)
                    for s in ((1, sq, H, D), (1, sk, Hkv, D), (1, sk, Hkv, D),
                              (1, sq, H, D)))

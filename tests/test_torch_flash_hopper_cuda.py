@@ -2,7 +2,8 @@
 (``csrc/flash_fwd_hopper.cu``, ``csrc/flash_dq_hopper.cu``: wgmma with the
 scores and accumulators in registers, K and V through a TMA ring;
 ``csrc/flash_dkv_hopper.cu``: transposed scores in registers, Q and dO
-through a TMA ring, at D_pad <= 128) against their plain PyTorch versions
+through a TMA ring, at every width; at D_pad 192 and 256 one warpgroup
+holds dv and another dk over 64 keys) against their plain PyTorch versions
 on the same inputs: out and lse, dq, delta and the d-bias, dk and dv. The
 grid:
 D 32, 40, 64, 96, 128, 192 and 256; bf16 and fp16; no variant, a bias,
@@ -11,10 +12,11 @@ non-causal and a window across two 128-row tiles; GQA groups of 1 and 4;
 Sq != Sk from {1, 63, 129, 1000}; dead rows. Also the forward's and dQ's
 dropout bits against ``dropout_keep_mask``, over one key tile and over
 several, the model's strided qkv views and a batch-broadcast key. dK/dV
-alone at every width it moved (D 32, 64, 96, 128) x bf16 / fp16 x each flag,
-GQA 8/2, key lengths across its 128-key blocks, and its dropout bits over
-several query tiles read out of dv. Tolerance: the bf16 / fp16 tier of
-``chip_smoke.py``, 2e-2 on the worst 64-row tile's relative l2.
+alone at every width (D 32, 64, 96, 128, 160, 192, 256) x bf16 / fp16 x
+each flag, GQA 8/2, key lengths across its 128- and 64-key blocks, and its
+dropout bits over several query tiles read out of dv. Tolerance: the
+bf16 / fp16 tier of ``chip_smoke.py``, 2e-2 on the worst 64-row tile's
+relative l2.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the JAX package:
@@ -279,18 +281,19 @@ def test_layouts_qkv_views_and_broadcast_key(card, dtype):
     _check(q, kb, vb, do, False, {}, "broadcast key")
 
 
-DKV_DIMS = (32, 64, 96, 128)     # the widths the wgmma dK/dV kernel takes
+DKV_DIMS = (32, 64, 96, 128, 160, 192, 256)  # every D_pad, 192 twice
 DKV_SHAPES = ((129, 257), (200, 127), (64, 255), (257, 128))
 
 
 def test_dkv_plan_reports_the_wgmma_kernel(card):
-    """kernel_plan: the wgmma dK/dV (a block of 128 keys streaming query
-    tiles of 64, key-major) at D_pad <= 128 in 16 bits; the WMMA kernel at
-    D_pad 192 and 256; the FP32 pipes for fp32."""
-    for D in DIMS:
+    """kernel_plan: the wgmma dK/dV at every 16-bit width, key-major,
+    streaming query tiles of 64: a block of 128 keys at D_pad <= 128, of 64
+    keys at D_pad 192 and 256 (two warpgroups over the same keys, one
+    holding dv and one dk); the FP32 pipes for fp32."""
+    for D in list(DIMS) + [1, 160, 200]:
         for dtype in DTYPES:
             plan = FA.kernel_plan("flash_bwd_dkv", D, dtype)
-            want = ("wgmma+tma", 64, 128) if D <= 128 else ("wmma", 64, 64)
+            want = ("wgmma+tma", 64, 128 if D <= 128 else 64)
             assert (plan["design"], plan["query_rows"], plan["keys"]) == want
             assert plan["key_major"]
         assert FA.kernel_plan("flash_bwd_dkv", D, torch.float32)["design"] \
@@ -302,8 +305,9 @@ def test_dkv_plan_reports_the_wgmma_kernel(card):
 @pytest.mark.parametrize("D", DKV_DIMS)
 def test_dkv_vs_plain(card, D, dtype, flag):
     """dK/dV (with the forward and dQ that feed it) at GQA 8/2 and 2/2, the
-    key lengths on both sides of the kernel's 128-key blocks and the query
-    lengths across its 64-row query tiles, causal, non-causal and a window."""
+    key lengths on both sides of the kernel's 128- and 64-key blocks and
+    the query lengths across its 64-row query tiles, causal, non-causal and
+    a window."""
     rng = np.random.RandomState(3 * D + 11 * FLAGS.index(flag))
     B = 2
     for idx, (mode, (H, hkv)) in enumerate(itertools.product(
@@ -322,10 +326,11 @@ def test_dkv_vs_plain(card, D, dtype, flag):
 
 @pytest.mark.parametrize("bias", (False, True), ids=("nobias", "bias"))
 @pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "fp16"))
-@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("D", (64, 128, 256))
 def test_dkv_keep_bits_across_query_tiles(card, D, dtype, bias):
     """dK/dV's keep bits over Sq = 200 queries (four of its query tiles of
-    64, the last partial) and Sk = 300 keys (three of its 128-key blocks),
+    64, the last partial) and Sk = 300 keys (three of its 128-key blocks,
+    five of its 64-key blocks at D 256),
     read out of dv: q = k = 0 makes every p 1 / Sk, and dO one-hot on
     queries [w, w + D) (dO[w + d, :, d] = 1) makes dv[key, d] the kept,
     rescaled p of query w + d, nonzero exactly where the forward kept the

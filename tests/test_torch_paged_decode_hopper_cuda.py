@@ -4,11 +4,13 @@ each against its plain PyTorch version on the same inputs.
 * Paged decode: the "bulk-ring" route (``csrc/paged_decode_hopper.cu``:
   split page ranges, a bulk-copy page ring, the splits merged by the last
   one to finish) over the shapes of the CPU goldens
-  (``test_torch_paged_decode_tiles.py``) in bf16 and fp16 with every split
-  count 1-16 forced and the plan's; the "fp32-tiles" route
-  (``csrc/paged_decode_attention.cu``) for fp32, a head dim that is not
-  whole 16-byte words, a misaligned pool and pages of 256 keys; two calls
-  give the same bits; pages in random table order. Tolerance: 1e-2 of the
+  (``test_torch_paged_decode_tiles.py``) and pages carried in parts (fp32
+  at D 256, pages of 64 keys at D 128 in fp32, of 128 keys at D 256) in
+  fp32, bf16 and fp16 with every split count 1-16 forced and the plan's;
+  the "fp32-tiles" route (``csrc/paged_decode_attention.cu``) for a head
+  dim that is not whole 16-byte words, a misaligned pool and pages of 256
+  keys, in fp32 and 16 bits; two calls give the same bits; twenty calls on
+  cold pages too; pages in random table order. Tolerance: 1e-2 of the
   reference's max-abs in 16 bits, 1e-5 in fp32; a len-0 row exact zeros.
 * The RMSNorm backward with dw summed in the kernel (``csrc/rms_norm.cu``,
   one cooperative launch): dx and dw at rows 1, 37 and 8192 with the row
@@ -55,6 +57,18 @@ CASES = {
     "serving-decode-batch": ([100, 173, 256, 311, 400, 467, 555, 640], 16, 16,
                              128, 32, 20),
 }
+# pages the ring carries in parts and the other edges of the fp32 calls on
+# the ring (test_torch_paged_decode_tiles.py's PART_CASES), and pages of 128
+# keys at D 256, in parts of 32 keys in 16 bits too
+RING_CASES = dict(CASES, **{
+    "d256-bs32-parts-of-16": ([15, 16, 17, 31, 32, 33, 63, 64, 65, 0], 2, 2,
+                              256, 32, 4),
+    "d128-bs64-g16-parts-of-32": ([31, 32, 33, 64, 129], 16, 1, 128, 64, 3),
+    "d64-bs8-g1-split-edges": ([15, 16, 17, 95, 96, 97], 2, 2, 64, 8, 16),
+    "d100-bs16-g4": ([40, 65, 0], 8, 2, 100, 16, 6),
+    "bs128-d256": ([127, 128, 129, 300], 4, 4, 256, 128, 3),
+})
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @pytest.fixture
@@ -95,15 +109,25 @@ def _held(out, ref, lens, tol, what):
             assert (out[b] == 0).all(), (what, b)
 
 
-@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16),
-                         ids=("bf16", "fp16"))
-@pytest.mark.parametrize("name", list(CASES))
+# D 100 is whole 16-byte words in fp32 only (in 16 bits it takes the
+# fp32-tiles route: test_shapes_off_the_ring_take_the_fp32_tiles_route)
+RING_PARAMS = [pytest.param(name, dt, id=f"{name}-{tag}")
+               for name in RING_CASES
+               for dt, tag in zip(DTYPES, ("fp32", "bf16", "fp16"))
+               if name != "d100-bs16-g4" or dt == torch.float32]
+
+
+@pytest.mark.parametrize("name,dtype", RING_PARAMS)
 def test_bulk_ring_vs_plain_at_every_split(card, name, dtype):
-    lens = CASES[name][0]
-    args, scale = _decode(card, dtype, *CASES[name])
+    lens, bs = RING_CASES[name][0], RING_CASES[name][4]
+    args, scale = _decode(card, dtype, *RING_CASES[name])
     plan = PA.kernel_plan(args[0], args[1], args[3], args[2])
     assert plan["design"] == "bulk-ring" and plan["max_splits"] == 16
-    assert plan["stages"] >= 2 and 1 <= plan["splits"] <= 16
+    assert plan["stages"] in (4, 8) and 1 <= plan["splits"] <= 16
+    sub = plan["stage_keys"]
+    assert bs % sub == 0 and (sub == bs or sub >= 16), plan
+    if name == "d256-bs32-parts-of-16" and dtype == torch.float32:
+        assert sub == 16, plan
     ref = PA.paged_decode_attention_plain(*args, scale)
     for splits in list(range(1, 17)) + [None]:
         n, r = (PA.paged_decode_attention.LAUNCHES,
@@ -115,17 +139,28 @@ def test_bulk_ring_vs_plain_at_every_split(card, name, dtype):
         _held(out, ref, lens, TOL[dtype], f"{name} splits={splits}")
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_fp32_tiles_route_vs_plain(card, name):
-    lens = CASES[name][0]
-    args, scale = _decode(card, torch.float32, *CASES[name])
-    assert PA.kernel_plan(args[0], args[1], args[3])["design"] == "fp32-tiles"
+@pytest.mark.parametrize("form", ["head-dim-102", "misaligned-pool",
+                                  "pages-of-256"])
+def test_fp32_tiles_route_vs_plain(card, form):
+    """The fp32 shapes the ring does not take: a head dim that is not whole
+    16-byte words, a pool off 16 bytes, pages above 128 keys."""
+    shape = {"head-dim-102": ([40, 0, 17], 4, 2, 102, 16, 4),
+             "misaligned-pool": ([40, 9], 4, 4, 64, 16, 4),
+             "pages-of-256": ([300, 5], 4, 4, 128, 256, 2)}[form]
+    args, scale = _decode(card, torch.float32, *shape)
+    if form == "misaligned-pool":
+        for i in (1, 2):
+            shifted = torch.empty(args[i].numel() + 1, dtype=torch.float32,
+                                  device=card)[1:].view(args[i].shape)
+            args[i] = shifted.copy_(args[i])
+    plan = PA.kernel_plan(args[0], args[1], args[3], args[2])
+    assert plan["design"] == "fp32-tiles", plan
     r = PA.paged_decode_attention.ROUTES["fp32-tiles"]
     out = PA.paged_decode_attention(*args, scale)
     torch.cuda.synchronize()
     assert PA.paged_decode_attention.ROUTES["fp32-tiles"] == r + 1
-    _held(out, PA.paged_decode_attention_plain(*args, scale), lens,
-          TOL[torch.float32], name)
+    _held(out, PA.paged_decode_attention_plain(*args, scale), shape[0],
+          TOL[torch.float32], form)
 
 
 @pytest.mark.parametrize("form", ["odd-head-dim-100", "fp16-head-dim-36",
@@ -157,9 +192,10 @@ def test_shapes_off_the_ring_take_the_fp32_tiles_route(card, form):
           TOL[dtype], form)
 
 
-def test_two_calls_give_the_same_bits_and_table_order_is_free(card):
-    args, scale = _decode(card, torch.bfloat16,
-                          *CASES["serving-decode-batch"])
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32),
+                         ids=("bf16", "fp32"))
+def test_two_calls_give_the_same_bits_and_table_order_is_free(card, dtype):
+    args, scale = _decode(card, dtype, *CASES["serving-decode-batch"])
     a = PA.paged_decode_attention(*args, scale, splits=5)
     b = PA.paged_decode_attention(*args, scale, splits=5)
     assert torch.equal(a, b)
@@ -175,12 +211,13 @@ def test_two_calls_give_the_same_bits_and_table_order_is_free(card):
     assert torch.equal(a, c)
 
 
-def test_repeated_calls_with_cold_pages_agree(card):
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32),
+                         ids=("bf16", "fp32"))
+def test_repeated_calls_with_cold_pages_agree(card, dtype):
     """Calls that find the pages cold (a 256 MB write between them) and the
     stream held back by a sleep, as the timings run them: the ring's stages
     and the splits' tickets give the same bits every time."""
-    args, scale = _decode(card, torch.bfloat16,
-                          *CASES["serving-decode-batch"])
+    args, scale = _decode(card, dtype, *CASES["serving-decode-batch"])
     flush = torch.empty(64 << 20, dtype=torch.float32, device=card)
     for splits in (1, 3, None):
         first = PA.paged_decode_attention(*args, scale, splits=splits)

@@ -9,7 +9,12 @@ block): lengths one short of, at and one past a page and a split boundary;
 g = 1, 4, 16 and MQA 32/1; D 64, 128 and 256; pages of 8, 16, 32 and 64
 keys; tables wider than the used pages, with real blocks in the unused
 slots; len 0; a length past the table; and the serving decode batch of
-``chip_smoke.py`` phase 10. Inputs come from numpy with a seed and go to
+``chip_smoke.py`` phase 10. In fp32 alone, the edges of the fp32 calls on
+the ring (``PART_CASES``): pages carried in parts of 16 or 32 keys (fp32
+at D 256, pages of 64 keys at D 128), lengths one short of, at and one past
+a part, a page and a split boundary, g 1 / 4 / 16, D 64 / 100 / 128 / 256
+(100: whole 16-byte words of fp32, not of 16 bits), pages of 8 to 64 keys.
+Inputs come from numpy with a seed and go to
 both packages, as ``test_torch_paged_decode.py`` runs them. Tolerances:
 fp32 1e-5 max-abs (summation order); bf16 1e-2 of the largest output (the
 rounding of q, the pages, the probabilities before p v in the JAX kernel,
@@ -50,6 +55,20 @@ CASES = {
     # interpreter walks every (row, head, table slot) grid step)
     "serving-decode-batch": ([100, 173, 256, 311, 400, 467, 555, 640], 2, 2,
                              128, 32, 20),
+}
+
+
+# the fp32 calls at the ring route's edges (lens, H_q, H_kv, D, bs, nb):
+# a stage of 16 keys, half a page (fp32 D 256 bs 32: 15 / 16 / 17 around a
+# part, 31 / 32 / 33 around a page, 63 / 64 / 65 around two splits of 2
+# pages), a stage of 32 keys of a 64-key page at D 128 under g 16, whole
+# pages of 8 keys in a wide table (many splits), g 4 at D 100
+PART_CASES = {
+    "d256-bs32-parts-of-16": ([15, 16, 17, 31, 32, 33, 63, 64, 65, 0], 2, 2,
+                              256, 32, 4),
+    "d128-bs64-g16-parts-of-32": ([31, 32, 33, 64, 129], 16, 1, 128, 64, 3),
+    "d64-bs8-g1-split-edges": ([15, 16, 17, 95, 96, 97], 2, 2, 64, 8, 16),
+    "d100-bs16-g4": ([40, 65, 0], 8, 2, 100, 16, 6),
 }
 
 
@@ -94,6 +113,23 @@ def test_plain_matches_jax_at_tile_and_split_edges(name, dtype):
     for b, ln in enumerate(case["seq_lens"]):
         if ln == 0:
             assert (got[b] == 0).all(), (name, b)
+
+
+@pytest.mark.parametrize("name", list(PART_CASES))
+def test_plain_matches_jax_fp32_at_the_ring_edges(name):
+    case = _case(*PART_CASES[name])
+    ref = np.asarray(jax_paged(*[jnp.asarray(case[n]) for n in NAMES],
+                               case["scale"]))
+    n = PA.paged_decode_attention.LAUNCHES
+    out = PA.paged_decode_attention(
+        *[torch.from_numpy(case[n]) for n in NAMES], case["scale"])
+    assert PA.paged_decode_attention.LAUNCHES == n
+    assert out.dtype == torch.float32 and out.shape == case["q"].shape
+    err = np.abs(out.numpy() - ref).max()
+    assert err <= 1e-5, (name, err)
+    for b, ln in enumerate(case["seq_lens"]):
+        if ln == 0:
+            assert (out[b] == 0).all(), (name, b)
 
 
 @pytest.mark.parametrize("hq,hkv,D", [(32, 1, 128), (4, 4, 256), (6, 2, 40),
