@@ -226,6 +226,7 @@ from paddle_tpu_torch.optimizer.optimizer import AdamW
 HBM_BYTES_PER_S = 3.35e12      # device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # dense TF32 tensor cores
 KERNEL_TOL = 1e-2              # max-abs err / max-abs ref (test_ragged_serving)
 TIMING_RUNS = 30
 # device-side sleep before each timed call, in clock cycles (milliseconds at
@@ -820,6 +821,15 @@ def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False, fm=None):
     return out
 
 
+def tf32_bound_ms(bound):
+    """The fp32 dQ / dK/dV bound of the TF32 tensor-core design (each
+    operand split in two halves: three products for each) from a
+    ``flash_bounds`` entry: its bytes against 3x its FLOPs at the dense
+    TF32 peak."""
+    _, _, nbytes, flops = bound
+    return max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+
+
 def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
                pairs=None):
     """The three kernels against their plain versions on the same inputs:
@@ -928,14 +938,22 @@ def check_attn(name, q, k, v, do, causal, var, bias_grad=False, card=None,
         bound, by, nbytes, flops = bounds[kname]
         design = FA.kernel_plan(kname, q.shape[-1], q.dtype,
                                 "bias" in var)["design"]
+        tf32 = (tf32_bound_ms(bounds[kname]) if design == "wgmma-3xtf32"
+                else None)
+        note = ("" if tf32 is None else
+                f" tf32x3_bound_ms {tf32:.4f} (3x the FLOPs at "
+                f"{TF32_FLOPS / 1e12:.0f} TFLOP/s) kernel/tf32x3 bound "
+                f"{kern / tf32:.1f}x")
         log(f"{name} {kname} [{design}]: kernel_ms {kern:.4f} plain_ms "
             f"{plain:.4f} library_ms {libt:.4f} bound_ms {bound:.4f} ({by}: "
             f"{nbytes} B, {flops} FLOP over {pairs} visible pairs) "
-            f"kernel/bound {kern / bound:.1f}x  [{card}]")
+            f"kernel/bound {kern / bound:.1f}x{note}  [{card}]")
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=libt, bound_ms=bound, bound_by=by,
                            bytes=nbytes, flops=flops, visible_pairs=pairs,
                            design=design)
+        if tf32 is not None:
+            recs[kname]["tf32x3_bound_ms"] = tf32
     lib_on = ", ".join(w for w, on in (("the same mask",
                                          mask is not None),
                                         ("dropout", p), ("GQA", gqa)) if on)
@@ -952,8 +970,11 @@ def flash_designs(name):
     with the scores and accumulators in registers, K / V through a TMA
     ring; the 16-bit dK/dV, csrc/flash_dkv_hopper.cu: transposed scores in
     registers, Q / dO through a TMA ring, at D_pad 192 and 256 one
-    warpgroup holding dv and another dk over 64 keys), "fp32" (the
-    FP32-pipe kernels); and the bf16 tiles (query rows x keys)."""
+    warpgroup holding dv and another dk over 64 keys), "wgmma-3xtf32" (the
+    fp32 dQ and dK/dV at D_pad <= 128, csrc/flash_dq_tf32_hopper.cu and
+    flash_dkv_tf32_hopper.cu: each operand split into two TF32 halves,
+    three products for each), "fp32" (the FP32-pipe kernels); and the bf16
+    and fp32 tiles (query rows x keys)."""
     from paddle_tpu_torch.kernels import _build
     out = {}
     for d in _build.FLASH_D_PADS:
@@ -963,7 +984,34 @@ def flash_designs(name):
                                              ("fp32", torch.float32))}
         plan = FA.kernel_plan(name, d, torch.bfloat16)
         out[f"D_pad {d}"]["tiles"] = [plan["query_rows"], plan["keys"]]
+        plan = FA.kernel_plan(name, d, torch.float32)
+        out[f"D_pad {d}"]["fp32_tiles"] = [plan["query_rows"], plan["keys"]]
     return out
+
+
+def tf32_ptxas(output):
+    """[(kernel, D_pad, bias, ints, dropout, registers, spill store bytes)]
+    of the fp32 dQ / dK/dV instances on the TF32 tensor cores, from
+    ptxas's -v lines."""
+    recs, cur, spill = [], None, None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.search(r"(flash_(?:dq|dkv)_tf32_kernel)ILi(\d+)ELb([01])"
+                            r"ELb([01])ELb([01])E", m.group(1))
+            spill = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name, *rest = cur.groups()
+            recs.append((name, *map(int, rest), int(m.group(1)), spill))
+            cur = None
+    return recs
 
 
 def wgmma_ptxas(output):
@@ -1035,6 +1083,7 @@ def flash_phase(card):
         torch.cuda.empty_cache()
     for name, shape, causal, dtype in (
             ("(b) GQA 16/4 bf16", (2, S, S, H, 4, D), True, torch.bfloat16),
+            ("(b) GQA 16/4 fp32", (2, S, S, H, 4, D), True, torch.float32),
             ("(c) rectangular causal sq 256 sk 1024 bf16",
              (2, 256, S, H, H, D), True, torch.bfloat16),
             ("(d) S=1000 bf16", (2, 1000, 1000, H, H, D), True,
@@ -1044,7 +1093,7 @@ def flash_phase(card):
         check_attn(name, *flash_case(*shape, dtype, seed=sum(shape[1:4])),
                    causal, {})
     torch.cuda.empty_cache()
-    return recs["bf16"]
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -4693,6 +4742,15 @@ def main() -> int:
         require(len(split) == 32 and not any(r[-1] for r in split),
                 f"dK/dV split instances: {len(split)}, spilling "
                 f"{[r for r in split if r[-1]]}")
+    tf32 = tf32_ptxas(_build.BUILD_LOG["output"])
+    for name, d, bias, ints, drop, regs, spill in tf32:
+        log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
+            f"{regs} registers at launch, {spill} bytes spill stores")
+    if _build.BUILD_LOG["output"]:
+        # the fp32 dQ and dK/dV on the TF32 tensor cores hold no spill
+        require(len(tf32) == 32 and not any(r[-1] for r in tf32),
+                f"fp32 TF32 instances: {len(tf32)}, spilling "
+                f"{[r for r in tf32 if r[-1]]}")
     dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
     for ty, rb, dp, regs, spill in dec_inst:
         log(f"  paged_decode_hopper_kernel<{ty}, rows {rb}, D_pad {dp}>: "
@@ -4733,7 +4791,8 @@ def main() -> int:
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("6. flash attention kernels vs plain on the card")
-    flash = flash_phase(card)
+    flash_recs = flash_phase(card)
+    flash = flash_recs["bf16"]
     log(f"phase {time.perf_counter() - t0:.1f} s")
     t0 = phase("7. fused Adam vs plain on the card")
     adam = adam_phase(card)
@@ -4897,7 +4956,11 @@ def main() -> int:
                  shape=fm_shape["window"],
                  **{k: fm_timed["window"][name][k] for k in fm_keys}),
              no_mask_retimed={tag: fm_entry[tag][name]
-                              for tag in ("gpt_flagship", "bert_packed")})
+                              for tag in ("gpt_flagship", "bert_packed")},
+             fp32=dict(shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v "
+                             "views of qkv",
+                       **{k: v for k, v in flash_recs["fp32"][name].items()
+                          if k in keys + ("design", "tf32x3_bound_ms")}))
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
              f"{fa}:451"),

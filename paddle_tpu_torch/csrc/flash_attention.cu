@@ -208,11 +208,14 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 
 // What kernel serves a call of head dim D in `dtype` (codes as above), with
 // a bias or without, and how it tiles the scores: kernel 0 the forward, 1
-// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes, 1: wgmma with the
-// scores in registers and the streamed operands through a TMA ring), out[1]
-// and out[2] the query rows and keys of a tile, out[3] 1 where a block owns
-// a key tile and walks the queries (dK/dV), else 0. The constants are the
-// ones the kernels are instantiated with. Returns 0, or
+// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes; 1: wgmma with the
+// scores in registers and the streamed operands through a TMA ring; 2: fp32
+// on the TF32 tensor cores, wgmma with each operand split into two TF32
+// halves and three products for each, the streamed operands through a TMA
+// ring and split in shared memory: the fp32 dQ and dK/dV at D_pad <= 128),
+// out[1] and out[2] the query rows and keys of a tile, out[3] 1 where a
+// block owns a key tile and walks the queries (dK/dV), else 0. The
+// constants are the ones the kernels are instantiated with. Returns 0, or
 // cudaErrorInvalidValue for a kernel, D or dtype no kernel takes.
 int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   using namespace ptt_flash;
@@ -220,7 +223,11 @@ int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   if (kernel < 0 || kernel > 2 || p == 0 || !dtype_ok(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hopper_width(p);
-  if (dtype == kF32) {
+  if (dtype == kF32 && kernel > 0 && p <= kTf32MaxD) {
+    out[0] = 2;
+    out[1] = kernel == 1 ? kTf32DqBM : kTf32DkvBM;
+    out[2] = kernel == 1 ? kTf32DqBN : kTf32DkvBN;
+  } else if (dtype == kF32) {
     out[0] = 0;
     out[1] = out[2] = kTile;
   } else if (kernel == 2) {

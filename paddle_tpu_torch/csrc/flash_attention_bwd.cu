@@ -11,7 +11,9 @@
 // lse is -1e30), dp = dO v^T and ds = p (dp - delta) scale with delta =
 // rowsum(p * dp); then dq = ds k, dk = ds^T q, dv = p^T dO. Any D up to 256
 // and fp32, bf16 or fp16, as the forward (flash_common.cuh); this file is
-// compiled twice per D_pad (-DPTT_FLASH_D), once for each kernel.
+// compiled twice per D_pad (-DPTT_FLASH_D), once for each kernel, and holds
+// the routing of every dtype and width: the FP32-pipe kernels below serve
+// fp32 at D_pad 192 and 256 only.
 //
 // delta. In exact arithmetic rowsum(p * dp) = rowsum(dO * O), which the
 // Pallas kernels (and FlashAttention-2) form from the saved O and dO tiles.
@@ -79,8 +81,8 @@
 // The band's loop bounds skip the tiles past the diagonal and outside the
 // window in both kernels.
 //
-// Shared memory at D_pad > 128 in fp32: four [64][D + 1] fp32 tiles do not
-// fit the 227 KB a block may hold, so those kernels keep one buffer for the
+// Shared memory: four [64][D + 1] fp32 tiles do not fit the 227 KB a block
+// may hold at D_pad 192 and 256, so these kernels keep one buffer for the
 // streamed pair (K then V in dQ, Q then dO in dK/dV) and load K (Q) a second
 // time for the last product; their accumulators take one block an SM.
 //
@@ -89,11 +91,15 @@
 // three products per visible pair, dK/dV four) on ~4x its bytes, so they
 // are FLOP-bound near 0.12 ms together; the dQ kernel does more (five
 // products in fp32, six in 16 bits: the delta pass and the lo half of ds).
-// The kernels here are the fp32 ones: their products run on the FP32 pipes
-// from padded fp32 tiles. For bf16 and fp16, dq_run hands dQ to the wgmma
-// kernel of flash_dq_hopper.cu, and dkv_run hands dK/dV to the wgmma
-// kernels of flash_dkv_hopper.cu (transposed scores in registers, Q and dO
-// through a TMA ring), at every width.
+// Routing (dq_run, dkv_run): bf16 and fp16 go to the wgmma kernels of
+// flash_dq_hopper.cu and flash_dkv_hopper.cu at every width; fp32 at D_pad
+// <= 128 to the TF32 tensor-core kernels of flash_dq_tf32_hopper.cu and
+// flash_dkv_tf32_hopper.cu (each operand split into two TF32 halves, three
+// products for each); fp32 at D_pad 192 and 256 to the FP32-pipe kernels
+// here, whose products run on the FP32 pipes from padded fp32 tiles. The
+// TF32 design does not fit those widths: its raw stationary tiles (Q and dO
+// in dQ, K and V in dK/dV) take 96 or 128 KB, and one stage of split
+// streamed tiles as much again at 32 rows, beside the written p / ds tiles.
 
 #include "flash_common.cuh"
 
@@ -106,12 +112,12 @@ namespace {
 
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * ((D > 128 ? 3 : 4) * kTile * (D + 1) + kTile * (kTile + 1));
+  return sizeof(float) * (3 * kTile * (D + 1) + kTile * (kTile + 1));
 }
 
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * ((D > 128 ? 3 : 4) * kTile * (D + 1) + 2 * kTile * (kTile + 1));
+  return sizeof(float) * (3 * kTile * (D + 1) + 2 * kTile * (kTile + 1));
 }
 
 // acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two padded tiles
@@ -159,6 +165,7 @@ __device__ __forceinline__ void tile_acc(const float* P, const float* X, float (
 
 // delta[i] = the half-warp's sum of part[i] (row ty + 16 i), written to the
 // [B, H, Sq] buffer for the dK/dV kernel.
+[[maybe_unused]]
 __device__ __forceinline__ void write_delta(const float (&part)[4], float (&delta)[4], int q0,
                                             long long row_base, const Args& a) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -172,6 +179,7 @@ __device__ __forceinline__ void write_delta(const float (&part)[4], float (&delt
 
 // The ends of the d-bias: before the first key tile the dQ block walked and
 // past its last, its rows' d-bias is zero.
+[[maybe_unused]]
 __device__ __forceinline__ void zero_dbias_ends(const Args& a, long long row_base, int q0,
                                                 int kbegin, int kend) {
   zero_dbias(a, row_base, q0, 0, kbegin < a.Sk ? kbegin : a.Sk);
@@ -184,13 +192,12 @@ template <int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ IntTiles it;
-  constexpr bool kOne = D > 128;  // one K / V buffer; K loaded again for ds k
+  // one K / V buffer: K, then V, then K again for ds k
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
-  float* Qs = smem;                        // [64][D + 1]
-  float* dOs = Qs + kTile * ld;            // [64][D + 1]
-  float* Ks = dOs + kTile * ld;            // [64][D + 1]
-  float* Vs = kOne ? Ks : Ks + kTile * ld; // [64][D + 1]
-  float* dSs = Vs + kTile * ld;            // [64][65]
+  float* Qs = smem;               // [64][D + 1]
+  float* dOs = Qs + kTile * ld;   // [64][D + 1]
+  float* KVs = dOs + kTile * ld;  // [64][D + 1]
+  float* dSs = KVs + kTile * ld;  // [64][65]
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
@@ -229,24 +236,21 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int kbegin = key_begin(q0, a), kend = key_end(q0, a);
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = kbegin; k0 < kend; k0 += kTile) {
-      __syncthreads();  // readers of Ks / Vs / dSs / it are done
+      __syncthreads();  // readers of KVs / dSs / it are done
       if (kInt && int_tile_skip(a, it, seg, fm, b, h, q0, k0, qlo, qhi)) {
         // the same answer in every thread
         if (pass == 1 && want_db) zero_dbias(a, row_base, q0, k0, min(k0 + kTile, a.Sk));
         continue;
       }
-      load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
-      if (!kOne) load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
+      load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, KVs, ld);
       __syncthreads();
 
       float s[4][4], dp[4][4];
-      tile_dot<D>(Qs, Ks, s);
-      if (kOne) {
-        __syncthreads();  // every score is read: V overwrites K
-        load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, Vs, ld);
-        __syncthreads();
-      }
-      tile_dot<D>(dOs, Vs, dp);
+      tile_dot<D>(Qs, KVs, s);
+      __syncthreads();  // every score is read: V overwrites K
+      load_tile<D>(vb, a.vv.s, k0, a.Sk, a.D, KVs, ld);
+      __syncthreads();
+      tile_dot<D>(dOs, KVs, dp);
       const unsigned kbits = kInt ? int_keep_bits<false, false>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -274,11 +278,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
       }
       if (pass == 0) continue;
       __syncthreads();
-      if (kOne) {
-        load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, Ks, ld);
-        __syncthreads();
-      }
-      tile_acc<D>(dSs, Ks, dq);
+      load_tile<D>(kb, a.vk.s, k0, a.Sk, a.D, KVs, ld);
+      __syncthreads();
+      tile_acc<D>(dSs, KVs, dq);
     }
     if (pass == 0) write_delta(part, delta, q0, row_base, a);
   }
@@ -301,14 +303,13 @@ template <int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ IntTiles it;
-  constexpr bool kOne = D > 128;  // one Q / dO buffer; Q loaded again for ds^T q
+  // one Q / dO buffer: Q, then dO, then Q again for ds^T q
   constexpr int ld = D + 1, ldp = kTile + 1, NC = D / 16;
-  float* Ks = smem;                           // [64][D + 1]
-  float* Vs = Ks + kTile * ld;                // [64][D + 1]
-  float* Qs = Vs + kTile * ld;                // [64][D + 1]
-  float* dOs = kOne ? Qs : Qs + kTile * ld;   // [64][D + 1]
-  float* Ps = dOs + kTile * ld;               // [64 keys][65]: p^T
-  float* dSs = Ps + kTile * ldp;              // [64 keys][65]: ds^T
+  float* Ks = smem;               // [64][D + 1]
+  float* Vs = Ks + kTile * ld;    // [64][D + 1]
+  float* QOs = Vs + kTile * ld;   // [64][D + 1]
+  float* Ps = QOs + kTile * ld;   // [64 keys][65]: p^T
+  float* dSs = Ps + kTile * ldp;  // [64 keys][65]: ds^T
 
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
   const int g = a.H / a.Hkv;
@@ -345,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       load_fm(a, b, h, k0, it);
     }
     for (int q0 = qt_first; q0 < q_end; q0 += kTile) {
-      __syncthreads();  // readers of Qs / dOs / Ps / dSs / it are done (Ks, Vs, rows loaded)
+      __syncthreads();  // readers of QOs / Ps / dSs / it are done (Ks, Vs, rows loaded)
       if (seg) {
         load_seg(a.qseg + static_cast<long long>(b) * a.Sq, q0, a.Sq, it.qids);
         __syncthreads();
@@ -353,8 +354,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;  // the same answer in every thread
       }
       if (fm && fm_tile_masked(it, q0, a.Sq)) continue;
-      load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-      if (!kOne) load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
+      load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, QOs, ld);
       __syncthreads();
 
       float lse[4], delta[4];
@@ -366,13 +366,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         delta[j] = live ? a.delta[row_base + qpos] : 0.f;
       }
       float s[4][4], dp[4][4];
-      tile_dot<D>(Ks, Qs, s);    // s^T: rows keys, columns queries
-      if (kOne) {
-        __syncthreads();  // every score is read: dO overwrites Q
-        load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, dOs, ld);
-        __syncthreads();
-      }
-      tile_dot<D>(Vs, dOs, dp);  // dp^T
+      tile_dot<D>(Ks, QOs, s);  // s^T: rows keys, columns queries
+      __syncthreads();           // every score is read: dO overwrites Q
+      load_tile<D>(dob, a.vdo.s, q0, a.Sq, a.D, QOs, ld);
+      __syncthreads();
+      tile_dot<D>(Vs, QOs, dp);  // dp^T
       const unsigned kbits = kInt ? int_keep_bits<true, false>(it, seg, fm, q0) : 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -393,13 +391,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         }
       }
       __syncthreads();
-      tile_acc<D>(Ps, dOs, dv);  // dv += p^T dO
-      if (kOne) {
-        __syncthreads();  // every dO is read: Q overwrites it
-        load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, Qs, ld);
-        __syncthreads();
-      }
-      tile_acc<D>(dSs, Qs, dk);  // dk += ds^T q
+      tile_acc<D>(Ps, QOs, dv);   // dv += p^T dO
+      __syncthreads();            // every dO is read: Q overwrites it
+      load_tile<D>(qb, a.vq.s, q0, a.Sq, a.D, QOs, ld);
+      __syncthreads();
+      tile_acc<D>(dSs, QOs, dk);  // dk += ds^T q
     }
   }
 
@@ -419,53 +415,58 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// kDq: the dQ kernel, else the dK/dV kernel (one object holds one of them)
+// kDq: the dQ kernel, else the dK/dV kernel (one object holds one of them);
+// fp32 at D_pad 192 and 256 only
 template <bool kDq, int D, bool kBias, bool kInt, bool kDrop>
-int launch(const Args& a, int dtype, cudaStream_t s) {
+int launch(const Args& a, cudaStream_t s) {
+  static_assert(D > kTf32MaxD, "the TF32 kernels serve fp32 at D_pad <= 128");
   const dim3 grid = kDq ? dim3((a.Sq + kTile - 1) / kTile, a.H, a.B)
                         : dim3((a.Sk + kTile - 1) / kTile, a.Hkv, a.B);
-  if constexpr (kDq) {
-    // fp32 only (dq_run hands the 16-bit calls to flash_dq_hopper.cu)
+  if constexpr (kDq)
     return launch_kernel(flash_dq_kernel<D, kBias, kInt, kDrop>, dq_smem<D>(), grid, a, s);
-  } else {
-    // fp32 only (dkv_run hands the 16-bit calls to flash_dkv_hopper.cu)
-    if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  else
     return launch_kernel(flash_dkv_kernel<D, kBias, kInt, kDrop>, dkv_smem<D>(), grid, a, s);
-  }
 }
 
 // the variants: integer masks (segments and / or flashmask rows) and dropout
 template <bool kDq, int D, bool kBias>
-int launch_flags(const Args& a, int dtype, cudaStream_t s) {
+int launch_flags(const Args& a, cudaStream_t s) {
   const bool ints = a.qseg != nullptr || a.fms != nullptr, drop = a.drop != 0;
-  if (ints && drop) return launch<kDq, D, kBias, true, true>(a, dtype, s);
-  if (ints) return launch<kDq, D, kBias, true, false>(a, dtype, s);
-  if (drop) return launch<kDq, D, kBias, false, true>(a, dtype, s);
-  return launch<kDq, D, kBias, false, false>(a, dtype, s);
+  if (ints && drop) return launch<kDq, D, kBias, true, true>(a, s);
+  if (ints) return launch<kDq, D, kBias, true, false>(a, s);
+  if (drop) return launch<kDq, D, kBias, false, true>(a, s);
+  return launch<kDq, D, kBias, false, false>(a, s);
 }
 
+// fp32: the TF32 tensor-core kernels at D_pad <= 128, the FP32-pipe ones
+// past it
 template <bool kDq, int D>
-int bwd(const Args& a, int dtype, cudaStream_t s) {
-  return a.bias != nullptr ? launch_flags<kDq, D, true>(a, dtype, s)
-                           : launch_flags<kDq, D, false>(a, dtype, s);
+int bwd_f32(const Args& a, cudaStream_t s) {
+  if constexpr (D <= kTf32MaxD && kDq)
+    return dq_tf32_run<hopper_width(D)>(a, s);
+  else if constexpr (D <= kTf32MaxD)
+    return dkv_tf32_run<hopper_width(D)>(a, s);
+  else
+    return a.bias != nullptr ? launch_flags<kDq, D, true>(a, s)
+                             : launch_flags<kDq, D, false>(a, s);
 }
 
 }  // namespace
 
-// one object holds the dQ kernels of one width (-DPTT_FLASH_DQ=1), another
-// its dK/dV kernels, so the family builds in parallel
+// one object holds the dQ routing of one width (-DPTT_FLASH_DQ=1), another
+// its dK/dV routing, so the family builds in parallel
 #if PTT_FLASH_DQ
 template <int D>
 int dq_run(const Args& a, int dtype, cudaStream_t s) {
   if (dtype != kF32) return dq_hopper_run<hopper_width(D)>(a, dtype, s);
-  return bwd<true, D>(a, dtype, s);
+  return bwd_f32<true, D>(a, s);
 }
 template int dq_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
 #else
 template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t s) {
   if (dtype != kF32) return dkv_hopper_run<hopper_width(D)>(a, dtype, s);
-  return bwd<false, D>(a, dtype, s);
+  return bwd_f32<false, D>(a, s);
 }
 template int dkv_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);
 #endif

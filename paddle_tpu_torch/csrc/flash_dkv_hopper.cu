@@ -98,15 +98,7 @@ namespace {
 
 constexpr int kBMQ = kDkvHopperBM;  // queries a streamed tile (flash_common.cuh)
 constexpr int kDkvStages = 2;
-
-// What the producer hands the consumers with each stage: the query tile's
-// first row (-1: the list ends) and its head in the group, the tile's query
-// segment ids and their range, and its lse (times log2 e) and delta.
-struct QSlot {
-  int q0, hh, qlo, qhi;
-  float lse[kBMQ], delta[kBMQ];
-  int qids[kBMQ];
-};
+using QSlot = QSlotT<kBMQ>;
 
 template <typename T, int D>
 struct DkvSmem {
@@ -122,189 +114,6 @@ struct DkvSmem {
   uint64_t full[kDkvStages], empty[kDkvStages], pready[kDkvStages], kvbar;
   QSlot slot[kDkvStages];
 };
-
-struct KeyBlockPos {
-  int k0, hk, b;
-};
-
-// Blocks in groups of kGroupHB (batch, kv head) pairs; inside a group the
-// key tiles in order from the first, which sees the most queries under
-// causal masking.
-template <int BN>
-__device__ __forceinline__ KeyBlockPos key_block_pos(const Args& a, int idx) {
-  const int nkt = (a.Sk + BN - 1) / BN, hbs = a.Hkv * a.B;
-  const int group = idx / (kGroupHB * nkt);
-  const int g = min(kGroupHB, hbs - group * kGroupHB);
-  const int r = idx - group * kGroupHB * nkt;
-  const int hb = group * kGroupHB + r % g;
-  return KeyBlockPos{(r / g) * BN, hb % a.Hkv, hb / a.Hkv};
-}
-
-// Queries [first, end) can see keys [k0, k0 + BN) by the band (first a
-// multiple of kBMQ).
-__device__ __forceinline__ int blk_query_begin(int k0, const Args& a) {
-  const long long first = static_cast<long long>(k0) - (a.Sk - a.Sq) - a.band_hi;
-  return first <= 0 ? 0 : static_cast<int>(first / kBMQ) * kBMQ;
-}
-
-template <int BN>
-__device__ __forceinline__ int blk_query_end(int k0, const Args& a) {
-  const long long last = static_cast<long long>(k0) + BN - (a.Sk - a.Sq) - a.band_lo;
-  return last <= 0 ? 0 : static_cast<int>(last < a.Sq ? last : a.Sq);
-}
-
-// The visibility bits of this thread's elements of a key-major tile: bit
-// 4 j + 2 i + e is key row kpos[i], query q0 + 8 j + 2 (l % 4) + e; set iff
-// the pair is in range, inside the band, within one segment and outside the
-// key's flashmask rows [fs, fe).
-template <bool kInt>
-__device__ __forceinline__ uint64_t kt_visible_bits(const Args& a, const QSlot& sl, bool seg,
-                                                    bool fm, int q0, const int (&kpos)[2],
-                                                    const int (&kid)[2], const int (&fs)[2],
-                                                    const int (&fe)[2]) {
-  const int lane = threadIdx.x % 32;
-  uint64_t bits = 0;
-#pragma unroll 2
-  for (int j = 0; j < kBMQ / 8; ++j) {
-    unsigned g = 0;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = 8 * j + 2 * (lane % 4) + e, qpos = q0 + col;
-      const int qid = kInt && seg ? sl.qids[col] : 0;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        bool ok = visible(qpos, kpos[i], a);
-        if (kInt) ok = ok && (!seg || qid == kid[i]) && (!fm || qpos < fs[i] || qpos >= fe[i]);
-        g |= (ok ? 1u : 0u) << (2 * i + e);
-      }
-    }
-    bits |= static_cast<uint64_t>(g) << (4 * j);
-  }
-  return bits;
-}
-
-// All bits set, with no per-element test, where the warpgroup's 64 keys
-// [ka, ka + 64) lie wholly inside the band for the tile's queries and the
-// integer masks provably spare this thread's pairs: the tile's queries all
-// carry the one segment id of both keys, and both keys' flashmask bands miss
-// the tile's queries. Else kt_visible_bits, without the masks so proved
-// absent.
-template <bool kInt>
-__device__ __forceinline__ uint64_t kt_tile_mask(const Args& a, const QSlot& sl, bool seg,
-                                                 bool fm, int q0, int ka, const int (&kpos)[2],
-                                                 const int (&kid)[2], const int (&fs)[2],
-                                                 const int (&fe)[2]) {
-  const bool band = tile_in_band<64>(q0, ka, a);
-  if (!kInt) return band ? ~0ull : kt_visible_bits<false>(a, sl, false, false, q0, kpos, kid, fs, fe);
-  const bool seg_free = !seg || (sl.qlo == sl.qhi && kid[0] == sl.qlo && kid[1] == sl.qlo);
-  const int qlast = q0 + kBMQ - 1;
-  const bool fm_free = !fm || ((fe[0] <= q0 || fs[0] > qlast || fs[0] >= fe[0]) &&
-                               (fe[1] <= q0 || fs[1] > qlast || fs[1] >= fe[1]));
-  if (band && seg_free && fm_free) return ~0ull;
-  return kt_visible_bits<true>(a, sl, seg && !seg_free, fm && !fm_free, q0, kpos, kid, fs, fe);
-}
-
-// The dropout keep bits of this thread's elements of a key-major tile (bit
-// 4 j + 2 i + e as kt_visible_bits). Lane l = 16 m + 4 s + (l % 4) holds key
-// rows 4 m + s (+ 8) of its warp's 16, so keys 4 c .. 4 c + 3 of one Philox
-// call sit in the four lanes s = 0..3. In group j lane s makes the call of
-// column 2 (l % 4) + (s >> 1), key row s & 1, keeps word s and hands word
-// s ^ x to lane s ^ x (x = 1, 2, 3): four calls, one a lane, give the four
-// lanes all 16 bits of the group.
-__device__ __forceinline__ uint64_t kt_keep_bits(const Args& a, int b, int h, int q0, int key0) {
-  const int lane = threadIdx.x % 32, s = (lane >> 2) & 3;
-  const int e_own = s >> 1, i_own = s & 1;
-  // key0: the thread's row-0 key; its word is s, its group key0 / 4; row 1
-  // is 8 keys on, two groups
-  const int c4 = key0 / 4 + 2 * i_own;
-  uint64_t keep = 0;
-#pragma unroll 2
-  for (int j = 0; j < kBMQ / 8; ++j) {
-    const int qpos = q0 + 8 * j + 2 * (lane % 4) + e_own;
-    const uint4 w = drop_bits(a, b, h, qpos, c4);
-    unsigned g = (word(w, s) >= a.thresh ? 1u : 0u) << (2 * i_own + e_own);
-#pragma unroll
-    for (int x = 1; x < 4; ++x) {
-      const uint32_t got = __shfl_xor_sync(0xffffffffu, word(w, s ^ x), 4 * x);
-      const int sp = s ^ x;  // the partner's call: row sp & 1, column sp >> 1
-      g |= (got >= a.thresh ? 1u : 0u) << (2 * (sp & 1) + (sp >> 1));
-    }
-    keep |= static_cast<uint64_t>(g) << (4 * j);
-  }
-  return keep;
-}
-
-// The bias of the key-major tile added in place (masked elements keep their
-// value: the caller zeroes their p). Every load is unconditional from an
-// address clamped into the bias, in chunks of 4 column groups (16 values);
-// the next chunk's loads wait for this one's sums. kChained: the
-// next chunk's query rows wait for them too. The split design's warpgroup
-// 1 holds 128 registers of dv beside the scores, and there the compiler
-// formed every chunk's 64-bit row offsets up front: the D_pad 256
-// instances spilled 24-76 bytes a thread (`cuobjdump -sass` put the spills
-// on those offsets; smaller chunks alone did not help). Chained, a chunk's
-// offsets are formed after the previous chunk's sums (and split_p
-// holds neither the integer masks' key data nor the keep bits across them).
-template <typename BT, bool kChained>
-__device__ __forceinline__ void add_bias_kt_t(float (&s)[kBMQ / 2], const Args& a, long long bb,
-                                              int q0, const int (&kpos)[2], uint64_t vis) {
-  const int lane = threadIdx.x % 32;
-  const BT* base = static_cast<const BT*>(a.bias) + bb;
-  long long koff[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) koff[i] = static_cast<long long>(min(kpos[i], a.Sk - 1)) * a.vb.k;
-  constexpr int kChunk = 4;
-  int qz = 0;  // 0, after the previous chunk's sums (kChained)
-#pragma unroll
-  for (int j0 = 0; j0 < kBMQ / 8; j0 += kChunk) {
-#pragma unroll
-    for (int j = j0; j < j0 + kChunk; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qpos = min(q0 + 8 * j + 2 * (lane % 4) + e, a.Sq - 1) + qz;
-        const BT* row = base + static_cast<long long>(qpos) * a.vb.q;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = 4 * j + 2 * i + e;
-          const float v = to_f32(row[koff[i]]);
-          s[r] += (vis >> r) & 1u ? v : 0.f;
-        }
-      }
-    const int z = opaque_zero(s[4 * (j0 + kChunk - 1) + 3]);
-    if (kChained)
-      qz = z;
-    else
-      base += z;
-  }
-}
-
-template <bool kChained = false>
-__device__ __forceinline__ void add_bias_kt(float (&s)[kBMQ / 2], const Args& a, long long bb,
-                                            int q0, const int (&kpos)[2], uint64_t vis) {
-  switch (a.bias_dtype) {
-    case kBF16:
-      add_bias_kt_t<bf16, kChained>(s, a, bb, q0, kpos, vis);
-      break;
-    case kF16:
-      add_bias_kt_t<f16, kChained>(s, a, bb, q0, kpos, vis);
-      break;
-    default:
-      add_bias_kt_t<float, kChained>(s, a, bb, q0, kpos, vis);
-  }
-}
-
-// The flashmask rows (start, end) of this thread's two keys for query head
-// h (a key past Sk: rows that mask nothing; visible() drops it).
-__device__ __forceinline__ void key_rows(const Args& a, int b, int h, const int (&kpos)[2],
-                                         int (&fs)[2], int (&fe)[2]) {
-  const long long rows = fm_row(a, b, h);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = kpos[i] < a.Sk;
-    fs[i] = in ? a.fms[rows + kpos[i]] : 0;
-    fe[i] = in ? a.fme[rows + kpos[i]] : 0;
-  }
-}
 
 // The stage after `stage`: the ring's next stage, its phase flipped on the
 // wrap.
@@ -349,7 +158,7 @@ __device__ __forceinline__ void produce(DkvSmem<T, D>& sm, const CUtensorMap* tq
     klo = __reduce_min_sync(0xffffffffu, klo);
     khi = __reduce_max_sync(0xffffffffu, khi);
   }
-  const int qbegin = blk_query_begin(k0, a), qend = blk_query_end<kBN>(k0, a);
+  const int qbegin = blk_query_begin<kBMQ>(k0, a), qend = blk_query_end<kBN>(k0, a);
   int stage = 0;
   uint32_t phase = 0;
   int smax = INT_MIN, emin = INT_MAX;
@@ -498,14 +307,14 @@ __device__ __forceinline__ void consume_pairs(DkvSmem<T, D>& sm, const Args& a, 
       // the masks and the dropout bits are formed while the tensor cores
       // form S^T and dP^T
       const uint64_t vis = kt_tile_mask<kInt>(a, sl, seg, fm, q0, ka, kpos, kid, fs, fe);
-      const uint64_t keep = kDrop ? kt_keep_bits(a, b, h, q0, kpos[0]) : 0;
+      const uint64_t keep = kDrop ? kt_keep_bits<kBMQ>(a, b, h, q0, kpos[0]) : 0;
       wgmma_wait_all();
       reg_fence(s);
       reg_fence(dp);
       if (kBias) {
 #pragma unroll
         for (int r = 0; r < kBMQ / 2; ++r) s[r] *= a.scale;
-        add_bias_kt(s, a, bias_base(a, b, h), q0, kpos, vis);
+        add_bias_kt<false, kBMQ>(s, a, bias_base(a, b, h), q0, kpos, vis);
       }
       uint32_t pa[kBMQ / 16][4], dsa[kBMQ / 16][4];
 #pragma unroll
@@ -619,14 +428,14 @@ __device__ __forceinline__ void split_p(DkvSmem<T, D>& sm, const Args& a, KeyBlo
       const uint64_t vis = kt_tile_mask<kInt>(a, sl, seg, fm, q0, k0, kpos, kid, fs, fe);
       // beside a bias the keep bits wait until it is added (fewer registers
       // live across the bias loads)
-      uint64_t keep = kDrop && !kBias ? kt_keep_bits(a, b, h, q0, kpos[0]) : 0;
+      uint64_t keep = kDrop && !kBias ? kt_keep_bits<kBMQ>(a, b, h, q0, kpos[0]) : 0;
       wgmma_wait_all();
       reg_fence(s);
       if (kBias) {
 #pragma unroll
         for (int r = 0; r < kBMQ / 2; ++r) s[r] *= a.scale;
-        add_bias_kt<true>(s, a, bias_base(a, b, h), q0, kpos, vis);
-        if (kDrop) keep = kt_keep_bits(a, b, h, q0, kpos[0]);
+        add_bias_kt<true, kBMQ>(s, a, bias_base(a, b, h), q0, kpos, vis);
+        if (kDrop) keep = kt_keep_bits<kBMQ>(a, b, h, q0, kpos[0]);
       }
       uint32_t pa[kBMQ / 16][4];
       float4* pw = sm.p + stage * kWords * 128 + t;  // this thread's p words, 128 apart

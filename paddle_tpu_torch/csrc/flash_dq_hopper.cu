@@ -79,40 +79,6 @@ struct DqSmem {
   Slot<BN> slot[kDqStages];
 };
 
-// Zeros into the d-bias of the warpgroup's rows [qa, qa + 64) (those < Sq),
-// key columns [c0, c1).
-__device__ __forceinline__ void zero_dbias_wg(const Args& a, long long row_base, int qa, int c0,
-                                              int c1) {
-  const int w = c1 - c0;
-  if (w <= 0) return;
-  for (int e = threadIdx.x % 128; e < 64 * w; e += 128) {
-    const int r = e / w, c = e % w;
-    if (qa + r < a.Sq) a.dbias[(row_base + qa + r) * a.Sk + c0 + c] = 0.f;
-  }
-}
-
-// p and the dropout-masked, rescaled dP of one key tile, in place on the
-// fragments s and dp: p = exp(scale s + bias - lse), 0 where masked and on a
-// dead row.
-template <int BN, bool kBias, bool kDrop>
-__device__ __forceinline__ void probs_tile(float (&s)[BN / 2], float (&dp)[BN / 2],
-                                           const Args& a, int k0, const int (&qpos)[2],
-                                           const float (&lse)[2], const bool (&dead)[2],
-                                           long long bb, uint64_t vis, uint64_t keep) {
-  // a dead row's lse is -1e30: its p is 0, never exp(s + 1e30)
-  if (dead[0]) vis &= ~0x3333333333333333ull;
-  if (dead[1]) vis &= ~0xCCCCCCCCCCCCCCCCull;
-#pragma unroll
-  for (int r = 0; r < BN / 2; ++r) s[r] *= a.scale;
-  if (kBias) add_bias<BN>(s, a, bb, k0, qpos, vis);
-#pragma unroll
-  for (int r = 0; r < BN / 2; ++r) {
-    const int i = (r / 2) % 2;
-    s[r] = (vis >> r) & 1u ? exp2f((s[r] - lse[i]) * kLog2e) : 0.f;
-    if (kDrop) dp[r] = (keep >> r) & 1u ? dp[r] * a.drop_scale : 0.f;
-  }
-}
-
 template <typename T, int D, bool kBias, bool kInt, bool kDrop>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,

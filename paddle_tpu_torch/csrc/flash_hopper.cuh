@@ -425,13 +425,14 @@ struct BlockPos {
   int q0, h, b;
 };
 
+template <int BM = kBM>
 __device__ __forceinline__ BlockPos block_pos(const Args& a, int idx) {
-  const int nqt = (a.Sq + kBM - 1) / kBM, hbs = a.H * a.B;
+  const int nqt = (a.Sq + BM - 1) / BM, hbs = a.H * a.B;
   const int group = idx / (kGroupHB * nqt);
   const int g = min(kGroupHB, hbs - group * kGroupHB);  // pairs in this group
   const int r = idx - group * kGroupHB * nqt;
   const int qt = nqt - 1 - r / g, hb = group * kGroupHB + r % g;
-  return BlockPos{qt * kBM, hb % a.H, hb / a.H};
+  return BlockPos{qt * BM, hb % a.H, hb / a.H};
 }
 
 template <int BN>
@@ -445,24 +446,24 @@ __device__ __forceinline__ int blk_key_end(int q0, int rows, const Args& a) {
   return last <= 0 ? 0 : static_cast<int>(last < a.Sk ? last : a.Sk);
 }
 
-// Keys [k0, k0 + BN) are all visible to every query of [qa, qa + 64): in
+// Keys [k0, k0 + BN) are all visible to every query of [qa, qa + ROWS): in
 // range and inside the band (no integer masks: the caller checks). Such a
 // tile skips the per-element visibility test.
-template <int BN>
+template <int BN, int ROWS = 64>
 __device__ __forceinline__ bool tile_in_band(int qa, int k0, const Args& a) {
-  if (qa + 64 > a.Sq || k0 + BN > a.Sk) return false;
+  if (qa + ROWS > a.Sq || k0 + BN > a.Sk) return false;
   const long long off = static_cast<long long>(a.Sk) - a.Sq;
-  return k0 - (qa + 63) - off >= a.band_lo && k0 + BN - 1 - qa - off <= a.band_hi;
+  return k0 - (qa + ROWS - 1) - off >= a.band_lo && k0 + BN - 1 - qa - off <= a.band_hi;
 }
 
-// Keys [k0, k0 + BN) hold no key visible to a query of [qa, qa + 64) by the
-// band and the ranges alone: the consumer warpgroup of those rows skips the
-// tile's math (it still takes the stage and frees it).
-template <int BN>
+// Keys [k0, k0 + BN) hold no key visible to a query of [qa, qa + ROWS) by
+// the band and the ranges alone: the consumer warpgroup of those rows skips
+// the tile's math (it still takes the stage and frees it).
+template <int BN, int ROWS = 64>
 __device__ __forceinline__ bool tile_out_of_band(int qa, int k0, const Args& a) {
   if (qa >= a.Sq) return true;
   const long long off = static_cast<long long>(a.Sk) - a.Sq;
-  const int qlast = min(qa + 64, a.Sq) - 1;
+  const int qlast = min(qa + ROWS, a.Sq) - 1;
   return k0 + BN - 1 - qa - off < a.band_lo || k0 - qlast - off > a.band_hi;
 }
 
@@ -479,13 +480,14 @@ struct Slot {
   int kids[BN], fs[BN], fe[BN];
 };
 
-// The segment-id range of the block's query rows [q0, min(q0 + kBM, Sq)),
+// The segment-id range of the block's query rows [q0, min(q0 + BM, Sq)),
 // reduced over the producer warp.
+template <int BM = kBM>
 __device__ __forceinline__ void block_qseg_range(const Args& a, int b, int q0, int& lo, int& hi) {
   const int lane = threadIdx.x % 32;
   lo = INT_MAX;
   hi = INT_MIN;
-  for (int r = q0 + lane; r < q0 + kBM && r < a.Sq; r += 32) {
+  for (int r = q0 + lane; r < q0 + BM && r < a.Sq; r += 32) {
     const int id = a.qseg[static_cast<long long>(b) * a.Sq + r];
     lo = min(lo, id);
     hi = max(hi, id);
@@ -512,9 +514,9 @@ struct KeyMasks {
 // Load key tile k0's ids and rows (one round trip; the slot is written from
 // these registers) and decide whether the tile can be skipped: disjoint
 // segment ranges, or every key masking every query of the block's rows
-// (flash_common.cuh seg_overlap / fm_tile_masked at kBM rows). Reduced over
-// the producer warp; every lane gets the same answer.
-template <int BN>
+// (flash_common.cuh seg_overlap / fm_tile_masked at the block's BM rows).
+// Reduced over the producer warp; every lane gets the same answer.
+template <int BN, int BM = kBM>
 __device__ __forceinline__ bool key_tile_skip(const Args& a, bool seg, bool fm, int b, int h,
                                               int q0, int k0, int qlo, int qhi,
                                               KeyMasks<BN>& km) {
@@ -550,7 +552,7 @@ __device__ __forceinline__ bool key_tile_skip(const Args& a, bool seg, bool fm, 
     emin = __reduce_min_sync(0xffffffffu, emin);
     km.smin = __reduce_min_sync(0xffffffffu, smin);
     km.emax = __reduce_max_sync(0xffffffffu, emax);
-    const int qn = q0 + kBM < a.Sq ? q0 + kBM : a.Sq;
+    const int qn = q0 + BM < a.Sq ? q0 + BM : a.Sq;
     if (smax <= q0 && emin >= qn) return true;
   }
   return false;
@@ -755,6 +757,580 @@ __device__ __forceinline__ void add_bias(float (&s)[BN / 2], const Args& a, long
 }
 
 // ---------------------------------------------------------------------------
+// the dQ kernels' pieces (flash_dq_hopper.cu, flash_dq_tf32_hopper.cu)
+// Zeros into the d-bias of the warpgroup's rows [qa, qa + 64) (those < Sq),
+// key columns [c0, c1).
+__device__ __forceinline__ void zero_dbias_wg(const Args& a, long long row_base, int qa, int c0,
+                                              int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int e = threadIdx.x % 128; e < 64 * w; e += 128) {
+    const int r = e / w, c = e % w;
+    if (qa + r < a.Sq) a.dbias[(row_base + qa + r) * a.Sk + c0 + c] = 0.f;
+  }
+}
+
+// p and the dropout-masked, rescaled dP of one key tile, in place on the
+// fragments s and dp: p = exp(scale s + bias - lse), 0 where masked and on a
+// dead row.
+template <int BN, bool kBias, bool kDrop>
+__device__ __forceinline__ void probs_tile(float (&s)[BN / 2], float (&dp)[BN / 2],
+                                           const Args& a, int k0, const int (&qpos)[2],
+                                           const float (&lse)[2], const bool (&dead)[2],
+                                           long long bb, uint64_t vis, uint64_t keep) {
+  // a dead row's lse is -1e30: its p is 0, never exp(s + 1e30)
+  if (dead[0]) vis &= ~0x3333333333333333ull;
+  if (dead[1]) vis &= ~0xCCCCCCCCCCCCCCCCull;
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) s[r] *= a.scale;
+  if (kBias) add_bias<BN>(s, a, bb, k0, qpos, vis);
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) {
+    const int i = (r / 2) % 2;
+    s[r] = (vis >> r) & 1u ? exp2f((s[r] - lse[i]) * kLog2e) : 0.f;
+    if (kDrop) dp[r] = (keep >> r) & 1u ? dp[r] * a.drop_scale : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the dK/dV kernels' pieces (flash_dkv_hopper.cu, flash_dkv_tf32_hopper.cu): a
+// block owns keys and streams query tiles of NQ rows; the fragments are
+// key-major (rows keys, columns queries)
+// What the producer hands the consumers with each stage: the query tile's
+// first row (-1: the list ends) and its head in the group, the tile's query
+// segment ids and their range, and its lse (times log2 e) and delta.
+template <int NQ>
+struct QSlotT {
+  int q0, hh, qlo, qhi;
+  float lse[NQ], delta[NQ];
+  int qids[NQ];
+};
+
+struct KeyBlockPos {
+  int k0, hk, b;
+};
+
+// Blocks in groups of kGroupHB (batch, kv head) pairs; inside a group the
+// key tiles in order from the first, which sees the most queries under
+// causal masking.
+template <int BN>
+__device__ __forceinline__ KeyBlockPos key_block_pos(const Args& a, int idx) {
+  const int nkt = (a.Sk + BN - 1) / BN, hbs = a.Hkv * a.B;
+  const int group = idx / (kGroupHB * nkt);
+  const int g = min(kGroupHB, hbs - group * kGroupHB);
+  const int r = idx - group * kGroupHB * nkt;
+  const int hb = group * kGroupHB + r % g;
+  return KeyBlockPos{(r / g) * BN, hb % a.Hkv, hb / a.Hkv};
+}
+
+// Queries [first, end) can see keys [k0, k0 + BN) by the band (first a
+// multiple of NQ, the streamed query tile).
+template <int NQ>
+__device__ __forceinline__ int blk_query_begin(int k0, const Args& a) {
+  const long long first = static_cast<long long>(k0) - (a.Sk - a.Sq) - a.band_hi;
+  return first <= 0 ? 0 : static_cast<int>(first / NQ) * NQ;
+}
+
+template <int BN>
+__device__ __forceinline__ int blk_query_end(int k0, const Args& a) {
+  const long long last = static_cast<long long>(k0) + BN - (a.Sk - a.Sq) - a.band_lo;
+  return last <= 0 ? 0 : static_cast<int>(last < a.Sq ? last : a.Sq);
+}
+
+// The visibility bits of this thread's elements of a key-major tile: bit
+// 4 j + 2 i + e is key row kpos[i], query q0 + 8 j + 2 (l % 4) + e; set iff
+// the pair is in range, inside the band, within one segment and outside the
+// key's flashmask rows [fs, fe).
+template <bool kInt, int NQ>
+__device__ __forceinline__ uint64_t kt_visible_bits(const Args& a, const QSlotT<NQ>& sl, bool seg,
+                                                    bool fm, int q0, const int (&kpos)[2],
+                                                    const int (&kid)[2], const int (&fs)[2],
+                                                    const int (&fe)[2]) {
+  const int lane = threadIdx.x % 32;
+  uint64_t bits = 0;
+#pragma unroll 2
+  for (int j = 0; j < NQ / 8; ++j) {
+    unsigned g = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane % 4) + e, qpos = q0 + col;
+      const int qid = kInt && seg ? sl.qids[col] : 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bool ok = visible(qpos, kpos[i], a);
+        if (kInt) ok = ok && (!seg || qid == kid[i]) && (!fm || qpos < fs[i] || qpos >= fe[i]);
+        g |= (ok ? 1u : 0u) << (2 * i + e);
+      }
+    }
+    bits |= static_cast<uint64_t>(g) << (4 * j);
+  }
+  return bits;
+}
+
+// All bits set, with no per-element test, where the warpgroup's 64 keys
+// [ka, ka + 64) lie wholly inside the band for the tile's NQ queries and the
+// integer masks provably spare this thread's pairs: the tile's queries all
+// carry the one segment id of both keys, and both keys' flashmask bands miss
+// the tile's queries. Else kt_visible_bits, without the masks so proved
+// absent.
+template <bool kInt, int NQ>
+__device__ __forceinline__ uint64_t kt_tile_mask(const Args& a, const QSlotT<NQ>& sl, bool seg,
+                                                 bool fm, int q0, int ka, const int (&kpos)[2],
+                                                 const int (&kid)[2], const int (&fs)[2],
+                                                 const int (&fe)[2]) {
+  const bool band = tile_in_band<64, NQ>(q0, ka, a);
+  if (!kInt) return band ? ~0ull : kt_visible_bits<false, NQ>(a, sl, false, false, q0, kpos, kid, fs, fe);
+  const bool seg_free = !seg || (sl.qlo == sl.qhi && kid[0] == sl.qlo && kid[1] == sl.qlo);
+  const int qlast = q0 + NQ - 1;
+  const bool fm_free = !fm || ((fe[0] <= q0 || fs[0] > qlast || fs[0] >= fe[0]) &&
+                               (fe[1] <= q0 || fs[1] > qlast || fs[1] >= fe[1]));
+  if (band && seg_free && fm_free) return ~0ull;
+  return kt_visible_bits<true, NQ>(a, sl, seg && !seg_free, fm && !fm_free, q0, kpos, kid, fs, fe);
+}
+
+// The dropout keep bits of this thread's elements of a key-major tile (bit
+// 4 j + 2 i + e as kt_visible_bits). Lane l = 16 m + 4 s + (l % 4) holds key
+// rows 4 m + s (+ 8) of its warp's 16, so keys 4 c .. 4 c + 3 of one Philox
+// call sit in the four lanes s = 0..3. In group j lane s makes the call of
+// column 2 (l % 4) + (s >> 1), key row s & 1, keeps word s and hands word
+// s ^ x to lane s ^ x (x = 1, 2, 3): four calls, one a lane, give the four
+// lanes all 16 bits of the group.
+template <int NQ>
+__device__ __forceinline__ uint64_t kt_keep_bits(const Args& a, int b, int h, int q0, int key0) {
+  const int lane = threadIdx.x % 32, s = (lane >> 2) & 3;
+  const int e_own = s >> 1, i_own = s & 1;
+  // key0: the thread's row-0 key; its word is s, its group key0 / 4; row 1
+  // is 8 keys on, two groups
+  const int c4 = key0 / 4 + 2 * i_own;
+  uint64_t keep = 0;
+#pragma unroll 2
+  for (int j = 0; j < NQ / 8; ++j) {
+    const int qpos = q0 + 8 * j + 2 * (lane % 4) + e_own;
+    const uint4 w = drop_bits(a, b, h, qpos, c4);
+    unsigned g = (word(w, s) >= a.thresh ? 1u : 0u) << (2 * i_own + e_own);
+#pragma unroll
+    for (int x = 1; x < 4; ++x) {
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, word(w, s ^ x), 4 * x);
+      const int sp = s ^ x;  // the partner's call: row sp & 1, column sp >> 1
+      g |= (got >= a.thresh ? 1u : 0u) << (2 * (sp & 1) + (sp >> 1));
+    }
+    keep |= static_cast<uint64_t>(g) << (4 * j);
+  }
+  return keep;
+}
+
+// The bias of the key-major tile added in place (masked elements keep their
+// value: the caller zeroes their p). Every load is unconditional from an
+// address clamped into the bias, in chunks of 4 column groups (16 values);
+// the next chunk's loads wait for this one's sums. kChained: the
+// next chunk's query rows wait for them too. The split design's warpgroup
+// 1 holds 128 registers of dv beside the scores, and there the compiler
+// formed every chunk's 64-bit row offsets up front: the D_pad 256
+// instances spilled 24-76 bytes a thread (`cuobjdump -sass` put the spills
+// on those offsets; smaller chunks alone did not help). Chained, a chunk's
+// offsets are formed after the previous chunk's sums (and split_p
+// holds neither the integer masks' key data nor the keep bits across them).
+template <typename BT, bool kChained, int NQ>
+__device__ __forceinline__ void add_bias_kt_t(float (&s)[NQ / 2], const Args& a, long long bb,
+                                              int q0, const int (&kpos)[2], uint64_t vis) {
+  const int lane = threadIdx.x % 32;
+  const BT* base = static_cast<const BT*>(a.bias) + bb;
+  long long koff[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) koff[i] = static_cast<long long>(min(kpos[i], a.Sk - 1)) * a.vb.k;
+  constexpr int kChunk = 4;
+  int qz = 0;  // 0, after the previous chunk's sums (kChained)
+#pragma unroll
+  for (int j0 = 0; j0 < NQ / 8; j0 += kChunk) {
+#pragma unroll
+    for (int j = j0; j < j0 + kChunk; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = min(q0 + 8 * j + 2 * (lane % 4) + e, a.Sq - 1) + qz;
+        const BT* row = base + static_cast<long long>(qpos) * a.vb.q;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = 4 * j + 2 * i + e;
+          const float v = to_f32(row[koff[i]]);
+          s[r] += (vis >> r) & 1u ? v : 0.f;
+        }
+      }
+    const int z = opaque_zero(s[4 * (j0 + kChunk - 1) + 3]);
+    if (kChained)
+      qz = z;
+    else
+      base += z;
+  }
+}
+
+template <bool kChained, int NQ>
+__device__ __forceinline__ void add_bias_kt(float (&s)[NQ / 2], const Args& a, long long bb,
+                                            int q0, const int (&kpos)[2], uint64_t vis) {
+  switch (a.bias_dtype) {
+    case kBF16:
+      add_bias_kt_t<bf16, kChained, NQ>(s, a, bb, q0, kpos, vis);
+      break;
+    case kF16:
+      add_bias_kt_t<f16, kChained, NQ>(s, a, bb, q0, kpos, vis);
+      break;
+    default:
+      add_bias_kt_t<float, kChained, NQ>(s, a, bb, q0, kpos, vis);
+  }
+}
+
+// The flashmask rows (start, end) of this thread's two keys for query head
+// h (a key past Sk: rows that mask nothing; visible() drops it).
+__device__ __forceinline__ void key_rows(const Args& a, int b, int h, const int (&kpos)[2],
+                                         int (&fs)[2], int (&fe)[2]) {
+  const long long rows = fm_row(a, b, h);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = kpos[i] < a.Sk;
+    fs[i] = in ? a.fms[rows + kpos[i]] : 0;
+    fe[i] = in ? a.fme[rows + kpos[i]] : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 operands on the TF32 tensor cores (flash_dq_tf32_hopper.cu,
+// flash_dkv_tf32_hopper.cu). Each fp32 operand x is split into hi = T(x) and
+// lo = T(x - hi), both exact TF32 values (T: cvt.rna.tf32.f32; x - hi is
+// exact in fp32), and a product a b is taken as a_lo b_hi + a_hi b_lo +
+// a_hi b_hi in fp32 accumulators: x = hi + lo to about 2^-22 |x|, and the
+// dropped a_lo b_lo is about 2^-22 |a b| (TF32 alone keeps 2^-11). No
+// product reads the low 13 bits of a word that is not an exact TF32 value.
+//
+// wgmma takes TF32 only K-major (no transpose), in shared memory for B and in
+// shared memory or registers for A. So every product here takes its A from
+// registers, gathered from shared memory by the threads and split there:
+// - S = Q K^T (dQ) and S^T = K Q^T (dK/dV): A is the block's own 64 rows of
+//   a raw fp32 tile (TMA, kept for the whole block; frag_raw), B the
+//   streamed tile's hi / lo halves.
+// - dq^T = K^T dS, dk^T = Q^T dS^T, dv^T = dO^T P^T: the outputs are taken
+//   transposed, [D_pad][64], so A is the streamed tile read across its rows
+//   (frag_t, from its hi / lo halves: no transposed copy) and B the ds or p
+//   tile that the consumer itself writes, split, into shared memory in the
+//   layout wgmma reads ([64][32] K-major: ds rows are queries in dQ, p and
+//   ds rows are keys in dK/dV).
+// The streamed tile lands raw by TMA and the producer warpgroup's warps 1-3
+// split it in place (split_tiles: hi over the raw words, lo into a second
+// buffer) before the consumers are told it is ready.
+//
+// Fragments. The TF32 A fragment of an m64nNk8 wgmma gives thread t of the
+// warpgroup (warp w, lane l) rows 16 w + l / 4 (registers 0, 2) and that + 8
+// (1, 3), and contraction index l % 4 (registers 0, 1) and l % 4 + 4 (2, 3).
+// frag_raw reads contraction index l % 4 from column 2 (l % 4) of the key
+// step's 8 and l % 4 + 4 from column 2 (l % 4) + 1 (one 8-byte load a row),
+// so every B tile read against a raw A holds its 8 columns in that order:
+// split_tiles writes them so (perm8). The accumulator layout is the 16-bit
+// products' (the file head).
+
+// one 8-column key step of a [rows][D_pad] fp32 tile is 32 bytes of a
+// 128-byte swizzled row, as one of 16 bf16; 32 columns a panel
+__host__ __device__ constexpr int f32_panels(int d_pad) { return d_pad / 32; }
+
+// Byte offset of element (r, c) of an fp32 [rows][D_pad] tile kept as
+// D_pad / 32 panels of [rows][32] `panel` bytes apart, 128-byte swizzled
+// (16-byte chunk j of row r at chunk j ^ (r % 8)), as TMA writes it.
+__device__ __forceinline__ uint32_t f32_off(int r, int c, uint32_t panel) {
+  return (c >> 5) * panel + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// The place of column c in a split tile: within each group of 8 the even
+// columns first, then the odd ones (contraction index k holds column 2 k,
+// k + 4 column 2 k + 1: frag_raw's order).
+__device__ __forceinline__ int perm8(int c) {
+  return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// One 32-byte unit of a landed tile split in place: hi over the raw words, lo
+// into the buffer of the same layout, the 8 columns in perm8 order. The unit
+// is one row's group of 8 columns, its two 16-byte chunks swapped where the
+// row is odd (chunk j ^ (r % 8)): u's columns 0-3 sit at float4 2 u + odd.
+__device__ __forceinline__ void split_unit(float4* h4, float4* l4, int u, float4 x, float4 y) {
+  const int a = 2 * u + ((u >> 2) & 1), b = a ^ 1;
+  uint32_t h[8], l[8];
+  const float v[8] = {x.x, x.z, y.x, y.z, x.y, x.w, y.y, y.w};  // perm8 order
+#pragma unroll
+  for (int i = 0; i < 8; ++i) split_tf32(v[i], h[i], l[i]);
+  h4[a] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                      __uint_as_float(h[3]));
+  h4[b] = make_float4(__uint_as_float(h[4]), __uint_as_float(h[5]), __uint_as_float(h[6]),
+                      __uint_as_float(h[7]));
+  l4[a] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                      __uint_as_float(l[3]));
+  l4[b] = make_float4(__uint_as_float(l[4]), __uint_as_float(l[5]), __uint_as_float(l[6]),
+                      __uint_as_float(l[7]));
+}
+
+// Threads [0, n) of the caller split two landed tiles of `bytes` each in
+// place (hi over the raw words, lo into the buffers of the same layout), two
+// units a thread in flight: one at a time, the loop waited out each unit's
+// loads and its dependent conversions.
+__device__ __forceinline__ void split_tiles(float* t0, float* lo0, float* t1, float* lo1, int bytes,
+                                            int tid, int n) {
+  const int units = bytes / 32;
+  for (int u = tid; u < 2 * units; u += 2 * n) {
+    const int v = u + n;
+    float4* h0 = reinterpret_cast<float4*>(u < units ? t0 : t1);
+    float4* l0 = reinterpret_cast<float4*>(u < units ? lo0 : lo1);
+    const int u0 = u < units ? u : u - units;
+    const int a0 = 2 * u0 + ((u0 >> 2) & 1);
+    const float4 x0 = h0[a0], y0 = h0[a0 ^ 1];
+    float4 x1 = x0, y1 = y0;
+    float4 *h1 = h0, *l1 = l0;
+    int u1 = 0;
+    if (v < 2 * units) {
+      h1 = reinterpret_cast<float4*>(v < units ? t0 : t1);
+      l1 = reinterpret_cast<float4*>(v < units ? lo0 : lo1);
+      u1 = v < units ? v : v - units;
+      const int a1 = 2 * u1 + ((u1 >> 2) & 1);
+      x1 = h1[a1];
+      y1 = h1[a1 ^ 1];
+    }
+    split_unit(h0, l0, u0, x0, y0);
+    if (v < 2 * units) split_unit(h1, l1, u1, x1, y1);
+  }
+}
+
+// Generic-proxy writes to shared memory visible to the wgmma (async proxy)
+// reads that a barrier orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier over one warpgroup's 128 threads (ids 1 and 2 of the
+// TF32 kernels; the 16-bit ones pair two warpgroups on named_sync).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// m64nNk8, fp32 accumulate, TF32 A from registers, B K-major in shared
+// memory. scale_d = 0 overwrites the accumulator.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  static_assert(N == 32 || N == 64, "m64nNk8 for N in {32, 64}");
+  if constexpr (N == 32)
+    wgmma_tf32_n32(d, a, db, scale_d);
+  else
+    wgmma_tf32_n64(d, a, db, scale_d);
+}
+
+template <int M, int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) reg_fence(r[i]);
+}
+template <int M, int N>
+__device__ __forceinline__ void reg_fence(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) reg_fence(r[i]);
+}
+
+// The split A fragment of key step kk of the warpgroup's 64 rows of a raw
+// fp32 tile (`panel` bytes a panel): rows 16 w + l / 4 and + 8, columns
+// 8 kk + 2 (l % 4) and + 1 (one 8-byte load a row; see the section head).
+__device__ __forceinline__ void frag_raw(const unsigned char* tile, uint32_t panel, int kk,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = 16 * (t / 32) + lane / 4, c = 8 * kk + 2 * (lane % 4);
+  const float2 x0 = *reinterpret_cast<const float2*>(tile + f32_off(r, c, panel));
+  const float2 x1 = *reinterpret_cast<const float2*>(tile + f32_off(r + 8, c, panel));
+  split_tf32(x0.x, hi[0], lo[0]);
+  split_tf32(x1.x, hi[1], lo[1]);
+  split_tf32(x0.y, hi[2], lo[2]);
+  split_tf32(x1.y, hi[3], lo[3]);
+}
+
+// The A fragment of X^T, rows (head columns) 64 mb + 16 w + l / 4 and + 8,
+// from a split [rows][D_pad] tile (hi / lo halves, perm8 order): contraction
+// index l % 4 is X's row 8 kk + 2 (l % 4), and l % 4 + 4 the row after it.
+// The rows' swizzle (r % 8 = 2 (l % 4)) then puts the warp's 32 reads on 32
+// banks; with rows 8 kk + l % 4 and + 4 two quads shared 16-byte chunks,
+// two reads a bank. The B it is read against holds its 8 columns in the same
+// order (frag_pair_off).
+__device__ __forceinline__ void frag_t(const unsigned char* xhi, const unsigned char* xlo,
+                                       uint32_t panel, int mb, int kk, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int d = 64 * mb + 16 * (t / 32) + lane / 4, r = 8 * kk + 2 * (lane % 4);
+  const uint32_t off[4] = {f32_off(r, perm8(d), panel), f32_off(r, perm8(d + 8), panel),
+                           f32_off(r + 1, perm8(d), panel), f32_off(r + 1, perm8(d + 8), panel)};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    hi[c] = *reinterpret_cast<const uint32_t*>(xhi + off[c]);
+    lo[c] = *reinterpret_cast<const uint32_t*>(xlo + off[c]);
+  }
+}
+
+// Accumulation. The tensor cores add each product into the fp32
+// accumulator with truncation, so the error of a long chain of wgmma into
+// one accumulator grows with its length (measured on the card: dk over 16
+// query tiles into one accumulator, 192 additions, came out 6e-6 off the
+// plain fp32 backward on its worst tile, against 3e-7 for the FP32-pipe
+// kernel). So no chain here is longer than one tile: the small products
+// (a_lo b_hi, a_hi b_lo) go to an accumulator of their own, the large ones
+// to two that take the key steps in turns, and each tile's dq^T / dk^T / dv^T
+// is summed into a fresh accumulator and added to the running sum by the
+// threads in fp32.
+
+// acc (64 x N) = A B^T over D columns: A the warpgroup's 64 rows of the raw
+// tile `a_tile` (frag_raw), B the split tile at (bhi, blo) of N rows. Issued
+// a panel (four key steps) at a time, two panels' fragments in flight; the
+// small products into `sm`, the large ones of even and odd key steps into
+// acc and `lg`, summed at the end.
+template <int N, int D>
+__device__ __forceinline__ void gemm_raw(float (&acc)[N / 2], const unsigned char* a_tile,
+                                         uint32_t a_panel, uint32_t bhi, uint32_t blo,
+                                         uint32_t b_panel) {
+  uint32_t hi[2][4][4], lo[2][4][4];
+  float sm[N / 2], lg[N / 2];
+#pragma unroll
+  for (int p = 0; p < D / 32; ++p) {
+    const int buf = p & 1;
+    if (p >= 2) {
+      wgmma_wait<1>();
+      reg_fence(hi[buf]);
+      reg_fence(lo[buf]);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) frag_raw(a_tile, a_panel, 4 * p + s, hi[buf][s], lo[buf][s]);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int kk = 4 * p + s;
+      const uint64_t dh = desc_kmajor(bhi, b_panel, kk), dl = desc_kmajor(blo, b_panel, kk);
+      wgmma_tf32<N>(sm, lo[buf][s], dh, kk > 0 ? 1 : 0);
+      wgmma_tf32<N>(sm, hi[buf][s], dl, 1);
+      if (s & 1)
+        wgmma_tf32<N>(lg, hi[buf][s], dh, kk > 1 ? 1 : 0);
+      else
+        wgmma_tf32<N>(acc, hi[buf][s], dh, kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(sm);
+  reg_fence(lg);
+  reg_fence(hi);
+  reg_fence(lo);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += lg[i] + sm[i];
+}
+
+// run[mb] (rows 64 mb .. of X^T, 64 x N) += X^T B over X's 32 rows: X the
+// split tile (xhi, xlo) of 32 rows x D (frag_t), B the split [N][32] tile at
+// (bhi, blo) that the caller wrote (one panel). Each 64-row block into a
+// fresh accumulator, the small products first, then the large ones; the
+// threads add them to run.
+template <int N, int D>
+__device__ __forceinline__ void gemm_t(float (&run)[D / 64][N / 2], const unsigned char* xhi,
+                                       const unsigned char* xlo, uint32_t x_panel, uint32_t bhi,
+                                       uint32_t blo) {
+  constexpr int M = D / 64;
+  uint32_t hi[M][4][4], lo[M][4][4];
+  float part[M][N / 2];
+#pragma unroll
+  for (int mb = 0; mb < M; ++mb)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag_t(xhi, xlo, x_panel, mb, kk, hi[mb][kk], lo[mb][kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int mb = 0; mb < M; ++mb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_tf32<N>(part[mb], lo[mb][kk], desc_kmajor(bhi, 0, kk), kk > 0 ? 1 : 0);
+      wgmma_tf32<N>(part[mb], hi[mb][kk], desc_kmajor(blo, 0, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32<N>(part[mb], hi[mb][kk], desc_kmajor(bhi, 0, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(part);
+  reg_fence(hi);
+  reg_fence(lo);
+#pragma unroll
+  for (int mb = 0; mb < M; ++mb)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) run[mb][i] += part[mb][i];
+}
+
+// The byte offset, in a [64][32] tile written for frag_t's products, of this
+// thread's accumulator element (row 16 w + l / 4 + 8 i, column 8 j + 2 (l %
+// 4)), kept in perm8 order: at column 8 j + l % 4. Its neighbour (column + 1)
+// sits at column 8 j + l % 4 + 4, the other 16-byte chunk of the group: at
+// the offset ^ 16.
+// The thread index is read through a volatile asm: both consumer warpgroups
+// form these offsets, and read plainly the compiler formed them once, above
+// the warpgroups' setmaxnreg, and spilled them across it (4 bytes in the
+// D_pad 64 dK/dV instances).
+__device__ __forceinline__ uint32_t frag_pair_off(int i, int j) {
+  uint32_t tid;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid));
+  const int t = static_cast<int>(tid % 128), lane = t % 32;
+  return f32_off(16 * (t / 32) + lane / 4 + 8 * i, 8 * j + lane % 4, 0);
+}
+
+__device__ __forceinline__ void store_pair(unsigned char* tile, uint32_t off, float x0, float x1) {
+  *reinterpret_cast<float*>(tile + off) = x0;
+  *reinterpret_cast<float*>(tile + (off ^ 16)) = x1;
+}
+
+__device__ __forceinline__ float2 load_pair(const unsigned char* tile, uint32_t off) {
+  return make_float2(*reinterpret_cast<const float*>(tile + off),
+                     *reinterpret_cast<const float*>(tile + (off ^ 16)));
+}
+
+// The pair (x0, x1) split into the [64][32] tiles at hi and lo at `off`.
+__device__ __forceinline__ void store_split_pair(unsigned char* hi, unsigned char* lo, uint32_t off,
+                                                 float x0, float x1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(x0, h0, l0);
+  split_tf32(x1, h1, l1);
+  store_pair(hi, off, __uint_as_float(h0), __uint_as_float(h1));
+  store_pair(lo, off, __uint_as_float(l0), __uint_as_float(l1));
+}
+
+// ---------------------------------------------------------------------------
 // host: the tensor maps
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -782,23 +1358,25 @@ inline EncodeTiled encoder() {
 // The code a failed encode returns (not a CUDA runtime error number).
 constexpr int kErrTensorMap = 9901;
 
-// A 4-D tensor map over a [B, S, H, D] view of 16-bit elements (dims
-// innermost first: D, S, H, B, with the view's own byte strides), boxes of
-// 64 columns x `rows` rows of one (batch, head), 128-byte swizzle. The true
-// D and S are the extents, so TMA fills the columns past D and the rows past
-// S with zeros. A dim of extent 1 gets a stride of its own (any is read the
-// same); the wrapper copies a view that broadcasts a longer dim (stride 0).
+// A 4-D tensor map over a [B, S, H, D] view of 16-bit or fp32 elements
+// (dims innermost first: D, S, H, B, with the view's own byte strides),
+// boxes of one 128-byte row of columns (64 16-bit, 32 fp32) x `rows` rows of
+// one (batch, head), 128-byte swizzle. The true D and S are the extents, so
+// TMA fills the columns past D and the rows past S with zeros. A dim of
+// extent 1 gets a stride of its own (any is read the same); the wrapper
+// copies a view that broadcasts a longer dim (stride 0).
 inline int encode_view(CUtensorMap* map, const void* base, const View& v, int B, int S, int H,
                        int D, int dtype, int rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrTensorMap;
+  const int isz = dtype == kF32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S > 0 ? S : 1),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const long long el[3] = {v.s, v.h, v.b};
   cuuint64_t strides[3];
-  cuuint64_t packed = static_cast<cuuint64_t>((D * 2 + 15) / 16 * 16);
+  cuuint64_t packed = static_cast<cuuint64_t>((D * isz + 15) / 16 * 16);
   for (int i = 0; i < 3; ++i) {
-    const long long s = el[i] * 2;
+    const long long s = el[i] * isz;
     if (dims[i + 1] == 1) {
       strides[i] = packed;
     } else {
@@ -807,10 +1385,14 @@ inline int encode_view(CUtensorMap* map, const void* base, const View& v, int B,
     }
     packed = strides[i] * dims[i + 1];
   }
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / isz), static_cast<cuuint32_t>(rows), 1,
+                             1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType ty = dtype == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   const CUresult r =
-      fn(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
+      fn(map, ty, 4,
          const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

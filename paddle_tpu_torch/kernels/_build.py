@@ -48,6 +48,10 @@ FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
 # the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): one object per width
 # as well (192 and 256 take its split design)
 FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
+# the fp32 dQ and dK/dV on the TF32 tensor cores (flash_dq_tf32_hopper.cu,
+# flash_dkv_tf32_hopper.cu): one object each per width; D_pad 32 and 96 run
+# them with zero columns, 192 and 256 the FP32-pipe kernels
+FLASH_TF32_D_PADS = (64, 128)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -79,10 +83,12 @@ def _units():
             for d in FLASH_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
-                          "flash_dkv_hopper.cu"):
-            pads = (FLASH_DKV_HOPPER_D_PADS
-                    if src.name == "flash_dkv_hopper.cu"
-                    else FLASH_HOPPER_D_PADS)
+                          "flash_dkv_hopper.cu", "flash_dq_tf32_hopper.cu",
+                          "flash_dkv_tf32_hopper.cu"):
+            pads = {"flash_dkv_hopper.cu": FLASH_DKV_HOPPER_D_PADS,
+                    "flash_dq_tf32_hopper.cu": FLASH_TF32_D_PADS,
+                    "flash_dkv_tf32_hopper.cu": FLASH_TF32_D_PADS,
+                    }.get(src.name, FLASH_HOPPER_D_PADS)
             for d in pads:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name == "flash_attention_bwd.cu":
@@ -99,7 +105,8 @@ def _digest(extra: str = "") -> str:
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    pads = FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
+    pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
+            + FLASH_TF32_D_PADS)
     h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]

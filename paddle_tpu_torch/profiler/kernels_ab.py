@@ -1,4 +1,4 @@
-"""Time the paged attention, flash dK/dV, Adam, norm and RoPE kernels of two
+"""Time the paged attention, flash, Adam, norm and RoPE kernels of two
 checkouts on one card, in turns.
 
     python3 -m paddle_tpu_torch.profiler.kernels_ab --parent DIR [--child DIR]
@@ -12,7 +12,8 @@ decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
 the paged decode kernel on that batch in fp32 too, the ragged kernel on
 phase 3's mixed batch (4 rows, C 128) and on the decode batch over int8
 pools, the flash dK/dV kernel at phase 25's call (B 8, S 1024, H 16,
-causal) at D 256 and D 160 in bf16 and D 256 in fp16,
+causal) at D 256 and D 160 in bf16 and D 256 in fp16, the fp32 flash dQ and
+dK/dV at phase 6 (a)'s call (B 8, S 1024, H 16, D 128, causal),
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward on x [5120, 768] and its whole backward (dx, dw and db
 through the autograd Function, fp32 weight and bias: whatever kernels and
@@ -108,6 +109,19 @@ for Dh, dt in ((256, bf), (160, bf), (256, torch.float16)):
     res[f"flash_dkv_d{Dh}{tag}"] = ms(lambda: FA.flash_bwd_dkv(
         qf, kf, vf, lse, delta, dof, True, sc))
     del qf, kf, vf, dof, lse, delta
+# fp32 dQ and dK/dV at chip_smoke.py phase 6 (a)'s call (B 8, S 1024, H 16,
+# D 128, causal; q, k and v views of one qkv)
+qkv = torch.randn(8, 1024, 16, 3, 128, generator=gen, device=dev)
+qf, kf, vf = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+dof = torch.randn(8, 1024, 16, 128, generator=gen, device=dev)
+sc = 1 / math.sqrt(128)
+_, lse = FA.flash_fwd(qf, kf, vf, True, sc)
+_, delta = FA.flash_bwd_dq(qf, kf, vf, lse, dof, True, sc)
+res["flash_dq_fp32"] = ms(lambda: FA.flash_bwd_dq(qf, kf, vf, lse, dof, True,
+                                                  sc))
+res["flash_dkv_fp32"] = ms(lambda: FA.flash_bwd_dkv(qf, kf, vf, lse, delta, dof,
+                                                    True, sc))
+del qkv, qf, kf, vf, dof, lse, delta
 # chip_smoke.py phase 3's case (b): a mixed batch of 4 rows, C 128 (a full
 # prefill chunk over 384 keys, a fresh 100-token prefill, a decode row over
 # 517 keys, an empty row)

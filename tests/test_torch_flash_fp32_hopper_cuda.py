@@ -1,0 +1,262 @@
+"""The fp32 flash dQ and dK/dV kernels on the TF32 tensor cores
+(``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
+32; ``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of
+32; each fp32 operand split into two TF32 halves, three wgmma products for
+each) against their plain PyTorch versions on the same inputs: dq, delta
+and the d-bias, dk and dv, with the forward that feeds them. The grid: D
+32, 40, 64, 96 and 128 (the widths the design takes); every flag instance
+(bias x integer masks x dropout); causal, non-causal and a window; GQA 8/2
+and 2/2; lengths on both sides of the 32-row and 64-row tiles; dead rows.
+Also the keep bits of both kernels across their tiles, the model's strided
+qkv views and a batch-broadcast key, and ``kernel_plan``'s design for fp32.
+Tolerance: ``chip_smoke.py``'s fp32 gate, 5e-6 on the worst 64-row tile's
+relative l2, dq and dk with a floor of 1e-1 of the tile's terms before they
+cancel (``test_torch_flash_hopper_cuda.py`` takes 1e-2 beside its 2e-2):
+the kernels recompute s on the tensor cores, not with the forward's
+arithmetic, so a query that sees one key gets p = 1 - O(2^-21) and dq = p
+dP (1 - p) k is rounding noise of about 3e-7 of its terms where the true dq
+is 0; 5e-6 of 1e-1 of the terms holds that noise to fp32 grade.
+
+Every test here needs a CUDA card and skips without one. The file imports
+neither JAX nor the JAX package:
+
+    python -m pytest tests/test_torch_flash_fp32_hopper_cuda.py --noconftest -q
+"""
+
+import itertools
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import flash_attention as FA
+
+pytestmark = pytest.mark.cuda
+
+TOL = 5e-6
+DIMS = (32, 40, 64, 96, 128)
+# bias x integer masks x dropout: every instance of the kernels
+FLAGS = ("none", "bias", "segments", "rows", "dropout", "bias_segments",
+         "bias_dropout", "rows_dropout", "bias_rows_dropout")
+MODES = ("causal", "noncausal", "window")
+SHAPES = ((63, 97), (97, 65), (33, 129), (129, 31), (1, 65), (65, 1))
+FWD_KEYS = ("bias", "q_seg", "kv_seg", "dropout_p", "seed", "fm", "window")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tile_rel(got, ref, rows=64, terms=None):
+    """Worst ||got - ref|| / ||ref|| over 64-row tiles of dim 1 and each
+    head (dim 2) of a [B, S, H, D] tensor; with ``terms`` a tile's
+    denominator is at least 1e-1 of that tile's ||terms||."""
+    r = ref.float()
+    d = got.float() - r
+    pad = -d.shape[1] % rows
+    ts = [d, r] + ([] if terms is None else [terms.float()])
+    ts = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in ts]
+    B, S, H, D = ts[0].shape
+    sq = [t.reshape(B, S // rows, rows, H, D).square().sum((2, 4)) for t in ts]
+    dd, rr = sq[0], sq[1]
+    if terms is not None:
+        rr = torch.maximum(rr, 1e-2 * sq[2])
+    ratio = torch.where(rr > 0, (dd / rr.clamp_min(1e-30)).sqrt(),
+                        torch.where(dd > 0, float("inf"), 0.0))
+    return ratio.max().item()
+
+
+def _grad_terms(p, dp, delta, q, k, scale):
+    """The sizes of dq's and dk's terms before ds = p (dP - delta)
+    cancels."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    mag = p.abs() * (dp.abs() + delta.abs()[..., None]) * scale
+    kf = k.float().abs().repeat_interleave(H // Hkv, dim=2)
+    tq = torch.einsum("bhqk,bkhd->bqhd", mag, kf)
+    tk = torch.einsum("bhqk,bqhd->bkhd", mag, q.float().abs())
+    return tq, tk.reshape(B, Sk, Hkv, H // Hkv, D).sum(3)
+
+
+def _variant(flag, mode, B, Sq, Sk, H, rng, dev):
+    """(causal, variant kwargs) of one grid point; the bias kills query 0
+    of batch 0 (a dead row), segment ids leave queries of an id no key has
+    dead, and the rows take H_mask 1 or H."""
+    causal = mode == "causal"
+    var = {}
+    if mode == "window":
+        var["window"] = (70, 20)
+    if "bias" in flag:
+        bias = rng.randn(B, 1, Sq, Sk).astype(np.float32)
+        bias[0, 0, 0] = -1e30
+        var["bias"] = torch.from_numpy(bias).to(dev)
+    if "segments" in flag:
+        q_seg = np.sort(rng.randint(0, 4, (B, Sq)), 1)
+        kv_seg = np.sort(rng.randint(0, 3, (B, Sk)), 1)
+        var["q_seg"] = torch.from_numpy(q_seg).to(dev)
+        var["kv_seg"] = torch.from_numpy(kv_seg).to(dev)
+    if "rows" in flag:
+        hm = 1 if mode != "noncausal" else H
+        start = rng.randint(0, max(Sq, 1), (B, hm, Sk))
+        end = np.minimum(start + rng.randint(1, 60, start.shape), Sq)
+        var["fm"] = (torch.from_numpy(start.astype(np.int32)).to(dev),
+                     torch.from_numpy(end.astype(np.int32)).to(dev))
+    if "dropout" in flag:
+        var.update(dropout_p=0.1 if flag == "dropout" else 0.2, seed=4242)
+    return causal, var
+
+
+def _check(q, k, v, do, causal, var, what):
+    """dQ and dK/dV (from the dQ kernel's delta) against their plain
+    versions, from the forward kernel's lse: dead rows, dq, dk, dv, delta,
+    the d-bias; one launch of each."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwd = {n: var[n] for n in FWD_KEYS if n in var}
+    bias_grad = "bias" in var
+    n = FA.flash_bwd_dq.LAUNCHES, FA.flash_bwd_dkv.LAUNCHES
+    _, lse = FA.flash_fwd(q, k, v, causal, scale, **fwd)
+    dq, delta, *dbias = FA.flash_bwd_dq(q, k, v, lse, do, causal, scale,
+                                        bias_grad=bias_grad, **var)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, **var)
+    torch.cuda.synchronize()
+    assert (FA.flash_bwd_dq.LAUNCHES, FA.flash_bwd_dkv.LAUNCHES) == (
+        n[0] + 1, n[1] + 1), what
+    args = (q, k, v, lse, do, causal, scale, None, var.get("q_seg"),
+            var.get("kv_seg"), var.get("dropout_p", 0.0), var.get("seed", 0),
+            var.get("bias"), var.get("fm"), var.get("window"))
+    dq_p, dk_p, dv_p, delta_p, ds_p = FA._plain_bwd(*args)
+    p, _, dp = FA._bwd_probs(*args[:7], *args[8:12], bias=args[12],
+                             fm=args[13], window=args[14])
+    live = lse > -1e29
+    assert (dq[~live.transpose(1, 2)] == 0).all(), what
+    terms_q, terms_k = _grad_terms(p, dp, delta_p, q, k, scale)
+    for name, got, want, terms in (("dq", dq, dq_p, terms_q),
+                                   ("dk", dk, dk_p, terms_k),
+                                   ("dv", dv, dv_p, None)):
+        assert torch.isfinite(got).all(), (what, name)
+        tile = _tile_rel(got, want, terms=terms)
+        assert tile <= TOL, (what, name, tile)
+    g = q.shape[2] // k.shape[2]
+    dp_terms = torch.einsum("bqhd,bkhd->bhqk", do.abs(),
+                            v.abs().repeat_interleave(g, dim=2))
+    mag = (p * dp_terms).sum(-1) / (1.0 - var.get("dropout_p", 0.0))
+    gap = (delta - delta_p).abs()
+    assert bool((gap[live] <= 1e-5 * mag[live] + 1e-7).all()), \
+        (what, "delta", gap[live].max().item())
+    if bias_grad:
+        db = dbias[0]
+        assert db.shape == ds_p.shape
+        assert bool((db[p == 0] == 0).all()), (what, "d-bias zeros")
+        floor = 1e-1 * (p.abs() * (dp.abs() + delta_p.abs()[..., None])).norm()
+        l2 = ((db - ds_p).norm() / torch.maximum(ds_p.norm(), floor)
+              .clamp_min(1e-30)).item()
+        assert l2 <= TOL, (what, "d-bias", l2)
+
+
+def test_fp32_plan_reports_the_tf32_design(card):
+    """kernel_plan for fp32: dQ and dK/dV on the TF32 tensor cores at every
+    D_pad <= 128 (dQ 64 query rows over 32-key tiles; dK/dV 64 keys over
+    32-query tiles, key-major), the FP32 pipes at D_pad 192 and 256 and for
+    the forward."""
+    for D in (1, 32, 40, 64, 96, 128):
+        dq = FA.kernel_plan("flash_bwd_dq", D, torch.float32)
+        dkv = FA.kernel_plan("flash_bwd_dkv", D, torch.float32)
+        assert (dq["design"], dq["query_rows"], dq["keys"],
+                dq["key_major"]) == ("wgmma-3xtf32", 64, 32, False)
+        assert (dkv["design"], dkv["query_rows"], dkv["keys"],
+                dkv["key_major"]) == ("wgmma-3xtf32", 32, 64, True)
+    for D in (160, 192, 200, 256):
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert FA.kernel_plan(name, D, torch.float32)["design"] == "fp32"
+    for D in DIMS:
+        assert FA.kernel_plan("flash_fwd", D, torch.float32)["design"] == \
+            "fp32"
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+@pytest.mark.parametrize("D", DIMS)
+def test_fp32_bwd_vs_plain(card, D, flag):
+    """dQ and dK/dV at GQA 8/2 and 2/2, lengths across both kernels' 32- and
+    64-row tiles, causal, non-causal and a window."""
+    rng = np.random.RandomState(5 * D + 13 * FLAGS.index(flag))
+    B = 2
+    for idx, (mode, (H, hkv)) in enumerate(itertools.product(
+            MODES, ((8, 2), (2, 2)))):
+        Sq, Sk = SHAPES[idx % len(SHAPES)]
+        q, do = (torch.from_numpy(rng.randn(B, Sq, H, D).astype(
+            np.float32)).to(card) for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(B, Sk, hkv, D).astype(
+            np.float32)).to(card) for _ in range(2))
+        causal, var = _variant(flag, mode, B, Sq, Sk, H, rng, card)
+        _check(q, k, v, do, causal, var,
+               f"fp32 D={D} {flag} {mode} H={H}/{hkv} Sq={Sq} Sk={Sk}")
+
+
+@pytest.mark.parametrize("D", (64, 128))
+def test_fp32_dq_keep_bits_across_key_tiles(card, D):
+    """dQ's keep bits over Sk = 300 keys (ten of its 32-key tiles, the last
+    partial), read out of its d-bias as the 16-bit test reads them: q = k =
+    0 makes every p 1 / Sk and dO . v = 1 makes dP the keep bit over
+    (1 - p), so the d-bias is positive exactly where a key was kept."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 300, 0.3, 93
+    q, k, v, do = (torch.zeros(B, S, H, D, device=card)
+                   for S in (Sq, Sk, Sk, Sq))
+    v[..., 0] = 1
+    do[..., 0] = 1
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    want = keep.float().sum(-1) / (Sk * (1 - p))
+    bias = torch.zeros(1, 1, Sq, Sk, device=card)
+    for var in (dict(), dict(bias=bias)):
+        var.update(dropout_p=p, seed=seed)
+        _, lse = FA.flash_fwd(q, k, v, False, 1.0, **var)
+        got = FA.flash_bwd_dq(q, k, v, lse, do, False, 1.0,
+                              bias_grad="bias" in var, **var)
+        torch.testing.assert_close(got[1], want, rtol=1e-5, atol=1e-6)
+        if "bias" in var:
+            assert torch.equal(got[2] > 0, keep), D
+
+
+@pytest.mark.parametrize("bias", (False, True), ids=("nobias", "bias"))
+@pytest.mark.parametrize("D", (64, 128))
+def test_fp32_dkv_keep_bits_across_query_tiles(card, D, bias):
+    """dK/dV's keep bits over Sq = 200 queries (seven of its 32-query
+    tiles, the last partial) and Sk = 300 keys (five of its 64-key blocks),
+    read out of dv: q = k = 0 makes every p 1 / Sk, and dO one-hot on
+    queries [w, w + D) makes dv[key, d] the kept, rescaled p of query w + d,
+    nonzero exactly where the forward kept the pair."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 300, 0.3, 95
+    q = torch.zeros(B, Sq, H, D, device=card)
+    k = torch.zeros(B, Sk, H, D, device=card)
+    v = torch.randn(B, Sk, H, D, device=card)
+    var = dict(dropout_p=p, seed=seed)
+    if bias:
+        var["bias"] = torch.zeros(1, 1, Sq, Sk, device=card)
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    _, lse = FA.flash_fwd(q, k, v, False, 1.0, **var)
+    for w in range(0, Sq, D):
+        n = min(D, Sq - w)
+        do = torch.zeros(B, Sq, H, D, device=card)
+        idx = torch.arange(n, device=card)
+        do[:, w + idx, :, idx] = 1
+        _, delta = FA.flash_bwd_dq(q, k, v, lse, do, False, 1.0, **var)
+        _, dv = FA.flash_bwd_dkv(q, k, v, lse, delta, do, False, 1.0, **var)
+        got = (dv[..., :n] != 0).permute(0, 2, 3, 1)      # [B, H, d, key]
+        assert torch.equal(got, keep[:, :, w:w + n]), (D, bias, w)
+
+
+def test_fp32_layouts_qkv_views_and_broadcast_key(card):
+    """The model's head-major qkv read in place (the fp32 tensor maps take
+    the views' strides), and a key and value broadcast over the batch."""
+    B, S, H, D = 2, 300, 4, 128
+    qkv = torch.randn(B, S, H, 3, D, device=card)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    do = torch.randn(B, S, H, D, device=card)
+    _check(q, k, v, do, True, {}, "fp32 qkv views")
+    kb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
+    vb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
+    _check(q, kb, vb, do, False, {}, "fp32 broadcast key")

@@ -1,0 +1,135 @@
+"""The port's flash backward in fp32 (dq, dk, dv and the d-bias), run on
+the CPU through its plain backward, against the JAX package's Pallas
+backward in interpret mode, at the edges of the tiles of the card's fp32
+dQ and dK/dV kernels on the TF32 tensor cores
+(``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
+32; ``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of
+32, streamed over the group's heads): lengths 31, 33, 63, 65, 95 and 97
+mixed, causal with Sq < Sk, GQA 8/2 (the group summed over its query
+heads), a window across a 64-key block boundary, segment cuts at 31 and
+65, document flashmask rows across key blocks, and an additive bias with
+its gradient, at D 40 (read into the 64 width with zero columns), 64 and
+128 (the widths the design takes; D_pad 192 and 256 stay on the FP32-pipe
+kernels, whose edges ``test_torch_flash_head_dims.py`` covers). Inputs come
+from numpy with a seed and go to both packages, as
+``test_torch_flash_dkv_tiles.py`` runs them. Tolerance: 2e-4 in fp32,
+relative to the reference's max-abs. The CUDA kernels are held to this
+plain backward on the card by ``test_torch_flash_fp32_hopper_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels.pallas import flash_attention as JFA
+from paddle_tpu_torch.kernels import flash_attention as FA
+
+TOL_GRAD = 2e-4
+
+
+def _segments(S, cuts):
+    ids = np.zeros((1, S), np.int32)
+    for c in cuts:
+        ids[0, c:] += 1
+    return ids
+
+
+def _doc_rows(S, lens):
+    """C = 1 causal document rows [1, 1, S]: start[j] = the end of the
+    document that holds key j; end = S."""
+    start, pos = np.zeros((1, 1, S), np.int32), 0
+    for n in lens:
+        start[0, 0, pos:pos + n] = pos + n
+        pos += n
+    return start, np.full_like(start, S)
+
+
+# sq, sk, H, Hkv, causal, window, segment cuts, document lengths, JAX block,
+# D, bias
+CASES = {
+    "causal-65x63-d64": (65, 63, 2, 2, True, None, None, None, None, 64,
+                         False),
+    "noncausal-33x97-d128": (33, 97, 2, 2, False, None, None, None, None,
+                             128, False),
+    "causal-31x129-sq-below-sk-d40": (31, 129, 2, 2, True, None, None, None,
+                                      None, 40, False),
+    "causal-97x95-gqa-8-2-d64": (97, 95, 8, 2, True, None, None, None, None,
+                                 64, False),
+    "noncausal-64x32-gqa-8-2-d128": (64, 32, 8, 2, False, None, None, None,
+                                     None, 128, False),
+    "window-129x129-across-64-d64": (129, 129, 2, 1, False, (40, 20), None,
+                                     None, None, 64, False),
+    "segments-cut-at-31-65-d40": (128, 128, 2, 2, False, None, (31, 65),
+                                  None, 64, 40, False),
+    "document-rows-across-key-blocks-d128": (128, 128, 2, 2, True, None,
+                                             None, (33, 30, 65), 64, 128,
+                                             False),
+    "bias-dbias-65x97-d64": (65, 97, 2, 2, False, None, None, None, None, 64,
+                             True),
+    "bias-dbias-causal-96x96-d128": (96, 96, 2, 2, True, None, None, None,
+                                     None, 128, True),
+}
+
+
+def _close(got, ref, tol, what):
+    scale = max(float(np.abs(ref).max()), 1.0)
+    err = float(np.abs(got - ref).max()) / scale
+    assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_fp32_bwd_matches_jax_at_tf32_tile_edges(case):
+    sq, sk, H, Hkv, causal, window, cuts, docs, block, D, with_bias = \
+        CASES[case]
+    rng = np.random.RandomState(7 * sq + sk + H + D)
+    q, k, v, do = (rng.randn(*s).astype(np.float32)
+                   for s in ((1, sq, H, D), (1, sk, Hkv, D), (1, sk, Hkv, D),
+                             (1, sq, H, D)))
+    bias = ((rng.randn(1, H, sq, sk) * 0.5).astype(np.float32)
+            if with_bias else None)
+    seg = None if cuts is None else _segments(sq, cuts)
+    fm = None if docs is None else _doc_rows(sk, docs)
+    scale = 1.0 / np.sqrt(D)
+    bq, bk = block or sq, block or sk
+    jseg = None if seg is None else jnp.asarray(seg)
+    extras = (jnp.asarray(bias) if bias is not None else
+              None if fm is None else (None, *map(jnp.asarray, fm)))
+    _, res = JFA._flash_fwd(*map(jnp.asarray, (q, k, v)), extras, jseg, jseg,
+                            None, causal, scale, bq, bk, window, 0.0,
+                            bias_grad=with_bias)
+    grads = JFA._flash_bwd(causal, scale, bq, bk, window, 0.0, with_bias,
+                           res, jnp.asarray(do))
+
+    T = torch.from_numpy
+    var = dict(q_seg=None if seg is None else T(seg),
+               kv_seg=None if seg is None else T(seg),
+               fm=None if fm is None else tuple(map(T, fm)), window=window,
+               bias=None if bias is None else T(bias))
+    launches = (FA.flash_bwd_dq.LAUNCHES, FA.flash_bwd_dkv.LAUNCHES)
+    _, lse = FA.flash_fwd(T(q), T(k), T(v), causal, scale, **var)
+    got = FA.flash_bwd(T(q), T(k), T(v), lse, T(do), causal, scale,
+                       bias_grad=with_bias, **var)
+    assert (FA.flash_bwd_dq.LAUNCHES, FA.flash_bwd_dkv.LAUNCHES) == launches
+    assert got[0].shape == (1, sq, H, D)
+    assert got[1].shape == got[2].shape == (1, sk, Hkv, D)
+    for what, g, j in zip(("dq", "dk", "dv"), got[:3], grads[:3]):
+        _close(g.numpy(), np.asarray(j), TOL_GRAD, what)
+    if with_bias:
+        assert got[3].shape == bias.shape
+        _close(got[3].numpy(), np.asarray(grads[3]), TOL_GRAD, "dbias")
+
+
+@pytest.mark.parametrize("fp32_tma", [False, True])
+def test_fp32_broadcast_views_copied_for_the_tf32_backward(fp32_tma):
+    """An fp32 view repeated over its batch (stride 0) is copied to a
+    contiguous buffer where the TF32 backward reads it through TMA (D_pad
+    <= 128: ``fp32_tma``), and read in place by the FP32-pipe kernels; the
+    model's strided qkv views are read in place either way."""
+    k = torch.randn(1, 8, 2, 16).expand(3, 8, 2, 16)
+    assert FA._broadcasts(k, fp32_tma) == fp32_tma
+    (got,) = FA._padded(16, k, fp32_tma=fp32_tma)
+    assert torch.equal(got, k) and got.is_contiguous() == fp32_tma
+    view = torch.randn(2, 8, 4, 3, 16)[:, :, :, 1]
+    (same,) = FA._padded(16, view, fp32_tma=fp32_tma)
+    assert same.data_ptr() == view.data_ptr()
