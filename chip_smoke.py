@@ -9,21 +9,24 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
    wgmma instance's registers and spill bytes (the flash forward, dQ and
    dK/dV, the ragged kernel) and the bulk-ring paged decode instances';
-   the dK/dV split instances (D_pad 192 / 256) and the fp32 decode
-   instances must not spill;
+   the dK/dV split instances (D_pad 192 / 256), the fp32 decode instances
+   and the TF32 instances (the fp32 flash forward, dQ and dK/dV, the fp32
+   ragged kernel) must not spill;
 3. hold the ragged kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, 16 heads of 128, block 32), print each case's
    route and split count (``kernel_plan``), and time kernel, plain version,
    a library yardstick and the card's bound, the decode time over kv
    lengths 64-1024, one or two decode rows of 8192 keys split over
-   blocks against one split, and the decode batch with fp32 queries (the
-   CUDA-core route);
+   blocks against one split, and the decode (a) and mixed (b) batches with
+   fp32 queries (the TF32 route, held at 1e-5); D 256 bf16 timed and D
+   160 / 99 fp32 and D 100 bf16 held on the CUDA-core route;
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
    wave and one timed wave, every layer of every pass through the kernel,
    the ragged kernel's share of a profiled wave's device time, checked
-   against a dense teacher-forced forward in bf16 and in fp32;
+   against a dense teacher-forced forward in bf16 and in fp32 (5b: every
+   fp32 ragged launch on the TF32 kernel, counted);
 6. hold the flash attention kernels (forward, dQ, dK/dV) against their plain
    versions at the training shape (B 8, S 1024, H 16, D 128, causal, q, k, v
    strided views of a head-major qkv) in bf16 and fp32, timed against their
@@ -61,7 +64,8 @@ Phases, in order; any failure exits non-zero:
    path: batched prefill chunks on the flash bias kernel, decode bursts on
    the paged decode kernel): the same wave as phase 5, launch counts, bf16
    and fp32 checks, and fp32 tokens identical to the fp32 ragged engine's,
-   every fp32 decode launch on the bulk ring;
+   every fp32 decode launch on the bulk ring, the fp32 prefill's flash
+   launches (the TF32 forward) counted;
 14. serve the same wave through the ragged engine with int8 and fp8 KV
    pools: tokens/s, capacity at phase 5's pool budget, determinism across
    fresh engines, teacher-forced top-5 containment;
@@ -128,7 +132,8 @@ Phases, in order; any failure exits non-zero:
    bias shapes; the dropout mask with a bias bit for bit;
 25. hold them at D 32, 40, 80, 96, 160, 256 in fp32, bf16 and fp16, causal
    and not, GQA 8/2 with Sq != Sk; time D 32, 96, 160, 256 (bf16), 256 and
-   128 (fp16) at B 8, S 1024, H 16 causal, and the Llama GQA 16/4 call,
+   128 (fp16) and 256 (fp32: the FP32-pipe kernels) at B 8, S 1024, H 16
+   causal, and the Llama GQA 16/4 call,
    each against its bound and SDPA; the 16-bit dK/dV on "wgmma+tma" at
    every D 1-256; D 160 and 256 through scaled_dot_product_attention
    forward and backward with each kernel launched once; D 320 there takes
@@ -380,7 +385,14 @@ def ragged_plan_line(case):
                   f"{plan['splits']}")
 
 
-def check_kernel_case(name, case, card):
+def check_kernel_case(name, case, card, tol=None):
+    """The ragged kernel against its plain version on one case (max-abs
+    error within ``tol`` of the reference's max-abs: KERNEL_TOL in 16 bits,
+    1e-5 in fp32 by default); with ``card``, timed against the plain
+    version, SDPA over pre-gathered pages and the bound (and, on the TF32
+    route, the bound of three TF32 products a pair)."""
+    if tol is None:
+        tol = 1e-5 if case["q"].dtype == torch.float32 else KERNEL_TOL
     args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["q_lens"], case["kv_lens"], case["scale"])
     plan, line = ragged_plan_line(case)
@@ -399,8 +411,8 @@ def check_kernel_case(name, case, card):
         dead = out_k[r, int(l):]
         require((dead == 0).all(), f"{name}: row {r} columns >= {l} not zero")
     log(f"{name}: max_abs_err {err:.3e} max_abs_ref {ref:.3e} rel {rel:.3e} "
-        f"(tol {KERNEL_TOL})")
-    require(rel <= KERNEL_TOL, f"{name}: rel err {rel} > {KERNEL_TOL}")
+        f"(tol {tol})")
+    require(rel <= tol, f"{name}: rel err {rel} > {tol}")
     rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
                splits=plan["splits"])
     if card is None:
@@ -409,12 +421,17 @@ def check_kernel_case(name, case, card):
     plain = cuda_ms(lambda: RPA.ragged_paged_attention_plain(*args))
     lib = cuda_ms(sdpa_yardstick(case))
     bound, bound_by, nbytes, flops = case_bound(case)
+    tf32 = (tf32_bound_ms(case_bound(case)) if plan["design"] == "wgmma-3xtf32"
+            else None)
+    note = "" if tf32 is None else f" tf32x3_bound_ms {tf32:.4f}"
     log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
         f"library_ms {lib:.4f} (SDPA over pre-gathered pages) bound_ms "
-        f"{bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP) "
+        f"{bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP){note} "
         f"kernel/bound {kern / bound:.1f}x  [{card}]")
     rec.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
                bound_by=bound_by, bytes=nbytes, flops=flops)
+    if tf32 is not None:
+        rec["tf32x3_bound_ms"] = tf32
     return rec
 
 
@@ -822,10 +839,10 @@ def flash_bounds(q, k, pairs, bias=None, dbias=False, seg=False, fm=None):
 
 
 def tf32_bound_ms(bound):
-    """The fp32 dQ / dK/dV bound of the TF32 tensor-core design (each
-    operand split in two halves: three products for each) from a
-    ``flash_bounds`` entry: its bytes against 3x its FLOPs at the dense
-    TF32 peak."""
+    """The fp32 bound of the TF32 tensor-core design (each operand split in
+    two halves: three products for each) from a ``flash_bounds`` or
+    ``case_bound`` entry: its bytes against 3x its FLOPs at the dense TF32
+    peak."""
     _, _, nbytes, flops = bound
     return max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
 
@@ -971,10 +988,10 @@ def flash_designs(name):
     ring; the 16-bit dK/dV, csrc/flash_dkv_hopper.cu: transposed scores in
     registers, Q / dO through a TMA ring, at D_pad 192 and 256 one
     warpgroup holding dv and another dk over 64 keys), "wgmma-3xtf32" (the
-    fp32 dQ and dK/dV at D_pad <= 128, csrc/flash_dq_tf32_hopper.cu and
-    flash_dkv_tf32_hopper.cu: each operand split into two TF32 halves,
-    three products for each), "fp32" (the FP32-pipe kernels); and the bf16
-    and fp32 tiles (query rows x keys)."""
+    fp32 forward, dQ and dK/dV at D_pad <= 128, csrc/flash_fwd_tf32_hopper.cu,
+    flash_dq_tf32_hopper.cu and flash_dkv_tf32_hopper.cu: each operand split
+    into two TF32 halves, three products for each), "fp32" (the FP32-pipe
+    kernels); and the bf16 and fp32 tiles (query rows x keys)."""
     from paddle_tpu_torch.kernels import _build
     out = {}
     for d in _build.FLASH_D_PADS:
@@ -991,14 +1008,18 @@ def flash_designs(name):
 
 def tf32_ptxas(output):
     """[(kernel, D_pad, bias, ints, dropout, registers, spill store bytes)]
-    of the fp32 dQ / dK/dV instances on the TF32 tensor cores, from
-    ptxas's -v lines."""
+    of the fp32 instances on the TF32 tensor cores (the flash forward, dQ
+    and dK/dV; the ragged kernel, with no flags: -1), from ptxas's -v
+    lines."""
     recs, cur, spill = [], None, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = re.search(r"(flash_(?:dq|dkv)_tf32_kernel)ILi(\d+)ELb([01])"
-                            r"ELb([01])ELb([01])E", m.group(1))
+            cur = re.search(r"(flash_(?:fwd|dq|dkv)_tf32_kernel)ILi(\d+)ELb"
+                            r"([01])ELb([01])ELb([01])E", m.group(1))
+            if cur is None:
+                cur = re.search(r"(ragged_tf32_kernel)ILi(\d+)E()()()",
+                                m.group(1))
             spill = None
             continue
         if cur is None:
@@ -1009,7 +1030,8 @@ def tf32_ptxas(output):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             name, *rest = cur.groups()
-            recs.append((name, *map(int, rest), int(m.group(1)), spill))
+            recs.append((name, *(int(r) if r else -1 for r in rest),
+                         int(m.group(1)), spill))
             cur = None
     return recs
 
@@ -2081,15 +2103,26 @@ def two_program_phase(card, ragged_fp32_outs):
     PA.paged_decode_attention.LAUNCHES = 0
     for route in PA.paged_decode_attention.ROUTES:
         PA.paged_decode_attention.ROUTES[route] = 0
+    FA.flash_fwd.LAUNCHES = 0
     fp32 = {}
     outs32 = full_width_fp32_phase(stats=fp32, ragged=False)
     fp32.update(launches=PA.paged_decode_attention.LAUNCHES,
-                routes=dict(PA.paged_decode_attention.ROUTES))
+                routes=dict(PA.paged_decode_attention.ROUTES),
+                flash_fwd_launches=FA.flash_fwd.LAUNCHES,
+                flash_fwd_design=FA.kernel_plan(
+                    "flash_fwd", cfg.hidden_size // cfg.num_heads,
+                    torch.float32, bias=True)["design"])
     log(f"fp32 two-program {outs32}\nfp32 ragged      {ragged_fp32_outs}")
     log(f"fp32 two-program wave: {fp32['tokens_per_s']:.1f} generated "
         f"tokens/s (4 requests of 16 tokens, the engine's first wave), "
         f"paged_decode_attention LAUNCHES {fp32['launches']}, by route "
-        f"{fp32['routes']}  [{card}]")
+        f"{fp32['routes']}; flash_fwd (bias, prefill) LAUNCHES "
+        f"{fp32['flash_fwd_launches']} [{fp32['flash_fwd_design']}]  "
+        f"[{card}]")
+    require(fp32["flash_fwd_launches"] > 0
+            and fp32["flash_fwd_design"] == "wgmma-3xtf32",
+            f"fp32 prefill off the TF32 forward: {fp32['flash_fwd_launches']}"
+            f" launches, design {fp32['flash_fwd_design']}")
     require(outs32 == ragged_fp32_outs, "fp32: the two-program engine's "
             "greedy tokens differ from the ragged engine's")
     require(fp32["launches"] > 0 and
@@ -3561,7 +3594,8 @@ ALIBI_SLOPES = (0.0313, 0.0219, 0.0437, 0.0251)
 HEAD_DIMS = (32, 40, 80, 96, 160, 256)
 TIMED_DIMS = ((32, torch.bfloat16), (96, torch.bfloat16),
               (160, torch.bfloat16), (256, torch.bfloat16),
-              (256, torch.float16), (128, torch.float16))
+              (256, torch.float16), (128, torch.float16),
+              (256, torch.float32))
 
 
 def padded_batch(vocab):
@@ -3698,7 +3732,8 @@ def flash_padded_phase(card):
 def head_dims_phase(card):
     """Phase 25: every D of the family's members and between them, fp32,
     bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain;
-    then D 32, 96, 160, 256 in bf16 and D 256, 128 in fp16 timed at B 8,
+    then D 32, 96, 160, 256 in bf16, D 256, 128 in fp16 and D 256 in fp32
+    (the FP32-pipe kernels, beside SDPA's fp32 backward) timed at B 8,
     S 1024, H 16, causal, the Llama GQA 16/4 call timed with its bound and
     SDPA (enable_gqa), the dK/dV design at every 16-bit D, D 160 and 256
     through the registry op (the counts set to 0 just before, read just
@@ -4747,8 +4782,9 @@ def main() -> int:
         log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
             f"{regs} registers at launch, {spill} bytes spill stores")
     if _build.BUILD_LOG["output"]:
-        # the fp32 dQ and dK/dV on the TF32 tensor cores hold no spill
-        require(len(tf32) == 32 and not any(r[-1] for r in tf32),
+        # the fp32 forward, dQ and dK/dV (48) and the fp32 ragged kernel (2)
+        # on the TF32 tensor cores hold no spill
+        require(len(tf32) == 50 and not any(r[-1] for r in tf32),
                 f"fp32 TF32 instances: {len(tf32)}, spilling "
                 f"{[r for r in tf32 if r[-1]]}")
     dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
@@ -4773,10 +4809,32 @@ def main() -> int:
     check_kernel_case("(c) GQA 16/4 mixed", gqa, None)
     sweep = decode_sweep(rng, card)
     sweep["long_rows"] = long_row_decode(rng, card)
-    # fp32 queries take the CUDA-core route: timed at case (a)'s batch
+    # fp32 queries over fp32 pools take the TF32 route (held at 1e-5): timed
+    # at case (a)'s and case (b)'s batches
     rec_dec32 = check_kernel_case("(a) decode R=8 fp32", make_case(
         rng, [1] * 8, [100, 173, 256, 311, 400, 467, 555, 640], C=1, hq=16,
         hkv=16, dtype=torch.float32), card)
+    rec_mixed32 = check_kernel_case("(b) mixed R=4 C=128 fp32", make_case(
+        rng, mixed_q, mixed_kv, C=128, hq=16, hkv=16, dtype=torch.float32),
+        card)
+    require(rec_dec32["design"] == rec_mixed32["design"] == "wgmma-3xtf32",
+            "fp32 ragged cases off the TF32 route")
+    # head dims past the wgmma kernels' 128 and off whole 16-byte words: the
+    # CUDA-core route, D 256 bf16 timed at case (a)'s batch
+    rec_d256 = check_kernel_case("(a) decode R=8 D=256 bf16", make_case(
+        rng, [1] * 8, [100, 173, 256, 311, 400, 467, 555, 640], C=1, hq=16,
+        hkv=16, D=256), card)
+    wide = {"D256_bf16": rec_d256}
+    for tag, D, dt in (("D160_fp32", 160, torch.float32),
+                       ("D99_fp32", 99, torch.float32),
+                       ("D100_bf16", 100, torch.bfloat16)):
+        wide[tag] = check_kernel_case(f"(c) GQA 16/4 mixed D={D} {tag[-4:]}",
+                                      make_case(rng, mixed_q, mixed_kv, C=128,
+                                                hq=16, hkv=4, D=D, dtype=dt),
+                                      None)
+    require(all(r["design"] == "fp32" for r in wide.values()),
+            f"wide / odd head dims off the CUDA-core route: "
+            f"{ {t: r['design'] for t, r in wide.items()} }")
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("4. tiny fp32 engine: card vs CPU")
@@ -4787,7 +4845,19 @@ def main() -> int:
     full = full_width_bf16_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
     t0 = phase("5b. GPT-1.3B shape, fp32, exactness")
+    # main path of the fp32 ragged kernel: the counts go to 0 just before
+    # and are read just after
+    RPA.ragged_paged_attention.LAUNCHES = 0
+    for route in RPA.ragged_paged_attention.ROUTES:
+        RPA.ragged_paged_attention.ROUTES[route] = 0
     ragged_fp32_outs = full_width_fp32_phase()
+    ragged32 = dict(launches=RPA.ragged_paged_attention.LAUNCHES,
+                    routes=dict(RPA.ragged_paged_attention.ROUTES))
+    log(f"fp32 ragged engine: ragged_paged_attention LAUNCHES "
+        f"{ragged32['launches']}, by route {ragged32['routes']}")
+    require(ragged32["launches"] > 0 and ragged32["routes"]["wgmma-3xtf32"]
+            == ragged32["launches"], f"fp32 ragged launches off the TF32 "
+            f"route: {ragged32['routes']}")
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("6. flash attention kernels vs plain on the card")
@@ -4907,8 +4977,21 @@ def main() -> int:
         design=rec_dec["design"], splits=rec_dec["splits"],
         shape="decode R=8 H=16 D=128 bs=32 bf16, kv_len 100..640",
         mixed={k: rec_mixed[k] for k in keys + ("design", "splits")},
-        fp32={k: rec_dec32[k] for k in keys + ("design",)},
+        wide_head_dims={t: {k: r[k] for k in keys + ("design",) if k in r}
+                        for t, r in wide.items()},
         decode_sweep=sweep, serving=full)
+    ragged32_rec = dict(
+        name="ragged_paged_attention_fp32", route="cuda",
+        source="paddle_tpu_torch/csrc/ragged_paged_attention_tf32_hopper.cu",
+        replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:121",
+        launches=ragged32["routes"]["wgmma-3xtf32"],
+        **{k: rec_dec32[k] for k in keys}, design=rec_dec32["design"],
+        splits=rec_dec32["splits"],
+        tf32x3_bound_ms=rec_dec32["tf32x3_bound_ms"],
+        shape="decode R=8 H=16 D=128 bs=32 fp32, kv_len 100..640",
+        mixed={k: rec_mixed32[k] for k in keys + (
+            "design", "splits", "tf32x3_bound_ms")},
+        launches_from="phase 5b, the fp32 ragged engine's wave")
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
     fa = "paddle_tpu/kernels/pallas/flash_attention.py"
     bert_main = bert[BERT_SEQS[0]]
@@ -4943,7 +5026,8 @@ def main() -> int:
              head_dims={tag: {k: fdims[tag][name][k] for k in keys}
                         for tag in ("D32_bfloat16", "D96_bfloat16",
                                     "D160_bfloat16", "D256_bfloat16",
-                                    "D256_float16", "D128_float16")},
+                                    "D256_float16", "D128_float16",
+                                    "D256_float32")},
              head_dims_entry_launches={
                  f"D{D}": fdims[f"D{D}_entry_launches"][name]
                  for D in (160, 256)},
@@ -4971,6 +5055,16 @@ def main() -> int:
     for k in kernels:
         if k["name"] in FLASH_KERNELS:
             k["design"] = flash_designs(k["name"])
+    f32 = flash_recs["fp32"]["flash_fwd"]
+    kernels += [ragged32_rec, dict(
+        name="flash_fwd_fp32", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_fwd_tf32_hopper.cu",
+        replaces=f"{fa}:451", launches=two["fp32"]["flash_fwd_launches"],
+        **{k: f32[k] for k in keys}, design=f32["design"],
+        tf32x3_bound_ms=f32["tf32x3_bound_ms"],
+        shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v views of qkv",
+        launches_from="phase 13, the fp32 two-program engine's prefill "
+                      "(bias [P, 1, C, cap])")]
     kernels.append(dict(
         name="fused_adam", route="cuda",
         source="paddle_tpu_torch/csrc/fused_adam.cu",
@@ -5114,7 +5208,7 @@ def main() -> int:
     for k in kernels:
         if k["name"] in fp16:
             k["fp16"] = fp16[k["name"]]
-    require(len(kernels) == 17, f"{len(kernels)} kernels in the record")
+    require(len(kernels) == 19, f"{len(kernels)} kernels in the record")
     log(f"kernels: {[k['name'] for k in kernels]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

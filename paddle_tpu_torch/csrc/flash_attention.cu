@@ -1,6 +1,6 @@
 // The C entries of the flash attention kernels: they check what the kernels
 // take, fill the argument block and pick the head-dim family member that
-// holds D (the kernels themselves are in flash_attention_fwd.cu and
+// holds D (the routing is in flash_attention_fwd.cu and
 // flash_attention_bwd.cu, one object per D_pad). See
 // kernels/flash_attention.py for the Python side.
 
@@ -212,7 +212,8 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 // scores in registers and the streamed operands through a TMA ring; 2: fp32
 // on the TF32 tensor cores, wgmma with each operand split into two TF32
 // halves and three products for each, the streamed operands through a TMA
-// ring and split in shared memory: the fp32 dQ and dK/dV at D_pad <= 128),
+// ring and split in shared memory: the fp32 forward, dQ and dK/dV at D_pad
+// <= 128),
 // out[1] and out[2] the query rows and keys of a tile, out[3] 1 where a
 // block owns a key tile and walks the queries (dK/dV), else 0. The
 // constants are the ones the kernels are instantiated with. Returns 0, or
@@ -223,10 +224,10 @@ int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   if (kernel < 0 || kernel > 2 || p == 0 || !dtype_ok(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hopper_width(p);
-  if (dtype == kF32 && kernel > 0 && p <= kTf32MaxD) {
+  if (dtype == kF32 && p <= kTf32MaxD) {
     out[0] = 2;
-    out[1] = kernel == 1 ? kTf32DqBM : kTf32DkvBM;
-    out[2] = kernel == 1 ? kTf32DqBN : kTf32DkvBN;
+    out[1] = kernel == 0 ? kTf32FwdBM : kernel == 1 ? kTf32DqBM : kTf32DkvBM;
+    out[2] = kernel == 0 ? kTf32FwdBN : kernel == 1 ? kTf32DqBN : kTf32DkvBN;
   } else if (dtype == kF32) {
     out[0] = 0;
     out[1] = out[2] = kTile;

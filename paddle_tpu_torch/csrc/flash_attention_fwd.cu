@@ -75,12 +75,17 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the flagship
 // shape (B 8, S 1024, H 16, D 128, causal, bf16) the call does 4 * D FLOPs
 // per visible (query, key) pair, ~34 GFLOP, and must move q, k, v and out
-// once, ~134 MB: both bounds sit near 0.04 ms. This file holds the fp32
-// kernel: the tiles are staged as fp32 (K and Q rows padded to D + 1 so the
-// 16 readers of a column hit 16 banks) and both products run on the FP32
-// pipes with 4 x 4 register tiles, exact to fp32 rounding. fwd_run hands
-// every bf16 and fp16 call to the wgmma kernel of flash_fwd_hopper.cu
-// (scores and output in registers, K / V through a TMA ring).
+// once, ~134 MB: both bounds sit near 0.04 ms. This file holds the routing
+// of every dtype and width (fwd_run) and the FP32-pipe kernel for fp32 at
+// D_pad 192 and 256: the tiles are staged as fp32 (K and Q rows padded to
+// D + 1 so the 16 readers of a column hit 16 banks) and both products run
+// on the FP32 pipes with 4 x 4 register tiles, exact to fp32 rounding.
+// fwd_run hands every bf16 and fp16 call to the wgmma kernel of
+// flash_fwd_hopper.cu (scores and output in registers, K / V through a TMA
+// ring) and every fp32 call of D_pad <= 128 to the TF32 tensor-core kernel
+// of flash_fwd_tf32_hopper.cu (each operand split into two TF32 halves,
+// three products for each). The TF32 design does not fit D_pad 192 and
+// 256 (flash_common.cuh).
 
 #include "flash_common.cuh"
 
@@ -97,7 +102,7 @@ constexpr size_t fwd_smem() {
 }
 
 template <int D, bool kBias, bool kInt, bool kDrop>
-__global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ IntTiles it;
   constexpr int ldq = D + 1, ldp = kTile + 1, NC = D / 16;
@@ -225,9 +230,11 @@ __global__ void __launch_bounds__(kThreads, (D <= 128 ? 2 : 1)) flash_fwd_kernel
   }
 }
 
-// fp32 only (fwd_run hands the 16-bit calls to flash_fwd_hopper.cu)
+// fp32 at D_pad 192 and 256 only (fwd_run hands the other calls to the
+// tensor-core kernels)
 template <int D, bool kBias, bool kInt, bool kDrop>
 int launch(const Args& a, int dtype, cudaStream_t s) {
+  static_assert(D > kTf32MaxD, "the TF32 kernel serves fp32 at D_pad <= 128");
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
   return launch_kernel(flash_fwd_kernel<D, kBias, kInt, kDrop>, fwd_smem<D>(), grid, a, s);
 }
@@ -247,8 +254,11 @@ int launch_flags(const Args& a, int dtype, cudaStream_t s) {
 template <int D>
 int fwd_run(const Args& a, int dtype, cudaStream_t s) {
   if (dtype != kF32) return fwd_hopper_run<hopper_width(D)>(a, dtype, s);
-  return a.bias != nullptr ? launch_flags<D, true>(a, dtype, s)
-                           : launch_flags<D, false>(a, dtype, s);
+  if constexpr (D <= kTf32MaxD)
+    return fwd_tf32_run<hopper_width(D)>(a, s);
+  else
+    return a.bias != nullptr ? launch_flags<D, true>(a, dtype, s)
+                             : launch_flags<D, false>(a, dtype, s);
 }
 
 template int fwd_run<PTT_FLASH_D>(const Args&, int, cudaStream_t);

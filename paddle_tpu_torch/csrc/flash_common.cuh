@@ -17,8 +17,9 @@
 // bytes into a padded buffer first.
 //
 // Element types. The FP32-pipe kernels take float; the tensor-core kernels
-// take bf16 or fp16 (T), or float split into two TF32 halves (the backward
-// at D_pad <= 128), with fp32 accumulators and softmax either way.
+// take bf16 or fp16 (T), or float split into two TF32 halves (the forward
+// and the backward at D_pad <= 128), with fp32 accumulators and softmax
+// either way.
 // The bias is read in its own dtype (fp32, bf16 or fp16, a runtime code)
 // and added in fp32, as the reference's _mask_scores adds
 // bias.astype(float32).
@@ -34,10 +35,10 @@
 // on the card.)
 //
 // Instances, each x 8 (bias, integer masks, dropout: template flags): the
-// FP32-pipe kernels (the forward at 6 widths, dQ and dK/dV at D_pad 192 and
-// 256: 80), the fp32 dQ and dK/dV on the TF32 tensor cores (2 kernels x 2
-// widths: 32), and in bf16 and fp16 the redesigned forward, dQ and dK/dV
-// (wgmma + TMA, 3 kernels x 4 widths: 192): 304, built as 34 objects in
+// FP32-pipe kernels (the forward, dQ and dK/dV at D_pad 192 and 256: 48),
+// the fp32 forward, dQ and dK/dV on the TF32 tensor cores (3 kernels x 2
+// widths: 48), and in bf16 and fp16 the redesigned forward, dQ and dK/dV
+// (wgmma + TMA, 3 kernels x 4 widths: 192): 288, built as 36 objects in
 // parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
@@ -162,21 +163,27 @@ __host__ __device__ constexpr int dq_hopper_bn(int d_pad) { return d_pad > 128 ?
 __host__ __device__ constexpr int dkv_hopper_bn(int d_pad) { return d_pad > 128 ? 64 : 128; }
 constexpr int kDkvHopperBM = 64;
 
-// The fp32 dQ and dK/dV on the TF32 tensor cores, each operand split in two
-// halves (flash_dq_tf32_hopper.cu, flash_dkv_tf32_hopper.cu), one object per
-// width in {64, 128}; dq_run / dkv_run hand them every fp32 call of D_pad <=
-// 128 (32 and 96 read into the next width with zero columns). Their tiles:
-// dQ blocks of 64 query rows over key tiles of 32, dK/dV blocks of 64 keys
-// over query tiles of 32 (a split fp32 tile takes 8 bytes an element: at
-// D_pad 128 the stationary raw tiles, two stages of split tiles and the
-// written p / ds tiles fill 209 and 226 KB). D_pad 192 and 256 stay on the
-// FP32-pipe kernels (flash_attention_bwd.cu): the same design there needs
-// 96 or 128 KB of raw stationary tiles beside 96 or 128 KB a stage.
+// The fp32 forward, dQ and dK/dV on the TF32 tensor cores, each operand
+// split in two halves (flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu,
+// flash_dkv_tf32_hopper.cu), one object per width in {64, 128}; fwd_run /
+// dq_run / dkv_run hand them every fp32 call of D_pad <= 128 (32 and 96
+// read into the next width with zero columns). Their tiles: forward blocks
+// of 128 query rows (two consumer warpgroups) over key tiles of 32, dQ
+// blocks of 64 query rows over key tiles of 32, dK/dV blocks of 64 keys over
+// query tiles of 32 (a split fp32 tile takes 8 bytes an element: at D_pad
+// 128 the stationary raw tiles, two stages of split tiles and the written p
+// / ds tiles or V^T fill 209-226 KB). D_pad 192 and 256 stay on the
+// FP32-pipe kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): the
+// same design there needs 96 or 128 KB of raw stationary tiles beside 96 or
+// 128 KB a stage.
+template <int D>
+int fwd_tf32_run(const Args& a, cudaStream_t stream);
 template <int D>
 int dq_tf32_run(const Args& a, cudaStream_t stream);
 template <int D>
 int dkv_tf32_run(const Args& a, cudaStream_t stream);
 constexpr int kTf32MaxD = 128;
+constexpr int kTf32FwdBM = 128, kTf32FwdBN = 32;
 constexpr int kTf32DqBM = 64, kTf32DqBN = 32;
 constexpr int kTf32DkvBM = 32, kTf32DkvBN = 64;
 

@@ -100,58 +100,6 @@ struct FwdSmem {
   Slot<BN> slot[kFwdStages];
 };
 
-// The online softmax of one key tile on the score fragment s: mask, scale
-// and bias; the row max over the quad; p (dropped and rescaled) in place on
-// s; l and m updated; alpha, the factor the output must be rescaled by once
-// the previous tile's p v product is done (rescale_pack).
-template <int D, int BN, bool kBias, bool kDrop>
-__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2], const Args& a,
-                                             int k0, const int (&qpos)[2], long long bb,
-                                             uint64_t vis, uint64_t keep) {
-  const float neg_inf = __int_as_float(0xff800000);
-#pragma unroll
-  for (int r = 0; r < BN / 2; ++r)  // a masked score adds exp(-inf) = 0
-    s[r] = (vis >> r) & 1u ? s[r] * a.scale : neg_inf;
-  if (kBias) add_bias<BN>(s, a, bb, k0, qpos, vis);
-  // four partial maxima and sums a row: short dependency chains
-  float mx[2][4], sum[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      mx[i][c] = kNegInf;
-      sum[i][c] = 0.f;
-    }
-#pragma unroll
-  for (int r = 0; r < BN / 2; ++r)
-    mx[(r / 2) % 2][(r / 4) % 4] = fmaxf(mx[(r / 2) % 2][(r / 4) % 4], s[r]);
-  float ms[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float row_max = fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
-    const float m_new = fmaxf(m[i], quad_max(row_max));
-    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
-    m[i] = m_new;
-    ms[i] = m_new * kLog2e;
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = 4 * j + 2 * i + e;
-        const float p = exp2f(fmaf(s[r], kLog2e, -ms[i]));
-        sum[i][j % 4] += p;  // l sums the undropped probabilities
-        s[r] = !kDrop ? p : ((keep >> r) & 1u ? p * a.drop_scale : 0.f);
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    l[i] = l[i] * alpha[i] +
-           quad_sum((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
-}
-
 // o *= alpha, and p packed to T as the A fragments of the p v product.
 template <typename T, int D, int BN>
 __device__ __forceinline__ void rescale_pack(const float (&s)[BN / 2], float (&o)[D / 2],

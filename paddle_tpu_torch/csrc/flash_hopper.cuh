@@ -1,7 +1,8 @@
-// The Hopper pieces of the redesigned 16-bit flash kernels
-// (flash_fwd_hopper.cu, the forward; flash_dq_hopper.cu, dQ;
-// flash_dkv_hopper.cu, dK/dV) and of the ragged paged-attention kernel
-// (ragged_paged_attention_hopper.cu): mbarriers, TMA
+// The Hopper pieces of the redesigned flash kernels (flash_fwd_hopper.cu,
+// the forward; flash_dq_hopper.cu, dQ; flash_dkv_hopper.cu, dK/dV; their
+// fp32 forms on the TF32 tensor cores, *_tf32_hopper.cu) and of the ragged
+// paged-attention kernels (ragged_paged_attention_hopper.cu,
+// ragged_paged_attention_tf32_hopper.cu): mbarriers, TMA
 // tile loads, wgmma and its shared-memory descriptors, the tensor maps built
 // on the host, and the accumulator-fragment coordinates the softmax and the
 // masks work on. Inline PTX throughout (no CuTe): each kernel has 16
@@ -89,6 +90,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (the ragged kernels' pools seen as rows).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -757,6 +768,64 @@ __device__ __forceinline__ void add_bias(float (&s)[BN / 2], const Args& a, long
 }
 
 // ---------------------------------------------------------------------------
+// the forward kernels' pieces (flash_fwd_hopper.cu, flash_fwd_tf32_hopper.cu)
+// The online softmax of one key tile on the score fragment s: mask, scale
+// and bias; the row max over the quad; p (dropped and rescaled) in place on
+// s; l and m updated; alpha, the factor the output must be rescaled by once
+// the previous tile's p v product is done (rescale_pack).
+template <int D, int BN, bool kBias, bool kDrop>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], const Args& a,
+                                             int k0, const int (&qpos)[2], long long bb,
+                                             uint64_t vis, uint64_t keep) {
+  const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r)  // a masked score adds exp(-inf) = 0
+    s[r] = (vis >> r) & 1u ? s[r] * a.scale : neg_inf;
+  if (kBias) add_bias<BN>(s, a, bb, k0, qpos, vis);
+  // four partial maxima and sums a row: short dependency chains
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mx[i][c] = kNegInf;
+      sum[i][c] = 0.f;
+    }
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r)
+    mx[(r / 2) % 2][(r / 4) % 4] = fmaxf(mx[(r / 2) % 2][(r / 4) % 4], s[r]);
+  float ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float row_max = fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
+    const float m_new = fmaxf(m[i], quad_max(row_max));
+    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    // a row whose scores a bias pushed to -1e30 (dead so far) takes p = 0:
+    // fmaf(s, log2 e, -m log2 e) is there the rounding error of m log2 e,
+    // up to 2^76, and exp2 of it overflowed to inf (a NaN output after the
+    // dead row's 0 x)
+    ms[i] = m_new <= kNegInf * 0.5f ? __int_as_float(0x7f800000) : m_new * kLog2e;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 4 * j + 2 * i + e;
+        const float p = exp2f(fmaf(s[r], kLog2e, -ms[i]));
+        sum[i][j % 4] += p;  // l sums the undropped probabilities
+        s[r] = !kDrop ? p : ((keep >> r) & 1u ? p * a.drop_scale : 0.f);
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * alpha[i] +
+           quad_sum((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
+}
+
+// ---------------------------------------------------------------------------
 // the dQ kernels' pieces (flash_dq_hopper.cu, flash_dq_tf32_hopper.cu)
 // Zeros into the d-bias of the warpgroup's rows [qa, qa + 64) (those < Sq),
 // key columns [c0, c1).
@@ -992,8 +1061,9 @@ __device__ __forceinline__ void key_rows(const Args& a, int b, int h, const int 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 operands on the TF32 tensor cores (flash_dq_tf32_hopper.cu,
-// flash_dkv_tf32_hopper.cu). Each fp32 operand x is split into hi = T(x) and
+// fp32 operands on the TF32 tensor cores (flash_fwd_tf32_hopper.cu,
+// flash_dq_tf32_hopper.cu, flash_dkv_tf32_hopper.cu,
+// ragged_paged_attention_tf32_hopper.cu). Each fp32 operand x is split into hi = T(x) and
 // lo = T(x - hi), both exact TF32 values (T: cvt.rna.tf32.f32; x - hi is
 // exact in fp32), and a product a b is taken as a_lo b_hi + a_hi b_lo +
 // a_hi b_hi in fp32 accumulators: x = hi + lo to about 2^-22 |x|, and the
@@ -1101,6 +1171,43 @@ __device__ __forceinline__ void split_tiles(float* t0, float* lo0, float* t1, fl
     }
     split_unit(h0, l0, u0, x0, y0);
     if (v < 2 * units) split_unit(h1, l1, u1, x1, y1);
+  }
+}
+
+// Threads [0, n) of the caller split a landed key tile of BN keys: K
+// ([BN][D] raw in 32-column panels at kraw) into khi / klo of the same
+// layout, perm8 columns (in place where khi is kraw), and V (raw at vraw)
+// transposed into vhi / vlo, V^T [D][BN keys] with the keys of each 8-key
+// step in perm8 order: the K-major B of O += P V with P the register A
+// (TF32 wgmma takes no transposed B). A warp takes the BN keys of one group
+// of 4 head columns: its stores land on one V^T row's 32 banks.
+template <int D, int BN>
+__device__ __forceinline__ void split_k_vt(const float* kraw, float* khi, float* klo,
+                                           const float* vraw, float* vhi, float* vlo, int tid,
+                                           int n) {
+  const float4* r4 = reinterpret_cast<const float4*>(kraw);
+  float4* h4 = reinterpret_cast<float4*>(khi);
+  float4* l4 = reinterpret_cast<float4*>(klo);
+  for (int u = tid; u < f32_panels(D) * BN * 4; u += n) {
+    const int a0 = 2 * u + ((u >> 2) & 1);
+    const float4 x = r4[a0], y = r4[a0 ^ 1];
+    split_unit(h4, l4, u, x, y);
+  }
+  const unsigned char* vr = reinterpret_cast<const unsigned char*>(vraw);
+  unsigned char* vh = reinterpret_cast<unsigned char*>(vhi);
+  unsigned char* vl = reinterpret_cast<unsigned char*>(vlo);
+  for (int e = tid; e < BN * (D / 4); e += n) {
+    const int key = e % BN, c = 4 * (e / BN);
+    const float4 x = *reinterpret_cast<const float4*>(vr + f32_off(key, c, BN * 128));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi, lo;
+      split_tf32(xs[i], hi, lo);
+      const uint32_t off = f32_off(c + i, perm8(key), 0);
+      *reinterpret_cast<uint32_t*>(vh + off) = hi;
+      *reinterpret_cast<uint32_t*>(vl + off) = lo;
+    }
   }
 }
 

@@ -26,13 +26,19 @@ __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x)
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 // One contiguous [bs, D] page -> shared fp32 with row stride `ld`, each
-// element times `mul` (1 for float pools), 16 bytes per thread per load (D
-// is a multiple of the vector width, checked by the C entries, so a vector
-// never straddles two rows). `threads` is the block size.
+// element times `mul` (1 for float pools). `vec`: 16 bytes per thread per
+// load (D a multiple of the vector width and the pool 16-byte aligned, so a
+// vector never straddles two rows); else one element a thread (any D, any
+// alignment). `threads` is the block size.
 template <typename P>
 __device__ __forceinline__ void load_page(const P* __restrict__ src, float* dst, int bs, int D,
-                                          int ld, float mul, int threads) {
+                                          int ld, float mul, int threads, bool vec) {
   constexpr int kVec = 16 / sizeof(P);
+  if (!vec) {
+    for (int e = threadIdx.x; e < bs * D; e += threads)
+      dst[(e / D) * ld + (e % D)] = to_f32(src[e]) * mul;
+    return;
+  }
   const int n_vec = bs * D / kVec;
   const uint4* src4 = reinterpret_cast<const uint4*>(src);
   for (int v = threadIdx.x; v < n_vec; v += threads) {

@@ -1,6 +1,7 @@
 // Unified ragged prefill+decode paged attention for Hopper (sm_90a): the C
 // entries, and the kernel on the CUDA cores for the calls the redesigned
-// wgmma kernel (ragged_paged_attention_hopper.cu) does not take.
+// wgmma kernels (ragged_paged_attention_hopper.cu, 16-bit queries;
+// ragged_paged_attention_tf32_hopper.cu, fp32 queries) do not take.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`): one launch serves a
@@ -10,11 +11,15 @@
 // kv_len[r] - q_len[r] + c and sees keys at or before it; columns c >= q_len
 // and rows that see no key emit zeros.
 //
-// Routes (ptt_ragged_plan reports them; the wrapper counts each): bf16 /
-// fp16 queries over pools of their dtype or int8 / fp8 pools, with bs a
-// multiple of 8, go to the wgmma kernel of ragged_paged_attention_hopper.cu
-// (tensor cores, pages through a TMA ring, split key ranges for short
-// grids); fp32 queries and the other page sizes to the kernel here.
+// Routes (ptt_ragged_plan reports them; the wrapper counts each), for every
+// D up to 256: bf16 / fp16 queries over pools of their dtype or int8 / fp8
+// pools go to the wgmma kernel of ragged_paged_attention_hopper.cu, and
+// fp32 queries over fp32 pools to the TF32 one of
+// ragged_paged_attention_tf32_hopper.cu, where bs is a multiple of 8, D <=
+// 128 is a whole number of 16-byte words of the pool type and the pools are
+// 16-byte aligned; every other call (fp32 queries over int8 / fp8 pools,
+// other page sizes, D in (128, 256] or not whole 16-byte words, misaligned
+// pools) to the kernel here.
 //
 // Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
 // fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
@@ -29,9 +34,10 @@
 // one (row, kv head, tile of 16 folded (c, g) query rows) and loops INSIDE
 // the block over the row's pages, reading block_tables[r, j] itself; the
 // online-softmax state (m, l) sits in shared memory and the output
-// accumulator in registers. The loop bound (the row's used pages, at most the
-// table's width, cut further by the tile's last causal column) replaces the
-// TPU grid's extent and index-map clamp, so past-end table slots are never
+// accumulator in registers (16 a thread up to D 128, 32 up to D 256: two
+// instances). The loop bound (the row's used pages, at most the table's
+// width, cut further by the tile's last causal column) replaces the TPU
+// grid's extent and index-map clamp, so past-end table slots are never
 // touched and a decode row costs its own pages, never the batch maximum.
 //
 // Bound on an H100 SXM (published peaks at its 700 W limit: 3.35 TB/s, 989
@@ -39,11 +45,11 @@
 // 2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize bytes of K/V pages and does
 // 4 * D FLOPs per (query head, key). Prefill chunks of 128 queries do ~128x
 // the FLOPs on the same bytes and sit near the ridge. The kernel here reads
-// each page from device memory once per (block, kv head) with 16-byte
-// coalesced loads, converted to fp32 in shared memory, and runs both
-// products on the FP32 pipes with fp32 accumulation: no load overlaps the
-// math, no tensor cores, and a decode block walks its row's pages in
-// sequence.
+// each page from device memory once per (block, kv head), with 16-byte
+// coalesced loads where D and the pools allow and one element a thread where
+// not, converted to fp32 in shared memory, and runs both products on the
+// FP32 pipes with fp32 accumulation: no load overlaps the math, no tensor
+// cores, and a decode block walks its row's pages in sequence.
 
 #include <type_traits>
 
@@ -55,12 +61,16 @@ using namespace ptt_paged;
 
 constexpr int kThreads = 128;
 constexpr int kTileRows = 16;                                // folded rows per block
-constexpr int kMaxD = 128;
-constexpr int kMaxAcc = kTileRows * kMaxD / kThreads;        // outputs per thread
+constexpr int kMaxD = 256;
+constexpr int kWgmmaMaxD = 128;  // the wgmma routes' widest head
+
+// outputs a thread: kTileRows * D / kThreads, for D up to 128 or up to 256
+__host__ __device__ constexpr int acc_regs(int D) { return D <= kWgmmaMaxD ? 16 : 32; }
 
 // T: the query and output type (fp32, bf16); P: the pool type (T, or int8 /
-// fp8 e4m3 with per-page scales).
-template <typename T, typename P>
+// fp8 e4m3 with per-page scales); kMaxAcc: acc_regs of the widest D taken.
+// vec: the pools read in 16-byte words (else one element a thread).
+template <typename T, typename P, int kMaxAcc>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                               const P* __restrict__ v_pool, const int* __restrict__ tables,
@@ -68,7 +78,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_p
                               const float* __restrict__ k_scales,
                               const float* __restrict__ v_scales, T* __restrict__ out, int C,
                               int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
-                              float qmax) {
+                              float qmax, bool vec) {
   constexpr bool kQuant = !std::is_same<T, P>::value;
   extern __shared__ float smem[];
   const int tile = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
@@ -120,8 +130,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_p
     // the dequantization factor, as the reference forms it: scale / qmax
     const float km = kQuant ? k_scales[static_cast<size_t>(h) * NB + page] / qmax : 1.f;
     const float vm = kQuant ? v_scales[static_cast<size_t>(h) * NB + page] / qmax : 1.f;
-    load_page(k_pool + base, Ks, bs, D, ldk, km, kThreads);
-    load_page(v_pool + base, Vs, bs, D, D, vm, kThreads);
+    load_page(k_pool + base, Ks, bs, D, ldk, km, kThreads, vec);
+    load_page(v_pool + base, Vs, bs, D, D, vm, kThreads, vec);
     __syncthreads();
 
     // s = q . k over the live rows; masked columns keep kNegInf
@@ -198,48 +208,64 @@ ragged_paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_p
   }
 }
 
-template <typename T, typename P>
+template <typename T, typename P, int kMaxAcc>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
            const void* q_lens, const void* kv_lens, const void* k_scales, const void* v_scales,
            void* out, int R, int C, int Hq, int Hkv, int NB, int bs, int D, int nb, float scale,
-           float qmax, cudaStream_t stream) {
+           float qmax, bool vec, cudaStream_t stream) {
   const int tiles = (C * (Hq / Hkv) + kTileRows - 1) / kTileRows;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kTileRows) * (D + 1) +
                                        static_cast<size_t>(bs) * (D + 1) +
                                        static_cast<size_t>(bs) * D +
                                        static_cast<size_t>(kTileRows) * bs + 3 * kTileRows);
+  auto* kernel = ragged_paged_attention_kernel<T, P, kMaxAcc>;
   static size_t smem_allowed = 48 * 1024;  // raised once per larger request
   if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(ragged_paged_attention_kernel<T, P>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
   dim3 grid(tiles, Hkv, R);
-  ragged_paged_attention_kernel<T, P><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k_pool), static_cast<const P*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(q_lens),
       static_cast<const int*>(kv_lens), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<T*>(out), C, Hq, Hkv, NB, bs, D, nb, scale,
-      qmax);
+      qmax, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename P>
+int launch_width(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                 const void* q_lens, const void* kv_lens, const void* k_scales,
+                 const void* v_scales, void* out, int R, int C, int Hq, int Hkv, int NB, int bs,
+                 int D, int nb, float scale, float qmax, bool vec, cudaStream_t s) {
+  if (D <= kWgmmaMaxD)
+    return launch<T, P, acc_regs(kWgmmaMaxD)>(q, k_pool, v_pool, tables, q_lens, kv_lens,
+                                              k_scales, v_scales, out, R, C, Hq, Hkv, NB, bs, D,
+                                              nb, scale, qmax, vec, s);
+  return launch<T, P, acc_regs(kMaxD)>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
+                                       v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax,
+                                       vec, s);
 }
 
 template <typename T>
 int launch_pool(int pool_dtype, const void* q, const void* k_pool, const void* v_pool,
                 const void* tables, const void* q_lens, const void* kv_lens, const void* k_scales,
                 const void* v_scales, void* out, int R, int C, int Hq, int Hkv, int NB, int bs,
-                int D, int nb, float scale, cudaStream_t s) {
+                int D, int nb, float scale, bool vec, cudaStream_t s) {
   const float qmax = qmax_of(pool_dtype);
   if (pool_dtype == 0)
-    return launch<T, T>(q, k_pool, v_pool, tables, q_lens, kv_lens, nullptr, nullptr, out, R, C,
-                        Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
+    return launch_width<T, T>(q, k_pool, v_pool, tables, q_lens, kv_lens, nullptr, nullptr, out,
+                              R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, vec, s);
   if (pool_dtype == 1)
-    return launch<T, int8_t>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales, v_scales, out,
-                             R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
-  return launch<T, __nv_fp8_e4m3>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales, v_scales,
-                                  out, R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, s);
+    return launch_width<T, int8_t>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
+                                   v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax, vec,
+                                   s);
+  return launch_width<T, __nv_fp8_e4m3>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
+                                        v_scales, out, R, C, Hq, Hkv, NB, bs, D, nb, scale, qmax,
+                                        vec, s);
 }
 
 }  // namespace
@@ -256,13 +282,34 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
         cudaStream_t stream);
 }  // namespace ptt_ragged_hopper
 
+namespace ptt_ragged_tf32 {
+// ragged_paged_attention_tf32_hopper.cu
+int query_rows();
+int key_tile();
+int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb);
+int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+        const void* q_lens, const void* kv_lens, void* out, void* part_o, void* part_ml, int R,
+        int C, int Hq, int Hkv, int NB, int bs, int D, int nb, int splits, float scale,
+        cudaStream_t stream);
+}  // namespace ptt_ragged_tf32
+
 namespace {
 
-// The wgmma kernel takes bf16 / fp16 queries over pools of their dtype or
-// int8 / fp8 pools, bs a multiple of 8 (a TMA box lands on a whole swizzle
-// atom) and D <= 128 (a whole number of 16-byte words a row: the entry
-// checks it).
-bool wgmma_route(int dtype, int bs, int D) { return dtype != 0 && bs % 8 == 0 && D <= kMaxD; }
+// The routes' design codes (ptt_ragged_plan out[0]; the wrapper's _DESIGNS).
+enum Design { kCudaCores = 0, kWgmma = 2, kWgmmaTf32 = 3 };
+
+// The wgmma kernels take bs a multiple of 8 (a TMA box lands on a whole
+// swizzle atom), D <= 128 a whole number of 16-byte words of the pool type,
+// and 16-byte aligned pools: 16-bit queries over any pool, fp32 queries
+// over fp32 pools (the TF32 kernel). The rest goes to the kernel here.
+Design route(int dtype, int pool_dtype, int bs, int D, bool aligned) {
+  const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
+  if (bs % 8 != 0 || D > kWgmmaMaxD || D % vec != 0 || !aligned) return kCudaCores;
+  if (dtype != 0) return kWgmma;
+  return pool_dtype == 0 ? kWgmmaTf32 : kCudaCores;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -270,18 +317,18 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). pool_dtype: 0 =
 // pools of q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
-// fp32 [H_kv, NB] scales. splits: on the wgmma route (ptt_ragged_plan), the
-// splits of a row's key tiles (1 to 16; 0 takes the plan's); with more than
-// one, part_o (fp32 [R, H_kv, tiles, splits, 64, D]) and part_ml (fp32
+// fp32 [H_kv, NB] scales. splits: on the wgmma routes (ptt_ragged_plan),
+// the splits of a row's key tiles (1 to 16; 0 takes the plan's); with more
+// than one, part_o (fp32 [R, H_kv, tiles, splits, 64, D]) and part_ml (fp32
 // [..., 64, 2]) are the scratch the splits merge through (tiles =
-// ceil(C H_q / H_kv / 64)). The other route takes splits 0 or 1 and no
+// ceil(C H_q / H_kv / 64)). The CUDA-core route takes splits 0 or 1 and no
 // scratch. Returns cudaGetLastError() after the launch (0 = success); the
 // caller raises on anything else. Shapes the kernels do not take return
-// cudaErrorInvalidValue before any launch: head_dim above kMaxD or not a
-// whole number of 16-byte vectors of the pool type, q, out or the pools not
-// 16-byte aligned, a quantized pool without its scales, a split count the
-// route does not take, or a block_size whose page does not fit in shared
-// memory (refused by cudaFuncSetAttribute).
+// cudaErrorInvalidValue before any launch: head_dim outside [1, 256], H_q
+// not a multiple of H_kv, q or out not 16-byte aligned on a wgmma route, a
+// quantized pool without its scales, a split count the route does not take,
+// or a block_size whose page does not fit in shared memory (refused by
+// cudaFuncSetAttribute).
 int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* tables, const void* q_lens, const void* kv_lens,
                                void* out, const void* k_scales, const void* v_scales,
@@ -289,47 +336,59 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
                                int NB, int bs, int D, int nb, int splits, float scale,
                                int dtype, int pool_dtype, void* stream) {
   if (R == 0 || C == 0) return 0;
-  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 ||
+  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 || D < 1 || D > kMaxD ||
+      Hkv <= 0 || Hq % Hkv != 0 ||
       (pool_dtype != 0 && (k_scales == nullptr || v_scales == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
-  if (D > kMaxD || D % vec != 0 || reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma_route(dtype, bs, D)) {
-    if (reinterpret_cast<uintptr_t>(q) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = aligned16(k_pool) && aligned16(v_pool);
+  const Design design = route(dtype, pool_dtype, bs, D, aligned);
+  if (design != kCudaCores) {
+    if (!aligned16(q) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
+    if (design == kWgmmaTf32) {
+      if (splits == 0) splits = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
+      return ptt_ragged_tf32::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, part_o,
+                                  part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits, scale, s);
+    }
     if (splits == 0) splits = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);
     return ptt_ragged_hopper::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, k_scales,
                                   v_scales, part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits,
                                   scale, dtype, pool_dtype, s);
   }
   if (splits > 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = aligned && D % (16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2)) == 0;
   return by_dtype(dtype, [&](auto tag) {
     return launch_pool<typename decltype(tag)::type>(pool_dtype, q, k_pool, v_pool, tables,
                                                      q_lens, kv_lens, k_scales, v_scales, out, R,
-                                                     C, Hq, Hkv, NB, bs, D, nb, scale, s);
+                                                     C, Hq, Hkv, NB, bs, D, nb, scale, vec, s);
   });
 }
 
-// What serves a call with these shapes (codes as above): out[0] the design
-// (0: the CUDA-core kernel here, fp32 tiles in shared memory; 2: wgmma with
-// the pages through a TMA ring), out[1] the folded query rows a block, out[2]
-// the keys a tile (the kernel here walks a page at a time), out[3] the
-// splits of a row's key tiles the entry takes when given 0. Returns 0, or
-// cudaErrorInvalidValue for a dtype code no kernel takes.
+// What serves a call with these shapes (codes as above; aligned: both pools
+// 16-byte aligned): out[0] the design (0: the CUDA-core kernel here, fp32
+// tiles in shared memory; 2: wgmma with the pages through a TMA ring; 3:
+// fp32 on the TF32 tensor cores, wgmma with each operand split into two
+// TF32 halves and three products for each, the pages through a TMA ring and
+// split in shared memory), out[1] the folded query rows a block, out[2] the
+// keys a tile (the kernel here walks a page at a time), out[3] the splits of
+// a row's key tiles the entry takes when given 0. Returns 0, or
+// cudaErrorInvalidValue for a dtype code or head dim no kernel takes.
 int ptt_ragged_plan(int R, int C, int Hq, int Hkv, int bs, int D, int nb, int dtype,
-                    int pool_dtype, int* out) {
-  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 || Hkv <= 0 || bs <= 0)
+                    int pool_dtype, int aligned, int* out) {
+  if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 || Hkv <= 0 || bs <= 0 ||
+      D < 1 || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (wgmma_route(dtype, bs, D)) {
-    out[0] = 2;
+  const Design design = route(dtype, pool_dtype, bs, D, aligned != 0);
+  out[0] = design;
+  if (design == kWgmmaTf32) {
+    out[1] = ptt_ragged_tf32::query_rows();
+    out[2] = ptt_ragged_tf32::key_tile();
+    out[3] = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
+  } else if (design == kWgmma) {
     out[1] = ptt_ragged_hopper::query_rows();
     out[2] = ptt_ragged_hopper::key_tile();
     out[3] = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);
   } else {
-    out[0] = 0;
     out[1] = kTileRows;
     out[2] = bs;
     out[3] = 1;

@@ -132,15 +132,6 @@ struct RaggedSmem {
   uint64_t full[kStages], empty[kStages];
 };
 
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(hw::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(hw::smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Generic-proxy writes to shared memory made visible to wgmma (the async
 // proxy) that reads them after the next barrier.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -246,13 +237,13 @@ __global__ void __launch_bounds__(kThreadsR, 2)
       for (int bx = 0; bx < boxes; ++bx) {
         if (kQuant) {
           const int off = bx * a.box_rows * D;
-          tma_load_2d(&sm.k[stage][off], &tk, &sm.full[stage], 0, rows[bx]);
-          tma_load_2d(&sm.v[stage][off], &tv, &sm.full[stage], 0, rows[bx]);
+          hw::tma_load_2d(&sm.k[stage][off], &tk, &sm.full[stage], 0, rows[bx]);
+          hw::tma_load_2d(&sm.v[stage][off], &tv, &sm.full[stage], 0, rows[bx]);
         } else {
           for (int p = 0; p < kP; ++p) {
             const int off = (p * kBN * 64 + bx * a.box_rows * 64) * 2;
-            tma_load_2d(&sm.k[stage][off], &tk, &sm.full[stage], 64 * p, rows[bx]);
-            tma_load_2d(&sm.v[stage][off], &tv, &sm.full[stage], 64 * p, rows[bx]);
+            hw::tma_load_2d(&sm.k[stage][off], &tk, &sm.full[stage], 64 * p, rows[bx]);
+            hw::tma_load_2d(&sm.v[stage][off], &tv, &sm.full[stage], 64 * p, rows[bx]);
           }
         }
       }

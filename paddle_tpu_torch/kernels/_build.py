@@ -48,7 +48,8 @@ FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
 # the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): one object per width
 # as well (192 and 256 take its split design)
 FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
-# the fp32 dQ and dK/dV on the TF32 tensor cores (flash_dq_tf32_hopper.cu,
+# the fp32 forward, dQ and dK/dV on the TF32 tensor cores
+# (flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu,
 # flash_dkv_tf32_hopper.cu): one object each per width; D_pad 32 and 96 run
 # them with zero columns, 192 and 256 the FP32-pipe kernels
 FLASH_TF32_D_PADS = (64, 128)
@@ -83,9 +84,11 @@ def _units():
             for d in FLASH_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
-                          "flash_dkv_hopper.cu", "flash_dq_tf32_hopper.cu",
+                          "flash_dkv_hopper.cu", "flash_fwd_tf32_hopper.cu",
+                          "flash_dq_tf32_hopper.cu",
                           "flash_dkv_tf32_hopper.cu"):
             pads = {"flash_dkv_hopper.cu": FLASH_DKV_HOPPER_D_PADS,
+                    "flash_fwd_tf32_hopper.cu": FLASH_TF32_D_PADS,
                     "flash_dq_tf32_hopper.cu": FLASH_TF32_D_PADS,
                     "flash_dkv_tf32_hopper.cu": FLASH_TF32_D_PADS,
                     }.get(src.name, FLASH_HOPPER_D_PADS)
@@ -232,8 +235,8 @@ def load_library() -> ctypes.CDLL:
         # part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits, scale,
         # dtype, pool_dtype, stream
         "ptt_ragged_paged_attention": [vp] * 11 + [ci] * 9 + [cf, ci, ci, vp],
-        # R, C, Hq, Hkv, bs, D, nb, dtype, pool_dtype, out[4]
-        "ptt_ragged_plan": [ci] * 9 + [ctypes.POINTER(ci)],
+        # R, C, Hq, Hkv, bs, D, nb, dtype, pool_dtype, aligned, out[4]
+        "ptt_ragged_plan": [ci] * 10 + [ctypes.POINTER(ci)],
         # q, k, v, tables, lens, out, part, tickets, B, Hq, Hkv, NB, bs, D,
         # nb, q strides (batch, head), splits, scale, dtype, stream
         "ptt_paged_decode_attention": [vp] * 8 + [ci] * 7 + [ll, ll]

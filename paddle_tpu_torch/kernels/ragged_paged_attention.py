@@ -3,33 +3,43 @@
 ``ragged_paged_attention``, kernel body ``_ragged_kernel``).
 
 The TPU kernel is replaced by CUDA kernels written by hand for Hopper (built
-for ``sm_90a`` by ``kernels/_build.py`` at first use), on two routes that
+for ``sm_90a`` by ``kernels/_build.py`` at first use), on three routes that
 ``kernel_plan`` reports:
 
 * ``"wgmma+tma"`` (``paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu``):
   bf16 / fp16 queries over pools of their dtype or int8 / fp8 e4m3 pools
   (fp32 per-(kv head, page) absmax scales, ``quantization/kv_cache.py``),
-  a page size that is a multiple of 8. A block owns 64 folded (chunk,
-  group) query rows of one (row, kv head); S = Q K^T and O += P V run on
-  wgmma with the scores and the output in registers; the pages come through
-  a two-stage TMA ring, the block reading ``block_tables[r, j]`` itself (a
-  quantized page is dequantized as ``v * scale / qmax`` by the consumer
-  into the 16-bit tile wgmma reads, so a decode row reads half the bytes of
-  a bf16 pool). When the grid leaves most SMs idle (a few long decode
-  rows), each row's key tiles are split over contiguous ranges (the count
-  from the table width, on the host), the splits write partial O, m and l
-  into fp32 scratch that this wrapper allocates, and a second small kernel
-  merges them;
-* ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): fp32
-  queries and the page sizes that are not a multiple of 8 (float or
-  quantized pools): one block per (row, kv head, 16 folded rows) walks the
-  row's pages in fp32 shared tiles on the CUDA cores.
+  a page size that is a multiple of 8, D <= 128. A block owns 64 folded
+  (chunk, group) query rows of one (row, kv head); S = Q K^T and O += P V
+  run on wgmma with the scores and the output in registers; the pages come
+  through a two-stage TMA ring, the block reading ``block_tables[r, j]``
+  itself (a quantized page is dequantized as ``v * scale / qmax`` by the
+  consumer into the 16-bit tile wgmma reads, so a decode row reads half the
+  bytes of a bf16 pool). When the grid leaves most SMs idle (a few long
+  decode rows), each row's key tiles are split over contiguous ranges (the
+  count from the table width, on the host), the splits write partial O, m
+  and l into fp32 scratch that this wrapper allocates, and a second small
+  kernel merges them;
+* ``"wgmma-3xtf32"``
+  (``paddle_tpu_torch/csrc/ragged_paged_attention_tf32_hopper.cu``): fp32
+  queries over fp32 pools, a page size that is a multiple of 8, D <= 128,
+  on the TF32 tensor cores: each fp32 operand split into two TF32 halves
+  and every product taken as three (about 2^-21 of a product), the same
+  block, ring and splits with key tiles of 32, the landed pages split (and
+  V transposed) in shared memory by the producer warpgroup;
+* ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): every
+  other call up to D 256 (fp32 queries over int8 / fp8 pools, page sizes
+  that are not a multiple of 8, D above 128 or not a whole number of
+  16-byte words, pools that are not 16-byte aligned): one block per (row,
+  kv head, 16 folded rows) walks the row's pages in fp32 shared tiles on
+  the CUDA cores.
 
 What bounds the function on an H100 SXM (published peaks at its 700 W
 limit): decode rows are bandwidth-bound, each row reading
 ``2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize`` bytes of K/V pages
 against 3.35 TB/s; prefill chunks do ``4 * D`` FLOPs per visible (query
-head, key) pair against 989 TFLOP/s bf16.
+head, key) pair against 989 TFLOP/s bf16 (495 TF32, three times over, in
+fp32).
 
 ``ragged_paged_attention`` is the wrapper: a CUDA tensor goes to a kernel
 (or the call raises), a CPU tensor goes to ``ragged_paged_attention_plain``,
@@ -52,7 +62,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # quantized storage dtypes with the top of their grid (qmax)
 _POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
-_DESIGNS = {0: "fp32", 2: "wgmma+tma"}
+_DESIGNS = {0: "fp32", 2: "wgmma+tma", 3: "wgmma-3xtf32"}
+# the widest head the kernels take, as the reference's (unbounded) kernel
+# takes any: a wgmma kernel for D in (128, 256] and above is ROADMAP Queue 2
+# K13
+MAX_HEAD_DIM = 256
 
 
 def _pages(pool, scales, tables):
@@ -142,23 +156,33 @@ def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
                          f"expected for R={R}")
 
 
-def kernel_plan(q, k_pool, block_tables) -> dict:
-    """How the built library serves a call with these tensors' shapes and
-    dtypes (no data is read): ``design`` ("wgmma+tma" or "fp32", the two
-    routes of the module note), ``query_rows`` (folded rows a block),
-    ``keys`` (keys a tile) and ``splits`` (of a row's key tiles, from the
-    table width). Read from the library's ``ptt_ragged_plan``; it builds
-    the library on first use."""
+def _check_head_dim(D):
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"ragged_paged_attention: head_dim {D} > "
+                         f"{MAX_HEAD_DIM} has no kernel (ROADMAP Queue 2 K13: "
+                         f"the wgmma ragged kernel at D 160-256 and above)")
+
+
+def kernel_plan(q, k_pool, block_tables, v_pool=None) -> dict:
+    """How the built library serves a call with these tensors' shapes,
+    dtypes and pool alignment (no data is read): ``design`` ("wgmma+tma",
+    "wgmma-3xtf32" or "fp32", the three routes of the module note),
+    ``query_rows`` (folded rows a block), ``keys`` (keys a tile) and
+    ``splits`` (of a row's key tiles, from the table width). Read from the
+    library's ``ptt_ragged_plan``; it builds the library on first use."""
     import ctypes
     from ._build import load_library
     R, C, hq, D = q.shape
     hkv, _, bs, _ = k_pool.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel_plan: no ragged kernel for {q.dtype}")
+    _check_head_dim(D)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k_pool, v_pool)
+                  if t is not None)
     out = (ctypes.c_int * 4)()
     code = load_library().ptt_ragged_plan(
         R, C, hq, hkv, bs, D, block_tables.shape[1], _DTYPE_CODE[q.dtype],
-        _POOL_CODE.get(k_pool.dtype, 0), out)
+        _POOL_CODE.get(k_pool.dtype, 0), int(aligned), out)
     if code != 0:
         raise ValueError(f"kernel_plan: no ragged kernel for {q.dtype} q, "
                          f"{k_pool.dtype} pools")
@@ -176,15 +200,16 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     block_tables: [R, nb] int32; q_lens: [R] int32 (0 = inactive row);
     kv_lens: [R] int32, the TOTAL kv length including this chunk (query c
     sits at absolute position kv_lens - q_lens + c) -> [R, C, H_q, D] in q's
-    dtype. ``splits``: on the "wgmma+tma" route, the splits of a row's key
-    tiles, 1 to 16 (``kernel_plan``'s when None, which callers take; a
-    count is given to test the merge and to time the counts,
-    ``profiler/ragged_splits.py``); the other route takes None or 1.
+    dtype. ``splits``: on the "wgmma+tma" and "wgmma-3xtf32" routes, the
+    splits of a row's key tiles, 1 to 16 (``kernel_plan``'s when None,
+    which callers take; a count is given to test the merge and to time the
+    counts, ``profiler/ragged_splits.py``); the "fp32" route takes None or
+    1.
 
     CPU tensors take the plain version; CUDA tensors launch a kernel or
-    raise: TypeError or ValueError for a dtype, device or layout the kernels
-    do not take, RuntimeError for a shape the kernels' C entry refuses
-    (head_dim, alignment, shared memory, a split count) or a failed
+    raise: TypeError or ValueError for a dtype, device, layout or head_dim
+    (above 256) the kernels do not take, RuntimeError for a shape the
+    kernels' C entry refuses (shared memory, a split count) or a failed
     launch."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pool, v_pool, block_tables,
@@ -200,10 +225,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     R, C, hq, D = q.shape
     hkv, NB, bs, _ = k_pool.shape
     pool_code = _POOL_CODE.get(k_pool.dtype, 0)
-    plan = kernel_plan(q, k_pool, block_tables)
+    plan = kernel_plan(q, k_pool, block_tables, v_pool)
     n_split = plan["splits"] if splits is None else int(splits)
     if q.data_ptr() % 16:
-        q = q.clone()     # the wgmma route reads q in 16-byte words
+        q = q.clone()     # the wgmma routes read q in 16-byte words
     out = torch.empty_like(q)
     part_o = part_ml = None
     if n_split > 1:

@@ -10,10 +10,12 @@ parent, child, child, parent, and times at bf16 the kernels of
 ``chip_smoke.py``'s main shapes: the ragged and paged decode kernels on a
 decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
 the paged decode kernel on that batch in fp32 too, the ragged kernel on
-phase 3's mixed batch (4 rows, C 128) and on the decode batch over int8
-pools, the flash dK/dV kernel at phase 25's call (B 8, S 1024, H 16,
-causal) at D 256 and D 160 in bf16 and D 256 in fp16, the fp32 flash dQ and
-dK/dV at phase 6 (a)'s call (B 8, S 1024, H 16, D 128, causal),
+phase 3's mixed batch (4 rows, C 128), on the decode batch over int8
+pools, on both batches with fp32 queries and pools (phase 3's fp32 (a) and
+(b)) and on the decode batch at D 256 in bf16, the flash dK/dV kernel at
+phase 25's call (B 8, S 1024, H 16, causal) at D 256 and D 160 in bf16 and
+D 256 in fp16, the fp32 flash forward, dQ and dK/dV at phase 6 (a)'s call
+(B 8, S 1024, H 16, D 128, causal),
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward on x [5120, 768] and its whole backward (dx, dw and db
 through the autograd Function, fp32 weight and bias: whatever kernels and
@@ -92,6 +94,20 @@ k8, v8 = (torch.round(x.float() / sc[..., None, None] * 127).to(torch.int8)
 res["ragged_decode_int8"] = ms(lambda: RPA.ragged_paged_attention(
     q, k8, v8, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks, v_scales=vs))
 del k8, v8
+# fp32 queries over fp32 pools (phase 3's fp32 (a))
+q32, k32, v32 = (t.float() for t in (q, k_pool, v_pool))
+res["ragged_decode_fp32"] = ms(lambda: RPA.ragged_paged_attention(
+    q32, k32, v32, tables, ones, kv, 1 / math.sqrt(D)))
+del q32, k32, v32
+# D 256 in bf16 (the CUDA-core route in both checkouts' plans, the parent
+# refusing it: recorded as None there)
+q256, k256, v256 = rnd(8, 1, H, 256), rnd(H, NB, bs, 256), rnd(H, NB, bs, 256)
+try:
+    res["ragged_decode_d256"] = ms(lambda: RPA.ragged_paged_attention(
+        q256, k256, v256, tables, ones, kv, 1 / 16))
+except (RuntimeError, ValueError):
+    res["ragged_decode_d256"] = None
+del q256, k256, v256
 res["paged_decode"] = ms(lambda: PA.paged_decode_attention(
     q[:, 0], k_pool, v_pool, tables, kv, 1 / math.sqrt(D)))
 q32, k32, v32 = (t.float() for t in (q[:, 0], k_pool, v_pool))
@@ -117,6 +133,7 @@ dof = torch.randn(8, 1024, 16, 128, generator=gen, device=dev)
 sc = 1 / math.sqrt(128)
 _, lse = FA.flash_fwd(qf, kf, vf, True, sc)
 _, delta = FA.flash_bwd_dq(qf, kf, vf, lse, dof, True, sc)
+res["flash_fwd_fp32"] = ms(lambda: FA.flash_fwd(qf, kf, vf, True, sc))
 res["flash_dq_fp32"] = ms(lambda: FA.flash_bwd_dq(qf, kf, vf, lse, dof, True,
                                                   sc))
 res["flash_dkv_fp32"] = ms(lambda: FA.flash_bwd_dkv(qf, kf, vf, lse, delta, dof,
@@ -136,6 +153,10 @@ mt, ql_m, kv_m = (torch.tensor(a, dtype=torch.int32, device=dev)
                   for a in (mt, mixed_q, mixed_kv))
 res["ragged_mixed"] = ms(lambda: RPA.ragged_paged_attention(
     qm, k_pool, v_pool, mt, ql_m, kv_m, 1 / math.sqrt(D)))
+qm32, k32, v32 = (t.float() for t in (qm, k_pool, v_pool))
+res["ragged_mixed_fp32"] = ms(lambda: RPA.ragged_paged_attention(
+    qm32, k32, v32, mt, ql_m, kv_m, 1 / math.sqrt(D)))
+del qm32, k32, v32
 p, g = rnd(24, 2048, 8192, scale=0.02), rnd(24, 2048, 8192, scale=1e-3)
 slot = {"moment1": rnd(24, 2048, 8192, scale=1e-3),
         "moment2": rnd(24, 2048, 8192, scale=1e-3).square()}
@@ -200,8 +221,9 @@ def main(argv=None) -> int:
     for tag in ("parent", "child", "child", "parent"):
         res = _run(getattr(args, tag).resolve())
         runs.append((tag, res))
-        print(f"{tag}: " + "; ".join(f"{k} {t:.4f}" for k, t in res.items())
-              + " ms", flush=True)
+        print(f"{tag}: " + "; ".join(
+            f"{k} {'-' if t is None else f'{t:.4f}'}" for k, t in res.items())
+            + " ms", flush=True)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 

@@ -2,13 +2,16 @@
 
     python3 -m paddle_tpu_torch.profiler.ragged_splits
 
-The wgmma route of ``kernels/ragged_paged_attention.py`` can cut each row's
-key tiles into contiguous ranges over several blocks and merge them with a
-second kernel; ``kernel_plan`` picks the count from the shapes
-(``csrc/ragged_paged_attention_hopper.cu`` ``auto_splits``). This times
+The wgmma routes of ``kernels/ragged_paged_attention.py`` ("wgmma+tma" and,
+for fp32, "wgmma-3xtf32") can cut each row's key tiles into contiguous
+ranges over several blocks and merge them with a second kernel;
+``kernel_plan`` picks the count from the shapes
+(``csrc/ragged_paged_attention_hopper.cu`` and
+``ragged_paged_attention_tf32_hopper.cu`` ``auto_splits``). This times
 decode batches from one long row to the serving batch (16 query heads of
-128, pages of 32, bf16 pools, and the serving batch over int8 and fp8
-pools) and phase 3's mixed batch at split counts 1-16, each call checked
+128, pages of 32, bf16 pools, the serving batch over int8 and fp8 pools,
+and one row and the serving batch in fp32) and phase 3's mixed batch (in
+bf16 and fp32) at split counts 1-16, each call checked
 against the plain version first, and prints one line a case: its blocks
 (rows x kv heads x query tiles), the plan's count and each count's time.
 Each time is the median of 30 CUDA-event timings with the L2 flushed
@@ -29,7 +32,8 @@ import torch
 from ..kernels import ragged_paged_attention as RPA
 
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
-# rows, kv_len of each row, kv heads, pool dtype (None: bf16), C
+# rows, kv_len of each row, kv heads, pool dtype (None: bf16; float32: fp32
+# queries and pools), C
 CASES = (
     ("one row", [1], [8192], 16, None, 1),
     ("one row, GQA 16/4", [1], [8192], 4, None, 1),
@@ -44,6 +48,11 @@ CASES = (
                                       640], 16, torch.float8_e4m3fn, 1),
     ("sixteen rows", [1] * 16, [1024] * 16, 16, None, 1),
     ("mixed, C 128", [128, 100, 1, 0], [384, 100, 517, 0], 16, None, 128),
+    ("one row, fp32", [1], [8192], 16, torch.float32, 1),
+    ("serving decode, fp32", [1] * 8, [100, 173, 256, 311, 400, 467, 555,
+                                       640], 16, torch.float32, 1),
+    ("mixed, C 128, fp32", [128, 100, 1, 0], [384, 100, 517, 0], 16,
+     torch.float32, 128),
 )
 
 
@@ -74,9 +83,10 @@ def _case(rng, q_lens, kv_lens, hkv, pool, C, dev, hq=16, D=128, bs=32):
     k, v = (t(rng.randn(hkv, NB, bs, D).astype(np.float32), torch.float32)
             for _ in range(2))
     extra = {}
+    qdt = torch.float32 if pool == torch.float32 else bf
     if pool is None:
         k, v = k.to(bf), v.to(bf)
-    else:
+    elif pool != torch.float32:
         qmax = 127.0 if pool == torch.int8 else 448.0
         ks, vs = (x.abs().amax((2, 3)) for x in (k, v))
         k, v = (x / sc[..., None, None] * qmax
@@ -85,7 +95,7 @@ def _case(rng, q_lens, kv_lens, hkv, pool, C, dev, hq=16, D=128, bs=32):
             k, v = k.round(), v.round()
         k, v = k.to(pool), v.to(pool)
         extra = dict(k_scales=ks, v_scales=vs)
-    args = (t(rng.randn(R, C, hq, D).astype(np.float32), bf), k, v,
+    args = (t(rng.randn(R, C, hq, D).astype(np.float32), qdt), k, v,
             t(tables.astype(np.int32), torch.int32),
             t(np.asarray(q_lens, np.int32), torch.int32),
             t(np.asarray(kv_lens, np.int32), torch.int32), 1 / math.sqrt(D))

@@ -1,9 +1,11 @@
-"""The fp32 flash dQ and dK/dV kernels on the TF32 tensor cores
-(``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
-32; ``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of
-32; each fp32 operand split into two TF32 halves, three wgmma products for
-each) against their plain PyTorch versions on the same inputs: dq, delta
-and the d-bias, dk and dv, with the forward that feeds them. The grid: D
+"""The fp32 flash forward, dQ and dK/dV kernels on the TF32 tensor cores
+(``csrc/flash_fwd_tf32_hopper.cu``: 128 query rows a block over key tiles
+of 32, V transposed in shared memory; ``csrc/flash_dq_tf32_hopper.cu``: 64
+query rows a block over key tiles of 32; ``csrc/flash_dkv_tf32_hopper.cu``:
+64 keys a block over query tiles of 32; each fp32 operand split into two
+TF32 halves, three wgmma products for each) against their plain PyTorch
+versions on the same inputs: out and lse, dq, delta and the d-bias, dk and
+dv (the backward from the forward kernel's lse). The grid: D
 32, 40, 64, 96 and 128 (the widths the design takes); every flag instance
 (bias x integer masks x dropout); causal, non-causal and a window; GQA 8/2
 and 2/2; lengths on both sides of the 32-row and 64-row tiles; dead rows.
@@ -159,23 +161,69 @@ def _check(q, k, v, do, causal, var, what):
 
 
 def test_fp32_plan_reports_the_tf32_design(card):
-    """kernel_plan for fp32: dQ and dK/dV on the TF32 tensor cores at every
-    D_pad <= 128 (dQ 64 query rows over 32-key tiles; dK/dV 64 keys over
-    32-query tiles, key-major), the FP32 pipes at D_pad 192 and 256 and for
-    the forward."""
+    """kernel_plan for fp32: the forward, dQ and dK/dV on the TF32 tensor
+    cores at every D_pad <= 128 (the forward 128 query rows over 32-key
+    tiles; dQ 64 query rows over 32-key tiles; dK/dV 64 keys over 32-query
+    tiles, key-major), the FP32 pipes at D_pad 192 and 256."""
     for D in (1, 32, 40, 64, 96, 128):
+        fwd = FA.kernel_plan("flash_fwd", D, torch.float32)
+        fwd_b = FA.kernel_plan("flash_fwd", D, torch.float32, bias=True)
         dq = FA.kernel_plan("flash_bwd_dq", D, torch.float32)
         dkv = FA.kernel_plan("flash_bwd_dkv", D, torch.float32)
+        for plan in (fwd, fwd_b):
+            assert (plan["design"], plan["query_rows"], plan["keys"],
+                    plan["key_major"]) == ("wgmma-3xtf32", 128, 32, False)
         assert (dq["design"], dq["query_rows"], dq["keys"],
                 dq["key_major"]) == ("wgmma-3xtf32", 64, 32, False)
         assert (dkv["design"], dkv["query_rows"], dkv["keys"],
                 dkv["key_major"]) == ("wgmma-3xtf32", 32, 64, True)
     for D in (160, 192, 200, 256):
-        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert FA.kernel_plan(name, D, torch.float32)["design"] == "fp32"
-    for D in DIMS:
-        assert FA.kernel_plan("flash_fwd", D, torch.float32)["design"] == \
-            "fp32"
+
+
+def _check_fwd(q, k, v, causal, var, what):
+    """The forward kernel against its plain version: dead rows, lse, and out
+    on the worst 64-row tile; one launch."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwd = {n: var[n] for n in FWD_KEYS if n in var}
+    n = FA.flash_fwd.LAUNCHES
+    out, lse = FA.flash_fwd(q, k, v, causal, scale, **fwd)
+    torch.cuda.synchronize()
+    assert FA.flash_fwd.LAUNCHES == n + 1, what
+    out_p, lse_p = FA.flash_fwd_plain(q, k, v, causal, scale, **fwd)
+    live = lse_p > -1e29
+    assert torch.equal(live, lse > -1e29), what
+    assert bool((lse[~live] == -1e30).all()), what
+    assert bool((out[~live.transpose(1, 2)] == 0).all()), what
+    if live.any():
+        gap = (lse[live] - lse_p[live]).abs().max().item()
+        assert gap <= 1e-5 * max(lse_p[live].abs().max().item(), 1.0), \
+            (what, "lse", gap)
+    assert torch.isfinite(out).all(), what
+    tile = _tile_rel(out, out_p)
+    assert tile <= TOL, (what, "out", tile)
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+@pytest.mark.parametrize("D", DIMS)
+def test_fp32_fwd_vs_plain(card, D, flag):
+    """The forward at GQA 8/2 and 2/2 and 16/4, lengths across its 32-key
+    and 128-row tiles (and S 1000), causal, non-causal and a window."""
+    rng = np.random.RandomState(7 * D + 11 * FLAGS.index(flag))
+    B = 2
+    shapes = SHAPES + ((1000, 1000), (129, 257))
+    for idx, (mode, (H, hkv)) in enumerate(itertools.product(
+            MODES, ((8, 2), (2, 2), (16, 4)))):
+        Sq, Sk = shapes[idx % len(shapes)]
+        q = torch.from_numpy(rng.randn(B, Sq, H, D).astype(
+            np.float32)).to(card)
+        k, v = (torch.from_numpy(rng.randn(B, Sk, hkv, D).astype(
+            np.float32)).to(card) for _ in range(2))
+        causal, var = _variant(flag, mode, B, Sq, Sk, H, rng, card)
+        _check_fwd(q, k, v, causal, var,
+                   f"fp32 fwd D={D} {flag} {mode} H={H}/{hkv} Sq={Sq} "
+                   f"Sk={Sk}")
 
 
 @pytest.mark.parametrize("flag", FLAGS)
@@ -257,6 +305,8 @@ def test_fp32_layouts_qkv_views_and_broadcast_key(card):
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
     do = torch.randn(B, S, H, D, device=card)
     _check(q, k, v, do, True, {}, "fp32 qkv views")
+    _check_fwd(q, k, v, True, {}, "fp32 fwd qkv views")
     kb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
     vb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
     _check(q, kb, vb, do, False, {}, "fp32 broadcast key")
+    _check_fwd(q, kb, vb, False, {}, "fp32 fwd broadcast key")

@@ -1,7 +1,13 @@
-"""The port's flash backward in fp32 (dq, dk, dv and the d-bias), run on
-the CPU through its plain backward, against the JAX package's Pallas
-backward in interpret mode, at the edges of the tiles of the card's fp32
-dQ and dK/dV kernels on the TF32 tensor cores
+"""The port's flash forward and backward in fp32 (out, lse, dq, dk, dv and
+the d-bias), run on the CPU through its plain versions, against the JAX
+package's Pallas kernels in interpret mode, at the edges of the tiles of
+the card's fp32 kernels on the TF32 tensor cores. The forward
+(``csrc/flash_fwd_tf32_hopper.cu``: 128 query rows a block over key tiles
+of 32): Sk on both sides of the key tile, a window, a segment boundary and
+a flashmask boundary inside a tile, S 1000 non-causal, GQA 16/4 and a bias,
+at D 40, 64 and 128; tolerance 2e-5 on out relative to its max-abs (as
+``test_torch_flash_tiles.py`` holds the forward in fp32). The backward
+(dQ and dK/dV
 (``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
 32; ``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of
 32, streamed over the group's heads): lengths 31, 33, 63, 65, 95 and 97
@@ -12,9 +18,10 @@ its gradient, at D 40 (read into the 64 width with zero columns), 64 and
 128 (the widths the design takes; D_pad 192 and 256 stay on the FP32-pipe
 kernels, whose edges ``test_torch_flash_head_dims.py`` covers). Inputs come
 from numpy with a seed and go to both packages, as
-``test_torch_flash_dkv_tiles.py`` runs them. Tolerance: 2e-4 in fp32,
-relative to the reference's max-abs. The CUDA kernels are held to this
-plain backward on the card by ``test_torch_flash_fp32_hopper_cuda.py``.
+``test_torch_flash_dkv_tiles.py`` runs them. Tolerance: 2e-4 on the
+gradients in fp32, relative to the reference's max-abs. The CUDA kernels
+are held to these plain versions on the card by
+``test_torch_flash_fp32_hopper_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -25,7 +32,7 @@ import torch
 from paddle_tpu.kernels.pallas import flash_attention as JFA
 from paddle_tpu_torch.kernels import flash_attention as FA
 
-TOL_GRAD = 2e-4
+TOL_OUT, TOL_GRAD = 2e-5, 2e-4
 
 
 def _segments(S, cuts):
@@ -133,3 +140,67 @@ def test_fp32_broadcast_views_copied_for_the_tf32_backward(fp32_tma):
     view = torch.randn(2, 8, 4, 3, 16)[:, :, :, 1]
     (same,) = FA._padded(16, view, fp32_tma=fp32_tma)
     assert same.data_ptr() == view.data_ptr()
+
+
+# sq, sk, H, Hkv, causal, window, segment cuts, document lengths, D, bias
+FWD_CASES = {
+    # Sk one short of and one past the 32-key tile; the rows past Sk under
+    # the bottom-right causal rule see no key
+    "noncausal-64x31-sk-below-key-tile-d64": (64, 31, 2, 2, False, None, None,
+                                              None, 64, False),
+    "causal-65x33-sk-above-key-tile-d128": (65, 33, 2, 2, True, None, None,
+                                            None, 128, False),
+    # a window whose edges fall inside 32-key tiles
+    "window-100x100-inside-tiles-d40": (100, 100, 2, 1, False, (13, 5), None,
+                                        None, 40, False),
+    # segment boundaries and flashmask document boundaries inside tiles
+    "segments-cut-at-45-77-d64": (96, 96, 2, 2, False, None, (45, 77), None,
+                                  64, False),
+    "document-rows-inside-tiles-d128": (128, 128, 2, 2, True, None, None,
+                                        (45, 40, 43), 128, False),
+    "noncausal-s1000-d64": (1000, 1000, 2, 2, False, None, None, None, 64,
+                            False),
+    "causal-129-gqa-16-4-d128": (129, 129, 16, 4, True, None, None, None, 128,
+                                 False),
+    "bias-causal-97x129-d64": (97, 129, 2, 2, True, None, None, None, 64,
+                               True),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_plain_fp32_fwd_matches_jax_at_tf32_tile_edges(case):
+    sq, sk, H, Hkv, causal, window, cuts, docs, D, with_bias = FWD_CASES[case]
+    rng = np.random.RandomState(3 * sq + sk + H + D)
+    q, k, v = (rng.randn(*s).astype(np.float32)
+               for s in ((1, sq, H, D), (1, sk, Hkv, D), (1, sk, Hkv, D)))
+    bias = ((rng.randn(1, H, sq, sk) * 0.5).astype(np.float32)
+            if with_bias else None)
+    seg = None if cuts is None else _segments(sq, cuts)
+    fm = None if docs is None else _doc_rows(sk, docs)
+    scale = 1.0 / np.sqrt(D)
+    jseg = None if seg is None else jnp.asarray(seg)
+    extras = (jnp.asarray(bias) if bias is not None else
+              None if fm is None else (None, *map(jnp.asarray, fm)))
+    out_j, res = JFA._flash_fwd(*map(jnp.asarray, (q, k, v)), extras, jseg,
+                                jseg, None, causal, scale, sq, sk, window,
+                                0.0)
+    out_j = np.asarray(out_j)
+    lse_j = np.asarray(res[4]).reshape(1, H, sq)
+
+    T = torch.from_numpy
+    var = dict(q_seg=None if seg is None else T(seg),
+               kv_seg=None if seg is None else T(seg),
+               fm=None if fm is None else tuple(map(T, fm)), window=window,
+               bias=None if bias is None else T(bias))
+    n = FA.flash_fwd.LAUNCHES
+    out_t, lse_t = FA.flash_fwd(T(q), T(k), T(v), causal, scale, **var)
+    assert FA.flash_fwd.LAUNCHES == n
+    assert out_t.shape == (1, sq, H, D) and lse_t.shape == (1, H, sq)
+    live = lse_j > -1e29
+    assert np.array_equal(lse_t.numpy() > -1e29, live)
+    np.testing.assert_allclose(lse_t.numpy()[live], lse_j[live], rtol=1e-5,
+                               atol=2e-5)
+    _close(out_t.numpy(), out_j, TOL_OUT, "out")
+    if not live.all():
+        dead = ~live[0].transpose()                      # [sq, H]
+        assert (out_t[0][torch.from_numpy(dead)] == 0).all()

@@ -1,13 +1,17 @@
-"""The redesigned ragged paged-attention kernel on the card
+"""The redesigned ragged paged-attention kernels on the card
 (``csrc/ragged_paged_attention_hopper.cu``: wgmma, pages through a TMA ring,
-a row's key tiles split over blocks and merged by a second kernel) against
-its plain PyTorch version, over the shapes of the CPU goldens
-(``test_torch_ragged_tiles.py``) at D 128 and 64, bf16 and fp16, with the
-split count forced to 1, 2 and many and left to the plan; int8 / fp8 pools
-on the same kernel; and the routes that stay on the CUDA-core kernel of
-``csrc/ragged_paged_attention.cu`` (fp32 queries, a page size not a
-multiple of 8): each launches its kernel (counted under its route), none
-goes to the plain version. Tolerance: 1e-2 of the reference's max-abs
+a row's key tiles split over blocks and merged by a second kernel;
+``csrc/ragged_paged_attention_tf32_hopper.cu``: the same for fp32 queries
+over fp32 pools on the TF32 tensor cores, each operand split into two TF32
+halves) against their plain PyTorch version, over the shapes of the CPU
+goldens (``test_torch_ragged_tiles.py``) at D 128 and 64 (and 40 in fp32),
+bf16, fp16 and fp32, with the split count forced to 1, 2 and many (every
+count 1-16 in fp32) and left to the plan; int8 / fp8 pools on the 16-bit
+kernel; and the calls that stay on the CUDA-core kernel of
+``csrc/ragged_paged_attention.cu`` (fp32 queries over int8 pools, a page
+size not a multiple of 8, D 100, 160 and 256, a misaligned pool): each
+launches its kernel (counted under its route), none goes to the plain
+version; D above 256 raises. Tolerance: 1e-2 of the reference's max-abs
 (``chip_smoke.py`` KERNEL_TOL) in 16 bits, 1e-5 in fp32; over quantized
 pools 1e-2 on the worst (row, column, head) slab's relative L2, as
 ``chip_smoke.py`` phase 12 holds them (the dequantized tile is rounded to
@@ -147,7 +151,9 @@ def _quantize(args, pool):
 
 
 ROUTES = {  # route: (q dtype, pool, page size, design)
-    "fp32": (torch.float32, None, 16, "fp32"),
+    "fp32": (torch.float32, None, 16, "wgmma-3xtf32"),
+    "fp32_int8": (torch.float32, torch.int8, 16, "fp32"),
+    "fp32_bs_12": (torch.float32, None, 12, "fp32"),
     "bs_12": (torch.bfloat16, None, 12, "fp32"),
     "int8_bs_12": (torch.bfloat16, torch.int8, 12, "fp32"),
     "int8": (torch.bfloat16, torch.int8, 16, "wgmma+tma"),
@@ -164,8 +170,9 @@ def test_routes_launch_their_kernel(card, name, route):
     """Each route launches its own kernel, counted under its design, and
     matches the plain version: int8 / fp8 pools on the wgmma kernel
     (dequantized by the consumer into the 16-bit tile, at forced split
-    counts too); fp32 queries and a page size that is not a multiple of 8
-    on the CUDA-core kernel, which refuses a split count above 1."""
+    counts too); fp32 queries over fp32 pools on the TF32 kernel; fp32
+    queries over int8 pools and a page size that is not a multiple of 8 on
+    the CUDA-core kernel, which refuses a split count above 1."""
     dtype, pool, bs, design = ROUTES[route]
     q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
     args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb)
@@ -174,7 +181,7 @@ def test_routes_launch_their_kernel(card, name, route):
     assert plan["design"] == design
     ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
-    for splits in ((1, 3, None) if design == "wgmma+tma" else (None,)):
+    for splits in ((None,) if design == "fp32" else (1, 3, None)):
         n, c = (RPA.ragged_paged_attention.LAUNCHES,
                 RPA.ragged_paged_attention.ROUTES[design])
         out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
@@ -187,3 +194,85 @@ def test_routes_launch_their_kernel(card, name, route):
         with pytest.raises(RuntimeError, match="invalid argument"):
             RPA.ragged_paged_attention(*args, scale, splits=2, **extra)
         assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+
+
+@pytest.mark.parametrize("D", (128, 64, 40))
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32_kernel_vs_plain_at_every_split_count(card, name, D):
+    """fp32 queries over fp32 pools on the TF32 kernel (64 folded rows a
+    block, key tiles of 32), held at 1e-5 at every forced split count 1-16
+    and at the plan's."""
+    args, scale = _case(card, torch.float32, *CASES[name], D=D)
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert plan["design"] == "wgmma-3xtf32" and plan["query_rows"] == 64
+    assert plan["keys"] == 32 and plan["splits"] >= 1
+    ref = RPA.ragged_paged_attention_plain(*args, scale)
+    for splits in list(range(1, 17)) + [None]:
+        n, w = (RPA.ragged_paged_attention.LAUNCHES,
+                RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"])
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+        assert RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"] == w + 1
+        _check(out, ref, args[4], 1e-5, f"{name} D={D} splits={splits}")
+
+
+@pytest.mark.parametrize("D", (100, 160, 256, 99))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("name", ("gqa-16-4-qlen-g-across-64",
+                                  "decode-batch-of-phase-3",
+                                  "mixed-of-phase-3"))
+def test_wide_and_odd_head_dims(card, name, dtype, D):
+    """D 160 and 256 (above the wgmma kernels' 128), D 100 in bf16 (not a
+    whole number of 16-byte words) and 99 (odd: one element a thread) run
+    the CUDA-core kernel, which refuses a split count above 1; D 100 in
+    fp32 (25 words) the TF32 kernel, at D_pad 128."""
+    args, scale = _case(card, dtype, *CASES[name], D=D)
+    design = ("wgmma-3xtf32" if dtype == torch.float32 and D == 100
+              else "fp32")
+    assert RPA.kernel_plan(args[0], args[1], args[3])["design"] == design
+    ref = RPA.ragged_paged_attention_plain(*args, scale)
+    n, c = (RPA.ragged_paged_attention.LAUNCHES,
+            RPA.ragged_paged_attention.ROUTES[design])
+    out = RPA.ragged_paged_attention(*args, scale)
+    torch.cuda.synchronize()
+    assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+    assert RPA.ragged_paged_attention.ROUTES[design] == c + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _check(out, ref, args[4], tol, f"{name} D={D} {dtype}")
+    if design == "fp32":
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            RPA.ragged_paged_attention(*args, scale, splits=2)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("fp32", "bf16"))
+def test_misaligned_pools_on_the_cuda_core_kernel(card, dtype):
+    """Pools that start 4 bytes past a 16-byte boundary (views one element
+    into a larger buffer) run the CUDA-core kernel's element loads."""
+    args, scale = _case(card, dtype, *CASES["gqa-16-4-qlen-g-across-64"])
+    for i in (1, 2):
+        flat = torch.empty(args[i].numel() + 8, dtype=dtype, device=card)
+        view = flat[2 if dtype == torch.bfloat16 else 1:][:args[i].numel()]
+        view.copy_(args[i].reshape(-1))
+        args[i] = view.view(args[i].shape)
+        assert args[i].data_ptr() % 16
+    plan = RPA.kernel_plan(args[0], args[1], args[3], args[2])
+    assert plan["design"] == "fp32"
+    ref = RPA.ragged_paged_attention_plain(*args, scale)
+    c = RPA.ragged_paged_attention.ROUTES["fp32"]
+    out = RPA.ragged_paged_attention(*args, scale)
+    torch.cuda.synchronize()
+    assert RPA.ragged_paged_attention.ROUTES["fp32"] == c + 1
+    _check(out, ref, args[4], 1e-5 if dtype == torch.float32 else 1e-2,
+           f"misaligned {dtype}")
+
+
+def test_head_dim_above_256_raises(card):
+    args, scale = _case(card, torch.bfloat16, *CASES["decode-batch-of-phase-3"],
+                        D=264)
+    n = RPA.ragged_paged_attention.LAUNCHES
+    with pytest.raises(ValueError, match="K13"):
+        RPA.ragged_paged_attention(*args, scale)
+    assert RPA.ragged_paged_attention.LAUNCHES == n

@@ -6,8 +6,12 @@ rows a block, key tiles of 64, a row's key tiles split by the table width):
 q_len * g on both sides of 64, kv_len on both sides of page and key-tile
 boundaries, pages of 16, 32 and 64, GQA 16/16 and 16/4, the serving decode
 batch of ``chip_smoke.py`` phase 3 (8 rows, kv_len 100-640), rows with
-q_len 0, and a row longer than its table. Inputs come from numpy with a seed
-and go to both packages, as ``test_torch_ragged_attention.py`` runs them.
+q_len 0, and a row longer than its table; and at the head dims the card
+serves on its CUDA-core route (D 100, not a whole number of 16-byte words
+in bf16; D 160 and 256, above the wgmma kernels' 128), decode and mixed,
+GQA 16/4 with q_len * g on both sides of 64. Inputs come from numpy with a
+seed and go to both packages, as ``test_torch_ragged_attention.py`` runs
+them.
 Tolerances, relative to the reference's max-abs: 2e-5 in fp32 (summation
 order) and 1e-2 in bf16 (that file's bound: the rounding of the inputs and
 of the output).
@@ -73,11 +77,7 @@ def _case(q_lens, kv_lens, C, hq, hkv, bs, nb, D=16, seed=0):
                 scale=1.0 / np.sqrt(D))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=("fp32", "bf16"))
-@pytest.mark.parametrize("name", list(CASES))
-def test_plain_matches_jax_at_tile_and_split_edges(name, dtype):
-    case = _case(*CASES[name])
+def _matches_jax(name, case, dtype):
     names = ("q", "k_pool", "v_pool", "block_tables", "q_lens", "kv_lens")
     jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     jargs = [jnp.asarray(case[n]) for n in names]
@@ -96,3 +96,27 @@ def test_plain_matches_jax_at_tile_and_split_edges(name, dtype):
     assert rel <= TOL[dtype], (name, rel)
     for r, ql in enumerate(case["q_lens"]):
         assert (got[r, ql:] == 0).all(), (name, r)   # columns past q_len
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_at_tile_and_split_edges(name, dtype):
+    _matches_jax(name, _case(*CASES[name]), dtype)
+
+
+# decode rows across a page (16) and a key tile, and a mixed batch whose
+# q_len * g (g = 4) sits on both sides of 64 (the wgmma kernels' block)
+WIDE_CASES = {
+    "decode-gqa-16-4": ([1, 1, 1, 1], [15, 33, 64, 97], 1, 16, 4, 16, None),
+    "mixed-gqa-16-4-qlen-g-across-64": ([15, 16, 17, 1], [15, 80, 130, 200],
+                                        20, 16, 4, 16, None),
+}
+
+
+@pytest.mark.parametrize("D", (100, 160, 256))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_plain_matches_jax_at_wide_and_odd_head_dims(name, dtype, D):
+    _matches_jax(f"{name} D={D}", _case(*WIDE_CASES[name], D=D), dtype)
