@@ -9,17 +9,20 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
    wgmma instance's registers and spill bytes (the flash forward, dQ and
    dK/dV, the ragged kernel) and the bulk-ring paged decode instances';
-   the dK/dV split instances (D_pad 192 / 256), the fp32 decode instances
-   and the TF32 instances (the fp32 flash forward, dQ and dK/dV, the fp32
-   ragged kernel) must not spill;
+   the dK/dV split instances (D_pad 192 / 256), the 16-bit ragged
+   instances at D_pad 192 / 256, the fp32 decode instances, the TF32
+   instances (the fp32 flash forward, dQ and dK/dV, the fp32 ragged kernel)
+   and the LayerNorm forward's held-row instances must not spill;
 3. hold the ragged kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, 16 heads of 128, block 32), print each case's
    route and split count (``kernel_plan``), and time kernel, plain version,
    a library yardstick and the card's bound, the decode time over kv
    lengths 64-1024, one or two decode rows of 8192 keys split over
    blocks against one split, and the decode (a) and mixed (b) batches with
-   fp32 queries (the TF32 route, held at 1e-5); D 256 bf16 timed and D
-   160 / 99 fp32 and D 100 bf16 held on the CUDA-core route;
+   fp32 queries (the TF32 route, held at 1e-5); D 256 bf16 decode and mixed
+   timed and D 160 bf16 / fp16 and D 256 fp16 held on the wgmma route (D_pad
+   192 / 256); D 256 fp32 decode and pages of 12 keys timed and D 160 / 99
+   fp32 and D 100 bf16 held on the CUDA-core route;
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
@@ -59,7 +62,8 @@ Phases, in order; any failure exits non-zero:
    scaled_dot_product_attention, a dead row and GQA, bf16 and fp32;
 12. fill int8 and fp8 pools with the port's append on the card (bit for bit
    the CPU append's) and hold the ragged kernel over them against its plain
-   version, decode (timed) and mixed;
+   version, decode (timed) and mixed, the decode batch at D 256 (the wgmma
+   route) and with fp32 queries (the CUDA-core route), both timed;
 13. serve the GPT-1.3B shape through the two-program engine (the default
    path: batched prefill chunks on the flash bias kernel, decode bursts on
    the paged decode kernel): the same wave as phase 5, launch counts, bf16
@@ -75,10 +79,13 @@ Phases, in order; any failure exits non-zero:
    step's rows (5120 x 768), at 37 rows and at 1, bf16 and fp32, eps 1e-12
    and 1e-5, with and without a bias, at the 128-sequence cell's rows with
    and without a bias, at 13 and 37 x 100 (no 16-byte words) and above the
-   primitives' 28672-column limit; time them (at 5120 and the 128-sequence
-   rows) against their bound, torch's layer_norm and its autograd backward,
-   the backward also at one and two blocks an SM and through the autograd
-   Function;
+   primitives' 28672-column limit, and at the forward's held-row edges
+   (bf16 H 2048 / 2056, fp32 H 1024 / 1028); record the forward's route
+   (the held row's persistent grid or the walk) and grid; time them (at
+   5120 and the 128-sequence rows) against their bound, torch's layer_norm
+   and its autograd backward, the backward also through the autograd
+   Function, and the forward alone at [5120, 768] and [8192, 2048] in bf16,
+   fp16 and fp32;
 16. hold the flash kernels' segment-id and dropout variants against their
    plain versions at the packed BERT call ([10, 512, 12, 64] with the
    corpus' segment ids, p 0 and 0.1, bf16 timed, fp32), a dead row, GQA and
@@ -173,9 +180,10 @@ Phases, in order; any failure exits non-zero:
    Llama logits [8192, 32000]) and layer_norm forward and backward (rows
    [8192, 768] and [8192, 2048], bf16, fp32 g and b) once each with exact
    launch counts, hold each to its plain version, dg / db bit for bit across
-   two calls, time each against its bound, the plain version, one library
-   call (a * b + 1: torch.addcmul of a 0-d one) and (the backward) the
-   ported LayerNorm's backward, and a warm call's host work;
+   two calls, time each against its bound, the plain version and one
+   library call (a * b + 1: torch.addcmul of a 0-d one), and a warm call's
+   host work; the LayerNorm runs the ported LayerNorm's kernels
+   (csrc/layer_norm.cu), their routes recorded;
 32. fp16 through the LayerNorm, RMSNorm, RoPE, Adam (with a gradient in
    another dtype than p) and paged attention kernels, each against its plain
    version and timed at its main shape, and through nn.functional's
@@ -1059,9 +1067,39 @@ def wgmma_ptxas(output):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             name, ty, d, *flags = cur.groups()
-            recs.append((name, "bf16" if "bfloat16" in ty else "fp16", int(d),
+            # the ragged kernel's pool type follows q's: the same (S.._),
+            # int8 (a) or fp8 e4m3
+            pool = ("/fp8" if "fp8" in ty else "/int8" if ty.endswith("a")
+                    else "")
+            recs.append((name, ("bf16" if "bfloat16" in ty else "fp16")
+                         + pool, int(d),
                          *(int(f) if f else -1 for f in flags),
                          int(m.group(1)), spill))
+            cur = None
+    return recs
+
+
+def ln_fwd_ptxas(output):
+    """[(dtype, words a lane, registers, spill store bytes)] of the
+    LayerNorm forward's held-row instances (csrc/layer_norm.cu
+    ln_fwd_held), from ptxas's -v lines."""
+    recs, cur, spill = [], None, None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.search(r"ln_fwd_heldI(\w+?)Li(\d+)E", m.group(1))
+            spill = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ty, nw = cur.groups()
+            recs.append(({"f": "fp32", "13__nv_bfloat16": "bf16"}.get(
+                ty, "fp16"), int(nw), int(m.group(1)), spill))
             cur = None
     return recs
 
@@ -1921,6 +1959,10 @@ def fill_quantized(case, pool_dtype, rng):
 
 
 def check_quantized_case(name, case, card):
+    """The ragged kernel over a case's int8 / fp8 pools against its plain
+    version (the worst slab's L2 within KERNEL_TOL); with ``card``, timed
+    against the plain version, SDPA over pages dequantized to q's dtype and
+    the bound."""
     args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["q_lens"], case["kv_lens"], case["scale"], case["k_scales"],
             case["v_scales"])
@@ -1944,15 +1986,17 @@ def check_quantized_case(name, case, card):
         return rec
     kern = cuda_ms(lambda: RPA.ragged_paged_attention(*args))
     plain = cuda_ms(lambda: RPA.ragged_paged_attention_plain(*args))
-    # the library call gets the pages dequantized to bf16 ahead of time
+    # the library call gets the pages dequantized to q's dtype (bf16, or
+    # fp32 for fp32 queries) ahead of time
     deq = dict(case)
     for p, sc in (("k_pool", "k_scales"), ("v_pool", "v_scales")):
         deq[p] = (case[p].float() * (case[sc] / KV._qmax(case[p].dtype))[
-            :, :, None, None]).to(torch.bfloat16)
+            :, :, None, None]).to(case["q"].dtype)
     lib = cuda_ms(sdpa_yardstick(deq))
     bound, bound_by, nbytes, flops = case_bound(case)
     log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} library_ms "
-        f"{lib:.4f} (SDPA over pre-gathered pages dequantized to bf16) "
+        f"{lib:.4f} (SDPA over pre-gathered pages dequantized to "
+        f"{str(case['q'].dtype)[6:]}) "
         f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP) "
         f"kernel/bound {kern / bound:.1f}x  [{card}]")
     rec.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -1976,6 +2020,22 @@ def quantized_phase(card):
         recs[tag] = check_quantized_case(f"(a) {tag} decode R=8", dec, card)
         recs[tag + "_mixed"] = check_quantized_case(
             f"(b) {tag} mixed R=4 C=128", mixed, card)
+        # the decode batch at D 256 (the wgmma kernel at D_pad 256), and
+        # with fp32 queries (K14: the CUDA-core route)
+        lens = [100, 173, 256, 311, 400, 467, 555, 640]
+        d256 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=256)
+        q32 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16,
+                        dtype=torch.float32)
+        fill_quantized(d256, pool_dtype, rng)
+        fill_quantized(q32, pool_dtype, rng)
+        recs[tag + "_d256"] = check_quantized_case(
+            f"(a) {tag} decode R=8 D=256", d256, card)
+        recs[tag + "_fp32_q"] = check_quantized_case(
+            f"(a) {tag} decode R=8 fp32 q", q32, card)
+        require(recs[tag + "_d256"]["design"] == "wgmma+tma"
+                and recs[tag + "_fp32_q"]["design"] == "fp32",
+                f"{tag}: D 256 on {recs[tag + '_d256']['design']}, fp32 q "
+                f"on {recs[tag + '_fp32_q']['design']}")
         torch.cuda.empty_cache()
     return recs
 
@@ -2242,6 +2302,57 @@ def ln_bounds(rows, H, dtype, bias):
     return out
 
 
+def ln_held(H, dtype):
+    """The LayerNorm forward's held row (csrc/layer_norm.cu fwd_plan): whole
+    16-byte words, at most 8 a lane."""
+    n = 16 // torch.tensor([], dtype=dtype).element_size()
+    return H % n == 0 and H // n <= 32 * 8
+
+
+def ln_fwd_sweep(card, rows_bert):
+    """The LayerNorm forward at BERT's rows [rows_bert, 768] and at [8192,
+    2048] (the primitives' flagship call) in bf16, fp16 and fp32, with a
+    bias: its route and grid, held to the plain version, timed against its
+    bound, the plain version and F.layer_norm (weight and bias in x's
+    dtype)."""
+    F_ = torch.nn.functional
+    recs = {}
+    for rows, H in ((rows_bert, 768), (8192, 2048)):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            tag = f"{rows}x{H}_{str(dtype)[6:]}"
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(rows + H)
+            x = (torch.randn(rows, H, generator=gen, device=DEV) * 3
+                 + 1).to(dtype)
+            w = torch.randn(H, generator=gen, device=DEV)
+            b = torch.randn(H, generator=gen, device=DEV)
+            plan = LN.fwd_plan(x, w, b)
+            require(plan["path"] == ("held" if ln_held(H, dtype) else "walk"),
+                    f"LayerNorm forward {tag} on {plan['path']}")
+            y, _, _ = LN.layer_norm_fwd(x, w, b, 1e-12)
+            y_p, _, _ = LN.layer_norm_fwd_plain(x, w, b, 1e-12)
+            err, rel = _rel_err(y, y_p)
+            require(rel <= LN_TOL[dtype], f"LayerNorm forward {tag}: rel err "
+                    f"{rel}")
+            wl, bl = w.to(dtype), b.to(dtype)
+            kern = cuda_ms(lambda: LN.layer_norm_fwd(x, w, b, 1e-12))
+            plain = cuda_ms(lambda: LN.layer_norm_fwd_plain(x, w, b, 1e-12))
+            lib = cuda_ms(lambda: F_.layer_norm(x, (H,), wl, bl, 1e-12))
+            bound, by, nbytes, flops = ln_bounds(rows, H, dtype,
+                                                 True)["layer_norm_fwd"]
+            log(f"LayerNorm forward {tag}: route {plan['path']}, "
+                f"{plan['blocks']} blocks; max_abs_err {err:.3e} rel "
+                f"{rel:.3e}; kernel_ms {kern:.4f} plain_ms {plain:.4f} "
+                f"library_ms {lib:.4f} (F.layer_norm) bound_ms {bound:.4f} "
+                f"({by}) kernel/bound {kern / bound:.2f}x  [{card}]")
+            recs[tag] = dict(max_abs_err=err, ms=kern, plain_ms=plain,
+                             library_ms=lib, bound_ms=bound, bound_by=by,
+                             path=plan["path"], blocks=plan["blocks"])
+            del x, y, y_p
+    torch.cuda.empty_cache()
+    return recs
+
+
 def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(rows + H)
@@ -2268,6 +2379,9 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
                 for u, v in zip((dx, dw, db), again)),
             f"{name}: two backward calls differ in their bits")
     plan = LN.bwd_plan(x, w, dy, need_db=bias)
+    fplan = LN.fwd_plan(x, w, b)
+    require(fplan["path"] == ("held" if ln_held(H, dtype) else "walk"),
+            f"{name}: the forward on {fplan['path']}")
     y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, eps)
     dx_p, _, _ = LN.layer_norm_bwd_plain(x, w, mean_p, rstd_p, dy, bias)
     # dw and db are fp32 sums of the same products on both sides (the
@@ -2299,7 +2413,8 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
     log(f"{name}: max_abs_err y {rec['y']:.3e} dx {rec['dx']:.3e} dw "
         f"{rec['dw']:.3e}" + (f" db {rec['db']:.3e}" if bias else "")
         + f", dx-only kernel dx {rec['dx_only']:.3e}, stats rel {srel:.2e} "
-        f"(tol {tol}, dw / db {sum_tol}); backward route {plan['path']}, "
+        f"(tol {tol}, dw / db {sum_tol}); forward route {fplan['path']}, "
+        f"{fplan['blocks']} blocks; backward route {plan['path']}, "
         f"{plan['blocks']} blocks; dx, dw, db bit for bit across two calls")
     if card is None:
         return None
@@ -2351,6 +2466,7 @@ def check_ln_case(name, rows, H, dtype, eps, bias, card=None):
         recs[kname] = dict(max_abs_err=errs[kname], ms=kern, plain_ms=plain,
                            library_ms=lib, bound_ms=bound, bound_by=by,
                            bytes=nbytes, flops=flops)
+    recs["layer_norm_fwd"].update(path=fplan["path"], blocks=fplan["blocks"])
     recs["layer_norm_bwd"].update(
         ms_autograd=full_bwd, dx_only_ms=dx_only, path=plan["path"],
         blocks=plan["blocks"], host_ms=host, library_host_ms=host_lib,
@@ -2392,6 +2508,13 @@ def ln_phase(card, rows_128):
                   28680, torch.bfloat16, 1e-5, True)
     check_ln_case("(fp32) rows 37 x 4100 (the column-tiled partial)", 37,
                   4100, torch.float32, 1e-5, False)
+    # the forward's held-row edges: 16-bit H 2048 held, 2056 walked; fp32
+    # H 1024 held, 1028 walked; rows no multiple of the grid's warps
+    for rows, h, dt in ((37, 2048, torch.bfloat16), (13, 2056, torch.bfloat16),
+                        (37, 1024, torch.float32), (13, 1028, torch.float32)):
+        check_ln_case(f"({str(dt)[6:]}) rows {rows} x {h} (the forward's "
+                      f"held-row edge)", rows, h, dt, 1e-5, True)
+    recs["fwd_sweep"] = ln_fwd_sweep(card, rows_16)
     torch.cuda.empty_cache()
     return recs
 
@@ -4572,15 +4695,17 @@ def primitives_phase(card):
             3 * x.numel() * 2 + h * 4 + 8 * R + 2 * h * 4,
             KPS_LN_FLOPS["bwd"] * x.numel(), card,
             "autograd of F.layer_norm: dx, dw, db")
-        # the ported LayerNorm's backward (PERF.md row 8): dx, dw and db in
-        # one cooperative launch
-        row8 = cuda_ms(lambda: LN.layer_norm_bwd(x, g, mu, rstd, dy))
-        bwd["row8_route_ms"] = row8
+        # the backward is the ported LayerNorm's (PERF.md row 8): dx, dw and
+        # db in one cooperative launch, so row 8's route time is its own
+        bwd["row8_route_ms"] = bwd["ms"]
         bwd["dg_db_max_abs_err"] = max(errs[f"layer_norm {tag} dg"],
                                        errs[f"layer_norm {tag} db"])
-        log(f"layer_norm {tag}: the ported LayerNorm's backward (dx, dw, db "
-            f"in one launch) {row8:.4f} ms against this kernel's "
-            f"{bwd['ms']:.4f} ms")
+        fplan, bplan = LN.fwd_plan(x, g, bb), LN.bwd_plan(x, g, dy)
+        fwd.update(path=fplan["path"], blocks=fplan["blocks"])
+        bwd.update(path=bplan["path"], blocks=bplan["blocks"])
+        log(f"layer_norm {tag}: the forward on {fplan['path']} "
+            f"({fplan['blocks']} blocks), the backward on row 8's kernel, "
+            f"{bplan['path']} ({bplan['blocks']} blocks)")
         recs[f"ln_fwd_{tag}"], recs[f"ln_bwd_{tag}"] = fwd, bwd
     del x_ffn, a, b, logits, outs, ln_cases
     torch.cuda.empty_cache()
@@ -4777,6 +4902,20 @@ def main() -> int:
         require(len(split) == 32 and not any(r[-1] for r in split),
                 f"dK/dV split instances: {len(split)}, spilling "
                 f"{[r for r in split if r[-1]]}")
+        # nor does the 16-bit ragged kernel at D_pad 192 / 256 (bf16 / fp16
+        # q over 16-bit, int8 and fp8 pools)
+        rag = [r for r in wg if r[0] == "ragged_wgmma_kernel" and r[2] > 128]
+        require(len(rag) == 12 and not any(r[-1] for r in rag),
+                f"ragged D_pad 192 / 256 instances: {len(rag)}, spilling "
+                f"{[r for r in rag if r[-1]]}")
+    ln_inst = ln_fwd_ptxas(_build.BUILD_LOG["output"])
+    for ty, nw, regs, spill in ln_inst:
+        log(f"  ln_fwd_held<{ty}, {nw} words a lane>: {regs} registers, "
+            f"{spill} bytes spill stores")
+    if _build.BUILD_LOG["output"]:
+        require(len(ln_inst) == 24 and not any(r[-1] for r in ln_inst),
+                f"LayerNorm forward held instances: {len(ln_inst)}, spilling "
+                f"{[r for r in ln_inst if r[-1]]}")
     tf32 = tf32_ptxas(_build.BUILD_LOG["output"])
     for name, d, bias, ints, drop, regs, spill in tf32:
         log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
@@ -4819,21 +4958,41 @@ def main() -> int:
         card)
     require(rec_dec32["design"] == rec_mixed32["design"] == "wgmma-3xtf32",
             "fp32 ragged cases off the TF32 route")
-    # head dims past the wgmma kernels' 128 and off whole 16-byte words: the
-    # CUDA-core route, D 256 bf16 timed at case (a)'s batch
-    rec_d256 = check_kernel_case("(a) decode R=8 D=256 bf16", make_case(
-        rng, [1] * 8, [100, 173, 256, 311, 400, 467, 555, 640], C=1, hq=16,
-        hkv=16, D=256), card)
-    wide = {"D256_bf16": rec_d256}
-    for tag, D, dt in (("D160_fp32", 160, torch.float32),
+    # head dims past 128: 16-bit queries on the wgmma kernel at D_pad 192
+    # and 256 (D 256 bf16 timed at case (a)'s and case (b)'s batches), fp32
+    # queries on the CUDA-core route (D 256 timed at case (a)'s batch); D 99
+    # fp32 and D 100 bf16 (not whole 16-byte words) on the CUDA-core route
+    dec_lens = [100, 173, 256, 311, 400, 467, 555, 640]
+    wide = {
+        "D256_bf16": check_kernel_case("(a) decode R=8 D=256 bf16", make_case(
+            rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, D=256), card),
+        "D256_bf16_mixed": check_kernel_case(
+            "(b) mixed R=4 C=128 D=256 bf16", make_case(
+                rng, mixed_q, mixed_kv, C=128, hq=16, hkv=16, D=256), card),
+        "D256_fp32": check_kernel_case("(a) decode R=8 D=256 fp32", make_case(
+            rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, D=256,
+            dtype=torch.float32), card)}
+    for tag, D, dt in (("D160_bf16", 160, torch.bfloat16),
+                       ("D160_fp16", 160, torch.float16),
+                       ("D256_fp16", 256, torch.float16),
+                       ("D160_fp32", 160, torch.float32),
                        ("D99_fp32", 99, torch.float32),
                        ("D100_bf16", 100, torch.bfloat16)):
         wide[tag] = check_kernel_case(f"(c) GQA 16/4 mixed D={D} {tag[-4:]}",
                                       make_case(rng, mixed_q, mixed_kv, C=128,
                                                 hq=16, hkv=4, D=D, dtype=dt),
                                       None)
-    require(all(r["design"] == "fp32" for r in wide.values()),
-            f"wide / odd head dims off the CUDA-core route: "
+    # K14: a page size that is not a multiple of 8 (the CUDA-core route),
+    # timed at case (a)'s batch with pages of 12 keys
+    wide["bs12_bf16"] = check_kernel_case("(a) decode R=8 bs=12 bf16",
+                                          make_case(rng, [1] * 8, dec_lens,
+                                                    C=1, hq=16, hkv=16, bs=12,
+                                                    NB=300, nb=54), card)
+    on_wgmma = ("D256_bf16", "D256_bf16_mixed", "D160_bf16", "D160_fp16",
+                "D256_fp16")
+    require(all(r["design"] == ("wgmma+tma" if t in on_wgmma else "fp32")
+                for t, r in wide.items()),
+            f"wide / odd head dims off their routes: "
             f"{ {t: r['design'] for t, r in wide.items()} }")
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
@@ -5113,6 +5272,11 @@ def main() -> int:
                    "100..640",
              fp8={k: quant["fp8"][k] for k in keys},
              mixed={k: quant["int8_mixed"][k] for k in keys},
+             d256={t: {k: quant[f"{t}_d256"][k] for k in keys + ("design",)}
+                   for t in ("int8", "fp8")},
+             fp32_q={t: {k: quant[f"{t}_fp32_q"][k]
+                         for k in keys + ("design",)}
+                     for t in ("int8", "fp8")},
              fp8_launches=qeng["fp8_e4m3"]["launches"][
                  "ragged_paged_attention"],
              serving=qeng)]
@@ -5129,7 +5293,10 @@ def main() -> int:
             **({k: ln["bf16"][name][k] for k in (
                 "ms_autograd", "dx_only_ms", "path", "blocks", "host_ms",
                 "library_host_ms")}
-               if name == "layer_norm_bwd" else {}),
+               if name == "layer_norm_bwd" else
+               {k: ln["bf16"][name][k] for k in ("path", "blocks")}),
+            **({"fwd_sweep": ln["fwd_sweep"]}
+               if name == "layer_norm_fwd" else {}),
             fp32={k: ln["fp32"][name][k] for k in keys},
             rows_128={k: ln["rows_128"][name][k] for k in keys},
             bert=bert if name == "layer_norm_fwd" else None,
@@ -5184,19 +5351,22 @@ def main() -> int:
         dict(name="kps_layer_norm_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces=f"{pr}:212", launches=prim["launches"]["ln_fwd"],
-             **{k: prim["ln_fwd_flagship"][k] for k in keys},
+             **{k: prim["ln_fwd_flagship"][k] for k in keys + (
+                 "path", "blocks")},
              shape="x [8192, 2048] bf16, fp32 g and b (the same CUDA "
                    "kernel as layer_norm_fwd)",
-             bert={k: prim["ln_fwd_bert"][k] for k in keys}),
+             bert={k: prim["ln_fwd_bert"][k] for k in keys + (
+                 "path", "blocks")}),
         dict(name="kps_layer_norm_bwd", route="cuda",
-             source="paddle_tpu_torch/csrc/kps_layer_norm.cu",
+             source="paddle_tpu_torch/csrc/layer_norm.cu",
              replaces=f"{pr}:238", launches=prim["launches"]["ln_bwd"],
-             **{k: prim["ln_bwd_flagship"][k] for k in keys},
+             **{k: prim["ln_bwd_flagship"][k] for k in keys + (
+                 "path", "blocks")},
              shape="x [8192, 2048] bf16, fp32 g; dx, dg and db in one "
-                   "launch",
+                   "launch (the same CUDA kernel as layer_norm_bwd)",
              row8_route_ms=prim["ln_bwd_flagship"]["row8_route_ms"],
              bert={k: prim["ln_bwd_bert"][k] for k in keys + (
-                 "row8_route_ms",)})]
+                 "row8_route_ms", "path", "blocks")})]
     # fp16 readings beside the bf16 ones of the kernels phase 32 timed
     fp16 = {"ragged_paged_attention": half["ragged_paged_attention"],
             "paged_decode_attention": half["paged_decode_attention"],

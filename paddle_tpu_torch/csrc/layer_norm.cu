@@ -11,6 +11,10 @@
 //             with xhat = (x - mean) * rstd and dxhat = dy * w, and in
 //             the same launch dw = sum over rows of dy * xhat and
 //             db = sum over rows of dy (fp32 [H]).
+// The same launches serve the tile primitives' layer_norm
+// (paddle_tpu/kernels/pallas/primitives.py `_ln_fwd` → `_ln_fwd_kernel` and
+// `_ln_bwd_rule` → `_ln_bwd_kernel`: the same arithmetic with a bias, dg
+// and db summed in the kernel).
 //
 // The weight and bias are fp32 [H] (the wrapper casts other dtypes), so fp32
 // affine parameters beside bf16 rows never promote the output. The Pallas
@@ -19,11 +23,31 @@
 //
 // TPU -> Hopper. The Pallas grid walks blocks of ~2 MB of rows in VMEM, with
 // a masked edge block. Here (helpers in norm_common.cuh) one warp owns one
-// row (8 rows per 256-thread block, any row count: a block's warps past the
-// last row exit), reads the row in 16-byte words when H allows it (H a
-// multiple of 8 for bf16 and fp16, of 4 for fp32, 16-byte aligned bases) and
-// one element a lane otherwise, and reduces its fp32 sums with warp shuffles:
-// no shared memory and no block barrier. Any H.
+// row and reduces its fp32 sums with warp shuffles.
+//
+// The forward's held row (ln_fwd_held), where the row is whole aligned
+// 16-byte words of at most kHeldWords a lane (bf16 and fp16 H <= 2048, fp32
+// H <= 1024), on the design of rms_norm.cu's rms_fwd_held: a persistent grid
+// of the 4-warp blocks the card holds at once; each warp walks rows with the
+// grid's warp count as its stride and keeps two row buffers, so the next
+// row's load is in flight while this one is normalised and stored. The row
+// is read from device memory once: the mean, then the sum of (x - mean)^2,
+// then y, all from the registers; 16-bit words are rounded two elements at
+// a time. The fp32 weight and bias: a lane's columns in registers while they
+// and the two row buffers fit 160 registers (FwdHeld: bf16 and fp16 H <=
+// 1536, every fp32 row held), else in the block's shared memory, loaded
+// once a block (16 KB at H 2048) and read as float4: both in registers at
+// H 2048 would take 128 registers beside the buffers' 64. The row's words are a
+// template argument (NW), so a narrow row holds only the registers it
+// needs. A lane sums its elements in the order the walk's 16-byte loads
+// take them, so mean and rstd are the walk kernel's bit for bit (the
+// sums' chains are hidden under the loads of the other warps' rows).
+// Other rows (ln_fwd_kernel, the first design, any H): one warp a row, 8 rows
+// per 256-thread block (a block's warps past the last row exit), the row read
+// in 16-byte words when H allows it (H a multiple of 8 for bf16 and fp16, of
+// 4 for fp32, 16-byte aligned bases) and one element a lane otherwise, three
+// passes over it (the repeated reads come from L1), w and b read with __ldg
+// for every element.
 //
 // The backward with dw and db: the JAX backward leaves
 // dw = sum over rows of dy * xhat and db = sum over rows of dy (fp32 [H],
@@ -64,9 +88,8 @@
 // against 4 bytes (bf16 in and out) or 6 (backward: x, dy in, dx out; ~13
 // FLOPs an element with dw and db), so bytes bound both. At the BERT-base
 // step's rows (x [5120, 768] bf16) the forward must move 7.9 MB, ~0.0024 ms,
-// and the backward 11.8 MB, ~0.0035 ms. The forward reads the row from
-// device memory once per pass (three passes); the repeated reads of a 1.5 KB
-// row come from L1.
+// and the backward 11.8 MB, ~0.0035 ms; at [8192, 2048] bf16 the forward
+// 67.2 MB, ~0.0201 ms.
 
 #include "norm_common.cuh"
 
@@ -101,6 +124,126 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, const float*
   }
 }
 
+// ---------------------------------------------------------------------------
+// the forward's held row
+constexpr int kHeldWords = 8;  // 16-byte words of a row a lane holds
+
+// What a lane's registers afford at NW words of the forward's held row (N
+// elements a word): two row buffers take 8 registers a word, the fp32
+// weight and bias 2 N. They stay in registers up to 160; wider, in shared
+// memory.
+template <typename T, int NW>
+struct FwdHeld {
+  static constexpr int N = 16 / sizeof(T);
+  static constexpr bool kRegs = NW * (8 + 2 * N) <= 160;
+};
+
+// N consecutive fp32 values from a 16-byte aligned shared-memory address
+template <int N>
+__device__ __forceinline__ void load_shared(const float4* p, float* out) {
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    const float4 f = p[k / 4];
+    out[k] = f.x;
+    out[k + 1] = f.y;
+    out[k + 2] = f.z;
+    out[k + 3] = f.w;
+  }
+}
+
+// the rows walked by norm_common.cuh held_rows; w and b (b may be null) in
+// registers or, when FwdHeld says they do not fit, in aff4 ([2 H] fp32: w,
+// then b)
+template <typename T, int NW>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+ln_fwd_held(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+            T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+            long long rows, int H, float eps) {
+  using P = FwdHeld<T, NW>;
+  constexpr int N = P::N;
+  constexpr int WR = P::kRegs ? NW : 1;  // words of the affine held in registers
+  extern __shared__ float4 aff4[];
+  const int lane = threadIdx.x % 32;
+  const int nw = H / N;
+  const bool has_b = b != nullptr;
+  float wv[WR][N], bv[WR][N];
+  if constexpr (P::kRegs) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        load_w<N>(w + (j * 32 + lane) * N, wv[j]);
+        if (has_b) {
+          load_w<N>(b + (j * 32 + lane) * N, bv[j]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < N; ++k) bv[j][k] = 0.f;
+        }
+      }
+  } else {
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    for (int i = threadIdx.x; i < H / 4; i += 32 * kFwdWarps) {
+      aff4[i] = __ldg(w4 + i);
+      if (has_b) aff4[H / 4 + i] = __ldg(b4 + i);
+    }
+    __syncthreads();
+  }
+  held_rows<T, NW>(x, rows, H, [&](const uint4 (&buf)[NW], long long row) {
+    // both sums in the walk's order (word by word, element by element)
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        float f[N];
+        unpack_word<T>(buf[j], f);
+#pragma unroll
+        for (int k = 0; k < N; ++k) s += f[k];
+      }
+    const float mean = warp_sum(s) / H;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        float f[N];
+        unpack_word<T>(buf[j], f);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float d = f[k] - mean;
+          ss += d * d;
+        }
+      }
+    const float rstd = rsqrtf(warp_sum(ss) / H + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * H);
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) {
+        const int word = j * 32 + lane;
+        float f[N], wl[N], bl[N];
+        unpack_word<T>(buf[j], f);
+        if constexpr (P::kRegs) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            wl[k] = wv[j][k];
+            bl[k] = bv[j][k];
+          }
+        } else {
+          load_shared<N>(aff4 + word * N / 4, wl);
+          if (has_b) load_shared<N>(aff4 + (H + word * N) / 4, bl);
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float t = (f[k] - mean) * rstd * wl[k];
+          f[k] = has_b ? t + bl[k] : t;
+        }
+        yr[word] = pack_word<T>(f);
+      }
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  });
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -125,7 +268,6 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // the backward with dw and db summed in the kernel
-constexpr int kHeldWords = 8;                 // 16-byte words of a row a lane holds
 constexpr int kStepRows = 16;                 // the tiled path: rows a step
 constexpr int kTileThreads = 32 * kStepRows;  // one warp a row of the step
 
@@ -358,14 +500,71 @@ ln_bwd_tiled(const T* __restrict__ x, const float* __restrict__ w,
   fold_partials<kTileThreads>(part, sums, sync, W);
 }
 
+// ln_fwd_held<T, words> for 1 <= words <= kHeldWords, and whether its w and
+// b stay in registers
+template <typename T, int NW = 1>
+const void* fwd_held_kernel(int words, bool& regs) {
+  if constexpr (NW > kHeldWords) {
+    return nullptr;
+  } else {
+    if (words == NW) {
+      regs = FwdHeld<T, NW>::kRegs;
+      return reinterpret_cast<const void*>(ln_fwd_held<T, NW>);
+    }
+    return fwd_held_kernel<T, NW + 1>(words, regs);
+  }
+}
+
+// The forward's route and grid: the held row (a persistent grid of the
+// blocks the card holds at once, at most one a warp a row; w and b in
+// registers, or 2 H fp32 of shared memory) for whole aligned 16-byte words of
+// at most kHeldWords a lane; else the walk (ln_fwd_kernel, one warp a row).
+// Shapes and alignment only.
+struct FwdPlan {
+  bool held;
+  int blocks;
+  size_t smem;
+  const void* kernel;
+};
+
+template <typename T>
+int fwd_plan(long long rows, int H, bool aligned, FwdPlan& p) {
+  constexpr int n = 16 / sizeof(T);
+  const int words = (H / n + 31) / 32;
+  p.held = H % n == 0 && aligned && words <= kHeldWords;
+  p.smem = 0;
+  if (!p.held) {
+    p.kernel = reinterpret_cast<const void*>(ln_fwd_kernel<T>);
+    p.blocks = static_cast<int>(grid_for(rows).x);
+    return 0;
+  }
+  bool regs = true;
+  p.kernel = fwd_held_kernel<T>(words, regs);
+  if (!regs) p.smem = 2 * sizeof(float) * static_cast<size_t>(H);
+  long long rpb = 0;
+  return coop_grid(p.kernel, 32 * kFwdWarps, p.smem, rows, kFwdWarps, p.blocks, rpb);
+}
+
 template <typename T>
 int fwd(const void* x, const void* w, const void* b, void* y, void* mean, void* rstd,
         long long rows, int H, float eps, cudaStream_t st) {
   const bool vec = H % (16 / sizeof(T)) == 0 && aligned16(x) && aligned16(y);
-  ln_fwd_kernel<T><<<grid_for(rows), kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), rows, H, eps,
-      vec);
+  FwdPlan p{};
+  const int err =
+      fwd_plan<T>(rows, H, vec && aligned16(w) && (b == nullptr || aligned16(b)), p);
+  if (err != 0) return err;
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  const float* bt = static_cast<const float*>(b);
+  T* yt = static_cast<T*>(y);
+  float* mt = static_cast<float*>(mean);
+  float* rt = static_cast<float*>(rstd);
+  if (p.held) {
+    void* args[] = {&xt, &wt, &bt, &yt, &mt, &rt, &rows, &H, &eps};
+    return static_cast<int>(cudaLaunchKernel(p.kernel, dim3(p.blocks), dim3(32 * kFwdWarps),
+                                             args, p.smem, st));
+  }
+  ln_fwd_kernel<T><<<p.blocks, kThreads, 0, st>>>(xt, wt, bt, yt, mt, rt, rows, H, eps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,6 +665,20 @@ int ptt_layer_norm_fwd(const void* x, const void* w, const void* b, void* y, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_dtype(dtype, [&](auto tag) {
     return fwd<typename decltype(tag)::type>(x, w, b, y, mean, rstd, rows, H, eps, st);
+  });
+}
+
+// The forward's plan for these shapes (no data is read): out[0] 1 for the
+// held row, 0 for the walk; out[1] the blocks. aligned: x, y, w and b (when
+// given) all 16-byte aligned.
+int ptt_layer_norm_fwd_plan(long long rows, int H, int dtype, int aligned, int* out) {
+  if (H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_dtype(dtype, [&](auto tag) {
+    FwdPlan p{};
+    const int err = fwd_plan<typename decltype(tag)::type>(std::max(rows, 1LL), H, aligned != 0, p);
+    out[0] = p.held ? 1 : 0;
+    out[1] = p.blocks;
+    return err;
   });
 }
 

@@ -1,8 +1,8 @@
-// Row-normalisation helpers shared by layer_norm.cu, rms_norm.cu and
-// kps_layer_norm.cu: one warp owns one row of H elements (8 rows per
-// 256-thread block), reads it in 16-byte words when H and the bases allow it
-// and one element a lane otherwise, and reduces its fp32 sums with warp
-// shuffles (no shared memory, no block barrier). A 16-bit word is rounded
+// Row-normalisation helpers shared by layer_norm.cu and rms_norm.cu: one
+// warp owns one row of H elements (8 rows per 256-thread block, or 4 in the
+// forwards' persistent grids), reads it in 16-byte words when H and the
+// bases allow it and one element a lane otherwise, and reduces its fp32 sums
+// with warp shuffles (no shared memory, no block barrier). A 16-bit word is rounded
 // two elements at a time (cvt.rn.bf16x2.f32 / cvt.rn.f16x2.f32), the same
 // bits as one rounding each.
 //
@@ -152,6 +152,39 @@ __device__ __forceinline__ void store_v(T* __restrict__ p, const float (&f)[V]) 
     *p = from_f32<T>(f[0]);
   } else {
     *reinterpret_cast<uint4*>(p) = pack_word<T>(f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the forwards' held row (rms_norm.cu rms_fwd_held, layer_norm.cu
+// ln_fwd_held): a persistent grid of kFwdWarps-warp blocks; warp gw walks
+// rows gw, gw + TW, ... (TW the grid's warps), NW 16-byte words a lane (word
+// j * 32 + lane in buf[j]), with two row buffers: the next row's load is in
+// flight while work(buf, row) normalises and stores this one
+constexpr int kFwdWarps = 4;
+
+template <typename T, int NW, typename Work>
+__device__ __forceinline__ void held_rows(const T* __restrict__ x, long long rows, int H,
+                                          Work&& work) {
+  const int lane = threadIdx.x % 32;
+  const int nw = H / static_cast<int>(16 / sizeof(T));
+  const long long tw = static_cast<long long>(gridDim.x) * kFwdWarps;
+  auto load = [&](uint4 (&buf)[NW], long long row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j * 32 + lane < nw) buf[j] = __ldg(xr + j * 32 + lane);
+  };
+  uint4 a[NW], b[NW];
+  long long row = blockIdx.x * static_cast<long long>(kFwdWarps) + threadIdx.x / 32;
+  if (row < rows) load(a, row);
+  for (; row < rows; row += 2 * tw) {
+    const long long next = row + tw;
+    if (next < rows) load(b, next);
+    work(a, row);
+    if (next >= rows) break;
+    if (next + tw < rows) load(a, next + tw);
+    work(b, next);
   }
 }
 

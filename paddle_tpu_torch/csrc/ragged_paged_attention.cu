@@ -12,14 +12,14 @@
 // and rows that see no key emit zeros.
 //
 // Routes (ptt_ragged_plan reports them; the wrapper counts each), for every
-// D up to 256: bf16 / fp16 queries over pools of their dtype or int8 / fp8
-// pools go to the wgmma kernel of ragged_paged_attention_hopper.cu, and
+// D up to 256, where bs is a multiple of 8, D is a whole number of 16-byte
+// words of the pool type and the pools are 16-byte aligned: bf16 / fp16
+// queries over pools of their dtype or int8 / fp8 pools go to the wgmma
+// kernel of ragged_paged_attention_hopper.cu (D <= kWgmmaMaxD, 256), and
 // fp32 queries over fp32 pools to the TF32 one of
-// ragged_paged_attention_tf32_hopper.cu, where bs is a multiple of 8, D <=
-// 128 is a whole number of 16-byte words of the pool type and the pools are
-// 16-byte aligned; every other call (fp32 queries over int8 / fp8 pools,
-// other page sizes, D in (128, 256] or not whole 16-byte words, misaligned
-// pools) to the kernel here.
+// ragged_paged_attention_tf32_hopper.cu (D <= kTf32MaxD, 128); every other
+// call (fp32 queries over int8 / fp8 pools or at D in (128, 256], other page
+// sizes, D not whole 16-byte words, misaligned pools) to the kernel here.
 //
 // Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
 // fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
@@ -62,10 +62,12 @@ using namespace ptt_paged;
 constexpr int kThreads = 128;
 constexpr int kTileRows = 16;                                // folded rows per block
 constexpr int kMaxD = 256;
-constexpr int kWgmmaMaxD = 128;  // the wgmma routes' widest head
+constexpr int kWgmmaMaxD = 256;  // the 16-bit wgmma route's widest head (D_pad 64-256)
+constexpr int kTf32MaxD = 128;   // the TF32 route's widest head
+constexpr int kNarrowD = 128;    // the kernel here: the narrower of its two instances
 
 // outputs a thread: kTileRows * D / kThreads, for D up to 128 or up to 256
-__host__ __device__ constexpr int acc_regs(int D) { return D <= kWgmmaMaxD ? 16 : 32; }
+__host__ __device__ constexpr int acc_regs(int D) { return D <= kNarrowD ? 16 : 32; }
 
 // T: the query and output type (fp32, bf16); P: the pool type (T, or int8 /
 // fp8 e4m3 with per-page scales); kMaxAcc: acc_regs of the widest D taken.
@@ -241,8 +243,8 @@ int launch_width(const void* q, const void* k_pool, const void* v_pool, const vo
                  const void* q_lens, const void* kv_lens, const void* k_scales,
                  const void* v_scales, void* out, int R, int C, int Hq, int Hkv, int NB, int bs,
                  int D, int nb, float scale, float qmax, bool vec, cudaStream_t s) {
-  if (D <= kWgmmaMaxD)
-    return launch<T, P, acc_regs(kWgmmaMaxD)>(q, k_pool, v_pool, tables, q_lens, kv_lens,
+  if (D <= kNarrowD)
+    return launch<T, P, acc_regs(kNarrowD)>(q, k_pool, v_pool, tables, q_lens, kv_lens,
                                               k_scales, v_scales, out, R, C, Hq, Hkv, NB, bs, D,
                                               nb, scale, qmax, vec, s);
   return launch<T, P, acc_regs(kMaxD)>(q, k_pool, v_pool, tables, q_lens, kv_lens, k_scales,
@@ -299,14 +301,16 @@ namespace {
 enum Design { kCudaCores = 0, kWgmma = 2, kWgmmaTf32 = 3 };
 
 // The wgmma kernels take bs a multiple of 8 (a TMA box lands on a whole
-// swizzle atom), D <= 128 a whole number of 16-byte words of the pool type,
-// and 16-byte aligned pools: 16-bit queries over any pool, fp32 queries
-// over fp32 pools (the TF32 kernel). The rest goes to the kernel here.
+// swizzle atom), D a whole number of 16-byte words of the pool type, and
+// 16-byte aligned pools: 16-bit queries over any pool up to kWgmmaMaxD,
+// fp32 queries over fp32 pools up to kTf32MaxD (the TF32 kernel: its split
+// tiles at D 256 are ROADMAP Queue 2 K9's design). The rest goes to the
+// kernel here.
 Design route(int dtype, int pool_dtype, int bs, int D, bool aligned) {
   const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
-  if (bs % 8 != 0 || D > kWgmmaMaxD || D % vec != 0 || !aligned) return kCudaCores;
-  if (dtype != 0) return kWgmma;
-  return pool_dtype == 0 ? kWgmmaTf32 : kCudaCores;
+  if (bs % 8 != 0 || D % vec != 0 || !aligned) return kCudaCores;
+  if (dtype != 0) return D <= kWgmmaMaxD ? kWgmma : kCudaCores;
+  return pool_dtype == 0 && D <= kTf32MaxD ? kWgmmaTf32 : kCudaCores;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

@@ -1,10 +1,13 @@
 // Unified ragged prefill+decode paged attention for Hopper, redesigned for
 // sm_90a: the kernel for bf16 and fp16 queries over pools of the same dtype
 // or over int8 / fp8 e4m3 pools with per-(kv head, page) scales, a page size
-// bs that is a multiple of 8 and D <= 128 (a pool row whole 16-byte words).
-// ragged_paged_attention.cu's entry hands it those calls; fp32 queries and
-// the other page sizes keep the kernel there (ptt_ragged_plan reports the
-// route).
+// bs that is a multiple of 8 and D <= 256 (a pool row whole 16-byte words),
+// read into D_pad 64, 128, 192 or 256 (the TMA map fills the columns past D
+// with zeros). ragged_paged_attention.cu's entry hands it those calls; fp32
+// queries and the other page sizes keep the kernels there (ptt_ragged_plan
+// reports the route). This file is compiled once per D_pad
+// (-DPTT_RAGGED_D=<64|128|192|256>, kernels/_build.py), so the widths build
+// in parallel; the object of D_pad 64 also holds the host entries.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`) for those calls:
@@ -15,14 +18,18 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): a decode row
 // reads its K / V pages once (bytes-bound: 0.0074 ms for the serving decode
-// batch); a prefill chunk does 4 D FLOPs a visible (query head, key) pair
-// on the same pages and stays bytes-bound at C = 128 (0.0035 ms for phase
-// 3's mixed batch).
+// batch at D 128, 0.0148 at D 256); a prefill chunk does 4 D FLOPs a
+// visible (query head, key) pair on the same pages and stays bytes-bound at
+// C = 128 (0.0035 ms for phase 3's mixed batch).
 //
 // Design. One block of 160 threads owns 64 folded rows of one (row, kv
 // head), and one split of the row's key tiles: warps 0-3 are one consumer
-// warpgroup, warp 4 the producer (no setmaxnreg: two blocks share an SM, so
-// one's epilogue runs under the other's loads).
+// warpgroup, warp 4 the producer (no setmaxnreg: at D_pad <= 128 two blocks
+// share an SM, so one's epilogue runs under the other's loads; at D_pad 192
+// and 256 Q and the two stages take 120 / 160 KB, one block an SM, and the
+// 160 threads have up to 255 registers each with no hand-over: the consumer
+// holds o[D_pad / 2], 128 fp32 at D_pad 256, beside 32 scores and 16
+// registers of p, as the 16-bit flash forward does at that width).
 // - Q: the consumer warpgroup loads the 64 folded rows once (16-byte words,
 //   rows c >= q_len as zeros) into the 128-byte-swizzled layout wgmma reads
 //   (flash_hopper.cuh: chunk c of row r at chunk c ^ (r % 8)), then a proxy
@@ -41,16 +48,19 @@
 //   producer; the consumer dequantizes K and V into 16-bit swizzled tiles
 //   (rounded to T once, as the reference's fp32 values rounded for the
 //   tensor cores), frees the stage and runs the products on those tiles.
-//   A decode row then reads 1 byte a cached element.
+//   A decode row then reads 1 byte a cached element. At D_pad 256: Q 32 KB,
+//   the raw stages 64 KB and the 16-bit tiles 64 KB.
 // - Products on wgmma: S = Q K^T (m64n64k16 from the swizzled tiles), the
 //   online softmax on the register fragment (a row's max and sum over the
 //   quad), P rounded to T as the register A operand of O += P V (V read
-//   MN-major), O in registers until the epilogue.
+//   MN-major; past 128 columns one wgmma a 128 columns, wgmma_rs_cols), O
+//   in registers until the epilogue.
 // - Split key ranges: when R x H_kv x the query tiles leave more than half
 //   the SMs idle (a few long decode rows), the row's key tiles are cut into
 //   `splits` contiguous ranges by the table width (auto_splits below, on the
 //   host: no device read, no sync). A split writes its rows' unnormalized O, m and l into fp32
-//   scratch that the wrapper allocates, and ragged_combine_kernel merges
+//   scratch that the wrapper allocates ([.., 64, D]: true D columns, not
+//   D_pad), and ragged_combine_kernel merges
 //   them; with one split the block writes the output itself. Dead rows and
 //   splits with no key tile write nothing to the scratch: the combine knows
 //   them from the same arithmetic (ragged_tile_plan).
@@ -61,20 +71,11 @@
 #include "flash_hopper.cuh"
 #include "paged_common.cuh"
 
+#ifndef PTT_RAGGED_D
+#error "compile once per D_pad: -DPTT_RAGGED_D=<64|128|192|256>"
+#endif
+
 namespace ptt_ragged_hopper {
-namespace {
-
-using ptt_flash::bf16;
-using ptt_flash::f16;
-namespace hw = ptt_flash::hopper;
-
-constexpr int kRows = 64;     // folded query rows a block (one m64 warpgroup)
-constexpr int kBN = 64;       // keys a tile
-constexpr int kStages = 2;
-constexpr int kMaxSplits = 16;  // splits of a row's key tiles the merge takes
-constexpr int kThreadsR = 160;  // one consumer warpgroup and the producer warp
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct RaggedArgs {
   const void* q;
@@ -90,6 +91,25 @@ struct RaggedArgs {
   int R, C, Hq, Hkv, NB, bs, D, nb, g, tiles, splits, per_split, box_rows;
   float scale;
 };
+
+// the kernels at one D_pad (each object of this file defines its own)
+template <int DP>
+int run_width(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
+              int dtype, cudaStream_t stream);
+
+namespace {
+
+using ptt_flash::bf16;
+using ptt_flash::f16;
+namespace hw = ptt_flash::hopper;
+
+constexpr int kRows = 64;     // folded query rows a block (one m64 warpgroup)
+constexpr int kBN = 64;       // keys a tile
+constexpr int kStages = 2;
+constexpr int kMaxSplits = 16;  // splits of a row's key tiles the merge takes
+constexpr int kThreadsR = 160;  // one consumer warpgroup and the producer warp
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // What a (row r, query tile) of folded rows [f0, f0 + 64) does: its live
 // rows (c < q_len), the absolute position of chunk column 0, the keys it
@@ -170,7 +190,7 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* raw, T* dst, c
 }
 
 template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kThreadsR, 2)
+__global__ void __launch_bounds__(kThreadsR, D > 128 ? 1 : 2)
     ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const RaggedArgs a) {
   using Smem = RaggedSmem<T, P, D>;
@@ -529,6 +549,25 @@ int launch_pool(const RaggedArgs& a, const void* k_pool, const void* v_pool, int
 
 }  // namespace
 
+template <int DP>
+int run_width(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
+              int dtype, cudaStream_t stream) {
+  if (dtype == ptt_flash::kBF16)
+    return launch_pool<bf16, DP>(a, k_pool, v_pool, pool_code, dtype, stream);
+  return launch_pool<f16, DP>(a, k_pool, v_pool, pool_code, dtype, stream);
+}
+template int run_width<PTT_RAGGED_D>(const RaggedArgs&, const void*, const void*, int, int,
+                                     cudaStream_t);
+
+#if PTT_RAGGED_D == 64  // the host entries, in one object
+// the other widths' kernels are built in their own objects
+extern template int run_width<128>(const RaggedArgs&, const void*, const void*, int, int,
+                                   cudaStream_t);
+extern template int run_width<192>(const RaggedArgs&, const void*, const void*, int, int,
+                                   cudaStream_t);
+extern template int run_width<256>(const RaggedArgs&, const void*, const void*, int, int,
+                                   cudaStream_t);
+
 // The route's tiles and split count (ptt_ragged_plan): folded rows a block,
 // keys a tile, and the splits of a row's key tiles. Measured on an H100 SXM
 // (decode rows of 640 to 8192 keys, 4 to 256 blocks): a split pays only
@@ -595,12 +634,12 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
   if (splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = D > 64;
-  if (dtype == ptt_flash::kBF16)
-    return wide ? launch_pool<bf16, 128>(a, k_pool, v_pool, pool_code, dtype, stream)
-                : launch_pool<bf16, 64>(a, k_pool, v_pool, pool_code, dtype, stream);
-  return wide ? launch_pool<f16, 128>(a, k_pool, v_pool, pool_code, dtype, stream)
-              : launch_pool<f16, 64>(a, k_pool, v_pool, pool_code, dtype, stream);
+  // D_pad: the narrowest width of 64, 128, 192, 256 that holds D
+  if (D <= 64) return run_width<64>(a, k_pool, v_pool, pool_code, dtype, stream);
+  if (D <= 128) return run_width<128>(a, k_pool, v_pool, pool_code, dtype, stream);
+  if (D <= 192) return run_width<192>(a, k_pool, v_pool, pool_code, dtype, stream);
+  return run_width<256>(a, k_pool, v_pool, pool_code, dtype, stream);
 }
+#endif
 
 }  // namespace ptt_ragged_hopper

@@ -77,13 +77,10 @@ namespace {
 
 constexpr int kCacheWords = 8;  // 16-byte words of a row a lane holds
 
-// the forward's held row: a persistent grid of kFwdWarps-warp blocks (small
-// blocks, so the registers of 168 a thread at bf16 H 2048 still admit three
-// blocks an SM), warp gw walking rows gw, gw + TW, ... (TW the grid's warps),
-// NW words a lane (word j * 32 + lane in buf[j]), the lane's weights in
-// registers, two row buffers; the sum of squares one partial a word, so the
-// words' chains run side by side
-constexpr int kFwdWarps = 4;
+// the forward's held row (norm_common.cuh held_rows: small blocks, so the
+// registers of 168 a thread at bf16 H 2048 still admit three blocks an SM),
+// the lane's weights in registers; the sum of squares one partial a word, so
+// the words' chains run side by side
 template <typename T, int NW>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 rms_fwd_held(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
@@ -91,18 +88,11 @@ rms_fwd_held(const T* __restrict__ x, const float* __restrict__ w, T* __restrict
   constexpr int N = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
   const int nw = H / N;
-  const long long tw = static_cast<long long>(gridDim.x) * kFwdWarps;
   float wv[NW][N];
 #pragma unroll
   for (int j = 0; j < NW; ++j)
     if (j * 32 + lane < nw) load_w<N>(w + (j * 32 + lane) * N, wv[j]);
-  auto load = [&](uint4 (&buf)[NW], long long row) {
-    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-      if (j * 32 + lane < nw) buf[j] = __ldg(xr + j * 32 + lane);
-  };
-  auto work = [&](const uint4 (&buf)[NW], long long row) {
+  held_rows<T, NW>(x, rows, H, [&](const uint4 (&buf)[NW], long long row) {
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < NW; ++j)
@@ -125,18 +115,7 @@ rms_fwd_held(const T* __restrict__ x, const float* __restrict__ w, T* __restrict
         yr[j * 32 + lane] = pack_word<T>(f);
       }
     if (lane == 0) rstd_out[row] = rstd;
-  };
-  uint4 a[NW], b[NW];
-  long long row = blockIdx.x * static_cast<long long>(kFwdWarps) + threadIdx.x / 32;
-  if (row < rows) load(a, row);
-  for (; row < rows; row += 2 * tw) {
-    const long long next = row + tw;
-    if (next < rows) load(b, next);
-    work(a, row);
-    if (next >= rows) break;
-    if (next + tw < rows) load(a, next + tw);
-    work(b, next);
-  }
+  });
 }
 
 template <typename T>

@@ -3,7 +3,8 @@ library with a plain C interface, loaded with ``ctypes``.
 
 The ``*.cu`` sources under ``paddle_tpu_torch/csrc/`` are compiled for
 ``sm_90a``, one ``nvcc -c`` per source (the flash sources once per head-dim
-family member and kernel), all started together, and linked by one
+family member and kernel, the 16-bit ragged kernel once per width), all
+started together, and linked by one
 ``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
 hash covers the sources, the headers and the flags, so a checkout builds at
@@ -53,6 +54,9 @@ FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
 # flash_dkv_tf32_hopper.cu): one object each per width; D_pad 32 and 96 run
 # them with zero columns, 192 and 256 the FP32-pipe kernels
 FLASH_TF32_D_PADS = (64, 128)
+# the 16-bit ragged kernel (ragged_paged_attention_hopper.cu): one object per
+# width (-DPTT_RAGGED_D=<width>; the object of 64 holds the host entries)
+RAGGED_HOPPER_D_PADS = (64, 128, 192, 256)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -78,7 +82,8 @@ def _nvcc() -> str:
 def _units():
     """(source, object stem, extra flags): one per source, and one per
     head-dim family member (and backward kernel) for the flash sources, one
-    per redesigned width for the wgmma flash sources."""
+    per redesigned width for the wgmma flash sources and the 16-bit ragged
+    kernel."""
     for src in sorted(CSRC.glob("*.cu")):
         if src.name == "flash_attention_fwd.cu":
             for d in FLASH_D_PADS:
@@ -94,6 +99,9 @@ def _units():
                     }.get(src.name, FLASH_HOPPER_D_PADS)
             for d in pads:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
+        elif src.name == "ragged_paged_attention_hopper.cu":
+            for d in RAGGED_HOPPER_D_PADS:
+                yield src, f"{src.stem}.d{d}", [f"-DPTT_RAGGED_D={d}"]
         elif src.name == "flash_attention_bwd.cu":
             for d in FLASH_D_PADS:
                 for part, flag in (("dq", 1), ("dkv", 0)):
@@ -109,7 +117,7 @@ def _digest(extra: str = "") -> str:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
-            + FLASH_TF32_D_PADS)
+            + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS)
     h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]
@@ -261,6 +269,8 @@ def load_library() -> ctypes.CDLL:
         "ptt_flash_plan": [ci] * 4 + [ctypes.POINTER(ci)],
         # x, w, b (or null), y, mean, rstd, rows, H, eps, dtype, stream
         "ptt_layer_norm_fwd": [vp] * 6 + [ll, ci, cf, ci, vp],
+        # rows, H, dtype, aligned, out[2]
+        "ptt_layer_norm_fwd_plan": [ll, ci, ci, ci, ctypes.POINTER(ci)],
         # x, w, mean, rstd, dy, dx (or null), sums (or null), part, sync,
         # rows, H, need_dw, need_db, part_rows, dtype, stream
         "ptt_layer_norm_bwd": [vp] * 9 + [ll] + [ci] * 5 + [vp],
@@ -275,9 +285,6 @@ def load_library() -> ctypes.CDLL:
         "ptt_rms_norm_bwd": [vp] * 8 + [ll, ci, ci, ci, vp],
         # rows, H, dtype, aligned, out[2]
         "ptt_rms_norm_bwd_plan": [ll, ci, ci, ci, ctypes.POINTER(ci)],
-        # x, w, mean, rstd, dy, dx, dg, db, part, ticket, rows, H, blocks,
-        # dtype, stream
-        "ptt_kps_layer_norm_bwd": [vp] * 10 + [ll, ci, ci, ci, vp],
         # x, cos, sin, y, B, S, H, D, strides (b, s, h), neg_sin, dtype,
         # stream
         "ptt_rope": [vp] * 4 + [ci] * 4 + [ll] * 3 + [ci, ci, vp],

@@ -6,11 +6,14 @@ backward leaves to XLA).
 
 The TPU kernels are replaced by CUDA kernels written by hand for Hopper,
 ``paddle_tpu_torch/csrc/layer_norm.cu``; its source note states the design.
-The forward (one warp per row, 16-byte loads where the width allows, fp32
-sums by warp shuffles, any row count and any width) computes the statistics
-and the affine in fp32 and rounds once to x's dtype, as the Pallas kernel
-does (the composed op rounds before its affine; at fp32 the two agree). It
-saves ``mean`` and ``rstd`` as fp32 ``[rows]``. The backward forms dx and,
+The forward computes the statistics and the affine in fp32 and rounds once
+to x's dtype, as the Pallas kernel does (the composed op rounds before its
+affine; at fp32 the two agree). It saves ``mean`` and ``rstd`` as fp32
+``[rows]``. Where the row is whole aligned 16-byte words of at most 8 a
+lane (bf16 / fp16 H <= 2048, fp32 H <= 1024) it is a persistent grid whose
+warps hold the row in registers, two row buffers each, with the weight and
+bias in registers or the block's shared memory; other rows take one warp a
+row, any width (``fwd_plan`` says which). The backward forms dx and,
 in the same launch, the fp32 cross-row sums dw = sum(dy * xhat) and db =
 sum(dy) (a cooperative launch; each block's partials in registers or a
 column-tiled workspace row, folded over the grid in a fixed order, so two
@@ -21,9 +24,12 @@ dtypes.
 
 Wrappers: ``layer_norm_fwd`` (y, mean, rstd) and ``layer_norm_bwd`` (dx, dw,
 db), each counting its kernel launches in ``.LAUNCHES``
-(``layer_norm_bwd.ROUTES`` counts them by route); ``bwd_plan`` reports the
-backward's route and grid. A CUDA tensor goes to the kernel or the call
-raises; a CPU tensor goes to the plain PyTorch version
+(``layer_norm_bwd.ROUTES`` counts them by route); ``fwd_plan`` and
+``bwd_plan`` report the forward's and the backward's route and grid. The
+tile primitives' LayerNorm runs the same kernels through ``launch_fwd`` and
+``launch_bwd``, which count nothing (each caller counts its own launches).
+A CUDA tensor goes to the kernel or the call raises; a CPU tensor goes to
+the plain PyTorch version
 (``layer_norm_fwd_plain``, ``layer_norm_bwd_plain``). ``layer_norm`` is the
 differentiable public function over a ``torch.autograd.Function``.
 """
@@ -36,8 +42,9 @@ import torch
 
 from ._build import check_rows, is_cpu, launch as _launch
 
-__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd", "bwd_plan",
-           "layer_norm_fwd_plain", "layer_norm_bwd_plain", "launch_fwd"]
+__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd", "fwd_plan",
+           "bwd_plan", "layer_norm_fwd_plain", "layer_norm_bwd_plain",
+           "launch_fwd", "launch_bwd"]
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held to on the card)
@@ -113,15 +120,37 @@ def layer_norm_fwd(x2, weight, bias, epsilon):
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(device_index, rows, H, code, aligned, need_dw, need_db):
+def _plan(device_index, rows, H, code, aligned, need_dw, need_db,
+          forward=False):
     import ctypes
     from ._build import check, load_library
     out = (ctypes.c_int * 2)()
+    lib = load_library()
     with torch.cuda.device(device_index):
-        check(load_library().ptt_layer_norm_bwd_plan(
-            rows, H, code, int(aligned), int(need_dw), int(need_db), out),
-            f"layer_norm backward plan (rows={rows} H={H})")
-    return dict(path="held" if out[0] else "tiled", blocks=out[1])
+        if forward:
+            status = lib.ptt_layer_norm_fwd_plan(rows, H, code, int(aligned),
+                                                 out)
+        else:
+            status = lib.ptt_layer_norm_bwd_plan(rows, H, code, int(aligned),
+                                                 int(need_dw), int(need_db),
+                                                 out)
+        check(status, f"layer_norm {'forward' if forward else 'backward'} "
+              f"plan (rows={rows} H={H})")
+    other = "walk" if forward else "tiled"
+    return dict(path="held" if out[0] else other, blocks=out[1])
+
+
+def fwd_plan(x2, weight, bias=None, y=None) -> dict:
+    """The forward's route for these CUDA tensors (no data is read): ``path``
+    "held" (a persistent grid, the row in registers) or "walk" (one warp a
+    row, the row read again), and ``blocks``, the grid."""
+    code = check_rows(x2, "layer_norm", weight)
+    rows, H = x2.shape
+    w = _affine(weight, H, "weight")
+    b = None if bias is None else _affine(bias, H, "bias")
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x2, w, b, y) if t is not None)
+    return _plan(x2.device.index, rows, H, code, aligned, False, False, True)
 
 
 def bwd_plan(x2, weight, dy=None, dx=None, need_dw=True,
@@ -142,14 +171,11 @@ def bwd_plan(x2, weight, dy=None, dx=None, need_dw=True,
                  bool(need_db))
 
 
-def layer_norm_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
-                   need_db=True):
-    """(dx [rows, H] in x2's dtype, dw fp32 [H], db fp32 [H]) from the
-    forward's statistics, in one launch; None for what is not needed
-    (``need_db`` False for a bias-less call)."""
-    if is_cpu(x2, "layer_norm"):
-        return layer_norm_bwd_plain(x2, weight, mean, rstd, dy, need_db,
-                                    need_dx, need_dw)
+def launch_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
+               need_db=True):
+    """The backward kernel on a CUDA ``x2``: (dx, dw, db, route), None for
+    what is not needed; uncounted (each caller counts its own launches; the
+    tile primitives' LayerNorm runs it too)."""
     code = check_rows(x2, "layer_norm", weight, mean, rstd, dy)
     if dy.shape != x2.shape or dy.dtype != x2.dtype:
         raise ValueError(f"layer_norm backward: dy {dy.dtype} "
@@ -159,8 +185,6 @@ def layer_norm_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
         if t.dtype != torch.float32 or t.numel() != x2.shape[0]:
             raise ValueError(f"layer_norm backward: {name} {t.dtype} "
                              f"{tuple(t.shape)} is not fp32 [{x2.shape[0]}]")
-    if not (need_dx or need_dw or need_db):
-        return None, None, None
     from ._build import load_library, zeroed_counters
     rows, H = x2.shape
     w = _affine(weight, H, "weight")
@@ -181,10 +205,25 @@ def layer_norm_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
             w.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
             ptr(dx), ptr(sums), ptr(part), ptr(sync), rows, H, int(need_dw),
             int(need_db), plan["blocks"] if nsum else 0, code)
-    layer_norm_bwd.LAUNCHES += 1
-    layer_norm_bwd.ROUTES[plan["path"]] += 1
     dw = sums[:H] if need_dw else None
     db = sums[nsum * H - H:] if need_db else None
+    return dx, dw, db, plan["path"]
+
+
+def layer_norm_bwd(x2, weight, mean, rstd, dy, need_dx=True, need_dw=True,
+                   need_db=True):
+    """(dx [rows, H] in x2's dtype, dw fp32 [H], db fp32 [H]) from the
+    forward's statistics, in one launch; None for what is not needed
+    (``need_db`` False for a bias-less call)."""
+    if is_cpu(x2, "layer_norm"):
+        return layer_norm_bwd_plain(x2, weight, mean, rstd, dy, need_db,
+                                    need_dx, need_dw)
+    if not (need_dx or need_dw or need_db):
+        return None, None, None
+    dx, dw, db, path = launch_bwd(x2, weight, mean, rstd, dy, need_dx,
+                                  need_dw, need_db)
+    layer_norm_bwd.LAUNCHES += 1
+    layer_norm_bwd.ROUTES[path] += 1
     return dx, dw, db
 
 

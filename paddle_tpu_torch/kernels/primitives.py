@@ -22,8 +22,9 @@ or the call raises:
   outside the set, a captured tensor, or an operand outside float32 /
   bfloat16 / float16 raises ``NotImplementedError`` naming it.
 - ``layer_norm`` runs ``csrc/layer_norm.cu``'s forward (the same arithmetic
-  as ``_ln_fwd_kernel``) and ``csrc/kps_layer_norm.cu``'s backward, which
-  sums dg and db inside the kernel, deterministically.
+  as ``_ln_fwd_kernel``) and its backward with dw and db (the same
+  arithmetic as ``_ln_bwd_kernel``, dg and db summed inside the one launch,
+  deterministically, at any width), the kernels of ``kernels/layer_norm.py``.
 
 On a CPU tensor each takes its plain PyTorch version (``*_plain`` below):
 the same arithmetic, fp32 throughout with one rounding. Each kernel wrapper
@@ -44,15 +45,10 @@ from typing import Callable
 import torch
 
 from ..enforce import InvalidArgumentError
-from ._build import check_rows, is_cpu, launch as _launch
+from ._build import is_cpu, launch as _launch
 
 __all__ = ["elementwise", "row_reduce", "online_softmax_update",
            "layer_norm"]
-
-# the widest row the backward kernel sums in shared memory (2 H fp32 of
-# the block's 227 KB)
-LN_BWD_MAX_H = 28672
-
 
 def _as2d(x):
     """[*, C] view -> ([R, C], the original shape); a 0-d x -> [1, 1]."""
@@ -234,37 +230,14 @@ def ln_fwd(x2, weight, bias, eps):
 
 
 def ln_bwd(x2, weight, mean, rstd, dy):
-    """(dx, dg fp32 [H], db fp32 [H]): ``csrc/kps_layer_norm.cu`` on a CUDA
-    tensor, one launch, dg and db bit for bit the same across calls."""
+    """(dx, dg fp32 [H], db fp32 [H]): ``csrc/layer_norm.cu``'s backward on a
+    CUDA tensor (``layer_norm.launch_bwd`` with dw and db), one launch, dg
+    and db bit for bit the same across calls, any width."""
     if is_cpu(x2, "layer_norm"):
         return ln_bwd_plain(x2, weight, mean, rstd, dy)
-    code = check_rows(x2, "layer_norm", weight, mean, rstd, dy)
-    if dy.shape != x2.shape or dy.dtype != x2.dtype:
-        raise ValueError(f"layer_norm backward: dy {dy.dtype} "
-                         f"{tuple(dy.shape)} does not fit x {x2.dtype} "
-                         f"{tuple(x2.shape)}")
-    rows, H = x2.shape
-    if H > LN_BWD_MAX_H:
-        raise ValueError(f"layer_norm backward: H = {H} is wider than the "
-                         f"{LN_BWD_MAX_H} columns whose dg / db sums fit "
-                         f"in a block's shared memory")
-    from ._build import load_library, zeroed_counters
-    dev = x2.device
-    w = weight.reshape(H).float().contiguous()
-    mean, rstd, dy = mean.contiguous(), rstd.contiguous(), dy.contiguous()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(sms, -(-rows // 16)))
-    dx = torch.empty_like(x2)
-    dg = torch.empty(H, dtype=torch.float32, device=dev)
-    db = torch.empty(H, dtype=torch.float32, device=dev)
-    part = torch.empty(blocks, 2, H, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        ticket = zeroed_counters("kps_layer_norm_bwd", dev)
-    _launch(f"layer_norm primitive backward launch (rows={rows} H={H} "
-            f"{x2.dtype})", load_library().ptt_kps_layer_norm_bwd, dev,
-            x2.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-            part.data_ptr(), ticket.data_ptr(), rows, H, blocks, code)
+    from .layer_norm import launch_bwd
+    dx, dg, db, _ = launch_bwd(x2.contiguous(), weight, mean, rstd,
+                               dy.contiguous())
     ln_bwd.LAUNCHES += 1
     return dx, dg, db
 

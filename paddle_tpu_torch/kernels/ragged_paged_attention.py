@@ -9,9 +9,11 @@ for ``sm_90a`` by ``kernels/_build.py`` at first use), on three routes that
 * ``"wgmma+tma"`` (``paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu``):
   bf16 / fp16 queries over pools of their dtype or int8 / fp8 e4m3 pools
   (fp32 per-(kv head, page) absmax scales, ``quantization/kv_cache.py``),
-  a page size that is a multiple of 8, D <= 128. A block owns 64 folded
-  (chunk, group) query rows of one (row, kv head); S = Q K^T and O += P V
-  run on wgmma with the scores and the output in registers; the pages come
+  a page size that is a multiple of 8, D <= 256 a whole number of 16-byte
+  words of the pool type (read into D_pad 64, 128, 192 or 256). A block
+  owns 64 folded (chunk, group) query rows of one (row, kv head); S = Q K^T
+  and O += P V run on wgmma with the scores and the output in registers
+  (128 fp32 a consumer thread at D_pad 256, one block an SM); the pages come
   through a two-stage TMA ring, the block reading ``block_tables[r, j]``
   itself (a quantized page is dequantized as ``v * scale / qmax`` by the
   consumer into the 16-bit tile wgmma reads, so a decode row reads half the
@@ -28,8 +30,8 @@ for ``sm_90a`` by ``kernels/_build.py`` at first use), on three routes that
   block, ring and splits with key tiles of 32, the landed pages split (and
   V transposed) in shared memory by the producer warpgroup;
 * ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): every
-  other call up to D 256 (fp32 queries over int8 / fp8 pools, page sizes
-  that are not a multiple of 8, D above 128 or not a whole number of
+  other call up to D 256 (fp32 queries over int8 / fp8 pools or at D above
+  128, page sizes that are not a multiple of 8, D not a whole number of
   16-byte words, pools that are not 16-byte aligned): one block per (row,
   kv head, 16 folded rows) walks the row's pages in fp32 shared tiles on
   the CUDA cores.
@@ -63,9 +65,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 _DESIGNS = {0: "fp32", 2: "wgmma+tma", 3: "wgmma-3xtf32"}
-# the widest head the kernels take, as the reference's (unbounded) kernel
-# takes any: a wgmma kernel for D in (128, 256] and above is ROADMAP Queue 2
-# K13
+# the widest head the kernels take (the 16-bit wgmma kernel's D_pad 256);
+# the reference's kernel takes any: D above 256 is ROADMAP Queue 2 K15
 MAX_HEAD_DIM = 256
 
 
@@ -159,8 +160,8 @@ def _check_cuda(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
 def _check_head_dim(D):
     if D > MAX_HEAD_DIM:
         raise ValueError(f"ragged_paged_attention: head_dim {D} > "
-                         f"{MAX_HEAD_DIM} has no kernel (ROADMAP Queue 2 K13: "
-                         f"the wgmma ragged kernel at D 160-256 and above)")
+                         f"{MAX_HEAD_DIM} has no kernel (ROADMAP Queue 2 "
+                         f"K15: head dims above 256)")
 
 
 def kernel_plan(q, k_pool, block_tables, v_pool=None) -> dict:

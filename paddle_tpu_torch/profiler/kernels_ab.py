@@ -12,12 +12,14 @@ decode batch (8 rows, 16 heads of 128, pages of 32, kv lengths 100-640),
 the paged decode kernel on that batch in fp32 too, the ragged kernel on
 phase 3's mixed batch (4 rows, C 128), on the decode batch over int8
 pools, on both batches with fp32 queries and pools (phase 3's fp32 (a) and
-(b)) and on the decode batch at D 256 in bf16, the flash dK/dV kernel at
+(b)), on both batches at D 256 in bf16 and on the decode batch at D 256
+over int8 and fp8 pools, the flash dK/dV kernel at
 phase 25's call (B 8, S 1024, H 16, causal) at D 256 and D 160 in bf16 and
 D 256 in fp16, the fp32 flash forward, dQ and dK/dV at phase 6 (a)'s call
 (B 8, S 1024, H 16, D 128, causal),
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
-LayerNorm forward on x [5120, 768] and its whole backward (dx, dw and db
+LayerNorm forward on x [5120, 768] and [8192, 2048] in bf16, fp16 and fp32
+(fp32 weight and bias) and its whole backward (dx, dw and db
 through the autograd Function, fp32 weight and bias: whatever kernels and
 composed sums a checkout runs) on x [5120, 768] and [41472, 768] (the
 packed BERT cell's rows at 16 and 128 sequences), the RMSNorm forward and
@@ -99,14 +101,25 @@ q32, k32, v32 = (t.float() for t in (q, k_pool, v_pool))
 res["ragged_decode_fp32"] = ms(lambda: RPA.ragged_paged_attention(
     q32, k32, v32, tables, ones, kv, 1 / math.sqrt(D)))
 del q32, k32, v32
-# D 256 in bf16 (the CUDA-core route in both checkouts' plans, the parent
-# refusing it: recorded as None there)
+# D 256 in bf16 (a checkout that refuses it records None), and over int8
+# and fp8 e4m3 pools with per-page absmax scales
 q256, k256, v256 = rnd(8, 1, H, 256), rnd(H, NB, bs, 256), rnd(H, NB, bs, 256)
 try:
     res["ragged_decode_d256"] = ms(lambda: RPA.ragged_paged_attention(
         q256, k256, v256, tables, ones, kv, 1 / 16))
 except (RuntimeError, ValueError):
     res["ragged_decode_d256"] = None
+ks, vs = (x.float().abs().amax((2, 3)) for x in (k256, v256))
+for pool, qmax, tag in ((torch.int8, 127.0, "int8"),
+                        (torch.float8_e4m3fn, 448.0, "fp8")):
+    kq, vq = (x.float() / sc[..., None, None] * qmax
+              for x, sc in ((k256, ks), (v256, vs)))
+    if pool == torch.int8:
+        kq, vq = torch.round(kq), torch.round(vq)
+    kq, vq = kq.to(pool), vq.to(pool)
+    res[f"ragged_decode_d256_{tag}"] = ms(lambda: RPA.ragged_paged_attention(
+        q256, kq, vq, tables, ones, kv, 1 / 16, k_scales=ks, v_scales=vs))
+    del kq, vq
 del q256, k256, v256
 res["paged_decode"] = ms(lambda: PA.paged_decode_attention(
     q[:, 0], k_pool, v_pool, tables, kv, 1 / math.sqrt(D)))
@@ -157,6 +170,13 @@ qm32, k32, v32 = (t.float() for t in (qm, k_pool, v_pool))
 res["ragged_mixed_fp32"] = ms(lambda: RPA.ragged_paged_attention(
     qm32, k32, v32, mt, ql_m, kv_m, 1 / math.sqrt(D)))
 del qm32, k32, v32
+qm256, k256, v256 = rnd(4, 128, H, 256), rnd(H, NB, bs, 256), rnd(H, NB, bs, 256)
+try:
+    res["ragged_mixed_d256"] = ms(lambda: RPA.ragged_paged_attention(
+        qm256, k256, v256, mt, ql_m, kv_m, 1 / 16))
+except (RuntimeError, ValueError):
+    res["ragged_mixed_d256"] = None
+del qm256, k256, v256
 p, g = rnd(24, 2048, 8192, scale=0.02), rnd(24, 2048, 8192, scale=1e-3)
 slot = {"moment1": rnd(24, 2048, 8192, scale=1e-3),
         "moment2": rnd(24, 2048, 8192, scale=1e-3).square()}
@@ -194,6 +214,19 @@ res["rms_norm_fwd_fp16"] = ms(lambda: RN.rms_norm_fwd(x16, w, 1e-5))
 res["rms_norm_bwd_dx_only_fp16"] = ms(lambda: RN.rms_norm_bwd(
     x16, w, rstd, dy16, need_dw=False))
 del xr, wr, yr, x16, dy16
+# the LayerNorm forward at the primitives' flagship call and at BERT's rows,
+# in the three dtypes, with a bias
+for rows, Hn in ((8192, 2048), (5120, 768)):
+    w = torch.randn(Hn, generator=gen, device=dev)
+    b = torch.randn(Hn, generator=gen, device=dev)
+    for dt, tag in ((bf, ""), (torch.float16, "_fp16"),
+                    (torch.float32, "_fp32")):
+        if rows == 5120 and dt == bf:
+            continue     # layer_norm_fwd above
+        x = rnd(rows, Hn, scale=3.0).to(dt)
+        res[f"layer_norm_fwd_{rows}x{Hn}{tag}"] = ms(
+            lambda: LN.layer_norm_fwd(x, w, b, 1e-12))
+        del x
 x = rnd(8, 1024, 16, 128)
 ang = torch.rand(1024, 64, generator=gen, device=dev)
 res["rope"] = ms(lambda: RP.rope(x, ang.cos(), ang.sin()))

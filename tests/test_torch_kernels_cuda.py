@@ -96,20 +96,24 @@ def test_kernel_stops_at_the_table_width(card, dtype):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("bad", ["head_dim_256", "head_dim_not_vector",
-                                 "misaligned_pool"])
+@pytest.mark.parametrize("bad", ["split_on_cuda_core_route",
+                                 "page_above_shared_memory",
+                                 "splits_above_16"])
 def test_kernel_c_entry_refuses_shapes_it_does_not_take(card, bad):
-    """Shapes the kernel's C entry refuses before launching: the wrapper
-    raises and counts no launch."""
-    D = {"head_dim_256": 256, "head_dim_not_vector": 12}.get(bad, 16)
-    args, scale = _case(card, torch.bfloat16, 4, 4, D, 8)
-    if bad == "misaligned_pool":
-        shifted = torch.empty(args[1].numel() + 1, dtype=torch.bfloat16,
-                              device=card)[1:].view(args[1].shape)
-        args[1] = shifted.copy_(args[1])
+    """Calls the kernel's C entry refuses before launching: the wrapper
+    raises and counts no launch. (Every head dim up to 256, odd D and
+    misaligned pools have a route: test_torch_ragged_hopper_cuda.py.) The
+    CUDA-core route (here D 12, not whole 16-byte words) takes no split;
+    its fp32 page of 128 keys at D 256 does not fit a block's shared
+    memory; no route takes more than 16 splits."""
+    dtype, D, bs, splits = {
+        "split_on_cuda_core_route": (torch.bfloat16, 12, 8, 2),
+        "page_above_shared_memory": (torch.float32, 256, 128, None),
+        "splits_above_16": (torch.bfloat16, 16, 8, 17)}[bad]
+    args, scale = _case(card, dtype, 4, 4, D, bs)
     before = RPA.ragged_paged_attention.LAUNCHES
     with pytest.raises(RuntimeError, match="invalid argument"):
-        RPA.ragged_paged_attention(*args, scale)
+        RPA.ragged_paged_attention(*args, scale, splits=splits)
     assert RPA.ragged_paged_attention.LAUNCHES == before
 
 

@@ -105,6 +105,31 @@ def test_grads_match_jax_kernel(lead, h, with_bias):
                                        atol=2e-5)
 
 
+# the card's held-row forward (csrc/layer_norm.cu ln_fwd_held) takes rows of
+# whole 16-byte words, at most 8 a lane: bf16 H 2048 is held and 2056 is
+# not; fp32 H 1024 is held and 1028 is not. Row counts that are no multiple
+# of the persistent grid's warps.
+HELD_EDGES = [((37,), 2048, "bf16"), ((13,), 2056, "bf16"),
+              ((3, 13), 1024, "fp32"), ((13,), 1028, "fp32")]
+
+
+@pytest.mark.parametrize("lead,h,dt", HELD_EDGES,
+                         ids=[f"{dt}-{h}" for _, h, dt in HELD_EDGES])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_forward_matches_jax_kernel_at_held_row_edges(lead, h, dt,
+                                                      with_bias):
+    x, w, b = _inputs(lead, h, with_bias, seed=7)
+    tdt, jdt = ((torch.float32, jnp.float32) if dt == "fp32"
+                else (torch.bfloat16, jnp.bfloat16))
+    y = TLN.layer_norm(_t(x, tdt), _t(w), _t(b), 1e-5)
+    ref = JLN.layer_norm(_j(x, jdt), _j(w), _j(b), 1e-5)
+    assert y.dtype == tdt and y.shape == x.shape
+    tol = 2e-6 if dt == "fp32" else 0.03
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
 def test_no_bias_backward_returns_no_db_and_plain_parts_agree():
     x, w, _ = _inputs((8,), 128, False, seed=4)
     dy = np.random.RandomState(5).randn(8, 128).astype(np.float32)

@@ -1,5 +1,16 @@
-"""The LayerNorm backward and the RMSNorm forward as redesigned for Hopper,
-on the card, each against its plain PyTorch version on the same inputs.
+"""The LayerNorm forward and backward and the RMSNorm forward as redesigned
+for Hopper, on the card, each against its plain PyTorch version on the same
+inputs.
+
+* The LayerNorm forward (``csrc/layer_norm.cu``): the held row's persistent
+  grid (the weight and bias in registers or in shared memory) and the walk,
+  on every route ``layer_norm.fwd_plan`` can take, with and without a bias,
+  in the three dtypes, at the timed shapes ([8192, 2048] and [5120, 768])
+  and the held row's width edges (16-bit H 1536 / 1544 and 2048 / 2056, fp32
+  H 1024 / 1028) at row counts that are no multiple of the grid's warps.
+  The held row sums in the walk's order: against the walk kernel on the
+  same values (a weight off a 16-byte boundary sends the call to the walk
+  with x's 16-byte loads) its mean and rstd are held bit for bit.
 
 * The LayerNorm backward with dw and db summed in the kernel
   (``csrc/layer_norm.cu``, one cooperative launch): every route
@@ -175,6 +186,67 @@ def test_ln_backward_unaligned_rows(card):
     _, w, b, dy = _rows(card, 65, H, torch.float32)
     plan, _ = _ln_check(card, x, w, b, dy)
     assert plan["path"] == "tiled"
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm forward
+# ---------------------------------------------------------------------------
+LN_FWD_SHAPES = [(8192, 2048), (5120, 768), (1, 2048), (13, 2056),
+                 (37, 1536), (37, 1544), (37, 1024), (13, 1028), (5, 100),
+                 (1, 8)]
+
+
+def _misaligned(t):
+    """A copy of the 1-D fp32 ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[1:t.numel() + 1]
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("rows,H", LN_FWD_SHAPES,
+                         ids=[f"{r}x{h}" for r, h in LN_FWD_SHAPES])
+def test_ln_forward_held_and_walk_match_plain(card, rows, H, dtype, bias):
+    x, w, b, _ = _rows(card, rows, H, dtype)
+    b = b if bias else None
+    plan = LN.fwd_plan(x, w, b)
+    assert plan["path"] == ("held" if _held(H, dtype) else "walk"), plan
+    assert 1 <= plan["blocks"] <= max(1, rows)
+    n = LN.layer_norm_fwd.LAUNCHES
+    y, mean, rstd = LN.layer_norm_fwd(x, w, b, 1e-5)
+    again = LN.layer_norm_fwd(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert LN.layer_norm_fwd.LAUNCHES == n + 2
+    assert all(torch.equal(u, v) for u, v in zip((y, mean, rstd), again))
+    y_p, mean_p, rstd_p = LN.layer_norm_fwd_plain(x, w, b, 1e-5)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert _rel(y, y_p) <= TOL[dtype], _rel(y, y_p)
+    scale = max(mean_p.abs().max().item(), 1.0)
+    assert (mean - mean_p).abs().max().item() <= 1e-5 * scale
+    assert ((rstd - rstd_p).abs() / rstd_p).max().item() <= 1e-5
+    if plan["path"] == "held":
+        # the walk kernel on the same values, with x's 16-byte loads
+        w_off = _misaligned(w)
+        assert LN.fwd_plan(x, w_off, b)["path"] == "walk"
+        y_w, mean_w, rstd_w = LN.layer_norm_fwd(x, w_off, b, 1e-5)
+        assert torch.equal(mean, mean_w) and torch.equal(rstd, rstd_w)
+        assert _rel(y, y_w) <= TOL[dtype]
+
+
+def test_ln_forward_unaligned_rows_walk(card):
+    H = 2048
+    big = torch.randn(37 * H + 3, device=card).to(torch.bfloat16)
+    x = big[3:].view(37, H)
+    assert x.data_ptr() % 16
+    _, w, b, _ = _rows(card, 37, H, torch.float32)
+    assert LN.fwd_plan(x, w, b)["path"] == "walk"
+    y, _, _ = LN.layer_norm_fwd(x, w, b, 1e-6)
+    y_p, _, _ = LN.layer_norm_fwd_plain(x, w, b, 1e-6)
+    assert _rel(y, y_p) <= TOL[torch.bfloat16]
 
 
 # ---------------------------------------------------------------------------

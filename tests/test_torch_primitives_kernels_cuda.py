@@ -2,7 +2,8 @@
 .primitives``): ``elementwise`` and ``row_reduce`` compiled from the caller's
 ``fn`` by ``kernels/_codegen.py``, and the LayerNorm forward and backward
 with dg / db summed inside the kernel, each against its plain PyTorch
-version on the same inputs; their launch counts; what they refuse.
+version on the same inputs (the LayerNorm backward also at 28680
+columns); their launch counts; what they refuse.
 
 Tolerances, max-abs error over max-abs plain: fp32 1e-5 (the same fp32 ops,
 transcendental functions from the same CUDA math library, sums in another
@@ -204,10 +205,18 @@ def test_layer_norm_autograd_and_refusals(card):
     rc = torch.autograd.grad(P.layer_norm(*cpu), cpu, dy.cpu())
     for got, ref in zip((gx, gg, gb), rc):
         assert _rel(got.cpu(), ref) <= 1e-2
-    wide = torch.zeros(2, P.LN_BWD_MAX_H + 8, device=card)
-    one = torch.ones(wide.shape[1], device=card)
-    _, mu, rstd = P.ln_fwd(wide, one, one, 1e-5)
+    # a row of 28672 + 8 columns (wider than the shared-memory partial of
+    # the primitives' first backward took): the LayerNorm kernel's
+    # column-tiled partial, held to the plain version
+    H = 28672 + 8
+    wide = _randn(card, 2, H, seed=4, scale=3.0) + 1
+    gw, bw = _randn(card, H, seed=5) * 0.5 + 1, _randn(card, H, seed=6) * 0.1
+    dyw = _randn(card, 2, H, seed=7)
+    _, mu, rstd = P.ln_fwd(wide, gw, bw, 1e-5)
     before = P.ln_bwd.LAUNCHES
-    with pytest.raises(ValueError, match="wider than"):
-        P.ln_bwd(wide, one, mu, rstd, wide)
-    assert P.ln_bwd.LAUNCHES == before
+    dx, dg, db = P.ln_bwd(wide, gw, mu, rstd, dyw)
+    torch.cuda.synchronize()
+    assert P.ln_bwd.LAUNCHES == before + 1
+    dx_p, dg_p, db_p = P.ln_bwd_plain(wide, gw, mu, rstd, dyw)
+    assert _rel(dx, dx_p) <= TOL[torch.float32]
+    assert _rel(dg, dg_p) <= 1e-5 and _rel(db, db_p) <= 1e-5

@@ -6,12 +6,13 @@ over fp32 pools on the TF32 tensor cores, each operand split into two TF32
 halves) against their plain PyTorch version, over the shapes of the CPU
 goldens (``test_torch_ragged_tiles.py``) at D 128 and 64 (and 40 in fp32),
 bf16, fp16 and fp32, with the split count forced to 1, 2 and many (every
-count 1-16 in fp32) and left to the plan; int8 / fp8 pools on the 16-bit
-kernel; and the calls that stay on the CUDA-core kernel of
-``csrc/ragged_paged_attention.cu`` (fp32 queries over int8 pools, a page
-size not a multiple of 8, D 100, 160 and 256, a misaligned pool): each
-launches its kernel (counted under its route), none goes to the plain
-version; D above 256 raises. Tolerance: 1e-2 of the reference's max-abs
+count 1-16 in fp32, and at the 16-bit kernel's D_pad 192 and 256: D 160
+and 256, int8 / fp8 pools at D 256) and left to the plan; int8 / fp8 pools
+on the 16-bit kernel; and the calls that stay on the CUDA-core kernel of
+``csrc/ragged_paged_attention.cu`` (fp32 queries over int8 pools or at D
+160 and 256, a page size not a multiple of 8, D 100 in bf16 and 99, a
+misaligned pool): each launches its kernel (counted under its route), none
+goes to the plain version; D above 256 raises. Tolerance: 1e-2 of the reference's max-abs
 (``chip_smoke.py`` KERNEL_TOL) in 16 bits, 1e-5 in fp32; over quantized
 pools 1e-2 on the worst (row, column, head) slab's relative L2, as
 ``chip_smoke.py`` phase 12 holds them (the dequantized tile is rounded to
@@ -50,6 +51,7 @@ CASES = {
                          32, 20),
 }
 SPLITS = (1, 2, 7, None)      # None: the plan's count
+EVERY_SPLIT = tuple(range(1, 17)) + (None,)
 
 
 @pytest.fixture
@@ -99,24 +101,36 @@ def _check(out, ref, q_lens, tol, what, slabs=False):
         assert (out[row, ql:] == 0).all(), (what, row)
 
 
-@pytest.mark.parametrize("D", (128, 64))
+# (D, pool dtype or None): the 16-bit kernel's four widths (D 160 and 256
+# read into D_pad 192 and 256), and 1-byte pools at D_pad 256
+WIDTHS = ((128, None), (64, None), (160, None), (256, None),
+          (256, torch.int8), (256, torch.float8_e4m3fn))
+
+
+@pytest.mark.parametrize("D,pool", WIDTHS,
+                         ids=("D128", "D64", "D160", "D256", "D256-int8",
+                              "D256-fp8"))
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16),
                          ids=("bf16", "fp16"))
 @pytest.mark.parametrize("name", list(CASES))
-def test_wgmma_kernel_vs_plain_at_forced_splits(card, name, dtype, D):
+def test_wgmma_kernel_vs_plain_at_forced_splits(card, name, dtype, D, pool):
+    """At D_pad <= 128 the split counts 1, 2 and 7; past it every count
+    1-16; quantized pools held by the worst slab (``_check``)."""
     args, scale = _case(card, dtype, *CASES[name], D=D)
+    extra = _quantize(args, pool) if pool is not None else {}
     plan = RPA.kernel_plan(args[0], args[1], args[3])
     assert plan["design"] == "wgmma+tma" and plan["query_rows"] == 64
     assert plan["keys"] == 64 and plan["splits"] >= 1
-    ref = RPA.ragged_paged_attention_plain(*args, scale)
-    for splits in SPLITS:
+    ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
+    for splits in SPLITS if D <= 128 else EVERY_SPLIT:
         n, w = (RPA.ragged_paged_attention.LAUNCHES,
                 RPA.ragged_paged_attention.ROUTES["wgmma+tma"])
-        out = RPA.ragged_paged_attention(*args, scale, splits=splits)
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
         torch.cuda.synchronize()
         assert RPA.ragged_paged_attention.LAUNCHES == n + 1
         assert RPA.ragged_paged_attention.ROUTES["wgmma+tma"] == w + 1
-        _check(out, ref, args[4], 1e-2, f"{name} D={D} splits={splits}")
+        _check(out, ref, args[4], 1e-2, f"{name} D={D} splits={splits}",
+               slabs=pool is not None)
 
 
 def test_plan_splits_short_grids_only(card):
@@ -150,15 +164,22 @@ def _quantize(args, pool):
     return dict(k_scales=ks.contiguous(), v_scales=vs.contiguous())
 
 
-ROUTES = {  # route: (q dtype, pool, page size, design)
-    "fp32": (torch.float32, None, 16, "wgmma-3xtf32"),
-    "fp32_int8": (torch.float32, torch.int8, 16, "fp32"),
-    "fp32_bs_12": (torch.float32, None, 12, "fp32"),
-    "bs_12": (torch.bfloat16, None, 12, "fp32"),
-    "int8_bs_12": (torch.bfloat16, torch.int8, 12, "fp32"),
-    "int8": (torch.bfloat16, torch.int8, 16, "wgmma+tma"),
-    "fp8": (torch.bfloat16, torch.float8_e4m3fn, 16, "wgmma+tma"),
-    "fp8_fp16_q": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma"),
+ROUTES = {  # route: (q dtype, pool, page size, design, D)
+    "fp32": (torch.float32, None, 16, "wgmma-3xtf32", 128),
+    "fp32_int8": (torch.float32, torch.int8, 16, "fp32", 128),
+    "fp32_bs_12": (torch.float32, None, 12, "fp32", 128),
+    "bs_12": (torch.bfloat16, None, 12, "fp32", 128),
+    "int8_bs_12": (torch.bfloat16, torch.int8, 12, "fp32", 128),
+    "int8": (torch.bfloat16, torch.int8, 16, "wgmma+tma", 128),
+    "fp8": (torch.bfloat16, torch.float8_e4m3fn, 16, "wgmma+tma", 128),
+    "fp8_fp16_q": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma", 128),
+    "d256": (torch.bfloat16, None, 16, "wgmma+tma", 256),
+    "int8_d256": (torch.bfloat16, torch.int8, 16, "wgmma+tma", 256),
+    "fp8_fp16_q_d192": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma",
+                        192),
+    "bs_12_d256": (torch.bfloat16, None, 12, "fp32", 256),
+    "fp32_d256": (torch.float32, None, 16, "fp32", 256),
+    "fp32_int8_d256": (torch.float32, torch.int8, 16, "fp32", 256),
 }
 
 
@@ -168,14 +189,16 @@ ROUTES = {  # route: (q dtype, pool, page size, design)
                                   "kv-across-split-ranges"))
 def test_routes_launch_their_kernel(card, name, route):
     """Each route launches its own kernel, counted under its design, and
-    matches the plain version: int8 / fp8 pools on the wgmma kernel
-    (dequantized by the consumer into the 16-bit tile, at forced split
-    counts too); fp32 queries over fp32 pools on the TF32 kernel; fp32
-    queries over int8 pools and a page size that is not a multiple of 8 on
-    the CUDA-core kernel, which refuses a split count above 1."""
-    dtype, pool, bs, design = ROUTES[route]
+    matches the plain version: 16-bit queries over 16-bit, int8 / fp8 pools
+    on the wgmma kernel up to D 256 (a quantized page dequantized by the
+    consumer into the 16-bit tile, at forced split counts too); fp32
+    queries over fp32 pools on the TF32 kernel up to D 128; fp32 queries
+    over int8 pools or at D 256, and a page size that is not a multiple of
+    8, on the CUDA-core kernel, which refuses a split count above 1."""
+    dtype, pool, bs, design, D = ROUTES[route]
     q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
-    args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb)
+    args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb,
+                        D=D)
     extra = _quantize(args, pool) if pool is not None else {}
     plan = RPA.kernel_plan(args[0], args[1], args[3])
     assert plan["design"] == design
@@ -224,13 +247,16 @@ def test_tf32_kernel_vs_plain_at_every_split_count(card, name, D):
                                   "decode-batch-of-phase-3",
                                   "mixed-of-phase-3"))
 def test_wide_and_odd_head_dims(card, name, dtype, D):
-    """D 160 and 256 (above the wgmma kernels' 128), D 100 in bf16 (not a
-    whole number of 16-byte words) and 99 (odd: one element a thread) run
-    the CUDA-core kernel, which refuses a split count above 1; D 100 in
-    fp32 (25 words) the TF32 kernel, at D_pad 128."""
+    """D 160 and 256 in bf16 run the 16-bit wgmma kernel at D_pad 192 and
+    256; in fp32 (above the TF32 kernel's 128), D 100 in bf16 (not a whole
+    number of 16-byte words) and 99 (odd: one element a thread) the
+    CUDA-core kernel, which refuses a split count above 1; D 100 in fp32
+    (25 words) the TF32 kernel, at D_pad 128."""
     args, scale = _case(card, dtype, *CASES[name], D=D)
-    design = ("wgmma-3xtf32" if dtype == torch.float32 and D == 100
-              else "fp32")
+    if dtype == torch.float32:
+        design = "wgmma-3xtf32" if D == 100 else "fp32"
+    else:
+        design = "wgmma+tma" if D in (160, 256) else "fp32"
     assert RPA.kernel_plan(args[0], args[1], args[3])["design"] == design
     ref = RPA.ragged_paged_attention_plain(*args, scale)
     n, c = (RPA.ragged_paged_attention.LAUNCHES,
@@ -273,6 +299,6 @@ def test_head_dim_above_256_raises(card):
     args, scale = _case(card, torch.bfloat16, *CASES["decode-batch-of-phase-3"],
                         D=264)
     n = RPA.ragged_paged_attention.LAUNCHES
-    with pytest.raises(ValueError, match="K13"):
+    with pytest.raises(ValueError, match="K15"):
         RPA.ragged_paged_attention(*args, scale)
     assert RPA.ragged_paged_attention.LAUNCHES == n

@@ -2,19 +2,24 @@
 version, against the JAX package's Pallas kernel in interpret mode, at the
 edges of the tiles and splits of the card's wgmma kernel
 (``csrc/ragged_paged_attention_hopper.cu``: 64 folded (chunk, group) query
-rows a block, key tiles of 64, a row's key tiles split by the table width):
+rows a block, key tiles of 64, a row's key tiles split by the table width,
+D_pad 64 to 256):
 q_len * g on both sides of 64, kv_len on both sides of page and key-tile
 boundaries, pages of 16, 32 and 64, GQA 16/16 and 16/4, the serving decode
 batch of ``chip_smoke.py`` phase 3 (8 rows, kv_len 100-640), rows with
-q_len 0, and a row longer than its table; and at the head dims the card
-serves on its CUDA-core route (D 100, not a whole number of 16-byte words
-in bf16; D 160 and 256, above the wgmma kernels' 128), decode and mixed,
-GQA 16/4 with q_len * g on both sides of 64. Inputs come from numpy with a
-seed and go to both packages, as ``test_torch_ragged_attention.py`` runs
-them.
+q_len 0, and a row longer than its table; at wide and odd head dims (D
+100, not a whole number of 16-byte words in bf16, on the card's CUDA-core
+route; D 160 and 256, on the 16-bit wgmma kernel at D_pad 192 and 256 and
+on the CUDA-core route in fp32), decode and mixed, GQA 16/4 with q_len * g
+on both sides of 64; at D 192 and 256 with kv_len on both sides of a
+64-key tile and of a page (pages of 16 and 32); and over int8 and fp8
+e4m3 pools at D 256 (the reference's quantized branch). Inputs come from
+numpy with a seed and go to both packages, as
+``test_torch_ragged_attention.py`` runs them.
 Tolerances, relative to the reference's max-abs: 2e-5 in fp32 (summation
 order) and 1e-2 in bf16 (that file's bound: the rounding of the inputs and
-of the output).
+of the output); over quantized pools 0.08 absolute, the bound of the
+reference's own int8 test (``tests/test_ragged_serving.py``).
 The CUDA kernels are held to this plain version on the card by
 ``test_torch_ragged_hopper_cuda.py``.
 """
@@ -120,3 +125,72 @@ WIDE_CASES = {
 @pytest.mark.parametrize("name", list(WIDE_CASES))
 def test_plain_matches_jax_at_wide_and_odd_head_dims(name, dtype, D):
     _matches_jax(f"{name} D={D}", _case(*WIDE_CASES[name], D=D), dtype)
+
+
+# the 16-bit kernel's D_pad 192 and 256: q_len * g on both sides of 64 (GQA
+# 16/4, q_len 15 / 16 / 17), kv_len on both sides of a page and of a 64-key
+# tile with pages of 16 and of 32
+WGMMA_WIDE_CASES = {
+    "gqa-16-4-qlen-g-across-64": ([15, 16, 17, 1], [15, 80, 130, 200], 20,
+                                  16, 4, 16, None),
+    "kv-across-page-and-tile-bs-16": ([1] * 6, [15, 16, 17, 63, 64, 65], 1,
+                                      16, 4, 16, None),
+    "kv-across-page-and-tile-bs-32": ([1] * 6, [31, 32, 33, 63, 64, 65], 1,
+                                      16, 4, 32, None),
+}
+
+
+@pytest.mark.parametrize("D", (192, 256))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("name", list(WGMMA_WIDE_CASES))
+def test_plain_matches_jax_at_wgmma_wide_tile_edges(name, dtype, D):
+    _matches_jax(f"{name} D={D}", _case(*WGMMA_WIDE_CASES[name], D=D), dtype)
+
+
+QUANT = {"int8": (np.int8, jnp.int8, torch.int8, 127.0),
+         "fp8_e4m3": (None, jnp.float8_e4m3fn, torch.float8_e4m3fn, 448.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("kind", list(QUANT))
+def test_plain_matches_jax_over_quantized_pools_at_d256(kind, dtype):
+    """int8 / fp8 e4m3 pools with per-(kv head, page) scales at D 256 (the
+    card's wgmma kernel for bf16 q, its CUDA-core kernel for fp32 q) against
+    the reference's quantized branch, GQA 16/4 with q_len * g on both sides
+    of 64 and a decode row, pages of 16."""
+    case = _case([15, 16, 17, 1], [15, 80, 130, 200], 20, 16, 4, 16, None,
+                 D=256, seed=5)
+    npdt, jdt, tdt, qmax = QUANT[kind]
+    rng = np.random.RandomState(6)
+    pools = []
+    for name in ("k_pool", "v_pool"):
+        if npdt is not None:
+            vals = rng.randint(-127, 128, case[name].shape).astype(np.int8)
+            pools.append((jnp.asarray(vals), torch.from_numpy(vals)))
+        else:     # values on the e4m3 grid, exact in both packages
+            t = torch.from_numpy(np.clip(rng.randn(*case[name].shape) * 100,
+                                         -448, 448).astype(np.float32))
+            t = t.to(tdt)
+            pools.append((jnp.asarray(t.float().numpy()).astype(jdt), t))
+    hkv, NB = case["k_pool"].shape[:2]
+    scales = [(rng.rand(hkv, NB) + 0.5).astype(np.float32) for _ in range(2)]
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    rest = ("block_tables", "q_lens", "kv_lens")
+    ref = jax_rpa(jnp.asarray(case["q"]).astype(jdtype), pools[0][0],
+                  pools[1][0], *(jnp.asarray(case[n]) for n in rest),
+                  case["scale"], *(jnp.asarray(sc) for sc in scales))
+    ref = np.asarray(ref.astype(jnp.float32))
+    n = RPA.ragged_paged_attention.LAUNCHES
+    out = RPA.ragged_paged_attention(
+        torch.from_numpy(case["q"]).to(dtype), pools[0][1], pools[1][1],
+        *(torch.from_numpy(case[n]) for n in rest), case["scale"],
+        *(torch.from_numpy(sc) for sc in scales))
+    assert RPA.ragged_paged_attention.LAUNCHES == n     # CPU: the plain one
+    assert out.dtype == dtype
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() < 0.08, np.abs(got - ref).max()
+    for r, ql in enumerate(case["q_lens"]):
+        assert (got[r, ql:] == 0).all(), r

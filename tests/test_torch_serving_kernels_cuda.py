@@ -263,19 +263,22 @@ def test_quantized_ragged_matches_plain(card, pool_dtype, dtype, hq, hkv, D,
 
 
 @pytest.mark.parametrize("bad", ["no_scales", "fp16_scales",
-                                 "head_dim_not_vector"])
+                                 "split_off_the_wgmma_route"])
 def test_quantized_ragged_refusals(card, bad):
-    D = 24 if bad == "head_dim_not_vector" else 16   # int8 vectors are 16
+    # D 24 is not a whole number of int8 16-byte words: the CUDA-core
+    # route takes it (element loads) but refuses a split
+    D = 24 if bad == "split_off_the_wgmma_route" else 16
     args, scales, scale = _quantized_case(card, torch.int8, torch.bfloat16,
                                           4, 4, D, 8)
     if bad == "no_scales":
         scales = ()
     elif bad == "fp16_scales":
         scales = tuple(s.half() for s in scales)
+    splits = 2 if bad == "split_off_the_wgmma_route" else None
     before = RPA.ragged_paged_attention.LAUNCHES
-    err = RuntimeError if bad == "head_dim_not_vector" else TypeError
+    err = RuntimeError if bad == "split_off_the_wgmma_route" else TypeError
     with pytest.raises(err):
-        RPA.ragged_paged_attention(*args, scale, *scales)
+        RPA.ragged_paged_attention(*args, scale, *scales, splits=splits)
     assert RPA.ragged_paged_attention.LAUNCHES == before
 
 
