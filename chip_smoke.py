@@ -8,11 +8,12 @@ Phases, in order; any failure exits non-zero:
 1. card: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` and print each
    wgmma instance's registers and spill bytes (the flash forward, dQ and
-   dK/dV, the ragged kernel) and the bulk-ring paged decode instances';
-   the dK/dV split instances (D_pad 192 / 256), the 16-bit ragged
-   instances at D_pad 192 / 256, the fp32 decode instances, the TF32
-   instances (the fp32 flash forward, dQ and dK/dV, the fp32 ragged kernel)
-   and the LayerNorm forward's held-row instances must not spill;
+   dK/dV, the 16-bit ragged kernel on both page rings and the TF32 one)
+   and the bulk-ring paged decode instances'; the dK/dV split instances
+   (D_pad 192 / 256), every ragged wgmma instance (16-bit on the TMA and
+   the gathered ring, TF32 on its gathered ring), the fp32
+   decode instances, the TF32 flash instances (forward, dQ and dK/dV) and
+   the LayerNorm forward's held-row instances must not spill;
 3. hold the ragged kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, 16 heads of 128, block 32), print each case's
    route and split count (``kernel_plan``), and time kernel, plain version,
@@ -21,8 +22,10 @@ Phases, in order; any failure exits non-zero:
    blocks against one split, and the decode (a) and mixed (b) batches with
    fp32 queries (the TF32 route, held at 1e-5); D 256 bf16 decode and mixed
    timed and D 160 bf16 / fp16 and D 256 fp16 held on the wgmma route (D_pad
-   192 / 256); D 256 fp32 decode and pages of 12 keys timed and D 160 / 99
-   fp32 and D 100 bf16 held on the CUDA-core route;
+   192 / 256); D 256 fp32 decode timed and D 160 / 99 fp32 and D 100 bf16
+   held on the CUDA-core route; pages of 12 keys on the gathered rings,
+   decode (a) timed in bf16 ("wgmma+gather"), fp32 ("wgmma-3xtf32", which
+   gathers every page size) and bf16 q over int8 pools;
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
 5. serve the GPT-1.3B shape (vocab 32768, hidden 2048, 24 layers, 16 heads,
    random weights from seed 0) through the ragged engine: 8 requests, one warm
@@ -63,7 +66,8 @@ Phases, in order; any failure exits non-zero:
 12. fill int8 and fp8 pools with the port's append on the card (bit for bit
    the CPU append's) and hold the ragged kernel over them against its plain
    version, decode (timed) and mixed, the decode batch at D 256 (the wgmma
-   route) and with fp32 queries (the CUDA-core route), both timed;
+   route) and with fp32 queries (the TF32 kernel, held at 1e-5 of
+   max-abs), both timed;
 13. serve the GPT-1.3B shape through the two-program engine (the default
    path: batched prefill chunks on the flash bias kernel, decode bursts on
    the paged decode kernel): the same wave as phase 5, launch counts, bf16
@@ -72,7 +76,11 @@ Phases, in order; any failure exits non-zero:
    launches (the TF32 forward) counted;
 14. serve the same wave through the ragged engine with int8 and fp8 KV
    pools: tokens/s, capacity at phase 5's pool budget, determinism across
-   fresh engines, teacher-forced top-5 containment;
+   fresh engines, teacher-forced top-5 containment; then through a bf16
+   ragged engine paging by 12 keys (534 blocks, 54 a sequence: every
+   ragged launch on "wgmma+gather", top-5 >= 99 %) and an fp32 one over
+   int8 pools (every launch on "wgmma-3xtf32", top-5 >= 95 % against the
+   dense fp32 forward);
 15. hold the LayerNorm forward and backward kernels against their plain
    versions (y, dx, dw, db; the backward forms dx, dw and db in one launch,
    bit for bit across two calls, and reports its route) at the BERT-base
@@ -334,20 +342,25 @@ def make_case(rng, q_lens, kv_lens, C, hq, hkv, D=128, bs=32, NB=200, nb=20,
 
 def case_bound(case):
     """Least time the card needs: each input byte it needs read once (the
-    live query columns, the pages and table entries a row uses, with two
-    fp32 scales per (kv head, page) of a quantized pool, the lengths), each
-    output byte written once (all C columns), against the FLOPs the visible
-    (query head, key) pairs need."""
+    live query columns; the K / V rows of the keys a row sees, kv_len of
+    them and not the whole pages they sit in; the table entries of the
+    pages those keys use, with two fp32 scales per (kv head, page) of a
+    quantized pool; the lengths), each output byte written once (all C
+    columns), against the FLOPs the visible (query head, key) pairs
+    need."""
     q, kp = case["q"], case["k_pool"]
     R, C, hq, D = q.shape
     hkv, _, bs, _ = kp.shape
+    nb = case["block_tables"].shape[1]
     it = q.element_size()
     ql = case["q_lens"].cpu().numpy()
     kl = case["kv_lens"].cpu().numpy()
-    pages = sum(-(-int(k) // bs) for k, l in zip(kl, ql) if l > 0)
-    page_bytes = bs * D * kp.element_size() + (4 if "k_scales" in case else 0)
+    keys = [min(int(k), nb * bs) for k, l in zip(kl, ql) if l > 0]
+    pages = sum(-(-k // bs) for k in keys)
+    scale_bytes = 4 * pages if "k_scales" in case else 0
     nbytes = (int(ql.sum()) * hq * D * it + q.numel() * it
-              + 2 * hkv * pages * page_bytes + 4 * (pages + 2 * R))
+              + 2 * hkv * (sum(keys) * D * kp.element_size() + scale_bytes)
+              + 4 * (pages + 2 * R))
     flops = 0
     for l, k in zip(ql, kl):
         for c in range(int(l)):
@@ -429,8 +442,8 @@ def check_kernel_case(name, case, card, tol=None):
     plain = cuda_ms(lambda: RPA.ragged_paged_attention_plain(*args))
     lib = cuda_ms(sdpa_yardstick(case))
     bound, bound_by, nbytes, flops = case_bound(case)
-    tf32 = (tf32_bound_ms(case_bound(case)) if plan["design"] == "wgmma-3xtf32"
-            else None)
+    tf32 = (tf32_bound_ms(case_bound(case))
+            if plan["design"].startswith("wgmma-3xtf32") else None)
     note = "" if tf32 is None else f" tf32x3_bound_ms {tf32:.4f}"
     log(f"{name}: kernel_ms {kern:.4f} plain_ms {plain:.4f} "
         f"library_ms {lib:.4f} (SDPA over pre-gathered pages) bound_ms "
@@ -1016,18 +1029,14 @@ def flash_designs(name):
 
 def tf32_ptxas(output):
     """[(kernel, D_pad, bias, ints, dropout, registers, spill store bytes)]
-    of the fp32 instances on the TF32 tensor cores (the flash forward, dQ
-    and dK/dV; the ragged kernel, with no flags: -1), from ptxas's -v
-    lines."""
+    of the fp32 flash instances on the TF32 tensor cores (the forward, dQ
+    and dK/dV), from ptxas's -v lines."""
     recs, cur, spill = [], None, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = re.search(r"(flash_(?:fwd|dq|dkv)_tf32_kernel)ILi(\d+)ELb"
                             r"([01])ELb([01])ELb([01])E", m.group(1))
-            if cur is None:
-                cur = re.search(r"(ragged_tf32_kernel)ILi(\d+)E()()()",
-                                m.group(1))
             spill = None
             continue
         if cur is None:
@@ -1046,17 +1055,14 @@ def tf32_ptxas(output):
 
 def wgmma_ptxas(output):
     """[(kernel, dtype, D_pad, bias, ints, dropout, registers, spill store
-    bytes)] of the wgmma instances (the flash forward, dQ and dK/dV; the
-    ragged kernel, with no flags: -1), from ptxas's -v lines."""
+    bytes)] of the 16-bit flash wgmma instances (the forward, dQ and
+    dK/dV), from ptxas's -v lines."""
     recs, cur = [], None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)I(\w+?)Li"
                             r"(\d+)ELb([01])ELb([01])ELb([01])E", m.group(1))
-            if cur is None:
-                cur = re.search(r"(ragged_wgmma_kernel)I(\w+?)Li(\d+)E()()()",
-                                m.group(1))
             spill = None
             continue
         if cur is None:
@@ -1067,14 +1073,53 @@ def wgmma_ptxas(output):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             name, ty, d, *flags = cur.groups()
-            # the ragged kernel's pool type follows q's: the same (S.._),
-            # int8 (a) or fp8 e4m3
-            pool = ("/fp8" if "fp8" in ty else "/int8" if ty.endswith("a")
-                    else "")
-            recs.append((name, ("bf16" if "bfloat16" in ty else "fp16")
-                         + pool, int(d),
-                         *(int(f) if f else -1 for f in flags),
-                         int(m.group(1)), spill))
+            recs.append((name, "bf16" if "bfloat16" in ty else "fp16", int(d),
+                         *(int(f) for f in flags), int(m.group(1)), spill))
+            cur = None
+    return recs
+
+
+def ragged_ptxas(output):
+    """[(kernel, q dtype, pool, D_pad, ring, registers, spill store bytes)]
+    of the ragged wgmma instances (the 16-bit kernel
+    ragged_wgmma_kernel<T, P, D_pad, G>, ring "tma" or "gather", and the
+    TF32 kernel ragged_tf32_kernel<D_pad, P>, always "gather"), from
+    ptxas's -v lines."""
+    recs, cur = [], None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            w = re.search(r"ragged_wgmma_kernelI(\w+?)Li(\d+)ELb([01])E",
+                          name)
+            t = re.search(r"ragged_tf32_kernelILi(\d+)E(\w+?)EEv", name)
+            if w:
+                q = "bf16" if w.group(1).startswith("13__nv_bfloat16") \
+                    else "fp16"
+                # the pool type: q's (a substitution S.._), int8 (a) or
+                # fp8 e4m3
+                pool = w.group(1)[len("13__nv_bfloat16" if q == "bf16"
+                                      else "6__half"):]
+                cur = ("ragged_wgmma_kernel", q,
+                       "fp8" if "fp8" in pool else "int8" if pool == "a"
+                       else q, int(w.group(2)),
+                       "gather" if w.group(3) == "1" else "tma")
+            elif t:
+                pool = t.group(2)
+                cur = ("ragged_tf32_kernel", "fp32",
+                       "fp8" if "fp8" in pool else "int8" if pool == "a"
+                       else "fp32", int(t.group(1)), "gather")
+            spill = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            recs.append((*cur, int(m.group(1)), spill))
             cur = None
     return recs
 
@@ -1603,19 +1648,21 @@ def decode_case(rng, lens, hq, hkv, D=128, bs=32, NB=200, nb=20,
 
 
 def decode_bound(case):
-    """Each byte the call needs read once (q, the used pages and their
-    table entries, the lengths) and written once (out), against 4 D FLOPs
-    per (query head, visible key) at the dtype's peak."""
+    """Each byte the call needs read once (q, the K / V rows of the keys a
+    row sees, seq_len of them and not the whole pages they sit in, the
+    table entries of their pages, the lengths) and written once (out),
+    against 4 D FLOPs per (query head, visible key) at the dtype's peak."""
     q, kp = case["q"], case["k_pool"]
     B, hq, D = q.shape
     hkv, _, bs, _ = kp.shape
     it = q.element_size()
     lens = case["seq_lens"].cpu().numpy()
     nb = case["block_tables"].shape[1]
-    pages = sum(min(-(-int(n) // bs), nb) for n in lens)
-    nbytes = (2 * q.numel() * it + 2 * hkv * pages * bs * D * it
+    keys = [min(int(n), nb * bs) for n in lens]
+    pages = sum(-(-k // bs) for k in keys)
+    nbytes = (2 * q.numel() * it + 2 * hkv * sum(keys) * D * it
               + 4 * (pages + B))
-    flops = 4 * D * hq * int(sum(min(int(n), nb * bs) for n in lens))
+    flops = 4 * D * hq * sum(keys)
     peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations", nbytes, flops
@@ -1960,9 +2007,11 @@ def fill_quantized(case, pool_dtype, rng):
 
 def check_quantized_case(name, case, card):
     """The ragged kernel over a case's int8 / fp8 pools against its plain
-    version (the worst slab's L2 within KERNEL_TOL); with ``card``, timed
-    against the plain version, SDPA over pages dequantized to q's dtype and
-    the bound."""
+    version (16-bit q: the worst slab's L2 within KERNEL_TOL, the
+    dequantized tile being rounded to 16 bits for the tensor cores; fp32 q:
+    max-abs within 1e-5 of the reference's max-abs, the fp32 gate); with
+    ``card``, timed against the plain version, SDPA over pages dequantized
+    to q's dtype and the bound."""
     args = (case["q"], case["k_pool"], case["v_pool"], case["block_tables"],
             case["q_lens"], case["kv_lens"], case["scale"], case["k_scales"],
             case["v_scales"])
@@ -1976,10 +2025,17 @@ def check_quantized_case(name, case, card):
         require((out_k[r, int(l):] == 0).all(),
                 f"{name}: row {r} columns >= {l} not zero")
     err = (out_k.float() - out_p.float()).abs().max().item()
-    rel = slab_rel_err(out_k, out_p, 3)
-    log(f"{name}: worst (row, column, head) L2 rel err {rel:.3e} (tol "
-        f"{KERNEL_TOL}); max_abs_err {err:.3e}")
-    require(rel <= KERNEL_TOL, f"{name}: rel err {rel} > {KERNEL_TOL}")
+    if case["q"].dtype == torch.float32:
+        tol = 1e-5
+        rel = err / max(out_p.float().abs().max().item(), 1e-9)
+        log(f"{name}: max_abs_err {err:.3e}, rel to max-abs ref {rel:.3e} "
+            f"(tol {tol})")
+    else:
+        tol = KERNEL_TOL
+        rel = slab_rel_err(out_k, out_p, 3)
+        log(f"{name}: worst (row, column, head) L2 rel err {rel:.3e} (tol "
+            f"{tol}); max_abs_err {err:.3e}")
+    require(rel <= tol, f"{name}: rel err {rel} > {tol}")
     rec = dict(max_abs_err=err, rel_err=rel, design=plan["design"],
                splits=plan["splits"])
     if card is None:
@@ -2020,22 +2076,30 @@ def quantized_phase(card):
         recs[tag] = check_quantized_case(f"(a) {tag} decode R=8", dec, card)
         recs[tag + "_mixed"] = check_quantized_case(
             f"(b) {tag} mixed R=4 C=128", mixed, card)
-        # the decode batch at D 256 (the wgmma kernel at D_pad 256), and
-        # with fp32 queries (K14: the CUDA-core route)
+        # the decode batch at D 256 (the wgmma kernel at D_pad 256), with
+        # fp32 queries (the TF32 kernel, held at 1e-5), and with fp32
+        # queries at D 256 (the CUDA-core kernel's 1-byte instances, held
+        # at 1e-5; checked, not timed)
         lens = [100, 173, 256, 311, 400, 467, 555, 640]
         d256 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=256)
         q32 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16,
                         dtype=torch.float32)
-        fill_quantized(d256, pool_dtype, rng)
-        fill_quantized(q32, pool_dtype, rng)
+        q32_d256 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=256,
+                             dtype=torch.float32)
+        for c in (d256, q32, q32_d256):
+            fill_quantized(c, pool_dtype, rng)
         recs[tag + "_d256"] = check_quantized_case(
             f"(a) {tag} decode R=8 D=256", d256, card)
         recs[tag + "_fp32_q"] = check_quantized_case(
             f"(a) {tag} decode R=8 fp32 q", q32, card)
+        recs[tag + "_fp32_q_d256"] = check_quantized_case(
+            f"(a) {tag} decode R=8 fp32 q D=256", q32_d256, None)
         require(recs[tag + "_d256"]["design"] == "wgmma+tma"
-                and recs[tag + "_fp32_q"]["design"] == "fp32",
+                and recs[tag + "_fp32_q"]["design"] == "wgmma-3xtf32"
+                and recs[tag + "_fp32_q_d256"]["design"] == "fp32",
                 f"{tag}: D 256 on {recs[tag + '_d256']['design']}, fp32 q "
-                f"on {recs[tag + '_fp32_q']['design']}")
+                f"on {recs[tag + '_fp32_q']['design']}, fp32 q at D 256 on "
+                f"{recs[tag + '_fp32_q_d256']['design']}")
         torch.cuda.empty_cache()
     return recs
 
@@ -2047,12 +2111,16 @@ def reset_serving_counts():
     for fn in (RPA.ragged_paged_attention, PA.paged_decode_attention,
                FA.flash_fwd):
         fn.LAUNCHES = 0
+    for route in RPA.ragged_paged_attention.ROUTES:
+        RPA.ragged_paged_attention.ROUTES[route] = 0
 
 
 def serving_counts():
     return dict(ragged_paged_attention=RPA.ragged_paged_attention.LAUNCHES,
                 paged_decode_attention=PA.paged_decode_attention.LAUNCHES,
-                flash_fwd=FA.flash_fwd.LAUNCHES)
+                flash_fwd=FA.flash_fwd.LAUNCHES,
+                ragged_routes={r: n for r, n in
+                               RPA.ragged_paged_attention.ROUTES.items() if n})
 
 
 def count_prefills(engine):
@@ -2237,9 +2305,58 @@ def quantized_engine_phase(card):
                    budget_bytes=budget)
         recs[kind] = rec
         torch.cuda.empty_cache()
+    # the gathered ring on the serving path: pages of 12 keys, phase 5's
+    # pool bytes (534 x 12 = 6408 keys a head) and sequence reach (54 x 12
+    # = 648 keys), every ragged launch on "wgmma+gather"
+    kw = {**FULL_ENGINE, "block_size": 12, "num_blocks": 534,
+          "max_blocks_per_seq": 54}
+    recs["bf16_bs12"] = route_wave(params, cfg, prompts, news, card,
+                                   "bf16 pages of 12", "wgmma+gather", 0.99,
+                                   **kw)
+    del params
+    torch.cuda.empty_cache()
+    # fp32 queries over int8 pools on the TF32 kernel: an fp32 model with
+    # kv_cache_dtype="int8", held against the dense fp32 forward
+    cfg32 = G.GPTConfig(**FULL, dtype=torch.float32,
+                        param_dtype=torch.float32)
+    params = G.init_hybrid_params(cfg32, 0, DEV)
+    recs["fp32_int8"] = route_wave(params, cfg32, prompts, news, card,
+                                   "fp32 over int8 pools", "wgmma-3xtf32",
+                                   0.95, kv_cache_dtype="int8", **FULL_ENGINE)
     del params
     torch.cuda.empty_cache()
     return recs
+
+
+def route_wave(params, cfg, prompts, news, card, tag, design, gate, **kw):
+    """One warm and one timed wave of a ragged engine built with ``kw``:
+    every ragged launch of the timed wave (the counts set to 0 just before
+    and read just after) on ``design``, L per forward pass; tokens held by
+    teacher-forced top-5 containment >= ``gate`` against the dense forward
+    of the model's dtype."""
+    engine = ServingEngine(params, cfg, seed=0, device=DEV, **kw)
+    serve(engine, prompts, news)                       # warm wave
+    outs, rec = timed_wave(engine, prompts, news, card, tag)
+    del engine
+    L, launches = cfg.num_layers, rec["launches"]
+    log(f"{tag}: ragged_paged_attention LAUNCHES "
+        f"{launches['ragged_paged_attention']} == {L} x passes "
+        f"{rec['passes']}, by route {launches['ragged_routes']}")
+    require(launches["ragged_paged_attention"] == L * rec["passes"] > 0
+            and launches["ragged_routes"] == {
+                design: launches["ragged_paged_attention"]},
+            f"{tag}: a ragged launch of a pass off {design}: "
+            f"{launches['ragged_routes']}")
+    t0 = time.perf_counter()
+    top1, top5, first, n, margins = teacher_forced(params, cfg, prompts,
+                                                   outs, 5)
+    log(f"({time.perf_counter() - t0:.1f} s) {tag} teacher-forced vs the "
+        f"dense {str(cfg.dtype)[6:]} forward: top-5 containment {top5}/{n} "
+        f"= {top5 / n:.2%} (gate {gate:.0%}), top-1 {top1}/{n} = "
+        f"{top1 / n:.2%}, first tokens top-1 {first}/{len(outs)}")
+    require(top5 >= gate * n, f"{tag}: top-5 containment below the gate")
+    rec.update(top5=top5 / n, top1=top1 / n, design=design)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4902,12 +5019,19 @@ def main() -> int:
         require(len(split) == 32 and not any(r[-1] for r in split),
                 f"dK/dV split instances: {len(split)}, spilling "
                 f"{[r for r in split if r[-1]]}")
-        # nor does the 16-bit ragged kernel at D_pad 192 / 256 (bf16 / fp16
-        # q over 16-bit, int8 and fp8 pools)
-        rag = [r for r in wg if r[0] == "ragged_wgmma_kernel" and r[2] > 128]
-        require(len(rag) == 12 and not any(r[-1] for r in rag),
-                f"ragged D_pad 192 / 256 instances: {len(rag)}, spilling "
-                f"{[r for r in rag if r[-1]]}")
+    rag = ragged_ptxas(_build.BUILD_LOG["output"])
+    for name, q, pool, d, ring, regs, spill in rag:
+        log(f"  {name}<{q} q, {pool} pool, D_pad {d}, {ring} ring>: {regs} "
+            f"registers, {spill} bytes spill stores")
+    if _build.BUILD_LOG["output"]:
+        # no ragged wgmma instance spills: the 16-bit kernel (bf16 / fp16 q
+        # over 16-bit, int8 and fp8 pools at D_pad 64-256, the TMA and the
+        # gathered ring: 48) and the TF32 kernel (fp32 q over fp32, int8
+        # and fp8 pools at D_pad 64 / 128: 6)
+        n16 = sum(r[0] == "ragged_wgmma_kernel" for r in rag)
+        require(n16 == 48 and len(rag) == 54 and not any(r[-1] for r in rag),
+                f"ragged wgmma instances: {n16} 16-bit, {len(rag) - n16} "
+                f"TF32, spilling {[r for r in rag if r[-1]]}")
     ln_inst = ln_fwd_ptxas(_build.BUILD_LOG["output"])
     for ty, nw, regs, spill in ln_inst:
         log(f"  ln_fwd_held<{ty}, {nw} words a lane>: {regs} registers, "
@@ -4921,9 +5045,9 @@ def main() -> int:
         log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
             f"{regs} registers at launch, {spill} bytes spill stores")
     if _build.BUILD_LOG["output"]:
-        # the fp32 forward, dQ and dK/dV (48) and the fp32 ragged kernel (2)
-        # on the TF32 tensor cores hold no spill
-        require(len(tf32) == 50 and not any(r[-1] for r in tf32),
+        # the fp32 forward, dQ and dK/dV (48) on the TF32 tensor cores hold
+        # no spill (the fp32 ragged kernel's instances: above)
+        require(len(tf32) == 48 and not any(r[-1] for r in tf32),
                 f"fp32 TF32 instances: {len(tf32)}, spilling "
                 f"{[r for r in tf32 if r[-1]]}")
     dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
@@ -4982,17 +5106,28 @@ def main() -> int:
                                       make_case(rng, mixed_q, mixed_kv, C=128,
                                                 hq=16, hkv=4, D=D, dtype=dt),
                                       None)
-    # K14: a page size that is not a multiple of 8 (the CUDA-core route),
-    # timed at case (a)'s batch with pages of 12 keys
-    wide["bs12_bf16"] = check_kernel_case("(a) decode R=8 bs=12 bf16",
-                                          make_case(rng, [1] * 8, dec_lens,
-                                                    C=1, hq=16, hkv=16, bs=12,
-                                                    NB=300, nb=54), card)
-    on_wgmma = ("D256_bf16", "D256_bf16_mixed", "D160_bf16", "D160_fp16",
-                "D256_fp16")
-    require(all(r["design"] == ("wgmma+tma" if t in on_wgmma else "fp32")
+    # a page size that is not a multiple of 8 (the gathered rings), timed
+    # at case (a)'s batch with pages of 12 keys: bf16, fp32, and bf16 q
+    # over int8 pools
+    for tag, dt in (("bs12_bf16", torch.bfloat16),
+                    ("bs12_fp32", torch.float32)):
+        wide[tag] = check_kernel_case(
+            f"(a) decode R=8 bs=12 {tag[-4:]}", make_case(
+                rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, bs=12, NB=300,
+                nb=54, dtype=dt), card)
+    bs12_int8 = make_case(rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, bs=12,
+                          NB=300, nb=54)
+    fill_quantized(bs12_int8, torch.int8, rng)
+    wide["bs12_int8"] = check_quantized_case("(a) int8 decode R=8 bs=12",
+                                             bs12_int8, card)
+    on_route = {"D256_bf16": "wgmma+tma", "D256_bf16_mixed": "wgmma+tma",
+                "D160_bf16": "wgmma+tma", "D160_fp16": "wgmma+tma",
+                "D256_fp16": "wgmma+tma", "bs12_bf16": "wgmma+gather",
+                "bs12_int8": "wgmma+gather",
+                "bs12_fp32": "wgmma-3xtf32"}
+    require(all(r["design"] == on_route.get(t, "fp32")
                 for t, r in wide.items()),
-            f"wide / odd head dims off their routes: "
+            f"wide / odd head dims and pages of 12 off their routes: "
             f"{ {t: r['design'] for t, r in wide.items()} }")
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
@@ -5138,7 +5273,8 @@ def main() -> int:
         mixed={k: rec_mixed[k] for k in keys + ("design", "splits")},
         wide_head_dims={t: {k: r[k] for k in keys + ("design",) if k in r}
                         for t, r in wide.items()},
-        decode_sweep=sweep, serving=full)
+        decode_sweep=sweep, serving=full,
+        serving_pages_of_12=qeng["bf16_bs12"])
     ragged32_rec = dict(
         name="ragged_paged_attention_fp32", route="cuda",
         source="paddle_tpu_torch/csrc/ragged_paged_attention_tf32_hopper.cu",
@@ -5150,7 +5286,8 @@ def main() -> int:
         shape="decode R=8 H=16 D=128 bs=32 fp32, kv_len 100..640",
         mixed={k: rec_mixed32[k] for k in keys + (
             "design", "splits", "tf32x3_bound_ms")},
-        launches_from="phase 5b, the fp32 ragged engine's wave")
+        launches_from="phase 5b, the fp32 ragged engine's wave",
+        serving_over_int8=qeng["fp32_int8"])
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
     fa = "paddle_tpu/kernels/pallas/flash_attention.py"
     bert_main = bert[BERT_SEQS[0]]

@@ -2,11 +2,12 @@
 // the forward; flash_dq_hopper.cu, dQ; flash_dkv_hopper.cu, dK/dV; their
 // fp32 forms on the TF32 tensor cores, *_tf32_hopper.cu) and of the ragged
 // paged-attention kernels (ragged_paged_attention_hopper.cu,
-// ragged_paged_attention_tf32_hopper.cu): mbarriers, TMA
-// tile loads, wgmma and its shared-memory descriptors, the tensor maps built
-// on the host, and the accumulator-fragment coordinates the softmax and the
-// masks work on. Inline PTX throughout (no CuTe): each kernel has 16
-// instances a width, and CuTe's atoms would multiply their compile time.
+// ragged_paged_attention_tf32_hopper.cu): mbarriers, TMA tile loads and
+// the ragged kernels' cp.async page gather, wgmma and its shared-memory
+// descriptors, the tensor maps built on the host, and the
+// accumulator-fragment coordinates the softmax and the masks work on.
+// Inline PTX throughout (no CuTe): each kernel has 16 instances a width,
+// and CuTe's atoms would multiply their compile time.
 //
 // Block. 384 threads: warpgroup 0 is the producer (its warp 0 issues every
 // load; setmaxnreg gives its registers to the others), warpgroups 1 and 2
@@ -105,6 +106,75 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// 16 bytes global -> shared by cp.async (L2 only); src_bytes 0 writes 16
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The executing thread's earlier cp.async copies arrive on `bar` once they
+// have landed (the pending count is raised by one first, so the thread
+// still arrives itself: mbar_arrive).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The gathered page ring of the ragged kernels (a page size that is not a
+// multiple of 8, where no TMA box of whole 8-row swizzle atoms fits a
+// page): the calling warp copies the BN keys [k0, k0 + BN) of one (kv head,
+// row) into a stage, key row by key row, 16 bytes a lane a copy. Key k
+// comes from pool row (h NB + table[k / bs]) bs + k % bs of `row_bytes`
+// bytes; a key at or past n_keys is zero-filled (nothing read: no table
+// slot past the row's used pages is touched), as are a row's chunks at or
+// past `valid` (the pool row's whole 16-byte chunks; the stage rows are
+// kChunks long). dst(r, c): the byte offset in the stage of chunk c of key
+// row r, in the layout the stage's reader takes. on_key(r, page) runs in
+// the lane that reads key r's table slot (r % 32 == lane), before its
+// arrival: a quantized page's scales. The copies and the lane itself
+// arrive on `bar`, whose count is 32.
+template <int BN, int kChunks, typename Dst, typename OnKey>
+__device__ __forceinline__ void gather_tile(unsigned char* k_dst, unsigned char* v_dst,
+                                            const unsigned char* k_pool,
+                                            const unsigned char* v_pool, long long row_bytes,
+                                            const int* table, int h, int NB, int bs, int k0,
+                                            int n_keys, int valid, uint64_t* bar, Dst dst,
+                                            OnKey on_key) {
+  constexpr int kPer = BN / 32;  // keys whose table slot a lane reads
+  const int lane = threadIdx.x % 32;
+  int prow[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = lane + 32 * i, key = k0 + r;
+    prow[i] = -1;
+    if (key < n_keys) {
+      const int page = table[key / bs];
+      prow[i] = (h * NB + page) * bs + key % bs;
+      on_key(r, page);
+    } else {
+      on_key(r, -1);
+    }
+  }
+#pragma unroll 4
+  for (int e = lane; e < BN * kChunks; e += 32) {
+    const int r = e / kChunks, c = e % kChunks;
+    int row = -1;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int x = __shfl_sync(0xffffffffu, prow[i], r % 32);
+      if (r / 32 == i) row = x;
+    }
+    const bool ok = row >= 0 && c < valid;
+    const long long off = ok ? row * row_bytes + 16 * c : 0;
+    const uint32_t n = ok ? 16 : 0;
+    cp_async16(k_dst + dst(r, c), k_pool + off, n);
+    cp_async16(v_dst + dst(r, c), v_pool + off, n);
+  }
+  cp_async_mbar_arrive(bar);
+  mbar_arrive(bar);
 }
 
 // Named barriers 1 and 2 (0 is __syncthreads) order the two consumer

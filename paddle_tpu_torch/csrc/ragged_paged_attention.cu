@@ -11,22 +11,24 @@
 // kv_len[r] - q_len[r] + c and sees keys at or before it; columns c >= q_len
 // and rows that see no key emit zeros.
 //
-// Routes (ptt_ragged_plan reports them; the wrapper counts each), for every
-// D up to 256, where bs is a multiple of 8, D is a whole number of 16-byte
-// words of the pool type and the pools are 16-byte aligned: bf16 / fp16
-// queries over pools of their dtype or int8 / fp8 pools go to the wgmma
-// kernel of ragged_paged_attention_hopper.cu (D <= kWgmmaMaxD, 256), and
-// fp32 queries over fp32 pools to the TF32 one of
-// ragged_paged_attention_tf32_hopper.cu (D <= kTf32MaxD, 128); every other
-// call (fp32 queries over int8 / fp8 pools or at D in (128, 256], other page
-// sizes, D not whole 16-byte words, misaligned pools) to the kernel here.
+// Routes (ptt_ragged_plan reports them; the wrapper counts each), at every
+// page size, where D is a whole number of 16-byte words of the pool type
+// and the pools are 16-byte aligned: bf16 / fp16 queries over pools of
+// their dtype or int8 / fp8 pools go to the wgmma kernel of
+// ragged_paged_attention_hopper.cu (D <= kWgmmaMaxD, 256), fp32 queries
+// over fp32, int8 or fp8 pools to the TF32 one of
+// ragged_paged_attention_tf32_hopper.cu (D <= kTf32MaxD, 128). The 16-bit
+// kernel takes a page size that is a multiple of 8 through its TMA ring and
+// any other through its gathered ring; the TF32 kernel gathers every page
+// size. Three kinds of call stay on the kernel here:
+// fp32 queries at D in (128, 256] over any pool (ROADMAP Queue 2 K13, with
+// K9's design), D not a whole number of 16-byte words, and pools that are
+// not 16-byte aligned.
 //
 // Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
 // fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
 // dequantized as v * scale[h, page] / qmax (qmax 127 or 448) right after the
-// load into the fp32 shared tile, so no float page reaches device memory. A
-// decode row then reads 1 byte per cached element instead of 2: its bound is
-// the 1-byte pages plus two scales per page, about half the bf16 bound.
+// load into the fp32 shared tile, so no float page reaches device memory.
 //
 // TPU -> Hopper (the kernel here). The Pallas grid (R, H_kv, nb) walks a
 // row's table slots in order and carries m/l/acc in VMEM scratch from one
@@ -49,7 +51,8 @@
 // coalesced loads where D and the pools allow and one element a thread where
 // not, converted to fp32 in shared memory, and runs both products on the
 // FP32 pipes with fp32 accumulation: no load overlaps the math, no tensor
-// cores, and a decode block walks its row's pages in sequence.
+// cores, and a decode block walks its row's pages in sequence. A whole page
+// sits in shared memory, so a large page at a large D is refused.
 
 #include <type_traits>
 
@@ -281,7 +284,7 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
         const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
         const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
         int NB, int bs, int D, int nb, int splits, float scale, int dtype, int pool_code,
-        cudaStream_t stream);
+        bool gather, cudaStream_t stream);
 }  // namespace ptt_ragged_hopper
 
 namespace ptt_ragged_tf32 {
@@ -290,27 +293,35 @@ int query_rows();
 int key_tile();
 int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb);
 int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-        const void* q_lens, const void* kv_lens, void* out, void* part_o, void* part_ml, int R,
-        int C, int Hq, int Hkv, int NB, int bs, int D, int nb, int splits, float scale,
+        const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
+        const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
+        int NB, int bs, int D, int nb, int splits, float scale, int pool_code,
         cudaStream_t stream);
 }  // namespace ptt_ragged_tf32
 
 namespace {
 
-// The routes' design codes (ptt_ragged_plan out[0]; the wrapper's _DESIGNS).
-enum Design { kCudaCores = 0, kWgmma = 2, kWgmmaTf32 = 3 };
+// The routes' design codes (ptt_ragged_plan out[0]; the wrapper's _DESIGNS):
+// the 16-bit wgmma kernel with its pages through a TMA ring, or through a
+// gathered ring (a page size that is not a multiple of 8), and the TF32
+// kernel (its pages always gathered).
+enum Design { kCudaCores = 0, kWgmma = 2, kWgmmaTf32 = 3, kWgmmaGather = 4 };
 
-// The wgmma kernels take bs a multiple of 8 (a TMA box lands on a whole
-// swizzle atom), D a whole number of 16-byte words of the pool type, and
-// 16-byte aligned pools: 16-bit queries over any pool up to kWgmmaMaxD,
-// fp32 queries over fp32 pools up to kTf32MaxD (the TF32 kernel: its split
-// tiles at D 256 are ROADMAP Queue 2 K9's design). The rest goes to the
+// The wgmma kernels take D a whole number of 16-byte words of the pool type
+// and 16-byte aligned pools, at any page size: 16-bit queries over any pool
+// up to kWgmmaMaxD, fp32 queries over any pool up to kTf32MaxD (the TF32
+// kernel: its split tiles at D 256 are ROADMAP Queue 2 K9's design). On the
+// 16-bit kernel a page size that is a multiple of 8 takes the TMA ring (a
+// box lands on whole 8-row swizzle atoms), any other the gathered ring; the
+// TF32 kernel gathers every page size. The rest (fp32 queries
+// at D 129-256, D not whole 16-byte words, misaligned pools) goes to the
 // kernel here.
 Design route(int dtype, int pool_dtype, int bs, int D, bool aligned) {
   const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
-  if (bs % 8 != 0 || D % vec != 0 || !aligned) return kCudaCores;
-  if (dtype != 0) return D <= kWgmmaMaxD ? kWgmma : kCudaCores;
-  return pool_dtype == 0 && D <= kTf32MaxD ? kWgmmaTf32 : kCudaCores;
+  if (D % vec != 0 || !aligned) return kCudaCores;
+  if (dtype != 0)
+    return D > kWgmmaMaxD ? kCudaCores : bs % 8 != 0 ? kWgmmaGather : kWgmma;
+  return D > kTf32MaxD ? kCudaCores : kWgmmaTf32;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -321,7 +332,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). pool_dtype: 0 =
 // pools of q's dtype (k_scales / v_scales unused), 1 = int8, 2 = fp8 e4m3, each with
-// fp32 [H_kv, NB] scales. splits: on the wgmma routes (ptt_ragged_plan),
+// fp32 [H_kv, NB] scales; every dtype goes with every pool. bs: any page
+// size (the wgmma routes take one that is not a multiple of 8 through a
+// gathered ring). splits: on the wgmma routes (ptt_ragged_plan),
 // the splits of a row's key tiles (1 to 16; 0 takes the plan's); with more
 // than one, part_o (fp32 [R, H_kv, tiles, splits, 64, D]) and part_ml (fp32
 // [..., 64, 2]) are the scratch the splits merge through (tiles =
@@ -331,8 +344,8 @@ extern "C" {
 // cudaErrorInvalidValue before any launch: head_dim outside [1, 256], H_q
 // not a multiple of H_kv, q or out not 16-byte aligned on a wgmma route, a
 // quantized pool without its scales, a split count the route does not take,
-// or a block_size whose page does not fit in shared memory (refused by
-// cudaFuncSetAttribute).
+// or, on the CUDA-core route, a block_size whose page does not fit in shared
+// memory (refused by cudaFuncSetAttribute).
 int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const void* tables, const void* q_lens, const void* kv_lens,
                                void* out, const void* k_scales, const void* v_scales,
@@ -351,13 +364,14 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
     if (!aligned16(q) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
     if (design == kWgmmaTf32) {
       if (splits == 0) splits = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
-      return ptt_ragged_tf32::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, part_o,
-                                  part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits, scale, s);
+      return ptt_ragged_tf32::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, k_scales,
+                                  v_scales, part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits,
+                                  scale, pool_dtype, s);
     }
     if (splits == 0) splits = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);
     return ptt_ragged_hopper::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, k_scales,
                                   v_scales, part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits,
-                                  scale, dtype, pool_dtype, s);
+                                  scale, dtype, pool_dtype, design == kWgmmaGather, s);
   }
   if (splits > 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = aligned && D % (16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2)) == 0;
@@ -372,11 +386,13 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
 // 16-byte aligned): out[0] the design (0: the CUDA-core kernel here, fp32
 // tiles in shared memory; 2: wgmma with the pages through a TMA ring; 3:
 // fp32 on the TF32 tensor cores, wgmma with each operand split into two
-// TF32 halves and three products for each, the pages through a TMA ring and
-// split in shared memory), out[1] the folded query rows a block, out[2] the
-// keys a tile (the kernel here walks a page at a time), out[3] the splits of
-// a row's key tiles the entry takes when given 0. Returns 0, or
-// cudaErrorInvalidValue for a dtype code or head dim no kernel takes.
+// TF32 halves and three products for each, the pages gathered key row by
+// key row by cp.async (1-byte pages raw) and split in shared memory; 4:
+// design 2 with the pages gathered, at a page size that is not a multiple
+// of 8), out[1] the folded query rows a block,
+// out[2] the keys a tile (the kernel here walks a page at a time), out[3]
+// the splits of a row's key tiles the entry takes when given 0. Returns 0,
+// or cudaErrorInvalidValue for a dtype code or head dim no kernel takes.
 int ptt_ragged_plan(int R, int C, int Hq, int Hkv, int bs, int D, int nb, int dtype,
                     int pool_dtype, int aligned, int* out) {
   if (dtype < 0 || dtype > 2 || pool_dtype < 0 || pool_dtype > 2 || Hkv <= 0 || bs <= 0 ||
@@ -388,7 +404,7 @@ int ptt_ragged_plan(int R, int C, int Hq, int Hkv, int bs, int D, int nb, int dt
     out[1] = ptt_ragged_tf32::query_rows();
     out[2] = ptt_ragged_tf32::key_tile();
     out[3] = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
-  } else if (design == kWgmma) {
+  } else if (design != kCudaCores) {
     out[1] = ptt_ragged_hopper::query_rows();
     out[2] = ptt_ragged_hopper::key_tile();
     out[3] = ptt_ragged_hopper::auto_splits(R, C, Hq, Hkv, bs, nb);

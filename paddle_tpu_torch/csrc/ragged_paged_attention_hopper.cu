@@ -1,13 +1,15 @@
 // Unified ragged prefill+decode paged attention for Hopper, redesigned for
 // sm_90a: the kernel for bf16 and fp16 queries over pools of the same dtype
-// or over int8 / fp8 e4m3 pools with per-(kv head, page) scales, a page size
-// bs that is a multiple of 8 and D <= 256 (a pool row whole 16-byte words),
-// read into D_pad 64, 128, 192 or 256 (the TMA map fills the columns past D
-// with zeros). ragged_paged_attention.cu's entry hands it those calls; fp32
-// queries and the other page sizes keep the kernels there (ptt_ragged_plan
-// reports the route). This file is compiled once per D_pad
-// (-DPTT_RAGGED_D=<64|128|192|256>, kernels/_build.py), so the widths build
-// in parallel; the object of D_pad 64 also holds the host entries.
+// or over int8 / fp8 e4m3 pools with per-(kv head, page) scales, any page
+// size bs and D <= 256 (a pool row whole 16-byte words), read into D_pad
+// 64, 128, 192 or 256 (the columns past D arrive as zeros).
+// ragged_paged_attention.cu's entry hands it those calls; fp32 queries go
+// to the TF32 kernel (ragged_paged_attention_tf32_hopper.cu) or, at D above
+// 128, odd D and misaligned pools, to the CUDA-core kernel there
+// (ptt_ragged_plan reports the route). This file is compiled once per D_pad
+// and page ring (-DPTT_RAGGED_D=<64|128|192|256> -DPTT_RAGGED_GATHER=<0|1>,
+// kernels/_build.py), so they build in parallel; the object of D_pad 64
+// with the TMA ring also holds the host entries.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`) for those calls:
@@ -34,22 +36,39 @@
 //   rows c >= q_len as zeros) into the 128-byte-swizzled layout wgmma reads
 //   (flash_hopper.cuh: chunk c of row r at chunk c ^ (r % 8)), then a proxy
 //   fence.
-// - Pages through a TMA ring: a key tile of 64 keys is 64 / bs pages (or a
-//   part of one page when bs > 64), each a contiguous [bs, D] slab of the
-//   head-major pool, loaded by TMA over the pool seen as rows (h NB + page)
-//   bs + key % bs, in boxes of the largest of 64 / 32 / 16 / 8 rows that
-//   divides bs (so every box lands on a 1024-byte boundary of the swizzled
-//   panel). The producer reads block_tables[r, j] itself; a box past the
-//   row's used pages loads the row's last used page again (finite values
-//   that the mask drops), so no table slot past them is read. Two stages,
-//   `full` / `empty` mbarriers.
+// - Pages through a TMA ring (bs a multiple of 8): a key tile of 64 keys
+//   is 64 / bs pages (or a part of one page when bs > 64), each a
+//   contiguous [bs, D] slab of the head-major pool, loaded by TMA over the
+//   pool seen as rows (h NB + page) bs + key % bs, in boxes of the largest
+//   of 64 / 32 / 16 / 8 rows that divides bs (so every box lands on a
+//   1024-byte boundary of the swizzled panel). The producer reads
+//   block_tables[r, j] itself; a box past the row's used pages loads the
+//   row's last used page again (finite values that the mask drops), so no
+//   table slot past them is read. Two stages, `full` / `empty` mbarriers.
+// - Pages through a gathered ring (any other bs, G; design "wgmma+gather"):
+//   no box of whole 8-row swizzle atoms fits such a page, so the whole
+//   producer warp copies each key row with cp.async, 16 bytes a lane a copy
+//   (flash_hopper.cuh gather_tile): key k of the tile from pool row (h NB +
+//   table[k / bs]) bs + k % bs, chunk c of a 16-bit row to chunk c ^ (k %
+//   8) of its panel (the swizzle TMA writes), a 1-byte row raw. A key at or
+//   past the tile plan's n_keys is zero-filled (no table slot past the used
+//   pages is read). The copies arrive on the stage's `full` barrier
+//   (cp.async.mbarrier.arrive, 32 arrivals); the consumer fences the proxy
+//   (fence.proxy.async) before wgmma reads a tile that cp.async wrote. A
+//   1-byte stage carries each key's scale / qmax, not each box's. The same
+//   stages, kernel body and splits as the TMA ring, as a compile-time
+//   variant: the TMA instances are unchanged. (A TMA box of one key row,
+//   which would land on a 128-byte row inside a 1024-byte swizzle atom,
+//   was not tried: the gather takes every page size and width in one code
+//   path.)
 // - Quantized pools: the stage holds the raw 1-byte pages (TMA boxes of
-//   whole rows, unswizzled) and each box's scale / qmax, written by the
-//   producer; the consumer dequantizes K and V into 16-bit swizzled tiles
-//   (rounded to T once, as the reference's fp32 values rounded for the
-//   tensor cores), frees the stage and runs the products on those tiles.
-//   A decode row then reads 1 byte a cached element. At D_pad 256: Q 32 KB,
-//   the raw stages 64 KB and the 16-bit tiles 64 KB.
+//   whole rows, unswizzled, or gathered rows) and the scale / qmax of each
+//   box (or key), written by the producer; the consumer dequantizes K and
+//   V into 16-bit swizzled tiles (rounded to T once, as the reference's
+//   fp32 values rounded for the tensor cores), frees the stage and runs the
+//   products on those tiles. A decode row then reads 1 byte a cached
+//   element. At D_pad 256: Q 32 KB, the raw stages 64 KB and the 16-bit
+//   tiles 64 KB.
 // - Products on wgmma: S = Q K^T (m64n64k16 from the swizzled tiles), the
 //   online softmax on the register fragment (a row's max and sum over the
 //   quad), P rounded to T as the register A operand of O += P V (V read
@@ -71,14 +90,16 @@
 #include "flash_hopper.cuh"
 #include "paged_common.cuh"
 
-#ifndef PTT_RAGGED_D
-#error "compile once per D_pad: -DPTT_RAGGED_D=<64|128|192|256>"
+#if !defined(PTT_RAGGED_D) || !defined(PTT_RAGGED_GATHER)
+#error "compile once per D_pad and ring: -DPTT_RAGGED_D=<64|128|192|256> -DPTT_RAGGED_GATHER=<0|1>"
 #endif
 
 namespace ptt_ragged_hopper {
 
 struct RaggedArgs {
   const void* q;
+  const void* k_pool;  // the gathered ring reads the pools itself
+  const void* v_pool;
   const float* k_scales;  // quantized pools: fp32 [H_kv, NB] absmax scales
   const float* v_scales;
   float inv_qmax;         // 1 / 127 (int8) or 1 / 448 (fp8 e4m3)
@@ -92,8 +113,9 @@ struct RaggedArgs {
   float scale;
 };
 
-// the kernels at one D_pad (each object of this file defines its own)
-template <int DP>
+// the kernels at one D_pad and ring (TMA, or gathered: G; each object of
+// this file defines its own)
+template <int DP, bool G>
 int run_width(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
               int dtype, cudaStream_t stream);
 
@@ -136,9 +158,10 @@ __device__ __forceinline__ TilePlan ragged_tile_plan(const RaggedArgs& a, int r,
 
 // P: the pool element (T, or int8 / fp8 e4m3). Float pools: a stage is the
 // swizzled 16-bit K and V tiles wgmma reads. Quantized pools: a stage holds
-// the raw 1-byte pages ([kBN][D], unswizzled) and the box scales, and the
-// consumer dequantizes it into kd / vd, the 16-bit tiles wgmma reads.
-template <typename T, typename P, int D>
+// the raw 1-byte pages ([kBN][D], unswizzled) and the scales (a TMA box's,
+// or on the gathered ring G each key's), and the consumer dequantizes it
+// into kd / vd, the 16-bit tiles wgmma reads.
+template <typename T, typename P, int D, bool G>
 struct RaggedSmem {
   static constexpr bool kQuant = !std::is_same<T, P>::value;
   static constexpr int kP = D / 64;
@@ -148,7 +171,7 @@ struct RaggedSmem {
   unsigned char v[kStages][kStageBytes];
   T kd[kQuant ? kP : 1][kQuant ? kBN * 64 : 64];
   T vd[kQuant ? kP : 1][kQuant ? kBN * 64 : 64];
-  float kmul[kStages][kBN / 8], vmul[kStages][kBN / 8];  // a box's scale / qmax
+  float kmul[kStages][G ? kBN : kBN / 8], vmul[kStages][G ? kBN : kBN / 8];  // scale / qmax
   uint64_t full[kStages], empty[kStages];
 };
 
@@ -164,9 +187,9 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // A stage's raw [kBN][D] 1-byte page rows -> the swizzled 16-bit panels at
-// `dst`, each element times its box's scale / qmax (rounded to T once, as
-// the tile wgmma reads).
-template <typename T, typename P, int D>
+// `dst`, each element times its box's (G: its key's) scale / qmax (rounded
+// to T once, as the tile wgmma reads).
+template <typename T, typename P, int D, bool G>
 __device__ __forceinline__ void dequant_tile(const unsigned char* raw, T* dst, const float* mul,
                                              int box_rows) {
   constexpr int kC16 = D / 16;  // 16-element words a row
@@ -174,7 +197,7 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* raw, T* dst, c
     const int row = e / kC16, c16 = e % kC16;
     const uint4 word = *reinterpret_cast<const uint4*>(raw + row * D + 16 * c16);
     const P* x = reinterpret_cast<const P*>(&word);
-    const float m = mul[row / box_rows];
+    const float m = mul[G ? row : row / box_rows];
     uint32_t h[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -189,11 +212,11 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* raw, T* dst, c
   }
 }
 
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool G>
 __global__ void __launch_bounds__(kThreadsR, D > 128 ? 1 : 2)
     ragged_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const RaggedArgs a) {
-  using Smem = RaggedSmem<T, P, D>;
+  using Smem = RaggedSmem<T, P, D, G>;
   constexpr bool kQuant = Smem::kQuant;
   constexpr int kP = D / 64, kS = kStages;
   const int split = blockIdx.x % a.splits, tile = blockIdx.x / a.splits;
@@ -224,13 +247,47 @@ __global__ void __launch_bounds__(kThreadsR, D > 128 ? 1 : 2)
   Smem& sm = *reinterpret_cast<Smem*>(hw::align1024(smem_raw));
   if (threadIdx.x == 0) {
     for (int st = 0; st < kS; ++st) {
-      hw::mbar_init(&sm.full[st], 1);
+      hw::mbar_init(&sm.full[st], G ? 32 : 1);  // the TMA lane, or the gathering warp
       hw::mbar_init(&sm.empty[st], 4);
     }
     hw::mbar_fence_init();
   }
   __syncthreads();
 
+  if (G && threadIdx.x >= 128) {
+    // producer: the warp gathers the split's key tiles, a key row at a time
+    constexpr int kChunks = D * static_cast<int>(sizeof(P)) / 16;
+    const int* table = a.tables + static_cast<long long>(r) * a.nb;
+    const int row_bytes = a.D * static_cast<int>(sizeof(P));
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      hw::mbar_wait(&sm.empty[stage], phase ^ 1);
+      float* km = sm.kmul[stage];
+      float* vm = sm.vmul[stage];
+      hw::gather_tile<kBN, kChunks>(
+          sm.k[stage], sm.v[stage], static_cast<const unsigned char*>(a.k_pool),
+          static_cast<const unsigned char*>(a.v_pool), row_bytes, table, h, a.NB, a.bs,
+          t * kBN, tp.n_keys, row_bytes / 16, &sm.full[stage],
+          [](int rr, int c) {
+            // 1-byte pools: the raw row; 16-bit: the swizzled panels
+            return kQuant ? rr * D + 16 * c
+                          : (c / 8) * kBN * 128 + rr * 128 + (((c % 8) ^ (rr % 8)) * 16);
+          },
+          [&](int rr, int page) {
+            if (kQuant) {  // the key's scales, as the TMA ring's boxes take them
+              const long long s = static_cast<long long>(h) * a.NB + page;
+              km[rr] = page < 0 ? 0.f : a.k_scales[s] * a.inv_qmax;
+              vm[rr] = page < 0 ? 0.f : a.v_scales[s] * a.inv_qmax;
+            }
+          });
+      if (++stage == kS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
   if (threadIdx.x >= 128) {
     // producer: one lane walks the split's key tiles, a box of pages at a time
     if (threadIdx.x != 128) return;
@@ -320,12 +377,14 @@ __global__ void __launch_bounds__(kThreadsR, D > 128 ? 1 : 2)
     const int k0 = tt * kBN;
     hw::mbar_wait(&sm.full[stage], phase);
     uint32_t kb = hw::smem_u32(sm.k[stage]), vb = hw::smem_u32(sm.v[stage]);
+    // the gathered tiles were written by cp.async (the generic proxy)
+    if constexpr (G && !kQuant) fence_proxy_async();
     if constexpr (kQuant) {
       // the previous tile's products are done with kd / vd (every warp
       // waited for them); dequantize this stage into them and free it
       consumer_sync();
-      dequant_tile<T, P, D>(sm.k[stage], sm.kd[0], sm.kmul[stage], a.box_rows);
-      dequant_tile<T, P, D>(sm.v[stage], sm.vd[0], sm.vmul[stage], a.box_rows);
+      dequant_tile<T, P, D, G>(sm.k[stage], sm.kd[0], sm.kmul[stage], a.box_rows);
+      dequant_tile<T, P, D, G>(sm.v[stage], sm.vd[0], sm.vmul[stage], a.box_rows);
       fence_proxy_async();
       consumer_sync();
       if (lane == 0) hw::mbar_arrive(&sm.empty[stage]);
@@ -517,16 +576,18 @@ int encode_pool(CUtensorMap* map, const void* pool, long long rows, int D, int d
   return res == CUDA_SUCCESS ? 0 : hw::kErrTensorMap;
 }
 
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool G>
 int launch(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
            int dtype, cudaStream_t stream) {
-  CUtensorMap tk, tv;
-  const long long rows = static_cast<long long>(a.Hkv) * a.NB * a.bs;
-  int err = encode_pool(&tk, k_pool, rows, a.D, D, pool_code, dtype, a.box_rows);
-  if (err == 0) err = encode_pool(&tv, v_pool, rows, a.D, D, pool_code, dtype, a.box_rows);
-  if (err != 0) return err;
-  auto* kernel = ragged_wgmma_kernel<T, P, D>;
-  const size_t smem = sizeof(RaggedSmem<T, P, D>) + 1024;
+  CUtensorMap tk{}, tv{};  // the gathered ring reads the pools through a.k_pool / a.v_pool
+  if (!G) {
+    const long long rows = static_cast<long long>(a.Hkv) * a.NB * a.bs;
+    int err = encode_pool(&tk, k_pool, rows, a.D, D, pool_code, dtype, a.box_rows);
+    if (err == 0) err = encode_pool(&tv, v_pool, rows, a.D, D, pool_code, dtype, a.box_rows);
+    if (err != 0) return err;
+  }
+  auto* kernel = ragged_wgmma_kernel<T, P, D, G>;
+  const size_t smem = sizeof(RaggedSmem<T, P, D, G>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -538,35 +599,43 @@ int launch(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool G>
 int launch_pool(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
                 int dtype, cudaStream_t stream) {
-  if (pool_code == 1) return launch<T, int8_t, D>(a, k_pool, v_pool, pool_code, dtype, stream);
+  if (pool_code == 1)
+    return launch<T, int8_t, D, G>(a, k_pool, v_pool, pool_code, dtype, stream);
   if (pool_code == 2)
-    return launch<T, __nv_fp8_e4m3, D>(a, k_pool, v_pool, pool_code, dtype, stream);
-  return launch<T, T, D>(a, k_pool, v_pool, pool_code, dtype, stream);
+    return launch<T, __nv_fp8_e4m3, D, G>(a, k_pool, v_pool, pool_code, dtype, stream);
+  return launch<T, T, D, G>(a, k_pool, v_pool, pool_code, dtype, stream);
 }
 
 }  // namespace
 
-template <int DP>
+template <int DP, bool G>
 int run_width(const RaggedArgs& a, const void* k_pool, const void* v_pool, int pool_code,
               int dtype, cudaStream_t stream) {
   if (dtype == ptt_flash::kBF16)
-    return launch_pool<bf16, DP>(a, k_pool, v_pool, pool_code, dtype, stream);
-  return launch_pool<f16, DP>(a, k_pool, v_pool, pool_code, dtype, stream);
+    return launch_pool<bf16, DP, G>(a, k_pool, v_pool, pool_code, dtype, stream);
+  return launch_pool<f16, DP, G>(a, k_pool, v_pool, pool_code, dtype, stream);
 }
-template int run_width<PTT_RAGGED_D>(const RaggedArgs&, const void*, const void*, int, int,
-                                     cudaStream_t);
+template int run_width<PTT_RAGGED_D, PTT_RAGGED_GATHER != 0>(const RaggedArgs&, const void*,
+                                                             const void*, int, int,
+                                                             cudaStream_t);
 
-#if PTT_RAGGED_D == 64  // the host entries, in one object
-// the other widths' kernels are built in their own objects
-extern template int run_width<128>(const RaggedArgs&, const void*, const void*, int, int,
-                                   cudaStream_t);
-extern template int run_width<192>(const RaggedArgs&, const void*, const void*, int, int,
-                                   cudaStream_t);
-extern template int run_width<256>(const RaggedArgs&, const void*, const void*, int, int,
-                                   cudaStream_t);
+#if PTT_RAGGED_D == 64 && PTT_RAGGED_GATHER == 0  // the host entries, in one object
+// the other widths' and the gathered ring's kernels are built in their own
+// objects
+#define PTT_RAGGED_EXTERN(DP, G)                                                         \
+  extern template int run_width<DP, G>(const RaggedArgs&, const void*, const void*, int, \
+                                       int, cudaStream_t);
+PTT_RAGGED_EXTERN(128, false)
+PTT_RAGGED_EXTERN(192, false)
+PTT_RAGGED_EXTERN(256, false)
+PTT_RAGGED_EXTERN(64, true)
+PTT_RAGGED_EXTERN(128, true)
+PTT_RAGGED_EXTERN(192, true)
+PTT_RAGGED_EXTERN(256, true)
+#undef PTT_RAGGED_EXTERN
 
 // The route's tiles and split count (ptt_ragged_plan): folded rows a block,
 // keys a tile, and the splits of a row's key tiles. Measured on an H100 SXM
@@ -604,9 +673,11 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
         const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
         const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
         int NB, int bs, int D, int nb, int splits, float scale, int dtype, int pool_code,
-        cudaStream_t stream) {
+        bool gather, cudaStream_t stream) {
   RaggedArgs a{};
   a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
   a.k_scales = static_cast<const float*>(k_scales);
   a.v_scales = static_cast<const float*>(v_scales);
   a.inv_qmax = 1.f / ptt_paged::qmax_of(pool_code);
@@ -635,10 +706,16 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
       (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   // D_pad: the narrowest width of 64, 128, 192, 256 that holds D
-  if (D <= 64) return run_width<64>(a, k_pool, v_pool, pool_code, dtype, stream);
-  if (D <= 128) return run_width<128>(a, k_pool, v_pool, pool_code, dtype, stream);
-  if (D <= 192) return run_width<192>(a, k_pool, v_pool, pool_code, dtype, stream);
-  return run_width<256>(a, k_pool, v_pool, pool_code, dtype, stream);
+#define PTT_RAGGED_WIDTHS(G)                                                     \
+  if (D <= 64) return run_width<64, G>(a, k_pool, v_pool, pool_code, dtype, stream);   \
+  if (D <= 128) return run_width<128, G>(a, k_pool, v_pool, pool_code, dtype, stream); \
+  if (D <= 192) return run_width<192, G>(a, k_pool, v_pool, pool_code, dtype, stream); \
+  return run_width<256, G>(a, k_pool, v_pool, pool_code, dtype, stream);
+  if (gather) {
+    PTT_RAGGED_WIDTHS(true)
+  }
+  PTT_RAGGED_WIDTHS(false)
+#undef PTT_RAGGED_WIDTHS
 }
 #endif
 

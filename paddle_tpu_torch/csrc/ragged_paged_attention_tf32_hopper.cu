@@ -1,9 +1,12 @@
 // Unified ragged prefill+decode paged attention in fp32 for Hopper (sm_90a),
-// on the TF32 tensor cores: fp32 queries over fp32 pools, a page size bs
-// that is a multiple of 8, D <= 128 a multiple of 4 and 16-byte aligned
-// pools. ragged_paged_attention.cu's entry hands it those calls (design
-// "wgmma-3xtf32" in ptt_ragged_plan); fp32 queries over int8 / fp8 pools,
-// the other page sizes and head dims keep the CUDA-core kernel there.
+// on the TF32 tensor cores: fp32 queries over fp32 pools or int8 / fp8 e4m3
+// pools with per-(kv head, page) scales, any page size bs, D <= 128 (a pool
+// row whole 16-byte words) and 16-byte aligned pools. ragged_paged_attention
+// .cu's entry hands it those calls (design "wgmma-3xtf32" in
+// ptt_ragged_plan); fp32 queries at D above 128, odd D and misaligned pools
+// keep the CUDA-core kernel there. This file is compiled once per D_pad
+// (-DPTT_RAGGED_TF32_D=<64|128>, kernels/_build.py); the object of D_pad 64
+// also holds the host entries.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`) for those calls:
@@ -11,7 +14,8 @@
 // sees keys at or before it, among the first nb * bs (the row's table);
 // columns c >= q_len and rows that see no key are exact zeros. GQA folds a
 // kv head's g query heads with the chunk: folded row f = c g + j. It took
-// the place of the CUDA-core kernel for fp32 queries over fp32 pools.
+// the place of the CUDA-core kernel for fp32 queries over fp32 pools, then
+// over 1-byte pools and at the other page sizes.
 //
 // Bound on an H100 SXM (3.35 TB/s, 495 TFLOP/s TF32 dense): a decode row
 // reads its fp32 K / V pages once (bytes-bound: 0.0148 ms for the serving
@@ -24,29 +28,52 @@
 // a_hi b_hi in fp32 accumulators (flash_hopper.cuh, "fp32 operands on the
 // TF32 tensor cores"): about 2^-21 of a product against TF32's 2^-11. A
 // tile's P V product goes to a fresh accumulator that the threads add to
-// the running output in fp32 (no chain longer than one tile).
+// the running output in fp32 (no chain longer than one tile). A 1-byte
+// page's element is first dequantized as x * (scale / qmax) in fp32, the
+// reference's own value, then split the same way: the route is held at the
+// fp32 gate (no 16-bit rounding of the dequantized page, unlike the 16-bit
+// kernel).
 //
 // Design. One block of 256 threads owns 64 folded rows of one (row, kv
 // head), and one split of the row's key tiles: warpgroup 0 is the consumer,
-// warpgroup 1 the producer (its warp 0 reads block_tables itself and issues
-// the TMA loads, its warps 1-3 split each landed tile). Shared memory limits
+// warpgroup 1 the producer (its warp 0 reads block_tables itself and copies
+// the pages, its warps 1-3 split each landed tile). Shared memory limits
 // the block to one an SM (a split fp32 element takes 8 bytes; 224 KB at D
-// 128).
+// 128 over fp32 pools, 176 KB over 1-byte pools).
 // - Q: the consumer loads the 64 folded rows once (16-byte words, rows
 //   c >= q_len as zeros) raw into the 128-byte-swizzled fp32 panels that
 //   frag_raw reads as the register A of S = Q K^T, split there.
-// - Pages through a TMA ring: a key tile of 32 keys is 32 / bs pages (or a
-//   part of one page when bs > 32), each a contiguous [bs, D] slab of the
-//   head-major pool, loaded by TMA over the pool seen as rows (h NB + page)
-//   bs + key % bs in boxes of the largest of 32 / 16 / 8 rows that divides
-//   bs (every box lands on a 1024-byte boundary of the swizzled panel). A
-//   box past the row's used pages loads the row's last used page again
-//   (finite values the mask drops): no table slot past them is read. The
-//   landed tiles and the split ones are two rings of two stages each: a
-//   landed stage is free again (`raw_empty`) once it is split, not once
-//   the products are done, so the loads run up to four tiles ahead of the
-//   consumer (a decode block's page chain is latency-bound: its bytes in
-//   flight set its rate).
+// - Pages through a gathered ring, at every page size: producer warp 0
+//   copies a key tile of 32 keys key row by key row with cp.async, 16 bytes
+//   a lane a copy (flash_hopper.cuh gather_tile): key k from pool row (h NB
+//   + table[k / bs]) bs + k % bs, into the swizzled 32-column fp32 panels
+//   that split_k_vt reads. A key at or past the tile plan's n_keys is
+//   zero-filled and nothing is read for it: no table slot past the row's
+//   used pages is touched. The copies arrive on the `raw` barrier (32
+//   arrivals); the split warps read the tile with ordinary loads, so no
+//   proxy fence stands before them. The landed tiles and the split ones are
+//   two rings of two stages each: a landed stage is free again
+//   (`raw_empty`) once it is split, not once the products are done, so the
+//   copies run up to four tiles ahead of the consumer. Why not TMA: a TMA
+//   ring (boxes of the largest of 32 / 16 / 8 rows that divides bs, so only
+//   page sizes that are a multiple of 8) ran no faster on an H100 SXM at
+//   700 W in one A/B (profiler/kernels_ab.py, the decode batch of 8 rows x
+//   16 heads of 128, kv 100-640, pages of 32): fp32 decode 0.0651 / 0.0652
+//   ms gathered against 0.0658 / 0.0659 by TMA, fp32 mixed 0.0571 / 0.0569
+//   against 0.0574 / 0.0573, fp32 q over int8 / fp8 0.0689 / 0.0681 against
+//   0.0719 / 0.0723; at D 64 in a second A/B, decode 0.0405 / 0.0404
+//   against 0.0401 / 0.0404, mixed 0.0351 / 0.0350 against 0.0353 / 0.0353,
+//   over int8 0.0435 / 0.0435 against 0.0456 / 0.0457. The walk is set by
+//   the split and the products, not by how the bytes land.
+// - 1-byte pools: a landed stage holds the raw rows ([32 keys][D_pad]
+//   unswizzled: 4 KB a tile of K at D 128, a quarter of fp32's) and the
+//   scale / qmax of each key, written by the lane that reads the key's
+//   table slot before its arrival; the split warps dequantize as they
+//   split (split_k_vt_q). 176 KB at D 128, so a third landed stage fits
+//   (184 KB), but it did not pay: on an H100 SXM, with the TMA ring, the
+//   fp32 decode batch over int8 pools ran 0.0742 / 0.0745 ms with three
+//   against 0.0741 / 0.0740 with two: the bytes in flight do not set this
+//   walk.
 // - The split (producer warps 1-3): K into hi and lo halves, the 8 columns
 //   of each key step in perm8 order (the K-major B of S = Q K^T); V
 //   transposed, [D][32 keys] hi and lo, the keys
@@ -73,18 +100,22 @@
 //   the block writes the output itself.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "flash_hopper.cuh"
 #include "paged_common.cuh"
 
+#ifndef PTT_RAGGED_TF32_D
+#error "compile once per D_pad: -DPTT_RAGGED_TF32_D=<64|128>"
+#endif
+
 namespace ptt_ragged_tf32 {
-namespace {
 
 namespace hw = ptt_flash::hopper;
 
 constexpr int kRows = 64;       // folded query rows a block (one m64 warpgroup)
 constexpr int kBN = 32;         // keys a tile
-constexpr int kStages = 2;      // stages of each ring, the landed and the split
+constexpr int kStages = 2;      // stages of the split ring
 constexpr int kMaxSplits = 16;  // splits of a row's key tiles the merge takes
 constexpr int kThreadsT = 256;  // the consumer warpgroup and the producer warpgroup
 constexpr int kSplitters = 96;  // producer warps 1-3
@@ -93,15 +124,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scales;  // 1-byte pools: fp32 [H_kv, NB] absmax scales
+  const float* v_scales;
+  float qmax;             // 127 (int8) or 448 (fp8 e4m3)
   const int* tables;
   const int* q_lens;
   const int* kv_lens;
   float* out;
   float* part_o;   // [R, H_kv, tiles, splits, 64, D] unnormalized O
   float* part_ml;  // [R, H_kv, tiles, splits, 64, 2] m, l
-  int R, C, Hq, Hkv, NB, bs, D, nb, g, tiles, splits, per_split, box_rows;
+  int R, C, Hq, Hkv, NB, bs, D, nb, g, tiles, splits, per_split;
   float scale;
 };
+
+// the kernels at one D_pad (each object of this file defines its own)
+template <int DP>
+int run_width(const Args& a, int pool_code, cudaStream_t stream);
+
+namespace {
 
 // What a (row r, query tile) of folded rows [f0, f0 + 64) does: its live
 // rows (c < q_len), the absolute position of chunk column 0, the keys it
@@ -127,84 +169,157 @@ __device__ __forceinline__ TilePlan tile_plan(const Args& a, int r, int tile) {
 }
 
 // fp32 tiles as 32-column panels of 128-byte rows (flash_hopper.cuh
-// f32_off); every array starts on a 1024-byte boundary.
-template <int D>
+// f32_off); every array starts on a 1024-byte boundary. P: the pool
+// element. fp32 pools land in those panels; 1-byte pools land raw
+// ([kBN][D] unswizzled, a quarter of the bytes) beside the scale / qmax of
+// each key, and the split dequantizes them.
+template <int D, typename P>
 struct Smem {
+  static constexpr bool kQuant = !std::is_same<P, float>::value;
   static constexpr int kP = D / 32;
-  float q[kP][kRows * 32];                             // raw Q, [64][D]
-  float k[kStages][kP][kBN * 32], v[kStages][kP][kBN * 32];  // the landed ring
+  static constexpr int kLandBytes = kBN * D * static_cast<int>(sizeof(P));
+  static constexpr int kLanded = 2;  // stages of the landed ring
+  float q[kP][kRows * 32];                                        // raw Q, [64][D]
+  unsigned char k[kLanded][kLandBytes], v[kLanded][kLandBytes];  // the landed ring
   float khi[kStages][kP][kBN * 32], klo[kStages][kP][kBN * 32];  // the split ring:
   float vhi[kStages][D * 32], vlo[kStages][D * 32];  // K (perm8), V^T [D][32 keys]
-  // raw / raw_empty: the landed ring (TMA, the split); full / empty: the
-  // split ring (the split, the products)
-  uint64_t raw[kStages], raw_empty[kStages], full[kStages], empty[kStages];
+  float kmul[kQuant ? kLanded : 1][kBN];  // scale / qmax of each key
+  float vmul[kQuant ? kLanded : 1][kBN];
+  // raw / raw_empty: the landed ring (the loads, the split); full / empty:
+  // the split ring (the split, the products)
+  uint64_t raw[kLanded], raw_empty[kLanded], full[kStages], empty[kStages];
 };
 
+template <int N>
 __device__ __forceinline__ void next_stage(int& stage, uint32_t& phase) {
-  if (++stage == kStages) {
+  if (++stage == N) {
     stage = 0;
     phase ^= 1;
   }
 }
 
-// Producer warp 0: the split's key tiles, a box of pages at a time, on the
-// `raw` barrier (one lane).
-template <int D>
-__device__ __forceinline__ void produce(Smem<D>& sm, const CUtensorMap* tk,
-                                        const CUtensorMap* tv, const Args& a, int r, int h,
-                                        int t_begin, int t_end) {
-  constexpr int kP = Smem<D>::kP;
-  hw::tma_prefetch_map(tk);
-  hw::tma_prefetch_map(tv);
+// Producer warp 0: the split's key tiles into the landed ring, key row by
+// key row with each key's scales, on the `raw` barrier.
+template <int D, typename P>
+__device__ __forceinline__ void produce(Smem<D, P>& sm, const Args& a, int r, int h,
+                                        int t_begin, int t_end, int n_keys) {
+  using S = Smem<D, P>;
+  constexpr int kChunks = D * static_cast<int>(sizeof(P)) / 16;
   const int* table = a.tables + static_cast<long long>(r) * a.nb;
-  const int used = min((a.kv_lens[r] + a.bs - 1) / a.bs, a.nb);
-  const int boxes = kBN / a.box_rows;
+  const int row_bytes = a.D * static_cast<int>(sizeof(P));
   int stage = 0;
   uint32_t phase = 0;
   for (int t = t_begin; t < t_end; ++t) {
     hw::mbar_wait(&sm.raw_empty[stage], phase ^ 1);
-    int rows[kBN / 8];
-    for (int bx = 0; bx < boxes; ++bx) {
-      const int key = t * kBN + bx * a.box_rows;
-      const int page = table[min(key / a.bs, used - 1)];
-      rows[bx] = (h * a.NB + page) * a.bs + key % a.bs;
+    float* km = sm.kmul[S::kQuant ? stage : 0];
+    float* vm = sm.vmul[S::kQuant ? stage : 0];
+    hw::gather_tile<kBN, kChunks>(
+        sm.k[stage], sm.v[stage], static_cast<const unsigned char*>(a.k_pool),
+        static_cast<const unsigned char*>(a.v_pool), row_bytes, table, h, a.NB, a.bs, t * kBN,
+        n_keys, row_bytes / 16, &sm.raw[stage],
+        [](int rr, int c) {
+          // 1-byte pools: the raw row; fp32: the swizzled 32-column panels
+          return S::kQuant ? rr * D + 16 * c : static_cast<int>(hw::f32_off(rr, 4 * c, kBN * 128));
+        },
+        [&](int rr, int page) {
+          if (S::kQuant) {  // the key's scale / qmax, as the reference forms it
+            const long long s = static_cast<long long>(h) * a.NB + page;
+            km[rr] = page < 0 ? 0.f : a.k_scales[s] / a.qmax;
+            vm[rr] = page < 0 ? 0.f : a.v_scales[s] / a.qmax;
+          }
+        });
+    next_stage<S::kLanded>(stage, phase);
+  }
+}
+
+// A landed tile of 1-byte pages ([kBN][D] raw rows) dequantized and split
+// by threads [0, n) of the caller: each element x becomes x * (scale /
+// qmax) in fp32, the reference's value, then hi and lo as split_k_vt makes
+// them (K in the swizzled 32-column panels, each 8 columns in perm8 order;
+// V^T [D][kBN keys], the keys of each step in perm8 order).
+template <int D, typename P>
+__device__ __forceinline__ void split_k_vt_q(const unsigned char* kraw, float* khi, float* klo,
+                                             const unsigned char* vraw, float* vhi, float* vlo,
+                                             const float* kmul, const float* vmul, int tid,
+                                             int n) {
+  unsigned char* kh = reinterpret_cast<unsigned char*>(khi);
+  unsigned char* kl = reinterpret_cast<unsigned char*>(klo);
+  // K: 8 columns of a key a unit, a row's units on consecutive threads
+  for (int u = tid; u < kBN * (D / 8); u += n) {
+    const int key = u / (D / 8), c = 8 * (u % (D / 8));
+    const uint2 w = *reinterpret_cast<const uint2*>(kraw + key * D + c);
+    const P* x = reinterpret_cast<const P*>(&w);
+    const float m = kmul[key];
+    const float v[8] = {ptt_paged::to_f32(x[0]) * m, ptt_paged::to_f32(x[2]) * m,
+                        ptt_paged::to_f32(x[4]) * m, ptt_paged::to_f32(x[6]) * m,
+                        ptt_paged::to_f32(x[1]) * m, ptt_paged::to_f32(x[3]) * m,
+                        ptt_paged::to_f32(x[5]) * m, ptt_paged::to_f32(x[7]) * m};  // perm8
+    uint32_t h[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hw::split_tf32(v[i], h[i], l[i]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t off = hw::f32_off(key, c + 4 * half, kBN * 128);
+      *reinterpret_cast<uint4*>(kh + off) =
+          make_uint4(h[4 * half], h[4 * half + 1], h[4 * half + 2], h[4 * half + 3]);
+      *reinterpret_cast<uint4*>(kl + off) =
+          make_uint4(l[4 * half], l[4 * half + 1], l[4 * half + 2], l[4 * half + 3]);
     }
-    hw::mbar_arrive_tx(&sm.raw[stage], 2 * kBN * D * 4);
-    for (int bx = 0; bx < boxes; ++bx)
-      for (int p = 0; p < kP; ++p) {
-        const int off = bx * a.box_rows * 32;
-        hw::tma_load_2d(&sm.k[stage][p][off], tk, &sm.raw[stage], 32 * p, rows[bx]);
-        hw::tma_load_2d(&sm.v[stage][p][off], tv, &sm.raw[stage], 32 * p, rows[bx]);
-      }
-    next_stage(stage, phase);
+  }
+  // V transposed: 16 columns of one key a thread, the keys on consecutive
+  // threads (each store lands on one V^T row's 32 banks; a quarter warp's
+  // 16-byte reads share a bank group, but laid out conflict-free, the K
+  // stores too, the split ran 2-3 % slower on an H100 SXM)
+  unsigned char* vh = reinterpret_cast<unsigned char*>(vhi);
+  unsigned char* vl = reinterpret_cast<unsigned char*>(vlo);
+  for (int e = tid; e < kBN * (D / 16); e += n) {
+    const int key = e % kBN, c = 16 * (e / kBN);
+    const uint4 w = *reinterpret_cast<const uint4*>(vraw + key * D + c);
+    const P* x = reinterpret_cast<const P*>(&w);
+    const float m = vmul[key];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      uint32_t hi, lo;
+      hw::split_tf32(ptt_paged::to_f32(x[i]) * m, hi, lo);
+      const uint32_t off = hw::f32_off(c + i, hw::perm8(key), 0);
+      *reinterpret_cast<uint32_t*>(vh + off) = hi;
+      *reinterpret_cast<uint32_t*>(vl + off) = lo;
+    }
   }
 }
 
 // Producer warps 1-3: a landed stage split into a split stage, K into hi
-// and lo (perm8), V into V^T [D][32 keys] (perm8 keys); the landed stage is
-// freed (`raw_empty`), the split one handed on (`full`).
-template <int D>
-__device__ __forceinline__ void split_stream(Smem<D>& sm, int n_tiles) {
+// and lo (perm8), V into V^T [D][32 keys] (perm8 keys), a 1-byte stage
+// dequantized first; the landed stage is freed (`raw_empty`), the split one
+// handed on (`full`).
+template <int D, typename P>
+__device__ __forceinline__ void split_stream(Smem<D, P>& sm, int n_tiles) {
+  using S = Smem<D, P>;
   const int tid = threadIdx.x - 160;
-  int stage = 0;
-  uint32_t phase = 0;
+  int land = 0, stage = 0;
+  uint32_t land_phase = 0, phase = 0;
   for (int t = 0; t < n_tiles; ++t) {
-    hw::mbar_wait(&sm.raw[stage], phase);
+    hw::mbar_wait(&sm.raw[land], land_phase);
     hw::mbar_wait(&sm.empty[stage], phase ^ 1);
-    hw::split_k_vt<D, kBN>(sm.k[stage][0], sm.khi[stage][0], sm.klo[stage][0], sm.v[stage][0],
-                           sm.vhi[stage], sm.vlo[stage], tid, kSplitters);
-    hw::mbar_arrive(&sm.raw_empty[stage]);
+    if constexpr (S::kQuant)
+      split_k_vt_q<D, P>(sm.k[land], sm.khi[stage][0], sm.klo[stage][0], sm.v[land],
+                         sm.vhi[stage], sm.vlo[stage], sm.kmul[land], sm.vmul[land], tid,
+                         kSplitters);
+    else
+      hw::split_k_vt<D, kBN>(reinterpret_cast<const float*>(sm.k[land]), sm.khi[stage][0],
+                             sm.klo[stage][0], reinterpret_cast<const float*>(sm.v[land]),
+                             sm.vhi[stage], sm.vlo[stage], tid, kSplitters);
+    hw::mbar_arrive(&sm.raw_empty[land]);
     hw::fence_proxy_async();
     hw::mbar_arrive(&sm.full[stage]);
-    next_stage(stage, phase);
+    next_stage<S::kLanded>(land, land_phase);
+    next_stage<kStages>(stage, phase);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsT, 1)
-    ragged_tf32_kernel(const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, const Args a) {
-  using S = Smem<D>;
+template <int D, typename P>
+__global__ void __launch_bounds__(kThreadsT, 1) ragged_tf32_kernel(const Args a) {
+  using S = Smem<D, P>;
   const int split = blockIdx.x % a.splits, tile = blockIdx.x / a.splits;
   const int h = blockIdx.y, r = blockIdx.z;
   const TilePlan tp = tile_plan(a, r, tile);
@@ -231,9 +346,11 @@ __global__ void __launch_bounds__(kThreadsT, 1)
   extern __shared__ unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(hw::align1024(smem_raw));
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      hw::mbar_init(&sm.raw[st], 1);
+    for (int st = 0; st < S::kLanded; ++st) {
+      hw::mbar_init(&sm.raw[st], 32);  // the gathering warp
       hw::mbar_init(&sm.raw_empty[st], kSplitters);
+    }
+    for (int st = 0; st < kStages; ++st) {
       hw::mbar_init(&sm.full[st], kSplitters);
       hw::mbar_init(&sm.empty[st], 4);
     }
@@ -243,9 +360,9 @@ __global__ void __launch_bounds__(kThreadsT, 1)
 
   if (threadIdx.x >= 128) {
     if (threadIdx.x >= 160)
-      split_stream<D>(sm, n_tiles);
-    else if (threadIdx.x == 128)
-      produce<D>(sm, &tk, &tv, a, r, h, t_begin, t_end);
+      split_stream<D, P>(sm, n_tiles);
+    else
+      produce<D, P>(sm, a, r, h, t_begin, t_end, tp.n_keys);
     return;
   }
 
@@ -360,7 +477,7 @@ __global__ void __launch_bounds__(kThreadsT, 1)
     for (int mb = 0; mb < D / 64; ++mb)
 #pragma unroll
       for (int c = 0; c < 32; ++c) o[32 * mb + c] += part[mb][c];
-    next_stage(stage, phase);
+    next_stage<kStages>(stage, phase);
   }
 
   if (a.splits == 1) {
@@ -452,38 +569,17 @@ __global__ void __launch_bounds__(128) ragged_tf32_combine_kernel(const Args a) 
   }
 }
 
-// A 2-D tensor map over the fp32 pool seen as [H_kv NB bs rows, D]: boxes of
-// 32 columns x box_rows rows, 128-byte swizzle (the panels the split reads).
-// The columns past D arrive as zeros.
-int encode_pool(CUtensorMap* map, const void* pool, long long rows, int D, int box_rows) {
-  const hw::EncodeTiled fn = hw::encoder();
-  if (fn == nullptr) return hw::kErrTensorMap;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
-  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(pool), dims,
-                          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : hw::kErrTensorMap;
-}
-
-template <int D>
-int launch(const Args& a, const void* k_pool, const void* v_pool, cudaStream_t stream) {
-  auto* kernel = ragged_tf32_kernel<D>;
-  const size_t smem = sizeof(Smem<D>) + 1024;
-  static_assert(sizeof(Smem<D>) + 1024 <= 232448, "over the 227 KB a block may hold");
+template <int D, typename P>
+int launch(const Args& a, cudaStream_t stream) {
+  using S = Smem<D, P>;
+  auto* kernel = ragged_tf32_kernel<D, P>;
+  const size_t smem = sizeof(S) + 1024;
+  static_assert(sizeof(S) + 1024 <= 232448, "over the 227 KB a block may hold");
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  CUtensorMap tk, tv;
-  const long long rows = static_cast<long long>(a.Hkv) * a.NB * a.bs;
-  int err = encode_pool(&tk, k_pool, rows, a.D, a.box_rows);
-  if (err == 0) err = encode_pool(&tv, v_pool, rows, a.D, a.box_rows);
-  if (err != 0) return err;
   const dim3 grid(a.tiles * a.splits, a.Hkv, a.R);
-  kernel<<<grid, kThreadsT, smem, stream>>>(tk, tv, a);
+  kernel<<<grid, kThreadsT, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return static_cast<int>(e);
   ragged_tf32_combine_kernel<<<dim3(a.tiles, a.Hkv, a.R), 128, 0, stream>>>(a);
@@ -491,6 +587,18 @@ int launch(const Args& a, const void* k_pool, const void* v_pool, cudaStream_t s
 }
 
 }  // namespace
+
+template <int DP>
+int run_width(const Args& a, int pool_code, cudaStream_t stream) {
+  if (pool_code == 1) return launch<DP, int8_t>(a, stream);
+  if (pool_code == 2) return launch<DP, __nv_fp8_e4m3>(a, stream);
+  return launch<DP, float>(a, stream);
+}
+template int run_width<PTT_RAGGED_TF32_D>(const Args&, int, cudaStream_t);
+
+#if PTT_RAGGED_TF32_D == 64  // the host entries, in one object
+// the other width's kernels are built in their own object
+extern template int run_width<128>(const Args&, int, cudaStream_t);
 
 // The route's tiles and split count (ptt_ragged_plan): folded rows a block,
 // keys a tile, and the splits of a row's key tiles. A block holds its SM
@@ -524,11 +632,17 @@ int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb) {
 }
 
 int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-        const void* q_lens, const void* kv_lens, void* out, void* part_o, void* part_ml, int R,
-        int C, int Hq, int Hkv, int NB, int bs, int D, int nb, int splits, float scale,
+        const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
+        const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
+        int NB, int bs, int D, int nb, int splits, float scale, int pool_code,
         cudaStream_t stream) {
   Args a{};
   a.q = static_cast<const float*>(q);
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.k_scales = static_cast<const float*>(k_scales);
+  a.v_scales = static_cast<const float*>(v_scales);
+  a.qmax = ptt_paged::qmax_of(pool_code);
   a.tables = static_cast<const int*>(tables);
   a.q_lens = static_cast<const int*>(q_lens);
   a.kv_lens = static_cast<const int*>(kv_lens);
@@ -548,12 +662,12 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
   a.splits = splits;
   const int table_tiles = (nb * bs + kBN - 1) / kBN;
   a.per_split = (table_tiles + splits - 1) / splits;
-  a.box_rows = bs % 32 == 0 ? 32 : bs % 16 == 0 ? 16 : 8;
   a.scale = scale;
   if (splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return D > 64 ? launch<128>(a, k_pool, v_pool, stream) : launch<64>(a, k_pool, v_pool, stream);
+  return D > 64 ? run_width<128>(a, pool_code, stream) : run_width<64>(a, pool_code, stream);
 }
+#endif
 
 }  // namespace ptt_ragged_tf32

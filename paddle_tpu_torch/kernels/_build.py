@@ -3,9 +3,9 @@ library with a plain C interface, loaded with ``ctypes``.
 
 The ``*.cu`` sources under ``paddle_tpu_torch/csrc/`` are compiled for
 ``sm_90a``, one ``nvcc -c`` per source (the flash sources once per head-dim
-family member and kernel, the 16-bit ragged kernel once per width), all
-started together, and linked by one
-``nvcc -shared`` into
+family member and kernel, the ragged wgmma kernels once per width, the
+16-bit one also once per page ring), all started together, and linked by
+one ``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
 hash covers the sources, the headers and the flags, so a checkout builds at
 first use and reuses the library after that. The ``.cuh`` templates of the
@@ -55,8 +55,13 @@ FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
 # them with zero columns, 192 and 256 the FP32-pipe kernels
 FLASH_TF32_D_PADS = (64, 128)
 # the 16-bit ragged kernel (ragged_paged_attention_hopper.cu): one object per
-# width (-DPTT_RAGGED_D=<width>; the object of 64 holds the host entries)
+# width and page ring (-DPTT_RAGGED_D=<width> -DPTT_RAGGED_GATHER=<0: TMA,
+# 1: gathered>; the object of 64 with the TMA ring holds the host entries)
 RAGGED_HOPPER_D_PADS = (64, 128, 192, 256)
+# the fp32 ragged kernel on the TF32 tensor cores
+# (ragged_paged_attention_tf32_hopper.cu, its pages always gathered): one
+# object per width (-DPTT_RAGGED_TF32_D=<width>; 64 holds the host entries)
+RAGGED_TF32_D_PADS = (64, 128)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -82,8 +87,9 @@ def _nvcc() -> str:
 def _units():
     """(source, object stem, extra flags): one per source, and one per
     head-dim family member (and backward kernel) for the flash sources, one
-    per redesigned width for the wgmma flash sources and the 16-bit ragged
-    kernel."""
+    per redesigned width for the wgmma flash sources, one per width and
+    page ring for the 16-bit ragged wgmma kernel and one per width for the
+    TF32 one."""
     for src in sorted(CSRC.glob("*.cu")):
         if src.name == "flash_attention_fwd.cu":
             for d in FLASH_D_PADS:
@@ -101,7 +107,13 @@ def _units():
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name == "ragged_paged_attention_hopper.cu":
             for d in RAGGED_HOPPER_D_PADS:
-                yield src, f"{src.stem}.d{d}", [f"-DPTT_RAGGED_D={d}"]
+                for ring, gather in (("tma", 0), ("gather", 1)):
+                    yield src, f"{src.stem}.d{d}.{ring}", [
+                        f"-DPTT_RAGGED_D={d}",
+                        f"-DPTT_RAGGED_GATHER={gather}"]
+        elif src.name == "ragged_paged_attention_tf32_hopper.cu":
+            for d in RAGGED_TF32_D_PADS:
+                yield src, f"{src.stem}.d{d}", [f"-DPTT_RAGGED_TF32_D={d}"]
         elif src.name == "flash_attention_bwd.cu":
             for d in FLASH_D_PADS:
                 for part, flag in (("dq", 1), ("dkv", 0)):
@@ -117,7 +129,7 @@ def _digest(extra: str = "") -> str:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
-            + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS)
+            + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS + RAGGED_TF32_D_PADS)
     h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]

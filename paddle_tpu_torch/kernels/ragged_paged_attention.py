@@ -3,7 +3,7 @@
 ``ragged_paged_attention``, kernel body ``_ragged_kernel``).
 
 The TPU kernel is replaced by CUDA kernels written by hand for Hopper (built
-for ``sm_90a`` by ``kernels/_build.py`` at first use), on three routes that
+for ``sm_90a`` by ``kernels/_build.py`` at first use), on routes that
 ``kernel_plan`` reports:
 
 * ``"wgmma+tma"`` (``paddle_tpu_torch/csrc/ragged_paged_attention_hopper.cu``):
@@ -22,24 +22,30 @@ for ``sm_90a`` by ``kernels/_build.py`` at first use), on three routes that
   count from the table width, on the host), the splits write partial O, m
   and l into fp32 scratch that this wrapper allocates, and a second small
   kernel merges them;
+* ``"wgmma+gather"`` (the same file): the same kernel at a page size that
+  is not a multiple of 8 (any size, pages larger than a tile too), the
+  pages gathered into the same stages key row by key row by the producer
+  warp's ``cp.async`` copies, since no TMA box of whole 8-row swizzle atoms
+  fits such a page;
 * ``"wgmma-3xtf32"``
   (``paddle_tpu_torch/csrc/ragged_paged_attention_tf32_hopper.cu``): fp32
-  queries over fp32 pools, a page size that is a multiple of 8, D <= 128,
-  on the TF32 tensor cores: each fp32 operand split into two TF32 halves
-  and every product taken as three (about 2^-21 of a product), the same
-  block, ring and splits with key tiles of 32, the landed pages split (and
-  V transposed) in shared memory by the producer warpgroup;
-* ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): every
-  other call up to D 256 (fp32 queries over int8 / fp8 pools or at D above
-  128, page sizes that are not a multiple of 8, D not a whole number of
-  16-byte words, pools that are not 16-byte aligned): one block per (row,
-  kv head, 16 folded rows) walks the row's pages in fp32 shared tiles on
-  the CUDA cores.
+  queries over fp32, int8 or fp8 e4m3 pools, any page size, D <= 128, on
+  the TF32 tensor cores: each fp32 operand split into two TF32 halves and
+  every product taken as three (about 2^-21 of a product), the same block
+  and splits with key tiles of 32, the pages always gathered key row by key
+  row by ``cp.async`` (a TMA ring ran no faster here), then split (V
+  transposed, a 1-byte page dequantized to the reference's fp32 value
+  first) in shared memory by the producer warpgroup;
+* ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): what
+  stays on the CUDA cores up to D 256: fp32 queries at D above 128 (any
+  pool), D not a whole number of 16-byte words, pools that are not 16-byte
+  aligned. One block per (row, kv head, 16 folded rows) walks the row's
+  pages in fp32 shared tiles.
 
 What bounds the function on an H100 SXM (published peaks at its 700 W
-limit): decode rows are bandwidth-bound, each row reading
-``2 * H_kv * ceil(kv_len/bs) * bs * D * itemsize`` bytes of K/V pages
-against 3.35 TB/s; prefill chunks do ``4 * D`` FLOPs per visible (query
+limit): decode rows are bandwidth-bound, each row needing
+``2 * H_kv * kv_len * D * itemsize`` bytes of K/V rows against 3.35
+TB/s; prefill chunks do ``4 * D`` FLOPs per visible (query
 head, key) pair against 989 TFLOP/s bf16 (495 TF32, three times over, in
 fp32).
 
@@ -64,7 +70,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # quantized storage dtypes with the top of their grid (qmax)
 _POOL_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
-_DESIGNS = {0: "fp32", 2: "wgmma+tma", 3: "wgmma-3xtf32"}
+_DESIGNS = {0: "fp32", 2: "wgmma+tma", 3: "wgmma-3xtf32", 4: "wgmma+gather"}
 # the widest head the kernels take (the 16-bit wgmma kernel's D_pad 256);
 # the reference's kernel takes any: D above 256 is ROADMAP Queue 2 K15
 MAX_HEAD_DIM = 256
@@ -167,7 +173,8 @@ def _check_head_dim(D):
 def kernel_plan(q, k_pool, block_tables, v_pool=None) -> dict:
     """How the built library serves a call with these tensors' shapes,
     dtypes and pool alignment (no data is read): ``design`` ("wgmma+tma",
-    "wgmma-3xtf32" or "fp32", the three routes of the module note),
+    "wgmma+gather", "wgmma-3xtf32" or "fp32", the routes of the module
+    note: which kernel, and which page ring),
     ``query_rows`` (folded rows a block), ``keys`` (keys a tile) and
     ``splits`` (of a row's key tiles, from the table width). Read from the
     library's ``ptt_ragged_plan``; it builds the library on first use."""
@@ -201,7 +208,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, q_lens, kv_lens,
     block_tables: [R, nb] int32; q_lens: [R] int32 (0 = inactive row);
     kv_lens: [R] int32, the TOTAL kv length including this chunk (query c
     sits at absolute position kv_lens - q_lens + c) -> [R, C, H_q, D] in q's
-    dtype. ``splits``: on the "wgmma+tma" and "wgmma-3xtf32" routes, the
+    dtype. ``splits``: on the wgmma routes (TMA or gathered ring), the
     splits of a row's key tiles, 1 to 16 (``kernel_plan``'s when None,
     which callers take; a count is given to test the merge and to time the
     counts, ``profiler/ragged_splits.py``); the "fp32" route takes None or

@@ -2,6 +2,7 @@
 checkouts on one card, in turns.
 
     python3 -m paddle_tpu_torch.profiler.kernels_ab --parent DIR [--child DIR]
+        [--ragged-only]
 
 ``DIR`` is the root of a checkout (the directory that holds
 ``paddle_tpu_torch/``); ``--child`` defaults to this checkout. Each version
@@ -13,7 +14,12 @@ the paged decode kernel on that batch in fp32 too, the ragged kernel on
 phase 3's mixed batch (4 rows, C 128), on the decode batch over int8
 pools, on both batches with fp32 queries and pools (phase 3's fp32 (a) and
 (b)), on both batches at D 256 in bf16 and on the decode batch at D 256
-over int8 and fp8 pools, the flash dK/dV kernel at
+over int8 and fp8 pools, on the decode batch over fp8 pools, with fp32
+queries over int8 and fp8 pools, with pages of 12 keys in bf16, fp32
+and bf16 over int8 pools, and with fp32 queries at D 64 (the decode batch
+over fp32 and int8 pools, the mixed batch) (``--ragged-only`` stops
+there), the flash dK/dV
+kernel at
 phase 25's call (B 8, S 1024, H 16, causal) at D 256 and D 160 in bf16 and
 D 256 in fp16, the fp32 flash forward, dQ and dK/dV at phase 6 (a)'s call
 (B 8, S 1024, H 16, D 128, causal),
@@ -95,7 +101,36 @@ k8, v8 = (torch.round(x.float() / sc[..., None, None] * 127).to(torch.int8)
           for x, sc in ((k_pool, ks), (v_pool, vs)))
 res["ragged_decode_int8"] = ms(lambda: RPA.ragged_paged_attention(
     q, k8, v8, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks, v_scales=vs))
-del k8, v8
+# fp32 queries over the int8 pools, and both over fp8 e4m3 pools
+q32 = q.float()
+res["ragged_decode_fp32_int8"] = ms(lambda: RPA.ragged_paged_attention(
+    q32, k8, v8, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks,
+    v_scales=vs))
+f8k, f8v = (torch.clamp(x.float() / sc[..., None, None] * 448, -448, 448)
+            .to(torch.float8_e4m3fn) for x, sc in ((k_pool, ks), (v_pool, vs)))
+res["ragged_decode_fp8"] = ms(lambda: RPA.ragged_paged_attention(
+    q, f8k, f8v, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks, v_scales=vs))
+res["ragged_decode_fp32_fp8"] = ms(lambda: RPA.ragged_paged_attention(
+    q32, f8k, f8v, tables, ones, kv, 1 / math.sqrt(D), k_scales=ks,
+    v_scales=vs))
+del k8, v8, f8k, f8v
+# the decode batch with pages of 12 keys (54 a row), bf16, fp32 and bf16
+# over int8 pools
+NB12, nb12 = 450, 54
+t12 = torch.from_numpy(rng.permutation(np.arange(1, NB12))[:8 * nb12]
+                       .reshape(8, nb12).astype(np.int32)).to(dev)
+k12, v12 = rnd(H, NB12, 12, D), rnd(H, NB12, 12, D)
+for qq, kk, vv, tag in ((q, k12, v12, ""),
+                        (q32, k12.float(), v12.float(), "_fp32")):
+    res["ragged_decode_bs12" + tag] = ms(lambda: RPA.ragged_paged_attention(
+        qq, kk, vv, t12, ones, kv, 1 / math.sqrt(D)))
+ks12, vs12 = (x.float().abs().amax((2, 3)) for x in (k12, v12))
+k12, v12 = (torch.round(x.float() / sc[..., None, None] * 127).to(torch.int8)
+            for x, sc in ((k12, ks12), (v12, vs12)))
+res["ragged_decode_bs12_int8"] = ms(lambda: RPA.ragged_paged_attention(
+    q, k12, v12, t12, ones, kv, 1 / math.sqrt(D), k_scales=ks12,
+    v_scales=vs12))
+del k12, v12, q32
 # fp32 queries over fp32 pools (phase 3's fp32 (a))
 q32, k32, v32 = (t.float() for t in (q, k_pool, v_pool))
 res["ragged_decode_fp32"] = ms(lambda: RPA.ragged_paged_attention(
@@ -121,6 +156,49 @@ for pool, qmax, tag in ((torch.int8, 127.0, "int8"),
         q256, kq, vq, tables, ones, kv, 1 / 16, k_scales=ks, v_scales=vs))
     del kq, vq
 del q256, k256, v256
+# chip_smoke.py phase 3's case (b): a mixed batch of 4 rows, C 128 (a full
+# prefill chunk over 384 keys, a fresh 100-token prefill, a decode row over
+# 517 keys, an empty row)
+mixed_q, mixed_kv = [128, 100, 1, 0], [384, 100, 517, 0]
+mt = np.zeros((4, nb), np.int32)
+free = list(rng.permutation(np.arange(1, NB)))
+for r in range(4):
+    for j in range(-(-mixed_kv[r] // bs)):
+        mt[r, j] = free.pop()
+qm = rnd(4, 128, H, D)
+mt, ql_m, kv_m = (torch.tensor(a, dtype=torch.int32, device=dev)
+                  for a in (mt, mixed_q, mixed_kv))
+res["ragged_mixed"] = ms(lambda: RPA.ragged_paged_attention(
+    qm, k_pool, v_pool, mt, ql_m, kv_m, 1 / math.sqrt(D)))
+qm32, k32, v32 = (t.float() for t in (qm, k_pool, v_pool))
+res["ragged_mixed_fp32"] = ms(lambda: RPA.ragged_paged_attention(
+    qm32, k32, v32, mt, ql_m, kv_m, 1 / math.sqrt(D)))
+del qm32, k32, v32
+qm256, k256, v256 = rnd(4, 128, H, 256), rnd(H, NB, bs, 256), rnd(H, NB, bs, 256)
+try:
+    res["ragged_mixed_d256"] = ms(lambda: RPA.ragged_paged_attention(
+        qm256, k256, v256, mt, ql_m, kv_m, 1 / 16))
+except (RuntimeError, ValueError):
+    res["ragged_mixed_d256"] = None
+del qm256, k256, v256
+# fp32 queries at D 64 (the TF32 kernel's narrower width): the decode batch
+# over fp32 and int8 pools, and the mixed batch
+q64, k64, v64 = (torch.randn(*s, generator=gen, device=dev)
+                 for s in ((8, 1, H, 64), (H, NB, bs, 64), (H, NB, bs, 64)))
+res["ragged_decode_fp32_d64"] = ms(lambda: RPA.ragged_paged_attention(
+    q64, k64, v64, tables, ones, kv, 1 / 8))
+ks, vs = (x.abs().amax((2, 3)) for x in (k64, v64))
+k8, v8 = (torch.round(x / sc[..., None, None] * 127).to(torch.int8)
+          for x, sc in ((k64, ks), (v64, vs)))
+res["ragged_decode_fp32_int8_d64"] = ms(lambda: RPA.ragged_paged_attention(
+    q64, k8, v8, tables, ones, kv, 1 / 8, k_scales=ks, v_scales=vs))
+qm64 = torch.randn(4, 128, H, 64, generator=gen, device=dev)
+res["ragged_mixed_fp32_d64"] = ms(lambda: RPA.ragged_paged_attention(
+    qm64, k64, v64, mt, ql_m, kv_m, 1 / 8))
+del q64, k64, v64, k8, v8, qm64
+if sys.argv[2] == "1":     # --ragged-only
+    print(json.dumps(res))
+    sys.exit(0)
 res["paged_decode"] = ms(lambda: PA.paged_decode_attention(
     q[:, 0], k_pool, v_pool, tables, kv, 1 / math.sqrt(D)))
 q32, k32, v32 = (t.float() for t in (q[:, 0], k_pool, v_pool))
@@ -152,31 +230,6 @@ res["flash_dq_fp32"] = ms(lambda: FA.flash_bwd_dq(qf, kf, vf, lse, dof, True,
 res["flash_dkv_fp32"] = ms(lambda: FA.flash_bwd_dkv(qf, kf, vf, lse, delta, dof,
                                                     True, sc))
 del qkv, qf, kf, vf, dof, lse, delta
-# chip_smoke.py phase 3's case (b): a mixed batch of 4 rows, C 128 (a full
-# prefill chunk over 384 keys, a fresh 100-token prefill, a decode row over
-# 517 keys, an empty row)
-mixed_q, mixed_kv = [128, 100, 1, 0], [384, 100, 517, 0]
-mt = np.zeros((4, nb), np.int32)
-free = list(rng.permutation(np.arange(1, NB)))
-for r in range(4):
-    for j in range(-(-mixed_kv[r] // bs)):
-        mt[r, j] = free.pop()
-qm = rnd(4, 128, H, D)
-mt, ql_m, kv_m = (torch.tensor(a, dtype=torch.int32, device=dev)
-                  for a in (mt, mixed_q, mixed_kv))
-res["ragged_mixed"] = ms(lambda: RPA.ragged_paged_attention(
-    qm, k_pool, v_pool, mt, ql_m, kv_m, 1 / math.sqrt(D)))
-qm32, k32, v32 = (t.float() for t in (qm, k_pool, v_pool))
-res["ragged_mixed_fp32"] = ms(lambda: RPA.ragged_paged_attention(
-    qm32, k32, v32, mt, ql_m, kv_m, 1 / math.sqrt(D)))
-del qm32, k32, v32
-qm256, k256, v256 = rnd(4, 128, H, 256), rnd(H, NB, bs, 256), rnd(H, NB, bs, 256)
-try:
-    res["ragged_mixed_d256"] = ms(lambda: RPA.ragged_paged_attention(
-        qm256, k256, v256, mt, ql_m, kv_m, 1 / 16))
-except (RuntimeError, ValueError):
-    res["ragged_mixed_d256"] = None
-del qm256, k256, v256
 p, g = rnd(24, 2048, 8192, scale=0.02), rnd(24, 2048, 8192, scale=1e-3)
 slot = {"moment1": rnd(24, 2048, 8192, scale=1e-3),
         "moment2": rnd(24, 2048, 8192, scale=1e-3).square()}
@@ -234,8 +287,9 @@ print(json.dumps(res))
 '''
 
 
-def _run(root: Path) -> dict:
-    out = subprocess.run([sys.executable, "-c", _WORKER, str(root)],
+def _run(root: Path, ragged_only: bool) -> dict:
+    out = subprocess.run([sys.executable, "-c", _WORKER, str(root),
+                          str(int(ragged_only))],
                          capture_output=True, text=True, check=True,
                          env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -246,13 +300,15 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--child", type=Path,
                     default=Path(__file__).resolve().parents[2])
+    ap.add_argument("--ragged-only", action="store_true",
+                    help="time the ragged kernel's calls only")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     runs = []
     for tag in ("parent", "child", "child", "parent"):
-        res = _run(getattr(args, tag).resolve())
+        res = _run(getattr(args, tag).resolve(), args.ragged_only)
         runs.append((tag, res))
         print(f"{tag}: " + "; ".join(
             f"{k} {'-' if t is None else f'{t:.4f}'}" for k, t in res.items())

@@ -2,21 +2,26 @@
 (``csrc/ragged_paged_attention_hopper.cu``: wgmma, pages through a TMA ring,
 a row's key tiles split over blocks and merged by a second kernel;
 ``csrc/ragged_paged_attention_tf32_hopper.cu``: the same for fp32 queries
-over fp32 pools on the TF32 tensor cores, each operand split into two TF32
-halves) against their plain PyTorch version, over the shapes of the CPU
-goldens (``test_torch_ragged_tiles.py``) at D 128 and 64 (and 40 in fp32),
-bf16, fp16 and fp32, with the split count forced to 1, 2 and many (every
-count 1-16 in fp32, and at the 16-bit kernel's D_pad 192 and 256: D 160
-and 256, int8 / fp8 pools at D 256) and left to the plan; int8 / fp8 pools
-on the 16-bit kernel; and the calls that stay on the CUDA-core kernel of
-``csrc/ragged_paged_attention.cu`` (fp32 queries over int8 pools or at D
-160 and 256, a page size not a multiple of 8, D 100 in bf16 and 99, a
-misaligned pool): each launches its kernel (counted under its route), none
-goes to the plain version; D above 256 raises. Tolerance: 1e-2 of the reference's max-abs
-(``chip_smoke.py`` KERNEL_TOL) in 16 bits, 1e-5 in fp32; over quantized
-pools 1e-2 on the worst (row, column, head) slab's relative L2, as
-``chip_smoke.py`` phase 12 holds them (the dequantized tile is rounded to
-16 bits for the tensor cores); columns past q_len exact zeros.
+over fp32, int8 and fp8 pools on the TF32 tensor cores, each operand split
+into two TF32 halves; both with a gathered page ring, key row by key row:
+the 16-bit kernel at page sizes that are not a multiple of 8, the TF32
+kernel at every page size) against their plain PyTorch
+version, over the shapes of the CPU goldens (``test_torch_ragged_tiles.py``,
+``test_torch_ragged_pages.py``) at D 128 and 64 (and 40 in fp32), bf16,
+fp16 and fp32, with the split count forced to 1, 2 and many (every count
+1-16 in fp32, on the gathered rings at pages of 5, 12, 20 and 100 keys,
+and at the 16-bit kernel's D_pad 192 and 256: D 160 and 256, int8 / fp8
+pools at D 256) and left to the plan; int8 / fp8 pools under 16-bit and
+fp32 queries; a page too large for the CUDA-core kernel's shared memory;
+and the calls that stay on the CUDA-core kernel of
+``csrc/ragged_paged_attention.cu`` (fp32 queries at D 160 and 256, D 100 in
+bf16 and 99, a misaligned pool): each launches its kernel (counted under
+its route), none goes to the plain version; D above 256 raises. Tolerance:
+1e-2 of the reference's max-abs (``chip_smoke.py`` KERNEL_TOL) in 16 bits,
+1e-5 in fp32 (over any pool); 16-bit queries over quantized pools 1e-2 on
+the worst (row, column, head) slab's relative L2, as ``chip_smoke.py``
+phase 12 holds them (the dequantized tile is rounded to 16 bits for the
+tensor cores); columns past q_len exact zeros.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the JAX package:
@@ -166,10 +171,13 @@ def _quantize(args, pool):
 
 ROUTES = {  # route: (q dtype, pool, page size, design, D)
     "fp32": (torch.float32, None, 16, "wgmma-3xtf32", 128),
-    "fp32_int8": (torch.float32, torch.int8, 16, "fp32", 128),
-    "fp32_bs_12": (torch.float32, None, 12, "fp32", 128),
-    "bs_12": (torch.bfloat16, None, 12, "fp32", 128),
-    "int8_bs_12": (torch.bfloat16, torch.int8, 12, "fp32", 128),
+    "fp32_int8": (torch.float32, torch.int8, 16, "wgmma-3xtf32", 128),
+    "fp32_fp8_d64": (torch.float32, torch.float8_e4m3fn, 32, "wgmma-3xtf32",
+                     64),
+    "fp32_bs_12": (torch.float32, None, 12, "wgmma-3xtf32", 128),
+    "fp32_int8_bs_12": (torch.float32, torch.int8, 12, "wgmma-3xtf32", 128),
+    "bs_12": (torch.bfloat16, None, 12, "wgmma+gather", 128),
+    "int8_bs_12": (torch.bfloat16, torch.int8, 12, "wgmma+gather", 128),
     "int8": (torch.bfloat16, torch.int8, 16, "wgmma+tma", 128),
     "fp8": (torch.bfloat16, torch.float8_e4m3fn, 16, "wgmma+tma", 128),
     "fp8_fp16_q": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma", 128),
@@ -177,7 +185,7 @@ ROUTES = {  # route: (q dtype, pool, page size, design, D)
     "int8_d256": (torch.bfloat16, torch.int8, 16, "wgmma+tma", 256),
     "fp8_fp16_q_d192": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma",
                         192),
-    "bs_12_d256": (torch.bfloat16, None, 12, "fp32", 256),
+    "bs_12_d256": (torch.bfloat16, None, 12, "wgmma+gather", 256),
     "fp32_d256": (torch.float32, None, 16, "fp32", 256),
     "fp32_int8_d256": (torch.float32, torch.int8, 16, "fp32", 256),
 }
@@ -192,9 +200,11 @@ def test_routes_launch_their_kernel(card, name, route):
     matches the plain version: 16-bit queries over 16-bit, int8 / fp8 pools
     on the wgmma kernel up to D 256 (a quantized page dequantized by the
     consumer into the 16-bit tile, at forced split counts too); fp32
-    queries over fp32 pools on the TF32 kernel up to D 128; fp32 queries
-    over int8 pools or at D 256, and a page size that is not a multiple of
-    8, on the CUDA-core kernel, which refuses a split count above 1."""
+    queries over fp32, int8 and fp8 pools on the TF32 kernel up to D 128
+    (held at 1e-5 of max-abs), at every page size; a page size that is not
+    a multiple of 8 on the 16-bit kernel's gathered ring; fp32 queries at D
+    256 on the
+    CUDA-core kernel, which refuses a split count above 1."""
     dtype, pool, bs, design, D = ROUTES[route]
     q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
     args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb,
@@ -212,7 +222,7 @@ def test_routes_launch_their_kernel(card, name, route):
         assert RPA.ragged_paged_attention.LAUNCHES == n + 1
         assert RPA.ragged_paged_attention.ROUTES[design] == c + 1
         _check(out, ref, args[4], tol, f"{route} {name} splits={splits}",
-               slabs=pool is not None)
+               slabs=pool is not None and dtype != torch.float32)
     if design == "fp32":
         with pytest.raises(RuntimeError, match="invalid argument"):
             RPA.ragged_paged_attention(*args, scale, splits=2, **extra)
@@ -238,6 +248,113 @@ def test_tf32_kernel_vs_plain_at_every_split_count(card, name, D):
         assert RPA.ragged_paged_attention.LAUNCHES == n + 1
         assert RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"] == w + 1
         _check(out, ref, args[4], 1e-5, f"{name} D={D} splits={splits}")
+
+
+POOLS = (None, torch.int8, torch.float8_e4m3fn)
+POOL_IDS = ("float", "int8", "fp8")
+
+
+@pytest.mark.parametrize("pool", POOLS[1:], ids=POOL_IDS[1:])
+@pytest.mark.parametrize("D", (128, 64))
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32_kernel_over_1byte_pools_at_every_split_count(card, name, D,
+                                                           pool):
+    """fp32 queries over int8 / fp8 pools on the TF32 kernel (raw 1-byte
+    rows gathered, dequantized by the split warps into the fp32 value
+    the reference forms, x * (scale / qmax)), held at 1e-5 of max-abs at
+    every forced split count 1-16 and at the plan's."""
+    args, scale = _case(card, torch.float32, *CASES[name], D=D)
+    extra = _quantize(args, pool)
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert plan["design"] == "wgmma-3xtf32" and plan["keys"] == 32
+    ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
+    for splits in list(range(1, 17)) + [None]:
+        w = RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"]
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"] == w + 1
+        _check(out, ref, args[4], 1e-5, f"{name} D={D} splits={splits}")
+
+
+# the gathered ring's batches: the cases above at other page sizes (just
+# enough pages, except where the table's width is the point)
+GATHER_CASES = ("gqa-16-4-qlen-g-across-64", "kv-across-page-and-tile",
+                "kv-across-split-ranges", "decode-batch-of-phase-3",
+                "empty-rows-and-row-past-its-table", "mixed-of-phase-3")
+
+
+@pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32),
+                         ids=("bf16", "fp32"))
+@pytest.mark.parametrize("bs", (5, 12, 20, 100))
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_gathered_ring_vs_plain_at_every_split_count(card, name, bs, dtype,
+                                                     pool):
+    """Pages of 5, 12, 20 and 100 keys (not a multiple of 8: no TMA box of
+    whole swizzle atoms fits them) on the gathered ring of the 16-bit
+    kernel ("wgmma+gather") and of the TF32 kernel ("wgmma-3xtf32", which
+    gathers every page size), over float, int8 and fp8 pools, at every
+    forced split count 1-16 and at the plan's: the copies land through the
+    generic proxy, so a missing proxy fence would read stale tiles now and
+    then."""
+    q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
+    keep_nb = name in ("kv-across-split-ranges",
+                       "empty-rows-and-row-past-its-table")
+    args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs,
+                        nb if keep_nb else None)
+    extra = _quantize(args, pool) if pool is not None else {}
+    design = "wgmma-3xtf32" if dtype == torch.float32 else "wgmma+gather"
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert plan["design"] == design
+    assert plan["keys"] == (32 if dtype == torch.float32 else 64)
+    ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
+    fp32 = dtype == torch.float32
+    for splits in list(range(1, 17)) + [None]:
+        n, c = (RPA.ragged_paged_attention.LAUNCHES,
+                RPA.ragged_paged_attention.ROUTES[design])
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.LAUNCHES == n + 1
+        assert RPA.ragged_paged_attention.ROUTES[design] == c + 1
+        _check(out, ref, args[4], 1e-5 if fp32 else 1e-2,
+               f"{name} bs={bs} splits={splits}",
+               slabs=pool is not None and not fp32)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32),
+                         ids=("bf16", "fp32"))
+def test_page_too_large_for_the_cuda_core_kernel(card, dtype):
+    """Pages of 300 keys at D 128: the CUDA-core kernel held a whole page
+    in shared memory and refused them (330 KB in bf16); the gathered ring
+    walks them in key tiles."""
+    args, scale = _case(card, dtype, [1, 1, 5, 0], [299, 300, 650, 0], 5,
+                        16, 4, 300, None)
+    design = "wgmma-3xtf32" if dtype == torch.float32 else "wgmma+gather"
+    assert RPA.kernel_plan(args[0], args[1], args[3])["design"] == design
+    ref = RPA.ragged_paged_attention_plain(*args, scale)
+    c = RPA.ragged_paged_attention.ROUTES[design]
+    out = RPA.ragged_paged_attention(*args, scale)
+    torch.cuda.synchronize()
+    assert RPA.ragged_paged_attention.ROUTES[design] == c + 1
+    _check(out, ref, args[4], 1e-5 if dtype == torch.float32 else 1e-2,
+           f"bs=300 {dtype}")
+
+
+@pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16,
+                                   torch.float32), ids=("bf16", "fp16", "fp32"))
+def test_plan_keeps_the_tma_ring_at_pages_of_whole_8_rows(card, dtype, pool):
+    """Every page size that is a multiple of 8 keeps the 16-bit kernel's
+    TMA design; the others take its gathered ring. fp32 queries take the
+    TF32 kernel, which gathers every page size. The plan reads shapes
+    only."""
+    q = torch.empty(2, 1, 16, 128, dtype=dtype, device=card)
+    tables = torch.empty(2, 4, dtype=torch.int32, device=card)
+    for bs in range(1, 137):
+        k = torch.empty(4, 8, bs, 128, dtype=pool or dtype, device=card)
+        want = ("wgmma-3xtf32" if dtype == torch.float32 else
+                "wgmma+tma" if bs % 8 == 0 else "wgmma+gather")
+        assert RPA.kernel_plan(q, k, tables)["design"] == want, bs
 
 
 @pytest.mark.parametrize("D", (100, 160, 256, 99))
