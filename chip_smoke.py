@@ -22,8 +22,11 @@ Phases, in order; any failure exits non-zero:
    blocks against one split, and the decode (a) and mixed (b) batches with
    fp32 queries (the TF32 route, held at 1e-5); D 256 bf16 decode and mixed
    timed and D 160 bf16 / fp16 and D 256 fp16 held on the wgmma route (D_pad
-   192 / 256); D 256 fp32 decode timed and D 160 / 99 fp32 and D 100 bf16
-   held on the CUDA-core route; pages of 12 keys on the gathered rings,
+   192 / 256); fp32 on the TF32 route there (16-key tiles): D 256 decode
+   and mixed and D 160 decode timed, D 160 GQA held; D 250 fp32 decode
+   timed and D 99 fp32 and D 100 bf16 held on the CUDA-core route (its wide
+   and narrow instances); every case's launch counted under its
+   planned route; pages of 12 keys on the gathered rings,
    decode (a) timed in bf16 ("wgmma+gather"), fp32 ("wgmma-3xtf32", which
    gathers every page size) and bf16 q over int8 pools;
 4. serve a tiny fp32 GPT on the card and on the CPU: greedy tokens identical;
@@ -66,8 +69,9 @@ Phases, in order; any failure exits non-zero:
 12. fill int8 and fp8 pools with the port's append on the card (bit for bit
    the CPU append's) and hold the ragged kernel over them against its plain
    version, decode (timed) and mixed, the decode batch at D 256 (the wgmma
-   route) and with fp32 queries (the TF32 kernel, held at 1e-5 of
-   max-abs), both timed;
+   route) and with fp32 queries at D 128 and 256 (the TF32 kernel, held at
+   1e-5 of max-abs), all timed, and with fp32 queries at D 200 (rows not
+   whole 16-byte words: the CUDA-core kernel, held at 1e-5, untimed);
 13. serve the GPT-1.3B shape through the two-program engine (the default
    path: batched prefill chunks on the flash bias kernel, decode bursts on
    the paged decode kernel): the same wave as phase 5, launch counts, bf16
@@ -147,8 +151,10 @@ Phases, in order; any failure exits non-zero:
    bias shapes; the dropout mask with a bias bit for bit;
 25. hold them at D 32, 40, 80, 96, 160, 256 in fp32, bf16 and fp16, causal
    and not, GQA 8/2 with Sq != Sk; time D 32, 96, 160, 256 (bf16), 256 and
-   128 (fp16) and 256 (fp32: the FP32-pipe kernels) at B 8, S 1024, H 16
-   causal, and the Llama GQA 16/4 call,
+   128 (fp16) and 256 and 160 (fp32: the forward on the TF32 kernel beside
+   its TF32 bound, dQ and dK/dV on the FP32 pipes) at B 8, S 1024, H 16
+   causal, fp32 at D 160 / 256 with dropout (one mask in both designs),
+   and the Llama GQA 16/4 call,
    each against its bound and SDPA; the 16-bit dK/dV on "wgmma+tma" at
    every D 1-256; D 160 and 256 through scaled_dot_product_attention
    forward and backward with each kernel launched once; D 320 there takes
@@ -406,6 +412,19 @@ def ragged_plan_line(case):
                   f"{plan['splits']}")
 
 
+def counted_ragged(name, plan, args):
+    """One launch of the ragged kernel, counted under the route its plan
+    names and no other (``RPA.ragged_paged_attention.ROUTES``)."""
+    routes = dict(RPA.ragged_paged_attention.ROUTES)
+    out = RPA.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    now = RPA.ragged_paged_attention.ROUTES
+    require(all(now[r] == routes[r] + (r == plan["design"]) for r in now),
+            f"{name}: launches by route {routes} -> {now}, planned "
+            f"{plan['design']}")
+    return out
+
+
 def check_kernel_case(name, case, card, tol=None):
     """The ragged kernel against its plain version on one case (max-abs
     error within ``tol`` of the reference's max-abs: KERNEL_TOL in 16 bits,
@@ -418,8 +437,7 @@ def check_kernel_case(name, case, card, tol=None):
             case["q_lens"], case["kv_lens"], case["scale"])
     plan, line = ragged_plan_line(case)
     log(f"{name}: {line}")
-    out_k = RPA.ragged_paged_attention(*args)
-    torch.cuda.synchronize()
+    out_k = counted_ragged(name, plan, args)
     out_p = RPA.ragged_paged_attention_plain(*args)
     require(out_k.dtype == out_p.dtype == case["q"].dtype, f"{name}: dtype")
     require(torch.isfinite(out_k.float()).all(), f"{name}: non-finite output")
@@ -1009,10 +1027,11 @@ def flash_designs(name):
     ring; the 16-bit dK/dV, csrc/flash_dkv_hopper.cu: transposed scores in
     registers, Q / dO through a TMA ring, at D_pad 192 and 256 one
     warpgroup holding dv and another dk over 64 keys), "wgmma-3xtf32" (the
-    fp32 forward, dQ and dK/dV at D_pad <= 128, csrc/flash_fwd_tf32_hopper.cu,
-    flash_dq_tf32_hopper.cu and flash_dkv_tf32_hopper.cu: each operand split
-    into two TF32 halves, three products for each), "fp32" (the FP32-pipe
-    kernels); and the bf16 and fp32 tiles (query rows x keys)."""
+    fp32 forward at every width, dQ and dK/dV at D_pad <= 128,
+    csrc/flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu and
+    flash_dkv_tf32_hopper.cu: each operand split into two TF32 halves,
+    three products for each), "fp32" (the FP32-pipe dQ and dK/dV at D_pad
+    192 / 256); and the bf16 and fp32 tiles (query rows x keys)."""
     from paddle_tpu_torch.kernels import _build
     out = {}
     for d in _build.FLASH_D_PADS:
@@ -1029,14 +1048,15 @@ def flash_designs(name):
 
 def tf32_ptxas(output):
     """[(kernel, D_pad, bias, ints, dropout, registers, spill store bytes)]
-    of the fp32 flash instances on the TF32 tensor cores (the forward, dQ
-    and dK/dV), from ptxas's -v lines."""
+    of the fp32 flash instances on the TF32 tensor cores (the forward at
+    every width, flash_fwd_tf32_wide_kernel at D_pad 192 / 256; dQ and
+    dK/dV), from ptxas's -v lines."""
     recs, cur, spill = [], None, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = re.search(r"(flash_(?:fwd|dq|dkv)_tf32_kernel)ILi(\d+)ELb"
-                            r"([01])ELb([01])ELb([01])E", m.group(1))
+            cur = re.search(r"(flash_(?:fwd|dq|dkv)_tf32(?:_wide)?_kernel)ILi"
+                            r"(\d+)ELb([01])ELb([01])ELb([01])E", m.group(1))
             spill = None
             continue
         if cur is None:
@@ -2017,8 +2037,7 @@ def check_quantized_case(name, case, card):
             case["v_scales"])
     plan, line = ragged_plan_line(case)
     log(f"{name}: {line}")
-    out_k = RPA.ragged_paged_attention(*args)
-    torch.cuda.synchronize()
+    out_k = counted_ragged(name, plan, args)
     out_p = RPA.ragged_paged_attention_plain(*args)
     require(torch.isfinite(out_k.float()).all(), f"{name}: non-finite output")
     for r, l in enumerate(case["q_lens"].cpu().numpy()):
@@ -2077,29 +2096,36 @@ def quantized_phase(card):
         recs[tag + "_mixed"] = check_quantized_case(
             f"(b) {tag} mixed R=4 C=128", mixed, card)
         # the decode batch at D 256 (the wgmma kernel at D_pad 256), with
-        # fp32 queries (the TF32 kernel, held at 1e-5), and with fp32
-        # queries at D 256 (the CUDA-core kernel's 1-byte instances, held
-        # at 1e-5; checked, not timed)
+        # fp32 queries (the TF32 kernel, held at 1e-5), with fp32 queries at
+        # D 256 (the TF32 kernel's 16-key tiles, held at 1e-5), and with
+        # fp32 queries at D 200 (rows not whole 16-byte words: the CUDA-core
+        # kernel's wide 1-byte instance, held at 1e-5, untimed)
         lens = [100, 173, 256, 311, 400, 467, 555, 640]
         d256 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=256)
         q32 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16,
                         dtype=torch.float32)
         q32_d256 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=256,
                              dtype=torch.float32)
-        for c in (d256, q32, q32_d256):
+        q32_d200 = make_case(rng, [1] * 8, lens, C=1, hq=16, hkv=16, D=200,
+                             dtype=torch.float32)
+        for c in (d256, q32, q32_d256, q32_d200):
             fill_quantized(c, pool_dtype, rng)
         recs[tag + "_d256"] = check_quantized_case(
             f"(a) {tag} decode R=8 D=256", d256, card)
         recs[tag + "_fp32_q"] = check_quantized_case(
             f"(a) {tag} decode R=8 fp32 q", q32, card)
         recs[tag + "_fp32_q_d256"] = check_quantized_case(
-            f"(a) {tag} decode R=8 fp32 q D=256", q32_d256, None)
+            f"(a) {tag} decode R=8 fp32 q D=256", q32_d256, card)
+        recs[tag + "_fp32_q_d200"] = check_quantized_case(
+            f"(a) {tag} decode R=8 fp32 q D=200", q32_d200, None)
         require(recs[tag + "_d256"]["design"] == "wgmma+tma"
                 and recs[tag + "_fp32_q"]["design"] == "wgmma-3xtf32"
-                and recs[tag + "_fp32_q_d256"]["design"] == "fp32",
+                and recs[tag + "_fp32_q_d256"]["design"] == "wgmma-3xtf32"
+                and recs[tag + "_fp32_q_d200"]["design"] == "fp32",
                 f"{tag}: D 256 on {recs[tag + '_d256']['design']}, fp32 q "
                 f"on {recs[tag + '_fp32_q']['design']}, fp32 q at D 256 on "
-                f"{recs[tag + '_fp32_q_d256']['design']}")
+                f"{recs[tag + '_fp32_q_d256']['design']}, fp32 q at D 200 on "
+                f"{recs[tag + '_fp32_q_d200']['design']}")
         torch.cuda.empty_cache()
     return recs
 
@@ -3835,7 +3861,7 @@ HEAD_DIMS = (32, 40, 80, 96, 160, 256)
 TIMED_DIMS = ((32, torch.bfloat16), (96, torch.bfloat16),
               (160, torch.bfloat16), (256, torch.bfloat16),
               (256, torch.float16), (128, torch.float16),
-              (256, torch.float32))
+              (256, torch.float32), (160, torch.float32))
 
 
 def padded_batch(vocab):
@@ -3971,9 +3997,12 @@ def flash_padded_phase(card):
 
 def head_dims_phase(card):
     """Phase 25: every D of the family's members and between them, fp32,
-    bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain;
-    then D 32, 96, 160, 256 in bf16, D 256, 128 in fp16 and D 256 in fp32
-    (the FP32-pipe kernels, beside SDPA's fp32 backward) timed at B 8,
+    bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain; fp32
+    at D 160 and 256 with dropout (the TF32 forward and the FP32-pipe
+    backward draw one mask); then D 32, 96, 160, 256 in bf16, D 256, 128 in
+    fp16 and D 256 and 160 in fp32 (the forward on the TF32 tensor cores,
+    with its TF32 bound beside the FP32-pipe one; dQ and dK/dV on the FP32
+    pipes, beside SDPA's fp32 backward) timed at B 8,
     S 1024, H 16, causal, the Llama GQA 16/4 call timed with its bound and
     SDPA (enable_gqa), the dK/dV design at every 16-bit D, D 160 and 256
     through the registry op (the counts set to 0 just before, read just
@@ -4001,6 +4030,18 @@ def head_dims_phase(card):
                 check_attn(f"GQA 8/2 D {D} {dtype} sq {sq} sk {sk} causal",
                            q, k, v, do, True, {})
     recs = {"worst_tile": worst}
+    # fp32 at D_pad 192 / 256: the forward on the TF32 tensor cores (16-key
+    # tiles), dQ and dK/dV on the FP32 pipes (64 x 64 tiles); with dropout
+    # both must draw dropout_keep_mask's bits, held by the plain versions
+    for D in (160, 256):
+        for causal in (True, False):
+            q, do = (rnd(torch.float32, 2, 256, 4, D) for _ in range(2))
+            k, v = (rnd(torch.float32, 2, 200, 2, D) for _ in range(2))
+            rec = check_attn(f"fp32 D {D} dropout 0.1 GQA 4/2 causal={causal}",
+                             q, k, v, do, causal, dict(dropout_p=0.1, seed=25))
+            worst[f"{D}_float32_dropout"] = max(
+                worst.get(f"{D}_float32_dropout", 0.0),
+                *(rec[w + "_tile"] for w in ("out", "dq", "dk", "dv")))
     B, S, H = 8, 1024, 16
     for D, dtype in TIMED_DIMS:
         q, k, v, do = (rnd(dtype, B, S, H, D) for _ in range(4))
@@ -4009,6 +4050,12 @@ def head_dims_phase(card):
             True, {}, card=card, pairs=visible_pairs(S, S, True) * B * H)
         del q, k, v, do
         torch.cuda.empty_cache()
+    for D in (160, 256):
+        got = {n: r["design"] for n, r in recs[f"D{D}_float32"].items()}
+        require(got == {"flash_fwd": "wgmma-3xtf32", "flash_bwd_dq": "fp32",
+                        "flash_bwd_dkv": "fp32"},
+                f"fp32 D {D}: designs {got} (the forward on TF32, dQ and "
+                f"dK/dV on the FP32 pipes)")
     # the 16-bit dK/dV: the wgmma kernel at every width (128 keys a block
     # to D_pad 128, the split's 64 past it)
     designs = {(D, str(dt)[6:]): FA.kernel_plan("flash_bwd_dkv", D, dt)
@@ -5027,9 +5074,9 @@ def main() -> int:
         # no ragged wgmma instance spills: the 16-bit kernel (bf16 / fp16 q
         # over 16-bit, int8 and fp8 pools at D_pad 64-256, the TMA and the
         # gathered ring: 48) and the TF32 kernel (fp32 q over fp32, int8
-        # and fp8 pools at D_pad 64 / 128: 6)
+        # and fp8 pools at D_pad 64-256: 12)
         n16 = sum(r[0] == "ragged_wgmma_kernel" for r in rag)
-        require(n16 == 48 and len(rag) == 54 and not any(r[-1] for r in rag),
+        require(n16 == 48 and len(rag) == 60 and not any(r[-1] for r in rag),
                 f"ragged wgmma instances: {n16} 16-bit, {len(rag) - n16} "
                 f"TF32, spilling {[r for r in rag if r[-1]]}")
     ln_inst = ln_fwd_ptxas(_build.BUILD_LOG["output"])
@@ -5045,11 +5092,27 @@ def main() -> int:
         log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
             f"{regs} registers at launch, {spill} bytes spill stores")
     if _build.BUILD_LOG["output"]:
-        # the fp32 forward, dQ and dK/dV (48) on the TF32 tensor cores hold
-        # no spill (the fp32 ragged kernel's instances: above)
-        require(len(tf32) == 48 and not any(r[-1] for r in tf32),
+        # the fp32 forward (4 widths: 32), dQ and dK/dV (2 widths: 32) on
+        # the TF32 tensor cores hold no spill (the fp32 ragged kernel's
+        # instances: above)
+        require(len(tf32) == 64 and not any(r[-1] for r in tf32),
                 f"fp32 TF32 instances: {len(tf32)}, spilling "
                 f"{[r for r in tf32 if r[-1]]}")
+        # the instances this slice added: the fp32 forward and the fp32
+        # ragged kernel at D_pad 192 and 256
+        for d in (192, 256):
+            fw = [r for r in tf32 if r[0] == "flash_fwd_tf32_wide_kernel"
+                  and r[1] == d]
+            rg = [r for r in rag if r[0] == "ragged_tf32_kernel"
+                  and r[3] == d]
+            log(f"D_pad {d}: fp32 forward {len(fw)} instances, registers "
+                f"{min(r[-2] for r in fw)}-{max(r[-2] for r in fw)}, spill "
+                f"stores {max(r[-1] for r in fw)} B; fp32 ragged {len(rg)} "
+                f"instances (fp32 / int8 / fp8 pools), registers "
+                f"{min(r[-2] for r in rg)}-{max(r[-2] for r in rg)}, spill "
+                f"stores {max(r[-1] for r in rg)} B")
+            require(len(fw) == 8 and len(rg) == 3, f"D_pad {d}: {len(fw)} "
+                    f"forward and {len(rg)} ragged TF32 instances")
     dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
     for ty, rb, dp, regs, spill in dec_inst:
         log(f"  paged_decode_hopper_kernel<{ty}, rows {rb}, D_pad {dp}>: "
@@ -5084,8 +5147,9 @@ def main() -> int:
             "fp32 ragged cases off the TF32 route")
     # head dims past 128: 16-bit queries on the wgmma kernel at D_pad 192
     # and 256 (D 256 bf16 timed at case (a)'s and case (b)'s batches), fp32
-    # queries on the CUDA-core route (D 256 timed at case (a)'s batch); D 99
-    # fp32 and D 100 bf16 (not whole 16-byte words) on the CUDA-core route
+    # queries on the TF32 kernel there (key tiles of 16; D 256 timed at case
+    # (a)'s and case (b)'s batches, D 160 at case (a)'s); D 99 / 250 fp32
+    # and D 100 bf16 (not whole 16-byte words) on the CUDA-core route
     dec_lens = [100, 173, 256, 311, 400, 467, 555, 640]
     wide = {
         "D256_bf16": check_kernel_case("(a) decode R=8 D=256 bf16", make_case(
@@ -5095,7 +5159,21 @@ def main() -> int:
                 rng, mixed_q, mixed_kv, C=128, hq=16, hkv=16, D=256), card),
         "D256_fp32": check_kernel_case("(a) decode R=8 D=256 fp32", make_case(
             rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, D=256,
-            dtype=torch.float32), card)}
+            dtype=torch.float32), card),
+        "D256_fp32_mixed": check_kernel_case(
+            "(b) mixed R=4 C=128 D=256 fp32", make_case(
+                rng, mixed_q, mixed_kv, C=128, hq=16, hkv=16, D=256,
+                dtype=torch.float32), card),
+        "D160_fp32_decode": check_kernel_case(
+            "(a) decode R=8 D=160 fp32", make_case(
+                rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, D=160,
+                dtype=torch.float32), card),
+        # fp32 D 250 (not whole 16-byte words): the CUDA-core kernel's wide
+        # instance (32 outputs a thread), timed at case (a)'s batch
+        "D250_fp32_decode": check_kernel_case(
+            "(a) decode R=8 D=250 fp32", make_case(
+                rng, [1] * 8, dec_lens, C=1, hq=16, hkv=16, D=250,
+                dtype=torch.float32), card)}
     for tag, D, dt in (("D160_bf16", 160, torch.bfloat16),
                        ("D160_fp16", 160, torch.float16),
                        ("D256_fp16", 256, torch.float16),
@@ -5124,7 +5202,10 @@ def main() -> int:
                 "D160_bf16": "wgmma+tma", "D160_fp16": "wgmma+tma",
                 "D256_fp16": "wgmma+tma", "bs12_bf16": "wgmma+gather",
                 "bs12_int8": "wgmma+gather",
-                "bs12_fp32": "wgmma-3xtf32"}
+                "bs12_fp32": "wgmma-3xtf32", "D256_fp32": "wgmma-3xtf32",
+                "D256_fp32_mixed": "wgmma-3xtf32",
+                "D160_fp32_decode": "wgmma-3xtf32",
+                "D160_fp32": "wgmma-3xtf32"}
     require(all(r["design"] == on_route.get(t, "fp32")
                 for t, r in wide.items()),
             f"wide / odd head dims and pages of 12 off their routes: "
@@ -5286,6 +5367,14 @@ def main() -> int:
         shape="decode R=8 H=16 D=128 bs=32 fp32, kv_len 100..640",
         mixed={k: rec_mixed32[k] for k in keys + (
             "design", "splits", "tf32x3_bound_ms")},
+        # D_pad 192 / 256 (key tiles of 16): decode (a) at D 256 and 160,
+        # mixed (b) at D 256; fp32 q over int8 / fp8 pools at D 256
+        wide={t: {k: r[k] for k in keys + ("design", "splits")}
+              for t, r in (("D256_decode", wide["D256_fp32"]),
+                           ("D256_mixed", wide["D256_fp32_mixed"]),
+                           ("D160_decode", wide["D160_fp32_decode"]),
+                           ("D256_int8_decode", quant["int8_fp32_q_d256"]),
+                           ("D256_fp8_decode", quant["fp8_fp32_q_d256"]))},
         launches_from="phase 5b, the fp32 ragged engine's wave",
         serving_over_int8=qeng["fp32_int8"])
     shape = "B=8 S=1024 H=16 D=128 causal bf16, q/k/v views of qkv"
@@ -5323,7 +5412,7 @@ def main() -> int:
                         for tag in ("D32_bfloat16", "D96_bfloat16",
                                     "D160_bfloat16", "D256_bfloat16",
                                     "D256_float16", "D128_float16",
-                                    "D256_float32")},
+                                    "D256_float32", "D160_float32")},
              head_dims_entry_launches={
                  f"D{D}": fdims[f"D{D}_entry_launches"][name]
                  for D in (160, 256)},
@@ -5360,7 +5449,11 @@ def main() -> int:
         tf32x3_bound_ms=f32["tf32x3_bound_ms"],
         shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v views of qkv",
         launches_from="phase 13, the fp32 two-program engine's prefill "
-                      "(bias [P, 1, C, cap])")]
+                      "(bias [P, 1, C, cap])",
+        # D_pad 192 / 256 (64 query rows over 16-key tiles), phase 25
+        wide={f"D{D}": {k: v for k, v in fdims[f"D{D}_float32"][
+            "flash_fwd"].items() if k in keys + ("design", "tf32x3_bound_ms")}
+            for D in (160, 256)})]
     kernels.append(dict(
         name="fused_adam", route="cuda",
         source="paddle_tpu_torch/csrc/fused_adam.cu",
@@ -5414,6 +5507,12 @@ def main() -> int:
              fp32_q={t: {k: quant[f"{t}_fp32_q"][k]
                          for k in keys + ("design",)}
                      for t in ("int8", "fp8")},
+             fp32_q_d256={t: {k: quant[f"{t}_fp32_q_d256"][k]
+                              for k in keys + ("design",)}
+                          for t in ("int8", "fp8")},
+             fp32_q_d200={t: {k: quant[f"{t}_fp32_q_d200"][k]
+                              for k in ("max_abs_err", "design")}
+                          for t in ("int8", "fp8")},
              fp8_launches=qeng["fp8_e4m3"]["launches"][
                  "ragged_paged_attention"],
              serving=qeng)]

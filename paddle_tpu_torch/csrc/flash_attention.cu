@@ -1,8 +1,67 @@
 // The C entries of the flash attention kernels: they check what the kernels
 // take, fill the argument block and pick the head-dim family member that
-// holds D (the routing is in flash_attention_fwd.cu and
-// flash_attention_bwd.cu, one object per D_pad). See
+// holds D. The forward goes from here to a tensor-core kernel at the Hopper
+// width that holds D_pad (fwd_width: bf16 / fp16 to flash_fwd_hopper.cu,
+// fp32 to flash_fwd_tf32_hopper.cu); dQ and dK/dV to the routing of
+// flash_attention_bwd.cu, one object per D_pad. See
 // kernels/flash_attention.py for the Python side.
+//
+// What the forward computes (paddle_tpu/kernels/pallas/flash_attention.py
+// `_fwd`, kernel body `_fwd_kernel`): for each (batch, query head) out =
+// softmax(scale * q k^T + bias [masked]) v over [B, S, H, D] views, with
+// lse = m + log(l) per query row saved for the backward. Causal masking is
+// bottom-right aligned (key j visible to query i iff j <= i + Sk - Sq). A
+// row that sees no key writes zeros and lse = -1e30, as the Pallas kernel's
+// finalize does. GQA reads kv head h / (H / H_kv); K and V are never
+// repeated. Any Sq and Sk; any D up to 256 (zero columns past D); fp32,
+// bf16 or fp16 in, fp32 scores, softmax and accumulators.
+//
+// Additive bias (`_fwd_kernel` with has_bias): a [B, H, Sq, Sk] view in its
+// own dtype (fp32, bf16 or fp16) whose four strides may be 0 (a
+// [1|B, 1|H, Sq, Sk] mask broadcast in place), added in fp32 to the scaled
+// scores before the running max, as `_mask_scores` adds
+// bias.astype(float32). The mask is arbitrary, so no tile is skipped beyond
+// the causal and segment bounds, and a row whose every score the bias pushed
+// to -1e30 is dead (m <= -0.5e30): it writes zeros and lse = -1e30.
+// At the padded BERT-base call (B 16, S 512, H 12, D 64, bf16, bias
+// [16, 1, 512, 512]) the call must move q, k, v and out (50.3 MB) and the
+// bias (8.4 MB), ~0.018 ms at 3.35 TB/s, against ~0.010 ms of operations:
+// bytes bound it.
+//
+// Segment ids (`_fwd_kernel` with has_seg, the packed BERT rows): int32
+// [B, Sq] and [B, Sk] read in place, a pair visible iff its two ids are
+// equal (pads carry -1, so pads see pads); a key tile whose id range is
+// disjoint from the query tile's is skipped, as `_seg_block_overlap` does. A
+// row that matches no key is dead: zeros and lse = -1e30.
+//
+// The sliding window (`_fwd_kernel` with window = (left, right)): key j is
+// visible to query i iff i + off - left <= j <= i + off + right with off =
+// Sk - Sq, a band beside the causal one (flash_common.cuh visible()); the
+// loop runs from the band's first key tile to its last (blk_key_begin,
+// blk_key_end),
+// as _block_run and _last_k_block skip the blocks outside it.
+//
+// Flashmask rows (`_fwd_kernel` with has_fm): int32 [B, 1|H, Sk] start and
+// end, key j masked for the raw query index start[j] <= i < end[j]. Each key
+// tile loads its pairs with their max start and min end, and a tile
+// whose every key masks every query of the block is skipped, which is exact
+// (the JAX kernel masks elementwise and runs it). Under a causal document
+// mask (start[j] = the end of j's document) most tiles below the diagonal
+// go. A row whose every key is masked is dead: zeros and lse = -1e30.
+//
+// Dropout (`_fwd_kernel` with dropout_p): the keep bit of (b, h, i, j) is a
+// Philox4x32-10 word keyed by the seed with (j / 4, i, h, b) as the counter
+// (flash_common.cuh drop_bits), kept iff >= floor(p 2^32); the TPU keys its
+// bits by tile, which the backward kernels here, tiled otherwise, could not
+// regenerate. lse comes from the undropped scores and the kept probabilities
+// are scaled by 1 / (1 - p) before the p v product. On the tensor cores a
+// thread then owns four adjacent columns of a score row, one Philox call.
+// The bias, the integer masks (segments, flashmask rows) and dropout are
+// template flags (each changes the inner loop) and combine freely with each
+// other and the window; the bias's dtype, and which integer masks are
+// present, are runtime branches. (As a runtime branch the bias measured
+// slower on the card in the kernels without one: its address arithmetic is
+// predicated into the softmax loop.)
 
 #include "flash_common.cuh"
 
@@ -23,14 +82,18 @@ int d_pad(int D) {
   return 0;
 }
 
+template <int W>
+int fwd_at(const Args& a, int dtype, cudaStream_t s) {
+  return dtype == kF32 ? fwd_tf32_run<W>(a, s) : fwd_hopper_run<W>(a, dtype, s);
+}
+
+// D_pad 32 and 96 read into 64 and 128 with zero columns
 int fwd_width(const Args& a, int dtype, cudaStream_t s) {
-  switch (d_pad(a.D)) {
-    case 32: return fwd_run<32>(a, dtype, s);
-    case 64: return fwd_run<64>(a, dtype, s);
-    case 96: return fwd_run<96>(a, dtype, s);
-    case 128: return fwd_run<128>(a, dtype, s);
-    case 192: return fwd_run<192>(a, dtype, s);
-    case 256: return fwd_run<256>(a, dtype, s);
+  switch (hopper_width(d_pad(a.D))) {
+    case 64: return fwd_at<64>(a, dtype, s);
+    case 128: return fwd_at<128>(a, dtype, s);
+    case 192: return fwd_at<192>(a, dtype, s);
+    case 256: return fwd_at<256>(a, dtype, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -208,12 +271,12 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 
 // What kernel serves a call of head dim D in `dtype` (codes as above), with
 // a bias or without, and how it tiles the scores: kernel 0 the forward, 1
-// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes; 1: wgmma with the
-// scores in registers and the streamed operands through a TMA ring; 2: fp32
-// on the TF32 tensor cores, wgmma with each operand split into two TF32
-// halves and three products for each, the streamed operands through a TMA
-// ring and split in shared memory: the fp32 forward, dQ and dK/dV at D_pad
-// <= 128),
+// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes, fp32 dQ and dK/dV at
+// D_pad 192 / 256; 1: wgmma with the scores in registers and the streamed
+// operands through a TMA ring; 2: fp32 on the TF32 tensor cores, wgmma with
+// each operand split into two TF32 halves and three products for each, the
+// streamed operands through a TMA ring and split in shared memory: the fp32
+// forward at every D_pad, dQ and dK/dV at D_pad <= 128),
 // out[1] and out[2] the query rows and keys of a tile, out[3] 1 where a
 // block owns a key tile and walks the queries (dK/dV), else 0. The
 // constants are the ones the kernels are instantiated with. Returns 0, or
@@ -224,10 +287,10 @@ int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   if (kernel < 0 || kernel > 2 || p == 0 || !dtype_ok(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hopper_width(p);
-  if (dtype == kF32 && p <= kTf32MaxD) {
+  if (dtype == kF32 && (kernel == 0 || p <= kTf32MaxD)) {
     out[0] = 2;
-    out[1] = kernel == 0 ? kTf32FwdBM : kernel == 1 ? kTf32DqBM : kTf32DkvBM;
-    out[2] = kernel == 0 ? kTf32FwdBN : kernel == 1 ? kTf32DqBN : kTf32DkvBN;
+    out[1] = kernel == 0 ? tf32_fwd_bm(w) : kernel == 1 ? kTf32DqBM : kTf32DkvBM;
+    out[2] = kernel == 0 ? tf32_key_tile(w) : kernel == 1 ? kTf32DqBN : kTf32DkvBN;
   } else if (dtype == kF32) {
     out[0] = 0;
     out[1] = out[2] = kTile;

@@ -1,5 +1,6 @@
-// Shared pieces of the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, and the C entries in flash_attention.cu): tile
+// Shared pieces of the flash attention kernels (flash_attention_bwd.cu, the
+// tensor-core kernels through flash_hopper.cuh, and the C entries in
+// flash_attention.cu): tile
 // sizes, the argument block, element types, tile loads and the visibility
 // rule.
 //
@@ -18,8 +19,8 @@
 //
 // Element types. The FP32-pipe kernels take float; the tensor-core kernels
 // take bf16 or fp16 (T), or float split into two TF32 halves (the forward
-// and the backward at D_pad <= 128), with fp32 accumulators and softmax
-// either way.
+// at every width, the backward at D_pad <= 128), with fp32 accumulators and
+// softmax either way.
 // The bias is read in its own dtype (fp32, bf16 or fp16, a runtime code)
 // and added in fp32, as the reference's _mask_scores adds
 // bias.astype(float32).
@@ -35,10 +36,10 @@
 // on the card.)
 //
 // Instances, each x 8 (bias, integer masks, dropout: template flags): the
-// FP32-pipe kernels (the forward, dQ and dK/dV at D_pad 192 and 256: 48),
-// the fp32 forward, dQ and dK/dV on the TF32 tensor cores (3 kernels x 2
-// widths: 48), and in bf16 and fp16 the redesigned forward, dQ and dK/dV
-// (wgmma + TMA, 3 kernels x 4 widths: 192): 288, built as 36 objects in
+// FP32-pipe kernels (dQ and dK/dV at D_pad 192 and 256: 32), the fp32
+// forward on the TF32 tensor cores (4 widths: 32) and dQ and dK/dV there (2
+// widths: 32), and in bf16 and fp16 the redesigned forward, dQ and dK/dV
+// (wgmma + TMA, 3 kernels x 4 widths: 192): 288, built as 32 objects in
 // parallel.
 //
 // Threads. A block of 256 threads works on 64 x 64 tiles as a 16 x 16 grid:
@@ -119,19 +120,17 @@ struct Args {
   float drop_scale;
 };
 
-// The width-family entries, one explicit instantiation per D_pad in each
-// per-width object (flash_attention_fwd.cu compiled with -DPTT_FLASH_D=<D_pad>,
-// flash_attention_bwd.cu with -DPTT_FLASH_DQ=1 for dQ and 0 for dK/dV
-// besides). dtype: the element code of q, k, v and dO.
-template <int D>
-int fwd_run(const Args& a, int dtype, cudaStream_t stream);
+// The backward's width-family entries, one explicit instantiation per D_pad
+// in each per-width object (flash_attention_bwd.cu compiled with
+// -DPTT_FLASH_D=<D_pad>, -DPTT_FLASH_DQ=1 for dQ and 0 for dK/dV). dtype:
+// the element code of q, k, v and dO.
 template <int D>
 int dq_run(const Args& a, int dtype, cudaStream_t stream);
 template <int D>
 int dkv_run(const Args& a, int dtype, cudaStream_t stream);
 // The redesigned bf16 / fp16 forward and dQ kernels (wgmma and a TMA ring:
 // flash_fwd_hopper.cu, flash_dq_hopper.cu), one object per width in {64,
-// 128, 192, 256}; fwd_run / dq_run hand them every 16-bit call, D_pad 32
+// 128, 192, 256}; fwd_width / dq_run hand them every 16-bit call, D_pad 32
 // and 96 to the next of those widths (hopper_width: a TMA box row is 64
 // columns).
 template <int D>
@@ -165,25 +164,34 @@ constexpr int kDkvHopperBM = 64;
 
 // The fp32 forward, dQ and dK/dV on the TF32 tensor cores, each operand
 // split in two halves (flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu,
-// flash_dkv_tf32_hopper.cu), one object per width in {64, 128}; fwd_run /
-// dq_run / dkv_run hand them every fp32 call of D_pad <= 128 (32 and 96
-// read into the next width with zero columns). Their tiles: forward blocks
-// of 128 query rows (two consumer warpgroups) over key tiles of 32, dQ
-// blocks of 64 query rows over key tiles of 32, dK/dV blocks of 64 keys over
-// query tiles of 32 (a split fp32 tile takes 8 bytes an element: at D_pad
-// 128 the stationary raw tiles, two stages of split tiles and the written p
-// / ds tiles or V^T fill 209-226 KB). D_pad 192 and 256 stay on the
-// FP32-pipe kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): the
-// same design there needs 96 or 128 KB of raw stationary tiles beside 96 or
-// 128 KB a stage.
+// flash_dkv_tf32_hopper.cu): fwd_width / dq_run / dkv_run hand them every fp32
+// call up to their widest width (D_pad 32 and 96 read into the next width
+// with zero columns). A split fp32 tile takes 8 bytes an element. The
+// forward takes every width, one object each in {64, 128, 192, 256}: blocks
+// of 128 query rows (two consumer warpgroups) over key tiles of 32 up to
+// D_pad 128 (the raw Q tile and two stages of split tiles fill 226 KB), and
+// of 64 rows (one consumer warpgroup, a 64 x D_pad fp32 output of 96 or 128
+// registers a thread) over key tiles of 16 at 192 and 256 (Q 48 / 64 KB,
+// the landed ring and two split stages of 16 keys: 192 / 224 KB). dQ and
+// dK/dV take D_pad <= 128, one object each in {64, 128}: dQ blocks of 64
+// query rows over key tiles of 32, dK/dV blocks of 64 keys over query tiles
+// of 32 (their stationary raw tiles, two stages of split tiles and the
+// written ds / p tiles fill 209-226 KB). Their D_pad 192 and 256 stay on
+// the FP32-pipe kernels of flash_attention_bwd.cu: the same design there
+// needs 96 or 128 KB of raw stationary tiles beside 96 or 128 KB a stage.
 template <int D>
 int fwd_tf32_run(const Args& a, cudaStream_t stream);
 template <int D>
 int dq_tf32_run(const Args& a, cudaStream_t stream);
 template <int D>
 int dkv_tf32_run(const Args& a, cudaStream_t stream);
-constexpr int kTf32MaxD = 128;
-constexpr int kTf32FwdBM = 128, kTf32FwdBN = 32;
+constexpr int kTf32MaxD = 128;  // dQ's and dK/dV's widest D_pad (the forward's: kMaxD)
+__host__ __device__ constexpr int tf32_fwd_bm(int d_pad) { return d_pad > 128 ? 64 : 128; }
+// The key tile of the TF32 kernels that keep P in registers (the fp32
+// forward and ragged_paged_attention_tf32_hopper.cu): 32, and 16 past D_pad
+// 128, where a split stage of 32 keys (K and V^T, hi and lo) would be 192 /
+// 256 KB.
+__host__ __device__ constexpr int tf32_key_tile(int d_pad) { return d_pad > 128 ? 16 : 32; }
 constexpr int kTf32DqBM = 64, kTf32DqBN = 32;
 constexpr int kTf32DkvBM = 32, kTf32DkvBN = 64;
 
@@ -429,12 +437,6 @@ __device__ __forceinline__ unsigned int_keep_bits(const IntTiles& t, bool seg, b
       if (qid[a] == kid[b] && (qpos < lo[b] || qpos >= hi[b])) bits |= 1u << (4 * i + j);
     }
   return bits;
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ float half_warp_sum(float v) {

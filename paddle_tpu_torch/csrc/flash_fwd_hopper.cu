@@ -1,16 +1,15 @@
 // Flash attention forward for Hopper, redesigned for sm_90a: the bf16 and
 // fp16 kernel at D_pad 64, 128, 192 and 256 (and the heads of D_pad 32 and
 // 96, which it reads into the next of those with zero columns). out and the
-// row logsumexp, as flash_attention_fwd.cu's fp32 kernel computes them.
+// row logsumexp, as flash_fwd_tf32_hopper.cu computes them in fp32.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_fwd` (kernel body
 // `_fwd_kernel`, masks `_mask_scores`) on all its operands: causal /
 // non-causal and the sliding window as one band, GQA (kv head h / (H /
 // H_kv)), the additive bias in its own dtype with 0-strides over broadcast
 // dims, segment ids, the flashmask rows and dropout, each alone and
-// combined. It took the place of the WMMA kernel flash_fwd_tc_kernel of
-// flash_attention_fwd.cu at every width; the fp32 kernel there is
-// unchanged.
+// combined. It took the place of a WMMA kernel (flash_fwd_tc_kernel) at
+// every width.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 D FLOPs a
 // visible (query, key) pair, and q, k, v and out moved once. At the GPT

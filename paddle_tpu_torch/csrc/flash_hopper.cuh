@@ -143,13 +143,14 @@ __device__ __forceinline__ void gather_tile(unsigned char* k_dst, unsigned char*
                                             const int* table, int h, int NB, int bs, int k0,
                                             int n_keys, int valid, uint64_t* bar, Dst dst,
                                             OnKey on_key) {
-  constexpr int kPer = BN / 32;  // keys whose table slot a lane reads
+  constexpr int kPer = (BN + 31) / 32;  // keys whose table slot a lane reads
   const int lane = threadIdx.x % 32;
   int prow[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int r = lane + 32 * i, key = k0 + r;
     prow[i] = -1;
+    if (BN % 32 != 0 && r >= BN) continue;  // a tile of 16 keys: lanes 16-31 read none
     if (key < n_keys) {
       const int page = table[key / bs];
       prow[i] = (h * NB + page) * bs + key % bs;
@@ -588,7 +589,8 @@ __device__ __forceinline__ long long fm_row(const Args& a, int b, int h) {
 // visible() drops it).
 template <int BN>
 struct KeyMasks {
-  int kid[BN / 32], s[BN / 32], e[BN / 32];
+  static constexpr int kPer = (BN + 31) / 32;  // a tile of 16 keys: lanes 0-15
+  int kid[kPer], s[kPer], e[kPer];
   int klo, khi, smin, emax;  // over the tile's keys below Sk
 };
 
@@ -606,9 +608,9 @@ __device__ __forceinline__ bool key_tile_skip(const Args& a, bool seg, bool fm, 
   int klo = INT_MAX, khi = INT_MIN, smax = INT_MIN, emin = INT_MAX, smin = INT_MAX,
       emax = INT_MIN;
 #pragma unroll
-  for (int u = 0; u < BN / 32; ++u) {
+  for (int u = 0; u < KeyMasks<BN>::kPer; ++u) {
     const int kpos = k0 + lane + 32 * u;
-    const bool in = kpos < a.Sk;
+    const bool in = kpos < a.Sk && (BN % 32 == 0 || lane + 32 * u < BN);
     km.kid[u] = seg && in ? a.kseg[static_cast<long long>(b) * a.Sk + kpos] : 0;
     km.s[u] = fm && in ? a.fms[rows + kpos] : INT_MIN;
     km.e[u] = fm && in ? a.fme[rows + kpos] : INT_MAX;
@@ -653,7 +655,8 @@ __device__ __forceinline__ void write_slot(Slot<BN>& slot, int k0, bool seg, boo
     slot.emax = km.emax;
   }
 #pragma unroll
-  for (int u = 0; u < BN / 32; ++u) {
+  for (int u = 0; u < KeyMasks<BN>::kPer; ++u) {
+    if (BN % 32 != 0 && lane + 32 * u >= BN) continue;
     if (seg) slot.kids[lane + 32 * u] = km.kid[u];
     if (fm) {
       slot.fs[lane + 32 * u] = km.s[u];
@@ -778,8 +781,8 @@ __device__ __forceinline__ void add_bias_t(float (&s)[BN / 2], const Args& a, lo
     row[i] = base + static_cast<long long>(min(qpos[i], a.Sq - 1)) * a.vb.q;
   if (vec) {
     // column groups whose loads are in flight together: 16 registers of
-    // loaded values either way
-    constexpr int kChunk = sizeof(BT) == 2 ? 8 : 4;
+    // loaded values either way, at most the tile's groups
+    constexpr int kChunk = (sizeof(BT) == 2 ? 8 : 4) < BN / 8 ? (sizeof(BT) == 2 ? 8 : 4) : BN / 8;
 #pragma unroll
     for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
 #pragma unroll
@@ -801,7 +804,7 @@ __device__ __forceinline__ void add_bias_t(float (&s)[BN / 2], const Args& a, lo
       row[1] += z;
     }
   } else {
-    constexpr int kChunk = 4;
+    constexpr int kChunk = 4 < BN / 8 ? 4 : BN / 8;
 #pragma unroll
     for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
 #pragma unroll
@@ -1247,14 +1250,16 @@ __device__ __forceinline__ void split_tiles(float* t0, float* lo0, float* t1, fl
 // Threads [0, n) of the caller split a landed key tile of BN keys: K
 // ([BN][D] raw in 32-column panels at kraw) into khi / klo of the same
 // layout, perm8 columns (in place where khi is kraw), and V (raw at vraw)
-// transposed into vhi / vlo, V^T [D][BN keys] with the keys of each 8-key
-// step in perm8 order: the K-major B of O += P V with P the register A
-// (TF32 wgmma takes no transposed B). A warp takes the BN keys of one group
-// of 4 head columns: its stores land on one V^T row's 32 banks.
+// transposed into vhi / vlo, V^T [D][32 keys] (128-byte rows) with the keys
+// of each 8-key step in perm8 order, the tile's keys from column key0 (0,
+// or 16 for the second tile of 16 keys that shares the rows: SplitRing):
+// the K-major B of O += P V with P the register A (TF32 wgmma takes no
+// transposed B). A warp takes the BN keys of 32 / BN groups of 4 head
+// columns: its stores land on 32 banks.
 template <int D, int BN>
 __device__ __forceinline__ void split_k_vt(const float* kraw, float* khi, float* klo,
                                            const float* vraw, float* vhi, float* vlo, int tid,
-                                           int n) {
+                                           int n, int key0 = 0) {
   const float4* r4 = reinterpret_cast<const float4*>(kraw);
   float4* h4 = reinterpret_cast<float4*>(khi);
   float4* l4 = reinterpret_cast<float4*>(klo);
@@ -1274,11 +1279,48 @@ __device__ __forceinline__ void split_k_vt(const float* kraw, float* khi, float*
     for (int i = 0; i < 4; ++i) {
       uint32_t hi, lo;
       split_tf32(xs[i], hi, lo);
-      const uint32_t off = f32_off(c + i, perm8(key), 0);
+      const uint32_t off = f32_off(c + i, key0 + perm8(key), 0);
       *reinterpret_cast<uint32_t*>(vh + off) = hi;
       *reinterpret_cast<uint32_t*>(vl + off) = lo;
     }
   }
+}
+
+// The split ring of the TF32 kernels that keep P in registers
+// (flash_fwd_tf32_hopper.cu at D_pad 192 / 256,
+// ragged_paged_attention_tf32_hopper.cu): KS stages of a key tile of kBN
+// keys (tf32_key_tile: 32, 16 past D_pad 128). K's halves [kBN][D] in
+// 32-column panels, one pair a stage; V^T's [D][32 keys] in rows of 128
+// bytes (the SW128 K-major B that desc_kmajor reads): one pair a stage at
+// kBN 32, and at kBN 16 one pair for two stages, stage s in keys 16 (s % 2)
+// .. + 15 of every row (a tile of 16 keys would fill half a swizzled row).
+// The split of stage s then writes bytes that the products of the other
+// stage never read.
+template <int D, int KS>
+struct SplitRing {
+  static constexpr int kBN = tf32_key_tile(D);
+  static constexpr int kVt = KS * kBN / 32;  // V^T buffers
+  float khi[KS][D / 32][kBN * 32], klo[KS][D / 32][kBN * 32];
+  float vhi[kVt][D * 32], vlo[kVt][D * 32];
+  __device__ __forceinline__ float* vt_hi(int st) { return vhi[st * kBN / 32]; }
+  __device__ __forceinline__ float* vt_lo(int st) { return vlo[st * kBN / 32]; }
+  // the first V^T column (key) of stage st
+  __device__ __forceinline__ static int vt_key0(int st) { return st * kBN % 32; }
+  // threads [0, n) of the caller split a landed fp32 tile into stage st
+  __device__ __forceinline__ void split(int st, const float* kraw, const float* vraw, int tid,
+                                        int n) {
+    split_k_vt<D, kBN>(kraw, khi[st][0], klo[st][0], vraw, vt_hi(st), vt_lo(st), tid, n,
+                       vt_key0(st));
+  }
+};
+
+// The landed ring's stages of a kernel whose split ring is apart
+// (SplitRing): two where two landed stages of K and V (`land` bytes each a
+// tile) fit beside `fixed` bytes (the raw Q and the split ring) and 2 KB of
+// barriers, slots and scales in the 227 KB a block may hold, else one (fp32
+// at D_pad 256).
+__host__ __device__ constexpr int landed_stages(size_t fixed, size_t land) {
+  return fixed + 4 * land + 2048 <= 232448 ? 2 : 1;
 }
 
 // Generic-proxy writes to shared memory visible to the wgmma (async proxy)
@@ -1295,6 +1337,16 @@ __device__ __forceinline__ void wg_sync(int id) {
 
 // m64nNk8, fp32 accumulate, TF32 A from registers, B K-major in shared
 // memory. scale_d = 0 overwrites the accumulator.
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -1323,8 +1375,10 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                            int scale_d) {
-  static_assert(N == 32 || N == 64, "m64nNk8 for N in {32, 64}");
-  if constexpr (N == 32)
+  static_assert(N == 16 || N == 32 || N == 64, "m64nNk8 for N in {16, 32, 64}");
+  if constexpr (N == 16)
+    wgmma_tf32_n16(d, a, db, scale_d);
+  else if constexpr (N == 32)
     wgmma_tf32_n32(d, a, db, scale_d);
   else
     wgmma_tf32_n64(d, a, db, scale_d);
@@ -1390,17 +1444,19 @@ __device__ __forceinline__ void frag_t(const unsigned char* xhi, const unsigned 
 
 // acc (64 x N) = A B^T over D columns: A the warpgroup's 64 rows of the raw
 // tile `a_tile` (frag_raw), B the split tile at (bhi, blo) of N rows. Issued
-// a panel (four key steps) at a time, two panels' fragments in flight; the
+// G key steps at a time (4: a panel), two groups' fragments in flight; the
 // small products into `sm`, the large ones of even and odd key steps into
-// acc and `lg`, summed at the end.
-template <int N, int D>
+// acc and `lg`, summed at the end. G 2 at D_pad 192 / 256, where 128
+// registers of output sit beside the fragments (32 of them, not 64).
+template <int N, int D, int G = (D > 128 ? 2 : 4)>
 __device__ __forceinline__ void gemm_raw(float (&acc)[N / 2], const unsigned char* a_tile,
                                          uint32_t a_panel, uint32_t bhi, uint32_t blo,
                                          uint32_t b_panel) {
-  uint32_t hi[2][4][4], lo[2][4][4];
+  static_assert(G % 2 == 0 && D % (8 * G) == 0, "whole groups of an even count of key steps");
+  uint32_t hi[2][G][4], lo[2][G][4];
   float sm[N / 2], lg[N / 2];
 #pragma unroll
-  for (int p = 0; p < D / 32; ++p) {
+  for (int p = 0; p < D / (8 * G); ++p) {
     const int buf = p & 1;
     if (p >= 2) {
       wgmma_wait<1>();
@@ -1408,11 +1464,11 @@ __device__ __forceinline__ void gemm_raw(float (&acc)[N / 2], const unsigned cha
       reg_fence(lo[buf]);
     }
 #pragma unroll
-    for (int s = 0; s < 4; ++s) frag_raw(a_tile, a_panel, 4 * p + s, hi[buf][s], lo[buf][s]);
+    for (int s = 0; s < G; ++s) frag_raw(a_tile, a_panel, G * p + s, hi[buf][s], lo[buf][s]);
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int kk = 4 * p + s;
+    for (int s = 0; s < G; ++s) {
+      const int kk = G * p + s;
       const uint64_t dh = desc_kmajor(bhi, b_panel, kk), dl = desc_kmajor(blo, b_panel, kk);
       wgmma_tf32<N>(sm, lo[buf][s], dh, kk > 0 ? 1 : 0);
       wgmma_tf32<N>(sm, hi[buf][s], dl, 1);
@@ -1431,6 +1487,100 @@ __device__ __forceinline__ void gemm_raw(float (&acc)[N / 2], const unsigned cha
   reg_fence(lo);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] += lg[i] + sm[i];
+}
+
+// The probabilities of a key tile (the S accumulator fragment, BN keys)
+// split into the register A fragments of O += P V: key step kk's are
+// registers 4 kk .. 4 kk + 3 (contraction index l % 4: column 8 kk + 2 (l %
+// 4), rows i = 0, 1; l % 4 + 4: the column after it), which V^T's perm8
+// keys match.
+template <int BN>
+__device__ __forceinline__ void split_p(const float (&s)[BN / 2], uint32_t (&phi)[BN / 8][4],
+                                        uint32_t (&plo)[BN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    split_tf32(s[4 * kk], phi[kk][0], plo[kk][0]);
+    split_tf32(s[4 * kk + 2], phi[kk][1], plo[kk][1]);
+    split_tf32(s[4 * kk + 1], phi[kk][2], plo[kk][2]);
+    split_tf32(s[4 * kk + 3], phi[kk][3], plo[kk][3]);
+  }
+}
+
+// The products of one group of 64 head columns (rows 64 mb .. of V^T) into
+// a fresh accumulator: the small ones first, then the large ones.
+template <int KS>
+__device__ __forceinline__ void pv_group(float (&part)[32], const uint32_t (&phi)[KS][4],
+                                         const uint32_t (&plo)[KS][4], uint32_t vhi, uint32_t vlo,
+                                         int kk0) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32<64>(part, plo[kk], desc_kmajor(vhi, 0, kk0 + kk), kk > 0 ? 1 : 0);
+    wgmma_tf32<64>(part, phi[kk], desc_kmajor(vlo, 0, kk0 + kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32<64>(part, phi[kk], desc_kmajor(vhi, 0, kk0 + kk), 1);
+}
+
+// The fresh accumulators pv_tile takes: one a group of 64 head columns up
+// to D_pad 128, two in flight above.
+__host__ __device__ constexpr int pv_accs(int d_pad) { return d_pad / 64 < 2 ? d_pad / 64 : 2; }
+
+// o (64 x D, the running output) += P V over a key tile of KS key steps: P
+// the split fragments (split_p), V^T split at vhi / vlo ([D][32 keys],
+// SplitRing), the tile's keys from key step kk0 of its rows. Each group of
+// 64 head columns into a fresh accumulator of `part` that the threads add
+// to o in fp32 (no chain longer than one tile: "Accumulation"). Up to D_pad
+// 128 every group in one commit; above it two groups in flight, so that 64
+// registers of accumulators, not 128, sit beside o's 128. `part` is the
+// caller's: declared in this inlined body instead, the same code spilled
+// 20-76 bytes in each D_pad 128 instance of the fp32 forward's consumer
+// (216 registers).
+template <int D, int KS>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 2], float (&part)[pv_accs(D)][32],
+                                        uint32_t (&phi)[KS][4], uint32_t (&plo)[KS][4],
+                                        uint32_t vhi, uint32_t vlo, int kk0) {
+  constexpr int M = D / 64;
+  constexpr uint32_t kGroup = 64 * 128;  // 64 rows of V^T
+  if constexpr (M <= 2) {
+    wgmma_fence();
+#pragma unroll
+    for (int mb = 0; mb < M; ++mb)
+      pv_group<KS>(part[mb], phi, plo, vhi + mb * kGroup, vlo + mb * kGroup, kk0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(phi);
+    reg_fence(plo);
+#pragma unroll
+    for (int mb = 0; mb < M; ++mb)
+#pragma unroll
+      for (int c = 0; c < 32; ++c) o[32 * mb + c] += part[mb][c];
+  } else {
+    wgmma_fence();
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      pv_group<KS>(part[mb], phi, plo, vhi + mb * kGroup, vlo + mb * kGroup, kk0);
+      wgmma_commit();
+    }
+#pragma unroll
+    for (int mb = 0; mb < M; ++mb) {
+      if (mb + 1 < M)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      reg_fence(part[mb & 1]);
+#pragma unroll
+      for (int c = 0; c < 32; ++c) o[32 * mb + c] += part[mb & 1][c];
+      if (mb + 2 < M) {
+        wgmma_fence();
+        pv_group<KS>(part[mb & 1], phi, plo, vhi + (mb + 2) * kGroup, vlo + (mb + 2) * kGroup,
+                     kk0);
+        wgmma_commit();
+      }
+    }
+    reg_fence(phi);
+    reg_fence(plo);
+  }
 }
 
 // run[mb] (rows 64 mb .. of X^T, 64 x N) += X^T B over X's 32 rows: X the

@@ -1,7 +1,7 @@
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 // 3", SC'11; the Random123 reference generator), shared by the kernels that
 // draw random bits: the fused Adam's stochastic rounding (fused_adam.cu) and
-// the flash kernels' attention dropout (flash_attention_{fwd,bwd}.cu).
+// the flash kernels' attention dropout (the flash forward and backward kernels).
 // kernels/flash_attention.py `philox4x32_10` is the same function in plain
 // PyTorch; the card tests hold the two bit for bit.
 #pragma once

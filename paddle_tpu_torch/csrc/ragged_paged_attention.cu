@@ -15,15 +15,15 @@
 // page size, where D is a whole number of 16-byte words of the pool type
 // and the pools are 16-byte aligned: bf16 / fp16 queries over pools of
 // their dtype or int8 / fp8 pools go to the wgmma kernel of
-// ragged_paged_attention_hopper.cu (D <= kWgmmaMaxD, 256), fp32 queries
-// over fp32, int8 or fp8 pools to the TF32 one of
-// ragged_paged_attention_tf32_hopper.cu (D <= kTf32MaxD, 128). The 16-bit
-// kernel takes a page size that is a multiple of 8 through its TMA ring and
-// any other through its gathered ring; the TF32 kernel gathers every page
-// size. Three kinds of call stay on the kernel here:
-// fp32 queries at D in (128, 256] over any pool (ROADMAP Queue 2 K13, with
-// K9's design), D not a whole number of 16-byte words, and pools that are
-// not 16-byte aligned.
+// ragged_paged_attention_hopper.cu, fp32 queries over fp32, int8 or fp8
+// pools to the TF32 one of ragged_paged_attention_tf32_hopper.cu (key tiles
+// of 32 up to D_pad 128, of 16 at 192 and 256), both at every D up to
+// kMaxD (256). The 16-bit kernel takes a
+// page size that is a multiple of 8 through its TMA ring and any other
+// through its gathered ring; the TF32 kernel gathers every page size. Two
+// kinds of call stay on the kernel here, at any D up to 256: D not a whole
+// number of 16-byte words (fp32 D 99 or 250, bf16 D 100), and pools that
+// are not 16-byte aligned.
 //
 // Quantized pools (the `quantized=True` body of `_ragged_kernel`): int8 or
 // fp8-e4m3 pages with fp32 per-(kv head, page) absmax scales [H_kv, NB],
@@ -65,8 +65,6 @@ using namespace ptt_paged;
 constexpr int kThreads = 128;
 constexpr int kTileRows = 16;                                // folded rows per block
 constexpr int kMaxD = 256;
-constexpr int kWgmmaMaxD = 256;  // the 16-bit wgmma route's widest head (D_pad 64-256)
-constexpr int kTf32MaxD = 128;   // the TF32 route's widest head
 constexpr int kNarrowD = 128;    // the kernel here: the narrower of its two instances
 
 // outputs a thread: kTileRows * D / kThreads, for D up to 128 or up to 256
@@ -290,8 +288,8 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
 namespace ptt_ragged_tf32 {
 // ragged_paged_attention_tf32_hopper.cu
 int query_rows();
-int key_tile();
-int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb);
+int key_tile(int D);
+int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb, int D);
 int run(const void* q, const void* k_pool, const void* v_pool, const void* tables,
         const void* q_lens, const void* kv_lens, void* out, const void* k_scales,
         const void* v_scales, void* part_o, void* part_ml, int R, int C, int Hq, int Hkv,
@@ -308,20 +306,19 @@ namespace {
 enum Design { kCudaCores = 0, kWgmma = 2, kWgmmaTf32 = 3, kWgmmaGather = 4 };
 
 // The wgmma kernels take D a whole number of 16-byte words of the pool type
-// and 16-byte aligned pools, at any page size: 16-bit queries over any pool
-// up to kWgmmaMaxD, fp32 queries over any pool up to kTf32MaxD (the TF32
-// kernel: its split tiles at D 256 are ROADMAP Queue 2 K9's design). On the
-// 16-bit kernel a page size that is a multiple of 8 takes the TMA ring (a
-// box lands on whole 8-row swizzle atoms), any other the gathered ring; the
-// TF32 kernel gathers every page size. The rest (fp32 queries
-// at D 129-256, D not whole 16-byte words, misaligned pools) goes to the
-// kernel here.
+// and 16-byte aligned pools, at any page size and every D the entry takes:
+// 16-bit queries over any pool, fp32 queries over any pool (the TF32
+// kernel, key tiles of 16 at D_pad 192 / 256). On the 16-bit kernel a page
+// size that is a multiple of 8 takes the TMA ring (a box lands on whole
+// 8-row swizzle atoms), any other the gathered ring; the TF32 kernel
+// gathers every page size. The rest (D not whole 16-byte words, misaligned
+// pools) goes to the kernel here.
 Design route(int dtype, int pool_dtype, int bs, int D, bool aligned) {
   const int vec = 16 / pool_itemsize(pool_dtype, dtype == 0 ? 4 : 2);
   if (D % vec != 0 || !aligned) return kCudaCores;
   if (dtype != 0)
-    return D > kWgmmaMaxD ? kCudaCores : bs % 8 != 0 ? kWgmmaGather : kWgmma;
-  return D > kTf32MaxD ? kCudaCores : kWgmmaTf32;
+    return bs % 8 != 0 ? kWgmmaGather : kWgmma;
+  return kWgmmaTf32;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -363,7 +360,7 @@ int ptt_ragged_paged_attention(const void* q, const void* k_pool, const void* v_
   if (design != kCudaCores) {
     if (!aligned16(q) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
     if (design == kWgmmaTf32) {
-      if (splits == 0) splits = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
+      if (splits == 0) splits = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb, D);
       return ptt_ragged_tf32::run(q, k_pool, v_pool, tables, q_lens, kv_lens, out, k_scales,
                                   v_scales, part_o, part_ml, R, C, Hq, Hkv, NB, bs, D, nb, splits,
                                   scale, pool_dtype, s);
@@ -402,8 +399,8 @@ int ptt_ragged_plan(int R, int C, int Hq, int Hkv, int bs, int D, int nb, int dt
   out[0] = design;
   if (design == kWgmmaTf32) {
     out[1] = ptt_ragged_tf32::query_rows();
-    out[2] = ptt_ragged_tf32::key_tile();
-    out[3] = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb);
+    out[2] = ptt_ragged_tf32::key_tile(D);
+    out[3] = ptt_ragged_tf32::auto_splits(R, C, Hq, Hkv, bs, nb, D);
   } else if (design != kCudaCores) {
     out[1] = ptt_ragged_hopper::query_rows();
     out[2] = ptt_ragged_hopper::key_tile();

@@ -1,12 +1,12 @@
 // Unified ragged prefill+decode paged attention in fp32 for Hopper (sm_90a),
 // on the TF32 tensor cores: fp32 queries over fp32 pools or int8 / fp8 e4m3
-// pools with per-(kv head, page) scales, any page size bs, D <= 128 (a pool
+// pools with per-(kv head, page) scales, any page size bs, D <= 256 (a pool
 // row whole 16-byte words) and 16-byte aligned pools. ragged_paged_attention
 // .cu's entry hands it those calls (design "wgmma-3xtf32" in
-// ptt_ragged_plan); fp32 queries at D above 128, odd D and misaligned pools
-// keep the CUDA-core kernel there. This file is compiled once per D_pad
-// (-DPTT_RAGGED_TF32_D=<64|128>, kernels/_build.py); the object of D_pad 64
-// also holds the host entries.
+// ptt_ragged_plan); odd D and misaligned pools keep the CUDA-core kernel
+// there. This file is compiled once per D_pad (-DPTT_RAGGED_TF32_D=<64|128|
+// 192|256>, kernels/_build.py); the object of D_pad 64 also holds the host
+// entries.
 //
 // Replaces paddle_tpu/kernels/pallas/ragged_paged_attention.py
 // `ragged_paged_attention` (kernel body `_ragged_kernel`) for those calls:
@@ -15,7 +15,7 @@
 // columns c >= q_len and rows that see no key are exact zeros. GQA folds a
 // kv head's g query heads with the chunk: folded row f = c g + j. It took
 // the place of the CUDA-core kernel for fp32 queries over fp32 pools, then
-// over 1-byte pools and at the other page sizes.
+// over 1-byte pools and at the other page sizes, then at D 129-256.
 //
 // Bound on an H100 SXM (3.35 TB/s, 495 TFLOP/s TF32 dense): a decode row
 // reads its fp32 K / V pages once (bytes-bound: 0.0148 ms for the serving
@@ -39,12 +39,19 @@
 // warpgroup 1 the producer (its warp 0 reads block_tables itself and copies
 // the pages, its warps 1-3 split each landed tile). Shared memory limits
 // the block to one an SM (a split fp32 element takes 8 bytes; 224 KB at D
-// 128 over fp32 pools, 176 KB over 1-byte pools).
+// 128 over fp32 pools, 176 KB over 1-byte pools). Key tiles of 32 keys up
+// to D_pad 128 and of 16 at 192 and 256, where Q (48 / 64 KB) and two split
+// stages of 16 keys (96 / 128 KB, flash_hopper.cuh SplitRing: V^T's rows of
+// 32 keys shared by the two stages) leave room for one landed stage of fp32
+// pages at 256 (224 KB) and two elsewhere; the 64 x 256 fp32 output is 128
+// registers a consumer thread, so gemm_raw keeps two key steps of Q
+// fragments in flight there and pv_tile two accumulators of 64 head
+// columns.
 // - Q: the consumer loads the 64 folded rows once (16-byte words, rows
 //   c >= q_len as zeros) raw into the 128-byte-swizzled fp32 panels that
 //   frag_raw reads as the register A of S = Q K^T, split there.
 // - Pages through a gathered ring, at every page size: producer warp 0
-//   copies a key tile of 32 keys key row by key row with cp.async, 16 bytes
+//   copies a key tile key row by key row with cp.async, 16 bytes
 //   a lane a copy (flash_hopper.cuh gather_tile): key k from pool row (h NB
 //   + table[k / bs]) bs + k % bs, into the swizzled 32-column fp32 panels
 //   that split_k_vt reads. A key at or past the tile plan's n_keys is
@@ -77,7 +84,8 @@
 // - The split (producer warps 1-3): K into hi and lo halves, the 8 columns
 //   of each key step in perm8 order (the K-major B of S = Q K^T); V
 //   transposed, [D][32 keys] hi and lo, the keys
-//   of each step in perm8 order: the K-major B of O += P V. TF32 wgmma takes
+//   of each step in perm8 order: the K-major B of O += P V (flash_hopper.cuh
+//   SplitRing, shared with the fp32 flash forward at D_pad 192 / 256). TF32 wgmma takes
 //   no transposed B, so the tile is transposed once here, and P stays in
 //   the registers: the S accumulator's two columns 8 kk + 2 (l % 4) and + 1
 //   of key step kk are the TF32 A fragment's contraction indices l % 4 and
@@ -85,11 +93,12 @@
 //   O^T = V^T P^T with P written to shared memory as the dK/dV kernels'
 //   dv^T, holds O transposed: the online softmax's per-row rescale would
 //   then cross threads through shared memory every tile.)
-// - Products on wgmma: S = Q K^T (m64n32k8, gemm_raw: Q split in registers
-//   each key step, K's halves from shared memory), the online softmax on
-//   the register fragment (a row's max and sum over the quad), P split in
-//   registers as the A of O += P V (m64n64k8 for each 64 head columns),
-//   O in registers until the epilogue. Every product is issued and waited
+// - Products on wgmma: S = Q K^T (m64n32k8, m64n16k8 at D_pad 192 / 256;
+//   gemm_raw: Q split in registers each key step, K's halves from shared
+//   memory), the online softmax on the register fragment (a row's max and
+//   sum over the quad), P split in registers as the A of O += P V
+//   (m64n64k8 for each 64 head columns, pv_tile), O in registers until the
+//   epilogue. Every product is issued and waited
 //   for in the loop body that every tile runs (decode rows and prefill
 //   chunks alike): no wgmma sits in a data-dependent branch.
 // - Split key ranges: when R x H_kv x the query tiles leave more than half
@@ -106,7 +115,7 @@
 #include "paged_common.cuh"
 
 #ifndef PTT_RAGGED_TF32_D
-#error "compile once per D_pad: -DPTT_RAGGED_TF32_D=<64|128>"
+#error "compile once per D_pad: -DPTT_RAGGED_TF32_D=<64|128|192|256>"
 #endif
 
 namespace ptt_ragged_tf32 {
@@ -114,7 +123,6 @@ namespace ptt_ragged_tf32 {
 namespace hw = ptt_flash::hopper;
 
 constexpr int kRows = 64;       // folded query rows a block (one m64 warpgroup)
-constexpr int kBN = 32;         // keys a tile
 constexpr int kStages = 2;      // stages of the split ring
 constexpr int kMaxSplits = 16;  // splits of a row's key tiles the merge takes
 constexpr int kThreadsT = 256;  // the consumer warpgroup and the producer warpgroup
@@ -153,6 +161,7 @@ struct TilePlan {
   int n_rows, qpos0, n_keys, nkt;
 };
 
+template <int kBN>
 __device__ __forceinline__ TilePlan tile_plan(const Args& a, int r, int tile) {
   const int ql = a.q_lens[r], kl = a.kv_lens[r];
   const int CG = a.C * a.g, f0 = tile * kRows;
@@ -172,17 +181,19 @@ __device__ __forceinline__ TilePlan tile_plan(const Args& a, int r, int tile) {
 // f32_off); every array starts on a 1024-byte boundary. P: the pool
 // element. fp32 pools land in those panels; 1-byte pools land raw
 // ([kBN][D] unswizzled, a quarter of the bytes) beside the scale / qmax of
-// each key, and the split dequantizes them.
+// each key, and the split dequantizes them. Two landed stages where they
+// fit (one for fp32 pools at D_pad 256: 64 KB of Q, 32 KB landed and 128
+// KB of split stages).
 template <int D, typename P>
 struct Smem {
   static constexpr bool kQuant = !std::is_same<P, float>::value;
-  static constexpr int kP = D / 32;
+  static constexpr int kP = D / 32, kBN = ptt_flash::tf32_key_tile(D);
   static constexpr int kLandBytes = kBN * D * static_cast<int>(sizeof(P));
-  static constexpr int kLanded = 2;  // stages of the landed ring
+  using Ring = hw::SplitRing<D, kStages>;
+  static constexpr int kLanded = hw::landed_stages(kRows * D * 4 + sizeof(Ring), kLandBytes);
   float q[kP][kRows * 32];                                        // raw Q, [64][D]
   unsigned char k[kLanded][kLandBytes], v[kLanded][kLandBytes];  // the landed ring
-  float khi[kStages][kP][kBN * 32], klo[kStages][kP][kBN * 32];  // the split ring:
-  float vhi[kStages][D * 32], vlo[kStages][D * 32];  // K (perm8), V^T [D][32 keys]
+  Ring ring;  // the split ring: K (perm8), V^T [D][32 keys]
   float kmul[kQuant ? kLanded : 1][kBN];  // scale / qmax of each key
   float vmul[kQuant ? kLanded : 1][kBN];
   // raw / raw_empty: the landed ring (the loads, the split); full / empty:
@@ -204,6 +215,7 @@ template <int D, typename P>
 __device__ __forceinline__ void produce(Smem<D, P>& sm, const Args& a, int r, int h,
                                         int t_begin, int t_end, int n_keys) {
   using S = Smem<D, P>;
+  constexpr int kBN = S::kBN;
   constexpr int kChunks = D * static_cast<int>(sizeof(P)) / 16;
   const int* table = a.tables + static_cast<long long>(r) * a.nb;
   const int row_bytes = a.D * static_cast<int>(sizeof(P));
@@ -236,12 +248,13 @@ __device__ __forceinline__ void produce(Smem<D, P>& sm, const Args& a, int r, in
 // by threads [0, n) of the caller: each element x becomes x * (scale /
 // qmax) in fp32, the reference's value, then hi and lo as split_k_vt makes
 // them (K in the swizzled 32-column panels, each 8 columns in perm8 order;
-// V^T [D][kBN keys], the keys of each step in perm8 order).
-template <int D, typename P>
+// V^T [D][32 keys] from column key0, the keys of each step in perm8
+// order).
+template <int D, int kBN, typename P>
 __device__ __forceinline__ void split_k_vt_q(const unsigned char* kraw, float* khi, float* klo,
                                              const unsigned char* vraw, float* vhi, float* vlo,
                                              const float* kmul, const float* vmul, int tid,
-                                             int n) {
+                                             int n, int key0) {
   unsigned char* kh = reinterpret_cast<unsigned char*>(khi);
   unsigned char* kl = reinterpret_cast<unsigned char*>(klo);
   // K: 8 columns of a key a unit, a row's units on consecutive threads
@@ -281,7 +294,7 @@ __device__ __forceinline__ void split_k_vt_q(const unsigned char* kraw, float* k
     for (int i = 0; i < 16; ++i) {
       uint32_t hi, lo;
       hw::split_tf32(ptt_paged::to_f32(x[i]) * m, hi, lo);
-      const uint32_t off = hw::f32_off(c + i, hw::perm8(key), 0);
+      const uint32_t off = hw::f32_off(c + i, key0 + hw::perm8(key), 0);
       *reinterpret_cast<uint32_t*>(vh + off) = hi;
       *reinterpret_cast<uint32_t*>(vl + off) = lo;
     }
@@ -302,13 +315,13 @@ __device__ __forceinline__ void split_stream(Smem<D, P>& sm, int n_tiles) {
     hw::mbar_wait(&sm.raw[land], land_phase);
     hw::mbar_wait(&sm.empty[stage], phase ^ 1);
     if constexpr (S::kQuant)
-      split_k_vt_q<D, P>(sm.k[land], sm.khi[stage][0], sm.klo[stage][0], sm.v[land],
-                         sm.vhi[stage], sm.vlo[stage], sm.kmul[land], sm.vmul[land], tid,
-                         kSplitters);
+      split_k_vt_q<D, S::kBN, P>(sm.k[land], sm.ring.khi[stage][0], sm.ring.klo[stage][0],
+                                 sm.v[land], sm.ring.vt_hi(stage), sm.ring.vt_lo(stage),
+                                 sm.kmul[land], sm.vmul[land], tid, kSplitters,
+                                 S::Ring::vt_key0(stage));
     else
-      hw::split_k_vt<D, kBN>(reinterpret_cast<const float*>(sm.k[land]), sm.khi[stage][0],
-                             sm.klo[stage][0], reinterpret_cast<const float*>(sm.v[land]),
-                             sm.vhi[stage], sm.vlo[stage], tid, kSplitters);
+      sm.ring.split(stage, reinterpret_cast<const float*>(sm.k[land]),
+                    reinterpret_cast<const float*>(sm.v[land]), tid, kSplitters);
     hw::mbar_arrive(&sm.raw_empty[land]);
     hw::fence_proxy_async();
     hw::mbar_arrive(&sm.full[stage]);
@@ -320,9 +333,10 @@ __device__ __forceinline__ void split_stream(Smem<D, P>& sm, int n_tiles) {
 template <int D, typename P>
 __global__ void __launch_bounds__(kThreadsT, 1) ragged_tf32_kernel(const Args a) {
   using S = Smem<D, P>;
+  constexpr int kBN = S::kBN;
   const int split = blockIdx.x % a.splits, tile = blockIdx.x / a.splits;
   const int h = blockIdx.y, r = blockIdx.z;
-  const TilePlan tp = tile_plan(a, r, tile);
+  const TilePlan tp = tile_plan<kBN>(a, r, tile);
   const int t_begin = split * a.per_split;
   const int t_end = min(t_begin + a.per_split, tp.nkt);
   const int n_tiles = max(0, t_end - t_begin);
@@ -409,8 +423,8 @@ __global__ void __launch_bounds__(kThreadsT, 1) ragged_tf32_kernel(const Args a)
     const int k0 = tt * kBN;
     hw::mbar_wait(&sm.full[stage], phase);
     float s[kBN / 2];
-    hw::gemm_raw<kBN, D>(s, qt, kQPanel, hw::smem_u32(sm.khi[stage][0]),
-                         hw::smem_u32(sm.klo[stage][0]), kKPanel);
+    hw::gemm_raw<kBN, D>(s, qt, kQPanel, hw::smem_u32(sm.ring.khi[stage][0]),
+                         hw::smem_u32(sm.ring.klo[stage][0]), kKPanel);
     // the online softmax in log2 units on the fragment: column 8 j + 2 (l %
     // 4) + e of register 4 j + 2 i + e
     float mx[2] = {m[0], m[1]};
@@ -438,45 +452,14 @@ __global__ void __launch_bounds__(kThreadsT, 1) ragged_tf32_kernel(const Args a)
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + hw::quad_sum(sum[i]);
 #pragma unroll
     for (int c = 0; c < D / 2; ++c) o[c] *= alpha[(c / 2) % 2];
-    // P split in registers: key step kk's A fragment is registers 4 kk ..
-    // 4 kk + 3 (contraction index l % 4: column 8 kk + 2 (l % 4), rows i =
-    // 0, 1; l % 4 + 4: the column after it)
+    // P split in registers, then O += P V (flash_hopper.cuh pv_tile)
     uint32_t phi[kBN / 8][4], plo[kBN / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) {
-      hw::split_tf32(s[4 * kk], phi[kk][0], plo[kk][0]);
-      hw::split_tf32(s[4 * kk + 2], phi[kk][1], plo[kk][1]);
-      hw::split_tf32(s[4 * kk + 1], phi[kk][2], plo[kk][2]);
-      hw::split_tf32(s[4 * kk + 3], phi[kk][3], plo[kk][3]);
-    }
-    // O += P V, each 64 head columns into a fresh accumulator: the small
-    // products first, then the large ones
-    float part[D / 64][32];
-    const uint32_t vhi = hw::smem_u32(sm.vhi[stage]), vlo = hw::smem_u32(sm.vlo[stage]);
-    hw::wgmma_fence();
-#pragma unroll
-    for (int mb = 0; mb < D / 64; ++mb) {
-      const uint32_t off = mb * 64 * 128;
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk) {
-        hw::wgmma_tf32<64>(part[mb], plo[kk], hw::desc_kmajor(vhi + off, 0, kk), kk > 0 ? 1 : 0);
-        hw::wgmma_tf32<64>(part[mb], phi[kk], hw::desc_kmajor(vlo + off, 0, kk), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBN / 8; ++kk)
-        hw::wgmma_tf32<64>(part[mb], phi[kk], hw::desc_kmajor(vhi + off, 0, kk), 1);
-    }
-    hw::wgmma_commit();
-    hw::wgmma_wait_all();
-    hw::reg_fence(part);
-    hw::reg_fence(phi);
-    hw::reg_fence(plo);
+    float part[hw::pv_accs(D)][32];
+    hw::split_p<kBN>(s, phi, plo);
+    hw::pv_tile<D, kBN / 8>(o, part, phi, plo, hw::smem_u32(sm.ring.vt_hi(stage)),
+                            hw::smem_u32(sm.ring.vt_lo(stage)), S::Ring::vt_key0(stage) / 8);
     __syncwarp();
     if (lane == 0) hw::mbar_arrive(&sm.empty[stage]);
-#pragma unroll
-    for (int mb = 0; mb < D / 64; ++mb)
-#pragma unroll
-      for (int c = 0; c < 32; ++c) o[32 * mb + c] += part[mb][c];
     next_stage<kStages>(stage, phase);
   }
 
@@ -525,10 +508,11 @@ __global__ void __launch_bounds__(kThreadsT, 1) ragged_tf32_kernel(const Args a)
 // folded rows with no split as exact zeros. One thread a live row forms its
 // splits' weights into shared memory; then each thread merges 4 columns of
 // a row at a time and stores them as one 16-byte word.
+template <int kBN>
 __global__ void __launch_bounds__(128) ragged_tf32_combine_kernel(const Args a) {
   __shared__ float wts[kRows][kMaxSplits];
   const int tile = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
-  const TilePlan tp = tile_plan(a, r, tile);
+  const TilePlan tp = tile_plan<kBN>(a, r, tile);
   const int n_splits = tp.nkt > 0 ? min(a.splits, (tp.nkt + a.per_split - 1) / a.per_split) : 0;
   const int f0 = tile * kRows, rows = min(kRows, a.C * a.g - f0);
   const long long blk0 = ((static_cast<long long>(r) * a.Hkv + h) * a.tiles + tile) * a.splits;
@@ -582,7 +566,7 @@ int launch(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kThreadsT, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return static_cast<int>(e);
-  ragged_tf32_combine_kernel<<<dim3(a.tiles, a.Hkv, a.R), 128, 0, stream>>>(a);
+  ragged_tf32_combine_kernel<S::kBN><<<dim3(a.tiles, a.Hkv, a.R), 128, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -597,24 +581,28 @@ int run_width(const Args& a, int pool_code, cudaStream_t stream) {
 template int run_width<PTT_RAGGED_TF32_D>(const Args&, int, cudaStream_t);
 
 #if PTT_RAGGED_TF32_D == 64  // the host entries, in one object
-// the other width's kernels are built in their own object
+// the other widths' kernels are built in their own objects
 extern template int run_width<128>(const Args&, int, cudaStream_t);
+extern template int run_width<192>(const Args&, int, cudaStream_t);
+extern template int run_width<256>(const Args&, int, cudaStream_t);
+
+int d_pad_of(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256; }
 
 // The route's tiles and split count (ptt_ragged_plan): folded rows a block,
 // keys a tile, and the splits of a row's key tiles. A block holds its SM
 // alone (shared memory), so the rule keeps one wave: below SMs / 2 blocks
 // the row is split into as many ranges as the grid leaves SMs for (at most
-// kMaxSplits), each keeping at least kSplitMinTiles key tiles of 32 (the
-// 16-bit kernel's 256 keys). Measured on an H100 SXM
-// (`profiler/ragged_splits.py`, one row of 8192 keys over 16 kv heads):
-// 8 splits (128 blocks) ran 0.1041 ms, 12 and 13 (two waves) 0.1385 and
-// 0.1288.
-constexpr int kSplitMinTiles = 8;
+// kMaxSplits), each keeping at least kSplitMinKeys keys (the 16-bit
+// kernel's 256: 8 key tiles of 32, 16 of 16 at D_pad 192 / 256). Measured
+// on an H100 SXM (`profiler/ragged_splits.py`, one row of 8192 keys over 16
+// kv heads, D 128): 8 splits (128 blocks) ran 0.1041 ms, 12 and 13 (two
+// waves) 0.1385 and 0.1288.
+constexpr int kSplitMinKeys = 256;
 
 int query_rows() { return kRows; }
-int key_tile() { return kBN; }
+int key_tile(int D) { return ptt_flash::tf32_key_tile(d_pad_of(D)); }
 
-int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb) {
+int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb, int D) {
   static int sms = [] {
     int dev = 0, n = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -625,9 +613,10 @@ int auto_splits(int R, int C, int Hq, int Hkv, int bs, int nb) {
   const long long tiles = (static_cast<long long>(C) * (Hq / Hkv) + kRows - 1) / kRows;
   const long long base = static_cast<long long>(R) * Hkv * tiles;
   if (base <= 0 || 2 * base >= sms) return 1;
-  const long long table_tiles = (static_cast<long long>(nb) * bs + kBN - 1) / kBN;
+  const int bn = key_tile(D);
+  const long long table_tiles = (static_cast<long long>(nb) * bs + bn - 1) / bn;
   return static_cast<int>(std::max(
-      1LL, std::min<long long>({sms / base, table_tiles / kSplitMinTiles,
+      1LL, std::min<long long>({sms / base, table_tiles / (kSplitMinKeys / bn),
                                 static_cast<long long>(kMaxSplits)})));
 }
 
@@ -660,13 +649,22 @@ int run(const void* q, const void* k_pool, const void* v_pool, const void* table
   a.g = Hq / Hkv;
   a.tiles = (C * a.g + kRows - 1) / kRows;
   a.splits = splits;
-  const int table_tiles = (nb * bs + kBN - 1) / kBN;
+  const int bn = key_tile(D), table_tiles = (nb * bs + bn - 1) / bn;
   a.per_split = (table_tiles + splits - 1) / splits;
   a.scale = scale;
   if (splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return D > 64 ? run_width<128>(a, pool_code, stream) : run_width<64>(a, pool_code, stream);
+  switch (d_pad_of(D)) {
+    case 64:
+      return run_width<64>(a, pool_code, stream);
+    case 128:
+      return run_width<128>(a, pool_code, stream);
+    case 192:
+      return run_width<192>(a, pool_code, stream);
+    default:
+      return run_width<256>(a, pool_code, stream);
+  }
 }
 #endif
 

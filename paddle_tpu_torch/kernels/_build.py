@@ -39,9 +39,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v"]
 
 # the flash kernels' head-dim family (csrc/flash_common.cuh kDPads): the
-# forward source is compiled once per member (-DPTT_FLASH_D=<D_pad>), the
-# backward once per member and kernel (-DPTT_FLASH_DQ=1 for dQ, 0 for
-# dK/dV), so the family builds in parallel
+# backward's routing and FP32-pipe source is compiled once per member and
+# kernel (-DPTT_FLASH_D=<D_pad>, -DPTT_FLASH_DQ=1 for dQ, 0 for dK/dV), so
+# the family builds in parallel
 FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
 # the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
 # flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
@@ -49,10 +49,12 @@ FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
 # the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): one object per width
 # as well (192 and 256 take its split design)
 FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
-# the fp32 forward, dQ and dK/dV on the TF32 tensor cores
-# (flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu,
-# flash_dkv_tf32_hopper.cu): one object each per width; D_pad 32 and 96 run
-# them with zero columns, 192 and 256 the FP32-pipe kernels
+# the fp32 forward on the TF32 tensor cores (flash_fwd_tf32_hopper.cu): one
+# object per width, every fp32 forward (D_pad 32 and 96 with zero columns)
+FLASH_TF32_FWD_D_PADS = (64, 128, 192, 256)
+# the fp32 dQ and dK/dV there (flash_dq_tf32_hopper.cu,
+# flash_dkv_tf32_hopper.cu): one object each per width; D_pad 192 and 256
+# run the FP32-pipe kernels of flash_attention_bwd.cu
 FLASH_TF32_D_PADS = (64, 128)
 # the 16-bit ragged kernel (ragged_paged_attention_hopper.cu): one object per
 # width and page ring (-DPTT_RAGGED_D=<width> -DPTT_RAGGED_GATHER=<0: TMA,
@@ -61,7 +63,7 @@ RAGGED_HOPPER_D_PADS = (64, 128, 192, 256)
 # the fp32 ragged kernel on the TF32 tensor cores
 # (ragged_paged_attention_tf32_hopper.cu, its pages always gathered): one
 # object per width (-DPTT_RAGGED_TF32_D=<width>; 64 holds the host entries)
-RAGGED_TF32_D_PADS = (64, 128)
+RAGGED_TF32_D_PADS = (64, 128, 192, 256)
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas register / shared-memory / spill
@@ -86,20 +88,17 @@ def _nvcc() -> str:
 
 def _units():
     """(source, object stem, extra flags): one per source, and one per
-    head-dim family member (and backward kernel) for the flash sources, one
+    head-dim family member and kernel for the flash backward's source, one
     per redesigned width for the wgmma flash sources, one per width and
     page ring for the 16-bit ragged wgmma kernel and one per width for the
     TF32 one."""
     for src in sorted(CSRC.glob("*.cu")):
-        if src.name == "flash_attention_fwd.cu":
-            for d in FLASH_D_PADS:
-                yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
-        elif src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
+        if src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
                           "flash_dkv_hopper.cu", "flash_fwd_tf32_hopper.cu",
                           "flash_dq_tf32_hopper.cu",
                           "flash_dkv_tf32_hopper.cu"):
             pads = {"flash_dkv_hopper.cu": FLASH_DKV_HOPPER_D_PADS,
-                    "flash_fwd_tf32_hopper.cu": FLASH_TF32_D_PADS,
+                    "flash_fwd_tf32_hopper.cu": FLASH_TF32_FWD_D_PADS,
                     "flash_dq_tf32_hopper.cu": FLASH_TF32_D_PADS,
                     "flash_dkv_tf32_hopper.cu": FLASH_TF32_D_PADS,
                     }.get(src.name, FLASH_HOPPER_D_PADS)
@@ -129,7 +128,8 @@ def _digest(extra: str = "") -> str:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
-            + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS + RAGGED_TF32_D_PADS)
+            + FLASH_TF32_FWD_D_PADS + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS
+            + RAGGED_TF32_D_PADS)
     h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())
     return h.hexdigest()[:16]

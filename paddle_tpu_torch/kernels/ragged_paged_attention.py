@@ -29,18 +29,20 @@ for ``sm_90a`` by ``kernels/_build.py`` at first use), on routes that
   fits such a page;
 * ``"wgmma-3xtf32"``
   (``paddle_tpu_torch/csrc/ragged_paged_attention_tf32_hopper.cu``): fp32
-  queries over fp32, int8 or fp8 e4m3 pools, any page size, D <= 128, on
+  queries over fp32, int8 or fp8 e4m3 pools, any page size, D <= 256, on
   the TF32 tensor cores: each fp32 operand split into two TF32 halves and
   every product taken as three (about 2^-21 of a product), the same block
-  and splits with key tiles of 32, the pages always gathered key row by key
-  row by ``cp.async`` (a TMA ring ran no faster here), then split (V
-  transposed, a 1-byte page dequantized to the reference's fp32 value
-  first) in shared memory by the producer warpgroup;
+  and splits with key tiles of 32 (of 16 at D_pad 192 and 256, where a
+  split element's 8 bytes fill shared memory sooner), the pages always
+  gathered key row by key row by ``cp.async`` (a TMA ring ran no faster
+  here), then split (V transposed, a 1-byte page dequantized to the
+  reference's fp32 value first) in shared memory by the producer
+  warpgroup;
 * ``"fp32"`` (``paddle_tpu_torch/csrc/ragged_paged_attention.cu``): what
-  stays on the CUDA cores up to D 256: fp32 queries at D above 128 (any
-  pool), D not a whole number of 16-byte words, pools that are not 16-byte
-  aligned. One block per (row, kv head, 16 folded rows) walks the row's
-  pages in fp32 shared tiles.
+  stays on the CUDA cores up to D 256: D not a whole number of 16-byte
+  words (fp32 D 99 or 250), pools that are not 16-byte aligned. One block
+  per (row, kv head, 16 folded rows) walks the row's pages in fp32 shared
+  tiles.
 
 What bounds the function on an H100 SXM (published peaks at its 700 W
 limit): decode rows are bandwidth-bound, each row needing

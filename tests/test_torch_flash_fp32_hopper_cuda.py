@@ -1,16 +1,20 @@
 """The fp32 flash forward, dQ and dK/dV kernels on the TF32 tensor cores
 (``csrc/flash_fwd_tf32_hopper.cu``: 128 query rows a block over key tiles
-of 32, V transposed in shared memory; ``csrc/flash_dq_tf32_hopper.cu``: 64
+of 32 up to D_pad 128, 64 rows over key tiles of 16 at D_pad 192 and 256,
+V transposed in shared memory; ``csrc/flash_dq_tf32_hopper.cu``: 64
 query rows a block over key tiles of 32; ``csrc/flash_dkv_tf32_hopper.cu``:
 64 keys a block over query tiles of 32; each fp32 operand split into two
 TF32 halves, three wgmma products for each) against their plain PyTorch
 versions on the same inputs: out and lse, dq, delta and the d-bias, dk and
 dv (the backward from the forward kernel's lse). The grid: D
-32, 40, 64, 96 and 128 (the widths the design takes); every flag instance
+32, 40, 64, 96 and 128 (the widths dQ and dK/dV take there), and for the
+forward also 160, 200 and 256 (D_pad 192 and 256); every flag instance
 (bias x integer masks x dropout); causal, non-causal and a window; GQA 8/2
 and 2/2; lengths on both sides of the 32-row and 64-row tiles; dead rows.
-Also the keep bits of both kernels across their tiles, the model's strided
-qkv views and a batch-broadcast key, and ``kernel_plan``'s design for fp32.
+Also the keep bits of both kernels across their tiles (and at D 160 / 256
+the TF32 forward's against the FP32-pipe backward's), the model's strided
+qkv views and a batch-broadcast key, a 16-bit bias beside fp32 q, and
+``kernel_plan``'s design for fp32.
 Tolerance: ``chip_smoke.py``'s fp32 gate, 5e-6 on the worst 64-row tile's
 relative l2, dq and dk with a floor of 1e-1 of the tile's terms before they
 cancel (``test_torch_flash_hopper_cuda.py`` takes 1e-2 beside its 2e-2):
@@ -38,6 +42,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = 5e-6
 DIMS = (32, 40, 64, 96, 128)
+WIDE = (160, 200, 256)  # the forward's D_pad 192 and 256
 # bias x integer masks x dropout: every instance of the kernels
 FLAGS = ("none", "bias", "segments", "rows", "dropout", "bias_segments",
          "bias_dropout", "rows_dropout", "bias_rows_dropout")
@@ -164,7 +169,8 @@ def test_fp32_plan_reports_the_tf32_design(card):
     """kernel_plan for fp32: the forward, dQ and dK/dV on the TF32 tensor
     cores at every D_pad <= 128 (the forward 128 query rows over 32-key
     tiles; dQ 64 query rows over 32-key tiles; dK/dV 64 keys over 32-query
-    tiles, key-major), the FP32 pipes at D_pad 192 and 256."""
+    tiles, key-major); at D_pad 192 and 256 the forward there too (64 query
+    rows over 16-key tiles), dQ and dK/dV on the FP32 pipes."""
     for D in (1, 32, 40, 64, 96, 128):
         fwd = FA.kernel_plan("flash_fwd", D, torch.float32)
         fwd_b = FA.kernel_plan("flash_fwd", D, torch.float32, bias=True)
@@ -177,8 +183,12 @@ def test_fp32_plan_reports_the_tf32_design(card):
                 dq["key_major"]) == ("wgmma-3xtf32", 64, 32, False)
         assert (dkv["design"], dkv["query_rows"], dkv["keys"],
                 dkv["key_major"]) == ("wgmma-3xtf32", 32, 64, True)
-    for D in (160, 192, 200, 256):
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for D in (136, 160, 192, 200, 256):
+        for bias in (False, True):
+            fwd = FA.kernel_plan("flash_fwd", D, torch.float32, bias=bias)
+            assert (fwd["design"], fwd["query_rows"], fwd["keys"],
+                    fwd["key_major"]) == ("wgmma-3xtf32", 64, 16, False)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             assert FA.kernel_plan(name, D, torch.float32)["design"] == "fp32"
 
 
@@ -206,10 +216,11 @@ def _check_fwd(q, k, v, causal, var, what):
 
 
 @pytest.mark.parametrize("flag", FLAGS)
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE)
 def test_fp32_fwd_vs_plain(card, D, flag):
-    """The forward at GQA 8/2 and 2/2 and 16/4, lengths across its 32-key
-    and 128-row tiles (and S 1000), causal, non-causal and a window."""
+    """The forward at GQA 8/2 and 2/2 and 16/4, lengths across its key and
+    row tiles (32 keys and 128 rows, 16 and 64 at D 160-256; and S 1000),
+    causal, non-causal and a window."""
     rng = np.random.RandomState(7 * D + 11 * FLAGS.index(flag))
     B = 2
     shapes = SHAPES + ((1000, 1000), (129, 257))
@@ -310,3 +321,81 @@ def test_fp32_layouts_qkv_views_and_broadcast_key(card):
     vb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
     _check(q, kb, vb, do, False, {}, "fp32 broadcast key")
     _check_fwd(q, kb, vb, False, {}, "fp32 fwd broadcast key")
+
+
+@pytest.mark.parametrize("D", (160, 256))
+def test_fp32_wide_dropout_one_mask_in_both_designs(card, D):
+    """At D_pad 192 / 256 the forward runs on the TF32 tensor cores (16-key
+    tiles) and dQ / dK/dV on the FP32 pipes (64 x 64 tiles): both draw
+    dropout_keep_mask's bits. The forward's are read out of out (q = k = 0
+    makes every p 1 / Sk, and v one-hot on keys [w, w + D) makes out[i, d]
+    the kept, rescaled p of key w + d), dQ's out of its d-bias (dO . v = 1
+    makes dP the keep bit over (1 - p)); then both against the plain
+    versions with dropout on, gradients included."""
+    B, Sq, H, Sk, p, seed = 2, 200, 3, 300, 0.3, 97
+    q = torch.zeros(B, Sq, H, D, device=card)
+    k = torch.zeros(B, Sk, H, D, device=card)
+    keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, p, card)
+    var = dict(dropout_p=p, seed=seed)
+    for w in range(0, Sk, D):
+        n = min(D, Sk - w)
+        v = torch.zeros(B, Sk, H, D, device=card)
+        idx = torch.arange(n, device=card)
+        v[:, w + idx, :, idx] = 1
+        out, _ = FA.flash_fwd(q, k, v, False, 1.0, **var)
+        got = (out[..., :n] != 0).permute(0, 2, 1, 3)     # [B, H, q, key]
+        assert torch.equal(got, keep[..., w:w + n]), (D, "fwd", w)
+    v = torch.zeros(B, Sk, H, D, device=card)
+    do = torch.zeros(B, Sq, H, D, device=card)
+    v[..., 0] = 1
+    do[..., 0] = 1
+    bias = torch.zeros(1, 1, Sq, Sk, device=card)
+    _, lse = FA.flash_fwd(q, k, v, False, 1.0, bias=bias, **var)
+    _, _, db = FA.flash_bwd_dq(q, k, v, lse, do, False, 1.0, bias=bias,
+                               bias_grad=True, **var)
+    assert torch.equal(db > 0, keep), (D, "dq")
+    rng = np.random.RandomState(D)
+    q, do = (torch.from_numpy(rng.randn(B, 97, 4, D).astype(
+        np.float32)).to(card) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(B, 129, 2, D).astype(
+        np.float32)).to(card) for _ in range(2))
+    for causal in (True, False):
+        _check_fwd(q, k, v, causal, var, f"fp32 D={D} dropout fwd")
+        _check(q, k, v, do, causal, var, f"fp32 D={D} dropout bwd")
+
+
+@pytest.mark.parametrize("bias_dtype", (torch.bfloat16, torch.float16),
+                         ids=("bf16", "fp16"))
+@pytest.mark.parametrize("D", (64, 128, 160, 256))
+def test_fp32_fwd_with_a_16bit_bias(card, D, bias_dtype):
+    """A bias in its own 16-bit dtype beside fp32 q, read in pairs where it
+    is contiguous over keys: the TF32 forward's key tiles of 32 and 16 hold
+    fewer column groups than one chunk of 16-bit loads, which is cut to the
+    tile. Also a bias broadcast over batch and heads (0-strides) and one
+    that kills whole rows (-1e30)."""
+    rng = np.random.RandomState(31 + D)
+    B, Sq, Sk, H, hkv = 2, 130, 97, 4, 2
+    q = torch.from_numpy(rng.randn(B, Sq, H, D).astype(np.float32)).to(card)
+    k, v = (torch.from_numpy(rng.randn(B, Sk, hkv, D).astype(
+        np.float32)).to(card) for _ in range(2))
+    full = rng.randn(B, H, Sq, Sk).astype(np.float32)
+    full[1, 2, 5] = -1e30
+    for bias in (torch.from_numpy(full), torch.from_numpy(full[:1, :1])):
+        bias = bias.to(card, bias_dtype)
+        for causal in (True, False):
+            _check_fwd(q, k, v, causal, dict(bias=bias),
+                       f"fp32 D={D} {bias_dtype} bias {tuple(bias.shape)}")
+
+
+@pytest.mark.parametrize("D", (160, 256))
+def test_fp32_wide_layouts_qkv_views_and_broadcast_key(card, D):
+    """The forward at D_pad 192 / 256 on the model's head-major qkv read in
+    place, and on a key and value broadcast over the batch (copied before
+    the launch: the tensor maps take no zero stride)."""
+    B, S, H = 2, 300, 4
+    qkv = torch.randn(B, S, H, 3, D, device=card)
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    _check_fwd(q, k, v, True, {}, f"fp32 D={D} fwd qkv views")
+    kb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
+    vb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
+    _check_fwd(q, kb, vb, False, {}, f"fp32 D={D} fwd broadcast key")

@@ -3,9 +3,12 @@ the d-bias), run on the CPU through its plain versions, against the JAX
 package's Pallas kernels in interpret mode, at the edges of the tiles of
 the card's fp32 kernels on the TF32 tensor cores. The forward
 (``csrc/flash_fwd_tf32_hopper.cu``: 128 query rows a block over key tiles
-of 32): Sk on both sides of the key tile, a window, a segment boundary and
-a flashmask boundary inside a tile, S 1000 non-causal, GQA 16/4 and a bias,
-at D 40, 64 and 128; tolerance 2e-5 on out relative to its max-abs (as
+of 32 up to D_pad 128, 64 rows over key tiles of 16 at D_pad 192 and
+256): Sk on both sides of the key tile, Sq on both sides of the row block,
+a window, a segment boundary and a flashmask boundary inside a tile, S
+1000 non-causal, GQA 16/4 and GQA 8/2 with a bias, Sq != Sk, at D 40, 64
+and 128 and at D 160 and 256; tolerance 2e-5 on out relative to its
+max-abs (as
 ``test_torch_flash_tiles.py`` holds the forward in fp32). The backward
 (dQ and dK/dV
 (``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
@@ -15,8 +18,9 @@ mixed, causal with Sq < Sk, GQA 8/2 (the group summed over its query
 heads), a window across a 64-key block boundary, segment cuts at 31 and
 65, document flashmask rows across key blocks, and an additive bias with
 its gradient, at D 40 (read into the 64 width with zero columns), 64 and
-128 (the widths the design takes; D_pad 192 and 256 stay on the FP32-pipe
-kernels, whose edges ``test_torch_flash_head_dims.py`` covers). Inputs come
+128 (the widths the design takes; dQ and dK/dV at D_pad 192 and 256 stay
+on the FP32-pipe kernels, whose edges ``test_torch_flash_head_dims.py``
+covers). Inputs come
 from numpy with a seed and go to both packages, as
 ``test_torch_flash_dkv_tiles.py`` runs them. Tolerance: 2e-4 on the
 gradients in fp32, relative to the reference's max-abs. The CUDA kernels
@@ -164,6 +168,24 @@ FWD_CASES = {
                                  False),
     "bias-causal-97x129-d64": (97, 129, 2, 2, True, None, None, None, 64,
                                True),
+    # D_pad 192 / 256: 64 query rows a block over 16-key tiles (D 160 reads
+    # into 192 with zero columns)
+    "causal-65x15-sk-below-key-tile-d256": (65, 15, 2, 2, True, None, None,
+                                            None, 256, False),
+    "noncausal-63x17-sk-above-key-tile-d160": (63, 17, 2, 2, False, None,
+                                               None, None, 160, False),
+    "causal-65x63-rows-across-64-d160": (65, 63, 2, 2, True, None, None,
+                                         None, 160, False),
+    "window-100x100-inside-tiles-d256": (100, 100, 2, 1, False, (13, 5),
+                                         None, None, 256, False),
+    "segments-cut-at-45-77-d160": (96, 96, 2, 2, False, None, (45, 77), None,
+                                   160, False),
+    "document-rows-inside-tiles-d256": (128, 128, 2, 2, True, None, None,
+                                        (45, 40, 43), 256, False),
+    "bias-gqa-8-2-causal-97x129-d160": (97, 129, 8, 2, True, None, None, None,
+                                        160, True),
+    "noncausal-200x33-d256": (200, 33, 2, 2, False, None, None, None, 256,
+                              False),
 }
 
 

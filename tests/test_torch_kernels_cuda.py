@@ -104,11 +104,12 @@ def test_kernel_c_entry_refuses_shapes_it_does_not_take(card, bad):
     raises and counts no launch. (Every head dim up to 256, odd D and
     misaligned pools have a route: test_torch_ragged_hopper_cuda.py.) The
     CUDA-core route (here D 12, not whole 16-byte words) takes no split;
-    its fp32 page of 128 keys at D 256 does not fit a block's shared
-    memory; no route takes more than 16 splits."""
+    its fp32 page of 128 keys at D 250 (not whole 16-byte words either;
+    fp32 at D 256 has the TF32 route, which takes every page size) does not
+    fit a block's shared memory; no route takes more than 16 splits."""
     dtype, D, bs, splits = {
         "split_on_cuda_core_route": (torch.bfloat16, 12, 8, 2),
-        "page_above_shared_memory": (torch.float32, 256, 128, None),
+        "page_above_shared_memory": (torch.float32, 250, 128, None),
         "splits_above_16": (torch.bfloat16, 16, 8, 17)}[bad]
     args, scale = _case(card, dtype, 4, 4, D, bs)
     before = RPA.ragged_paged_attention.LAUNCHES

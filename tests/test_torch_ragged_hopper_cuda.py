@@ -10,12 +10,12 @@ version, over the shapes of the CPU goldens (``test_torch_ragged_tiles.py``,
 ``test_torch_ragged_pages.py``) at D 128 and 64 (and 40 in fp32), bf16,
 fp16 and fp32, with the split count forced to 1, 2 and many (every count
 1-16 in fp32, on the gathered rings at pages of 5, 12, 20 and 100 keys,
-and at the 16-bit kernel's D_pad 192 and 256: D 160 and 256, int8 / fp8
-pools at D 256) and left to the plan; int8 / fp8 pools under 16-bit and
-fp32 queries; a page too large for the CUDA-core kernel's shared memory;
-and the calls that stay on the CUDA-core kernel of
-``csrc/ragged_paged_attention.cu`` (fp32 queries at D 160 and 256, D 100 in
-bf16 and 99, a misaligned pool): each launches its kernel (counted under
+and at D_pad 192 and 256: D 160 and 256 on both kernels, int8 / fp8
+pools there, fp32 queries over them at pages of 5, 12, 32 and 100) and
+left to the plan; int8 / fp8 pools under 16-bit and fp32 queries; a page
+too large for the CUDA-core kernel's shared memory; and the calls that
+stay on the CUDA-core kernel of ``csrc/ragged_paged_attention.cu`` (D 100
+in bf16, 99 and 250 in fp32, a misaligned pool): each launches its kernel (counted under
 its route), none goes to the plain version; D above 256 raises. Tolerance:
 1e-2 of the reference's max-abs (``chip_smoke.py`` KERNEL_TOL) in 16 bits,
 1e-5 in fp32 (over any pool); 16-bit queries over quantized pools 1e-2 on
@@ -186,8 +186,11 @@ ROUTES = {  # route: (q dtype, pool, page size, design, D)
     "fp8_fp16_q_d192": (torch.float16, torch.float8_e4m3fn, 32, "wgmma+tma",
                         192),
     "bs_12_d256": (torch.bfloat16, None, 12, "wgmma+gather", 256),
-    "fp32_d256": (torch.float32, None, 16, "fp32", 256),
-    "fp32_int8_d256": (torch.float32, torch.int8, 16, "fp32", 256),
+    "fp32_d256": (torch.float32, None, 16, "wgmma-3xtf32", 256),
+    "fp32_int8_d256": (torch.float32, torch.int8, 16, "wgmma-3xtf32", 256),
+    "fp32_fp8_d160": (torch.float32, torch.float8_e4m3fn, 32, "wgmma-3xtf32",
+                      160),
+    "fp32_d250": (torch.float32, None, 16, "fp32", 250),
 }
 
 
@@ -200,11 +203,11 @@ def test_routes_launch_their_kernel(card, name, route):
     matches the plain version: 16-bit queries over 16-bit, int8 / fp8 pools
     on the wgmma kernel up to D 256 (a quantized page dequantized by the
     consumer into the 16-bit tile, at forced split counts too); fp32
-    queries over fp32, int8 and fp8 pools on the TF32 kernel up to D 128
+    queries over fp32, int8 and fp8 pools on the TF32 kernel up to D 256
     (held at 1e-5 of max-abs), at every page size; a page size that is not
     a multiple of 8 on the 16-bit kernel's gathered ring; fp32 queries at D
-    256 on the
-    CUDA-core kernel, which refuses a split count above 1."""
+    250 (not whole 16-byte words) on the CUDA-core kernel, which refuses a
+    split count above 1."""
     dtype, pool, bs, design, D = ROUTES[route]
     q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
     args, scale = _case(card, dtype, q_lens, kv_lens, C, hq, hkv, bs, nb,
@@ -229,16 +232,21 @@ def test_routes_launch_their_kernel(card, name, route):
         assert RPA.ragged_paged_attention.LAUNCHES == n + 1
 
 
-@pytest.mark.parametrize("D", (128, 64, 40))
+def _tf32_keys(D):
+    """The TF32 kernel's key tile: 32, and 16 at D_pad 192 / 256."""
+    return 16 if D > 128 else 32
+
+
+@pytest.mark.parametrize("D", (128, 64, 40, 160, 256))
 @pytest.mark.parametrize("name", list(CASES))
 def test_tf32_kernel_vs_plain_at_every_split_count(card, name, D):
     """fp32 queries over fp32 pools on the TF32 kernel (64 folded rows a
-    block, key tiles of 32), held at 1e-5 at every forced split count 1-16
-    and at the plan's."""
+    block, key tiles of 32, of 16 at D 160 and 256), held at 1e-5 at every
+    forced split count 1-16 and at the plan's."""
     args, scale = _case(card, torch.float32, *CASES[name], D=D)
     plan = RPA.kernel_plan(args[0], args[1], args[3])
     assert plan["design"] == "wgmma-3xtf32" and plan["query_rows"] == 64
-    assert plan["keys"] == 32 and plan["splits"] >= 1
+    assert plan["keys"] == _tf32_keys(D) and plan["splits"] >= 1
     ref = RPA.ragged_paged_attention_plain(*args, scale)
     for splits in list(range(1, 17)) + [None]:
         n, w = (RPA.ragged_paged_attention.LAUNCHES,
@@ -255,7 +263,7 @@ POOL_IDS = ("float", "int8", "fp8")
 
 
 @pytest.mark.parametrize("pool", POOLS[1:], ids=POOL_IDS[1:])
-@pytest.mark.parametrize("D", (128, 64))
+@pytest.mark.parametrize("D", (128, 64, 160, 256))
 @pytest.mark.parametrize("name", list(CASES))
 def test_tf32_kernel_over_1byte_pools_at_every_split_count(card, name, D,
                                                            pool):
@@ -266,7 +274,7 @@ def test_tf32_kernel_over_1byte_pools_at_every_split_count(card, name, D,
     args, scale = _case(card, torch.float32, *CASES[name], D=D)
     extra = _quantize(args, pool)
     plan = RPA.kernel_plan(args[0], args[1], args[3])
-    assert plan["design"] == "wgmma-3xtf32" and plan["keys"] == 32
+    assert plan["design"] == "wgmma-3xtf32" and plan["keys"] == _tf32_keys(D)
     ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
     for splits in list(range(1, 17)) + [None]:
         w = RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"]
@@ -321,6 +329,34 @@ def test_gathered_ring_vs_plain_at_every_split_count(card, name, bs, dtype,
                slabs=pool is not None and not fp32)
 
 
+@pytest.mark.parametrize("pool", POOLS, ids=POOL_IDS)
+@pytest.mark.parametrize("D", (160, 256))
+@pytest.mark.parametrize("bs", (5, 12, 32, 100))
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_tf32_wide_gathered_ring_at_every_split_count(card, name, bs, D,
+                                                      pool):
+    """fp32 queries at D 160 and 256 (D_pad 192 / 256: key tiles of 16, V^T
+    rows shared by two split stages) over float, int8 and fp8 pools, pages
+    of 5, 12, 32 and 100 keys, at every forced split count 1-16 and at the
+    plan's, held at 1e-5 of max-abs."""
+    q_lens, kv_lens, C, hq, hkv, _, nb = CASES[name]
+    keep_nb = name in ("kv-across-split-ranges",
+                       "empty-rows-and-row-past-its-table")
+    args, scale = _case(card, torch.float32, q_lens, kv_lens, C, hq, hkv, bs,
+                        nb if keep_nb else None, D=D)
+    extra = _quantize(args, pool) if pool is not None else {}
+    plan = RPA.kernel_plan(args[0], args[1], args[3])
+    assert (plan["design"], plan["keys"]) == ("wgmma-3xtf32", 16)
+    ref = RPA.ragged_paged_attention_plain(*args, scale, **extra)
+    for splits in list(range(1, 17)) + [None]:
+        c = RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"]
+        out = RPA.ragged_paged_attention(*args, scale, splits=splits, **extra)
+        torch.cuda.synchronize()
+        assert RPA.ragged_paged_attention.ROUTES["wgmma-3xtf32"] == c + 1
+        _check(out, ref, args[4], 1e-5, f"{name} D={D} bs={bs} "
+               f"splits={splits}")
+
+
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32),
                          ids=("bf16", "fp32"))
 def test_page_too_large_for_the_cuda_core_kernel(card, dtype):
@@ -365,13 +401,13 @@ def test_plan_keeps_the_tma_ring_at_pages_of_whole_8_rows(card, dtype, pool):
                                   "mixed-of-phase-3"))
 def test_wide_and_odd_head_dims(card, name, dtype, D):
     """D 160 and 256 in bf16 run the 16-bit wgmma kernel at D_pad 192 and
-    256; in fp32 (above the TF32 kernel's 128), D 100 in bf16 (not a whole
-    number of 16-byte words) and 99 (odd: one element a thread) the
-    CUDA-core kernel, which refuses a split count above 1; D 100 in fp32
-    (25 words) the TF32 kernel, at D_pad 128."""
+    256, in fp32 the TF32 kernel there; D 100 in bf16 (not a whole number
+    of 16-byte words) and 99 (odd: one element a thread) the CUDA-core
+    kernel, which refuses a split count above 1; D 100 in fp32 (25 words)
+    the TF32 kernel, at D_pad 128."""
     args, scale = _case(card, dtype, *CASES[name], D=D)
     if dtype == torch.float32:
-        design = "wgmma-3xtf32" if D == 100 else "fp32"
+        design = "fp32" if D == 99 else "wgmma-3xtf32"
     else:
         design = "wgmma+tma" if D in (160, 256) else "fp32"
     assert RPA.kernel_plan(args[0], args[1], args[3])["design"] == design

@@ -12,14 +12,19 @@ q_len 0, and a row longer than its table; at wide and odd head dims (D
 route; D 160 and 256, on the 16-bit wgmma kernel at D_pad 192 and 256 and
 on the CUDA-core route in fp32), decode and mixed, GQA 16/4 with q_len * g
 on both sides of 64; at D 192 and 256 with kv_len on both sides of a
-64-key tile and of a page (pages of 16 and 32); and over int8 and fp8
-e4m3 pools at D 256 (the reference's quantized branch). Inputs come from
+64-key tile and of a page (pages of 16 and 32); over int8 and fp8
+e4m3 pools at D 256 (the reference's quantized branch); and in fp32 at the
+TF32 kernel's D_pad 192 and 256 (D 160 and 256: key tiles of 16), a
+decode batch with kv_len across a 16-key tile and a page, a GQA 16/4
+mixed batch and a decode batch across the table's split edge, over fp32
+and int8 pools, pages of 12 and 32. Inputs come from
 numpy with a seed and go to both packages, as
 ``test_torch_ragged_attention.py`` runs them.
 Tolerances, relative to the reference's max-abs: 2e-5 in fp32 (summation
 order) and 1e-2 in bf16 (that file's bound: the rounding of the inputs and
 of the output); over quantized pools 0.08 absolute, the bound of the
-reference's own int8 test (``tests/test_ragged_serving.py``).
+reference's own int8 test (``tests/test_ragged_serving.py``), and 2e-5
+relative as well for fp32 queries.
 The CUDA kernels are held to this plain version on the card by
 ``test_torch_ragged_hopper_cuda.py``.
 """
@@ -192,5 +197,60 @@ def test_plain_matches_jax_over_quantized_pools_at_d256(kind, dtype):
     got = out.float().numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() < 0.08, np.abs(got - ref).max()
+    for r, ql in enumerate(case["q_lens"]):
+        assert (got[r, ql:] == 0).all(), r
+
+
+def _tf32_wide_cases(bs):
+    """q_lens, kv_lens, C, hq, hkv, nb at pages of bs keys: the TF32
+    kernel's 16-key tiles at D_pad 192 / 256."""
+    nb = -(-544 // bs)                  # a table of about 34 key tiles
+    tiles = -(-nb * bs // 16)
+    edge = -(-tiles // 2) * 16          # where two splits cut the table
+    return {
+        # kv_len one short of, at and one past a 16-key tile and a page
+        "decode-across-key-tile-and-page": ([1] * 6, [15, 16, 17, bs - 1, bs,
+                                                      bs + 1], 1, 16, 4, None),
+        # q_len * g (g = 4) on both sides of 64
+        "gqa-16-4-mixed": ([15, 16, 17, 1], [15, 80, 130, 200], 20, 16, 4,
+                           None),
+        # kv_len one short of, at and one past the split edge
+        "decode-across-split-edge": ([1] * 4, [edge - 1, edge, edge + 1,
+                                               nb * bs], 1, 4, 4, nb),
+    }
+
+
+@pytest.mark.parametrize("pool", ("float", "int8"))
+@pytest.mark.parametrize("D", (160, 256))
+@pytest.mark.parametrize("bs", (12, 32))
+@pytest.mark.parametrize("name", ("decode-across-key-tile-and-page",
+                                  "gqa-16-4-mixed",
+                                  "decode-across-split-edge"))
+def test_plain_fp32_matches_jax_at_tf32_wide_tile_edges(name, bs, D, pool):
+    q_lens, kv_lens, C, hq, hkv, nb = _tf32_wide_cases(bs)[name]
+    case = _case(q_lens, kv_lens, C, hq, hkv, bs, nb, D=D, seed=11)
+    if pool == "float":
+        _matches_jax(f"{name} bs={bs} D={D}", case, torch.float32)
+        return
+    rng = np.random.RandomState(bs + D)
+    vals = [rng.randint(-127, 128, case[n].shape).astype(np.int8)
+            for n in ("k_pool", "v_pool")]
+    hkv, NB = case["k_pool"].shape[:2]
+    scales = [(rng.rand(hkv, NB) + 0.5).astype(np.float32) for _ in range(2)]
+    rest = ("block_tables", "q_lens", "kv_lens")
+    ref = jax_rpa(jnp.asarray(case["q"]), *map(jnp.asarray, vals),
+                  *(jnp.asarray(case[n]) for n in rest), case["scale"],
+                  *map(jnp.asarray, scales))
+    ref = np.asarray(ref)
+    n = RPA.ragged_paged_attention.LAUNCHES
+    out = RPA.ragged_paged_attention(
+        torch.from_numpy(case["q"]), *map(torch.from_numpy, vals),
+        *(torch.from_numpy(case[n]) for n in rest), case["scale"],
+        *map(torch.from_numpy, scales))
+    assert RPA.ragged_paged_attention.LAUNCHES == n     # CPU: the plain one
+    got = out.numpy()
+    assert out.dtype == torch.float32 and np.isfinite(got).all()
+    err = np.abs(got - ref).max()
+    assert err < 0.08 and err <= TOL[torch.float32] * np.abs(ref).max(), err
     for r, ql in enumerate(case["q_lens"]):
         assert (got[r, ql:] == 0).all(), r
