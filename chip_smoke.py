@@ -151,9 +151,9 @@ Phases, in order; any failure exits non-zero:
    bias shapes; the dropout mask with a bias bit for bit;
 25. hold them at D 32, 40, 80, 96, 160, 256 in fp32, bf16 and fp16, causal
    and not, GQA 8/2 with Sq != Sk; time D 32, 96, 160, 256 (bf16), 256 and
-   128 (fp16) and 256 and 160 (fp32: the forward on the TF32 kernel beside
-   its TF32 bound, dQ and dK/dV on the FP32 pipes) at B 8, S 1024, H 16
-   causal, fp32 at D 160 / 256 with dropout (one mask in both designs),
+   128 (fp16) and 256 and 160 (fp32: the forward, dQ and dK/dV on the TF32
+   kernels beside their TF32 bounds) at B 8, S 1024, H 16 causal, fp32 at
+   D 160 / 256 with dropout (one mask in every kernel),
    and the Llama GQA 16/4 call,
    each against its bound and SDPA; the 16-bit dK/dV on "wgmma+tma" at
    every D 1-256; D 160 and 256 through scaled_dot_product_attention
@@ -1027,11 +1027,11 @@ def flash_designs(name):
     ring; the 16-bit dK/dV, csrc/flash_dkv_hopper.cu: transposed scores in
     registers, Q / dO through a TMA ring, at D_pad 192 and 256 one
     warpgroup holding dv and another dk over 64 keys), "wgmma-3xtf32" (the
-    fp32 forward at every width, dQ and dK/dV at D_pad <= 128,
+    fp32 forward, dQ and dK/dV at every width,
     csrc/flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu and
     flash_dkv_tf32_hopper.cu: each operand split into two TF32 halves,
-    three products for each), "fp32" (the FP32-pipe dQ and dK/dV at D_pad
-    192 / 256); and the bf16 and fp32 tiles (query rows x keys)."""
+    three products for each); and the bf16 and fp32 tiles (query rows x
+    keys)."""
     from paddle_tpu_torch.kernels import _build
     out = {}
     for d in _build.FLASH_D_PADS:
@@ -3998,11 +3998,11 @@ def flash_padded_phase(card):
 def head_dims_phase(card):
     """Phase 25: every D of the family's members and between them, fp32,
     bf16 and fp16, causal and not, GQA 4:1 and Sq != Sk, against plain; fp32
-    at D 160 and 256 with dropout (the TF32 forward and the FP32-pipe
-    backward draw one mask); then D 32, 96, 160, 256 in bf16, D 256, 128 in
-    fp16 and D 256 and 160 in fp32 (the forward on the TF32 tensor cores,
-    with its TF32 bound beside the FP32-pipe one; dQ and dK/dV on the FP32
-    pipes, beside SDPA's fp32 backward) timed at B 8,
+    at D 160 and 256 with dropout (the TF32 forward, dQ and dK/dV draw one
+    mask); then D 32, 96, 160, 256 in bf16, D 256, 128 in fp16 and D 256 and
+    160 in fp32 (the forward, dQ and dK/dV on the TF32 tensor cores, with
+    their TF32 bounds beside the FP32-pipe ones, dQ and dK/dV beside SDPA's
+    fp32 backward) timed at B 8,
     S 1024, H 16, causal, the Llama GQA 16/4 call timed with its bound and
     SDPA (enable_gqa), the dK/dV design at every 16-bit D, D 160 and 256
     through the registry op (the counts set to 0 just before, read just
@@ -4030,9 +4030,9 @@ def head_dims_phase(card):
                 check_attn(f"GQA 8/2 D {D} {dtype} sq {sq} sk {sk} causal",
                            q, k, v, do, True, {})
     recs = {"worst_tile": worst}
-    # fp32 at D_pad 192 / 256: the forward on the TF32 tensor cores (16-key
-    # tiles), dQ and dK/dV on the FP32 pipes (64 x 64 tiles); with dropout
-    # both must draw dropout_keep_mask's bits, held by the plain versions
+    # fp32 at D_pad 192 / 256: the forward, dQ and dK/dV on the TF32 tensor
+    # cores (16- and 32-row tiles); with dropout each must draw
+    # dropout_keep_mask's bits, held by the plain versions
     for D in (160, 256):
         for causal in (True, False):
             q, do = (rnd(torch.float32, 2, 256, 4, D) for _ in range(2))
@@ -4052,10 +4052,8 @@ def head_dims_phase(card):
         torch.cuda.empty_cache()
     for D in (160, 256):
         got = {n: r["design"] for n, r in recs[f"D{D}_float32"].items()}
-        require(got == {"flash_fwd": "wgmma-3xtf32", "flash_bwd_dq": "fp32",
-                        "flash_bwd_dkv": "fp32"},
-                f"fp32 D {D}: designs {got} (the forward on TF32, dQ and "
-                f"dK/dV on the FP32 pipes)")
+        require(got == dict.fromkeys(FLASH_KERNELS, "wgmma-3xtf32"),
+                f"fp32 D {D}: designs {got} (every kernel on TF32)")
     # the 16-bit dK/dV: the wgmma kernel at every width (128 keys a block
     # to D_pad 128, the split's 64 past it)
     designs = {(D, str(dt)[6:]): FA.kernel_plan("flash_bwd_dkv", D, dt)
@@ -5092,27 +5090,33 @@ def main() -> int:
         log(f"  {name}<D_pad {d}, bias {bias}, ints {ints}, dropout {drop}>: "
             f"{regs} registers at launch, {spill} bytes spill stores")
     if _build.BUILD_LOG["output"]:
-        # the fp32 forward (4 widths: 32), dQ and dK/dV (2 widths: 32) on
-        # the TF32 tensor cores hold no spill (the fp32 ragged kernel's
-        # instances: above)
-        require(len(tf32) == 64 and not any(r[-1] for r in tf32),
+        # the fp32 forward, dQ and dK/dV (4 widths each: 96) on the TF32
+        # tensor cores hold no spill (the fp32 ragged kernel's instances:
+        # above)
+        require(len(tf32) == 96 and not any(r[-1] for r in tf32),
                 f"fp32 TF32 instances: {len(tf32)}, spilling "
                 f"{[r for r in tf32 if r[-1]]}")
-        # the instances this slice added: the fp32 forward and the fp32
-        # ragged kernel at D_pad 192 and 256
+        # the TF32 instances at D_pad 192 and 256: the fp32 forward, dQ and
+        # dK/dV (16- and 32-row tiles) and the fp32 ragged kernel
         for d in (192, 256):
-            fw = [r for r in tf32 if r[0] == "flash_fwd_tf32_wide_kernel"
-                  and r[1] == d]
             rg = [r for r in rag if r[0] == "ragged_tf32_kernel"
                   and r[3] == d]
-            log(f"D_pad {d}: fp32 forward {len(fw)} instances, registers "
-                f"{min(r[-2] for r in fw)}-{max(r[-2] for r in fw)}, spill "
-                f"stores {max(r[-1] for r in fw)} B; fp32 ragged {len(rg)} "
+            parts = []
+            for kname in ("flash_fwd_tf32_wide_kernel", "flash_dq_tf32_kernel",
+                          "flash_dkv_tf32_kernel"):
+                got = [r for r in tf32 if r[0] == kname and r[1] == d]
+                require(len(got) == 8, f"D_pad {d}: {len(got)} {kname} "
+                        f"instances")
+                parts.append(f"{kname} {len(got)} instances, registers "
+                             f"{min(r[-2] for r in got)}-"
+                             f"{max(r[-2] for r in got)}, spill stores "
+                             f"{max(r[-1] for r in got)} B")
+            log(f"D_pad {d}: " + "; ".join(parts) + f"; fp32 ragged {len(rg)} "
                 f"instances (fp32 / int8 / fp8 pools), registers "
                 f"{min(r[-2] for r in rg)}-{max(r[-2] for r in rg)}, spill "
                 f"stores {max(r[-1] for r in rg)} B")
-            require(len(fw) == 8 and len(rg) == 3, f"D_pad {d}: {len(fw)} "
-                    f"forward and {len(rg)} ragged TF32 instances")
+            require(len(rg) == 3, f"D_pad {d}: {len(rg)} ragged TF32 "
+                    f"instances")
     dec_inst = decode_ptxas(_build.BUILD_LOG["output"])
     for ty, rb, dp, regs, spill in dec_inst:
         log(f"  paged_decode_hopper_kernel<{ty}, rows {rb}, D_pad {dp}>: "
@@ -5429,7 +5433,13 @@ def main() -> int:
              fp32=dict(shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v "
                              "views of qkv",
                        **{k: v for k, v in flash_recs["fp32"][name].items()
-                          if k in keys + ("design", "tf32x3_bound_ms")}))
+                          if k in keys + ("design", "tf32x3_bound_ms")},
+                       # D_pad 192 / 256, phase 25
+                       wide={f"D{D}": {
+                           k: v for k, v in fdims[f"D{D}_float32"][
+                               name].items()
+                           if k in keys + ("design", "tf32x3_bound_ms")}
+                           for D in (160, 256)}))
         for name, src, rep in (
             ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_hopper.cu",
              f"{fa}:451"),

@@ -1,10 +1,10 @@
 // The C entries of the flash attention kernels: they check what the kernels
-// take, fill the argument block and pick the head-dim family member that
-// holds D. The forward goes from here to a tensor-core kernel at the Hopper
-// width that holds D_pad (fwd_width: bf16 / fp16 to flash_fwd_hopper.cu,
-// fp32 to flash_fwd_tf32_hopper.cu); dQ and dK/dV to the routing of
-// flash_attention_bwd.cu, one object per D_pad. See
-// kernels/flash_attention.py for the Python side.
+// take, fill the argument block and hand each call to a tensor-core kernel
+// at the Hopper width that holds D_pad (fwd_width, bwd_width): bf16 / fp16
+// to flash_fwd_hopper.cu, flash_dq_hopper.cu and flash_dkv_hopper.cu, fp32
+// to flash_fwd_tf32_hopper.cu, flash_dq_tf32_hopper.cu and
+// flash_dkv_tf32_hopper.cu. See kernels/flash_attention.py for the Python
+// side.
 //
 // What the forward computes (paddle_tpu/kernels/pallas/flash_attention.py
 // `_fwd`, kernel body `_fwd_kernel`): for each (batch, query head) out =
@@ -62,6 +62,88 @@
 // present, are runtime branches. (As a runtime branch the bias measured
 // slower on the card in the kernels without one: its address arithmetic is
 // predicated into the softmax loop.)
+//
+// What dQ and dK/dV compute (`_bwd_impl`: its dQ pallas_call, kernel body
+// `_dq_kernel`, and its dK/dV pallas_call, kernel body `_dkv_kernel`), from
+// the forward's saved logsumexp, on all the forward's operands: both kernels
+// recompute p = exp(scale * q k^T + bias - lse) tile by tile (zero where
+// masked and on rows that saw no key, whose lse is -1e30), dp = dO v^T and
+// ds = p (dp - delta) scale with delta = rowsum(p * dp); then dq = ds k,
+// dk = ds^T q, dv = p^T dO.
+//
+// delta. In exact arithmetic rowsum(p * dp) = rowsum(dO * O), which the
+// Pallas kernels (and FlashAttention-2) form from the saved O and dO tiles.
+// From a bf16 O that sum carries an error of about 2^-9 |dO| |O| that the
+// row's ds no longer sum to zero by; dq = ds k then picks up that error
+// times the row's mean key. Where the tokens' states have converged (the
+// keys nearly equal, the true dq tiny: the deep layers of BERT-base at its
+// random init) it swamped the gradient: the query / key projection
+// gradients of layer 11 came out two orders of magnitude too large. So the
+// dQ kernels walk their key tiles twice: the first pass sums p * dp in fp32
+// from the very p and dp (dropout applied) that the second pass uses, so
+// each row's ds sum to zero to fp32 rounding; it writes delta to an fp32
+// [B, H, Sq] buffer that the dK/dV kernel, launched after it on the same
+// stream, reads. Nothing loads O. The first pass costs a dQ kernel two of
+// its three products again.
+//
+// ds in the dq product. The row's ds sum to zero, but rounded to 16 bits one
+// by one for the tensor cores they no longer do, by about 2^-9 |ds| sqrt(n)
+// in bf16, and dq = ds k again picks that up times the mean key. So the
+// 16-bit dQ kernel splits ds into hi = T(ds) and lo = T(ds - hi) and takes
+// dq += hi k + lo k: ds to about 2^-17 (bf16) for one more product per key
+// tile (the fp32 kernels split every operand so). (dk = ds^T q needs no
+// split: a key's column of ds does not sum to zero, and its rounding error
+// stays 2^-9 of the true dk.)
+//
+// Additive bias (`_dq_kernel` / `_dkv_kernel` with has_bias): both kernels
+// read the [1|B, 1|H, Sq, Sk] bias in place, in its own dtype, with stride 0
+// over its broadcast dims, and add it in fp32 to the scaled scores before
+// exp(s - lse), as the forward did. A row the bias kills has lse = -1e30
+// and gives p = 0. The bias is read by both kernels: twice per backward.
+//
+// The d-bias (`_dq_kernel` with bias_grad, a runtime pointer here): the dQ
+// kernel's second pass writes dS_raw = p (dP - delta), the additive bias's
+// gradient (ds without the scale), fp32 [B, H, Sq, Sk], and zeros on the
+// tiles it skips (outside the band, disjoint segments, inside the rows'
+// bands), as `_zero_db` does; the wrapper sums it over the bias's broadcast
+// dims (`_flash_bwd`).
+//
+// The window and the flashmask rows mask exactly as in the forward
+// (`_dkv_kernel` and `_dq_kernel` apply the same _mask_scores): dQ walks the
+// band's key tiles and dK/dV the band's query tiles; both skip a tile whose
+// every pair lies inside the rows' bands. dK/dV holds one key block, so it
+// reads that block's rows once (H_mask = 1) or once per query head of its
+// group (H_mask = H: each head has its own rows). The rows get no gradient.
+//
+// The bias, the integer masks (segment ids, flashmask rows) and dropout are
+// template flags, as in the forward (the d-bias, the bias's dtype and which
+// integer masks are present are runtime branches). A pair is visible only
+// within one segment (disjoint tiles skipped), and the keep bit of
+// (b, h, i, j) is the forward's Philox word (flash_common.cuh drop_bits),
+// regenerated here from the same seed whatever the loop order: dV takes the
+// kept, rescaled p; dP is masked and rescaled the same way before
+// dS = p (dP - delta) scale, with p undropped and delta = rowsum(p * dP) of
+// the masked, rescaled dP (rowsum(dO * O) of the dropped output), as
+// `_dq_kernel` and `_dkv_kernel` do. The three combine freely.
+//
+// TPU -> Hopper. The Pallas dQ grid carries dq across its sequential k axis;
+// here one block owns one query tile (128 rows in 16 bits, 64 in fp32) of
+// one (batch, head) and loops over the visible key tiles with dq in
+// registers. The Pallas dK/dV grid folds (query head of the group, query
+// block) into its innermost axis t so that GQA sums accumulate in VMEM; here
+// one block owns one key block (128 or 64 keys in 16 bits, 64 in fp32) of
+// one (kv head, batch) and loops over the group's g query heads and their
+// visible query tiles itself, with dk and dv in registers: the GQA sum never
+// leaves the block, so there are no atomics and the result is deterministic.
+// The band's loop bounds skip the tiles past the diagonal and outside the
+// window in both kernels.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 495 TF32, 3.35 TB/s): at the
+// flagship shape the two functions need 2.5x the forward's FLOPs between
+// them (dQ three products per visible pair, dK/dV four) on ~4x its bytes,
+// so they are FLOP-bound; the dQ kernels do more (five products in fp32,
+// six in 16 bits: the delta pass and the lo half of ds), and the fp32 ones
+// take each product three times.
 
 #include "flash_common.cuh"
 
@@ -98,14 +180,23 @@ int fwd_width(const Args& a, int dtype, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int W>
+int dq_at(const Args& a, int dtype, cudaStream_t s) {
+  return dtype == kF32 ? dq_tf32_run<W>(a, s) : dq_hopper_run<W>(a, dtype, s);
+}
+
+template <int W>
+int dkv_at(const Args& a, int dtype, cudaStream_t s) {
+  return dtype == kF32 ? dkv_tf32_run<W>(a, s) : dkv_hopper_run<W>(a, dtype, s);
+}
+
+// dQ (is_dq) or dK/dV, at the widths the forward takes
 int bwd_width(const Args& a, int dtype, bool is_dq, cudaStream_t s) {
-  switch (d_pad(a.D)) {
-    case 32: return is_dq ? dq_run<32>(a, dtype, s) : dkv_run<32>(a, dtype, s);
-    case 64: return is_dq ? dq_run<64>(a, dtype, s) : dkv_run<64>(a, dtype, s);
-    case 96: return is_dq ? dq_run<96>(a, dtype, s) : dkv_run<96>(a, dtype, s);
-    case 128: return is_dq ? dq_run<128>(a, dtype, s) : dkv_run<128>(a, dtype, s);
-    case 192: return is_dq ? dq_run<192>(a, dtype, s) : dkv_run<192>(a, dtype, s);
-    case 256: return is_dq ? dq_run<256>(a, dtype, s) : dkv_run<256>(a, dtype, s);
+  switch (hopper_width(d_pad(a.D))) {
+    case 64: return is_dq ? dq_at<64>(a, dtype, s) : dkv_at<64>(a, dtype, s);
+    case 128: return is_dq ? dq_at<128>(a, dtype, s) : dkv_at<128>(a, dtype, s);
+    case 192: return is_dq ? dq_at<192>(a, dtype, s) : dkv_at<192>(a, dtype, s);
+    case 256: return is_dq ? dq_at<256>(a, dtype, s) : dkv_at<256>(a, dtype, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -271,35 +362,31 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 
 // What kernel serves a call of head dim D in `dtype` (codes as above), with
 // a bias or without, and how it tiles the scores: kernel 0 the forward, 1
-// dQ, 2 dK/dV. out[0] its design (0: the FP32 pipes, fp32 dQ and dK/dV at
-// D_pad 192 / 256; 1: wgmma with the scores in registers and the streamed
-// operands through a TMA ring; 2: fp32 on the TF32 tensor cores, wgmma with
-// each operand split into two TF32 halves and three products for each, the
-// streamed operands through a TMA ring and split in shared memory: the fp32
-// forward at every D_pad, dQ and dK/dV at D_pad <= 128),
-// out[1] and out[2] the query rows and keys of a tile, out[3] 1 where a
-// block owns a key tile and walks the queries (dK/dV), else 0. The
-// constants are the ones the kernels are instantiated with. Returns 0, or
-// cudaErrorInvalidValue for a kernel, D or dtype no kernel takes.
+// dQ, 2 dK/dV. out[0] its design (0: bf16 / fp16, wgmma with the scores in
+// registers and the streamed operands through a TMA ring; 1: fp32 on the
+// TF32 tensor cores, wgmma with each operand split into two TF32 halves and
+// three products for each, the streamed operands through a TMA ring and
+// split in shared memory), out[1] and out[2] the query rows and keys of a
+// tile, out[3] 1 where a block owns a key tile and walks the queries
+// (dK/dV), else 0. The constants are the ones the kernels are instantiated
+// with. Returns 0, or cudaErrorInvalidValue for a kernel, D or dtype no
+// kernel takes.
 int ptt_flash_plan(int kernel, int D, int dtype, int bias, int* out) {
   using namespace ptt_flash;
   const int p = d_pad(D);
   if (kernel < 0 || kernel > 2 || p == 0 || !dtype_ok(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const int w = hopper_width(p);
-  if (dtype == kF32 && (kernel == 0 || p <= kTf32MaxD)) {
-    out[0] = 2;
-    out[1] = kernel == 0 ? tf32_fwd_bm(w) : kernel == 1 ? kTf32DqBM : kTf32DkvBM;
-    out[2] = kernel == 0 ? tf32_key_tile(w) : kernel == 1 ? kTf32DqBN : kTf32DkvBN;
-  } else if (dtype == kF32) {
-    out[0] = 0;
-    out[1] = out[2] = kTile;
-  } else if (kernel == 2) {
+  if (dtype == kF32) {
     out[0] = 1;
+    out[1] = kernel == 0 ? tf32_fwd_bm(w) : kernel == 1 ? kTf32DqBM : tf32_dkv_tile(w);
+    out[2] = kernel == 0 ? tf32_key_tile(w) : kernel == 1 ? tf32_dq_tile(w) : kTf32DkvBN;
+  } else if (kernel == 2) {
+    out[0] = 0;
     out[1] = kDkvHopperBM;
     out[2] = dkv_hopper_bn(w);
   } else {
-    out[0] = 1;
+    out[0] = 0;
     out[1] = kHopperBM;
     out[2] = kernel == 0 ? fwd_hopper_bn(w, bias != 0) : dq_hopper_bn(w);
   }

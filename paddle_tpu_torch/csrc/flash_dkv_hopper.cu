@@ -1,18 +1,18 @@
 // Flash attention dK/dV for Hopper, redesigned for sm_90a: the bf16 and fp16
 // kernel at every width (D_pad 64, 128, 192 and 256; the heads of D_pad 32
 // and 96 are read into the next of those with zero columns). dk and dv as
-// flash_attention_bwd.cu's fp32 dK/dV kernel computes them, from the
-// forward's lse and the delta = rowsum(p * dP) that the dQ kernel
-// (flash_dq_hopper.cu) writes first on the same stream.
+// flash_attention.cu's backward note states them, from the forward's lse
+// and the delta = rowsum(p * dP) that the dQ kernel (flash_dq_hopper.cu)
+// writes first on the same stream.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`'s dK/dV
 // pallas_call (kernel body `_dkv_kernel`, masks `_mask_scores`) on all its
 // operands: causal / non-causal and the window as one band, GQA (the group's
 // query heads summed inside the block: no atomics, deterministic), the bias
 // in its own dtype, segment ids, the flashmask rows and dropout with the
-// forward's keep bits. It took the place of the WMMA kernel
-// flash_dkv_tc_kernel of flash_attention_bwd.cu, first at D_pad <= 128, then
-// at 192 and 256 (the split design below), where that kernel was deleted.
+// forward's keep bits. It took the place of a WMMA kernel, first at D_pad
+// <= 128, then at 192 and 256 (the split design below), where that kernel
+// was deleted.
 //
 // Bound on an H100 SXM: 8 D FLOPs a visible pair (s, dP, dv, dk) against q,
 // k, v, dO, lse, delta and dk, dv moved once: at the GPT flagship call 0.070

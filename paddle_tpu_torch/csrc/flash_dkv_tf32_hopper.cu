@@ -1,19 +1,19 @@
 // Flash attention dK/dV in fp32 for Hopper (sm_90a), on the TF32 tensor
 // cores: each fp32 operand split into two TF32 halves and every product
 // taken as three wgmma products (flash_hopper.cuh, "fp32 operands on the TF32
-// tensor cores"). dk and dv as flash_attention_bwd.cu's head note states
+// tensor cores"). dk and dv as flash_attention.cu's backward note states
 // them, from the forward's lse and the delta that the dQ kernel
-// (flash_dq_tf32_hopper.cu) writes first on the same stream. Widths 64 and
-// 128 (D_pad 32 and 96 read into them with zero columns); D_pad 192 and 256
-// stay on flash_attention_bwd.cu's FP32-pipe kernel.
+// (flash_dq_tf32_hopper.cu) writes first on the same stream. Widths 64, 128,
+// 192 and 256 (D_pad 32 and 96 read into 64 and 128 with zero columns): every
+// fp32 dK/dV.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`'s dK/dV
 // pallas_call (kernel body `_dkv_kernel`, masks `_mask_scores`) in fp32 on all
 // its operands: causal / non-causal and the window as one band, GQA (the
 // group's query heads summed inside the block: no atomics, deterministic),
 // the bias in its own dtype, segment ids, the flashmask rows and dropout with
-// the forward's keep bits. It took the place of flash_attention_bwd.cu's
-// FP32-pipe dK/dV kernel at D_pad <= 128.
+// the forward's keep bits. It took the place of an FP32-pipe dK/dV kernel, at
+// D_pad <= 128 first and then at 192 and 256, where that kernel went.
 //
 // Bound on an H100 SXM: 8 D FLOPs a visible pair (s, dP, dv, dk), each
 // three times on the tensor cores at 495 TFLOP/s dense TF32 (or 8 D at 67
@@ -26,32 +26,37 @@
 // warpgroup 1 forms S^T, p and dv (setmaxnreg 224), warpgroup 2 dP^T, ds and
 // dk (216). The products are taken transposed where the head dim is the
 // output's row: dv^T += dO^T P^T and dk^T += Q^T dS^T.
-// - K and V land raw by TMA once (32 + 32 KB at D_pad 128); S^T = K Q^T and
-//   dP^T = V dO^T take them as the register A, split each query tile
-//   (gemm_raw).
-// - Q and dO stream through a two-stage TMA ring of 32-query tiles (the
-//   group's g query heads times each head's tiles in the band, one list, so
-//   dk and dv sum the group in registers). Warp 0 decides the integer masks'
-//   skips, writes the tile's lse (times log2 e; +inf on a dead row or one past
-//   Sq) and delta into the stage's slot and issues the loads; warps 1-3
-//   split each landed tile in place (perm8) and arrive on `full`. A stage's
-//   four halves take 64 KB at D_pad 128.
+// - K and V land raw by TMA once (32 + 32 KB at D_pad 128, 64 + 64 at 256);
+//   S^T = K Q^T and dP^T = V dO^T take them as the register A, split each
+//   query tile (gemm_raw).
+// - Q and dO stream through a TMA ring of query tiles (flash_common.cuh
+//   tf32_dkv_tile / tf32_dkv_stages: two stages of 32 queries up to D_pad
+//   128, two of 16 at 192, one of 16 at 256; the group's g query heads times
+//   each head's tiles in the band, one list, so dk and dv sum the group in
+//   registers). Warp 0 decides the integer masks' skips, writes the tile's
+//   lse (+inf on a dead row or one past Sq) and delta into the
+//   stage's slot and issues the loads; warps 1-3 split each landed tile in
+//   place (perm8) and arrive on `full`. A stage's four halves take 64 KB at
+//   D_pad 128, and at 256 (16 queries) as much.
 // - Warpgroup 1 writes p, dropped and rescaled, split into the [64 keys][32
 //   queries] tiles phi / plo (the B of dv^T: A = dO^T read across the dO
-//   tile's rows, frag_t), and p itself, negated where dropped, into dshi for
-//   warpgroup 2 (`pready`); warpgroup 2 reads it back from the same places
-//   of its own fragment, forms ds = p (dP - delta) and writes it split over
-//   it into dshi / dslo (the B of dk^T), then frees the tile on `dsfree`
-//   before warpgroup 1 writes the next p there. 32 KB for the four tiles.
-// - dk^T and dv^T accumulate in registers (D_pad / 2 each) and are written
-//   once, dk times the scale.
-// Shared memory at D_pad 128: 64 + 128 + 32 KB and the slots: 226 KB of the
-// 227, one block an SM.
+//   tile's rows, frag_t; a tile of 16 queries fills their first 16 columns),
+//   and p itself, negated where dropped, into dshi for warpgroup 2
+//   (`pready`); warpgroup 2 reads it back from the same places of its own
+//   fragment, forms ds = p (dP - delta) and writes it split over it into
+//   dshi / dslo (the B of dk^T), then frees the tile on `dsfree` before
+//   warpgroup 1 writes the next p there. 32 KB for the four tiles.
+// - dk^T and dv^T accumulate in registers (D_pad / 2 each: 128 at D_pad 256,
+//   where the products of each tile's 64-column blocks go one at a time into
+//   a fresh accumulator, gemm_t_wide) and are written once, dk times the
+//   scale.
+// Shared memory: 64 + 128 + 32 KB and the slots at D_pad 128 (226 KB of the
+// 227), 96 + 96 + 32 at 192, 128 + 64 + 32 at 256: one block an SM.
 
 #include "flash_hopper.cuh"
 
 #ifndef PTT_FLASH_D
-#error "compile once per TF32 width: -DPTT_FLASH_D=<64|128>"
+#error "compile once per TF32 width: -DPTT_FLASH_D=<64|128|192|256>"
 #endif
 
 namespace ptt_flash {
@@ -59,8 +64,6 @@ namespace hopper {
 namespace {
 
 constexpr int kKB = kTf32DkvBN;  // keys a block (flash_common.cuh)
-constexpr int kNQ = kTf32DkvBM;  // queries a streamed tile
-constexpr int kStages = 2;
 constexpr int kSplitters = 96;   // producer warps 1-3
 // setmaxnreg: the block launches at 168 registers a thread (65536 / 384),
 // and the warpgroups' new budgets may sum to no more than 3 x 168: 64 for
@@ -73,11 +76,12 @@ constexpr int kPRegs = 224;
 constexpr int kDsRegs = 216;
 static_assert(kProdRegs + kPRegs + kDsRegs <= 3 * (65536 / kThreadsH / 8 * 8),
               "setmaxnreg.inc would wait for registers no warpgroup gave back");
-using QSlot = QSlotT<kNQ>;
 
 template <int D>
 struct DkvTf32Smem {
   static constexpr int kP = f32_panels(D);
+  static constexpr int kNQ = tf32_dkv_tile(D), kStages = tf32_dkv_stages(D);  // queries a tile
+  using QSlot = QSlotT<kNQ>;
   float k[kP][kKB * 32];  // raw, [64][D] in panels of 32 columns
   float v[kP][kKB * 32];
   float qhi[kStages][kP][kNQ * 32], qlo[kStages][kP][kNQ * 32];  // split, perm8
@@ -88,8 +92,9 @@ struct DkvTf32Smem {
   QSlot slot[kStages];
 };
 
+template <int D>
 __device__ __forceinline__ void next_stage(int& stage, uint32_t& phase) {
-  if (++stage == kStages) {
+  if (++stage == DkvTf32Smem<D>::kStages) {
     stage = 0;
     phase ^= 1;
   }
@@ -102,9 +107,10 @@ __device__ __forceinline__ void produce(DkvTf32Smem<D>& sm, const CUtensorMap* t
                                         const CUtensorMap* tk, const CUtensorMap* tv,
                                         const CUtensorMap* tdo, const Args& a, KeyBlockPos pos,
                                         bool seg, bool fm) {
-  constexpr int kP = DkvTf32Smem<D>::kP;
+  constexpr int kP = DkvTf32Smem<D>::kP, kNQ = DkvTf32Smem<D>::kNQ;
   const int k0 = pos.k0, hk = pos.hk, b = pos.b, g = a.H / a.Hkv;
   const int lane = threadIdx.x;
+  const bool mine = lane < kNQ;  // a tile of 16 queries: lanes 16-31 hold none
   if (lane == 0) {
     tma_prefetch_map(tq);
     tma_prefetch_map(tdo);
@@ -157,21 +163,24 @@ __device__ __forceinline__ void produce(DkvTf32Smem<D>& sm, const CUtensorMap* t
     for (int i = ntiles - 1; i >= 0; --i) {
       const int q0 = qbegin + i * kNQ;
       const int qp = q0 + lane;
+      const bool in = mine && qp < a.Sq;
       int id = 0, qlo = 0, qhi = 0;
       if (seg) {
-        id = qp < a.Sq ? a.qseg[static_cast<long long>(b) * a.Sq + qp] : 0;
-        qlo = __reduce_min_sync(0xffffffffu, qp < a.Sq ? id : INT_MAX);
-        qhi = __reduce_max_sync(0xffffffffu, qp < a.Sq ? id : INT_MIN);
+        id = in ? a.qseg[static_cast<long long>(b) * a.Sq + qp] : 0;
+        qlo = __reduce_min_sync(0xffffffffu, in ? id : INT_MAX);
+        qhi = __reduce_max_sync(0xffffffffu, in ? id : INT_MIN);
         if (!seg_overlap(qlo, qhi, klo, khi)) continue;
       }
       if (fm && smax <= q0 && emin >= min(q0 + kNQ, a.Sq)) continue;
       mbar_wait(&sm.empty[stage], phase ^ 1);
-      QSlot& sl = sm.slot[stage];
-      const float l = qp < a.Sq ? a.lse[row_base + qp] : kNegInf;
-      // a dead row (lse -1e30) or one past Sq: p = exp2(-inf) = 0
-      sl.lse[lane] = l <= 0.5f * kNegInf ? __int_as_float(0x7f800000) : l * kLog2e;
-      sl.delta[lane] = qp < a.Sq ? a.delta[row_base + qp] : 0.f;
-      if (seg) sl.qids[lane] = id;
+      auto& sl = sm.slot[stage];
+      if (mine) {
+        const float l = in ? a.lse[row_base + qp] : kNegInf;
+        // a dead row (lse -1e30) or one past Sq: p = exp2(-inf) = 0
+        sl.lse[lane] = l <= 0.5f * kNegInf ? __int_as_float(0x7f800000) : l;
+        sl.delta[lane] = in ? a.delta[row_base + qp] : 0.f;
+        if (seg) sl.qids[lane] = id;
+      }
       if (lane == 0) {
         sl.q0 = q0;
         sl.hh = hh;
@@ -185,7 +194,7 @@ __device__ __forceinline__ void produce(DkvTf32Smem<D>& sm, const CUtensorMap* t
       } else {
         mbar_arrive(&sm.raw[stage]);
       }
-      next_stage(stage, phase);
+      next_stage<D>(stage, phase);
     }
   }
   mbar_wait(&sm.empty[stage], phase ^ 1);  // the end of the list
@@ -196,7 +205,7 @@ __device__ __forceinline__ void produce(DkvTf32Smem<D>& sm, const CUtensorMap* t
 // Warps 1-3 of the producer: split each landed Q / dO tile in place.
 template <int D>
 __device__ __forceinline__ void split_stream(DkvTf32Smem<D>& sm) {
-  constexpr int kBytes = DkvTf32Smem<D>::kP * kNQ * 128;
+  constexpr int kBytes = DkvTf32Smem<D>::kP * DkvTf32Smem<D>::kNQ * 128;
   const int tid = threadIdx.x - 32;
   int stage = 0;
   uint32_t phase = 0;
@@ -209,7 +218,7 @@ __device__ __forceinline__ void split_stream(DkvTf32Smem<D>& sm) {
       fence_proxy_async();
     }
     mbar_arrive(&sm.full[stage]);
-    next_stage(stage, phase);
+    next_stage<D>(stage, phase);
     if (q0 < 0) break;
   }
 }
@@ -240,15 +249,35 @@ __device__ __forceinline__ void store_keys_t(void* dst, const float (&acc)[D / 6
     }
 }
 
+// acc (dv^T or dk^T, [D][64 keys]) += X^T B over a query tile: X the split
+// dO or Q tile (frag_t), B the split [64 keys][32 queries] p or ds tile;
+// past D_pad 128 one 64-column block at a time into the caller's
+// accumulator `part` (gemm_t_wide: acc's 128 registers leave no room for
+// two).
+template <int D>
+__device__ __forceinline__ void key_product(float (&acc)[D / 64][32], float (&part)[1][32],
+                                            const float* xhi, const float* xlo, const float* bhi,
+                                            const float* blo) {
+  constexpr int kNQ = DkvTf32Smem<D>::kNQ;
+  const unsigned char* h = reinterpret_cast<const unsigned char*>(xhi);
+  const unsigned char* l = reinterpret_cast<const unsigned char*>(xlo);
+  if constexpr (D > 128) {
+    gemm_t_wide<kKB, D, kNQ / 8, 1>(acc, part, h, l, kNQ * 128, smem_u32(bhi), smem_u32(blo));
+  } else {
+    gemm_t<kKB, D>(acc, h, l, kNQ * 128, smem_u32(bhi), smem_u32(blo));
+  }
+}
+
 // Warpgroup 1: S^T, p (its masks, bias and dropout bits), dv.
 template <int D, bool kBias, bool kInt, bool kDrop>
 __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, KeyBlockPos pos,
                                           bool seg, bool fm) {
+  constexpr int kNQ = DkvTf32Smem<D>::kNQ;
   constexpr uint32_t kKPanel = kKB * 128, kQPanel = kNQ * 128;
   const int k0 = pos.k0, hk = pos.hk, b = pos.b, g = a.H / a.Hkv;
   const int t = threadIdx.x % 128, lane = t % 32;
   const int kpos[2] = {k0 + 16 * (t / 32) + lane / 4, k0 + 16 * (t / 32) + lane / 4 + 8};
-  float dvt[D / 64][32];
+  float dvt[D / 64][32], prod[1][32];  // prod: key_product's, past D_pad 128
 #pragma unroll
   for (int m = 0; m < D / 64; ++m)
 #pragma unroll
@@ -257,14 +286,13 @@ __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, Key
   unsigned char* phi = reinterpret_cast<unsigned char*>(sm.phi);
   unsigned char* plo = reinterpret_cast<unsigned char*>(sm.plo);
   float* pw = sm.dshi;
-  const float scale_log2 = a.scale * kLog2e;
 
   mbar_wait(&sm.kvbar, 0);
   int stage = 0;
   uint32_t phase = 0;
   for (int n = 0;; ++n) {
     mbar_wait(&sm.full[stage], phase);
-    const QSlot& sl = sm.slot[stage];
+    const auto& sl = sm.slot[stage];
     const int q0 = sl.q0;
     if (q0 < 0) break;
     const bool live = !tile_out_of_band<kKB, kNQ>(q0, k0, a);
@@ -281,11 +309,15 @@ __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, Key
       float s[kNQ / 2];
       gemm_raw<kNQ, D>(s, kt, kKPanel, smem_u32(sm.qhi[stage][0]), smem_u32(sm.qlo[stage][0]),
                        kQPanel);
-      if (kBias) {
+      // p = exp2((scale s + bias - lse) log2 e) in the dQ kernel's order
+      // (probs_tile): both kernels then form the same p from the same s, and
+      // the delta that the dQ kernel sums balances this kernel's ds too. (As
+      // fma(s, scale log2 e, -lse log2 e), p near 1 came out some 1e-6 off
+      // the dQ kernel's, and dk drifted past 5e-6 of the plain version on
+      // the worst tile where a few keys hold a row.)
 #pragma unroll
-        for (int r = 0; r < kNQ / 2; ++r) s[r] *= a.scale;
-        add_bias_kt<false, kNQ>(s, a, bias_base(a, b, h), q0, kpos, vis);
-      }
+      for (int r = 0; r < kNQ / 2; ++r) s[r] *= a.scale;
+      if (kBias) add_bias_kt<false, kNQ>(s, a, bias_base(a, b, h), q0, kpos, vis);
       if (n > 0) mbar_wait(&sm.dsfree, (n - 1) & 1);  // warpgroup 2 is done with dshi
 #pragma unroll
       for (int j = 0; j < kNQ / 8; ++j) {
@@ -296,8 +328,7 @@ __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, Key
           float pd[2], pv[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float lse2 = e ? l2.y : l2.x;
-            const float x = kBias ? s[r + e] * kLog2e - lse2 : fmaf(s[r + e], scale_log2, -lse2);
+            const float x = (s[r + e] - (e ? l2.y : l2.x)) * kLog2e;
             const float p = (vis >> (r + e)) & 1u ? exp2f(x) : 0.f;
             const bool kept = !kDrop || ((keep >> (r + e)) & 1u);
             pd[e] = kDrop ? (kept ? p * a.drop_scale : 0.f) : p;
@@ -311,16 +342,14 @@ __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, Key
       fence_proxy_async();
       mbar_arrive(&sm.pready);
       wg_sync(1);  // every p of the tile written
-      gemm_t<kKB, D>(dvt, reinterpret_cast<const unsigned char*>(sm.dohi[stage][0]),
-                     reinterpret_cast<const unsigned char*>(sm.dolo[stage][0]), kQPanel,
-                     smem_u32(sm.phi), smem_u32(sm.plo));
+      key_product<D>(dvt, prod, sm.dohi[stage][0], sm.dolo[stage][0], sm.phi, sm.plo);
     } else {
       if (n > 0) mbar_wait(&sm.dsfree, (n - 1) & 1);
       mbar_arrive(&sm.pready);  // a tile out of the band: nothing to hand over
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);
-    next_stage(stage, phase);
+    next_stage<D>(stage, phase);
   }
   store_keys_t<D>(a.dv, dvt, 1.f, a, b, hk, k0);
 }
@@ -328,10 +357,11 @@ __device__ __forceinline__ void consume_p(DkvTf32Smem<D>& sm, const Args& a, Key
 // Warpgroup 2: dP^T, ds (from warpgroup 1's p), dk.
 template <int D, bool kDrop>
 __device__ __forceinline__ void consume_ds(DkvTf32Smem<D>& sm, const Args& a, KeyBlockPos pos) {
+  constexpr int kNQ = DkvTf32Smem<D>::kNQ;
   constexpr uint32_t kKPanel = kKB * 128, kQPanel = kNQ * 128;
   const int k0 = pos.k0, hk = pos.hk, b = pos.b;
   const int t = threadIdx.x % 128, lane = t % 32;
-  float dkt[D / 64][32];
+  float dkt[D / 64][32], prod[1][32];  // prod: key_product's, past D_pad 128
 #pragma unroll
   for (int m = 0; m < D / 64; ++m)
 #pragma unroll
@@ -345,13 +375,15 @@ __device__ __forceinline__ void consume_ds(DkvTf32Smem<D>& sm, const Args& a, Ke
   uint32_t phase = 0;
   for (int n = 0;; ++n) {
     mbar_wait(&sm.full[stage], phase);
-    const QSlot& sl = sm.slot[stage];
+    const auto& sl = sm.slot[stage];
     const int q0 = sl.q0;
     if (q0 < 0) break;
     if (!tile_out_of_band<kKB, kNQ>(q0, k0, a)) {
       float dp[kNQ / 2];
-      gemm_raw<kNQ, D>(dp, vt, kKPanel, smem_u32(sm.dohi[stage][0]),
-                       smem_u32(sm.dolo[stage][0]), kQPanel);
+      // one group of V's fragments in flight at D_pad 256: with two, dk^T's
+      // 128 registers spilled 96 bytes in every instance (216 a thread)
+      gemm_raw<kNQ, D, (D > 128 ? 2 : 4), (D > 192 ? 1 : 2)>(
+          dp, vt, kKPanel, smem_u32(sm.dohi[stage][0]), smem_u32(sm.dolo[stage][0]), kQPanel);
       mbar_wait(&sm.pready, n & 1);
 #pragma unroll
       for (int j = 0; j < kNQ / 8; ++j) {
@@ -374,16 +406,14 @@ __device__ __forceinline__ void consume_ds(DkvTf32Smem<D>& sm, const Args& a, Ke
       }
       fence_proxy_async();
       wg_sync(2);  // every ds of the tile written
-      gemm_t<kKB, D>(dkt, reinterpret_cast<const unsigned char*>(sm.qhi[stage][0]),
-                     reinterpret_cast<const unsigned char*>(sm.qlo[stage][0]), kQPanel,
-                     smem_u32(sm.dshi), smem_u32(sm.dslo));
+      key_product<D>(dkt, prod, sm.qhi[stage][0], sm.qlo[stage][0], sm.dshi, sm.dslo);
     } else {
       mbar_wait(&sm.pready, n & 1);
     }
     mbar_arrive(&sm.dsfree);
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);
-    next_stage(stage, phase);
+    next_stage<D>(stage, phase);
   }
   store_keys_t<D>(a.dk, dkt, a.scale, a, b, hk, k0);
 }
@@ -398,7 +428,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < Smem::kStages; ++st) {
       mbar_init(&sm.raw[st], 32);  // the producer warp's lanes (they write the slot)
       mbar_init(&sm.full[st], kSplitters);
       mbar_init(&sm.empty[st], kConsumerWarps);
@@ -442,8 +472,8 @@ int launch(const Args& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tq, tk, tv, tdo;
-  int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, kF32, kNQ);
-  if (err == 0) err = encode_view(&tdo, a.dout, a.vdo, a.B, a.Sq, a.H, a.D, kF32, kNQ);
+  int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, kF32, Smem::kNQ);
+  if (err == 0) err = encode_view(&tdo, a.dout, a.vdo, a.B, a.Sq, a.H, a.D, kF32, Smem::kNQ);
   if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, kF32, kKB);
   if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, kF32, kKB);
   if (err != 0) return err;

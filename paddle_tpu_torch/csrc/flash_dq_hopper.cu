@@ -1,18 +1,17 @@
 // Flash attention dQ for Hopper, redesigned for sm_90a: the bf16 and fp16
 // kernel at D_pad 64, 128, 192 and 256 (and the heads of D_pad 32 and 96,
 // read into the next of those with zero columns). dq, delta = rowsum(p * dP) for the
-// dK/dV kernel, and the d-bias, as flash_attention_bwd.cu's dQ kernel
-// computes them, with the same two passes and the same hi / lo split of ds
-// (that file's head note says why each exists).
+// dK/dV kernel, and the d-bias, as flash_attention.cu's backward note states
+// them, with its two passes and its hi / lo split of ds (the note says why
+// each exists).
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`'s dQ
 // pallas_call (kernel body `_dq_kernel`, masks `_mask_scores`) on all its
 // operands: causal / non-causal and the window, GQA, the bias in its own
 // dtype (and its gradient, dS without the scale, fp32 [B, H, Sq, Sk] with
 // zeros on every tile the kernel skips), segment ids, the flashmask rows and
-// dropout. It took the place of the WMMA kernel flash_dq_tc_kernel of
-// flash_attention_bwd.cu at every width; the fp32 dQ kernel there is
-// unchanged, and the dK/dV kernels read this kernel's delta.
+// dropout. It took the place of a WMMA kernel at every width; the dK/dV
+// kernel reads this kernel's delta.
 //
 // Bound on an H100 SXM: 6 D FLOPs a visible pair (s, dP, dq) against
 // q, k, v, dO and dq moved once: at the GPT flagship call 0.052 ms of

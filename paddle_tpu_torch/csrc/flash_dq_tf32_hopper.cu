@@ -2,11 +2,10 @@
 // each fp32 operand split into two TF32 halves and every product taken as
 // three wgmma products (flash_hopper.cuh, "fp32 operands on the TF32 tensor
 // cores"). dq, delta = rowsum(p * dP) for the dK/dV kernel, and the d-bias,
-// as flash_attention_bwd.cu's head note states them, with the same two
+// as flash_attention.cu's backward note states them, with the same two
 // passes over the key tiles (the delta pass: each row's ds sums to zero to
-// fp32 rounding). Widths 64 and 128 (D_pad 32 and 96 read into them with
-// zero columns); D_pad 192 and 256 stay on flash_attention_bwd.cu's
-// FP32-pipe kernel (its head note says why).
+// fp32 rounding). Widths 64, 128, 192 and 256 (D_pad 32 and 96 read into 64
+// and 128 with zero columns): every fp32 dQ.
 //
 // Replaces paddle_tpu/kernels/pallas/flash_attention.py `_bwd_impl`'s dQ
 // pallas_call (kernel body `_dq_kernel`, masks `_mask_scores`) in fp32 on all
@@ -14,7 +13,8 @@
 // in its own dtype and its gradient (dS without the scale, fp32
 // [B, H, Sq, Sk], zeros on every tile the kernel skips), segment ids, the
 // flashmask rows and dropout with the forward's keep bits. It took the place
-// of flash_attention_bwd.cu's FP32-pipe dQ kernel at D_pad <= 128.
+// of an FP32-pipe dQ kernel, at D_pad <= 128 first and then at 192 and 256,
+// where that kernel went.
 //
 // Bound on an H100 SXM: 6 D FLOPs a visible pair (s, dP, dq); the kernel does
 // 10 D (the delta pass repeats s and dP), each three times on the tensor
@@ -28,30 +28,35 @@
 // dropout bits and p; warpgroup 2 forms dP, reads p, sums delta (pass 0) or
 // forms ds (pass 1). Shared memory is what limits the block: a split operand
 // takes 8 bytes an element.
-// - Q and dO land raw by TMA once (32 + 32 KB at D_pad 128) and stay: S = Q
-//   K^T and dP = dO V^T take them as the register A, split each key tile
-//   (gemm_raw).
-// - K and V stream through a two-stage TMA ring of 32-key tiles. Warp 0 of
-//   the producer walks the band's tile list once a pass, decides the integer
-//   masks' skips and issues the loads (`raw` mbarrier); warps 1-3 split each
-//   landed tile in place into hi / lo halves (perm8 order) and arrive on
-//   `full`. At D_pad 128 a stage's four halves take 64 KB.
+// - Q and dO land raw by TMA once (32 + 32 KB at D_pad 128, 64 + 64 at 256)
+//   and stay: S = Q K^T and dP = dO V^T take them as the register A, split
+//   each key tile (gemm_raw).
+// - K and V stream through a TMA ring of key tiles (flash_common.cuh
+//   tf32_dq_tile / tf32_dq_stages: two stages of 32 keys up to D_pad 128,
+//   one of 32 at 192, one of 16 at 256). Warp 0 of the producer walks the
+//   band's tile list once a pass, decides the integer masks' skips and issues
+//   the loads (`raw` mbarrier); warps 1-3 split each landed tile in place
+//   into hi / lo halves (perm8 order) and arrive on `full`. A stage's four
+//   halves take 64 KB at D_pad 128, 96 at 192, 64 at 256 (16 keys).
 // - Warpgroup 1 writes p, negated where dropped, into the [64 queries][32
-//   keys] tile dshi (`pready`). Warpgroup 2 reads it back from the same places
-//   of its own fragment; in pass 0 it sums rowsum(p dP), in pass 1 it forms
-//   ds = p (dP - delta) scale, stores the d-bias from registers and writes ds
-//   split over p into dshi / dslo (`dsready`), the B of dq^T += K^T dS
-//   (m64n32k8, A = K^T read across the K tile's rows from its halves:
-//   frag_t). Each warpgroup then takes dq^T for 32 of the 64 queries
-//   (D_pad / 4 registers), and warpgroup 2 frees the tile (`dsfree`) before
-//   warpgroup 1 writes the next p there.
-// Shared memory at D_pad 128: 64 + 128 + 16 KB and the slots: 209 KB, one
-// block an SM.
+//   keys] tile dshi (`pready`; a tile of 16 keys fills its first 16
+//   columns). Warpgroup 2 reads it back from the same places of its own
+//   fragment; in pass 0 it sums rowsum(p dP), in pass 1 it forms ds = p (dP -
+//   delta) scale, stores the d-bias from registers and writes ds split over
+//   p into dshi / dslo (`dsready`), the B of dq^T += K^T dS (m64n32k8, A =
+//   K^T read across the K tile's rows from its halves: frag_t). Each
+//   warpgroup then takes dq^T for 32 of the 64 queries (D_pad / 4
+//   registers; past D_pad 128 two 64-column blocks in flight, gemm_t_wide),
+//   and warpgroup 2 frees the tile (`dsfree`) before warpgroup 1 writes the
+//   next p there.
+// Shared memory: 64 + 128 + 16 KB and the slots at D_pad 128 (209 KB), 96 +
+// 96 + 16 at 192, 128 + 64 + 16 at 256: one block an SM. At 192 / 256 a
+// tile's load and split wait for the previous tile's products (one stage).
 
 #include "flash_hopper.cuh"
 
 #ifndef PTT_FLASH_D
-#error "compile once per TF32 width: -DPTT_FLASH_D=<64|128>"
+#error "compile once per TF32 width: -DPTT_FLASH_D=<64|128|192|256>"
 #endif
 
 namespace ptt_flash {
@@ -59,8 +64,6 @@ namespace hopper {
 namespace {
 
 constexpr int kQR = kTf32DqBM;  // query rows a block (flash_common.cuh)
-constexpr int kKN = kTf32DqBN;  // keys a streamed tile
-constexpr int kStages = 2;
 constexpr int kSplitters = 96;  // producer warps 1-3
 // setmaxnreg: the block launches at 168 registers a thread (65536 / 384),
 // and the warpgroups' new budgets may sum to no more than 3 x 168: 64 for
@@ -77,6 +80,7 @@ static_assert(kProdRegs + kPRegs + kDsRegs <= 3 * (65536 / kThreadsH / 8 * 8),
 template <int D>
 struct DqTf32Smem {
   static constexpr int kP = f32_panels(D);
+  static constexpr int kKN = tf32_dq_tile(D), kStages = tf32_dq_stages(D);  // keys a tile
   float q[kP][kQR * 32];  // raw, [64][D] in panels of 32 columns
   float dout[kP][kQR * 32];
   float khi[kStages][kP][kKN * 32], klo[kStages][kP][kKN * 32];  // split, perm8
@@ -86,8 +90,9 @@ struct DqTf32Smem {
   Slot<kKN> slot[kStages];
 };
 
+template <int D>
 __device__ __forceinline__ void next_stage(int& stage, uint32_t& phase) {
-  if (++stage == kStages) {
+  if (++stage == DqTf32Smem<D>::kStages) {
     stage = 0;
     phase ^= 1;
   }
@@ -100,7 +105,7 @@ __device__ __forceinline__ void produce(DqTf32Smem<D>& sm, const CUtensorMap* tq
                                         const CUtensorMap* tk, const CUtensorMap* tv,
                                         const CUtensorMap* tdo, const Args& a, BlockPos pos,
                                         bool seg, bool fm, int kbegin, int kend) {
-  constexpr int kP = DqTf32Smem<D>::kP;
+  constexpr int kP = DqTf32Smem<D>::kP, kKN = DqTf32Smem<D>::kKN;
   const int q0 = pos.q0, h = pos.h, b = pos.b;
   const int lane = threadIdx.x, hk = h / (a.H / a.Hkv);
   if (lane == 0) {
@@ -134,19 +139,19 @@ __device__ __forceinline__ void produce(DqTf32Smem<D>& sm, const CUtensorMap* tq
       } else {
         mbar_arrive(&sm.raw[stage]);
       }
-      next_stage(stage, phase);
+      next_stage<D>(stage, phase);
     }
     mbar_wait(&sm.empty[stage], phase ^ 1);  // the end of the pass
     if (lane == 0) sm.slot[stage].k0 = -1;
     mbar_arrive(&sm.raw[stage]);
-    next_stage(stage, phase);
+    next_stage<D>(stage, phase);
   }
 }
 
 // Warps 1-3 of the producer: split each landed K / V tile in place.
 template <int D>
 __device__ __forceinline__ void split_stream(DqTf32Smem<D>& sm) {
-  constexpr int kBytes = DqTf32Smem<D>::kP * kKN * 128;
+  constexpr int kBytes = DqTf32Smem<D>::kP * DqTf32Smem<D>::kKN * 128;
   const int tid = threadIdx.x - 32;
   int stage = 0;
   uint32_t phase = 0;
@@ -160,7 +165,7 @@ __device__ __forceinline__ void split_stream(DqTf32Smem<D>& sm) {
         fence_proxy_async();
       }
       mbar_arrive(&sm.full[stage]);
-      next_stage(stage, phase);
+      next_stage<D>(stage, phase);
       if (k0 < 0) break;
     }
   }
@@ -191,6 +196,25 @@ __device__ __forceinline__ void store_dq_t(const float (&dqt)[D / 64][16], const
     }
 }
 
+// dq^T (the warpgroup's 32 queries) += K^T dS over the key tile of `stage`:
+// A = K^T from its split halves (frag_t), B = ds's hi / lo rows from byte
+// `rows` of dshi / dslo; past D_pad 128 two 64-column blocks in flight into
+// the caller's accumulators `part` (gemm_t_wide).
+template <int D>
+__device__ __forceinline__ void dq_product(float (&dqt)[D / 64][16], float (&part)[2][16],
+                                           DqTf32Smem<D>& sm, int stage, uint32_t rows) {
+  using S = DqTf32Smem<D>;
+  constexpr uint32_t kKPanel = S::kKN * 128;
+  const unsigned char* khi = reinterpret_cast<const unsigned char*>(sm.khi[stage][0]);
+  const unsigned char* klo = reinterpret_cast<const unsigned char*>(sm.klo[stage][0]);
+  if constexpr (D > 128) {
+    gemm_t_wide<32, D, S::kKN / 8, 2>(dqt, part, khi, klo, kKPanel, smem_u32(sm.dshi) + rows,
+                                      smem_u32(sm.dslo) + rows);
+  } else {
+    gemm_t<32, D>(dqt, khi, klo, kKPanel, smem_u32(sm.dshi) + rows, smem_u32(sm.dslo) + rows);
+  }
+}
+
 // The query rows of this thread's fragment and their lse (dead: lse -1e30)
 // and segment ids.
 struct Rows {
@@ -219,12 +243,13 @@ __device__ __forceinline__ Rows block_rows(const Args& a, int b, int q0, long lo
 template <int D, bool kBias, bool kInt, bool kDrop>
 __device__ __forceinline__ void consume_p(DqTf32Smem<D>& sm, const Args& a, BlockPos pos,
                                           bool seg, bool fm) {
+  constexpr int kKN = DqTf32Smem<D>::kKN;
   constexpr uint32_t kQPanel = kQR * 128, kKPanel = kKN * 128;
   const int q0 = pos.q0, h = pos.h, b = pos.b;
   const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
   const Rows rw = block_rows(a, b, q0, row_base, seg);
   const long long bb = kBias ? bias_base(a, b, h) : 0;
-  float dqt[D / 64][16];
+  float dqt[D / 64][16], prod[2][16];  // prod: dq_product's, past D_pad 128
 #pragma unroll
   for (int m = 0; m < D / 64; ++m)
 #pragma unroll
@@ -242,7 +267,7 @@ __device__ __forceinline__ void consume_p(DqTf32Smem<D>& sm, const Args& a, Bloc
       if (k0 < 0) {  // the end of the pass: the stage is free for pass 1
         __syncwarp();
         if (threadIdx.x % 32 == 0) mbar_arrive(&sm.empty[stage]);
-        next_stage(stage, phase);
+        next_stage<D>(stage, phase);
         break;
       }
       const bool live = !tile_out_of_band<kKN>(q0, k0, a);
@@ -275,13 +300,11 @@ __device__ __forceinline__ void consume_p(DqTf32Smem<D>& sm, const Args& a, Bloc
       if (live && pass == 1) {
         mbar_wait(&sm.dsready, m & 1);  // warpgroup 2 wrote ds
         ++m;
-        gemm_t<32, D>(dqt, reinterpret_cast<const unsigned char*>(sm.khi[stage][0]),
-                      reinterpret_cast<const unsigned char*>(sm.klo[stage][0]), kKPanel,
-                      smem_u32(sm.dshi), smem_u32(sm.dslo));
+        dq_product<D>(dqt, prod, sm, stage, 0);
       }
       __syncwarp();
       if (threadIdx.x % 32 == 0) mbar_arrive(&sm.empty[stage]);
-      next_stage(stage, phase);
+      next_stage<D>(stage, phase);
     }
   }
   store_dq_t<D>(dqt, a, b, h, q0);
@@ -292,6 +315,7 @@ __device__ __forceinline__ void consume_p(DqTf32Smem<D>& sm, const Args& a, Bloc
 template <int D, bool kBias, bool kDrop>
 __device__ __forceinline__ void consume_ds(DqTf32Smem<D>& sm, const Args& a, BlockPos pos,
                                            bool seg, int kbegin) {
+  constexpr int kKN = DqTf32Smem<D>::kKN;
   constexpr uint32_t kQPanel = kQR * 128, kKPanel = kKN * 128;
   const int q0 = pos.q0, h = pos.h, b = pos.b;
   const int lane = threadIdx.x % 32;
@@ -299,7 +323,7 @@ __device__ __forceinline__ void consume_ds(DqTf32Smem<D>& sm, const Args& a, Blo
   const Rows rw = block_rows(a, b, q0, row_base, seg);
   const bool want_db = kBias && a.dbias != nullptr;  // the d-bias: a runtime pointer
   float delta[2] = {0.f, 0.f}, part[2] = {0.f, 0.f};
-  float dqt[D / 64][16];
+  float dqt[D / 64][16], prod[2][16];  // prod: dq_product's, past D_pad 128
 #pragma unroll
   for (int m = 0; m < D / 64; ++m)
 #pragma unroll
@@ -320,7 +344,7 @@ __device__ __forceinline__ void consume_ds(DqTf32Smem<D>& sm, const Args& a, Blo
       if (k0 < 0) {  // the end of the pass: the stage is free for pass 1
         __syncwarp();
         if (threadIdx.x % 32 == 0) mbar_arrive(&sm.empty[stage]);
-        next_stage(stage, phase);
+        next_stage<D>(stage, phase);
         break;
       }
       if (pass == 1 && want_db) zero_dbias_wg(a, row_base, q0, next, k0);
@@ -369,16 +393,14 @@ __device__ __forceinline__ void consume_ds(DqTf32Smem<D>& sm, const Args& a, Blo
           fence_proxy_async();
           mbar_arrive(&sm.dsready);
           wg_sync(2);  // every ds of the tile written
-          gemm_t<32, D>(dqt, reinterpret_cast<const unsigned char*>(sm.khi[stage][0]),
-                        reinterpret_cast<const unsigned char*>(sm.klo[stage][0]), kKPanel,
-                        smem_u32(sm.dshi) + 32 * 128, smem_u32(sm.dslo) + 32 * 128);
+          dq_product<D>(dqt, prod, sm, stage, 32 * 128);
         }
       }
       if (pass == 1) next = k0 + kKN;
       mbar_arrive(&sm.dsfree);
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[stage]);
-      next_stage(stage, phase);
+      next_stage<D>(stage, phase);
     }
     if (pass == 0) {
 #pragma unroll
@@ -403,10 +425,10 @@ __global__ void __launch_bounds__(kThreadsH, 1)
   Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
   const BlockPos pos = block_pos<kQR>(a, static_cast<int>(blockIdx.x));
   const bool seg = kInt && a.qseg != nullptr, fm = kInt && a.fms != nullptr;
-  const int kbegin = blk_key_begin<kKN>(pos.q0, a), kend = blk_key_end(pos.q0, kQR, a);
+  const int kbegin = blk_key_begin<Smem::kKN>(pos.q0, a), kend = blk_key_end(pos.q0, kQR, a);
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < Smem::kStages; ++st) {
       mbar_init(&sm.raw[st], 32);  // the producer warp's lanes (they write the slot)
       mbar_init(&sm.full[st], kSplitters);
       mbar_init(&sm.empty[st], kConsumerWarps);
@@ -451,8 +473,8 @@ int launch(const Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   int err = encode_view(&tq, a.q, a.vq, a.B, a.Sq, a.H, a.D, kF32, kQR);
   if (err == 0) err = encode_view(&tdo, a.dout, a.vdo, a.B, a.Sq, a.H, a.D, kF32, kQR);
-  if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, kF32, kKN);
-  if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, kF32, kKN);
+  if (err == 0) err = encode_view(&tk, a.k, a.vk, a.B, a.Sk, a.Hkv, a.D, kF32, Smem::kKN);
+  if (err == 0) err = encode_view(&tv, a.v, a.vv, a.B, a.Sk, a.Hkv, a.D, kF32, Smem::kKN);
   if (err != 0) return err;
   const unsigned grid = static_cast<unsigned>((a.Sq + kQR - 1) / kQR) * a.H * a.B;
   kernel<<<grid, kThreadsH, smem, stream>>>(tq, tk, tv, tdo, a);

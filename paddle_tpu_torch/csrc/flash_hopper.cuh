@@ -940,7 +940,8 @@ __device__ __forceinline__ void probs_tile(float (&s)[BN / 2], float (&dp)[BN / 
 // key-major (rows keys, columns queries)
 // What the producer hands the consumers with each stage: the query tile's
 // first row (-1: the list ends) and its head in the group, the tile's query
-// segment ids and their range, and its lse (times log2 e) and delta.
+// segment ids and their range, and its lse (times log2 e in the 16-bit
+// kernel) and delta.
 template <int NQ>
 struct QSlotT {
   int q0, hh, qlo, qhi;
@@ -1080,7 +1081,7 @@ __device__ __forceinline__ void add_bias_kt_t(float (&s)[NQ / 2], const Args& a,
   long long koff[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) koff[i] = static_cast<long long>(min(kpos[i], a.Sk - 1)) * a.vb.k;
-  constexpr int kChunk = 4;
+  constexpr int kChunk = 4 < NQ / 8 ? 4 : NQ / 8;  // a tile of 16 queries: its 2 groups
   int qz = 0;  // 0, after the previous chunk's sums (kChained)
 #pragma unroll
   for (int j0 = 0; j0 < NQ / 8; j0 += kChunk) {
@@ -1444,22 +1445,24 @@ __device__ __forceinline__ void frag_t(const unsigned char* xhi, const unsigned 
 
 // acc (64 x N) = A B^T over D columns: A the warpgroup's 64 rows of the raw
 // tile `a_tile` (frag_raw), B the split tile at (bhi, blo) of N rows. Issued
-// G key steps at a time (4: a panel), two groups' fragments in flight; the
-// small products into `sm`, the large ones of even and odd key steps into
-// acc and `lg`, summed at the end. G 2 at D_pad 192 / 256, where 128
-// registers of output sit beside the fragments (32 of them, not 64).
-template <int N, int D, int G = (D > 128 ? 2 : 4)>
+// G key steps at a time (4: a panel), NB groups' fragments in flight (two:
+// a group is split under the previous one's products; one where 128
+// registers of dk^T sit beside them, the D_pad 256 dK/dV); the small
+// products into `sm`, the large ones of even and odd key steps into acc and
+// `lg`, summed at the end. G 2 at D_pad 192 / 256, where 128 registers of
+// output sit beside the fragments (32 of them, not 64).
+template <int N, int D, int G = (D > 128 ? 2 : 4), int NB = 2>
 __device__ __forceinline__ void gemm_raw(float (&acc)[N / 2], const unsigned char* a_tile,
                                          uint32_t a_panel, uint32_t bhi, uint32_t blo,
                                          uint32_t b_panel) {
   static_assert(G % 2 == 0 && D % (8 * G) == 0, "whole groups of an even count of key steps");
-  uint32_t hi[2][G][4], lo[2][G][4];
+  uint32_t hi[NB][G][4], lo[NB][G][4];
   float sm[N / 2], lg[N / 2];
 #pragma unroll
   for (int p = 0; p < D / (8 * G); ++p) {
-    const int buf = p & 1;
-    if (p >= 2) {
-      wgmma_wait<1>();
+    const int buf = p % NB;
+    if (p >= NB) {
+      wgmma_wait<NB - 1>();
       reg_fence(hi[buf]);
       reg_fence(lo[buf]);
     }
@@ -1583,11 +1586,33 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 2], float (&part)[pv_accs
   }
 }
 
+// The products of one 64-row block mb of X^T B (gemm_t_wide): its A fragments
+// read from X's split halves (frag_t), then the small products and the large
+// ones into the fresh accumulator `part`, committed as one group.
+template <int N, int KS>
+__device__ __forceinline__ void t_block(float (&part)[N / 2], uint32_t (&hi)[KS][4],
+                                        uint32_t (&lo)[KS][4], const unsigned char* xhi,
+                                        const unsigned char* xlo, uint32_t x_panel, int mb,
+                                        uint32_t bhi, uint32_t blo) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) frag_t(xhi, xlo, x_panel, mb, kk, hi[kk], lo[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32<N>(part, lo[kk], desc_kmajor(bhi, 0, kk), kk > 0 ? 1 : 0);
+    wgmma_tf32<N>(part, hi[kk], desc_kmajor(blo, 0, kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32<N>(part, hi[kk], desc_kmajor(bhi, 0, kk), 1);
+  wgmma_commit();
+}
+
 // run[mb] (rows 64 mb .. of X^T, 64 x N) += X^T B over X's 32 rows: X the
 // split tile (xhi, xlo) of 32 rows x D (frag_t), B the split [N][32] tile at
 // (bhi, blo) that the caller wrote (one panel). Each 64-row block into a
 // fresh accumulator, the small products first, then the large ones; the
-// threads add them to run.
+// threads add them to run. Every block in one commit (D_pad <= 128;
+// gemm_t_wide above).
 template <int N, int D>
 __device__ __forceinline__ void gemm_t(float (&run)[D / 64][N / 2], const unsigned char* xhi,
                                        const unsigned char* xlo, uint32_t x_panel, uint32_t bhi,
@@ -1619,6 +1644,37 @@ __device__ __forceinline__ void gemm_t(float (&run)[D / 64][N / 2], const unsign
   for (int mb = 0; mb < M; ++mb)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) run[mb][i] += part[mb][i];
+}
+
+// gemm_t at D_pad 192 / 256, over X's 8 KS rows (16 or 32; B's first 8 KS
+// columns), where run takes 96 or 128 registers a thread (dk^T, dv^T) or 48
+// / 64 (dq^T): F blocks in flight (1 or 2), each into a fresh accumulator of
+// `part`, which the caller declares (as pv_tile's), and block mb + F issued
+// once block mb is summed into run.
+template <int N, int D, int KS, int F>
+__device__ __forceinline__ void gemm_t_wide(float (&run)[D / 64][N / 2], float (&part)[F][N / 2],
+                                            const unsigned char* xhi, const unsigned char* xlo,
+                                            uint32_t x_panel, uint32_t bhi, uint32_t blo) {
+  constexpr int M = D / 64;
+  static_assert(F == 1 || F == 2, "one or two blocks in flight");
+  uint32_t hi[F][KS][4], lo[F][KS][4];
+#pragma unroll
+  for (int f = 0; f < F; ++f) t_block<N, KS>(part[f], hi[f], lo[f], xhi, xlo, x_panel, f, bhi, blo);
+#pragma unroll
+  for (int mb = 0; mb < M; ++mb) {
+    const int f = mb % F;
+    if (F == 2 && mb + 1 < M)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    reg_fence(part[f]);
+    reg_fence(hi[f]);
+    reg_fence(lo[f]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) run[mb][i] += part[f][i];
+    if (mb + F < M)
+      t_block<N, KS>(part[f], hi[f], lo[f], xhi, xlo, x_panel, mb + F, bhi, blo);
+  }
 }
 
 // The byte offset, in a [64][32] tile written for frag_t's products, of this

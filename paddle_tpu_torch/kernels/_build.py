@@ -2,9 +2,9 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 The ``*.cu`` sources under ``paddle_tpu_torch/csrc/`` are compiled for
-``sm_90a``, one ``nvcc -c`` per source (the flash sources once per head-dim
-family member and kernel, the ragged wgmma kernels once per width, the
-16-bit one also once per page ring), all started together, and linked by
+``sm_90a``, one ``nvcc -c`` per source (the flash kernels' sources and the
+ragged wgmma kernels once per width, the 16-bit ragged one also once per
+page ring), all started together, and linked by
 one ``nvcc -shared`` into
 ``paddle_tpu_torch/_build/<hash>/libpaddle_tpu_torch_kernels.so``, where the
 hash covers the sources, the headers and the flags, so a checkout builds at
@@ -39,23 +39,13 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v"]
 
 # the flash kernels' head-dim family (csrc/flash_common.cuh kDPads): the
-# backward's routing and FP32-pipe source is compiled once per member and
-# kernel (-DPTT_FLASH_D=<D_pad>, -DPTT_FLASH_DQ=1 for dQ, 0 for dK/dV), so
-# the family builds in parallel
+# widths a head is padded to (D_pad 32 and 96 read into 64 and 128)
 FLASH_D_PADS = (32, 64, 96, 128, 192, 256)
-# the redesigned 16-bit forward and dQ (flash_fwd_hopper.cu,
-# flash_dq_hopper.cu): one object each per width (-DPTT_FLASH_D=<width>)
+# the flash kernels' sources, the forward, dQ and dK/dV in bf16 / fp16
+# (flash_fwd_hopper.cu, flash_dq_hopper.cu, flash_dkv_hopper.cu) and in fp32
+# on the TF32 tensor cores (flash_*_tf32_hopper.cu): one object each per
+# width (-DPTT_FLASH_D=<width>)
 FLASH_HOPPER_D_PADS = (64, 128, 192, 256)
-# the redesigned 16-bit dK/dV (flash_dkv_hopper.cu): one object per width
-# as well (192 and 256 take its split design)
-FLASH_DKV_HOPPER_D_PADS = (64, 128, 192, 256)
-# the fp32 forward on the TF32 tensor cores (flash_fwd_tf32_hopper.cu): one
-# object per width, every fp32 forward (D_pad 32 and 96 with zero columns)
-FLASH_TF32_FWD_D_PADS = (64, 128, 192, 256)
-# the fp32 dQ and dK/dV there (flash_dq_tf32_hopper.cu,
-# flash_dkv_tf32_hopper.cu): one object each per width; D_pad 192 and 256
-# run the FP32-pipe kernels of flash_attention_bwd.cu
-FLASH_TF32_D_PADS = (64, 128)
 # the 16-bit ragged kernel (ragged_paged_attention_hopper.cu): one object per
 # width and page ring (-DPTT_RAGGED_D=<width> -DPTT_RAGGED_GATHER=<0: TMA,
 # 1: gathered>; the object of 64 with the TMA ring holds the host entries)
@@ -87,22 +77,12 @@ def _nvcc() -> str:
 
 
 def _units():
-    """(source, object stem, extra flags): one per source, and one per
-    head-dim family member and kernel for the flash backward's source, one
-    per redesigned width for the wgmma flash sources, one per width and
-    page ring for the 16-bit ragged wgmma kernel and one per width for the
-    TF32 one."""
+    """(source, object stem, extra flags): one per source, one per width
+    for the flash sources, one per width and page ring for the 16-bit
+    ragged wgmma kernel and one per width for the TF32 one."""
     for src in sorted(CSRC.glob("*.cu")):
-        if src.name in ("flash_fwd_hopper.cu", "flash_dq_hopper.cu",
-                          "flash_dkv_hopper.cu", "flash_fwd_tf32_hopper.cu",
-                          "flash_dq_tf32_hopper.cu",
-                          "flash_dkv_tf32_hopper.cu"):
-            pads = {"flash_dkv_hopper.cu": FLASH_DKV_HOPPER_D_PADS,
-                    "flash_fwd_tf32_hopper.cu": FLASH_TF32_FWD_D_PADS,
-                    "flash_dq_tf32_hopper.cu": FLASH_TF32_D_PADS,
-                    "flash_dkv_tf32_hopper.cu": FLASH_TF32_D_PADS,
-                    }.get(src.name, FLASH_HOPPER_D_PADS)
-            for d in pads:
+        if src.name.startswith("flash_") and src.name.endswith("_hopper.cu"):
+            for d in FLASH_HOPPER_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_FLASH_D={d}"]
         elif src.name == "ragged_paged_attention_hopper.cu":
             for d in RAGGED_HOPPER_D_PADS:
@@ -113,11 +93,6 @@ def _units():
         elif src.name == "ragged_paged_attention_tf32_hopper.cu":
             for d in RAGGED_TF32_D_PADS:
                 yield src, f"{src.stem}.d{d}", [f"-DPTT_RAGGED_TF32_D={d}"]
-        elif src.name == "flash_attention_bwd.cu":
-            for d in FLASH_D_PADS:
-                for part, flag in (("dq", 1), ("dkv", 0)):
-                    yield src, f"{src.stem}.d{d}.{part}", [
-                        f"-DPTT_FLASH_D={d}", f"-DPTT_FLASH_DQ={flag}"]
         else:
             yield src, src.stem, []
 
@@ -127,8 +102,7 @@ def _digest(extra: str = "") -> str:
     for f in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + FLASH_DKV_HOPPER_D_PADS
-            + FLASH_TF32_FWD_D_PADS + FLASH_TF32_D_PADS + RAGGED_HOPPER_D_PADS
+    pads = (FLASH_D_PADS + FLASH_HOPPER_D_PADS + RAGGED_HOPPER_D_PADS
             + RAGGED_TF32_D_PADS)
     h.update(" ".join(NVCC_FLAGS + list(map(str, pads))).encode())
     h.update(extra.encode())

@@ -5,9 +5,9 @@ kernels ``_fwd`` (``_fwd_kernel``), ``_bwd_impl``'s dK/dV (``_dkv_kernel``)
 and dQ (``_dq_kernel``)).
 
 The TPU kernels are replaced by CUDA kernels written by hand for Hopper,
-behind the C entries of ``csrc/flash_attention.cu`` (which also route the
-forward) and ``csrc/flash_attention_bwd.cu`` (the routing of dQ, then
-dK/dV). Their source notes state the
+behind the C entries of ``csrc/flash_attention.cu``, which route every
+call (its head note states what the backward computes and why). Their
+source notes state the
 design; in short: one CUDA block per (64-row tile, head, batch) loops over
 the other side's tiles itself, keeps the online softmax state and its
 output tile in registers, skips the tiles past the causal diagonal by its
@@ -28,20 +28,19 @@ in registers and Q / dO fed by a TMA ring (``csrc/flash_dkv_hopper.cu``; at
 D_pad 192 and 256 one warpgroup holds dv and another dk over the same 64
 keys); fp32 accumulators and the softmax in fp32 either way.
 ``kernel_plan`` says which design and which tiles serve a call. In fp32
-the forward at every width and the backward at D_pad <= 128 run on the
-TF32 tensor cores (``csrc/flash_fwd_tf32_hopper.cu``: blocks of 128 query
-rows over 32-key tiles up to D_pad 128, of 64 rows over 16-key tiles at
-192 and 256, V transposed in shared memory so that p stays in registers;
-``csrc/flash_dq_tf32_hopper.cu``, ``csrc/flash_dkv_tf32_hopper.cu``: dQ
-blocks of 64 query rows over 32-key tiles, dK/dV blocks of 64 keys over
-32-query tiles): each fp32 operand is split into two TF32 halves, hi = T(x)
-and lo = T(x - hi), and each product is taken as a_lo b_hi + a_hi b_lo +
-a_hi b_hi in fp32 accumulators, about 2^-21 of a product against TF32's
-2^-11 (held to the plain versions at 5e-6 on the worst 64-row tile by
-``chip_smoke.py``). The fp32 dQ and dK/dV at D_pad 192 and 256 run on the
-FP32 pipes from fp32 shared tiles (``csrc/flash_attention_bwd.cu``), exact
-to fp32 rounding; they draw the TF32 forward's dropout bits (the keep bit
-is a function of (seed, b, h, i, j) alone).
+every kernel runs on the TF32 tensor cores (``csrc/flash_fwd_tf32_hopper.cu``:
+blocks of 128 query rows over 32-key tiles up to D_pad 128, of 64 rows over
+16-key tiles at 192 and 256, V transposed in shared memory so that p stays
+in registers; ``csrc/flash_dq_tf32_hopper.cu``,
+``csrc/flash_dkv_tf32_hopper.cu``: dQ blocks of 64 query rows over key
+tiles of 32 up to D_pad 192 and of 16 at 256, dK/dV blocks of 64 keys over
+query tiles of 32 up to D_pad 128 and of 16 at 192 and 256): each fp32
+operand is split into two TF32 halves,
+hi = T(x) and lo = T(x - hi), and each product is taken as a_lo b_hi +
+a_hi b_lo + a_hi b_hi in fp32 accumulators, about 2^-21 of a product
+against TF32's 2^-11 (held to the plain versions at 5e-6 on the worst
+64-row tile by ``chip_smoke.py``). The backward draws the forward's dropout
+bits (the keep bit is a function of (seed, b, h, i, j) alone).
 
 Head dims and dtypes. The kernels take every D from 1 to 256 (the JAX
 gate's ``supported``: D <= 256) in fp32, bf16 and fp16; any other dtype
@@ -407,32 +406,24 @@ def _row_width(D, itemsize):
     return -(-D // per) * per
 
 
-# dQ's and dK/dV's fp32 widths on the TF32 tensor cores (csrc/flash_common.cuh
-# kTf32MaxD), whose tiles come through TMA as the 16-bit kernels' do; the
-# fp32 forward's take every width
-_TF32_MAX_D = 128
-
-
-def _broadcasts(t, fp32_tma=False):
+def _broadcasts(t):
     """True for a view that repeats itself over a (batch, seq, head) dim
-    longer than 1 (stride 0) and that a kernel reads through TMA tensor
-    maps, which take no zero stride: any 16-bit view, and an fp32 one where
-    ``fp32_tma`` (the fp32 forward, and dQ and dK/dV at D_pad <= 128)."""
-    return (t.element_size() == 2 or fp32_tma) and any(
-        st == 0 and n > 1 for st, n in zip(t.stride()[:3], t.shape[:3]))
+    longer than 1 (stride 0): the kernels read every input through TMA
+    tensor maps, which take no zero stride."""
+    return any(st == 0 and n > 1 for st, n in zip(t.stride()[:3],
+                                                   t.shape[:3]))
 
 
-def _padded(Dr, *ts, fp32_tma=False):
+def _padded(Dr, *ts):
     """The inputs as the kernels read them: a head narrower than ``Dr`` is
-    copied once into a zero-padded contiguous buffer, and a view broadcast
-    over a dim that a TMA kernel reads (``_broadcasts``) into a contiguous
-    one; then every base and (batch, seq, head) stride must be 16-byte
-    aligned."""
+    copied once into a zero-padded contiguous buffer, and a broadcast view
+    (``_broadcasts``) into a contiguous one; then every base and (batch,
+    seq, head) stride must be 16-byte aligned."""
     out = []
     for i, t in enumerate(ts):
         if t.shape[-1] != Dr:
             t = torch.nn.functional.pad(t, (0, Dr - t.shape[-1]))
-        elif _broadcasts(t, fp32_tma):
+        elif _broadcasts(t):
             t = t.contiguous()
         it = t.element_size()
         if t.data_ptr() % 16 or any(s * it % 16 for s in t.stride()[:3]):
@@ -545,17 +536,15 @@ def _tag(q, k, bias, q_seg, dropout_p, fm=None, window=None):
 
 
 _PLAN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-_DESIGNS = ("fp32", "wgmma+tma", "wgmma-3xtf32")
+_DESIGNS = ("wgmma+tma", "wgmma-3xtf32")
 
 
 def kernel_plan(name: str, D: int, dtype, bias: bool = False) -> dict:
     """How the built library serves a call of ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) at head dim ``D`` in ``dtype``,
-    with or without a bias: ``design`` ("fp32": the FP32 pipes;
-    "wgmma+tma": the 16-bit tensor-core kernels; "wgmma-3xtf32": the fp32
-    forward at every width, dQ and dK/dV at D_pad <= 128, on the TF32
-    tensor cores, each operand split into two TF32 halves; "fp32": dQ and
-    dK/dV in fp32 at D_pad 192 / 256),
+    with or without a bias: ``design`` ("wgmma+tma": the bf16 / fp16
+    tensor-core kernels; "wgmma-3xtf32": the fp32 kernels on the TF32
+    tensor cores, each operand split into two TF32 halves),
     ``query_rows`` and ``keys`` of its tiles, and ``key_major`` (a block
     owns a key tile and walks the queries). Read from the library's
     ``ptt_flash_plan``, which reports the constants its kernels were
@@ -590,7 +579,7 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, bias=None, q_seg=None,
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dr = _row_width(D, q.element_size())
-    q, k, v = _padded(Dr, q, k, v, fp32_tma=True)
+    q, k, v = _padded(Dr, q, k, v)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
     rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)
@@ -627,7 +616,7 @@ def flash_bwd_dq(q, k, v, lse, do, causal: bool, sm_scale: float,
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dr = _row_width(D, q.element_size())
-    q, k, v, do = _padded(Dr, q, k, v, do, fp32_tma=Dr <= _TF32_MAX_D)
+    q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
     rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)
@@ -664,7 +653,7 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal: bool, sm_scale: float,
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dr = _row_width(D, q.element_size())
-    q, k, v, do = _padded(Dr, q, k, v, do, fp32_tma=Dr <= _TF32_MAX_D)
+    q, k, v, do = _padded(Dr, q, k, v, do)
     segs, seg_ptrs, drop = _variant_args(q, k, q_seg, kv_seg, dropout_p, seed)
     rows, fm_ptrs, band = _mask_args(q, k, fm, window)
     bias, bias_code, bias_strides = _bias_view(bias, q, k)

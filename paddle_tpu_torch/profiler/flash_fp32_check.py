@@ -4,11 +4,12 @@ the first check of a change to the fp32 dQ / dK/dV kernels.
     python3 -m paddle_tpu_torch.profiler.flash_fp32_check
 
 The worst 64-row tile's relative l2 of dq, dk and dv (and the d-bias's l2)
-against ``flash_bwd_plain`` at 8 small cases (D 32-128, causal and not, GQA
-8/2, a bias, segments with dropout, a window with flashmask rows) and at two
-full-size calls (B 8, S 1024, H 16, D 128 causal; B 2, GQA 16/4), each
-against ``chip_smoke.py``'s fp32 gate of 5e-6; then dQ and dK/dV at the GPT
-call (B 8, S 1024, H 16, D 128, causal), the median of 10 CUDA-event
+against ``flash_bwd_plain`` at 14 small cases (D 32-256, causal and not, GQA
+8/2, a bias, segments with dropout, a window with flashmask rows) and at
+four full-size calls (B 8, S 1024, H 16 causal at D 128, 160 and 256; B 2,
+GQA 16/4 at D 128), each against ``chip_smoke.py``'s fp32 gate of 5e-6;
+then dQ and dK/dV at the GPT call (B 8, S 1024, H 16, causal) at D 128,
+160 and 256, the median of 10 CUDA-event
 timings after 2 warm calls, the L2 not evicted (``chip_smoke.py`` and
 ``kernels_ab.py`` evict it: their times are the ones to compare across
 checkouts). Prints the card's name and power limit first.
@@ -51,6 +52,15 @@ CASES = (
     ("D64 seg drop", 2, 256, 256, 2, 2, 64, False, {"seg": True, "drop": 0.2}),
     ("D128 window fm", 1, 256, 256, 2, 2, 128, False,
      {"window": (70, 5), "fm": True}),
+    ("D256 causal", 2, 256, 256, 4, 4, 256, True, {}),
+    ("D160 GQA 8/2 sq100 sk300", 1, 100, 300, 8, 2, 160, False, {}),
+    ("D256 bias", 2, 130, 97, 2, 2, 256, True, {"bias": True}),
+    ("D160 seg drop", 2, 256, 256, 2, 2, 160, False,
+     {"seg": True, "drop": 0.2}),
+    ("D256 window fm", 1, 256, 256, 2, 2, 256, False,
+     {"window": (70, 5), "fm": True}),
+    ("D200 bias seg drop GQA 4/2", 1, 200, 200, 4, 2, 200, True,
+     {"bias": True, "seg": True, "drop": 0.1}),
 )
 
 
@@ -127,8 +137,8 @@ def main() -> int:
         design = FA.kernel_plan("flash_bwd_dkv", D, torch.float32)["design"]
         print(f"{name}: plan {design} dq {errs[0]:.2e} dk {errs[1]:.2e} dv "
               f"{errs[2]:.2e}{msg} {'FAIL' if bad else 'ok'}", flush=True)
-    for B, S, H, Hkv in ((8, 1024, 16, 16), (2, 1024, 16, 4)):
-        D = 128
+    for B, S, H, Hkv, D in ((8, 1024, 16, 16, 128), (2, 1024, 16, 4, 128),
+                            (8, 1024, 16, 16, 160), (8, 1024, 16, 16, 256)):
         q, do = rnd(B, S, H, D), rnd(B, S, H, D)
         k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
         sc = 1 / math.sqrt(D)
@@ -139,19 +149,22 @@ def main() -> int:
         errs = [tile_rel_err(x, y) for x, y in ((dq, ref[0]), (dk, ref[1]),
                                                 (dv, ref[2]))]
         fails += max(errs) > TOL
-        print(f"full size B{B} S{S} H{H}/{Hkv}: dq {errs[0]:.2e} dk "
+        print(f"full size B{B} S{S} H{H}/{Hkv} D{D}: dq {errs[0]:.2e} dk "
               f"{errs[1]:.2e} dv {errs[2]:.2e}", flush=True)
         del ref
     print("fails", fails)
-    B, S, H, D = 8, 1024, 16, 128
-    q, k, v, do = (rnd(B, S, H, D) for _ in range(4))
-    sc = 1 / math.sqrt(D)
-    _, lse = FA.flash_fwd(q, k, v, True, sc)
-    _, delta = FA.flash_bwd_dq(q, k, v, lse, do, True, sc)
-    print("GPT call fp32: dq ms",
-          round(_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, True, sc)), 4),
-          "dkv ms", round(_ms(lambda: FA.flash_bwd_dkv(
-              q, k, v, lse, delta, do, True, sc)), 4), flush=True)
+    for D in (128, 160, 256):
+        B, S, H = 8, 1024, 16
+        q, k, v, do = (rnd(B, S, H, D) for _ in range(4))
+        sc = 1 / math.sqrt(D)
+        _, lse = FA.flash_fwd(q, k, v, True, sc)
+        _, delta = FA.flash_bwd_dq(q, k, v, lse, do, True, sc)
+        print(f"GPT call fp32 D {D}: dq ms",
+              round(_ms(lambda: FA.flash_bwd_dq(q, k, v, lse, do, True,
+                                                sc)), 4),
+              "dkv ms", round(_ms(lambda: FA.flash_bwd_dkv(
+                  q, k, v, lse, delta, do, True, sc)), 4), flush=True)
+        del q, k, v, do, lse, delta
     return 1 if fails else 0
 
 

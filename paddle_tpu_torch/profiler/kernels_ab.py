@@ -23,7 +23,7 @@ mixed batches over fp32 pools and on the decode batch over int8 and fp8
 pools), the flash dK/dV kernel at
 phase 25's call (B 8, S 1024, H 16, causal) at D 256 and D 160 in bf16 and
 D 256 in fp16, the fp32 flash forward, dQ and dK/dV at phase 6 (a)'s call
-(B 8, S 1024, H 16, D 128, causal) and the fp32 forward at D 160 and 256
+(B 8, S 1024, H 16, D 128, causal) and at D 160 and 256
 there,
 one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
 LayerNorm forward on x [5120, 768] and [8192, 2048] in bf16, fp16 and fp32
@@ -166,14 +166,23 @@ def tf32_ragged():
 
 
 def tf32_flash():
-    """The fp32 flash forward at the GPT call (B 8, S 1024, H 16, causal) at
-    D 160 and 256."""
+    """The fp32 flash forward, dQ and dK/dV at the GPT call (B 8, S 1024,
+    H 16, causal) at D 160 and 256."""
     for Dh in (160, 256):
-        qf, kf, vf = (torch.randn(8, 1024, 16, Dh, generator=gen, device=dev)
-                      for _ in range(3))
+        qf, kf, vf, dof = (torch.randn(8, 1024, 16, Dh, generator=gen,
+                                       device=dev) for _ in range(4))
+        sc = 1 / math.sqrt(Dh)
         time_as(f"flash_fwd_fp32_d{Dh}", lambda: FA.flash_fwd(
-            qf, kf, vf, True, 1 / math.sqrt(Dh)))
-        del qf, kf, vf
+            qf, kf, vf, True, sc))
+        if want(f"flash_dq_fp32_d{Dh}", f"flash_dkv_fp32_d{Dh}"):
+            _, lse = FA.flash_fwd(qf, kf, vf, True, sc)
+            _, delta = FA.flash_bwd_dq(qf, kf, vf, lse, dof, True, sc)
+            time_as(f"flash_dq_fp32_d{Dh}", lambda: FA.flash_bwd_dq(
+                qf, kf, vf, lse, dof, True, sc))
+            time_as(f"flash_dkv_fp32_d{Dh}", lambda: FA.flash_bwd_dkv(
+                qf, kf, vf, lse, delta, dof, True, sc))
+            del lse, delta
+        del qf, kf, vf, dof
     torch.cuda.empty_cache()
 
 

@@ -2,19 +2,19 @@
 (``csrc/flash_fwd_tf32_hopper.cu``: 128 query rows a block over key tiles
 of 32 up to D_pad 128, 64 rows over key tiles of 16 at D_pad 192 and 256,
 V transposed in shared memory; ``csrc/flash_dq_tf32_hopper.cu``: 64
-query rows a block over key tiles of 32; ``csrc/flash_dkv_tf32_hopper.cu``:
-64 keys a block over query tiles of 32; each fp32 operand split into two
-TF32 halves, three wgmma products for each) against their plain PyTorch
-versions on the same inputs: out and lse, dq, delta and the d-bias, dk and
-dv (the backward from the forward kernel's lse). The grid: D
-32, 40, 64, 96 and 128 (the widths dQ and dK/dV take there), and for the
-forward also 160, 200 and 256 (D_pad 192 and 256); every flag instance
-(bias x integer masks x dropout); causal, non-causal and a window; GQA 8/2
-and 2/2; lengths on both sides of the 32-row and 64-row tiles; dead rows.
-Also the keep bits of both kernels across their tiles (and at D 160 / 256
-the TF32 forward's against the FP32-pipe backward's), the model's strided
-qkv views and a batch-broadcast key, a 16-bit bias beside fp32 q, and
-``kernel_plan``'s design for fp32.
+query rows a block over key tiles of 32, of 16 at D_pad 256;
+``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of 32,
+of 16 at D_pad 192 and 256; each fp32 operand split into two TF32 halves,
+three wgmma products for each) against their plain PyTorch versions on the
+same inputs: out and lse, dq, delta and the d-bias, dk and dv (the
+backward from the forward kernel's lse). The grid: D 32, 40, 64, 96, 128,
+160, 200 and 256 (D_pad 32 to 256); every flag instance (bias x integer
+masks x dropout); causal, non-causal and a window; GQA 8/2 and 2/2 (and
+16/4 in the forward); lengths on both sides of the 16-, 32- and 64-row
+tiles; dead rows. Also the keep bits of the three kernels across their
+tiles (at D 160 / 256 the forward's, dQ's and dK/dV's from one mask), the
+model's strided qkv views and a batch-broadcast key, a 16-bit bias beside
+fp32 q, and ``kernel_plan``'s design for fp32.
 Tolerance: ``chip_smoke.py``'s fp32 gate, 5e-6 on the worst 64-row tile's
 relative l2, dq and dk with a floor of 1e-1 of the tile's terms before they
 cancel (``test_torch_flash_hopper_cuda.py`` takes 1e-2 beside its 2e-2):
@@ -42,7 +42,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = 5e-6
 DIMS = (32, 40, 64, 96, 128)
-WIDE = (160, 200, 256)  # the forward's D_pad 192 and 256
+WIDE = (160, 200, 256)  # D_pad 192 and 256: 16-row tiles
 # bias x integer masks x dropout: every instance of the kernels
 FLAGS = ("none", "bias", "segments", "rows", "dropout", "bias_segments",
          "bias_dropout", "rows_dropout", "bias_rows_dropout")
@@ -167,10 +167,11 @@ def _check(q, k, v, do, causal, var, what):
 
 def test_fp32_plan_reports_the_tf32_design(card):
     """kernel_plan for fp32: the forward, dQ and dK/dV on the TF32 tensor
-    cores at every D_pad <= 128 (the forward 128 query rows over 32-key
-    tiles; dQ 64 query rows over 32-key tiles; dK/dV 64 keys over 32-query
-    tiles, key-major); at D_pad 192 and 256 the forward there too (64 query
-    rows over 16-key tiles), dQ and dK/dV on the FP32 pipes."""
+    cores at every D_pad; up to 128 the forward 128 query rows over 32-key
+    tiles, dQ 64 query rows over 32-key tiles, dK/dV 64 keys over 32-query
+    tiles (key-major); at D_pad 192 and 256 the forward 64 query rows over
+    16-key tiles, dQ 64 query rows over 32-key tiles (16 at 256), dK/dV 64
+    keys over 16-query tiles."""
     for D in (1, 32, 40, 64, 96, 128):
         fwd = FA.kernel_plan("flash_fwd", D, torch.float32)
         fwd_b = FA.kernel_plan("flash_fwd", D, torch.float32, bias=True)
@@ -188,8 +189,13 @@ def test_fp32_plan_reports_the_tf32_design(card):
             fwd = FA.kernel_plan("flash_fwd", D, torch.float32, bias=bias)
             assert (fwd["design"], fwd["query_rows"], fwd["keys"],
                     fwd["key_major"]) == ("wgmma-3xtf32", 64, 16, False)
-        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert FA.kernel_plan(name, D, torch.float32)["design"] == "fp32"
+        dq = FA.kernel_plan("flash_bwd_dq", D, torch.float32)
+        dkv = FA.kernel_plan("flash_bwd_dkv", D, torch.float32)
+        assert (dq["design"], dq["query_rows"], dq["keys"],
+                dq["key_major"]) == ("wgmma-3xtf32", 64,
+                                     32 if D <= 192 else 16, False)
+        assert (dkv["design"], dkv["query_rows"], dkv["keys"],
+                dkv["key_major"]) == ("wgmma-3xtf32", 16, 64, True)
 
 
 def _check_fwd(q, k, v, causal, var, what):
@@ -238,10 +244,10 @@ def test_fp32_fwd_vs_plain(card, D, flag):
 
 
 @pytest.mark.parametrize("flag", FLAGS)
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE)
 def test_fp32_bwd_vs_plain(card, D, flag):
-    """dQ and dK/dV at GQA 8/2 and 2/2, lengths across both kernels' 32- and
-    64-row tiles, causal, non-causal and a window."""
+    """dQ and dK/dV at GQA 8/2 and 2/2, lengths across both kernels' 16- or
+    32-row and 64-row tiles, causal, non-causal and a window."""
     rng = np.random.RandomState(5 * D + 13 * FLAGS.index(flag))
     B = 2
     for idx, (mode, (H, hkv)) in enumerate(itertools.product(
@@ -256,10 +262,11 @@ def test_fp32_bwd_vs_plain(card, D, flag):
                f"fp32 D={D} {flag} {mode} H={H}/{hkv} Sq={Sq} Sk={Sk}")
 
 
-@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("D", (64, 128, 160, 256))
 def test_fp32_dq_keep_bits_across_key_tiles(card, D):
-    """dQ's keep bits over Sk = 300 keys (ten of its 32-key tiles, the last
-    partial), read out of its d-bias as the 16-bit test reads them: q = k =
+    """dQ's keep bits over Sk = 300 keys (ten of its 32-key tiles, nineteen
+    of its 16-key tiles at D 256, the last partial), read out of its
+    d-bias as the 16-bit test reads them: q = k =
     0 makes every p 1 / Sk and dO . v = 1 makes dP the keep bit over
     (1 - p), so the d-bias is positive exactly where a key was kept."""
     B, Sq, H, Sk, p, seed = 2, 200, 3, 300, 0.3, 93
@@ -281,10 +288,11 @@ def test_fp32_dq_keep_bits_across_key_tiles(card, D):
 
 
 @pytest.mark.parametrize("bias", (False, True), ids=("nobias", "bias"))
-@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("D", (64, 128, 160, 256))
 def test_fp32_dkv_keep_bits_across_query_tiles(card, D, bias):
     """dK/dV's keep bits over Sq = 200 queries (seven of its 32-query
-    tiles, the last partial) and Sk = 300 keys (five of its 64-key blocks),
+    tiles, thirteen of its 16-query tiles at D 160 / 256, the last partial)
+    and Sk = 300 keys (five of its 64-key blocks),
     read out of dv: q = k = 0 makes every p 1 / Sk, and dO one-hot on
     queries [w, w + D) makes dv[key, d] the kept, rescaled p of query w + d,
     nonzero exactly where the forward kept the pair."""
@@ -325,9 +333,9 @@ def test_fp32_layouts_qkv_views_and_broadcast_key(card):
 
 @pytest.mark.parametrize("D", (160, 256))
 def test_fp32_wide_dropout_one_mask_in_both_designs(card, D):
-    """At D_pad 192 / 256 the forward runs on the TF32 tensor cores (16-key
-    tiles) and dQ / dK/dV on the FP32 pipes (64 x 64 tiles): both draw
-    dropout_keep_mask's bits. The forward's are read out of out (q = k = 0
+    """At D_pad 192 / 256 the forward, dQ and dK/dV all run on the TF32
+    tensor cores, one design in both directions, and all
+    draw dropout_keep_mask's bits. The forward's are read out of out (q = k = 0
     makes every p 1 / Sk, and v one-hot on keys [w, w + D) makes out[i, d]
     the kept, rescaled p of key w + d), dQ's out of its d-bias (dO . v = 1
     makes dP the keep bit over (1 - p)); then both against the plain
@@ -389,13 +397,16 @@ def test_fp32_fwd_with_a_16bit_bias(card, D, bias_dtype):
 
 @pytest.mark.parametrize("D", (160, 256))
 def test_fp32_wide_layouts_qkv_views_and_broadcast_key(card, D):
-    """The forward at D_pad 192 / 256 on the model's head-major qkv read in
-    place, and on a key and value broadcast over the batch (copied before
-    the launch: the tensor maps take no zero stride)."""
+    """The forward, dQ and dK/dV at D_pad 192 / 256 on the model's
+    head-major qkv read in place, and on a key and value broadcast over the
+    batch (copied before the launch: the tensor maps take no zero stride)."""
     B, S, H = 2, 300, 4
     qkv = torch.randn(B, S, H, 3, D, device=card)
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    do = torch.randn(B, S, H, D, device=card)
     _check_fwd(q, k, v, True, {}, f"fp32 D={D} fwd qkv views")
+    _check(q, k, v, do, True, {}, f"fp32 D={D} qkv views")
     kb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
     vb = torch.randn(1, S, 2, D, device=card).expand(B, S, 2, D)
     _check_fwd(q, kb, vb, False, {}, f"fp32 D={D} fwd broadcast key")
+    _check(q, kb, vb, do, False, {}, f"fp32 D={D} broadcast key")

@@ -10,17 +10,19 @@ a window, a segment boundary and a flashmask boundary inside a tile, S
 and 128 and at D 160 and 256; tolerance 2e-5 on out relative to its
 max-abs (as
 ``test_torch_flash_tiles.py`` holds the forward in fp32). The backward
-(dQ and dK/dV
-(``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over key tiles of
-32; ``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of
-32, streamed over the group's heads): lengths 31, 33, 63, 65, 95 and 97
+(dQ and dK/dV (``csrc/flash_dq_tf32_hopper.cu``: 64 query rows a block over
+key tiles of 32 up to D_pad 192 and of 16 at 256;
+``csrc/flash_dkv_tf32_hopper.cu``: 64 keys a block over query tiles of 32
+up to D_pad 128 and of 16 at 192 and 256, streamed over the group's
+heads): lengths 31, 33, 63, 65, 95 and 97
 mixed, causal with Sq < Sk, GQA 8/2 (the group summed over its query
 heads), a window across a 64-key block boundary, segment cuts at 31 and
 65, document flashmask rows across key blocks, and an additive bias with
 its gradient, at D 40 (read into the 64 width with zero columns), 64 and
-128 (the widths the design takes; dQ and dK/dV at D_pad 192 and 256 stay
-on the FP32-pipe kernels, whose edges ``test_torch_flash_head_dims.py``
-covers). Inputs come
+128; and at D 160 and 256 (D_pad 192 and 256) lengths 15 / 17 and 63 / 65
+on both sides of the 16-row tiles and the 64-row blocks, causal with Sq <
+Sk, GQA 8/2, a window and segment cuts and document rows across 16-key
+tiles, and a bias with its gradient. Inputs come
 from numpy with a seed and go to both packages, as
 ``test_torch_flash_dkv_tiles.py`` runs them. Tolerance: 2e-4 on the
 gradients in fp32, relative to the reference's max-abs. The CUDA kernels
@@ -80,6 +82,30 @@ CASES = {
                              True),
     "bias-dbias-causal-96x96-d128": (96, 96, 2, 2, True, None, None, None,
                                      None, 128, True),
+    # D_pad 192 / 256: 16-row streamed tiles (D 160 reads into 192 with zero
+    # columns)
+    "causal-17x15-across-16-d256": (17, 15, 2, 2, True, None, None, None,
+                                    None, 256, False),
+    "noncausal-15x17-across-16-d160": (15, 17, 2, 2, False, None, None, None,
+                                       None, 160, False),
+    "causal-65x63-d160": (65, 63, 2, 2, True, None, None, None, None, 160,
+                          False),
+    "noncausal-63x65-d256": (63, 65, 2, 2, False, None, None, None, None,
+                             256, False),
+    "causal-31x97-sq-below-sk-d160": (31, 97, 2, 2, True, None, None, None,
+                                      None, 160, False),
+    "causal-97x95-gqa-8-2-d256": (97, 95, 8, 2, True, None, None, None, None,
+                                  256, False),
+    "window-80x80-across-16-d160": (80, 80, 2, 1, False, (21, 9), None, None,
+                                    None, 160, False),
+    "segments-cut-at-15-49-d256": (96, 96, 2, 2, False, None, (15, 49), None,
+                                   32, 256, False),
+    "document-rows-across-16-d160": (96, 96, 2, 2, True, None, None,
+                                     (17, 30, 49), 32, 160, False),
+    "bias-dbias-65x97-d256": (65, 97, 2, 2, False, None, None, None, None,
+                              256, True),
+    "bias-dbias-causal-gqa-8-2-48x48-d160": (48, 48, 8, 2, True, None, None,
+                                             None, None, 160, True),
 }
 
 
@@ -131,18 +157,20 @@ def test_plain_fp32_bwd_matches_jax_at_tf32_tile_edges(case):
         _close(got[3].numpy(), np.asarray(grads[3]), TOL_GRAD, "dbias")
 
 
-@pytest.mark.parametrize("fp32_tma", [False, True])
-def test_fp32_broadcast_views_copied_for_the_tf32_backward(fp32_tma):
-    """An fp32 view repeated over its batch (stride 0) is copied to a
-    contiguous buffer where the TF32 backward reads it through TMA (D_pad
-    <= 128: ``fp32_tma``), and read in place by the FP32-pipe kernels; the
-    model's strided qkv views are read in place either way."""
-    k = torch.randn(1, 8, 2, 16).expand(3, 8, 2, 16)
-    assert FA._broadcasts(k, fp32_tma) == fp32_tma
-    (got,) = FA._padded(16, k, fp32_tma=fp32_tma)
-    assert torch.equal(got, k) and got.is_contiguous() == fp32_tma
-    view = torch.randn(2, 8, 4, 3, 16)[:, :, :, 1]
-    (same,) = FA._padded(16, view, fp32_tma=fp32_tma)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=("fp32", "bf16"))
+def test_fp32_broadcast_views_copied_for_the_tf32_backward(dtype):
+    """A view repeated over its batch (stride 0) is copied to a contiguous
+    buffer before any launch: every kernel, the fp32 ones on the TF32
+    tensor cores too, reads its inputs through TMA tensor maps, which take
+    no zero stride. The model's strided qkv views are read in place."""
+    k = torch.randn(1, 8, 2, 16).to(dtype).expand(3, 8, 2, 16)
+    assert FA._broadcasts(k)
+    (got,) = FA._padded(16, k)
+    assert torch.equal(got, k) and got.is_contiguous()
+    view = torch.randn(2, 8, 4, 3, 16).to(dtype)[:, :, :, 1]
+    assert not FA._broadcasts(view)
+    (same,) = FA._padded(16, view)
     assert same.data_ptr() == view.data_ptr()
 
 

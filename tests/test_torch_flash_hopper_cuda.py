@@ -289,8 +289,8 @@ def test_dkv_plan_reports_the_wgmma_kernel(card):
     """kernel_plan: the wgmma dK/dV at every 16-bit width, key-major,
     streaming query tiles of 64: a block of 128 keys at D_pad <= 128, of 64
     keys at D_pad 192 and 256 (two warpgroups over the same keys, one
-    holding dv and one dk); for fp32 the TF32 tensor-core kernel at D_pad
-    <= 128 and the FP32 pipes past it."""
+    holding dv and one dk); for fp32 the TF32 tensor-core kernel at every
+    width."""
     for D in list(DIMS) + [1, 160, 200]:
         for dtype in DTYPES:
             plan = FA.kernel_plan("flash_bwd_dkv", D, dtype)
@@ -298,7 +298,7 @@ def test_dkv_plan_reports_the_wgmma_kernel(card):
             assert (plan["design"], plan["query_rows"], plan["keys"]) == want
             assert plan["key_major"]
         assert FA.kernel_plan("flash_bwd_dkv", D, torch.float32)["design"] \
-            == ("wgmma-3xtf32" if D <= 128 else "fp32")
+            == "wgmma-3xtf32"
 
 
 @pytest.mark.parametrize("flag", FLAGS)

@@ -107,11 +107,12 @@ def test_plain_fwd_dq_match_jax_at_tile_edges(case):
 
 
 @pytest.mark.parametrize("dtype,broadcast", [
-    (torch.bfloat16, True), (torch.float16, True), (torch.float32, False)])
+    (torch.bfloat16, True), (torch.float16, True), (torch.float32, True)])
 def test_broadcast_views_copied_for_the_16_bit_kernels(dtype, broadcast):
-    """A 16-bit view repeated over its batch (stride 0) is copied to a
-    contiguous buffer before the launch; fp32 and ordinary strided views
-    (the model's head-major qkv) are read in place."""
+    """A view repeated over its batch (stride 0) is copied to a contiguous
+    buffer before the launch, in 16 bits and in fp32 alike (every kernel
+    reads through TMA tensor maps, which take no zero stride); ordinary
+    strided views (the model's head-major qkv) are read in place."""
     k = torch.randn(1, 8, 2, 16).to(dtype).expand(3, 8, 2, 16)
     assert FA._broadcasts(k) == broadcast
     (got,) = FA._padded(16, k)
