@@ -54,6 +54,15 @@ Phases, in order; any failure exits non-zero:
    and the bf16 loss and gradients of the flagship's first step and the
    losses of its first 4 AdamW steps, on the kernel path against the plain
    path (composed attention, plain Adam) on the card;
+9c. the flagship through the data-parallel engine at world size 1 over
+   NCCL (``init_parallel_env``: a TCPStore on 127.0.0.1): (a)
+   ``hybrid_engine.build_train_step`` over ``dense_loss``, ZeRO stage 1, a
+   bucketed CommOverlapConfig over two comm microbatches; (b)
+   ``gpt.build_hybrid_train_step`` at ZeRO stage 3 with the overlapped
+   gather; 1 warm and 5 timed steps each on phase 9's batch: every loss
+   within 1e-2 of phase 9's, the flash launches phase 9's times the
+   microbatches, fused Adam's phase 9's; ms/step, tokens/s, peak memory
+   and the collectives per step;
 10. hold the paged decode kernel's routes against their plain version at
    the serving decode shape (timed at bf16, fp16 and fp32, all on the bulk
    ring, beside the ragged kernel on the same batch; its split counts
@@ -1442,6 +1451,8 @@ def tiny_trainer_phase():
 def _kernel_class_train(name):
     if "flash_" in name:
         return "flash"
+    if "nccl" in name.lower():
+        return "nccl"
     if "fused_adam" in name:
         return "adam"
     if any(w in name.lower() for w in ("nvjet", "gemm", "cutlass", "xmma")):
@@ -1622,6 +1633,138 @@ def exactness_phase():
     torch.cuda.empty_cache()
     return dict(fp32_grad_max_rel=fp32_worst, bf16_grad_l2_rel=bf16_worst,
                 bf16_trajectory_kernel=traj_k, bf16_trajectory_plain=traj_p)
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: the flagship through the dp / ZeRO engine over NCCL
+# ---------------------------------------------------------------------------
+DP_TIMED_STEPS = TRAIN_TIMED_STEPS
+DP_LOSS_TOL = 1e-2     # relative to phase 9's dense path, step by step
+
+
+def dp_zero_phase(card, train):
+    """GPT-1.3B (phase 9's bf16 flagship, init, batch and AdamW with bf16
+    moments and SR) through the data-parallel engine at world size 1 over
+    NCCL, every collective issued: (a) ``hybrid_engine.build_train_step``
+    over ``dense_loss`` at {"dp": 1}, ZeRO stage 1, a bucketed
+    CommOverlapConfig over two comm microbatches; (b)
+    ``gpt.build_hybrid_train_step`` at ZeRO stage 3, block i+1's gathers
+    issued before block i runs. One warm and five timed steps each; the
+    losses against phase 9's, the launches against phase 9's per step."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as DC
+    from paddle_tpu_torch.distributed.comm_overlap import (CommOverlapConfig,
+                                                           Zero3Config)
+    from paddle_tpu_torch.distributed.comm_overlap import zero3 as Z3
+    from paddle_tpu_torch.models import hybrid_engine as HE
+    D.init_parallel_env(rank=0, world_size=1)
+    require(tdist.get_backend() == "nccl",
+            f"the process group runs {tdist.get_backend()}, not NCCL")
+    cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    tokens, labels = flagship_batch(cfg)
+    L = cfg.num_layers
+    ref = train["losses"]
+    per_step = {k: v // TRAIN_TIMED_STEPS
+                for k, v in train["launches"].items()}
+    out = {}
+    for tag, name, micro in (("a", "stage1_bucketed", 2),
+                             ("b", "stage3_gather", 1)):
+        params = G.init_hybrid_params(cfg, 0, DEV)
+        opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+        if name == "stage1_bucketed":
+            mesh = D.build_mesh({"dp": 1})
+            specs = {k: ({n: () for n in v} if isinstance(v, dict) else ())
+                     for k, v in params.items()}
+            step, shard, init = HE.build_train_step(
+                lambda p, t, l: G.dense_loss(p, t, l, cfg), specs, mesh,
+                opt, example_params=params, zero_stage=1,
+                comm_overlap=CommOverlapConfig(bucket_mb=4.0,
+                                               microbatches=micro),
+                donate=True)
+        else:
+            mesh = D.build_mesh({"dp": 1, "pp": 1, "mp": 1})
+            step, shard, init = G.build_hybrid_train_step(
+                cfg, mesh, opt, num_microbatches=1, zero_stage=3,
+                zero3=Zero3Config(overlap=True), comm_overlap=None,
+                donate=True)
+        p = shard(params)
+        del params
+        s = init(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, s, loss = step(p, s, tokens, labels, 1e-4)             # warm
+        losses = [loss]
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        # main path: the counts go to 0 just before and are read just after
+        reset_training_counts()
+        DC.CALLS.clear()
+        Z3.GATHERS.update(all_gather=0, reduce_scatter=0)
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            p, s, loss = step(p, s, tokens, labels, 1e-4)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = training_counts()
+        colls = dict(DC.CALLS)
+        gathers = dict(Z3.GATHERS)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x.item() for x in losses]
+        ms = wall * 1e3 / DP_TIMED_STEPS
+        tok_s = TRAIN["batch"] * TRAIN["seq"] * DP_TIMED_STEPS / wall
+        n_coll = sum(colls.values()) / DP_TIMED_STEPS
+        log(f"({tag}) {name}: warm step {warm:.2f} s; "
+            f"{DP_TIMED_STEPS} timed steps: {ms:.1f} ms/step, "
+            f"{tok_s:.1f} tokens/s; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB; NCCL collectives per step {n_coll:g} "
+            f"{ {k: v / DP_TIMED_STEPS for k, v in colls.items()} }  [{card}]")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        log(f"losses {losses}\n  phase 9     {ref}\n  max rel diff "
+            f"{rel:.2e} (tol {DP_LOSS_TOL}: {micro} microbatch(es) of the "
+            f"batch, bf16 sums in another order)")
+        log(f"launches in the timed steps: {counts}; zero3 gathers "
+            f"{gathers}")
+        require(all(math.isfinite(x) for x in losses),
+                f"{name}: a loss is not finite")
+        require(rel <= DP_LOSS_TOL,
+                f"{name}: losses differ from phase 9's by {rel}")
+        require(tdist.get_backend() == "nccl" and n_coll > 0,
+                f"{name}: no collective went through NCCL")
+        want = {k: (v * micro if k.startswith("flash") else v)
+                for k, v in per_step.items()}
+        for k, v in want.items():
+            require(counts[k] == v * DP_TIMED_STEPS,
+                    f"{name}: {k} {counts[k]} launches in "
+                    f"{DP_TIMED_STEPS} steps, expected {v} per step")
+        if name == "stage3_gather":
+            # one group of the once-per-step leaves, and per block two
+            # groups (ln1 / qkv gathered where used, the rest of block
+            # i+1 ahead of block i), gathered again by the replay
+            require(gathers == {"all_gather": (1 + 4 * L) * DP_TIMED_STEPS,
+                                "reduce_scatter": (1 + 2 * L)
+                                * DP_TIMED_STEPS},
+                    f"stage 3 gathers {gathers}")
+        profile = profile_train_step(
+            lambda: step(p, s, tokens, labels, 1e-4), card)
+        out[name] = dict(ms_per_step=ms, tokens_per_s=tok_s,
+                         peak_bytes=peak, losses=losses, loss_rel_diff=rel,
+                         launches=counts, launches_per_step={
+                             k: v // DP_TIMED_STEPS
+                             for k, v in counts.items()},
+                         collectives_per_step=n_coll,
+                         collectives={k: v / DP_TIMED_STEPS
+                                      for k, v in colls.items()},
+                         zero3_gathers=gathers, warm_s=warm,
+                         microbatches=micro, card=card, **profile)
+        del p, s, opt, step, shard, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    tdist.destroy_process_group()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5255,6 +5398,10 @@ def main() -> int:
     t0 = phase("9b. exactness at full width: kernel path vs plain path")
     exact = exactness_phase()
     log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("9c. GPT-1.3B flagship through the dp / ZeRO engine over "
+               "NCCL")
+    dpz = dp_zero_phase(card, train)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("10. paged decode kernel vs plain on the card")
     dec = paged_decode_phase(card)
@@ -5430,6 +5577,11 @@ def main() -> int:
                  **{k: fm_timed["window"][name][k] for k in fm_keys}),
              no_mask_retimed={tag: fm_entry[tag][name]
                               for tag in ("gpt_flagship", "bert_packed")},
+             dp_zero={tag: dict(launches=r["launches"][name],
+                                launches_per_step=r["launches_per_step"][
+                                    name],
+                                microbatches=r["microbatches"])
+                      for tag, r in dpz.items()},
              fp32=dict(shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v "
                              "views of qkv",
                        **{k: v for k, v in flash_recs["fp32"][name].items()
@@ -5472,6 +5624,7 @@ def main() -> int:
         **{k: adam[k] for k in keys},
         shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
         ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact,
+        dp_zero=dpz,
         llama_launches=llama["launches_total"]["fused_adam"],
         bert_padded_launches=padded["launches_total"]["fused_adam"]))
     kernels += [

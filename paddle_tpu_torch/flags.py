@@ -90,3 +90,32 @@ define_flag("bf16_stochastic_rounding_moments", True,
             "Stochastically round bf16 Adam moment2 stores (consumed by "
             "optimizer._store_moment and the fused Adam kernel; nearest "
             "rounding freezes the beta2 EMA below bf16 ulp).")
+define_flag("tcp_store_timeout_s", 300,
+            "Default timeout (s) of the rendezvous TCPStore's calls.")
+define_flag("store_retry_max", 4,
+            "Attempts of an idempotent TCPStore call (connect / set / get / "
+            "wait) under a transient fault.")
+define_flag("store_retry_base_s", 0.05,
+            "First backoff (s) between TCPStore retries; doubles each retry "
+            "with +/-50% jitter.")
+define_flag("store_retry_max_s", 2.0,
+            "Cap (s) on one TCPStore retry backoff.")
+define_flag("comm_bucket_mb", 0.0,
+            "Bucketed dp gradient sync: target bucket size in MB (0: the "
+            "monolithic per-leaf reduction unless comm_quantize / "
+            "comm_overlap_microbatches engage the bucketed path).")
+define_flag("comm_quantize", "",
+            "int8: error-feedback int8 all-reduce of the dp gradient "
+            "buckets (replicated path only); empty: full precision.")
+define_flag("comm_overlap_microbatches", 1,
+            "Gradient-accumulation slices whose bucket collectives run "
+            "under the next slice's backward.")
+define_flag("zero_stage", 0,
+            "ZeRO stage over the dp axis for build_hybrid_train_step "
+            "(0 off, 1 optimizer state, 2 + gradients, 3 + parameters).")
+define_flag("zero3_overlap_ag", True,
+            "ZeRO-3: issue block i+1's parameter all-gather while block i "
+            "computes.")
+define_flag("zero3_quantize_ag", False,
+            "ZeRO-3: int8 error-feedback wire format for the block "
+            "parameter all-gathers.")

@@ -2,7 +2,9 @@
 ``paddle_tpu/models/gpt.py`` ``GPTConfig``, ``_ln``, the dense branch of
 ``init_hybrid_params``, and the training half: ``dense_embed``,
 ``dense_block``, ``lm_logsumexp_ce``, ``dense_head_loss``, ``dense_forward``
-and ``dense_loss``).
+and ``dense_loss``; ``hybrid_param_specs``, ``hybrid_loss_fn`` and
+``build_hybrid_train_step`` at tensor and pipeline degree 1: data
+parallelism and the ZeRO stages over ``models/hybrid_engine.py``).
 
 Parameters are a plain dict with the JAX pytree's keys and its stacked
 ``[L, ...]`` block leaves, so a tree made by the JAX init loads straight in
@@ -35,7 +37,8 @@ from ..nn.functional.flash_attention import scaled_dot_product_attention
 
 __all__ = ["GPTConfig", "init_hybrid_params", "dense_embed", "dense_block",
            "lm_logsumexp_ce", "dense_head_loss", "dense_forward",
-           "dense_loss"]
+           "dense_loss", "hybrid_param_specs", "hybrid_loss_fn",
+           "build_hybrid_train_step"]
 
 
 @dataclasses.dataclass
@@ -185,7 +188,18 @@ def dense_block(p, x, cfg: GPTConfig, fp8=None, flash=None):
     return _block_tail(p, x, _attention(_ln_qkv(p, x, cfg)), cfg)
 
 
-def _block_selective(p, x, cfg: GPTConfig):
+_QKV_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b")
+
+
+def _ln_qkv_on_use(p, x, cfg: GPTConfig, gather):
+    return _ln_qkv(p if gather is None else gather(p), x, cfg)
+
+
+def _block_tail_on_use(p, x, attn, cfg: GPTConfig, gather):
+    return _block_tail(p if gather is None else gather(p), x, attn, cfg)
+
+
+def _block_selective(p, x, cfg: GPTConfig, gather=None):
     """The default remat mode, the reference's
     ``save_only_these_names("attn_out", "qkv")``: the qkv projection and the
     attention output are kept, the rest of the block is recomputed in the
@@ -193,11 +207,20 @@ def _block_selective(p, x, cfg: GPTConfig):
     keeps the GEMM's output and recomputes ln1 (its output included) for
     the GEMM's weight gradient; the flash call keeps its inputs (views of
     ``qkv``), its output and its lse; projection, ln2 and the MLP run under
-    a checkpoint of (x, attn)."""
-    qkv = checkpoint(_ln_qkv, p, x, cfg, use_reentrant=False,
+    a checkpoint of (x, attn).
+
+    ``gather`` (ZeRO-3, a ``comm_overlap.LayerGather``): ``p`` holds the
+    layer's dp shards, and each checkpointed part gathers the parameters
+    it uses inside itself, so the backward's replay gathers them again and
+    no full parameter outlives its part."""
+    pa, pb = p, p
+    if gather is not None:
+        pa = {k: p[k] for k in _QKV_KEYS}
+        pb = {k: v for k, v in p.items() if k not in _QKV_KEYS}
+    qkv = checkpoint(_ln_qkv_on_use, pa, x, cfg, gather, use_reentrant=False,
                      context_fn=functools.partial(
                          create_selective_checkpoint_contexts, _keep_qkv))
-    return checkpoint(_block_tail, p, x, _attention(qkv), cfg,
+    return checkpoint(_block_tail_on_use, pb, x, _attention(qkv), cfg, gather,
                       use_reentrant=False)
 
 
@@ -263,3 +286,237 @@ def dense_loss(params, tokens, labels, cfg: GPTConfig, remat: bool = True,
     logits = dense_forward(params, tokens, cfg, remat=remat,
                            remat_save=remat_save, fp8=fp8, flash=flash)
     return lm_logsumexp_ce(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid step at mp = pp = 1: data parallelism and ZeRO stages 0-3
+# ---------------------------------------------------------------------------
+def hybrid_param_specs(cfg: GPTConfig) -> Dict[str, object]:
+    """The JAX package's PartitionSpecs as tuples: blocks stacked over
+    "pp", Megatron shardings over "mp", the vocab over "mp". At mp = pp = 1
+    they only steer ``zero_dims`` (a dim an axis names is never the dp
+    dim)."""
+    return {
+        "wte": ("mp", None),
+        "wpe": (),
+        "blocks": {
+            "ln1_g": ("pp",), "ln1_b": ("pp",),
+            "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+            "proj_w": ("pp", "mp", None), "proj_b": ("pp",),
+            "ln2_g": ("pp",), "ln2_b": ("pp",),
+            "fc1_w": ("pp", None, "mp"), "fc1_b": ("pp", "mp"),
+            "fc2_w": ("pp", "mp", None), "fc2_b": ("pp",),
+        },
+        "lnf_g": (), "lnf_b": (),
+        "head_w": (None, "mp"),
+    }
+
+
+class _DpMean(torch.autograd.Function):
+    """The loss's mean over dp: an all-reduce forward, identity backward
+    (each rank's gradient is its own batch's; the engine's reduction
+    averages them), as ``lax.pmean`` of the loss transposes under the JAX
+    engine's ``shard_map``."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        from ..distributed import collective as C
+        return C.all_reduce(x.detach().clone().reshape(1), C.ReduceOp.SUM,
+                            group)[0] / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _vocab_ce(logits, labels, ignore_index: int = -100):
+    """Mean CE over the valid tokens (``_vocab_parallel_ce`` at mp 1): the
+    logsumexp in fp32, ``ignore_index`` labels left out of both sums."""
+    lf = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    loss = torch.logsumexp(lf, -1) - lf.gather(-1, safe[..., None])[..., 0]
+    total = torch.where(valid, loss, 0.0).sum()
+    return total / valid.sum().clamp_min(1)
+
+
+def _refuse_later_items(virtual_pp, schedule, fp8, sp, moe, flash, num,
+                        mesh=None, pp_axis="pp", mp_axis="mp",
+                        ep_axis="ep", sep_axis="sep"):
+    if virtual_pp != 1 or schedule != "1F1B":
+        raise _not_ported("pipeline schedules (virtual_pp / ZBH1)", 6)
+    if fp8 is not None:
+        raise _not_ported("fp8 delayed scaling (fp8=)", 7)
+    if sp is not None:
+        raise _not_ported("mp sequence parallelism (mp_overlap=)", 6)
+    if moe is not None:
+        raise _not_ported("GPT-MoE (moe=)", 11)
+    if flash is not None:
+        raise _not_ported("the FlashAttentionConfig route and sep context "
+                          "parallelism (flash=)", 6)
+    if num is not None:
+        raise _not_ported("numerics telemetry (numerics=)", 9)
+    if mesh is not None:
+        for a in (pp_axis, mp_axis, ep_axis, sep_axis):
+            if mesh.shape.get(a, 1) > 1:
+                raise _not_ported(f"the mesh axis {a!r} of degree "
+                                  f"{mesh.shape[a]}", 6)
+
+
+def hybrid_loss_fn(params, tokens, labels, cfg: GPTConfig,
+                   num_microbatches: int, dp_axis="dp", pp_axis="pp",
+                   mp_axis="mp", virtual_pp: int = 1, schedule: str = "1F1B",
+                   fp8=None, sp=None, ep_axis="ep", moe=None, moe_ef=None,
+                   flash=None, sep_axis="sep", z3=None, z3_ef=None, num=None,
+                   *, mesh):
+    """This rank's loss of the hybrid GPT at mp = pp = 1: the embedding,
+    the blocks over ``num_microbatches`` slices of this rank's batch (each
+    block in the default selective remat), the final LN, the head and the
+    CE over the whole local batch, averaged over dp (``_DpMean``).
+
+    ``z3`` (the ZeRO-3 plan of ``build_hybrid_train_step``: ``zdims``,
+    ``axis``, ``cfg``, ``other_leaves``): the dp-shardable leaves arrive
+    as this rank's shards; the embedding, final LN and head leaves are
+    gathered once at the top (one group), the block leaves per layer
+    inside each block's checkpointed parts (``comm_overlap.scan_gather``:
+    the ln1 / qkv group where it is used, the rest of block i+1 as one
+    group issued before block i runs). ``z3_ef``: this rank's stacked
+    int8-EF residuals; the return is then ``(loss, new_z3_ef)``."""
+    _refuse_later_items(virtual_pp, schedule, fp8, sp, moe or moe_ef, flash,
+                        num, mesh, pp_axis, mp_axis, ep_axis, sep_axis)
+    b_local, S = tokens.shape
+    M = int(num_microbatches)
+    enforce(b_local % M == 0,
+            "per-dp-rank batch must be divisible by num_microbatches",
+            op="gpt.hybrid_loss_fn", batch_local=b_local, microbatches=M)
+    group = mesh.group(dp_axis)
+    if z3 is not None:
+        from ..distributed.comm_overlap import zero3 as Z3
+        params = dict(params)
+        names = [n for n in z3["other_leaves"] if z3["zdims"][n] >= 0]
+        params.update(zip(names, Z3.gather_group(
+            [params[n] for n in names], [z3["zdims"][n] for n in names],
+            group)))
+    x = dense_embed(params, tokens, cfg)
+    outs, new_res = [], None
+    for xm in x.chunk(M, dim=0):
+        if z3 is not None:
+            xm, new_res = Z3.scan_gather(
+                lambda lg, h: _block_selective(lg.shards, h, cfg, gather=lg),
+                xm, params["blocks"], z3["zdims"]["blocks"], group,
+                cfg=z3["cfg"], residuals=z3_ef,
+                # ln1 / qkv are gathered inside their selective checkpoint,
+                # which must see the same operations in its replay
+                sync_keys=_QKV_KEYS)
+        else:
+            layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+            for i in range(cfg.num_layers):
+                xm = _block_selective({k: v[i] for k, v in layers.items()},
+                                      xm, cfg)
+        outs.append(xm)
+    out = outs[0] if M == 1 else torch.cat(outs, dim=0)
+    out = _ln(out, params["lnf_g"], params["lnf_b"])
+    logits = out.to(cfg.dtype) @ params["head_w"].to(cfg.dtype)
+    total = _DpMean.apply(_vocab_ce(logits, labels), group,
+                          mesh.shape[dp_axis])
+    if z3_ef is not None:
+        return total, new_res
+    return total
+
+
+def build_hybrid_train_step(cfg: GPTConfig, mesh, optimizer,
+                            num_microbatches: int = 1, dp_axis="dp",
+                            pp_axis="pp", mp_axis="mp", extra_grad_axes=(),
+                            virtual_pp: int = 1, schedule: str = "1F1B",
+                            grad_reduce_dtype="auto", zero1_dp: bool = False,
+                            zero_stage="auto", zero3="auto",
+                            comm_overlap="auto", fp8="auto",
+                            telemetry="auto", mp_overlap="auto",
+                            ep_axis="ep", moe_dispatch="auto",
+                            moe_ef_tokens=None, flash_attention="auto",
+                            sep_axis="sep", numerics="auto",
+                            donate: bool = False):
+    """The hybrid train step at mp = pp = 1 over
+    ``hybrid_engine.build_train_step``: returns ``(step, shard_params,
+    init_state)`` (see there). ``zero_stage`` "auto" reads
+    FLAGS_zero_stage; stage 3 builds the gather-on-use plan (``zero3``:
+    "auto" reads FLAGS_zero3_overlap_ag / FLAGS_zero3_quantize_ag, or a
+    ``Zero3Config``; the quantized gathers thread their residuals through
+    ``state["zero3_ef"]``, pp degree 1 and one microbatch only).
+
+    The later items' arguments keep their "auto" (off here) and raise
+    NotImplementedError naming the item otherwise: ``virtual_pp`` /
+    ``schedule`` / ``mp_overlap`` / ``flash_attention`` and mesh axes
+    other than dp (6), ``fp8`` (7), ``telemetry`` / ``numerics`` (9),
+    ``moe_dispatch`` / ``moe_ef_tokens`` (11). The flash kernels run in
+    every block anyway, through the attention registry op."""
+    from ..distributed.comm_overlap.zero3 import (resolve_zero3,
+                                                  resolve_zero_stage)
+    from .hybrid_engine import build_train_step, zero_dims
+
+    def on(arg):
+        return arg not in ("auto", None, False)
+    _refuse_later_items(
+        virtual_pp, schedule, True if on(fp8) else None,
+        True if on(mp_overlap) else None,
+        True if (on(moe_dispatch) or moe_ef_tokens is not None) else None,
+        True if on(flash_attention) else None,
+        True if on(numerics) else None, mesh, pp_axis, mp_axis, ep_axis,
+        sep_axis)
+    if telemetry not in ("auto", None):
+        raise _not_ported("in-program telemetry (telemetry=)", 9)
+    specs = hybrid_param_specs(cfg)
+    example = init_hybrid_params(cfg, 0, device="meta")
+    stage = resolve_zero_stage(zero_stage, zero1_dp,
+                               op="gpt.build_hybrid_train_step")
+    z3plan = z3_engine = None
+    if stage >= 3:
+        z3cfg = resolve_zero3(zero3)
+        zdims = zero_dims(specs, example, mesh, dp_axis)
+        z3plan = {"zdims": zdims, "axis": dp_axis, "cfg": z3cfg,
+                  "other_leaves": ("wte", "wpe", "lnf_g", "lnf_b",
+                                   "head_w")}
+        z3_engine = {"ef": None, "meta": z3cfg.meta()}
+        if z3cfg.quantize:
+            enforce(mesh.shape.get(pp_axis, 1) == 1
+                    and num_microbatches == 1 and virtual_pp == 1,
+                    "zero3_quantize_ag threads ONE error-feedback "
+                    "residual slot per layer per step; pipeline "
+                    "microbatching would sum residuals across ticks — "
+                    "use pp degree 1, num_microbatches 1",
+                    op="gpt.build_hybrid_train_step",
+                    pp=mesh.shape.get(pp_axis, 1),
+                    num_microbatches=num_microbatches)
+            dp = mesh.shape[dp_axis]
+            shapes = {}
+            for k, ex in example["blocks"].items():
+                zd = zdims["blocks"][k]
+                shp = list(ex.shape)
+                if zd >= 0:
+                    shp[zd] //= dp
+                shapes[k] = tuple(shp) if zd >= 0 else (shp[0], 0)
+
+            # the residuals mirror this rank's block shards (fp32); a leaf
+            # with no dp dim holds a 0-column placeholder
+            def ef_init(_shapes=shapes):
+                return {k: torch.zeros(s, dtype=torch.float32)
+                        for k, s in _shapes.items()}
+            z3_engine = {"ef": {"init": ef_init}, "meta": z3cfg.meta()}
+
+    if z3_engine is not None and z3_engine["ef"] is not None:
+        def loss_fn(p, tokens, labels, z3_ef):
+            return hybrid_loss_fn(p, tokens, labels, cfg, num_microbatches,
+                                  dp_axis, pp_axis, mp_axis, z3=z3plan,
+                                  z3_ef=z3_ef, mesh=mesh)
+    else:
+        def loss_fn(p, tokens, labels):
+            return hybrid_loss_fn(p, tokens, labels, cfg, num_microbatches,
+                                  dp_axis, pp_axis, mp_axis, z3=z3plan,
+                                  mesh=mesh)
+    step, shard_params, init_state = build_train_step(
+        loss_fn, specs, mesh, optimizer, dp_axis=dp_axis,
+        extra_grad_axes=extra_grad_axes, example_params=example,
+        grad_reduce_dtype=grad_reduce_dtype, zero_stage=stage,
+        zero3=z3_engine, comm_overlap=comm_overlap, telemetry=None,
+        donate=donate)
+    return step, shard_params, init_state

@@ -146,23 +146,26 @@ class Optimizer:
                     for k, v in tree.items()}
         return {"step": 0, "slots": slots(params)}
 
-    def _leaf_items(self, params, grads, slots, step):
+    def _leaf_items(self, params, grads, slots, step, offset=None):
         """[(p, g or None, slot, ctx, seed or None), ...] in the tree's
         order. The stochastic-rounding seed of leaf i at ``step`` is
-        ``(step, i)``: deterministic, distinct per leaf and per step."""
+        ``(step, i)``: deterministic, distinct per leaf and per step.
+        ``offset`` rebases the leaf index, ``(step, offset + i)``, when one
+        update is split over several calls (the JAX package's ``offset``)."""
         items = []
         for i, (path, p) in enumerate(_flatten_paths(params)):
             g = _lookup(grads, path)
             slot = _lookup(slots, path)
-            seed = (step, i) if (self._needs_update_rng
-                                 and g is not None) else None
+            idx = i if offset is None else offset + i
+            seed = (step, idx) if (self._needs_update_rng
+                                   and g is not None) else None
             ctx = self._leaf_ctx(_path_name(path)) if g is not None else None
             items.append((p, g, slot, ctx, seed))
         return items
 
-    def _apply_leaves(self, params, grads, slots, lr, step):
+    def _apply_leaves(self, params, grads, slots, lr, step, offset=None):
         for p, g, s, ctx, seed in self._leaf_items(params, grads, slots,
-                                                    step):
+                                                    step, offset=offset):
             if g is not None:
                 self._update_ctx(ctx, p, g, s, lr, step, seed=seed)
 

@@ -21,7 +21,11 @@ cancel (``test_torch_flash_hopper_cuda.py`` takes 1e-2 beside its 2e-2):
 the kernels recompute s on the tensor cores, not with the forward's
 arithmetic, so a query that sees one key gets p = 1 - O(2^-21) and dq = p
 dP (1 - p) k is rounding noise of about 3e-7 of its terms where the true dq
-is 0; 5e-6 of 1e-1 of the terms holds that noise to fp32 grade.
+is 0; 5e-6 of 1e-1 of the terms holds that noise to fp32 grade. Where the
+plain fp32 version is itself farther than 5e-6 from a float64 witness (the
+plain arithmetic in float64 on the same inputs, mask and keep bits: a key
+alone in its tile, whose dk is a few cancelling ds), the backward is held
+to the witness instead, at most 1.25 times the plain version's distance.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither JAX nor the JAX package:
@@ -41,6 +45,10 @@ from paddle_tpu_torch.kernels import flash_attention as FA
 pytestmark = pytest.mark.cuda
 
 TOL = 5e-6
+# where the plain fp32 version is farther than TOL from the float64
+# witness, the kernel's worst tile against the witness may be at most this
+# times the plain version's (PERF.md's form for BERT's q / k gradients)
+WITNESS_RATIO = 1.25
 DIMS = (32, 40, 64, 96, 128)
 WIDE = (160, 200, 256)  # D_pad 192 and 256: 16-row tiles
 # bias x integer masks x dropout: every instance of the kernels
@@ -63,10 +71,12 @@ def _tile_rel(got, ref, rows=64, terms=None):
     """Worst ||got - ref|| / ||ref|| over 64-row tiles of dim 1 and each
     head (dim 2) of a [B, S, H, D] tensor; with ``terms`` a tile's
     denominator is at least 1e-1 of that tile's ||terms||."""
-    r = ref.float()
-    d = got.float() - r
+    # float64 when held to the float64 witness, fp32 otherwise
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    r = ref.to(dt)
+    d = got.to(dt) - r
     pad = -d.shape[1] % rows
-    ts = [d, r] + ([] if terms is None else [terms.float()])
+    ts = [d, r] + ([] if terms is None else [terms.to(dt)])
     ts = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in ts]
     B, S, H, D = ts[0].shape
     sq = [t.reshape(B, S // rows, rows, H, D).square().sum((2, 4)) for t in ts]
@@ -88,6 +98,37 @@ def _grad_terms(p, dp, delta, q, k, scale):
     tq = torch.einsum("bhqk,bkhd->bqhd", mag, kf)
     tk = torch.einsum("bhqk,bqhd->bkhd", mag, q.float().abs())
     return tq, tk.reshape(B, Sk, Hkv, H // Hkv, D).sum(3)
+
+
+def _witness64(q, k, v, lse, do, causal, scale, delta, q_seg, kv_seg,
+               dropout_p, seed, bias, fm, window):
+    """dq, dk and dv of the plain version's arithmetic in float64 on the
+    same inputs: the same visibility mask, keep bits and lse, with delta
+    recomputed in float64."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    kf, vf = (t.repeat_interleave(g, dim=2) for t in (k64, v64))
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, kf) * scale
+    if bias is not None:
+        s = s + FA._additive(bias, q.dtype).double()
+    ok = FA._visible(Sq, Sk, causal, q.device, q_seg, kv_seg, fm, window)
+    live = (lse > 0.5 * FA._NEG_INF)[..., None]
+    zero = torch.zeros((), dtype=torch.float64, device=q.device)
+    p = torch.where(ok & live, torch.exp(s - lse.double()[..., None]), zero)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do64, vf)
+    p_kept = p
+    if dropout_p:
+        keep = FA.dropout_keep_mask(seed, B, H, Sq, Sk, dropout_p, q.device)
+        p_kept = torch.where(keep, p / (1.0 - dropout_p), zero)
+        dp = torch.where(keep, dp / (1.0 - dropout_p), zero)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q64)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_kept, do64)
+    return (dq, dk.reshape(B, Sk, Hkv, g, D).sum(3),
+            dv.reshape(B, Sk, Hkv, g, D).sum(3))
 
 
 def _variant(flag, mode, B, Sq, Sk, H, rng, dev):
@@ -142,12 +183,22 @@ def _check(q, k, v, do, causal, var, what):
     live = lse > -1e29
     assert (dq[~live.transpose(1, 2)] == 0).all(), what
     terms_q, terms_k = _grad_terms(p, dp, delta_p, q, k, scale)
-    for name, got, want, terms in (("dq", dq, dq_p, terms_q),
-                                   ("dk", dk, dk_p, terms_k),
-                                   ("dv", dv, dv_p, None)):
+    wq, wk, wv = _witness64(*args)
+    for name, got, want, exact, terms in (
+            ("dq", dq, dq_p, wq, terms_q), ("dk", dk, dk_p, wk, terms_k),
+            ("dv", dv, dv_p, wv, None)):
         assert torch.isfinite(got).all(), (what, name)
-        tile = _tile_rel(got, want, terms=terms)
-        assert tile <= TOL, (what, name, tile)
+        plain_err = _tile_rel(want, exact, terms=terms)
+        if plain_err <= TOL:
+            tile = _tile_rel(got, want, terms=terms)
+            assert tile <= TOL, (what, name, tile)
+        else:
+            # the plain fp32 version itself sits farther than TOL from the
+            # exact gradient: hold the kernel to the float64 witness, at
+            # most WITNESS_RATIO times the plain version's own distance
+            tile = _tile_rel(got, exact, terms=terms)
+            assert tile <= WITNESS_RATIO * plain_err, \
+                (what, name, tile, plain_err)
     g = q.shape[2] // k.shape[2]
     dp_terms = torch.einsum("bqhd,bkhd->bhqk", do.abs(),
                             v.abs().repeat_interleave(g, dim=2))
