@@ -63,6 +63,24 @@ Phases, in order; any failure exits non-zero:
    within 1e-2 of phase 9's, the flash launches phase 9's times the
    microbatches, fused Adam's phase 9's; ms/step, tokens/s, peak memory
    and the collectives per step;
+9d. ``distributed.sharding.build_sharded_train_step`` at world size 1 over
+   NCCL: (a) level "os" with ``offload=True`` at ``offload_bench.py``'s
+   2.85b shape (GPT 2.76B: H 2560, L 34, 20 heads, vocab 32768; batch 4 x
+   1024, bf16, full remat, AdamW with bf16 moments): every slot leaf pinned
+   on the host; (b) level "p_g_os" at phase 9's flagship and batch, the
+   losses within 1e-2 of phase 9's; one warm and two timed steps each, the
+   launch counts, s/step, peak memory, the copies a step;
+9e. the main path of ``distributed/sharding``: GPT-6.7B (H 4096, L 32, 32
+   heads, vocab 50304) trained by ``build_param_streamed_train_step`` at
+   batch 4 x 2048 in bf16 with bf16 moments, its parameters and moments in
+   pinned host memory (``init_streamed_params(park=)``): one warm and two
+   timed steps; the loss falls, the peak device memory stays below the
+   bf16 parameter bytes, the flash and fused Adam launches are 2 L, L, L
+   and 4 L + 3 a step; s/step, tokens/s, the host bytes pinned, the GB
+   moved each way and the share of the copy time under compute; then the
+   same width at 4 layers with ClipGradByGlobalNorm(1.0) and Llama-2 7B's
+   width at 4 layers, each within 1e-2 of the on-device dense step's losses
+   from the same tree;
 10. hold the paged decode kernel's routes against their plain version at
    the serving decode shape (timed at bf16, fp16 and fp32, all on the bulk
    ring, beside the ragged kernel on the same batch; its split counts
@@ -220,6 +238,7 @@ the per-kernel JSON record.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1765,6 +1784,356 @@ def dp_zero_phase(card, train):
         torch.cuda.empty_cache()
     tdist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 9d / 9e: the offload tiers (distributed/sharding)
+# ---------------------------------------------------------------------------
+# offload_bench.py --size 2.85b (run_moments_offload): GPT 2.76B
+OFFLOAD_2P85B = dict(vocab_size=32768, hidden_size=2560, num_layers=34,
+                     num_heads=20, max_seq_len=1024)
+OFFLOAD_BATCH = (4, 1024)
+OFFLOAD_TIMED_STEPS = 2
+STREAM_BATCH = (4, 2048)            # offload_bench.py --size 6.7b
+STREAM_TIMED_STEPS = 2
+STREAM_CHECK_LAYERS = 4             # 9e (b) / (c): the dense step beside it
+STREAM_LOSS_TOL = 1e-2
+
+
+def _fused_eligible(tree):
+    """How many leaves the fused Adam's gate admits (>= 65536 elements,
+    ndim >= 2): one launch each per update."""
+    return sum(1 for _, t in flat_leaves(tree)
+               if t.dim() >= 2 and t.numel() >= (1 << 16))
+
+
+def _batch(vocab, shape, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.randint(0, vocab, shape)).to(DEV)
+                 for _ in range(2))
+
+
+def _timed_steps(run, steps):
+    """(wall seconds of ``steps`` calls, losses); the launch counts go to
+    0 just before and are read just after."""
+    reset_training_counts()
+    t0 = time.perf_counter()
+    losses = [run() for _ in range(steps)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, losses, training_counts()
+
+
+def sharded_offload_phase(card, train):
+    """(a) ``build_sharded_train_step(level="os", offload=True)`` at
+    offload_bench's 2.85b shape (bf16, full remat, AdamW with bf16 moments):
+    every slot leaf of ndim >= 1 pinned on the host; (b) level "p_g_os"
+    without offload at phase 9's flagship and batch, the losses against
+    phase 9's. World size 1 over NCCL; one warm and two timed steps each."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import _tree as DT
+    from paddle_tpu_torch.distributed import collective as DC
+    from paddle_tpu_torch.distributed import sharding as S
+    D.init_parallel_env(rank=0, world_size=1)
+    require(tdist.get_backend() == "nccl",
+            f"the process group runs {tdist.get_backend()}, not NCCL")
+    mesh = D.build_mesh({"sharding": 1})
+    out = {}
+    for tag, level, offload in (("a", "os", True), ("b", "p_g_os", False)):
+        if offload:
+            cfg = G.GPTConfig(**OFFLOAD_2P85B, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+            shape, remat = OFFLOAD_BATCH, dict(remat_save=())
+            tokens, labels = _batch(cfg.vocab_size, shape)
+        else:
+            cfg = G.GPTConfig(**FULL, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+            shape, remat = (TRAIN["batch"], TRAIN["seq"]), {}
+            tokens, labels = flagship_batch(cfg)
+        params = G.init_hybrid_params(cfg, 0, DEV)
+        n_params = sum(t.numel() for _, t in flat_leaves(params))
+        adam_per_step = _fused_eligible(params)
+        opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+        _, place, compile_for = S.build_sharded_train_step(
+            lambda p, t, l, cfg=cfg, remat=remat: G.dense_loss(
+                p, t, l, cfg, **remat),
+            opt, mesh, level=level, offload=offload)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, s = place(params)
+        del params
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        step, spec = compile_for(p)
+        box = {"p": p, "s": s}
+
+        def run():
+            box["p"], box["s"], loss = step(box["p"], box["s"], tokens,
+                                            labels, 1e-4)
+            return loss
+        t0 = time.perf_counter()
+        losses = [run()]                                       # warm
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        DC.CALLS.clear()
+        wall, timed, counts = _timed_steps(run, OFFLOAD_TIMED_STEPS)
+        losses = [x.item() for x in losses + timed]
+        peak = torch.cuda.max_memory_allocated()
+        s_step = wall / OFFLOAD_TIMED_STEPS
+        tok_s = shape[0] * shape[1] / s_step
+        L = cfg.num_layers
+        slots = [t for _, t in DT.flatten(box["s"]["slots"])]
+        host = [t for t in slots if t.dim() >= 1]
+        pinned_bytes = sum(t.numel() * t.element_size() for t in host
+                           if t.device.type == "cpu" and t.is_pinned())
+        rec = dict(level=level, offload=offload, n_params=n_params,
+                   batch=list(shape), s_per_step=s_step, tokens_per_s=tok_s,
+                   peak_bytes=peak, place_s=place_s, warm_s=warm,
+                   losses=losses, launches=counts,
+                   collectives_per_step={k: v / OFFLOAD_TIMED_STEPS
+                                         for k, v in DC.CALLS.items()},
+                   host_pinned_bytes=pinned_bytes, card=card)
+        log(f"({tag}) level {level}{' + offload' if offload else ''}, GPT "
+            f"{n_params / 1e9:.3f}B bf16 (H {cfg.hidden_size}, L {L}), batch "
+            f"{shape[0]} x {shape[1]}: place {place_s:.2f} s, warm "
+            f"{warm:.2f} s, {s_step:.3f} s/step, {tok_s:.1f} tokens/s; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; slots pinned on "
+            f"the host {pinned_bytes / 1e9:.2f} GB  [{card}]")
+        log(f"losses {losses}; launches {counts}; collectives per step "
+            f"{rec['collectives_per_step']}")
+        require(all(math.isfinite(x) for x in losses),
+                f"9d ({tag}): a loss is not finite")
+        if offload:
+            require(host and all(t.device.type == "cpu" and t.is_pinned()
+                                 for t in host),
+                    "9d (a): a slot leaf is not pinned on the host")
+            rec["copies_per_step_gb"] = {
+                k: v / 1e9 for k, v in step.copier.stats.items()}
+            log(f"last step's copies: {rec['copies_per_step_gb']} GB")
+        else:
+            ref = train["losses"][:len(losses)]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            rec["loss_rel_diff"] = rel
+            log(f"phase 9: {ref}; max rel diff {rel:.2e} (tol "
+                f"{DP_LOSS_TOL})")
+            require(rel <= DP_LOSS_TOL,
+                    f"9d (b): losses differ from phase 9's by {rel}")
+        want = dict(flash_fwd=(2 * L if offload else L), flash_bwd_dq=L,
+                    flash_bwd_dkv=L, fused_adam=adam_per_step)
+        for k, v in want.items():
+            require(counts[k] == v * OFFLOAD_TIMED_STEPS,
+                    f"9d ({tag}): {k} {counts[k]} launches in "
+                    f"{OFFLOAD_TIMED_STEPS} steps, expected {v} per step")
+        rec["launches_per_step"] = want
+        out[f"{level}{'_offload' if offload else ''}"] = rec
+        del p, s, box, step, opt, place, compile_for
+        gc.collect()
+        torch.cuda.empty_cache()
+    tdist.destroy_process_group()
+    return out
+
+
+def _stack_segments(hp, device):
+    """The stacked dense tree of a segmented host tree (9e's dense
+    check)."""
+    seg = {k: ({n: t.to(device) for n, t in v.items()}
+               if isinstance(v, dict) else v)
+           for k, v in hp.items() if k != "blocks"}
+    blocks = {k: torch.stack([b[k].to(device) for b in hp["blocks"]])
+              for k in hp["blocks"][0]}
+    out = {**seg["embed"], **seg["head"], "blocks": blocks}
+    return out
+
+
+def streamed_leg(card, model, cfg, shape, steps, clip=None, dense=False,
+                 trace=False):
+    """One streamed run: the parameters made one segment at a time and
+    parked in pinned host memory, the slots likewise, then a warm step and
+    ``steps`` timed ones; with ``dense`` the same tree's on-device dense
+    step (full remat, AdamW.apply) beside it."""
+    from paddle_tpu_torch.distributed import _tree as DT
+    from paddle_tpu_torch.distributed import sharding as S
+    from paddle_tpu_torch.distributed.sharding import _host as SH
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hp = model.init_streamed_params(cfg, 0, park=S.park)
+    init_s = time.perf_counter() - t0
+    leaves = [t for seg in [hp["embed"], hp["head"], *hp["blocks"]]
+              for _, t in DT.flatten(seg)]
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16,
+                grad_clip=ClipGradByGlobalNorm(clip) if clip else None)
+    place, init_state, step = S.build_param_streamed_train_step(
+        *model.streamed_fns(cfg), opt)
+    t0 = time.perf_counter()
+    hs = init_state(hp)
+    state_s = time.perf_counter() - t0
+    segs = [hp["embed"], hp["head"], *hp["blocks"], hs["slots"]["embed"],
+            hs["slots"]["head"], *hs["slots"]["blocks"]]
+    pinned_bytes = sum(s.buffer.numel() for s in segs)
+    tokens, labels = _batch(cfg.vocab_size, shape)
+    ref = None
+    if dense:
+        params = _stack_segments(hp, DEV)
+        dopt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16,
+                     grad_clip=ClipGradByGlobalNorm(clip) if clip else None)
+        dstate = dopt.init_state(params)
+        ref = []
+        for _ in range(steps + 1):
+            names, ls = zip(*flat_leaves(params))
+            for t in ls:
+                t.requires_grad_(True)
+            loss = model.dense_loss(params, tokens, labels, cfg,
+                                    **({"remat_save": ()} if model is G
+                                       else {}))
+            grads = torch.autograd.grad(loss, ls)
+            for t in ls:
+                t.requires_grad_(False)
+            dopt.apply(params, unflatten(names, grads), dstate)
+            ref.append(loss.item())
+            del grads, loss
+        del params, dstate, dopt
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = {"hp": hp, "hs": hs}
+
+    def run():
+        box["hp"], box["hs"], loss = step(box["hp"], box["hs"], tokens,
+                                          labels, 1e-4)
+        return loss
+    t0 = time.perf_counter()
+    losses = [run()]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    step.copier.trace = trace
+    reset_llama_counts()
+    t0 = time.perf_counter()
+    timed = [run() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = llama_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses + timed]
+    overlap = (SH.overlap_summary(step.copier.timeline, step.copier.origin)
+               if trace else {})
+    stats = dict(step.copier.stats)
+    host_ok = all(t.device.type == "cpu" and t.is_pinned()
+                  for seg in [box["hp"]["embed"], box["hp"]["head"],
+                              *box["hp"]["blocks"],
+                              box["hs"]["slots"]["embed"],
+                              box["hs"]["slots"]["head"],
+                              *box["hs"]["slots"]["blocks"]]
+                  for _, t in DT.flatten(seg))
+    s_step = wall / steps
+    rec = dict(n_params=sum(t.numel() for t in leaves), layers=cfg.num_layers,
+               hidden=cfg.hidden_size, batch=list(shape), s_per_step=s_step,
+               tokens_per_s=shape[0] * shape[1] / s_step, peak_bytes=peak,
+               param_bytes=param_bytes, host_pinned_bytes=pinned_bytes,
+               init_params_s=init_s, init_state_s=state_s, warm_s=warm,
+               losses=losses, dense_losses=ref, launches=counts,
+               h2d_gb_per_step=stats["h2d_bytes"] / 1e9,
+               d2h_gb_per_step=stats["d2h_bytes"] / 1e9, overlap=overlap,
+               host_pinned=host_ok, clip=clip, card=card)
+    del box, hp, hs, segs, leaves, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def param_stream_phase(card):
+    """(a) GPT-6.7B at full width and depth, streamed from pinned host
+    memory at offload_bench's batch (4 x 2048, bf16, bf16 moments): one
+    warm and two timed steps, the copies timed; the peak device memory
+    below the model's bf16 parameter bytes; (b) the same width at 4 layers
+    with ClipGradByGlobalNorm(1.0) and (c) Llama-2 7B's width at 4 layers,
+    each against the on-device dense step from the same tree."""
+    host_gb = None
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith(("MemTotal", "MemAvailable")):
+                    log("  " + line.strip())
+                    if line.startswith("MemAvailable"):
+                        host_gb = int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    out = {}
+    cfg = G.gpt_6p7b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    a = streamed_leg(card, G, cfg, STREAM_BATCH, STREAM_TIMED_STEPS,
+                     trace=True)
+    L = cfg.num_layers
+    log(f"(a) GPT-6.7B streamed, {a['n_params'] / 1e9:.3f}B bf16 (H 4096, L "
+        f"{L}), batch {STREAM_BATCH[0]} x {STREAM_BATCH[1]}: "
+        f"{a['s_per_step']:.3f} s/step, {a['tokens_per_s']:.1f} tokens/s; "
+        f"max_memory_allocated {a['peak_bytes'] / 2**30:.2f} GiB against "
+        f"{a['param_bytes'] / 2**30:.2f} GiB of bf16 parameters; "
+        f"{a['host_pinned_bytes'] / 1e9:.2f} GB pinned on the host "
+        f"(available before: {host_gb} GiB); init params {a['init_params_s']:.1f} s, "
+        f"slots {a['init_state_s']:.1f} s, warm step {a['warm_s']:.1f} s  "
+        f"[{card}]")
+    log(f"  per step: {a['h2d_gb_per_step']:.2f} GB host->device, "
+        f"{a['d2h_gb_per_step']:.2f} GB device->host; last step's spans "
+        f"{a['overlap']}")
+    log(f"  losses {a['losses']}; launches {a['launches']}")
+    adam = 4 * L + 3
+    want = dict(flash_fwd=2 * L, flash_bwd_dq=L, flash_bwd_dkv=L,
+                fused_adam=adam)
+    _check_stream("9e (a)", a, want, STREAM_TIMED_STEPS)
+    require(a["losses"][-1] < a["losses"][0],
+            f"9e (a): the loss is not falling: {a['losses']}")
+    require(a["peak_bytes"] < a["param_bytes"],
+            f"9e (a): peak device memory {a['peak_bytes']} is not below the "
+            f"bf16 parameter bytes {a['param_bytes']}")
+    out["gpt_6p7b"] = a
+    cl = STREAM_CHECK_LAYERS
+    b = streamed_leg(card, G, dataclasses.replace(cfg, num_layers=cl),
+                     STREAM_BATCH, 2, clip=1.0, dense=True)
+    _check_stream("9e (b)", b, dict(flash_fwd=3 * cl, flash_bwd_dq=2 * cl,
+                                    flash_bwd_dkv=2 * cl,
+                                    fused_adam=4 * cl + 3), 2)
+    _check_dense("9e (b) GPT-6.7B width, 4 layers, global-norm clip 1.0", b)
+    out["gpt_6p7b_4l_clip"] = b
+    lcfg = dataclasses.replace(TL.llama2_7b(dtype=torch.bfloat16,
+                                            param_dtype=torch.bfloat16),
+                               num_layers=cl)
+    c = streamed_leg(card, TL, lcfg, STREAM_BATCH, 2, dense=True)
+    _check_stream("9e (c)", c, dict(flash_fwd=2 * cl, flash_bwd_dq=cl,
+                                    flash_bwd_dkv=cl, fused_adam=7 * cl + 2),
+                  2)
+    _check_dense("9e (c) Llama-2 7B width, 4 layers", c)
+    log(f"  (c) RoPE kernel launches {c['launches']['rope']} (the dense "
+        f"block rotates with the composed rotate)")
+    out["llama2_7b_4l"] = c
+    return out
+
+
+def _check_stream(tag, rec, want, steps):
+    require(all(math.isfinite(x) for x in rec["losses"]),
+            f"{tag}: a loss is not finite")
+    require(rec["host_pinned"], f"{tag}: a host leaf is not pinned")
+    for k, v in want.items():
+        require(rec["launches"][k] == v * steps,
+                f"{tag}: {k} {rec['launches'][k]} launches in {steps} steps, "
+                f"expected {v} per step")
+    rec["launches_per_step"] = want
+
+
+def _check_dense(tag, rec):
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(rec["losses"], rec["dense_losses"]))
+    rec["loss_rel_diff"] = rel
+    log(f"{tag}: streamed {rec['losses']}\n  dense    {rec['dense_losses']}"
+        f"\n  max rel diff {rel:.2e} (tol {STREAM_LOSS_TOL}); "
+        f"{rec['s_per_step']:.3f} s/step, peak "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches {rec['launches']}")
+    require(rel <= STREAM_LOSS_TOL,
+            f"{tag}: streamed and dense losses differ by {rel}")
 
 
 # ---------------------------------------------------------------------------
@@ -5402,6 +5771,14 @@ def main() -> int:
                "NCCL")
     dpz = dp_zero_phase(card, train)
     log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("9d. ZeRO levels and moments offload over NCCL (2.76B "
+               "offload, 1.3B p_g_os)")
+    shoff = sharded_offload_phase(card, train)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("9e. GPT-6.7B streamed from pinned host memory (the main "
+               "path of distributed/sharding)")
+    pstream = param_stream_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("10. paged decode kernel vs plain on the card")
     dec = paged_decode_phase(card)
@@ -5582,6 +5959,15 @@ def main() -> int:
                                     name],
                                 microbatches=r["microbatches"])
                       for tag, r in dpz.items()},
+             # 9d / 9e: the offload tiers (distributed/sharding)
+             sharded_offload={tag: dict(
+                 launches=r["launches"][name],
+                 launches_per_step=r["launches_per_step"][name])
+                 for tag, r in shoff.items()},
+             param_stream={tag: dict(
+                 launches=r["launches"][name],
+                 launches_per_step=r["launches_per_step"][name])
+                 for tag, r in pstream.items()},
              fp32=dict(shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v "
                              "views of qkv",
                        **{k: v for k, v in flash_recs["fp32"][name].items()
@@ -5624,7 +6010,7 @@ def main() -> int:
         **{k: adam[k] for k in keys},
         shape=f"9 flagship leaves, {adam['elements']} bf16 elements, SR on",
         ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact,
-        dp_zero=dpz,
+        dp_zero=dpz, sharded_offload=shoff, param_stream=pstream,
         llama_launches=llama["launches_total"]["fused_adam"],
         bert_padded_launches=padded["launches_total"]["fused_adam"]))
     kernels += [
@@ -5728,6 +6114,9 @@ def main() -> int:
               "fused_rotary_position_embedding (q and k, forward and "
               "backward)",
         neg_sin_ms=rope["q"]["neg_sin_ms"],
+        # the dense Llama block rotates with the composed rotate: no launch
+        param_stream_llama_launches=pstream["llama2_7b_4l"]["launches"][
+            "rope"],
         k={k: rope["k"][k] for k in keys + ("neg_sin_ms",)}))
     pr = "paddle_tpu/kernels/pallas/primitives.py"
     kernels += [

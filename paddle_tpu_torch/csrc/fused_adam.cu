@@ -25,7 +25,12 @@
 // for group e / 8, on whichever path reads it (an array that is not 16-byte
 // aligned, and the tail past the last whole group, go one element per
 // thread). It will not give the TPU's bits; the plain version takes its noise
-// as a tensor.
+// as a tensor. A leaf that is one rank's shard of a larger leaf (the block
+// [start, start + per) of a dim that is full long in the whole leaf, with
+// inner elements after it) draws for each element the bits of its index in the
+// whole leaf, so a sharded update rounds as the whole leaf's update does: one
+// draw still serves eight elements where inner is a multiple of 8, else the
+// shard goes one element per thread, each taking its own draw.
 //
 // Bound on an H100 SXM (3.35 TB/s): the update does ~17 FLOPs and, for the
 // bf16 flagship (bf16 p, g, m1, m2), moves 14 bytes per element (4 reads, 3
@@ -83,6 +88,24 @@ __device__ __forceinline__ uint4 group_bits(long long group, uint32_t seed0, uin
                        seed0, seed1);
 }
 
+// where element e of the leaf lies in the whole leaf it is a shard of
+struct Window {
+  long long inner, per, full, start;
+};
+
+__device__ __forceinline__ long long leaf_index(long long e, const Window& w) {
+  if (w.per == w.full) return e;
+  const long long row = e / w.inner, k = e - row * w.inner;
+  const long long outer = row / w.per, j = row - outer * w.per;
+  return (outer * w.full + w.start + j) * w.inner + k;
+}
+
+__device__ __forceinline__ uint32_t element_noise(long long e, const Window& w, uint32_t seed0,
+                                                  uint32_t seed1) {
+  const long long i = leaf_index(e, w);
+  return half_word(group_bits(i / 8, seed0, seed1), static_cast<int>(i % 8));
+}
+
 template <typename T>
 struct alignas(16) Vec8 {
   T v[8];
@@ -115,12 +138,16 @@ template <typename TP, typename TM1, typename TM2>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(TP* __restrict__ p, const void* __restrict__ g, int g_code,
                   TM1* __restrict__ m1, TM2* __restrict__ m2, float* __restrict__ master,
-                  long long n, Scalars s, int sr, uint32_t seed0, uint32_t seed1, int vec) {
+                  long long n, Scalars s, int sr, uint32_t seed0, uint32_t seed1, Window w,
+                  int vec) {
   const long long first = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const long long groups = vec ? n / 8 : 0;
   for (long long t = first; t < groups; t += stride) {
-    const uint4 bits = sr ? group_bits(t, seed0, seed1) : make_uint4(0u, 0u, 0u, 0u);
+    // vec holds only where eight aligned elements of the leaf lie at eight
+    // aligned ones of the whole leaf: one draw serves the group
+    const uint4 bits = sr ? group_bits(leaf_index(t * 8, w) / 8, seed0, seed1)
+                          : make_uint4(0u, 0u, 0u, 0u);
     Vec8<TP> pv = reinterpret_cast<const Vec8<TP>*>(p)[t];
     float gv[8];
     load_g8(g, g_code, t, gv);
@@ -143,9 +170,10 @@ fused_adam_kernel(TP* __restrict__ p, const void* __restrict__ g, int g_code,
     reinterpret_cast<Vec8<TM2>*>(m2)[t] = m2v;
     if (master) reinterpret_cast<Vec8<float>*>(master)[t] = mv;
   }
-  // the tail past the last whole group, or every element of an unaligned leaf
+  // the tail past the last whole group, or every element of an unaligned
+  // leaf or of a shard whose groups do not lie whole in the whole leaf
   for (long long e = groups * 8 + first; e < n; e += stride) {
-    const uint32_t noise = sr ? half_word(group_bits(e / 8, seed0, seed1), e % 8) : 0u;
+    const uint32_t noise = sr ? element_noise(e, w, seed0, seed1) : 0u;
     const float pf = master ? master[e] : to_f32(p[e]);
     float np, m1n;
     adam_element<TM2>(pf, load_g1(g, g_code, e), to_f32(m1[e]), to_f32(m2[e]), s, np, m1n,
@@ -158,14 +186,14 @@ fused_adam_kernel(TP* __restrict__ p, const void* __restrict__ g, int g_code,
 
 template <typename TP, typename TM1, typename TM2>
 int launch(void* p, const void* g, int g_code, void* m1, void* m2, void* master, long long n,
-           const Scalars& s, int sr, uint32_t seed0, uint32_t seed1, int vec,
-           cudaStream_t stream) {
+           const Scalars& s, int sr, uint32_t seed0, uint32_t seed1, const Window& w,
+           int vec, cudaStream_t stream) {
   const long long items = vec ? n / 8 + n % 8 : n;
   const long long want = (items + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);  // 16 blocks / SM
   fused_adam_kernel<TP, TM1, TM2><<<blocks, kThreads, 0, stream>>>(
       static_cast<TP*>(p), g, g_code, static_cast<TM1*>(m1), static_cast<TM2*>(m2),
-      static_cast<float*>(master), n, s, sr, seed0, seed1, vec);
+      static_cast<float*>(master), n, s, sr, seed0, seed1, w, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -176,25 +204,32 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, one for each of p, g,
 // moment1 and moment2; master is null or an fp32 array of n elements. sr = 1
 // rounds a bf16 moment2 stochastically (refused for a moment2 of another
-// dtype). Returns cudaGetLastError() after the launch (0 = success),
-// cudaErrorInvalidValue for a combination the kernel does not take.
+// dtype). inner, per, full and start place the leaf in the whole leaf whose
+// rounding bits it draws (per == full: the leaf is whole). Returns
+// cudaGetLastError() after the launch (0 = success), cudaErrorInvalidValue
+// for a combination the kernel does not take.
 int ptt_fused_adam(void* p, const void* g, void* m1, void* m2, void* master, long long n,
                    int p_dtype, int g_dtype, int m1_dtype, int m2_dtype, float lr, float c1,
                    float c2, float b1, float omb1, float b2, float omb2, float eps, float l2,
-                   float dec, int sr, unsigned int seed0, unsigned int seed1, void* stream) {
+                   float dec, int sr, unsigned int seed0, unsigned int seed1,
+                   long long inner, long long per, long long full, long long start,
+                   void* stream) {
   if (n <= 0) return 0;
-  if ((sr && m2_dtype != 1) || g_dtype < 0 || g_dtype > 2)
+  if ((sr && m2_dtype != 1) || g_dtype < 0 || g_dtype > 2 || inner < 1 || per < 1 ||
+      start < 0 || start + per > full || n % (inner * per) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Window w{inner, per, full, start};
   const Scalars s{lr, c1, c2, b1, omb1, b2, omb2, eps, l2, dec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto a16 = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
-  const int vec = a16(p) && a16(g) && a16(m1) && a16(m2) && (!master || a16(master));
+  const int vec = a16(p) && a16(g) && a16(m1) && a16(m2) && (!master || a16(master)) &&
+                  (per == full || inner % 8 == 0);
   return by_dtype(p_dtype, [&](auto tp) {
     return by_dtype(m1_dtype, [&](auto t1) {
       return by_dtype(m2_dtype, [&](auto t2) {
         return launch<typename decltype(tp)::type, typename decltype(t1)::type,
                       typename decltype(t2)::type>(p, g, g_dtype, m1, m2, master, n, s, sr,
-                                                   seed0, seed1, vec, st);
+                                                   seed0, seed1, w, vec, st);
       });
     });
   });

@@ -35,9 +35,28 @@ def _dp(mesh, axis, group):
     return mesh.group(axis)
 
 
-def shard_batch(batch, mesh=None, axis: str = "dp", group=None):
+def shard_batch(batch, mesh=None, axis="dp", group=None):
     """This rank's contiguous slice of dim 0 of the global ``batch`` (the
-    whole batch without a dp axis)."""
+    whole batch without a dp axis). ``axis`` may be a tuple of mesh axes
+    (a batch spec's entry, ``P(("dp", "sharding"))``): the slices then run
+    over those axes in row-major order, the first axis slowest."""
+    if isinstance(axis, (tuple, list)):
+        if mesh is None:
+            hcg = get_hybrid_communicate_group()
+            mesh = hcg.mesh if hcg is not None else None
+        axes = [a for a in axis if mesh is not None and a in mesh.axis_names]
+        n, pos = 1, 0
+        for a in axes:
+            n *= mesh.shape[a]
+            pos = pos * mesh.shape[a] + mesh.axis_index(a)
+        if n == 1:
+            return batch
+        b = batch.shape[0]
+        if b % n:
+            raise ValueError(f"shard_batch: batch {b} does not divide over "
+                             f"{tuple(axes)} ({n} ranks)")
+        per = b // n
+        return batch[pos * per:(pos + 1) * per]
     g = _dp(mesh, axis, group)
     if g is None or g.nranks == 1:
         return batch

@@ -6,7 +6,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 __all__ = ["EnforceNotMet", "InvalidArgumentError", "UnimplementedError",
-           "enforce", "enforce_in"]
+           "PreconditionNotMetError", "enforce", "enforce_in"]
 
 
 class EnforceNotMet(RuntimeError):
@@ -35,6 +35,10 @@ class InvalidArgumentError(EnforceNotMet, ValueError):
 
 class UnimplementedError(EnforceNotMet, NotImplementedError):
     error_type = "Unimplemented"
+
+
+class PreconditionNotMetError(EnforceNotMet, ValueError):
+    error_type = "PreconditionNotMet"
 
 
 def _fmt(v: Any) -> str:

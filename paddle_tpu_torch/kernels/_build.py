@@ -275,9 +275,10 @@ def load_library() -> ctypes.CDLL:
         # stream
         "ptt_rope": [vp] * 4 + [ci] * 4 + [ll] * 3 + [ci, ci, vp],
         # p, g, m1, m2, master, n, p / g / m1 / m2 dtypes, lr, c1, c2, b1,
-        # 1-b1, b2, 1-b2, eps, l2, dec, sr, seed0, seed1, stream
+        # 1-b1, b2, 1-b2, eps, l2, dec, sr, seed0, seed1, the shard's
+        # window (inner, per, full, start), stream
         "ptt_fused_adam": [vp] * 5 + [ll] + [ci] * 4 + [cf] * 10
-        + [ci, cu, cu, vp],
+        + [ci, cu, cu] + [ll] * 4 + [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -22,13 +22,14 @@ same math in plain PyTorch with the rounding noise as an explicit tensor.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["supported", "adam_update", "adam_update_plain", "sr_noise",
-           "bias_corrections"]
+           "shard_window", "bias_corrections"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -64,14 +65,39 @@ def bias_corrections(beta1: float, beta2: float, step: int):
             float(np.float32(1) - np.float32(beta2) ** s))
 
 
-def sr_noise(shape, seed: Tuple[int, int], device) -> torch.Tensor:
+def shard_window(seed, dim: int, start: int, full: int):
+    """The rounding seed of a shard: the block ``[start, start + shape[dim])``
+    of ``dim`` of a leaf whose ``dim`` is ``full`` long. Its elements draw
+    the noise they draw in the whole leaf's update (None stays None)."""
+    if seed is None:
+        return None
+    return (seed[0], seed[1], (int(dim), int(start), int(full)))
+
+
+def _window(shape, seed):
+    """(dim, start, full) of a shard's seed, or None for a whole leaf."""
+    if len(seed) < 3 or seed[2] is None:
+        return None
+    dim, start, full = seed[2]
+    return (dim, start, full) if shape[dim] != full else None
+
+
+def sr_noise(shape, seed, device) -> torch.Tensor:
     """Rounding noise for the plain version: uint32-valued (held in int64)
     draws from a ``torch.Generator`` seeded by the per-leaf seed. Only the low
-    16 bits are used."""
+    16 bits are used. A shard's seed (``shard_window``) draws the whole
+    leaf's noise and keeps the shard's block."""
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed[0]) << 32) | int(seed[1]))
-    return torch.randint(0, 1 << 32, tuple(shape), generator=gen,
-                         device=device, dtype=torch.int64)
+    shape = tuple(shape)
+    win = _window(shape, seed)
+    full = shape if win is None else \
+        shape[:win[0]] + (win[2],) + shape[win[0] + 1:]
+    noise = torch.randint(0, 1 << 32, full, generator=gen, device=device,
+                          dtype=torch.int64)
+    if win is not None:
+        noise = noise.narrow(win[0], win[1], shape[win[0]])
+    return noise
 
 
 def sr_to_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -153,8 +179,9 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, slot: Dict[str, torch.Tensor],
     """One fused update of one leaf, in place; returns ``(p, slot)``.
     ``l2`` folds decay into the gradient (Adam), ``decoupled`` applies
     AdamW's decay. ``seed`` (two 32-bit ints, None = off) turns on the
-    stochastic rounding of a bf16 moment2. ``step`` is the 1-based step the
-    bias corrections use.
+    stochastic rounding of a bf16 moment2; a shard's seed (``shard_window``)
+    draws the whole leaf's noise at the shard's elements. ``step`` is the
+    1-based step the bias corrections use.
 
     CPU tensors take the plain version (noise from ``sr_noise(seed)``); CUDA
     tensors launch the kernel or raise: TypeError or ValueError for a dtype,
@@ -175,6 +202,12 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, slot: Dict[str, torch.Tensor],
     master = slot.get("master")
     k0, k1 = (int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF) if sr \
         else (0, 0)
+    win = _window(tuple(p.shape), seed) if sr else None
+    if win is None:
+        window = (1, 1, 1, 0)
+    else:
+        dim, start, full = win
+        window = (math.prod(p.shape[dim + 1:]), p.shape[dim], full, start)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         code = lib.ptt_fused_adam(
@@ -184,7 +217,7 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, slot: Dict[str, torch.Tensor],
             *(_DTYPE_CODE[t.dtype] for t in (p, g, slot["moment1"],
                                              slot["moment2"])),
             lr, c1, c2, beta1, 1.0 - beta1, beta2, 1.0 - beta2, epsilon,
-            l2, decoupled, int(sr), k0, k1, stream)
+            l2, decoupled, int(sr), k0, k1, *window, stream)
     check(code, f"fused_adam launch (n={p.numel()} p {p.dtype} g {g.dtype} "
           f"moments {slot['moment1'].dtype} {slot['moment2'].dtype} sr={sr})")
     adam_update.LAUNCHES += 1

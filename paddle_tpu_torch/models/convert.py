@@ -39,11 +39,15 @@ def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None):
 
 def params_from_jax(tree: Dict[str, Any], device,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> the same nesting of tensors on
-    ``device`` (floating leaves cast to ``dtype`` when given)."""
+    """Nested dicts and lists of numpy arrays (the stacked tree, or the
+    segmented ``{"embed", "blocks": [...], "head"}`` one) -> the same
+    nesting of tensors on ``device`` (floating leaves cast to ``dtype``
+    when given)."""
     device = torch.device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device, dtype) for v in tree]
     return tensor_from_numpy(tree, device, dtype)
 
 

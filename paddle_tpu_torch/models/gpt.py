@@ -4,7 +4,10 @@
 ``dense_block``, ``lm_logsumexp_ce``, ``dense_head_loss``, ``dense_forward``
 and ``dense_loss``; ``hybrid_param_specs``, ``hybrid_loss_fn`` and
 ``build_hybrid_train_step`` at tensor and pipeline degree 1: data
-parallelism and the ZeRO stages over ``models/hybrid_engine.py``).
+parallelism and the ZeRO stages over ``models/hybrid_engine.py``; the
+presets ``gpt_tiny``, ``gpt_1p3b`` and ``gpt_6p7b``, and the
+parameter-streaming form ``split_streamed_params``, ``init_streamed_params``
+and ``streamed_fns``).
 
 Parameters are a plain dict with the JAX pytree's keys and its stacked
 ``[L, ...]`` block leaves, so a tree made by the JAX init loads straight in
@@ -35,10 +38,12 @@ from .. import resolve_device
 from ..enforce import enforce
 from ..nn.functional.flash_attention import scaled_dot_product_attention
 
-__all__ = ["GPTConfig", "init_hybrid_params", "dense_embed", "dense_block",
+__all__ = ["GPTConfig", "gpt_tiny", "gpt_1p3b", "gpt_6p7b",
+           "init_hybrid_params", "dense_embed", "dense_block",
            "lm_logsumexp_ce", "dense_head_loss", "dense_forward",
            "dense_loss", "hybrid_param_specs", "hybrid_loss_fn",
-           "build_hybrid_train_step"]
+           "build_hybrid_train_step", "split_streamed_params",
+           "init_streamed_params", "streamed_fns"]
 
 
 @dataclasses.dataclass
@@ -62,6 +67,21 @@ class GPTConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_heads
+
+
+def gpt_tiny(**kw):
+    return GPTConfig(vocab_size=1024, hidden_size=128, num_layers=4,
+                     num_heads=4, max_seq_len=256, **kw)
+
+
+def gpt_1p3b(**kw):
+    return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                     max_seq_len=2048, **kw)
+
+
+def gpt_6p7b(**kw):
+    return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                     max_seq_len=2048, **kw)
 
 
 def init_hybrid_params(cfg: GPTConfig, seed: int,
@@ -520,3 +540,69 @@ def build_hybrid_train_step(cfg: GPTConfig, mesh, optimizer,
         zero3=z3_engine, comm_overlap=comm_overlap, telemetry=None,
         donate=donate)
     return step, shard_params, init_state
+
+
+# ---------------------------------------------------------------------------
+# the parameter-streaming (bigger-than-device) form: segmented parameters
+# ---------------------------------------------------------------------------
+def split_streamed_params(params, cfg: GPTConfig):
+    """Stacked tree -> the segmented ``{"embed", "blocks": [per layer],
+    "head"}`` layout of ``build_param_streamed_train_step`` (the blocks are
+    views of the stacked leaves; a bigger-than-device model is made by
+    ``init_streamed_params`` instead)."""
+    blocks = [{k: v[i] for k, v in params["blocks"].items()}
+              for i in range(cfg.num_layers)]
+    return {"embed": {"wte": params["wte"], "wpe": params["wpe"]},
+            "blocks": blocks,
+            "head": {"lnf_g": params["lnf_g"], "lnf_b": params["lnf_b"],
+                     "head_w": params["head_w"]}}
+
+
+def init_streamed_params(cfg: GPTConfig, seed: int, park=lambda t: t,
+                         device=None):
+    """The segmented init, ONE segment on ``device`` at a time (None: the
+    card), each handed to ``park`` (e.g. ``distributed.sharding.park``)
+    before the next is drawn: a whole-tree init of a 6.7B model would not
+    fit beside its first step. The distributions of ``init_hybrid_params``,
+    drawn from one ``torch.Generator`` seeded with ``seed`` in the order
+    embedding, blocks, head (not the stacked init's values)."""
+    H, L, FF, V = (cfg.hidden_size, cfg.num_layers, cfg.ffn_hidden,
+                   cfg.vocab_size)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    std, pd = 0.02, cfg.param_dtype
+
+    def nrm(shape, scale=std):
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(pd)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=pd, device=device)
+
+    def one_block():
+        return {
+            "ln1_g": const((H,), 1.0), "ln1_b": const((H,), 0.0),
+            "qkv_w": nrm((H, 3 * H)), "qkv_b": const((3 * H,), 0.0),
+            "proj_w": nrm((H, H), std / math.sqrt(2 * L)),
+            "proj_b": const((H,), 0.0),
+            "ln2_g": const((H,), 1.0), "ln2_b": const((H,), 0.0),
+            "fc1_w": nrm((H, FF)), "fc1_b": const((FF,), 0.0),
+            "fc2_w": nrm((FF, H), std / math.sqrt(2 * L)),
+            "fc2_b": const((H,), 0.0),
+        }
+
+    embed = park({"wte": nrm((V, H)), "wpe": nrm((cfg.max_seq_len, H))})
+    blocks = [park(one_block()) for _ in range(L)]
+    head = park({"lnf_g": const((H,), 1.0), "lnf_b": const((H,), 0.0),
+                 "head_w": nrm((H, V))})
+    return {"embed": embed, "blocks": blocks, "head": head}
+
+
+def streamed_fns(cfg: GPTConfig):
+    """(embed_fn, block_fn, head_loss_fn) for
+    ``build_param_streamed_train_step``: the math of ``dense_loss``."""
+    return (lambda p, tokens: dense_embed(p, tokens, cfg),
+            lambda p, x: dense_block(p, x, cfg),
+            lambda p, x, labels: dense_head_loss(p, x, labels, cfg))

@@ -20,10 +20,13 @@ dense form.
   ``dense_loss``. It normalises with the composed ``_rms`` and rotates with
   the composed ``_rope``, as in JAX; attention is the flash GQA path.
 
+* the parameter-streaming form: ``split_streamed_params``,
+  ``init_streamed_params`` and ``streamed_fns`` for
+  ``distributed.sharding.build_param_streamed_train_step``.
+
 The JAX module's hybrid engine (``hybrid_loss_fn``,
-``build_hybrid_train_step``) and its parameter-streaming form are not
-ported yet (ROADMAP Queue 1 items 5-6); ``fp8=`` raises naming Queue 1
-item 7.
+``build_hybrid_train_step``) is not ported yet (ROADMAP Queue 1 item 6);
+``fp8=`` raises naming Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from .gpt import _not_ported, lm_logsumexp_ce
 __all__ = ["LlamaConfig", "Llama", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "llama_tiny", "llama2_7b", "llama2_13b",
            "llama3_8b", "rope_tables", "init_hybrid_params", "dense_embed",
-           "dense_block", "dense_head_loss", "dense_forward", "dense_loss"]
+           "dense_block", "dense_head_loss", "dense_forward", "dense_loss",
+           "split_streamed_params", "init_streamed_params", "streamed_fns"]
 
 
 @dataclasses.dataclass
@@ -330,3 +334,65 @@ def dense_loss(params, tokens, labels, cfg: LlamaConfig, remat: bool = True,
     """Mean next-token CE of ``dense_forward``'s logits (fp32 scalar)."""
     logits = dense_forward(params, tokens, cfg, remat=remat, fp8=fp8)
     return lm_logsumexp_ce(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# the parameter-streaming (bigger-than-device) form
+# ---------------------------------------------------------------------------
+def split_streamed_params(params, cfg: LlamaConfig):
+    """Stacked tree -> the segmented ``{"embed", "blocks", "head"}`` layout
+    of ``build_param_streamed_train_step`` (tests / small models)."""
+    blocks = [{k: v[i] for k, v in params["blocks"].items()}
+              for i in range(cfg.num_layers)]
+    return {"embed": {"wte": params["wte"]},
+            "blocks": blocks,
+            "head": {"lnf_g": params["lnf_g"], "head_w": params["head_w"]}}
+
+
+def init_streamed_params(cfg: LlamaConfig, seed: int, park=lambda t: t,
+                         device=None):
+    """The segmented init, ONE segment on ``device`` at a time (None: the
+    card), each handed to ``park`` before the next is drawn; the
+    distributions of ``init_hybrid_params`` from one ``torch.Generator``
+    seeded with ``seed`` (embedding, blocks, head)."""
+    H, L, I, V = (cfg.hidden_size, cfg.num_layers, cfg.intermediate_size,
+                  cfg.vocab_size)
+    D, nkv = cfg.head_dim, cfg.num_kv_heads
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    std, pd = 0.02, cfg.param_dtype
+
+    def nrm(shape, scale=std):
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(pd)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=pd, device=device)
+
+    def one_block():
+        return {
+            "ln1_g": ones((H,)),
+            "q_w": nrm((H, H)),
+            "k_w": nrm((H, nkv * D)),
+            "v_w": nrm((H, nkv * D)),
+            "o_w": nrm((H, H), std / math.sqrt(2 * L)),
+            "ln2_g": ones((H,)),
+            "gate_w": nrm((H, I)),
+            "up_w": nrm((H, I)),
+            "down_w": nrm((I, H), std / math.sqrt(2 * L)),
+        }
+
+    embed = park({"wte": nrm((V, H))})
+    blocks = [park(one_block()) for _ in range(L)]
+    head = park({"lnf_g": ones((H,)), "head_w": nrm((H, V))})
+    return {"embed": embed, "blocks": blocks, "head": head}
+
+
+def streamed_fns(cfg: LlamaConfig):
+    """(embed_fn, block_fn, head_loss_fn) for
+    ``build_param_streamed_train_step``: the math of ``dense_loss``."""
+    return (lambda p, tokens: dense_embed(p, tokens, cfg),
+            lambda p, x: dense_block(p, x, cfg),
+            lambda p, x, labels: dense_head_loss(p, x, labels, cfg))

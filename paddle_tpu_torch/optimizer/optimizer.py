@@ -129,6 +129,9 @@ class Optimizer:
         raise NotImplementedError
 
     _needs_update_rng = False
+    # True when ``_leaf_ctx`` reads the leaf's full-tree name (an update
+    # that runs on a subtree would see the wrong names)
+    _needs_leaf_names = False
 
     def _leaf_ctx(self, name):
         del name
@@ -297,6 +300,10 @@ class AdamW(Adam):
         if self._ctx_decay is False:
             return 0.0
         return lr * self._decay_coeff() * p
+
+    @property
+    def _needs_leaf_names(self):
+        return self._apply_decay_param_fun is not None
 
     def _fused_coeffs(self):
         # _decoupled_decay(p=1, lr=1) IS the scalar coefficient: one

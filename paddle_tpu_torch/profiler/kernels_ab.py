@@ -25,7 +25,8 @@ phase 25's call (B 8, S 1024, H 16, causal) at D 256 and D 160 in bf16 and
 D 256 in fp16, the fp32 flash forward, dQ and dK/dV at phase 6 (a)'s call
 (B 8, S 1024, H 16, D 128, causal) and at D 160 and 256
 there,
-one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments), the
+one Adam update of a [24, 2048, 8192] leaf (bf16 p, g and moments; with
+the stochastic rounding off and on), the
 LayerNorm forward on x [5120, 768] and [8192, 2048] in bf16, fp16 and fp32
 (fp32 weight and bias) and its whole backward (dx, dw and db
 through the autograd Function, fp32 weight and bias: whatever kernels and
@@ -321,6 +322,9 @@ slot = {"moment1": rnd(24, 2048, 8192, scale=1e-3),
         "moment2": rnd(24, 2048, 8192, scale=1e-3).square()}
 time_as("fused_adam", lambda: FAD.adam_update(
     p, g, slot, 1e-4, 1, None, beta1=0.9, beta2=0.999, epsilon=1e-8,
+    decoupled=0.01), runs=10)
+time_as("fused_adam_sr", lambda: FAD.adam_update(
+    p, g, slot, 1e-4, 1, (1, 7), beta1=0.9, beta2=0.999, epsilon=1e-8,
     decoupled=0.01), runs=10)
 del p, g, slot
 for rows in (5120, 41472):

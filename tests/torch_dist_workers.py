@@ -360,3 +360,114 @@ def quantized_psum_job(rank, world, xs, res):
                                    mean_divisor=float(world))
     sq = residual_sq_norm([new_r], [(("dp",),)], mesh)
     return red.numpy(), new_r.numpy(), float(sq)
+
+
+# ---------------------------------------------------------------------------
+# distributed.sharding: the MLP job of tests/test_group_sharded.py
+# ---------------------------------------------------------------------------
+def group_sharded_mlp_loss(p, x, y):
+    """``tests/test_group_sharded.py``'s ``loss_fn`` in torch."""
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    logits = h @ p["w2"] + p["b2"]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(logp.gather(1, y[:, None])[:, 0])
+
+
+def _numpy_tree(tree):
+    from paddle_tpu_torch.distributed._tree import flatten, unflatten
+    pairs = flatten(tree)
+    return unflatten([p for p, _ in pairs],
+                     [t.detach().cpu().numpy().copy()
+                      if isinstance(t, torch.Tensor) else t
+                      for _, t in pairs])
+
+
+def group_sharded_job(rank, world, dims, params_np, batches, cases,
+                      save_dir=None):
+    """Each case: ``{"level", "lr", "offload", "microbatches", "clip"}``
+    through ``build_sharded_train_step`` on ``build_mesh(dims)`` ->
+    (global losses, gathered final params, this rank's slot shards).
+    ``save_dir``: also the ``group_sharded_parallel`` / ``shard_optimizer``
+    surface and ``save_group_sharded_model`` into it."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.sharding import (
+        build_sharded_train_step, gather_sharded)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.optimizer import AdamW
+    mesh = D.build_mesh(dims)
+    results = {}
+    for name, case in cases.items():
+        lr = case.get("lr", 0.1)
+        opt = AdamW(learning_rate=lr, grad_clip=(
+            ClipGradByGlobalNorm(case["clip"]) if case.get("clip") else None))
+        _, place, compile_for = build_sharded_train_step(
+            group_sharded_mlp_loss, opt, mesh, level=case["level"],
+            offload=case.get("offload", False),
+            microbatches=case.get("microbatches", 1))
+        p, s = place(params_np)
+        step, spec = compile_for(p)
+        losses = []
+        for x, y in batches:
+            xb, yb = (D.shard_batch(torch.from_numpy(a), mesh, spec[0])
+                      for a in (x, y))
+            p, s, loss = step(p, s, xb, yb, lr)
+            losses.append(float(loss))
+        full = gather_sharded(p, params_np, mesh, "sharding")
+        from paddle_tpu_torch.distributed._tree import flatten
+        host = [t for _, t in flatten(s["slots"])
+                if t.device.type == "cpu"]
+        results[name] = dict(
+            losses=losses, params=_numpy_tree(full),
+            slots=_numpy_tree(s["slots"]), step=s["step"],
+            local_shapes={k: tuple(v.shape) for k, v in p.items()},
+            param_device=str(next(iter(p.values())).device),
+            host_slot_leaves=len(host),
+            host_slots_pinned=all(t.is_pinned() for t in host))
+    if save_dir is not None:
+        results["surface"] = _group_sharded_surface(rank, mesh, params_np,
+                                                    batches, save_dir)
+    return results
+
+
+def _group_sharded_surface(rank, mesh, params_np, batches, save_dir):
+    """``group_sharded_parallel`` -> sharded slots, a few ZeRO-1 applies
+    over full gradients, then ``save_group_sharded_model``."""
+    from paddle_tpu_torch.distributed import sharding as S
+    from paddle_tpu_torch.distributed.auto_parallel import (ShardingStage2,
+                                                            shard_optimizer)
+    from paddle_tpu_torch.distributed.comm_overlap.overlap import \
+        value_and_grad
+    from paddle_tpu_torch.optimizer.optimizer import AdamW
+
+    class Model(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for k, v in params_np.items():
+                self.register_parameter(k, torch.nn.Parameter(
+                    torch.from_numpy(v.copy()), requires_grad=False))
+
+    model = Model()
+    model, opt, _ = S.group_sharded_parallel(
+        model, AdamW(0.05), "os", mesh=mesh, shard_axis="sharding")
+    params = {k: v.data for k, v in model.named_parameters()}
+    state = opt.init_state(params)
+    shapes = {k: tuple(v["moment1"].shape) for k, v in state["slots"].items()}
+    losses = []
+    for x, y in batches:
+        loss, g = value_and_grad(group_sharded_mlp_loss, params,
+                                 torch.from_numpy(x), torch.from_numpy(y))
+        opt.apply(params, g, state, 0.05)
+        losses.append(float(loss))
+    full = opt._full_state(state)
+    S.save_group_sharded_model(model, save_dir, optimizer=opt,
+                               opt_state=state)
+    off = shard_optimizer(AdamW(0.05), ShardingStage2(mesh, "sharding"),
+                          offload=True)
+    off_state = off.init_state(params)
+    return dict(moment1_shapes=shapes, losses=losses,
+                params=_numpy_tree(params), state=_numpy_tree(full),
+                offload_slot_types=sorted({type(v).__name__ for v in
+                                           off_state["slots"].values()}),
+                offload_moment1_shapes={
+                    k: tuple(v["moment1"].shape)
+                    for k, v in off_state["slots"].items()})
