@@ -229,7 +229,27 @@ Phases, in order; any failure exits non-zero:
    another dtype than p) and paged attention kernels, each against its plain
    version and timed at its main shape, and through nn.functional's
    layer_norm and rms_norm, incubate's fused RoPE and AdamW.apply with exact
-   launch counts.
+   launch counts;
+33. train tests/test_moe_hybrid.py's tiny fp32 GPT-MoE (vocab 64, H 32, 4
+   layers, E 4, capacity factor 8) 3 AdamW steps on the card and on the
+   CPU, dense and index dispatch: the losses within 1e-4, the flash kernels
+   launched;
+34. GPT-MoE at bench.py _run_moe_config's width (SECONDARY: vocab 32768, H
+   1024, 16 layers, 16 heads, 16 x 1024 tokens; E 8 in every second layer,
+   capacity factor 2.0; bf16, AdamW with bf16 moments) through
+   gpt.build_hybrid_train_step at world size 1 over NCCL, mesh {dp 1, ep 1,
+   pp 1, mp 1}, dense and index dispatch: 1 warm and 3 timed steps each (a
+   garbage collection before, none inside), ms/step, tokens/s, peak memory,
+   a profiled step's busy share, the drop fraction and tokens per expert,
+   every launch count; the index form's first loss within 1e-3 of the
+   dense form's;
+34b. GPT-MoE's kernel path against the plain path: fp32 at 2 layers (loss,
+   every gradient), bf16 at full depth (loss; gate_w, w1, qkv_w, head_w);
+35. configs_bench.py bench_moe's layer (MoELayer(2048, 8192, 8, "switch",
+   capacity factor 1.25), T 16384 bf16, mean(y^2), SGD) in index and
+   einsum dispatch and the expert bank alone: ms/step and the expert GEMMs'
+   share of the bf16 peak; fused_moe (top-2) against a MoELayer with a
+   naive top-2 gate that drops nothing, within 2e-2.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON record.
@@ -5525,6 +5545,409 @@ def fp16_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 33-35: single-device MoE (GPT-MoE, MoELayer, fused_moe)
+# ---------------------------------------------------------------------------
+# tests/test_moe_hybrid.py's CFG (phase 33)
+MOE_TINY = dict(vocab_size=64, hidden_size=32, num_layers=4, num_heads=4,
+                max_seq_len=16, moe_num_experts=4, moe_capacity_factor=8.0,
+                moe_aux_weight=1e-2)
+MOE_TINY_STEPS = 3
+# bench.py _run_moe_config: SECONDARY (bench.py:32) with E 8 experts in every
+# second layer, capacity factor 2.0, batch 16 x 1024, bf16, AdamW bf16
+# moments (phase 34)
+MOE_FULL = dict(vocab_size=32768, hidden_size=1024, num_layers=16,
+                num_heads=16, max_seq_len=1024, moe_num_experts=8,
+                moe_capacity_factor=2.0)
+MOE_BATCH = (16, 1024)
+MOE_TIMED_STEPS = 3
+MOE_INDEX_LOSS_TOL = 1e-3     # first step, index vs dense, relative
+# configs_bench.py bench_moe (phase 35): switch top-1, H 2048, F 8192, E 8,
+# capacity factor 1.25, T 16384 bf16, loss mean(y^2), SGD lr 1e-4
+BENCH_MOE = dict(H=2048, F=8192, E=8, T=16384, cf=1.25)
+BENCH_MOE_STEPS = 5
+FUSED_MOE_TOL = 2e-2          # bf16 fused_moe vs the capacity layer, l2 rel
+
+
+def _moe_dispatch(form):
+    from paddle_tpu_torch.distributed.comm_overlap import MoeDispatchConfig
+    return MoeDispatchConfig(index=True) if form == "index" else None
+
+
+def moe_loss_and_grads(params, tokens, labels, cfg, form, M=1):
+    """The one-device GPT-MoE loss (``hybrid_loss_fn`` with no mesh) and its
+    gradients."""
+    names, leaves = zip(*flat_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = G.hybrid_loss_fn(params, tokens, labels, cfg, M,
+                            moe=_moe_dispatch(form))
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), unflatten(names, grads)
+
+
+def tiny_moe_trainer_phase():
+    """3 AdamW steps of test_moe_hybrid.py's tiny fp32 GPT-MoE on the card
+    and on the CPU, dense and index dispatch: the losses within phase 8's
+    1e-4 relative, the flash kernels launched on the card."""
+    cfg = G.GPTConfig(**MOE_TINY, dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, 64, (8, 16)))
+    labels = torch.from_numpy(rng.randint(0, 64, (8, 16)))
+    init = G.init_hybrid_params(cfg, 0, "cpu")
+
+    def run(dev, form):
+        params = unflatten(*zip(*[(n, t.clone().to(dev))
+                                  for n, t in flat_leaves(init)]))
+        opt = AdamW(1e-2)
+        state = opt.init_state(params)
+        out = []
+        for _ in range(MOE_TINY_STEPS):
+            loss, grads = moe_loss_and_grads(params, tokens.to(dev),
+                                             labels.to(dev), cfg, form)
+            opt.apply(params, grads, state)
+            out.append(loss.item())
+        return out, float(G.MOE_RECORD["drop_frac"])
+
+    rec = {}
+    for form in ("dense", "index"):
+        reset_training_counts()
+        card, drop = run(DEV, form)
+        counts = training_counts()
+        cpu, _ = run("cpu", form)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"{form}: card {card}\n  cpu  {cpu}\n  max rel diff {rel:.2e} "
+            f"(tol 1e-4: fp32 sums in another order); drop fraction {drop}; "
+            f"card launches {counts}")
+        require(rel <= 1e-4, f"tiny GPT-MoE {form}: card and CPU losses "
+                f"differ by {rel}")
+        require(all(counts[k] > 0 for k in FLASH_KERNELS),
+                f"tiny GPT-MoE {form}: a flash kernel did not launch: "
+                f"{counts}")
+        rec[form] = dict(card=card, cpu=cpu, rel=rel, launches=counts)
+    return rec
+
+
+def _moe_cfg(dtype):
+    return G.GPTConfig(**MOE_FULL, dtype=dtype, param_dtype=dtype)
+
+
+def moe_train_phase(card):
+    """GPT-MoE at bench.py _run_moe_config's width through
+    ``build_hybrid_train_step`` at world size 1 over NCCL, mesh {dp 1, ep 1,
+    pp 1, mp 1}, dense dispatch (``moe_dispatch=None``) and index
+    (``MoeDispatchConfig(index=True)``): one warm step and 3 timed steps
+    each, a garbage collection before the timed steps and none inside
+    them; ms/step, tokens/s, peak memory, the device-busy share of a
+    profiled step, the drop fraction, the tokens per expert, the launches
+    a step. The index form's first loss within 1e-3 relative of the dense
+    form's."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as D
+    D.init_parallel_env(rank=0, world_size=1)
+    require(tdist.get_backend() == "nccl",
+            f"the process group runs {tdist.get_backend()}, not NCCL")
+    mesh = D.build_mesh({"dp": 1, "ep": 1, "pp": 1, "mp": 1})
+    cfg = _moe_cfg(torch.bfloat16)
+    tokens, labels = _batch(cfg.vocab_size, MOE_BATCH)
+    ntok = MOE_BATCH[0] * MOE_BATCH[1]
+    L = cfg.num_layers
+    E, H, FF = cfg.moe_num_experts, cfg.hidden_size, cfg.ffn_hidden
+    C = math.ceil(ntok / E * cfg.moe_capacity_factor)
+    out = {}
+    for form in ("dense", "index"):
+        params = G.init_hybrid_params(cfg, 0, DEV)
+        n_params = sum(t.numel() for _, t in flat_leaves(params))
+        fused_leaves = _fused_eligible(params)
+        opt = AdamW(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+        step, shard, init = G.build_hybrid_train_step(
+            cfg, mesh, opt, num_microbatches=1,
+            moe_dispatch=_moe_dispatch(form), comm_overlap=None,
+            zero_stage=0, donate=True)
+        p = shard(params)
+        del params
+        s = init(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, s, loss = step(p, s, tokens, labels, 1e-4)              # warm
+        losses = [loss]
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        first = dict(drop_frac=float(G.MOE_RECORD["drop_frac"]),
+                     tokens_per_expert=[int(v) for v in
+                                        G.MOE_RECORD["tokens"].tolist()])
+        gc.collect()
+        gc.disable()
+        try:
+            # main path: the counts go to 0 just before and are read just
+            # after
+            reset_training_counts()
+            t0 = time.perf_counter()
+            for _ in range(MOE_TIMED_STEPS):
+                p, s, loss = step(p, s, tokens, labels, 1e-4)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = training_counts()
+        finally:
+            gc.enable()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x.item() for x in losses]
+        drop = float(G.MOE_RECORD["drop_frac"])
+        per_expert = [int(v) for v in G.MOE_RECORD["tokens"].tolist()]
+        ms = wall * 1e3 / MOE_TIMED_STEPS
+        tok_s = ntok * MOE_TIMED_STEPS / wall
+        per_step = {k: v // MOE_TIMED_STEPS for k, v in counts.items()}
+        log(f"{form}: {n_params / 1e6:.1f}M parameters; warm step "
+            f"{warm:.2f} s; {MOE_TIMED_STEPS} timed steps: {ms:.1f} ms/step, "
+            f"{tok_s:.1f} tokens/s; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB  [{card}]")
+        log(f"  losses (warm, then timed): {losses}")
+        log(f"  capacity {C} a MoE layer; first step: drop fraction "
+            f"{first['drop_frac']:.6f}, tokens per expert over {L // 2} MoE "
+            f"layers {first['tokens_per_expert']}; last step: "
+            f"{drop:.6f}, {per_expert}")
+        log(f"  launches a step: {per_step} (expected flash {L} each, "
+            f"fused_adam {fused_leaves})")
+        require(all(math.isfinite(x) for x in losses),
+                f"GPT-MoE {form}: a loss is not finite")
+        require(sum(per_expert) == ntok * (L // 2),
+                f"GPT-MoE {form}: {sum(per_expert)} routed tokens")
+        want = dict(flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L,
+                    fused_adam=fused_leaves)
+        for k, v in want.items():
+            require(counts[k] == v * MOE_TIMED_STEPS,
+                    f"GPT-MoE {form}: {k} {counts[k]} launches in "
+                    f"{MOE_TIMED_STEPS} steps, expected {v} a step")
+        gc.collect()
+        profile = profile_train_step(
+            lambda: step(p, s, tokens, labels, 1e-4), card)
+        out[form] = dict(ms_per_step=ms, tokens_per_s=tok_s, peak_bytes=peak,
+                         losses=losses, drop_frac=drop,
+                         tokens_per_expert=per_expert, first_step=first,
+                         launches=counts,
+                         launches_per_step=per_step, warm_s=warm,
+                         capacity=C, parameters=n_params, card=card,
+                         **profile)
+        del p, s, opt, step, shard, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    tdist.destroy_process_group()
+    d, i = out["dense"]["losses"], out["index"]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(i, d)]
+    log(f"index vs dense, relative loss gap a step: {gaps} (first step "
+        f"tol {MOE_INDEX_LOSS_TOL}: the same math, bf16 sums in another "
+        f"order; later steps recorded)")
+    require(gaps[0] <= MOE_INDEX_LOSS_TOL,
+            f"GPT-MoE: index and dense first losses differ by {gaps[0]}")
+    out["index_vs_dense_rel"] = gaps
+    return out
+
+
+def moe_exactness_phase():
+    """GPT-MoE's kernel path (flash kernels) against the plain path (the
+    composed attention) on the card, index dispatch: fp32 at full width
+    and 2 layers (one pair; loss 1e-5, every gradient 1e-3 max-abs rel),
+    and bf16 at full depth, one step, at capacity factors 2.0 and 8.0 (loss
+    1e-3; the gradients of gate_w, w1, the MoE and dense qkv_w and head_w
+    each no further from the fp32 witness than max(1.25 x the plain
+    path's error, 5e-2), phase 18b's rule)."""
+    tokens, labels = _batch(MOE_FULL["vocab_size"], MOE_BATCH)
+    rec = {}
+    cfg = G.GPTConfig(**dict(MOE_FULL, num_layers=2), dtype=torch.float32,
+                      param_dtype=torch.float32)
+    params = G.init_hybrid_params(cfg, 0, DEV)
+    loss_k, g_k = moe_loss_and_grads(params, tokens, labels, cfg, "index")
+    with plain_path():
+        loss_p, g_p = moe_loss_and_grads(params, tokens, labels, cfg,
+                                         "index")
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"fp32 2 layers: loss kernel {loss_k.item():.7f} plain "
+        f"{loss_p.item():.7f} rel {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, f"GPT-MoE fp32 loss rel err {rel}")
+    rec["fp32_loss_rel"] = rel
+    rec["fp32_grad_max_rel"] = compare_grads("GPT-MoE fp32 2 layers", g_k,
+                                             g_p, 1e-3, "max")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    # bf16 at full depth, one step from one init, at bench.py's capacity
+    # factor 2.0 and at 8.0 (C = T: no token can overflow), each bf16 path
+    # against the fp32 witness (phase 18b's rule: the kernel path in fp32 on
+    # the same weights and batch). The router's and the experts' gradients
+    # are sums over a token's expert in which most terms cancel (a softmax's
+    # Jacobian; the mean-field experts at init), so bf16 rounding anywhere
+    # upstream shows there: every leaf of the kernel path is held to
+    # max(1.25 x the plain path's error, 5e-2) from the witness
+    keys = ("blocks.moe.gate_w", "blocks.moe.w1", "blocks.moe.qkv_w",
+            "blocks.dense.qkv_w", "head_w")
+    for cf in (MOE_FULL["moe_capacity_factor"], 8.0):
+        full = dict(MOE_FULL, moe_capacity_factor=cf)
+        cfg = G.GPTConfig(**full, dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16)
+        params = G.init_hybrid_params(cfg, 0, DEV)
+        loss_k, g_k = moe_loss_and_grads(params, tokens, labels, cfg,
+                                         "index")
+        rec_k = {k: v.clone() for k, v in G.MOE_RECORD.items()}
+        with plain_path():
+            loss_p, g_p = moe_loss_and_grads(params, tokens, labels, cfg,
+                                             "index")
+        moved = int((rec_k["tokens"] - G.MOE_RECORD["tokens"]).abs().sum()
+                    .item()) // 2
+        g_k, g_p = (dict((k, v) for k, v in flat_leaves(g)
+                         if k in keys) for g in (g_k, g_p))
+        cfg32 = G.GPTConfig(**full, dtype=torch.float32,
+                            param_dtype=torch.float32)
+        params = unflatten(*zip(*[(n, t.float())
+                                  for n, t in flat_leaves(params)]))
+        _, g32 = moe_loss_and_grads(params, tokens, labels, cfg32, "index")
+        g32 = dict((k, v) for k, v in flat_leaves(g32) if k in keys)
+        del params
+        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        tag = f"bf16 full depth, capacity factor {cf}"
+        log(f"{tag}: loss kernel {loss_k.item():.5f} plain "
+            f"{loss_p.item():.5f} rel {rel:.2e} (tol 1e-3); drop fraction "
+            f"kernel {float(rec_k['drop_frac']):.6f} plain "
+            f"{float(G.MOE_RECORD['drop_frac']):.6f}; at least {moved} "
+            f"(token, MoE layer) routings differ between the paths")
+        require(rel <= 1e-3, f"GPT-MoE {tag} loss rel err {rel}")
+        out = dict(loss_rel=rel, routings_moved_at_least=moved,
+                   drop_frac=float(rec_k["drop_frac"]))
+        log("  grads against the fp32 witness (l2 rel err): leaf, kernel "
+            "path, plain path, kernel vs plain; tol max(1.25 x plain, "
+            "5e-2)")
+        for key in keys:
+            w = g32[key].float()
+            wn = w.norm().clamp_min(1e-30)
+            a, b = g_k[key].float(), g_p[key].float()
+            require(torch.isfinite(a).all(), f"{key}: grad not finite")
+            ek = ((a - w).norm() / wn).item()
+            ep = ((b - w).norm() / wn).item()
+            kp = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            log(f"  {key}: {ek:.3e}  {ep:.3e}  {kp:.3e}")
+            require(ek <= max(1.25 * ep, 5e-2),
+                    f"GPT-MoE {tag} {key}: kernel path {ek} from the fp32 "
+                    f"witness, plain path {ep}")
+            out[key] = dict(kernel_vs_witness=ek, plain_vs_witness=ep,
+                            kernel_vs_plain=kp)
+        rec[f"bf16_cf{cf}"] = out
+        del g_k, g_p, g32
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _timed_ms(fn, steps):
+    """(ms a call over ``steps`` calls after one warm call, host clock
+    ending in a synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def bench_moe_phase(card):
+    """configs_bench.py bench_moe's layer: MoELayer(2048, 8192, 8,
+    gate="switch", capacity_factor=1.25) on T 16384 bf16, loss mean(y^2),
+    an SGD update, in index and einsum dispatch; the expert bank alone on
+    an [E, C, H] batch; each form's ms/step and expert-GEMM share of the
+    dense bf16 peak (3 * 4 * E * C * H * F FLOPs at 989 TFLOP/s). Then
+    fused_moe (top-2, norm_topk_prob) against a MoELayer with a naive top-2
+    gate whose capacity drops nothing, forward, within 2e-2 l2 rel."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.incubate.nn.functional import fused_moe
+    H, F, E, T, cf = (BENCH_MOE[k] for k in ("H", "F", "E", "T", "cf"))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randn((T, H), generator=gen, device=DEV).to(torch.bfloat16)
+    with device_guard(DEV), TR.rng_guard(torch.Generator().manual_seed(0)):
+        layer = MoELayer(H, F, E, gate="switch", capacity_factor=cf)
+    params, _, buffers = TNN.functional_train_graph(layer, device=DEV)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    C = layer.gate.capacity(T)
+    expert_flops = 3 * 4 * E * C * H * F
+    rec = {"capacity": C, "expert_flops": expert_flops,
+           "peak": "989 TFLOP/s dense bf16 (H100 SXM)"}
+
+    def sgd(ps, loss_fn):
+        leaves = list(ps.values())
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_fn(ps)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, g in zip(leaves, grads):
+                t.sub_(1e-4 * g.to(t.dtype))
+                t.requires_grad_(False)
+        return loss
+
+    def layer_loss(ps):
+        y, _ = TNN.functional_call(layer, ps, buffers, x)
+        return torch.mean(torch.square(y.float()))
+
+    for mode in ("index", "einsum"):
+        layer.dispatch_mode = mode
+        torch.cuda.reset_peak_memory_stats()
+        ms = _timed_ms(lambda: sgd(params, layer_loss), BENCH_MOE_STEPS)
+        share = expert_flops / (ms / 1e3) / BF16_FLOPS
+        log(f"MoELayer {mode}: {ms:.2f} ms/step, {T / ms * 1e3:.0f} "
+            f"tokens/s, expert-GEMM share of the bf16 peak {share:.2%}, "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        rec[mode] = dict(ms_per_step=ms, expert_gemm_share=share,
+                         tokens_per_s=T / ms * 1e3)
+    xe = torch.randn((E, C, H), generator=gen, device=DEV).to(torch.bfloat16)
+    bank = {k: params[f"experts.{k}"].clone() for k in ("w1", "b1", "w2",
+                                                         "b2")}
+
+    def bank_loss(ps):
+        y = layer.experts.apply(xe, ps["w1"], ps["b1"], ps["w2"], ps["b2"])
+        return torch.mean(torch.square(y.float()))
+    ms = _timed_ms(lambda: sgd(bank, bank_loss), BENCH_MOE_STEPS)
+    share = expert_flops / (ms / 1e3) / BF16_FLOPS
+    log(f"expert bank alone on [{E}, {C}, {H}]: {ms:.2f} ms/step, "
+        f"expert-GEMM share of the bf16 peak {share:.2%}; routing and "
+        f"dispatch take {1 - ms / rec['index']['ms_per_step']:.1%} of the "
+        f"index step")
+    rec["bank"] = dict(ms_per_step=ms, expert_gemm_share=share)
+    del bank, xe
+    # fused_moe against the capacity layer where nothing drops: capacity
+    # factor E / top_k gives every expert room for every token
+    with device_guard(DEV), TR.rng_guard(torch.Generator().manual_seed(1)):
+        naive = MoELayer(H, F, E, gate="naive", top_k=2,
+                         capacity_factor=E / 2, dispatch_mode="index")
+    naive = naive.to(torch.bfloat16)
+    g = naive.gate.weight
+    ex = naive.experts
+    with torch.no_grad():
+        want = naive(x)
+        got, probs = fused_moe(x, g, ex.w1, ex.b1, ex.w2, ex.b2, top_k=2,
+                               norm_topk_prob=True)
+        err = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        fused_ms = _timed_ms(lambda: fused_moe(x, g, ex.w1, ex.b1, ex.w2,
+                                               ex.b2, top_k=2),
+                             BENCH_MOE_STEPS)
+        layer_ms = _timed_ms(lambda: naive(x), BENCH_MOE_STEPS)
+    log(f"fused_moe top-2 vs MoELayer(naive top-2, capacity "
+        f"{naive.gate.capacity(T)}: nothing drops), forward: l2 rel "
+        f"{err:.3e} (tol {FUSED_MOE_TOL}: bf16 roundings in another order); "
+        f"fused_moe {fused_ms:.2f} ms, MoELayer index {layer_ms:.2f} ms  "
+        f"[{card}]")
+    require(probs.shape == (T, E) and torch.isfinite(got).all(),
+            "fused_moe: output not finite")
+    require(err <= FUSED_MOE_TOL, f"fused_moe vs MoELayer l2 rel {err}")
+    rec["fused_moe"] = dict(l2_rel=err, ms=fused_ms, layer_index_ms=layer_ms)
+    del layer, naive, params, x, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -5869,6 +6292,20 @@ def main() -> int:
     half = fp16_phase(card)
     log(f"phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("33. tiny fp32 GPT-MoE trainer: card vs CPU")
+    moe_tiny = tiny_moe_trainer_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("34. GPT-MoE at bench.py's MoE width through the hybrid step "
+               "over NCCL, bf16")
+    moe = moe_train_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("34b. GPT-MoE exactness: kernel path vs plain path")
+    moe_exact = moe_exactness_phase()
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = phase("35. bench_moe's MoE layer, the expert bank and fused_moe")
+    bmoe = bench_moe_phase(card)
+    log(f"phase {time.perf_counter() - t0:.1f} s")
+
     log(f"\nall phases {time.perf_counter() - t_all:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5968,6 +6405,11 @@ def main() -> int:
                  launches=r["launches"][name],
                  launches_per_step=r["launches_per_step"][name])
                  for tag, r in pstream.items()},
+             # phase 34: GPT-MoE through the hybrid step, 3 timed steps
+             gpt_moe={form: dict(
+                 launches=moe[form]["launches"][name],
+                 launches_per_step=moe[form]["launches_per_step"][name])
+                 for form in ("dense", "index")},
              fp32=dict(shape="B=8 S=1024 H=16 D=128 causal fp32, q/k/v "
                              "views of qkv",
                        **{k: v for k, v in flash_recs["fp32"][name].items()
@@ -6012,7 +6454,11 @@ def main() -> int:
         ms_sr_off=adam["ms_sr_off"], training=train, exactness=exact,
         dp_zero=dpz, sharded_offload=shoff, param_stream=pstream,
         llama_launches=llama["launches_total"]["fused_adam"],
-        bert_padded_launches=padded["launches_total"]["fused_adam"]))
+        bert_padded_launches=padded["launches_total"]["fused_adam"],
+        gpt_moe_launches={form: moe[form]["launches"]["fused_adam"]
+                          for form in ("dense", "index")},
+        gpt_moe=dict(train=moe, exactness=moe_exact, tiny=moe_tiny,
+                     bench_moe=bmoe)))
     kernels += [
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_hopper.cu",

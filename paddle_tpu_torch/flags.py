@@ -119,3 +119,17 @@ define_flag("zero3_overlap_ag", True,
 define_flag("zero3_quantize_ag", False,
             "ZeRO-3: int8 error-feedback wire format for the block "
             "parameter all-gathers.")
+define_flag("moe_index_dispatch", False,
+            "Index (gather / scatter) dispatch for GPT-MoE's expert layers: "
+            "tokens go to their (expert, capacity slot) by slot id instead "
+            "of the dense [T, E, C] one-hot einsums (consumed by "
+            "comm_overlap.a2a.moe_dispatch_from_flags).")
+define_flag("moe_quantize_a2a", False,
+            "int8 error-feedback wire format of the expert-parallel "
+            "all-to-alls (ROADMAP Queue 1 item 6: raises at ep degree 1).")
+define_flag("moe_overlap", False,
+            "Chunk the expert-parallel all-to-alls along the capacity dim "
+            "and overlap them with the expert GEMMs (item 6: raises at ep "
+            "degree 1).")
+define_flag("moe_overlap_chunks", 2,
+            "Capacity chunks of the overlapped expert all-to-all.")

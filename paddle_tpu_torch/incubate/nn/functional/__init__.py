@@ -1,7 +1,8 @@
 """Fused functional ops (counterpart:
 ``paddle_tpu/incubate/nn/functional/__init__.py``): ``fused_rms_norm``,
 ``fused_layer_norm``, ``fused_rotary_position_embedding`` (registry op
-``fused_rope``), ``swiglu``, ``fused_linear`` and ``fused_bias_act``.
+``fused_rope``), ``swiglu``, ``fused_linear``, ``fused_bias_act`` and the
+dropless ``fused_moe`` (``fused_moe.py``).
 
 ``fused_rms_norm`` and ``fused_layer_norm`` are the registry ops
 ``rms_norm`` and ``layer_norm`` (``nn/functional/norm.py``): the RMSNorm and
@@ -24,10 +25,11 @@ import torch
 from ....kernels import rope as _rope_kernel
 from ....models.llama import _rope as _rope_one_ref  # the composed rotation
 from ....nn import functional as F
+from .fused_moe import fused_moe  # noqa: F401
 
 __all__ = [
     "fused_rms_norm", "fused_layer_norm", "fused_rotary_position_embedding",
-    "swiglu", "fused_linear", "fused_bias_act",
+    "swiglu", "fused_linear", "fused_bias_act", "fused_moe",
     "masked_multihead_attention", "block_multihead_attention",
     "fused_attention", "fused_feedforward",
 ]

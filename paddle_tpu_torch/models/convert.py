@@ -6,9 +6,11 @@ trees, and the state that ``paddle_tpu/optimizer/optimizer.py``
 
 ``params_from_jax`` takes the parameter tree as numpy arrays (what
 ``jax.device_get`` hands back) and returns the port's dict of tensors with
-identical keys and shapes; ``opt_state_from_jax`` does the same for
-``{"step", "slots"}``; ``load_params`` puts a layer model's flat
-``functional_train_graph`` tree into the port's ``nn.Layer`` by name. None
+identical keys and shapes (GPT-MoE's nested ``{"dense", "moe"}`` pair blocks
+included); ``opt_state_from_jax`` does the same for ``{"step", "slots"}``;
+``load_params`` puts a layer model's flat ``functional_train_graph`` tree
+into the port's ``nn.Layer`` by name (a ``MoELayer``'s ``gate.weight``,
+``experts.w1``, ``experts.b1``, ``experts.w2``, ``experts.b2``). None
 imports JAX: the caller fetches the trees.
 """
 

@@ -1,18 +1,22 @@
-"""GPT, the single-device dense model (counterpart:
-``paddle_tpu/models/gpt.py`` ``GPTConfig``, ``_ln``, the dense branch of
-``init_hybrid_params``, and the training half: ``dense_embed``,
+"""GPT, the single-device dense model and the hybrid step at tensor and
+pipeline degree 1 (counterpart: ``paddle_tpu/models/gpt.py`` ``GPTConfig``,
+``_ln``, ``init_hybrid_params``, and the training half: ``dense_embed``,
 ``dense_block``, ``lm_logsumexp_ce``, ``dense_head_loss``, ``dense_forward``
 and ``dense_loss``; ``hybrid_param_specs``, ``hybrid_loss_fn`` and
 ``build_hybrid_train_step`` at tensor and pipeline degree 1: data
-parallelism and the ZeRO stages over ``models/hybrid_engine.py``; the
-presets ``gpt_tiny``, ``gpt_1p3b`` and ``gpt_6p7b``, and the
+parallelism and the ZeRO stages over ``models/hybrid_engine.py``, and
+GPT-MoE at ep degree 1 (``_moe_block_fn``, the pair loop of
+``_moe_pipeline``, ``moe_telemetry_series``); the presets ``gpt_tiny``,
+``gpt_moe_tiny``, ``gpt_1p3b`` and ``gpt_6p7b``, and the
 parameter-streaming form ``split_streamed_params``, ``init_streamed_params``
 and ``streamed_fns``).
 
 Parameters are a plain dict with the JAX pytree's keys and its stacked
-``[L, ...]`` block leaves, so a tree made by the JAX init loads straight in
-(``models/convert.py``). The init draws from a ``torch.Generator`` seeded by
-the caller; it is not meant to reproduce ``jax.random``.
+``[L, ...]`` block leaves (GPT-MoE: ``{"dense": ..., "moe": ...}`` layer
+pairs stacked ``[L/2, ...]``), so a tree made by the JAX init loads
+straight in (``models/convert.py``). The init draws from a
+``torch.Generator`` seeded by the caller; it is not meant to reproduce
+``jax.random``.
 
 Training is ``loss = dense_loss(params, tokens, labels, cfg)``, then
 ``torch.autograd.grad(loss, leaves)`` (or ``loss.backward()``) with the
@@ -38,12 +42,13 @@ from .. import resolve_device
 from ..enforce import enforce
 from ..nn.functional.flash_attention import scaled_dot_product_attention
 
-__all__ = ["GPTConfig", "gpt_tiny", "gpt_1p3b", "gpt_6p7b",
+__all__ = ["GPTConfig", "gpt_tiny", "gpt_moe_tiny", "gpt_1p3b", "gpt_6p7b",
            "init_hybrid_params", "dense_embed", "dense_block",
            "lm_logsumexp_ce", "dense_head_loss", "dense_forward",
            "dense_loss", "hybrid_param_specs", "hybrid_loss_fn",
            "build_hybrid_train_step", "split_streamed_params",
-           "init_streamed_params", "streamed_fns"]
+           "init_streamed_params", "streamed_fns", "moe_telemetry_series",
+           "MOE_RECORD"]
 
 
 @dataclasses.dataclass
@@ -56,6 +61,11 @@ class GPTConfig:
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16      # compute dtype
     param_dtype: torch.dtype = torch.float32
+    # GPT-MoE: > 0 replaces every second layer's FFN with a switch-routed
+    # (top-1, capacity-bounded) bank of this many experts; 0 is dense GPT
+    moe_num_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 1e-2
 
     def __post_init__(self):
         if self.ffn_hidden is None:
@@ -63,13 +73,26 @@ class GPTConfig:
         enforce(self.hidden_size % self.num_heads == 0,
                 "hidden_size must be divisible by num_heads", op="GPTConfig",
                 hidden_size=self.hidden_size, num_heads=self.num_heads)
+        enforce(self.moe_num_experts == 0 or self.num_layers % 2 == 0,
+                "GPT-MoE stacks (dense, MoE) layer PAIRS — num_layers must "
+                "be even", op="GPTConfig", num_layers=self.num_layers)
 
     @property
     def head_dim(self):
         return self.hidden_size // self.num_heads
 
+    @property
+    def moe_on(self) -> bool:
+        return self.moe_num_experts > 0
+
 
 def gpt_tiny(**kw):
+    return GPTConfig(vocab_size=1024, hidden_size=128, num_layers=4,
+                     num_heads=4, max_seq_len=256, **kw)
+
+
+def gpt_moe_tiny(**kw):
+    kw.setdefault("moe_num_experts", 8)
     return GPTConfig(vocab_size=1024, hidden_size=128, num_layers=4,
                      num_heads=4, max_seq_len=256, **kw)
 
@@ -87,9 +110,13 @@ def gpt_6p7b(**kw):
 def init_hybrid_params(cfg: GPTConfig, seed: int,
                        device=None) -> Dict[str, object]:
     """Stacked-parameter dict: std 0.02 normals, ``std/sqrt(2L)`` for the
-    residual projections ``proj_w`` / ``fc2_w``, LayerNorm gains 1 and
-    biases 0, all in ``cfg.param_dtype`` on ``device`` (``None``: the CUDA
-    card, raising without one; ``"meta"``: shapes only)."""
+    residual projections ``proj_w`` / ``fc2_w`` (and the experts' ``w2``),
+    LayerNorm gains 1 and biases 0, all in ``cfg.param_dtype`` on
+    ``device`` (``None``: the CUDA card, raising without one; ``"meta"``:
+    shapes only). GPT-MoE: ``blocks = {"dense": ..., "moe": ...}``, each
+    stacked ``[L/2]``; the MoE half holds its own attention, ``gate_w
+    [L/2, H, E]`` and the expert bank ``w1 [L/2, E, H, FF]``, ``b1``,
+    ``w2 [L/2, E, FF, H]``, ``b2``."""
     H, L, FF, V = (cfg.hidden_size, cfg.num_layers, cfg.ffn_hidden,
                    cfg.vocab_size)
     device = resolve_device(device)
@@ -108,22 +135,46 @@ def init_hybrid_params(cfg: GPTConfig, seed: int,
     def const(shape, value):
         return torch.full(shape, value, dtype=pd, device=device)
 
+    def dense_blocks(nl):
+        return {
+            "ln1_g": const((nl, H), 1.0),
+            "ln1_b": const((nl, H), 0.0),
+            "qkv_w": nrm((nl, H, 3 * H)),
+            "qkv_b": const((nl, 3 * H), 0.0),
+            "proj_w": nrm((nl, H, H), std / math.sqrt(2 * L)),
+            "proj_b": const((nl, H), 0.0),
+            "ln2_g": const((nl, H), 1.0),
+            "ln2_b": const((nl, H), 0.0),
+            "fc1_w": nrm((nl, H, FF)),
+            "fc1_b": const((nl, FF), 0.0),
+            "fc2_w": nrm((nl, FF, H), std / math.sqrt(2 * L)),
+            "fc2_b": const((nl, H), 0.0),
+        }
+
     wte = nrm((V, H))
     wpe = nrm((cfg.max_seq_len, H))
-    blocks = {
-        "ln1_g": const((L, H), 1.0),
-        "ln1_b": const((L, H), 0.0),
-        "qkv_w": nrm((L, H, 3 * H)),
-        "qkv_b": const((L, 3 * H), 0.0),
-        "proj_w": nrm((L, H, H), std / math.sqrt(2 * L)),
-        "proj_b": const((L, H), 0.0),
-        "ln2_g": const((L, H), 1.0),
-        "ln2_b": const((L, H), 0.0),
-        "fc1_w": nrm((L, H, FF)),
-        "fc1_b": const((L, FF), 0.0),
-        "fc2_w": nrm((L, FF, H), std / math.sqrt(2 * L)),
-        "fc2_b": const((L, H), 0.0),
-    }
+    if cfg.moe_on:
+        L2, E = L // 2, cfg.moe_num_experts
+        blocks = {
+            "dense": dense_blocks(L2),
+            "moe": {
+                "ln1_g": const((L2, H), 1.0),
+                "ln1_b": const((L2, H), 0.0),
+                "qkv_w": nrm((L2, H, 3 * H)),
+                "qkv_b": const((L2, 3 * H), 0.0),
+                "proj_w": nrm((L2, H, H), std / math.sqrt(2 * L)),
+                "proj_b": const((L2, H), 0.0),
+                "ln2_g": const((L2, H), 1.0),
+                "ln2_b": const((L2, H), 0.0),
+                "gate_w": nrm((L2, H, E)),
+                "w1": nrm((L2, E, H, FF)),
+                "b1": const((L2, E, FF), 0.0),
+                "w2": nrm((L2, E, FF, H), std / math.sqrt(2 * L)),
+                "b2": const((L2, E, H), 0.0),
+            },
+        }
+    else:
+        blocks = dense_blocks(L)
     return {
         "wte": wte,
         "wpe": wpe,
@@ -313,20 +364,39 @@ def dense_loss(params, tokens, labels, cfg: GPTConfig, remat: bool = True,
 # ---------------------------------------------------------------------------
 def hybrid_param_specs(cfg: GPTConfig) -> Dict[str, object]:
     """The JAX package's PartitionSpecs as tuples: blocks stacked over
-    "pp", Megatron shardings over "mp", the vocab over "mp". At mp = pp = 1
-    they only steer ``zero_dims`` (a dim an axis names is never the dp
-    dim)."""
+    "pp", Megatron shardings over "mp", the vocab over "mp"; GPT-MoE's
+    expert bank over "ep" (and its hidden dim over "mp"), the gate
+    replicated. At mp = pp = ep = 1 they only steer ``zero_dims`` (a dim an
+    axis names is never the dp dim)."""
+    dense = {
+        "ln1_g": ("pp",), "ln1_b": ("pp",),
+        "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+        "proj_w": ("pp", "mp", None), "proj_b": ("pp",),
+        "ln2_g": ("pp",), "ln2_b": ("pp",),
+        "fc1_w": ("pp", None, "mp"), "fc1_b": ("pp", "mp"),
+        "fc2_w": ("pp", "mp", None), "fc2_b": ("pp",),
+    }
+    if cfg.moe_on:
+        blocks = {
+            "dense": dense,
+            "moe": {
+                "ln1_g": ("pp",), "ln1_b": ("pp",),
+                "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+                "proj_w": ("pp", "mp", None), "proj_b": ("pp",),
+                "ln2_g": ("pp",), "ln2_b": ("pp",),
+                "gate_w": ("pp",),
+                "w1": ("pp", "ep", None, "mp"),
+                "b1": ("pp", "ep", "mp"),
+                "w2": ("pp", "ep", "mp", None),
+                "b2": ("pp", "ep"),
+            },
+        }
+    else:
+        blocks = dense
     return {
         "wte": ("mp", None),
         "wpe": (),
-        "blocks": {
-            "ln1_g": ("pp",), "ln1_b": ("pp",),
-            "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
-            "proj_w": ("pp", "mp", None), "proj_b": ("pp",),
-            "ln2_g": ("pp",), "ln2_b": ("pp",),
-            "fc1_w": ("pp", None, "mp"), "fc1_b": ("pp", "mp"),
-            "fc2_w": ("pp", "mp", None), "fc2_b": ("pp",),
-        },
+        "blocks": blocks,
         "lnf_g": (), "lnf_b": (),
         "head_w": (None, "mp"),
     }
@@ -360,7 +430,124 @@ def _vocab_ce(logits, labels, ignore_index: int = -100):
     return total / valid.sum().clamp_min(1)
 
 
-def _refuse_later_items(virtual_pp, schedule, fp8, sp, moe, flash, num,
+# ---------------------------------------------------------------------------
+# GPT-MoE at ep degree 1: (dense, MoE) layer pairs
+# ---------------------------------------------------------------------------
+# The last hybrid_loss_fn call's MoE routing record (detached tensors on the
+# loss's device): "drop_frac", the share of the routed tokens that lost
+# their capacity slot, and "tokens", the tokens routed to each expert [E],
+# summed over every (MoE layer, microbatch). In-program telemetry (ROADMAP
+# Queue 1 item 9) will take its place as the series moe_telemetry_series
+# names.
+MOE_RECORD: Dict[str, torch.Tensor] = {}
+
+
+def moe_telemetry_series(cfg: GPTConfig):
+    """The telemetry series the GPT-MoE loss observes: the capacity-drop
+    fraction and, for at most 32 experts, the routed tokens per expert."""
+    if not cfg.moe_on:
+        return ()
+    series = ("moe_drop_frac",)
+    if cfg.moe_num_experts <= 32:
+        series += tuple(f"moe_tokens_e{i}"
+                        for i in range(cfg.moe_num_experts))
+    return series
+
+
+def _moe_tail(p, x, attn, cfg: GPTConfig, mcfg):
+    """The MoE block after the flash call: the projection and residual of
+    the attention sublayer (``x + (out + proj_b)``, as ``_attn_sublayer``),
+    ln2, the fp32 router (top-1), the Switch load-balance aux
+    E * sum(me * ce) (``me`` carries the gradient, the one-hot ``ce``
+    none), capacity dispatch over this microbatch's tokens, dense ([T, E, C]
+    one-hot einsums) or index (``mcfg.index``: slot ids), the expert bank
+    through ``expert_exchange`` (tanh GELU in fp32, cast back), the combine
+    with the gate weights rounded to the compute dtype, and the residual.
+    Returns (x_out, aux, tokens per expert [E], kept tokens)."""
+    from ..distributed.comm_overlap import a2a as _a2a
+    from ..incubate.distributed.models.moe.gate import (
+        _capacity_dispatch, _capacity_dispatch_idx, _one_hot,
+        compute_capacity)
+    from ..incubate.distributed.models.moe.moe_layer import (_index_combine,
+                                                             _index_scatter)
+    B, S, H = x.shape
+    out = attn.reshape(B, S, H) @ p["proj_w"].to(cfg.dtype)
+    x = x + (out + p["proj_b"].to(cfg.dtype))
+    h = _ln(x, p["ln2_g"], p["ln2_b"])
+    T = B * S
+    E = cfg.moe_num_experts
+    xt = h.reshape(T, H).to(cfg.dtype)
+    probs = torch.softmax(xt.float() @ p["gate_w"].float(), dim=-1)
+    gate_val = probs.amax(dim=-1)
+    expert = probs.argmax(dim=-1)
+    me = probs.mean(dim=0)
+    ce = _one_hot(expert, E).mean(dim=0)
+    aux = torch.sum(me * ce) * E
+    C = compute_capacity(T, E, 1, cfg.moe_capacity_factor)
+    index = mcfg is not None and mcfg.index
+    if index:
+        slot, gates, counts = _capacity_dispatch_idx(expert, gate_val, C, E)
+        kept = (slot >= 0).float().sum()
+        dispatched, slot_safe = _index_scatter(xt, slot[:, None], E, C)
+    else:
+        combine, keep_tok, counts = _capacity_dispatch(expert, gate_val, C,
+                                                       E)
+        kept = keep_tok.float().sum()
+        dispatched = torch.einsum("tec,td->ecd",
+                                  (combine > 0).to(xt.dtype), xt)
+
+    def act(m):
+        return F.gelu(m.float(), approximate="tanh").to(cfg.dtype)
+
+    returned, _ = _a2a.expert_exchange(
+        dispatched, p["w1"].to(cfg.dtype), p["b1"].to(cfg.dtype),
+        p["w2"].to(cfg.dtype), p["b2"].to(cfg.dtype), ep_axis="ep",
+        activation=act, cfg=mcfg)
+    if index:
+        y = _index_combine(returned, gates[:, None], slot_safe)
+    else:
+        y = torch.einsum("tec,ecd->td", combine.to(returned.dtype), returned)
+    return x + y.reshape(B, S, H).to(x.dtype), aux, counts, kept
+
+
+def _moe_block_fn(p, x, cfg: GPTConfig, mcfg=None):
+    """One MoE block in the default selective remat, as
+    ``_block_selective``: ln1 and the qkv GEMM under a checkpoint that
+    keeps the GEMM's output, the flash call keeping its inputs, output and
+    lse, and the rest under a checkpoint of (x, attn). The dense-dispatch
+    one-hots ([T, E, C] fp32 and its bf16 copies) are rebuilt in the
+    backward's replay from the integer routing, so no layer's outlives its
+    forward. Returns (x_out, stats) with stats {"aux", "tokens", "kept"}."""
+    qkv = checkpoint(_ln_qkv_on_use, p, x, cfg, None, use_reentrant=False,
+                     context_fn=functools.partial(
+                         create_selective_checkpoint_contexts, _keep_qkv))
+    x, aux, counts, kept = checkpoint(_moe_tail, p, x, _attention(qkv), cfg,
+                                      mcfg, use_reentrant=False)
+    return x, {"aux": aux, "tokens": counts, "kept": kept}
+
+
+def _moe_pairs(params, x, cfg: GPTConfig, M: int, mcfg):
+    """The pair loop of ``_moe_pipeline`` at pp degree 1: for each of the M
+    microbatches of ``x``, every (dense, MoE) pair in order. Returns (out,
+    stats summed over every (layer, microbatch))."""
+    dense = {k: v.unbind(0) for k, v in params["blocks"]["dense"].items()}
+    moe = {k: v.unbind(0) for k, v in params["blocks"]["moe"].items()}
+    outs, total = [], None
+    for xm in x.chunk(M, dim=0):
+        tick = None
+        for i in range(cfg.num_layers // 2):
+            xm = _block_selective({k: v[i] for k, v in dense.items()}, xm,
+                                  cfg)
+            xm, st = _moe_block_fn({k: v[i] for k, v in moe.items()}, xm,
+                                   cfg, mcfg)
+            tick = st if tick is None else {k: tick[k] + st[k] for k in st}
+        total = tick if total is None else {k: total[k] + tick[k]
+                                            for k in tick}
+        outs.append(xm)
+    return (outs[0] if M == 1 else torch.cat(outs, dim=0)), total
+
+
+def _refuse_later_items(virtual_pp, schedule, fp8, sp, moe_ef, flash, num,
                         mesh=None, pp_axis="pp", mp_axis="mp",
                         ep_axis="ep", sep_axis="sep"):
     if virtual_pp != 1 or schedule != "1F1B":
@@ -369,8 +556,9 @@ def _refuse_later_items(virtual_pp, schedule, fp8, sp, moe, flash, num,
         raise _not_ported("fp8 delayed scaling (fp8=)", 7)
     if sp is not None:
         raise _not_ported("mp sequence parallelism (mp_overlap=)", 6)
-    if moe is not None:
-        raise _not_ported("GPT-MoE (moe=)", 11)
+    if moe_ef is not None:
+        raise _not_ported("the int8 error-feedback expert all-to-all "
+                          "(moe_ef= / moe_ef_tokens=)", 6)
     if flash is not None:
         raise _not_ported("the FlashAttentionConfig route and sep context "
                           "parallelism (flash=)", 6)
@@ -383,16 +571,28 @@ def _refuse_later_items(virtual_pp, schedule, fp8, sp, moe, flash, num,
                                   f"{mesh.shape[a]}", 6)
 
 
+def _moe_zero3_refused():
+    return _not_ported("ZeRO-3 of GPT-MoE (the gather-on-use over (dense, "
+                       "MoE) layer pairs)", 11)
+
+
 def hybrid_loss_fn(params, tokens, labels, cfg: GPTConfig,
                    num_microbatches: int, dp_axis="dp", pp_axis="pp",
                    mp_axis="mp", virtual_pp: int = 1, schedule: str = "1F1B",
                    fp8=None, sp=None, ep_axis="ep", moe=None, moe_ef=None,
                    flash=None, sep_axis="sep", z3=None, z3_ef=None, num=None,
-                   *, mesh):
+                   *, mesh=None):
     """This rank's loss of the hybrid GPT at mp = pp = 1: the embedding,
     the blocks over ``num_microbatches`` slices of this rank's batch (each
     block in the default selective remat), the final LN, the head and the
-    CE over the whole local batch, averaged over dp (``_DpMean``).
+    CE over the whole local batch, averaged over dp (``_DpMean``; with
+    ``mesh=None``, one device: no mean).
+
+    GPT-MoE (``cfg.moe_num_experts > 0``): every (dense, MoE) pair per
+    microbatch; the loss adds ``moe_aux_weight`` times the aux loss's mean
+    over every (MoE layer, microbatch), and the mean spans dp x ep. ``moe``
+    is a ``MoeDispatchConfig`` (None: dense dispatch). ``MOE_RECORD`` gets
+    the drop fraction and the tokens per expert.
 
     ``z3`` (the ZeRO-3 plan of ``build_hybrid_train_step``: ``zdims``,
     ``axis``, ``cfg``, ``other_leaves``): the dp-shardable leaves arrive
@@ -402,14 +602,16 @@ def hybrid_loss_fn(params, tokens, labels, cfg: GPTConfig,
     the ln1 / qkv group where it is used, the rest of block i+1 as one
     group issued before block i runs). ``z3_ef``: this rank's stacked
     int8-EF residuals; the return is then ``(loss, new_z3_ef)``."""
-    _refuse_later_items(virtual_pp, schedule, fp8, sp, moe or moe_ef, flash,
-                        num, mesh, pp_axis, mp_axis, ep_axis, sep_axis)
+    _refuse_later_items(virtual_pp, schedule, fp8, sp, moe_ef, flash, num,
+                        mesh, pp_axis, mp_axis, ep_axis, sep_axis)
+    if cfg.moe_on and z3 is not None:
+        raise _moe_zero3_refused()
     b_local, S = tokens.shape
     M = int(num_microbatches)
     enforce(b_local % M == 0,
             "per-dp-rank batch must be divisible by num_microbatches",
             op="gpt.hybrid_loss_fn", batch_local=b_local, microbatches=M)
-    group = mesh.group(dp_axis)
+    group = mesh.group(dp_axis) if mesh is not None else None
     if z3 is not None:
         from ..distributed.comm_overlap import zero3 as Z3
         params = dict(params)
@@ -418,27 +620,48 @@ def hybrid_loss_fn(params, tokens, labels, cfg: GPTConfig,
             [params[n] for n in names], [z3["zdims"][n] for n in names],
             group)))
     x = dense_embed(params, tokens, cfg)
-    outs, new_res = [], None
-    for xm in x.chunk(M, dim=0):
-        if z3 is not None:
-            xm, new_res = Z3.scan_gather(
-                lambda lg, h: _block_selective(lg.shards, h, cfg, gather=lg),
-                xm, params["blocks"], z3["zdims"]["blocks"], group,
-                cfg=z3["cfg"], residuals=z3_ef,
-                # ln1 / qkv are gathered inside their selective checkpoint,
-                # which must see the same operations in its replay
-                sync_keys=_QKV_KEYS)
-        else:
-            layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-            for i in range(cfg.num_layers):
-                xm = _block_selective({k: v[i] for k, v in layers.items()},
-                                      xm, cfg)
-        outs.append(xm)
-    out = outs[0] if M == 1 else torch.cat(outs, dim=0)
+    stats = None
+    if cfg.moe_on:
+        out, stats = _moe_pairs(params, x, cfg, M, moe)
+    else:
+        outs, new_res = [], None
+        for xm in x.chunk(M, dim=0):
+            if z3 is not None:
+                xm, new_res = Z3.scan_gather(
+                    lambda lg, h: _block_selective(lg.shards, h, cfg,
+                                                   gather=lg),
+                    xm, params["blocks"], z3["zdims"]["blocks"], group,
+                    cfg=z3["cfg"], residuals=z3_ef,
+                    # ln1 / qkv are gathered inside their selective
+                    # checkpoint, which must see the same operations in
+                    # its replay
+                    sync_keys=_QKV_KEYS)
+            else:
+                layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+                for i in range(cfg.num_layers):
+                    xm = _block_selective({k: v[i] for k, v in layers.items()},
+                                          xm, cfg)
+            outs.append(xm)
+        out = outs[0] if M == 1 else torch.cat(outs, dim=0)
     out = _ln(out, params["lnf_g"], params["lnf_b"])
     logits = out.to(cfg.dtype) @ params["head_w"].to(cfg.dtype)
-    total = _DpMean.apply(_vocab_ce(logits, labels), group,
-                          mesh.shape[dp_axis])
+    total = _vocab_ce(logits, labels)
+    n_mean = 1
+    if mesh is not None:
+        n_mean = mesh.shape[dp_axis]
+    if stats is not None:
+        L2 = cfg.num_layers // 2
+        # aux summed over every (layer, microbatch) execution -> its mean
+        total = total + (stats["aux"] / float(L2 * M)) * cfg.moe_aux_weight
+        routed = float(L2 * M) * float((b_local // M) * S)
+        MOE_RECORD["drop_frac"] = (1.0 - stats["kept"] / routed).detach()
+        MOE_RECORD["tokens"] = stats["tokens"].detach()
+        if mesh is not None:
+            # the batch is split over dp and ep: the mean spans both (at
+            # ep 1 the dp x ep group is the dp group)
+            n_mean *= mesh.shape.get(ep_axis, 1)
+    if mesh is not None:
+        total = _DpMean.apply(total, group, n_mean)
     if z3_ef is not None:
         return total, new_res
     return total
@@ -464,12 +687,19 @@ def build_hybrid_train_step(cfg: GPTConfig, mesh, optimizer,
     ``Zero3Config``; the quantized gathers thread their residuals through
     ``state["zero3_ef"]``, pp degree 1 and one microbatch only).
 
+    GPT-MoE (``cfg.moe_num_experts > 0``): the mesh must carry ``ep_axis``
+    (degree 1 here) dividing the expert count, the expert hidden dim
+    divides by mp, the batch splits over dp x ep. ``moe_dispatch``: "auto"
+    reads FLAGS_moe_index_dispatch (and the exchange's flags), None the
+    dense dispatch, a ``MoeDispatchConfig`` forces. ZeRO stages 0-2.
+
     The later items' arguments keep their "auto" (off here) and raise
     NotImplementedError naming the item otherwise: ``virtual_pp`` /
-    ``schedule`` / ``mp_overlap`` / ``flash_attention`` and mesh axes
-    other than dp (6), ``fp8`` (7), ``telemetry`` / ``numerics`` (9),
-    ``moe_dispatch`` / ``moe_ef_tokens`` (11). The flash kernels run in
-    every block anyway, through the attention registry op."""
+    ``schedule`` / ``mp_overlap`` / ``flash_attention``, mesh axes other
+    than dp, the MoE exchange's ``quantize`` / ``overlap`` /
+    ``moe_ef_tokens`` (6), ``fp8`` (7), ``telemetry`` / ``numerics`` (9),
+    ZeRO-3 of GPT-MoE (11). The flash kernels run in every block anyway,
+    through the attention registry op."""
     from ..distributed.comm_overlap.zero3 import (resolve_zero3,
                                                   resolve_zero_stage)
     from .hybrid_engine import build_train_step, zero_dims
@@ -479,17 +709,46 @@ def build_hybrid_train_step(cfg: GPTConfig, mesh, optimizer,
     _refuse_later_items(
         virtual_pp, schedule, True if on(fp8) else None,
         True if on(mp_overlap) else None,
-        True if (on(moe_dispatch) or moe_ef_tokens is not None) else None,
+        True if (cfg.moe_on and moe_ef_tokens is not None) else None,
         True if on(flash_attention) else None,
         True if on(numerics) else None, mesh, pp_axis, mp_axis, ep_axis,
         sep_axis)
     if telemetry not in ("auto", None):
         raise _not_ported("in-program telemetry (telemetry=)", 9)
+    mcfg = moe_plan = None
+    if cfg.moe_on:
+        from ..distributed.comm_overlap import a2a as _a2a
+        enforce(ep_axis in mesh.axis_names,
+                "GPT-MoE shards the expert bank over an expert-parallel "
+                f"mesh axis: add '{ep_axis}' (degree >= 1) to the mesh",
+                op="gpt.build_hybrid_train_step",
+                axes=tuple(mesh.axis_names))
+        ep = int(mesh.shape[ep_axis])
+        E = cfg.moe_num_experts
+        enforce(E % ep == 0, "the ep degree must divide the expert count",
+                op="gpt.build_hybrid_train_step", experts=E, ep=ep)
+        mp = int(mesh.shape.get(mp_axis, 1))
+        enforce(cfg.ffn_hidden % mp == 0,
+                "the expert hidden dim shards over mp",
+                op="gpt.build_hybrid_train_step",
+                ffn_hidden=cfg.ffn_hidden, mp=mp)
+        mcfg = _a2a.resolve_moe_dispatch(moe_dispatch)
+        _a2a.check_ep1(mcfg)
+        moe_plan = {
+            "ep_axis": ep_axis, "ef": None,
+            "meta": {"ep": ep, "experts": E,
+                     "dispatch": ("index" if (mcfg is not None
+                                              and mcfg.index)
+                                  else "dense"),
+                     "quantize": False, "overlap": False},
+        }
     specs = hybrid_param_specs(cfg)
     example = init_hybrid_params(cfg, 0, device="meta")
     stage = resolve_zero_stage(zero_stage, zero1_dp,
                                op="gpt.build_hybrid_train_step")
     z3plan = z3_engine = None
+    if stage >= 3 and cfg.moe_on:
+        raise _moe_zero3_refused()
     if stage >= 3:
         z3cfg = resolve_zero3(zero3)
         zdims = zero_dims(specs, example, mesh, dp_axis)
@@ -531,14 +790,15 @@ def build_hybrid_train_step(cfg: GPTConfig, mesh, optimizer,
     else:
         def loss_fn(p, tokens, labels):
             return hybrid_loss_fn(p, tokens, labels, cfg, num_microbatches,
-                                  dp_axis, pp_axis, mp_axis, z3=z3plan,
-                                  mesh=mesh)
+                                  dp_axis, pp_axis, mp_axis, ep_axis=ep_axis,
+                                  moe=mcfg, z3=z3plan, mesh=mesh)
     step, shard_params, init_state = build_train_step(
         loss_fn, specs, mesh, optimizer, dp_axis=dp_axis,
+        data_spec=((dp_axis, ep_axis),) if cfg.moe_on else None,
         extra_grad_axes=extra_grad_axes, example_params=example,
         grad_reduce_dtype=grad_reduce_dtype, zero_stage=stage,
         zero3=z3_engine, comm_overlap=comm_overlap, telemetry=None,
-        donate=donate)
+        moe=moe_plan, donate=donate)
     return step, shard_params, init_state
 
 

@@ -33,11 +33,16 @@ A leaf whose dp dim is not its first is a strided slice of the full leaf:
 it is always copied into a contiguous tensor of its own before a kernel or
 a collective sees it.
 
+The MoE plan of a model builder (``moe``: ``{"ep_axis", "ef", "meta"}``)
+runs at ep degree 1: the ep axis must be on the mesh, and the ep gradient
+combine (``_ep_sync``) is the identity there.
+
 Not ported, each raising NotImplementedError that names its ROADMAP Queue 1
-item: mesh axes other than dp of degree > 1, ``extra_grad_axes`` of degree
-> 1, ``mp_overlap`` and ``flash`` (item 6), ``fp8`` (item 7), telemetry and
-``numerics`` (item 9), ``moe`` (item 11). ``grad_reduce_dtype="auto"`` reads
-no fleet strategy here (the port has none) and means None.
+item: mesh axes other than dp of degree > 1 (ep included), ``extra_grad_axes``
+of degree > 1, ``mp_overlap``, ``flash`` and a MoE plan's error-feedback
+residuals (item 6), ``fp8`` (item 7), telemetry and ``numerics`` (item 9).
+``grad_reduce_dtype="auto"`` reads no fleet strategy here (the port has
+none) and means None.
 """
 
 from __future__ import annotations
@@ -257,8 +262,6 @@ def build_train_step(loss_fn: Callable, specs: Dict[str, Any], mesh,
         raise _not_ported("numerics telemetry (numerics=)", 9)
     if mp_overlap is not None:
         raise _not_ported("mp-axis overlap (mp_overlap=)", 6)
-    if moe is not None:
-        raise _not_ported("the MoE plan (moe=)", 11)
     if flash is not None:
         raise _not_ported("the FlashAttentionConfig plan (flash=)", 6)
     for a in mesh.axis_names:
@@ -269,6 +272,16 @@ def build_train_step(loss_fn: Callable, specs: Dict[str, Any], mesh,
     for a in extra_grad_axes:
         if mesh.shape.get(a, 1) > 1:
             raise _not_ported(f"extra_grad_axes {a!r} of degree > 1", 6)
+    # -- expert parallelism (the MoE plan of a model builder) ---------------
+    if moe is not None:
+        ep_axis = moe.get("ep_axis", "ep")
+        enforce(ep_axis in mesh.axis_names,
+                f"the MoE plan names ep axis '{ep_axis}' which the mesh "
+                "does not define", op="build_train_step",
+                axes=tuple(mesh.axis_names))
+        if moe.get("ef") is not None:
+            raise _not_ported("the MoE plan's error-feedback residuals "
+                              "(moe_quantize_a2a)", 6)
     if grad_reduce_dtype == "auto":
         grad_reduce_dtype = None
     if data_spec is None:
@@ -509,6 +522,12 @@ def build_train_step(loss_fn: Callable, specs: Dict[str, Any], mesh,
         return unflatten([p for p, _ in pend],
                          [None if w is None else w.wait() for _, w in pend])
 
+    def _ep_sync(grads):
+        """The ep gradient combine of a MoE plan: the identity at ep degree
+        1, the only degree built (every expert leaf holds all of its
+        tokens' contributions, every other leaf is this rank's alone)."""
+        return grads
+
     def _apply(params, grads, opt_state, lr):
         # on a dp-only mesh the reduced gradients ARE the full tensors, so
         # the optimizer's own clip (inside apply) is already global
@@ -519,8 +538,10 @@ def build_train_step(loss_fn: Callable, specs: Dict[str, Any], mesh,
             params, opt_state = _clone(params), _clone(opt_state)
         lr = float(lr)
         tokens, labels = (_as_tensor(t, device) for t in (tokens, labels))
-        if data_spec and data_spec[0] == dp_axis:
-            tokens, labels = (shard_batch(t, mesh, dp_axis)
+        if data_spec and (data_spec[0] == dp_axis
+                          or isinstance(data_spec[0], tuple)):
+            # the batch dim over dp, or over (dp, ep) row-major (MoE)
+            tokens, labels = (shard_batch(t, mesh, data_spec[0])
                               for t in (tokens, labels))
         ef = zef = None
         inner = opt_state
@@ -548,6 +569,8 @@ def build_train_step(loss_fn: Callable, specs: Dict[str, Any], mesh,
             else:
                 loss, grads = _co.overlap.value_and_grad(loss_fn, params,
                                                          tokens, labels)
+            if moe is not None:
+                grads = _ep_sync(grads)
             with torch.no_grad():
                 if zero_stage:
                     _zero_apply(params, grads, inner, lr)

@@ -1,8 +1,9 @@
 """Weight initializers (counterpart: ``paddle_tpu/nn/initializer.py``
-``Constant``, ``Normal``, ``XavierNormal``): the same distributions, drawn
-on the host from the framework's generator (``paddle_tpu_torch.random``), so
-they do not reproduce ``jax.random``'s values; a test that compares the two
-packages loads the JAX weights (``models/convert.py`` ``load_params``)."""
+``Constant``, ``Normal``, ``XavierNormal``, ``XavierUniform``): the same
+distributions, drawn on the host from the framework's generator
+(``paddle_tpu_torch.random``), so they do not reproduce ``jax.random``'s
+values; a test that compares the two packages loads the JAX weights
+(``models/convert.py`` ``load_params``)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 
 from .. import random as _random
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierNormal"]
+__all__ = ["Initializer", "Constant", "Normal", "XavierNormal",
+           "XavierUniform"]
 
 
 def _fans(shape):
@@ -61,3 +63,17 @@ class XavierNormal(Initializer):
                                            + (self.fan_out or fo)))
         z = torch.randn(tuple(shape), generator=_random.get_generator())
         return (std * z).to(dtype)
+
+
+class XavierUniform(Initializer):
+    """U(-limit, limit), limit = gain * sqrt(6 / (fan_in + fan_out))."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, dtype=torch.float32):
+        fi, fo = _fans(tuple(shape))
+        limit = self.gain * math.sqrt(6.0 / ((self.fan_in or fi)
+                                             + (self.fan_out or fo)))
+        u = torch.rand(tuple(shape), generator=_random.get_generator())
+        return ((2.0 * u - 1.0) * limit).to(dtype)

@@ -334,7 +334,10 @@ def test_zero_stage_refusals():
     (dict(fp8=True), 7), (dict(mp_overlap="seq_parallel"), 6),
     (dict(virtual_pp=2), 6), (dict(schedule="ZBH1"), 6),
     (dict(flash_attention=True), 6), (dict(numerics=True), 9),
-    (dict(telemetry=object()), 9), (dict(moe_dispatch=object()), 11),
+    (dict(telemetry=object()), 9),
+    # GPT-MoE is ported at ZeRO stages 0-2; its stage 3 is item 11's
+    (dict(moe_cfg=True, zero_stage=3,
+          mesh={"dp": 1, "ep": 1, "pp": 1, "mp": 1}), 11),
     (dict(mesh={"dp": 1, "pp": 2, "mp": 1}), 6),
     (dict(mesh={"dp": 1, "pp": 1, "mp": 2}), 6)],
     ids=["fp8", "mp_overlap", "vpp", "zbh1", "flash", "numerics",
@@ -342,14 +345,18 @@ def test_zero_stage_refusals():
 def test_later_items_raise_naming_the_item(kw, item):
     kw = dict(kw)
     mesh = _mesh1(kw.pop("mesh", None))
+    cfg = W.gpt_moe_cfg() if kw.pop("moe_cfg", False) else W.gpt_cfg()
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TG.build_hybrid_train_step(W.gpt_cfg(), mesh, _opt(), **kw)
+        TG.build_hybrid_train_step(cfg, mesh, _opt(), **kw)
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(fp8={}), 7), (dict(telemetry=object()), 9),
     (dict(numerics=object()), 9), (dict(mp_overlap="ring"), 6),
-    (dict(moe={}), 11), (dict(flash=object()), 6),
+    # the MoE plan runs at ep degree 1; its int8-EF residuals are item 6's
+    (dict(moe={"ep_axis": "ep", "ef": {"init": dict}},
+          mesh={"dp": 1, "ep": 1}), 6),
+    (dict(flash=object()), 6),
     (dict(extra_grad_axes=("sep",), mesh={"dp": 1, "sep": 2}), 6)],
     ids=["fp8", "telemetry", "numerics", "mp_overlap", "moe", "flash",
          "extra_grad_axes"])

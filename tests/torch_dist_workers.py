@@ -304,6 +304,53 @@ def gpt_job(rank, world, params_np, tokens, labels, cases):
     return results
 
 
+def gpt_moe_cfg(capacity_factor=8.0):
+    """tests/test_moe_hybrid.py's CFG: fp32, vocab 64, H 32, 4 layers, 4
+    heads, seq 16, E 4."""
+    from paddle_tpu_torch.models import gpt as G
+    return G.GPTConfig(vocab_size=64, hidden_size=32, num_layers=4,
+                       num_heads=4, max_seq_len=16, dtype=torch.float32,
+                       moe_num_experts=4,
+                       moe_capacity_factor=capacity_factor,
+                       moe_aux_weight=1e-2)
+
+
+def gpt_moe_job(rank, world, params_np, tokens, labels, cases):
+    """GPT-MoE through ``build_hybrid_train_step`` on {"dp": world, "ep": 1,
+    "pp": 1, "mp": 1}, AdamW at lr 1e-2. Each case: ``{"steps", "cf",
+    "index", "eps" (Adam's epsilon), and build_hybrid_train_step's
+    keywords}`` -> (losses, final parameters, the last step's MOE_RECORD,
+    the local shape of w1's first moment)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.comm_overlap import MoeDispatchConfig
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.optimizer.optimizer import AdamW
+    mesh = D.build_mesh({"dp": world, "ep": 1, "pp": 1, "mp": 1})
+    results = {}
+    for name, case in cases.items():
+        case = dict(case)
+        steps = case.pop("steps", 4)
+        cfg = gpt_moe_cfg(case.pop("cf", 8.0))
+        dispatch = (MoeDispatchConfig(index=True) if case.pop("index", False)
+                    else None)
+        opt = AdamW(learning_rate=1e-2, epsilon=case.pop("eps", 1e-8))
+        step, shard_params, init_state = G.build_hybrid_train_step(
+            cfg, mesh, opt, moe_dispatch=dispatch, donate=True, **case)
+        p = shard_params(params_np)
+        s = init_state(p)
+        losses = []
+        for _ in range(steps):
+            p, s, loss = step(p, s, tokens, labels, 1e-2)
+            losses.append(float(loss))
+        slot = s["slots"]["blocks"]["moe"]["w1"]["moment1"]
+        results[name] = dict(
+            losses=losses, params=_numpy_tree(p),
+            drop_frac=float(G.MOE_RECORD["drop_frac"]),
+            tokens=G.MOE_RECORD["tokens"].cpu().numpy().copy(),
+            w1_moment1_local=tuple(slot.shape))
+    return results
+
+
 def mlp_job(rank, world, job_np, cases):
     """The MLP of tests/test_comm_overlap.py through build_train_step."""
     from paddle_tpu_torch import distributed as D
